@@ -6,12 +6,13 @@
 Phases, one line each:
  1. device: requires CUDA; prints the card's name and power limit
     (nvidia-smi); turns TF32 off for matmul and cuDNN.
- 2. build: compiles the hand-written kernels from unilm_tpu_torch/csrc/.
- 3. flash: the flash-forward kernel against its plain twin, bf16, over
+ 2. build: compiles the hand-written kernels from unilm_tpu_torch/csrc/,
+    one nvcc per source, all started together.
+ 3. flash: the flash-forward kernel against its plain version, bf16, over
     causal/offset/kv_len/key-padding/bias/window cases, D in {64, 96, 128},
     ragged T and S, and the Kosmos-2.5 prefill shape 1x2052x16x96.
- 4. decode: the decode-attention kernel against its plain twin, bf16,
-    B=3 with lengths {0, 511, 1800}; written pool rows bit-equal.
+ 4. decode: the bf16 run-decode kernel against its plain version, B=3
+    with lengths {0, 511, 1800}; written pool rows bit-equal.
  5. slice: the Kosmos-2.5 text decoder at full width (24 layers, E=1536,
     16 heads, FFN 6144, vocab 108481, bf16, random weights from a seed)
     serves three requests through runtime.generate (2052-token multimodal
@@ -19,8 +20,27 @@ Phases, one line each:
     show every prefill layer and every decode step's layers went through
     the kernels; a teacher-forced run of the plain path must agree.
     Prints TTFT and ms/token for the kernel path and the plain path.
-Then a JSON line with each kernel's launches, error and times, the
-nvidia-smi line, and as the last line {"ok": true, "device": {...}}.
+ 6. int8_matmul: the int8 weight-only matmul kernel against its plain
+    version, bf16 x, M in {1, 8, 64, 200} x the decoder's K x N.
+ 7. decode_int8: the int8-KV run-decode kernel against its plain version,
+    B=8, lengths up to 2111; pools and scale sidecar bit-equal.
+ 8. paged_append: the block-table append-decode kernel against its plain
+    version, B=8 on scattered tables with two inactive slots; non-trash
+    pool pages bit-equal.
+ 9. engine_int8: runtime.serving.ServingEngine at the configuration of
+    bench.py's serving line (8 slots, ctx 2048, int8 weights, int8 KV) on
+    the same full-width decoder serves 10 requests of 2048 prompt tokens
+    and 64 greedy tokens; every decode step must launch the int8 run
+    kernel 24 times and every projection the int8 matmul. Then a
+    teacher-forced B=8 decode against the plain path, decode and prefill
+    times for both paths, and a plain-path engine on the same trace.
+10. engine_bf16_prefix: the engine with bf16 weights and KV serves 4
+    requests sharing a 1024-token prefix; the prefix cache must hit, the
+    block-table kernel must run, and the streams must equal those of the
+    same engine with prefix caching off.
+Then a JSON line with each kernel's launches (from its main-path phase,
+counters set to 0 just before it), error and times, the nvidia-smi line,
+and as the last line {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result.
@@ -52,6 +72,25 @@ LSE_ATOL = 1e-3  # fp32 log-sum-exp of the same fp32 scores
 # init, so 0.25 is ~64 bf16 ulps at unit scale.
 LOGIT_ATOL = 0.25
 ARGMAX_AGREE = 0.90
+
+# Serving phases: the engine pool holds all 10 requests' runs side by side
+# (8 + 10 * 40 + 8 pages per layer), so every slot gets a contiguous run.
+ENGINE_PAGES = 8 + 10 * 40 + 8
+ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW = 10, 2048, 64
+PREFIX, PREFIX_PROMPT, PREFIX_NEW = 1024, 1100, 32
+NO_EOS = -1  # random weights: budgets, not an eos draw, end each request
+PROJECTIONS_PER_LAYER = 6  # q, k, v, out, fc1, fc2
+
+KERNELS = {}  # JSON name -> CudaKernel (its launch counter)
+
+
+def reset_counts() -> None:
+    for kern in KERNELS.values():
+        kern.launches = 0
+
+
+def counts() -> dict:
+    return {name: kern.launches for name, kern in KERNELS.items()}
 
 
 def phase(name: str, msg: str) -> None:
@@ -103,12 +142,16 @@ def phase_device() -> str:
     return smi
 
 
-def phase_build(fa, pa) -> None:
+def phase_build() -> None:
+    from unilm_tpu_torch.ops import _native
+
     t0 = time.time()
-    for kern in (fa.KERNEL, pa.KERNEL):
+    paths = _native.build_all(KERNELS.values())
+    for kern in KERNELS.values():
         kern.build()
-    phase("build", f"{fa.KERNEL.source.name} + {pa.KERNEL.source.name} "
-          f"built/loaded in {time.time() - t0:.1f} s")
+    names = sorted({p.name for p in paths})
+    phase("build", f"{len(names)} libraries built/loaded in "
+          f"{time.time() - t0:.1f} s: {', '.join(names)}")
 
 
 def phase_flash(fa, g) -> dict:
@@ -265,8 +308,7 @@ def phase_slice(fa, pa) -> dict:
                 for B in (1, 2, 1)]
 
     # ---- the main path: three requests through generate ---------------
-    fa.KERNEL.launches = 0
-    pa.KERNEL.launches = 0
+    reset_counts()
     results = []
     for ri, (prompt, aux) in enumerate(requests):
         logits, calls = [], {"prefill": 0, "step": 0}
@@ -372,15 +414,403 @@ def phase_slice(fa, pa) -> dict:
     return launches
 
 
+def ulp_tol(ref: torch.Tensor, n: float) -> torch.Tensor:
+    """n bf16 ulps of each element of ref (8 significant bits)."""
+    _, e = torch.frexp(ref.float())
+    return n * torch.ldexp(torch.ones_like(ref, dtype=torch.float32), e - 8)
+
+
+def phase_int8_matmul(qm, g) -> dict:
+    """Kernel against plain, bf16 x, at the decoder's K x N and the M of
+    decode (1, 8), a prefill chunk (64) and more (200). Tolerance: 2 bf16
+    ulps of the plain result (both round one fp32 value to bf16) plus the
+    fp32 sum-order term K * 2^-24 * (|x| @ |W|) * scale."""
+    dev, bf = "cuda", torch.bfloat16
+    worst, worst_ratio = 0.0, 0.0
+    times = {}
+    for K, N in ((1536, 1536), (1536, 6144), (6144, 1536)):
+        w = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                          dtype=torch.int8)
+        scale = ((torch.rand(N, generator=g, device=dev) + 0.5)
+                 * (2.0 / (127 * K ** 0.5)))
+        for M in (1, 8, 64, 200):
+            x = torch.randn(M, K, generator=g, device=dev).to(bf)
+            out = qm.int8_matmul(x, w, scale)
+            ref = qm.int8_matmul_plain(x, w, scale)
+            torch.cuda.synchronize()
+            order = (K * 2.0 ** -24 * (x.float().abs() @ w.float().abs().t())
+                     * scale)
+            tol = ulp_tol(ref, 2) + order
+            err = (out.float() - ref.float()).abs()
+            ratio = float((err / tol).max())
+            check(bool(torch.isfinite(out.float()).all()) and ratio <= 1.0,
+                  f"int8_matmul M{M} K{K} N{N}: max|err| {float(err.max())}, "
+                  f"{ratio:.3f} of the tolerance")
+            worst, worst_ratio = max(worst, float(err.max())), max(
+                worst_ratio, ratio)
+            if (K, N) == (1536, 6144) and M in (8, 64):
+                times[M] = (
+                    cuda_ms(lambda: qm.int8_matmul(x, w, scale), iters=50),
+                    cuda_ms(lambda: qm.int8_matmul_plain(x, w, scale),
+                            iters=50))
+        phase("int8_matmul", f"K{K} N{N}, M in 1/8/64/200: ok")
+    for M, (ms, plain_ms) in times.items():
+        phase("int8_matmul", f"M{M} K1536 N6144 bf16: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms")
+    phase("int8_matmul", f"max|err| {worst:.3g}, at most {worst_ratio:.3f} "
+          f"of the tolerance (2 bf16 ulps + fp32 order term)")
+    return {"name": "int8_matmul", "route": "cuda",
+            "source": "unilm_tpu_torch/csrc/int8_matmul.cu",
+            "replaces": "unilm_tpu/ops/quant.py:59", "max_abs_err": worst,
+            "ms": times[8][0], "plain_ms": times[8][1],
+            "shape": "M8 K1536 N6144 bf16", "ms_m64": times[64][0],
+            "plain_ms_m64": times[64][1]}
+
+
+def phase_decode_int8(pa, g) -> dict:
+    dev, bf = "cuda", torch.bfloat16
+    H, D, page, chunk, PP, B = 16, 96, 64, 8, 40, 8
+    P = B * PP + chunk
+
+    def pools():
+        kp = torch.randint(-127, 128, (P, page, H * D), generator=g,
+                           device=dev, dtype=torch.int8)
+        vp = torch.randint(-127, 128, (P, page, H * D), generator=g,
+                           device=dev, dtype=torch.int8)
+        sp = (torch.rand(P // chunk, 8, chunk * page, generator=g,
+                         device=dev) * 0.02 + 1e-3)
+        return kp, vp, sp
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    lens = [0, 63, 64, 511, 1800, 2111, 1024, 2047]
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    bases = torch.arange(B, dtype=torch.int32, device=dev) * PP
+    kp, vp, sp = pools()
+    kp2, vp2, sp2 = kp.clone(), vp.clone(), sp.clone()
+    q, kn, vn = rn(B, 1, H, D), rn(B, 1, H, D), rn(B, 1, H, D)
+    out = pa.run_decode_append_attention(q, kn, vn, kp, vp, bases, lengths,
+                                         PP, None, chunk, scale_pool=sp)[0]
+    ref = pa.run_decode_append_attention_plain(
+        q, kn, vn, kp2, vp2, bases, lengths, PP, None, chunk,
+        scale_pool=sp2)[0]
+    torch.cuda.synchronize()
+    ok, err = close(out, ref, OUT_ATOL, OUT_RTOL)
+    check(ok and bool(torch.isfinite(out.float()).all()),
+          f"decode_int8: out err {err}")
+    check(torch.equal(kp, kp2) and torch.equal(vp, vp2)
+          and torch.equal(sp, sp2),
+          "decode_int8: pools or sidecar differ from the plain version's")
+    phase("decode_int8", f"B{B} lengths {lens} H16 D96 page64 chunk8: out "
+          f"max|err| {err:.3g} (tol {OUT_ATOL} abs + {OUT_RTOL} rel), pools "
+          f"and sidecar bit-equal ok")
+
+    # B=8, every run at 2047 tokens: the serving step's shape
+    L8 = torch.full((B,), 2047, dtype=torch.int32, device=dev)
+    qs = (q[:, 0] * D ** -0.5).contiguous()
+    kn0, vn0 = kn[:, 0].contiguous(), vn[:, 0].contiguous()
+    kernel_ms = cuda_ms(lambda: pa.decode_attention_int8(
+        qs, kp, vp, bases, L8, sp, kn0, vn0, PP, chunk), iters=100)
+    ms = cuda_ms(lambda: pa.run_decode_append_attention(
+        q, kn, vn, kp, vp, bases, L8, PP, None, chunk, scale_pool=sp),
+        iters=50)
+    plain_ms = cuda_ms(lambda: pa.run_decode_append_attention_plain(
+        q, kn, vn, kp, vp, bases, L8, PP, None, chunk, scale_pool=sp),
+        iters=20)
+    phase("decode_int8", f"B8 L2047 H16 D96: kernel alone {kernel_ms:.4f} "
+          f"ms; with the row append: kernel wrapper {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms")
+    return {"name": "decode_attention_int8", "route": "cuda",
+            "source": "unilm_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "unilm_tpu/ops/paged_attention.py:497",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "kernel_only_ms": kernel_ms, "shape": "B8 L2047 H16 D96 int8"}
+
+
+def phase_paged_append(pa, g) -> dict:
+    dev, bf = "cuda", torch.bfloat16
+    H, D, page, MP, B = 16, 96, 64, 40, 8
+    P = 1 + B * MP  # page 0 is the trash page
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    def scattered_tables(n_active):
+        perm = torch.randperm(P - 1, generator=g, device=dev)[:B * MP] + 1
+        tables = perm.reshape(B, MP).to(torch.int32)
+        tables[n_active:] = 0  # inactive slots point at the trash page
+        return tables.contiguous()
+
+    lens = [0, 63, 64, 511, 1800, 2111, 0, 0]  # slots 6, 7 inactive
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    tables = scattered_tables(6)
+    kp, vp = rn(P, page, H * D), rn(P, page, H * D)
+    kp2, vp2 = kp.clone(), vp.clone()
+    q, kn, vn = rn(B, 1, H, D), rn(B, 1, H, D), rn(B, 1, H, D)
+    out = pa.paged_decode_append_attention(q, kn, vn, kp, vp, tables,
+                                           lengths)[0]
+    ref = pa.paged_decode_append_attention_plain(q, kn, vn, kp2, vp2, tables,
+                                                 lengths)[0]
+    torch.cuda.synchronize()
+    ok, err = close(out[:6], ref[:6], OUT_ATOL, OUT_RTOL)
+    check(ok and bool(torch.isfinite(out[:6].float()).all()),
+          f"paged_append: active outputs err {err}")
+    check(torch.equal(kp[1:], kp2[1:]) and torch.equal(vp[1:], vp2[1:]),
+          "paged_append: non-trash pool pages differ from the plain "
+          "version's")
+    phase("paged_append", f"B{B} scattered tables, lengths {lens} (slots 6-7 "
+          f"inactive) H16 D96 page64: active out max|err| {err:.3g}, "
+          f"non-trash pages bit-equal ok")
+
+    tables8 = scattered_tables(B)
+    L8 = torch.full((B,), 2047, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: pa.paged_decode_append_attention(
+        q, kn, vn, kp, vp, tables8, L8), iters=50)
+    plain_ms = cuda_ms(lambda: pa.paged_decode_append_attention_plain(
+        q, kn, vn, kp, vp, tables8, L8), iters=20)
+    phase("paged_append", f"B8 L2047 H16 D96 scattered: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms (both write the row)")
+    return {"name": "paged_append_attention", "route": "cuda",
+            "source": "unilm_tpu_torch/csrc/paged_append_attention.cu",
+            "replaces": "unilm_tpu/ops/paged_attention.py:213",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "shape": "B8 L2047 H16 D96 bf16 scattered"}
+
+
+def engine_model():
+    """The full-width Kosmos-2.5 text decoder (bf16, random weights from
+    the seed) as (config, state_dict) for the serving engine."""
+    from unilm_tpu_torch.models.kosmos import UniGPT, kosmos2_5
+
+    cfg = kosmos2_5(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                    image_tower=None, scan_layers=True)
+    model = UniGPT(cfg, device="cuda").eval()
+    model.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    return cfg, model.state_dict()
+
+
+def run_engine(eng, batches):
+    """Submit each batch and run the engine to the end; returns (outputs,
+    decode steps, wall seconds)."""
+    steps = [0]
+    orig = eng.step
+
+    def step():
+        steps[0] += 1
+        orig()
+
+    eng.step = step
+    torch.cuda.synchronize()
+    t0 = time.time()
+    for batch in batches:
+        for rid, prompt in batch:
+            eng.submit(rid, prompt)
+        eng.run()
+    torch.cuda.synchronize()
+    return dict(eng.outputs), steps[0], time.time() - t0
+
+
+def phase_engine_int8(cfg, sd) -> dict:
+    from unilm_tpu_torch.runtime.serving import (
+        PagedGPT, ServingConfig, ServingEngine, batched_sample)
+
+    dev = "cuda"
+    L = cfg.num_layers
+    scfg = ServingConfig(max_batch=8, page_size=64, chunk_pages=8,
+                         max_pages_per_seq=40, num_pages=ENGINE_PAGES,
+                         prefill_bucket=64, max_new_tokens=ENGINE_NEW,
+                         eos=NO_EOS, kv_dtype="int8", weight_dtype="int8")
+    rng = np.random.RandomState(SEED + 1)
+    prompts = [[int(t) for t in rng.randint(4, cfg.vocab_size,
+                                            size=ENGINE_PROMPT)]
+               for _ in range(ENGINE_REQUESTS)]
+    trace = [[(f"r{i}", p) for i, p in enumerate(prompts)]]
+
+    # ---- the main path: 10 requests, the last two wait for a free slot --
+    eng = ServingEngine(cfg, scfg, sd, device=dev)
+    reset_counts()
+    outs, steps, wall = run_engine(eng, trace)
+    got = counts()
+    chunks = eng.stats["prefill_chunks"]
+    check(all(len(outs[f"r{i}"]) == ENGINE_NEW
+              for i in range(ENGINE_REQUESTS)),
+          f"engine_int8: token counts {[len(v) for v in outs.values()]}")
+    check(got["decode_attention_int8"] == L * steps,
+          f"engine_int8: int8 decode launches {got['decode_attention_int8']}"
+          f" != {L} x {steps} steps")
+    check(got["int8_matmul"] == L * PROJECTIONS_PER_LAYER * (chunks + steps),
+          f"engine_int8: int8 matmul launches {got['int8_matmul']} != "
+          f"{L * PROJECTIONS_PER_LAYER} x ({chunks} chunks + {steps} steps)")
+    check(got["paged_append_attention"] == 0 and got["decode_attention"] == 0,
+          f"engine_int8: bf16 decode kernels launched: {got}")
+    phase("engine_int8", f"{ENGINE_REQUESTS} requests x {ENGINE_PROMPT} "
+          f"prompt + {ENGINE_NEW} greedy tokens: {chunks} prefill chunks, "
+          f"{steps} decode steps in {wall:.2f} s (host clock); launches "
+          f"int8 decode {got['decode_attention_int8']}, int8 matmul "
+          f"{got['int8_matmul']}; stats {eng.stats}")
+    launches = {k: got[k] for k in ("decode_attention_int8", "int8_matmul")}
+
+    # ---- B=8 teacher-forced: kernel path against plain path ------------
+    model_k = eng.model
+    model_p = PagedGPT(eng.cfg, use_kernel=False, chunk_pages=8, device=dev)
+    model_p.load_state_dict(model_k.state_dict(), assign=True)
+    model_p.eval()
+    B, MP = 8, scfg.max_pages_per_seq
+    base = 8 + 40 * np.arange(B)
+    tables = torch.tensor(base[:, None] + np.arange(MP)[None], device=dev,
+                          dtype=torch.int32)
+    bases = torch.tensor(base, device=dev, dtype=torch.int32)
+    lengths = torch.tensor(2040 + 2 * np.arange(B), device=dev,
+                           dtype=torch.int32)
+    ones = torch.ones(B, dtype=torch.int32, device=dev)
+    pools_k = eng.pools
+    pools_p = tuple(t.clone() for t in pools_k)
+    tok = torch.tensor(rng.randint(4, cfg.vocab_size, size=(B, 1)),
+                       device=dev)
+    errs, agree = [], []
+    for j in range(4):
+        c0 = counts()
+        lk = model_k(tok, pools_k[0], pools_k[1], tables, lengths + j, ones,
+                     bases=bases, scale_pool=pools_k[2])[0]
+        c1 = counts()
+        lp = model_p(tok, pools_p[0], pools_p[1], tables, lengths + j, ones,
+                     scale_pool=pools_p[2])[0]
+        torch.cuda.synchronize()
+        check(counts() == c1 and c1["decode_attention_int8"]
+              - c0["decode_attention_int8"] == L,
+              "engine_int8: teacher-forced launch counts")
+        errs.append(float((lk.float() - lp.float()).abs().max()))
+        agree.extend((lk.argmax(-1) == lp.argmax(-1)).flatten().tolist())
+        tok = lk.argmax(-1)
+    agree = float(np.mean(agree))
+    check(max(errs) <= LOGIT_ATOL and agree >= ARGMAX_AGREE,
+          f"engine_int8: teacher-forced logits max|err| {max(errs)}, argmax "
+          f"agreement {agree}")
+    phase("engine_int8", f"teacher-forced B8 at ctx ~2040, kernel vs plain "
+          f"path: logits max|err| {max(errs):.4f} (tol {LOGIT_ATOL}), argmax "
+          f"agreement {agree:.3f} over {len(errs) * B} positions")
+
+    # ---- decode step and prefill chunk times, both paths in turn --------
+    zf = torch.zeros(B, device=dev)
+    zi = torch.zeros(B, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def step(m, pools, use_bases):
+        lg = m(tok, pools[0], pools[1], tables, lengths, ones,
+               bases=bases if use_bases else None, scale_pool=pools[2])[0]
+        return batched_sample(lg[:, -1], zf, zi, zf, gen)
+
+    ptok = torch.tensor(rng.randint(4, cfg.vocab_size, size=(1, 64)),
+                        device=dev)
+    plen = torch.tensor([1024], dtype=torch.int32, device=dev)
+    pnv = torch.tensor([64], dtype=torch.int32, device=dev)
+
+    def prefill(m, pools):
+        return m(ptok, pools[0], pools[1], tables[:1], plen, pnv,
+                 scale_pool=pools[2])[0]
+
+    for rnd in range(2):
+        for name, m, pools in (("kernel", model_k, pools_k),
+                               ("plain", model_p, pools_p)):
+            ms = cuda_ms(lambda: step(m, pools, name == "kernel"), iters=5)
+            pre = cuda_ms(lambda: prefill(m, pools), iters=5)
+            phase("engine_int8", f"round {rnd} {name} path: B=8 decode step "
+                  f"{ms:.3f} ms ({B * 1e3 / ms:.1f} tok/s), prefill chunk "
+                  f"(64 tokens at ctx 1024) {pre:.3f} ms")
+    del model_p, pools_p, eng, model_k, pools_k
+    torch.cuda.empty_cache()
+
+    # ---- a plain-path engine on the same trace -------------------------
+    eng_p = ServingEngine(cfg, scfg, sd, device=dev, use_kernel=False)
+    c0 = counts()
+    outs_p, steps_p, wall_p = run_engine(eng_p, trace)
+    check(counts() == c0, "engine_int8: the plain-path engine launched a "
+          "kernel")
+    same = [np.mean(np.asarray(outs[k]) == np.asarray(outs_p[k]))
+            for k in outs]
+    first = [next((i for i, (a, b) in enumerate(zip(outs[k], outs_p[k]))
+                   if a != b), ENGINE_NEW) for k in outs]
+    phase("engine_int8", f"plain-path engine, same trace: {steps_p} steps in "
+          f"{wall_p:.2f} s; stream agreement {np.mean(same):.3f} of tokens, "
+          f"{sum(f == ENGINE_NEW for f in first)}/{len(first)} streams "
+          f"identical, first divergence per stream {first}")
+    del eng_p
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_engine_bf16_prefix(cfg, sd) -> dict:
+    import dataclasses as dc
+
+    from unilm_tpu_torch.runtime.serving import ServingConfig, ServingEngine
+
+    L = cfg.num_layers
+    scfg = ServingConfig(max_batch=8, page_size=64, chunk_pages=8,
+                         max_pages_per_seq=40, num_pages=ENGINE_PAGES,
+                         prefill_bucket=64, max_new_tokens=PREFIX_NEW,
+                         eos=NO_EOS)
+    rng = np.random.RandomState(SEED + 2)
+    prefix = [int(t) for t in rng.randint(4, cfg.vocab_size, size=PREFIX)]
+    prompts = [prefix + [int(t) for t in rng.randint(
+        4, cfg.vocab_size, size=PREFIX_PROMPT - PREFIX)] for _ in range(4)]
+    # r0 first, so its pages are registered when r1-r3 arrive
+    trace = [[("r0", prompts[0])],
+             [(f"r{i}", prompts[i]) for i in range(1, 4)]]
+
+    results = {}
+    for caching in (True, False):
+        eng = ServingEngine(cfg, dc.replace(scfg, prefix_caching=caching), sd,
+                            device="cuda")
+        reset_counts()
+        outs, steps, wall = run_engine(eng, trace)
+        got = counts()
+        results[caching] = (outs, got, dict(eng.stats))
+        check(all(len(v) == PREFIX_NEW for v in outs.values()),
+              f"engine_bf16_prefix: token counts "
+              f"{[len(v) for v in outs.values()]}")
+        check(got["decode_attention"] + got["paged_append_attention"]
+              == L * steps, f"engine_bf16_prefix: decode launches {got} != "
+              f"{L} x {steps} steps")
+        phase("engine_bf16_prefix", f"prefix_caching={caching}: 4 x "
+              f"{PREFIX_PROMPT} tokens ({PREFIX} shared) + {PREFIX_NEW} "
+              f"greedy: {steps} decode steps in {wall:.2f} s; launches run "
+              f"{got['decode_attention']}, block-table "
+              f"{got['paged_append_attention']}; stats {eng.stats}")
+        del eng
+        torch.cuda.empty_cache()
+    (outs, got, stats), (outs_off, got_off, _) = results[True], results[False]
+    check(stats["prefix_hit_pages"] == 3 * (PREFIX // 64),
+          f"engine_bf16_prefix: prefix hits {stats['prefix_hit_pages']}")
+    check(got["paged_append_attention"] > 0,
+          "engine_bf16_prefix: the block-table kernel never ran")
+    check(got_off["paged_append_attention"] == 0,
+          "engine_bf16_prefix: caching off should keep every run contiguous")
+    check(outs == outs_off, "engine_bf16_prefix: streams differ from the "
+          "prefix-caching-off run")
+    phase("engine_bf16_prefix", "streams equal the prefix-caching-off run")
+    return {"paged_append_attention": got["paged_append_attention"]}
+
+
 def main() -> int:
     smi = phase_device()
     from unilm_tpu_torch.ops import flash_attention as fa
     from unilm_tpu_torch.ops import paged_attention as pa
+    from unilm_tpu_torch.ops import quant as qm
 
-    phase_build(fa, pa)
+    KERNELS.update({"flash_fwd": fa.KERNEL, "decode_attention": pa.KERNEL,
+                    "decode_attention_int8": pa.KERNEL_INT8,
+                    "int8_matmul": qm.KERNEL,
+                    "paged_append_attention": pa.APPEND_KERNEL})
+    phase_build()
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [phase_flash(fa, g), phase_decode(pa, g)]
+    kernels = [phase_flash(fa, g), phase_decode(pa, g),
+               phase_decode_int8(pa, g), phase_int8_matmul(qm, g),
+               phase_paged_append(pa, g)]
     launches = phase_slice(fa, pa)
+    cfg, sd = engine_model()
+    launches.update(phase_engine_int8(cfg, sd))
+    launches.update(phase_engine_bf16_prefix(cfg, sd))
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         check(kern["launches"] > 0, f"{kern['name']} never launched")

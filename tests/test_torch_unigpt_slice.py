@@ -88,10 +88,25 @@ def test_bridge_maps_every_leaf():
         sd["decoder.layers.1.self_attn.q_proj.weight"].numpy(),
         np.asarray(params["decoder"]["layers"]["self_attn"]["q_proj"]
                    ["kernel"][1]).T)
+    # QuantDense leaves, stacked: kernel_i8 [L, K, N] -> weight_i8 [N, K]
+    # per layer, scale [L, N] -> scale [N]; a norm's `scale` stays `weight`
+    wi = np.arange(2 * 4 * 6, dtype=np.int8).reshape(2, 4, 6)
+    sc = np.arange(12, dtype=np.float32).reshape(2, 6)
+    qsd = flax_to_state_dict({"decoder": {"layers": {
+        "self_attn": {"q_proj": {"kernel_i8": wi, "scale": sc}},
+        "final_layer_norm": {"scale": sc}}}})
+    assert set(qsd) == {f"decoder.layers.{i}.{n}" for i in range(2)
+                        for n in ("self_attn.q_proj.weight_i8",
+                                  "self_attn.q_proj.scale",
+                                  "final_layer_norm.weight")}
+    np.testing.assert_array_equal(
+        qsd["decoder.layers.1.self_attn.q_proj.weight_i8"].numpy(), wi[1].T)
+    np.testing.assert_array_equal(
+        qsd["decoder.layers.1.self_attn.q_proj.scale"].numpy(), sc[1])
     # a leaf the bridge does not know fails loudly
     bad = {"decoder": {"layers": {"self_attn": {"q_proj": {
-        "kernel_i8": np.zeros((2, 4, 4), np.int8)}}}}}
-    with pytest.raises(KeyError, match="kernel_i8"):
+        "kernel_fp8": np.zeros((2, 4, 4), np.int8)}}}}}
+    with pytest.raises(KeyError, match="kernel_fp8"):
         flax_to_state_dict(bad)
 
 

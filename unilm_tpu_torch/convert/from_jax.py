@@ -7,6 +7,8 @@ as nested dicts of numpy arrays (e.g. `jax.device_get(params)`), looped
 axis, the scan_layers form). Leaves map as
 
 - Dense `kernel` [in, out] -> `weight` [out, in];
+- QuantDense `kernel_i8` [in, out] int8 -> `weight_i8` [out, in], and its
+  `scale` [out] f32 -> `scale` (ops/quant.py);
 - LayerNorm / RMSNorm `scale` -> `weight`;
 - Embed `embedding` -> `weight`;
 - `bias` -> `bias`;
@@ -35,12 +37,16 @@ def to_tensor(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _leaf(name: str, value: np.ndarray) -> tuple:
-    if name not in _LEAF:
+_QUANT_LEAF = {"kernel_i8": "weight_i8", "scale": "scale", "bias": "bias"}
+
+
+def _leaf(name: str, value: np.ndarray, quant: bool) -> tuple:
+    table = _QUANT_LEAF if quant else _LEAF
+    if name not in table:
         raise KeyError(f"unmapped flax leaf {name!r}")
-    if name == "kernel":
+    if name in ("kernel", "kernel_i8"):
         value = np.swapaxes(value, -1, -2)  # [(L,) in, out] -> [(L,) out, in]
-    return _LEAF[name], value
+    return table[name], value
 
 
 def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
@@ -57,7 +63,7 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                 else:
                     walk(val, f"{prefix}{key}.", stacked)
                 continue
-            name, arr = _leaf(key, np.asarray(val))
+            name, arr = _leaf(key, np.asarray(val), "kernel_i8" in tree)
             path = f"{prefix}{name}"
             if stacked:
                 for i in range(arr.shape[0]):

@@ -113,12 +113,18 @@ def make_norm(cfg: TransformerConfig, dim: Optional[int] = None,
 
 
 def make_dense(cfg: TransformerConfig, in_features: int, features: int, *,
-               init_scale: float = 1.0, device=None) -> Dense:
+               init_scale: float = 1.0, use_kernel: bool = True,
+               device=None) -> nn.Module:
+    """Dense projection factory: int8 weight-only `QuantDense` when
+    cfg.quant_weights (conversion-only weights; `use_kernel=False` keeps it
+    on the plain version), else `Dense`. Unlike the JAX factory, a scanned
+    stack keeps the kernel (see ops/quant.py)."""
     if cfg.quant_weights:
-        raise NotImplementedError(
-            "int8 weight-only projections (QuantDense, Pallas "
-            "_int8_matmul_kernel) are not ported yet: ROADMAP Queue 1 "
-            "slice 2 / Queue 2 #4")
+        from unilm_tpu_torch.ops.quant import QuantDense
+
+        return QuantDense(in_features, features, bias=cfg.use_bias,
+                          dtype=cfg.dtype, use_kernel=use_kernel,
+                          device=device)
     return Dense(in_features, features, bias=cfg.use_bias, dtype=cfg.dtype,
                  param_dtype=cfg.param_dtype, init_scale=init_scale,
                  device=device)
@@ -130,19 +136,20 @@ class FeedForward(nn.Module):
     applied."""
 
     def __init__(self, cfg: TransformerConfig, init_scale: float = 1.0,
-                 device=None):
+                 use_kernel: bool = True, device=None):
         super().__init__()
         E, Fd = cfg.embed_dim, cfg.ffn_dim
         self.gated = cfg.activation in GATED_ACTIVATIONS
         self.act = get_activation(
             GATED_ACTIVATIONS.get(cfg.activation, cfg.activation), cfg.dtype)
-        self.fc1 = make_dense(cfg, E, Fd, init_scale=init_scale, device=device)
+        dense = lambda i, o: make_dense(cfg, i, o, init_scale=init_scale,
+                                        use_kernel=use_kernel, device=device)
+        self.fc1 = dense(E, Fd)
         if self.gated:
-            self.fc3 = make_dense(cfg, E, Fd, init_scale=init_scale,
-                                  device=device)
+            self.fc3 = dense(E, Fd)
         if cfg.subln:
             self.ffn_layernorm = make_norm(cfg, Fd, device=device)
-        self.fc2 = make_dense(cfg, Fd, E, init_scale=init_scale, device=device)
+        self.fc2 = dense(Fd, E)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.gated:
