@@ -38,9 +38,32 @@ Phases, one line each:
     requests sharing a 1024-token prefix; the prefix cache must hit, the
     block-table kernel must run, and the streams must equal those of the
     same engine with prefix caching off.
+11. flash_bwd (run right after flash): the flash-backward kernels (dq +
+    dbias, dk/dv) against flash_backward_plain on the forward kernel's out
+    and lse, bf16 and fp32, over causal + key-padding with a fully masked
+    row, q_offset + kv_len, window, [B,H,T,S] and batch-summed [1,H,T,S]
+    bias (B=3), a head- and a batch-broadcast bias read without dbias, D
+    in {64, 96, 128}, ragged T and S; then at the train shape 2x2048x32x64
+    causal with a key-padding mask, both kernels checked against the plain
+    backward and timed beside it.
+12. train: the 1.3B UniGPT (24 layers, E=2048, 32 heads, FFN 8192, vocab
+    65037, T=2048, bf16 compute / fp32 params, random weights from the
+    seed) built by unilm_tpu_torch.cli.train_gpt.build_trainer with the
+    CLI's bench configuration (batch 8 = 4 microbatches x 2, fused CE,
+    AdamW, clip 2.0, warmup 1) on a synthetic corpus: 4 optimizer steps on
+    one repeated batch, whose first row starts with a pad. Every step must
+    launch each of the flash forward, dq and dk/dv kernels 24 x 4 times;
+    loss and grad norm finite, loss falling from step 2 on (step 1 has lr
+    0). Prints ms/step, tokens/s and model TFLOP/s (train_mfu.py's count),
+    a torch.profiler device-time breakdown of one microbatch and one
+    optimizer update, a kernel-vs-plain teacher check on one sequence, and
+    the CLI's main() end to end at 2 layers, E=256: 4 steps straight
+    against 2 + save + resume + 2, bit-equal.
 Then a JSON line with each kernel's launches (from its main-path phase,
-counters set to 0 just before it), error and times, the nvidia-smi line,
-and as the last line {"ok": true, "device": {...}}.
+counters set to 0 just before it: slice for flash_fwd and decode, the
+engines for the int8 and block-table kernels, train for flash_bwd_dq and
+flash_bwd_dkv), error and times, the nvidia-smi line, and as the last line
+{"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
 device it exits non-zero before printing any result.
@@ -53,6 +76,7 @@ import json
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -80,6 +104,23 @@ ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW = 10, 2048, 64
 PREFIX, PREFIX_PROMPT, PREFIX_NEW = 1024, 1100, 32
 NO_EOS = -1  # random weights: budgets, not an eos draw, end each request
 PROJECTIONS_PER_LAYER = 6  # q, k, v, out, fc1, fc2
+
+# Train phase: the 1.3B UniGPT (bench.py's train line) on a synthetic
+# corpus written under WORK (listed in .gitignore, removed at the end).
+WORK = Path(__file__).resolve().parent / "chip_smoke_work"
+TRAIN_VOCAB = 65037
+PAD = 1  # UniGPT padding_idx: every pad token is a masked key
+# Teacher check, kernel path against plain path on one 2048-token sequence
+# (bf16 activations, fp32 params). Readings on an H100 80GB HBM3 at 700 W
+# (2 layers / 24 layers of full width, same seed and row): loss rel
+# 3.88e-6 / 2.65e-6; global grad-norm rel 4.58e-6 / 1.89e-4 (bf16 rounding
+# compounds down 24 backward layers); min per-tensor gradient cosine
+# 0.99933 / 0.99991, both at a k_proj.bias, whose gradient is small (a key
+# bias shifts every score of a row alike but for xPos's rotation). Each
+# bound is about 10x the larger of the two deviations:
+TEACHER_LOSS_REL = 4e-5
+TEACHER_NORM_REL = 2e-3
+TEACHER_COS = 0.993
 
 KERNELS = {}  # JSON name -> CudaKernel (its launch counter)
 
@@ -214,6 +255,190 @@ def phase_flash(fa, g) -> dict:
             "source": "unilm_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "unilm_tpu/ops/flash_attention.py:99",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def grad_close(x: torch.Tensor, ref: torch.Tensor, bound: float):
+    """max|err| <= 2 bound max|ref| and relative L2 <= bound (bound = 1e-2
+    for bf16, 1e-4 for fp32); returns (ok, max|err|, rel L2)."""
+    x, ref = x.float(), ref.float()
+    err = (x - ref).abs()
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    rel = float((x - ref).norm() / ref.norm().clamp(min=1e-30))
+    e = float(err.max()) if err.numel() else 0.0
+    return e <= 2 * bound * scale and rel <= bound, e, rel
+
+
+def phase_flash_bwd(fa, g) -> dict:
+    """Kernels #6 and #7 against flash_backward_plain on the same inputs
+    (out and lse from the forward kernel), bf16 and fp32."""
+    dev = "cuda"
+    # (B, T, S, H, D, causal, q_offset, kv_len, window, kpm, bias)
+    cases = [
+        (2, 200, 200, 4, 64, True, 0, None, 0, True, None),
+        (2, 70, 263, 4, 96, True, 193, None, 0, False, None),
+        (2, 131, 300, 2, 96, True, 40, 217, 0, False, None),
+        (2, 97, 150, 2, 128, False, 0, None, 0, True, None),
+        (2, 300, 300, 2, 96, True, 0, None, 50, False, None),
+        (2, 120, 120, 4, 96, True, 0, None, 0, False, "BH"),
+        (3, 100, 77, 4, 64, False, 0, None, 0, False, "1H"),
+        (3, 130, 130, 2, 128, True, 0, None, 0, True, "1H"),
+        (3, 100, 77, 4, 64, False, 0, None, 0, False, "B1"),  # no dbias
+        (3, 90, 90, 2, 96, True, 0, None, 0, True, "1H-"),  # no dbias
+        (2, 45, 45, 2, 128, True, 0, None, 0, True, "BH"),
+    ]
+    worst = 0.0
+    for dtype, bound in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        def rn(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+        for B, T, S, H, D, causal, qoff, kvl, window, kpm, bias in cases:
+            q = rn(B, T, H, D) * D ** -0.5
+            k, v, do = rn(B, S, H, D), rn(B, S, H, D), rn(B, T, H, D)
+            mask = None
+            if kpm:
+                mask = torch.rand(B, S, generator=g, device=dev) > 0.3
+                mask[-1] = False  # one batch row fully masked
+            b = None
+            if bias == "BH":
+                b = rn(B, H, T, S)
+            elif bias in ("1H", "1H-"):
+                b = rn(1, H, T, S)
+            elif bias == "B1":
+                b = rn(B, 1, T, S)
+            out, lse = fa.flash_forward(q, k, v, b, mask, qoff, kvl,
+                                        causal=causal, window=window)
+            want_db = bias in ("BH", "1H")
+            got = fa.flash_backward(q, k, v, b, mask, qoff, kvl, out, lse, do,
+                                    causal=causal, window=window,
+                                    want_dbias=want_db)
+            ref = fa.flash_backward_plain(q, k, v, b, mask, qoff, kvl, out,
+                                          lse, do, causal=causal,
+                                          window=window)
+            torch.cuda.synchronize()
+            desc = (f"{str(dtype)[6:]} B{B} T{T} S{S} H{H} D{D} "
+                    f"causal={causal} q_offset={qoff} kv_len={kvl} "
+                    f"window={window} kpm={kpm} bias={bias}")
+            names = ("dq", "dk", "dv", "dbias") if want_db else ("dq", "dk",
+                                                                 "dv")
+            errs = []
+            for name, x, r in zip(names, got, ref):
+                check(tuple(x.shape) == tuple(r.shape)
+                      and bool(torch.isfinite(x.float()).all()),
+                      f"flash_bwd {desc}: {name} shape/finite")
+                ok, e, rel = grad_close(x, r, bound)
+                check(ok, f"flash_bwd {desc}: {name} max|err| {e} rel L2 "
+                      f"{rel} (bound {bound})")
+                errs.append(f"{name} {e:.3g}/{rel:.2g}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, e)
+            if kpm:
+                check(bool((got[0][-1] == 0).all() and (got[1][-1] == 0).all()),
+                      f"flash_bwd {desc}: fully masked row has gradients")
+            phase("flash_bwd", f"{desc}: max|err|/rel L2 {', '.join(errs)} ok")
+
+    # through autograd: a head-broadcast bias takes the plain recompute (its
+    # own counter, not the kernels), as the JAX custom VJP does; its dq, dk
+    # and dv are the kernels' (no fully masked row here)
+    bf = torch.bfloat16
+    B, T, H, D = 2, 96, 4, 64
+    q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev).to(bf)
+               .requires_grad_() for _ in range(3))
+    do = torch.randn(B, T, H, D, generator=g, device=dev).to(bf)
+    b = torch.randn(B, 1, T, T, generator=g, device=dev).to(bf).requires_grad_()
+    c0, r0 = counts(), fa.BWD_RECOMPUTE_LAUNCHES
+    fa.flash_attention(q, k, v, bias=b, causal=True).backward(do)
+    c1 = counts()
+    check(fa.BWD_RECOMPUTE_LAUNCHES == r0 + 1 and c1["flash_bwd_dq"]
+          == c0["flash_bwd_dq"] and c1["flash_bwd_dkv"] == c0["flash_bwd_dkv"],
+          "flash_bwd: a head-broadcast bias did not take the recompute")
+    qs = (q.detach() * D ** -0.5).contiguous()
+    out, lse = fa.flash_forward(qs, k.detach(), v.detach(), b.detach(),
+                                causal=True)
+    want = fa.flash_backward(qs, k.detach(), v.detach(), b.detach(), None, 0,
+                             None, out, lse, do, causal=True,
+                             want_dbias=False)
+    for name, x, r in (("dq", q.grad, want[0] * D ** -0.5),
+                       ("dk", k.grad, want[1]), ("dv", v.grad, want[2])):
+        ok, e, rel = grad_close(x, r, 1e-2)
+        check(ok, f"flash_bwd recompute: {name} max|err| {e} rel L2 {rel}")
+    check(tuple(b.grad.shape) == (B, 1, T, T)
+          and bool(torch.isfinite(b.grad.float()).all()),
+          "flash_bwd recompute: dbias shape/finite")
+    phase("flash_bwd", "head-broadcast [B,1,T,S] bias through autograd: "
+          "recompute counted, kernels not launched, dq/dk/dv match the "
+          "kernels' (bound 1e-2)")
+
+    # the train shape: 2 x 2048 x 32 heads x 64, causal, key-padding mask
+    B, T, H, D = 2, 2048, 32, 64
+    q = torch.randn(B, T, H, D, generator=g, device=dev).to(bf) * D ** -0.5
+    k, v, do = (torch.randn(B, T, H, D, generator=g, device=dev).to(bf)
+                for _ in range(3))
+    mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+    mask[1, :3] = False
+    out, lse = fa.flash_forward(q, k, v, None, mask, causal=True)
+    pair = lambda: fa.flash_backward(q, k, v, None, mask, 0, None, out, lse,
+                                     do, causal=True)
+    plain = lambda: fa.flash_backward_plain(q, k, v, None, mask, 0, None,
+                                            out, lse, do, causal=True)
+    # the kernels hold against the plain backward at this shape too (a
+    # 32 x 32 x 2 grid of 64-row tiles, 32 key tiles per row at the end)
+    got, ref = pair(), plain()
+    torch.cuda.synchronize()
+    errs = []
+    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+        check(bool(torch.isfinite(x.float()).all()),
+              f"flash_bwd train shape: {name} not finite")
+        ok, e, rel = grad_close(x, r, 1e-2)
+        check(ok, f"flash_bwd train shape: {name} max|err| {e} rel L2 {rel} "
+              "(bound 1e-2)")
+        errs.append(f"{name} {e:.3g}/{rel:.2g}")
+        worst = max(worst, e)
+    check(bool((got[0][1, :3] == 0).all()), "flash_bwd train shape: the "
+          "fully masked leading rows have a dq")
+    phase("flash_bwd", f"{B}x{T}x{H}x{D} causal+kpm bf16 (rows 0-2 of "
+          f"example 1 fully masked): max|err|/rel L2 {', '.join(errs)} "
+          "(bound 1e-2) ok")
+    del got, ref
+    mi = mask.to(torch.int32)
+    delta = fa._delta(out, do)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+
+    def dq_only():
+        fa.BWD_KERNEL_DQ.launch(
+            "flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), None,
+            mi.data_ptr(), dq.data_ptr(), None, B, T, T, H, D, 0, 0, 0, T, 1,
+            0, 0, 1, torch.cuda.current_stream().cuda_stream)
+
+    def dkv_only():
+        fa.BWD_KERNEL_DKV.launch(
+            "flash_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), lse.data_ptr(), delta.data_ptr(), None,
+            mi.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, T, H, D, 0, 0,
+            0, T, 1, 0, 1, torch.cuda.current_stream().cuda_stream)
+
+    times = {}
+    for rnd in range(2):
+        for name, fn in (("pair", pair), ("plain", plain)):
+            times[name] = cuda_ms(fn, iters=5)
+    dq_ms, dkv_ms = cuda_ms(dq_only, iters=10), cuda_ms(dkv_only, iters=10)
+    fwd_ms = cuda_ms(lambda: fa.flash_forward(q, k, v, None, mask,
+                                              causal=True), iters=10)
+    flops = 2 * B * H * T * T * D / 2  # one causal T x T x D product
+    phase("flash_bwd", f"{B}x{T}x{H}x{D} causal+kpm bf16: kernel pair "
+          f"{times['pair']:.3f} ms (dq {dq_ms:.3f} ms = "
+          f"{3 * flops / dq_ms / 1e9:.1f} TFLOP/s, dk/dv {dkv_ms:.3f} ms = "
+          f"{4 * flops / dkv_ms / 1e9:.1f} TFLOP/s), plain backward "
+          f"{times['plain']:.3f} ms; forward kernel {fwd_ms:.3f} ms "
+          f"({2 * flops / fwd_ms / 1e9:.1f} TFLOP/s)")
+    common = {"route": "cuda", "source": "unilm_tpu_torch/csrc/flash_bwd.cu",
+              "max_abs_err": worst, "plain_ms": times["plain"],
+              "pair_ms": times["pair"], "shape": f"{B}x{T}x{H}x{D} causal+kpm "
+              "bf16 (plain_ms is the whole plain backward)"}
+    return [dict(common, name="flash_bwd_dq", ms=dq_ms,
+                 replaces="unilm_tpu/ops/flash_attention.py:1235"),
+            dict(common, name="flash_bwd_dkv", ms=dkv_ms,
+                 replaces="unilm_tpu/ops/flash_attention.py:1381")]
 
 
 def phase_decode(pa, g) -> dict:
@@ -792,6 +1017,253 @@ def phase_engine_bf16_prefix(cfg, sd) -> dict:
     return {"paged_append_attention": got["paged_append_attention"]}
 
 
+def write_corpus(prefix: str, vocab: int, n_docs: int, seed: int,
+                 lead_pad_first: bool) -> None:
+    """A synthetic MMapIndexedDataset: random documents of random length
+    (the stream adds an eod after each), a run of pad tokens inside every
+    fifth document; with lead_pad_first, the document the stream draws
+    first (InfinitePermutationSourceIterator's permutation for `seed`)
+    starts with a pad, so the first row of the first batch does."""
+    import random
+
+    from unilm_tpu_torch.data.indexed_dataset import build_indexed_dataset
+
+    rng = np.random.RandomState(seed)
+    docs = [rng.randint(4, vocab, size=rng.randint(64, 2000))
+            for _ in range(n_docs)]
+    for d in docs[::5]:
+        at = rng.randint(1, len(d) - 4)
+        d[at:at + rng.randint(1, 4)] = PAD
+    if lead_pad_first:
+        order = list(range(n_docs))
+        random.Random(seed).shuffle(order)
+        docs[order[0]][:2] = PAD
+    build_indexed_dataset(prefix, docs)
+
+
+def matmul_params(model) -> int:
+    """benchmarks/train_mfu.py count_matmul_params: >= 2-D parameters
+    except embedding tables, plus the tied output projection once."""
+    n = sum(p.numel() for name, p in model.named_parameters()
+            if p.ndim >= 2 and "embed" not in name)
+    return n + model.embed_tokens.weight.numel()
+
+
+def device_time_shares(prof, groups) -> dict:
+    """Device time (ms) of the kernels a profile saw, summed by the first
+    group whose substrings match the kernel's name (else "other")."""
+    from torch.autograd import DeviceType
+
+    out = {name: 0.0 for name, _ in groups}
+    out["other"] = 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        key = next((name for name, subs in groups
+                    if any(s in evt.key for s in subs)), "other")
+        out[key] += t / 1e3
+    return out
+
+
+def phase_train(fa, layers: int = 24) -> dict:
+    """The 1.3B UniGPT train step at full width through the CLI's
+    build_trainer, its profile, the kernel-vs-plain teacher check and the
+    small-size CLI resume."""
+    import shutil
+
+    from unilm_tpu_torch.cli import train_gpt
+    from unilm_tpu_torch.models.kosmos import UniGPT
+    from unilm_tpu_torch.ops.fused_ce import chunked_cross_entropy
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
+    prefix = str(WORK / "corpus")
+    write_corpus(prefix, TRAIN_VOCAB, 64, SEED, lead_pad_first=True)
+    args = train_gpt.build_parser().parse_args([
+        "--data", prefix, "--dim", "2048", "--layers", str(layers),
+        "--heads", "32", "--ffn", "8192", "--vocab", str(TRAIN_VOCAB),
+        "--tokens_per_sample", "2048", "--batch_size", "8",
+        "--update_freq", "4", "--fused_ce", "--ce_chunk", "8192",
+        "--warmup", "1", "--seed", str(SEED)])
+    tr = train_gpt.build_trainer(args)
+    model, cfg = tr.model, tr.cfg
+    n_params = sum(p.numel() for p in model.parameters())
+    n_mm = matmul_params(model)
+    batch = tr.next_batch()  # [4, 2, 2048], repeated every step
+    pads = int((batch == PAD).sum())
+    check(int(batch[0, 0, 0]) == PAD, "train: the first row does not start "
+          "with a pad")
+    phase("train", f"UniGPT {layers} layers, E={cfg.embed_dim}, "
+          f"H={cfg.num_heads}, FFN={cfg.ffn_dim}, vocab {cfg.vocab_size}, "
+          f"T=2048, bf16 compute / fp32 params: {n_params / 1e9:.3f} B "
+          f"params ({n_mm / 1e9:.3f} B matmul); batch 8 = 4 microbatches "
+          f"x 2, {pads} pad tokens, row 0 starts with a pad")
+
+    # ---- the main path: optimizer steps on one repeated batch ----------
+    steps, losses, times = 4, [], []
+    reset_counts()
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tr.state, m = tr.step_fn(tr.state, batch)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        losses.append(float(m["loss"]))
+        gn = float(m["grad_norm"])
+        check(np.isfinite(losses[-1]) and np.isfinite(gn),
+              f"train: step {i + 1} loss {losses[-1]} grad_norm {gn}")
+        phase("train", f"step {i + 1}: loss {losses[-1]:.6f}, grad_norm "
+              f"{gn:.4f}, lr {tr.sched(i):.3g}, {times[-1] * 1e3:.1f} ms "
+              "(host clock)")
+    got = counts()
+    per_step = layers * args.update_freq
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(got[name] == per_step * steps,
+              f"train: {name} launches {got[name]} != {per_step} x {steps}")
+    check(all(losses[i + 1] < losses[i] for i in range(1, steps - 1)),
+          f"train: loss does not fall from step 2 on: {losses}")
+    launches = {k: got[k] for k in ("flash_bwd_dq", "flash_bwd_dkv")}
+    step_s = float(np.mean(times[1:]))
+    tokens = args.batch_size * args.tokens_per_sample
+    flops = (6.0 * n_mm * tokens + 12.0 * layers * cfg.embed_dim
+             * args.tokens_per_sample * tokens)
+    phase("train", f"launches per step: flash_fwd/dq/dkv {per_step} each "
+          f"({got}); steps 2-{steps}: {step_s * 1e3:.1f} ms/step, "
+          f"{tokens / step_s:.0f} tokens/s, {flops / step_s / 1e12:.1f} model "
+          f"TFLOP/s = {flops / step_s / 989e12 * 100:.1f}% of 989 TFLOP/s "
+          f"bf16 dense; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # ---- device-time profile: one microbatch, then one optimizer update --
+    from torch.profiler import ProfilerActivity, profile
+
+    groups = [("flash_fwd #1", ["flash_fwd_kernel"]),
+              ("flash_bwd_dq #6", ["flash_bwd_dq_kernel"]),
+              ("flash_bwd_dkv #7", ["flash_bwd_dkv_kernel"]),
+              ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                          "splitK"])]
+    mb = batch[0]
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def micro():
+        out = model(mb, return_features=True)
+        s, n = chunked_cross_entropy(out[:, :-1], model.embed_tokens.weight,
+                                     mb[:, 1:], chunk=args.ce_chunk)
+        return torch.autograd.grad(s / n, params)
+
+    micro()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        grads = micro()
+        torch.cuda.synchronize()
+    mb_shares = device_time_shares(prof, groups)
+    opt_state = tr.state.opt_state
+    scratch = [p.detach().clone() for p in params]
+    state_copy = {k: ([t.clone() for t in v] if isinstance(v, list) else v)
+                  for k, v in opt_state.items()}
+    with profile(activities=acts) as prof:
+        tr.tx.update(grads, state_copy, scratch)
+        torch.cuda.synchronize()
+    opt_ms = sum(device_time_shares(prof, []).values())
+    del scratch, state_copy
+    step_parts = {k: v * args.update_freq for k, v in mb_shares.items()}
+    step_parts["optimizer"] = opt_ms
+    total = sum(step_parts.values())
+    if total <= 0:
+        phase("train", "profiler saw no device time: shares not measured")
+    else:
+        phase("train", "device time per step (4 x one profiled microbatch + "
+              f"one optimizer update) {total:.1f} ms: " + ", ".join(
+                  f"{k} {v:.1f} ms ({100 * v / total:.1f}%)"
+                  for k, v in step_parts.items()))
+    del grads
+    tr.state.opt_state = None  # the teacher check needs the memory
+    torch.cuda.empty_cache()
+
+    # ---- teacher check: kernel path against plain path, one sequence ---
+    # the row of the batch with the most pad keys among those whose first
+    # token is not a pad (a query with no visible key gives out = 0 in the
+    # kernel and a uniform average in the plain path, as in JAX)
+    flat = batch.reshape(-1, batch.shape[-1])
+    rows = [i for i in range(flat.shape[0]) if int(flat[i, 0]) != PAD]
+    row = max(rows, key=lambda i: int((flat[i] == PAD).sum()))
+    seq = flat[row:row + 1]
+    plain = UniGPT(dataclasses.replace(cfg, use_flash=False, remat=True),
+                   device="cuda")
+    plain.load_state_dict(model.state_dict(), assign=True)
+
+    def loss_grads(m):
+        out = m(seq, return_features=True)
+        s, n = chunked_cross_entropy(out[:, :-1], m.embed_tokens.weight,
+                                     seq[:, 1:], chunk=args.ce_chunk)
+        loss = s / n
+        ps = [p for p in m.parameters() if p.requires_grad]
+        return float(loss.detach()), torch.autograd.grad(loss, ps)
+
+    c0 = counts()
+    lk, gk = loss_grads(model)
+    c1 = counts()
+    lp, gp = loss_grads(plain)
+    torch.cuda.synchronize()
+    check(counts() == c1 and c1["flash_bwd_dq"] - c0["flash_bwd_dq"]
+          == layers, f"train teacher: launch counts {c0} -> {c1}")
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    nk = float(torch.sqrt(sum(g.float().pow(2).sum() for g in gk)))
+    npl = float(torch.sqrt(sum(g.float().pow(2).sum() for g in gp)))
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        a.flatten().float(), b.flatten().float(), dim=0))
+        for n, a, b in zip(names, gk, gp)}
+    worst = min(cos, key=cos.get)
+    loss_rel = abs(lk - lp) / abs(lp)
+    norm_rel = abs(nk - npl) / npl
+    phase("train", f"teacher check, batch row {row} (1 x 2048, "
+          f"{int((seq == PAD).sum())} pads): loss kernel {lk:.6f} plain "
+          f"{lp:.6f} (rel {loss_rel:.2e}, tol {TEACHER_LOSS_REL}); grad norm "
+          f"kernel {nk:.5f} plain {npl:.5f} (rel {norm_rel:.2e}, tol "
+          f"{TEACHER_NORM_REL}); min per-tensor cosine {cos[worst]:.5f} "
+          f"({worst}, tol {TEACHER_COS})")
+    check(loss_rel <= TEACHER_LOSS_REL and norm_rel <= TEACHER_NORM_REL
+          and cos[worst] >= TEACHER_COS, "train: teacher check failed")
+    del plain, gk, gp, tr, model
+    torch.cuda.empty_cache()
+
+    # ---- the CLI end to end at a small size: 4 steps vs 2 + resume + 2 --
+    from unilm_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    small = str(WORK / "small")
+    write_corpus(small, 4096, 48, SEED + 1, lead_pad_first=False)
+    base = ["--data", small, "--dim", "256", "--layers", "2", "--heads", "4",
+            "--ffn", "1024", "--vocab", "4096", "--tokens_per_sample", "256",
+            "--batch_size", "4", "--update_freq", "2", "--fused_ce",
+            "--ce_chunk", "1024", "--warmup", "1", "--save_every", "2",
+            "--log_every", "100", "--seed", str(SEED)]
+    c0 = counts()
+    train_gpt.main(base + ["--save_dir", str(WORK / "a"), "--max_steps", "4"])
+    train_gpt.main(base + ["--save_dir", str(WORK / "b"), "--max_steps", "2"])
+    train_gpt.main(base + ["--save_dir", str(WORK / "b"), "--max_steps", "4"])
+    ran = {k: counts()[k] - c0[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                            "flash_bwd_dkv")}
+    sa, _, ma = CheckpointManager(str(WORK / "a")).restore(4)
+    sb, _, mbm = CheckpointManager(str(WORK / "b")).restore(4)
+    same = all(torch.equal(sa["model"][k], sb["model"][k])
+               for k in sa["model"])
+    same_opt = all(torch.equal(a, b) for a, b in zip(
+        sa["opt_state"]["mu"] + sa["opt_state"]["nu"],
+        sb["opt_state"]["mu"] + sb["opt_state"]["nu"]))
+    check(same and same_opt and ma == mbm and all(v > 0 for v in ran.values()),
+          f"train: CLI resume not bit-equal (params {same}, optimizer "
+          f"{same_opt}, loss {ma} vs {mbm}, launches {ran})")
+    phase("train", f"CLI main() 2 layers E=256 on the card: 4 steps straight "
+          f"and 2 + resume + 2 end bit-equal (params, optimizer, loss "
+          f"{ma['loss']:.6f}); launches {ran}")
+    shutil.rmtree(WORK, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     from unilm_tpu_torch.ops import flash_attention as fa
@@ -801,16 +1273,21 @@ def main() -> int:
     KERNELS.update({"flash_fwd": fa.KERNEL, "decode_attention": pa.KERNEL,
                     "decode_attention_int8": pa.KERNEL_INT8,
                     "int8_matmul": qm.KERNEL,
-                    "paged_append_attention": pa.APPEND_KERNEL})
+                    "paged_append_attention": pa.APPEND_KERNEL,
+                    "flash_bwd_dq": fa.BWD_KERNEL_DQ,
+                    "flash_bwd_dkv": fa.BWD_KERNEL_DKV})
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [phase_flash(fa, g), phase_decode(pa, g),
+    kernels = [phase_flash(fa, g), *phase_flash_bwd(fa, g), phase_decode(pa, g),
                phase_decode_int8(pa, g), phase_int8_matmul(qm, g),
                phase_paged_append(pa, g)]
     launches = phase_slice(fa, pa)
     cfg, sd = engine_model()
     launches.update(phase_engine_int8(cfg, sd))
     launches.update(phase_engine_bf16_prefix(cfg, sd))
+    del cfg, sd
+    torch.cuda.empty_cache()
+    launches.update(phase_train(fa))
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         check(kern["launches"] > 0, f"{kern['name']} never launched")

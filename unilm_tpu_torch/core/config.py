@@ -2,9 +2,10 @@
 
 Same fields and the same `__post_init__` rules as the JAX
 `TransformerConfig`, so a config written for one package constructs in the
-other. The TPU-only knobs (`flash_block_q`/`flash_block_k` VMEM tiling,
-`remat_policy`, `seq_axis`) stay as fields for that reason but no code path
-of this package reads them. Dtypes are torch dtypes.
+other. The TPU-only VMEM tiling knobs (`flash_block_q`/`flash_block_k`)
+stay as fields for that reason but no code path of this package reads
+them; `remat_policy` "full" is per-layer torch.utils.checkpoint and the
+other policies raise, as `seq_axis` does. Dtypes are torch dtypes.
 """
 
 from __future__ import annotations
@@ -70,13 +71,13 @@ class TransformerConfig:
 
     # --- attention implementation ----------------------------------------------
     remat: bool = False
-    remat_policy: str = "full"  # TPU-only (jax.checkpoint policy); unread
+    remat_policy: str = "full"  # "full" per-layer checkpoint; "dots" raises
     # use_flash=True sends CUDA tensors through the hand-written kernels
     # (ops/flash_attention.py, ops/paged_attention.py); False keeps every
     # device on the plain torch attention — the reference the kernels are
     # timed and checked against.
     use_flash: bool = True
-    seq_axis: Any = None  # TPU sequence-parallel mesh axis; unread
+    seq_axis: Any = None  # sequence-parallel mesh axis; raises (slice 9)
     window_size: int = 0
     flash_block_q: int = 512  # TPU VMEM tiling; unread
     flash_block_k: int = 1024  # TPU VMEM tiling; unread

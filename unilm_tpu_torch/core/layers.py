@@ -132,8 +132,8 @@ def make_dense(cfg: TransformerConfig, in_features: int, features: int, *,
 
 class FeedForward(nn.Module):
     """fc1 -> act -> (ffn_layernorm if subln) -> fc2, or the gated variant
-    (torchscale FeedForwardNetwork). Inference only: dropout is not
-    applied."""
+    (torchscale FeedForwardNetwork). Dropout is not applied: a config
+    that asks for it raises in the train-mode Decoder."""
 
     def __init__(self, cfg: TransformerConfig, init_scale: float = 1.0,
                  use_kernel: bool = True, device=None):

@@ -1,11 +1,20 @@
-"""The decoder stack's generation path (port of unilm_tpu/core/transformer.py
-`_scan_pool_geometry` :330, `_ScanSelfAttention` :346, `_ScanDecoderLayerKV`
-:599, the scanned prefill/decode branch of `Decoder` :850-912 and
-`stack_layer_params` :659).
+"""The decoder stack (port of unilm_tpu/core/transformer.py
+`_decoder_layer_body` :156, `DecoderLayer` :247, `_ScanDecoderLayer` :281,
+`_scan_pool_geometry` :330, `_ScanSelfAttention` :346,
+`_ScanDecoderLayerKV` :599, `Decoder` :767-948 and `stack_layer_params`
+:659).
 
-The JAX stack is one `nn.scan` over axis-0-stacked layer params with the KV
-page pool threaded through the scan carry. Here the scan is a Python loop
-over `nn.ModuleList` layers; every layer reads and writes ONE shared pool
+One layer class serves every mode: `mode="train"` is the full-sequence
+forward of the looped and the scanned JAX stacks (the same math), with
+autograd through the flash kernels on a CUDA tensor and optional per-layer
+activation checkpointing (`cfg.remat`, remat_policy "full");
+`mode="prefill" | "decode"` is the scanned generation path. A looped
+(`layers_i`) or a stacked (`layers`) flax tree loads into the one
+`nn.ModuleList` (convert/from_jax.py).
+
+The JAX generation stack is one `nn.scan` over axis-0-stacked layer params
+with the KV page pool threaded through the scan carry. Here the scan is a
+Python loop over the layers; every layer reads and writes ONE shared pool
 pair at its page offset (`li * pages_per_layer`). The pools are torch
 tensors updated IN PLACE: prefill allocates them, every decode step
 scatters its rows into them and the returned cache holds the same tensors.
@@ -14,10 +23,9 @@ Pool layout [B, L*PP, page, H*D] (batch-leading, H*D flat), as in JAX, so
 the cache leaves compare tensor for tensor: `kv_pool_key`,
 `kv_pool_value`, `cache_index`.
 
-Only the prefill/decode modes of the scanned stack are ported; the
-train-mode forward, the looped stack, cross-attention, relative-position
-buckets and the int8 KV pool raise NotImplementedError naming their
-ROADMAP entry.
+Cross-attention, relative-position buckets, MoE, drop-path, dropout, the
+"dots" remat policy and the int8 KV pool raise NotImplementedError naming
+their ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -28,9 +36,12 @@ import numpy as np
 import torch
 from torch import nn
 
-from unilm_tpu_torch.core import positional
+from torch.utils.checkpoint import checkpoint
+
+from unilm_tpu_torch.core.attention import (
+    MultiheadAttention, apply_xpos, xpos_inputs)
 from unilm_tpu_torch.core.config import TransformerConfig
-from unilm_tpu_torch.core.layers import FeedForward, make_dense, make_norm
+from unilm_tpu_torch.core.layers import FeedForward, make_norm
 from unilm_tpu_torch.ops.attention import attention
 from unilm_tpu_torch.ops.paged_attention import run_decode_append_attention
 
@@ -48,47 +59,30 @@ def _scan_pool_geometry(cache_size: int) -> Tuple[int, int, int]:
     return page, chunk, pp
 
 
-class ScanSelfAttention(nn.Module):
-    """Self-attention over the shared KV page pool; the same param names as
-    the JAX module (q/k/v/out_proj + inner_attn_ln)."""
+class ScanSelfAttention(MultiheadAttention):
+    """MultiheadAttention plus the generation modes over the shared KV page
+    pool (the JAX `_ScanSelfAttention`); `mode="train"` is the parent's
+    full-sequence forward."""
 
-    def __init__(self, cfg: TransformerConfig, device=None):
-        super().__init__()
-        self.cfg = cfg
-        H, D, E = cfg.num_heads, cfg.head_dim, cfg.embed_dim
-        vo_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
-        self.q_proj = make_dense(cfg, E, H * D, init_scale=2 ** -0.5,
-                                 device=device)
-        self.k_proj = make_dense(cfg, E, H * D, init_scale=2 ** -0.5,
-                                 device=device)
-        self.v_proj = make_dense(cfg, E, H * D,
-                                 init_scale=2 ** -0.5 * vo_scale, device=device)
-        if cfg.subln:
-            self.inner_attn_ln = make_norm(cfg, H * D, device=device)
-        self.out_proj = make_dense(cfg, H * D, E, init_scale=vo_scale,
-                                   device=device)
-
-    def forward(self, x, k_pool, v_pool, li: int, start: int, *, mode: str,
-                causal: bool, page: int, chunk: int, pages_per_layer: int,
-                xpos=None, key_padding_mask=None, attn_bias=None):
+    def forward(self, x, k_pool=None, v_pool=None, li: int = 0,
+                start: int = 0, *, mode: str, causal: bool, page: int = 0,
+                chunk: int = 0, pages_per_layer: int = 0, xpos=None,
+                key_padding_mask=None, attn_bias=None):
         """`xpos` = (q tables, k tables, qscale) from `xpos_inputs`, shared
         by every layer of one forward."""
+        if mode == "train":
+            return self.forward_train(x, causal=causal,
+                                      key_padding_mask=key_padding_mask,
+                                      attn_bias=attn_bias, xpos=xpos)
         cfg = self.cfg
         H, D = cfg.num_heads, cfg.head_dim
         B, T = x.shape[0], x.shape[1]
         PP = pages_per_layer
 
-        q = self.q_proj(x).view(B, T, H, D)
-        k_new = self.k_proj(x).view(B, T, H, D)
-        v_new = self.v_proj(x).view(B, T, H, D)
-
+        q, k_new, v_new = self.project(x)
         if xpos is not None:
-            (sq, cq), (sk, ck), qscale = xpos
-            q = positional.apply_rotary(q, sq, cq)
-            k_new = positional.apply_rotary(k_new, sk, ck)
-            q = (q * qscale).to(q.dtype)
-
-        scale = cfg.attn_scale if cfg.attn_scale is not None else D ** -0.5
+            q, k_new = apply_xpos(q, k_new, xpos)
+        scale = self.scale
 
         if mode == "prefill":
             # the pool is empty (start == 0): attend over the fresh K/V, then
@@ -137,10 +131,7 @@ class ScanSelfAttention(nn.Module):
                             causal=causal, q_offset=start, kv_len=start + T,
                             use_flash=cfg.use_flash)
 
-        out = out.reshape(B, T, H * D)
-        if cfg.subln:
-            out = self.inner_attn_ln(out)
-        return self.out_proj(out)
+        return self.output(out)
 
     @staticmethod
     def _scatter_rows(k_pool, v_pool, k_new, v_new, li, start, page, PP):
@@ -152,23 +143,10 @@ class ScanSelfAttention(nn.Module):
         v_pool[:, pids, offs] = v_new.reshape(B, T, -1).to(v_pool.dtype)
 
 
-def xpos_inputs(cfg: TransformerConfig, start: int, T: int, device):
-    """xPos rotary tables for positions start..start+T-1, laid out to
-    broadcast against [B, T, H, D]: ((sin, cos) for q with the decay scale,
-    (sin, cos) for k with its inverse, length-extrapolation qscale)."""
-    pos = start + torch.arange(T, device=device)
-    sin, cos, xsc = positional.xpos_sin_cos_scale(
-        pos, 0.0, cfg.head_dim, cfg.xpos_scale_base)
-    q_tab = [t[:, None] for t in positional.rotary_tables(sin, cos, xsc)]
-    k_tab = [t[:, None] for t in positional.rotary_tables(sin, cos, 1.0 / xsc)]
-    qscale = positional.length_extrapolation_qscale(
-        pos, start + T, cfg.scale_length)
-    return q_tab, k_tab, qscale[:, None, None]
-
-
-class ScanDecoderLayer(nn.Module):
-    """One decoder layer of the generation path (self-attention + FFN), the
-    param subtree of the JAX `_ScanDecoderLayerKV`."""
+class DecoderLayer(nn.Module):
+    """One decoder layer (self-attention + FFN), the param subtree of the
+    JAX `DecoderLayer` / `_ScanDecoderLayer` / `_ScanDecoderLayerKV`; the
+    attention keywords pick the mode."""
 
     def __init__(self, cfg: TransformerConfig, alpha: float = 1.0,
                  device=None):
@@ -184,12 +162,12 @@ class ScanDecoderLayer(nn.Module):
     def _residual(self, residual, x):
         return residual * self.alpha + x if self.alpha != 1.0 else residual + x
 
-    def forward(self, x, k_pool, v_pool, li, start, **attn_kw):
+    def forward(self, x, *pool, **attn_kw):
         pre = self.cfg.normalize_before
         residual = x
         if pre:
             x = self.self_attn_layer_norm(x)
-        x = self.self_attn(x, k_pool, v_pool, li, start, **attn_kw)
+        x = self.self_attn(x, *pool, **attn_kw)
         x = self._residual(residual, x)
         if not pre:
             x = self.self_attn_layer_norm(x)
@@ -204,13 +182,15 @@ class ScanDecoderLayer(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Causal decoder stack over pre-embedded inputs, generation modes.
+    """Causal decoder stack over pre-embedded inputs.
 
-    `forward(x, mode="prefill" | "decode", cache_size, cache)` returns
-    (x, cache). Prefill allocates the pools; decode reads `cache` and writes
-    the step's rows into its pools in place. `cache` is a dict with the JAX
-    leaf names: kv_pool_key, kv_pool_value [B, L*PP, page, H*D] and
-    cache_index (an int: tokens already in the pool)."""
+    `forward(x, mode="train")` returns x: the full-sequence forward that
+    autograd differentiates. `forward(x, mode="prefill" | "decode",
+    cache_size, cache)` returns (x, cache): prefill allocates the pools;
+    decode reads `cache` and writes the step's rows into its pools in
+    place. `cache` is a dict with the JAX leaf names: kv_pool_key,
+    kv_pool_value [B, L*PP, page, H*D] and cache_index (an int: tokens
+    already in the pool)."""
 
     def __init__(self, cfg: TransformerConfig, has_cross_attention=False,
                  device=None):
@@ -219,10 +199,6 @@ class Decoder(nn.Module):
             raise NotImplementedError(
                 "decoder cross-attention (TrOCR) is not ported yet: ROADMAP "
                 "Queue 1 slice 8")
-        if not cfg.scan_layers:
-            raise NotImplementedError(
-                "the looped decoder stack is not ported yet (use "
-                "scan_layers=True): ROADMAP Queue 1, remainder of slices 0-2")
         if cfg.moe_freq or cfg.drop_path_rate or cfg.rel_pos_buckets:
             raise NotImplementedError(
                 "MoE / drop-path / T5 relative-bias decoders are not ported "
@@ -234,21 +210,22 @@ class Decoder(nn.Module):
         self.cfg = cfg
         alpha = cfg.deepnorm_alpha if cfg.deepnorm else 1.0
         self.layers = nn.ModuleList(
-            [ScanDecoderLayer(cfg, alpha, device=device)
+            [DecoderLayer(cfg, alpha, device=device)
              for _ in range(cfg.num_layers)])
         if cfg.normalize_before:
             self.layer_norm = make_norm(cfg, device=device)
 
-    def forward(self, x: torch.Tensor, *, mode: str, cache_size: int,
-                cache: Optional[Dict] = None, causal: bool = True,
+    def forward(self, x: torch.Tensor, *, mode: str = "train",
+                cache_size: int = 0, cache: Optional[Dict] = None,
+                causal: bool = True,
                 self_key_padding_mask: Optional[torch.Tensor] = None,
                 attn_bias: Optional[torch.Tensor] = None):
-        cfg = self.cfg
+        if mode == "train":
+            return self._forward_train(x, causal, self_key_padding_mask,
+                                       attn_bias)
         if mode not in ("prefill", "decode"):
-            raise NotImplementedError(
-                f"mode {mode!r}: only prefill/decode are ported; the "
-                "train-mode forward is ROADMAP Queue 1, remainder of "
-                "slices 0-2")
+            raise ValueError(f"unknown mode {mode!r}")
+        cfg = self.cfg
         if cache_size <= 0:
             raise ValueError("prefill/decode need cache_size")
         L, B, T = cfg.num_layers, x.shape[0], x.shape[1]
@@ -274,6 +251,35 @@ class Decoder(nn.Module):
             x = self.layer_norm(x)
         return x, {"kv_pool_key": kp, "kv_pool_value": vp,
                    "cache_index": start + T}
+
+    def _forward_train(self, x, causal, key_padding_mask, attn_bias):
+        """The looped stack's train mode (:914-949); the scanned stack
+        (:826-848) computes the same. With cfg.remat each layer is
+        recomputed in the backward (torch.utils.checkpoint, the "full"
+        policy: nothing but the layer input is kept)."""
+        cfg = self.cfg
+        if cfg.dropout or cfg.attention_dropout or cfg.activation_dropout:
+            raise NotImplementedError(
+                "dropout in the train-mode forward is not ported yet: "
+                "ROADMAP Queue 1, remainder of slices 3-4 (dropout)")
+        if cfg.remat and cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} (a jax.checkpoint "
+                "policy that saves the matmul outputs) is not ported yet: "
+                "ROADMAP Queue 1, remainder of slices 3-4 (dots remat)")
+        x = x.to(cfg.dtype)
+        xpos = (xpos_inputs(cfg, 0, x.shape[1], x.device)
+                if cfg.xpos_rel_pos else None)
+        kw = dict(mode="train", causal=causal, xpos=xpos,
+                  key_padding_mask=key_padding_mask, attn_bias=attn_bias)
+        for layer in self.layers:
+            if cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(layer, x, use_reentrant=False, **kw)
+            else:
+                x = layer(x, **kw)
+        if cfg.normalize_before:
+            x = self.layer_norm(x)
+        return x
 
 
 def stack_layer_params(params: dict, num_layers: int, prefix: str = "layers_",

@@ -30,49 +30,14 @@
 // per-lane partial row sums are reduced once at the end, not per tile.
 // Grid: one block per (64-row q tile, head, batch), 4 warps.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr int BQ = 64;               // query rows per block
 constexpr int BK = 64;               // keys per tile
 constexpr int NWARPS = 4;            // warps per block
 constexpr int RPW = BQ / NWARPS;     // query rows per warp
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
-
-// 8 consecutive elements (16-byte aligned for bf16, 32 for fp32) as floats
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-    uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        float2 x = __bfloat1622float2(h2[i]);
-        f[2 * i] = x.x;
-        f[2 * i + 1] = x.y;
-    }
-}
-__device__ __forceinline__ void load8(const float* p, float* f) {
-    float4 a = *reinterpret_cast<const float4*>(p);
-    float4 b = *reinterpret_cast<const float4*>(p + 4);
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-__device__ __forceinline__ void store8(float* dst, const float* f) {
-    reinterpret_cast<float4*>(dst)[0] = make_float4(f[0], f[1], f[2], f[3]);
-    reinterpret_cast<float4*>(dst)[1] = make_float4(f[4], f[5], f[6], f[7]);
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(NWARPS * 32)

@@ -1,12 +1,13 @@
 """Kosmos-2 / Kosmos-2.5 UniGPT, text path (port of
 unilm_tpu/models/kosmos.py: `sinusoidal_table` :46, `splice_image_features`
 :288, `StepCounter` :303, `UniGPT` :314, `stack_unigpt_params` :540,
-`make_unigpt_generate_fns` :551, `kosmos2_5` :590).
+`make_unigpt_generate_fns` :551, `kosmos2_5` :590; the train forward
+`UniGPT.__call__` :444 is `UniGPT.forward`).
 
 The image and audio towers are not ported yet (ROADMAP Queue 1 slice 5):
 `prefill` takes precomputed image features and splices them into the
 embedding as the JAX model does, but a config that asks for a tower does
-not construct.
+not construct, and `forward` refuses raw images or audio.
 
 The generation cache is a nested dict with the JAX collection's names:
 {"decoder": {"kv_pool_key", "kv_pool_value", "cache_index"},
@@ -214,6 +215,32 @@ class UniGPT(nn.Module):
                 pos = pos[None]
             x = x + pos.to(x.dtype)
         return x
+
+    def forward(self, src_tokens: torch.Tensor,
+                img_inputs: Optional[torch.Tensor] = None,
+                img_gpt_input_mask: Optional[torch.Tensor] = None,
+                segment_tokens: Optional[torch.Tensor] = None,
+                return_features: bool = False,
+                aud_inputs: Optional[torch.Tensor] = None,
+                aud_gpt_input_mask: Optional[torch.Tensor] = None
+                ) -> torch.Tensor:
+        """Train forward over [B, T] tokens: logits [B, T, V], or the
+        pre-logit decoder output [B, T, E] with return_features=True (for
+        the chunked-vocabulary loss, ops/fused_ce.py). Every pad token is a
+        masked key (`src_tokens != padding_idx`), as in JAX."""
+        if img_inputs is not None or aud_inputs is not None:
+            raise NotImplementedError(
+                "UniGPT image/audio towers are not ported yet: ROADMAP "
+                "Queue 1 slice 5")
+        T = src_tokens.shape[1]
+        x = self._embed(src_tokens, None, None, segment_tokens,
+                        self._positions(T, 0, src_tokens.device))
+        pad_mask = src_tokens != self.cfg.padding_idx
+        x = self.decoder(x, mode="train", self_key_padding_mask=pad_mask,
+                         causal=True)
+        if return_features:
+            return x
+        return self.output_layer(x)
 
     def output_layer(self, x: torch.Tensor) -> torch.Tensor:
         if self.cfg.share_input_output_embed:

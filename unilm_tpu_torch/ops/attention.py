@@ -8,11 +8,12 @@ tensor's device decides:
 - CPU tensors, or `use_flash=False` on any device: the plain
   `dot_product_attention` with the mask materialised, as the JAX XLA
   fallback does.
-- CUDA tensors with `use_flash=True`: the hand-written flash forward
-  (ops/flash_attention.py, csrc/flash_fwd.cu). The branches whose JAX
-  kernels are not ported yet raise NotImplementedError naming their
-  ROADMAP entry: non-causal encoder attention (the `_vit_kernel` /
-  `_doc_fwd_kernel` cases) and dropout.
+- CUDA tensors with `use_flash=True`: the hand-written flash kernels
+  (ops/flash_attention.py: csrc/flash_fwd.cu forward, csrc/flash_bwd.cu
+  backward when the inputs require grad). The branches whose JAX kernels
+  are not ported yet raise NotImplementedError naming their ROADMAP entry:
+  non-causal encoder attention (the `_vit_kernel` / `_doc_fwd_kernel`
+  cases) and dropout.
 """
 
 from __future__ import annotations
@@ -75,9 +76,9 @@ def attention(
     T, S = q.shape[1], k.shape[1]
     if dropout_rate > 0.0:
         raise NotImplementedError(
-            "attention dropout (train-mode forward through "
-            "core/attention.py MultiheadAttention) is not ported yet: "
-            "ROADMAP Queue 1, remainder of slices 0-2")
+            "attention dropout is not ported yet (every UniGPT train config "
+            "of the repo runs with dropout 0): ROADMAP Queue 1, remainder "
+            "of slices 3-4 (dropout)")
     if use_flash and q.is_cuda:
         if (not causal and not window and kv_len is None and q_offset is None
                 and S <= 2048):
