@@ -11,6 +11,12 @@ Phases, one line each:
  3. flash: the flash-forward kernel against its plain version, bf16, over
     causal/offset/kv_len/key-padding/bias/window cases, D in {64, 96, 128},
     ragged T and S, and the Kosmos-2.5 prefill shape 1x2052x16x96.
+    encoder_attn (run after flash_bwd): the fused encoder attention
+    kernel (#3) against its plain version, bf16 (relative L2 <= 1e-2) and
+    fp32 (<= 1e-4): bias None, [1,1,T,S], [1,H,T,S], [B,H,T,S], ragged
+    T != S, D in {64, 96, 128}, S up to 2048, BEiT-B 128x197x12x64 and
+    BEiT-L/384 64x577x16x64; timed at BEiT-B beside the plain version and
+    torch's scaled_dot_product_attention.
  4. decode: the bf16 run-decode kernel against its plain version, B=3
     with lengths {0, 511, 1800}; written pool rows bit-equal.
  5. slice: the Kosmos-2.5 text decoder at full width (24 layers, E=1536,
@@ -20,6 +26,18 @@ Phases, one line each:
     show every prefill layer and every decode step's layers went through
     the kernels; a teacher-forced run of the plain path must agree.
     Prints TTFT and ms/token for the kernel path and the plain path.
+    beit_eval: BEiT-B/224 at bench.py line 1's configuration (B=128,
+    bf16, per-layer rel-pos bias, random weights from the seed) through
+    cli/run_class_finetuning's evaluation loop on synthetic normalized
+    images: exactly 12 launches of #3 and none of #1 per forward; img/s
+    and ms/batch over 10 batches (CUDA events); a teacher check against
+    the plain path; a device-time profile.
+    ttft: kosmos2_5(bf16) with its Pix2Struct tower, as
+    benchmarks/kosmos_ttft.py runs it: encode_image over 4096 patch
+    slots, then the 2052-token prefill to the first token; exactly 43
+    launches of #1 (18 tower layers, the resampler, 24 decoder layers)
+    and none of #3; features and first-token logits against the plain
+    path; TTFT for both paths; a device-time profile.
  6. int8_matmul: the int8 weight-only matmul kernel against its plain
     version, bf16 x, M in {1, 8, 64, 200} x the decoder's K x N.
  7. decode_int8: the int8-KV run-decode kernel against its plain version,
@@ -60,9 +78,13 @@ Phases, one line each:
     the CLI's main() end to end at 2 layers, E=256: 4 steps straight
     against 2 + save + resume + 2, bit-equal.
 Then a JSON line with each kernel's launches (from its main-path phase,
-counters set to 0 just before it: slice for flash_fwd and decode, the
-engines for the int8 and block-table kernels, train for flash_bwd_dq and
-flash_bwd_dkv), error and times, the nvidia-smi line, and as the last line
+counters set to 0 just before it: slice for flash_fwd and decode,
+beit_eval for encoder_attention, the engines for the int8 and
+block-table kernels, train for flash_bwd_dq and flash_bwd_dkv), error,
+times (kernel, plain version, and `library_ms`, one torch call computing
+the same function where one exists, else null) and `bound_ms` /
+`bound_by` (the larger of the bytes over 3.35 TB/s and the operations
+over the data-sheet peak), the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}.
 
 Any failed check raises and the script exits non-zero. Without a CUDA
@@ -122,7 +144,56 @@ TEACHER_LOSS_REL = 4e-5
 TEACHER_NORM_REL = 2e-3
 TEACHER_COS = 0.993
 
+# BEiT eval (bench.py line 1): BEiT-B/224, B=128, bf16. Teacher check,
+# kernel path against plain path on one batch. Reading on an H100 80GB
+# HBM3 at 700 W: max |dlogit| 0.0073 (logits up to 2.55), top-1 agreement
+# 0.9766 (3 of 128 images flip between near-tied classes of the random
+# head). Bounds at ~10x: |dlogit| 0.08, disagreement 0.25.
+BEIT_BATCH, BEIT_BATCHES = 128, 10
+BEIT_LOGIT_ATOL = 0.08
+BEIT_TOP1_AGREE = 0.75
+# Kosmos-2.5 TTFT (benchmarks/kosmos_ttft.py): 4096 patch slots, of which a
+# 62 x 64 grid is the image and the rest padding; the tower's features and
+# the first token's logits, kernel path against plain path. Readings on an
+# H100 80GB HBM3 at 700 W: resampled features max|err| 0.0004, first-token
+# logits 0.0835, the same first token. Bounds at ~10x. The tower's own
+# output differs more (relative L2 0.227): the plain path rounds the
+# unscaled (attn_scale 1.0) scores to bf16, as the JAX reference does, the
+# kernel keeps them in fp32. So both bf16 towers are held against the
+# tower in float32 on the plain path, and the kernel's must be the closer.
+TTFT_PATCHES, TTFT_GRID = 4096, (62, 64)
+TOWER_PAD = TTFT_PATCHES - TTFT_GRID[0] * TTFT_GRID[1]  # padded slots
+TTFT_FEAT_ATOL = 0.004
+TTFT_LOGIT_ATOL = 0.8
+
+# The card's published peaks (NVIDIA H100 SXM data sheet, dense): a
+# kernel's bound is the larger of its bytes over the memory rate and its
+# operations over the peak rate of their type.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
+
 KERNELS = {}  # JSON name -> CudaKernel (its launch counter)
+
+
+def roofline(nbytes: float, ops: float, kind: str = "bf16") -> dict:
+    """{"bound_ms", "bound_by"}: the least time the card could take to move
+    `nbytes` once and do `ops` operations of type `kind`."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def sdpa(q, k, v, **kw):
+    """torch's scaled_dot_product_attention on [B, T, H, D] tensors: the
+    library yardstick (library_ms), timed here and used nowhere in the
+    port."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), **kw)
 
 
 def reset_counts() -> None:
@@ -202,26 +273,37 @@ def phase_flash(fa, g) -> dict:
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(bf)
 
-    # (B, T, S, H, D, causal, q_offset, kv_len, window, kpm, bias)
+    # (B, T, S, H, D, causal, q_offset, kv_len, window, kpm, bias, scaled)
+    # kpm "rand": random keys masked and one batch row wholly; "tail": the
+    # last TOWER_PAD keys, as the Pix2Struct tower's padded patch slots.
+    # scaled: q times D^-0.5; the tower's attention is unscaled (scale 1.0).
     cases = [
-        (2, 200, 200, 4, 64, True, 0, None, 0, False, None),
-        (2, 70, 263, 4, 96, True, 193, None, 0, False, None),
-        (2, 131, 300, 2, 96, True, 0, 217, 0, False, None),
-        (2, 97, 150, 2, 128, False, 0, None, 0, True, None),
-        (2, 120, 120, 4, 96, True, 0, None, 0, False, "1H"),
-        (3, 100, 77, 4, 64, False, 0, None, 0, False, "B1"),
-        (2, 300, 300, 2, 96, True, 0, None, 50, False, None),
-        (2, 45, 45, 2, 128, True, 0, None, 0, True, "1H"),
-        (1, PROMPT, PROMPT, 16, 96, True, 0, None, 0, False, None),
+        (2, 200, 200, 4, 64, True, 0, None, 0, None, None, True),
+        (2, 70, 263, 4, 96, True, 193, None, 0, None, None, True),
+        (2, 131, 300, 2, 96, True, 0, 217, 0, None, None, True),
+        (2, 97, 150, 2, 128, False, 0, None, 0, "rand", None, True),
+        (2, 120, 120, 4, 96, True, 0, None, 0, None, "1H", True),
+        (3, 100, 77, 4, 64, False, 0, None, 0, None, "B1", True),
+        (2, 300, 300, 2, 96, True, 0, None, 50, None, None, True),
+        (2, 45, 45, 2, 128, True, 0, None, 0, "rand", "1H", True),
+        (1, PROMPT, PROMPT, 16, 96, True, 0, None, 0, None, None, True),
+        # the main path's other two shapes: the tower and the resampler
+        (1, TTFT_PATCHES, TTFT_PATCHES, 24, 64, False, 0, None, 0, "tail",
+         None, False),
+        (1, IMAGE_TOKENS, IMAGE_TOKENS + TTFT_PATCHES, 16, 96, False, 0, None,
+         0, None, None, True),
     ]
     worst = 0.0
-    for B, T, S, H, D, causal, qoff, kvl, window, kpm, bias in cases:
-        q = rn(B, T, H, D) * D ** -0.5
+    for B, T, S, H, D, causal, qoff, kvl, window, kpm, bias, scaled in cases:
+        q = rn(B, T, H, D) * (D ** -0.5 if scaled else 1.0)
         k, v = rn(B, S, H, D), rn(B, S, H, D)
         mask = None
-        if kpm:
+        if kpm == "rand":
             mask = torch.rand(B, S, generator=g, device=dev) > 0.3
             mask[-1] = False  # one batch row fully masked -> out 0, lse 0
+        elif kpm == "tail":
+            mask = torch.ones(B, S, dtype=torch.bool, device=dev)
+            mask[:, S - TOWER_PAD:] = False
         b = None
         if bias == "1H":
             b = rn(1, H, T, S)
@@ -235,11 +317,12 @@ def phase_flash(fa, g) -> dict:
         ok_o, e_o = close(out, ref, OUT_ATOL, OUT_RTOL)
         ok_l, e_l = close(lse, ref_lse, LSE_ATOL, 0.0)
         check(bool(torch.isfinite(out.float()).all()), "flash: non-finite")
-        if kpm:
+        if kpm == "rand":
             check(bool((out[-1] == 0).all() and (lse[-1] == 0).all()),
                   "flash: fully masked row is not out=0, lse=0")
         desc = (f"B{B} T{T} S{S} H{H} D{D} causal={causal} q_offset={qoff} "
-                f"kv_len={kvl} window={window} kpm={kpm} bias={bias}")
+                f"kv_len={kvl} window={window} kpm={kpm} bias={bias} "
+                f"q_scale={'D^-0.5' if scaled else 1.0}")
         check(ok_o and ok_l, f"flash {desc}: out err {e_o}, lse err {e_l}")
         worst = max(worst, e_o)
         phase("flash", f"{desc}: out max|err| {e_o:.3g}, lse max|err| "
@@ -249,12 +332,115 @@ def phase_flash(fa, g) -> dict:
     k, v = rn(1, PROMPT, 16, 96), rn(1, PROMPT, 16, 96)
     ms = cuda_ms(lambda: fa.flash_forward(q, k, v, causal=True))
     plain_ms = cuda_ms(lambda: fa.flash_forward_plain(q, k, v, causal=True))
+    lib_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=1.0))
+    out, lse = fa.flash_forward(q, k, v, causal=True)
+    pairs = PROMPT * (PROMPT + 1) / 2 * 16  # visible (query, key) pairs
+    bd = roofline(nbytes(q, k, v, out, lse), 4 * pairs * 96)
     phase("flash", f"1x{PROMPT}x16x96 causal bf16: kernel {ms:.4f} ms, "
-          f"plain twin {plain_ms:.4f} ms")
+          f"plain twin {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+
+    # the tower's shape, where #1 spends most of TTFT: unscaled q, the last
+    # TOWER_PAD keys masked (sdpa takes the mask as a boolean attn_mask)
+    S = TTFT_PATCHES
+    q, k, v = rn(1, S, 24, 64), rn(1, S, 24, 64), rn(1, S, 24, 64)
+    mask = torch.ones(1, S, dtype=torch.bool, device=dev)
+    mask[:, S - TOWER_PAD:] = False
+    t_ms = cuda_ms(lambda: fa.flash_forward(q, k, v, None, mask))
+    t_plain = cuda_ms(lambda: fa.flash_forward_plain(q, k, v, None, mask))
+    t_lib = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask[:, None, None, :],
+                                 scale=1.0))
+    out, lse = fa.flash_forward(q, k, v, None, mask)
+    t_bd = roofline(nbytes(q, k, v, mask, out, lse),
+                    4 * S * (S - TOWER_PAD) * 24 * 64)
+    phase("flash", f"1x{S}x24x64 tower (kpm, scale 1.0) bf16: kernel "
+          f"{t_ms:.4f} ms, plain twin {t_plain:.4f} ms, sdpa {t_lib:.4f} ms, "
+          f"bound {t_bd['bound_ms']:.4f} ms ({t_bd['bound_by']})")
     return {"name": "flash_fwd", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "unilm_tpu/ops/flash_attention.py:99",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, **bd,
+            "shape": f"1x{PROMPT}x16x96 causal bf16",
+            "tower_ms": t_ms, "tower_plain_ms": t_plain,
+            "tower_library_ms": t_lib, "tower_bound_ms": t_bd["bound_ms"]}
+
+
+def rel_l2(x: torch.Tensor, ref: torch.Tensor) -> float:
+    x, ref = x.float(), ref.float()
+    return float((x - ref).norm() / ref.norm().clamp(min=1e-30))
+
+
+def phase_encoder_attn(fa, g) -> dict:
+    """Kernel #3 against fused_encoder_attention_plain on the same inputs,
+    bf16 (relative L2 <= 1e-2) and fp32 (<= 1e-4): bias None, [1,1,T,S],
+    [1,H,T,S] and [B,H,T,S], ragged T != S, D in {64, 96, 128}, S up to
+    2048, the BEiT-B and the BEiT-L/384 shapes; then timed at BEiT-B."""
+    dev = "cuda"
+    # (B, T, S, H, D, bias)
+    cases = [
+        (2, 197, 197, 4, 64, None), (2, 197, 197, 4, 64, "11"),
+        (2, 197, 197, 4, 64, "1H"), (3, 100, 77, 4, 96, "BH"),
+        (2, 37, 301, 2, 128, "1H"), (2, 301, 37, 2, 64, None),
+        (2, 131, 93, 3, 96, "11"), (1, 50, 2048, 2, 64, "1H"),
+        (1, 70, 1500, 2, 128, None),
+        (BEIT_BATCH, 197, 197, 12, 64, "1H"),  # BEiT-B/224
+        (64, 577, 577, 16, 64, "1H"),          # BEiT-L/384
+    ]
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_abs = 0.0
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        def rn(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+        for B, T, S, H, D, bias in cases:
+            q, k, v = rn(B, T, H, D), rn(B, S, H, D), rn(B, S, H, D)
+            b = {None: None, "11": (1, 1, T, S), "1H": (1, H, T, S),
+                 "BH": (B, H, T, S)}[bias]
+            b = None if b is None else 2 * rn(*b)
+            out = fa.fused_encoder_attention(q, k, v, b)
+            ref = fa.fused_encoder_attention_plain(q, k, v, b)
+            torch.cuda.synchronize()
+            e, err = rel_l2(out, ref), float((out.float() - ref.float())
+                                             .abs().max())
+            desc = (f"{str(dtype)[6:]} B{B} T{T} S{S} H{H} D{D} "
+                    f"bias={bias}")
+            check(bool(torch.isfinite(out.float()).all()) and e <= tol,
+                  f"encoder_attn {desc}: rel L2 {e} (bound {tol})")
+            worst[dtype] = max(worst[dtype], e)
+            if dtype == torch.bfloat16:
+                worst_abs = max(worst_abs, err)
+            del q, k, v, b, out, ref
+        phase("encoder_attn", f"{str(dtype)[6:]}: {len(cases)} cases, worst "
+              f"rel L2 {worst[dtype]:.3g} (bound {tol}) ok")
+
+    bf = torch.bfloat16
+    B, T, H, D = BEIT_BATCH, 197, 12, 64
+    q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev).to(bf)
+               for _ in range(3))
+    b = torch.randn(1, H, T, T, generator=g, device=dev).to(bf)
+    times = {}
+    for _ in range(2):
+        for name, fn in (
+                ("kernel", lambda: fa.fused_encoder_attention(q, k, v, b)),
+                ("plain", lambda: fa.fused_encoder_attention_plain(q, k, v,
+                                                                   b))):
+            times[name] = cuda_ms(fn, iters=20)
+    lib_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=b), iters=20)
+    out = fa.fused_encoder_attention(q, k, v, b)
+    bd = roofline(nbytes(q, k, v, out, b), 4 * B * H * T * T * D)
+    flops = 4 * B * H * T * T * D
+    phase("encoder_attn", f"BEiT-B {B}x{T}x{H}x{D} bf16, bias [1,{H},{T},{T}]"
+          f": kernel {times['kernel']:.4f} ms ({flops / times['kernel'] / 1e9:.1f}"
+          f" TFLOP/s), plain {times['plain']:.4f} ms, sdpa {lib_ms:.4f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"name": "encoder_attention", "route": "cuda",
+            "source": "unilm_tpu_torch/csrc/encoder_attention.cu",
+            "replaces": "unilm_tpu/ops/flash_attention.py:580",
+            "max_abs_err": worst_abs, "rel_l2_bf16": worst[torch.bfloat16],
+            "rel_l2_fp32": worst[torch.float32], "ms": times["kernel"],
+            "plain_ms": times["plain"], "library_ms": lib_ms, **bd,
+            "shape": f"{B}x{T}x{H}x{D} bf16 bias [1,{H},{T},{T}]"}
 
 
 def grad_close(x: torch.Tensor, ref: torch.Tensor, bound: float):
@@ -431,13 +617,32 @@ def phase_flash_bwd(fa, g) -> dict:
           f"{4 * flops / dkv_ms / 1e9:.1f} TFLOP/s), plain backward "
           f"{times['plain']:.3f} ms; forward kernel {fwd_ms:.3f} ms "
           f"({2 * flops / fwd_ms / 1e9:.1f} TFLOP/s)")
+    # the yardstick: one backward call of torch's SDPA on the same rows
+    # (causal + the same key-padding mask as a boolean mask), dq, dk and dv
+    # together
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+    amask = causal[None, None] & mask[:, None, None, :]
+    o = sdpa(qg, kg, vg, attn_mask=amask, scale=1.0)
+    dot = do.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
+                                                 retain_graph=True), iters=5)
+    del o, qg, kg, vg, amask
+    pairs = float(mask.int().cumsum(1).sum()) * H  # visible (query, key)
+    ins = nbytes(q, k, v, do, lse, delta, mi)
+    bd_dq = roofline(ins + nbytes(dq), 3 * 2 * pairs * D)
+    bd_dkv = roofline(ins + nbytes(dk, dv), 4 * 2 * pairs * D)
+    phase("flash_bwd", f"sdpa backward (dq, dk, dv) {lib_ms:.3f} ms; bounds "
+          f"dq {bd_dq['bound_ms']:.4f} ms ({bd_dq['bound_by']}), dk/dv "
+          f"{bd_dkv['bound_ms']:.4f} ms ({bd_dkv['bound_by']})")
     common = {"route": "cuda", "source": "unilm_tpu_torch/csrc/flash_bwd.cu",
               "max_abs_err": worst, "plain_ms": times["plain"],
-              "pair_ms": times["pair"], "shape": f"{B}x{T}x{H}x{D} causal+kpm "
-              "bf16 (plain_ms is the whole plain backward)"}
-    return [dict(common, name="flash_bwd_dq", ms=dq_ms,
+              "pair_ms": times["pair"], "library_ms": lib_ms,
+              "shape": f"{B}x{T}x{H}x{D} causal+kpm bf16 (plain_ms is the "
+              "whole plain backward, library_ms one sdpa backward)"}
+    return [dict(common, name="flash_bwd_dq", ms=dq_ms, **bd_dq,
                  replaces="unilm_tpu/ops/flash_attention.py:1235"),
-            dict(common, name="flash_bwd_dkv", ms=dkv_ms,
+            dict(common, name="flash_bwd_dkv", ms=dkv_ms, **bd_dkv,
                  replaces="unilm_tpu/ops/flash_attention.py:1381")]
 
 
@@ -481,14 +686,22 @@ def phase_decode(pa, g) -> dict:
         q1, kn1, vn1, kp1, vp1, b1, L1, PP, None, chunk), iters=50)
     plain_ms = cuda_ms(lambda: pa.run_decode_append_attention_plain(
         q1, kn1, vn1, kp1, vp1, b1, L1, PP, None, chunk), iters=50)
+    # the yardstick: torch's SDPA of the query over the same run's L + 1
+    # rows (contiguous in the pool); it appends nothing
+    run = lambda pool: pool.reshape(1, PP * page, H, D)[:, :PROMPT + 1]
+    lib_ms = cuda_ms(lambda: sdpa(q1, run(kp1), run(vp1)), iters=100)
+    L = PROMPT + 1
+    bd = roofline(2 * L * H * D * 2 + 4 * H * D * 2, 4 * H * L * D)
     phase("decode", f"B1 L{PROMPT} H16 D96: kernel alone {kernel_ms:.4f} ms; "
           f"with the row append: kernel wrapper {ms:.4f} ms, plain twin "
-          f"{plain_ms:.4f} ms")
+          f"{plain_ms:.4f} ms; sdpa over the run {lib_ms:.4f} ms; bound "
+          f"{bd['bound_ms']:.5f} ms ({bd['bound_by']})")
     return {"name": "decode_attention", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/decode_attention.cu",
             "replaces": "unilm_tpu/ops/paged_attention.py:497",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "kernel_only_ms": kernel_ms}
+            "kernel_only_ms": kernel_ms, "library_ms": lib_ms, **bd,
+            "shape": f"B1 L{PROMPT} H16 D96 bf16, row append included"}
 
 
 def make_request(rng: np.random.RandomState, B: int, vocab: int, E: int,
@@ -639,6 +852,273 @@ def phase_slice(fa, pa) -> dict:
     return launches
 
 
+def phase_beit_eval(fa) -> dict:
+    """BEiT-B/224 at bench.py line 1's configuration (B=128, bf16, 12
+    layers, per-layer rel-pos bias, random weights from the seed) through
+    the port's run_class_finetuning evaluation loop on synthetic normalized
+    images: 12 launches of kernel #3 and none of #1 per forward, img/s,
+    a kernel-vs-plain teacher check and a device-time profile."""
+    from unilm_tpu_torch.cli import run_class_finetuning as rcf
+    from unilm_tpu_torch.models import beit
+
+    dev = torch.device("cuda")
+    args = rcf.build_parser().parse_args([
+        "--model", "beit_base_patch16_224", "--data_path", "unused",
+        "--eval", "--batch_size", str(BEIT_BATCH), "--seed", str(SEED)])
+    model = rcf.build_model(args, dev)
+    cfg = model.cfg
+    L = cfg.num_layers
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    with torch.no_grad():
+        # flax initialises the rel-pos tables to zero; random tables make
+        # the bias the kernel reads matter
+        for m in model.modules():
+            if isinstance(m, beit.Beit2DRelativePositionBias):
+                m.relative_position_bias_table.normal_(0.0, 0.5, generator=g)
+    n_params = sum(p.numel() for p in model.parameters())
+    images = [torch.randn(BEIT_BATCH, cfg.img_size, cfg.img_size, 3,
+                          generator=g, device=dev) for _ in range(2)]
+    # labels on the host, as the CLI's folder reader yields them
+    labels = np.random.RandomState(SEED).randint(0, cfg.num_classes,
+                                                 BEIT_BATCH)
+    phase("beit_eval", f"BEiT-B/224: {L} layers, E={cfg.embed_dim}, "
+          f"H={cfg.num_heads}, {cfg.num_patches + 1} tokens, bf16 compute / "
+          f"fp32 params, {n_params / 1e6:.1f} M params; batch {BEIT_BATCH}")
+
+    # ---- the main path: one batch through the CLI's evaluation loop ----
+    reset_counts()
+    logits, lab = rcf.evaluate_batches(model, [(images[0], labels)])
+    torch.cuda.synchronize()
+    got = counts()
+    check(got["encoder_attention"] == L and got["flash_fwd"] == 0,
+          f"beit_eval: launches per forward {got} (want {L} of #3, 0 of #1)")
+    check(logits.shape == (BEIT_BATCH, cfg.num_classes)
+          and bool(np.isfinite(logits).all()), "beit_eval: logits shape or "
+          "finite")
+    launches = {"encoder_attention": got["encoder_attention"]}
+
+    # ---- img/s over BEIT_BATCHES batches after warm-up ------------------
+    batches = [(images[i % 2], labels) for i in range(BEIT_BATCHES)]
+    rcf.evaluate_batches(model, batches[:2])
+    reset_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    rcf.evaluate_batches(model, batches)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / BEIT_BATCHES
+    check(counts()["encoder_attention"] == L * BEIT_BATCHES,
+          f"beit_eval: {counts()['encoder_attention']} launches over "
+          f"{BEIT_BATCHES} batches")
+    phase("beit_eval", f"{BEIT_BATCHES} batches of {BEIT_BATCH} through "
+          f"evaluate_batches: {ms:.3f} ms/batch, "
+          f"{BEIT_BATCH * 1e3 / ms:.1f} img/s (CUDA events)")
+
+    # ---- teacher check: the plain path on the same batch ----------------
+    plain = beit.BeitForImageClassification(
+        dataclasses.replace(cfg, use_flash=False), device=dev)
+    plain.load_state_dict(model.state_dict())
+    plain.eval()
+    c0 = counts()
+    plogits, _ = rcf.evaluate_batches(plain, [(images[0], labels)])
+    check(counts() == c0, "beit_eval: the plain path launched a kernel")
+    dl = float(np.abs(logits - plogits).max())
+    agree = float((logits.argmax(-1) == plogits.argmax(-1)).mean())
+    phase("beit_eval", f"teacher check, kernel vs plain path on one batch: "
+          f"max |dlogit| {dl:.4f} (tol {BEIT_LOGIT_ATOL}, logits max "
+          f"{float(np.abs(plogits).max()):.3f}), top-1 agreement "
+          f"{agree:.4f} (tol {BEIT_TOP1_AGREE})")
+    check(dl <= BEIT_LOGIT_ATOL and agree >= BEIT_TOP1_AGREE,
+          "beit_eval: teacher check failed")
+    ms_plain = cuda_ms(lambda: rcf.evaluate_batches(plain, batches[:1]),
+                       iters=3, warmup=1)
+    phase("beit_eval", f"plain path {ms_plain:.3f} ms/batch "
+          f"({BEIT_BATCH * 1e3 / ms_plain:.1f} img/s)")
+    del plain
+
+    # ---- device-time profile of one batch -------------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    groups = [("encoder_attention #3", ["encoder_attn_kernel"]),
+              ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                          "splitK"]),
+              ("layer norm", ["layer_norm", "LayerNorm"])]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rcf.evaluate_batches(model, batches[:1])
+        torch.cuda.synchronize()
+    shares = device_time_shares(prof, groups)
+    total = sum(shares.values())
+    if total <= 0:
+        phase("beit_eval", "profiler saw no device time: shares not measured")
+    else:
+        phase("beit_eval", f"device time per batch {total:.3f} ms of "
+              f"{ms:.3f} ms: " + ", ".join(
+                  f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                  for k, v in shares.items()))
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ttft_inputs(cfg, dev):
+    """benchmarks/kosmos_ttft.py's request: bos, <image>, the image
+    tokens, </image>, a task token (T = image tokens + 4, segment 1 over
+    the image span), and TTFT_PATCHES flattened patches: a 62 x 64 grid of
+    random 16x16x3 patches with their (row+1, col+1) ids, zero-padded."""
+    Q = cfg.latent_query_num
+    T = Q + 4
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.full((1, T), 4, dtype=torch.long, device=dev)
+    img_mask = torch.zeros(1, T, dtype=torch.bool, device=dev)
+    img_mask[:, 2:2 + Q] = True
+    segs = torch.zeros(1, T, dtype=torch.long, device=dev)
+    segs[:, 1:3 + Q] = 1
+    nr, nc = TTFT_GRID
+    patches = torch.zeros(1, TTFT_PATCHES, 2 + cfg.pix2struct.patch_dim,
+                          device=dev)
+    rows = torch.arange(nr, device=dev).repeat_interleave(nc) + 1
+    cols = torch.arange(nc, device=dev).repeat(nr) + 1
+    patches[0, :nr * nc, 0] = rows.float()
+    patches[0, :nr * nc, 1] = cols.float()
+    patches[0, :nr * nc, 2:] = torch.randn(nr * nc, cfg.pix2struct.patch_dim,
+                                           generator=g, device=dev)
+    return tokens, img_mask, segs, patches.to(torch.bfloat16)
+
+
+def phase_ttft(fa) -> dict:
+    """Kosmos-2.5 TTFT as benchmarks/kosmos_ttft.py runs it:
+    kosmos2_5(bf16 compute and params) with its Pix2Struct tower, encode_image
+    over 4096 patch slots, then the 2052-token prefill through
+    make_unigpt_generate_fns to the first token. Exactly 43 launches of
+    kernel #1 (18 tower layers + the resampler + 24 decoder layers) and
+    none of #3 per TTFT; features and first-token logits against the plain
+    path."""
+    from unilm_tpu_torch.models.kosmos import (
+        UniGPT, kosmos2_5, make_unigpt_generate_fns)
+
+    dev = "cuda"
+    cfg = kosmos2_5(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                    scan_layers=True)
+    model = UniGPT(cfg, device=dev).eval()
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+    tower = sum(p.numel() for p in model.img_model.parameters())
+    conn = sum(p.numel() for p in model.img_connector.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    want = cfg.pix2struct.num_layers + 1 + cfg.num_layers
+    tokens, img_mask, segs, patches = ttft_inputs(cfg, dev)
+    T = tokens.shape[1]
+    cache_size = T + 64
+    phase("ttft", f"kosmos2_5 bf16: tower {cfg.pix2struct.num_layers} layers "
+          f"E={cfg.pix2struct.hidden_size} ({tower / 1e6:.1f} M fp32 params), "
+          f"resampler {cfg.latent_query_num} queries ({conn / 1e6:.1f} M), "
+          f"decoder {cfg.num_layers} layers: {n_params / 1e9:.3f} B params; "
+          f"{TTFT_PATCHES} patch slots ({TTFT_GRID[0] * TTFT_GRID[1]} "
+          f"valid), {T}-token prompt")
+
+    def first_token(m):
+        prefill, _ = make_unigpt_generate_fns(m, cache_size)
+        with torch.no_grad():
+            feats = m.encode_image(patches)
+            logits, _ = prefill(tokens, (feats, img_mask, segs))
+        return feats, logits, logits[:, -1].argmax(-1)
+
+    # ---- the main path: one TTFT ----------------------------------------
+    reset_counts()
+    feats, logits, tok = first_token(model)
+    torch.cuda.synchronize()
+    got = counts()
+    check(got["flash_fwd"] == want and got["encoder_attention"] == 0,
+          f"ttft: launches {got} (want {want} of #1, 0 of #3)")
+    check(tuple(feats.shape) == (1, cfg.latent_query_num, cfg.embed_dim)
+          and tuple(logits.shape) == (1, 1, cfg.vocab_size)
+          and bool(torch.isfinite(feats.float()).all())
+          and bool(torch.isfinite(logits.float()).all()),
+          "ttft: features/logits shape or finite")
+    launches = {"ttft_flash_fwd": got["flash_fwd"]}
+
+    # ---- the plain path on the same request -----------------------------
+    plain_cfg = dataclasses.replace(
+        cfg, use_flash=False,
+        pix2struct=dataclasses.replace(cfg.pix2struct, use_flash=False))
+    plain = UniGPT(plain_cfg, device=dev)
+    plain.load_state_dict(model.state_dict())
+    plain.eval()
+    c0 = counts()
+    pfeats, plogits, ptok = first_token(plain)
+    torch.cuda.synchronize()
+    check(counts() == c0, "ttft: the plain path launched a kernel")
+    with torch.no_grad():
+        tf, _ = model.img_model(patches)
+        ptf, _ = plain.img_model(patches)
+        ref32 = type(model.img_model)(dataclasses.replace(
+            cfg.pix2struct, dtype=torch.float32, use_flash=False), device=dev)
+        ref32.load_state_dict(model.img_model.state_dict())
+        tf32, _ = ref32(patches.float())
+        del ref32
+    e_tower = float((tf - ptf).abs().max())
+    rel_tower = rel_l2(tf, ptf)
+    rel_k32, rel_p32 = rel_l2(tf, tf32), rel_l2(ptf, tf32)
+    e_feat = float((feats.float() - pfeats.float()).abs().max())
+    e_log = float((logits.float() - plogits.float()).abs().max())
+    phase("ttft", f"kernel vs plain path: tower output max|err| {e_tower:.4f}"
+          f" (|x| max {float(ptf.abs().max()):.3f}), rel L2 {rel_tower:.4g}; "
+          f"against the float32 plain tower, rel L2 kernel {rel_k32:.4g}, "
+          f"plain {rel_p32:.4g}; resampled features "
+          f"{e_feat:.4f} (tol {TTFT_FEAT_ATOL}), first-token logits "
+          f"{e_log:.4f} (tol {TTFT_LOGIT_ATOL}), first token "
+          f"{int(tok)} vs {int(ptok)}")
+    check(e_feat <= TTFT_FEAT_ATOL and e_log <= TTFT_LOGIT_ATOL
+          and rel_k32 <= rel_p32, "ttft: kernel vs plain path")
+
+    # ---- TTFT, kernel and plain paths in turn ---------------------------
+    def timed(m):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        prefill, _ = make_unigpt_generate_fns(m, cache_size)
+        torch.cuda.synchronize()
+        with torch.no_grad():
+            ev[0].record()
+            f = m.encode_image(patches)
+            ev[1].record()
+            lg, _ = prefill(tokens, (f, img_mask, segs))
+            lg[:, -1].argmax(-1)
+            ev[2].record()
+        torch.cuda.synchronize()
+        return ev[0].elapsed_time(ev[2]), ev[0].elapsed_time(ev[1])
+
+    timed(model)
+    timed(plain)
+    for rnd in range(2):
+        for name, m in (("kernel", model), ("plain", plain)):
+            ttft, enc = timed(m)
+            phase("ttft", f"round {rnd} {name} path: TTFT {ttft:.3f} ms "
+                  f"(encode_image {enc:.3f} ms, prefill {ttft - enc:.3f} ms)")
+    del plain
+
+    # ---- device-time profile of one kernel-path TTFT -------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    groups = [("flash_fwd #1", ["flash_fwd_kernel"]),
+              ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                          "splitK"])]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        first_token(model)
+        torch.cuda.synchronize()
+    shares = device_time_shares(prof, groups)
+    total = sum(shares.values())
+    if total <= 0:
+        phase("ttft", "profiler saw no device time: shares not measured")
+    else:
+        phase("ttft", f"device time per TTFT {total:.3f} ms: " + ", ".join(
+            f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+            for k, v in shares.items()))
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
 def ulp_tol(ref: torch.Tensor, n: float) -> torch.Tensor:
     """n bf16 ulps of each element of ref (8 significant bits)."""
     _, e = torch.frexp(ref.float())
@@ -684,9 +1164,41 @@ def phase_int8_matmul(qm, g) -> dict:
               f"plain {plain_ms:.4f} ms")
     phase("int8_matmul", f"max|err| {worst:.3g}, at most {worst_ratio:.3f} "
           f"of the tolerance (2 bf16 ulps + fp32 order term)")
+    # The products run in bf16 after the dequantize.
+    M, K, N = 8, 1536, 6144
+    bd = roofline(N * K + N * 4 + M * K * 2 + M * N * 2, 2 * M * N * K)
+    phase("int8_matmul", f"M8 K1536 N6144 bound {bd['bound_ms']:.5f} ms "
+          f"({bd['bound_by']})")
+    # library yardstick: torch._weight_int8pack_mm(x, w [N, K], scales [N])
+    # computes x @ (w * scale)^T, with the scales in x's dtype (bf16 here,
+    # so it may differ from the plain version by the scales' rounding,
+    # 2^-9 relative). Timed here only; the port never calls it.
+    w = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                      dtype=torch.int8)
+    scale = ((torch.rand(N, generator=g, device=dev) + 0.5)
+             * (2.0 / (127 * K ** 0.5)))
+    x = torch.randn(M, K, generator=g, device=dev).to(bf)
+    scale_bf = scale.to(bf)
+    lib_ms = None
+    try:
+        lib = torch._weight_int8pack_mm(x, w, scale_bf)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        phase("int8_matmul", f"torch._weight_int8pack_mm on the card raised "
+              f"{type(e).__name__}: {str(e).splitlines()[0]} (library_ms "
+              f"null)")
+    else:
+        rel = rel_l2(lib, qm.int8_matmul_plain(x, w, scale))
+        check(rel <= 1e-2, f"int8_matmul: torch._weight_int8pack_mm is not "
+              f"the same function (rel L2 {rel:.3g})")
+        lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, w, scale_bf),
+                         iters=50)
+        phase("int8_matmul", f"M8 K1536 N6144 torch._weight_int8pack_mm "
+              f"{lib_ms:.4f} ms (rel L2 {rel:.3g} against plain)")
     return {"name": "int8_matmul", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "unilm_tpu/ops/quant.py:59", "max_abs_err": worst,
+            "library_ms": lib_ms, **bd,
             "ms": times[8][0], "plain_ms": times[8][1],
             "shape": "M8 K1536 N6144 bf16", "ms_m64": times[64][0],
             "plain_ms_m64": times[64][1]}
@@ -746,11 +1258,21 @@ def phase_decode_int8(pa, g) -> dict:
     phase("decode_int8", f"B8 L2047 H16 D96: kernel alone {kernel_ms:.4f} "
           f"ms; with the row append: kernel wrapper {ms:.4f} ms, plain "
           f"{plain_ms:.4f} ms")
+    # bytes: the int8 K/V rows of the eight runs, the scale slabs that
+    # cover them, q, the new rows and the output; no torch call attends
+    # over int8 rows with a scale sidecar (library_ms null)
+    L = 2048
+    slabs = B * PP // chunk
+    bd = roofline(2 * B * L * H * D + slabs * sp[0].numel() * 4
+               + 4 * B * H * D * 2, 4 * B * H * L * D)
+    phase("decode_int8", f"B8 L2047 bound {bd['bound_ms']:.5f} ms "
+          f"({bd['bound_by']})")
     return {"name": "decode_attention_int8", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/decode_attention.cu",
             "replaces": "unilm_tpu/ops/paged_attention.py:497",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "kernel_only_ms": kernel_ms, "shape": "B8 L2047 H16 D96 int8"}
+            "kernel_only_ms": kernel_ms, "library_ms": None, **bd,
+            "shape": "B8 L2047 H16 D96 int8"}
 
 
 def phase_paged_append(pa, g) -> dict:
@@ -796,10 +1318,16 @@ def phase_paged_append(pa, g) -> dict:
         q, kn, vn, kp, vp, tables8, L8), iters=20)
     phase("paged_append", f"B8 L2047 H16 D96 scattered: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms (both write the row)")
+    # no torch call reads K/V through a block table (library_ms null)
+    L = 2048
+    bd = roofline(2 * B * L * H * D * 2 + 4 * B * H * D * 2, 4 * B * H * L * D)
+    phase("paged_append", f"B8 L2047 bound {bd['bound_ms']:.5f} ms "
+          f"({bd['bound_by']})")
     return {"name": "paged_append_attention", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/paged_append_attention.cu",
             "replaces": "unilm_tpu/ops/paged_attention.py:213",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **bd,
             "shape": "B8 L2047 H16 D96 bf16 scattered"}
 
 
@@ -1270,7 +1798,9 @@ def main() -> int:
     from unilm_tpu_torch.ops import paged_attention as pa
     from unilm_tpu_torch.ops import quant as qm
 
-    KERNELS.update({"flash_fwd": fa.KERNEL, "decode_attention": pa.KERNEL,
+    KERNELS.update({"flash_fwd": fa.KERNEL,
+                    "encoder_attention": fa.ENCODER_KERNEL,
+                    "decode_attention": pa.KERNEL,
                     "decode_attention_int8": pa.KERNEL_INT8,
                     "int8_matmul": qm.KERNEL,
                     "paged_append_attention": pa.APPEND_KERNEL,
@@ -1278,10 +1808,13 @@ def main() -> int:
                     "flash_bwd_dkv": fa.BWD_KERNEL_DKV})
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [phase_flash(fa, g), *phase_flash_bwd(fa, g), phase_decode(pa, g),
+    kernels = [phase_flash(fa, g), *phase_flash_bwd(fa, g),
+               phase_encoder_attn(fa, g), phase_decode(pa, g),
                phase_decode_int8(pa, g), phase_int8_matmul(qm, g),
                phase_paged_append(pa, g)]
     launches = phase_slice(fa, pa)
+    launches.update(phase_beit_eval(fa))
+    launches.update(phase_ttft(fa))
     cfg, sd = engine_model()
     launches.update(phase_engine_int8(cfg, sd))
     launches.update(phase_engine_bf16_prefix(cfg, sd))

@@ -47,7 +47,7 @@ train_gpt.main(["--data", work + "/data", "--save_dir", work + "/ckpt",
                 "--dim", "32", "--layers", "1", "--heads", "2", "--ffn", "64",
                 "--vocab", "300", "--tokens_per_sample", "16",
                 "--batch_size", "2", "--max_steps", "2", "--fused_ce",
-                "--ce_chunk", "128", "--log_every", "1"])
+                "--ce_chunk", "128", "--log_every", "1", "--device", "cpu"])
 """
 
 # the modules each slice of the port added; every one must be among them
@@ -58,7 +58,9 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "convert.from_jax", "core.attention", "ops.fused_ce",
           "runtime.train", "runtime.optim", "runtime.checkpoint",
           "runtime.logging", "cli.train_gpt", "data.indexed_dataset",
-          "data.iterators", "data.dictionary"}
+          "data.iterators", "data.dictionary", "core.embedding",
+          "models.beit", "convert.beit", "data.transforms", "scoring",
+          "cli.run_class_finetuning", "runtime.device"}
 
 
 def test_port_imports_without_jax():

@@ -54,7 +54,8 @@ def _rand_prompts(seed, n, size):
 def _run(engine_cls, cfg, scfg, params, batches):
     """Submit each batch of (rid, prompt) and run it to the end; returns
     the outputs and the engine's stats."""
-    eng = engine_cls(cfg, scfg, params)
+    kw = {"device": "cpu"} if engine_cls is ts.ServingEngine else {}
+    eng = engine_cls(cfg, scfg, params, **kw)
     out = {}
     for batch in batches:
         for rid, prompt in batch:
@@ -220,9 +221,10 @@ def test_sampled_engine_reproducible_and_greedy_slot_exact():
     batch = [("s", [5, 9, 11]), ("g", [7, 3, 3, 8])]
 
     def run(cls):
+        kw = {"device": "cpu"} if cls is ts.ServingEngine else {}
         eng = cls(tcfg if cls is ts.ServingEngine else jcfg,
                   (ts if cls is ts.ServingEngine else js).ServingConfig(
-                      **scfg), params)
+                      **scfg), params, **kw)
         samp = (ts if cls is ts.ServingEngine else js).SamplingParams
         eng.submit("s", batch[0][1], sampling=samp(temperature=0.9, top_k=4))
         eng.submit("g", batch[1][1])
@@ -237,7 +239,23 @@ def test_unported_options_raise():
     jcfg, tcfg = _cfgs()
     params = _params(jcfg.subln, jcfg.xpos_rel_pos)
     with pytest.raises(NotImplementedError, match="slice 9"):
-        ts.ServingEngine(tcfg, ts.ServingConfig(**SKW), params, mesh=object())
+        ts.ServingEngine(tcfg, ts.ServingConfig(**SKW), params, mesh=object(),
+                         device="cpu")
     _, moe = _cfgs(moe_freq=2, moe_experts=2)
     with pytest.raises(NotImplementedError, match="slice 9"):
         ts.PagedGPT(moe)
+
+
+def test_engine_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """device defaults to "cuda": with CUDA hidden the default raises, and
+    device="cpu" serves."""
+    jcfg, tcfg = _cfgs()
+    params = _params(jcfg.subln, jcfg.xpos_rel_pos)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device cpu"):
+        ts.ServingEngine(tcfg, ts.ServingConfig(**SKW), params)
+    eng = ts.ServingEngine(tcfg, ts.ServingConfig(**SKW), params,
+                           device="cpu")
+    assert eng.device.type == "cpu"
+    eng.submit("r", [5, 9, 11])
+    assert len(eng.run()["r"]) > 0

@@ -357,7 +357,8 @@ def test_cli_resume_is_bitwise(tmp_path):
             "--heads", "4", "--ffn", "128", "--vocab", "512",
             "--tokens_per_sample", "32", "--batch_size", "4",
             "--update_freq", "2", "--fused_ce", "--ce_chunk", "200",
-            "--warmup", "1", "--lr", "1e-3", "--save_every", "2"]
+            "--warmup", "1", "--lr", "1e-3", "--save_every", "2",
+            "--device", "cpu"]
     train_gpt.main(base + ["--save_dir", str(tmp_path / "a"),
                            "--max_steps", "4"])
     train_gpt.main(base + ["--save_dir", str(tmp_path / "b"),
@@ -386,6 +387,29 @@ def test_train_cli_refuses_unported_paths(tmp_path):
     for flags, match in ((["--vl_data", "x"], "slice 5"),
                          (["--pp_stages", "2"], "slice 9"),
                          (["--moe_freq", "2"], "slice 9")):
-        args = train_gpt.build_parser().parse_args(["--data", "x"] + flags)
+        args = train_gpt.build_parser().parse_args(
+            ["--data", "x", "--device", "cpu"] + flags)
         with pytest.raises(NotImplementedError, match=match):
             train_gpt.build_trainer(args)
+
+
+def test_train_cli_runs_on_the_card_unless_asked_for_the_cpu(tmp_path,
+                                                             monkeypatch):
+    """--device defaults to cuda: with CUDA hidden the default raises, and
+    --device cpu trains."""
+    from unilm_tpu_torch.cli import train_gpt
+    from unilm_tpu_torch.data.indexed_dataset import build_indexed_dataset
+
+    build_indexed_dataset(str(tmp_path / "data"), _docs(8))
+    base = ["--data", str(tmp_path / "data"), "--dim", "32", "--layers", "1",
+            "--heads", "2", "--ffn", "64", "--vocab", "512",
+            "--tokens_per_sample", "16", "--batch_size", "2",
+            "--max_steps", "1", "--save_dir", str(tmp_path / "ckpt")]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert train_gpt.build_parser().parse_args(base).device == "cuda"
+    with pytest.raises(RuntimeError, match="device cpu"):
+        train_gpt.main(base)
+    train_gpt.main(base + ["--device", "cpu"])
+    from unilm_tpu_torch.runtime.checkpoint import CheckpointManager
+
+    assert CheckpointManager(str(tmp_path / "ckpt")).latest_step() == 1

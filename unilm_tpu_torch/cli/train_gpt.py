@@ -8,9 +8,10 @@ Checkpointable streaming corpus (mmap binarized or raw text) -> token-block
 packing -> fixed batches -> UniGPT train step (micro-batch accumulation,
 clipping, polynomial-decay AdamW) -> checkpoints carrying the data-stream
 position, with JSONL logging. Resume is bit-exact (model + optimizer +
-stream). The flags and defaults are the JAX CLI's. The model lives on the
-card when one is visible, else on the CPU (where attention takes its
-plain path).
+stream). The flags and defaults are the JAX CLI's, plus `--device`: the
+model lives on the card ("cuda", the default, which raises on a host
+without one) unless `--device cpu` asks for the CPU (where attention
+takes its plain path).
 
 The corpus is read through unilm_tpu_torch.data, whose streams equal
 unilm_tpu.data's on the same corpus and seed. `main()` is setup
@@ -40,6 +41,7 @@ from unilm_tpu_torch.data.indexed_dataset import (MMapIndexedDataset,
 from unilm_tpu_torch.models.kosmos import UniGPT, UniGPTConfig
 from unilm_tpu_torch.ops.fused_ce import chunked_cross_entropy
 from unilm_tpu_torch.runtime.checkpoint import CheckpointManager
+from unilm_tpu_torch.runtime.device import resolve_device
 from unilm_tpu_torch.runtime.logging import JsonlLogger, find_nonfinite
 from unilm_tpu_torch.runtime.optim import AdamW, polynomial_decay_schedule
 from unilm_tpu_torch.runtime.train import (TrainState, cross_entropy_loss,
@@ -85,6 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--bf16", action="store_true", default=True)
     p.add_argument("--pp_stages", type=int, default=0)
     p.add_argument("--pp_microbatches", type=int, default=0)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; raises without a card) or cpu")
     return p
 
 
@@ -146,7 +150,7 @@ def build_trainer(args) -> Trainer:
             "ROADMAP Queue 1 slice 9")
     if not args.data:
         raise ValueError("--data is required")
-    dev = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    dev = resolve_device(args.device)
     dictionary = Dictionary.load(args.dict) if args.dict else Dictionary()
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     vocab = args.vocab or max(len(dictionary), 260)

@@ -12,6 +12,12 @@ axis, the scan_layers form). Leaves map as
 - LayerNorm / RMSNorm `scale` -> `weight`;
 - Embed `embedding` -> `weight`;
 - `bias` -> `bias`;
+- a Conv `kernel` [p, p, C, E] (the patch projection) -> `weight`
+  [E, p*p*C], flattened in (kh, kw, C) order as core/embedding.py's
+  patchify reads it;
+- params that keep their name: LayerScale `gamma`, `cls_token`,
+  `mask_token`, `pos_embed`, `relative_position_bias_table`,
+  `latent_query`;
 - a stacked `layers` subtree -> one module per layer (`layers.{i}`),
   `layers_{i}` -> `layers.{i}`.
 
@@ -28,6 +34,8 @@ import torch
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias"}
+_SAME = {"gamma", "cls_token", "mask_token", "pos_embed",
+         "relative_position_bias_table", "latent_query"}
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -40,10 +48,16 @@ def to_tensor(a) -> torch.Tensor:
 _QUANT_LEAF = {"kernel_i8": "weight_i8", "scale": "scale", "bias": "bias"}
 
 
-def _leaf(name: str, value: np.ndarray, quant: bool) -> tuple:
+def _leaf(name: str, value: np.ndarray, quant: bool, conv: bool) -> tuple:
+    """`conv`: the leaf is a 4-D Conv kernel [p, p, C, E] (with a leading
+    layer axis when stacked, 5-D)."""
+    if name in _SAME and not quant:
+        return name, value
     table = _QUANT_LEAF if quant else _LEAF
     if name not in table:
         raise KeyError(f"unmapped flax leaf {name!r}")
+    if conv:  # [(L,) p, p, C, E] -> [(L,) E, p*p*C]
+        value = value.reshape(*value.shape[:-4], -1, value.shape[-1])
     if name in ("kernel", "kernel_i8"):
         value = np.swapaxes(value, -1, -2)  # [(L,) in, out] -> [(L,) out, in]
     return table[name], value
@@ -63,7 +77,9 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                 else:
                     walk(val, f"{prefix}{key}.", stacked)
                 continue
-            name, arr = _leaf(key, np.asarray(val), "kernel_i8" in tree)
+            arr = np.asarray(val)
+            conv = key == "kernel" and arr.ndim - int(stacked) == 4
+            name, arr = _leaf(key, arr, "kernel_i8" in tree, conv)
             path = f"{prefix}{name}"
             if stacked:
                 for i in range(arr.shape[0]):

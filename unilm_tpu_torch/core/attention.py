@@ -1,5 +1,6 @@
-"""Train-mode self-attention (port of unilm_tpu/core/attention.py
-`MultiheadAttention` :34-258, its `mode="train"` self-attention branch).
+"""Train-mode attention (port of unilm_tpu/core/attention.py
+`MultiheadAttention` :34-258, its `mode="train"` self- and cross-attention
+branches).
 
 q/k/v projections, full-sequence xPos (`_apply_xpos_train` :271-283) with
 the length-extrapolation qscale (:204-208), attention through
@@ -9,7 +10,11 @@ JAX module's names; the generation path (core/transformer.py
 `ScanSelfAttention`) subclasses this module, so one set of weights serves
 training, prefill and decode.
 
-Cross-attention (TrOCR, slice 8), the multiway projections (BEiT-3) and
+Cross-attention runs in train mode without a cache (`key` given to
+`forward_train`; the Kosmos latent-query resampler): q from the query,
+k and v from `key`, no inner_attn_ln (sub-LN skips cross-attention
+projections, :75-77). The cached cross-attention of generation (TrOCR's
+prefill/decode, slice 8), the multiway projections (BEiT-3) and
 sequence-parallel ring attention (`cfg.seq_axis`, slice 9) raise
 NotImplementedError naming their ROADMAP entry.
 """
@@ -51,30 +56,29 @@ def apply_xpos(q, k, xpos):
 
 
 class MultiheadAttention(nn.Module):
-    """Self-attention with the JAX module's parameters: q_proj, k_proj,
-    v_proj, out_proj and (sub-LN) inner_attn_ln."""
+    """Self- or cross-attention with the JAX module's parameters: q_proj,
+    k_proj, v_proj, out_proj and (sub-LN self-attention) inner_attn_ln."""
 
     def __init__(self, cfg: TransformerConfig, self_attention: bool = True,
                  device=None):
         super().__init__()
-        if not self_attention:
-            raise NotImplementedError(
-                "cross-attention (TrOCR decoder) is not ported yet: ROADMAP "
-                "Queue 1 slice 8")
         if cfg.multiway:
             raise NotImplementedError(
                 "multiway projections (BEiT-3) are not ported yet: ROADMAP "
                 "Queue 1 slice 7")
         self.cfg = cfg
+        self.self_attention = self_attention
         H, D, E = cfg.num_heads, cfg.head_dim, cfg.embed_dim
         vo_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
+        if not self_attention and cfg.subln:
+            vo_scale = 1.0 / cfg.deepnorm_init_div
         self.q_proj = make_dense(cfg, E, H * D, init_scale=2 ** -0.5,
                                  device=device)
         self.k_proj = make_dense(cfg, E, H * D, init_scale=2 ** -0.5,
                                  device=device)
         self.v_proj = make_dense(cfg, E, H * D,
                                  init_scale=2 ** -0.5 * vo_scale, device=device)
-        if cfg.subln:
+        if cfg.subln and self_attention:
             self.inner_attn_ln = make_norm(cfg, H * D, device=device)
         self.out_proj = make_dense(cfg, H * D, E, init_scale=vo_scale,
                                    device=device)
@@ -84,39 +88,47 @@ class MultiheadAttention(nn.Module):
         cfg = self.cfg
         return cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim ** -0.5
 
-    def project(self, x: torch.Tensor):
-        """q, k, v as [B, T, H, D]."""
-        B, T = x.shape[0], x.shape[1]
+    def project(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None):
+        """q from x, k and v from kv (default x), as [B, T|S, H, D]."""
+        kv = x if kv is None else kv
+        B, T, S = x.shape[0], x.shape[1], kv.shape[1]
         H, D = self.cfg.num_heads, self.cfg.head_dim
         return (self.q_proj(x).view(B, T, H, D),
-                self.k_proj(x).view(B, T, H, D),
-                self.v_proj(x).view(B, T, H, D))
+                self.k_proj(kv).view(B, S, H, D),
+                self.v_proj(kv).view(B, S, H, D))
 
     def output(self, out: torch.Tensor) -> torch.Tensor:
         """[B, T, H, D] attention output -> inner_attn_ln -> out_proj."""
         B, T = out.shape[0], out.shape[1]
         out = out.reshape(B, T, -1)
-        if self.cfg.subln:
+        if hasattr(self, "inner_attn_ln"):
             out = self.inner_attn_ln(out)
         return self.out_proj(out)
 
-    def forward_train(self, x: torch.Tensor, *, causal: bool,
+    def forward_train(self, x: torch.Tensor, key: Optional[torch.Tensor] = None,
+                      *, causal: bool = False,
                       key_padding_mask: Optional[torch.Tensor] = None,
                       attn_bias: Optional[torch.Tensor] = None,
                       xpos=None) -> torch.Tensor:
-        """Full-sequence self-attention (mode="train"). `xpos` are the
-        `xpos_inputs(cfg, 0, T)` tables, shared by every layer."""
+        """Full-sequence attention (mode="train"): self-attention over x,
+        or cross-attention of x over `key` for a cross-attention module.
+        `xpos` are the `xpos_inputs(cfg, 0, T)` tables, shared by every
+        layer (self-attention only)."""
         cfg = self.cfg
-        if cfg.seq_axis:
+        if self.self_attention == (key is not None):
+            raise ValueError("a cross-attention module takes `key`; a "
+                             "self-attention module does not")
+        if cfg.seq_axis and self.self_attention:
             raise NotImplementedError(
                 "sequence-parallel ring attention (cfg.seq_axis) is not "
                 "ported yet: ROADMAP Queue 1 slice 9")
-        q, k, v = self.project(x)
+        q, k, v = self.project(x, key)
         if xpos is not None:
             q, k = apply_xpos(q, k, xpos)
         out = attention(q, k, v, bias=attn_bias,
                         key_padding_mask=key_padding_mask, scale=self.scale,
-                        causal=causal, window=cfg.window_size,
+                        causal=causal,
+                        window=cfg.window_size if self.self_attention else 0,
                         dropout_rate=cfg.attention_dropout,
                         use_flash=cfg.use_flash)
         return self.output(out)

@@ -1,5 +1,6 @@
 """Shared building blocks (port of unilm_tpu/core/layers.py): projections,
-norms, activations and the feed-forward block.
+norms, activations, the feed-forward block, LayerScale and DropPath (eval
+only).
 
 Parameters are stored in `cfg.param_dtype` and cast to the compute dtype
 `cfg.dtype` on use, as flax's `dtype`/`param_dtype` pair does. Norm
@@ -73,15 +74,17 @@ class Dense(nn.Linear):
 
 class Norm(nn.Module):
     """LayerNorm or RMSNorm (cfg.norm_type), float32 statistics, output in
-    the compute dtype."""
+    the compute dtype: cfg.dtype, or `dtype` where given (float32 for a
+    flax norm left at dtype=None, whose output promotes to its float32
+    params)."""
 
     def __init__(self, cfg: TransformerConfig, dim: Optional[int] = None,
-                 device=None):
+                 device=None, dtype=None):
         super().__init__()
         dim = cfg.embed_dim if dim is None else dim
         self.rms = cfg.norm_type == "rmsnorm"
         self.eps = cfg.layernorm_eps
-        self.compute_dtype = cfg.dtype
+        self.compute_dtype = cfg.dtype if dtype is None else dtype
         self.weight = nn.Parameter(
             torch.ones(dim, device=device, dtype=cfg.param_dtype))
         if self.rms:
@@ -107,9 +110,39 @@ class Norm(nn.Module):
 
 
 def make_norm(cfg: TransformerConfig, dim: Optional[int] = None,
-              device=None) -> Norm:
+              device=None, dtype=None) -> Norm:
     """LayerNorm or RMSNorm over `dim` (default embed_dim)."""
-    return Norm(cfg, dim, device=device)
+    return Norm(cfg, dim, device=device, dtype=dtype)
+
+
+class LayerScale(nn.Module):
+    """Learned per-channel residual scale `gamma` (BEiT's LayerScale,
+    unilm_tpu/core/layers.py:59): x * gamma in x's dtype; float32 params."""
+
+    def __init__(self, dim: int, init_value: float = 1e-5, device=None):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_value),
+                                             device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma.to(x.dtype)
+
+
+class DropPath(nn.Module):
+    """Stochastic depth per sample (unilm_tpu/core/layers.py:41), eval
+    only: the identity outside training. Drawing it in training is the
+    BEiT fine-tune slice's work and raises."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate > 0.0 and self.training:
+            raise NotImplementedError(
+                "drop-path in training is not ported yet: ROADMAP Queue 1, "
+                "BEiT fine-tuning slice")
+        return x
 
 
 def make_dense(cfg: TransformerConfig, in_features: int, features: int, *,

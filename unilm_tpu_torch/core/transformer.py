@@ -1,8 +1,18 @@
-"""The decoder stack (port of unilm_tpu/core/transformer.py
-`_decoder_layer_body` :156, `DecoderLayer` :247, `_ScanDecoderLayer` :281,
-`_scan_pool_geometry` :330, `_ScanSelfAttention` :346,
-`_ScanDecoderLayerKV` :599, `Decoder` :767-948 and `stack_layer_params`
-:659).
+"""The encoder and decoder stacks (port of unilm_tpu/core/transformer.py
+`EncoderLayer` :60-153, `_decoder_layer_body` :156, `DecoderLayer` :247,
+`_ScanDecoderLayer` :281, `_scan_pool_geometry` :330, `_ScanSelfAttention`
+:346, `_ScanDecoderLayerKV` :599, `Encoder` :681-764, `Decoder` :767-948
+and `stack_layer_params` :659).
+
+`Encoder` is the bidirectional stack over pre-embedded inputs (BEiT, the
+Pix2Struct tower): pre- or post-LN, LayerScale, the deepnorm `alpha`, one
+shared bias or a per-layer list of biases, a key-padding
+mask, the optional final LayerNorm and `return_all_hiddens`. It keeps the
+input's dtype for the residual stream, as flax's promotion does (a float32
+input stays float32 around bf16 layers). Drop-path and dropout are eval
+only (a module in training with a nonzero rate raises, BEiT fine-tune
+slice); multiway (slice 7), MoE and T5 relative-position buckets (slices
+9-10) raise.
 
 One layer class serves every mode: `mode="train"` is the full-sequence
 forward of the looped and the scanned JAX stacks (the same math), with
@@ -41,7 +51,8 @@ from torch.utils.checkpoint import checkpoint
 from unilm_tpu_torch.core.attention import (
     MultiheadAttention, apply_xpos, xpos_inputs)
 from unilm_tpu_torch.core.config import TransformerConfig
-from unilm_tpu_torch.core.layers import FeedForward, make_norm
+from unilm_tpu_torch.core.layers import (DropPath, FeedForward, LayerScale,
+                                         make_norm)
 from unilm_tpu_torch.ops.attention import attention
 from unilm_tpu_torch.ops.paged_attention import run_decode_append_attention
 
@@ -71,9 +82,13 @@ class ScanSelfAttention(MultiheadAttention):
         """`xpos` = (q tables, k tables, qscale) from `xpos_inputs`, shared
         by every layer of one forward."""
         if mode == "train":
-            return self.forward_train(x, causal=causal,
+            return self.forward_train(x, None, causal=causal,
                                       key_padding_mask=key_padding_mask,
                                       attn_bias=attn_bias, xpos=xpos)
+        if not self.self_attention:
+            raise NotImplementedError(
+                "cached cross-attention (TrOCR prefill/decode) is not ported "
+                "yet: ROADMAP Queue 1 slice 8")
         cfg = self.cfg
         H, D = cfg.num_heads, cfg.head_dim
         B, T = x.shape[0], x.shape[1]
@@ -178,6 +193,102 @@ class DecoderLayer(nn.Module):
         x = self._residual(residual, x)
         if not pre:
             x = self.final_layer_norm(x)
+        return x
+
+
+class EncoderLayer(nn.Module):
+    """One encoder layer (the JAX `EncoderLayer`): self-attention + FFN,
+    each with an optional LayerScale (`gamma_1`, `gamma_2`) and drop-path
+    on the branch before the residual `residual * alpha + x`."""
+
+    def __init__(self, cfg: TransformerConfig, drop_path: float = 0.0,
+                 layer_scale_init: float = 0.0, alpha: float = 1.0,
+                 device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.alpha = alpha
+        self.self_attn_layer_norm = make_norm(cfg, device=device)
+        self.self_attn = MultiheadAttention(cfg, device=device)
+        self.final_layer_norm = make_norm(cfg, device=device)
+        ffn_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
+        self.ffn = FeedForward(cfg, init_scale=ffn_scale, device=device)
+        if layer_scale_init > 0:
+            self.gamma_1 = LayerScale(cfg.embed_dim, layer_scale_init,
+                                      device=device)
+            self.gamma_2 = LayerScale(cfg.embed_dim, layer_scale_init,
+                                      device=device)
+        self.drop_path = DropPath(drop_path)
+
+    def _branch(self, residual, x, gamma):
+        if self.training and self.cfg.dropout:
+            raise NotImplementedError(
+                "dropout in the encoder's training forward is not ported "
+                "yet: ROADMAP Queue 1, BEiT fine-tuning slice")
+        if gamma is not None:
+            x = gamma(x)
+        return residual * self.alpha + self.drop_path(x)
+
+    def forward(self, x, key_padding_mask=None, attn_bias=None):
+        pre = self.cfg.normalize_before
+        residual = x
+        if pre:
+            x = self.self_attn_layer_norm(x)
+        x = self.self_attn.forward_train(x, key_padding_mask=key_padding_mask,
+                                         attn_bias=attn_bias)
+        x = self._branch(residual, x, getattr(self, "gamma_1", None))
+        if not pre:
+            x = self.self_attn_layer_norm(x)
+        residual = x
+        if pre:
+            x = self.final_layer_norm(x)
+        x = self._branch(residual, self.ffn(x), getattr(self, "gamma_2", None))
+        if not pre:
+            x = self.final_layer_norm(x)
+        return x
+
+
+class Encoder(nn.Module):
+    """Bidirectional stack over pre-embedded inputs [B, T, E] (the JAX
+    `Encoder`). `layer_scale_init` (a call argument in flax, where it
+    decides which params exist) is a constructor argument here."""
+
+    def __init__(self, cfg: TransformerConfig, final_layer_norm: bool = True,
+                 layer_scale_init: float = 0.0, device=None):
+        super().__init__()
+        if cfg.multiway:
+            raise NotImplementedError(
+                "multiway encoder layers (BEiT-3) are not ported yet: "
+                "ROADMAP Queue 1 slice 7")
+        if cfg.moe_freq or cfg.rel_pos_buckets:
+            raise NotImplementedError(
+                "MoE / T5 relative-bias encoders are not ported yet: ROADMAP "
+                "Queue 1 slices 9-10")
+        self.cfg = cfg
+        alpha = cfg.deepnorm_alpha if cfg.deepnorm else 1.0
+        dpr = np.linspace(0, cfg.drop_path_rate, cfg.num_layers)
+        self.layers = nn.ModuleList(
+            [EncoderLayer(cfg, float(dpr[i]), layer_scale_init, alpha,
+                          device=device) for i in range(cfg.num_layers)])
+        if cfg.normalize_before and final_layer_norm:
+            self.layer_norm = make_norm(cfg, device=device)
+
+    def forward(self, x: torch.Tensor, *,
+                key_padding_mask: Optional[torch.Tensor] = None,
+                attn_bias=None, return_all_hiddens: bool = False):
+        """`attn_bias`: None, one [B|1, H|1, T, T] tensor for every layer,
+        or a per-layer sequence. Returns x, or (x, per-layer outputs) with
+        return_all_hiddens."""
+        hiddens = []
+        for i, layer in enumerate(self.layers):
+            bias_i = (attn_bias[i] if isinstance(attn_bias, (list, tuple))
+                      else attn_bias)
+            x = layer(x, key_padding_mask, bias_i)
+            if return_all_hiddens:
+                hiddens.append(x)
+        if hasattr(self, "layer_norm"):
+            x = self.layer_norm(x)
+        if return_all_hiddens:
+            return x, hiddens
         return x
 
 

@@ -1,13 +1,22 @@
-"""Kosmos-2 / Kosmos-2.5 UniGPT, text path (port of
-unilm_tpu/models/kosmos.py: `sinusoidal_table` :46, `splice_image_features`
-:288, `StepCounter` :303, `UniGPT` :314, `stack_unigpt_params` :540,
+"""Kosmos-2 / Kosmos-2.5 UniGPT with the Kosmos-2.5 image side (port of
+unilm_tpu/models/kosmos.py: `sinusoidal_table` :46,
+`Pix2StructVisionConfig` / `Pix2StructVisionEncoder` :116-164,
+`LatentQueryResampler` :167-197, `splice_image_features` :288,
+`StepCounter` :303, `UniGPT` :314 with `encode_image` (JAX's
+`get_image_representation` :384-393 and `encode_image` :515 in one),
+`stack_unigpt_params` :540,
 `make_unigpt_generate_fns` :551, `kosmos2_5` :590; the train forward
 `UniGPT.__call__` :444 is `UniGPT.forward`).
 
-The image and audio towers are not ported yet (ROADMAP Queue 1 slice 5):
-`prefill` takes precomputed image features and splices them into the
-embedding as the JAX model does, but a config that asks for a tower does
-not construct, and `forward` refuses raw images or audio.
+The Pix2Struct tower and the latent-query resampler feed the decoder:
+`encode_image` gives the features that `prefill` splices into the
+embedding, and `forward` takes raw flattened patches. As in JAX, the
+tower and the resampler keep float32 params whatever `param_dtype` says,
+and the modules flax leaves at dtype=None (the patch projection, the row
+and column embedders, the tower's final RMSNorm, the resampler's `dense`)
+compute in float32; the tower's residual stream is float32 because its
+input is. The CLIP tower (Kosmos-2, ROADMAP Queue 1 slice 5) and the
+audio tower (slice 10) raise.
 
 The generation cache is a nested dict with the JAX collection's names:
 {"decoder": {"kv_pool_key", "kv_pool_value", "cache_index"},
@@ -26,9 +35,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from unilm_tpu_torch.core.attention import MultiheadAttention
 from unilm_tpu_torch.core.config import TransformerConfig
-from unilm_tpu_torch.core.layers import Dense, init_weights_
-from unilm_tpu_torch.core.transformer import Decoder, stack_layer_params
+from unilm_tpu_torch.core.layers import Dense, Norm, init_weights_
+from unilm_tpu_torch.core.transformer import (Decoder, Encoder,
+                                              stack_layer_params)
 
 
 def sinusoidal_table(num_positions: int, dim: int,
@@ -63,6 +74,96 @@ def splice_image_features(token_embedding: torch.Tensor,
 
 
 @dataclasses.dataclass(frozen=True)
+class Pix2StructVisionConfig:
+    """HF Pix2StructVisionModel (the Kosmos-2.5 tower over up to 4096
+    variable-resolution patches)."""
+
+    hidden_size: int = 1536
+    num_layers: int = 18
+    num_heads: int = 24
+    d_ff: int = 3968
+    d_kv: int = 64
+    patch_dim: int = 768  # 16*16*3 flattened patch
+    max_rows: int = 4096
+    layernorm_eps: float = 1e-6
+    dtype: Any = torch.float32
+    use_flash: bool = True
+
+    def transformer(self) -> TransformerConfig:
+        return TransformerConfig(
+            embed_dim=self.hidden_size, ffn_dim=self.d_ff,
+            num_layers=self.num_layers, num_heads=self.num_heads,
+            head_dim=self.d_kv, normalize_before=True,
+            activation="geglu_new", norm_type="rmsnorm", use_bias=False,
+            attn_scale=1.0, layernorm_eps=self.layernorm_eps,
+            dtype=self.dtype, use_flash=self.use_flash)
+
+
+class Pix2StructVisionEncoder(nn.Module):
+    """T5-style vision encoder over pre-extracted flattened patches.
+
+    Input [B, N, 2 + patch_dim]: columns 0/1 are the (row+1, col+1) ids,
+    the rest the flattened patch; all-zero rows are padding. RMSNorm, gated
+    gelu_new FFN, no biases, UNSCALED attention (attn_scale 1.0, T5's
+    convention), d_kv-sized heads. Returns (features [B, N, hidden] float32,
+    mask [B, N] bool); padded rows are zero before and after the encoder,
+    whose attention masks them as keys."""
+
+    def __init__(self, cfg: Pix2StructVisionConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        tcfg = cfg.transformer()
+        E = cfg.hidden_size
+        self.patch_projection = Dense(cfg.patch_dim, E, bias=True,
+                                      dtype=torch.float32,
+                                      param_dtype=torch.float32,
+                                      device=device)
+        self.row_embedder = _embedding(cfg.max_rows, E, E ** -0.5,
+                                       torch.float32, device)
+        self.column_embedder = _embedding(cfg.max_rows, E, E ** -0.5,
+                                          torch.float32, device)
+        self.encoder = Encoder(tcfg, final_layer_norm=False, device=device)
+        self.layernorm = Norm(tcfg, device=device, dtype=torch.float32)
+
+    def forward(self, flattened_patches: torch.Tensor):
+        mask = flattened_patches.abs().sum(-1) > 0  # [B, N]
+        rows = flattened_patches[..., 0].to(torch.int64)
+        cols = flattened_patches[..., 1].to(torch.int64)
+        x = self.patch_projection(flattened_patches[..., 2:])
+        x = x + self.row_embedder(rows) + self.column_embedder(cols)
+        x = x * mask[..., None].to(x.dtype)
+        x = self.encoder(x, key_padding_mask=mask)
+        x = self.layernorm(x)
+        return x * mask[..., None].to(x.dtype), mask
+
+
+class LatentQueryResampler(nn.Module):
+    """XConnector: dense projection (float32) + `num_latents` latent
+    queries (float32 params) cross-attending over [features ++ latents]."""
+
+    def __init__(self, input_dim: int, output_dim: int, num_latents: int,
+                 num_heads: int, dtype=torch.float32, use_flash: bool = True,
+                 device=None):
+        super().__init__()
+        self.dense = Dense(input_dim, output_dim, bias=True,
+                           dtype=torch.float32, param_dtype=torch.float32,
+                           device=device)
+        self.latent_query = nn.Parameter(
+            torch.zeros(num_latents, output_dim, device=device))
+        acfg = TransformerConfig(embed_dim=output_dim, num_heads=num_heads,
+                                 dtype=dtype, use_flash=use_flash)
+        self.x_attn = MultiheadAttention(acfg, self_attention=False,
+                                         device=device)
+
+    def forward(self, features: torch.Tensor) -> torch.Tensor:
+        B = features.shape[0]
+        x = self.dense(features)
+        latent = self.latent_query.to(x.dtype)[None].expand(B, -1, -1)
+        kv = torch.cat([x, latent], dim=1)
+        return self.x_attn.forward_train(latent, kv)
+
+
+@dataclasses.dataclass(frozen=True)
 class UniGPTConfig:
     vocab_size: int = 65037
     embed_dim: int = 2048
@@ -93,8 +194,8 @@ class UniGPTConfig:
     remat_policy: str = "full"
     image_tower: Optional[str] = None  # 'clip' | 'pix2struct' | None
     latent_query_num: int = 64
-    clip: Any = None  # tower configs: not ported yet (Queue 1 slice 5)
-    pix2struct: Any = None
+    clip: Any = None  # the CLIP tower is not ported yet (Queue 1 slice 5)
+    pix2struct: Pix2StructVisionConfig = Pix2StructVisionConfig()
     audio_tower: Optional[str] = None
     audio_latent_query_num: int = 64
     wavlm: Any = None
@@ -136,6 +237,10 @@ def kosmos2_5(**kw) -> UniGPTConfig:
     kw.setdefault("num_heads", 16)
     kw.setdefault("ffn_dim", 6144)
     kw.setdefault("segment_emb", True)
+    # the vision tower inherits the compute dtype (the TTFT path runs it in
+    # bf16, like the reference's .half())
+    if "dtype" in kw and "pix2struct" not in kw:
+        kw["pix2struct"] = Pix2StructVisionConfig(dtype=kw["dtype"])
     return UniGPTConfig(**kw)
 
 
@@ -146,15 +251,19 @@ def _embedding(num, dim, init_std, dtype, device):
 
 
 class UniGPT(nn.Module):
-    """GPT decoder with the multimodal embedding splice, text path."""
+    """GPT decoder with the multimodal embedding splice and the Kosmos-2.5
+    image tower + resampler."""
 
     def __init__(self, cfg: UniGPTConfig, device=None):
         super().__init__()
-        if cfg.image_tower or cfg.audio_tower:
+        if cfg.image_tower not in (None, "pix2struct"):
             raise NotImplementedError(
-                "UniGPT image/audio towers are not ported yet: ROADMAP "
-                "Queue 1 slice 5 (pass image_tower=None and precomputed "
-                "img_features to prefill)")
+                f"the {cfg.image_tower!r} image tower (CLIP, Kosmos-2) is not "
+                "ported yet: ROADMAP Queue 1 slice 5 (CLIP tower)")
+        if cfg.audio_tower:
+            raise NotImplementedError(
+                "the audio tower (WavLM) is not ported yet: ROADMAP Queue 1 "
+                "slice 10")
         if cfg.quant_lm_head:
             raise NotImplementedError(
                 "int8 LM head (QuantDense) is not ported yet: ROADMAP "
@@ -186,13 +295,36 @@ class UniGPT(nn.Module):
             # flax nn.Embed defaults: float32 params, std ~ 1/sqrt(E)
             self.segment_emb = _embedding(2, E, E ** -0.5, torch.float32,
                                           device)
+        if cfg.image_tower == "pix2struct":
+            self.img_model = Pix2StructVisionEncoder(cfg.pix2struct,
+                                                     device=device)
+            self.img_connector = LatentQueryResampler(
+                cfg.pix2struct.hidden_size, E, cfg.latent_query_num,
+                cfg.num_heads, dtype=cfg.dtype, use_flash=cfg.use_flash,
+                device=device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "UniGPT":
         """Random weights at the JAX initialisers' scales from `generator`
-        (which must live on the parameters' device)."""
+        (which must live on the parameters' device); the latent queries
+        normal(1.0), as flax's."""
         init_weights_(self, generator)
+        if hasattr(self, "img_connector"):
+            self.img_connector.latent_query.normal_(0.0, 1.0,
+                                                    generator=generator)
         return self
+
+    # ------------------------------------------------------------------ #
+    def encode_image(self, img_inputs: torch.Tensor) -> torch.Tensor:
+        """Tower -> L2 normalize (+1e-6) -> latent-query resample:
+        [B, latent_query_num, E] in the compute dtype."""
+        if not hasattr(self, "img_model"):
+            raise ValueError("this UniGPT has no image tower "
+                             "(image_tower=None)")
+        feats, _ = self.img_model(img_inputs)
+        feats = feats / (torch.linalg.vector_norm(feats, dim=-1,
+                                                  keepdim=True) + 1e-6)
+        return self.img_connector(feats)
 
     # ------------------------------------------------------------------ #
     def _positions(self, T: int, start: int, device) -> torch.Tensor:
@@ -227,14 +359,19 @@ class UniGPT(nn.Module):
         """Train forward over [B, T] tokens: logits [B, T, V], or the
         pre-logit decoder output [B, T, E] with return_features=True (for
         the chunked-vocabulary loss, ops/fused_ce.py). Every pad token is a
-        masked key (`src_tokens != padding_idx`), as in JAX."""
-        if img_inputs is not None or aud_inputs is not None:
+        masked key (`src_tokens != padding_idx`), as in JAX. `img_inputs`
+        (flattened patches) go through the tower and the resampler and are
+        spliced at `img_gpt_input_mask`."""
+        if aud_inputs is not None:
             raise NotImplementedError(
-                "UniGPT image/audio towers are not ported yet: ROADMAP "
-                "Queue 1 slice 5")
+                "the audio tower (WavLM) is not ported yet: ROADMAP Queue 1 "
+                "slice 10")
+        img_feats = (self.encode_image(img_inputs)
+                     if img_inputs is not None else None)
         T = src_tokens.shape[1]
-        x = self._embed(src_tokens, None, None, segment_tokens,
-                        self._positions(T, 0, src_tokens.device))
+        x = self._embed(src_tokens, img_feats, img_gpt_input_mask,
+                        segment_tokens, self._positions(T, 0,
+                                                        src_tokens.device))
         pad_mask = src_tokens != self.cfg.padding_idx
         x = self.decoder(x, mode="train", self_key_padding_mask=pad_mask,
                          causal=True)

@@ -3,7 +3,7 @@
 Each `csrc/*.cu` file has a plain C interface and is compiled by nvcc, at
 first use, into its own shared library under `unilm_tpu_torch/_build/`
 (listed in .gitignore), then loaded with ctypes. Pointers and the CUDA
-stream go across as `c_void_p`, integers as `c_int`.
+stream go across as `c_void_p`, integers as `c_int`, floats as `c_float`.
 
 A library's file name carries a hash of everything that decides its
 contents: the `.cu` source, every `csrc/*.cuh` header it includes
@@ -191,3 +191,4 @@ def stream() -> int:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+F = ctypes.c_float

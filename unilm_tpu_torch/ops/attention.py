@@ -8,12 +8,20 @@ tensor's device decides:
 - CPU tensors, or `use_flash=False` on any device: the plain
   `dot_product_attention` with the mask materialised, as the JAX XLA
   fallback does.
-- CUDA tensors with `use_flash=True`: the hand-written flash kernels
-  (ops/flash_attention.py: csrc/flash_fwd.cu forward, csrc/flash_bwd.cu
-  backward when the inputs require grad). The branches whose JAX kernels
-  are not ported yet raise NotImplementedError naming their ROADMAP entry:
-  non-causal encoder attention (the `_vit_kernel` / `_doc_fwd_kernel`
-  cases) and dropout.
+- CUDA tensors with `use_flash=True`:
+  - non-causal, no window / kv_len / q_offset, no key-padding mask,
+    S <= 2048: the fused encoder attention (csrc/encoder_attention.cu,
+    the `_vit_kernel` case, forward only);
+  - non-causal with a key-padding mask at S <= 2048: the JAX package's
+    `_doc_fwd_kernel` (#9) case, not ported yet; raises;
+  - everything else (causal, decode geometry, S > 2048): the flash
+    kernels (csrc/flash_fwd.cu forward, csrc/flash_bwd.cu backward when
+    the inputs require grad).
+  The JAX dispatcher's v5e crossovers (`_onepass_profitable`, the doc
+  kernel's VMEM admissibility) are TPU budgets and are not carried: some
+  shapes the TPU sends to #9 take #3 here, which computes the same
+  function there. Dropout raises NotImplementedError naming its ROADMAP
+  entry.
 """
 
 from __future__ import annotations
@@ -81,11 +89,14 @@ def attention(
             "of slices 3-4 (dropout)")
     if use_flash and q.is_cuda:
         if (not causal and not window and kv_len is None and q_offset is None
-                and S <= 2048):
-            raise NotImplementedError(
-                "non-causal encoder attention runs on the _vit_kernel / "
-                "_doc_fwd_kernel Pallas kernels in the JAX package, not "
-                "ported yet: ROADMAP Queue 2 #6 and #8")
+                and S <= fa.ENCODER_MAX_S):
+            if key_padding_mask is not None:
+                raise NotImplementedError(
+                    "non-causal attention with a key-padding mask at S <= "
+                    f"{fa.ENCODER_MAX_S} runs on the `_doc_fwd_kernel` Pallas"
+                    " kernel (#9) in the JAX package, not ported yet: ROADMAP"
+                    " Queue 1, LayoutLMv3 / TrOCR slices")
+            return fa.fused_encoder_attention(q, k, v, bias=bias, scale=scale)
         if not fa.supports(q, k, bias, window):
             raise NotImplementedError(
                 f"flash forward kernel does not take q {tuple(q.shape)} "

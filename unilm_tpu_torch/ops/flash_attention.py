@@ -22,6 +22,14 @@ csrc/flash_bwd.cu on a CUDA tensor and from `flash_backward_plain` on a
 CPU tensor; a head-broadcast bias recomputes through plain autograd, as
 JAX does. The opt-in TPU schedules UNILM_TPU_TRI_FLASH (kernel #2) and
 UNILM_TPU_FUSED_BWD (kernel #8) raise rather than being ignored.
+
+`fused_encoder_attention` (port of `fused_encoder_attention` :701,
+`_vit_forward` :632 / `_vit_kernel` :580) is the encoder hot path's
+forward: non-causal, full kv, no key-padding mask, an exact softmax over
+whole score rows, no lse. On a CUDA tensor it launches csrc/
+encoder_attention.cu, on a CPU tensor `fused_encoder_attention_plain`. Its
+backward (`_vit_bwd_kernel`, kernel #4) is not ported: a call that would
+need a gradient raises.
 """
 
 from __future__ import annotations
@@ -32,7 +40,7 @@ from typing import Optional, Tuple
 import torch
 
 from unilm_tpu_torch.ops._native import (
-    I, P, CudaKernel, check_tensor, ptr, stream)
+    F, I, P, CudaKernel, check_tensor, ptr, stream)
 
 NEG_INF = -1e30
 SUPPORTED_D = (64, 96, 128)
@@ -387,3 +395,92 @@ def flash_attention(
         (q * scale).contiguous(), k.contiguous(), v.contiguous(), bias,
         key_padding_mask, 0 if q_offset is None else int(q_offset), kv_len,
         causal, window)
+
+
+# --------------------------------------------------------------------------- #
+# Fused encoder attention: kernel #3
+# --------------------------------------------------------------------------- #
+
+ENCODER_KERNEL = CudaKernel("encoder_attention.cu", {
+    # q, k, v, bias, out, B, T, S, H, D, bias_sb, bias_sh, scale, dtype,
+    # stream
+    "encoder_attn_fwd": [P] * 5 + [I] * 7 + [F, I, P],
+})
+# the longest kv the kernel keeps as whole score rows in shared memory (the
+# dispatcher's bound for the encoder branch, ops/attention.py)
+ENCODER_MAX_S = 2048
+
+
+def fused_encoder_attention_plain(q, k, v, bias=None,
+                                  scale: Optional[float] = None):
+    """Plain torch twin of kernel #3: softmax(scale q k^T + bias) v on
+    q [B,T,H,D], k/v [B,S,H,D], bias [B|1,H|1,T,S]. Float32 scores; the
+    probabilities are rounded to v's dtype and the row sum adds the rounded
+    values, as the TPU kernel's exact path does (:622-623)."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    if bias is not None:
+        s = s + bias.float()
+    p = torch.exp(s - s.amax(-1, keepdim=True)).to(v.dtype).float()
+    l = p.sum(-1, keepdim=True).permute(0, 2, 1, 3)  # [B, T, H, 1]
+    out = torch.einsum("bhts,bshd->bthd", p, v.float()) / l
+    return out.to(q.dtype)
+
+
+def _encoder_attention_cuda(q, k, v, bias, scale):
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"encoder attention kernel takes float32/bfloat16, "
+                         f"got {q.dtype}")
+    if D not in SUPPORTED_D:
+        raise ValueError(f"encoder attention kernel takes head_dim in "
+                         f"{SUPPORTED_D}, got {D}")
+    if not 0 < S <= ENCODER_MAX_S:
+        raise ValueError(f"encoder attention kernel takes 0 < S <= "
+                         f"{ENCODER_MAX_S} keys, got {S}")
+    dev = q.device
+    check_tensor("q", q, dtype=q.dtype, shape=(B, T, H, D), device=dev)
+    check_tensor("k", k, dtype=q.dtype, shape=(B, S, H, D), device=dev)
+    check_tensor("v", v, dtype=q.dtype, shape=(B, S, H, D), device=dev)
+    sb = sh = 0
+    if bias is not None:
+        Bb, Hb = bias.shape[0], bias.shape[1]
+        if Bb not in (1, B) or Hb not in (1, H):
+            raise ValueError(f"bias {tuple(bias.shape)} does not broadcast "
+                             f"over [B={B}, H={H}]")
+        check_tensor("bias", bias, dtype=q.dtype, shape=(Bb, Hb, T, S),
+                     device=dev)
+        sh = T * S if Hb > 1 else 0
+        sb = Hb * T * S if Bb > 1 else 0
+    out = torch.empty_like(q)
+    ENCODER_KERNEL.launch(
+        "encoder_attn_fwd", ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out), B, T,
+        S, H, D, sb, sh, float(scale), _DTYPE_CODE[q.dtype], stream())
+    return out
+
+
+def fused_encoder_attention(q, k, v, bias=None,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Non-causal full-kv attention on q [B,T,H,D], k/v [B,S,H,D] with an
+    additive bias [B|1,H|1,T,S]; scale defaults to D^-0.5. Kernel #3 on a
+    CUDA tensor (S <= ENCODER_MAX_S; anything else it does not take
+    raises), `fused_encoder_attention_plain` on a CPU tensor. Forward only:
+    the backward, `_vit_bwd_kernel` (#4), comes with BEiT fine-tuning."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        return fused_encoder_attention_plain(q, k, v, bias, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_encoder_attention: unsupported device "
+                         f"{q.device}")
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (q, k, v, bias)):
+        raise NotImplementedError(
+            "the backward of the fused encoder attention is `_vit_bwd_kernel`"
+            " (kernel #4), not ported yet: ROADMAP Queue 1, BEiT fine-tuning"
+            " slice")
+    if bias is not None:
+        bias = bias.to(q.dtype).contiguous()
+    return _encoder_attention_cuda(q, k, v, bias, scale)

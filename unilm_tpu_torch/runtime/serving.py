@@ -57,6 +57,7 @@ from unilm_tpu_torch.models.kosmos import UniGPTConfig, sinusoidal_table
 from unilm_tpu_torch.ops.paged_attention import (
     paged_decode_append_attention, quantize_kv_rows,
     run_decode_append_attention)
+from unilm_tpu_torch.runtime.device import resolve_device
 from unilm_tpu_torch.runtime.paged_kv import paged_attention
 
 _SLICE9 = "ROADMAP Queue 1 slice 9 (MoE and parallelism)"
@@ -466,15 +467,18 @@ class ServingEngine:
 
     `params` is a UniGPT state_dict or a flax param tree (looped or stacked:
     the port's stack is the same module list either way). `device` holds
-    the model and the pools. `use_kernel=False` runs the plain versions on
-    every device (the JAX engine's use_kernel is `mesh is None`)."""
+    the model and the pools: "cuda" by default, which raises on a host
+    without a card; the CPU only when asked for (`device="cpu"`).
+    `use_kernel=False` runs the plain versions on every device (the JAX
+    engine's use_kernel is `mesh is None`)."""
 
     def __init__(self, cfg: UniGPTConfig, scfg: ServingConfig, params,
-                 mesh=None, *, device="cpu", use_kernel: bool = True):
+                 mesh=None, *, device="cuda", use_kernel: bool = True):
         if mesh is not None:
             raise NotImplementedError(
                 f"tensor-parallel serving over a mesh is not ported yet: "
                 f"{_SLICE9}")
+        self.device = resolve_device(device)
         sd = _state_dict(params)
         if scfg.weight_dtype == "int8":
             # weight-only int8 for every decoder-layer projection
@@ -484,7 +488,6 @@ class ServingEngine:
             sd = quantize_state_dict(sd)
             cfg = dataclasses.replace(cfg, quant_weights=True)
         self.cfg, self.scfg = cfg, scfg
-        self.device = torch.device(device)
         self.use_kernel = use_kernel
         self.model = PagedGPT(cfg, use_kernel=use_kernel,
                               chunk_pages=scfg.chunk_pages, device=self.device)
