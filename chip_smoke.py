@@ -11,6 +11,13 @@ Phases, one line each:
  3. flash: the flash-forward kernel against its plain version, bf16, over
     causal/offset/kv_len/key-padding/bias/window cases, D in {64, 96, 128},
     ragged T and S, and the Kosmos-2.5 prefill shape 1x2052x16x96.
+    encoder_bwd (right after encoder_attn): the encoder attention
+    backward kernel (#4) against fused_encoder_backward_plain, bf16 and
+    fp32, dq/dk/dv/dbias (relative L2 <= 1e-2 / 1e-4): bias None,
+    [1,1,T,S], [1,H,T,S] (summed over the batch), [B,H,T,S], [B,1,T,S]
+    (summed over the heads), ragged T != S, D in {64, 96, 128}, S up to
+    2048, BEiT-B at B=256 (two runs bit-equal); timed at BEiT-B beside the
+    plain twin and the backward of torch's scaled_dot_product_attention.
     encoder_attn (run after flash_bwd): the fused encoder attention
     kernel (#3) against its plain version, bf16 (relative L2 <= 1e-2) and
     fp32 (<= 1e-4): bias None, [1,1,T,S], [1,H,T,S], [B,H,T,S], ragged
@@ -32,6 +39,20 @@ Phases, one line each:
     images: exactly 12 launches of #3 and none of #1 per forward; img/s
     and ms/batch over 10 batches (CUDA events); a teacher check against
     the plain path; a device-time profile.
+    beit_train: BEiT-B/224 fine-tuning at benchmarks/train_mfu.py
+    bench_beit's configuration (B=256, bf16 / fp32 params, drop-path 0.1,
+    EMA 0.9999, clip 3.0, 1000 classes) through
+    cli/train_classification's build_trainer with the CLI's defaults
+    (layer decay 0.9, mixup 0.8, cutmix 1.0, smoothing 0.1) on synthetic
+    normalized images: 6 steps, the last 4 timed (CUDA events); exactly 12
+    launches of #3 and 12 of #4 per step and none of #1/#6/#7; ms/step,
+    img/s, model TFLOP/s (train_mfu.py's count), peak memory; a
+    device-time profile (#3, #4, cuBLAS, elementwise, optimizer + EMA);
+    a kernel-vs-plain teacher check on one batch (same mixup draw and
+    drop-path flags); the plain path's step; then two
+    BeitForMaskedImageModeling steps at bench_beit_pretrain's
+    configuration (shared rel-pos bias, 75 blockwise-masked patches,
+    vocab 8192), 12 + 12 launches per step.
     ttft: kosmos2_5(bf16) with its Pix2Struct tower, as
     benchmarks/kosmos_ttft.py runs it: encode_image over 4096 patch
     slots, then the 2052-token prefill to the first token; exactly 43
@@ -79,8 +100,9 @@ Phases, one line each:
     against 2 + save + resume + 2, bit-equal.
 Then a JSON line with each kernel's launches (from its main-path phase,
 counters set to 0 just before it: slice for flash_fwd and decode,
-beit_eval for encoder_attention, the engines for the int8 and
-block-table kernels, train for flash_bwd_dq and flash_bwd_dkv), error,
+beit_eval for encoder_attention, beit_train for encoder_attention_bwd,
+the engines for the int8 and block-table kernels, train for flash_bwd_dq
+and flash_bwd_dkv), error,
 times (kernel, plain version, and `library_ms`, one torch call computing
 the same function where one exists, else null) and `bound_ms` /
 `bound_by` (the larger of the bytes over 3.35 TB/s and the operations
@@ -152,6 +174,23 @@ TEACHER_COS = 0.993
 BEIT_BATCH, BEIT_BATCHES = 128, 10
 BEIT_LOGIT_ATOL = 0.08
 BEIT_TOP1_AGREE = 0.75
+# BEiT-B fine-tuning (benchmarks/train_mfu.py bench_beit): B=256, 224^2,
+# drop-path 0.1, EMA 0.9999, clip 3.0, through cli/train_classification
+# with its defaults (layer decay 0.9, mixup 0.8, cutmix 1.0, smoothing
+# 0.1). Teacher check, kernel path against plain path on one batch with the
+# same mixup draws and drop-path flags: loss, global grad norm, and the
+# minimum per-tensor gradient cosine over every parameter but the key
+# biases (their gradient is zero up to rounding: a key bias shifts every
+# score of a row alike). Readings on an H100 80GB HBM3 at 700 W: loss rel
+# 6.11e-6 / 3.05e-6, grad-norm rel 2.56e-6 / 7.41e-6, min cosine 0.99980 /
+# 0.99979 (at the cls token), with #4 on fp32 CUDA cores / on the tensor
+# cores. Bounds at ~10x the larger reading:
+BEIT_TRAIN_BATCH, BEIT_TRAIN_STEPS, BEIT_TRAIN_TIMED = 256, 6, 4
+BEIT_TEACHER_LOSS_REL = 6e-5
+BEIT_TEACHER_NORM_REL = 8e-5
+BEIT_TEACHER_COS = 0.998
+# bench_beit_pretrain: 75 blockwise-masked patches of 196, vocab 8192
+BEIT_MASKED, BEIT_PRETRAIN_STEPS = 75, 2
 # Kosmos-2.5 TTFT (benchmarks/kosmos_ttft.py): 4096 patch slots, of which a
 # 62 x 64 grid is the image and the rest padding; the tower's features and
 # the first token's logits, kernel path against plain path. Readings on an
@@ -440,6 +479,121 @@ def phase_encoder_attn(fa, g) -> dict:
             "max_abs_err": worst_abs, "rel_l2_bf16": worst[torch.bfloat16],
             "rel_l2_fp32": worst[torch.float32], "ms": times["kernel"],
             "plain_ms": times["plain"], "library_ms": lib_ms, **bd,
+            "shape": f"{B}x{T}x{H}x{D} bf16 bias [1,{H},{T},{T}]"}
+
+
+def phase_encoder_bwd(fa, g) -> dict:
+    """Kernel #4 against fused_encoder_backward_plain on the same inputs,
+    bf16 and fp32: dq, dk, dv and dbias, each held by grad_close at 1e-2
+    (bf16) or 1e-4 (fp32). Both compute p, dp and ds in fp32 from the same
+    inputs and round ds and p to the inputs' type at the same places; they
+    differ only in summation order and in the exp2 against the exp domain,
+    so an element of ds or p can land on the other side of a bf16 rounding
+    boundary (2^-8 relative) and the products differ by a few such ulps:
+    1e-2 relative L2 in bf16, 1e-4 in fp32 (no rounding step at all).
+    Cases: every bias broadcast ([1,1], [1,H] summed over the batch, [B,H],
+    [B,1] summed over the heads), ragged T != S, D in {64, 96, 128}, S up
+    to 2048, and BEiT-B at B=256, which two runs must give bit-equal. Then
+    timed at BEiT-B beside the plain twin and sdpa's backward."""
+    dev = "cuda"
+    # (B, T, S, H, D, bias)
+    cases = [
+        (2, 197, 197, 4, 64, None), (2, 197, 197, 4, 64, "11"),
+        (3, 197, 197, 4, 64, "1H"), (3, 100, 77, 4, 96, "BH"),
+        (2, 77, 100, 4, 64, "B1"), (2, 37, 301, 2, 128, "1H"),
+        (2, 301, 37, 2, 64, None), (2, 131, 93, 3, 96, "11"),
+        (1, 50, 2048, 2, 64, "1H"), (2, 70, 1500, 2, 128, "B1"),
+        (2, 64, 2048, 2, 128, "BH"),
+        (BEIT_TRAIN_BATCH, 197, 197, 12, 64, "1H"),  # BEiT-B fine-tuning
+    ]
+    shapes = {None: None, "11": lambda B, H, T, S: (1, 1, T, S),
+              "1H": lambda B, H, T, S: (1, H, T, S),
+              "BH": lambda B, H, T, S: (B, H, T, S),
+              "B1": lambda B, H, T, S: (B, 1, T, S)}
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_abs = 0.0
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        def rn(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+        for B, T, S, H, D, bias in cases:
+            q, k, v, do = rn(B, T, H, D), rn(B, S, H, D), rn(B, S, H, D), \
+                rn(B, T, H, D)
+            b = None if bias is None else 2 * rn(*shapes[bias](B, H, T, S))
+            got = fa.fused_encoder_backward(q, k, v, b, do)
+            ref = fa.fused_encoder_backward_plain(q, k, v, b, do)
+            torch.cuda.synchronize()
+            desc = (f"{str(dtype)[6:]} B{B} T{T} S{S} H{H} D{D} "
+                    f"bias={bias}")
+            for name, x, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+                if r is None:
+                    check(x is None, f"encoder_bwd {desc}: {name} not None")
+                    continue
+                check(x.dtype == r.dtype and x.shape == r.shape,
+                      f"encoder_bwd {desc}: {name} {x.dtype} {tuple(x.shape)}"
+                      f" vs {r.dtype} {tuple(r.shape)}")
+                ok, e, rel = grad_close(x, r, tol)
+                check(bool(torch.isfinite(x).all()) and ok,
+                      f"encoder_bwd {desc}: {name} max|err| {e} rel L2 {rel}"
+                      f" (bound {tol})")
+                worst[dtype] = max(worst[dtype], rel)
+                if dtype == torch.bfloat16:
+                    worst_abs = max(worst_abs, e)
+            beit_b = (B, T, H) == (BEIT_TRAIN_BATCH, 197, 12)
+            if dtype == torch.bfloat16 and beit_b:
+                again = fa.fused_encoder_backward(q, k, v, b, do)
+                check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                      "encoder_bwd: two runs at BEiT-B differ")
+            del q, k, v, do, b, got, ref
+        phase("encoder_bwd", f"{str(dtype)[6:]}: {len(cases)} cases, dq/dk/"
+              f"dv/dbias worst rel L2 {worst[dtype]:.3g} (bound {tol}) ok"
+              + ("; BEiT-B bit-equal across two runs"
+                 if dtype == torch.bfloat16 else ""))
+
+    bf = torch.bfloat16
+    B, T, H, D = BEIT_TRAIN_BATCH, 197, 12, 64
+    q, k, v, do = (torch.randn(B, T, H, D, generator=g, device=dev).to(bf)
+                   for _ in range(4))
+    b = torch.randn(1, H, T, T, generator=g, device=dev).to(bf)
+    times = {}
+    for _ in range(2):
+        for name, fn in (
+                ("kernel", lambda: fa.fused_encoder_backward(q, k, v, b, do)),
+                ("plain", lambda: fa.fused_encoder_backward_plain(q, k, v, b,
+                                                                  do))):
+            times[name] = cuda_ms(fn, iters=10)
+    # the yardstick: the backward alone of torch's SDPA with the bias as a
+    # float mask that needs a gradient, one saved graph
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    bg = b.detach().clone().requires_grad_()
+    o = sdpa(qg, kg, vg, attn_mask=bg)
+    backend = type(o.grad_fn).__name__
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        o, (qg, kg, vg, bg), do.transpose(1, 2), retain_graph=True), iters=10)
+    del o, qg, kg, vg, bg
+    # the batch sum of dbias with 16x fewer dq blocks (more batch items per
+    # block, fewer partial planes): the setting fa.DBIAS_BLOCKS chose against
+    blocks = fa.DBIAS_BLOCKS
+    fa.DBIAS_BLOCKS = blocks // 16
+    fewer_ms = cuda_ms(lambda: fa.fused_encoder_backward(q, k, v, b, do),
+                       iters=10)
+    fa.DBIAS_BLOCKS = blocks
+    dq, dk, dv, dbias = fa.fused_encoder_backward(q, k, v, b, do)
+    flops = 10 * B * H * T * T * D
+    bd = roofline(nbytes(q, k, v, do, b, dq, dk, dv, dbias), flops)
+    phase("encoder_bwd", f"BEiT-B {B}x{T}x{H}x{D} bf16, bias [1,{H},{T},{T}]"
+          f": kernel {times['kernel']:.4f} ms ({flops / times['kernel'] / 1e9:.1f}"
+          f" TFLOP/s; {fewer_ms:.4f} ms with DBIAS_BLOCKS {blocks // 16} in "
+          f"place of {blocks}), plain {times['plain']:.4f} ms, sdpa backward "
+          f"{lib_ms:.4f} ms ({backend}), bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']})")
+    return {"name": "encoder_attention_bwd", "route": "cuda",
+            "source": "unilm_tpu_torch/csrc/encoder_attention_bwd.cu",
+            "replaces": "unilm_tpu/ops/flash_attention.py:711",
+            "max_abs_err": worst_abs, "rel_l2_bf16": worst[torch.bfloat16],
+            "rel_l2_fp32": worst[torch.float32], "ms": times["kernel"],
+            "plain_ms": times["plain"], "library_ms": lib_ms,
+            "library": f"sdpa backward ({backend})", **bd,
             "shape": f"{B}x{T}x{H}x{D} bf16 bias [1,{H},{T},{T}]"}
 
 
@@ -958,6 +1112,243 @@ def phase_beit_eval(fa) -> dict:
                   f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
                   for k, v in shares.items()))
     del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_beit_train(fa) -> dict:
+    """BEiT-B fine-tuning at bench_beit's configuration through
+    cli/train_classification's build_trainer on synthetic normalized
+    images: 12 launches of #3 and 12 of #4 per step, ms/step, img/s, model
+    TFLOP/s, peak memory, a device-time profile, the plain path's step, a
+    kernel-vs-plain teacher check, then two BeitForMaskedImageModeling
+    steps at bench_beit_pretrain's configuration."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unilm_tpu_torch.cli import train_classification as tcl
+    from unilm_tpu_torch.data.masking import MaskingGenerator
+    from unilm_tpu_torch.models import beit
+    from unilm_tpu_torch.runtime import optim, train
+
+    dev = torch.device("cuda")
+    B = BEIT_TRAIN_BATCH
+    args = tcl.build_parser().parse_args([
+        "--model", "beit_base_patch16_224", "--data_path", "unused",
+        "--batch_size", str(B), "--nb_classes", "1000", "--drop_path", "0.1",
+        "--ema_decay", "0.9999", "--clip_grad", "3.0", "--seed", str(SEED)])
+    # an ImageNet-sized item list: the schedule's length (30 epochs of 40
+    # batches, 5 of warmup); the images themselves are synthetic
+    items = [(f"synthetic/{i}", i % 1000) for i in range(40 * B)]
+
+    def trainer(use_flash):
+        tr = tcl.build_trainer(args, items, use_flash=use_flash)
+        g = torch.Generator(device=dev).manual_seed(SEED)
+        with torch.no_grad():  # random tables, so the bias and dbias matter
+            for m in tr.model.modules():
+                if isinstance(m, beit.Beit2DRelativePositionBias):
+                    m.relative_position_bias_table.normal_(0.0, 0.5,
+                                                           generator=g)
+        return tr
+
+    tr = trainer(True)
+    model, cfg, L = tr.model, tr.cfg, tr.cfg.num_layers
+    T = cfg.num_patches + 1
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    images = [torch.randn(B, cfg.img_size, cfg.img_size, 3, generator=g,
+                          device=dev) for _ in range(2)]
+    labels = torch.randint(0, 1000, (B,), generator=g, device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_mm = sum(p.numel() for name, p in model.named_parameters()
+               if p.ndim >= 2 and "embed" not in name)  # train_mfu's count
+    phase("beit_train", f"BEiT-B/224 fine-tuning: {L} layers, E="
+          f"{cfg.embed_dim}, H={cfg.num_heads}, {T} tokens, batch {B}, bf16 "
+          f"compute / fp32 params, {n_params / 1e6:.1f} M params; drop-path "
+          f"0.1, layer decay {args.layer_decay}, mixup {args.mixup} / cutmix "
+          f"{args.cutmix}, smoothing {args.label_smoothing}, EMA "
+          f"{args.ema_decay}, clip {args.clip_grad}")
+
+    # ---- the main path: BEIT_TRAIN_STEPS steps, the last ones timed -----
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    metrics = []
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(BEIT_TRAIN_STEPS):
+        if i == BEIT_TRAIN_STEPS - BEIT_TRAIN_TIMED:
+            torch.cuda.reset_peak_memory_stats()
+            ev[0].record()
+        batch = tr.make_batch(images[i % 2], labels, tr.state.step)
+        tr.state, m = tr.step_fn(tr.state, batch)
+        metrics.append(m)
+    ev[1].record()
+    torch.cuda.synchronize()
+    got = counts()
+    ms = ev[0].elapsed_time(ev[1]) / BEIT_TRAIN_TIMED
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"beit_train: loss {losses} grad norm {norms}")
+    n = BEIT_TRAIN_STEPS
+    check(got["encoder_attention"] == L * n
+          and got["encoder_attention_bwd"] == L * n
+          and got["flash_fwd"] == got["flash_bwd_dq"] == 0
+          and got["flash_bwd_dkv"] == 0,
+          f"beit_train: launches over {n} steps {got} (want {L} of #3 and "
+          f"{L} of #4 per step, none of #1/#6/#7)")
+    launches = {"encoder_attention_bwd": got["encoder_attention_bwd"]}
+    flops = 6.0 * n_mm * B * T + 12.0 * L * cfg.embed_dim * T * B * T
+    phase("beit_train", "steps " + ", ".join(
+        f"{i + 1}: loss {lo:.4f} grad norm {gn:.3f}"
+        for i, (lo, gn) in enumerate(zip(losses, norms))))
+    phase("beit_train", f"launches per step: {L} of #3, {L} of #4, none of "
+          f"#1/#6/#7; steps {n - BEIT_TRAIN_TIMED + 1}-{n}: {ms:.2f} ms/step "
+          f"(CUDA events), {B * 1e3 / ms:.1f} img/s, {flops / ms / 1e9:.1f} "
+          f"model TFLOP/s = {flops / ms / 1e9 / 989 * 100:.1f}% of 989 "
+          f"TFLOP/s bf16 dense; peak memory {peak:.1f} GiB")
+
+    # ---- device-time profile: forward + backward, then optimizer + EMA --
+    groups = [("encoder_attention #3", ["encoder_attn_kernel"]),
+              ("encoder_attention_bwd #4", ["enc_bwd_"]),
+              ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                          "splitK"])]
+    batch = tr.make_batch(images[0], labels, tr.state.step)
+    params = train.trainable(model)
+
+    def fwd_bwd():
+        loss, _ = tr.loss_fn(model, batch)
+        return torch.autograd.grad(loss, params)
+
+    grads = fwd_bwd()
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        grads = fwd_bwd()
+        torch.cuda.synchronize()
+    parts = device_time_shares(prof, groups)
+    parts["elementwise and other"] = parts.pop("other")
+    scratch = [p.detach().clone() for p in params]
+    ema = [e.clone() for e in tr.state.ema_params]
+    opt = {k: ([t.clone() for t in v] if isinstance(v, list) else v)
+           for k, v in tr.state.opt_state.items()}
+    with profile(activities=acts) as prof:
+        tr.tx.update(grads, opt, scratch)
+        with torch.no_grad():
+            for e, p in zip(ema, scratch):
+                e.mul_(args.ema_decay).add_(p, alpha=1.0 - args.ema_decay)
+        torch.cuda.synchronize()
+    parts["optimizer + EMA"] = sum(device_time_shares(prof, []).values())
+    del scratch, ema, opt, grads
+    total = sum(parts.values())
+    if total <= 0:
+        phase("beit_train", "profiler saw no device time: shares not measured")
+    else:
+        phase("beit_train", f"device time per step {total:.2f} ms of "
+              f"{ms:.2f} ms ({100 * total / ms:.0f}% busy): " + ", ".join(
+                  f"{k} {v:.2f} ms ({100 * v / total:.1f}%)"
+                  for k, v in parts.items()))
+
+    # ---- teacher check: kernel path against plain path, one batch -------
+    plain = trainer(False)
+    plain.model.load_state_dict(model.state_dict())
+    c0 = counts()
+
+    def loss_grads(t):
+        loss, _ = t.loss_fn(t.model, batch)
+        ps = train.trainable(t.model)
+        return float(loss.detach()), torch.autograd.grad(loss, ps)
+
+    lk, gk = loss_grads(tr)
+    c1 = counts()
+    lp, gp = loss_grads(plain)
+    torch.cuda.synchronize()
+    check(counts() == c1 and c1["encoder_attention_bwd"]
+          - c0["encoder_attention_bwd"] == L,
+          f"beit_train teacher: launch counts {c0} -> {c1} -> {counts()}")
+    names = [nm for nm, _ in model.named_parameters()]
+    nk = float(optim.global_norm(gk))
+    npl = float(optim.global_norm(gp))
+    cos = {nm: float(torch.nn.functional.cosine_similarity(
+        a.flatten().float(), b.flatten().float(), dim=0))
+        for nm, a, b in zip(names, gk, gp) if not nm.endswith("k_proj.bias")}
+    worst = min(cos, key=cos.get)
+    loss_rel, norm_rel = abs(lk - lp) / abs(lp), abs(nk - npl) / npl
+    phase("beit_train", f"teacher check, one batch, same mixup draw and "
+          f"drop-path flags: loss kernel {lk:.6f} plain {lp:.6f} (rel "
+          f"{loss_rel:.2e}, tol {BEIT_TEACHER_LOSS_REL}); grad norm kernel "
+          f"{nk:.5f} plain {npl:.5f} (rel {norm_rel:.2e}, tol "
+          f"{BEIT_TEACHER_NORM_REL}); min per-tensor cosine {cos[worst]:.5f} "
+          f"({worst}, tol {BEIT_TEACHER_COS})")
+    check(loss_rel <= BEIT_TEACHER_LOSS_REL
+          and norm_rel <= BEIT_TEACHER_NORM_REL
+          and cos[worst] >= BEIT_TEACHER_COS, "beit_train: teacher check "
+          "failed")
+    del gk, gp
+
+    # ---- the plain path's step -------------------------------------------
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for i in range(3):
+        if i == 1:
+            ev[0].record()
+        b = plain.make_batch(images[i % 2], labels, plain.state.step)
+        plain.state, _ = plain.step_fn(plain.state, b)
+    ev[1].record()
+    torch.cuda.synchronize()
+    check(counts() == c1, "beit_train: the plain path launched a kernel")
+    ms_plain = ev[0].elapsed_time(ev[1]) / 2
+    phase("beit_train", f"plain path (use_flash=False) {ms_plain:.2f} ms/step "
+          f"({B * 1e3 / ms_plain:.1f} img/s); kernel path {ms:.2f} ms")
+    del plain, tr, model, batch
+    torch.cuda.empty_cache()
+
+    # ---- pretraining: BeitForMaskedImageModeling, bench_beit_pretrain ----
+    pcfg = beit.beit_base_patch16_224(
+        dtype=torch.bfloat16, drop_path_rate=0.1, use_shared_rel_pos_bias=True,
+        use_rel_pos_bias=False)
+    mim = beit.BeitForMaskedImageModeling(pcfg, device=dev)
+    mim.init_weights(torch.Generator(device=dev).manual_seed(SEED)).train()
+    with torch.no_grad():
+        mim.backbone.rel_pos_bias.relative_position_bias_table.normal_(
+            0.0, 0.5, generator=g)
+    gen = MaskingGenerator(cfg.grid_size, num_masking_patches=BEIT_MASKED,
+                           rng=np.random.default_rng(SEED))
+    masks = torch.from_numpy(np.stack([gen().reshape(-1) for _ in range(B)])
+                             ).bool().to(dev)
+    targets = torch.randint(0, pcfg.vocab_size, (B, cfg.num_patches),
+                            generator=g, device=dev)
+    tx = optim.create_optimizer(list(mim.named_parameters()), 1.5e-3,
+                                betas=(0.9, 0.98), weight_decay=0.05)
+
+    def mim_loss(m, b):
+        s, cnt = train.cross_entropy_loss(
+            m(b["x"], b["mask"], torch.Generator(device=dev).manual_seed(
+                b["seed"])), b["y"], mask=b["mask"])
+        return s / cnt, {}
+
+    state = train.TrainState.create(mim, tx)
+    step = train.make_train_step(mim_loss, tx, clip_grad_norm=3.0)
+    c0 = counts()
+    pl = []
+    t0 = time.time()
+    for i in range(BEIT_PRETRAIN_STEPS):
+        state, m = step(state, {"x": images[i % 2], "mask": masks,
+                                "y": targets, "seed": SEED + i})
+        pl.append((float(m["loss"]), float(m["grad_norm"])))
+    torch.cuda.synchronize()
+    dt = (time.time() - t0) / BEIT_PRETRAIN_STEPS
+    ran = {k: counts()[k] - c0[k] for k in c0}
+    check(all(np.isfinite(x) for lg in pl for x in lg)
+          and ran["encoder_attention"] == L * BEIT_PRETRAIN_STEPS
+          and ran["encoder_attention_bwd"] == L * BEIT_PRETRAIN_STEPS
+          and ran["flash_fwd"] == 0,
+          f"beit_train pretraining: losses {pl}, launches {ran}")
+    phase("beit_train", f"pretraining (BeitForMaskedImageModeling, shared "
+          f"rel-pos bias, {int(masks[0].sum())} of {cfg.num_patches} patches "
+          f"masked, vocab {pcfg.vocab_size}, B={B}): "
+          + ", ".join(f"step {i + 1} loss {lo:.4f} grad norm {gn:.3f}"
+                      for i, (lo, gn) in enumerate(pl))
+          + f"; {L} + {L} launches of #3/#4 per step; {dt * 1e3:.1f} ms/step "
+          "(host clock, first steps)")
+    del mim, state, step
     torch.cuda.empty_cache()
     return launches
 
@@ -1805,15 +2196,17 @@ def main() -> int:
                     "int8_matmul": qm.KERNEL,
                     "paged_append_attention": pa.APPEND_KERNEL,
                     "flash_bwd_dq": fa.BWD_KERNEL_DQ,
-                    "flash_bwd_dkv": fa.BWD_KERNEL_DKV})
+                    "flash_bwd_dkv": fa.BWD_KERNEL_DKV,
+                    "encoder_attention_bwd": fa.ENCODER_BWD_KERNEL})
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [phase_flash(fa, g), *phase_flash_bwd(fa, g),
-               phase_encoder_attn(fa, g), phase_decode(pa, g),
-               phase_decode_int8(pa, g), phase_int8_matmul(qm, g),
-               phase_paged_append(pa, g)]
+               phase_encoder_attn(fa, g), phase_encoder_bwd(fa, g),
+               phase_decode(pa, g), phase_decode_int8(pa, g),
+               phase_int8_matmul(qm, g), phase_paged_append(pa, g)]
     launches = phase_slice(fa, pa)
     launches.update(phase_beit_eval(fa))
+    launches.update(phase_beit_train(fa))
     launches.update(phase_ttft(fa))
     cfg, sd = engine_model()
     launches.update(phase_engine_int8(cfg, sd))

@@ -153,12 +153,25 @@ def test_flax_conv_kernel_becomes_the_patch_projection():
 
 
 def test_training_mode_raises_for_drop_path():
-    cfg = tb.BeitConfig(drop_path_rate=0.1, **SMALL)
+    """Drop-path in training draws its flags from the generator the caller
+    passes (the same seed, the same output; another seed, another); without
+    one it raises rather than reach for the global RNG. Eval is the
+    identity, as flax's deterministic=True."""
+    cfg = tb.BeitConfig(drop_path_rate=0.5, **SMALL)
     m = tb.BeitForImageClassification(cfg)
-    x = torch.zeros(1, 64, 64, 3)
-    with pytest.raises(NotImplementedError, match="fine-tuning"):
+    m.init_weights(torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(0).randn(4, 64, 64, 3)
+                         .astype(np.float32))
+    with pytest.raises(ValueError, match="draw_drop_path"):
         m(x)
-    m.eval()(x)  # eval: the identity, as flax's deterministic=True
+    with torch.no_grad():
+        a = m(x, torch.Generator().manual_seed(1))
+        b = m(x, torch.Generator().manual_seed(1))
+        c = m(x, torch.Generator().manual_seed(2))
+        ev = m.eval()(x)
+        ev2 = m(x, torch.Generator().manual_seed(1))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    assert torch.equal(ev, ev2)
 
 
 def _hf(shared: bool):
@@ -284,7 +297,8 @@ def test_eval_cli_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="device cpu"):
         tcli.evaluate(args)
-    with pytest.raises(SystemExit, match="fine-tuning"):
+    # without --eval it points at the training entry, as the JAX CLI does
+    with pytest.raises(SystemExit, match="cli.train_classification"):
         tcli.main(["--data_path", "x"])
 
 

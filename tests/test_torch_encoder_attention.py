@@ -156,9 +156,19 @@ def test_kernel_wrapper_raises_on_what_it_does_not_take(shape, match):
             _fake(B, S, H, D, cls=_FakeCudaDevice), None, D ** -0.5)
 
 
-def test_kernel_wrapper_refuses_gradients():
-    """The backward (`_vit_bwd_kernel`, #4) is not ported: a CUDA call
-    that would need a gradient raises instead of giving none."""
+def test_kernel_wrapper_refuses_gradients(monkeypatch):
+    """A CUDA call that needs a gradient is no longer refused: it runs
+    under EncoderAttentionFn, forward through #3's wrapper and backward
+    through #4's (`_vit_bwd_kernel`), each called once."""
+    seen = []
+    monkeypatch.setattr(tfa, "_encoder_attention_cuda",
+                        lambda q, k, v, b, s: seen.append("#3") or q * 1.0)
+    monkeypatch.setattr(
+        tfa, "_encoder_backward_cuda",
+        lambda q, k, v, b, do, s, want: seen.append("#4") or (
+            do, do, do, None))
     q = _fake(1, 8, 2, 64, cls=_FakeCudaDevice).requires_grad_()
-    with pytest.raises(NotImplementedError, match="_vit_bwd_kernel"):
-        tfa.fused_encoder_attention(q, q, q)
+    out = tfa.fused_encoder_attention(q, q, q)
+    assert out.grad_fn is not None and seen == ["#3"]
+    out.sum().backward()
+    assert seen == ["#3", "#4"] and q.grad is not None

@@ -50,6 +50,32 @@ train_gpt.main(["--data", work + "/data", "--save_dir", work + "/ckpt",
                 "--ce_chunk", "128", "--log_every", "1", "--device", "cpu"])
 """
 
+_FINETUNE = _POISON + r"""
+import os
+import numpy as np
+import torch
+from PIL import Image
+from unilm_tpu_torch.cli import train_classification
+from unilm_tpu_torch.models import beit
+
+torch.set_num_threads(1)
+work = sys.argv[1]
+rng = np.random.RandomState(0)
+for c in ("a", "b"):
+    os.makedirs(f"{work}/imgs/{c}")
+    for i in range(2):
+        Image.fromarray(rng.randint(0, 256, (40, 40, 3)).astype(np.uint8)
+                        ).save(f"{work}/imgs/{c}/{i}.png")
+beit.beit_tiny = lambda **kw: beit.BeitConfig(
+    **{**dict(img_size=32, patch_size=8, embed_dim=32, num_layers=2,
+              num_heads=2, ffn_dim=64), **kw})
+state = train_classification.main([
+    "--model", "beit_tiny", "--data_path", work + "/imgs", "--device", "cpu",
+    "--batch_size", "4", "--epochs", "1", "--clip_grad", "3.0",
+    "--output_dir", work + "/ckpt"])
+print("steps", state.step)
+"""
+
 # the modules each slice of the port added; every one must be among them
 PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "ops._native", "ops.attention", "ops.flash_attention",
@@ -60,7 +86,8 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "runtime.logging", "cli.train_gpt", "data.indexed_dataset",
           "data.iterators", "data.dictionary", "core.embedding",
           "models.beit", "convert.beit", "data.transforms", "scoring",
-          "cli.run_class_finetuning", "runtime.device"}
+          "cli.run_class_finetuning", "runtime.device",
+          "cli.train_classification", "data.masking"}
 
 
 def test_port_imports_without_jax():
@@ -79,6 +106,17 @@ def test_train_cli_runs_without_jax(tmp_path):
                          timeout=120)
     assert res.returncode == 0, res.stderr
     assert "done" in res.stdout.split(), res.stdout
+
+
+def test_finetune_cli_runs_without_jax(tmp_path):
+    """One BEiT fine-tune step (mixup/cutmix, drop-path, layer-decay
+    AdamW, EMA, checkpoint) through cli.train_classification reaches no
+    JAX module."""
+    res = subprocess.run([sys.executable, "-c", _FINETUNE, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "steps 1" in res.stdout, res.stdout
 
 
 def test_chip_smoke_names_no_jax_module():

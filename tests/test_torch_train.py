@@ -152,9 +152,16 @@ def test_create_optimizer_branches():
     assert isinstance(toptim.create_optimizer(named, 1e-3,
                                               optimizer="adafactor"),
                       toptim.Adafactor)
-    for kw in (dict(optimizer="lamb"), dict(layer_decay=0.75)):
-        with pytest.raises(NotImplementedError, match="slice 6"):
-            toptim.create_optimizer(named, 1e-3, **kw)
+    # LAMB, SGD and layer decay, once "not ported", now build (their
+    # arithmetic against optax: tests/test_torch_beit_train.py)
+    lamb = toptim.create_optimizer(named, 1e-3, optimizer="lamb")
+    assert isinstance(lamb, toptim.Lamb) and lamb.mask == [True, False, False]
+    ld = toptim.create_optimizer(named, 1e-3, layer_decay=0.75, num_layers=2)
+    assert isinstance(ld, toptim.AdamW) and ld.scales == [1.0, 1.0, 0.75 ** 3]
+    assert isinstance(toptim.create_optimizer(named, 1e-3, optimizer="sgd"),
+                      toptim.Sgd)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        toptim.create_optimizer(named, 1e-3, optimizer="rmsprop")
 
 
 # --------------------------------------------------------------------------- #

@@ -13,9 +13,9 @@ raises on a host without one) unless `--device cpu` asks for the CPU.
 
 The CLI is a folder reader (`folder_batches`: PIL, `eval_transform`) and
 an evaluation loop over (images, labels) batches (`evaluate_batches`),
-which a caller can drive with batches of its own. Fine-tuning (the JAX
-CLI points to cli/train_classification.py) is the BEiT fine-tuning slice
-(ROADMAP Queue 1) and raises.
+which a caller can drive with batches of its own. Without `--eval` it
+exits pointing at the training entry, `cli/train_classification.py`, as
+the JAX CLI does.
 """
 
 from __future__ import annotations
@@ -156,9 +156,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     if not args.eval:
         raise SystemExit(
-            "fine-tuning (cli/train_classification.py in the JAX package) is "
-            "not ported yet: ROADMAP Queue 1, BEiT fine-tuning slice; pass "
-            "--eval")
+            "training entry: use unilm_tpu_torch.cli.train_classification")
     return evaluate(args)
 
 

@@ -1,12 +1,15 @@
-"""BEiT / DiT checkpoints -> the port's `BeitForImageClassification`
-state_dict (port of unilm_tpu/convert/beit.py `convert_beit`, `_from_timm`
-:28, `_from_hf` :92).
+"""BEiT / DiT checkpoints -> the port's `BeitForImageClassification` or
+`BeitForMaskedImageModeling` state_dict (port of unilm_tpu/convert/beit.py
+`convert_beit`, `_from_timm` :28, `_from_hf` :92).
 
 Two serialisations of the family:
 - HF `BeitForImageClassification` / `BeitModel` state dicts (`beit.*`);
 - reference timm-style checkpoints (beit/modeling_finetune.py names:
   cls_token, patch_embed.proj, blocks.i.attn.qkv + q_bias/v_bias,
-  gamma_1/gamma_2, rel_pos_bias tables), which DiT releases use too.
+  gamma_1/gamma_2, rel_pos_bias tables), which DiT releases use too; a
+  pretraining checkpoint (beit/modeling_pretrain.py: `lm_head`, its
+  `norm`, `mask_token`, the shared `rel_pos_bias`) maps onto the MIM
+  model's `norm` and `lm_head`, as the JAX converter maps it (:84-88).
 
 Torch Linear weights keep their [out, in] layout. The patch-embedding
 Conv2d weight [E, C, p, p] becomes `proj.weight` [E, p*p*C] in (kh, kw, C)
@@ -51,13 +54,10 @@ def _patch_proj(sd: Mapping, src: str, out: Dict) -> None:
 
 def convert_beit(sd: Mapping, cfg: BeitConfig) -> Dict[str, torch.Tensor]:
     """A timm/unilm or HF BEiT state_dict -> the state_dict of
-    `BeitForImageClassification(cfg)`."""
+    `BeitForImageClassification(cfg)`, or of
+    `BeitForMaskedImageModeling(cfg)` for a timm pretraining checkpoint
+    (one with `lm_head`)."""
     sd = dict(sd)
-    if "lm_head.weight" in sd:
-        raise NotImplementedError(
-            "BeitForMaskedImageModeling checkpoints (lm_head) need the "
-            "pretraining model, not ported yet: ROADMAP Queue 1, BEiT "
-            "fine-tuning slice")
     if any(k.startswith("beit.") for k in sd):
         return _from_hf(sd, cfg)
     return _from_timm(sd, cfg)
@@ -103,6 +103,11 @@ def _from_timm(sd: Mapping, cfg: BeitConfig) -> Dict[str, torch.Tensor]:
         _norm(sd, "fc_norm", "fc_norm", out)
     if "head.weight" in sd:
         _linear(sd, "head", "head", out)
+    if "lm_head.weight" in sd:  # pretraining: `norm` is the MIM head's
+        _linear(sd, "lm_head", "lm_head", out)
+        _norm(sd, "norm", "norm", out)
+        for k in ("weight", "bias"):
+            out.pop(f"backbone.encoder.layer_norm.{k}", None)
     return out
 
 

@@ -1,6 +1,5 @@
 """Shared building blocks (port of unilm_tpu/core/layers.py): projections,
-norms, activations, the feed-forward block, LayerScale and DropPath (eval
-only).
+norms, activations, the feed-forward block, LayerScale and DropPath.
 
 Parameters are stored in `cfg.param_dtype` and cast to the compute dtype
 `cfg.dtype` on use, as flax's `dtype`/`param_dtype` pair does. Norm
@@ -129,20 +128,31 @@ class LayerScale(nn.Module):
 
 
 class DropPath(nn.Module):
-    """Stochastic depth per sample (unilm_tpu/core/layers.py:41), eval
-    only: the identity outside training. Drawing it in training is the
-    BEiT fine-tune slice's work and raises."""
+    """Stochastic depth per sample (unilm_tpu/core/layers.py:41): in
+    training, `where(keep, x / (1 - rate), 0)` in x's dtype with one keep
+    flag per sample; the identity outside training or at rate 0.
+
+    The flags are not drawn here: the caller draws every flag of a step
+    before the forward (`Encoder.draw_drop_path`, from an explicit
+    `torch.Generator`) and passes this call's `keep` [B] bool, so that an
+    activation-checkpointed layer sees the same flags when it is
+    recomputed (torch.utils.checkpoint restores the global RNG state, not a
+    generator passed in by hand)."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.rate > 0.0 and self.training:
-            raise NotImplementedError(
-                "drop-path in training is not ported yet: ROADMAP Queue 1, "
-                "BEiT fine-tuning slice")
-        return x
+    def forward(self, x: torch.Tensor,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        if keep is None:
+            raise ValueError(
+                "DropPath in training needs the pre-drawn keep flags of its "
+                "call (Encoder.draw_drop_path)")
+        keep = keep.reshape((x.shape[0],) + (1,) * (x.ndim - 1))
+        return torch.where(keep, x / (1.0 - self.rate), 0.0)
 
 
 def make_dense(cfg: TransformerConfig, in_features: int, features: int, *,

@@ -9,10 +9,11 @@ Pix2Struct tower): pre- or post-LN, LayerScale, the deepnorm `alpha`, one
 shared bias or a per-layer list of biases, a key-padding
 mask, the optional final LayerNorm and `return_all_hiddens`. It keeps the
 input's dtype for the residual stream, as flax's promotion does (a float32
-input stays float32 around bf16 layers). Drop-path and dropout are eval
-only (a module in training with a nonzero rate raises, BEiT fine-tune
-slice); multiway (slice 7), MoE and T5 relative-position buckets (slices
-9-10) raise.
+input stays float32 around bf16 layers). Drop-path trains on keep flags
+drawn before the forward (`Encoder.draw_drop_path`); `cfg.remat` recomputes
+each layer in the backward. Dropout in training (slice 6's remainder),
+multiway (slice 7), MoE and T5 relative-position buckets (slices 9-10)
+raise.
 
 One layer class serves every mode: `mode="train"` is the full-sequence
 forward of the looped and the scanned JAX stacks (the same math), with
@@ -33,9 +34,9 @@ Pool layout [B, L*PP, page, H*D] (batch-leading, H*D flat), as in JAX, so
 the cache leaves compare tensor for tensor: `kv_pool_key`,
 `kv_pool_value`, `cache_index`.
 
-Cross-attention, relative-position buckets, MoE, drop-path, dropout, the
-"dots" remat policy and the int8 KV pool raise NotImplementedError naming
-their ROADMAP entry.
+Cross-attention, relative-position buckets, MoE, drop-path in the decoder,
+dropout, the "dots" remat policy and the int8 KV pool raise
+NotImplementedError naming their ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -199,7 +200,10 @@ class DecoderLayer(nn.Module):
 class EncoderLayer(nn.Module):
     """One encoder layer (the JAX `EncoderLayer`): self-attention + FFN,
     each with an optional LayerScale (`gamma_1`, `gamma_2`) and drop-path
-    on the branch before the residual `residual * alpha + x`."""
+    on the branch before the residual `residual * alpha + x`. The one
+    DropPath runs on both branches, each call with its own keep flags
+    (`drop_path_keep` [2, B]), as the JAX layer's one module draws a fresh
+    key per call."""
 
     def __init__(self, cfg: TransformerConfig, drop_path: float = 0.0,
                  layer_scale_init: float = 0.0, alpha: float = 1.0,
@@ -219,29 +223,34 @@ class EncoderLayer(nn.Module):
                                       device=device)
         self.drop_path = DropPath(drop_path)
 
-    def _branch(self, residual, x, gamma):
+    def _branch(self, residual, x, gamma, keep):
         if self.training and self.cfg.dropout:
             raise NotImplementedError(
                 "dropout in the encoder's training forward is not ported "
-                "yet: ROADMAP Queue 1, BEiT fine-tuning slice")
+                "yet (every BEiT config of the repo runs with dropout 0): "
+                "ROADMAP Queue 1, remainder of slice 6 (dropout)")
         if gamma is not None:
             x = gamma(x)
-        return residual * self.alpha + self.drop_path(x)
+        return residual * self.alpha + self.drop_path(x, keep)
 
-    def forward(self, x, key_padding_mask=None, attn_bias=None):
+    def forward(self, x, key_padding_mask=None, attn_bias=None,
+                drop_path_keep=None):
         pre = self.cfg.normalize_before
+        keep = ((None, None) if drop_path_keep is None
+                else (drop_path_keep[0], drop_path_keep[1]))
         residual = x
         if pre:
             x = self.self_attn_layer_norm(x)
         x = self.self_attn.forward_train(x, key_padding_mask=key_padding_mask,
                                          attn_bias=attn_bias)
-        x = self._branch(residual, x, getattr(self, "gamma_1", None))
+        x = self._branch(residual, x, getattr(self, "gamma_1", None), keep[0])
         if not pre:
             x = self.self_attn_layer_norm(x)
         residual = x
         if pre:
             x = self.final_layer_norm(x)
-        x = self._branch(residual, self.ffn(x), getattr(self, "gamma_2", None))
+        x = self._branch(residual, self.ffn(x), getattr(self, "gamma_2", None),
+                         keep[1])
         if not pre:
             x = self.final_layer_norm(x)
         return x
@@ -250,7 +259,11 @@ class EncoderLayer(nn.Module):
 class Encoder(nn.Module):
     """Bidirectional stack over pre-embedded inputs [B, T, E] (the JAX
     `Encoder`). `layer_scale_init` (a call argument in flax, where it
-    decides which params exist) is a constructor argument here."""
+    decides which params exist) is a constructor argument here. Layer i's
+    drop-path rate is linspace(0, cfg.drop_path_rate, L)[i], so layer 0's
+    is 0; with cfg.remat each layer is recomputed in the backward
+    (torch.utils.checkpoint, the "full" policy: nothing but the layer
+    input is kept), as the JAX `nn.remat` around each layer."""
 
     def __init__(self, cfg: TransformerConfig, final_layer_norm: bool = True,
                  layer_scale_init: float = 0.0, device=None):
@@ -265,24 +278,55 @@ class Encoder(nn.Module):
                 "Queue 1 slices 9-10")
         self.cfg = cfg
         alpha = cfg.deepnorm_alpha if cfg.deepnorm else 1.0
-        dpr = np.linspace(0, cfg.drop_path_rate, cfg.num_layers)
+        self.drop_path_rates = [float(r) for r in np.linspace(
+            0, cfg.drop_path_rate, cfg.num_layers)]
+        # the keep probabilities on the module's device, so that drawing
+        # the flags copies nothing from the host
+        self.register_buffer("keep_prob", 1.0 - torch.tensor(
+            self.drop_path_rates, device=device), persistent=False)
         self.layers = nn.ModuleList(
-            [EncoderLayer(cfg, float(dpr[i]), layer_scale_init, alpha,
-                          device=device) for i in range(cfg.num_layers)])
+            [EncoderLayer(cfg, rate, layer_scale_init, alpha, device=device)
+             for rate in self.drop_path_rates])
         if cfg.normalize_before and final_layer_norm:
             self.layer_norm = make_norm(cfg, device=device)
 
+    def draw_drop_path(self, batch: int, generator: torch.Generator
+                       ) -> Optional[torch.Tensor]:
+        """Every drop-path keep flag of one training forward, [L, 2, B]
+        bool (layer, branch, sample), keep ~ Bernoulli(1 - rate_i), drawn
+        from `generator` (on the module's device); None outside training
+        or when no layer drops."""
+        if not self.training or not any(self.drop_path_rates):
+            return None
+        u = torch.rand(len(self.drop_path_rates), 2, batch,
+                       generator=generator, device=generator.device)
+        return u < self.keep_prob[:, None, None]
+
     def forward(self, x: torch.Tensor, *,
                 key_padding_mask: Optional[torch.Tensor] = None,
-                attn_bias=None, return_all_hiddens: bool = False):
+                attn_bias=None, return_all_hiddens: bool = False,
+                drop_path_keep: Optional[torch.Tensor] = None):
         """`attn_bias`: None, one [B|1, H|1, T, T] tensor for every layer,
-        or a per-layer sequence. Returns x, or (x, per-layer outputs) with
-        return_all_hiddens."""
+        or a per-layer sequence. `drop_path_keep`: `draw_drop_path`'s
+        flags, needed in training when a layer drops. Returns x, or (x,
+        per-layer outputs) with return_all_hiddens."""
+        cfg = self.cfg
+        remat = cfg.remat and torch.is_grad_enabled()
+        if remat and cfg.remat_policy != "full":
+            raise NotImplementedError(
+                f"remat_policy {cfg.remat_policy!r} (a jax.checkpoint "
+                "policy that saves the matmul outputs) is not ported yet: "
+                "ROADMAP Queue 1, remainder of slices 3-4 (dots remat)")
         hiddens = []
         for i, layer in enumerate(self.layers):
             bias_i = (attn_bias[i] if isinstance(attn_bias, (list, tuple))
                       else attn_bias)
-            x = layer(x, key_padding_mask, bias_i)
+            keep_i = None if drop_path_keep is None else drop_path_keep[i]
+            if remat:
+                x = checkpoint(layer, x, key_padding_mask, bias_i, keep_i,
+                               use_reentrant=False)
+            else:
+                x = layer(x, key_padding_mask, bias_i, keep_i)
             if return_all_hiddens:
                 hiddens.append(x)
         if hasattr(self, "layer_norm"):

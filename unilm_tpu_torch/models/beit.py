@@ -1,7 +1,7 @@
-"""BEiT / BEiT-2 / DiT image classifiers, eval path (port of
-unilm_tpu/models/beit.py: `beit_relative_position_index` :29,
-`Beit2DRelativePositionBias` :52, `BeitConfig` :76, `BeitBackbone` :127,
-`BeitForImageClassification` :195 and the registry :241-273).
+"""BEiT / BEiT-2 / DiT image models (port of unilm_tpu/models/beit.py:
+`beit_relative_position_index` :29, `Beit2DRelativePositionBias` :52,
+`BeitConfig` :76, `BeitBackbone` :127, `BeitForImageClassification` :195,
+`BeitForMaskedImageModeling` :216 and the registry :241-273).
 
 NHWC images, the shared `Encoder`, and per-layer (or one shared) 2D
 relative-position bias tables gathered once per forward into contiguous
@@ -11,10 +11,12 @@ relative-position bias tables gathered once per forward into contiguous
 Dtypes follow flax's promotion in the JAX model: the embeddings, the
 encoder and the bias compute in `cfg.dtype`; params are float32; `fc_norm`
 and `head` (flax dtype=None over float32 params) compute in float32, so
-the logits are float32 in a bf16 model.
+the logits are float32 in a bf16 model; the pretraining `norm` and
+`lm_head` compute in `cfg.dtype`, as the JAX module sets them.
 
-`BeitForMaskedImageModeling` (pretraining) waits for the BEiT fine-tuning
-slice (ROADMAP Queue 1).
+In training (`model.train()`), drop-path draws its keep flags from the
+`torch.Generator` the caller passes to `forward`, all of them before the
+encoder runs (`Encoder.draw_drop_path`).
 """
 
 from __future__ import annotations
@@ -161,16 +163,48 @@ class BeitBackbone(nn.Module):
 
     def forward(self, images: torch.Tensor,
                 bool_masked_pos: Optional[torch.Tensor] = None,
-                return_all_hiddens: bool = False):
+                return_all_hiddens: bool = False,
+                generator: Optional[torch.Generator] = None):
+        """`generator`: where a training forward draws its drop-path
+        flags (needed in training when cfg.drop_path_rate > 0)."""
         if self.training and self.cfg.dropout:
             raise NotImplementedError(
-                "dropout in BEiT's training forward is not ported yet: "
-                "ROADMAP Queue 1, BEiT fine-tuning slice")
+                "dropout in BEiT's training forward is not ported yet (every "
+                "BEiT config of the repo runs with dropout 0): ROADMAP Queue "
+                "1, remainder of slice 6 (dropout)")
+        keep = (None if generator is None
+                else self.encoder.draw_drop_path(images.shape[0], generator))
         x = self.embeddings(images, bool_masked_pos)
         if self.cfg.use_abs_pos_emb:
             x = x + self.pos_embed.to(x.dtype)
         return self.encoder(x, attn_bias=self.attn_bias(),
-                            return_all_hiddens=return_all_hiddens)
+                            return_all_hiddens=return_all_hiddens,
+                            drop_path_keep=keep)
+
+
+@torch.no_grad()
+def _init_beit(model: nn.Module, cfg: BeitConfig,
+               generator: torch.Generator) -> None:
+    """Random weights at the JAX initialisers' scales from `generator`
+    (on the parameters' device): projections xavier-uniform, the patch
+    projection lecun-normal, cls/mask tokens and pos_embed normal(0.02),
+    heads normal(init_std), norms ones/zeros; the rel-pos tables zeros and
+    the LayerScale gammas init_values, as in flax."""
+    init_weights_(model, generator)
+    for m in model.modules():
+        if isinstance(m, LayerScale):
+            m.gamma.fill_(cfg.init_values)
+        elif isinstance(m, Beit2DRelativePositionBias):
+            m.relative_position_bias_table.zero_()
+    emb = model.backbone.embeddings
+    w = emb.patch_embed.proj.weight
+    w.normal_(0.0, 1.0 / math.sqrt(w.shape[1]), generator=generator)
+    emb.patch_embed.proj.bias.zero_()
+    for name in ("cls_token", "mask_token"):
+        if hasattr(emb, name):
+            getattr(emb, name).normal_(0.0, 0.02, generator=generator)
+    if hasattr(model.backbone, "pos_embed"):
+        model.backbone.pos_embed.normal_(0.0, 0.02, generator=generator)
 
 
 class BeitForImageClassification(nn.Module):
@@ -191,38 +225,52 @@ class BeitForImageClassification(nn.Module):
                           device=device)
         self.head.init_std = 0.02
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
-        """images [B, H, W, C] (NHWC) -> logits [B, num_classes] float32."""
-        x = self.backbone(images)
+    def forward(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """images [B, H, W, C] (NHWC) -> logits [B, num_classes] float32.
+        `generator`: the drop-path draws of a training forward."""
+        x = self.backbone(images, generator=generator)
         if self.cfg.use_mean_pooling:
             x = self.fc_norm(x[:, 1:].mean(1))
         else:
             x = x[:, 0]
         return self.head(x)
 
-    @torch.no_grad()
     def init_weights(self, generator: torch.Generator
                      ) -> "BeitForImageClassification":
-        """Random weights at the JAX initialisers' scales from `generator`
-        (on the parameters' device): projections xavier-uniform, the patch
-        projection lecun-normal, cls/mask tokens and pos_embed normal(0.02),
-        the head normal(0.02), norms ones/zeros; the rel-pos tables zeros
-        and the LayerScale gammas init_values, as in flax."""
-        init_weights_(self, generator)
-        for m in self.modules():
-            if isinstance(m, LayerScale):
-                m.gamma.fill_(self.cfg.init_values)
-            elif isinstance(m, Beit2DRelativePositionBias):
-                m.relative_position_bias_table.zero_()
-        emb = self.backbone.embeddings
-        w = emb.patch_embed.proj.weight
-        w.normal_(0.0, 1.0 / math.sqrt(w.shape[1]), generator=generator)
-        emb.patch_embed.proj.bias.zero_()
-        for name in ("cls_token", "mask_token"):
-            if hasattr(emb, name):
-                getattr(emb, name).normal_(0.0, 0.02, generator=generator)
-        if hasattr(self.backbone, "pos_embed"):
-            self.backbone.pos_embed.normal_(0.0, 0.02, generator=generator)
+        """Random weights (`_init_beit`); the head normal(0.02)."""
+        _init_beit(self, self.cfg, generator)
+        return self
+
+
+class BeitForMaskedImageModeling(nn.Module):
+    """BEiT pretraining (beit/modeling_pretrain.py): the backbone with the
+    mask token substituted at `bool_masked_pos`, then `norm` and `lm_head`
+    over the patch tokens, both in `cfg.dtype` (the JAX module sets their
+    dtype so the [B, N, E] x [E, vocab] head runs in the compute dtype).
+    Returns logits [B, N, vocab_size] in cfg.dtype."""
+
+    def __init__(self, cfg: BeitConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = BeitBackbone(cfg, use_mask_token=True, device=device)
+        self.norm = Norm(TransformerConfig(embed_dim=cfg.embed_dim,
+                                           layernorm_eps=cfg.layernorm_eps),
+                         device=device, dtype=cfg.dtype)
+        self.lm_head = Dense(cfg.embed_dim, cfg.vocab_size, bias=True,
+                             dtype=cfg.dtype, param_dtype=torch.float32,
+                             device=device)
+        self.lm_head.init_std = cfg.embed_dim ** -0.5  # flax's lecun-normal
+
+    def forward(self, images: torch.Tensor, bool_masked_pos: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = self.backbone(images, bool_masked_pos, generator=generator)
+        return self.lm_head(self.norm(x)[:, 1:])
+
+    def init_weights(self, generator: torch.Generator
+                     ) -> "BeitForMaskedImageModeling":
+        """Random weights (`_init_beit`)."""
+        _init_beit(self, self.cfg, generator)
         return self
 
 

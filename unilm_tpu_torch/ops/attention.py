@@ -10,8 +10,9 @@ tensor's device decides:
   fallback does.
 - CUDA tensors with `use_flash=True`:
   - non-causal, no window / kv_len / q_offset, no key-padding mask,
-    S <= 2048: the fused encoder attention (csrc/encoder_attention.cu,
-    the `_vit_kernel` case, forward only);
+    S <= 2048: the fused encoder attention (the `_vit_kernel` case:
+    csrc/encoder_attention.cu forward, csrc/encoder_attention_bwd.cu
+    backward when the inputs require grad, `EncoderAttentionFn`);
   - non-causal with a key-padding mask at S <= 2048: the JAX package's
     `_doc_fwd_kernel` (#9) case, not ported yet; raises;
   - everything else (causal, decode geometry, S > 2048): the flash

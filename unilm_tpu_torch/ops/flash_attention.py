@@ -24,12 +24,17 @@ JAX does. The opt-in TPU schedules UNILM_TPU_TRI_FLASH (kernel #2) and
 UNILM_TPU_FUSED_BWD (kernel #8) raise rather than being ignored.
 
 `fused_encoder_attention` (port of `fused_encoder_attention` :701,
-`_vit_forward` :632 / `_vit_kernel` :580) is the encoder hot path's
-forward: non-causal, full kv, no key-padding mask, an exact softmax over
-whole score rows, no lse. On a CUDA tensor it launches csrc/
-encoder_attention.cu, on a CPU tensor `fused_encoder_attention_plain`. Its
-backward (`_vit_bwd_kernel`, kernel #4) is not ported: a call that would
-need a gradient raises.
+`_vit_forward` :632 / `_vit_kernel` :580) is the encoder hot path:
+non-causal, full kv, no key-padding mask, an exact softmax over whole
+score rows, no lse. It runs under `EncoderAttentionFn`, the custom VJP
+`_vit_fwd` / `_vit_bwd` (:933-975): forward csrc/encoder_attention.cu
+(#3), backward csrc/encoder_attention_bwd.cu (`_vit_bwd_kernel`, #4) on a
+CUDA tensor; `fused_encoder_attention_plain` and
+`fused_encoder_backward_plain` on a CPU tensor. The backward saves q, k,
+v and the bias only, as the TPU kernel reads no residual. The JAX
+dispatch of `_vit_bwd` to `doc_backward` (#10) or a dense recompute when
+the one-pass plane exceeds the TPU's VMEM (`_vit_bwd_profitable`) is a
+TPU budget and is not carried: #4 takes every shape #3 takes.
 """
 
 from __future__ import annotations
@@ -411,6 +416,12 @@ ENCODER_KERNEL = CudaKernel("encoder_attention.cu", {
 ENCODER_MAX_S = 2048
 
 
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """The encoder twins' working precision: float32 for bf16 and fp32
+    inputs (the kernels' accumulators), float64 kept for gradcheck."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def fused_encoder_attention_plain(q, k, v, bias=None,
                                   scale: Optional[float] = None):
     """Plain torch twin of kernel #3: softmax(scale q k^T + bias) v on
@@ -419,12 +430,12 @@ def fused_encoder_attention_plain(q, k, v, bias=None,
     values, as the TPU kernel's exact path does (:622-623)."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bthd,bshd->bhts", q.float(), k.float()) * scale
+    s = torch.einsum("bthd,bshd->bhts", _acc(q), _acc(k)) * scale
     if bias is not None:
-        s = s + bias.float()
-    p = torch.exp(s - s.amax(-1, keepdim=True)).to(v.dtype).float()
+        s = s + _acc(bias)
+    p = _acc(torch.exp(s - s.amax(-1, keepdim=True)).to(v.dtype))
     l = p.sum(-1, keepdim=True).permute(0, 2, 1, 3)  # [B, T, H, 1]
-    out = torch.einsum("bhts,bshd->bthd", p, v.float()) / l
+    out = torch.einsum("bhts,bshd->bthd", p, _acc(v)) / l
     return out.to(q.dtype)
 
 
@@ -461,26 +472,163 @@ def _encoder_attention_cuda(q, k, v, bias, scale):
     return out
 
 
-def fused_encoder_attention(q, k, v, bias=None,
-                            scale: Optional[float] = None) -> torch.Tensor:
-    """Non-causal full-kv attention on q [B,T,H,D], k/v [B,S,H,D] with an
-    additive bias [B|1,H|1,T,S]; scale defaults to D^-0.5. Kernel #3 on a
-    CUDA tensor (S <= ENCODER_MAX_S; anything else it does not take
-    raises), `fused_encoder_attention_plain` on a CPU tensor. Forward only:
-    the backward, `_vit_bwd_kernel` (#4), comes with BEiT fine-tuning."""
-    if scale is None:
-        scale = q.shape[-1] ** -0.5
+def _encoder_forward(q, k, v, bias, scale):
+    """Kernel #3 on a CUDA tensor, its plain twin on a CPU tensor."""
     if q.device.type == "cpu":
         return fused_encoder_attention_plain(q, k, v, bias, scale)
     if q.device.type != "cuda":
         raise ValueError(f"fused_encoder_attention: unsupported device "
                          f"{q.device}")
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (q, k, v, bias)):
-        raise NotImplementedError(
-            "the backward of the fused encoder attention is `_vit_bwd_kernel`"
-            " (kernel #4), not ported yet: ROADMAP Queue 1, BEiT fine-tuning"
-            " slice")
-    if bias is not None:
-        bias = bias.to(q.dtype).contiguous()
     return _encoder_attention_cuda(q, k, v, bias, scale)
+
+
+# --------------------------------------------------------------------------- #
+# Its backward: kernel #4
+# --------------------------------------------------------------------------- #
+
+ENCODER_BWD_KERNEL = CudaKernel("encoder_attention_bwd.cu", {
+    # q, k, v, dout, bias, dq, dk, dv, dbias, partial, stats, B, T, S, H, D,
+    # bias_sb, bias_sh, bias_h, group, head_sum, scale, dtype, stream
+    "encoder_attn_bwd": [P] * 11 + [I] * 10 + [F, I, P],
+})
+# A batch-summed dbias: the batch is cut into groups, one dq block per
+# (64-row q tile, head, group) summing its group in order (a third launch
+# adds the groups' planes), so that about this many blocks share the work.
+# At BEiT-B (B=256) that is one batch item per group, at the price of
+# 477 MB of transient partial planes; chip_smoke.py's encoder_bwd phase
+# times it against 16x fewer blocks (PERF.md).
+DBIAS_BLOCKS = 16896
+_BWD_Q_TILE = 64  # query rows of a dq block (csrc/encoder_attention_bwd.cu BQ)
+
+
+def fused_encoder_backward_plain(q, k, v, bias, do,
+                                 scale: Optional[float] = None):
+    """Plain torch twin of kernel #4: (dq, dk, dv, dbias) of
+    `fused_encoder_attention` for the output gradient `do`. p is the exact
+    float32 softmax of scale q k^T + bias, recomputed; dp = dO v^T,
+    ds = p (dp - rowsum(p dp)); ds is rounded to k's dtype before the ds k
+    and ds^T q products (each then times scale), p to dO's dtype before
+    p^T dO (`_vit_bwd_kernel` :772-798). dbias is float32, ds summed over
+    the dims the bias broadcasts; None without a bias."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bthd,bshd->bhts", _acc(q), _acc(k)) * scale
+    if bias is not None:
+        s = s + _acc(bias)
+    p = torch.softmax(s, dim=-1)
+    dof = _acc(do)
+    dp = torch.einsum("bthd,bshd->bhts", dof, _acc(v))
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    dsr = _acc(ds.to(k.dtype))
+    dq = torch.einsum("bhts,bshd->bthd", dsr, _acc(k)) * scale
+    dk = torch.einsum("bhts,bthd->bshd", dsr, _acc(q)) * scale
+    dv = torch.einsum("bhts,bthd->bshd", _acc(p.to(do.dtype)), dof)
+    dbias = None if bias is None else _reduce_to(ds, bias.shape)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dbias
+
+
+def _encoder_backward_cuda(q, k, v, bias, do, scale, want_dbias):
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    if q.dtype not in _DTYPE_CODE or D not in SUPPORTED_D:
+        raise ValueError(f"encoder attention backward kernel takes "
+                         f"float32/bfloat16 and head_dim in {SUPPORTED_D}, "
+                         f"got {q.dtype}, D={D}")
+    if not 0 < S <= ENCODER_MAX_S:
+        raise ValueError(f"encoder attention backward kernel takes 0 < S <= "
+                         f"{ENCODER_MAX_S} keys, got {S}")
+    dev = q.device
+    check_tensor("q", q, dtype=q.dtype, shape=(B, T, H, D), device=dev)
+    check_tensor("k", k, dtype=q.dtype, shape=(B, S, H, D), device=dev)
+    check_tensor("v", v, dtype=q.dtype, shape=(B, S, H, D), device=dev)
+    check_tensor("dout", do, dtype=q.dtype, shape=(B, T, H, D), device=dev)
+    sb = sh = 0
+    Hb, group, head_sum = 1, 1, 0
+    dbias = partial = None
+    if bias is not None:
+        Bb, Hb = bias.shape[0], bias.shape[1]
+        if Bb not in (1, B) or Hb not in (1, H):
+            raise ValueError(f"bias {tuple(bias.shape)} does not broadcast "
+                             f"over [B={B}, H={H}]")
+        check_tensor("bias", bias, dtype=q.dtype, shape=(Bb, Hb, T, S),
+                     device=dev)
+        sh = T * S if Hb > 1 else 0
+        sb = Hb * T * S if Bb > 1 else 0
+        if want_dbias:
+            dbias = torch.empty((Bb, Hb, T, S), dtype=torch.float32,
+                                device=dev)
+            head_sum = int(Hb == 1 and H > 1)
+            if Bb == 1 and B > 1:
+                blocks = -(-T // _BWD_Q_TILE) * (1 if head_sum else H)
+                group = -(-B // min(B, -(-DBIAS_BLOCKS // blocks)))
+                groups = -(-B // group)
+                if groups > 1:
+                    partial = torch.empty((groups, Hb, T, S),
+                                          dtype=torch.float32, device=dev)
+    stats = torch.empty((3, B, H, T), dtype=torch.float32, device=dev)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    ENCODER_BWD_KERNEL.launch(
+        "encoder_attn_bwd", ptr(q), ptr(k), ptr(v), ptr(do), ptr(bias),
+        ptr(dq), ptr(dk), ptr(dv), ptr(dbias), ptr(partial), ptr(stats), B, T,
+        S, H, D, sb, sh, Hb, group, head_sum, float(scale),
+        _DTYPE_CODE[q.dtype], stream())
+    return dq, dk, dv, dbias
+
+
+def fused_encoder_backward(q, k, v, bias, do, scale: Optional[float] = None,
+                           *, want_dbias: bool = True):
+    """(dq, dk, dv, dbias) of `fused_encoder_attention`: kernel #4 on a CUDA
+    tensor, `fused_encoder_backward_plain` on a CPU tensor. dbias (float32,
+    summed over the dims the bias broadcasts) is None without a bias or
+    when not wanted."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cpu":
+        dq, dk, dv, dbias = fused_encoder_backward_plain(q, k, v, bias, do,
+                                                         scale)
+        return dq, dk, dv, dbias if want_dbias else None
+    if q.device.type != "cuda":
+        raise ValueError(f"fused_encoder_backward: unsupported device "
+                         f"{q.device}")
+    return _encoder_backward_cuda(q, k, v, bias, do.to(q.dtype).contiguous(),
+                                  scale, want_dbias and bias is not None)
+
+
+class EncoderAttentionFn(torch.autograd.Function):
+    """Kernel #3 under autograd (the JAX custom VJP `_vit_fwd` / `_vit_bwd`,
+    :933-975): the forward saves q, k, v and the bias, nothing else; the
+    backward is kernel #4 on CUDA tensors and its plain twin on CPU
+    tensors. dbias is computed only when the bias needs a gradient, and
+    returned in the bias's dtype."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.scale = scale
+        return _encoder_forward(q, k, v, bias, scale)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias = ctx.saved_tensors
+        want_dbias = bias is not None and ctx.needs_input_grad[3]
+        dq, dk, dv, dbias = fused_encoder_backward(
+            q, k, v, bias, do, ctx.scale, want_dbias=want_dbias)
+        if dbias is not None:
+            dbias = dbias.to(bias.dtype)
+        return dq, dk, dv, dbias, None
+
+
+def fused_encoder_attention(q, k, v, bias=None,
+                            scale: Optional[float] = None) -> torch.Tensor:
+    """Non-causal full-kv attention on q [B,T,H,D], k/v [B,S,H,D] with an
+    additive bias [B|1,H|1,T,S]; scale defaults to D^-0.5. Differentiable
+    in q, k, v and the bias (EncoderAttentionFn): kernels #3 and #4 on a
+    CUDA tensor (S <= ENCODER_MAX_S; anything else they do not take
+    raises), their plain twins on a CPU tensor."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if q.device.type == "cuda":
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        if bias is not None:
+            bias = bias.to(q.dtype).contiguous()
+    return EncoderAttentionFn.apply(q, k, v, bias, float(scale))

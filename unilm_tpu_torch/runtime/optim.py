@@ -1,8 +1,8 @@
 """Optimizers and learning-rate schedules (port of
-unilm_tpu/runtime/optim.py: `cosine_schedule` :90,
-`polynomial_decay_schedule` :99, `inverse_sqrt_schedule` :110,
-`weight_decay_mask` :67 and the adamw / adafactor branches of
-`create_optimizer` :130-173).
+unilm_tpu/runtime/optim.py: `beit_layer_id` :27, `layer_decay_scales` :42,
+`weight_decay_mask` :67, `cosine_schedule` :90,
+`polynomial_decay_schedule` :99, `inverse_sqrt_schedule` :110 and every
+branch of `create_optimizer` :130-173).
 
 The JAX package builds these from optax; here each is written out with
 optax's arithmetic and count semantics, so that the same gradients give
@@ -12,7 +12,13 @@ the same parameters:
   `scale_by_schedule`), so the first update of a warmup schedule has lr 0;
 - `AdamW` is `optax.adamw`: bias-corrected moments, eps outside the
   square root, decoupled weight decay (on every parameter when `mask` is
-  None), then -lr;
+  None), then the layer-decay scale (BEiT's layer-wise LR decay, when
+  given), then -lr, in the order of the optax chain (:166-172);
+- `Lamb` is the lamb branch (:152-161): adam, the masked decayed
+  weights, optax.scale_by_trust_ratio (||p|| / ||u||, 1 where either
+  norm is 0), the layer-decay scale, -lr;
+- `Sgd` is the sgd branch: optax.trace (momentum b1, no Nesterov), the
+  layer-decay scale, -lr;
 - `Adafactor` is `optax.adafactor(lr)` with its defaults: factored second
   moments over the two largest dims when the smaller of them is >= 128,
   decay 1 - (t+1)^-0.8, update clipping at block RMS 1.0, scaling by the
@@ -22,14 +28,20 @@ An optimizer is a stateless transformation, as in optax: `init(params)`
 returns its state (a dict of tensors and a step count, which torch.save
 stores), `update(grads, state, params)` applies one update to the
 parameters and the state in place (the port updates in place to keep one
-copy of the fp32 master weights and the moments on the card). LAMB and
-layer-wise LR decay belong to BEiT fine-tuning and raise (ROADMAP Queue 1
-slice 6).
+copy of the fp32 master weights and the moments on the card).
+`clip_norm` is optax.clip_by_global_norm at the head of the chain.
+
+Layer decay keys on the port's parameter names (`layers.{i}` where the
+flax path has `layers_{i}`). It keeps the reference's quirk for the BEiT
+per-layer rel-pos tables: `rel_pos_bias_{i}` sits outside `layers.{i}`, so
+every table gets layer id num_layers (upstream BEiT gives block i's table
+id i + 1).
 """
 
 from __future__ import annotations
 
 import math
+import re
 from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -117,46 +129,111 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum(t.float().pow(2).sum() for t in tensors))
 
 
+def _clipper(grads: Sequence[torch.Tensor], clip_norm: Optional[float]
+             ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """optax.clip_by_global_norm(clip_norm) as a per-gradient map to
+    float32: g / ||g|| * clip_norm when the global norm is at least
+    clip_norm, else g (and g without clipping)."""
+    gn = float(global_norm(grads)) if clip_norm else 0.0
+    if clip_norm and gn >= clip_norm:
+        return lambda g: g.float() / gn * clip_norm
+    return lambda g: g.float()
+
+
 class AdamW:
     """optax.adamw(learning_rate, b1, b2, eps, weight_decay, mask) with
-    eps_root 0, optionally after optax.clip_by_global_norm(clip_norm)."""
+    eps_root 0, optionally after optax.clip_by_global_norm(clip_norm) and
+    with the per-parameter layer-decay `scales` before -lr."""
 
     def __init__(self, learning_rate: LearningRate, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8,
                  weight_decay: float = 1e-4,
                  mask: Optional[Sequence[bool]] = None,
-                 clip_norm: Optional[float] = None):
+                 clip_norm: Optional[float] = None,
+                 scales: Optional[Sequence[float]] = None):
         self.learning_rate = learning_rate
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay = weight_decay
         self.mask = None if mask is None else list(mask)
         self.clip_norm = clip_norm
+        self.scales = None if scales is None else list(scales)
 
     def init(self, params: Sequence[torch.Tensor]) -> dict:
         return {"count": 0,
                 "mu": [torch.zeros_like(p) for p in params],
                 "nu": [torch.zeros_like(p) for p in params]}
 
+    def _adam(self, i: int, g: torch.Tensor, state: dict, t: int
+              ) -> torch.Tensor:
+        """optax.scale_by_adam's update of parameter i at count t."""
+        mu, nu = state["mu"][i], state["nu"][i]
+        mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
+        nu.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
+        return (mu / (1 - self.b1 ** t)) / (
+            torch.sqrt(nu / (1 - self.b2 ** t)) + self.eps)
+
+    def _trust(self, u: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """The step between the decayed weights and the layer-decay
+        scale: none in adamw (Lamb's trust ratio)."""
+        return u
+
     @torch.no_grad()
     def update(self, grads: Sequence[torch.Tensor], state: dict,
                params: Sequence[torch.Tensor]) -> None:
         count = state["count"]
         lr = _lr(self.learning_rate, count)
-        t = count + 1
-        bc1 = 1 - self.b1 ** t
-        bc2 = 1 - self.b2 ** t
-        gn = float(global_norm(grads)) if self.clip_norm else 0.0
-        clip = bool(self.clip_norm) and gn >= self.clip_norm
+        clip = _clipper(grads, self.clip_norm)
         for i, (p, g) in enumerate(zip(params, grads)):
-            g = g.float() / gn * self.clip_norm if clip else g.float()
-            mu, nu = state["mu"][i], state["nu"][i]
-            mu.mul_(self.b1).add_(g, alpha=1 - self.b1)
-            nu.mul_(self.b2).add_(g * g, alpha=1 - self.b2)
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            u = self._adam(i, clip(g), state, count + 1)
             if self.weight_decay and (self.mask is None or self.mask[i]):
                 u.add_(p, alpha=self.weight_decay)
+            u = self._trust(u, p)
+            if self.scales is not None:
+                u.mul_(self.scales[i])
             p.add_(u, alpha=-lr)
-        state["count"] = t
+        state["count"] = count + 1
+
+
+class Lamb(AdamW):
+    """The lamb branch of create_optimizer: adamw's chain with
+    optax.scale_by_trust_ratio between the masked decayed weights and the
+    layer-decay scales."""
+
+    def _trust(self, u: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+        """u ||p|| / ||u||, or u where either norm is 0."""
+        pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        return u * torch.where((pn == 0) | (un == 0), torch.ones_like(pn),
+                               pn / un)
+
+
+class Sgd:
+    """The sgd branch of create_optimizer: optax.trace(decay=momentum)
+    (t = g + momentum t, no Nesterov), the layer-decay scales, -lr;
+    optionally after clip_by_global_norm. No weight decay, as there."""
+
+    def __init__(self, learning_rate: LearningRate, momentum: float = 0.9,
+                 clip_norm: Optional[float] = None,
+                 scales: Optional[Sequence[float]] = None):
+        self.learning_rate = learning_rate
+        self.momentum = momentum
+        self.clip_norm = clip_norm
+        self.scales = None if scales is None else list(scales)
+
+    def init(self, params: Sequence[torch.Tensor]) -> dict:
+        return {"count": 0, "trace": [torch.zeros_like(p) for p in params]}
+
+    @torch.no_grad()
+    def update(self, grads: Sequence[torch.Tensor], state: dict,
+               params: Sequence[torch.Tensor]) -> None:
+        count = state["count"]
+        lr = _lr(self.learning_rate, count)
+        clip = _clipper(grads, self.clip_norm)
+        for i, (p, g) in enumerate(zip(params, grads)):
+            tr = state["trace"][i]
+            tr.mul_(self.momentum).add_(clip(g))
+            u = tr if self.scales is None else tr * self.scales[i]
+            p.add_(u, alpha=-lr)
+        state["count"] = count + 1
 
 
 def _factored_dims(shape, min_dim: int) -> Optional[Tuple[int, int]]:
@@ -237,6 +314,35 @@ class Adafactor:
 
 _NO_DECAY = ("cls_token", "mask_token", "pos_embed", "gamma",
              "relative_position_bias_table", "latent_query")
+_LAYER_ZERO = ("cls_token", "mask_token", "patch_embed", "pos_embed",
+               "embeddings", "word_embeddings", "position_embeddings",
+               "spatial", "token_type")
+
+
+def beit_layer_id(name: str, num_layers: int) -> int:
+    """beit/optim_factory.py get_num_layer_for_vit on a port parameter
+    name: embeddings, tokens and positions -> 0; `layers.{i}` -> i + 1; a
+    rel-pos table outside the layers -> num_layers (the reference's rule,
+    quirk included: see the module docstring); the rest (fc_norm, head)
+    -> num_layers + 1."""
+    if any(k in name for k in _LAYER_ZERO):
+        return 0
+    m = re.search(r"layers\.(\d+)", name)
+    if m:
+        return int(m.group(1)) + 1
+    if "rel_pos_bias" in name:
+        return num_layers
+    return num_layers + 1
+
+
+def layer_decay_scales(named_params: Sequence[Tuple[str, torch.Tensor]],
+                       decay: float, num_layers: int,
+                       layer_id_fn: Callable[[str, int], int] = beit_layer_id
+                       ) -> List[float]:
+    """Per-parameter multiplier decay^(num_layers + 1 - layer_id)
+    (LayerDecayValueAssigner.get_scale, optim_factory.py:47-56)."""
+    return [decay ** (num_layers + 1 - layer_id_fn(name, num_layers))
+            for name, _ in named_params]
 
 
 def weight_decay_mask(named_params: Sequence[Tuple[str, torch.Tensor]]
@@ -254,21 +360,24 @@ def create_optimizer(named_params: Sequence[Tuple[str, torch.Tensor]],
                      betas=(0.9, 0.999), eps: float = 1e-8,
                      layer_decay: Optional[float] = None,
                      num_layers: int = 12,
+                     layer_id_fn: Callable[[str, int], int] = beit_layer_id,
                      clip_grad_norm: Optional[float] = None):
-    """beit create_optimizer equivalent: the adamw and adafactor branches.
-    `named_params` is model.named_parameters() as a list (names decide the
-    weight-decay mask)."""
-    if layer_decay or optimizer == "lamb":
-        raise NotImplementedError(
-            "LAMB and layer-wise LR decay (BEiT fine-tuning) are not ported "
-            "yet: ROADMAP Queue 1 slice 6")
+    """beit create_optimizer equivalent (optim_factory.py:100-182), every
+    branch of the JAX factory: adamw, lamb, sgd (each with layer decay
+    when `layer_decay` is set) and adafactor (which, as there, ignores the
+    other options). `named_params` is model.named_parameters() as a list
+    (names decide the weight-decay mask and the layer ids)."""
     if optimizer == "adafactor":
         return Adafactor(learning_rate)
-    if optimizer != "adamw":
-        raise NotImplementedError(
-            f"optimizer {optimizer!r} is not ported yet (adamw, adafactor "
-            "are): ROADMAP Queue 1 slice 6")
-    return AdamW(learning_rate, b1=betas[0], b2=betas[1], eps=eps,
-                 weight_decay=weight_decay,
-                 mask=weight_decay_mask(named_params),
-                 clip_norm=clip_grad_norm)
+    scales = (layer_decay_scales(named_params, layer_decay, num_layers,
+                                 layer_id_fn) if layer_decay else None)
+    if optimizer == "sgd":
+        return Sgd(learning_rate, momentum=betas[0], clip_norm=clip_grad_norm,
+                   scales=scales)
+    if optimizer not in ("adamw", "lamb"):
+        raise ValueError(f"unknown optimizer {optimizer}")
+    cls = AdamW if optimizer == "adamw" else Lamb
+    return cls(learning_rate, b1=betas[0], b2=betas[1], eps=eps,
+               weight_decay=weight_decay,
+               mask=weight_decay_mask(named_params),
+               clip_norm=clip_grad_norm, scales=scales)
