@@ -24,6 +24,18 @@ Phases, one line each:
     T != S, D in {64, 96, 128}, S up to 2048, BEiT-B 128x197x12x64 and
     BEiT-L/384 64x577x16x64; timed at BEiT-B beside the plain version and
     torch's scaled_dot_product_attention.
+    doc_attn (after encoder_bwd): the doc attention kernel (#9) against
+    doc_attention_plain, bf16 (relative L2 <= 1e-2) and fp32 (<= 1e-4):
+    bias None, [1,1,T,S], [1,H,T,S], [B,H,T,S], head-major [H,B,T,S] and
+    [H,1,T,S], with and without a key-padding mask (one example with
+    every key masked), ragged T != S, D in {64, 96, 128}, S up to 2048, the
+    Pix2Struct tower 1x2048x24x64 at scale 1.0 and the FUNSD shape
+    32x709x12x64 (bf16, head-major bias, mask); timed there beside the
+    plain version and SDPA with a float attn_mask.
+    doc_bwd: its backward (#10) against doc_backward_plain over the same
+    cases, dq/dk/dv/dbias (dbias reduced where the bias broadcasts), the
+    FUNSD shape twice bit-equal; timed beside the plain twin and SDPA's
+    backward with the float mask's gradient.
  4. decode: the bf16 run-decode kernel against its plain version, B=3
     with lengths {0, 511, 1800}; written pool rows bit-equal.
  5. slice: the Kosmos-2.5 text decoder at full width (24 layers, E=1536,
@@ -53,12 +65,28 @@ Phases, one line each:
     BeitForMaskedImageModeling steps at bench_beit_pretrain's
     configuration (shared rel-pos bias, 75 blockwise-masked patches,
     vocab 8192), 12 + 12 launches per step.
+    layoutlmv3_eval: LayoutLMv3-B at cli/run_funsd.py's configuration
+    (float32, 7 labels, batch 8, max_len 512 + 197 visual tokens, random
+    weights from the seed) through the CLI's evaluate_batches on synthetic
+    documents with segment ids: exactly 12 launches of #9 and none of
+    #1/#3 per forward; docs/s and ms/batch (CUDA events); a teacher check
+    against the plain path; a device-time profile.
+    layoutlmv3_train: LayoutLMv3-B fine-tuning at bench_layoutlmv3's
+    configuration (B=32, 512 + 197 tokens, bf16 / fp32 params, fused
+    head-major bias, AdamW lr 1e-5 wd 0.01, clip 1.0) through
+    runtime.train.make_train_step: 6 steps, the last 4 timed; exactly 12
+    launches of #9 and 12 of #10 per step, none of #1/#3/#4/#6/#7; ms/step,
+    docs/s, model TFLOP/s, peak memory, a device-time profile, the bias
+    lookup + table contraction alone, a kernel-vs-plain teacher check
+    (the three bias tables' gradient cosines named), the plain path's step.
     ttft: kosmos2_5(bf16) with its Pix2Struct tower, as
     benchmarks/kosmos_ttft.py runs it: encode_image over 4096 patch
     slots, then the 2052-token prefill to the first token; exactly 43
     launches of #1 (18 tower layers, the resampler, 24 decoder layers)
     and none of #3; features and first-token logits against the plain
-    path; TTFT for both paths; a device-time profile.
+    path; then encode_image at 1024 patch slots: 18 launches of #9 in the
+    tower, #1 only in the resampler, features against the plain path;
+    TTFT for both paths; a device-time profile.
  6. int8_matmul: the int8 weight-only matmul kernel against its plain
     version, bf16 x, M in {1, 8, 64, 200} x the decoder's K x N.
  7. decode_int8: the int8-KV run-decode kernel against its plain version,
@@ -101,6 +129,7 @@ Phases, one line each:
 Then a JSON line with each kernel's launches (from its main-path phase,
 counters set to 0 just before it: slice for flash_fwd and decode,
 beit_eval for encoder_attention, beit_train for encoder_attention_bwd,
+layoutlmv3_eval for doc_attention, layoutlmv3_train for doc_attention_bwd,
 the engines for the int8 and block-table kernels, train for flash_bwd_dq
 and flash_bwd_dkv), error,
 times (kernel, plain version, and `library_ms`, one torch call computing
@@ -204,6 +233,32 @@ TTFT_PATCHES, TTFT_GRID = 4096, (62, 64)
 TOWER_PAD = TTFT_PATCHES - TTFT_GRID[0] * TTFT_GRID[1]  # padded slots
 TTFT_FEAT_ATOL = 0.004
 TTFT_LOGIT_ATOL = 0.8
+
+# The Kosmos-2.5 tower at 1024 patch slots (a 30 x 32 grid and padding):
+# <= 2048 slots, so its masked attention takes the doc kernel (#9).
+TOWER_SLOTS, TOWER_GRID = 1024, (30, 32)
+# LayoutLMv3-B FUNSD eval (cli/run_funsd.py: float32, batch 8, max_len
+# 512, with the image). Teacher check, kernel path (#9 on fp32 CUDA cores)
+# against plain path on one batch, over the labelled tokens; both fp32,
+# differing in summation order and the exp2 against the exp domain.
+# Reading on an H100 80GB HBM3 at 700 W: max |dlogit| 4.34e-6 (logits up
+# to 1.98), argmax agreement 1.0. Bounds: |dlogit| at ~10x, agreement 0.99.
+LV3_EVAL_BATCHES = 10
+LV3_EVAL_LOGIT_ATOL = 4e-5
+LV3_EVAL_AGREE = 0.99
+# LayoutLMv3-B FUNSD fine-tuning (benchmarks/train_mfu.py bench_layoutlmv3):
+# B=32, bf16. Teacher check, kernel path against plain path on one batch:
+# loss, global grad norm, and the minimum per-tensor gradient cosine over
+# every parameter but the key biases (zero gradient up to rounding).
+# Readings on an H100 80GB HBM3 at 700 W, two runs (the 6 steps before
+# the check are not bit-reproducible, so the compared state differs from
+# run to run): loss rel 1.91e-5 / 4.16e-5, grad-norm rel 5.00e-5 /
+# 2.22e-4, min cosine 0.99992 / 0.99992 (word_embeddings), the three bias
+# tables' cosines 1.00000. Bounds at ~10x the larger deviation:
+LV3_TRAIN_BATCH, LV3_TRAIN_STEPS, LV3_TRAIN_TIMED = 32, 6, 4
+LV3_TEACHER_LOSS_REL = 4e-4
+LV3_TEACHER_NORM_REL = 2e-3
+LV3_TEACHER_COS = 0.999
 
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): a
 # kernel's bound is the larger of its bytes over the memory rate and its
@@ -595,6 +650,208 @@ def phase_encoder_bwd(fa, g) -> dict:
             "plain_ms": times["plain"], "library_ms": lib_ms,
             "library": f"sdpa backward ({backend})", **bd,
             "shape": f"{B}x{T}x{H}x{D} bf16 bias [1,{H},{T},{T}]"}
+
+
+# FUNSD fine-tuning shape (benchmarks/train_mfu.py bench_layoutlmv3): 512
+# text tokens + 197 visual tokens, 12 heads of 64
+DOC_B, DOC_T, DOC_H, DOC_D = 32, 709, 12, 64
+# (B, T, S, H, D, bias, masked, scale): every bias broadcast, [B|1,H|1,T,S]
+# and head-major [H,B|1,T,S]; with and without a key-padding mask (the
+# last example of a masked case has every key masked); ragged T != S; D in
+# {64, 96, 128}; S up to 2048; and every shape a main path gives the
+# kernels: the Pix2Struct tower unscaled at 1024 slots (the ttft phase's
+# encode_image) and 2048, the eval CLI's fp32 batch of 8, the FUNSD
+# fine-tuning batch of 32 (bf16 only: no fp32 path runs it)
+DOC_CASES = [
+    (2, 37, 40, 4, 64, None, True, None), (2, 197, 197, 4, 64, "11", True, None),
+    (2, 100, 77, 4, 96, "1H", True, None), (3, 70, 45, 4, 64, "BH", True, None),
+    (2, 64, 200, 2, 128, "BH", False, None), (3, 129, 131, 4, 64, "hm", True, None),
+    (2, 301, 37, 2, 96, "hm1", True, None), (1, 50, 2048, 2, 64, "hm1", True, None),
+    (2, 64, 2048, 2, 128, "BH", True, None), (2, 77, 100, 4, 64, "hm", False, None),
+    (1, 1024, 1024, 24, 64, None, True, 1.0),  # the Kosmos-2.5 tower
+    (1, 2048, 2048, 24, 64, None, True, 1.0),
+    (8, DOC_T, DOC_T, DOC_H, DOC_D, "hm", True, None),  # FUNSD eval (fp32)
+    (DOC_B, DOC_T, DOC_T, DOC_H, DOC_D, "hm", True, None),  # FUNSD training
+]
+
+
+def doc_inputs(da, g, dtype, B, T, S, H, D, bias, masked):
+    """q, k, v, dO, the bias (a HeadMajorBias for "hm"/"hm1") and the bool
+    mask of a DOC_CASES entry, on the card."""
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    q, k, v, do = rn(B, T, H, D), rn(B, S, H, D), rn(B, S, H, D), rn(B, T, H, D)
+    shape = {None: None, "11": (1, 1, T, S), "1H": (1, H, T, S),
+             "BH": (B, H, T, S), "hm": (H, B, T, S), "hm1": (H, 1, T, S)}[bias]
+    b = None if shape is None else 2 * rn(*shape)
+    if bias in ("hm", "hm1"):
+        b = da.HeadMajorBias(b)
+    mask = None
+    if masked:
+        mask = torch.rand(B, S, generator=g, device="cuda") > 0.2
+        mask[:, 0] = True
+        if B > 1:
+            mask[-1] = False  # an example whose keys are all masked
+    return q, k, v, do, b, mask
+
+
+def doc_sdpa_mask(da, b, mask):
+    """The doc call's bias and key-padding mask as one float [B, H, T, S]
+    attn_mask for torch's SDPA: the bias permuted, -inf at masked keys."""
+    bias = b.bhts() if isinstance(b, da.HeadMajorBias) else b
+    neg = torch.zeros(mask.shape, dtype=bias.dtype, device=bias.device)
+    neg.masked_fill_(~mask, float("-inf"))
+    return (bias + neg[:, None, None, :]).contiguous()
+
+
+def doc_desc(dtype, case):
+    B, T, S, H, D, bias, masked, scale = case
+    return (f"{str(dtype)[6:]} B{B} T{T} S{S} H{H} D{D} bias={bias} "
+            f"mask={masked}" + ("" if scale is None else f" scale={scale}"))
+
+
+def phase_doc_attn(da, g) -> dict:
+    """Kernel #9 against doc_attention_plain on the same inputs, bf16
+    (relative L2 <= 1e-2) and fp32 (<= 1e-4) over DOC_CASES, then timed at
+    the FUNSD shape (bf16, head-major bias, mask) beside the plain version
+    and torch's SDPA with a float attn_mask (the bias plus -inf at masked
+    keys)."""
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_abs = 0.0
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        n = 0
+        for case in DOC_CASES:
+            B, T, S, H, D, bias, masked, scale = case
+            if dtype == torch.float32 and B == DOC_B:
+                continue
+            q, k, v, _, b, mask = doc_inputs(da, g, dtype, B, T, S, H, D, bias,
+                                             masked)
+            out = da.doc_attention(q, k, v, b, mask, scale)
+            ref = da.doc_attention_plain(q, k, v, b, mask, scale)
+            torch.cuda.synchronize()
+            e = rel_l2(out, ref)
+            check(bool(torch.isfinite(out.float()).all()) and e <= tol,
+                  f"doc_attn {doc_desc(dtype, case)}: rel L2 {e} (bound {tol})")
+            worst[dtype] = max(worst[dtype], e)
+            if dtype == torch.bfloat16:
+                worst_abs = max(worst_abs, float((out.float() - ref.float())
+                                                 .abs().max()))
+            n += 1
+            del q, k, v, b, mask, out, ref
+        phase("doc_attn", f"{str(dtype)[6:]}: {n} cases, worst rel L2 "
+              f"{worst[dtype]:.3g} (bound {tol}) ok")
+
+    B, T, H, D = DOC_B, DOC_T, DOC_H, DOC_D
+    q, k, v, _, b, mask = doc_inputs(da, g, torch.bfloat16, B, T, T, H, D,
+                                     "hm", True)
+    mask[-1] = True  # every example with keys, as in the model
+    am = doc_sdpa_mask(da, b, mask)
+    times = {}
+    for _ in range(2):
+        for name, fn in (
+                ("kernel", lambda: da.doc_attention(q, k, v, b, mask)),
+                ("plain", lambda: da.doc_attention_plain(q, k, v, b, mask))):
+            times[name] = cuda_ms(fn, iters=10)
+    lib_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=am), iters=10)
+    out = da.doc_attention(q, k, v, b, mask)
+    flops = 4 * B * H * T * T * D
+    bd = roofline(nbytes(q, k, v, out, b.hbts, mask), flops)
+    phase("doc_attn", f"FUNSD {B}x{T}x{H}x{D} bf16, head-major bias "
+          f"[{H},{B},{T},{T}], mask: kernel {times['kernel']:.4f} ms "
+          f"({flops / times['kernel'] / 1e9:.1f} TFLOP/s), plain "
+          f"{times['plain']:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"name": "doc_attention", "route": "cuda",
+            "source": "unilm_tpu_torch/csrc/doc_attention.cu",
+            "replaces": "unilm_tpu/ops/doc_attention.py:69",
+            "max_abs_err": worst_abs, "rel_l2_bf16": worst[torch.bfloat16],
+            "rel_l2_fp32": worst[torch.float32], "ms": times["kernel"],
+            "plain_ms": times["plain"], "library_ms": lib_ms, **bd,
+            "shape": f"{B}x{T}x{H}x{D} bf16 bias [{H},{B},{T},{T}] + mask"}
+
+
+def phase_doc_bwd(da, g) -> dict:
+    """Kernel #10 against doc_backward_plain on the same inputs over
+    DOC_CASES, bf16 and fp32: dq, dk, dv and dbias (ds, summed where the
+    bias broadcasts), each held by grad_close at 1e-2 (bf16) or 1e-4
+    (fp32), for the reasons phase_encoder_bwd gives; the FUNSD shape twice,
+    bit-equal. Then timed at the FUNSD shape beside the plain twin and the
+    backward of SDPA with the float mask's gradient."""
+    worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
+    worst_abs = 0.0
+    for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        n = 0
+        for case in DOC_CASES:
+            B, T, S, H, D, bias, masked, scale = case
+            if dtype == torch.float32 and B == DOC_B:
+                continue
+            q, k, v, do, b, mask = doc_inputs(da, g, dtype, B, T, S, H, D,
+                                              bias, masked)
+            got = da.doc_backward(q, k, v, b, mask, do, scale)
+            ref = da.doc_backward_plain(q, k, v, b, mask, do, scale)
+            torch.cuda.synchronize()
+            desc = doc_desc(dtype, case)
+            for name, x, r in zip(("dq", "dk", "dv", "dbias"), got, ref):
+                if r is None:
+                    check(x is None, f"doc_bwd {desc}: {name} not None")
+                    continue
+                check(x.dtype == r.dtype and x.shape == r.shape,
+                      f"doc_bwd {desc}: {name} {x.dtype} {tuple(x.shape)} vs "
+                      f"{r.dtype} {tuple(r.shape)}")
+                ok, e, rel = grad_close(x, r, tol)
+                check(bool(torch.isfinite(x.float()).all()) and ok,
+                      f"doc_bwd {desc}: {name} max|err| {e} rel L2 {rel} "
+                      f"(bound {tol})")
+                worst[dtype] = max(worst[dtype], rel)
+                if dtype == torch.bfloat16:
+                    worst_abs = max(worst_abs, e)
+            if B == DOC_B:
+                again = da.doc_backward(q, k, v, b, mask, do, scale)
+                check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                      "doc_bwd: two runs at the FUNSD shape differ")
+                del again
+            n += 1
+            del q, k, v, do, b, mask, got, ref
+        phase("doc_bwd", f"{str(dtype)[6:]}: {n} cases, dq/dk/dv/dbias worst "
+              f"rel L2 {worst[dtype]:.3g} (bound {tol}) ok"
+              + ("; FUNSD bit-equal across two runs"
+                 if dtype == torch.bfloat16 else ""))
+
+    B, T, H, D = DOC_B, DOC_T, DOC_H, DOC_D
+    q, k, v, do, b, mask = doc_inputs(da, g, torch.bfloat16, B, T, T, H, D,
+                                      "hm", True)
+    mask[-1] = True
+    times = {}
+    for _ in range(2):
+        for name, fn in (
+                ("kernel", lambda: da.doc_backward(q, k, v, b, mask, do)),
+                ("plain", lambda: da.doc_backward_plain(q, k, v, b, mask,
+                                                        do))):
+            times[name] = cuda_ms(fn, iters=5)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    am = doc_sdpa_mask(da, b, mask).requires_grad_()
+    o = sdpa(qg, kg, vg, attn_mask=am)
+    backend = type(o.grad_fn).__name__
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(
+        o, (qg, kg, vg, am), do.transpose(1, 2), retain_graph=True), iters=5)
+    del o, qg, kg, vg, am
+    dq, dk, dv, dbias = da.doc_backward(q, k, v, b, mask, do)
+    flops = 10 * B * H * T * T * D
+    bd = roofline(nbytes(q, k, v, do, b.hbts, mask, dq, dk, dv, dbias), flops)
+    phase("doc_bwd", f"FUNSD {B}x{T}x{H}x{D} bf16, head-major bias, mask: "
+          f"kernel {times['kernel']:.4f} ms ({flops / times['kernel'] / 1e9:.1f}"
+          f" TFLOP/s), plain {times['plain']:.4f} ms, sdpa backward "
+          f"{lib_ms:.4f} ms ({backend}), bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']})")
+    return {"name": "doc_attention_bwd", "route": "cuda",
+            "source": "unilm_tpu_torch/csrc/doc_attention_bwd.cu",
+            "replaces": "unilm_tpu/ops/doc_attention.py:108",
+            "max_abs_err": worst_abs, "rel_l2_bf16": worst[torch.bfloat16],
+            "rel_l2_fp32": worst[torch.float32], "ms": times["kernel"],
+            "plain_ms": times["plain"], "library_ms": lib_ms,
+            "library": f"sdpa backward ({backend})", **bd,
+            "shape": f"{B}x{T}x{H}x{D} bf16 bias [{H},{B},{T},{T}] + mask"}
 
 
 def grad_close(x: torch.Tensor, ref: torch.Tensor, bound: float):
@@ -1353,29 +1610,382 @@ def phase_beit_train(fa) -> dict:
     return launches
 
 
-def ttft_inputs(cfg, dev):
-    """benchmarks/kosmos_ttft.py's request: bos, <image>, the image
-    tokens, </image>, a task token (T = image tokens + 4, segment 1 over
-    the image span), and TTFT_PATCHES flattened patches: a 62 x 64 grid of
-    random 16x16x3 patches with their (row+1, col+1) ids, zero-padded."""
-    Q = cfg.latent_query_num
-    T = Q + 4
+def lv3_eval_batch(cfg, rng, B: int, T: int) -> dict:
+    """A synthetic FUNSD batch as the CLI's funsd_batches yields it
+    (numpy, on the host): <s> ... </s> documents of 200-510 tokens padded
+    to T, sorted word boxes, 8-token segments (-1 on specials and pads),
+    labels on the first subword of each 1-3-token word, normalized
+    224x224 pages."""
+    ids = np.full((B, T), cfg.pad_token_id, np.int64)
+    mask = np.zeros((B, T), np.int64)
+    bbox = np.zeros((B, T, 4), np.int64)
+    seg = np.full((B, T), -1, np.int64)
+    labels = np.full((B, T), -100, np.int64)
+    for i in range(B):
+        n = rng.randint(200, T - 1)
+        ids[i, 0], ids[i, 1:n - 1], ids[i, n - 1] = 0, rng.randint(
+            3, cfg.vocab_size - 1, n - 2), 2
+        mask[i, :n] = 1
+        xy = np.sort(rng.randint(0, 900, (n - 2, 2, 2)), axis=1)
+        bbox[i, 1:n - 1] = xy.transpose(0, 2, 1).reshape(n - 2, 4)
+        seg[i, 1:n - 1] = np.arange(n - 2) // 8
+        first = np.cumsum(rng.randint(1, 4, n)) - 1  # word starts
+        first = first[first < n - 2] + 1
+        labels[i, first] = rng.randint(0, cfg.num_labels, len(first))
+    images = (rng.rand(B, 224, 224, 3) * 2 - 1).astype(np.float32)
+    return dict(input_ids=ids, attention_mask=mask, bbox=bbox, labels=labels,
+                segments=seg, images=images)
+
+
+def phase_layoutlmv3_eval() -> dict:
+    """LayoutLMv3-B at the FUNSD eval CLI's configuration (cli/run_funsd.py:
+    LayoutLMv3Config(num_labels=7), float32, max_len 512, batch 8, with the
+    image; random weights from the seed) through the port CLI's
+    evaluate_batches on synthetic documents: exactly 12 launches of #9 and
+    none of #1/#3 per forward, docs/s and ms/batch (CUDA events), a teacher
+    check against the plain path, a device-time profile."""
+    from unilm_tpu_torch.cli import run_funsd as rf
+    from unilm_tpu_torch.models import layoutlmv3 as lm
+
+    dev = torch.device("cuda")
+    args = rf.build_parser().parse_args([
+        "--data_path", "unused", "--tokenizer", "unused", "--seed", str(SEED)])
+    model = rf.build_model(args, dev)
+    cfg, L, B = model.cfg, model.cfg.num_layers, args.batch_size
+    rng = np.random.RandomState(SEED)
+    batches = [lv3_eval_batch(cfg, rng, B, args.max_len) for _ in range(2)]
+    n_params = sum(p.numel() for p in model.parameters())
+    S = args.max_len + cfg.visual_len
+    phase("layoutlmv3_eval", f"LayoutLMv3-B FUNSD eval: {L} layers, E="
+          f"{cfg.hidden_size}, H={cfg.num_heads}, {args.max_len} text + "
+          f"{cfg.visual_len} visual tokens, float32, {n_params / 1e6:.1f} M "
+          f"params; batch {B}, segment-aware 1D bias (valid_span)")
+
+    # ---- the main path: one batch through the CLI's evaluation loop ----
+    reset_counts()
+    logits, labels = rf.evaluate_batches(model, batches[:1])
+    torch.cuda.synchronize()
+    got = counts()
+    check(got["doc_attention"] == L and got["flash_fwd"] == 0
+          and got["encoder_attention"] == 0,
+          f"layoutlmv3_eval: launches per forward {got} (want {L} of #9, none "
+          "of #1/#3)")
+    check(logits.shape == (B, args.max_len, 7) and bool(np.isfinite(
+        logits).all()), "layoutlmv3_eval: logits shape or finite")
+    launches = {"doc_attention": got["doc_attention"]}
+    f1 = rf.score(logits, labels)
+
+    # ---- docs/s over LV3_EVAL_BATCHES batches after warm-up -------------
+    timed = [batches[i % 2] for i in range(LV3_EVAL_BATCHES)]
+    rf.evaluate_batches(model, timed[:2])
+    reset_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    rf.evaluate_batches(model, timed)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ms = ev[0].elapsed_time(ev[1]) / LV3_EVAL_BATCHES
+    check(counts()["doc_attention"] == L * LV3_EVAL_BATCHES,
+          f"layoutlmv3_eval: {counts()['doc_attention']} launches over "
+          f"{LV3_EVAL_BATCHES} batches")
+    phase("layoutlmv3_eval", f"{LV3_EVAL_BATCHES} batches of {B} through "
+          f"evaluate_batches: {ms:.3f} ms/batch, {B * 1e3 / ms:.1f} docs/s "
+          f"(CUDA events, host-to-card copies included); entity F1 of the "
+          f"random model {f1['f1']:.4f}")
+
+    # ---- teacher check: the plain path on the same batch ----------------
+    plain = lm.LayoutLMv3ForTokenClassification(
+        dataclasses.replace(cfg, use_flash=False), device=dev)
+    plain.load_state_dict(model.state_dict())
+    plain.eval()
+    c0 = counts()
+    plogits, _ = rf.evaluate_batches(plain, batches[:1])
+    check(counts() == c0, "layoutlmv3_eval: the plain path launched a kernel")
+    keep = labels != -100
+    dl = float(np.abs(logits - plogits)[keep].max())
+    agree = float((logits.argmax(-1) == plogits.argmax(-1))[keep].mean())
+    phase("layoutlmv3_eval", f"teacher check, kernel vs plain path on one "
+          f"batch: max |dlogit| over labelled tokens {dl:.2e} (tol "
+          f"{LV3_EVAL_LOGIT_ATOL}, logits max "
+          f"{float(np.abs(plogits).max()):.3f}), argmax agreement "
+          f"{agree:.4f} (tol {LV3_EVAL_AGREE})")
+    check(dl <= LV3_EVAL_LOGIT_ATOL and agree >= LV3_EVAL_AGREE,
+          "layoutlmv3_eval: teacher check failed")
+    ms_plain = cuda_ms(lambda: rf.evaluate_batches(plain, batches[:1]),
+                       iters=3, warmup=1)
+    phase("layoutlmv3_eval", f"plain path {ms_plain:.3f} ms/batch "
+          f"({B * 1e3 / ms_plain:.1f} docs/s)")
+    del plain
+
+    # ---- device-time profile of one batch -------------------------------
+    from torch.profiler import ProfilerActivity, profile
+
+    # #9's fp32 path runs #3's body (csrc/encoder_attention.cuh), so its
+    # kernel carries #3's name; #3 itself launched no time here (above)
+    groups = [("doc_attention #9", ["doc_fwd", "encoder_attn_kernel"]),
+              ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                          "splitK"]),
+              ("bias lookup (gather)", ["index", "gather"]),
+              ("layer norm", ["layer_norm", "LayerNorm"])]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rf.evaluate_batches(model, batches[:1])
+        torch.cuda.synchronize()
+    shares = device_time_shares(prof, groups)
+    total = sum(shares.values())
+    if total <= 0:
+        phase("layoutlmv3_eval", "profiler saw no device time: shares not "
+              "measured")
+    else:
+        phase("layoutlmv3_eval", f"device time per batch {total:.3f} ms of "
+              f"{ms:.3f} ms: " + ", ".join(
+                  f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                  for k, v in shares.items()))
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_layoutlmv3_train() -> dict:
+    """LayoutLMv3-B FUNSD fine-tuning at benchmarks/train_mfu.py
+    bench_layoutlmv3's configuration, nothing cut (B=32, 512 text + 197
+    visual tokens, bf16 compute / fp32 params, fused bias, no remat, 7
+    labels, AdamW lr 1e-5 with weight decay 0.01 on every parameter, clip
+    1.0, data drawn as there) through runtime.train.make_train_step: 6
+    steps, the last 4 timed; exactly 12 launches of #9 and 12 of #10 per
+    step and none of #1/#3/#4/#6/#7; ms/step, docs/s, model TFLOP/s, peak
+    memory, a device-time profile, a teacher check against the plain path
+    and the plain path's step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unilm_tpu_torch.models import layoutlmv3 as lm
+    from unilm_tpu_torch.ops import bucket_bias as bbias
+    from unilm_tpu_torch.runtime import optim, train
+
+    dev = torch.device("cuda")
+    B, T = LV3_TRAIN_BATCH, 512
+    cfg = lm.layoutlmv3_base(dtype=torch.bfloat16, num_labels=7)
+
+    def build(c):
+        m = lm.LayoutLMv3ForTokenClassification(c, device=dev)
+        return m.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+
+    model = build(cfg).train()
+    L, E, S = cfg.num_layers, cfg.hidden_size, T + cfg.visual_len
+    rng0 = np.random.RandomState(0)  # train_mfu.py:480-486
+    ids = rng0.randint(3, cfg.vocab_size - 1, (B, T))
+    xy = rng0.randint(0, 900, (B, T, 2, 2))
+    xy.sort(axis=2)
+    bbox = xy.transpose(0, 1, 3, 2).reshape(B, T, 4)
+    imgs = rng0.rand(B, 224, 224, 3)
+    labels = rng0.randint(0, 7, (B, T))
+    batch = {"ids": torch.from_numpy(ids).to(dev),
+             "bbox": torch.from_numpy(bbox).to(dev),
+             "imgs": torch.from_numpy(imgs).to(dev, torch.bfloat16),
+             "y": torch.from_numpy(labels).to(dev)}
+
+    def loss_fn(m, b):
+        s, n = train.cross_entropy_loss(m(b["ids"], b["bbox"], None,
+                                          b["imgs"]), b["y"])
+        return s / n, {}
+
+    def trainer(m):
+        tx = optim.AdamW(1e-5, weight_decay=0.01)
+        return (train.TrainState.create(m, tx), tx,
+                train.make_train_step(loss_fn, tx, clip_grad_norm=1.0))
+
+    state, tx, step = trainer(model)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_mm = sum(p.numel() for name, p in model.named_parameters()
+               if p.ndim >= 2 and "embed" not in name)  # train_mfu's count
+    phase("layoutlmv3_train", f"LayoutLMv3-B FUNSD fine-tuning: {L} layers, "
+          f"E={E}, H={cfg.num_heads}, {T} text + {cfg.visual_len} visual "
+          f"tokens, batch {B}, bf16 compute / fp32 params, fused head-major "
+          f"bias, {n_params / 1e6:.1f} M params; AdamW lr 1e-5 wd 0.01, clip "
+          "1.0")
+
+    # ---- the main path: LV3_TRAIN_STEPS steps, the last ones timed -----
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    metrics = []
+    torch.cuda.synchronize()
+    reset_counts()
+    for i in range(LV3_TRAIN_STEPS):
+        if i == LV3_TRAIN_STEPS - LV3_TRAIN_TIMED:
+            torch.cuda.reset_peak_memory_stats()
+            ev[0].record()
+        state, m = step(state, batch)
+        metrics.append(m)
+    ev[1].record()
+    torch.cuda.synchronize()
+    got = counts()
+    ms = ev[0].elapsed_time(ev[1]) / LV3_TRAIN_TIMED
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(m["loss"]) for m in metrics]
+    norms = [float(m["grad_norm"]) for m in metrics]
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"layoutlmv3_train: loss {losses} grad norm {norms}")
+    n = LV3_TRAIN_STEPS
+    others = ("flash_fwd", "encoder_attention", "encoder_attention_bwd",
+              "flash_bwd_dq", "flash_bwd_dkv")
+    check(got["doc_attention"] == L * n and got["doc_attention_bwd"] == L * n
+          and all(got[k] == 0 for k in others),
+          f"layoutlmv3_train: launches over {n} steps {got} (want {L} of #9 "
+          f"and {L} of #10 per step, none of #1/#3/#4/#6/#7)")
+    launches = {"doc_attention_bwd": got["doc_attention_bwd"]}
+    flops = 6.0 * n_mm * B * S + 12.0 * L * E * S * B * S
+    phase("layoutlmv3_train", "steps " + ", ".join(
+        f"{i + 1}: loss {lo:.4f} grad norm {gn:.3f}"
+        for i, (lo, gn) in enumerate(zip(losses, norms))))
+    phase("layoutlmv3_train", f"launches per step: {L} of #9, {L} of #10, "
+          f"none of #1/#3/#4/#6/#7; steps {n - LV3_TRAIN_TIMED + 1}-{n}: "
+          f"{ms:.2f} ms/step (CUDA events), {B * 1e3 / ms:.1f} docs/s, "
+          f"{flops / ms / 1e9:.1f} model TFLOP/s = "
+          f"{flops / ms / 1e9 / 989 * 100:.1f}% of 989 TFLOP/s bf16 dense; "
+          f"peak memory {peak:.1f} GiB")
+
+    # ---- device-time profile: forward + backward, then the optimizer ----
+    groups = [("doc_attention #9", ["doc_fwd"]),
+              ("doc_attention_bwd #10", ["doc_bwd"]),
+              ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                          "splitK"]),
+              ("bias gather", ["index", "gather"])]
+    params = train.trainable(model)
+
+    def fwd_bwd(m):
+        loss, _ = loss_fn(m, batch)
+        return loss, torch.autograd.grad(loss, train.trainable(m))
+
+    _, grads = fwd_bwd(model)
+    torch.cuda.synchronize()
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        _, grads = fwd_bwd(model)
+        torch.cuda.synchronize()
+    parts = device_time_shares(prof, groups)
+    parts["elementwise and other"] = parts.pop("other")
+    scratch = [p.detach().clone() for p in params]
+    opt = {k: ([t.clone() for t in v] if isinstance(v, list) else v)
+           for k, v in state.opt_state.items()}
+    with profile(activities=acts) as prof:
+        tx.update(grads, opt, scratch)
+        torch.cuda.synchronize()
+    parts["optimizer"] = sum(device_time_shares(prof, []).values())
+    del scratch, opt
+    # the shared bias alone: its lookup forward and its table contraction
+    # backward (counted above in the gather, cuBLAS and elementwise groups)
+    lv3 = model.layoutlmv3
+    tables = [t for t in lv3.bias_tables() if t is not None]
+    with torch.no_grad():
+        pos = torch.cat([torch.arange(T, device=dev), torch.arange(
+            cfg.visual_len, device=dev)]).expand(B, S)
+        fb = torch.cat([batch["bbox"], lv3.visual_bbox.expand(B, -1, -1)], 1)
+        packed = bbias.pack_bucket_planes(*lm.relative_bucket_planes(
+            cfg, pos, fb, None, cfg.visual_len))
+    gbias = torch.ones(cfg.num_heads, B, S, S, dtype=cfg.dtype, device=dev)
+
+    def bias_fwd_bwd():
+        hb = bbias.bias_grad_collector(tables, packed, cfg.head_scale,
+                                       cfg.dtype)
+        return torch.autograd.grad(hb, tables, gbias)
+
+    bias_ms = cuda_ms(bias_fwd_bwd, iters=3, warmup=1)
+    del gbias
+    total = sum(parts.values())
+    if total <= 0:
+        phase("layoutlmv3_train", "profiler saw no device time: shares not "
+              "measured")
+    else:
+        phase("layoutlmv3_train", f"device time per step {total:.2f} ms of "
+              f"{ms:.2f} ms ({100 * total / ms:.0f}% busy): " + ", ".join(
+                  f"{k} {v:.2f} ms ({100 * v / total:.1f}%)"
+                  for k, v in parts.items())
+              + f"; the bias lookup + table contraction alone {bias_ms:.2f} "
+              "ms (CUDA events)")
+
+    # ---- teacher check: kernel path against plain path, one batch -------
+    plain = build(dataclasses.replace(cfg, use_flash=False)).train()
+    plain.load_state_dict(model.state_dict())
+    c0 = counts()
+    lk, gk = fwd_bwd(model)
+    c1 = counts()
+    lp, gp = fwd_bwd(plain)
+    torch.cuda.synchronize()
+    check(counts() == c1 and c1["doc_attention_bwd"]
+          - c0["doc_attention_bwd"] == L,
+          f"layoutlmv3_train teacher: launch counts {c0} -> {c1} -> "
+          f"{counts()}")
+    lk, lp = float(lk.detach()), float(lp.detach())
+    names = [nm for nm, _ in model.named_parameters()]
+    nk, npl = float(optim.global_norm(gk)), float(optim.global_norm(gp))
+    cos = {nm: float(torch.nn.functional.cosine_similarity(
+        a.flatten().float(), b.flatten().float(), dim=0))
+        for nm, a, b in zip(names, gk, gp) if not nm.endswith("k_proj.bias")}
+    worst = min(cos, key=cos.get)
+    tabs = ", ".join(f"{nm.split('.')[-1]} {cos[nm]:.5f}" for nm in names
+                     if nm.split(".")[-1].startswith("rel_pos"))
+    loss_rel, norm_rel = abs(lk - lp) / abs(lp), abs(nk - npl) / npl
+    phase("layoutlmv3_train", f"teacher check, one batch: loss kernel {lk:.6f}"
+          f" plain {lp:.6f} (rel {loss_rel:.2e}, tol {LV3_TEACHER_LOSS_REL}); "
+          f"grad norm kernel {nk:.5f} plain {npl:.5f} (rel {norm_rel:.2e}, "
+          f"tol {LV3_TEACHER_NORM_REL}); min per-tensor cosine "
+          f"{cos[worst]:.5f} ({worst}, tol {LV3_TEACHER_COS}); bias tables: "
+          f"{tabs}")
+    check(loss_rel <= LV3_TEACHER_LOSS_REL
+          and norm_rel <= LV3_TEACHER_NORM_REL
+          and cos[worst] >= LV3_TEACHER_COS,
+          "layoutlmv3_train: teacher check failed")
+    del gk, gp, grads, state, step, tx, model
+    torch.cuda.empty_cache()
+
+    # ---- the plain path's step -------------------------------------------
+    pstate, _, pstep = trainer(plain)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    for i in range(3):
+        if i == 1:
+            ev[0].record()
+        pstate, _ = pstep(pstate, batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    check(counts() == c1, "layoutlmv3_train: the plain path launched a kernel")
+    ms_plain = ev[0].elapsed_time(ev[1]) / 2
+    phase("layoutlmv3_train", f"plain path (use_flash=False) {ms_plain:.2f} "
+          f"ms/step ({B * 1e3 / ms_plain:.1f} docs/s); kernel path {ms:.2f} "
+          "ms")
+    del plain, pstate, pstep, batch
+    torch.cuda.empty_cache()
+    return launches
+
+
+def tower_patches(cfg, dev, slots: int, grid) -> torch.Tensor:
+    """`slots` flattened patches, bf16: a grid of random 16x16x3 patches
+    with their (row+1, col+1) ids, zero-padded."""
     g = torch.Generator(device=dev).manual_seed(SEED)
-    tokens = torch.full((1, T), 4, dtype=torch.long, device=dev)
-    img_mask = torch.zeros(1, T, dtype=torch.bool, device=dev)
-    img_mask[:, 2:2 + Q] = True
-    segs = torch.zeros(1, T, dtype=torch.long, device=dev)
-    segs[:, 1:3 + Q] = 1
-    nr, nc = TTFT_GRID
-    patches = torch.zeros(1, TTFT_PATCHES, 2 + cfg.pix2struct.patch_dim,
-                          device=dev)
+    nr, nc = grid
+    patches = torch.zeros(1, slots, 2 + cfg.pix2struct.patch_dim, device=dev)
     rows = torch.arange(nr, device=dev).repeat_interleave(nc) + 1
     cols = torch.arange(nc, device=dev).repeat(nr) + 1
     patches[0, :nr * nc, 0] = rows.float()
     patches[0, :nr * nc, 1] = cols.float()
     patches[0, :nr * nc, 2:] = torch.randn(nr * nc, cfg.pix2struct.patch_dim,
                                            generator=g, device=dev)
-    return tokens, img_mask, segs, patches.to(torch.bfloat16)
+    return patches.to(torch.bfloat16)
+
+
+def ttft_inputs(cfg, dev):
+    """benchmarks/kosmos_ttft.py's request: bos, <image>, the image
+    tokens, </image>, a task token (T = image tokens + 4, segment 1 over
+    the image span), and TTFT_PATCHES flattened patches in a 62 x 64 grid
+    (`tower_patches`)."""
+    Q = cfg.latent_query_num
+    T = Q + 4
+    tokens = torch.full((1, T), 4, dtype=torch.long, device=dev)
+    img_mask = torch.zeros(1, T, dtype=torch.bool, device=dev)
+    img_mask[:, 2:2 + Q] = True
+    segs = torch.zeros(1, T, dtype=torch.long, device=dev)
+    segs[:, 1:3 + Q] = 1
+    return tokens, img_mask, segs, tower_patches(cfg, dev, TTFT_PATCHES,
+                                                 TTFT_GRID)
 
 
 def phase_ttft(fa) -> dict:
@@ -1462,6 +2072,27 @@ def phase_ttft(fa) -> dict:
           f"{int(tok)} vs {int(ptok)}")
     check(e_feat <= TTFT_FEAT_ATOL and e_log <= TTFT_LOGIT_ATOL
           and rel_k32 <= rel_p32, "ttft: kernel vs plain path")
+
+    # ---- the tower at TOWER_SLOTS (<= 2048): its mask takes #9 ----------
+    p1k = tower_patches(cfg, dev, TOWER_SLOTS, TOWER_GRID)
+    c0 = counts()
+    with torch.no_grad():
+        f1k = model.encode_image(p1k)
+        torch.cuda.synchronize()
+        ran = {k: counts()[k] - c0[k] for k in c0}
+        pf1k = plain.encode_image(p1k)
+    nl = cfg.pix2struct.num_layers
+    check(ran["doc_attention"] == nl and ran["flash_fwd"] == 1
+          and ran["encoder_attention"] == 0,
+          f"ttft: encode_image at {TOWER_SLOTS} slots launched {ran} (want "
+          f"{nl} of #9 in the tower, 1 of #1 in the resampler)")
+    e1k = float((f1k.float() - pf1k.float()).abs().max())
+    phase("ttft", f"encode_image at {TOWER_SLOTS} patch slots "
+          f"({TOWER_GRID[0] * TOWER_GRID[1]} valid): {nl} launches of #9 in "
+          f"the tower, #1 only in the resampler; resampled features vs the "
+          f"plain path max|err| {e1k:.4f} (tol {TTFT_FEAT_ATOL})")
+    check(bool(torch.isfinite(f1k.float()).all()) and e1k <= TTFT_FEAT_ATOL,
+          "ttft: 1024-slot features vs the plain path")
 
     # ---- TTFT, kernel and plain paths in turn ---------------------------
     def timed(m):
@@ -2185,6 +2816,7 @@ def phase_train(fa, layers: int = 24) -> dict:
 
 def main() -> int:
     smi = phase_device()
+    from unilm_tpu_torch.ops import doc_attention as da
     from unilm_tpu_torch.ops import flash_attention as fa
     from unilm_tpu_torch.ops import paged_attention as pa
     from unilm_tpu_torch.ops import quant as qm
@@ -2197,16 +2829,21 @@ def main() -> int:
                     "paged_append_attention": pa.APPEND_KERNEL,
                     "flash_bwd_dq": fa.BWD_KERNEL_DQ,
                     "flash_bwd_dkv": fa.BWD_KERNEL_DKV,
-                    "encoder_attention_bwd": fa.ENCODER_BWD_KERNEL})
+                    "encoder_attention_bwd": fa.ENCODER_BWD_KERNEL,
+                    "doc_attention": da.FWD_KERNEL,
+                    "doc_attention_bwd": da.BWD_KERNEL})
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [phase_flash(fa, g), *phase_flash_bwd(fa, g),
                phase_encoder_attn(fa, g), phase_encoder_bwd(fa, g),
+               phase_doc_attn(da, g), phase_doc_bwd(da, g),
                phase_decode(pa, g), phase_decode_int8(pa, g),
                phase_int8_matmul(qm, g), phase_paged_append(pa, g)]
     launches = phase_slice(fa, pa)
     launches.update(phase_beit_eval(fa))
     launches.update(phase_beit_train(fa))
+    launches.update(phase_layoutlmv3_eval())
+    launches.update(phase_layoutlmv3_train())
     launches.update(phase_ttft(fa))
     cfg, sd = engine_model()
     launches.update(phase_engine_int8(cfg, sd))

@@ -511,3 +511,21 @@ def test_cli_resume_is_bit_equal(tmp_path, monkeypatch):
     assert args.device == "cuda"
     with pytest.raises(RuntimeError, match="device cpu"):
         tcl.build_trainer(args)
+
+
+def test_random_init_ignores_seed_as_jax_does(monkeypatch):
+    """Without --checkpoint the weights are seeded 0 whatever --seed, as
+    the JAX CLI's PRNGKey(0) init (cli/run_class_finetuning.py
+    `load_params`); --seed still drives the stream and the draws."""
+    _tiny_registry(monkeypatch)
+    items = [(f"x/{i}", i % 2) for i in range(8)]
+    models = []
+    for seed in ("0", "7"):
+        args = tcl.build_parser().parse_args([
+            "--model", "beit_tiny_test", "--data_path", "unused", "--device",
+            "cpu", "--no-bf16", "--batch_size", "2", "--seed", seed])
+        models.append(tcl.build_trainer(args, items))
+    a, b = (t.model.state_dict() for t in models)
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    first = [[next(t.stream) for _ in range(4)] for t in models]
+    assert first[0] != first[1]

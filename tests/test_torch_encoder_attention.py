@@ -123,12 +123,17 @@ def test_dispatch_flash_branch(calls, kw, S):
     assert calls == ["flash #1"]
 
 
-def test_dispatch_kpm_at_short_s_raises_naming_doc_kernel(calls):
+def test_dispatch_kpm_at_short_s_takes_doc_kernel(calls, monkeypatch):
+    """A key-padding mask at S <= 2048 leaves the encoder kernel for the
+    doc attention (#9, ops/doc_attention.py), as the JAX dispatcher does."""
+    from unilm_tpu_torch.ops import doc_attention as da
+
+    monkeypatch.setattr(da, "doc_attention",
+                        lambda q, *a, **kw: calls.append("doc #9") or q)
     q, k = _fake(2, 50, 4, 64), _fake(2, 50, 4, 64)
     mask = torch.ones(2, 50, dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match=r"_doc_fwd_kernel.*#9"):
-        tatt.attention(q, k, k, key_padding_mask=mask)
-    assert calls == []
+    tatt.attention(q, k, k, key_padding_mask=mask)
+    assert calls == ["doc #9"]
 
 
 def test_dispatch_plain_paths(calls):

@@ -76,6 +76,30 @@ state = train_classification.main([
 print("steps", state.step)
 """
 
+_FUNSD = _POISON + r"""
+import numpy as np
+import torch
+from unilm_tpu_torch.cli import run_funsd
+from unilm_tpu_torch.models import layoutlmv3
+
+torch.set_num_threads(1)
+cfg = layoutlmv3.LayoutLMv3Config(
+    vocab_size=50, hidden_size=64, num_layers=1, num_heads=1, ffn_dim=64,
+    max_positions=40, coordinate_size=11, shape_size=10, input_size=32,
+    num_labels=7)
+model = layoutlmv3.LayoutLMv3ForTokenClassification(cfg).init_weights(
+    torch.Generator().manual_seed(0)).eval()
+rng = np.random.RandomState(0)
+xy = np.sort(rng.randint(0, 900, (2, 12, 2, 2)), axis=2)
+batch = dict(input_ids=rng.randint(3, 50, (2, 12)),
+             attention_mask=np.ones((2, 12), np.int64),
+             bbox=xy.transpose(0, 1, 3, 2).reshape(2, 12, 4),
+             labels=rng.randint(0, 7, (2, 12)), segments=rng.randint(0, 3, (2, 12)),
+             images=rng.rand(2, 32, 32, 3).astype(np.float32))
+logits, labels = run_funsd.evaluate_batches(model, [batch])
+print("f1", run_funsd.score(logits, labels)["f1"])
+"""
+
 # the modules each slice of the port added; every one must be among them
 PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "ops._native", "ops.attention", "ops.flash_attention",
@@ -87,7 +111,9 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "data.iterators", "data.dictionary", "core.embedding",
           "models.beit", "convert.beit", "data.transforms", "scoring",
           "cli.run_class_finetuning", "runtime.device",
-          "cli.train_classification", "data.masking"}
+          "cli.train_classification", "data.masking", "ops.doc_attention",
+          "ops.bucket_bias", "models.layoutlmv3", "convert.layoutlmv3",
+          "convert.common", "data.document_datasets", "cli.run_funsd"}
 
 
 def test_port_imports_without_jax():
@@ -133,3 +159,12 @@ def test_chip_smoke_names_no_jax_module():
     bad = [n for n in names if n.split(".")[0] in FORBIDDEN]
     assert not bad, bad
     assert "unilm_tpu_torch.data.indexed_dataset" in names
+
+
+def test_funsd_eval_runs_without_jax():
+    """A LayoutLMv3 forward with the fused bias through the FUNSD CLI's
+    evaluate_batches and score reaches no JAX module."""
+    res = subprocess.run([sys.executable, "-c", _FUNSD], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "f1" in res.stdout, res.stdout

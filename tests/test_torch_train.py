@@ -420,3 +420,27 @@ def test_train_cli_runs_on_the_card_unless_asked_for_the_cpu(tmp_path,
     from unilm_tpu_torch.runtime.checkpoint import CheckpointManager
 
     assert CheckpointManager(str(tmp_path / "ckpt")).latest_step() == 1
+
+
+@pytest.mark.parametrize("n", [6, 7, 8])
+def test_fixed_batch_iterator_matches_jax(n):
+    """Batches of 3 from a finite source of n items: the port's stream is
+    unilm_tpu.data.iterators.FixedBatchIterator's with drop_last=True (a
+    short last batch is dropped, then the stream stops), the one behaviour
+    the port's training CLIs use; JAX's default would yield the short
+    batch too."""
+    from unilm_tpu.data import iterators as jit_
+    from unilm_tpu_torch.data import iterators as tit
+
+    def drain(stream):
+        out = []
+        while True:
+            try:
+                out.append(next(stream))
+            except StopIteration:
+                return out
+
+    want = drain(jit_.FixedBatchIterator(
+        jit_.NativeCheckpointableIterator(list(range(n))), 3, drop_last=True))
+    got = drain(tit.FixedBatchIterator(iter(range(n)), 3))
+    assert got == want == [list(range(i, i + 3)) for i in range(0, n - 2, 3)]

@@ -20,7 +20,13 @@ flags come from generators seeded from (--seed, step), so a resumed run
 takes the same steps as one that never stopped, and no generator state is
 saved. The JAX CLI restarts its key chain from --seed on resume and crops
 with an unseeded random.Random (ROADMAP Queue 3). As there, the crop is
-neither flipped nor normalized.
+neither flipped nor normalized, and random weights are seeded 0 whatever
+--seed.
+
+A non-finite loss stops the loop with FloatingPointError naming the
+non-finite parameters. The JAX CLI has no such stop; it is kept on
+purpose: a step past a NaN only spends card time and overwrites the last
+good checkpoint.
 
 `main()` is setup (`build_trainer`) plus the loop, so a caller can drive
 the same model and step with batches of its own (`Trainer.make_batch`).
@@ -146,7 +152,9 @@ class Trainer:
 
 def build_model(args, cfg, device) -> BeitForImageClassification:
     """Weights from --checkpoint (timm/unilm or HF, convert/beit.py) or
-    random from --seed."""
+    random from seed 0 whatever --seed, as the JAX CLI initialises with
+    PRNGKey(0) (cli/run_class_finetuning.py `load_params`); --seed drives
+    the data stream and the per-step draws."""
     model = BeitForImageClassification(cfg, device=device)
     if args.checkpoint:
         sd = torch.load(args.checkpoint, map_location="cpu",
@@ -156,8 +164,7 @@ def build_model(args, cfg, device) -> BeitForImageClassification:
                 sd = sd[key]
         model.load_state_dict(convert_beit(sd, cfg), strict=True)
     else:
-        model.init_weights(torch.Generator(device=device).manual_seed(
-            args.seed))
+        model.init_weights(torch.Generator(device=device).manual_seed(0))
     return model
 
 

@@ -23,33 +23,11 @@ from typing import Dict, Mapping
 
 import torch
 
+from unilm_tpu_torch.convert.common import linear, norm, patch_proj, tensor
 from unilm_tpu_torch.models.beit import BeitConfig
 
 
-def _t(x) -> torch.Tensor:
-    return x.detach().to("cpu", torch.float32).contiguous()
-
-
-def _linear(sd: Mapping, src: str, dst: str, out: Dict,
-            bias: bool = True) -> None:
-    w = _t(sd[f"{src}.weight"])
-    out[f"{dst}.weight"] = w
-    if bias:
-        b = sd.get(f"{src}.bias")
-        out[f"{dst}.bias"] = _t(b) if b is not None else torch.zeros(w.shape[0])
-
-
-def _norm(sd: Mapping, src: str, dst: str, out: Dict) -> None:
-    out[f"{dst}.weight"] = _t(sd[f"{src}.weight"])
-    out[f"{dst}.bias"] = _t(sd[f"{src}.bias"])
-
-
-def _patch_proj(sd: Mapping, src: str, out: Dict) -> None:
-    w = _t(sd[f"{src}.weight"])  # [E, C, kh, kw]
-    dst = "backbone.embeddings.patch_embed.proj"
-    out[f"{dst}.weight"] = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).contiguous()
-    b = sd.get(f"{src}.bias")
-    out[f"{dst}.bias"] = _t(b) if b is not None else torch.zeros(w.shape[0])
+PATCH_PROJ = "backbone.embeddings.patch_embed.proj"
 
 
 def convert_beit(sd: Mapping, cfg: BeitConfig) -> Dict[str, torch.Tensor]:
@@ -68,44 +46,44 @@ def _from_timm(sd: Mapping, cfg: BeitConfig) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for i in range(cfg.num_layers):
         p, d = f"blocks.{i}", f"backbone.encoder.layers.{i}"
-        _norm(sd, f"{p}.norm1", f"{d}.self_attn_layer_norm", out)
-        _norm(sd, f"{p}.norm2", f"{d}.final_layer_norm", out)
-        qkv = _t(sd[f"{p}.attn.qkv.weight"])
+        norm(sd, f"{p}.norm1", f"{d}.self_attn_layer_norm", out)
+        norm(sd, f"{p}.norm2", f"{d}.final_layer_norm", out)
+        qkv = tensor(sd[f"{p}.attn.qkv.weight"])
         zeros = torch.zeros(E)
         biases = (sd.get(f"{p}.attn.q_bias"), None, sd.get(f"{p}.attn.v_bias"))
         for name, w, b in zip(("q_proj", "k_proj", "v_proj"),
                               qkv.split(E, dim=0), biases):
             out[f"{d}.self_attn.{name}.weight"] = w.contiguous()
-            out[f"{d}.self_attn.{name}.bias"] = (_t(b) if b is not None
+            out[f"{d}.self_attn.{name}.bias"] = (tensor(b) if b is not None
                                                  else zeros.clone())
-        _linear(sd, f"{p}.attn.proj", f"{d}.self_attn.out_proj", out)
-        _linear(sd, f"{p}.mlp.fc1", f"{d}.ffn.fc1", out)
-        _linear(sd, f"{p}.mlp.fc2", f"{d}.ffn.fc2", out)
+        linear(sd, f"{p}.attn.proj", f"{d}.self_attn.out_proj", out)
+        linear(sd, f"{p}.mlp.fc1", f"{d}.ffn.fc1", out)
+        linear(sd, f"{p}.mlp.fc2", f"{d}.ffn.fc2", out)
         if f"{p}.gamma_1" in sd:
-            out[f"{d}.gamma_1.gamma"] = _t(sd[f"{p}.gamma_1"])
-            out[f"{d}.gamma_2.gamma"] = _t(sd[f"{p}.gamma_2"])
+            out[f"{d}.gamma_1.gamma"] = tensor(sd[f"{p}.gamma_1"])
+            out[f"{d}.gamma_2.gamma"] = tensor(sd[f"{p}.gamma_2"])
         key = f"{p}.attn.relative_position_bias_table"
         if key in sd:
             out[f"backbone.rel_pos_bias_{i}.relative_position_bias_table"] = (
-                _t(sd[key]))
-    out["backbone.embeddings.cls_token"] = _t(sd["cls_token"])
-    _patch_proj(sd, "patch_embed.proj", out)
+                tensor(sd[key]))
+    out["backbone.embeddings.cls_token"] = tensor(sd["cls_token"])
+    patch_proj(sd, "patch_embed.proj", PATCH_PROJ, out)
     if "mask_token" in sd:
-        out["backbone.embeddings.mask_token"] = _t(sd["mask_token"])
+        out["backbone.embeddings.mask_token"] = tensor(sd["mask_token"])
     if "pos_embed" in sd:
-        out["backbone.pos_embed"] = _t(sd["pos_embed"])
+        out["backbone.pos_embed"] = tensor(sd["pos_embed"])
     if "rel_pos_bias.relative_position_bias_table" in sd:
-        out["backbone.rel_pos_bias.relative_position_bias_table"] = _t(
+        out["backbone.rel_pos_bias.relative_position_bias_table"] = tensor(
             sd["rel_pos_bias.relative_position_bias_table"])
     if "norm.weight" in sd:
-        _norm(sd, "norm", "backbone.encoder.layer_norm", out)
+        norm(sd, "norm", "backbone.encoder.layer_norm", out)
     if "fc_norm.weight" in sd:
-        _norm(sd, "fc_norm", "fc_norm", out)
+        norm(sd, "fc_norm", "fc_norm", out)
     if "head.weight" in sd:
-        _linear(sd, "head", "head", out)
+        linear(sd, "head", "head", out)
     if "lm_head.weight" in sd:  # pretraining: `norm` is the MIM head's
-        _linear(sd, "lm_head", "lm_head", out)
-        _norm(sd, "norm", "norm", out)
+        linear(sd, "lm_head", "lm_head", out)
+        norm(sd, "norm", "norm", out)
         for k in ("weight", "bias"):
             out.pop(f"backbone.encoder.layer_norm.{k}", None)
     return out
@@ -116,37 +94,37 @@ def _from_hf(sd: Mapping, cfg: BeitConfig) -> Dict[str, torch.Tensor]:
     for i in range(cfg.num_layers):
         p, d = f"beit.encoder.layer.{i}", f"backbone.encoder.layers.{i}"
         a = f"{p}.attention.attention"
-        _norm(sd, f"{p}.layernorm_before", f"{d}.self_attn_layer_norm", out)
-        _norm(sd, f"{p}.layernorm_after", f"{d}.final_layer_norm", out)
-        _linear(sd, f"{a}.query", f"{d}.self_attn.q_proj", out)
-        _linear(sd, f"{a}.key", f"{d}.self_attn.k_proj", out)  # bias 0
-        _linear(sd, f"{a}.value", f"{d}.self_attn.v_proj", out)
-        _linear(sd, f"{p}.attention.output.dense", f"{d}.self_attn.out_proj",
+        norm(sd, f"{p}.layernorm_before", f"{d}.self_attn_layer_norm", out)
+        norm(sd, f"{p}.layernorm_after", f"{d}.final_layer_norm", out)
+        linear(sd, f"{a}.query", f"{d}.self_attn.q_proj", out)
+        linear(sd, f"{a}.key", f"{d}.self_attn.k_proj", out)  # bias 0
+        linear(sd, f"{a}.value", f"{d}.self_attn.v_proj", out)
+        linear(sd, f"{p}.attention.output.dense", f"{d}.self_attn.out_proj",
                 out)
-        _linear(sd, f"{p}.intermediate.dense", f"{d}.ffn.fc1", out)
-        _linear(sd, f"{p}.output.dense", f"{d}.ffn.fc2", out)
+        linear(sd, f"{p}.intermediate.dense", f"{d}.ffn.fc1", out)
+        linear(sd, f"{p}.output.dense", f"{d}.ffn.fc2", out)
         if f"{p}.lambda_1" in sd:
-            out[f"{d}.gamma_1.gamma"] = _t(sd[f"{p}.lambda_1"])
-            out[f"{d}.gamma_2.gamma"] = _t(sd[f"{p}.lambda_2"])
+            out[f"{d}.gamma_1.gamma"] = tensor(sd[f"{p}.lambda_1"])
+            out[f"{d}.gamma_2.gamma"] = tensor(sd[f"{p}.lambda_2"])
         key = f"{a}.relative_position_bias.relative_position_bias_table"
         if key in sd:
             out[f"backbone.rel_pos_bias_{i}.relative_position_bias_table"] = (
-                _t(sd[key]))
-    out["backbone.embeddings.cls_token"] = _t(sd["beit.embeddings.cls_token"])
-    _patch_proj(sd, "beit.embeddings.patch_embeddings.projection", out)
+                tensor(sd[key]))
+    out["backbone.embeddings.cls_token"] = tensor(sd["beit.embeddings.cls_token"])
+    patch_proj(sd, "beit.embeddings.patch_embeddings.projection", PATCH_PROJ, out)
     if "beit.embeddings.mask_token" in sd:
-        out["backbone.embeddings.mask_token"] = _t(
+        out["backbone.embeddings.mask_token"] = tensor(
             sd["beit.embeddings.mask_token"])
     if "beit.embeddings.position_embeddings" in sd:
-        out["backbone.pos_embed"] = _t(sd["beit.embeddings.position_embeddings"])
+        out["backbone.pos_embed"] = tensor(sd["beit.embeddings.position_embeddings"])
     shared = "beit.encoder.relative_position_bias.relative_position_bias_table"
     if shared in sd:
-        out["backbone.rel_pos_bias.relative_position_bias_table"] = _t(
+        out["backbone.rel_pos_bias.relative_position_bias_table"] = tensor(
             sd[shared])
     if "beit.layernorm.weight" in sd:
-        _norm(sd, "beit.layernorm", "backbone.encoder.layer_norm", out)
+        norm(sd, "beit.layernorm", "backbone.encoder.layer_norm", out)
     if "beit.pooler.layernorm.weight" in sd:
-        _norm(sd, "beit.pooler.layernorm", "fc_norm", out)
+        norm(sd, "beit.pooler.layernorm", "fc_norm", out)
     if "classifier.weight" in sd:
-        _linear(sd, "classifier", "head", out)
+        linear(sd, "classifier", "head", out)
     return out

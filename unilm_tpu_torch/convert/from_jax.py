@@ -17,7 +17,8 @@ axis, the scan_layers form). Leaves map as
   patchify reads it;
 - params that keep their name: LayerScale `gamma`, `cls_token`,
   `mask_token`, `pos_embed`, `relative_position_bias_table`,
-  `latent_query`;
+  `latent_query`, LayoutLMv3's bias tables `rel_pos_bias`,
+  `rel_pos_x_bias`, `rel_pos_y_bias`;
 - a stacked `layers` subtree -> one module per layer (`layers.{i}`),
   `layers_{i}` -> `layers.{i}`.
 
@@ -35,7 +36,8 @@ import torch
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias"}
 _SAME = {"gamma", "cls_token", "mask_token", "pos_embed",
-         "relative_position_bias_table", "latent_query"}
+         "relative_position_bias_table", "latent_query", "rel_pos_bias",
+         "rel_pos_x_bias", "rel_pos_y_bias"}
 
 
 def to_tensor(a) -> torch.Tensor:

@@ -65,7 +65,7 @@ class MultiheadAttention(nn.Module):
         if cfg.multiway:
             raise NotImplementedError(
                 "multiway projections (BEiT-3) are not ported yet: ROADMAP "
-                "Queue 1 slice 7")
+                "Queue 1 item 7 (BEiT-3)")
         self.cfg = cfg
         self.self_attention = self_attention
         H, D, E = cfg.num_heads, cfg.head_dim, cfg.embed_dim

@@ -1,5 +1,6 @@
-"""xPos/SoPE rotary and the length-extrapolation rescale (port of
-unilm_tpu/core/positional.py:28-94).
+"""xPos/SoPE rotary, the length-extrapolation rescale and T5 relative
+position buckets (port of unilm_tpu/core/positional.py:28-94 and
+`relative_position_bucket` :102).
 
 The rotation is the INTERLEAVED every-two rotation of torchscale
 ([-x2, x1, -x4, x3, ...]), not the half-split rotation of HF Llama.
@@ -75,3 +76,30 @@ def length_extrapolation_qscale(q_positions: torch.Tensor, k_len: int,
     if k_len <= scale_length:
         return torch.ones_like(pos)
     return torch.clamp(torch.log(pos) / math.log(scale_length), min=1.0)
+
+
+def relative_position_bucket(relative_position: torch.Tensor,
+                             bidirectional: bool = True,
+                             num_buckets: int = 32,
+                             max_distance: int = 128) -> torch.Tensor:
+    """T5 log-bucketing of (memory_pos - query_pos), in the input's integer
+    dtype: exact buckets below num_buckets/4 (per direction when
+    bidirectional), logarithmic ones up to max_distance, the last bucket
+    beyond. LayoutLMv3's 1D and 2D relative biases use it
+    (models/layoutlmv3.py)."""
+    ret = torch.zeros_like(relative_position)
+    n = -relative_position
+    if bidirectional:
+        num_buckets //= 2
+        ret = ret + (n < 0).to(ret.dtype) * num_buckets
+        n = n.abs()
+    else:
+        n = n.clamp(min=0)
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    val_if_large = max_exact + (
+        torch.log(n.to(torch.float32) / max_exact + 1e-9)
+        / math.log(max_distance / max_exact)
+        * (num_buckets - max_exact)).to(ret.dtype)
+    val_if_large = val_if_large.clamp(max=num_buckets - 1)
+    return ret + torch.where(is_small, n, val_if_large)

@@ -12,8 +12,8 @@ input's dtype for the residual stream, as flax's promotion does (a float32
 input stays float32 around bf16 layers). Drop-path trains on keep flags
 drawn before the forward (`Encoder.draw_drop_path`); `cfg.remat` recomputes
 each layer in the backward. Dropout in training (slice 6's remainder),
-multiway (slice 7), MoE and T5 relative-position buckets (slices 9-10)
-raise.
+multiway (Queue 1 item 7, BEiT-3), MoE and T5 relative-position buckets
+(slices 9-10) raise.
 
 One layer class serves every mode: `mode="train"` is the full-sequence
 forward of the looped and the scanned JAX stacks (the same math), with
@@ -271,7 +271,7 @@ class Encoder(nn.Module):
         if cfg.multiway:
             raise NotImplementedError(
                 "multiway encoder layers (BEiT-3) are not ported yet: "
-                "ROADMAP Queue 1 slice 7")
+                "ROADMAP Queue 1 item 7 (BEiT-3)")
         if cfg.moe_freq or cfg.rel_pos_buckets:
             raise NotImplementedError(
                 "MoE / T5 relative-bias encoders are not ported yet: ROADMAP "

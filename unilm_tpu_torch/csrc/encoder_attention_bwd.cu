@@ -66,413 +66,25 @@
 //    Against the first version of this file, which ran bf16 through the
 //    fp32 design below, it took BEiT-B from 12.28 ms to about a quarter of
 //    that (PERF.md, chip_smoke.py's encoder_bwd phase).
-//  - fp32 inputs: fp32 CUDA cores, the tiles of csrc/flash_bwd.cu (#6/#7):
+//  - fp32 inputs (encoder_attention_bwd.cuh, which the fp32 path of
+//    csrc/doc_attention_bwd.cu (#10) shares with a key-padding mask):
+//    fp32 CUDA cores, the tiles of csrc/flash_bwd.cu (#6/#7):
 //    in launch 1 each warp owns 8 query rows and each lane two keys of a
 //    64-key tile, K and V rows padded so the per-lane float4 reads are
 //    conflict free, q and dO read as float4 broadcasts, ds handed to the
 //    ds k product through shared memory; launch 2 is its transpose (each
 //    warp owns 8 keys, each lane two query rows). 8 warps per block.
 
-#include "flash_common.cuh"
+#include "encoder_attention_bwd.cuh"
+#include "mma_common.cuh"
 
 namespace {
 
-constexpr int BQ = 64;                // query rows per tile
-constexpr int BK = 64;                // keys per tile
-constexpr int NWARPS = 8;             // warps per block
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int RPW = BQ / NWARPS;      // dq kernel: query rows per warp
-constexpr int KPW = BK / NWARPS;      // dk/dv kernel: keys per warp
-constexpr float LOG2E = 1.4426950408889634f;
-
-struct Params {
-    const void *q, *k, *v, *dout, *bias;
-    void *dq, *dk, *dv;
-    float* dbias;   // dq kernel: the planes it accumulates into (dbias or the partials), or null
-    float* stats;   // [3][B][H][T]: row max m (exp2 domain), l, delta
-    int B, T, S, H, bias_sb, bias_sh;
-    int bias_h;     // heads of the bias: 1 or H
-    int group;      // batch items per dq block (> 1 only for a batch-summed dbias)
-    int head_sum;   // dbias summed over heads: a dq block loops over every head
-    float scale, qscale;  // scale and scale * log2(e)
-};
-
-// s (exp2 domain, bias added) and dp = dO v^T of RPW query rows (this
-// warp's, staged in qw / ow) against this lane's keys c0+lane, c0+lane+32
-// of the staged K / V tile.
-template <typename T, int D>
-__device__ __forceinline__ void row_tile(const Params& p, const float* qw, const float* ow,
-                                         const float* Ks, const float* Vs, const T* bias_bh,
-                                         int row0, int c0, int lane, float (&s0)[RPW],
-                                         float (&s1)[RPW], float (&dp0)[RPW],
-                                         float (&dp1)[RPW]) {
-    constexpr int KST = D + 4;
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) s0[r] = s1[r] = dp0[r] = dp1[r] = 0.f;
-    const float* k0 = Ks + lane * KST;
-    const float* k1 = Ks + (lane + 32) * KST;
-    const float* v0 = Vs + lane * KST;
-    const float* v1 = Vs + (lane + 32) * KST;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-        const float4 ka = *reinterpret_cast<const float4*>(k0 + d);
-        const float4 kb = *reinterpret_cast<const float4*>(k1 + d);
-        const float4 va = *reinterpret_cast<const float4*>(v0 + d);
-        const float4 vb = *reinterpret_cast<const float4*>(v1 + d);
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-            const float4 x = *reinterpret_cast<const float4*>(qw + r * D + d);
-            const float4 y = *reinterpret_cast<const float4*>(ow + r * D + d);
-            s0[r] += dot4(x, ka);
-            s1[r] += dot4(x, kb);
-            dp0[r] += dot4(y, va);
-            dp1[r] += dot4(y, vb);
-        }
-    }
-    const int col0 = c0 + lane, col1 = c0 + lane + 32;
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-        const int tl = row0 + r;
-        s0[r] *= p.qscale;
-        s1[r] *= p.qscale;
-        if (bias_bh && tl < p.T) {
-            const T* br = bias_bh + (size_t)tl * p.S;
-            if (col0 < p.S) s0[r] += LOG2E * to_f(br[col0]);
-            if (col1 < p.S) s1[r] += LOG2E * to_f(br[col1]);
-        }
-    }
-}
-
-// ---------------------------------------------------------------------------
-// launch 1: row statistics, dq and dbias. One block per (64-row q tile,
-// head or every head, batch group).
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) enc_bwd_dq_kernel(const Params p) {
-    constexpr int DPL = D / 32;       // dq dims per lane
-    constexpr int KST = D + 4;        // padded K/V row stride
-    extern __shared__ float4 smem4[];
-    float* Qs = reinterpret_cast<float*>(smem4);   // [BQ][D]
-    float* Os = Qs + BQ * D;                       // [BQ][D]   dO
-    float* Ks = Os + BQ * D;                       // [BK][KST]
-    float* Vs = Ks + BK * KST;                     // [BK][KST]
-    float* Ps = Vs + BK * KST;                     // [NWARPS][RPW][BK] ds, rounded
-
-    const T* q = static_cast<const T*>(p.q);
-    const T* k = static_cast<const T*>(p.k);
-    const T* v = static_cast<const T*>(p.v);
-    const T* dout = static_cast<const T*>(p.dout);
-    const T* bias = static_cast<const T*>(p.bias);
-    T* dq = static_cast<T*>(p.dq);
-
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int row0 = blockIdx.x * BQ;
-    const int wrow0 = row0 + warp * RPW;  // this warp's first row
-    const int T_ = p.T, S = p.S, H = p.H;
-    const size_t HD = (size_t)H * D;
-    const size_t TS = (size_t)T_ * S;
-    const int nrows = min(BQ, T_ - row0);
-    const int nk = (S + BK - 1) / BK;
-    const int b_begin = blockIdx.z * p.group, b_end = min(p.B, b_begin + p.group);
-    const int h_begin = p.head_sum ? 0 : blockIdx.y;
-    const int h_end = p.head_sum ? H : blockIdx.y + 1;
-    // this block's slot of dbias planes: [bias_h][T][S] at index blockIdx.z
-    float* db_z = p.dbias ? p.dbias + (size_t)blockIdx.z * p.bias_h * TS : nullptr;
-
-    const float* qw = Qs + warp * RPW * D;
-    const float* ow = Os + warp * RPW * D;
-    float* pw = Ps + warp * RPW * BK;
-    bool first = true;  // first (batch, head) of this block: dbias is written, then added to
-
-    for (int b = b_begin; b < b_end; ++b) {
-        for (int h = h_begin; h < h_end; ++h) {
-            __syncthreads();  // the previous (batch, head)'s tiles consumed
-            const size_t qoff = ((size_t)b * T_ + row0) * HD + (size_t)h * D;
-            stage_rows<T, D>(Qs, D, q + qoff, HD, BQ, nrows, tid, NTHREADS);
-            stage_rows<T, D>(Os, D, dout + qoff, HD, BQ, nrows, tid, NTHREADS);
-            const T* bias_bh =
-                bias ? bias + (size_t)b * p.bias_sb + (size_t)h * p.bias_sh : nullptr;
-            const size_t kbase = (size_t)b * S * HD + (size_t)h * D;
-
-            // ---- sweep 1: m, l, u of this warp's rows, online per lane ----
-            float m[RPW], l[RPW], u[RPW];
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) {
-                m[r] = NEG_INF;
-                l[r] = u[r] = 0.f;
-            }
-            for (int j = 0; j < nk; ++j) {
-                const int c0 = j * BK;
-                __syncthreads();  // Q/dO staged, or the previous K/V tile consumed
-                stage_rows<T, D>(Ks, KST, k + kbase + (size_t)c0 * HD, HD, BK, S - c0, tid,
-                                 NTHREADS);
-                stage_rows<T, D>(Vs, KST, v + kbase + (size_t)c0 * HD, HD, BK, S - c0, tid,
-                                 NTHREADS);
-                __syncthreads();
-                float s0[RPW], s1[RPW], dp0[RPW], dp1[RPW];
-                row_tile<T, D>(p, qw, ow, Ks, Vs, bias_bh, wrow0, c0, lane, s0, s1, dp0, dp1);
-                const bool in0 = c0 + lane < S, in1 = c0 + lane + 32 < S;
-#pragma unroll
-                for (int r = 0; r < RPW; ++r) {
-                    const float mt =
-                        fmaxf(m[r], fmaxf(in0 ? s0[r] : NEG_INF, in1 ? s1[r] : NEG_INF));
-                    const float a = exp2f(m[r] - mt);  // l = u = 0 while m is NEG_INF
-                    const float e0 = in0 ? exp2f(s0[r] - mt) : 0.f;
-                    const float e1 = in1 ? exp2f(s1[r] - mt) : 0.f;
-                    l[r] = l[r] * a + e0 + e1;
-                    u[r] = u[r] * a + e0 * dp0[r] + e1 * dp1[r];
-                    m[r] = mt;
-                }
-            }
-            // merge the lanes (a fixed butterfly), then take lane 0's values
-            float delta[RPW];
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) {
-#pragma unroll
-                for (int o = 16; o > 0; o >>= 1) {
-                    const float mo = __shfl_xor_sync(FULL, m[r], o);
-                    const float lo = __shfl_xor_sync(FULL, l[r], o);
-                    const float uo = __shfl_xor_sync(FULL, u[r], o);
-                    const float mt = fmaxf(m[r], mo);
-                    const float a = exp2f(m[r] - mt), c = exp2f(mo - mt);
-                    l[r] = l[r] * a + lo * c;
-                    u[r] = u[r] * a + uo * c;
-                    m[r] = mt;
-                }
-                m[r] = __shfl_sync(FULL, m[r], 0);
-                l[r] = __shfl_sync(FULL, l[r], 0);  // >= 1: the max contributes exp2(0)
-                delta[r] = __shfl_sync(FULL, u[r], 0) / l[r];
-                const int tl = wrow0 + r;
-                if (lane == 0 && tl < T_) {
-                    const size_t ri = ((size_t)b * H + h) * T_ + tl;
-                    const size_t plane = (size_t)p.B * H * T_;
-                    p.stats[ri] = m[r];
-                    p.stats[plane + ri] = l[r];
-                    p.stats[2 * plane + ri] = delta[r];
-                }
-            }
-
-            // ---- sweep 2: p, ds, dbias, dq ----------------------------------
-            float* db_bh = db_z ? db_z + (size_t)(p.bias_h > 1 ? h : 0) * TS : nullptr;
-            float acc[RPW][DPL];
-#pragma unroll
-            for (int r = 0; r < RPW; ++r)
-#pragma unroll
-                for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
-            for (int j = 0; j < nk; ++j) {
-                const int c0 = j * BK;
-                __syncthreads();  // the previous K/V tile consumed
-                stage_rows<T, D>(Ks, KST, k + kbase + (size_t)c0 * HD, HD, BK, S - c0, tid,
-                                 NTHREADS);
-                stage_rows<T, D>(Vs, KST, v + kbase + (size_t)c0 * HD, HD, BK, S - c0, tid,
-                                 NTHREADS);
-                __syncthreads();
-                float s0[RPW], s1[RPW], dp0[RPW], dp1[RPW];
-                row_tile<T, D>(p, qw, ow, Ks, Vs, bias_bh, wrow0, c0, lane, s0, s1, dp0, dp1);
-                const int col0 = c0 + lane, col1 = c0 + lane + 32;
-#pragma unroll
-                for (int r = 0; r < RPW; ++r) {
-                    const int tl = wrow0 + r;
-                    const bool live = tl < T_;
-                    const float p0 = live && col0 < S ? exp2f(s0[r] - m[r]) / l[r] : 0.f;
-                    const float p1 = live && col1 < S ? exp2f(s1[r] - m[r]) / l[r] : 0.f;
-                    const float ds0 = p0 * (dp0[r] - delta[r]);
-                    const float ds1 = p1 * (dp1[r] - delta[r]);
-                    if (db_bh && live) {
-                        float* dr = db_bh + (size_t)tl * S;
-                        if (col0 < S) dr[col0] = first ? ds0 : dr[col0] + ds0;
-                        if (col1 < S) dr[col1] = first ? ds1 : dr[col1] + ds1;
-                    }
-                    pw[r * BK + lane] = round_to<T>(ds0);
-                    pw[r * BK + lane + 32] = round_to<T>(ds1);
-                }
-                __syncwarp();
-
-                // acc[r][:] += ds[r, :] @ K for this lane's dims
-#pragma unroll 1
-                for (int c = 0; c < BK; c += 4) {
-                    float kk[4][DPL];
-#pragma unroll
-                    for (int w = 0; w < 4; ++w)
-#pragma unroll
-                        for (int cc = 0; cc < DPL; ++cc)
-                            kk[w][cc] = Ks[(c + w) * KST + lane + 32 * cc];
-#pragma unroll
-                    for (int r = 0; r < RPW; ++r) {
-                        const float4 z = *reinterpret_cast<const float4*>(pw + r * BK + c);
-#pragma unroll
-                        for (int cc = 0; cc < DPL; ++cc)
-                            acc[r][cc] += z.x * kk[0][cc] + z.y * kk[1][cc] +
-                                          z.z * kk[2][cc] + z.w * kk[3][cc];
-                    }
-                }
-                __syncwarp();
-            }
-
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) {
-                const int tl = wrow0 + r;
-                if (tl >= T_) continue;
-                T* dst = dq + ((size_t)b * T_ + tl) * HD + (size_t)h * D;
-#pragma unroll
-                for (int cc = 0; cc < DPL; ++cc)
-                    dst[lane + 32 * cc] = from_f<T>(acc[r][cc] * p.scale);
-            }
-            first = false;
-        }
-    }
-}
-
-// ---------------------------------------------------------------------------
-// launch 2: dk, dv. One block per (64-key tile, head, batch), looping over
-// the q tiles.
-// ---------------------------------------------------------------------------
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS) enc_bwd_dkv_kernel(const Params p) {
-    constexpr int DPL = D / 32;
-    constexpr int QST = D + 4;        // padded Q/dO row stride
-    extern __shared__ float4 smem4[];
-    float* Ks = reinterpret_cast<float*>(smem4);   // [BK][D]
-    float* Vs = Ks + BK * D;                       // [BK][D]
-    float* Qs = Vs + BK * D;                       // [BQ][QST]
-    float* Os = Qs + BQ * QST;                     // [BQ][QST] dO
-    float* Pm = Os + BQ * QST;                     // [BK][BQ] p, rounded to dO's type
-    float* Dm = Pm + BK * BQ;                      // [BK][BQ] ds, rounded to k's type
-    float* Ms = Dm + BK * BQ;                      // [BQ] m
-    float* Ls = Ms + BQ;                           // [BQ] l
-    float* Dl = Ls + BQ;                           // [BQ] delta
-
-    const T* q = static_cast<const T*>(p.q);
-    const T* k = static_cast<const T*>(p.k);
-    const T* v = static_cast<const T*>(p.v);
-    const T* dout = static_cast<const T*>(p.dout);
-    const T* bias = static_cast<const T*>(p.bias);
-
-    const int b = blockIdx.z, h = blockIdx.y;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int c0 = blockIdx.x * BK;
-    const int T_ = p.T, S = p.S;
-    const size_t HD = (size_t)p.H * D;
-    const int nq = (T_ + BQ - 1) / BQ;
-    const size_t plane = (size_t)p.B * p.H * T_;
-
-    const size_t koff = ((size_t)b * S + c0) * HD + (size_t)h * D;
-    stage_rows<T, D>(Ks, D, k + koff, HD, BK, S - c0, tid, NTHREADS);
-    stage_rows<T, D>(Vs, D, v + koff, HD, BK, S - c0, tid, NTHREADS);
-
-    const float* kw = Ks + warp * KPW * D;
-    const float* vw = Vs + warp * KPW * D;
-    float* pw = Pm + warp * KPW * BQ;
-    float* dw = Dm + warp * KPW * BQ;
-    const T* bias_bh = bias ? bias + (size_t)b * p.bias_sb + (size_t)h * p.bias_sh : nullptr;
-
-    float dk[KPW][DPL], dv[KPW][DPL];
-#pragma unroll
-    for (int c = 0; c < KPW; ++c)
-#pragma unroll
-        for (int cc = 0; cc < DPL; ++cc) dk[c][cc] = dv[c][cc] = 0.f;
-
-    for (int i = 0; i < nq; ++i) {
-        const int t0 = i * BQ;
-        __syncthreads();  // K/V staged, or the previous Q/dO tile consumed
-        const size_t qoff = ((size_t)b * T_ + t0) * HD + (size_t)h * D;
-        const int nrows = min(BQ, T_ - t0);
-        stage_rows<T, D>(Qs, QST, q + qoff, HD, BQ, nrows, tid, NTHREADS);
-        stage_rows<T, D>(Os, QST, dout + qoff, HD, BQ, nrows, tid, NTHREADS);
-        for (int t = tid; t < BQ; t += NTHREADS) {
-            const size_t ri = ((size_t)b * p.H + h) * T_ + t0 + t;
-            Ms[t] = t < nrows ? p.stats[ri] : 0.f;
-            Ls[t] = t < nrows ? p.stats[plane + ri] : 1.f;
-            Dl[t] = t < nrows ? p.stats[2 * plane + ri] : 0.f;
-        }
-        __syncthreads();
-
-        // s = k q^T and dp = v dO^T for this warp's keys, rows t0+lane, t0+lane+32
-        float s0[KPW], s1[KPW], dp0[KPW], dp1[KPW];
-#pragma unroll
-        for (int c = 0; c < KPW; ++c) s0[c] = s1[c] = dp0[c] = dp1[c] = 0.f;
-        const float* q0 = Qs + lane * QST;
-        const float* q1 = Qs + (lane + 32) * QST;
-        const float* o0 = Os + lane * QST;
-        const float* o1 = Os + (lane + 32) * QST;
-#pragma unroll 2
-        for (int d = 0; d < D; d += 4) {
-            const float4 qa = *reinterpret_cast<const float4*>(q0 + d);
-            const float4 qb = *reinterpret_cast<const float4*>(q1 + d);
-            const float4 oa = *reinterpret_cast<const float4*>(o0 + d);
-            const float4 ob = *reinterpret_cast<const float4*>(o1 + d);
-#pragma unroll
-            for (int c = 0; c < KPW; ++c) {
-                const float4 x = *reinterpret_cast<const float4*>(kw + c * D + d);
-                const float4 y = *reinterpret_cast<const float4*>(vw + c * D + d);
-                s0[c] += dot4(x, qa);
-                s1[c] += dot4(x, qb);
-                dp0[c] += dot4(y, oa);
-                dp1[c] += dot4(y, ob);
-            }
-        }
-
-        const int tl0 = t0 + lane, tl1 = t0 + lane + 32;
-        const bool live0 = tl0 < T_, live1 = tl1 < T_;
-#pragma unroll
-        for (int c = 0; c < KPW; ++c) {
-            const int col = c0 + warp * KPW + c;
-            const bool in = col < S;
-            float a = s0[c] * p.qscale, e = s1[c] * p.qscale;
-            if (bias_bh && in) {
-                if (live0) a += LOG2E * to_f(bias_bh[(size_t)tl0 * S + col]);
-                if (live1) e += LOG2E * to_f(bias_bh[(size_t)tl1 * S + col]);
-            }
-            const float p0 = live0 && in ? exp2f(a - Ms[lane]) / Ls[lane] : 0.f;
-            const float p1 = live1 && in ? exp2f(e - Ms[lane + 32]) / Ls[lane + 32] : 0.f;
-            pw[c * BQ + lane] = round_to<T>(p0);
-            pw[c * BQ + lane + 32] = round_to<T>(p1);
-            dw[c * BQ + lane] = round_to<T>(p0 * (dp0[c] - Dl[lane]));
-            dw[c * BQ + lane + 32] = round_to<T>(p1 * (dp1[c] - Dl[lane + 32]));
-        }
-        __syncwarp();
-
-        // dv[c][:] += p[c, :] @ dO, dk[c][:] += ds[c, :] @ q for this lane's dims
-#pragma unroll 1
-        for (int t = 0; t < BQ; t += 4) {
-            float oo[4][DPL], qq[4][DPL];
-#pragma unroll
-            for (int w = 0; w < 4; ++w)
-#pragma unroll
-                for (int cc = 0; cc < DPL; ++cc) {
-                    oo[w][cc] = Os[(t + w) * QST + lane + 32 * cc];
-                    qq[w][cc] = Qs[(t + w) * QST + lane + 32 * cc];
-                }
-#pragma unroll
-            for (int c = 0; c < KPW; ++c) {
-                const float4 x = *reinterpret_cast<const float4*>(pw + c * BQ + t);
-                const float4 z = *reinterpret_cast<const float4*>(dw + c * BQ + t);
-#pragma unroll
-                for (int cc = 0; cc < DPL; ++cc) {
-                    dv[c][cc] += x.x * oo[0][cc] + x.y * oo[1][cc] + x.z * oo[2][cc] +
-                                 x.w * oo[3][cc];
-                    dk[c][cc] += z.x * qq[0][cc] + z.y * qq[1][cc] + z.z * qq[2][cc] +
-                                 z.w * qq[3][cc];
-                }
-            }
-        }
-        __syncwarp();
-    }
-
-    T* dkp = static_cast<T*>(p.dk);
-    T* dvp = static_cast<T*>(p.dv);
-#pragma unroll
-    for (int c = 0; c < KPW; ++c) {
-        const int col = c0 + warp * KPW + c;
-        if (col >= S) continue;
-        const size_t off = ((size_t)b * S + col) * HD + (size_t)h * D;
-#pragma unroll
-        for (int cc = 0; cc < DPL; ++cc) {
-            dkp[off + lane + 32 * cc] = from_f<T>(dk[c][cc] * p.scale);
-            dvp[off + lane + 32 * cc] = from_f<T>(dv[c][cc]);
-        }
-    }
-}
+using enc_bwd::BK;
+using enc_bwd::BQ;
+using enc_bwd::launch_pair;
+using enc_bwd::LOG2E;
+using enc_bwd::Params;
 
 // ---------------------------------------------------------------------------
 // launch 3: dbias = the sum of the groups' partial planes, in group order.
@@ -493,89 +105,16 @@ __global__ void enc_bwd_dbias_sum_kernel(const float* __restrict__ part,
 // ---------------------------------------------------------------------------
 namespace tc {
 
-typedef __nv_bfloat16 bf16;
 constexpr int NW = 4;          // warps per block
 constexpr int NT = NW * 32;
 constexpr int BQ2 = 32;        // launch 2: query rows per step
 constexpr int PAD = 8;         // bf16 elements of padding per tile row
 static_assert(BQ == NW * 16 && BK == NW * 16, "a warp owns 16 rows or keys");
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-    return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-    return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared without passing through registers; zeros when
-// !valid (src-size 0: nothing is read)
-__device__ __forceinline__ void cp16(void* dst, const void* src, bool valid) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-                 "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;\n"); }
-template <int N> __device__ __forceinline__ void cp_wait() {
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// c += a b for a 16x16 (row) and a 16x8 (col) bf16 fragment
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// the A fragment of rows r0..r0+15, columns k0..k0+15 of a row-major tile
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* x, int ld, int r0, int k0,
-                                       int g, int tq) {
-    const bf16* p = x + (r0 + g) * ld + k0 + 2 * tq;
-    a[0] = ld32(p);
-    a[1] = ld32(p + 8 * ld);
-    a[2] = ld32(p + 8);
-    a[3] = ld32(p + 8 * ld + 8);
-}
-
-// B fragments of two n-tiles (columns n0.. and n0+8..) for k = rows
-// k0..k0+15 of a row-major tile x[k][n]: ldmatrix .trans reads them as the
-// transpose, b[0], b[1] for n-tile n0 and b[2], b[3] for n0 + 8
-__device__ __forceinline__ void load_bt(uint32_t (&b)[4], const bf16* x, int ld, int k0, int n0,
-                                        int lane) {
-    const int mi = lane >> 3;
-    const bf16* p = x + (k0 + (lane & 7) + 8 * (mi & 1)) * ld + n0 + 8 * (mi >> 1);
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-                 : "r"(smem_addr(p)));
-}
-
-// the A fragment of a 16x16 block held as two accumulator tiles (columns
-// 8j.. and 8j+8..), rounded to bf16
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&c0)[4],
-                                         const float (&c1)[4]) {
-    a[0] = pack(c0[0], c0[1]);
-    a[1] = pack(c0[2], c0[3]);
-    a[2] = pack(c1[0], c1[1]);
-    a[3] = pack(c1[2], c1[3]);
-}
-
-// rows [nrows] x D of a [*, H, D] tensor into a tile of row stride ld, by
-// cp.async; rows at or past `valid` are zero
 template <int D>
 __device__ __forceinline__ void stage(bf16* x, int ld, const bf16* src, size_t row_stride,
                                       int nrows, int valid, int tid) {
-    constexpr int D8 = D / 8;
-    for (int i = tid; i < nrows * D8; i += NT) {
-        const int r = i / D8, d = (i % D8) * 8;
-        cp16(x + r * ld + d, r < valid ? src + (size_t)r * row_stride + d : src, r < valid);
-    }
+    stage_async<D, NT>(x, ld, src, row_stride, nrows, valid, tid);
 }
 
 // log2(e) * bias[row][col], 0 without a bias
@@ -607,13 +146,12 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 3 : 2) enc_bwd_dq_tc_kernel(cons
     const int row0 = blockIdx.x * BQ;
     const int T_ = p.T, S = p.S, H = p.H;
     const size_t HD = (size_t)H * D;
-    const size_t TS = (size_t)T_ * S;
     const int nrows = min(BQ, T_ - row0);
     const int nk = (S + BK - 1) / BK;
     const int b_begin = blockIdx.z * p.group, b_end = min(p.B, b_begin + p.group);
     const int h_begin = p.head_sum ? 0 : blockIdx.y;
     const int h_end = p.head_sum ? H : blockIdx.y + 1;
-    float* db_z = p.dbias ? p.dbias + (size_t)blockIdx.z * p.bias_h * TS : nullptr;
+    float* db_z = p.dbias ? p.dbias + (size_t)blockIdx.z * p.db_sz : nullptr;
     const int wr = warp * 16;  // this warp's first local row
     // the thread's two rows, clamped for the bias reads of rows past T
     const int tl[2] = {row0 + wr + g, row0 + wr + g + 8};
@@ -632,7 +170,7 @@ __global__ void __launch_bounds__(NT, D <= 64 ? 3 : 2) enc_bwd_dq_tc_kernel(cons
             cp_commit();
             const bf16* bias_bh =
                 bias ? bias + (size_t)b * p.bias_sb + (size_t)h * p.bias_sh : nullptr;
-            float* db_bh = db_z ? db_z + (size_t)(p.bias_h > 1 ? h : 0) * TS : nullptr;
+            float* db_bh = db_z ? db_z + (size_t)h * p.db_sh : nullptr;
 
             float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
             float delta[2] = {0.f, 0.f};
@@ -929,37 +467,9 @@ template <int D> constexpr size_t dkv_smem() {
 
 }  // namespace tc
 
-template <int D> constexpr size_t dq_smem() {
-    return (size_t)(2 * BQ * D + 2 * BK * (D + 4) + BQ * BK) * sizeof(float);
-}
-template <int D> constexpr size_t dkv_smem() {
-    return (size_t)(2 * BK * D + 2 * BQ * (D + 4) + 2 * BK * BQ + 3 * BQ) * sizeof(float);
-}
-
-template <typename K1, typename K2>
-cudaError_t launch_pair(K1 dq_kern, size_t dq_bytes, K2 dkv_kern, size_t dkv_bytes, int nthreads,
-                        const Params& p, int groups, cudaStream_t stream) {
-    cudaError_t err =
-        cudaFuncSetAttribute(dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_bytes);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(dkv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)dkv_bytes);
-    if (err != cudaSuccess) return err;
-    dim3 grid_dq((p.T + BQ - 1) / BQ, p.head_sum ? 1 : p.H, groups);
-    dq_kern<<<grid_dq, nthreads, dq_bytes, stream>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    dim3 grid_dkv((p.S + BK - 1) / BK, p.H, p.B);
-    dkv_kern<<<grid_dkv, nthreads, dkv_bytes, stream>>>(p);
-    return cudaGetLastError();
-}
-
 template <int D>
 cudaError_t launch(int dtype, const Params& p, int groups, cudaStream_t stream) {
-    if (dtype == 0)
-        return launch_pair(enc_bwd_dq_kernel<float, D>, dq_smem<D>(),
-                           enc_bwd_dkv_kernel<float, D>, dkv_smem<D>(), NTHREADS, p, groups,
-                           stream);
+    if (dtype == 0) return enc_bwd::launch_fp32<D>(p, groups, stream);
     return launch_pair(tc::enc_bwd_dq_tc_kernel<D>, tc::dq_smem<D>(),
                        tc::enc_bwd_dkv_tc_kernel<D>, tc::dkv_smem<D>(), tc::NT, p, groups,
                        stream);
@@ -1001,9 +511,11 @@ int encoder_attn_bwd(const void* q, const void* k, const void* v, const void* do
     const int groups = (B + group - 1) / group;
     // partial planes exactly when more than one group sums the batch
     if ((partial != nullptr) != (batch_sum && groups > 1)) return (int)cudaErrorInvalidValue;
-    Params p{q, k, v, dout, bias, dq, dk, dv,
+    const size_t TS = (size_t)T_ * S;
+    Params p{q, k, v, dout, bias, nullptr, dq, dk, dv,
              static_cast<float*>(partial ? partial : dbias), static_cast<float*>(stats),
-             B, T_, S, H, bias_sb, bias_sh, bias_h, group, head_sum, scale, scale * LOG2E};
+             B, T_, S, H, bias_sb, bias_sh, bias_h * TS, bias_h > 1 ? TS : 0, group, head_sum,
+             scale, scale * LOG2E};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const cudaError_t err =
         dtype == 0 || dtype == 1 ? dispatch_d(D, dtype, p, groups, st) : cudaErrorInvalidValue;

@@ -74,8 +74,9 @@ class MapIterator:
 
 
 class FixedBatchIterator:
-    """Lists of `batch_size` consecutive items; a short last batch is
-    dropped."""
+    """Lists of `batch_size` consecutive items. When a finite source ends
+    mid-batch, the short last batch is dropped, as the port's training
+    streams want; the JAX iterator yields it (its `drop_last=False`)."""
 
     def __init__(self, source, batch_size: int):
         self._source = source
@@ -84,7 +85,7 @@ class FixedBatchIterator:
     def getstate(self) -> Any:
         return self._source.getstate()
 
-    def setstate(self, state) -> None:
+    def setstate(self, state: Any) -> None:
         self._source.setstate(state)
 
     def __next__(self):

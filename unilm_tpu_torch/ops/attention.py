@@ -9,20 +9,25 @@ tensor's device decides:
   `dot_product_attention` with the mask materialised, as the JAX XLA
   fallback does.
 - CUDA tensors with `use_flash=True`:
-  - non-causal, no window / kv_len / q_offset, no key-padding mask,
-    S <= 2048: the fused encoder attention (the `_vit_kernel` case:
-    csrc/encoder_attention.cu forward, csrc/encoder_attention_bwd.cu
-    backward when the inputs require grad, `EncoderAttentionFn`);
-  - non-causal with a key-padding mask at S <= 2048: the JAX package's
-    `_doc_fwd_kernel` (#9) case, not ported yet; raises;
+  - non-causal, no window / kv_len / q_offset, S <= 2048, with a
+    key-padding mask or a head-major bias (`doc_attention.HeadMajorBias`,
+    LayoutLMv3's): the blocked doc attention (the `_doc_fwd_kernel` case:
+    csrc/doc_attention.cu forward, csrc/doc_attention_bwd.cu backward
+    when the inputs require grad, `DocAttentionFn`);
+  - the same geometry with neither: the fused encoder attention (the
+    `_vit_kernel` case: csrc/encoder_attention.cu forward,
+    csrc/encoder_attention_bwd.cu backward, `EncoderAttentionFn`);
   - everything else (causal, decode geometry, S > 2048): the flash
     kernels (csrc/flash_fwd.cu forward, csrc/flash_bwd.cu backward when
-    the inputs require grad).
+    the inputs require grad); a head-major bias is read through its
+    [B, H, T, S] view.
   The JAX dispatcher's v5e crossovers (`_onepass_profitable`, the doc
   kernel's VMEM admissibility) are TPU budgets and are not carried: some
-  shapes the TPU sends to #9 take #3 here, which computes the same
-  function there. Dropout raises NotImplementedError naming its ROADMAP
-  entry.
+  shapes the TPU sends to #9 (a mid-size S with no mask) take #3 here,
+  which computes the same function there. Dropout raises
+  NotImplementedError naming its ROADMAP entry.
+- A head-major bias on the plain path is permuted to [B, H, T, S] (a
+  view), as the JAX dispatcher does where its kernel does not apply.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ from typing import Optional
 
 import torch
 
+from unilm_tpu_torch.ops import doc_attention as da
 from unilm_tpu_torch.ops import flash_attention as fa
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free
@@ -71,7 +77,7 @@ def attention(
     k: torch.Tensor,  # [B, S, H, D]
     v: torch.Tensor,
     *,
-    bias: Optional[torch.Tensor] = None,  # additive [B|1, H|1, T, S]
+    bias=None,  # additive [B|1, H|1, T, S], or a da.HeadMajorBias
     key_padding_mask: Optional[torch.Tensor] = None,  # bool [B, S], True = valid
     scale: Optional[float] = None,
     causal: bool = False,
@@ -91,13 +97,13 @@ def attention(
     if use_flash and q.is_cuda:
         if (not causal and not window and kv_len is None and q_offset is None
                 and S <= fa.ENCODER_MAX_S):
-            if key_padding_mask is not None:
-                raise NotImplementedError(
-                    "non-causal attention with a key-padding mask at S <= "
-                    f"{fa.ENCODER_MAX_S} runs on the `_doc_fwd_kernel` Pallas"
-                    " kernel (#9) in the JAX package, not ported yet: ROADMAP"
-                    " Queue 1, LayoutLMv3 / TrOCR slices")
+            if (key_padding_mask is not None
+                    or isinstance(bias, da.HeadMajorBias)):
+                return da.doc_attention(q, k, v, bias, key_padding_mask,
+                                        scale)
             return fa.fused_encoder_attention(q, k, v, bias=bias, scale=scale)
+        if isinstance(bias, da.HeadMajorBias):
+            bias = bias.bhts()
         if not fa.supports(q, k, bias, window):
             raise NotImplementedError(
                 f"flash forward kernel does not take q {tuple(q.shape)} "
@@ -109,6 +115,8 @@ def attention(
             window=window)
 
     # ---- plain path: materialise the combined mask -----------------------
+    if isinstance(bias, da.HeadMajorBias):
+        bias = bias.bhts()
     dev = q.device
     q_pos = torch.arange(T, device=dev) + (q_offset or 0)
     k_pos = torch.arange(S, device=dev)
