@@ -11,6 +11,19 @@ Phases, one line each:
  3. flash: the flash-forward kernel against its plain version, bf16, over
     causal/offset/kv_len/key-padding/bias/window cases, D in {64, 96, 128},
     ragged T and S, and the Kosmos-2.5 prefill shape 1x2052x16x96.
+    flash_tri (right after flash): the lower-triangle causal forward (#2)
+    against flash_forward_tri_plain, bf16 (relative L2 <= 1e-2) and fp32
+    (<= 1e-4), out and lse: T = S in {1, 63, 64, 65, 160, 1000, 2048}, D
+    in {64, 96, 128}, with and without a key-padding mask (one example's
+    row 0 sees no key: out 0, lse 0), bias None, [B,H,T,S], [1,H,T,S],
+    [B,1,T,S]; then the train shape 2x2048x32x64 causal+kpm, timed beside
+    #1 on the same inputs, the plain twin and sdpa(is_causal=True).
+    flash_bwd_fused (right after flash_bwd): the one-pass backward (#8)
+    against flash_backward_fused_plain on #1's out and lse, bf16 and fp32,
+    dq/dk/dv: causal + key-padding with a fully masked row, q_offset +
+    kv_len, window, non-causal, ragged T != S, D in {64, 96, 128}; the
+    train shape twice bit-equal, timed beside #6 + #7, the plain twin and
+    sdpa's backward.
     encoder_bwd (right after encoder_attn): the encoder attention
     backward kernel (#4) against fused_encoder_backward_plain, bf16 and
     fp32, dq/dk/dv/dbias (relative L2 <= 1e-2 / 1e-4): bias None,
@@ -126,12 +139,21 @@ Phases, one line each:
     optimizer update, a kernel-vs-plain teacher check on one sequence, and
     the CLI's main() end to end at 2 layers, E=256: 4 steps straight
     against 2 + save + resume + 2, bit-equal.
+    train_schedules (inside train, on its trainer and model, before the
+    teacher check): UNILM_TPU_TRI_FLASH and UNILM_TPU_FUSED_BWD set (and
+    restored after), 4 more optimizer steps on the same batch; every step
+    must launch #2 and #8 24 x 4 times and #1/#6/#7 never; loss and grad
+    norm finite, loss falling from step 2 on; ms/step, tokens/s, model
+    TFLOP/s, peak memory, a device-time profile (#2, #8, cuBLAS, other,
+    optimizer), and a teacher check of one microbatch under both
+    schedules against the default kernels at the train phase's bounds.
 Then a JSON line with each kernel's launches (from its main-path phase,
 counters set to 0 just before it: slice for flash_fwd and decode,
 beit_eval for encoder_attention, beit_train for encoder_attention_bwd,
 layoutlmv3_eval for doc_attention, layoutlmv3_train for doc_attention_bwd,
 the engines for the int8 and block-table kernels, train for flash_bwd_dq
-and flash_bwd_dkv), error,
+and flash_bwd_dkv, train_schedules for flash_tri and flash_bwd_fused),
+error,
 times (kernel, plain version, and `library_ms`, one torch call computing
 the same function where one exists, else null) and `bound_ms` /
 `bound_by` (the larger of the bytes over 3.35 TB/s and the operations
@@ -463,6 +485,222 @@ def phase_flash(fa, g) -> dict:
 def rel_l2(x: torch.Tensor, ref: torch.Tensor) -> float:
     x, ref = x.float(), ref.float()
     return float((x - ref).norm() / ref.norm().clamp(min=1e-30))
+
+
+# The train shape of the 1.3B UniGPT's attention (2 sequences of 2048, 32
+# heads of 64), where the two opt-in schedules are timed.
+TRAIN_ATTN = (2, 2048, 32, 64)
+
+
+def train_attn_inputs(g, with_do: bool = False):
+    """q (scaled by D^-0.5), k, v[, dO] bf16 at TRAIN_ATTN and the train
+    batch's key-padding mask (example 1's first 3 keys are pads)."""
+    B, T, H, D = TRAIN_ATTN
+    dev, bf = "cuda", torch.bfloat16
+    rn = lambda: torch.randn(B, T, H, D, generator=g, device=dev).to(bf)
+    q, k, v = rn() * D ** -0.5, rn(), rn()
+    mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+    mask[1, :3] = False
+    return (q, k, v, rn(), mask) if with_do else (q, k, v, mask)
+
+
+def causal_pairs(mask: torch.Tensor, H: int) -> float:
+    """Visible (query, key) pairs of a causal self-attention over the
+    key-padding mask [B, T]: row t sees the valid keys 0..t."""
+    return float(mask.int().cumsum(1).sum()) * H
+
+
+def phase_flash_tri(fa, g) -> dict:
+    """Kernel #2 against flash_forward_tri_plain, bf16 (relative L2 <=
+    1e-2) and fp32 (<= 1e-4), out and lse: T = S in {1, 63, 64, 65, 160,
+    1000, 2048}, D in {64, 96, 128}, with and without a key-padding mask
+    (example 1's first key masked, so its row 0 sees no key), bias None,
+    [B,H,T,S], [1,H,T,S], [B,1,T,S]; then the train shape, timed beside #1
+    at the same shape, the plain twin and sdpa(is_causal=True)."""
+    dev = "cuda"
+    Ts, Ds = (1, 63, 64, 65, 160, 1000, 2048), (64, 96, 128)
+    biases = (None, "BH", "1H", "B1")
+    B, H = 2, 4
+    worst = 0.0
+    for dtype, bound in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        def rn(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+        for i in range(14):  # every T twice, every D, mask and bias kind
+            T, D = Ts[i % 7], Ds[i % 3]
+            kpm, bias = bool(i % 2), biases[(i // 2) % 4]
+            q, k, v = rn(B, T, H, D) * D ** -0.5, rn(B, T, H, D), rn(B, T, H, D)
+            mask = None
+            if kpm:
+                mask = torch.rand(B, T, generator=g, device=dev) > 0.3
+                mask[0, 0] = True
+                mask[1, 0] = False
+            b = {None: None, "BH": (B, H), "1H": (1, H), "B1": (B, 1)}[bias]
+            b = None if b is None else rn(*b, T, T)
+            out, lse = fa.flash_forward_tri(q, k, v, b, mask)
+            ref, ref_lse = fa.flash_forward_tri_plain(q, k, v, b, mask)
+            torch.cuda.synchronize()
+            desc = (f"{str(dtype)[6:]} B{B} T{T} H{H} D{D} kpm={kpm} "
+                    f"bias={bias}")
+            check(bool(torch.isfinite(out.float()).all()),
+                  f"flash_tri {desc}: non-finite")
+            r_o, r_l = rel_l2(out, ref), rel_l2(lse, ref_lse)
+            check(r_o <= bound and r_l <= bound,
+                  f"flash_tri {desc}: rel L2 out {r_o} lse {r_l} (bound "
+                  f"{bound})")
+            if kpm:
+                check(bool((out[1, 0] == 0).all() and (lse[1, :, 0] == 0).all()),
+                      f"flash_tri {desc}: the row with no key is not out=0, "
+                      "lse=0")
+            e = float((out.float() - ref.float()).abs().max())
+            if dtype == torch.bfloat16:
+                worst = max(worst, e)
+            phase("flash_tri", f"{desc}: rel L2 out {r_o:.2e} lse {r_l:.2e}, "
+                  f"max|err| {e:.3g} ok")
+
+    # the train shape: checked, then timed beside #1 on the same inputs
+    q, k, v, mask = train_attn_inputs(g)
+    B, T, H, D = q.shape
+    out, lse = fa.flash_forward_tri(q, k, v, None, mask)
+    ref, ref_lse = fa.flash_forward_tri_plain(q, k, v, None, mask)
+    r_o, r_l = rel_l2(out, ref), rel_l2(lse, ref_lse)
+    check(r_o <= 1e-2 and r_l <= 1e-2,
+          f"flash_tri train shape: rel L2 out {r_o} lse {r_l}")
+    worst = max(worst, float((out.float() - ref.float()).abs().max()))
+    del ref, ref_lse
+    ms = cuda_ms(lambda: fa.flash_forward_tri(q, k, v, None, mask))
+    fwd_ms = cuda_ms(lambda: fa.flash_forward(q, k, v, None, mask,
+                                              causal=True))
+    plain_ms = cuda_ms(lambda: fa.flash_forward_tri_plain(q, k, v, None, mask),
+                       iters=3)
+    lib_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=1.0))
+    ms2 = cuda_ms(lambda: fa.flash_forward_tri(q, k, v, None, mask))
+    pairs = causal_pairs(mask, H)
+    bd = roofline(nbytes(q, k, v, mask, out, lse), 4 * pairs * D)
+    phase("flash_tri", f"{B}x{T}x{H}x{D} causal+kpm bf16: rel L2 out "
+          f"{r_o:.2e} lse {r_l:.2e}; kernel #2 {ms:.4f} / {ms2:.4f} ms "
+          f"({4 * pairs * D / ms / 1e9:.1f} TFLOP/s), #1 {fwd_ms:.4f} ms, "
+          f"plain twin {plain_ms:.4f} ms, sdpa(is_causal) {lib_ms:.4f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"name": "flash_tri", "route": "cuda",
+            "source": "unilm_tpu_torch/csrc/flash_tri.cu",
+            "replaces": "unilm_tpu/ops/flash_attention.py:404",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, **bd, "flash_fwd_ms": fwd_ms,
+            "shape": f"{B}x{T}x{H}x{D} causal+kpm bf16 (flash_fwd_ms: #1 on "
+            "the same inputs)"}
+
+
+def phase_flash_bwd_fused(fa, g) -> dict:
+    """Kernel #8 against flash_backward_fused_plain on the forward kernel's
+    out and lse, bf16 and fp32, dq/dk/dv at the flash_bwd bounds; then the
+    train shape twice bit-equal, timed beside #6 + #7, the plain twin and
+    sdpa's backward."""
+    dev = "cuda"
+    # (B, T, S, H, D, causal, q_offset, kv_len, window, kpm)
+    cases = [
+        (2, 200, 200, 4, 64, True, 0, None, 0, True),
+        (2, 70, 263, 4, 96, True, 193, None, 0, False),
+        (2, 131, 300, 2, 96, True, 40, 217, 0, False),
+        (2, 300, 300, 2, 128, True, 0, None, 50, False),
+        (2, 97, 150, 2, 128, False, 0, None, 0, True),
+        (2, 160, 96, 4, 64, False, 0, None, 0, False),
+        (2, 1000, 1000, 2, 64, True, 0, None, 0, True),
+    ]
+    worst = 0.0
+    for dtype, bound in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
+        def rn(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+        for B, T, S, H, D, causal, qoff, kvl, window, kpm in cases:
+            q = rn(B, T, H, D) * D ** -0.5
+            k, v, do = rn(B, S, H, D), rn(B, S, H, D), rn(B, T, H, D)
+            mask = None
+            if kpm:
+                mask = torch.rand(B, S, generator=g, device=dev) > 0.3
+                mask[-1] = False  # one batch row fully masked
+            kw = dict(causal=causal, window=window)
+            out, lse = fa.flash_forward(q, k, v, None, mask, qoff, kvl, **kw)
+            got = fa.flash_backward_fused(q, k, v, mask, qoff, kvl, out, lse,
+                                          do, **kw)
+            ref = fa.flash_backward_fused_plain(q, k, v, mask, qoff, kvl, out,
+                                                lse, do, **kw)
+            torch.cuda.synchronize()
+            desc = (f"{str(dtype)[6:]} B{B} T{T} S{S} H{H} D{D} "
+                    f"causal={causal} q_offset={qoff} kv_len={kvl} "
+                    f"window={window} kpm={kpm}")
+            errs = []
+            for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+                check(tuple(x.shape) == tuple(r.shape)
+                      and bool(torch.isfinite(x.float()).all()),
+                      f"flash_bwd_fused {desc}: {name} shape/finite")
+                ok, e, rel = grad_close(x, r, bound)
+                check(ok, f"flash_bwd_fused {desc}: {name} max|err| {e} rel "
+                      f"L2 {rel} (bound {bound})")
+                errs.append(f"{name} {e:.3g}/{rel:.2g}")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, e)
+            if kpm:
+                check(bool((got[0][-1] == 0).all() and (got[1][-1] == 0).all()),
+                      f"flash_bwd_fused {desc}: fully masked row has "
+                      "gradients")
+            phase("flash_bwd_fused", f"{desc}: max|err|/rel L2 "
+                  f"{', '.join(errs)} ok")
+
+    # the train shape: checked, bit-equal twice, timed
+    q, k, v, do, mask = train_attn_inputs(g, with_do=True)
+    B, T, H, D = q.shape
+    out, lse = fa.flash_forward(q, k, v, None, mask, causal=True)
+    fused = lambda: fa.flash_backward_fused(q, k, v, mask, 0, None, out, lse,
+                                            do, causal=True)
+    pair = lambda: fa.flash_backward(q, k, v, None, mask, 0, None, out, lse,
+                                     do, causal=True)
+    plain = lambda: fa.flash_backward_fused_plain(q, k, v, mask, 0, None, out,
+                                                  lse, do, causal=True)
+    got, again, ref = fused(), fused(), plain()
+    torch.cuda.synchronize()
+    errs = []
+    for name, x, x2, r in zip(("dq", "dk", "dv"), got, again, ref):
+        check(torch.equal(x, x2), f"flash_bwd_fused train shape: {name} "
+              "differs between two runs")
+        ok, e, rel = grad_close(x, r, 1e-2)
+        check(ok, f"flash_bwd_fused train shape: {name} max|err| {e} rel L2 "
+              f"{rel} (bound 1e-2)")
+        errs.append(f"{name} {e:.3g}/{rel:.2g}")
+        worst = max(worst, e)
+    check(bool((got[0][1, :3] == 0).all()), "flash_bwd_fused train shape: "
+          "the fully masked leading rows have a dq")
+    del got, again, ref
+    ms = cuda_ms(fused)
+    pair_ms = cuda_ms(pair)
+    plain_ms = cuda_ms(plain, iters=3)
+    ms2 = cuda_ms(fused)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+    amask = causal[None, None] & mask[:, None, None, :]
+    o = sdpa(qg, kg, vg, attn_mask=amask, scale=1.0)
+    dot = do.transpose(1, 2)
+    lib_ms = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
+                                                 retain_graph=True), iters=5)
+    del o, qg, kg, vg, amask
+    pairs = causal_pairs(mask, H)
+    delta = fa._delta(out, do)
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    bd = roofline(nbytes(q, k, v, do, lse, delta, mask.int(), dq, dk, dv),
+                  5 * 2 * pairs * D)
+    phase("flash_bwd_fused", f"{B}x{T}x{H}x{D} causal+kpm bf16 (rows 0-2 of "
+          f"example 1 fully masked): max|err|/rel L2 {', '.join(errs)}, two "
+          f"runs bit-equal; kernel #8 {ms:.4f} / {ms2:.4f} ms "
+          f"({10 * pairs * D / ms / 1e9:.1f} TFLOP/s), #6 + #7 {pair_ms:.4f} "
+          f"ms, plain twin {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    return {"name": "flash_bwd_fused", "route": "cuda",
+            "source": "unilm_tpu_torch/csrc/flash_bwd_fused.cu",
+            "replaces": "unilm_tpu/ops/flash_attention.py:1520",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, **bd, "flash_bwd_pair_ms": pair_ms,
+            "shape": f"{B}x{T}x{H}x{D} causal+kpm bf16 (ms with delta and "
+            "the dq cast; flash_bwd_pair_ms: #6 + #7 on the same inputs)"}
 
 
 def phase_encoder_attn(fa, g) -> dict:
@@ -2618,6 +2856,150 @@ def device_time_shares(prof, groups) -> dict:
     return out
 
 
+SCHEDULES = ("UNILM_TPU_TRI_FLASH", "UNILM_TPU_FUSED_BWD")
+
+
+def phase_train_schedules(fa, tr, batch, args, flops: float) -> dict:
+    """train_schedules: the train phase's trainer and model, on the same
+    repeated batch, under the JAX package's two opt-in schedules (both
+    variables set here and restored after): 4 more optimizer steps, each
+    launching #2 and #8 24 x 4 times and #1/#6/#7 never; ms/step, tokens/s,
+    model TFLOP/s, peak memory, a device-time profile of one microbatch and
+    one optimizer update; a teacher check of one microbatch on the same
+    parameters under both schedules against the default kernels (the train
+    phase's bounds)."""
+    import os
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from unilm_tpu_torch.ops.fused_ce import chunked_cross_entropy
+
+    model = tr.model
+    layers = len(model.decoder.layers)
+    per_step = layers * args.update_freq
+    params = [p for p in model.parameters() if p.requires_grad]
+    mb = batch[0]
+
+    def micro():
+        out = model(mb, return_features=True)
+        s, n = chunked_cross_entropy(out[:, :-1], model.embed_tokens.weight,
+                                     mb[:, 1:], chunk=args.ce_chunk)
+        loss = s / n
+        return float(loss.detach()), torch.autograd.grad(loss, params)
+
+    saved = {k: os.environ.get(k) for k in SCHEDULES}
+    try:
+        for k in SCHEDULES:
+            os.environ[k] = "1"
+        steps, losses, times = 4, [], []
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            tr.state, m = tr.step_fn(tr.state, batch)
+            torch.cuda.synchronize()
+            times.append(time.time() - t0)
+            losses.append(float(m["loss"]))
+            gn = float(m["grad_norm"])
+            check(np.isfinite(losses[-1]) and np.isfinite(gn),
+                  f"train_schedules: step {i + 1} loss {losses[-1]} "
+                  f"grad_norm {gn}")
+            phase("train_schedules", f"step {i + 1}: loss {losses[-1]:.6f}, "
+                  f"grad_norm {gn:.4f}, {times[-1] * 1e3:.1f} ms (host "
+                  "clock)")
+        got = counts()
+        peak = torch.cuda.max_memory_allocated()
+        for name in ("flash_tri", "flash_bwd_fused"):
+            check(got[name] == per_step * steps,
+                  f"train_schedules: {name} launches {got[name]} != "
+                  f"{per_step} x {steps}")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            check(got[name] == 0, f"train_schedules: {name} launched "
+                  f"{got[name]} times")
+        check(all(losses[i + 1] < losses[i] for i in range(1, steps - 1)),
+              f"train_schedules: loss does not fall from step 2 on: {losses}")
+        launches = {k: got[k] for k in ("flash_tri", "flash_bwd_fused")}
+        step_s = float(np.mean(times[1:]))
+        tokens = args.batch_size * args.tokens_per_sample
+        phase("train_schedules", f"launches per step: flash_tri/"
+              f"flash_bwd_fused {per_step} each, flash_fwd/dq/dkv 0 ({got}); "
+              f"steps 2-{steps}: {step_s * 1e3:.1f} ms/step, "
+              f"{tokens / step_s:.0f} tokens/s, {flops / step_s / 1e12:.1f} "
+              f"model TFLOP/s = {flops / step_s / 989e12 * 100:.1f}% of 989 "
+              f"TFLOP/s bf16 dense; peak memory {peak / 2**30:.1f} GiB")
+
+        groups = [("flash_tri #2", ["flash_tri_tc_kernel"]),
+                  ("flash_bwd_fused #8", ["flash_bwd_fused_tc_kernel",
+                                          "dq_cast_kernel"]),
+                  ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                              "splitK"])]
+        micro()
+        torch.cuda.synchronize()
+        acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+        with profile(activities=acts) as prof:
+            _, grads = micro()
+            torch.cuda.synchronize()
+        parts = {k: v * args.update_freq
+                 for k, v in device_time_shares(prof, groups).items()}
+        scratch = [p.detach().clone() for p in params]
+        state_copy = {k: ([t.clone() for t in v] if isinstance(v, list)
+                          else v) for k, v in tr.state.opt_state.items()}
+        with profile(activities=acts) as prof:
+            tr.tx.update(grads, state_copy, scratch)
+            torch.cuda.synchronize()
+        parts["optimizer"] = sum(device_time_shares(prof, []).values())
+        del scratch, state_copy, grads
+        total = sum(parts.values())
+        if total <= 0:
+            phase("train_schedules", "profiler saw no device time: shares "
+                  "not measured")
+        else:
+            phase("train_schedules", "device time per step (4 x one profiled "
+                  f"microbatch + one optimizer update) {total:.1f} ms: " +
+                  ", ".join(f"{k} {v:.1f} ms ({100 * v / total:.1f}%)"
+                            for k, v in parts.items()))
+
+        # teacher: one microbatch, the same parameters, schedules vs default
+        c0 = counts()
+        ls, gs = micro()
+        c1 = counts()
+        for k in SCHEDULES:
+            del os.environ[k]
+        ld, gd = micro()
+        c2 = counts()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    check(c1["flash_tri"] - c0["flash_tri"] == layers
+          and c1["flash_bwd_fused"] - c0["flash_bwd_fused"] == layers
+          and c2["flash_bwd_dq"] - c1["flash_bwd_dq"] == layers
+          and c2["flash_tri"] == c1["flash_tri"],
+          f"train_schedules teacher: launch counts {c0} -> {c1} -> {c2}")
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    ns = float(torch.sqrt(sum(g.float().pow(2).sum() for g in gs)))
+    nd = float(torch.sqrt(sum(g.float().pow(2).sum() for g in gd)))
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        a.flatten().float(), b.flatten().float(), dim=0))
+        for n, a, b in zip(names, gs, gd)}
+    worst = min(cos, key=cos.get)
+    loss_rel, norm_rel = abs(ls - ld) / abs(ld), abs(ns - nd) / nd
+    phase("train_schedules", f"teacher check, microbatch 0 (2 x 2048): loss "
+          f"#2/#8 {ls:.6f} #1/#6/#7 {ld:.6f} (rel {loss_rel:.2e}, tol "
+          f"{TEACHER_LOSS_REL}); grad norm {ns:.5f} vs {nd:.5f} (rel "
+          f"{norm_rel:.2e}, tol {TEACHER_NORM_REL}); min per-tensor cosine "
+          f"{cos[worst]:.5f} ({worst}, tol {TEACHER_COS})")
+    check(loss_rel <= TEACHER_LOSS_REL and norm_rel <= TEACHER_NORM_REL
+          and cos[worst] >= TEACHER_COS, "train_schedules: teacher check "
+          "failed")
+    del gs, gd
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_train(fa, layers: int = 24) -> dict:
     """The 1.3B UniGPT train step at full width through the CLI's
     build_trainer, its profile, the kernel-vs-plain teacher check and the
@@ -2731,6 +3113,7 @@ def phase_train(fa, layers: int = 24) -> dict:
                   f"{k} {v:.1f} ms ({100 * v / total:.1f}%)"
                   for k, v in step_parts.items()))
     del grads
+    launches.update(phase_train_schedules(fa, tr, batch, args, flops))
     tr.state.opt_state = None  # the teacher check needs the memory
     torch.cuda.empty_cache()
 
@@ -2822,6 +3205,7 @@ def main() -> int:
     from unilm_tpu_torch.ops import quant as qm
 
     KERNELS.update({"flash_fwd": fa.KERNEL,
+                    "flash_tri": fa.TRI_KERNEL,
                     "encoder_attention": fa.ENCODER_KERNEL,
                     "decode_attention": pa.KERNEL,
                     "decode_attention_int8": pa.KERNEL_INT8,
@@ -2829,12 +3213,14 @@ def main() -> int:
                     "paged_append_attention": pa.APPEND_KERNEL,
                     "flash_bwd_dq": fa.BWD_KERNEL_DQ,
                     "flash_bwd_dkv": fa.BWD_KERNEL_DKV,
+                    "flash_bwd_fused": fa.FUSED_BWD_KERNEL,
                     "encoder_attention_bwd": fa.ENCODER_BWD_KERNEL,
                     "doc_attention": da.FWD_KERNEL,
                     "doc_attention_bwd": da.BWD_KERNEL})
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [phase_flash(fa, g), *phase_flash_bwd(fa, g),
+    kernels = [phase_flash(fa, g), phase_flash_tri(fa, g),
+               *phase_flash_bwd(fa, g), phase_flash_bwd_fused(fa, g),
                phase_encoder_attn(fa, g), phase_encoder_bwd(fa, g),
                phase_doc_attn(da, g), phase_doc_bwd(da, g),
                phase_decode(pa, g), phase_decode_int8(pa, g),

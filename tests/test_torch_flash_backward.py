@@ -130,11 +130,3 @@ def test_plain_backward_is_the_kernels_contract():
         assert a.shape == w.shape
         torch.testing.assert_close(a, w, atol=TOL, rtol=TOL)
     assert float(got[0][2].abs().max()) == 0.0
-
-
-@pytest.mark.parametrize("var", ["UNILM_TPU_FUSED_BWD", "UNILM_TPU_TRI_FLASH"])
-def test_unported_tpu_schedules_raise(var, monkeypatch):
-    monkeypatch.setenv(var, "1")
-    q = torch.randn(1, 8, 1, 64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tfa.flash_attention(q, q, q, causal=True).sum().backward()

@@ -1,6 +1,8 @@
-// Helpers shared by the flash-attention forward (flash_fwd.cu) and backward
-// (flash_bwd.cu) kernels: element conversion, 8-wide vector loads/stores,
-// the masking constant and the tile geometry both directions use.
+// Helpers shared by the flash-attention forward (flash_fwd.cu, flash_tri.cu)
+// and backward (flash_bwd.cu, flash_bwd_fused.cu) kernels: element
+// conversion, 8-wide vector loads/stores, the masking constant, the tile
+// geometry both directions use, and the turn-taking by which the fused
+// backward's blocks add into one fp32 dq row tile in a fixed order.
 
 #pragma once
 
@@ -66,6 +68,68 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src, siz
         if (r < valid) load8(src + (size_t)r * row_stride + d, f);
         store8(dst + r * ld + d, f);
     }
+}
+
+// Does the (query rows t0 .. t0+rows-1, keys c0 .. c0+cols-1) tile hold a
+// visible pair under causal with q_offset, window and the kv prefix
+// `limit`? Conservative: never false for a visible pair.
+__device__ __forceinline__ bool tile_visible(int t0, int rows, int c0, int cols, int q_offset,
+                                             int limit, int causal, int window) {
+    const int r0 = q_offset + t0;
+    if (c0 >= limit) return false;
+    if (causal && c0 > r0 + rows - 1) return false;
+    if (window > 0 && c0 + cols - 1 < r0 - window + 1) return false;
+    return true;
+}
+
+// One past the last key tile (of `cols` keys) that is tile_visible for the
+// query rows t0 .. t0+rows-1 (q_offset >= 0). The visible key tiles of a
+// row tile are contiguous, so those after key tile j are j+1 .. end-1.
+__device__ __forceinline__ int key_tiles_end(int t0, int rows, int cols, int q_offset,
+                                             int limit, int causal) {
+    int end = (limit + cols - 1) / cols;
+    if (causal) end = min(end, (q_offset + t0 + rows - 1) / cols + 1);
+    return end;
+}
+
+// Turn-taking over one counter per dq row tile (kernel #8): the blocks that
+// add into the tile do so in a fixed order, so the fp32 sum, and the bits,
+// are the same in every run. A block waits until `target` blocks have
+// passed (thread 0 polls with acquire loads; the barrier hands the turn to
+// the block), adds with L2 loads and stores (__ldcg / __stcg: no stale L1
+// line), then passes: every thread fences its stores, and after the
+// barrier thread 0 adds one with release semantics. A wait that outlasts
+// 10 s traps, so an ordering fault fails the launch instead of hanging the
+// card.
+__device__ __forceinline__ int ld_acquire(const int* p) {
+    int v;
+    asm volatile("ld.acquire.gpu.global.b32 %0, [%1];\n" : "=r"(v) : "l"(p) : "memory");
+    return v;
+}
+
+__device__ __forceinline__ unsigned long long globaltimer_ns() {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    return t;
+}
+
+__device__ __forceinline__ void wait_turn(const int* counter, int target) {
+    if (threadIdx.x == 0 && ld_acquire(counter) < target) {
+        const unsigned long long t0 = globaltimer_ns();
+        while (ld_acquire(counter) < target) {
+            __nanosleep(100);
+            if (globaltimer_ns() - t0 > 10000000000ull) __trap();
+        }
+    }
+    __syncthreads();
+}
+
+__device__ __forceinline__ void pass_turn(int* counter) {
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0)
+        asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(counter), "r"(1)
+                     : "memory");
 }
 
 }  // namespace

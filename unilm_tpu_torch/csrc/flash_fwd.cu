@@ -21,181 +21,24 @@
 // TFLOP/s bf16 wgmma). The prefill it serves (T = S = 2052, D = 96, 16
 // heads) is compute-bound on any unit, so tensor cores (mma.sync/wgmma)
 // and TMA-fed K/V tiles are the later PRs' work.
-// What the design does about it: each warp owns 16 query rows and each
-// lane two keys of the 64-key tile, so one K value loaded from shared
-// memory feeds 16 FMAs and the q rows are read as float4 broadcasts; the
-// K tile rows are padded by 4 floats so the per-lane float4 reads are
-// bank-conflict free; P goes through shared memory so the PV product
-// reads it as float4 broadcasts instead of one shuffle per (row, key); the
-// per-lane partial row sums are reduced once at the end, not per tile.
+// What the design does about it: see csrc/flash_fwd.cuh, which holds the
+// body (one 64-row q tile) that kernel #2's fp32 path shares.
 // Grid: one block per (64-row q tile, head, batch), 4 warps.
 
-#include "flash_common.cuh"
+#include "flash_fwd.cuh"
 
 namespace {
 
-constexpr int BQ = 64;               // query rows per block
-constexpr int BK = 64;               // keys per tile
-constexpr int NWARPS = 4;            // warps per block
-constexpr int RPW = BQ / NWARPS;     // query rows per warp
-
 template <typename T, int D>
-__global__ void __launch_bounds__(NWARPS * 32)
+__global__ void __launch_bounds__(fwd::NWARPS * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ bias,
                  const int* __restrict__ mask, T* __restrict__ out,
                  float* __restrict__ lse, int T_, int S, int H, int bias_sb,
                  int bias_sh, int q_offset, int limit, int causal, int window) {
-    constexpr int DPL = D / 32;      // output dims per lane
-    constexpr int KST = D + 4;       // padded K row stride (float4 aligned)
-    constexpr int D8 = D / 8;
-    extern __shared__ float4 smem4[];
-    float* Qs = reinterpret_cast<float*>(smem4);   // [BQ][D]
-    float* Ks = Qs + BQ * D;                       // [BK][KST]
-    float* Vs = Ks + BK * KST;                     // [BK][D]
-    float* Ps = Vs + BK * D;                       // [NWARPS][RPW][BK]
-
-    const int b = blockIdx.z, h = blockIdx.y;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int row0 = blockIdx.x * BQ;              // first local q row
-    const size_t HD = (size_t)H * D;
-
-    for (int i = tid; i < BQ * D8; i += NWARPS * 32) {
-        const int r = i / D8, d = (i % D8) * 8;
-        float f[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-        if (row0 + r < T_)
-            load8(q + ((size_t)b * T_ + row0 + r) * HD + (size_t)h * D + d, f);
-        store8(Qs + r * D + d, f);
-    }
-
-    // key tiles that can hold a visible (row, col) pair for this block
-    const int r_first = q_offset + row0;
-    const int r_last = q_offset + min(row0 + BQ, T_) - 1;
-    int k_end = limit;
-    if (causal) k_end = min(k_end, r_last + 1);
-    const int k_begin = window > 0 ? max(0, r_first - window + 1) : 0;
-    const int j_begin = k_begin / BK;
-    const int j_end = k_end > 0 ? (k_end + BK - 1) / BK : 0;
-
-    float m[RPW], lpart[RPW], acc[RPW][DPL];
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-        m[r] = NEG_INF;
-        lpart[r] = 0.f;
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
-    }
-
-    const float* qw = Qs + warp * RPW * D;
-    float* pw = Ps + warp * RPW * BK;
-    const T* bias_bh = bias ? bias + (size_t)b * bias_sb + (size_t)h * bias_sh : nullptr;
-
-    for (int j = j_begin; j < j_end; ++j) {
-        const int c0 = j * BK;
-        __syncthreads();  // Q stored / previous K,V tile consumed
-        for (int i = tid; i < BK * D8; i += NWARPS * 32) {
-            const int c = i / D8, d = (i % D8) * 8;
-            float fk[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-            float fv[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-            if (c0 + c < S) {
-                const size_t off = ((size_t)b * S + c0 + c) * HD + (size_t)h * D + d;
-                load8(k + off, fk);
-                load8(v + off, fv);
-            }
-            store8(Ks + c * KST + d, fk);
-            store8(Vs + c * D + d, fv);
-        }
-        __syncthreads();
-
-        // scores: this lane's keys c0+lane and c0+lane+32 against 16 rows
-        float s0[RPW], s1[RPW];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) s0[r] = s1[r] = 0.f;
-        const float* k0 = Ks + lane * KST;
-        const float* k1 = Ks + (lane + 32) * KST;
-#pragma unroll 2
-        for (int d = 0; d < D; d += 4) {
-            const float4 a = *reinterpret_cast<const float4*>(k0 + d);
-            const float4 c = *reinterpret_cast<const float4*>(k1 + d);
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) {
-                const float4 x = *reinterpret_cast<const float4*>(qw + r * D + d);
-                s0[r] += x.x * a.x + x.y * a.y + x.z * a.z + x.w * a.w;
-                s1[r] += x.x * c.x + x.y * c.y + x.z * c.z + x.w * c.w;
-            }
-        }
-
-        const int col0 = c0 + lane, col1 = c0 + lane + 32;
-        const bool in0 = col0 < limit && (!mask || mask[(size_t)b * S + col0] != 0);
-        const bool in1 = col1 < limit && (!mask || mask[(size_t)b * S + col1] != 0);
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-            const int tl = row0 + warp * RPW + r;
-            const int row = q_offset + tl;
-            float a = s0[r], c = s1[r];
-            if (bias_bh && tl < T_) {
-                const T* br = bias_bh + (size_t)tl * S;
-                if (col0 < S) a += to_f(br[col0]);
-                if (col1 < S) c += to_f(br[col1]);
-            }
-            const bool keep0 = in0 && (!causal || col0 <= row) &&
-                               (window <= 0 || row - col0 < window);
-            const bool keep1 = in1 && (!causal || col1 <= row) &&
-                               (window <= 0 || row - col1 < window);
-            a = keep0 ? a : NEG_INF;
-            c = keep1 ? c : NEG_INF;
-            float mx = fmaxf(a, c);
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, o));
-            const float m_new = fmaxf(m[r], mx);
-            // keep-guard: a row masked so far has m_new = NEG_INF
-            const float p0 = keep0 ? expf(a - m_new) : 0.f;
-            const float p1 = keep1 ? expf(c - m_new) : 0.f;
-            const float alpha = expf(m[r] - m_new);
-            lpart[r] = lpart[r] * alpha + p0 + p1;
-            m[r] = m_new;
-#pragma unroll
-            for (int cc = 0; cc < DPL; ++cc) acc[r][cc] *= alpha;
-            pw[r * BK + lane] = to_f(from_f<T>(p0));
-            pw[r * BK + lane + 32] = to_f(from_f<T>(p1));
-        }
-        __syncwarp();
-
-        // acc[r][:] += P[r, :] @ V for this lane's output dims
-#pragma unroll 1
-        for (int c = 0; c < BK; c += 4) {
-            float vv[4][DPL];
-#pragma unroll
-            for (int u = 0; u < 4; ++u)
-#pragma unroll
-                for (int cc = 0; cc < DPL; ++cc) vv[u][cc] = Vs[(c + u) * D + lane + 32 * cc];
-#pragma unroll
-            for (int r = 0; r < RPW; ++r) {
-                const float4 p = *reinterpret_cast<const float4*>(pw + r * BK + c);
-#pragma unroll
-                for (int cc = 0; cc < DPL; ++cc)
-                    acc[r][cc] += p.x * vv[0][cc] + p.y * vv[1][cc] + p.z * vv[2][cc] +
-                                  p.w * vv[3][cc];
-            }
-        }
-        __syncwarp();
-    }
-
-#pragma unroll
-    for (int r = 0; r < RPW; ++r) {
-        float l = lpart[r];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) l += __shfl_xor_sync(FULL, l, o);
-        const int tl = row0 + warp * RPW + r;
-        if (tl >= T_) continue;
-        const float denom = l > 0.f ? l : 1.f;
-        T* orow = out + ((size_t)b * T_ + tl) * HD + (size_t)h * D;
-#pragma unroll
-        for (int cc = 0; cc < DPL; ++cc) orow[lane + 32 * cc] = from_f<T>(acc[r][cc] / denom);
-        if (lane == 0)
-            lse[((size_t)b * H + h) * T_ + tl] =
-                l > 0.f ? m[r] + logf(fmaxf(l, 1e-37f)) : 0.f;
-    }
+    fwd::tile<T, D>(q, k, v, bias, mask, out, lse, blockIdx.z, blockIdx.y,
+                    blockIdx.x * fwd::BQ, T_, S, H, bias_sb, bias_sh, q_offset, limit,
+                    causal, window);
 }
 
 template <typename T, int D>
@@ -203,14 +46,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* bias
                    const int* mask, void* out, float* lse, int B, int T_, int S,
                    int H, int bias_sb, int bias_sh, int q_offset, int limit,
                    int causal, int window, cudaStream_t stream) {
-    const size_t smem =
-        (size_t)(BQ * D + BK * (D + 4) + BK * D + NWARPS * RPW * BK) * sizeof(float);
+    const size_t smem = fwd::smem_bytes<D>();
     auto kern = flash_fwd_kernel<T, D>;
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    dim3 grid((T_ + BQ - 1) / BQ, H, B);
-    kern<<<grid, NWARPS * 32, smem, stream>>>(
+    dim3 grid((T_ + fwd::BQ - 1) / fwd::BQ, H, B);
+    kern<<<grid, fwd::NWARPS * 32, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const T*>(bias), mask, static_cast<T*>(out), lse, T_, S, H, bias_sb,
         bias_sh, q_offset, limit, causal, window);

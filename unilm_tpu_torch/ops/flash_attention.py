@@ -20,8 +20,23 @@ same function in plain torch. Nothing else selects the plain version.
 backward takes (dq, dk, dv, dbias) from the two kernels of
 csrc/flash_bwd.cu on a CUDA tensor and from `flash_backward_plain` on a
 CPU tensor; a head-broadcast bias recomputes through plain autograd, as
-JAX does. The opt-in TPU schedules UNILM_TPU_TRI_FLASH (kernel #2) and
-UNILM_TPU_FUSED_BWD (kernel #8) raise rather than being ignored.
+JAX does.
+
+The JAX package's two opt-in schedules are selected by the same
+environment variables, read at call time, under the same conditions:
+- UNILM_TPU_TRI_FLASH, on a causal call with window 0, no q_offset, no
+  kv_len and T == S (JAX :2030-2032): the forward is `flash_forward_tri`,
+  the lower-triangle schedule of `_flash_tri_kernel` (#2, :404;
+  csrc/flash_tri.cu). Every other call runs #1 as without the variable.
+- UNILM_TPU_FUSED_BWD, on a backward without a bias (`_flash_bwd`
+  :1944-1948): dq, dk and dv come from `flash_backward_fused`, the
+  one-pass `_bwd_fused_kernel` (#8, :1520; csrc/flash_bwd_fused.cu).
+  JAX also requires `_fused_bwd_blocks` to fit the TPU core's VMEM
+  (S * D * 8 <= 2 MB and a 13 MB block budget, :1496); that is a TPU
+  budget and is not carried: #8 takes every S.
+On CPU tensors both run their plain twins, which compute the same
+function as #1's and #6/#7's (`flash_forward_tri_plain`,
+`flash_backward_fused_plain`).
 
 `fused_encoder_attention` (port of `fused_encoder_attention` :701,
 `_vit_forward` :632 / `_vit_kernel` :580) is the encoder hot path:
@@ -58,6 +73,30 @@ KERNEL = CudaKernel("flash_fwd.cu", {
 })
 
 
+TRI_KERNEL = CudaKernel("flash_tri.cu", {
+    # q, k, v, bias, mask, out, lse, B, T, H, D, bias_sb, bias_sh, dtype,
+    # stream
+    "flash_tri_fwd": [P] * 7 + [I] * 7 + [P],
+})
+
+
+def tri_applies(causal: bool, window: int, q_offset: Optional[int],
+                kv_len: Optional[int], T: int, S: int) -> bool:
+    """Does this call take the lower-triangle forward (#2)? JAX's
+    condition (:2030-2032): UNILM_TPU_TRI_FLASH set, causal, window 0, no
+    query offset, no kv_len, T == S."""
+    return bool(os.environ.get("UNILM_TPU_TRI_FLASH")) and (
+        causal and window == 0 and q_offset is None and kv_len is None
+        and T == S)
+
+
+def fused_applies(bias: Optional[torch.Tensor]) -> bool:
+    """Does this backward take the one-pass kernel (#8)? JAX's condition
+    (:1944-1948) without the TPU VMEM budget: no bias and
+    UNILM_TPU_FUSED_BWD set."""
+    return bias is None and bool(os.environ.get("UNILM_TPU_FUSED_BWD"))
+
+
 def supports(q: torch.Tensor, k: torch.Tensor,
              bias: Optional[torch.Tensor], window: int) -> bool:
     """Shape/dtype admissibility of the CUDA kernel."""
@@ -72,6 +111,21 @@ def supports(q: torch.Tensor, k: torch.Tensor,
         if bias.shape[2] != T or bias.shape[3] != k.shape[1]:
             return False
     return True
+
+
+def _bias_strides(bias, B: int, H: int, T: int, S: int, dtype,
+                  device) -> Tuple[int, int]:
+    """Check a [B|1, H|1, T, S] bias for a kernel and return its (batch,
+    head) element strides, 0 for a broadcast axis; (0, 0) without one."""
+    if bias is None:
+        return 0, 0
+    Bb, Hb = bias.shape[0], bias.shape[1]
+    if Bb not in (1, B) or Hb not in (1, H):
+        raise ValueError(f"bias {tuple(bias.shape)} does not broadcast "
+                         f"over [B={B}, H={H}]")
+    check_tensor("bias", bias, dtype=dtype, shape=(Bb, Hb, T, S),
+                 device=device)
+    return (Hb * T * S if Bb > 1 else 0), (T * S if Hb > 1 else 0)
 
 
 def _keep_mask(T, S, q_offset, limit, causal, window, mask, device):
@@ -124,16 +178,7 @@ def _flash_forward_cuda(q, k, v, bias, mask, q_offset, kv_len, causal,
     check_tensor("q", q, dtype=q.dtype, shape=(B, T, H, D), device=dev)
     check_tensor("k", k, dtype=q.dtype, shape=(B, S, H, D), device=dev)
     check_tensor("v", v, dtype=q.dtype, shape=(B, S, H, D), device=dev)
-    sb = sh = 0
-    if bias is not None:
-        Bb, Hb = bias.shape[0], bias.shape[1]
-        if Bb not in (1, B) or Hb not in (1, H):
-            raise ValueError(f"bias {tuple(bias.shape)} does not broadcast "
-                             f"over [B={B}, H={H}]")
-        check_tensor("bias", bias, dtype=q.dtype, shape=(Bb, Hb, T, S),
-                     device=dev)
-        sh = T * S if Hb > 1 else 0
-        sb = Hb * T * S if Bb > 1 else 0
+    sb, sh = _bias_strides(bias, B, H, T, S, q.dtype, dev)
     if mask is not None:
         check_tensor("key_padding_mask", mask, dtype=torch.int32,
                      shape=(B, S), device=dev)
@@ -163,6 +208,55 @@ def flash_forward(q, k, v, bias=None, mask=None, q_offset: int = 0,
         bias = bias.to(q.dtype).contiguous()
     return _flash_forward_cuda(q, k, v, bias, mask, q_offset, kv_len, causal,
                                window)
+
+
+def flash_forward_tri_plain(q, k, v, bias=None, mask=None
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch twin of kernel #2: #1's function with causal fixed
+    (T == S, no offset, no kv_len). The TPU kernel computes the same
+    function with the same rounding (p to v's dtype before the PV product,
+    :463-467), so this is `flash_forward_plain(..., causal=True)`."""
+    return flash_forward_plain(q, k, v, bias, mask, 0, None, causal=True)
+
+
+def _flash_forward_tri_cuda(q, k, v, bias, mask):
+    B, T, H, D = q.shape
+    if q.dtype not in _DTYPE_CODE or D not in SUPPORTED_D:
+        raise ValueError(f"triangle flash kernel takes float32/bfloat16 and "
+                         f"head_dim in {SUPPORTED_D}, got {q.dtype}, D={D}")
+    dev = q.device
+    check_tensor("q", q, dtype=q.dtype, shape=(B, T, H, D), device=dev)
+    check_tensor("k", k, dtype=q.dtype, shape=(B, T, H, D), device=dev)
+    check_tensor("v", v, dtype=q.dtype, shape=(B, T, H, D), device=dev)
+    sb, sh = _bias_strides(bias, B, H, T, T, q.dtype, dev)
+    if mask is not None:
+        check_tensor("key_padding_mask", mask, dtype=torch.int32,
+                     shape=(B, T), device=dev)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+    TRI_KERNEL.launch("flash_tri_fwd", ptr(q), ptr(k), ptr(v), ptr(bias),
+                      ptr(mask), ptr(out), ptr(lse), B, T, H, D, sb, sh,
+                      _DTYPE_CODE[q.dtype], stream())
+    return out, lse
+
+
+def flash_forward_tri(q, k, v, bias=None, mask=None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out, lse) of the causal self-attention q [B,T,H,D] (pre-scaled),
+    k/v [B,T,H,D]: kernel #2 on a CUDA tensor, its plain twin on a CPU
+    tensor. `mask` is the int32/bool [B, T] key-padding mask."""
+    if q.shape[1] != k.shape[1]:
+        raise ValueError(f"the triangle schedule takes T == S, got "
+                         f"T={q.shape[1]}, S={k.shape[1]}")
+    if q.device.type == "cpu":
+        return flash_forward_tri_plain(q, k, v, bias, mask)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_forward_tri: unsupported device {q.device}")
+    if mask is not None:
+        mask = mask.to(torch.int32).contiguous()
+    if bias is not None:
+        bias = bias.to(q.dtype).contiguous()
+    return _flash_forward_tri_cuda(q, k, v, bias, mask)
 
 
 # --------------------------------------------------------------------------- #
@@ -269,15 +363,11 @@ def _flash_backward_cuda(q, k, v, bias, mask, q_offset, limit, out, lse, do,
     check_tensor("dout", do, dtype=q.dtype, shape=(B, T, H, D), device=dev)
     check_tensor("lse", lse, dtype=torch.float32, shape=(B, H, T), device=dev)
     delta = _delta(out, do)
-    sb = sh = 0
+    sb, sh = _bias_strides(bias, B, H, T, S, q.dtype, dev)
     acc_b = 0
     dbias = None
     if bias is not None:
         Bb, Hb = bias.shape[0], bias.shape[1]
-        check_tensor("bias", bias, dtype=q.dtype, shape=(Bb, Hb, T, S),
-                     device=dev)
-        sh = T * S if Hb > 1 else 0
-        sb = Hb * T * S if Bb > 1 else 0
         if want_dbias:
             if Hb == 1 and H > 1:
                 raise ValueError("the dq kernel does not sum dbias over "
@@ -329,17 +419,106 @@ def flash_backward(q, k, v, bias, mask, q_offset: int,
                                 want_dbias and bias is not None)
 
 
+# --------------------------------------------------------------------------- #
+# The one-pass backward: kernel #8 (dq, dk, dv; no bias)
+# --------------------------------------------------------------------------- #
+
+FUSED_BWD_KERNEL = CudaKernel("flash_bwd_fused.cu", {
+    # q, k, v, dout, lse, delta, mask, dq, dk, dv, dq_acc, turns, B, T, S, H,
+    # D, q_offset, limit, causal, window, dtype, stream
+    "flash_bwd_fused": [P] * 12 + [I] * 10 + [P],
+})
+_FUSED_MIN_STEP = 32  # the kernel's shortest row step (a turn counter each)
+
+
+def flash_backward_fused_plain(q, k, v, mask, q_offset: int,
+                               kv_len: Optional[int], out, lse, do, *,
+                               causal: bool = False, window: int = 0):
+    """Plain torch twin of kernel #8: (dq, dk, dv) of `flash_forward`
+    without a bias. `_bwd_fused_kernel`'s contract is the split pair's:
+    p = exp(s - lse) under the mask, not rounded before p^T dO; ds =
+    p (dp - delta) in fp32, rounded to the inputs' dtype before ds k and
+    ds^T q (:1598-1611); so this is `flash_backward_plain` with no bias."""
+    return flash_backward_plain(q, k, v, None, mask, q_offset, kv_len, out,
+                                lse, do, causal=causal, window=window)[:3]
+
+
+def _flash_backward_fused_cuda(q, k, v, mask, q_offset, limit, out, lse, do,
+                               causal, window):
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    dev = q.device
+    if q.dtype not in _DTYPE_CODE or D not in SUPPORTED_D:
+        raise ValueError(f"fused flash backward kernel takes float32/"
+                         f"bfloat16 and head_dim in {SUPPORTED_D}, got "
+                         f"{q.dtype}, D={D}")
+    if q_offset < 0:
+        raise ValueError(f"fused flash backward kernel takes q_offset >= 0, "
+                         f"got {q_offset}")
+    check_tensor("q", q, dtype=q.dtype, shape=(B, T, H, D), device=dev)
+    check_tensor("k", k, dtype=q.dtype, shape=(B, S, H, D), device=dev)
+    check_tensor("v", v, dtype=q.dtype, shape=(B, S, H, D), device=dev)
+    do = do.to(q.dtype).contiguous()
+    check_tensor("dout", do, dtype=q.dtype, shape=(B, T, H, D), device=dev)
+    check_tensor("lse", lse, dtype=torch.float32, shape=(B, H, T), device=dev)
+    if mask is not None:
+        check_tensor("key_padding_mask", mask, dtype=torch.int32,
+                     shape=(B, S), device=dev)
+    delta = _delta(out, do)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    # scratch the launcher zeroes: one turn counter per (batch, head, row
+    # step) and, for bf16, the fp32 dq accumulator
+    turns = torch.empty(B * H * -(-T // _FUSED_MIN_STEP), dtype=torch.int32,
+                        device=dev)
+    dq_acc = (None if q.dtype == torch.float32 else
+              torch.empty((B, T, H, D), dtype=torch.float32, device=dev))
+    FUSED_BWD_KERNEL.launch(
+        "flash_bwd_fused", ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
+        ptr(delta), ptr(mask), ptr(dq), ptr(dk), ptr(dv), ptr(dq_acc),
+        ptr(turns), B, T, S, H, D, int(q_offset), limit, int(causal),
+        int(window), _DTYPE_CODE[q.dtype], stream())
+    return dq, dk, dv
+
+
+def flash_backward_fused(q, k, v, mask, q_offset: int,
+                         kv_len: Optional[int], out, lse, do, *,
+                         causal: bool = False, window: int = 0):
+    """(dq, dk, dv) of a bias-free `flash_forward`: kernel #8 on a CUDA
+    tensor, `flash_backward_fused_plain` on a CPU tensor."""
+    if q.device.type == "cpu":
+        return flash_backward_fused_plain(q, k, v, mask, q_offset, kv_len,
+                                          out, lse, do, causal=causal,
+                                          window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_backward_fused: unsupported device "
+                         f"{q.device}")
+    if mask is not None:
+        mask = mask.to(torch.int32).contiguous()
+    S = k.shape[1]
+    limit = S if kv_len is None else min(int(kv_len), S)
+    return _flash_backward_fused_cuda(q, k, v, mask, q_offset, limit, out,
+                                      lse, do, causal, window)
+
+
 class FlashAttentionFn(torch.autograd.Function):
-    """flash_forward (kernel #1) under autograd, saving out and lse; the
-    backward is kernels #6 and #7 on CUDA tensors and their plain twin on
-    CPU tensors, dispatched as the JAX custom VJP `_flash_bwd` (:1920)."""
+    """The flash forward under autograd, saving out and lse: kernel #1, or
+    #2 where `tri` (the caller's `tri_applies`) says so; `ctx.tri` records
+    which ran. The backward is dispatched as the JAX custom VJP
+    `_flash_bwd` (:1920): kernels #6 and #7, or #8 where `fused_applies`,
+    on CUDA tensors, their plain twins on CPU tensors. #2 returns the same
+    (out, lse) pair as #1, so either backward follows either forward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, mask, q_offset, kv_len, causal, window):
-        out, lse = flash_forward(q, k, v, bias, mask, q_offset, kv_len,
-                                 causal=causal, window=window)
+    def forward(ctx, q, k, v, bias, mask, q_offset, kv_len, causal, window,
+                tri):
+        if tri:
+            out, lse = flash_forward_tri(q, k, v, bias, mask)
+        else:
+            out, lse = flash_forward(q, k, v, bias, mask, q_offset, kv_len,
+                                     causal=causal, window=window)
         ctx.save_for_backward(q, k, v, bias, mask, out, lse)
         ctx.geom = (q_offset, kv_len, causal, window)
+        ctx.tri = tri
         return out
 
     @staticmethod
@@ -359,17 +538,16 @@ class FlashAttentionFn(torch.autograd.Function):
                 dq, dk, dv, dbias = torch.autograd.grad(o, ins, do)
             if q.is_cuda:
                 BWD_RECOMPUTE_LAUNCHES += 1
-        elif bias is None and os.environ.get("UNILM_TPU_FUSED_BWD"):
-            raise NotImplementedError(
-                "UNILM_TPU_FUSED_BWD selects the one-pass backward "
-                "`_bwd_fused_kernel` (kernel #8), not ported yet: ROADMAP "
-                "Queue 2, schedule options of #6/#7")
+        elif fused_applies(bias):
+            dq, dk, dv = flash_backward_fused(
+                q, k, v, mask, q_offset, kv_len, out, lse, do, causal=causal,
+                window=window)
         else:
             dq, dk, dv, dbias = flash_backward(
                 q, k, v, bias, mask, q_offset, kv_len, out, lse, do,
                 causal=causal, window=window, want_dbias=want_dbias)
         dbias = dbias.to(bias.dtype) if want_dbias else None
-        return dq, dk, dv, dbias, None, None, None, None, None
+        return dq, dk, dv, dbias, None, None, None, None, None, None
 
 
 def flash_attention(
@@ -388,18 +566,16 @@ def flash_attention(
     """Flash attention entry point; layout matches ops.attention.attention.
     q is scaled in its own dtype before the kernel, as the JAX entry
     point does (:2005), so bf16 rounding matches. Differentiable in q, k, v
-    and bias (FlashAttentionFn)."""
-    if os.environ.get("UNILM_TPU_TRI_FLASH"):
-        raise NotImplementedError(
-            "UNILM_TPU_TRI_FLASH selects the lower-triangle forward grid "
-            "`_flash_tri_kernel` (kernel #2), not ported yet: ROADMAP Queue "
-            "2, schedule option of #1")
+    and bias (FlashAttentionFn). The schedule variables are read here, on
+    the call's own geometry, before q_offset defaults to 0."""
+    tri = tri_applies(causal, window, q_offset, kv_len, q.shape[1],
+                      k.shape[1])
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return FlashAttentionFn.apply(
         (q * scale).contiguous(), k.contiguous(), v.contiguous(), bias,
         key_padding_mask, 0 if q_offset is None else int(q_offset), kv_len,
-        causal, window)
+        causal, window, tri)
 
 
 # --------------------------------------------------------------------------- #
@@ -455,16 +631,7 @@ def _encoder_attention_cuda(q, k, v, bias, scale):
     check_tensor("q", q, dtype=q.dtype, shape=(B, T, H, D), device=dev)
     check_tensor("k", k, dtype=q.dtype, shape=(B, S, H, D), device=dev)
     check_tensor("v", v, dtype=q.dtype, shape=(B, S, H, D), device=dev)
-    sb = sh = 0
-    if bias is not None:
-        Bb, Hb = bias.shape[0], bias.shape[1]
-        if Bb not in (1, B) or Hb not in (1, H):
-            raise ValueError(f"bias {tuple(bias.shape)} does not broadcast "
-                             f"over [B={B}, H={H}]")
-        check_tensor("bias", bias, dtype=q.dtype, shape=(Bb, Hb, T, S),
-                     device=dev)
-        sh = T * S if Hb > 1 else 0
-        sb = Hb * T * S if Bb > 1 else 0
+    sb, sh = _bias_strides(bias, B, H, T, S, q.dtype, dev)
     out = torch.empty_like(q)
     ENCODER_KERNEL.launch(
         "encoder_attn_fwd", ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out), B, T,
@@ -542,18 +709,11 @@ def _encoder_backward_cuda(q, k, v, bias, do, scale, want_dbias):
     check_tensor("k", k, dtype=q.dtype, shape=(B, S, H, D), device=dev)
     check_tensor("v", v, dtype=q.dtype, shape=(B, S, H, D), device=dev)
     check_tensor("dout", do, dtype=q.dtype, shape=(B, T, H, D), device=dev)
-    sb = sh = 0
+    sb, sh = _bias_strides(bias, B, H, T, S, q.dtype, dev)
     Hb, group, head_sum = 1, 1, 0
     dbias = partial = None
     if bias is not None:
         Bb, Hb = bias.shape[0], bias.shape[1]
-        if Bb not in (1, B) or Hb not in (1, H):
-            raise ValueError(f"bias {tuple(bias.shape)} does not broadcast "
-                             f"over [B={B}, H={H}]")
-        check_tensor("bias", bias, dtype=q.dtype, shape=(Bb, Hb, T, S),
-                     device=dev)
-        sh = T * S if Hb > 1 else 0
-        sb = Hb * T * S if Bb > 1 else 0
         if want_dbias:
             dbias = torch.empty((Bb, Hb, T, S), dtype=torch.float32,
                                 device=dev)
