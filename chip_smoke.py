@@ -10,7 +10,18 @@ Phases, one line each:
     one nvcc per source, all started together.
  3. flash: the flash-forward kernel against its plain version, bf16, over
     causal/offset/kv_len/key-padding/bias/window cases, D in {64, 96, 128},
-    ragged T and S, and the Kosmos-2.5 prefill shape 1x2052x16x96.
+    ragged T and S, the Kosmos-2.5 prefill shape 1x2052x16x96 and YOCO's
+    long self-layer prefill 1x4096 over 4128 keys, 16x64, causal, window
+    1024, kv_len 4096.
+    onepass (right after flash): the one-pass short-sequence forward (#5)
+    against flash_forward_onepass_plain at #1's tolerances (bf16; fp32 at
+    1e-4): yoco_chat's self-layer prefill 8x128 over 256 slots (causal,
+    window 1024, kv_len 128) and decode (T=1, q_offset 140, kv_len 141),
+    its cross layer (no window), the TPU kernel's fast path (S=200,
+    non-causal, full kv), a key-padding mask with a fully masked row (out
+    0, lse 0), [1,H,T,S] and [B,1,T,S] biases, fp32 at D=96 and 128, S and
+    T up to 2048; timed at the prefill and decode shapes beside #1 on the
+    same inputs, the plain twin and sdpa with a boolean mask.
     flash_tri (right after flash): the lower-triangle causal forward (#2)
     against flash_forward_tri_plain, bf16 (relative L2 <= 1e-2) and fp32
     (<= 1e-4), out and lse: T = S in {1, 63, 64, 65, 160, 1000, 2048}, D
@@ -100,6 +111,17 @@ Phases, one line each:
     path; then encode_image at 1024 patch slots: 18 launches of #9 in the
     tower, #1 only in the resampler, features against the plain path;
     TTFT for both paths; a device-time profile.
+    yoco_chat: yoco_base (12 sliding-window + 12 cross layers, E=1024, 16
+    heads, bf16 compute / fp32 params, random weights from the seed)
+    through runtime.generate: B=8, a 128-token prompt, a 256-slot cache,
+    128 greedy tokens (eos never drawn); exactly 24 launches of #5 per
+    forward and none of #1/#2; tokens/s, prefill ms and decode ms/token
+    for the kernel and plain paths, peak memory, a device-time profile
+    (#5's share); the plain path teacher-forced on the kernel's tokens.
+    yoco_long: the same model, B=1, a 4096-token prompt in a 4128-slot
+    cache, 32 tokens: 24 launches of #1 per forward (the self layers with
+    the window) and none of #5; TTFT, decode ms/token, the plain path
+    teacher-forced.
  6. int8_matmul: the int8 weight-only matmul kernel against its plain
     version, bf16 x, M in {1, 8, 64, 200} x the decoder's K x N.
  7. decode_int8: the int8-KV run-decode kernel against its plain version,
@@ -138,7 +160,8 @@ Phases, one line each:
     a torch.profiler device-time breakdown of one microbatch and one
     optimizer update, a kernel-vs-plain teacher check on one sequence, and
     the CLI's main() end to end at 2 layers, E=256: 4 steps straight
-    against 2 + save + resume + 2, bit-equal.
+    against 2 + save + resume + 2, bit-equal (its T=256, 4-head forward
+    fits the one-pass budget and runs #5, not #1).
     train_schedules (inside train, on its trainer and model, before the
     teacher check): UNILM_TPU_TRI_FLASH and UNILM_TPU_FUSED_BWD set (and
     restored after), 4 more optimizer steps on the same batch; every step
@@ -149,6 +172,7 @@ Phases, one line each:
     schedules against the default kernels at the train phase's bounds.
 Then a JSON line with each kernel's launches (from its main-path phase,
 counters set to 0 just before it: slice for flash_fwd and decode,
+yoco_chat for onepass_attention,
 beit_eval for encoder_attention, beit_train for encoder_attention_bwd,
 layoutlmv3_eval for doc_attention, layoutlmv3_train for doc_attention_bwd,
 the engines for the int8 and block-table kernels, train for flash_bwd_dq
@@ -282,6 +306,16 @@ LV3_TEACHER_LOSS_REL = 4e-4
 LV3_TEACHER_NORM_REL = 2e-3
 LV3_TEACHER_COS = 0.999
 
+# YOCO (yoco_base: 12 sliding-window + 12 cross layers, E=1024, 16 heads,
+# 4 kv heads, FFN 4096, vocab 64000; bf16 compute / fp32 params, random
+# weights from the seed). yoco_chat: a short chat turn, 8 rows of a
+# 128-token prompt in a 256-slot cache, 128 greedy tokens: every attention
+# call fits the one-pass budget (#5). yoco_long: one 4096-token prompt in
+# a 4128-slot cache, 32 tokens: past the budget, every call is #1's.
+YOCO_CHAT_B, YOCO_CHAT_PROMPT, YOCO_CHAT_CACHE, YOCO_CHAT_NEW = 8, 128, 256, 128
+YOCO_LONG_PROMPT, YOCO_LONG_CACHE, YOCO_LONG_NEW = 4096, 4128, 32
+YOCO_TEACHER_STEPS = 16  # decode steps of the teacher-forced plain check
+
 # The card's published peaks (NVIDIA H100 SXM data sheet, dense): a
 # kernel's bound is the larger of its bytes over the memory rate and its
 # operations over the peak rate of their type.
@@ -346,6 +380,26 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def device_ms(fn, iters: int = 20) -> float:
+    """Mean device time of fn() in ms: the time of the CUDA kernels a
+    torch.profiler trace of `iters` back-to-back calls records, summed
+    over the trace. Unlike cuda_ms it leaves out the card's idle gaps, so
+    it is a kernel's own time even where the host's wrapper, not the
+    kernel, sets the pace of back-to-back calls (microsecond kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(device_time_shares(prof, []).values())
+    check(total > 0, "device_ms: the profiler saw no device time")
+    return total / iters
+
+
 def close(x: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float):
     err = (x.float() - ref.float()).abs()
     ok = bool((err <= atol + rtol * ref.float().abs()).all())
@@ -408,6 +462,10 @@ def phase_flash(fa, g) -> dict:
          None, False),
         (1, IMAGE_TOKENS, IMAGE_TOKENS + TTFT_PATCHES, 16, 96, False, 0, None,
          0, None, None, True),
+        # YOCO's long self-layer prefill (yoco_long): past the one-pass
+        # budget, so #1 with the window over a 4128-slot cache
+        (1, YOCO_LONG_PROMPT, YOCO_LONG_CACHE, 16, 64, True, 0,
+         YOCO_LONG_PROMPT, 1024, None, None, True),
     ]
     worst = 0.0
     for B, T, S, H, D, causal, qoff, kvl, window, kpm, bias, scaled in cases:
@@ -480,6 +538,130 @@ def phase_flash(fa, g) -> dict:
             "shape": f"1x{PROMPT}x16x96 causal bf16",
             "tower_ms": t_ms, "tower_plain_ms": t_plain,
             "tower_library_ms": t_lib, "tower_bound_ms": t_bd["bound_ms"]}
+
+
+def phase_onepass(fa, g) -> dict:
+    """Kernel #5 against flash_forward_onepass_plain at #1's tolerances
+    (bf16; fp32 at 1e-4), over YOCO's shapes and the TPU kernel's options;
+    then timed at yoco_chat's prefill and decode shapes beside #1 on the
+    same inputs, the plain twin and sdpa with a boolean mask."""
+    dev = "cuda"
+    bf, f32 = torch.bfloat16, torch.float32
+    C, P = YOCO_CHAT_CACHE, YOCO_CHAT_PROMPT
+    # (B, T, S, H, D, causal, q_offset, kv_len, window, kpm, bias, dtype)
+    cases = [
+        # yoco_chat: self-layer prefill and decode (window), cross layer
+        (8, P, C, 16, 64, True, 0, P, 1024, None, None, bf),
+        (8, 1, C, 16, 64, True, 140, 141, 1024, None, None, bf),
+        (8, P, C, 16, 64, True, 0, P, 0, None, None, bf),
+        (8, 1, C, 16, 64, True, 140, 141, 0, None, None, bf),
+        # the TPU kernel's fast path: non-causal, full kv, S = 200
+        (4, 200, 200, 16, 64, False, 0, None, 0, None, None, bf),
+        # key-padding mask, the last batch row fully masked
+        (3, 100, 150, 8, 64, False, 0, None, 0, "rand", None, bf),
+        (2, 120, 120, 4, 96, True, 0, None, 0, None, "1H", bf),
+        (3, 100, 77, 4, 64, False, 0, None, 0, None, "B1", bf),
+        (2, 45, 45, 2, 128, True, 0, None, 0, "rand", "1H", bf),
+        (2, 70, 263, 4, 96, True, 193, None, 0, None, None, f32),
+        (2, 97, 150, 2, 128, False, 0, None, 0, "rand", "B1", f32),
+        (2, 64, 300, 4, 128, True, 200, 260, 50, None, None, f32),
+        # the longest rows the kernel holds: S = 2048 (a window past the
+        # first key tiles), T = 2048
+        (2, 64, 2048, 4, 64, True, 1984, None, 256, None, None, bf),
+        (1, 2048, 2048, 2, 128, True, 0, None, 0, None, None, f32),
+    ]
+    worst = 0.0
+    for B, T, S, H, D, causal, qoff, kvl, window, kpm, bias, dt in cases:
+        def rn(*shape):
+            return torch.randn(*shape, generator=g, device=dev).to(dt)
+
+        q = rn(B, T, H, D) * D ** -0.5
+        k, v = rn(B, S, H, D), rn(B, S, H, D)
+        mask = None
+        if kpm == "rand":
+            mask = torch.rand(B, S, generator=g, device=dev) > 0.3
+            mask[-1] = False  # one batch row fully masked -> out 0, lse 0
+        b = None
+        if bias == "1H":
+            b = rn(1, H, T, S)
+        elif bias == "B1":
+            b = rn(B, 1, T, S)
+        out, lse = fa.flash_forward_onepass(q, k, v, b, mask, qoff, kvl,
+                                            causal=causal, window=window)
+        ref, ref_lse = fa.flash_forward_onepass_plain(
+            q, k, v, b, mask, qoff, kvl, causal=causal, window=window)
+        torch.cuda.synchronize()
+        if dt == bf:
+            ok_o, e_o = close(out, ref, OUT_ATOL, OUT_RTOL)
+            ok_l, e_l = close(lse, ref_lse, LSE_ATOL, 0.0)
+            worst = max(worst, e_o)
+        else:
+            ok_o, e_o = close(out, ref, 1e-4, 1e-4)
+            ok_l, e_l = close(lse, ref_lse, 1e-4, 0.0)
+        desc = (f"{str(dt)[6:]} B{B} T{T} S{S} H{H} D{D} causal={causal} "
+                f"q_offset={qoff} kv_len={kvl} window={window} kpm={kpm} "
+                f"bias={bias}")
+        check(bool(torch.isfinite(out.float()).all()
+                   and torch.isfinite(lse).all()),
+              f"onepass {desc}: non-finite")
+        if kpm == "rand":
+            check(bool((out[-1] == 0).all() and (lse[-1] == 0).all()),
+                  f"onepass {desc}: fully masked row is not out=0, lse=0")
+        check(ok_o and ok_l, f"onepass {desc}: out err {e_o}, lse err {e_l}")
+        phase("onepass", f"{desc}: out max|err| {e_o:.3g}, lse max|err| "
+              f"{e_l:.3g} ok")
+
+    # ---- timed at yoco_chat's self-layer shapes: device time per call
+    # (the kernels take microseconds, less than their wrappers' host
+    # time, so back-to-back CUDA events would time the host) ------------
+    times = {}
+    for name, T, qoff, kvl in (("prefill", P, 0, P),
+                               ("decode", 1, 140, 141)):
+        B, H, D, S, W = YOCO_CHAT_B, 16, 64, C, 1024
+        q = torch.randn(B, T, H, D, generator=g, device=dev).to(bf) * 0.125
+        k, v = (torch.randn(B, S, H, D, generator=g, device=dev).to(bf)
+                for _ in range(2))
+        kw = dict(causal=True, window=W)
+        five = lambda: fa.flash_forward_onepass(q, k, v, None, None, qoff,
+                                                kvl, **kw)
+        keep = fa._keep_mask(T, S, qoff, kvl, True, W, None, dev)[0, 0]
+        ms = device_ms(five)
+        ms1 = device_ms(lambda: fa.flash_forward(q, k, v, None, None, qoff,
+                                                 kvl, **kw))
+        plain = device_ms(lambda: fa.flash_forward_onepass_plain(
+            q, k, v, None, None, qoff, kvl, **kw))
+        lib = device_ms(lambda: sdpa(q, k, v, attn_mask=keep, scale=1.0))
+        ms_again = device_ms(five)
+        call_ms = cuda_ms(five, 50, 5)
+        out, lse = five()
+        # what the function needs: q, the kv_len visible K/V rows, out, lse
+        pairs = float(keep.sum()) * B * H
+        bd = roofline(nbytes(q, out, lse) + 2 * B * kvl * H * D * 2,
+                      4 * pairs * D)
+        times[name] = dict(ms=min(ms, ms_again), flash_fwd_ms=ms1,
+                           plain_ms=plain, library_ms=lib, **bd)
+        phase("onepass", f"yoco_chat {name} {B}x{T}x{H}x{D} over a {S}-slot "
+              f"cache (q_offset {qoff}, kv_len {kvl}, window {W}) bf16, "
+              f"device time per call: #5 {ms:.4f} / {ms_again:.4f} ms, #1 "
+              f"{ms1:.4f} ms, plain twin {plain:.4f} ms, sdpa (bool mask) "
+              f"{lib:.4f} ms, bound {bd['bound_ms']:.5f} ms "
+              f"({bd['bound_by']}); #5 back to back (CUDA events, host "
+              f"paced) {call_ms:.4f} ms a call")
+    pre, dec = times["prefill"], times["decode"]
+    return {"name": "onepass_attention", "route": "cuda",
+            "source": "unilm_tpu_torch/csrc/onepass_attention.cu",
+            "replaces": "unilm_tpu/ops/flash_attention.py:978",
+            "max_abs_err": worst, "ms": pre["ms"],
+            "plain_ms": pre["plain_ms"], "library_ms": pre["library_ms"],
+            "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+            "shape": f"{YOCO_CHAT_B}x{P}x16x64 over {C} slots, causal, "
+                     f"window 1024, kv_len {P}, bf16 (yoco_chat prefill; "
+                     f"flash_fwd_ms: #1 on the same inputs)",
+            "flash_fwd_ms": pre["flash_fwd_ms"],
+            "decode_ms": dec["ms"], "decode_flash_fwd_ms": dec["flash_fwd_ms"],
+            "decode_plain_ms": dec["plain_ms"],
+            "decode_library_ms": dec["library_ms"],
+            "decode_bound_ms": dec["bound_ms"]}
 
 
 def rel_l2(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -1186,6 +1368,10 @@ def phase_flash_bwd(fa, g) -> dict:
     check(fa.BWD_RECOMPUTE_LAUNCHES == r0 + 1 and c1["flash_bwd_dq"]
           == c0["flash_bwd_dq"] and c1["flash_bwd_dkv"] == c0["flash_bwd_dkv"],
           "flash_bwd: a head-broadcast bias did not take the recompute")
+    # 2x96x4x64 fits the one-pass budget: the forward is #5's, not #1's
+    check(c1["onepass_attention"] == c0["onepass_attention"] + 1
+          and c1["flash_fwd"] == c0["flash_fwd"],
+          "flash_bwd: the recompute case's forward did not take #5")
     qs = (q.detach() * D ** -0.5).contiguous()
     out, lse = fa.flash_forward(qs, k.detach(), v.detach(), b.detach(),
                                 causal=True)
@@ -1200,8 +1386,8 @@ def phase_flash_bwd(fa, g) -> dict:
           and bool(torch.isfinite(b.grad.float()).all()),
           "flash_bwd recompute: dbias shape/finite")
     phase("flash_bwd", "head-broadcast [B,1,T,S] bias through autograd: "
-          "recompute counted, kernels not launched, dq/dk/dv match the "
-          "kernels' (bound 1e-2)")
+          "forward on #5, recompute counted, kernels not launched, dq/dk/dv "
+          "match the kernels' (bound 1e-2)")
 
     # the train shape: 2 x 2048 x 32 heads x 64, causal, key-padding mask
     B, T, H, D = 2, 2048, 32, 64
@@ -2591,6 +2777,230 @@ def phase_paged_append(pa, g) -> dict:
             "shape": "B8 L2047 H16 D96 bf16 scattered"}
 
 
+def yoco_models():
+    """yoco_base in bf16 compute / fp32 params with random weights from the
+    seed, and the same weights (shared tensors) on the plain path."""
+    from unilm_tpu_torch.models.yoco import YOCO, YOCOConfig
+
+    cfg = YOCOConfig(dtype=torch.bfloat16)
+    model = YOCO(cfg, device="cuda").eval()
+    model.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    plain = YOCO(dataclasses.replace(cfg, use_flash=False),
+                 device="cuda").eval()
+    plain.load_state_dict(model.state_dict(), assign=True)
+    return cfg, model, plain
+
+
+def yoco_generate(model, cache_size: int, prompt, new: int):
+    """runtime.generate's greedy search over YOCO's generate functions,
+    eos never drawn; returns (tokens, every forward's logits, calls, wall
+    seconds on the host clock around a synchronised run)."""
+    from unilm_tpu_torch.models.yoco import make_yoco_generate_fns
+    from unilm_tpu_torch.runtime.generate import GenerationConfig, generate
+
+    prefill, step = make_yoco_generate_fns(model, cache_size)
+    logits, calls = [], {"prefill": 0, "step": 0}
+
+    def pf(tokens, a):
+        lg, c = prefill(tokens, a)
+        calls["prefill"] += 1
+        logits.append(lg)
+        return lg, c
+
+    def st(tokens, c, a):
+        lg, c = step(tokens, c, a)
+        calls["step"] += 1
+        logits.append(lg)
+        return lg, c
+
+    gcfg = GenerationConfig(beam_size=1, max_new_tokens=new, eos=NO_EOS,
+                            vocab_size=model.cfg.vocab_size)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    toks, lengths = generate(gcfg, pf, st, prompt)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    B, P = prompt.shape
+    check(tuple(toks.shape) == (B, P + new)
+          and bool((lengths == P + new).all()),
+          f"yoco: tokens {tuple(toks.shape)}, lengths {lengths.tolist()}")
+    check(calls == {"prefill": 1, "step": new - 1}, f"yoco: calls {calls}")
+    check(all(bool(torch.isfinite(lg.float()).all()) for lg in logits),
+          "yoco: non-finite logits")
+    return toks, logits, calls, wall
+
+
+def yoco_timed(model, cache_size: int, prompt, steps: int):
+    """(prefill ms, decode ms/token) from CUDA events around a prefill and
+    `steps` argmax decode steps."""
+    from unilm_tpu_torch.models.yoco import make_yoco_generate_fns
+
+    pf, st = make_yoco_generate_fns(model, cache_size)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    lg, c = pf(prompt, None)
+    ev[1].record()
+    tok = lg[:, -1:].argmax(-1)
+    ev[2].record()
+    for _ in range(steps):
+        lg, c = st(tok, c, None)
+        tok = lg[:, -1:].argmax(-1)
+    ev[3].record()
+    torch.cuda.synchronize()
+    return ev[0].elapsed_time(ev[1]), ev[2].elapsed_time(ev[3]) / steps
+
+
+def yoco_teacher(name, plain, cache_size, prompt, toks, klogits, steps):
+    """The plain path teacher-forced on the kernel path's tokens: prefill
+    logits (last position within LOGIT_ATOL, argmax agreement over every
+    position >= ARGMAX_AGREE) and `steps` decode steps' logits (within
+    LOGIT_ATOL); no kernel may launch."""
+    from unilm_tpu_torch.models.yoco import make_yoco_generate_fns
+
+    pf, st = make_yoco_generate_fns(plain, cache_size)
+    c0 = counts()
+    P = prompt.shape[1]
+    plg, c = pf(prompt, None)
+    errs = [float((plg[:, -1].float() - klogits[0][:, -1].float()).abs().max())]
+    agree = float((plg.argmax(-1) == klogits[0].argmax(-1)).float().mean())
+    all_pos = float((plg.float() - klogits[0].float()).abs().max())
+    del plg
+    for j in range(steps):
+        plg, c = st(toks[:, P + j:P + j + 1], c, None)
+        errs.append(float((plg.float() - klogits[j + 1].float()).abs().max()))
+    torch.cuda.synchronize()
+    check(counts() == c0, f"{name}: the plain path launched a kernel")
+    check(max(errs) <= LOGIT_ATOL and agree >= ARGMAX_AGREE,
+          f"{name}: kernel vs plain logits max|err| {max(errs)} (tol "
+          f"{LOGIT_ATOL}), prefill argmax agreement {agree} (tol "
+          f"{ARGMAX_AGREE})")
+    phase(name, f"plain path teacher-forced on the kernel path's tokens: "
+          f"prefill last-position logits max|err| {errs[0]:.4f}, {steps} "
+          f"decode steps max|err| {max(errs[1:]) if steps else 0.0:.4f} (tol "
+          f"{LOGIT_ATOL}); prefill argmax agreement {agree:.4f} over "
+          f"{prompt.numel()} positions (tol {ARGMAX_AGREE}); prefill logits "
+          f"max|err| over every position {all_pos:.4f} (not bounded)")
+
+
+def phase_yoco_chat(fa) -> dict:
+    """yoco_chat: yoco_base serving a short chat turn (8 rows, 128-token
+    prompt, 256-slot cache, 128 greedy tokens) through runtime.generate:
+    exactly 24 launches of #5 (12 self + 12 cross layers) per forward and
+    none of #1 / #2; prefill ms, decode ms/token, tokens/s, busy share,
+    peak memory, a device-time profile; the plain path teacher-forced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    name = "yoco_chat"
+    cfg, model, plain = yoco_models()
+    n_params = sum(p.numel() for p in model.parameters())
+    L = cfg.self_layers + cfg.cross_layers
+    B, P, C, NEW = (YOCO_CHAT_B, YOCO_CHAT_PROMPT, YOCO_CHAT_CACHE,
+                    YOCO_CHAT_NEW)
+    phase(name, f"yoco_base: {cfg.self_layers} sliding-window (window "
+          f"{cfg.window_size}) + {cfg.cross_layers} cross layers, E="
+          f"{cfg.dim}, H={cfg.num_heads}, kv heads {cfg.kv_heads}, FFN "
+          f"{cfg.ffn_dim}, vocab {cfg.vocab_size}, bf16 compute / fp32 "
+          f"params: {n_params / 1e6:.1f} M params; B={B}, {P}-token prompt, "
+          f"{C}-slot cache, {NEW} greedy tokens")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    prompt = torch.randint(2, cfg.vocab_size, (B, P), generator=gen,
+                           device="cuda")
+    yoco_generate(model, C, prompt[:, :8], 4)  # warm-up
+
+    # ---- the main path -------------------------------------------------
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    toks, klogits, calls, wall = yoco_generate(model, C, prompt, NEW)
+    got = counts()
+    forwards = calls["prefill"] + calls["step"]
+    check(got["onepass_attention"] == L * forwards,
+          f"{name}: #5 launches {got['onepass_attention']} != {L} x "
+          f"{forwards} forwards")
+    check(got["flash_fwd"] == 0 and got["flash_tri"] == 0,
+          f"{name}: #1/#2 launched ({got})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    phase(name, f"generate: {forwards} forwards, #5 launches "
+          f"{got['onepass_attention']} ({L} per forward), #1/#2 none; "
+          f"{B * NEW} tokens in {wall:.3f} s (host clock) = "
+          f"{B * NEW / wall:.1f} tokens/s; peak memory {peak:.2f} GiB")
+    launches = {"onepass_attention": got["onepass_attention"]}
+
+    yoco_teacher(name, plain, C, prompt, toks, klogits, YOCO_TEACHER_STEPS)
+    del klogits
+
+    # ---- prefill ms and decode ms/token, kernel and plain in turn -------
+    steps = NEW - 1
+    yoco_timed(model, C, prompt, 4)
+    yoco_timed(plain, C, prompt, 4)
+    for rnd in range(2):
+        for path, m in (("kernel", model), ("plain", plain)):
+            pre, tpot = yoco_timed(m, C, prompt, steps)
+            phase(name, f"round {rnd} {path} path: prefill {pre:.3f} ms, "
+                  f"decode {tpot:.3f} ms/token ({B * 1e3 / tpot:.0f} "
+                  f"tokens/s at B={B}, ctx {P}..{P + steps})")
+
+    # ---- device-time profile: one prefill and 16 decode steps; the busy
+    # share against the same window's time without the profiler ---------
+    groups = [("onepass #5", ["onepass_kernel"]),
+              ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                          "splitK"])]
+    pre, tpot = yoco_timed(model, C, prompt, 16)
+    window_ms = pre + 16 * tpot
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yoco_timed(model, C, prompt, 16)
+    shares = device_time_shares(prof, groups)
+    total = sum(shares.values())
+    if total <= 0:
+        phase(name, "profiler saw no device time: shares not measured")
+    else:
+        phase(name, f"profile (prefill + 16 decode steps): device time "
+              f"{total:.2f} ms against {window_ms:.2f} ms for the same "
+              f"window unprofiled ({100 * total / window_ms:.1f}% busy): "
+              + ", ".join(f"{k} {v:.3f} ms ({100 * v / total:.1f}%)"
+                          for k, v in shares.items()))
+    del model, plain
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_yoco_long(fa) -> None:
+    """yoco_long: yoco_base on one 4096-token prompt in a 4128-slot cache,
+    32 greedy tokens: past the one-pass budget, so 24 launches of #1 per
+    forward (the self layers with the window) and none of #5; TTFT,
+    decode ms/token, the plain path teacher-forced."""
+    name = "yoco_long"
+    cfg, model, plain = yoco_models()
+    L = cfg.self_layers + cfg.cross_layers
+    P, C, NEW = YOCO_LONG_PROMPT, YOCO_LONG_CACHE, YOCO_LONG_NEW
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    prompt = torch.randint(2, cfg.vocab_size, (1, P), generator=gen,
+                           device="cuda")
+    yoco_generate(model, C, prompt[:, :64], 4)  # warm-up
+
+    reset_counts()
+    toks, klogits, calls, wall = yoco_generate(model, C, prompt, NEW)
+    got = counts()
+    forwards = calls["prefill"] + calls["step"]
+    check(got["flash_fwd"] == L * forwards and got["onepass_attention"] == 0
+          and got["flash_tri"] == 0,
+          f"{name}: launches {got} (want #1 {L} x {forwards}, #5 none)")
+    phase(name, f"generate B=1, {P}-token prompt, {C}-slot cache, {NEW} "
+          f"tokens in {wall:.3f} s (host clock): #1 launches "
+          f"{got['flash_fwd']} ({L} per forward), #5 none")
+    yoco_teacher(name, plain, C, prompt, toks, klogits, 4)
+    del klogits
+    steps = NEW - 1
+    yoco_timed(model, C, prompt, 2)
+    for path, m in (("kernel", model), ("plain", plain)):
+        ttft, tpot = yoco_timed(m, C, prompt, steps)
+        phase(name, f"{path} path: TTFT (prefill) {ttft:.3f} ms, decode "
+              f"{tpot:.3f} ms/token (ctx {P}..{P + steps})")
+    del model, plain
+    torch.cuda.empty_cache()
+
+
 def engine_model():
     """The full-width Kosmos-2.5 text decoder (bf16, random weights from
     the seed) as (config, state_dict) for the serving engine."""
@@ -3178,8 +3588,10 @@ def phase_train(fa, layers: int = 24) -> dict:
     train_gpt.main(base + ["--save_dir", str(WORK / "a"), "--max_steps", "4"])
     train_gpt.main(base + ["--save_dir", str(WORK / "b"), "--max_steps", "2"])
     train_gpt.main(base + ["--save_dir", str(WORK / "b"), "--max_steps", "4"])
-    ran = {k: counts()[k] - c0[k] for k in ("flash_fwd", "flash_bwd_dq",
-                                            "flash_bwd_dkv")}
+    # T = 256 with 4 heads fits the one-pass budget: the forward is #5's
+    ran = {k: counts()[k] - c0[k] for k in ("onepass_attention",
+                                            "flash_bwd_dq", "flash_bwd_dkv")}
+    fwd1 = counts()["flash_fwd"] - c0["flash_fwd"]
     sa, _, ma = CheckpointManager(str(WORK / "a")).restore(4)
     sb, _, mbm = CheckpointManager(str(WORK / "b")).restore(4)
     same = all(torch.equal(sa["model"][k], sb["model"][k])
@@ -3187,9 +3599,10 @@ def phase_train(fa, layers: int = 24) -> dict:
     same_opt = all(torch.equal(a, b) for a, b in zip(
         sa["opt_state"]["mu"] + sa["opt_state"]["nu"],
         sb["opt_state"]["mu"] + sb["opt_state"]["nu"]))
-    check(same and same_opt and ma == mbm and all(v > 0 for v in ran.values()),
+    check(same and same_opt and ma == mbm and all(v > 0 for v in ran.values())
+          and fwd1 == 0,
           f"train: CLI resume not bit-equal (params {same}, optimizer "
-          f"{same_opt}, loss {ma} vs {mbm}, launches {ran})")
+          f"{same_opt}, loss {ma} vs {mbm}, launches {ran}, flash_fwd {fwd1})")
     phase("train", f"CLI main() 2 layers E=256 on the card: 4 steps straight "
           f"and 2 + resume + 2 end bit-equal (params, optimizer, loss "
           f"{ma['loss']:.6f}); launches {ran}")
@@ -3205,6 +3618,7 @@ def main() -> int:
     from unilm_tpu_torch.ops import quant as qm
 
     KERNELS.update({"flash_fwd": fa.KERNEL,
+                    "onepass_attention": fa.ONEPASS_KERNEL,
                     "flash_tri": fa.TRI_KERNEL,
                     "encoder_attention": fa.ENCODER_KERNEL,
                     "decode_attention": pa.KERNEL,
@@ -3219,7 +3633,8 @@ def main() -> int:
                     "doc_attention_bwd": da.BWD_KERNEL})
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    kernels = [phase_flash(fa, g), phase_flash_tri(fa, g),
+    kernels = [phase_flash(fa, g), phase_onepass(fa, g),
+               phase_flash_tri(fa, g),
                *phase_flash_bwd(fa, g), phase_flash_bwd_fused(fa, g),
                phase_encoder_attn(fa, g), phase_encoder_bwd(fa, g),
                phase_doc_attn(da, g), phase_doc_bwd(da, g),
@@ -3231,6 +3646,8 @@ def main() -> int:
     launches.update(phase_layoutlmv3_eval())
     launches.update(phase_layoutlmv3_train())
     launches.update(phase_ttft(fa))
+    launches.update(phase_yoco_chat(fa))
+    phase_yoco_long(fa)
     cfg, sd = engine_model()
     launches.update(phase_engine_int8(cfg, sd))
     launches.update(phase_engine_bf16_prefix(cfg, sd))

@@ -267,7 +267,10 @@ def test_fused_variable_leaves_biased_backward_alone(bias, monkeypatch):
 
 
 # name: (variables set, T, S, flash_attention kw, bias shape or None,
-#        (forward, backward) wrappers the call must select)
+#        (forward, backward) wrappers the call must select). At T, S <= 64
+# (B=2, H=2, D=64, fp32) every forward the triangle schedule does not take
+# fits `onepass_applies`, so it is #5's, as in JAX's `_flash_impl`; 640
+# keys pass the one-pass budget and keep #1.
 DISPATCH = {
     "train_shape": ((TRI, FUSED), 64, 64, dict(causal=True), None,
                     ("flash_forward_tri", "flash_backward_fused")),
@@ -276,25 +279,27 @@ DISPATCH = {
     "head_broadcast_bias": ((TRI, FUSED), 64, 64, dict(causal=True), "B1",
                             ("flash_forward_tri", None)),
     "kv_len": ((TRI, FUSED), 64, 64, dict(causal=True, kv_len=50), None,
-               ("flash_forward", "flash_backward_fused")),
+               ("flash_forward_onepass", "flash_backward_fused")),
     "window": ((TRI, FUSED), 64, 64, dict(causal=True, window=16), None,
-               ("flash_forward", "flash_backward_fused")),
+               ("flash_forward_onepass", "flash_backward_fused")),
     "non_causal": ((TRI, FUSED), 40, 64, dict(causal=False), None,
-                   ("flash_forward", "flash_backward_fused")),
+                   ("flash_forward_onepass", "flash_backward_fused")),
     "tri_only": ((TRI,), 64, 64, dict(causal=True), None,
                  ("flash_forward_tri", "flash_backward")),
     "fused_only": ((FUSED,), 64, 64, dict(causal=True), None,
-                   ("flash_forward", "flash_backward_fused")),
+                   ("flash_forward_onepass", "flash_backward_fused")),
     "neither": ((), 64, 64, dict(causal=True), None,
-                ("flash_forward", "flash_backward")),
+                ("flash_forward_onepass", "flash_backward")),
+    "past_onepass_budget": ((FUSED,), 640, 640, dict(causal=True), None,
+                            ("flash_forward", "flash_backward_fused")),
 }
 
 
 @pytest.mark.parametrize("name", sorted(DISPATCH))
 def test_dispatch_selects_the_schedules(name, monkeypatch):
-    """Which wrapper FlashAttentionFn calls, per case: the gate is plain
+    """Which wrapper FlashAttentionFn calls, per case: the gates are plain
     Python, the same on a CPU tensor as on a CUDA one, so recorders on the
-    four wrappers show it (the head-broadcast bias recomputes through
+    five wrappers show it (the head-broadcast bias recomputes through
     autograd and calls no backward wrapper)."""
     names, T, S, kw, bias, expect = DISPATCH[name]
     for var in (TRI, FUSED):
@@ -302,8 +307,8 @@ def test_dispatch_selects_the_schedules(name, monkeypatch):
     for var in names:
         monkeypatch.setenv(var, "1")
     seen = []
-    for fn in ("flash_forward", "flash_forward_tri", "flash_backward",
-               "flash_backward_fused"):
+    for fn in ("flash_forward", "flash_forward_tri", "flash_forward_onepass",
+               "flash_backward", "flash_backward_fused"):
         _recorder(monkeypatch, tfa, fn, seen)
     shapes = {"BH": lambda T, S: (B, H, T, S), "B1": lambda T, S: (B, 1, T, S)}
     _grads(T, S, bias=shapes.get(bias), **kw)

@@ -100,6 +100,25 @@ logits, labels = run_funsd.evaluate_batches(model, [batch])
 print("f1", run_funsd.score(logits, labels)["f1"])
 """
 
+_YOCO = _POISON + r"""
+import torch
+from unilm_tpu_torch.models import yoco
+from unilm_tpu_torch.runtime import generate
+
+torch.set_num_threads(1)
+for self_type in ("sliding_window", "gate_retention"):
+    cfg = yoco.YOCOConfig(vocab_size=64, dim=32, self_layers=1,
+                          cross_layers=1, num_heads=4, kv_heads=2, ffn_dim=64,
+                          window_size=4, self_type=self_type)
+    model = yoco.YOCO(cfg, device="cpu").init_weights(
+        torch.Generator().manual_seed(0))
+    toks, lens = generate.generate(
+        generate.GenerationConfig(beam_size=1, max_new_tokens=4, eos=-1),
+        *yoco.make_yoco_generate_fns(model, cache_size=9),
+        torch.randint(2, 64, (2, 5), generator=torch.Generator().manual_seed(1)))
+    print(self_type, tuple(toks.shape), lens.tolist())
+"""
+
 # the modules each slice of the port added; every one must be among them
 PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "ops._native", "ops.attention", "ops.flash_attention",
@@ -113,7 +132,8 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "cli.run_class_finetuning", "runtime.device",
           "cli.train_classification", "data.masking", "ops.doc_attention",
           "ops.bucket_bias", "models.layoutlmv3", "convert.layoutlmv3",
-          "convert.common", "data.document_datasets", "cli.run_funsd"}
+          "convert.common", "data.document_datasets", "cli.run_funsd",
+          "ops.retention", "models.yoco"}
 
 
 def test_port_imports_without_jax():
@@ -168,3 +188,13 @@ def test_funsd_eval_runs_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert "f1" in res.stdout, res.stdout
+
+
+def test_yoco_generation_runs_without_jax():
+    """YOCO's prefill and greedy decode through runtime.generate, both
+    self-layer types, reach no JAX module."""
+    res = subprocess.run([sys.executable, "-c", _YOCO], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "sliding_window (2, 9) [9, 9]" in res.stdout, res.stdout
+    assert "gate_retention (2, 9) [9, 9]" in res.stdout, res.stdout

@@ -22,6 +22,12 @@ axis, the scan_layers form). Leaves map as
 - a stacked `layers` subtree -> one module per layer (`layers.{i}`),
   `layers_{i}` -> `layers.{i}`.
 
+YOCO's tree (`embed_tokens/embedding`, `self_{i}/{q,k,v,g,out}_proj`,
+`self_{i}/gt_proj`, `self_norm{1,2}_{i}/scale`, `self_ffn_{i}/fc{1,2,3}`,
+`kv_norm`, `global_{k,v}`, `cross_{i}/*`, `cross_norm{1,2}_{i}`,
+`cross_ffn_{i}`, `final_norm`) maps by these rules alone: the port's
+models/yoco.py registers its modules under the flax names.
+
 No jax import: bfloat16 leaves (ml_dtypes arrays) are reinterpreted bit
 for bit.
 """

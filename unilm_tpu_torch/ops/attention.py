@@ -18,14 +18,20 @@ tensor's device decides:
     `_vit_kernel` case: csrc/encoder_attention.cu forward,
     csrc/encoder_attention_bwd.cu backward, `EncoderAttentionFn`);
   - everything else (causal, decode geometry, S > 2048): the flash
-    kernels (csrc/flash_fwd.cu forward, csrc/flash_bwd.cu backward when
-    the inputs require grad); a head-major bias is read through its
+    forward (`fa.flash_attention`), which picks its kernel as JAX's
+    `_flash_impl` does: the one-pass #5 (csrc/onepass_attention.cu)
+    where `fa.onepass_applies` (a copy of `_onepass_profitable`) admits
+    the shape, else #1 (csrc/flash_fwd.cu); csrc/flash_bwd.cu backward
+    when the inputs require grad. A head-major bias is read through its
     [B, H, T, S] view.
-  The JAX dispatcher's v5e crossovers (`_onepass_profitable`, the doc
-  kernel's VMEM admissibility) are TPU budgets and are not carried: some
-  shapes the TPU sends to #9 (a mid-size S with no mask) take #3 here,
-  which computes the same function there. Dropout raises
-  NotImplementedError naming its ROADMAP entry.
+  Here the port parts from JAX: JAX sends calls with T <= 8, and short
+  causal calls without a window, to XLA (ops/attention.py:139,
+  :203-208); the port sends them to flash, so under the selector they
+  take #5 (YOCO's decode steps, and its cross layers over a 256-slot
+  cache). The function is the same. The doc kernel's VMEM admissibility
+  is a TPU budget and is not carried: some shapes the TPU sends to #9 (a
+  mid-size S with no mask) take #3 here, which computes the same function
+  there. Dropout raises NotImplementedError naming its ROADMAP entry.
 - A head-major bias on the plain path is permuted to [B, H, T, S] (a
   view), as the JAX dispatcher does where its kernel does not apply.
 """

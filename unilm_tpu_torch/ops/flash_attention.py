@@ -38,6 +38,17 @@ On CPU tensors both run their plain twins, which compute the same
 function as #1's and #6/#7's (`flash_forward_tri_plain`,
 `flash_backward_fused_plain`).
 
+Short sequences take the one-pass forward `flash_forward_onepass`
+(`_onepass_kernel`, #5, :978; csrc/onepass_attention.cu), which keeps
+whole score rows on chip. `onepass_applies` is a copy of JAX's
+`_onepass_profitable` (:1152): the TPU core's 8 MB VMEM budget for q/k/v
+and the score plane, with T and S <= 2048. It is the one TPU budget the
+port copies, because on the TPU it is the rule that picks which body
+computes a flash call; copied, the port picks the kernel JAX picks, shape
+for shape. `FlashAttentionFn` applies it after the triangle schedule and
+before #1, in `_flash_impl`'s order (:1166-1180). #5's (out, lse) is #1's
+function, so the backward does not change.
+
 `fused_encoder_attention` (port of `fused_encoder_attention` :701,
 `_vit_forward` :632 / `_vit_kernel` :580) is the encoder hot path:
 non-causal, full kv, no key-padding mask, an exact softmax over whole
@@ -73,6 +84,13 @@ KERNEL = CudaKernel("flash_fwd.cu", {
 })
 
 
+ONEPASS_KERNEL = CudaKernel("onepass_attention.cu", {
+    # q, k, v, bias, mask, out, lse, B, T, S, H, D, bias_sb, bias_sh,
+    # q_offset, limit, causal, window, dtype, stream
+    "onepass_attn_fwd": [P] * 7 + [I] * 12 + [P],
+})
+
+
 TRI_KERNEL = CudaKernel("flash_tri.cu", {
     # q, k, v, bias, mask, out, lse, B, T, H, D, bias_sb, bias_sh, dtype,
     # stream
@@ -95,6 +113,33 @@ def fused_applies(bias: Optional[torch.Tensor]) -> bool:
     (:1944-1948) without the TPU VMEM budget: no bias and
     UNILM_TPU_FUSED_BWD set."""
     return bias is None and bool(os.environ.get("UNILM_TPU_FUSED_BWD"))
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# JAX's VMEM budget for the one-pass kernel (bytes; about half of the TPU
+# core's 16 MB, leaving room for double-buffered q/k/v/out blocks), :1149
+_ONEPASS_VMEM_BUDGET = 8 * 1024 * 1024
+
+
+def onepass_applies(B: int, H: int, T: int, S: int, D: int, bias,
+                    window: int, itemsize: int = 2) -> bool:
+    """Does this flash call take the one-pass forward (#5)? A copy of
+    JAX's `_onepass_profitable` (:1152-1163): T, S <= 2048 and
+    double-buffered q/k/v at the operand's width (D padded to 128 lanes)
+    plus four fp32 [Tp, Sp] planes and an fp32 bias plane per bias head
+    within 8 MB. `itemsize` is the pre-scaled q's; B and window are
+    unread, as in JAX."""
+    if T > 2048 or S > 2048:
+        return False
+    Tp, Sp = _cdiv(T, 8) * 8, _cdiv(S, 128) * 128
+    lanes_d = max(D, 128)
+    qkv = 3 * H * max(Tp, Sp) * lanes_d * itemsize * 2
+    plane = 4 * Tp * Sp * 4
+    b = 0 if bias is None else bias.shape[1] * Tp * Sp * 4
+    return qkv + plane + b <= _ONEPASS_VMEM_BUDGET
 
 
 def supports(q: torch.Tensor, k: torch.Tensor,
@@ -208,6 +253,74 @@ def flash_forward(q, k, v, bias=None, mask=None, q_offset: int = 0,
         bias = bias.to(q.dtype).contiguous()
     return _flash_forward_cuda(q, k, v, bias, mask, q_offset, kv_len, causal,
                                window)
+
+
+def flash_forward_onepass_plain(q, k, v, bias=None, mask=None,
+                                q_offset: int = 0,
+                                kv_len: Optional[int] = None, *,
+                                causal: bool = False, window: int = 0
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain torch twin of kernel #5. `_onepass_kernel` computes #1's
+    function with #1's rounding (p to v's dtype before the PV product, the
+    row sum of the unrounded p, out = 0 and lse = 0 for a row with no kept
+    key, :1047-1058); its fast path (:1025-1045) is the same function in
+    the exp2 domain. So this is `flash_forward_plain`."""
+    return flash_forward_plain(q, k, v, bias, mask, q_offset, kv_len,
+                               causal=causal, window=window)
+
+
+def _flash_forward_onepass_cuda(q, k, v, bias, mask, q_offset, kv_len,
+                                causal, window):
+    B, T, H, D = q.shape
+    S = k.shape[1]
+    if q.dtype not in _DTYPE_CODE or D not in SUPPORTED_D:
+        raise ValueError(f"one-pass attention kernel takes float32/bfloat16 "
+                         f"and head_dim in {SUPPORTED_D}, got {q.dtype}, "
+                         f"D={D}")
+    if not 0 < S <= ENCODER_MAX_S:
+        raise ValueError(f"one-pass attention kernel takes 0 < S <= "
+                         f"{ENCODER_MAX_S} keys, got {S}")
+    if q_offset < 0:
+        raise ValueError(f"one-pass attention kernel takes q_offset >= 0, "
+                         f"got {q_offset}")
+    dev = q.device
+    check_tensor("q", q, dtype=q.dtype, shape=(B, T, H, D), device=dev)
+    check_tensor("k", k, dtype=q.dtype, shape=(B, S, H, D), device=dev)
+    check_tensor("v", v, dtype=q.dtype, shape=(B, S, H, D), device=dev)
+    sb, sh = _bias_strides(bias, B, H, T, S, q.dtype, dev)
+    if mask is not None:
+        check_tensor("key_padding_mask", mask, dtype=torch.int32,
+                     shape=(B, S), device=dev)
+    limit = S if kv_len is None else min(int(kv_len), S)
+    out = torch.empty_like(q)
+    lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+    ONEPASS_KERNEL.launch(
+        "onepass_attn_fwd", ptr(q), ptr(k), ptr(v), ptr(bias), ptr(mask),
+        ptr(out), ptr(lse), B, T, S, H, D, sb, sh, int(q_offset), limit,
+        int(causal), int(window), _DTYPE_CODE[q.dtype], stream())
+    return out, lse
+
+
+def flash_forward_onepass(q, k, v, bias=None, mask=None, q_offset: int = 0,
+                          kv_len: Optional[int] = None, *,
+                          causal: bool = False, window: int = 0
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(out [B,T,H,D], lse [B,H,T] f32) of `flash_forward`'s function:
+    kernel #5 on a CUDA tensor (S <= 2048; anything it does not take
+    raises), its plain twin on a CPU tensor."""
+    if q.device.type == "cpu":
+        return flash_forward_onepass_plain(q, k, v, bias, mask, q_offset,
+                                           kv_len, causal=causal,
+                                           window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_forward_onepass: unsupported device "
+                         f"{q.device}")
+    if mask is not None:
+        mask = mask.to(torch.int32).contiguous()
+    if bias is not None:
+        bias = bias.to(q.dtype).contiguous()
+    return _flash_forward_onepass_cuda(q, k, v, bias, mask, q_offset, kv_len,
+                                       causal, window)
 
 
 def flash_forward_tri_plain(q, k, v, bias=None, mask=None
@@ -501,24 +614,34 @@ def flash_backward_fused(q, k, v, mask, q_offset: int,
 
 
 class FlashAttentionFn(torch.autograd.Function):
-    """The flash forward under autograd, saving out and lse: kernel #1, or
-    #2 where `tri` (the caller's `tri_applies`) says so; `ctx.tri` records
-    which ran. The backward is dispatched as the JAX custom VJP
-    `_flash_bwd` (:1920): kernels #6 and #7, or #8 where `fused_applies`,
-    on CUDA tensors, their plain twins on CPU tensors. #2 returns the same
-    (out, lse) pair as #1, so either backward follows either forward."""
+    """The flash forward under autograd, saving out and lse, chosen in
+    `_flash_impl`'s order (:1166-1180): #2 where `tri` (the caller's
+    `tri_applies`) says so, else #5 where `onepass_applies`, else #1;
+    `ctx.forward` names the one that ran ("tri", "onepass" or "flash").
+    The backward is dispatched as the JAX custom VJP `_flash_bwd` (:1920):
+    kernels #6 and #7, or #8 where `fused_applies`, on CUDA tensors, their
+    plain twins on CPU tensors. #2 and #5 return the same (out, lse) pair
+    as #1, so either backward follows any forward."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, mask, q_offset, kv_len, causal, window,
                 tri):
+        B, T, H, D = q.shape
         if tri:
+            ctx.forward = "tri"
             out, lse = flash_forward_tri(q, k, v, bias, mask)
+        elif onepass_applies(B, H, T, k.shape[1], D, bias, window,
+                             q.element_size()):
+            ctx.forward = "onepass"
+            out, lse = flash_forward_onepass(q, k, v, bias, mask, q_offset,
+                                             kv_len, causal=causal,
+                                             window=window)
         else:
+            ctx.forward = "flash"
             out, lse = flash_forward(q, k, v, bias, mask, q_offset, kv_len,
                                      causal=causal, window=window)
         ctx.save_for_backward(q, k, v, bias, mask, out, lse)
         ctx.geom = (q_offset, kv_len, causal, window)
-        ctx.tri = tri
         return out
 
     @staticmethod
