@@ -129,6 +129,20 @@ Phases, one line each:
  8. paged_append: the block-table append-decode kernel against its plain
     version, B=8 on scattered tables with two inactive slots; non-trash
     pool pages bit-equal.
+    paged: the read-only block-table kernel (#11) against
+    paged_decode_attention_plain at the Kosmos-2.5 decoder's width (B=8,
+    16 heads of 96, pages of 64), lengths 2047, 1800, 1536, 1024, 777, 300,
+    1, 0 over tables drawn from a permutation of the pool, bf16 (OUT_ATOL /
+    OUT_RTOL) and fp32 (1e-5), flat and 4-D pools; the L == 0 row exactly
+    0; timed (device time, back to back and with L2 flushed) at those
+    lengths and at 8 x 2047 beside the plain version.
+    fused (kernel and path phase): swiglu (#15) and rotary (#16) through
+    the ops.fused API at yoco_base's widths, bf16 and fp32: swiglu on
+    [1, 4096, 4096] and [8, 128, 4096], rotary on q [1, 4096, 16, 64] and
+    k [1, 4096, 4, 64] with models/yoco.rotary_sin_cos; 4 launches each,
+    held against the plain versions (one bf16 ulp; fp32 1e-5) and rotary
+    against models/yoco.apply_rotary; timed beside the plain versions and,
+    for swiglu, the eager F.silu(g) * u (two calls).
  9. engine_int8: runtime.serving.ServingEngine at the configuration of
     bench.py's serving line (8 slots, ctx 2048, int8 weights, int8 KV) on
     the same full-width decoder serves 10 requests of 2048 prompt tokens
@@ -140,6 +154,17 @@ Phases, one line each:
     requests sharing a 1024-token prefix; the prefix cache must hit, the
     block-table kernel must run, and the streams must equal those of the
     same engine with prefix caching off.
+    page_pool: runtime.paged_kv at kosmos2_5()'s decoder width: 24
+    layers, each with its own PagePool of [256, 64, 16, 96] bf16 (2.4 GB
+    of K+V in all); 8 sequences' prompts (the paged phase's lengths, the
+    empty one 129) appended in interleaved 128-token chunks; 64 decode
+    steps, each appending one seeded random K/V row per sequence and layer
+    and calling paged_attention per layer over lengths + 1 tokens (#11,
+    24 x 64 launches exactly); at step 32 two sequences are freed and two
+    new ones (prompts of 1000 and 500) take their pages; steps 0, 32 and
+    63 held against use_kernel=False (0.05: its scores are bf16) and the
+    plain twin (OUT_ATOL / OUT_RTOL); ms/step, and a torch.profiler split
+    of one step (#11, index_put, copies, host gaps) with its busy share.
 11. flash_bwd (run right after flash): the flash-backward kernels (dq +
     dbias, dk/dv) against flash_backward_plain on the forward kernel's out
     and lse, bf16 and fp32, over causal + key-padding with a fully masked
@@ -176,7 +201,8 @@ yoco_chat for onepass_attention,
 beit_eval for encoder_attention, beit_train for encoder_attention_bwd,
 layoutlmv3_eval for doc_attention, layoutlmv3_train for doc_attention_bwd,
 the engines for the int8 and block-table kernels, train for flash_bwd_dq
-and flash_bwd_dkv, train_schedules for flash_tri and flash_bwd_fused),
+and flash_bwd_dkv, train_schedules for flash_tri and flash_bwd_fused,
+page_pool for paged_attention, fused for swiglu and rotary),
 error,
 times (kernel, plain version, and `library_ms`, one torch call computing
 the same function where one exists, else null) and `bound_ms` /
@@ -380,10 +406,11 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
-def device_ms(fn, iters: int = 20) -> float:
+def device_ms(fn, iters: int = 20, only: str = None) -> float:
     """Mean device time of fn() in ms: the time of the CUDA kernels a
     torch.profiler trace of `iters` back-to-back calls records, summed
-    over the trace. Unlike cuda_ms it leaves out the card's idle gaps, so
+    over the trace (with `only`, over the kernels whose name holds that
+    substring). Unlike cuda_ms it leaves out the card's idle gaps, so
     it is a kernel's own time even where the host's wrapper, not the
     kernel, sets the pace of back-to-back calls (microsecond kernels)."""
     from torch.profiler import ProfilerActivity, profile
@@ -395,9 +422,20 @@ def device_ms(fn, iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    total = sum(device_time_shares(prof, []).values())
-    check(total > 0, "device_ms: the profiler saw no device time")
+    shares = device_time_shares(prof, [("only", [only])] if only else [])
+    total = shares["only"] if only else sum(shares.values())
+    check(total > 0, f"device_ms: the profiler saw no device time "
+          f"({only or 'any kernel'})")
     return total / iters
+
+
+def cold_ms(fn, only: str, iters: int = 20) -> float:
+    """device_ms of the `only` kernels of fn() with the L2 cache flushed
+    before every call (a 64 MB write, more than the H100's 50 MB L2),
+    for kernels whose inputs would otherwise stay L2-resident across
+    back-to-back calls."""
+    flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
+    return device_ms(lambda: (flush.zero_(), fn()), iters, only)
 
 
 def close(x: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float):
@@ -2777,6 +2815,358 @@ def phase_paged_append(pa, g) -> dict:
             "shape": "B8 L2047 H16 D96 bf16 scattered"}
 
 
+# The read-only block-table kernel (#11) at the Kosmos-2.5 decoder's width
+# (16 heads of 96, pages of 64, as in paged_append): ragged lengths up to
+# a 2048-token context, one sequence empty.
+PAGED_LENGTHS = [2047, 1800, 1536, 1024, 777, 300, 1, 0]
+PAGED_PAGE, PAGED_MP = 64, 32
+
+
+def phase_paged(pa, g) -> dict:
+    """Kernel #11 against paged_decode_attention_plain on the card: B=8,
+    H=16, D=96, page 64, PAGED_LENGTHS over tables drawn from a permutation
+    of the pool (pages scatter), bf16 and fp32, flat [P, page, H*D] and
+    4-D [P, page, H, D] pools; the L == 0 row must be exactly 0. Timed
+    (device time, kernel alone) at the ragged lengths and at 8 x 2047."""
+    dev = "cuda"
+    B, H, D, page, MP = 8, 16, 96, PAGED_PAGE, PAGED_MP
+    P = B * MP
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+    tables = torch.randperm(P, generator=g, device=dev).reshape(B, MP).to(
+        torch.int32)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        # bf16: OUT_ATOL / OUT_RTOL (the kernel rounds p against a running
+        # max, the twin against the row max); fp32: 1e-5 (summation order)
+        atol, rtol = (OUT_ATOL, OUT_RTOL) if dtype == torch.bfloat16 else \
+            (1e-5, 1e-5)
+        rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
+        q, kp, vp = rn(B, 1, H, D), rn(P, page, H * D), rn(P, page, H * D)
+        for flat in (True, False):
+            k_, v_ = (kp, vp) if flat else (kp.view(P, page, H, D),
+                                            vp.view(P, page, H, D))
+            out = pa.paged_decode_attention(q, k_, v_, tables, lengths)
+            ref = pa.paged_decode_attention_plain(q, k_, v_, tables, lengths)
+            torch.cuda.synchronize()
+            ok, err = close(out, ref, atol, rtol)
+            desc = (f"{str(dtype).split('.')[-1]} "
+                    f"{'flat' if flat else '4-D'} pool")
+            check(ok and bool(torch.isfinite(out.float()).all()),
+                  f"paged: {desc}: max|err| {err}")
+            check(float(out[B - 1].abs().max()) == 0.0,
+                  f"paged: {desc}: the L == 0 row is not 0")
+            phase("paged", f"B8 H16 D96 page64 lengths {PAGED_LENGTHS} "
+                  f"scattered, {desc}: max|err| {err:.3g} (atol {atol}, "
+                  f"rtol {rtol}), L=0 row exactly 0")
+            if dtype == torch.bfloat16:
+                worst = max(worst, err)
+
+    bf = torch.bfloat16
+    rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(bf)
+    q, kp, vp = rn(B, 1, H, D), rn(P, page, H * D), rn(P, page, H * D)
+    res = {}
+    for name, lens in (("ragged", PAGED_LENGTHS), ("8x2047", [2047] * B)):
+        L = torch.tensor(lens, dtype=torch.int32, device=dev)
+        call = lambda: pa.paged_decode_attention(q, kp, vp, tables, L)
+        ms = device_ms(call, only="decode_kernel")
+        ms_cold = cold_ms(call, "decode_kernel")
+        wrapper_ms = cuda_ms(lambda: pa.paged_decode_attention(
+            q, kp, vp, tables, L), iters=50)
+        plain_ms = device_ms(lambda: pa.paged_decode_attention_plain(
+            q, kp, vp, tables, L), iters=10)
+        n = sum(lens)
+        bd = roofline(2 * n * H * D * 2 + 2 * B * H * D * 2 + B * 4,
+                      4 * n * H * D, "fp32")
+        res[name] = (ms, plain_ms, bd, ms_cold)
+        phase("paged", f"bf16 {name} (sum L {n}): kernel {ms:.4f} ms device "
+              f"time back to back, {ms_cold:.4f} ms with L2 flushed "
+              f"({wrapper_ms:.4f} ms a wrapper call, CUDA events), plain "
+              f"{plain_ms:.4f} ms; bound {bd['bound_ms']:.5f} ms "
+              f"({bd['bound_by']}); no torch call reads a block table")
+    ms, plain_ms, bd, ms_cold = res["ragged"]
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "unilm_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "unilm_tpu/ops/paged_attention.py:44",
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, **bd, "ms_l2_flushed": ms_cold,
+            "ms_8x2047": res["8x2047"][0],
+            "ms_l2_flushed_8x2047": res["8x2047"][3],
+            "plain_ms_8x2047": res["8x2047"][1],
+            "bound_ms_8x2047": res["8x2047"][2]["bound_ms"],
+            "shape": f"B8 H16 D96 page64 bf16, lengths {PAGED_LENGTHS}"}
+
+
+# The PagePool path at kosmos2_5()'s decoder width: 24 layers, each with its
+# own pool of 256 pages of [64, 16, 96] bf16 (2.4 GB in all). Eight prompts
+# of PAGED_LENGTHS (the empty one becomes 129 tokens) are appended in
+# interleaved 128-token chunks; at step POOL_SWAP two sequences are freed
+# and two new ones, with prompts of POOL_NEW_PROMPTS, take their pages.
+POOL_LAYERS, POOL_PAGES, POOL_MAX_PAGES = 24, 256, 40
+POOL_STEPS, POOL_SWAP, POOL_CHECKED = 64, 32, (0, 32, 63)
+POOL_PROMPTS = [L if L else 129 for L in PAGED_LENGTHS]
+POOL_FREED, POOL_NEW_PROMPTS = (0, 4), (1000, 500)
+# use_kernel=False is the gather, whose scores are bf16 (the JAX
+# reference's dot_product_attention): logits up to ~5 carry up to ~0.02 of
+# rounding, so outputs differ by up to a few bf16 ulps of the values they
+# average. The twin (fp32 scores) is held at OUT_ATOL / OUT_RTOL.
+POOL_GATHER_ATOL = 0.05
+
+
+def pool_prompt(pools, sids, lens, rows):
+    """Append each sequence's prompt to every layer's pool in interleaved
+    128-token chunks (one chunk of each sequence in turn)."""
+    done = dict.fromkeys(sids, 0)
+    while any(done[s] < L for s, L in zip(sids, lens)):
+        for s, L in zip(sids, lens):
+            n = min(128, L - done[s])
+            if n <= 0:
+                continue
+            for pool in pools:
+                k, v = rows(n)
+                pool.append(s, k, v)
+            done[s] += n
+
+
+def phase_page_pool() -> dict:
+    """runtime.paged_kv at Kosmos-2.5 decoder width: POOL_LAYERS pools, 8
+    sequences, POOL_STEPS decode steps; each step appends one seeded
+    random K/V row per sequence and layer and calls paged_attention (the
+    read-only block-table kernel #11) per layer over lengths + 1 tokens.
+    Steps POOL_CHECKED are held against use_kernel=False and the plain
+    twin; ms/step, a profile of one step, #11's launch count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unilm_tpu_torch.ops import paged_attention as pa
+    from unilm_tpu_torch.runtime import paged_kv as kv
+
+    dev, bf = "cuda", torch.bfloat16
+    H, D, page = 16, 96, PAGED_PAGE
+    cfg = kv.PagedKVConfig(num_pages=POOL_PAGES, page_size=page,
+                           num_heads=H, head_dim=D,
+                           max_pages_per_seq=POOL_MAX_PAGES, dtype=bf)
+    pools = [kv.PagePool(cfg, device=dev) for _ in range(POOL_LAYERS)]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    rn = lambda *s: torch.randn(*s, generator=gen, device=dev).to(bf)
+
+    def rows(n):
+        kvr = rn(2, n, H, D)
+        return kvr[0], kvr[1]
+
+    sids = [f"s{i}" for i in range(len(POOL_PROMPTS))]
+    for s in sids:
+        for pool in pools:
+            pool.create(s)
+    pool_prompt(pools, sids, POOL_PROMPTS, rows)
+    torch.cuda.synchronize()
+    gb = 2 * sum(p.k_pool.numel() * p.k_pool.element_size() for p in pools)
+    phase("page_pool", f"{POOL_LAYERS} pools of {tuple(pools[0].k_pool.shape)}"
+          f" bf16 ({gb / 1e9:.2f} GB of K+V); prompts {POOL_PROMPTS} in "
+          f"128-token chunks: {pools[0].pages_in_use} pages in use, seq 0's "
+          f"table starts {pools[0].block_table('s0')[:6].tolist()}")
+    groups = [("#11", ["decode_kernel"]),
+              ("index_put", ["index_put", "index_elementwise"]),
+              ("copies", ["Memcpy", "memcpy"])]
+
+    def step(keep):
+        qkv = rn(POOL_LAYERS, len(sids), 3, H, D)
+        for li, pool in enumerate(pools):
+            for bi, s in enumerate(sids):
+                pool.append(s, qkv[li, bi, 1][None], qkv[li, bi, 2][None])
+            tables = torch.from_numpy(np.stack(
+                [pool.block_table(s) for s in sids])).to(dev)
+            lengths = torch.tensor([pool.length(s) for s in sids],
+                                   dtype=torch.int32, device=dev)
+            q = qkv[li, :, 0][:, None]
+            out = kv.paged_attention(q, pool.k_pool, pool.v_pool, tables,
+                                     lengths)
+            if keep is not None:
+                keep.append((pool, q, tables, lengths, out))
+
+    def hold(i, keep):
+        """Step i's outputs against use_kernel=False and the twin, on the
+        pools as the step left them."""
+        e_gather = e_twin = 0.0
+        for pool, q, tables, lengths, out in keep:
+            ref = kv.paged_attention(q, pool.k_pool, pool.v_pool, tables,
+                                     lengths, use_kernel=False)
+            twin = pa.paged_decode_attention_plain(q, pool.k_pool,
+                                                   pool.v_pool, tables,
+                                                   lengths)
+            ok, err = close(out, ref, POOL_GATHER_ATOL, 0.0)
+            check(ok and bool(torch.isfinite(out.float()).all()),
+                  f"page_pool: step {i}: kernel vs use_kernel=False "
+                  f"max|err| {err}")
+            e_gather = max(e_gather, err)
+            ok, err = close(out, twin, OUT_ATOL, OUT_RTOL)
+            check(ok, f"page_pool: step {i}: kernel vs twin max|err| {err}")
+            e_twin = max(e_twin, err)
+        phase("page_pool", f"step {i}: lengths {keep[0][3].tolist()}, all "
+              f"{POOL_LAYERS} layers: kernel vs use_kernel=False max|err| "
+              f"{e_gather:.3g} (atol {POOL_GATHER_ATOL}), vs the twin "
+              f"{e_twin:.3g}")
+
+    reset_counts()
+    times, prof_step = [], POOL_SWAP + (POOL_STEPS - POOL_SWAP) // 4
+    for i in range(POOL_STEPS):
+        if i == POOL_SWAP:
+            for j in POOL_FREED:
+                for pool in pools:
+                    pool.free(sids[j])
+            new = [f"s{len(POOL_PROMPTS) + k}" for k in range(len(POOL_FREED))]
+            for s in new:
+                for pool in pools:
+                    pool.create(s)
+            pool_prompt(pools, new, POOL_NEW_PROMPTS, rows)
+            for j, s in zip(POOL_FREED, new):
+                sids[j] = s
+            phase("page_pool", f"step {i}: freed 2 sequences, created "
+                  f"{new} with prompts {list(POOL_NEW_PROMPTS)}: tables of "
+                  f"{new[0]} start {pools[0].block_table(new[0])[:4].tolist()}"
+                  f", {pools[0].pages_in_use} pages in use")
+        keep = [] if i in POOL_CHECKED else None
+        torch.cuda.synchronize()
+        if i == prof_step:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                step(None)
+                torch.cuda.synchronize()
+            continue
+        t0 = time.perf_counter()
+        step(keep)
+        torch.cuda.synchronize()
+        if keep is None:
+            times.append((time.perf_counter() - t0) * 1e3)
+        else:
+            hold(i, keep)
+    launches = counts()["paged_attention"]
+    check(launches == POOL_LAYERS * POOL_STEPS,
+          f"page_pool: #11 launched {launches} times, expected "
+          f"{POOL_LAYERS} x {POOL_STEPS}")
+
+    step_ms = float(np.mean(times))
+    shares = device_time_shares(prof, groups)
+    busy = sum(shares.values())
+    phase("page_pool", f"{POOL_STEPS} steps x {POOL_LAYERS} layers, 8 "
+          f"sequences: {step_ms:.3f} ms/step (host clock, mean of "
+          f"{len(times)} unchecked, unprofiled steps; min {min(times):.3f}, "
+          f"max {max(times):.3f}); #11 launched {launches} times")
+    if busy <= 0:
+        phase("page_pool", "profiler saw no device time: split not measured")
+    else:
+        phase("page_pool", f"profile of step {prof_step}: device time "
+              f"{busy:.3f} ms against {step_ms:.3f} ms a step unprofiled "
+              f"({100 * busy / step_ms:.1f}% busy, host gaps "
+              f"{step_ms - busy:.3f} ms): "
+              + ", ".join(f"{k} {v:.3f} ms ({100 * v / busy:.1f}%)"
+                          for k, v in shares.items()))
+    del pools, prof
+    torch.cuda.empty_cache()
+    return {"paged_attention": launches}
+
+
+def phase_fused(fu, g):
+    """Kernels #15 (swiglu) and #16 (rotary) through the ops.fused API at
+    yoco_base's widths (E=1024, FFN 4096, 16 q heads and 4 kv heads of
+    64), bf16 and fp32: swiglu on [1, 4096, 4096] (yoco_long's prompt)
+    and [8, 128, 4096] (yoco_chat's prefill); rotary on q [1, 4096, 16, 64]
+    and k [1, 4096, 4, 64] with sin/cos from models/yoco.rotary_sin_cos.
+    The launches of that run are the path's; each output is held against
+    its plain version (and rotary's against models/yoco.apply_rotary).
+    Returns (kernel entries, launches)."""
+    from unilm_tpu_torch.models import yoco
+
+    dev = "cuda"
+    T = YOCO_LONG_PROMPT
+    sin, cos = yoco.rotary_sin_cos(torch.arange(T, device=dev), 64)
+    inputs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
+        inputs[dtype] = {
+            "swiglu": [(rn(1, T, 4096) * 3, rn(1, T, 4096)),
+                       (rn(8, 128, 4096) * 3, rn(8, 128, 4096))],
+            "rotary": [rn(1, T, 16, 64), rn(1, T, 4, 64)]}
+
+    reset_counts()
+    outs = {dtype: {"swiglu": [fu.swiglu(gg, uu) for gg, uu in x["swiglu"]],
+                    "rotary": [fu.rotary_apply(xx, sin, cos)
+                               for xx in x["rotary"]]}
+            for dtype, x in inputs.items()}
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in counts().items() if k in ("swiglu", "rotary")}
+    check(launches == {"swiglu": 4, "rotary": 4},
+          f"fused: launches {launches}, expected 4 each")
+
+    err = {"swiglu": 0.0, "rotary": 0.0}
+    for dtype, x in inputs.items():
+        # fp32: 1e-5 relative (expf and the division may round apart from
+        # torch's sigmoid); bf16: one bf16 ulp (2^-7 relative)
+        atol, rtol = (1e-6, 1e-5) if dtype == torch.float32 else \
+            (1e-6, 2.0 ** -7)
+        name = str(dtype).split(".")[-1]
+        for (gg, uu), out in zip(x["swiglu"], outs[dtype]["swiglu"]):
+            ok, e = close(out, fu.swiglu_plain(gg, uu), atol, rtol)
+            check(ok and out.dtype == gg.dtype and out.shape == gg.shape,
+                  f"fused: swiglu {name} {tuple(gg.shape)} max|err| {e}")
+            phase("fused", f"swiglu {name} {tuple(gg.shape)}: max|err| "
+                  f"{e:.3g} (atol {atol}, rtol {rtol:.3g})")
+            err["swiglu"] = max(err["swiglu"], e)
+        for xx, out in zip(x["rotary"], outs[dtype]["rotary"]):
+            ok, e = close(out, fu.rotary_apply_plain(xx, sin, cos), atol,
+                          rtol)
+            ok2, e2 = close(out, yoco.apply_rotary(xx, sin, cos), atol, rtol)
+            check(ok and ok2 and out.dtype == xx.dtype,
+                  f"fused: rotary {name} {tuple(xx.shape)} max|err| {e} / "
+                  f"vs apply_rotary {e2}")
+            same = torch.equal(out, fu.rotary_apply_plain(xx, sin, cos))
+            phase("fused", f"rotary {name} {tuple(xx.shape)}: max|err| "
+                  f"{e:.3g} vs the plain version (bit-equal: {same}), "
+                  f"{e2:.3g} vs models/yoco.apply_rotary")
+            err["rotary"] = max(err["rotary"], e)
+
+    bf = inputs[torch.bfloat16]
+    (gg, uu), xq = bf["swiglu"][0], bf["rotary"][0]
+    F = torch.nn.functional
+    sw = dict(
+        ms=device_ms(lambda: fu.swiglu(gg, uu), only="swiglu_kernel"),
+        ms_l2_flushed=cold_ms(lambda: fu.swiglu(gg, uu), "swiglu_kernel"),
+        plain_ms=device_ms(lambda: fu.swiglu_plain(gg, uu)),
+        library_ms=device_ms(lambda: F.silu(gg) * uu),
+        **roofline(3 * nbytes(gg), 5 * gg.numel(), "fp32"))
+    ro = dict(
+        ms=device_ms(lambda: fu.rotary_apply(xq, sin, cos),
+                     only="rotary_kernel"),
+        ms_l2_flushed=cold_ms(lambda: fu.rotary_apply(xq, sin, cos),
+                              "rotary_kernel"),
+        plain_ms=device_ms(lambda: fu.rotary_apply_plain(xq, sin, cos)),
+        library_ms=None,
+        **roofline(2 * nbytes(xq) + nbytes(sin, cos), 3 * xq.numel(),
+                   "fp32"))
+    phase("fused", f"swiglu bf16 {tuple(gg.shape)}: kernel {sw['ms']:.4f} ms "
+          f"({sw['ms_l2_flushed']:.4f} ms with L2 flushed), plain "
+          f"{sw['plain_ms']:.4f} ms, F.silu(g) * u (two calls) "
+          f"{sw['library_ms']:.4f} ms (device time, back to back); bound "
+          f"{sw['bound_ms']:.5f} ms ({sw['bound_by']})")
+    phase("fused", f"rotary bf16 {tuple(xq.shape)}: kernel {ro['ms']:.4f} ms "
+          f"({ro['ms_l2_flushed']:.4f} ms with L2 flushed: back to back, x "
+          f"and out stay in the 50 MB L2), plain {ro['plain_ms']:.4f} ms "
+          f"(device time), no single torch call; bound "
+          f"{ro['bound_ms']:.5f} ms ({ro['bound_by']})")
+    kernels = [
+        {"name": "swiglu", "route": "cuda",
+         "source": "unilm_tpu_torch/csrc/fused.cu",
+         "replaces": "unilm_tpu/ops/fused.py:30",
+         "max_abs_err": err["swiglu"], **sw,
+         "shape": f"{tuple(gg.shape)} bf16"},
+        {"name": "rotary", "route": "cuda",
+         "source": "unilm_tpu_torch/csrc/fused.cu",
+         "replaces": "unilm_tpu/ops/fused.py:64",
+         "max_abs_err": err["rotary"], **ro,
+         "shape": f"q {tuple(xq.shape)} bf16"}]
+    del inputs, outs
+    torch.cuda.empty_cache()
+    return kernels, launches
+
+
 def yoco_models():
     """yoco_base in bf16 compute / fp32 params with random weights from the
     seed, and the same weights (shared tensors) on the plain path."""
@@ -3614,6 +4004,7 @@ def main() -> int:
     smi = phase_device()
     from unilm_tpu_torch.ops import doc_attention as da
     from unilm_tpu_torch.ops import flash_attention as fa
+    from unilm_tpu_torch.ops import fused as fu
     from unilm_tpu_torch.ops import paged_attention as pa
     from unilm_tpu_torch.ops import quant as qm
 
@@ -3630,7 +4021,10 @@ def main() -> int:
                     "flash_bwd_fused": fa.FUSED_BWD_KERNEL,
                     "encoder_attention_bwd": fa.ENCODER_BWD_KERNEL,
                     "doc_attention": da.FWD_KERNEL,
-                    "doc_attention_bwd": da.BWD_KERNEL})
+                    "doc_attention_bwd": da.BWD_KERNEL,
+                    "paged_attention": pa.PAGED_KERNEL,
+                    "swiglu": fu.SWIGLU_KERNEL,
+                    "rotary": fu.ROTARY_KERNEL})
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [phase_flash(fa, g), phase_onepass(fa, g),
@@ -3639,8 +4033,11 @@ def main() -> int:
                phase_encoder_attn(fa, g), phase_encoder_bwd(fa, g),
                phase_doc_attn(da, g), phase_doc_bwd(da, g),
                phase_decode(pa, g), phase_decode_int8(pa, g),
-               phase_int8_matmul(qm, g), phase_paged_append(pa, g)]
-    launches = phase_slice(fa, pa)
+               phase_int8_matmul(qm, g), phase_paged_append(pa, g),
+               phase_paged(pa, g)]
+    fused_kernels, launches = phase_fused(fu, g)
+    kernels += fused_kernels
+    launches.update(phase_slice(fa, pa))
     launches.update(phase_beit_eval(fa))
     launches.update(phase_beit_train(fa))
     launches.update(phase_layoutlmv3_eval())
@@ -3653,6 +4050,7 @@ def main() -> int:
     launches.update(phase_engine_bf16_prefix(cfg, sd))
     del cfg, sd
     torch.cuda.empty_cache()
+    launches.update(phase_page_pool())
     launches.update(phase_train(fa))
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]

@@ -112,3 +112,27 @@ def test_failed_build_raises_with_stderr(fake):
         _native.build_all([bad, _native.CudaKernel("b.cu", {})])
     assert not bad.so_path().exists()
     assert not list((_native.BUILD).glob("*.tmp.so"))
+
+
+def test_decode_header_edit_rebuilds_its_three_libraries(fake, monkeypatch):
+    """csrc/decode_common.cuh is included by the run-decode (#13), the
+    append (#12) and the read-only block-table (#11) launchers: an edit of
+    it rebuilds those three libraries and no other."""
+    import shutil
+
+    fake_csrc, compiles = fake
+    real = _native._PKG / "csrc"
+    users = sorted(p.name for p in real.glob("*.cu")
+                   if real / "decode_common.cuh" in _native._headers(p))
+    assert users == ["decode_attention.cu", "paged_append_attention.cu",
+                     "paged_attention.cu"]
+    for p in real.iterdir():
+        shutil.copy(p, fake_csrc / p.name)
+    kernels = [_native.CudaKernel(p.name, {})
+               for p in sorted(fake_csrc.glob("*.cu"))]
+    _native.build_all(kernels)
+    assert "fused.cu" in compiles()
+    header = fake_csrc / "decode_common.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    _native.build_all(kernels)
+    assert compiles() == users

@@ -133,7 +133,7 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "cli.train_classification", "data.masking", "ops.doc_attention",
           "ops.bucket_bias", "models.layoutlmv3", "convert.layoutlmv3",
           "convert.common", "data.document_datasets", "cli.run_funsd",
-          "ops.retention", "models.yoco"}
+          "ops.retention", "models.yoco", "ops.fused"}
 
 
 def test_port_imports_without_jax():

@@ -159,7 +159,7 @@ def test_paged_decode_append_matches_jax(monkeypatch):
 
 def test_paged_attention_gather_matches_jax():
     """runtime.paged_kv.paged_attention, plain gather path, and its kernel
-    branch, which raises (not ported)."""
+    branch, which takes CUDA tensors only: on CPU tensors it raises."""
     from unilm_tpu.runtime.paged_kv import paged_attention as jpaged
     from unilm_tpu_torch.runtime.paged_kv import paged_attention
 
@@ -176,6 +176,6 @@ def test_paged_attention_gather_matches_jax():
     got = paged_attention(t(q), t(kp), t(vp), t(tables), t(lengths))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5,
                                rtol=0)
-    with pytest.raises(NotImplementedError, match="Queue 2 #10"):
+    with pytest.raises(ValueError, match="CUDA tensors"):
         paged_attention(t(q), t(kp), t(vp), t(tables), t(lengths),
                         use_kernel=True)

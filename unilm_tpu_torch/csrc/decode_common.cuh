@@ -1,6 +1,7 @@
 // One-token decode attention, shared by csrc/decode_attention.cu (contiguous
-// page runs, bf16/fp32 or int8 pools) and csrc/paged_append_attention.cu
-// (block tables). Hopper (sm_90a).
+// page runs, bf16/fp32 or int8 pools), csrc/paged_append_attention.cu
+// (block tables, row write) and csrc/paged_attention.cu (block tables,
+// read only). Hopper (sm_90a).
 //
 // One block per (sequence b, head h), 32 warps. Warps walk 32-token tiles
 // of the sequence in parallel with an fp32 online softmax; each lane loads
@@ -24,6 +25,10 @@
 //          page tables[b, L / page] at L % page (it is the only block that
 //          writes or reads those columns), then attends over 0..L; every
 //          probability, the new token's too, is rounded to the pool type.
+//   TABLE_RO the same walk without the row write: attends over tokens
+//          0..L-1 only, every probability rounded to the pool type. L == 0
+//          reads nothing and writes 0 (every warp keeps m = -1e30, l = 0,
+//          acc = 0, and the merge divides by 1).
 
 #pragma once
 
@@ -38,7 +43,7 @@ constexpr int NWARPS = 32;
 constexpr int UB = 8;  // tokens whose V rows are loaded together
 constexpr unsigned FULL = 0xffffffffu;
 
-enum Mode { RUN = 0, RUN_I8 = 1, TABLE = 2 };
+enum Mode { RUN = 0, RUN_I8 = 1, TABLE = 2, TABLE_RO = 3 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -83,7 +88,7 @@ struct DecodeArgs {
     const void* q;        // [B, H, D] pre-scaled, type T
     void* kp;             // [P, page, H*D] pool, type PT (written in TABLE mode)
     void* vp;
-    const int* idx;       // RUN*: bases [B]; TABLE: tables [B, max_pages]
+    const int* idx;       // RUN*: bases [B]; TABLE*: tables [B, max_pages]
     const int* lengths;   // [B] tokens already in the cache
     const float* scales;  // RUN_I8: sidecar [P/chunk, 8, chunk*page]
     const void* knew;     // RUN_I8, TABLE: [B, H, D], type T
@@ -129,6 +134,8 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
             }
         }
         // the block's own writes are visible to its threads after the barrier
+    } else if constexpr (MODE == TABLE_RO) {
+        n = min((long long)L, max_tokens);
     } else {
         row0 = (long long)a.idx[b] * page;
         n = min((long long)L + (MODE == RUN ? 1 : 0), max_tokens);
@@ -139,7 +146,7 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
     __syncthreads();
 
     auto row_of = [&](long long t) -> long long {
-        if constexpr (MODE == TABLE)
+        if constexpr (MODE == TABLE || MODE == TABLE_RO)
             return (long long)table[t / page] * page + t % page;
         else
             return row0 + t;

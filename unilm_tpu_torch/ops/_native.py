@@ -3,7 +3,8 @@
 Each `csrc/*.cu` file has a plain C interface and is compiled by nvcc, at
 first use, into its own shared library under `unilm_tpu_torch/_build/`
 (listed in .gitignore), then loaded with ctypes. Pointers and the CUDA
-stream go across as `c_void_p`, integers as `c_int`, floats as `c_float`.
+stream go across as `c_void_p`, integers as `c_int` (element counts that
+may pass 2^31 as `c_longlong`), floats as `c_float`.
 
 A library's file name carries a hash of everything that decides its
 contents: the `.cu` source, every `csrc/*.cuh` header it includes
@@ -191,4 +192,5 @@ def stream() -> int:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+LL = ctypes.c_longlong
 F = ctypes.c_float

@@ -1,5 +1,6 @@
-"""Serving decode attention over the flat KV page pool (port of
-unilm_tpu/ops/paged_attention.py: `paged_decode_append_attention` :387 /
+"""Decode attention over the flat KV page pool (port of
+unilm_tpu/ops/paged_attention.py: `paged_decode_attention` :149 /
+`_paged_kernel` :44, `paged_decode_append_attention` :387 /
 `_paged_append_batched_kernel` :213, `quantize_kv_rows` :634,
 `run_decode_append_attention` :647 / `_run_decode_kernel` :497).
 
@@ -17,6 +18,10 @@ tensors that were passed in).
   index_put before the kernel in csrc/decode_attention.cu reads the pool.
 - `paged_decode_append_attention`: block tables; the kernel in
   csrc/paged_append_attention.cu writes the row itself and attends.
+- `paged_decode_attention`: block tables, read only (csrc/paged_attention.cu):
+  attention over the lengths[b] tokens already in the pages, as
+  runtime/paged_kv.paged_attention calls it. Pools may be flat or
+  [P, page, H, D].
 
 CPU tensors take the `*_plain` versions; a CUDA tensor launches the kernel
 or raises.
@@ -45,6 +50,11 @@ KERNEL_INT8 = CudaKernel("decode_attention.cu", {
     # page, chunk, max_pages, num_pages, dtype, stream
     "decode_attention_int8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                               I, P],
+})
+PAGED_KERNEL = CudaKernel("paged_attention.cu", {
+    # q, k_pool, v_pool, tables, lengths, out, B, H, D, page, max_pages,
+    # num_pages, dtype, stream
+    "paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
 })
 APPEND_KERNEL = CudaKernel("paged_append_attention.cu", {
     # q, k_pool, v_pool, tables, lengths, k_new, v_new, out, B, H, D, page,
@@ -327,3 +337,79 @@ def paged_decode_append_attention(
                          ptr(kn), ptr(vn), ptr(out), B, H, D, page, MP, Pn,
                          _DTYPE_CODE[qs.dtype], stream())
     return out[:, None], k_pool, v_pool
+
+
+def paged_decode_attention_plain(q, k_pool, v_pool, block_tables, lengths,
+                                 scale: Optional[float] = None):
+    """Plain torch version of the read-only block-table kernel; same
+    arguments and result. q is scaled in its own dtype; float32 scores
+    over tokens t < lengths[b]; the sum l takes the unrounded
+    probabilities, the PV product takes them rounded to the pool dtype;
+    out = acc / (l if l > 0 else 1), so a length-0 sequence gives 0.
+    Table entries past ceil(L / page) are not read (taken as page 0)."""
+    B, _, H, D = q.shape
+    Pn, page = k_pool.shape[0], k_pool.shape[1]
+    k_pool = k_pool.reshape(Pn, page, H * D)
+    v_pool = v_pool.reshape(Pn, page, H * D)
+    MP = block_tables.shape[1]
+    if scale is None:
+        scale = D ** -0.5
+    lens = lengths.to(q.device).long()
+    npages = torch.div(lens + page - 1, page, rounding_mode="floor")
+    tables = block_tables.to(q.device).long()
+    tables = torch.where(torch.arange(MP, device=q.device)[None]
+                         < npages[:, None], tables, 0)
+    qs = (q[:, 0] * scale).float()  # [B, H, D], scaled in q's dtype first
+    kk = k_pool[tables].reshape(B, MP * page, H, D).float()
+    vv = v_pool[tables].reshape(B, MP * page, H, D).float()
+    valid = (torch.arange(MP * page, device=q.device)[None]
+             < lens[:, None])[:, None]  # [B, 1, S]
+    s = torch.einsum("bhd,bshd->bhs", qs, kk).masked_fill(~valid, -1e30)
+    e = torch.where(valid, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = e.sum(-1, keepdim=True)
+    p = e.to(k_pool.dtype).float()
+    out = torch.einsum("bhs,bshd->bhd", p, vv) / torch.where(l > 0, l, 1.0)
+    return out.to(q.dtype)[:, None]
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [B, 1, H, D] (unscaled)
+    k_pool: torch.Tensor,  # [P, page, H*D] flat or [P, page, H, D]
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, max_pages] int
+    lengths: torch.Tensor,  # [B] int tokens present
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """One-token decode attention over the lengths[b] tokens of each
+    sequence's block table; reads the pools, writes nothing. Returns
+    [B, 1, H, D] in q's dtype. On CUDA, q and the pools share one dtype
+    (float32 or bfloat16) and D is in SUPPORTED_D; tables and lengths are
+    cast to int32 on q's device, and every entry a sequence's length
+    reaches names a page of the pool."""
+    if q.device.type == "cpu":
+        return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
+                                            lengths, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_decode_attention: device {q.device}")
+    B, _, H, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    Pn, page = k_pool.shape[0], k_pool.shape[1]
+    if tuple(k_pool.shape[2:]) not in ((H * D,), (H, D)):
+        raise ValueError(f"paged_decode_attention: pool {tuple(k_pool.shape)} "
+                         f"does not match q {tuple(q.shape)}")
+    kp = k_pool.reshape(Pn, page, H * D)
+    vp = v_pool.reshape(Pn, page, H * D)
+    qs = (q[:, 0] * scale).contiguous()
+    B, H, D, Pn, page, dev = _check_decode_args(qs, kp, vp, qs.dtype)
+    MP = block_tables.shape[1]
+    tables = block_tables.to(dev, torch.int32).contiguous()
+    lens = lengths.to(dev, torch.int32).contiguous()
+    check_tensor("block_tables", tables, dtype=torch.int32, shape=(B, MP),
+                 device=dev)
+    check_tensor("lengths", lens, dtype=torch.int32, shape=(B,), device=dev)
+    out = torch.empty((B, H, D), dtype=qs.dtype, device=dev)
+    PAGED_KERNEL.launch("paged_attention", ptr(qs), ptr(kp), ptr(vp),
+                        ptr(tables), ptr(lens), ptr(out), B, H, D, page, MP,
+                        Pn, _DTYPE_CODE[qs.dtype], stream())
+    return out[:, None]
