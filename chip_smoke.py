@@ -8,11 +8,17 @@ Phases, one line each:
     (nvidia-smi); turns TF32 off for matmul and cuDNN.
  2. build: compiles the hand-written kernels from unilm_tpu_torch/csrc/,
     one nvcc per source, all started together.
- 3. flash: the flash-forward kernel against its plain version, bf16, over
-    causal/offset/kv_len/key-padding/bias/window cases, D in {64, 96, 128},
-    ragged T and S, the Kosmos-2.5 prefill shape 1x2052x16x96 and YOCO's
-    long self-layer prefill 1x4096 over 4128 keys, 16x64, causal, window
-    1024, kv_len 4096.
+ 3. flash: the flash-forward kernel (#1; bf16 is the wgmma/TMA kernel)
+    against its plain version, bf16, over causal/offset/kv_len/key-padding/
+    bias/window cases that hit each class of key tile (skipped, interior,
+    boundary: the diagonal, a window edge and kv_len mid-tile), T < 64, D
+    in {64, 96, 128}, ragged T and S, fully masked rows (out 0, lse 0), the
+    Kosmos-2.5 prefill shape 1x2052x16x96 and YOCO's long self-layer
+    prefill 1x4096 over 4128 keys, 16x64, causal, window 1024, kv_len 4096;
+    then device time and TFLOP/s at the slice's prefill, the tower
+    (1x4096x24x64, key-padding mask, scale 1.0) and the train shape
+    (2x2048x32x64 causal+kpm), beside the plain twin, sdpa and the bound;
+    the train shape run twice, bit-equal.
     onepass (right after flash): the one-pass short-sequence forward (#5)
     against flash_forward_onepass_plain at #1's tolerances (bf16; fp32 at
     1e-4): yoco_chat's self-layer prefill 8x128 over 256 slots (causal,
@@ -406,27 +412,43 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
-def device_ms(fn, iters: int = 20, only: str = None) -> float:
+PROFILER_MISSES = []
+
+
+def device_ms(fn, iters: int = 20, only: str = None,
+              tries: int = 3) -> float:
     """Mean device time of fn() in ms: the time of the CUDA kernels a
     torch.profiler trace of `iters` back-to-back calls records, summed
     over the trace (with `only`, over the kernels whose name holds that
     substring). Unlike cuda_ms it leaves out the card's idle gaps, so
     it is a kernel's own time even where the host's wrapper, not the
-    kernel, sets the pace of back-to-back calls (microsecond kernels)."""
+    kernel, sets the pace of back-to-back calls (microsecond kernels).
+
+    CUPTI now and then hands a trace back without its kernel records. A
+    trace that shows no device time is taken again, up to `tries` times;
+    after that the call is timed with CUDA events (cuda_ms: every kernel
+    of fn() and the gaps between them, so an upper bound), and the miss
+    is noted in PROFILER_MISSES and printed."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    shares = device_time_shares(prof, [("only", [only])] if only else [])
-    total = shares["only"] if only else sum(shares.values())
-    check(total > 0, f"device_ms: the profiler saw no device time "
-          f"({only or 'any kernel'})")
-    return total / iters
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        shares = device_time_shares(prof, [("only", [only])] if only else [])
+        total = shares["only"] if only else sum(shares.values())
+        if total > 0:
+            return total / iters
+    ms = cuda_ms(fn, iters)
+    PROFILER_MISSES.append(only or "any kernel")
+    print(f"device_ms: {tries} profiler traces saw no device time "
+          f"({only or 'any kernel'}); CUDA events instead: {ms:.4f} ms",
+          flush=True)
+    return ms
 
 
 def cold_ms(fn, only: str, iters: int = 20) -> float:
@@ -475,6 +497,17 @@ def phase_build() -> None:
 
 
 def phase_flash(fa, g) -> dict:
+    """Kernel #1 (bf16: the wgmma/TMA kernel) against flash_forward_plain
+    over every class of key tile the kernel tells apart: skipped, interior
+    and boundary tiles under causal with a q_offset that puts the diagonal
+    mid-tile, kv_len and a window edge mid-tile, T < 64, T and S ragged
+    (2052, 4128), D = 64, 96 and 128 causal and not, both bias broadcasts,
+    a key-padding mask with a fully masked batch row and a causal row 0
+    with no key (out 0, lse 0); two fp32 cases (the CUDA-core body) at
+    1e-4. Then the main path's three shapes (the
+    slice's prefill, the tower, the train step's attention), device time
+    beside the plain twin, sdpa and the bound, with TFLOP/s; the train
+    shape twice, bit-equal."""
     dev = "cuda"
     bf = torch.bfloat16
 
@@ -482,7 +515,8 @@ def phase_flash(fa, g) -> dict:
         return torch.randn(*shape, generator=g, device=dev).to(bf)
 
     # (B, T, S, H, D, causal, q_offset, kv_len, window, kpm, bias, scaled)
-    # kpm "rand": random keys masked and one batch row wholly; "tail": the
+    # kpm "rand": random keys masked and one batch row wholly; "first": key
+    # 0 of batch row 1 masked, so its causal row 0 sees no key; "tail": the
     # last TOWER_PAD keys, as the Pix2Struct tower's padded patch slots.
     # scaled: q times D^-0.5; the tower's attention is unscaled (scale 1.0).
     cases = [
@@ -494,6 +528,16 @@ def phase_flash(fa, g) -> dict:
         (3, 100, 77, 4, 64, False, 0, None, 0, None, "B1", True),
         (2, 300, 300, 2, 96, True, 0, None, 50, None, None, True),
         (2, 45, 45, 2, 128, True, 0, None, 0, "rand", "1H", True),
+        # T < 64: one consumer warpgroup holds every row, the other none
+        (3, 33, 33, 4, 64, True, 0, None, 0, "first", None, True),
+        (2, 50, 190, 4, 96, False, 0, None, 0, None, None, True),
+        # the diagonal 16 rows into a key tile (q_offset 400); q_offset and
+        # window together; kv_len mid-tile without causal
+        (1, 300, 700, 4, 64, True, 400, None, 0, None, None, True),
+        (2, 260, 777, 2, 96, True, 517, None, 300, None, "B1", True),
+        (2, 200, 500, 4, 128, False, 0, 333, 0, None, None, True),
+        # non-causal D = 96, ragged, with the padding mask
+        (2, 333, 419, 4, 96, False, 0, None, 0, "rand", None, True),
         (1, PROMPT, PROMPT, 16, 96, True, 0, None, 0, None, None, True),
         # the main path's other two shapes: the tower and the resampler
         (1, TTFT_PATCHES, TTFT_PATCHES, 24, 64, False, 0, None, 0, "tail",
@@ -513,6 +557,9 @@ def phase_flash(fa, g) -> dict:
         if kpm == "rand":
             mask = torch.rand(B, S, generator=g, device=dev) > 0.3
             mask[-1] = False  # one batch row fully masked -> out 0, lse 0
+        elif kpm == "first":
+            mask = torch.ones(B, S, dtype=torch.bool, device=dev)
+            mask[1, 0] = False  # causal row 0 of batch row 1 sees no key
         elif kpm == "tail":
             mask = torch.ones(B, S, dtype=torch.bool, device=dev)
             mask[:, S - TOWER_PAD:] = False
@@ -532,6 +579,9 @@ def phase_flash(fa, g) -> dict:
         if kpm == "rand":
             check(bool((out[-1] == 0).all() and (lse[-1] == 0).all()),
                   "flash: fully masked row is not out=0, lse=0")
+        if kpm == "first":
+            check(bool((out[1, 0] == 0).all() and (lse[1, :, 0] == 0).all()),
+                  "flash: the row with no key is not out=0, lse=0")
         desc = (f"B{B} T{T} S{S} H{H} D{D} causal={causal} q_offset={qoff} "
                 f"kv_len={kvl} window={window} kpm={kpm} bias={bias} "
                 f"q_scale={'D^-0.5' if scaled else 1.0}")
@@ -540,42 +590,88 @@ def phase_flash(fa, g) -> dict:
         phase("flash", f"{desc}: out max|err| {e_o:.3g}, lse max|err| "
               f"{e_l:.3g} ok")
 
-    q = rn(1, PROMPT, 16, 96) * 96 ** -0.5
-    k, v = rn(1, PROMPT, 16, 96), rn(1, PROMPT, 16, 96)
-    ms = cuda_ms(lambda: fa.flash_forward(q, k, v, causal=True))
-    plain_ms = cuda_ms(lambda: fa.flash_forward_plain(q, k, v, causal=True))
-    lib_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=1.0))
-    out, lse = fa.flash_forward(q, k, v, causal=True)
-    pairs = PROMPT * (PROMPT + 1) / 2 * 16  # visible (query, key) pairs
-    bd = roofline(nbytes(q, k, v, out, lse), 4 * pairs * 96)
-    phase("flash", f"1x{PROMPT}x16x96 causal bf16: kernel {ms:.4f} ms, "
-          f"plain twin {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    # fp32 keeps the CUDA-core body: held at 1e-4, as #5's fp32 cases
+    for B, T, S, H, D, qoff, bias in ((2, 70, 263, 4, 96, 193, None),
+                                      (2, 97, 150, 2, 128, 0, "B1")):
+        q = torch.randn(B, T, H, D, generator=g, device=dev) * D ** -0.5
+        k = torch.randn(B, S, H, D, generator=g, device=dev)
+        v = torch.randn(B, S, H, D, generator=g, device=dev)
+        b = (None if bias is None
+             else torch.randn(B, 1, T, S, generator=g, device=dev))
+        out, lse = fa.flash_forward(q, k, v, b, None, qoff, causal=True)
+        ref, ref_lse = fa.flash_forward_plain(q, k, v, b, None, qoff,
+                                              causal=True)
+        ok_o, e_o = close(out, ref, 1e-4, 1e-4)
+        ok_l, e_l = close(lse, ref_lse, 1e-4, 0.0)
+        desc = (f"float32 B{B} T{T} S{S} H{H} D{D} causal q_offset={qoff} "
+                f"bias={bias}")
+        check(ok_o and ok_l, f"flash {desc}: out err {e_o}, lse err {e_l}")
+        phase("flash", f"{desc}: out max|err| {e_o:.3g}, lse max|err| "
+              f"{e_l:.3g} ok")
 
-    # the tower's shape, where #1 spends most of TTFT: unscaled q, the last
-    # TOWER_PAD keys masked (sdpa takes the mask as a boolean attn_mask)
-    S = TTFT_PATCHES
-    q, k, v = rn(1, S, 24, 64), rn(1, S, 24, 64), rn(1, S, 24, 64)
-    mask = torch.ones(1, S, dtype=torch.bool, device=dev)
-    mask[:, S - TOWER_PAD:] = False
-    t_ms = cuda_ms(lambda: fa.flash_forward(q, k, v, None, mask))
-    t_plain = cuda_ms(lambda: fa.flash_forward_plain(q, k, v, None, mask))
-    t_lib = cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask[:, None, None, :],
-                                 scale=1.0))
-    out, lse = fa.flash_forward(q, k, v, None, mask)
-    t_bd = roofline(nbytes(q, k, v, mask, out, lse),
-                    4 * S * (S - TOWER_PAD) * 24 * 64)
-    phase("flash", f"1x{S}x24x64 tower (kpm, scale 1.0) bf16: kernel "
-          f"{t_ms:.4f} ms, plain twin {t_plain:.4f} ms, sdpa {t_lib:.4f} ms, "
-          f"bound {t_bd['bound_ms']:.4f} ms ({t_bd['bound_by']})")
+    # the main path's shapes, device time per call (the profiler). Bound and
+    # TFLOP/s count 4 D flops per visible (query, key) pair.
+    def slice_inputs():
+        q = rn(1, PROMPT, 16, 96) * 96 ** -0.5
+        return q, rn(1, PROMPT, 16, 96), rn(1, PROMPT, 16, 96), None
+
+    def tower_inputs():
+        S = TTFT_PATCHES
+        mask = torch.ones(1, S, dtype=torch.bool, device=dev)
+        mask[:, S - TOWER_PAD:] = False
+        return rn(1, S, 24, 64), rn(1, S, 24, 64), rn(1, S, 24, 64), mask
+
+    timed = {}
+    for key, make, causal in (("slice", slice_inputs, True),
+                              ("tower", tower_inputs, False),
+                              ("train", lambda: train_attn_inputs(g), True)):
+        q, k, v, mask = make()
+        B, T, H, D = q.shape
+        fwd = lambda: fa.flash_forward(q, k, v, None, mask, causal=causal)
+        ms = device_ms(fwd, only="flash_fwd_sm90")
+        plain_ms = device_ms(lambda: fa.flash_forward_plain(
+            q, k, v, None, mask, causal=causal), iters=3)
+        if causal:
+            # the train batch's pads are keys a causal row could see: sdpa
+            # takes is_causal alone, so its yardstick leaves them visible
+            lib_ms = device_ms(lambda: sdpa(q, k, v, is_causal=True,
+                                            scale=1.0))
+            pairs = (causal_pairs(mask, H) if mask is not None
+                     else B * H * T * (T + 1) / 2)
+        else:
+            lib_ms = device_ms(lambda: sdpa(
+                q, k, v, attn_mask=mask[:, None, None, :], scale=1.0))
+            pairs = B * H * T * float(mask.sum())
+        out, lse = fwd()
+        bd = roofline(nbytes(q, k, v, mask, out, lse), 4 * pairs * D)
+        tflops = 4 * pairs * D / ms / 1e9
+        timed[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          tflops=tflops, **bd)
+        desc = (f"{B}x{T}x{H}x{D} " + ("causal" if causal else "non-causal")
+                + ("+kpm" if mask is not None else "")
+                + ("" if key != "tower" else ", scale 1.0") + " bf16")
+        phase("flash", f"{key} {desc}, device time: kernel {ms:.4f} ms "
+              f"({tflops:.1f} TFLOP/s), plain twin {plain_ms:.4f} ms, sdpa "
+              f"{lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}); kernel / sdpa {ms / lib_ms:.2f}")
+        if key == "train":
+            again, _ = fwd()
+            check(torch.equal(out, again), "flash: two runs at the train "
+                  "shape differ")
+            phase("flash", f"train {desc}: two runs bit-equal")
+        del q, k, v, mask, out, lse
+    sl = timed["slice"]
     return {"name": "flash_fwd", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "unilm_tpu/ops/flash_attention.py:99",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, **bd,
+            "max_abs_err": worst, "ms": sl["ms"], "plain_ms": sl["plain_ms"],
+            "library_ms": sl["library_ms"], "bound_ms": sl["bound_ms"],
+            "bound_by": sl["bound_by"], "tflops": sl["tflops"],
             "shape": f"1x{PROMPT}x16x96 causal bf16",
-            "tower_ms": t_ms, "tower_plain_ms": t_plain,
-            "tower_library_ms": t_lib, "tower_bound_ms": t_bd["bound_ms"]}
+            **{f"{key}_{name}": timed[key][name]
+               for key in ("tower", "train")
+               for name in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "tflops")}}
 
 
 def phase_onepass(fa, g) -> dict:
@@ -1548,24 +1644,28 @@ def phase_decode(pa, g) -> dict:
     # one layer of the slice's decode step: B=1, 2052 tokens in the run.
     # `ms` and `plain_ms` are the two wrappers, which both append the row,
     # timed like for like; `kernel_only_ms` is the kernel launch alone.
+    # Device time (the profiler): back to back, these microsecond calls
+    # are paced by the host, which CUDA events would count.
     L1 = torch.tensor([PROMPT], dtype=torch.int32, device=dev)
     b1 = torch.zeros(1, dtype=torch.int32, device=dev)
     kp1, vp1 = rn(PP, page, H * D), rn(PP, page, H * D)
     q1, kn1, vn1 = rn(1, 1, H, D), rn(1, 1, H, D), rn(1, 1, H, D)
     qs1 = (q1[:, 0] * D ** -0.5).contiguous()
-    kernel_ms = cuda_ms(
-        lambda: pa.decode_attention(qs1, kp1, vp1, b1, L1, PP), iters=100)
-    ms = cuda_ms(lambda: pa.run_decode_append_attention(
-        q1, kn1, vn1, kp1, vp1, b1, L1, PP, None, chunk), iters=50)
-    plain_ms = cuda_ms(lambda: pa.run_decode_append_attention_plain(
-        q1, kn1, vn1, kp1, vp1, b1, L1, PP, None, chunk), iters=50)
+    kernel_ms = device_ms(
+        lambda: pa.decode_attention(qs1, kp1, vp1, b1, L1, PP),
+        only="decode_kernel")
+    ms = device_ms(lambda: pa.run_decode_append_attention(
+        q1, kn1, vn1, kp1, vp1, b1, L1, PP, None, chunk))
+    plain_ms = device_ms(lambda: pa.run_decode_append_attention_plain(
+        q1, kn1, vn1, kp1, vp1, b1, L1, PP, None, chunk))
     # the yardstick: torch's SDPA of the query over the same run's L + 1
     # rows (contiguous in the pool); it appends nothing
     run = lambda pool: pool.reshape(1, PP * page, H, D)[:, :PROMPT + 1]
-    lib_ms = cuda_ms(lambda: sdpa(q1, run(kp1), run(vp1)), iters=100)
+    lib_ms = device_ms(lambda: sdpa(q1, run(kp1), run(vp1)))
     L = PROMPT + 1
     bd = roofline(2 * L * H * D * 2 + 4 * H * D * 2, 4 * H * L * D)
-    phase("decode", f"B1 L{PROMPT} H16 D96: kernel alone {kernel_ms:.4f} ms; "
+    phase("decode", f"B1 L{PROMPT} H16 D96, device time: kernel alone "
+          f"{kernel_ms:.4f} ms; "
           f"with the row append: kernel wrapper {ms:.4f} ms, plain twin "
           f"{plain_ms:.4f} ms; sdpa over the run {lib_ms:.4f} ms; bound "
           f"{bd['bound_ms']:.5f} ms ({bd['bound_by']})")
@@ -2583,7 +2683,9 @@ def phase_ttft(fa) -> dict:
     # ---- device-time profile of one kernel-path TTFT -------------------
     from torch.profiler import ProfilerActivity, profile
 
-    groups = [("flash_fwd #1", ["flash_fwd_kernel"]),
+    groups = [("#1 tower (D=64)", ["flash_fwd_sm90<64>"]),
+              ("#1 resampler + decoder (D=96)", ["flash_fwd_sm90<96>"]),
+              ("#1 other", ["flash_fwd_sm90", "flash_fwd_fp32"]),
               ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
                           "splitK"])]
     with profile(activities=[ProfilerActivity.CPU,
@@ -2731,17 +2833,17 @@ def phase_decode_int8(pa, g) -> dict:
     L8 = torch.full((B,), 2047, dtype=torch.int32, device=dev)
     qs = (q[:, 0] * D ** -0.5).contiguous()
     kn0, vn0 = kn[:, 0].contiguous(), vn[:, 0].contiguous()
-    kernel_ms = cuda_ms(lambda: pa.decode_attention_int8(
-        qs, kp, vp, bases, L8, sp, kn0, vn0, PP, chunk), iters=100)
-    ms = cuda_ms(lambda: pa.run_decode_append_attention(
+    # device time (the profiler), as in phase_decode
+    kernel_ms = device_ms(lambda: pa.decode_attention_int8(
+        qs, kp, vp, bases, L8, sp, kn0, vn0, PP, chunk), only="decode_kernel")
+    ms = device_ms(lambda: pa.run_decode_append_attention(
+        q, kn, vn, kp, vp, bases, L8, PP, None, chunk, scale_pool=sp))
+    plain_ms = device_ms(lambda: pa.run_decode_append_attention_plain(
         q, kn, vn, kp, vp, bases, L8, PP, None, chunk, scale_pool=sp),
-        iters=50)
-    plain_ms = cuda_ms(lambda: pa.run_decode_append_attention_plain(
-        q, kn, vn, kp, vp, bases, L8, PP, None, chunk, scale_pool=sp),
-        iters=20)
-    phase("decode_int8", f"B8 L2047 H16 D96: kernel alone {kernel_ms:.4f} "
-          f"ms; with the row append: kernel wrapper {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms")
+        iters=10)
+    phase("decode_int8", f"B8 L2047 H16 D96, device time: kernel alone "
+          f"{kernel_ms:.4f} ms; with the row append: kernel wrapper "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
     # bytes: the int8 K/V rows of the eight runs, the scale slabs that
     # cover them, q, the new rows and the output; no torch call attends
     # over int8 rows with a scale sidecar (library_ms null)
@@ -2796,12 +2898,15 @@ def phase_paged_append(pa, g) -> dict:
 
     tables8 = scattered_tables(B)
     L8 = torch.full((B,), 2047, dtype=torch.int32, device=dev)
-    ms = cuda_ms(lambda: pa.paged_decode_append_attention(
-        q, kn, vn, kp, vp, tables8, L8), iters=50)
-    plain_ms = cuda_ms(lambda: pa.paged_decode_append_attention_plain(
-        q, kn, vn, kp, vp, tables8, L8), iters=20)
-    phase("paged_append", f"B8 L2047 H16 D96 scattered: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms (both write the row)")
+    # device time (the profiler): the kernel, which writes the row too,
+    # and the plain version's kernels
+    ms = device_ms(lambda: pa.paged_decode_append_attention(
+        q, kn, vn, kp, vp, tables8, L8), only="decode_kernel")
+    plain_ms = device_ms(lambda: pa.paged_decode_append_attention_plain(
+        q, kn, vn, kp, vp, tables8, L8), iters=10)
+    phase("paged_append", f"B8 L2047 H16 D96 scattered, device time: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (both write the "
+          f"row)")
     # no torch call reads K/V through a block table (library_ms null)
     L = 2048
     bd = roofline(2 * B * L * H * D * 2 + 4 * B * H * D * 2, 4 * B * H * L * D)
@@ -3872,7 +3977,7 @@ def phase_train(fa, layers: int = 24) -> dict:
     # ---- device-time profile: one microbatch, then one optimizer update --
     from torch.profiler import ProfilerActivity, profile
 
-    groups = [("flash_fwd #1", ["flash_fwd_kernel"]),
+    groups = [("flash_fwd #1", ["flash_fwd_sm90", "flash_fwd_fp32"]),
               ("flash_bwd_dq #6", ["flash_bwd_dq_kernel"]),
               ("flash_bwd_dkv #7", ["flash_bwd_dkv_kernel"]),
               ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
@@ -4055,6 +4160,8 @@ def main() -> int:
     for kern in kernels:
         kern["launches"] = launches[kern["name"]]
         check(kern["launches"] > 0, f"{kern['name']} never launched")
+    phase("profiler", f"{len(PROFILER_MISSES)} device_ms calls fell back "
+          f"to CUDA events: {PROFILER_MISSES}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -136,3 +136,43 @@ def test_decode_header_edit_rebuilds_its_three_libraries(fake, monkeypatch):
     header.write_text(header.read_text() + "// edited\n")
     _native.build_all(kernels)
     assert compiles() == users
+
+
+def test_flash_fwd_hash_covers_its_headers(fake):
+    """kernel #1's library is keyed by every csrc/*.cuh that flash_fwd.cu
+    includes: the Hopper primitives (hopper.cuh), the fp32 body
+    (flash_fwd.cuh) and what that includes; an edit of hopper.cuh
+    rebuilds flash_fwd.cu and no library that does not include it."""
+    import shutil
+
+    fake_csrc, compiles = fake
+    real = _native._PKG / "csrc"
+    names = {p.name for p in _native._headers(real / "flash_fwd.cu")}
+    assert {"hopper.cuh", "flash_fwd.cuh", "flash_common.cuh"} <= names
+    assert all((real / n).exists() for n in names)
+    users = sorted(p.name for p in real.glob("*.cu")
+                   if real / "hopper.cuh" in _native._headers(p))
+    assert "flash_fwd.cu" in users
+    for p in real.iterdir():
+        shutil.copy(p, fake_csrc / p.name)
+    kernels = [_native.CudaKernel(p.name, {})
+               for p in sorted(fake_csrc.glob("*.cu"))]
+    _native.build_all(kernels)
+    assert "flash_fwd.cu" in compiles()
+    before = _native.CudaKernel("flash_fwd.cu", {}).so_path()
+    header = fake_csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "// edited\n")
+    _native.build_all(kernels)
+    assert compiles() == users
+    assert _native.CudaKernel("flash_fwd.cu", {}).so_path() != before
+
+
+def test_flash_fwd_argtypes_unchanged():
+    """The C entry of kernel #1 keeps its interface: q, k, v, bias, mask,
+    out, lse as pointers, then B, T, S, H, D, bias_sb, bias_sh, q_offset,
+    limit, causal, window, dtype as ints, then the stream."""
+    from unilm_tpu_torch.ops import flash_attention as tfa
+
+    P, I = _native.P, _native.I
+    assert tfa.KERNEL.source.name == "flash_fwd.cu"
+    assert tfa.KERNEL.functions == {"flash_fwd": [P] * 7 + [I] * 12 + [P]}

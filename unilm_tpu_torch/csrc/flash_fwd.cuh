@@ -1,6 +1,7 @@
-// The flash forward's CUDA-core body for one 64-row query tile: kernel #1
-// (csrc/flash_fwd.cu) runs it once per block, kernel #2's fp32 path
-// (csrc/flash_tri.cu) twice per block, on a folded pair of query tiles.
+// The flash forward's CUDA-core body for one 64-row query tile, in fp32:
+// kernel #1's fp32 path (csrc/flash_fwd.cu) runs it once per block, kernel
+// #2's fp32 path (csrc/flash_tri.cu) twice per block, on a folded pair of
+// query tiles. #1's bf16 path is the wgmma/TMA kernel in flash_fwd.cu.
 //
 // Contract: q pre-scaled, fp32 scores and online softmax, causal with a
 // query offset, sliding window, valid-kv prefix (`limit`), per-key padding

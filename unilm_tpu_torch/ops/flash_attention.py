@@ -13,8 +13,10 @@ broadcasts over [B|1, H|1, T, S]. Fully masked rows give out = 0 and
 lse = 0.
 
 On a CUDA tensor the wrapper launches the hand-written kernel in
-csrc/flash_fwd.cu; on a CPU tensor it runs `flash_forward_plain`, the
-same function in plain torch. Nothing else selects the plain version.
+csrc/flash_fwd.cu (bf16: wgmma fed by a TMA ring, warp-specialised, over
+the key tiles `flash_tile_plan` classifies; fp32: a CUDA-core body); on a
+CPU tensor it runs `flash_forward_plain`, the same function in plain
+torch. Nothing else selects the plain version.
 
 `flash_attention` runs the forward under `FlashAttentionFn`, whose
 backward takes (dq, dk, dv, dbias) from the two kernels of
@@ -185,6 +187,35 @@ def _keep_mask(T, S, q_offset, limit, causal, window, mask, device):
     if mask is not None:
         keep = keep & mask.bool()[:, None, None, :]
     return keep  # [B|1, 1, T, S]
+
+
+def flash_tile_plan(T: int, S: int, q_offset: int, limit: int, causal: bool,
+                    window: int, BQ: int, BK: int):
+    """Kernel #1's tile classification (csrc/flash_fwd.cu `walk` and
+    `interior`, which compute the same rule: change both together): for
+    each q tile of BQ rows, (j_begin, j_end, interior). Key tiles of BK
+    keys outside [j_begin, j_end) are skipped: the walk never visits them
+    and they hold no visible pair. interior[j - j_begin] is True for a tile
+    whose every (row, key) pair is visible before the key-padding mask,
+    which then takes the mask-free body; the rest are boundary tiles.
+    Rows >= T do not count; `limit` is the valid kv prefix. The kernel
+    walks a 128-row block's plan and classifies by each consumer's 64
+    rows, the plan at BQ = 64."""
+    limit = min(limit, S)
+    plan = []
+    for i in range(_cdiv(T, BQ)):
+        lo = q_offset + i * BQ
+        hi = q_offset + min(T, (i + 1) * BQ) - 1
+        k_end = min(limit, hi + 1) if causal else limit
+        k_begin = max(0, lo - window + 1) if window > 0 else 0
+        j_begin = k_begin // BK
+        j_end = max(_cdiv(k_end, BK) if k_end > 0 else 0, j_begin)
+        interior = [
+            c0 + BK <= limit and (not causal or c0 + BK - 1 <= lo)
+            and (window <= 0 or hi - c0 < window)
+            for c0 in range(j_begin * BK, j_end * BK, BK)]
+        plan.append((j_begin, j_end, interior))
+    return plan
 
 
 def flash_forward_plain(q, k, v, bias=None, mask=None, q_offset: int = 0,
