@@ -7,7 +7,10 @@ Phases, one line each:
  1. device: requires CUDA; prints the card's name and power limit
     (nvidia-smi); turns TF32 off for matmul and cuDNN.
  2. build: compiles the hand-written kernels from unilm_tpu_torch/csrc/,
-    one nvcc per source, all started together.
+    one nvcc per source, all started together; beside them `nvcc -Xptxas
+    -v` on the wgmma sources (flash_fwd.cu, flash_bwd.cu) prints each
+    kernel's registers and spill bytes and fails on a spill or a
+    serialised wgmma.
  3. flash: the flash-forward kernel (#1; bf16 is the wgmma/TMA kernel)
     against its plain version, bf16, over causal/offset/kv_len/key-padding/
     bias/window cases that hit each class of key tile (skipped, interior,
@@ -171,14 +174,19 @@ Phases, one line each:
     63 held against use_kernel=False (0.05: its scores are bf16) and the
     plain twin (OUT_ATOL / OUT_RTOL); ms/step, and a torch.profiler split
     of one step (#11, index_put, copies, host gaps) with its busy share.
-11. flash_bwd (run right after flash): the flash-backward kernels (dq +
-    dbias, dk/dv) against flash_backward_plain on the forward kernel's out
-    and lse, bf16 and fp32, over causal + key-padding with a fully masked
-    row, q_offset + kv_len, window, [B,H,T,S] and batch-summed [1,H,T,S]
-    bias (B=3), a head- and a batch-broadcast bias read without dbias, D
-    in {64, 96, 128}, ragged T and S; then at the train shape 2x2048x32x64
-    causal with a key-padding mask, both kernels checked against the plain
-    backward and timed beside it.
+11. flash_bwd (run right after flash): the flash-backward kernels (#6 dq
+    + dbias, #7 dk/dv; bf16 the wgmma/TMA kernels) against
+    flash_backward_plain on the forward kernel's out and lse, bf16 and
+    fp32, over every class of tile in both walks (skipped, interior,
+    boundary at the causal diagonal mid-tile, a window edge and kv_len
+    mid-tile), causal + key-padding with a fully masked row and a causal
+    row whose one key is padding (zero gradients), [B,H,T,S] and
+    batch-summed [1,H,T,S] bias (B=3, D=64/96/128), a head- and a
+    batch-broadcast bias read without dbias, T < 64, D in {64, 96, 128}
+    (128 at T = S = 2048), ragged T and S; then at the train shape
+    2x2048x32x64 causal with a key-padding mask, both kernels checked
+    against the plain backward, bit-equal twice, and timed as device time
+    beside sdpa's backward and the plain backward, with TFLOP/s.
 12. train: the 1.3B UniGPT (24 layers, E=2048, 32 heads, FFN 8192, vocab
     65037, T=2048, bf16 compute / fp32 params, random weights from the
     seed) built by unilm_tpu_torch.cli.train_gpt.build_trainer with the
@@ -484,16 +492,61 @@ def phase_device() -> str:
     return smi
 
 
+PTXAS_SOURCES = ("flash_fwd.cu", "flash_bwd.cu")  # the wgmma kernels
+
+
+def ptxas_entries(text: str) -> list:
+    """(kernel, registers, spill store bytes) per entry of `nvcc -Xptxas
+    -v` output; a kernel reads as name<template args>."""
+    import re
+
+    out, name = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+(flash_\w+?)I(\w*?)EEv",
+                      line)
+        if m:
+            args = re.findall(r"Li(\d+)", m.group(2))
+            kind = ",fp32" if m.group(2).startswith("f") else ""
+            name, spill = f"{m.group(1)}<{','.join(args)}{kind}>", 0
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and name:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.append((name, int(m.group(1)), spill))
+            name = None
+    return out
+
+
 def phase_build() -> None:
     from unilm_tpu_torch.ops import _native
 
     t0 = time.time()
+    nvcc = _native._nvcc()
+    _native.BUILD.mkdir(parents=True, exist_ok=True)
+    ptxas = {src: subprocess.Popen(
+        [nvcc, *_native.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+         str(_native.BUILD / f"ptxas_report.{src}.so"),
+         str(_native.CSRC / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in PTXAS_SOURCES}
     paths = _native.build_all(KERNELS.values())
     for kern in KERNELS.values():
         kern.build()
     names = sorted({p.name for p in paths})
     phase("build", f"{len(names)} libraries built/loaded in "
           f"{time.time() - t0:.1f} s: {', '.join(names)}")
+    for src, proc in ptxas.items():
+        text = proc.communicate()[0]
+        (_native.BUILD / f"ptxas_report.{src}.so").unlink(missing_ok=True)
+        check(proc.returncode == 0, f"build: nvcc -Xptxas -v {src}: {text}")
+        entries = ptxas_entries(text)
+        check(bool(entries), f"build: no ptxas report for {src}: {text}")
+        phase("build", f"ptxas {src}: " + ", ".join(
+            f"{n} {r} registers, {sp} bytes spilled" for n, r, sp in entries))
+        check(all(sp == 0 for _, _, sp in entries)
+              and "serializ" not in text.lower(),
+              f"build: {src} spills or serialises a wgmma: {text}")
 
 
 def phase_flash(fa, g) -> dict:
@@ -1421,9 +1474,19 @@ def grad_close(x: torch.Tensor, ref: torch.Tensor, bound: float):
 
 def phase_flash_bwd(fa, g) -> dict:
     """Kernels #6 and #7 against flash_backward_plain on the same inputs
-    (out and lse from the forward kernel), bf16 and fp32."""
+    (out and lse from the forward kernel), bf16 (the wgmma kernels) and
+    fp32 (the CUDA-core bodies), over every class of tile in both walks:
+    skipped, interior and boundary tiles at the causal diagonal (mid-tile
+    through a q_offset), a window edge and kv_len mid-tile; T < 64, ragged
+    T and S, D = 64, 96 and 128 (128 at T = S = 2048), every bias
+    broadcast, dbias summed over B = 3 (acc_b), dead rows (a fully masked
+    example, a causal row whose one key is padding) with zero gradients.
+    Then the train shape: checked, bit-equal twice, and timed as device
+    time (#6, #7, the pair, sdpa's backward) with TFLOP/s and bounds."""
     dev = "cuda"
-    # (B, T, S, H, D, causal, q_offset, kv_len, window, kpm, bias)
+    # (B, T, S, H, D, causal, q_offset, kv_len, window, kpm, bias); kpm
+    # True: random keys masked and the last example wholly; "first": key 0
+    # of example 1 masked, so its causal row 0 sees no key
     cases = [
         (2, 200, 200, 4, 64, True, 0, None, 0, True, None),
         (2, 70, 263, 4, 96, True, 193, None, 0, False, None),
@@ -1436,6 +1499,17 @@ def phase_flash_bwd(fa, g) -> dict:
         (3, 100, 77, 4, 64, False, 0, None, 0, False, "B1"),  # no dbias
         (3, 90, 90, 2, 96, True, 0, None, 0, True, "1H-"),  # no dbias
         (2, 45, 45, 2, 128, True, 0, None, 0, True, "BH"),
+        # the diagonal 16 rows into a key tile (q_offset 400), q_offset
+        # with a window edge mid-tile, kv_len mid-tile without causal
+        (1, 300, 700, 4, 64, True, 400, None, 0, False, None),
+        (2, 260, 777, 2, 96, True, 517, None, 300, False, "B1"),
+        (2, 200, 500, 4, 128, False, 0, 333, 0, False, None),
+        # T < 64: #6's second consumer holds no row, #7's q walk one tile
+        (3, 33, 33, 4, 64, True, 0, None, 0, "first", None),
+        (2, 50, 190, 4, 96, False, 0, None, 0, False, "BH"),
+        # acc_b at D = 96, and D = 128 at T = S = 2048 (#7's 64-key blocks)
+        (3, 150, 150, 2, 96, True, 0, None, 0, "first", "1H"),
+        (2, 2048, 2048, 2, 128, True, 0, None, 0, True, None),
     ]
     worst = 0.0
     for dtype, bound in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
@@ -1446,7 +1520,10 @@ def phase_flash_bwd(fa, g) -> dict:
             q = rn(B, T, H, D) * D ** -0.5
             k, v, do = rn(B, S, H, D), rn(B, S, H, D), rn(B, T, H, D)
             mask = None
-            if kpm:
+            if kpm == "first":
+                mask = torch.ones(B, S, dtype=torch.bool, device=dev)
+                mask[1, 0] = False
+            elif kpm:
                 mask = torch.rand(B, S, generator=g, device=dev) > 0.3
                 mask[-1] = False  # one batch row fully masked
             b = None
@@ -1482,7 +1559,10 @@ def phase_flash_bwd(fa, g) -> dict:
                 errs.append(f"{name} {e:.3g}/{rel:.2g}")
                 if dtype == torch.bfloat16:
                     worst = max(worst, e)
-            if kpm:
+            if kpm == "first":
+                check(bool((got[0][1, 0] == 0).all()), f"flash_bwd {desc}: "
+                      "the causal row with no key has a dq")
+            elif kpm:
                 check(bool((got[0][-1] == 0).all() and (got[1][-1] == 0).all()),
                       f"flash_bwd {desc}: fully masked row has gradients")
             phase("flash_bwd", f"{desc}: max|err|/rel L2 {', '.join(errs)} ok")
@@ -1535,14 +1615,16 @@ def phase_flash_bwd(fa, g) -> dict:
                                      do, causal=True)
     plain = lambda: fa.flash_backward_plain(q, k, v, None, mask, 0, None,
                                             out, lse, do, causal=True)
-    # the kernels hold against the plain backward at this shape too (a
-    # 32 x 32 x 2 grid of 64-row tiles, 32 key tiles per row at the end)
-    got, ref = pair(), plain()
+    # the kernels hold against the plain backward at this shape too, and
+    # two runs give the same bits
+    got, again, ref = pair(), pair(), plain()
     torch.cuda.synchronize()
     errs = []
-    for name, x, r in zip(("dq", "dk", "dv"), got, ref):
+    for name, x, x2, r in zip(("dq", "dk", "dv"), got, again, ref):
         check(bool(torch.isfinite(x.float()).all()),
               f"flash_bwd train shape: {name} not finite")
+        check(torch.equal(x, x2), f"flash_bwd train shape: {name} differs "
+              "between two runs")
         ok, e, rel = grad_close(x, r, 1e-2)
         check(ok, f"flash_bwd train shape: {name} max|err| {e} rel L2 {rel} "
               "(bound 1e-2)")
@@ -1552,8 +1634,8 @@ def phase_flash_bwd(fa, g) -> dict:
           "fully masked leading rows have a dq")
     phase("flash_bwd", f"{B}x{T}x{H}x{D} causal+kpm bf16 (rows 0-2 of "
           f"example 1 fully masked): max|err|/rel L2 {', '.join(errs)} "
-          "(bound 1e-2) ok")
-    del got, ref
+          "(bound 1e-2), two runs bit-equal ok")
+    del got, again, ref
     mi = mask.to(torch.int32)
     delta = fa._delta(out, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
@@ -1572,20 +1654,6 @@ def phase_flash_bwd(fa, g) -> dict:
             mi.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, T, T, H, D, 0, 0,
             0, T, 1, 0, 1, torch.cuda.current_stream().cuda_stream)
 
-    times = {}
-    for rnd in range(2):
-        for name, fn in (("pair", pair), ("plain", plain)):
-            times[name] = cuda_ms(fn, iters=5)
-    dq_ms, dkv_ms = cuda_ms(dq_only, iters=10), cuda_ms(dkv_only, iters=10)
-    fwd_ms = cuda_ms(lambda: fa.flash_forward(q, k, v, None, mask,
-                                              causal=True), iters=10)
-    flops = 2 * B * H * T * T * D / 2  # one causal T x T x D product
-    phase("flash_bwd", f"{B}x{T}x{H}x{D} causal+kpm bf16: kernel pair "
-          f"{times['pair']:.3f} ms (dq {dq_ms:.3f} ms = "
-          f"{3 * flops / dq_ms / 1e9:.1f} TFLOP/s, dk/dv {dkv_ms:.3f} ms = "
-          f"{4 * flops / dkv_ms / 1e9:.1f} TFLOP/s), plain backward "
-          f"{times['plain']:.3f} ms; forward kernel {fwd_ms:.3f} ms "
-          f"({2 * flops / fwd_ms / 1e9:.1f} TFLOP/s)")
     # the yardstick: one backward call of torch's SDPA on the same rows
     # (causal + the same key-padding mask as a boolean mask), dq, dk and dv
     # together
@@ -1594,24 +1662,52 @@ def phase_flash_bwd(fa, g) -> dict:
     amask = causal[None, None] & mask[:, None, None, :]
     o = sdpa(qg, kg, vg, attn_mask=amask, scale=1.0)
     dot = do.transpose(1, 2)
-    lib_ms = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
-                                                 retain_graph=True), iters=5)
+    sdpa_bwd = lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
+                                           retain_graph=True)
+    # device time, in turns: kernel, library, library, kernel
+    times = {}
+    for name, fn, only in (("dq", dq_only, "flash_bwd_dq_sm90"),
+                           ("dkv", dkv_only, "flash_bwd_dkv_sm90"),
+                           ("pair", pair, None), ("sdpa", sdpa_bwd, None),
+                           ("sdpa2", sdpa_bwd, None), ("pair2", pair, None),
+                           ("dkv2", dkv_only, "flash_bwd_dkv_sm90"),
+                           ("dq2", dq_only, "flash_bwd_dq_sm90")):
+        times[name] = device_ms(fn, only=only)
+    times["plain"] = device_ms(plain, iters=3)
+    fwd_ms = device_ms(lambda: fa.flash_forward(q, k, v, None, mask,
+                                                causal=True),
+                       only="flash_fwd_sm90")
     del o, qg, kg, vg, amask
-    pairs = float(mask.int().cumsum(1).sum()) * H  # visible (query, key)
+    dq_ms, dkv_ms = times["dq"], times["dkv"]
+    lib_ms = times["sdpa"]
+    pairs = causal_pairs(mask, H)  # visible (query, key)
+    product = 2 * pairs * D  # operations of one product over them
     ins = nbytes(q, k, v, do, lse, delta, mi)
-    bd_dq = roofline(ins + nbytes(dq), 3 * 2 * pairs * D)
-    bd_dkv = roofline(ins + nbytes(dk, dv), 4 * 2 * pairs * D)
-    phase("flash_bwd", f"sdpa backward (dq, dk, dv) {lib_ms:.3f} ms; bounds "
-          f"dq {bd_dq['bound_ms']:.4f} ms ({bd_dq['bound_by']}), dk/dv "
-          f"{bd_dkv['bound_ms']:.4f} ms ({bd_dkv['bound_by']})")
+    bd_dq = roofline(ins + nbytes(dq), 3 * product)
+    bd_dkv = roofline(ins + nbytes(dk, dv), 4 * product)
+    tf = lambda n, ms: n * product / ms / 1e9
+    phase("flash_bwd", f"{B}x{T}x{H}x{D} causal+kpm bf16, device time: #6 "
+          f"dq {dq_ms:.4f} / {times['dq2']:.4f} ms ({tf(3, dq_ms):.1f} "
+          f"TFLOP/s; bound {bd_dq['bound_ms']:.4f} ms, {bd_dq['bound_by']}), "
+          f"#7 dk/dv {dkv_ms:.4f} / {times['dkv2']:.4f} ms "
+          f"({tf(4, dkv_ms):.1f} TFLOP/s; bound {bd_dkv['bound_ms']:.4f} ms, "
+          f"{bd_dkv['bound_by']}); #6 + #7 {dq_ms + dkv_ms:.4f} ms "
+          f"({tf(7, dq_ms + dkv_ms):.1f} TFLOP/s), the wrapper's pair with "
+          f"delta {times['pair']:.4f} / {times['pair2']:.4f} ms; sdpa "
+          f"backward (dq, dk, dv) {lib_ms:.4f} / {times['sdpa2']:.4f} ms; "
+          f"pair / sdpa {(dq_ms + dkv_ms) / lib_ms:.2f}; plain backward "
+          f"{times['plain']:.4f} ms; forward #1 {fwd_ms:.4f} ms")
     common = {"route": "cuda", "source": "unilm_tpu_torch/csrc/flash_bwd.cu",
               "max_abs_err": worst, "plain_ms": times["plain"],
               "pair_ms": times["pair"], "library_ms": lib_ms,
-              "shape": f"{B}x{T}x{H}x{D} causal+kpm bf16 (plain_ms is the "
-              "whole plain backward, library_ms one sdpa backward)"}
+              "shape": f"{B}x{T}x{H}x{D} causal+kpm bf16, device time "
+              "(plain_ms is the whole plain backward, library_ms one sdpa "
+              "backward, pair_ms both kernels with delta)"}
     return [dict(common, name="flash_bwd_dq", ms=dq_ms, **bd_dq,
+                 tflops=tf(3, dq_ms),
                  replaces="unilm_tpu/ops/flash_attention.py:1235"),
             dict(common, name="flash_bwd_dkv", ms=dkv_ms, **bd_dkv,
+                 tflops=tf(4, dkv_ms),
                  replaces="unilm_tpu/ops/flash_attention.py:1381")]
 
 
@@ -3978,8 +4074,9 @@ def phase_train(fa, layers: int = 24) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     groups = [("flash_fwd #1", ["flash_fwd_sm90", "flash_fwd_fp32"]),
-              ("flash_bwd_dq #6", ["flash_bwd_dq_kernel"]),
-              ("flash_bwd_dkv #7", ["flash_bwd_dkv_kernel"]),
+              ("flash_bwd_dq #6", ["flash_bwd_dq_sm90", "flash_bwd_dq_kernel"]),
+              ("flash_bwd_dkv #7", ["flash_bwd_dkv_sm90",
+                                    "flash_bwd_dkv_kernel"]),
               ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
                           "splitK"])]
     mb = batch[0]

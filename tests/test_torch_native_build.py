@@ -176,3 +176,53 @@ def test_flash_fwd_argtypes_unchanged():
     P, I = _native.P, _native.I
     assert tfa.KERNEL.source.name == "flash_fwd.cu"
     assert tfa.KERNEL.functions == {"flash_fwd": [P] * 7 + [I] * 12 + [P]}
+
+
+def test_flash_bwd_hash_covers_its_headers(fake):
+    """kernels #6/#7's library is keyed by every csrc/*.cuh that
+    flash_bwd.cu includes: the Hopper primitives (hopper.cuh), the fp32
+    bodies (flash_bwd.cuh, which #8 shares) and what they include; an edit
+    of hopper.cuh or flash_bwd.cuh rebuilds flash_bwd.cu with the other
+    libraries that include the header, and no other."""
+    import shutil
+
+    fake_csrc, compiles = fake
+    real = _native._PKG / "csrc"
+    names = {p.name for p in _native._headers(real / "flash_bwd.cu")}
+    assert {"hopper.cuh", "flash_bwd.cuh", "flash_common.cuh",
+            "mma_common.cuh"} <= names
+    assert all((real / n).exists() for n in names)
+    for p in real.iterdir():
+        shutil.copy(p, fake_csrc / p.name)
+    kernels = [_native.CudaKernel(p.name, {})
+               for p in sorted(fake_csrc.glob("*.cu"))]
+    _native.build_all(kernels)
+    assert "flash_bwd.cu" in compiles()
+    for header in ("hopper.cuh", "flash_bwd.cuh"):
+        users = sorted(p.name for p in real.glob("*.cu")
+                       if real / header in _native._headers(p))
+        assert "flash_bwd.cu" in users
+        before = _native.CudaKernel("flash_bwd.cu", {}).so_path()
+        path = fake_csrc / header
+        path.write_text(path.read_text() + "// edited\n")
+        _native.build_all(kernels)
+        assert compiles() == users
+        assert _native.CudaKernel("flash_bwd.cu", {}).so_path() != before
+    assert "flash_bwd_fused.cu" in users  # #8's fp32 path shares the body
+
+
+def test_flash_bwd_argtypes_unchanged():
+    """The C entries of kernels #6 and #7 keep their interface, which the
+    ring's chunked backward relies on (out and lse from the caller):
+    q, k, v, dout, lse, delta, bias, mask, then dq, dbias (#6) or dk, dv
+    (#7) as pointers; B, T, S, H, D, bias_sb, bias_sh, q_offset, limit,
+    causal, window, [acc_b,] dtype as ints; then the stream."""
+    from unilm_tpu_torch.ops import flash_attention as tfa
+
+    P, I = _native.P, _native.I
+    assert tfa.BWD_KERNEL_DQ.source.name == "flash_bwd.cu"
+    assert tfa.BWD_KERNEL_DKV.source.name == "flash_bwd.cu"
+    assert tfa.BWD_KERNEL_DQ.functions == {
+        "flash_bwd_dq": [P] * 10 + [I] * 13 + [P]}
+    assert tfa.BWD_KERNEL_DKV.functions == {
+        "flash_bwd_dkv": [P] * 10 + [I] * 12 + [P]}

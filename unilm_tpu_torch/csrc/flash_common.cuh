@@ -92,6 +92,53 @@ __device__ __forceinline__ int key_tiles_end(int t0, int rows, int cols, int q_o
     return end;
 }
 
+// The tile walks of the Hopper flash kernels. They compute the rules of
+// ops/flash_attention.py's `flash_tile_plan` and `flash_bwd_tile_plan`,
+// which tests/test_torch_flash_tiles.py holds against the keep mask:
+// change both together.
+//
+// key_walk: the key tiles [jb, je) of BK keys that query rows at absolute
+// positions lo .. hi can see (#1, #6).
+template <int BK>
+__device__ __forceinline__ void key_walk(int lo, int hi, int limit, int causal, int window,
+                                         int& jb, int& je) {
+    int k_end = limit;
+    if (causal) k_end = min(k_end, hi + 1);
+    const int k_begin = window > 0 ? max(0, lo - window + 1) : 0;
+    jb = k_begin / BK;
+    je = k_end > 0 ? (k_end + BK - 1) / BK : 0;
+    je = max(je, jb);
+}
+
+// Is every (row, key) pair of the key tile at c0 visible to rows lo .. hi,
+// before the padding mask? Such a tile is interior, the rest boundary.
+template <int BK>
+__device__ __forceinline__ bool tile_interior(int c0, int lo, int hi, int limit, int causal,
+                                              int window) {
+    return c0 + BK <= limit && (!causal || c0 + BK - 1 <= lo) &&
+           (window <= 0 || hi - c0 < window);
+}
+
+// q_walk: the transpose (#7): the q tiles [ib, ie) of BQ rows whose
+// key_walk holds the key tile c_lo .. c_hi, for T rows from q_offset.
+template <int BQ>
+__device__ __forceinline__ void q_walk(int c_lo, int c_hi, int T, int q_offset, int limit,
+                                       int causal, int window, int& ib, int& ie) {
+    const int nq = (T + BQ - 1) / BQ;
+    ib = ie = 0;
+    if (c_lo >= limit) return;
+    if (causal) {  // the tile's first key at or before some row of the q tile
+        const int d = c_lo - q_offset;
+        ib = d >= T ? nq : max(d, 0) / BQ;
+    }
+    ie = nq;
+    if (window > 0) {  // the q tile's first row within the window of the last key
+        const int x = c_hi + window - q_offset;
+        ie = min(nq, x > 0 ? (x + BQ - 1) / BQ : 0);
+    }
+    ie = max(ie, ib);
+}
+
 // Turn-taking over one counter per dq row tile (kernel #8): the blocks that
 // add into the tile do so in a fixed order, so the fp32 sum, and the bits,
 // are the same in every run. A block waits until `target` blocks have

@@ -102,42 +102,7 @@ constexpr int THREADS = 384;     // producer warpgroup + two consumer warpgroups
 constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 constexpr float LOG2E = 1.4426950408889634f;
 
-// 2^x as one MUFU instruction: exp2f wraps it in a fix-up for subnormal
-// results, several more instructions per probability; probabilities below
-// 2^-126 flush to 0.
-__device__ __forceinline__ float ex2(float x) {
-    float y;
-    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-    return y;
-}
-
-// The key tiles [jb, je) that query rows at absolute positions lo .. hi
-// can see. The same rule as `flash_tile_plan` in ops/flash_attention.py,
-// which tests/test_torch_flash_tiles.py holds against the keep mask:
-// change both together.
-__device__ __forceinline__ void walk(int lo, int hi, int limit, int causal, int window,
-                                     int& jb, int& je) {
-    int k_end = limit;
-    if (causal) k_end = min(k_end, hi + 1);
-    const int k_begin = window > 0 ? max(0, lo - window + 1) : 0;
-    jb = k_begin / BK;
-    je = k_end > 0 ? (k_end + BK - 1) / BK : 0;
-    je = max(je, jb);
-}
-
-// Is every (row, key) pair of the key tile at c0 visible to rows lo .. hi,
-// before the padding mask? (`flash_tile_plan`'s interior rule.)
-__device__ __forceinline__ bool interior(int c0, int lo, int hi, int limit, int causal,
-                                         int window) {
-    return c0 + BK <= limit && (!causal || c0 + BK - 1 <= lo) &&
-           (window <= 0 || hi - c0 < window);
-}
-
-template <int D> struct Geo {
-    static constexpr int CW = D % 64 == 0 ? 64 : 32;  // columns per TMA box
-    static constexpr int CB = CW * 2;                  // a box row's bytes = the swizzle span
-    static constexpr int NC = D / CW;                  // boxes across D
-    static constexpr uint64_t SWZ = CB == 128 ? sm90::SW128 : sm90::SW64;
+template <int D> struct Geo : sm90::Cols<D> {     // CW, CB, NC, SWZ: the TMA boxes
     static constexpr int NST = D == 128 ? 2 : 3;       // stages of the K/V ring
     static constexpr int Q_BYTES = BQ * D * 2;
     static constexpr int KV_BYTES = BK * D * 2;        // one K or one V tile
@@ -159,16 +124,6 @@ struct Params {
     float* lse;
     int T, S, H, nq, bias_sb, bias_sh, q_offset, limit, causal, window;
 };
-
-template <int D>
-__device__ __forceinline__ void pv_product(float* o, const uint32_t* a, uint64_t desc) {
-    if constexpr (D == 64)
-        sm90::wgmma_rs_n64(o, a, desc);
-    else if constexpr (D == 96)
-        sm90::wgmma_rs_n96(o, a, desc);
-    else
-        sm90::wgmma_rs_n128(o, a, desc);
-}
 
 template <int D>
 __device__ __forceinline__ void producer(const CUtensorMap* tq, const CUtensorMap* tk,
@@ -235,7 +190,7 @@ __device__ __forceinline__ void consumer(const Params& p, uint8_t* smem, int cw,
     const int nvalid = min(CROWS, p.T - row0);  // its rows < T (may be <= 0)
     const int lo = p.q_offset + row0, hi = lo + nvalid - 1;
     int cjb = 0, cje = 0;
-    if (nvalid > 0) walk(lo, hi, p.limit, p.causal, p.window, cjb, cje);
+    if (nvalid > 0) key_walk<BK>(lo, hi, p.limit, p.causal, p.window, cjb, cje);
 
     const uint32_t q_base = smem_addr(smem) + cw * CROWS * G::CB;
     const bf16* bias_bh =
@@ -262,11 +217,8 @@ __device__ __forceinline__ void consumer(const Params& p, uint8_t* smem, int cw,
             for (int c = 0; c < G::NC; ++c)
 #pragma unroll
                 for (int kk = 0; kk < G::CW / 16; ++kk)
-                    sm90::wgmma_ss_n128(
-                        sc,
-                        sm90::make_desc(q_base + c * BQ * G::CB + kk * 32, 16, 8 * G::CB, G::SWZ),
-                        sm90::make_desc(k_base + c * BK * G::CB + kk * 32, 16, 8 * G::CB, G::SWZ),
-                        c | kk);
+                    sm90::wgmma_ss_n128(sc, sm90::kmajor_desc<D, BQ>(q_base, c, kk),
+                                        sm90::kmajor_desc<D, BK>(k_base, c, kk), c | kk);
             sm90::wgmma_commit();
             sm90::wgmma_wait<0>();
 
@@ -298,7 +250,7 @@ __device__ __forceinline__ void consumer(const Params& p, uint8_t* smem, int cw,
                         }
                 }
             }
-            if (!interior(c0, lo, hi, p.limit, p.causal, p.window)) {
+            if (!tile_interior<BK>(c0, lo, hi, p.limit, p.causal, p.window)) {
 #pragma unroll
                 for (int hh = 0; hh < 2; ++hh) {
                     const int row = lo + 16 * w + r8 + 8 * hh;
@@ -340,14 +292,14 @@ __device__ __forceinline__ void consumer(const Params& p, uint8_t* smem, int cw,
                 mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
                 const float m_new = fmaxf(m[hh], mx);
                 const float m_use = m_new == -INFINITY ? 0.f : m_new;
-                const float alpha = ex2((m[hh] - m_use) * LOG2E);
+                const float alpha = sm90::ex2((m[hh] - m_use) * LOG2E);
                 const float ms = m_use * LOG2E;
                 m[hh] = m_new;
                 float sum = 0.f;
 #pragma unroll
                 for (int nn = 0; nn < 16; ++nn) {
-                    const float p0 = ex2(fmaf(sc[4 * nn + 2 * hh], LOG2E, -ms));
-                    const float p1 = ex2(fmaf(sc[4 * nn + 2 * hh + 1], LOG2E, -ms));
+                    const float p0 = sm90::ex2(fmaf(sc[4 * nn + 2 * hh], LOG2E, -ms));
+                    const float p1 = sm90::ex2(fmaf(sc[4 * nn + 2 * hh + 1], LOG2E, -ms));
                     sum += p0 + p1;
                     pa[4 * (nn >> 1) + 2 * (nn & 1) + hh] = pack(p0, p1);
                 }
@@ -363,9 +315,7 @@ __device__ __forceinline__ void consumer(const Params& p, uint8_t* smem, int cw,
             sm90::wgmma_fence();
 #pragma unroll
             for (int kk = 0; kk < BK / 16; ++kk)
-                pv_product<D>(o, pa + 4 * kk,
-                              sm90::make_desc(v_base + kk * 16 * G::CB, BK * G::CB, 8 * G::CB,
-                                              G::SWZ));
+                sm90::wgmma_rs<D>(o, pa + 4 * kk, sm90::mnmajor_desc<D, BK>(v_base, kk));
             sm90::wgmma_commit();
             sm90::wgmma_wait<0>();
         }
@@ -418,8 +368,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     const int b = bh / p.H, h = bh % p.H, q0 = qt * BQ;
 
     int jb, je;
-    walk(p.q_offset + q0, p.q_offset + min(q0 + BQ, p.T) - 1, p.limit, p.causal, p.window, jb,
-         je);
+    key_walk<BK>(p.q_offset + q0, p.q_offset + min(q0 + BQ, p.T) - 1, p.limit, p.causal,
+                 p.window, jb, je);
 
     uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
     if (threadIdx.x == 0) {
@@ -442,52 +392,18 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     }
 }
 
-// cuTensorMapEncodeTiled, looked up in libcuda at run time (no -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-    static EncodeTiled fn = nullptr;
-    if (!fn) {
-        void* ptr = nullptr;
-        cudaDriverEntryPointQueryResult res;
-        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res) ==
-                cudaSuccess &&
-            res == cudaDriverEntryPointSuccess)
-            fn = reinterpret_cast<EncodeTiled>(ptr);
-    }
-    return fn;
-}
-
-// [B, R, H, D] bf16 as the 4-D map (D, H, R, B), box (CW, 1, 128, 1)
-template <int D>
-bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int B, int R, int H) {
-    using G = Geo<D>;
-    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)R, (cuuint64_t)B};
-    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
-                                   (cuuint64_t)R * H * D * 2};
-    const cuuint32_t box[4] = {(cuuint32_t)G::CW, 1, 128, 1};
-    const cuuint32_t elem[4] = {1, 1, 1, 1};
-    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               G::CB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* bias,
                    const int* mask, void* out, float* lse, int B, int T_, int S, int H,
                    int bias_sb, int bias_sh, int q_offset, int limit, int causal, int window,
                    cudaStream_t stream) {
     using G = Geo<D>;
-    EncodeTiled enc = encode_tiled();
+    sm90::EncodeTiled enc = sm90::encode_tiled();
     if (!enc) return cudaErrorNotSupported;
     CUtensorMap tq, tk, tv;
-    if (!make_map<D>(enc, &tq, q, B, T_, H) || !make_map<D>(enc, &tk, k, B, S, H) ||
-        !make_map<D>(enc, &tv, v, B, S, H))
+    if (!sm90::make_map<D>(enc, &tq, q, B, T_, H, BQ) ||
+        !sm90::make_map<D>(enc, &tk, k, B, S, H, BK) ||
+        !sm90::make_map<D>(enc, &tv, v, B, S, H, BK))
         return cudaErrorInvalidValue;
     Params p{static_cast<const bf16*>(bias), mask, static_cast<bf16*>(out), lse, T_, S, H,
              (T_ + BQ - 1) / BQ, bias_sb, bias_sh, q_offset, limit, causal, window};

@@ -2,10 +2,12 @@
 // TMA tile loads from a CUtensorMap, wgmma shared-memory descriptors and
 // the bf16 wgmma products with fp32 accumulators, setmaxnreg and named
 // barriers, written in PTX as the PTX ISA defines it; no CUTLASS.
-// Shared-memory addresses come from mma_common.cuh's smem_addr.
+// Shared-memory addresses come from mma_common.cuh's smem_addr. Users:
+// csrc/flash_fwd.cu (#1) and csrc/flash_bwd.cu (#6, #7).
 //
 // The host side takes cuTensorMapEncodeTiled through
-// cudaGetDriverEntryPoint, so the libraries need no -lcuda.
+// cudaGetDriverEntryPoint, so the libraries need no -lcuda, and encodes
+// the 4-D maps of [B, rows, H, D] bf16 tensors the kernels load from.
 
 #pragma once
 
@@ -60,6 +62,15 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     const unsigned long long t0 = globaltimer_ns();
     while (!mbar_try_wait(addr, parity))
         if (globaltimer_ns() - t0 > 10000000000ull) __trap();
+}
+
+// 2^x as one MUFU instruction: exp2f wraps it in a fix-up for subnormal
+// results, several more instructions per value; results below 2^-126
+// flush to 0, and 2^-inf is 0.
+__device__ __forceinline__ float ex2(float x) {
+    float y;
+    asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+    return y;
 }
 
 // ---- TMA ------------------------------------------------------------------
@@ -117,6 +128,34 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo, uint
            ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (swizzle << 62);
 }
 
+// A [rows, D] bf16 tile in shared memory as NC boxes of CW columns, box c
+// holding [rows, CB bytes] at c * rows * CB, with the swizzle whose span is
+// CB: 128-byte swizzle at D = 64 and 128; D = 96 takes three 32-column
+// boxes with the 64-byte swizzle (192-byte rows fit no 128-byte atom).
+template <int D> struct Cols {
+    static_assert(D == 64 || D == 96 || D == 128, "head dim");
+    static constexpr int CW = D % 64 == 0 ? 64 : 32;
+    static constexpr int CB = CW * 2;
+    static constexpr int NC = D / CW;
+    static constexpr uint64_t SWZ = CB == 128 ? SW128 : SW64;
+};
+
+// The descriptor of k-step kk (16 columns) of box c of such a tile of R
+// rows, read K-major from its first row at `base`.
+template <int D, int R>
+__device__ __forceinline__ uint64_t kmajor_desc(uint32_t base, int c, int kk) {
+    using C = Cols<D>;
+    return make_desc(base + c * R * C::CB + kk * 32, 16, 8 * C::CB, C::SWZ);
+}
+
+// The descriptor of k-step kk (rows 16 kk ..) of such a tile of R rows,
+// read MN-major (the transpose bit): rows are K, the D columns N.
+template <int D, int R>
+__device__ __forceinline__ uint64_t mnmajor_desc(uint32_t base, int kk) {
+    using C = Cols<D>;
+    return make_desc(base + kk * 16 * C::CB, R * C::CB, 8 * C::CB, C::SWZ);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
     asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -157,6 +196,24 @@ __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db
           "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
         : "l"(da), "l"(db), "r"(accumulate));
 }
 
@@ -224,6 +281,57 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
           "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D[64 x N] += A[64 x 16] B[16 x N] for N = a head dim, A in registers
+// (bf16 pairs), B MN-major in shared memory
+template <int N> __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
+    if constexpr (N == 64)
+        wgmma_rs_n64(d, a, db);
+    else if constexpr (N == 96)
+        wgmma_rs_n96(d, a, db);
+    else
+        wgmma_rs_n128(d, a, db);
+}
+
+// ---- host: tensor maps ----------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up in libcuda at run time (no -lcuda)
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+    static EncodeTiled fn = nullptr;
+    if (!fn) {
+        void* ptr = nullptr;
+        cudaDriverEntryPointQueryResult res;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &res) ==
+                cudaSuccess &&
+            res == cudaDriverEntryPointSuccess)
+            fn = reinterpret_cast<EncodeTiled>(ptr);
+    }
+    return fn;
+}
+
+// [B, R, H, D] bf16 as the 4-D map (D, H, R, B) with box (CW, 1, rows, 1)
+// and Cols<D>'s swizzle: a box never crosses a head or a batch, and rows
+// past R read as zeros.
+template <int D>
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int B, int R, int H,
+              int rows) {
+    using C = Cols<D>;
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)R, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                   (cuuint64_t)R * H * D * 2};
+    const cuuint32_t box[4] = {(cuuint32_t)C::CW, 1, (cuuint32_t)rows, 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               C::CB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace sm90

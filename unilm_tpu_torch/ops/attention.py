@@ -28,10 +28,15 @@ tensor's device decides:
   causal calls without a window, to XLA (ops/attention.py:139,
   :203-208); the port sends them to flash, so under the selector they
   take #5 (YOCO's decode steps, and its cross layers over a 256-slot
-  cache). The function is the same. The doc kernel's VMEM admissibility
-  is a TPU budget and is not carried: some shapes the TPU sends to #9 (a
-  mid-size S with no mask) take #3 here, which computes the same function
-  there. Dropout raises NotImplementedError naming its ROADMAP entry.
+  cache). The function is the same except on a query row with no visible
+  key (a causal row whose keys are all padding): the flash kernels give
+  it out = 0, as JAX's own flash kernels do, where JAX's XLA path and
+  the port's plain path give the mean of v over all S keys
+  (tests/test_torch_dead_rows.py pins both). The doc kernel's VMEM
+  admissibility is a TPU budget and is not carried: some shapes the TPU
+  sends to #9 (a mid-size S with no mask) take #3 here, which computes
+  the same function there. Dropout raises NotImplementedError naming its
+  ROADMAP entry.
 - A head-major bias on the plain path is permuted to [B, H, T, S] (a
   view), as the JAX dispatcher does where its kernel does not apply.
 """

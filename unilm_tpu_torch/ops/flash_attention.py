@@ -191,16 +191,17 @@ def _keep_mask(T, S, q_offset, limit, causal, window, mask, device):
 
 def flash_tile_plan(T: int, S: int, q_offset: int, limit: int, causal: bool,
                     window: int, BQ: int, BK: int):
-    """Kernel #1's tile classification (csrc/flash_fwd.cu `walk` and
-    `interior`, which compute the same rule: change both together): for
-    each q tile of BQ rows, (j_begin, j_end, interior). Key tiles of BK
-    keys outside [j_begin, j_end) are skipped: the walk never visits them
-    and they hold no visible pair. interior[j - j_begin] is True for a tile
+    """Kernel #1's and #6's tile classification (csrc/flash_common.cuh
+    `key_walk` and `tile_interior`, which compute the same rule: change
+    both together): for each q tile of BQ rows, (j_begin, j_end,
+    interior). Key tiles of BK keys outside [j_begin, j_end) are skipped:
+    the walk never visits them and they hold no visible pair.
+    interior[j - j_begin] is True for a tile
     whose every (row, key) pair is visible before the key-padding mask,
     which then takes the mask-free body; the rest are boundary tiles.
     Rows >= T do not count; `limit` is the valid kv prefix. The kernel
     walks a 128-row block's plan and classifies by each consumer's 64
-    rows, the plan at BQ = 64."""
+    rows, the plan at BQ = 64; #6 walks 64-key tiles the same way."""
     limit = min(limit, S)
     plan = []
     for i in range(_cdiv(T, BQ)):
@@ -215,6 +216,42 @@ def flash_tile_plan(T: int, S: int, q_offset: int, limit: int, causal: bool,
             and (window <= 0 or hi - c0 < window)
             for c0 in range(j_begin * BK, j_end * BK, BK)]
         plan.append((j_begin, j_end, interior))
+    return plan
+
+
+def flash_bwd_tile_plan(T: int, S: int, q_offset: int, limit: int,
+                        causal: bool, window: int, BQ: int, BK: int):
+    """Kernel #7's tile walk, the transpose of `flash_tile_plan` (csrc/
+    flash_common.cuh `q_walk` computes the same rule: change both together):
+    for each key tile of BK keys, (i_begin, i_end, interior) over the q
+    tiles of BQ rows. Key tile j is in q tile i's walk of `flash_tile_plan`
+    exactly when i_begin <= i < i_end, and interior[i - i_begin] is that
+    plan's interior flag for (i, j). The kernel walks a block's key tiles
+    (64 keys per consumer warpgroup) as one tile of their width."""
+    limit = min(limit, S)
+    nq = _cdiv(T, BQ)
+    plan = []
+    for c0 in range(0, S, BK):
+        c_last = c0 + BK - 1
+        if c0 >= limit:
+            i_begin = i_end = 0
+        else:
+            i_begin = 0
+            if causal:  # the tile's first key must be <= a row's last row
+                d = c0 - q_offset
+                i_begin = nq if d >= T else max(d, 0) // BQ
+            i_end = nq
+            if window > 0:  # a tile's first row within window of the last key
+                i_end = min(nq, max(_cdiv(c_last + window - q_offset, BQ), 0))
+            i_end = max(i_end, i_begin)
+        interior = []
+        for i in range(i_begin, i_end):
+            lo = q_offset + i * BQ
+            hi = q_offset + min(T, (i + 1) * BQ) - 1
+            interior.append(c0 + BK <= limit
+                            and (not causal or c_last <= lo)
+                            and (window <= 0 or hi - c0 < window))
+        plan.append((i_begin, i_end, interior))
     return plan
 
 
