@@ -8,9 +8,9 @@ Phases, one line each:
     (nvidia-smi); turns TF32 off for matmul and cuDNN.
  2. build: compiles the hand-written kernels from unilm_tpu_torch/csrc/,
     one nvcc per source, all started together; beside them `nvcc -Xptxas
-    -v` on the wgmma sources (flash_fwd.cu, flash_bwd.cu) prints each
-    kernel's registers and spill bytes and fails on a spill or a
-    serialised wgmma.
+    -v` on the wgmma sources (flash_fwd.cu, flash_bwd.cu, flash_tri.cu,
+    encoder_attention.cu) prints each kernel's registers and spill bytes
+    and fails on a spill or a serialised wgmma.
  3. flash: the flash-forward kernel (#1; bf16 is the wgmma/TMA kernel)
     against its plain version, bf16, over causal/offset/kv_len/key-padding/
     bias/window cases that hit each class of key tile (skipped, interior,
@@ -36,8 +36,10 @@ Phases, one line each:
     (<= 1e-4), out and lse: T = S in {1, 63, 64, 65, 160, 1000, 2048}, D
     in {64, 96, 128}, with and without a key-padding mask (one example's
     row 0 sees no key: out 0, lse 0), bias None, [B,H,T,S], [1,H,T,S],
-    [B,1,T,S]; then the train shape 2x2048x32x64 causal+kpm, timed beside
-    #1 on the same inputs, the plain twin and sdpa(is_causal=True).
+    [B,1,T,S]; bf16 also at T in {127, 128, 129, 255, 257} with and
+    without the mask (the 128-row tiles' edges); then the train shape
+    2x2048x32x64 causal+kpm, bit-equal twice, device time in two turns
+    beside #1 on the same inputs, the plain twin and sdpa(is_causal=True).
     flash_bwd_fused (right after flash_bwd): the one-pass backward (#8)
     against flash_backward_fused_plain on #1's out and lse, bf16 and fp32,
     dq/dk/dv: causal + key-padding with a fully masked row, q_offset +
@@ -54,9 +56,11 @@ Phases, one line each:
     encoder_attn (run after flash_bwd): the fused encoder attention
     kernel (#3) against its plain version, bf16 (relative L2 <= 1e-2) and
     fp32 (<= 1e-4): bias None, [1,1,T,S], [1,H,T,S], [B,H,T,S], ragged
-    T != S, D in {64, 96, 128}, S up to 2048, BEiT-B 128x197x12x64 and
-    BEiT-L/384 64x577x16x64; timed at BEiT-B beside the plain version and
-    torch's scaled_dot_product_attention.
+    T != S, D in {64, 96, 128}, S up to 2048, S in {208, 256, 257} (the
+    bf16 kernel's whole-row and streamed plans), BEiT-B 128x197x12x64 and
+    BEiT-L/384 64x577x16x64; device time at BEiT-B and BEiT-L/384 in two
+    turns beside torch's scaled_dot_product_attention, the plain version
+    and the bound.
     doc_attn (after encoder_bwd): the doc attention kernel (#9) against
     doc_attention_plain, bf16 (relative L2 <= 1e-2) and fp32 (<= 1e-4):
     bias None, [1,1,T,S], [1,H,T,S], [B,H,T,S], head-major [H,B,T,S] and
@@ -492,7 +496,9 @@ def phase_device() -> str:
     return smi
 
 
-PTXAS_SOURCES = ("flash_fwd.cu", "flash_bwd.cu")  # the wgmma kernels
+# the wgmma kernels
+PTXAS_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_tri.cu",
+                 "encoder_attention.cu")
 
 
 def ptxas_entries(text: str) -> list:
@@ -502,8 +508,8 @@ def ptxas_entries(text: str) -> list:
 
     out, name = [], None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d+(flash_\w+?)I(\w*?)EEv",
-                      line)
+        m = re.search(r"Compiling entry function "
+                      r"'\w*?\d+((?:flash|encoder)_\w+?)I(\w*?)EEv", line)
         if m:
             args = re.findall(r"Li(\d+)", m.group(2))
             kind = ",fp32" if m.group(2).startswith("f") else ""
@@ -884,10 +890,13 @@ def phase_flash_tri(fa, g) -> dict:
     1e-2) and fp32 (<= 1e-4), out and lse: T = S in {1, 63, 64, 65, 160,
     1000, 2048}, D in {64, 96, 128}, with and without a key-padding mask
     (example 1's first key masked, so its row 0 sees no key), bias None,
-    [B,H,T,S], [1,H,T,S], [B,1,T,S]; then the train shape, timed beside #1
-    at the same shape, the plain twin and sdpa(is_causal=True)."""
+    [B,H,T,S], [1,H,T,S], [B,1,T,S]; bf16 also at the 128-row tiles' edges,
+    T in {127, 128, 129, 255, 257} with and without the mask; then the
+    train shape, device time in two turns beside #1 on the same inputs,
+    the plain twin and sdpa(is_causal=True)."""
     dev = "cuda"
     Ts, Ds = (1, 63, 64, 65, 160, 1000, 2048), (64, 96, 128)
+    edges = (127, 128, 129, 255, 257)
     biases = (None, "BH", "1H", "B1")
     B, H = 2, 4
     worst = 0.0
@@ -895,9 +904,12 @@ def phase_flash_tri(fa, g) -> dict:
         def rn(*shape):
             return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
-        for i in range(14):  # every T twice, every D, mask and bias kind
-            T, D = Ts[i % 7], Ds[i % 3]
-            kpm, bias = bool(i % 2), biases[(i // 2) % 4]
+        cases = [(Ts[i % 7], Ds[i % 3], bool(i % 2), biases[(i // 2) % 4])
+                 for i in range(14)]  # every T twice, every D, mask and bias
+        if dtype == torch.bfloat16:
+            cases += [(T, Ds[i % 3], kpm, biases[i % 4])
+                      for i, T in enumerate(edges) for kpm in (False, True)]
+        for T, D, kpm, bias in cases:
             q, k, v = rn(B, T, H, D) * D ** -0.5, rn(B, T, H, D), rn(B, T, H, D)
             mask = None
             if kpm:
@@ -937,27 +949,42 @@ def phase_flash_tri(fa, g) -> dict:
           f"flash_tri train shape: rel L2 out {r_o} lse {r_l}")
     worst = max(worst, float((out.float() - ref.float()).abs().max()))
     del ref, ref_lse
-    ms = cuda_ms(lambda: fa.flash_forward_tri(q, k, v, None, mask))
-    fwd_ms = cuda_ms(lambda: fa.flash_forward(q, k, v, None, mask,
-                                              causal=True))
-    plain_ms = cuda_ms(lambda: fa.flash_forward_tri_plain(q, k, v, None, mask),
-                       iters=3)
-    lib_ms = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, scale=1.0))
-    ms2 = cuda_ms(lambda: fa.flash_forward_tri(q, k, v, None, mask))
+    again, _ = fa.flash_forward_tri(q, k, v, None, mask)
+    check(torch.equal(out, again), "flash_tri: two runs at the train shape "
+          "differ")
+    # device time in two turns: #2, #1, then #1, #2
+    calls = {
+        "tri": (lambda: fa.flash_forward_tri(q, k, v, None, mask),
+                "flash_tri_sm90"),
+        "fwd": (lambda: fa.flash_forward(q, k, v, None, mask, causal=True),
+                "flash_fwd_sm90")}
+    turns = {key: [] for key in calls}
+    for order in (("tri", "fwd"), ("fwd", "tri")):
+        for key in order:
+            fn, name = calls[key]
+            turns[key].append(device_ms(fn, only=name))
+    ms, fwd_ms = min(turns["tri"]), min(turns["fwd"])
+    plain_ms = device_ms(lambda: fa.flash_forward_tri_plain(q, k, v, None, mask),
+                         iters=3)
+    lib_ms = device_ms(lambda: sdpa(q, k, v, is_causal=True, scale=1.0))
     pairs = causal_pairs(mask, H)
     bd = roofline(nbytes(q, k, v, mask, out, lse), 4 * pairs * D)
+    tflops = 4 * pairs * D / ms / 1e9
     phase("flash_tri", f"{B}x{T}x{H}x{D} causal+kpm bf16: rel L2 out "
-          f"{r_o:.2e} lse {r_l:.2e}; kernel #2 {ms:.4f} / {ms2:.4f} ms "
-          f"({4 * pairs * D / ms / 1e9:.1f} TFLOP/s), #1 {fwd_ms:.4f} ms, "
-          f"plain twin {plain_ms:.4f} ms, sdpa(is_causal) {lib_ms:.4f} ms, "
-          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+          f"{r_o:.2e} lse {r_l:.2e}, two runs bit-equal; device time: kernel "
+          f"#2 {turns['tri'][0]:.4f} / {turns['tri'][1]:.4f} ms ({tflops:.1f} "
+          f"TFLOP/s), #1 on the same inputs {turns['fwd'][0]:.4f} / "
+          f"{turns['fwd'][1]:.4f} ms, plain twin {plain_ms:.4f} ms, "
+          f"sdpa(is_causal) {lib_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']}); #2 / #1 {ms / fwd_ms:.3f}")
     return {"name": "flash_tri", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/flash_tri.cu",
             "replaces": "unilm_tpu/ops/flash_attention.py:404",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": lib_ms, **bd, "flash_fwd_ms": fwd_ms,
+            "library_ms": lib_ms, **bd, "tflops": tflops,
+            "flash_fwd_ms": fwd_ms,
             "shape": f"{B}x{T}x{H}x{D} causal+kpm bf16 (flash_fwd_ms: #1 on "
-            "the same inputs)"}
+            "the same inputs; device time, the lesser of two turns)"}
 
 
 def phase_flash_bwd_fused(fa, g) -> dict:
@@ -1076,7 +1103,10 @@ def phase_encoder_attn(fa, g) -> dict:
     """Kernel #3 against fused_encoder_attention_plain on the same inputs,
     bf16 (relative L2 <= 1e-2) and fp32 (<= 1e-4): bias None, [1,1,T,S],
     [1,H,T,S] and [B,H,T,S], ragged T != S, D in {64, 96, 128}, S up to
-    2048, the BEiT-B and the BEiT-L/384 shapes; then timed at BEiT-B."""
+    2048, the edges of the bf16 kernel's plans (S = 208 and 256: whole
+    rows, two score products; 257: streamed), the BEiT-B and the
+    BEiT-L/384 shapes; then device time at BEiT-B and BEiT-L/384 in two
+    turns beside the plain twin, sdpa and the bound."""
     dev = "cuda"
     # (B, T, S, H, D, bias)
     cases = [
@@ -1085,6 +1115,10 @@ def phase_encoder_attn(fa, g) -> dict:
         (2, 37, 301, 2, 128, "1H"), (2, 301, 37, 2, 64, None),
         (2, 131, 93, 3, 96, "11"), (1, 50, 2048, 2, 64, "1H"),
         (1, 70, 1500, 2, 128, None),
+        # the bf16 kernel's plan edges: whole rows up to 256 keys, streamed
+        (2, 197, 208, 3, 64, None), (2, 197, 208, 3, 64, "1H"),
+        (2, 64, 256, 2, 96, None), (2, 64, 256, 2, 96, "BH"),
+        (2, 129, 257, 2, 128, None), (2, 129, 257, 2, 128, "11"),
         (BEIT_BATCH, 197, 197, 12, 64, "1H"),  # BEiT-B/224
         (64, 577, 577, 16, 64, "1H"),          # BEiT-L/384
     ]
@@ -1115,33 +1149,52 @@ def phase_encoder_attn(fa, g) -> dict:
         phase("encoder_attn", f"{str(dtype)[6:]}: {len(cases)} cases, worst "
               f"rel L2 {worst[dtype]:.3g} (bound {tol}) ok")
 
+    # BEiT-B/224 and BEiT-L/384 with their [1, H, T, T] relative position
+    # bias: device time, kernel and sdpa in two turns
     bf = torch.bfloat16
-    B, T, H, D = BEIT_BATCH, 197, 12, 64
-    q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev).to(bf)
-               for _ in range(3))
-    b = torch.randn(1, H, T, T, generator=g, device=dev).to(bf)
-    times = {}
-    for _ in range(2):
-        for name, fn in (
-                ("kernel", lambda: fa.fused_encoder_attention(q, k, v, b)),
-                ("plain", lambda: fa.fused_encoder_attention_plain(q, k, v,
-                                                                   b))):
-            times[name] = cuda_ms(fn, iters=20)
-    lib_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=b), iters=20)
-    out = fa.fused_encoder_attention(q, k, v, b)
-    bd = roofline(nbytes(q, k, v, out, b), 4 * B * H * T * T * D)
-    flops = 4 * B * H * T * T * D
-    phase("encoder_attn", f"BEiT-B {B}x{T}x{H}x{D} bf16, bias [1,{H},{T},{T}]"
-          f": kernel {times['kernel']:.4f} ms ({flops / times['kernel'] / 1e9:.1f}"
-          f" TFLOP/s), plain {times['plain']:.4f} ms, sdpa {lib_ms:.4f} ms, "
-          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+    timed = {}
+    for key, (B, T, H, D) in (("beitB", (BEIT_BATCH, 197, 12, 64)),
+                              ("beitL", (64, 577, 16, 64))):
+        q, k, v = (torch.randn(B, T, H, D, generator=g, device=dev).to(bf)
+                   for _ in range(3))
+        b = torch.randn(1, H, T, T, generator=g, device=dev).to(bf)
+        kern = lambda: fa.fused_encoder_attention(q, k, v, b)
+        lib = lambda: sdpa(q, k, v, attn_mask=b)
+        turns = {"kernel": [], "sdpa": []}
+        for order in (("kernel", "sdpa"), ("sdpa", "kernel")):
+            for name in order:
+                turns[name].append(device_ms(
+                    kern if name == "kernel" else lib,
+                    only="encoder_attn_sm90" if name == "kernel" else None))
+        ms, lib_ms = min(turns["kernel"]), min(turns["sdpa"])
+        plain_ms = device_ms(lambda: fa.fused_encoder_attention_plain(
+            q, k, v, b), iters=3)
+        out = kern()
+        bd = roofline(nbytes(q, k, v, out, b), 4 * B * H * T * T * D)
+        tflops = 4 * B * H * T * T * D / ms / 1e9
+        timed[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          tflops=tflops, **bd)
+        phase("encoder_attn", f"{key} {B}x{T}x{H}x{D} bf16, bias [1,{H},{T},"
+              f"{T}], device time: kernel {turns['kernel'][0]:.4f} / "
+              f"{turns['kernel'][1]:.4f} ms ({tflops:.1f} TFLOP/s), sdpa "
+              f"{turns['sdpa'][0]:.4f} / {turns['sdpa'][1]:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}); kernel / sdpa {ms / lib_ms:.3f}")
+        del q, k, v, b, out
+    bb = timed["beitB"]
     return {"name": "encoder_attention", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/encoder_attention.cu",
             "replaces": "unilm_tpu/ops/flash_attention.py:580",
             "max_abs_err": worst_abs, "rel_l2_bf16": worst[torch.bfloat16],
-            "rel_l2_fp32": worst[torch.float32], "ms": times["kernel"],
-            "plain_ms": times["plain"], "library_ms": lib_ms, **bd,
-            "shape": f"{B}x{T}x{H}x{D} bf16 bias [1,{H},{T},{T}]"}
+            "rel_l2_fp32": worst[torch.float32], "ms": bb["ms"],
+            "plain_ms": bb["plain_ms"], "library_ms": bb["library_ms"],
+            "bound_ms": bb["bound_ms"], "bound_by": bb["bound_by"],
+            "tflops": bb["tflops"],
+            "shape": f"{BEIT_BATCH}x197x12x64 bf16 bias [1,12,197,197] "
+            "(device time, the lesser of two turns); beitL_*: 64x577x16x64",
+            **{f"beitL_{name}": timed["beitL"][name]
+               for name in ("ms", "plain_ms", "library_ms", "bound_ms",
+                            "tflops")}}
 
 
 def phase_encoder_bwd(fa, g) -> dict:
@@ -2009,7 +2062,8 @@ def phase_beit_eval(fa) -> dict:
     # ---- device-time profile of one batch -------------------------------
     from torch.profiler import ProfilerActivity, profile
 
-    groups = [("encoder_attention #3", ["encoder_attn_kernel"]),
+    groups = [("encoder_attention #3", ["encoder_attn_sm90",
+                                        "encoder_attn_kernel"]),
               ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
                           "splitK"]),
               ("layer norm", ["layer_norm", "LayerNorm"])]
@@ -2122,7 +2176,8 @@ def phase_beit_train(fa) -> dict:
           f"TFLOP/s bf16 dense; peak memory {peak:.1f} GiB")
 
     # ---- device-time profile: forward + backward, then optimizer + EMA --
-    groups = [("encoder_attention #3", ["encoder_attn_kernel"]),
+    groups = [("encoder_attention #3", ["encoder_attn_sm90",
+                                        "encoder_attn_kernel"]),
               ("encoder_attention_bwd #4", ["enc_bwd_"]),
               ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
                           "splitK"])]
@@ -3930,7 +3985,7 @@ def phase_train_schedules(fa, tr, batch, args, flops: float) -> dict:
               f"model TFLOP/s = {flops / step_s / 989e12 * 100:.1f}% of 989 "
               f"TFLOP/s bf16 dense; peak memory {peak / 2**30:.1f} GiB")
 
-        groups = [("flash_tri #2", ["flash_tri_tc_kernel"]),
+        groups = [("flash_tri #2", ["flash_tri_sm90", "flash_tri_fp32"]),
                   ("flash_bwd_fused #8", ["flash_bwd_fused_tc_kernel",
                                           "dq_cast_kernel"]),
                   ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",

@@ -68,6 +68,35 @@ def test_plain_matches_jax_interpret(name):
     np.testing.assert_array_equal(again.numpy(), got.numpy())
 
 
+@pytest.mark.parametrize("name", ["bias_1H", "ragged_no_bias"])
+def test_bf16_twin_against_jax_fast_path(name):
+    """On bf16 inputs JAX's #3 takes its "fast" softmax, exp2 of the
+    max-shifted scores rounded to bf16 (`_vit_kernel`, flash_attention.py
+    :605, 618-623), and rounds q * scale * log2(e) and the pre-scaled bias
+    to bf16. The port keeps the exact rounding (p = exp2(s - m) in fp32,
+    then rounded), and its kernel is held to the twin, not to the fast
+    path. Pinned here: the two bf16 outputs agree to rel L2 1.5e-2, and
+    the twin is no farther from the fp32 result than JAX's bf16 output."""
+    q, k, v, b = _inputs(CASES[name], seed=1)
+    bf = lambda a: None if a is None else torch.from_numpy(a).to(
+        torch.bfloat16)
+    tq, tk, tv, tb = bf(q), bf(k), bf(v), bf(b)
+    j = lambda t: None if t is None else jnp.asarray(t.float().numpy(),
+                                                     jnp.bfloat16)
+    scale = q.shape[-1] ** -0.5
+    want = jfa.fused_encoder_attention(j(tq), j(tk), j(tv), j(tb), scale,
+                                       True)
+    want = torch.from_numpy(np.asarray(want.astype(jnp.float32)))
+    got = tfa.fused_encoder_attention(tq, tk, tv, tb)  # CPU: the twin
+    assert got.dtype == torch.bfloat16
+    f32 = lambda t: None if t is None else t.float()
+    exact = tfa.fused_encoder_attention_plain(f32(tq), f32(tk), f32(tv),
+                                              f32(tb))
+    rel = lambda x, ref: float((x.float() - ref).norm() / ref.norm())
+    assert rel(got, want) <= 1.5e-2
+    assert rel(got, exact) <= rel(want, exact)
+
+
 class _FakeCuda(torch.Tensor):
     """A CPU tensor that reports itself as a CUDA one, so the dispatcher
     takes its card branches without a card."""

@@ -226,3 +226,49 @@ def test_flash_bwd_argtypes_unchanged():
         "flash_bwd_dq": [P] * 10 + [I] * 13 + [P]}
     assert tfa.BWD_KERNEL_DKV.functions == {
         "flash_bwd_dkv": [P] * 10 + [I] * 12 + [P]}
+
+
+@pytest.mark.parametrize("source,header", [
+    ("flash_tri.cu", "hopper.cuh"), ("encoder_attention.cu", "hopper.cuh"),
+    ("encoder_attention.cu", "encoder_attention.cuh")])
+def test_hopper_tri_and_encoder_hash_covers_their_headers(fake, source,
+                                                          header):
+    """kernels #2 and #3 (bf16: wgmma, TMA) include the Hopper primitives
+    (hopper.cuh), and #3 keeps its fp32 body in encoder_attention.cuh
+    (shared with #9's fp32 path): an edit of either header rebuilds the
+    library with exactly the other libraries that include it."""
+    import shutil
+
+    fake_csrc, compiles = fake
+    real = _native._PKG / "csrc"
+    assert real / header in _native._headers(real / source)
+    users = sorted(p.name for p in real.glob("*.cu")
+                   if real / header in _native._headers(p))
+    if header == "encoder_attention.cuh":
+        assert users == ["doc_attention.cu", "encoder_attention.cu"]
+    for p in real.iterdir():
+        shutil.copy(p, fake_csrc / p.name)
+    kernels = [_native.CudaKernel(p.name, {})
+               for p in sorted(fake_csrc.glob("*.cu"))]
+    _native.build_all(kernels)
+    assert source in compiles()
+    before = _native.CudaKernel(source, {}).so_path()
+    path = fake_csrc / header
+    path.write_text(path.read_text() + "// edited\n")
+    _native.build_all(kernels)
+    assert compiles() == users
+    assert _native.CudaKernel(source, {}).so_path() != before
+
+
+def test_tri_and_encoder_argtypes_unchanged():
+    """The C entries of kernels #2 and #3 keep their interfaces: #2 q, k,
+    v, bias, mask, out, lse as pointers, B, T, H, D, bias_sb, bias_sh,
+    dtype as ints, the stream; #3 q, k, v, bias, out as pointers, B, T, S,
+    H, D, bias_sb, bias_sh as ints, scale as a float, dtype, the stream."""
+    from unilm_tpu_torch.ops import flash_attention as tfa
+
+    P, I, F = _native.P, _native.I, _native.F
+    assert tfa.TRI_KERNEL.functions == {"flash_tri_fwd": [P] * 7 + [I] * 7
+                                        + [P]}
+    assert tfa.ENCODER_KERNEL.functions == {
+        "encoder_attn_fwd": [P] * 5 + [I] * 7 + [F, I, P]}

@@ -3,7 +3,8 @@
 // the bf16 wgmma products with fp32 accumulators, setmaxnreg and named
 // barriers, written in PTX as the PTX ISA defines it; no CUTLASS.
 // Shared-memory addresses come from mma_common.cuh's smem_addr. Users:
-// csrc/flash_fwd.cu (#1) and csrc/flash_bwd.cu (#6, #7).
+// csrc/flash_fwd.cu (#1), csrc/flash_tri.cu (#2), csrc/encoder_attention.cu
+// (#3) and csrc/flash_bwd.cu (#6, #7).
 //
 // The host side takes cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint, so the libraries need no -lcuda, and encodes

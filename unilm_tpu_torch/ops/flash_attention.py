@@ -54,7 +54,9 @@ function, so the backward does not change.
 `fused_encoder_attention` (port of `fused_encoder_attention` :701,
 `_vit_forward` :632 / `_vit_kernel` :580) is the encoder hot path:
 non-causal, full kv, no key-padding mask, an exact softmax over whole
-score rows, no lse. It runs under `EncoderAttentionFn`, the custom VJP
+score rows, no lse (#3's bf16 kernel takes rows of more than 128 keys
+tile by tile with an online softmax, within the bf16 tolerance of the
+twin). It runs under `EncoderAttentionFn`, the custom VJP
 `_vit_fwd` / `_vit_bwd` (:933-975): forward csrc/encoder_attention.cu
 (#3), backward csrc/encoder_attention_bwd.cu (`_vit_bwd_kernel`, #4) on a
 CUDA tensor; `fused_encoder_attention_plain` and
@@ -389,6 +391,27 @@ def flash_forward_onepass(q, k, v, bias=None, mask=None, q_offset: int = 0,
         bias = bias.to(q.dtype).contiguous()
     return _flash_forward_onepass_cuda(q, k, v, bias, mask, q_offset, kv_len,
                                        causal, window)
+
+
+# q rows and keys per tile of #2's bf16 kernel (csrc/flash_tri.cu BQ == BK)
+TRI_TILE = 128
+
+
+def tri_fold_plan(T: int, tile: int = TRI_TILE):
+    """Kernel #2's folded walk (csrc/flash_tri.cu `pair_tiles` and the walks
+    of `producer` and `consumer_tile` compute the same rule: change both
+    together). Of nq = ceil(T / tile) q tiles, block c of ceil(nq / 2)
+    takes q tile nq-1-c, then q tile c (once where the two are the same
+    tile, the middle block of an odd nq), and walks k tiles 0..i of each.
+    Returns, for each block, its (q tile, k tile, diagonal) steps in the
+    order its K/V ring streams them; only a step with `diagonal` set
+    evaluates the causal predicate."""
+    nq = _cdiv(T, tile)
+    plan = []
+    for c in range(_cdiv(nq, 2)):
+        tiles = [nq - 1 - c] if c == nq - 1 - c else [nq - 1 - c, c]
+        plan.append([(i, j, j == i) for i in tiles for j in range(i + 1)])
+    return plan
 
 
 def flash_forward_tri_plain(q, k, v, bias=None, mask=None
@@ -778,9 +801,34 @@ ENCODER_KERNEL = CudaKernel("encoder_attention.cu", {
     # stream
     "encoder_attn_fwd": [P] * 5 + [I] * 7 + [F, I, P],
 })
-# the longest kv the kernel keeps as whole score rows in shared memory (the
-# dispatcher's bound for the encoder branch, ops/attention.py)
+# the longest kv #3 takes: its fp32 body keeps whole score rows in shared
+# memory (the dispatcher's bound for the encoder branch, ops/attention.py)
 ENCODER_MAX_S = 2048
+
+
+# #3's bf16 kernel (csrc/encoder_attention.cu): q rows per consumer
+# warpgroup (two a 128-row group) and keys per K/V tile (the S = Q K^T
+# product's width)
+ENCODER_ROWS, ENCODER_TILE = 64, 128
+
+
+def encoder_tile_plan(T: int, S: int):
+    """Kernel #3's bf16 plan (csrc/encoder_attention.cu `producer`,
+    `consumer` and `tile` compute the same rule: change both together):
+    (mode, steps). Each row group of 128 (two consumers of 64 rows) takes
+    the K/V tiles of 128 keys in turn. mode "whole" (S <= 128): one tile
+    holds the whole row, an exact softmax; "streamed": the online softmax
+    over the tiles. steps: one (row_begin, row_end, key_begin, key_end,
+    keys_computed) per (row group, consumer, key tile) with rows < T: the
+    consumer's rows, the tile's keys < S, and the keys its products run
+    over, the whole tile (K and V read as zeros past S, and p is 0
+    there)."""
+    steps = []
+    for r0 in range(0, T, ENCODER_ROWS):  # consumer 0 and 1 of each group
+        for c0 in range(0, S, ENCODER_TILE):
+            steps.append((r0, min(r0 + ENCODER_ROWS, T), c0,
+                          min(c0 + ENCODER_TILE, S), ENCODER_TILE))
+    return ("whole" if S <= ENCODER_TILE else "streamed"), steps
 
 
 def _acc(t: torch.Tensor) -> torch.Tensor:
