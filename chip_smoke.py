@@ -8,9 +8,10 @@ Phases, one line each:
     (nvidia-smi); turns TF32 off for matmul and cuDNN.
  2. build: compiles the hand-written kernels from unilm_tpu_torch/csrc/,
     one nvcc per source, all started together; beside them `nvcc -Xptxas
-    -v` on the wgmma sources (flash_fwd.cu, flash_bwd.cu, flash_tri.cu,
-    encoder_attention.cu) prints each kernel's registers and spill bytes
-    and fails on a spill or a serialised wgmma.
+    -v` on the Hopper sources (flash_fwd.cu, flash_bwd.cu, flash_tri.cu,
+    encoder_attention.cu, doc_attention_bwd.cu and decode_attention.cu's
+    split walk) prints each kernel's registers and spill bytes and fails
+    on a spill or a serialised wgmma.
  3. flash: the flash-forward kernel (#1; bf16 is the wgmma/TMA kernel)
     against its plain version, bf16, over causal/offset/kv_len/key-padding/
     bias/window cases that hit each class of key tile (skipped, interior,
@@ -69,12 +70,16 @@ Phases, one line each:
     Pix2Struct tower 1x2048x24x64 at scale 1.0 and the FUNSD shape
     32x709x12x64 (bf16, head-major bias, mask); timed there beside the
     plain version and SDPA with a float attn_mask.
-    doc_bwd: its backward (#10) against doc_backward_plain over the same
-    cases, dq/dk/dv/dbias (dbias reduced where the bias broadcasts), the
-    FUNSD shape twice bit-equal; timed beside the plain twin and SDPA's
-    backward with the float mask's gradient.
- 4. decode: the bf16 run-decode kernel against its plain version, B=3
-    with lengths {0, 511, 1800}; written pool rows bit-equal.
+    doc_bwd: its backward (#10; bf16: three wgmma launches, profiler
+    names `doc_bwd_*`) against doc_backward_plain over the same cases,
+    dq/dk/dv/dbias (dbias reduced where the bias broadcasts), the FUNSD
+    shape twice bit-equal; timed beside the plain twin and SDPA's backward
+    with the float mask's gradient.
+ 4. decode: the bf16 run-decode kernel (#13, the split walk, profiler name
+    `decode_run_split_sm90`) against its plain version, B=3 with lengths
+    {0, 511, 1800}, and B=1 at the edges of the split plan and at 2052;
+    written pool rows bit-equal; the kernel alone timed (device time)
+    back to back and with L2 flushed beside sdpa over the same run.
  5. slice: the Kosmos-2.5 text decoder at full width (24 layers, E=1536,
     16 heads, FFN 6144, vocab 108481, bf16, random weights from a seed)
     serves three requests through runtime.generate (2052-token multimodal
@@ -138,7 +143,8 @@ Phases, one line each:
  6. int8_matmul: the int8 weight-only matmul kernel against its plain
     version, bf16 x, M in {1, 8, 64, 200} x the decoder's K x N.
  7. decode_int8: the int8-KV run-decode kernel against its plain version,
-    B=8, lengths up to 2111; pools and scale sidecar bit-equal.
+    B=8, lengths up to 2111 and the edges of the B=8 split plan; pools and
+    scale sidecar bit-equal; timed back to back and with L2 flushed.
  8. paged_append: the block-table append-decode kernel against its plain
     version, B=8 on scattered tables with two inactive slots; non-trash
     pool pages bit-equal.
@@ -428,11 +434,12 @@ PROFILER_MISSES = []
 
 
 def device_ms(fn, iters: int = 20, only: str = None,
-              tries: int = 3) -> float:
+              tries: int = 3, exclude=()) -> float:
     """Mean device time of fn() in ms: the time of the CUDA kernels a
     torch.profiler trace of `iters` back-to-back calls records, summed
     over the trace (with `only`, over the kernels whose name holds that
-    substring). Unlike cuda_ms it leaves out the card's idle gaps, so
+    substring; without, over every kernel whose name is not in
+    `exclude`). Unlike cuda_ms it leaves out the card's idle gaps, so
     it is a kernel's own time even where the host's wrapper, not the
     kernel, sets the pace of back-to-back calls (microsecond kernels).
 
@@ -451,8 +458,11 @@ def device_ms(fn, iters: int = 20, only: str = None,
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        shares = device_time_shares(prof, [("only", [only])] if only else [])
-        total = shares["only"] if only else sum(shares.values())
+        if only:
+            total = device_time_shares(prof, [("only", [only])])["only"]
+        else:
+            shares = device_kernel_times(prof)
+            total = sum(t for k, t in shares.items() if k not in exclude)
         if total > 0:
             return total / iters
     ms = cuda_ms(fn, iters)
@@ -463,13 +473,45 @@ def device_ms(fn, iters: int = 20, only: str = None,
     return ms
 
 
-def cold_ms(fn, only: str, iters: int = 20) -> float:
-    """device_ms of the `only` kernels of fn() with the L2 cache flushed
-    before every call (a 64 MB write, more than the H100's 50 MB L2),
-    for kernels whose inputs would otherwise stay L2-resident across
-    back-to-back calls."""
+def device_kernel_times(prof) -> dict:
+    """Device time (ms) of each kernel name a profile saw."""
+    from torch.autograd import DeviceType
+
+    out = {}
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        out[evt.key] = out.get(evt.key, 0.0) + t / 1e3
+    return out
+
+
+def cold_ms(fn, only: str = None, iters: int = 20) -> float:
+    """device_ms of the `only` kernels of fn() (without `only`, of all of
+    fn()'s kernels) with the L2 cache flushed before every call (a 64 MB
+    write, more than the H100's 50 MB L2), for kernels whose inputs would
+    otherwise stay L2-resident across back-to-back calls."""
+    from torch.profiler import ProfilerActivity, profile
+
     flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
-    return device_ms(lambda: (flush.zero_(), fn()), iters, only)
+    skip = ()
+    for _ in range(0 if only else 3):  # leave out the flush's kernels
+        flush.zero_()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(4):
+                flush.zero_()
+            torch.cuda.synchronize()
+        skip = tuple(device_kernel_times(prof))
+        if skip:
+            break
+    check(bool(only or skip), "cold_ms: three traces of the flush showed "
+          "no kernel")
+    return device_ms(lambda: (flush.zero_(), fn()), iters, only,
+                     exclude=skip)
 
 
 def close(x: torch.Tensor, ref: torch.Tensor, atol: float, rtol: float):
@@ -496,9 +538,12 @@ def phase_device() -> str:
     return smi
 
 
-# the wgmma kernels
+# the Hopper kernels: the wgmma sources and the split decode walk; in
+# decode_attention.cu only the walk's entries (`decode_run_`), not the
+# fp32 pools' CUDA-core body it shares with #11 and #12
 PTXAS_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_tri.cu",
-                 "encoder_attention.cu")
+                 "encoder_attention.cu", "doc_attention_bwd.cu",
+                 "decode_attention.cu")
 
 
 def ptxas_entries(text: str) -> list:
@@ -508,8 +553,8 @@ def ptxas_entries(text: str) -> list:
 
     out, name = [], None
     for line in text.splitlines():
-        m = re.search(r"Compiling entry function "
-                      r"'\w*?\d+((?:flash|encoder)_\w+?)I(\w*?)EEv", line)
+        m = re.search(r"Compiling entry function '\w*?\d+((?:flash|encoder|"
+                      r"doc_bwd|decode_run)_\w+?)I(\w*?)EEv", line)
         if m:
             args = re.findall(r"Li(\d+)", m.group(2))
             kind = ",fp32" if m.group(2).startswith("f") else ""
@@ -1764,7 +1809,32 @@ def phase_flash_bwd(fa, g) -> dict:
                  replaces="unilm_tpu/ops/flash_attention.py:1381")]
 
 
+def split_edges(pa, B: int, H: int, D: int, itemsize: int) -> list:
+    """Token counts n at the edges of the split walk's plan for B
+    sequences of H heads (ops/paged_attention.decode_split_plan): 0 and 1,
+    one tile (SPLIT_TILE tokens) +- 1, nsplit tiles +- 1 (every split's
+    range crosses from one tile to two) and nsplit * ngrp tiles +- 1
+    (every token group's first tile of every split, and one more)."""
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = pa.decode_split_plan(B, H, 0, n_sm, D, itemsize)
+    t = pa.SPLIT_TILE
+    return sorted({e + d for e in (t, plan["nsplit"] * t,
+                                   plan["nsplit"] * plan["ngrp"] * t)
+                   for d in (-1, 0, 1)} | {0, 1})
+
+
+DECODE_ONLY = "decode_run_split"  # the split walk's CUDA kernel
+
+
 def phase_decode(pa, g) -> dict:
+    """Kernel #13 on bf16 pools (the split walk) against
+    run_decode_append_attention_plain: B3 at lengths [0, 511, 1800], then
+    B1 (the slice's plan) at every edge of the split plan and at the
+    slice's 2052, each within OUT_ATOL / OUT_RTOL, the written pool rows
+    bit-equal. Then timed at the slice's B1 L2052 (device time): the kernel
+    alone back to back and with L2 flushed, beside sdpa over the same run
+    both ways, and the wrapper with the row append beside the plain
+    version."""
     dev = "cuda"
     bf = torch.bfloat16
     H, D, page, chunk, PP = 16, 96, 64, 8, 40  # cache 2052+64 geometry
@@ -1772,23 +1842,31 @@ def phase_decode(pa, g) -> dict:
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(bf)
 
-    B = 3
-    lengths = torch.tensor([0, 511, 1800], dtype=torch.int32, device=dev)
-    bases = torch.arange(B, dtype=torch.int32, device=dev) * PP
-    kp, vp = rn(B * PP, page, H * D), rn(B * PP, page, H * D)
-    q, kn, vn = rn(B, 1, H, D), rn(B, 1, H, D), rn(B, 1, H, D)
-    kp2, vp2 = kp.clone(), vp.clone()
-    out, _, _ = pa.run_decode_append_attention(q, kn, vn, kp, vp, bases,
-                                               lengths, PP, None, chunk)
-    ref, _, _ = pa.run_decode_append_attention_plain(
-        q, kn, vn, kp2, vp2, bases, lengths, PP, None, chunk)
-    torch.cuda.synchronize()
-    ok, err = close(out, ref, OUT_ATOL, OUT_RTOL)
-    check(ok, f"decode: out err {err}")
-    check(torch.equal(kp, kp2) and torch.equal(vp, vp2),
-          "decode: written pool rows differ from the plain twin's")
-    phase("decode", f"B3 lengths [0, 511, 1800] H16 D96 page64 chunk8: out "
-          f"max|err| {err:.3g}, pools bit-equal ok")
+    worst = 0.0
+    cases = [[0, 511, 1800]] + [[n - 1] for n in split_edges(pa, 1, H, D, 2)
+                                 if n >= 1] + [[PROMPT]]
+    for lens in cases:
+        B = len(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        bases = torch.arange(B, dtype=torch.int32, device=dev) * PP
+        kp, vp = rn(B * PP, page, H * D), rn(B * PP, page, H * D)
+        q, kn, vn = rn(B, 1, H, D), rn(B, 1, H, D), rn(B, 1, H, D)
+        kp2, vp2 = kp.clone(), vp.clone()
+        out, _, _ = pa.run_decode_append_attention(q, kn, vn, kp, vp, bases,
+                                                   lengths, PP, None, chunk)
+        ref, _, _ = pa.run_decode_append_attention_plain(
+            q, kn, vn, kp2, vp2, bases, lengths, PP, None, chunk)
+        torch.cuda.synchronize()
+        ok, err = close(out, ref, OUT_ATOL, OUT_RTOL)
+        check(ok and bool(torch.isfinite(out.float()).all()),
+              f"decode: lengths {lens}: out err {err}")
+        check(torch.equal(kp, kp2) and torch.equal(vp, vp2),
+              f"decode: lengths {lens}: written pool rows differ from the "
+              f"plain twin's")
+        worst = max(worst, err)
+    phase("decode", f"H16 D96 page64 chunk8, lengths {cases}: out max|err| "
+          f"{worst:.3g} (tol {OUT_ATOL} abs + {OUT_RTOL} rel), pools "
+          f"bit-equal ok")
 
     # one layer of the slice's decode step: B=1, 2052 tokens in the run.
     # `ms` and `plain_ms` are the two wrappers, which both append the row,
@@ -1800,29 +1878,33 @@ def phase_decode(pa, g) -> dict:
     kp1, vp1 = rn(PP, page, H * D), rn(PP, page, H * D)
     q1, kn1, vn1 = rn(1, 1, H, D), rn(1, 1, H, D), rn(1, 1, H, D)
     qs1 = (q1[:, 0] * D ** -0.5).contiguous()
-    kernel_ms = device_ms(
-        lambda: pa.decode_attention(qs1, kp1, vp1, b1, L1, PP),
-        only="decode_kernel")
+    alone = lambda: pa.decode_attention(qs1, kp1, vp1, b1, L1, PP)
+    # the yardstick: torch's SDPA of the query over the same run's L + 1
+    # rows (contiguous in the pool); it appends nothing
+    run = lambda pool: pool.reshape(1, PP * page, H, D)[:, :PROMPT + 1]
+    lib = lambda: sdpa(q1, run(kp1), run(vp1))
+    kernel_ms, lib_ms = device_ms(alone, only=DECODE_ONLY), device_ms(lib)
+    kernel_cold, lib_cold = cold_ms(alone, DECODE_ONLY), cold_ms(lib)
     ms = device_ms(lambda: pa.run_decode_append_attention(
         q1, kn1, vn1, kp1, vp1, b1, L1, PP, None, chunk))
     plain_ms = device_ms(lambda: pa.run_decode_append_attention_plain(
         q1, kn1, vn1, kp1, vp1, b1, L1, PP, None, chunk))
-    # the yardstick: torch's SDPA of the query over the same run's L + 1
-    # rows (contiguous in the pool); it appends nothing
-    run = lambda pool: pool.reshape(1, PP * page, H, D)[:, :PROMPT + 1]
-    lib_ms = device_ms(lambda: sdpa(q1, run(kp1), run(vp1)))
     L = PROMPT + 1
     bd = roofline(2 * L * H * D * 2 + 4 * H * D * 2, 4 * H * L * D)
     phase("decode", f"B1 L{PROMPT} H16 D96, device time: kernel alone "
-          f"{kernel_ms:.4f} ms; "
-          f"with the row append: kernel wrapper {ms:.4f} ms, plain twin "
-          f"{plain_ms:.4f} ms; sdpa over the run {lib_ms:.4f} ms; bound "
-          f"{bd['bound_ms']:.5f} ms ({bd['bound_by']})")
+          f"{kernel_ms:.4f} ms back to back, {kernel_cold:.4f} ms with L2 "
+          f"flushed; sdpa over the run {lib_ms:.4f} / {lib_cold:.4f} ms "
+          f"(kernel / sdpa {kernel_ms / lib_ms:.2f}x, {kernel_cold / lib_cold:.2f}x "
+          f"flushed); with the row append: kernel wrapper {ms:.4f} ms, plain "
+          f"twin {plain_ms:.4f} ms; bound {bd['bound_ms']:.5f} ms "
+          f"({bd['bound_by']})")
     return {"name": "decode_attention", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/decode_attention.cu",
             "replaces": "unilm_tpu/ops/paged_attention.py:497",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "kernel_only_ms": kernel_ms, "library_ms": lib_ms, **bd,
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "kernel_only_ms": kernel_ms,
+            "kernel_only_ms_l2_flushed": kernel_cold, "library_ms": lib_ms,
+            "library_ms_l2_flushed": lib_cold, **bd,
             "shape": f"B1 L{PROMPT} H16 D96 bf16, row append included"}
 
 
@@ -1971,7 +2053,37 @@ def phase_slice(fa, pa) -> dict:
             phase("slice", f"round {rnd} {name} path, B=1: TTFT (prefill) "
                   f"{ttft:.3f} ms, decode {tpot:.3f} ms/token "
                   f"(ctx {PROMPT}..{PROMPT + steps})")
+
+    # ---- the decode step's device time (profiler): #13's share ---------
+    pf, st = make_unigpt_generate_fns(model, cache_size)
+    lg, c = pf(prompt, aux)
+    tok = lg[:, -1:].argmax(-1)
+    n = 4
+    shares = decode_step_shares(lambda: st(tok, c, None), n)
+    phase("slice", f"decode step (B=1, ctx {PROMPT + 1}+, kernel path), "
+          f"device time a step (mean of {n}): {sum(shares.values()) / n:.4f} "
+          f"ms, of it " + ", ".join(f"{k} {v / n:.4f}"
+                                    for k, v in shares.items()))
     return launches
+
+
+def decode_step_shares(step, n: int) -> dict:
+    """Device time (ms) by kernel group of n calls of a decode step:
+    #13's split walk, the flash forward, cuBLAS, the int8 matmul, the
+    rest."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    return device_time_shares(prof, [
+        ("#13", [DECODE_ONLY]), ("#1", ["flash_fwd"]),
+        ("#14", ["int8_matmul"]),
+        ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas", "splitK"])])
 
 
 def phase_beit_eval(fa) -> dict:
@@ -2942,6 +3054,12 @@ def phase_int8_matmul(qm, g) -> dict:
 
 
 def phase_decode_int8(pa, g) -> dict:
+    """Kernel #13 on int8 pools (the split walk) against the plain version
+    at B8: the lengths [0, 63, 64, 511, 1800, 2111, 1024, 2047] and the
+    eight edges of the B8 split plan, within OUT_ATOL / OUT_RTOL, pools
+    and sidecar bit-equal. Then timed at the serving step's B8 L2047
+    (device time): the kernel alone back to back and with L2 flushed, and
+    the wrapper (quantize + append) beside the plain version."""
     dev, bf = "cuda", torch.bfloat16
     H, D, page, chunk, PP, B = 16, 96, 64, 8, 40, 8
     P = B * PP + chunk
@@ -2958,43 +3076,48 @@ def phase_decode_int8(pa, g) -> dict:
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(bf)
 
-    lens = [0, 63, 64, 511, 1800, 2111, 1024, 2047]
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
     bases = torch.arange(B, dtype=torch.int32, device=dev) * PP
-    kp, vp, sp = pools()
-    kp2, vp2, sp2 = kp.clone(), vp.clone(), sp.clone()
-    q, kn, vn = rn(B, 1, H, D), rn(B, 1, H, D), rn(B, 1, H, D)
-    out = pa.run_decode_append_attention(q, kn, vn, kp, vp, bases, lengths,
-                                         PP, None, chunk, scale_pool=sp)[0]
-    ref = pa.run_decode_append_attention_plain(
-        q, kn, vn, kp2, vp2, bases, lengths, PP, None, chunk,
-        scale_pool=sp2)[0]
-    torch.cuda.synchronize()
-    ok, err = close(out, ref, OUT_ATOL, OUT_RTOL)
-    check(ok and bool(torch.isfinite(out.float()).all()),
-          f"decode_int8: out err {err}")
-    check(torch.equal(kp, kp2) and torch.equal(vp, vp2)
-          and torch.equal(sp, sp2),
-          "decode_int8: pools or sidecar differ from the plain version's")
-    phase("decode_int8", f"B{B} lengths {lens} H16 D96 page64 chunk8: out "
-          f"max|err| {err:.3g} (tol {OUT_ATOL} abs + {OUT_RTOL} rel), pools "
-          f"and sidecar bit-equal ok")
+    worst = 0.0
+    edges = split_edges(pa, B, H, D, 1)
+    cases = [[0, 63, 64, 511, 1800, 2111, 1024, 2047], (edges * B)[:B]]
+    for lens in cases:
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kp, vp, sp = pools()
+        kp2, vp2, sp2 = kp.clone(), vp.clone(), sp.clone()
+        q, kn, vn = rn(B, 1, H, D), rn(B, 1, H, D), rn(B, 1, H, D)
+        out = pa.run_decode_append_attention(q, kn, vn, kp, vp, bases,
+                                             lengths, PP, None, chunk,
+                                             scale_pool=sp)[0]
+        ref = pa.run_decode_append_attention_plain(
+            q, kn, vn, kp2, vp2, bases, lengths, PP, None, chunk,
+            scale_pool=sp2)[0]
+        torch.cuda.synchronize()
+        ok, err = close(out, ref, OUT_ATOL, OUT_RTOL)
+        check(ok and bool(torch.isfinite(out.float()).all()),
+              f"decode_int8: lengths {lens}: out err {err}")
+        check(torch.equal(kp, kp2) and torch.equal(vp, vp2)
+              and torch.equal(sp, sp2),
+              f"decode_int8: lengths {lens}: pools or sidecar differ from "
+              f"the plain version's")
+        worst = max(worst, err)
+    phase("decode_int8", f"B{B} lengths {cases} H16 D96 page64 chunk8: out "
+          f"max|err| {worst:.3g} (tol {OUT_ATOL} abs + {OUT_RTOL} rel), "
+          f"pools and sidecar bit-equal ok")
 
     # B=8, every run at 2047 tokens: the serving step's shape
     L8 = torch.full((B,), 2047, dtype=torch.int32, device=dev)
     qs = (q[:, 0] * D ** -0.5).contiguous()
     kn0, vn0 = kn[:, 0].contiguous(), vn[:, 0].contiguous()
+    alone = lambda: pa.decode_attention_int8(
+        qs, kp, vp, bases, L8, sp, kn0, vn0, PP, chunk)
     # device time (the profiler), as in phase_decode
-    kernel_ms = device_ms(lambda: pa.decode_attention_int8(
-        qs, kp, vp, bases, L8, sp, kn0, vn0, PP, chunk), only="decode_kernel")
+    kernel_ms = device_ms(alone, only=DECODE_ONLY)
+    kernel_cold = cold_ms(alone, DECODE_ONLY)
     ms = device_ms(lambda: pa.run_decode_append_attention(
         q, kn, vn, kp, vp, bases, L8, PP, None, chunk, scale_pool=sp))
     plain_ms = device_ms(lambda: pa.run_decode_append_attention_plain(
         q, kn, vn, kp, vp, bases, L8, PP, None, chunk, scale_pool=sp),
         iters=10)
-    phase("decode_int8", f"B8 L2047 H16 D96, device time: kernel alone "
-          f"{kernel_ms:.4f} ms; with the row append: kernel wrapper "
-          f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
     # bytes: the int8 K/V rows of the eight runs, the scale slabs that
     # cover them, q, the new rows and the output; no torch call attends
     # over int8 rows with a scale sidecar (library_ms null)
@@ -3002,14 +3125,19 @@ def phase_decode_int8(pa, g) -> dict:
     slabs = B * PP // chunk
     bd = roofline(2 * B * L * H * D + slabs * sp[0].numel() * 4
                + 4 * B * H * D * 2, 4 * B * H * L * D)
-    phase("decode_int8", f"B8 L2047 bound {bd['bound_ms']:.5f} ms "
+    phase("decode_int8", f"B8 L2047 H16 D96, device time: kernel alone "
+          f"{kernel_ms:.4f} ms back to back, {kernel_cold:.4f} ms with L2 "
+          f"flushed ({kernel_cold / bd['bound_ms']:.2f}x the bound); with "
+          f"the row append: kernel wrapper {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms; bound {bd['bound_ms']:.5f} ms "
           f"({bd['bound_by']})")
     return {"name": "decode_attention_int8", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/decode_attention.cu",
             "replaces": "unilm_tpu/ops/paged_attention.py:497",
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "kernel_only_ms": kernel_ms, "library_ms": None, **bd,
-            "shape": "B8 L2047 H16 D96 int8"}
+            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "kernel_only_ms": kernel_ms,
+            "kernel_only_ms_l2_flushed": kernel_cold, "library_ms": None,
+            **bd, "shape": "B8 L2047 H16 D96 int8"}
 
 
 def phase_paged_append(pa, g) -> dict:
@@ -3787,6 +3915,11 @@ def phase_engine_int8(cfg, sd) -> dict:
             phase("engine_int8", f"round {rnd} {name} path: B=8 decode step "
                   f"{ms:.3f} ms ({B * 1e3 / ms:.1f} tok/s), prefill chunk "
                   f"(64 tokens at ctx 1024) {pre:.3f} ms")
+    n = 4
+    shares = decode_step_shares(lambda: step(model_k, pools_k, True), n)
+    phase("engine_int8", f"B=8 decode step (kernel path), device time a "
+          f"step (mean of {n}): {sum(shares.values()) / n:.4f} ms, of it "
+          + ", ".join(f"{k} {v / n:.4f}" for k, v in shares.items()))
     del model_p, pools_p, eng, model_k, pools_k
     torch.cuda.empty_cache()
 
@@ -3896,19 +4029,12 @@ def matmul_params(model) -> int:
 def device_time_shares(prof, groups) -> dict:
     """Device time (ms) of the kernels a profile saw, summed by the first
     group whose substrings match the kernel's name (else "other")."""
-    from torch.autograd import DeviceType
-
     out = {name: 0.0 for name, _ in groups}
     out["other"] = 0.0
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = evt.self_cuda_time_total
+    for kernel, t in device_kernel_times(prof).items():
         key = next((name for name, subs in groups
-                    if any(s in evt.key for s in subs)), "other")
-        out[key] += t / 1e3
+                    if any(s in kernel for s in subs)), "other")
+        out[key] += t
     return out
 
 

@@ -6,13 +6,17 @@
 - `encoder_tile_plan`, the row and key plan of csrc/encoder_attention.cu:
   every (row, key) once, whole rows in one 128-key tile up to S = 128 and
   streamed beyond, keys padded only to the product's width.
-Then, marked `cuda` (they skip without a card), both kernels against their
+- `doc_bwd_tile_plan`, the three launches of csrc/doc_attention_bwd.cu
+  (#10): every (q tile, k tile) pair once in each, the FUNSD edge of 709 =
+  5 * 128 + 69 rows.
+Then, marked `cuda` (they skip without a card), the kernels against their
 plain twins at the new tiles' boundaries.
 """
 
 import pytest
 import torch
 
+from unilm_tpu_torch.ops import doc_attention as tda
 from unilm_tpu_torch.ops import flash_attention as tfa
 
 TRI_TS = (1, 63, 64, 65, 127, 128, 129, 160, 1000, 2048)
@@ -106,6 +110,41 @@ def test_encoder_tile_plan_beit_b():
     assert {(c0, c1) for _, _, c0, c1, _ in steps} == {(0, 128), (128, 197)}
 
 
+DOC_TS = [(709, 709), (37, 40), (197, 197), (100, 77), (64, 200), (129, 131),
+          (301, 37), (50, 2048), (1024, 1024), (2048, 2048)]
+
+
+@pytest.mark.parametrize("D", (64, 96, 128))
+@pytest.mark.parametrize("T,S", DOC_TS)
+def test_doc_bwd_tile_plan_visits_each_pair_once(T, S, D):
+    plan = tda.doc_bwd_tile_plan(T, S, D)
+    for launch, blocks in plan.items():
+        seen = torch.zeros(T, S, dtype=torch.int32)
+        for steps in blocks:
+            for r0, r1, c0, c1 in steps:
+                assert 0 <= r0 < r1 <= T and 0 <= c0 < c1 <= S
+                seen[r0:r1, c0:c1] += 1
+        assert bool((seen == 1).all()), launch
+    # stats and dq: 128-row blocks over 64-key tiles; dk/dv: key blocks
+    # (128 keys at D = 64, else 64) over 64-row tiles
+    kb = 128 if D == 64 else 64
+    assert len(plan["stats"]) == len(plan["dq"]) == -(-T // 128)
+    assert len(plan["dkv"]) == -(-S // kb)
+    assert all(len(steps) == -(-S // 64) for steps in plan["stats"])
+    assert all(len(steps) == -(-T // 64) for steps in plan["dkv"])
+    assert plan["dq"] == plan["stats"]
+
+
+def test_doc_bwd_tile_plan_funsd_edges():
+    """FUNSD, T = S = 709: the last 128-row block holds 69 rows, the last
+    64-key tile 5 keys, the last 128-key block 69 keys."""
+    plan = tda.doc_bwd_tile_plan(709, 709, 64)
+    assert {(r0, r1) for r0, r1, _, _ in plan["stats"][-1]} == {(640, 709)}
+    assert plan["stats"][0][-1][2:] == (704, 709)
+    assert {(c0, c1) for _, _, c0, c1 in plan["dkv"][-1]} == {(640, 709)}
+    assert plan["dkv"][-1][-1][:2] == (704, 709)
+
+
 # --------------------------------------------------------------------------- #
 # on the card: the kernels against their twins at the tiles' boundaries
 # --------------------------------------------------------------------------- #
@@ -163,3 +202,27 @@ def test_encoder_kernel_at_tile_boundaries(card, T, S, D, bias):
     b = 2 * rn(1, 3, T, S) if bias else None
     out = tfa.fused_encoder_attention(q, k, v, b)
     assert _rel(out, tfa.fused_encoder_attention_plain(q, k, v, b)) <= 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("T,S,D", [(127, 64, 64), (128, 129, 96), (129, 127, 128),
+                                   (709, 709, 64), (65, 300, 64)])
+def test_doc_bwd_kernel_at_tile_boundaries(card, T, S, D, masked):
+    """#10 (bf16, the wgmma kernels) against doc_backward_plain at T and S
+    one short of, at and one past the 128-row and 64/128-key tiles, and
+    FUNSD's 709, head-major bias, with and without a mask: dq, dk, dv and
+    dbias within relative L2 1e-2, as chip_smoke.py's doc_bwd phase."""
+    rn = lambda *s: torch.randn(*s, generator=card, device="cuda").to(
+        torch.bfloat16)
+    B, H = 2, 3
+    q, k, v, do = rn(B, T, H, D), rn(B, S, H, D), rn(B, S, H, D), rn(B, T, H, D)
+    bias = tda.HeadMajorBias(2 * rn(H, B, T, S))
+    mask = None
+    if masked:
+        mask = torch.rand(B, S, generator=card, device="cuda") > 0.2
+        mask[0, 0], mask[1] = True, False  # an example with every key masked
+    got = tda.doc_backward(q, k, v, bias, mask, do)
+    ref = tda.doc_backward_plain(q, k, v, bias, mask, do)
+    for x, r in zip(got, ref):
+        assert _rel(x, r) <= 1e-2

@@ -1,7 +1,10 @@
-// One-token decode attention, shared by csrc/decode_attention.cu (contiguous
-// page runs, bf16/fp32 or int8 pools), csrc/paged_append_attention.cu
-// (block tables, row write) and csrc/paged_attention.cu (block tables,
-// read only). Hopper (sm_90a).
+// One-token decode attention on CUDA cores, shared by
+// csrc/decode_attention.cu (fp32 pools only: mode RUN),
+// csrc/paged_append_attention.cu (block tables, row write) and
+// csrc/paged_attention.cu (block tables, read only). Hopper (sm_90a). The
+// bf16 and int8 runs of #13 take decode_attention.cu's split walk
+// (`decode_run_split_sm90`), not this kernel; the block-table modes could
+// take the same walk later.
 //
 // One block per (sequence b, head h), 32 warps. Warps walk 32-token tiles
 // of the sequence in parallel with an fp32 online softmax; each lane loads
@@ -9,7 +12,10 @@
 // score alone; V rows are read lane-contiguous, UB tokens' rows in flight at
 // once; the warps' (max, sum, acc) states are merged through shared memory.
 //
-// Modes (the TPU kernel each one stands for is named in the .cu files):
+// Modes (the TPU kernel each one stands for is named in the .cu files;
+// this kernel runs RUN for fp32 pools, TABLE and TABLE_RO; RUN_I8, and RUN
+// for bf16 pools, are decode_attention.cu's split walk, to the same
+// contracts):
 //   RUN    tokens 0..L of a contiguous run from page bases[b]; the caller has
 //          written row L; its probability enters the PV sum unrounded, the
 //          pool tokens' are rounded to the storage type.
@@ -32,57 +38,14 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
 constexpr int NWARPS = 32;
 constexpr int UB = 8;  // tokens whose V rows are loaded together
-constexpr unsigned FULL = 0xffffffffu;
 
 enum Mode { RUN = 0, RUN_I8 = 1, TABLE = 2, TABLE_RO = 3 };
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(int8_t x) { return (float)x; }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16(x);
-}
-
-// round an fp32 value to T and back
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-    return to_f(from_f<T>(x));
-}
-
-// 8 consecutive elements -> fp32 (16-byte loads for bf16, 8-byte for int8)
-__device__ __forceinline__ void load8(const __nv_bfloat16* p, float* f) {
-    uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        float2 x = __bfloat1622float2(h2[i]);
-        f[2 * i] = x.x;
-        f[2 * i + 1] = x.y;
-    }
-}
-__device__ __forceinline__ void load8(const float* p, float* f) {
-    float4 a = *reinterpret_cast<const float4*>(p);
-    float4 b = *reinterpret_cast<const float4*>(p + 4);
-    f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
-    f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
-}
-__device__ __forceinline__ void load8(const int8_t* p, float* f) {
-    uint2 u = *reinterpret_cast<const uint2*>(p);
-    const int8_t* c = reinterpret_cast<const int8_t*>(&u);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) f[i] = (float)c[i];
-}
 
 struct DecodeArgs {
     const void* q;        // [B, H, D] pre-scaled, type T
@@ -104,7 +67,6 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
     __shared__ __align__(16) float qs[D];
     __shared__ float wm[NWARPS], wl[NWARPS];
     __shared__ float wacc[NWARPS][D];
-    __shared__ float s_new_sh;
 
     const T* q = static_cast<const T*>(a.q);
     PT* kp = static_cast<PT*>(a.kp);
@@ -138,7 +100,7 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
         n = min((long long)L, max_tokens);
     } else {
         row0 = (long long)a.idx[b] * page;
-        n = min((long long)L + (MODE == RUN ? 1 : 0), max_tokens);
+        n = min((long long)L + 1, max_tokens);
         n = min(n, a.pool_rows - row0);
     }
 
@@ -151,7 +113,6 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
         else
             return row0 + t;
     };
-    const int S = a.chunk * page;  // RUN_I8 slab length in tokens
 
     float m = NEG_INF, lpart = 0.f, acc[DPL];
 #pragma unroll
@@ -161,7 +122,7 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
         const long long t = t0 + lane;
         const bool valid = t < n;
         const long long row = valid ? row_of(t) : 0;
-        float s = NEG_INF, vsc = 1.f;
+        float s = NEG_INF;
         if (valid) {
             const PT* kr = kp + (size_t)row * HD + (size_t)h * D;
             float dot = 0.f;
@@ -175,13 +136,6 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
                        qb.x * f[4] + qb.y * f[5] + qb.z * f[6] + qb.w * f[7];
             }
             s = dot;
-            if constexpr (MODE == RUN_I8) {
-                const long long pid = row / page;
-                const size_t si = (size_t)(pid / a.chunk) * 8 * S +
-                                  (size_t)(pid % a.chunk) * page + row % page;
-                s *= a.scales[si];
-                vsc = a.scales[si + S];
-            }
         }
         float mx = s;
 #pragma unroll
@@ -194,8 +148,6 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
         float pr;
         if constexpr (MODE == RUN)
             pr = (t == L) ? p : round_to<PT>(p);
-        else if constexpr (MODE == RUN_I8)
-            pr = round_to<T>(p * vsc);
         else
             pr = round_to<PT>(p);
 #pragma unroll
@@ -229,36 +181,16 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
     }
 #pragma unroll
     for (int c = 0; c < DPL; ++c) wacc[warp][lane + 32 * c] = acc[c];
-    if constexpr (MODE == RUN_I8) {
-        if (warp == 0) {  // s_new = q . k_new, unquantized
-            const T* kn = static_cast<const T*>(a.knew) + qoff;
-            float part = 0.f;
-            for (int d = lane; d < D; d += 32) part += qs[d] * to_f(kn[d]);
-#pragma unroll
-            for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(FULL, part, o);
-            if (lane == 0) s_new_sh = part;
-        }
-    }
     __syncthreads();
 
     float M = NEG_INF;
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) M = fmaxf(M, wm[w]);
-    float s_new = 0.f;
-    if constexpr (MODE == RUN_I8) {
-        s_new = s_new_sh;
-        M = fmaxf(M, s_new);
-    }
     float l = 0.f, sc[NWARPS];
 #pragma unroll
     for (int w = 0; w < NWARPS; ++w) {
         sc[w] = expf(wm[w] - M);
         l += wl[w] * sc[w];
-    }
-    float a_new = 0.f;
-    if constexpr (MODE == RUN_I8) {
-        a_new = expf(s_new - M);
-        l += a_new;
     }
     const float denom = l > 0.f ? l : 1.f;
     T* out = static_cast<T*>(a.out);
@@ -266,8 +198,6 @@ __global__ void __launch_bounds__(NWARPS * 32) decode_kernel(DecodeArgs a) {
         float o = 0.f;
 #pragma unroll
         for (int w = 0; w < NWARPS; ++w) o += wacc[w][d] * sc[w];
-        if constexpr (MODE == RUN_I8)
-            o += a_new * to_f(static_cast<const T*>(a.vnew)[qoff + d]);
         out[qoff + d] = from_f<T>(o / denom);
     }
 }

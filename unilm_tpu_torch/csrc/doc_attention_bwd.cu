@@ -17,17 +17,9 @@
 //
 // The TPU kernel sweeps the q blocks of one (batch, head group) in order on
 // one core and accumulates dk/dv in VMEM across them. On the H100 blocks run
-// in parallel, so the one pass becomes two launches of one entry point, with
-// no atomics (two runs give the same bits):
-//  A. one block per (64-row q tile, head, batch): sweep 0 over the key
-//     tiles takes the exact row statistics online (max m, l = sum
-//     exp2(s - m), u = sum exp2(s - m) dp, merged across the quad in a
-//     fixed order); sweep 1 recomputes s and dp, writes ds (rounded) to the
-//     ds plane, and accumulates dq. It writes m and l for launch B.
-//  B. one block per (64-key tile, head, batch), sweeping the q tiles:
-//     recomputes p from m and l, reads ds back from the plane (for bf16
-//     exactly the TPU kernel's bf16 `dsl`), and accumulates dk and dv. It
-//     needs no v and no dp: the ds plane carries them.
+// in parallel and nothing carries over between them, so the bf16 path is
+// three launches of one entry point, with no atomics (two runs give the
+// same bits).
 //
 // Layouts are the caller's: q/dO/dq [B, T, H, D], k/v/dk/dv [B, S, H, D]
 // (row stride H*D), the mask int32 [B, S] or null, the bias and the ds
@@ -38,437 +30,827 @@
 // What bounds it on the H100: at the FUNSD shape (B=32, T=S=709, H=12,
 // D=64, bf16) the bias read and the ds written are 772 MB of the 1016 MB
 // that must move once, against 1.2e11 FLOP: 0.303 ms at 3.35 TB/s against
-// 0.125 ms of bf16 tensor time. The design recomputes (q k^T and dO v^T
-// twice in launch A, q k^T again in launch B: eight products instead of
-// five) and reads the bias three times and ds twice, so it does not reach
-// that bound; a first version, right and deterministic.
-//  - bf16 (namespace tc): every product on the tensor cores (mma.sync
-//    m16n8k16, fp32 accumulators), the tiles of csrc/encoder_attention_bwd.cu
-//    (#4): a warp owns 16 query rows (A) or 16 keys (B), p and ds go from the
-//    accumulators to the next product's operand in bf16, the transposed
-//    operands come through ldmatrix .trans, the next tile is fetched by
-//    cp.async while the current one is used. Launch B scales its q operand
-//    in registers with the same rounding launch A used in shared memory.
-//    Launch A reads a tile's bias and mask before its products and selects
-//    between them, so no bias read waits on a mask read (as in #9).
+// 0.125 ms of bf16 tensor time. The schedule below moves the bias twice and
+// ds twice (written, then read): ~1.55 GB, 0.46 ms at 3.35 TB/s, and runs
+// seven products of 2 D operations per (row, key) pair.
+//  - bf16 (namespace hop, the machinery of csrc/flash_bwd.cu, #6/#7:
+//    csrc/hopper.cuh's TMA maps, mbarrier rings with the 10 s trap, SS and
+//    RS wgmma, a producer warpgroup at setmaxnreg 56 and consumer
+//    warpgroups of 64 rows or keys at 224, the role through __shfl_sync):
+//    1. `doc_bwd_stats_sm90`, a block per 128 q rows: Q and dO resident,
+//       64-key K/V tiles streamed; the consumers scale their Q rows in
+//       place to q' = q * scale * log2 e rounded to bf16 (and write q' to
+//       dq's buffer for launch 2), take S = Q' K^T and dP = dO V^T, add the
+//       bias (read once) and the mask, and keep
+//       each row's online max m, l = sum 2^(s - m) and u = sum 2^(s - m) dp;
+//       they write m, 1 / l and delta = u / l (the recomputed rowsum(p dp)).
+//    2. `doc_bwd_dkv_sm90`, a block per 128 keys (64 at D = 96, 128): K, V
+//       resident, 64-row tiles of q', q and dO streamed with their rows'
+//       statistics; S^T = K Q'^T and dP^T = V dO^T, the bias again,
+//       p^T = 2^(s - m) / l, ds^T = p^T (dp^T - delta) in fp32, ds written
+//       to the plane as bf16 (exactly the TPU kernel's bf16 `dsl`), then
+//       dV += P^T dO and dK += dS^T Q with p and ds rounded to bf16 as the A
+//       operands. dk = scale dS^T q uses the unscaled q.
+//    3. `doc_bwd_dq_sm90`, a block per 128 q rows: 64-key K tiles and the
+//       matching ds tiles streamed; the ds fragments go from the staged
+//       tile into the A operand of dq += dS K; dq = scale dS K.
+//    The bias and ds rows hold S bf16: 1418 bytes at S = 709, not a
+//    multiple of 16, so no TMA map takes them: the producer warpgroups
+//    stage their tiles by 16-byte cp.async into shared memory (see
+//    `stage_plane`), beside the TMA tiles of the same ring stage; ds is
+//    written with 2-byte stores in the accumulators' fragment layout. The
+//    tiles are ops/doc_attention.doc_bwd_tile_plan's
+//    (tests/test_torch_hopper_plans).
 //  - fp32: #4's own fp32 CUDA-core launches (encoder_attention_bwd.cuh,
 //    shared with csrc/encoder_attention_bwd.cu) given the mask, with the ds
-//    plane as their fp32 dbias planes. They differ from A and B above in
-//    two ways that fp32 makes exact or nearly so: launch B recomputes ds
-//    from dp and the row's delta instead of reading it back (equal to the
-//    plane's fp32 values up to rounding), and q k^T is scaled after the
+//    plane as their fp32 dbias planes. They recompute ds from dp and the
+//    row's delta in their dk/dv launch instead of reading it back (equal to
+//    the plane's fp32 values up to rounding), and scale q k^T after the
 //    product, not q before it (the last bits).
 
 #include <cmath>
 
 #include "encoder_attention_bwd.cuh"
-#include "mma_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr int BQ = 64;   // query rows per tile
-constexpr int BK = 64;   // keys per tile
 
 struct Params {
     const void *q, *k, *v, *dout, *bias;
     const int* mask;  // [B, S], nonzero = valid key; null = every key valid
     void *dq, *dk, *dv, *ds;
-    float* stats;     // [3][B][H][T]: row max m (exp2 domain), l (and delta for fp32)
+    float* stats;     // [3][B][H][T]: row max m (exp2 domain), then bf16: 1 / l and
+                      // delta; fp32: l and delta
     int B, T, S, H, bias_sb, bias_sh, ds_sb, ds_sh;
     float scale, qscale;  // scale and scale * log2(e)
 };
 
-__device__ __forceinline__ bool key_ok(const int* mask_b, int col) {
-    return !mask_b || mask_b[col];
+// ---------------------------------------------------------------------------
+// bf16 inputs: the Hopper kernels
+// ---------------------------------------------------------------------------
+namespace hop {
+
+constexpr int ROWS = 64;  // rows of a consumer's tile (wgmma M) and of a streamed tile
+constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;  // 384-thread blocks
+
+// acc[32] = A B^T for two [64, D] tiles A and B, both read K-major; RA and
+// RB are the rows of the boxes they lie in
+template <int D, int RA, int RB>
+__device__ __forceinline__ void ss_product(float* acc, uint32_t a, uint32_t b) {
+    using C = sm90::Cols<D>;
+#pragma unroll
+    for (int c = 0; c < C::NC; ++c)
+#pragma unroll
+        for (int kk = 0; kk < C::CW / 16; ++kk)
+            sm90::wgmma_ss_n64(acc, sm90::kmajor_desc<D, RA>(a, c, kk),
+                               sm90::kmajor_desc<D, RB>(b, c, kk), c | kk);
 }
 
-// ---------------------------------------------------------------------------
-// bf16 inputs: the same two launches on the tensor cores. 4 warps per block.
-// ---------------------------------------------------------------------------
-namespace tc {
-
-constexpr int NW = 4;          // warps per block
-constexpr int NT = NW * 32;
-constexpr int BQ2 = 32;        // launch B: query rows per step
-constexpr int PAD = 8;         // bf16 elements of padding per tile row
-static_assert(BQ == NW * 16 && BK == NW * 16, "a warp owns 16 rows or keys");
-
-// log2(e) * bias[row][col], 0 without a bias
-__device__ __forceinline__ float bias_log2(const bf16* bias_bh, int S, int row, int col) {
-    return bias_bh ? LOG2E * __bfloat162float(bias_bh[(size_t)row * S + col]) : 0.f;
-}
-
-// launch A on the tensor cores: row statistics, ds and dq; one block per
-// (64-row q tile, head, batch), the K/V tiles of its two sweeps
-// double-buffered (cp.async)
+// acc[D / 2] += A B for A [64, 64] given as its bf16 fragments a[16] and B
+// a [64, D] tile read MN-major (the transpose bit)
 template <int D>
-__global__ void __launch_bounds__(NT, D <= 64 ? 3 : 2) doc_bwd_dq_tc_kernel(const Params p) {
-    constexpr int LD = D + PAD;
-    constexpr int NJ = BK / 8, ND = D / 8, KD = D / 16;
-    extern __shared__ float4 smem4[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [BQ][LD], q * qscale
-    bf16* Os = Qs + BQ * LD;                    // [BQ][LD] dO
-    bf16* KV = Os + BQ * LD;                    // 2 x {K [BK][LD], V [BK][LD]}
+__device__ __forceinline__ void rs_product(float* acc, const uint32_t* a, uint32_t b) {
+#pragma unroll
+    for (int kk = 0; kk < ROWS / 16; ++kk)
+        sm90::wgmma_rs<D>(acc, a + 4 * kk, sm90::mnmajor_desc<D, ROWS>(b, kk));
+}
 
-    const bf16* q = static_cast<const bf16*>(p.q);
-    const bf16* k = static_cast<const bf16*>(p.k);
-    const bf16* v = static_cast<const bf16*>(p.v);
-    const bf16* dout = static_cast<const bf16*>(p.dout);
-    bf16* dq = static_cast<bf16*>(p.dq);
+// The A-fragment register of the accumulator pair (row 16 w + r8 + 8 hh,
+// columns 8 nn + 2 quad + {0, 1}): k-step nn / 2, m16n8k16 order
+// (hopper.cuh), so a product's accumulator repacks with no shuffle.
+__device__ __forceinline__ constexpr int afrag(int nn, int hh) {
+    return 4 * (nn >> 1) + 2 * (nn & 1) + hh;
+}
 
-    const int b = blockIdx.z, h = blockIdx.y;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, tq = lane & 3;
-    const int row0 = blockIdx.x * BQ;
-    const int T_ = p.T, S = p.S, H = p.H;
-    const size_t HD = (size_t)H * D;
-    const int nrows = min(BQ, T_ - row0);
-    const int nk = (S + BK - 1) / BK;
-    const int wr = warp * 16;  // this warp's first local row
-    // the thread's two rows, clamped for the bias reads of rows past T
-    const int tl[2] = {row0 + wr + g, row0 + wr + g + 8};
-    const int tr[2] = {min(tl[0], T_ - 1), min(tl[1], T_ - 1)};
-    const size_t qoff = ((size_t)b * T_ + row0) * HD + (size_t)h * D;
-    const size_t kbase = (size_t)b * S * HD + (size_t)h * D;
-    const bf16* bias_bh =
-        p.bias ? static_cast<const bf16*>(p.bias) + (size_t)b * p.bias_sb + (size_t)h * p.bias_sh
-               : nullptr;
-    bf16* ds_bh = static_cast<bf16*>(p.ds) + (size_t)b * p.ds_sb + (size_t)h * p.ds_sh;
-    const int* mask_b = p.mask ? p.mask + (size_t)b * S : nullptr;
+// ---- bias and ds tiles in shared memory ------------------------------------
+//
+// A bias or ds row holds S bf16: 1418 bytes at S = 709, no multiple of 16,
+// so no TMA map takes the planes, and a row starts at any 2-byte offset.
+// The producer warpgroup copies a tile of R rows x C keys with 16-byte
+// cp.async: row r as the aligned 16-byte chunks that cover its keys
+// [c0, c0 + C), so that key c sits at element c - c0 + off, off = the
+// first key's element mod 8 (0..7); rows past the plane read as zeros,
+// chunks past the plane's end are cut there, and keys past S in the last
+// chunk hold the next row's values (the consumers mask them). Row stride
+// LDW words: the chunks plus none (C / 8 + 1 chunks: 36 words at C = 64,
+// 68 at 128), so that the consumers' fragment reads (8 rows of 4 words, or
+// 4 rows two apart of 5) fall on distinct banks.
+template <int C> struct Plane {
+    static constexpr int NCH = C / 8 + 1;  // 16-byte chunks a row
+    static constexpr int LDW = NCH * 4;
+    static constexpr int BYTES_PER_ROW = LDW * 4;
+    static_assert(LDW % 32 == 4, "rows four banks apart");
+};
 
-    stage_async<D, NT>(Qs, LD, q + qoff, HD, BQ, nrows, tid);
-    cp_commit();
-    stage_async<D, NT>(Os, LD, dout + qoff, HD, BQ, nrows, tid);
-    stage_async<D, NT>(KV, LD, k + kbase, HD, BK, S, tid);
-    stage_async<D, NT>(KV + BK * LD, LD, v + kbase, HD, BK, S, tid);
-    cp_commit();
-    cp_wait<1>();  // q has arrived
-    __syncthreads();
-    // q * scale * log2(e), rounded to bf16, in place; the loop's first
-    // barrier publishes it
-    for (int i = tid; i < BQ * D / 2; i += NT) {
-        uint32_t* x = reinterpret_cast<uint32_t*>(Qs + (i / (D / 2)) * LD + (i % (D / 2)) * 2);
-        *x = scale2(*x, p.qscale);
+// rows [r0, r0 + R) of the plane whose element (0, 0) is element `base`
+// of `plane`, keys [c0, c0 + C), `rmax` rows in the plane
+template <int R, int C>
+__device__ __forceinline__ void stage_plane(uint32_t* dst, const bf16* plane, size_t base, int S,
+                                            int rmax, int r0, int c0, int tid) {
+    constexpr int NCH = Plane<C>::NCH, LDW = Plane<C>::LDW;
+    const size_t end = base + (size_t)rmax * S;  // one past the plane
+    for (int i = tid; i < R * NCH; i += 128) {
+        const int r = i / NCH, c = i % NCH, row = r0 + r;
+        const size_t e = ((base + (size_t)row * S + c0) & ~(size_t)7) + 8 * c;
+        const int bytes = row < rmax ? (int)min((size_t)16, e < end ? 2 * (end - e) : 0) : 0;
+        sm90::cp16n(dst + r * LDW + 4 * c, bytes ? plane + e : plane, bytes);
     }
+}
 
+// where key c0 of row `row` starts in its staged row (the parity and the
+// chunk offset of its element)
+__device__ __forceinline__ int stage_off(size_t base, int row, int S, int c0) {
+    return (int)((base + (size_t)row * S + c0) & 7);
+}
+
+// the bf16 bits at element k (key - c0 + off) of row r of a staged tile
+template <int C>
+__device__ __forceinline__ uint32_t tile_bits(const uint32_t* tile, int r, int k) {
+    return reinterpret_cast<const unsigned short*>(tile + r * Plane<C>::LDW)[k];
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
+
+// ---- launch 1: row statistics ------------------------------------------------
+//
+// A block per 128 q rows of one (batch, head): two consumer warpgroups of
+// 64 rows. The producer warpgroup TMA-loads Q and dO once and streams
+// 64-key K/V tiles and the matching [128, 64] bias tiles through a ring,
+// packing each tile's key-padding mask into bits; the consumers scale
+// their rows of Q in place (q * scale * log2 e, rounded to bf16: the
+// scores' operand) and write the same q' to dq's buffer for launch 2, then
+// per tile take S = Q' K^T and dP = dO V^T (SS wgmma), add the bias and
+// update the rows' online max m, sum l = sum 2^(s - m) and u = sum
+// 2^(s - m) dp. The quad merges its partial statistics in a fixed
+// butterfly; stats gets m, 1 / l and delta = u / l.
+
+template <int D> struct StatGeo : sm90::Cols<D> {
+    static constexpr int NCW = 2;
+    static constexpr int BQ = ROWS * NCW;          // q rows per block
+    static constexpr int BK = 64;                  // keys per tile
+    static constexpr int NW = BK / 32;             // mask words per tile
+    static constexpr int THREADS = 128 * (1 + NCW);
+    static constexpr int NST = D == 128 ? 3 : 4;   // stages of the K/V/bias ring
+    static constexpr int Q_BYTES = BQ * D * 2;     // Q, then dO
+    static constexpr int KV_BYTES = BK * D * 2;    // one K or one V tile
+    static constexpr int B_BYTES = BQ * Plane<BK>::BYTES_PER_ROW;  // a bias tile
+    static constexpr int OFF_K = 2 * Q_BYTES;      // stage s: K, then V
+    static constexpr int OFF_B = OFF_K + NST * 2 * KV_BYTES;      // [NST] bias tiles
+    static constexpr int OFF_BITS = OFF_B + NST * B_BYTES;        // [NST][NW] mask words
+    static constexpr int OFF_BAR = OFF_BITS + NST * NW * 4;  // q_full, full[NST], empty[NST]
+    static constexpr int SMEM = OFF_BAR + (1 + 2 * NST) * 8 + 1024;
+    static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "swizzle atoms aligned");
+    static_assert(SMEM <= 232448, "shared memory");
+};
+
+__device__ __forceinline__ size_t plane_base(const Params& p, bool ds, int b, int h) {
+    return ds ? (size_t)b * p.ds_sb + (size_t)h * p.ds_sh
+              : (size_t)b * p.bias_sb + (size_t)h * p.bias_sh;
+}
+
+template <int D>
+__device__ __forceinline__ void stats_producer(const CUtensorMap* tq, const CUtensorMap* tdo,
+                                               const CUtensorMap* tk, const CUtensorMap* tv,
+                                               const Params& p, uint8_t* smem, int b, int h,
+                                               int q0) {
+    using G = StatGeo<D>;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    uint64_t* full = bars + 1;
+    uint64_t* empty = bars + 1 + G::NST;
+    uint32_t* bits = reinterpret_cast<uint32_t*>(smem + G::OFF_BITS);
+    const int t = threadIdx.x, lane = t & 31;
+    const bf16* bias = static_cast<const bf16*>(p.bias);
+    const size_t base = plane_base(p, false, b, h);
+    if (t == 0) {
+        sm90::prefetch_tensormap(tq);
+        sm90::prefetch_tensormap(tdo);
+        sm90::prefetch_tensormap(tk);
+        sm90::prefetch_tensormap(tv);
+        sm90::mbar_arrive_expect_tx(&bars[0], 2 * G::Q_BYTES);
+#pragma unroll
+        for (int c = 0; c < G::NC; ++c) {
+            sm90::tma_load_4d(smem + c * G::BQ * G::CB, tq, &bars[0], c * G::CW, h, q0, b);
+            sm90::tma_load_4d(smem + G::Q_BYTES + c * G::BQ * G::CB, tdo, &bars[0], c * G::CW,
+                              h, q0, b);
+        }
+    }
+    const int nk = (p.S + G::BK - 1) / G::BK;
+    for (int j = 0; j < nk; ++j) {
+        const int s = j % G::NST;
+        // the tile's mask as bits (warp 0), read before the stage frees up:
+        // key j BK + 32 i + bit is kept iff bit `bit` of word i is set
+        uint32_t mw[G::NW];
+        if (t < 32 && p.mask) {
+            const int* mrow = p.mask + (size_t)b * p.S;
+#pragma unroll
+            for (int i = 0; i < G::NW; ++i) {
+                const int col = j * G::BK + 32 * i + lane;
+                mw[i] = __ballot_sync(FULL, col < p.S && __ldg(mrow + col) != 0);
+            }
+        }
+        if (j >= G::NST) sm90::mbar_wait(&empty[s], (j / G::NST - 1) & 1);
+        if (bias)
+            stage_plane<G::BQ, G::BK>(reinterpret_cast<uint32_t*>(smem + G::OFF_B + s * G::B_BYTES),
+                                      bias, base, p.S, p.T, q0, j * G::BK, t);
+        sm90::cp_async_arrive(&full[s]);
+        if (t < 32) {
+            if (p.mask && lane == 0) {
+#pragma unroll
+                for (int i = 0; i < G::NW; ++i) bits[G::NW * s + i] = mw[i];
+            }
+            if (lane == 0) {
+                // the arrive releases the mask words written above
+                sm90::mbar_arrive_expect_tx(&full[s], 2 * G::KV_BYTES);
+                uint8_t* kst = smem + G::OFF_K + 2 * s * G::KV_BYTES;
+#pragma unroll
+                for (int c = 0; c < G::NC; ++c) {
+                    sm90::tma_load_4d(kst + c * G::BK * G::CB, tk, &full[s], c * G::CW, h,
+                                      j * G::BK, b);
+                    sm90::tma_load_4d(kst + G::KV_BYTES + c * G::BK * G::CB, tv, &full[s],
+                                      c * G::CW, h, j * G::BK, b);
+                }
+            }
+        }
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void stats_consumer(const Params& p, uint8_t* smem, int cw, int b,
+                                               int h, int q0) {
+    using G = StatGeo<D>;
+    constexpr int BK = G::BK, NN = BK / 8;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    uint64_t* full = bars + 1;
+    uint64_t* empty = bars + 1 + G::NST;
+    const uint32_t* bits = reinterpret_cast<const uint32_t*>(smem + G::OFF_BITS);
+
+    const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31;
+    const int quad = lane & 3, r8 = lane >> 2;
+    const int row0 = q0 + cw * ROWS;  // this consumer's first query row
+    const bool live = row0 < p.T;
+    const int tl[2] = {row0 + 16 * w + r8, row0 + 16 * w + r8 + 8};  // this thread's rows
+    const size_t HD = (size_t)p.H * D;
+    const bool has_bias = p.bias != nullptr;
+    const size_t base = plane_base(p, false, b, h);
+    int boff[2];  // the rows' offsets in the staged bias tiles (c0 a multiple of 64)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) boff[hh] = stage_off(base, tl[hh], p.S, 0);
+
+    sm90::mbar_wait(&bars[0], 0);
+    // q' = q * scale * log2 e rounded to bf16: in place in this consumer's
+    // rows of each box (a swizzle moves 16-byte chunks within a row, so an
+    // element-wise pass need not know it), and from global q into dq's
+    // buffer for launch 2
+#pragma unroll
+    for (int c = 0; c < G::NC; ++c) {
+        uint32_t* x = reinterpret_cast<uint32_t*>(smem + c * G::BQ * G::CB + cw * ROWS * G::CB);
+        for (int i = t; i < ROWS * G::CB / 4; i += 128) x[i] = scale2(x[i], p.qscale);
+    }
+    const bf16* q = static_cast<const bf16*>(p.q);
+    bf16* qs = static_cast<bf16*>(p.dq);
+    for (int i = t; i < ROWS * D / 8; i += 128) {
+        const int r = row0 + i / (D / 8), d = (i % (D / 8)) * 8;
+        if (r >= p.T) continue;
+        const size_t off = ((size_t)b * p.T + r) * HD + (size_t)h * D + d;
+        uint4 u = *reinterpret_cast<const uint4*>(q + off);
+        u.x = scale2(u.x, p.qscale);
+        u.y = scale2(u.y, p.qscale);
+        u.z = scale2(u.z, p.qscale);
+        u.w = scale2(u.w, p.qscale);
+        *reinterpret_cast<uint4*>(qs + off) = u;
+    }
+    sm90::fence_proxy_async();
+    sm90::named_sync(1 + cw, 128);
+
+    const uint32_t q_base = smem_addr(smem) + cw * ROWS * G::CB;
+    const uint32_t do_base = q_base + G::Q_BYTES;
     float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
-    float delta[2] = {0.f, 0.f};
-    float acc[ND][4];
+    const int nk = (p.S + BK - 1) / BK;
+    for (int j = 0; j < nk; ++j) {
+        const int s = j % G::NST;
+        sm90::mbar_wait(&full[s], (j / G::NST) & 1);
+        if (live) {
+            const int c0 = j * BK;
+            const uint32_t k_base = smem_addr(smem + G::OFF_K + 2 * s * G::KV_BYTES);
+            const uint32_t v_base = k_base + G::KV_BYTES;
+            const uint32_t* btile =
+                reinterpret_cast<const uint32_t*>(smem + G::OFF_B + s * G::B_BYTES);
+            float sc[BK / 2], dp[BK / 2];
+            sm90::wgmma_fence();
+            ss_product<D, G::BQ, BK>(sc, q_base, k_base);
+            ss_product<D, G::BQ, BK>(dp, do_base, v_base);
+            sm90::wgmma_commit();
+            uint32_t keep_bits = ~0u;  // bit 2 nn + e: key c0 + 8 nn + 2 quad + e
+            if (p.mask) {
+                keep_bits = 0;
 #pragma unroll
-    for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-    // tiles 0..nk-1: sweep 0, the exact row statistics; tiles nk..2nk-1:
-    // sweep 1, p, ds and dq
-    for (int i = 0; i < 2 * nk; ++i) {
-        const int c0 = (i % nk) * BK;
-        const bool sweep1 = i >= nk;
-        if (i + 1 < 2 * nk) {  // prefetch the next tile into the other buffer
-            const int cn = ((i + 1) % nk) * BK;
-            bf16* nb = KV + ((i + 1) & 1) * 2 * BK * LD;
-            stage_async<D, NT>(nb, LD, k + kbase + (size_t)cn * HD, HD, BK, S - cn, tid);
-            stage_async<D, NT>(nb + BK * LD, LD, v + kbase + (size_t)cn * HD, HD, BK, S - cn,
-                               tid);
-            cp_commit();
-            cp_wait<1>();
-        } else {
-            cp_wait<0>();
-        }
-        __syncthreads();
-        const bf16* Ks = KV + (i & 1) * 2 * BK * LD;
-        const bf16* Vs = Ks + BK * LD;
-
-        // what the tile adds to the exp2-domain scores: log2(e) * bias, a
-        // masked key -1e30 (s + -1e30 rounds to -1e30 for any score), past
-        // S -inf; the bias and the mask both read before the products (a
-        // clamped column past S) and then selected, so that neither read
-        // waits on the other and their latency hides behind the mma work
-        float add[NJ][4];
-#pragma unroll
-        for (int n = 0; n < NJ; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int col = c0 + n * 8 + 2 * tq + (e & 1);
-                const int cc = min(col, S - 1);
-                const float bv = bias_log2(bias_bh, S, tr[e >> 1], cc);
-                add[n][e] = col >= S ? -INFINITY : key_ok(mask_b, cc) ? bv : NEG_INF;
+                for (int nn = 0; nn < NN; ++nn)
+                    keep_bits |= ((bits[G::NW * s + (nn >> 2)] >> (8 * (nn & 3) + 2 * quad)) & 3u)
+                                 << (2 * nn);
             }
+            sm90::wgmma_wait<0>();
 
-        float s[NJ][4], dp[NJ][4];
+            // s in the exp2 domain: + log2(e) bias, a masked key -1e30,
+            // past S -inf; then the online statistics of the two rows
 #pragma unroll
-        for (int n = 0; n < NJ; ++n)
-            s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] =
-                0.f;
+            for (int hh = 0; hh < 2; ++hh) {
+                const int r = tl[hh] - q0;
 #pragma unroll
-        for (int kk = 0; kk < KD; ++kk) {
-            uint32_t aq[4], ao[4];
-            load_a(aq, Qs, LD, wr, kk * 16, g, tq);
-            load_a(ao, Os, LD, wr, kk * 16, g, tq);
+                for (int nn = 0; nn < NN; ++nn)
 #pragma unroll
-            for (int n = 0; n < NJ; ++n) {
-                const bf16* kr = Ks + (n * 8 + g) * LD + kk * 16 + 2 * tq;
-                const bf16* vr = Vs + (n * 8 + g) * LD + kk * 16 + 2 * tq;
-                mma(s[n], aq, ld32(kr), ld32(kr + 8));
-                mma(dp[n], ao, ld32(vr), ld32(vr + 8));
+                    for (int e = 0; e < 2; ++e) {
+                        const int k = 8 * nn + 2 * quad + e, col = c0 + k;
+                        const bool keep = (keep_bits >> (2 * nn + e)) & 1u;
+                        const float bv =
+                            has_bias ? bf_lo(tile_bits<BK>(btile, r, k + boff[hh])) : 0.f;
+                        const int i = 4 * nn + 2 * hh + e;
+                        sc[i] = col >= p.S ? -INFINITY : keep ? fmaf(LOG2E, bv, sc[i]) : NEG_INF;
+                    }
             }
-        }
 #pragma unroll
-        for (int n = 0; n < NJ; ++n)
+            for (int hh = 0; hh < 2; ++hh) {
+                float mt = m[hh];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) s[n][e] += add[n][e];
-
-        if (!sweep1) {
-#pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                float mt = m[r];
-#pragma unroll
-                for (int n = 0; n < NJ; ++n) mt = fmaxf(mt, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-                const float a = exp2f(m[r] - mt);
+                for (int nn = 0; nn < NN; ++nn)
+                    mt = fmaxf(mt, fmaxf(sc[4 * nn + 2 * hh], sc[4 * nn + 2 * hh + 1]));
+                const float a = sm90::ex2(m[hh] - mt);
                 float ls = 0.f, us = 0.f;
 #pragma unroll
-                for (int n = 0; n < NJ; ++n)
+                for (int nn = 0; nn < NN; ++nn)
 #pragma unroll
-                    for (int e = 2 * r; e < 2 * r + 2; ++e) {
-                        const float x = exp2f(s[n][e] - mt);
+                    for (int e = 0; e < 2; ++e) {
+                        const int i = 4 * nn + 2 * hh + e;
+                        const float x = sm90::ex2(sc[i] - mt);
                         ls += x;
-                        us += x * dp[n][e];
+                        us += x * dp[i];
                     }
-                l[r] = l[r] * a + ls;
-                u[r] = u[r] * a + us;
-                m[r] = mt;
-            }
-            if (i == nk - 1) {
-                // merge the quad's statistics (a fixed butterfly)
-#pragma unroll
-                for (int r = 0; r < 2; ++r) {
-#pragma unroll
-                    for (int o = 1; o < 4; o <<= 1) {
-                        const float mo = __shfl_xor_sync(FULL, m[r], o);
-                        const float lo = __shfl_xor_sync(FULL, l[r], o);
-                        const float uo = __shfl_xor_sync(FULL, u[r], o);
-                        const float mt = fmaxf(m[r], mo);
-                        const float a = exp2f(m[r] - mt), c = exp2f(mo - mt);
-                        l[r] = l[r] * a + lo * c;
-                        u[r] = u[r] * a + uo * c;
-                        m[r] = mt;
-                    }
-                    delta[r] = u[r] / l[r];
-                    if (tq == 0 && tl[r] < T_) {
-                        const size_t ri = ((size_t)b * H + h) * T_ + tl[r];
-                        p.stats[ri] = m[r];
-                        p.stats[(size_t)p.B * H * T_ + ri] = l[r];
-                    }
-                }
-            }
-        } else {
-            // p, ds (fp32) -> the ds plane (bf16); ds (bf16) @ K -> dq
-#pragma unroll
-            for (int n = 0; n < NJ; ++n)
-#pragma unroll
-                for (int e = 0; e < 4; ++e) {
-                    const int r = e >> 1;
-                    const float pr = exp2f(s[n][e] - m[r]) / l[r];
-                    s[n][e] = pr * (dp[n][e] - delta[r]);  // ds
-                    const int col = c0 + n * 8 + 2 * tq + (e & 1);
-                    if (tl[r] < T_ && col < S)
-                        ds_bh[(size_t)tl[r] * S + col] = __float2bfloat16(s[n][e]);
-                }
-#pragma unroll
-            for (int kk = 0; kk < BK / 16; ++kk) {
-                uint32_t a[4];
-                acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-                for (int n = 0; n < ND; n += 2) {
-                    uint32_t bk[4];
-                    load_bt(bk, Ks, LD, kk * 16, n * 8, lane);
-                    mma(acc[n], a, bk[0], bk[1]);
-                    mma(acc[n + 1], a, bk[2], bk[3]);
-                }
+                l[hh] = l[hh] * a + ls;
+                u[hh] = u[hh] * a + us;
+                m[hh] = mt;
             }
         }
-        __syncthreads();  // this buffer is free for tile i + 2
+        sm90::mbar_arrive(&empty[s]);
     }
 
+    // merge the quad's statistics (a fixed butterfly) and write them
+    const size_t plane = (size_t)p.B * p.H * p.T;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        if (tl[r] >= T_) continue;
-        bf16* dst = dq + ((size_t)b * T_ + tl[r]) * HD + (size_t)h * D + 2 * tq;
+    for (int hh = 0; hh < 2; ++hh) {
 #pragma unroll
-        for (int n = 0; n < ND; ++n)
-            *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
-                acc[n][2 * r] * p.scale, acc[n][2 * r + 1] * p.scale);
+        for (int o = 1; o < 4; o <<= 1) {
+            const float mo = __shfl_xor_sync(FULL, m[hh], o);
+            const float lo = __shfl_xor_sync(FULL, l[hh], o);
+            const float uo = __shfl_xor_sync(FULL, u[hh], o);
+            const float mt = fmaxf(m[hh], mo);
+            const float a = sm90::ex2(m[hh] - mt), c = sm90::ex2(mo - mt);
+            l[hh] = l[hh] * a + lo * c;
+            u[hh] = u[hh] * a + uo * c;
+            m[hh] = mt;
+        }
+        if (quad == 0 && tl[hh] < p.T) {
+            const size_t ri = ((size_t)b * p.H + h) * p.T + tl[hh];
+            p.stats[ri] = m[hh];
+            p.stats[plane + ri] = 1.f / l[hh];
+            p.stats[2 * plane + ri] = u[hh] / l[hh];
+        }
     }
 }
 
-// launch B on the tensor cores: dk, dv; one block per (64-key tile, head,
-// batch), sweeping the q rows BQ2 at a time, the q/dO tiles double-buffered
-// (cp.async)
+// A block's tile and (batch, head): the tiles of one (batch, head) are
+// neighbours in the grid, so the K/V (or q, dO) they share is read from
+// memory once and from L2 after
+struct Block {
+    int b, h, tile;
+};
+__device__ __forceinline__ Block block_of(const Params& p, int ntiles) {
+    const int bh = blockIdx.x / ntiles;
+    return {bh / p.H, bh % p.H, (int)blockIdx.x % ntiles};
+}
+
 template <int D>
-__global__ void __launch_bounds__(NT, D <= 64 ? 4 : 2) doc_bwd_dkv_tc_kernel(const Params p) {
-    constexpr int LD = D + PAD;
-    constexpr int NJ = BQ2 / 8, ND = D / 8, KD = D / 16;
-    extern __shared__ float4 smem4[];
-    bf16* Ks = reinterpret_cast<bf16*>(smem4);  // [BK][LD]
-    bf16* QO = Ks + BK * LD;                    // 2 x {q [BQ2][LD], dO [BQ2][LD]}
-    float* Ms = reinterpret_cast<float*>(QO + 4 * BQ2 * LD);  // [BQ2] m
-    float* Ls = Ms + BQ2;                                      // [BQ2] l
+__global__ void __launch_bounds__(StatGeo<D>::THREADS, 1)
+doc_bwd_stats_sm90(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Params p) {
+    using G = StatGeo<D>;
+    extern __shared__ uint8_t smem_raw[];
+    // swizzle atoms start on 1024-byte boundaries of the shared window
+    uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+    const Block blk = block_of(p, (p.T + G::BQ - 1) / G::BQ);
+    const int q0 = blk.tile * G::BQ;
 
-    const bf16* q = static_cast<const bf16*>(p.q);
-    const bf16* k = static_cast<const bf16*>(p.k);
-    const bf16* dout = static_cast<const bf16*>(p.dout);
-
-    const int b = blockIdx.z, h = blockIdx.y;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, tq = lane & 3;
-    const int c0 = blockIdx.x * BK;
-    const int T_ = p.T, S = p.S;
-    const size_t HD = (size_t)p.H * D;
-    const size_t plane = (size_t)p.B * p.H * T_;
-    const int wk = warp * 16;  // this warp's first local key
-    // the thread's two keys, clamped for the bias and ds reads past S
-    const int key[2] = {c0 + wk + g, c0 + wk + g + 8};
-    const int kc[2] = {min(key[0], S - 1), min(key[1], S - 1)};
-    const int* mask_b = p.mask ? p.mask + (size_t)b * S : nullptr;
-    const bool kin[2] = {key[0] < S, key[1] < S};
-    const bool keep[2] = {kin[0] && key_ok(mask_b, key[0]), kin[1] && key_ok(mask_b, key[1])};
-    const int nq = (T_ + BQ2 - 1) / BQ2;
-
-    const size_t koff = ((size_t)b * S + c0) * HD + (size_t)h * D;
-    const size_t qbase = (size_t)b * T_ * HD + (size_t)h * D;
-    stage_async<D, NT>(Ks, LD, k + koff, HD, BK, S - c0, tid);
-    stage_async<D, NT>(QO, LD, q + qbase, HD, BQ2, T_, tid);
-    stage_async<D, NT>(QO + BQ2 * LD, LD, dout + qbase, HD, BQ2, T_, tid);
-    cp_commit();
-    const bf16* bias_bh =
-        p.bias ? static_cast<const bf16*>(p.bias) + (size_t)b * p.bias_sb + (size_t)h * p.bias_sh
-               : nullptr;
-    const bf16* ds_bh =
-        static_cast<const bf16*>(p.ds) + (size_t)b * p.ds_sb + (size_t)h * p.ds_sh;
-
-    float dk[ND][4], dv[ND][4];
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-    for (int it = 0; it < nq; ++it) {
-        const int t0 = it * BQ2;
-        if (it + 1 < nq) {  // prefetch the next q / dO tile
-            const int tn = t0 + BQ2;
-            bf16* nb = QO + ((it + 1) & 1) * 2 * BQ2 * LD;
-            stage_async<D, NT>(nb, LD, q + qbase + (size_t)tn * HD, HD, BQ2, T_ - tn, tid);
-            stage_async<D, NT>(nb + BQ2 * LD, LD, dout + qbase + (size_t)tn * HD, HD, BQ2,
-                               T_ - tn, tid);
-            cp_commit();
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(&bars[0], 1);  // Q and dO loaded
+        for (int s = 0; s < G::NST; ++s) {
+            // stage s loaded: the producer warpgroup's copies, then the TMA
+            sm90::mbar_init(&bars[1 + s], 128 + 1);
+            sm90::mbar_init(&bars[1 + G::NST + s], 128 * G::NCW);  // stage s read
         }
-        for (int t = tid; t < BQ2; t += NT) {
-            const bool live = t0 + t < T_;
-            const size_t ri = ((size_t)b * p.H + h) * T_ + t0 + t;
-            Ms[t] = live ? p.stats[ri] : 0.f;
-            Ls[t] = live ? p.stats[plane + ri] : 1.f;
-        }
-        if (it + 1 < nq)
-            cp_wait<1>();
-        else
-            cp_wait<0>();
-        __syncthreads();
-        const bf16* Qs = QO + (it & 1) * 2 * BQ2 * LD;
-        const bf16* Os = Qs + BQ2 * LD;
+        sm90::fence_barrier_init();
+    }
+    __syncthreads();
 
-        // s^T = k (q * qscale)^T for this warp's 16 keys, q scaled and
-        // rounded in registers as launch A scaled it in shared memory
-        float s[NJ][4];
+    // the role, as a value ptxas can see is uniform over each warp
+    const int wg = __shfl_sync(FULL, (int)threadIdx.x / 128, 0);
+    if (wg == 0) {
+        sm90::setmaxnreg_dec<PRODUCER_REGS>();
+        stats_producer<D>(&tq, &tdo, &tk, &tv, p, smem, blk.b, blk.h, q0);
+    } else {
+        sm90::setmaxnreg_inc<CONSUMER_REGS>();
+        stats_consumer<D>(p, smem, wg - 1, blk.b, blk.h, q0);
+    }
+}
+
+// ---- launch 2: dk, dv and the ds plane ---------------------------------------
+//
+// A block per 128 keys of one (batch, head) (64 at D = 96 and 128: one
+// consumer warpgroup), K and V resident; the producer warpgroup streams
+// 64-row tiles of q', q and dO (TMA), their rows' statistics and the
+// [64, keys] bias tiles (cp.async). A consumer takes S^T = K Q'^T and
+// dP^T = V dO^T (SS wgmma), adds the bias, forms p^T = 2^(s - m) / l and
+// ds^T = p^T (dp^T - delta) in fp32, writes ds as bf16 into the plane
+// (rows < T, keys < S) and takes dV += P^T dO and dK += dS^T Q with p and
+// ds rounded to bf16 as the A operands (RS wgmma, Q and dO through the
+// transpose bit).
+
+template <int D> struct DkvGeo : sm90::Cols<D> {
+    static constexpr int NCW = D == 64 ? 2 : 1;    // consumer warpgroups of 64 keys
+    static constexpr int BKB = ROWS * NCW;          // keys per block
+    static constexpr int BQ = 64;                   // q rows per tile
+    static constexpr int THREADS = 128 * (1 + NCW);
+    static constexpr int NST = D == 128 ? 3 : 4;    // stages of the ring
+    static constexpr int KV_BYTES = BKB * D * 2;    // K, then V
+    static constexpr int Q_BYTES = BQ * D * 2;      // one q', q or dO tile
+    static constexpr int B_BYTES = BQ * Plane<BKB>::BYTES_PER_ROW;  // a bias tile
+    static constexpr int OFF_Q = 2 * KV_BYTES;      // stage s: q', q, dO
+    static constexpr int OFF_B = OFF_Q + NST * 3 * Q_BYTES;   // [NST] bias tiles
+    static constexpr int OFF_ST = OFF_B + NST * B_BYTES;      // [NST][3][BQ]: m, 1/l, delta
+    static constexpr int OFF_BAR = OFF_ST + NST * 3 * BQ * 4;  // kv_full, full[NST], empty[NST]
+    static constexpr int SMEM = OFF_BAR + (1 + 2 * NST) * 8 + 1024;
+    static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "swizzle atoms aligned");
+    static_assert(SMEM <= 232448, "shared memory");
+};
+
+template <int D>
+__device__ __forceinline__ void dkv_producer(const CUtensorMap* tqs, const CUtensorMap* tq,
+                                             const CUtensorMap* tdo, const CUtensorMap* tk,
+                                             const CUtensorMap* tv, const Params& p,
+                                             uint8_t* smem, int b, int h, int c0) {
+    using G = DkvGeo<D>;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    uint64_t* full = bars + 1;
+    uint64_t* empty = bars + 1 + G::NST;
+    const int t = threadIdx.x;
+    const bf16* bias = static_cast<const bf16*>(p.bias);
+    const size_t base = plane_base(p, false, b, h);
+    if (t == 0) {
+        sm90::prefetch_tensormap(tqs);
+        sm90::prefetch_tensormap(tq);
+        sm90::prefetch_tensormap(tdo);
+        sm90::prefetch_tensormap(tk);
+        sm90::prefetch_tensormap(tv);
+        sm90::mbar_arrive_expect_tx(&bars[0], 2 * G::KV_BYTES);
 #pragma unroll
-        for (int n = 0; n < NJ; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+        for (int cw = 0; cw < G::NCW; ++cw)
 #pragma unroll
-        for (int kk = 0; kk < KD; ++kk) {
-            uint32_t ak[4];
-            load_a(ak, Ks, LD, wk, kk * 16, g, tq);
+            for (int c = 0; c < G::NC; ++c) {
+                uint8_t* kt = smem + cw * ROWS * D * 2 + c * ROWS * G::CB;
+                sm90::tma_load_4d(kt, tk, &bars[0], c * G::CW, h, c0 + cw * ROWS, b);
+                sm90::tma_load_4d(kt + G::KV_BYTES, tv, &bars[0], c * G::CW, h,
+                                  c0 + cw * ROWS, b);
+            }
+    }
+    const size_t rbase = ((size_t)b * p.H + h) * p.T, plane = (size_t)p.B * p.H * p.T;
+    const int nq = (p.T + G::BQ - 1) / G::BQ;
+    for (int i = 0; i < nq; ++i) {
+        const int s = i % G::NST;
+        if (i >= G::NST) sm90::mbar_wait(&empty[s], (i / G::NST - 1) & 1);
+        float* st = reinterpret_cast<float*>(smem + G::OFF_ST) + s * 3 * G::BQ;
+        for (int r = t; r < 3 * G::BQ; r += 128) {
+            const int which = r / G::BQ, tr = i * G::BQ + r % G::BQ;
+            const bool in = tr < p.T;
+            sm90::cp4(st + r, in ? p.stats + which * plane + rbase + tr : p.stats, in ? 4 : 0);
+        }
+        if (bias)
+            stage_plane<G::BQ, G::BKB>(reinterpret_cast<uint32_t*>(smem + G::OFF_B + s * G::B_BYTES),
+                                       bias, base, p.S, p.T, i * G::BQ, c0, t);
+        sm90::cp_async_arrive(&full[s]);
+        if (t == 0) {
+            sm90::mbar_arrive_expect_tx(&full[s], 3 * G::Q_BYTES);
+            uint8_t* qst = smem + G::OFF_Q + 3 * s * G::Q_BYTES;
 #pragma unroll
-            for (int n = 0; n < NJ; ++n) {
-                const bf16* qr = Qs + (n * 8 + g) * LD + kk * 16 + 2 * tq;
-                mma(s[n], ak, scale2(ld32(qr), p.qscale), scale2(ld32(qr + 8), p.qscale));
+            for (int c = 0; c < G::NC; ++c) {
+                const int off = c * G::BQ * G::CB;
+                sm90::tma_load_4d(qst + off, tqs, &full[s], c * G::CW, h, i * G::BQ, b);
+                sm90::tma_load_4d(qst + G::Q_BYTES + off, tq, &full[s], c * G::CW, h,
+                                  i * G::BQ, b);
+                sm90::tma_load_4d(qst + 2 * G::Q_BYTES + off, tdo, &full[s], c * G::CW, h,
+                                  i * G::BQ, b);
             }
         }
-        // p^T (in s) and ds^T (read back from the ds plane); zero past S
-        // and past T
-        float dsv[NJ][4];
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void dkv_consumer(const Params& p, uint8_t* smem, int cw, int b,
+                                             int h, int kc0) {
+    using G = DkvGeo<D>;
+    constexpr int BQ = G::BQ;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    uint64_t* full = bars + 1;
+    uint64_t* empty = bars + 1 + G::NST;
+
+    const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31;
+    const int quad = lane & 3, r8 = lane >> 2;
+    const int c0 = kc0 + cw * ROWS;  // this consumer's first key
+    const int kc[2] = {c0 + 16 * w + r8, c0 + 16 * w + r8 + 8};  // this thread's keys
+    bool kin[2], kok[2];
 #pragma unroll
-        for (int n = 0; n < NJ; ++n)
+    for (int hh = 0; hh < 2; ++hh) {
+        kin[hh] = kc[hh] < p.S;
+        kok[hh] = kin[hh] && (!p.mask || __ldg(p.mask + (size_t)b * p.S + kc[hh]) != 0);
+    }
+    const bool has_bias = p.bias != nullptr;
+    const size_t bbase = plane_base(p, false, b, h);
+    bf16* ds_bh = static_cast<bf16*>(p.ds) + plane_base(p, true, b, h);
+    const uint32_t k_base = smem_addr(smem) + cw * ROWS * D * 2;
+    const uint32_t v_base = k_base + G::KV_BYTES;
+
+    float dk[D / 2], dv[D / 2];
 #pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int tt = n * 8 + 2 * tq + (e & 1), r = e >> 1;
-                const int t = t0 + tt;
-                float pr = 0.f, d = 0.f;
-                if (kin[r] && t < T_) {
-                    const float x =
-                        keep[r] ? s[n][e] + bias_log2(bias_bh, S, t, kc[r]) : NEG_INF;
-                    pr = exp2f(x - Ms[tt]) / Ls[tt];
-                    d = __bfloat162float(ds_bh[(size_t)t * S + kc[r]]);
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    sm90::mbar_wait(&bars[0], 0);
+    const int nq = (p.T + BQ - 1) / BQ;
+    for (int i = 0; i < nq; ++i) {
+        const int s = i % G::NST;
+        sm90::mbar_wait(&full[s], (i / G::NST) & 1);
+        if (c0 < p.S) {
+            const int t0 = i * BQ;
+            const uint32_t qs_st = smem_addr(smem + G::OFF_Q + 3 * s * G::Q_BYTES);
+            const uint32_t q_st = qs_st + G::Q_BYTES;
+            const uint32_t do_st = q_st + G::Q_BYTES;
+            const float* st = reinterpret_cast<const float*>(smem + G::OFF_ST) + s * 3 * BQ;
+            const uint32_t* btile =
+                reinterpret_cast<const uint32_t*>(smem + G::OFF_B + s * G::B_BYTES);
+
+            // S^T = K Q'^T and dP^T = V dO^T, [keys, rows]: sc[4 nn + 2 hh + e]
+            // is key kc[hh], row t0 + 8 nn + 2 quad + e
+            float sc[32], dp[32];
+            sm90::wgmma_fence();
+            ss_product<D, ROWS, BQ>(sc, k_base, qs_st);
+            ss_product<D, ROWS, BQ>(dp, v_base, do_st);
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+
+            // p^T and ds^T in fp32; ds to the plane; both as bf16 A operands
+            uint32_t pa[16], da[16];
+#pragma unroll
+            for (int nn = 0; nn < 8; ++nn) {
+                const int r = 8 * nn + 2 * quad;
+                const float2 m2 = *reinterpret_cast<const float2*>(st + r);
+                const float2 rl2 = *reinterpret_cast<const float2*>(st + BQ + r);
+                const float2 dl2 = *reinterpret_cast<const float2*>(st + 2 * BQ + r);
+                const int o0 = stage_off(bbase, t0 + r, p.S, kc0);
+                const int o1 = stage_off(bbase, t0 + r + 1, p.S, kc0);
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                    const int i0 = 4 * nn + 2 * hh, kl = kc[hh] - kc0;
+                    float x0 = sc[i0], x1 = sc[i0 + 1];
+                    if (has_bias) {
+                        x0 = fmaf(LOG2E, bf_lo(tile_bits<G::BKB>(btile, r, kl + o0)), x0);
+                        x1 = fmaf(LOG2E, bf_lo(tile_bits<G::BKB>(btile, r + 1, kl + o1)), x1);
+                    }
+                    if (!kok[hh]) x0 = x1 = kin[hh] ? NEG_INF : -INFINITY;
+                    const float p0 = sm90::ex2(x0 - m2.x) * rl2.x;
+                    const float p1 = sm90::ex2(x1 - m2.y) * rl2.y;
+                    const float d0 = p0 * (dp[i0] - dl2.x), d1 = p1 * (dp[i0 + 1] - dl2.y);
+                    pa[afrag(nn, hh)] = pack(p0, p1);
+                    const uint32_t dd = pack(d0, d1);
+                    da[afrag(nn, hh)] = dd;
+                    if (kin[hh]) {
+                        const int tr = t0 + r;
+                        unsigned short* dst =
+                            reinterpret_cast<unsigned short*>(ds_bh + (size_t)tr * p.S + kc[hh]);
+                        if (tr < p.T) dst[0] = (unsigned short)(dd & 0xffffu);
+                        if (tr + 1 < p.T) dst[p.S] = (unsigned short)(dd >> 16);
+                    }
                 }
-                s[n][e] = pr;
-                dsv[n][e] = d;
             }
-        // dv += p^T dO, dk += ds^T q
-#pragma unroll
-        for (int kk = 0; kk < BQ2 / 16; ++kk) {
-            uint32_t ap[4], ad[4];
-            acc_to_a(ap, s[2 * kk], s[2 * kk + 1]);
-            acc_to_a(ad, dsv[2 * kk], dsv[2 * kk + 1]);
-#pragma unroll
-            for (int n = 0; n < ND; n += 2) {
-                uint32_t bo[4], bq[4];
-                load_bt(bo, Os, LD, kk * 16, n * 8, lane);
-                load_bt(bq, Qs, LD, kk * 16, n * 8, lane);
-                mma(dv[n], ap, bo[0], bo[1]);
-                mma(dv[n + 1], ap, bo[2], bo[3]);
-                mma(dk[n], ad, bq[0], bq[1]);
-                mma(dk[n + 1], ad, bq[2], bq[3]);
-            }
+
+            // dV += P^T dO, dK += dS^T Q; dO and Q are [rows, D], MN-major
+            sm90::wgmma_fence();
+            rs_product<D>(dv, pa, do_st);
+            rs_product<D>(dk, da, q_st);
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
         }
-        __syncthreads();  // this buffer and the statistics are free
+        sm90::mbar_arrive(&empty[s]);
     }
 
     bf16* dkp = static_cast<bf16*>(p.dk);
     bf16* dvp = static_cast<bf16*>(p.dv);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        if (!kin[r]) continue;
-        const size_t off = ((size_t)b * S + key[r]) * HD + (size_t)h * D + 2 * tq;
+    for (int hh = 0; hh < 2; ++hh) {
+        if (!kin[hh]) continue;
+        const size_t off = (((size_t)b * p.S + kc[hh]) * p.H + h) * D + 2 * quad;
 #pragma unroll
-        for (int n = 0; n < ND; ++n) {
-            *reinterpret_cast<__nv_bfloat162*>(dkp + off + n * 8) = __floats2bfloat162_rn(
-                dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
-            *reinterpret_cast<__nv_bfloat162*>(dvp + off + n * 8) =
-                __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+        for (int nn = 0; nn < D / 8; ++nn) {
+            *reinterpret_cast<uint32_t*>(dkp + off + 8 * nn) =
+                pack(dk[4 * nn + 2 * hh] * p.scale, dk[4 * nn + 2 * hh + 1] * p.scale);
+            *reinterpret_cast<uint32_t*>(dvp + off + 8 * nn) =
+                pack(dv[4 * nn + 2 * hh], dv[4 * nn + 2 * hh + 1]);
         }
     }
 }
 
-template <int D> constexpr size_t dq_smem() {
-    return (size_t)6 * BQ * (D + PAD) * sizeof(bf16);
-}
-template <int D> constexpr size_t dkv_smem() {
-    return (size_t)(BK + 4 * BQ2) * (D + PAD) * sizeof(bf16) + 2 * BQ2 * sizeof(float);
+template <int D>
+__global__ void __launch_bounds__(DkvGeo<D>::THREADS, 1)
+doc_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tqs, const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tdo, const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const Params p) {
+    using G = DkvGeo<D>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+    const Block blk = block_of(p, (p.S + G::BKB - 1) / G::BKB);
+    const int c0 = blk.tile * G::BKB;
+
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(&bars[0], 1);  // K and V loaded
+        for (int s = 0; s < G::NST; ++s) {
+            sm90::mbar_init(&bars[1 + s], 128 + 1);                 // stage s loaded
+            sm90::mbar_init(&bars[1 + G::NST + s], 128 * G::NCW);  // stage s read
+        }
+        sm90::fence_barrier_init();
+    }
+    __syncthreads();
+
+    const int wg = __shfl_sync(FULL, (int)threadIdx.x / 128, 0);
+    if (wg == 0) {
+        if constexpr (G::NCW > 1) sm90::setmaxnreg_dec<PRODUCER_REGS>();
+        dkv_producer<D>(&tqs, &tq, &tdo, &tk, &tv, p, smem, blk.b, blk.h, c0);
+    } else {
+        if constexpr (G::NCW > 1) sm90::setmaxnreg_inc<CONSUMER_REGS>();
+        dkv_consumer<D>(p, smem, wg - 1, blk.b, blk.h, c0);
+    }
 }
 
-}  // namespace tc
+// ---- launch 3: dq = scale ds k --------------------------------------------------
+//
+// A block per 128 q rows of one (batch, head): two consumer warpgroups of
+// 64 rows; the producer warpgroup streams 64-key K tiles (TMA) and the
+// matching [128, 64] ds tiles (cp.async). A consumer packs its ds
+// fragments from the staged tile and takes dq += dS K (RS wgmma, K through
+// the transpose bit).
 
-template <typename K1, typename K2>
-cudaError_t launch_pair(K1 dq_kern, size_t dq_bytes, K2 dkv_kern, size_t dkv_bytes, int nthreads,
-                        const Params& p, cudaStream_t stream) {
-    cudaError_t err =
-        cudaFuncSetAttribute(dq_kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dq_bytes);
-    if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(dkv_kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)dkv_bytes);
-    if (err != cudaSuccess) return err;
-    dq_kern<<<dim3((p.T + BQ - 1) / BQ, p.H, p.B), nthreads, dq_bytes, stream>>>(p);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    dkv_kern<<<dim3((p.S + BK - 1) / BK, p.H, p.B), nthreads, dkv_bytes, stream>>>(p);
+template <int D> struct DqGeo : sm90::Cols<D> {
+    static constexpr int NCW = 2;
+    static constexpr int BQ = ROWS * NCW;
+    static constexpr int BK = ROWS;                // keys per tile
+    static constexpr int THREADS = 128 * (1 + NCW);
+    static constexpr int NST = 4;
+    static constexpr int KV_BYTES = BK * D * 2;
+    static constexpr int S_BYTES = BQ * Plane<BK>::BYTES_PER_ROW;  // a ds tile
+    static constexpr int OFF_S = NST * KV_BYTES;
+    static constexpr int OFF_BAR = OFF_S + NST * S_BYTES;  // full[NST], empty[NST]
+    static constexpr int SMEM = OFF_BAR + 2 * NST * 8 + 1024;
+    static_assert(KV_BYTES % 1024 == 0, "swizzle atoms aligned");
+    static_assert(SMEM <= 232448, "shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqGeo<D>::THREADS, 1)
+doc_bwd_dq_sm90(const __grid_constant__ CUtensorMap tk, const Params p) {
+    using G = DqGeo<D>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+    const Block blk = block_of(p, (p.T + G::BQ - 1) / G::BQ);
+    const int b = blk.b, h = blk.h, q0 = blk.tile * G::BQ;
+    const int nk = (p.S + G::BK - 1) / G::BK;
+    const bf16* ds = static_cast<const bf16*>(p.ds);
+    const size_t base = plane_base(p, true, b, h);
+
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    uint64_t* empty = full + G::NST;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < G::NST; ++s) {
+            sm90::mbar_init(&full[s], 128 + 1);
+            sm90::mbar_init(&empty[s], 128 * G::NCW);
+        }
+        sm90::fence_barrier_init();
+    }
+    __syncthreads();
+
+    const int wg = __shfl_sync(FULL, (int)threadIdx.x / 128, 0);
+    if (wg == 0) {
+        const int t = threadIdx.x;
+        if (t == 0) sm90::prefetch_tensormap(&tk);
+        for (int j = 0; j < nk; ++j) {
+            const int s = j % G::NST;
+            if (j >= G::NST) sm90::mbar_wait(&empty[s], (j / G::NST - 1) & 1);
+            stage_plane<G::BQ, G::BK>(reinterpret_cast<uint32_t*>(smem + G::OFF_S + s * G::S_BYTES),
+                                      ds, base, p.S, p.T, q0, j * G::BK, t);
+            sm90::cp_async_arrive(&full[s]);
+            if (t == 0) {
+                sm90::mbar_arrive_expect_tx(&full[s], G::KV_BYTES);
+#pragma unroll
+                for (int c = 0; c < G::NC; ++c)
+                    sm90::tma_load_4d(smem + s * G::KV_BYTES + c * G::BK * G::CB, &tk, &full[s],
+                                      c * G::CW, h, j * G::BK, b);
+            }
+        }
+        return;
+    }
+    const int cw = wg - 1;
+    const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31;
+    const int quad = lane & 3, r8 = lane >> 2;
+    const int row0 = q0 + cw * ROWS;
+    const int tl[2] = {row0 + 16 * w + r8, row0 + 16 * w + r8 + 8};
+    int off[2];  // the rows' offsets in the staged ds tiles (c0 a multiple of 64)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) off[hh] = stage_off(base, tl[hh], p.S, 0);
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    for (int j = 0; j < nk; ++j) {
+        const int s = j % G::NST;
+        sm90::mbar_wait(&full[s], (j / G::NST) & 1);
+        const uint32_t* stile = reinterpret_cast<const uint32_t*>(smem + G::OFF_S + s * G::S_BYTES);
+        uint32_t da[16];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int r = tl[hh] - q0;
+#pragma unroll
+            for (int nn = 0; nn < 8; ++nn) {
+                // keys past S hold the next row's ds: 0 instead
+                const int c = j * G::BK + 8 * nn + 2 * quad, k = c - j * G::BK + off[hh];
+                da[afrag(nn, hh)] = (c < p.S ? tile_bits<G::BK>(stile, r, k) : 0u) |
+                                    (c + 1 < p.S ? tile_bits<G::BK>(stile, r, k + 1) << 16 : 0u);
+            }
+        }
+        sm90::wgmma_fence();
+        rs_product<D>(acc, da, smem_addr(smem + s * G::KV_BYTES));
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::mbar_arrive(&empty[s]);
+    }
+    bf16* dq = static_cast<bf16*>(p.dq);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+        if (tl[hh] >= p.T) continue;
+        bf16* dst = dq + (((size_t)b * p.T + tl[hh]) * p.H + h) * D + 2 * quad;
+#pragma unroll
+        for (int nn = 0; nn < D / 8; ++nn)
+            *reinterpret_cast<uint32_t*>(dst + 8 * nn) =
+                pack(acc[4 * nn + 2 * hh] * p.scale, acc[4 * nn + 2 * hh + 1] * p.scale);
+    }
+}
+
+template <typename K>
+cudaError_t prepare(K kern, int smem) {
+    return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// the three launches; q' goes through dq's buffer (launch 1 writes it,
+// launch 2 reads it, launch 3 overwrites it with dq)
+template <int D>
+cudaError_t launch(const Params& p, cudaStream_t stream) {
+    using S1 = StatGeo<D>;
+    using S2 = DkvGeo<D>;
+    using S3 = DqGeo<D>;
+    sm90::EncodeTiled enc = sm90::encode_tiled();
+    if (!enc) return cudaErrorNotSupported;
+    CUtensorMap q128, do128, k64, v64, qs64, q64, do64;
+    if (!sm90::make_map<D>(enc, &q128, p.q, p.B, p.T, p.H, S1::BQ) ||
+        !sm90::make_map<D>(enc, &do128, p.dout, p.B, p.T, p.H, S1::BQ) ||
+        !sm90::make_map<D>(enc, &k64, p.k, p.B, p.S, p.H, ROWS) ||
+        !sm90::make_map<D>(enc, &v64, p.v, p.B, p.S, p.H, ROWS) ||
+        !sm90::make_map<D>(enc, &qs64, p.dq, p.B, p.T, p.H, S2::BQ) ||
+        !sm90::make_map<D>(enc, &q64, p.q, p.B, p.T, p.H, S2::BQ) ||
+        !sm90::make_map<D>(enc, &do64, p.dout, p.B, p.T, p.H, S2::BQ))
+        return cudaErrorInvalidValue;
+    cudaError_t err;
+    if ((err = prepare(doc_bwd_stats_sm90<D>, S1::SMEM)) != cudaSuccess ||
+        (err = prepare(doc_bwd_dkv_sm90<D>, S2::SMEM)) != cudaSuccess ||
+        (err = prepare(doc_bwd_dq_sm90<D>, S3::SMEM)) != cudaSuccess)
+        return err;
+    const int BH = p.B * p.H;
+    doc_bwd_stats_sm90<D><<<(p.T + S1::BQ - 1) / S1::BQ * BH, S1::THREADS, S1::SMEM, stream>>>(
+        q128, do128, k64, v64, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    doc_bwd_dkv_sm90<D><<<(p.S + S2::BKB - 1) / S2::BKB * BH, S2::THREADS, S2::SMEM, stream>>>(
+        qs64, q64, do64, k64, v64, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    doc_bwd_dq_sm90<D><<<(p.T + S3::BQ - 1) / S3::BQ * BH, S3::THREADS, S3::SMEM, stream>>>(k64, p);
     return cudaGetLastError();
 }
+
+}  // namespace hop
 
 // fp32 inputs: #4's fp32 launches (encoder_attention_bwd.cuh) with the mask,
 // one (batch, head) per launch-1 block, the ds plane as its dbias planes
@@ -485,11 +867,6 @@ cudaError_t launch_fp32(int D, const Params& p, cudaStream_t stream) {
     }
 }
 
-template <int D>
-cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
-    return launch_pair(tc::doc_bwd_dq_tc_kernel<D>, tc::dq_smem<D>(),
-                       tc::doc_bwd_dkv_tc_kernel<D>, tc::dkv_smem<D>(), tc::NT, p, stream);
-}
 
 }  // namespace
 
@@ -512,9 +889,9 @@ int doc_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0) return (int)launch_fp32(D, p, st);
     switch (D) {
-        case 64: return (int)launch_bf16<64>(p, st);
-        case 96: return (int)launch_bf16<96>(p, st);
-        case 128: return (int)launch_bf16<128>(p, st);
+        case 64: return (int)hop::launch<64>(p, st);
+        case 96: return (int)hop::launch<96>(p, st);
+        case 128: return (int)hop::launch<128>(p, st);
         default: return (int)cudaErrorInvalidValue;
     }
 }

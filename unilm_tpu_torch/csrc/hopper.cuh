@@ -1,10 +1,13 @@
 // Hopper (sm_90a) building blocks for kernels written by hand: mbarriers,
-// TMA tile loads from a CUtensorMap, wgmma shared-memory descriptors and
-// the bf16 wgmma products with fp32 accumulators, setmaxnreg and named
-// barriers, written in PTX as the PTX ISA defines it; no CUTLASS.
+// TMA tile loads from a CUtensorMap, wgmma
+// shared-memory descriptors and the bf16 wgmma products with fp32
+// accumulators, setmaxnreg, named barriers and the cluster barrier with
+// loads from another block's shared memory, written in PTX as the PTX ISA
+// defines it; no CUTLASS.
 // Shared-memory addresses come from mma_common.cuh's smem_addr. Users:
 // csrc/flash_fwd.cu (#1), csrc/flash_tri.cu (#2), csrc/encoder_attention.cu
-// (#3) and csrc/flash_bwd.cu (#6, #7).
+// (#3), csrc/flash_bwd.cu (#6, #7), csrc/doc_attention_bwd.cu (#10) and
+// csrc/decode_attention.cu (#13: 3-D maps, clusters).
 //
 // The host side takes cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint, so the libraries need no -lcuda, and encodes
@@ -54,6 +57,27 @@ __device__ __forceinline__ bool mbar_try_wait(uint32_t addr, uint32_t parity) {
     return done != 0;
 }
 
+// an arrival on `bar` once every earlier cp.async of this thread has
+// landed, counted as one of the phase's expected arrivals
+__device__ __forceinline__ void cp_async_arrive(uint64_t* bar) {
+    asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_addr(bar))
+                 : "memory");
+}
+
+// 4 or 16 bytes global -> shared without passing through registers (both
+// addresses aligned to the size); `bytes` below the size reads that many
+// and zero-fills the rest (0: nothing is read)
+__device__ __forceinline__ void cp4(void* dst, const void* src, int bytes) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)), "l"(src),
+                 "r"(bytes)
+                 : "memory");
+}
+__device__ __forceinline__ void cp16n(void* dst, const void* src, int bytes) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+                 "l"(src), "r"(bytes)
+                 : "memory");
+}
+
 // Wait until the phase of `bar` with this parity has completed. A wait that
 // outlasts 10 s traps, so a fault in the pipeline fails the launch instead
 // of hanging the card.
@@ -88,6 +112,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
         : "memory");
 }
 
+// Box of a 3-D tensor map at coordinates (c0 innermost .. c2), as
+// tma_load_4d.
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+        "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+        "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
+        : "memory");
+}
+
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
     asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
                  : "memory");
@@ -102,9 +137,42 @@ template <int N> __device__ __forceinline__ void setmaxnreg_inc() {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
+// orders this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of it (wgmma operands written by the threads)
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // barrier `id` (1..15; 0 is __syncthreads) over `count` threads
 __device__ __forceinline__ void named_sync(int id, int count) {
     asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// ---- thread block clusters ------------------------------------------------
+
+// every thread of every block of the cluster: writes to shared memory
+// before it are visible to the cluster's blocks after it
+__device__ __forceinline__ void cluster_sync() {
+    asm volatile(
+        "barrier.cluster.arrive.release.aligned;\n"
+        "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// this block's rank in its cluster
+__device__ __forceinline__ int cluster_rank() {
+    uint32_t r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+    return (int)r;
+}
+
+// the fp32 at `p` (this block's shared memory) in the shared memory of
+// block `rank` of the cluster
+__device__ __forceinline__ float ld_cluster(const float* p, int rank) {
+    uint32_t a;
+    float v;
+    asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_addr(p)), "r"(rank));
+    asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(a) : "memory");
+    return v;
 }
 
 // ---- wgmma ----------------------------------------------------------------

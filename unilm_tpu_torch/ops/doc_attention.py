@@ -60,6 +60,45 @@ BWD_KERNEL = CudaKernel("doc_attention_bwd.cu", {
 })
 
 
+# The bf16 backward's tiles (csrc/doc_attention_bwd.cu, namespace hop): q
+# tiles of DOC_BWD_ROWS rows (two consumer warpgroups of 64), key tiles of
+# 64, and the dk/dv launch's key blocks (two consumers of 64 keys at D = 64,
+# one at D = 96 and 128) over 64-row q tiles.
+DOC_BWD_ROWS = 128
+DOC_BWD_TILE = 64
+
+
+def doc_bwd_tile_plan(T: int, S: int, D: int = 64) -> dict:
+    """The three launches of kernel #10's bf16 path as blocks of steps
+    (r0, r1, c0, c1), a [r0, r1) x [c0, c1) tile of (query row, key)
+    pairs each, in the order the block walks them:
+    - "stats": a block per DOC_BWD_ROWS q rows, walking the 64-key tiles
+      (the row statistics; the bias read once);
+    - "dkv": a block per key block (128 keys at D = 64, else 64), walking
+      the 64-row q tiles (ds written, dk and dv);
+    - "dq": a block per DOC_BWD_ROWS q rows, walking the 64-key tiles of
+      the ds plane (dq).
+    Each launch visits every pair once; the ragged tiles at T and S hold
+    only the rows and keys that exist."""
+    rows, tile = DOC_BWD_ROWS, DOC_BWD_TILE
+    kblock = 2 * tile if D == 64 else tile
+
+    def walk(n_outer, step_outer, n_inner, step_inner, outer_rows):
+        out = []
+        for o in range(0, n_outer, step_outer):
+            o1 = min(o + step_outer, n_outer)
+            steps = []
+            for i in range(0, n_inner, step_inner):
+                i1 = min(i + step_inner, n_inner)
+                steps.append((o, o1, i, i1) if outer_rows else (i, i1, o, o1))
+            out.append(steps)
+        return out
+
+    return {"stats": walk(T, rows, S, tile, True),
+            "dkv": walk(S, kblock, T, tile, False),
+            "dq": walk(T, rows, S, tile, True)}
+
+
 class HeadMajorBias:
     """Marks a bias stored [H, B|1, T, S] instead of [B|1, H, T, S]: the
     natural output order of the bias lookup (ops/bucket_bias.py

@@ -25,6 +25,10 @@ tensors that were passed in).
 
 CPU tensors take the `*_plain` versions; a CUDA tensor launches the kernel
 or raises.
+
+The bf16 and int8 runs launch the split walk of csrc/decode_attention.cu,
+whose head groups and token splits `decode_split_plan` gives
+(tests/test_torch_decode_split.py pins the plan and emulates the walk).
 """
 
 from __future__ import annotations
@@ -40,16 +44,15 @@ SUPPORTED_D = (64, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 KERNEL = CudaKernel("decode_attention.cu", {
-    # q, k_pool, v_pool, bases, lengths, out, B, H, D, page, max_pages,
-    # num_pages, dtype, stream
-    "decode_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # q, k_pool, v_pool, bases, lengths, out, nsplit, ngrp, nst, B, H, D,
+    # page, max_pages, num_pages, dtype, stream
+    "decode_attention": [P] * 6 + [I] * 10 + [P],
 })
 # the int8-pool launcher of the same library, with its own launch count
 KERNEL_INT8 = CudaKernel("decode_attention.cu", {
-    # q, k_pool, v_pool, bases, lengths, scales, k_new, v_new, out, B, H, D,
-    # page, chunk, max_pages, num_pages, dtype, stream
-    "decode_attention_int8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
-                              I, P],
+    # q, k_pool, v_pool, bases, lengths, scales, k_new, v_new, out, nsplit,
+    # ngrp, nst, B, H, D, page, chunk, max_pages, num_pages, dtype, stream
+    "decode_attention_int8": [P] * 9 + [I] * 11 + [P],
 })
 PAGED_KERNEL = CudaKernel("paged_attention.cu", {
     # q, k_pool, v_pool, tables, lengths, out, B, H, D, page, max_pages,
@@ -62,6 +65,64 @@ APPEND_KERNEL = CudaKernel("paged_append_attention.cu", {
     "paged_append_attention": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I,
                                P],
 })
+
+
+# The split walk (csrc/decode_attention.cu `decode_run_split_sm90`): a block
+# takes one head of one sequence and one of `nsplit` token ranges (whole
+# SPLIT_TILE-token tiles); the nsplit blocks of a (sequence, head) are one
+# thread block cluster, merged through shared memory. Blocks of one head:
+# head groups of two and four, with wider copies, measured no faster on an
+# H100 at the slice's and the serving step's shapes.
+SPLIT_TILE = 32
+SPLIT_WARPS = 15  # consumer warps a block (with the producer, 512 threads)
+SPLIT_RING = 96 * 1024  # ring bytes
+
+
+def decode_split_plan(B: int, H: int, L: int, n_sm: int, D: int = 96,
+                      itemsize: int = 2) -> dict:
+    """The split walk's plan for B sequences of H heads of D elements of
+    `itemsize` bytes (bf16 2, int8 1) and L tokens each (the kernel
+    computes the ranges from the lengths on the card; L here stands for
+    all of them):
+    - `nsplit` blocks a (sequence, head), one thread block cluster: about
+      two blocks an SM for bf16 pools, one for int8 (whose tensor-core
+      consumers take up to 96 registers a thread), floor(blocks an SM *
+      n_sm / (B * H)), at least 1 and at most 8, or 6 at one block an SM
+      (clusters of eight one-block SMs did not all fit at once on an
+      H100);
+    - `ngrp` token groups of one consumer warp and `nst` ring stages (a
+      multiple of ngrp) in SPLIT_RING bytes, stages of
+      2 * SPLIT_TILE * D * itemsize bytes;
+    - `ranges`: [t0, t1) of each split: ceil(L / nsplit) tokens rounded up
+      to whole tiles, the last range short, empty (t0 == t1) past L;
+    - `tiles`: for each split, its tiles as (token group, t0, t1), tile i
+      to group i % ngrp."""
+    per_sm, cap = (1, 6) if itemsize == 1 else (2, 8)
+    nsplit = min(cap, max(1, per_sm * n_sm // (B * H)))
+    stage = 2 * SPLIT_TILE * D * itemsize
+    ngrp = min(SPLIT_WARPS, max(1, SPLIT_RING // stage))
+    nst = ngrp * max(1, SPLIT_RING // (stage * ngrp))
+    n = max(L, 0)
+    span = -(-(-(-n // nsplit)) // SPLIT_TILE) * SPLIT_TILE
+    ranges = [(min(n, s * span), min(n, s * span + span)) for s in range(nsplit)]
+    tiles = [[(i % ngrp, t0 + i * SPLIT_TILE, min(t1, t0 + (i + 1) * SPLIT_TILE))
+              for i in range(-(-(t1 - t0) // SPLIT_TILE))]
+             for t0, t1 in ranges]
+    return {"nsplit": nsplit, "ngrp": ngrp, "nst": nst, "ranges": ranges,
+            "tiles": tiles}
+
+
+_PLANS = {}
+
+
+def _split_plan(B: int, H: int, D: int, itemsize: int, dev) -> tuple:
+    """(nsplit, ngrp, nst) of the split walk on device `dev`."""
+    key = (B, H, D, itemsize, dev)
+    if key not in _PLANS:
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = decode_split_plan(B, H, 0, n_sm, D, itemsize)
+        _PLANS[key] = tuple(plan[k] for k in ("nsplit", "ngrp", "nst"))
+    return _PLANS[key]
 
 
 def quantize_kv_rows(k_rows: torch.Tensor, v_rows: torch.Tensor):
@@ -186,8 +247,10 @@ def decode_attention(qs: torch.Tensor, k_pool: torch.Tensor,
     check_tensor("lengths", lengths, dtype=torch.int32, shape=(B,),
                  device=dev)
     out = torch.empty((B, H, D), dtype=qs.dtype, device=dev)
+    plan = (_split_plan(B, H, D, 2, dev) if qs.dtype == torch.bfloat16
+            else (0, 0, 0))  # fp32: the CUDA-core body
     KERNEL.launch("decode_attention", ptr(qs), ptr(k_pool), ptr(v_pool),
-                  ptr(bases), ptr(lengths), ptr(out), B, H, D, page,
+                  ptr(bases), ptr(lengths), ptr(out), *plan, B, H, D, page,
                   int(max_pages), Pn, _DTYPE_CODE[qs.dtype], stream())
     return out
 
@@ -215,9 +278,10 @@ def decode_attention_int8(qs: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty((B, H, D), dtype=qs.dtype, device=dev)
     KERNEL_INT8.launch("decode_attention_int8", ptr(qs), ptr(k_pool),
                        ptr(v_pool), ptr(bases), ptr(lengths), ptr(scale_pool),
-                       ptr(k_new), ptr(v_new), ptr(out), B, H, D, page,
-                       int(chunk), int(max_pages), Pn,
-                       _DTYPE_CODE[qs.dtype], stream())
+                       ptr(k_new), ptr(v_new), ptr(out),
+                       *_split_plan(B, H, D, 1, dev), B, H, D, page,
+                       int(chunk), int(max_pages), Pn, _DTYPE_CODE[qs.dtype],
+                       stream())
     return out
 
 
