@@ -9,9 +9,10 @@ Phases, one line each:
  2. build: compiles the hand-written kernels from unilm_tpu_torch/csrc/,
     one nvcc per source, all started together; beside them `nvcc -Xptxas
     -v` on the Hopper sources (flash_fwd.cu, flash_bwd.cu, flash_tri.cu,
-    encoder_attention.cu, doc_attention_bwd.cu and decode_attention.cu's
-    split walk) prints each kernel's registers and spill bytes and fails
-    on a spill or a serialised wgmma.
+    encoder_attention.cu, doc_attention_bwd.cu, decode_attention.cu's
+    split walk, onepass_attention.cu's and encoder_attention_bwd.cu's bf16
+    entries) prints each kernel's registers and spill bytes and fails on a
+    spill or a serialised wgmma.
  3. flash: the flash-forward kernel (#1; bf16 is the wgmma/TMA kernel)
     against its plain version, bf16, over causal/offset/kv_len/key-padding/
     bias/window cases that hit each class of key tile (skipped, interior,
@@ -30,8 +31,10 @@ Phases, one line each:
     its cross layer (no window), the TPU kernel's fast path (S=200,
     non-causal, full kv), a key-padding mask with a fully masked row (out
     0, lse 0), [1,H,T,S] and [B,1,T,S] biases, fp32 at D=96 and 128, S and
-    T up to 2048; timed at the prefill and decode shapes beside #1 on the
-    same inputs, the plain twin and sdpa with a boolean mask.
+    T up to 2048, the bf16 plan's edges (T 16 / 17 between the short-q
+    walk and the wgmma rows, S 256 / 257, a second 64-row consumer); timed
+    at the prefill and decode shapes beside #1 on the same inputs, the
+    plain twin and sdpa with a boolean mask.
     flash_tri (right after flash): the lower-triangle causal forward (#2)
     against flash_forward_tri_plain, bf16 (relative L2 <= 1e-2) and fp32
     (<= 1e-4), out and lse: T = S in {1, 63, 64, 65, 160, 1000, 2048}, D
@@ -53,7 +56,9 @@ Phases, one line each:
     [1,1,T,S], [1,H,T,S] (summed over the batch), [B,H,T,S], [B,1,T,S]
     (summed over the heads), ragged T != S, D in {64, 96, 128}, S up to
     2048, BEiT-B at B=256 (two runs bit-equal); timed at BEiT-B beside the
-    plain twin and the backward of torch's scaled_dot_product_attention.
+    plain twin and the backward of torch's scaled_dot_product_attention
+    (CUDA events), and as device time; prints the batch groups and the
+    partial planes' bytes of `enc_bwd_plan`.
     encoder_attn (run after flash_bwd): the fused encoder attention
     kernel (#3) against its plain version, bf16 (relative L2 <= 1e-2) and
     fp32 (<= 1e-4): bias None, [1,1,T,S], [1,H,T,S], [B,H,T,S], ragged
@@ -538,12 +543,16 @@ def phase_device() -> str:
     return smi
 
 
-# the Hopper kernels: the wgmma sources and the split decode walk; in
-# decode_attention.cu only the walk's entries (`decode_run_`), not the
-# fp32 pools' CUDA-core body it shares with #11 and #12
+# the Hopper kernels: the wgmma sources, the split decode walk and #5's
+# short-q walk; in decode_attention.cu only the walk's entries
+# (`decode_run_`), not the fp32 pools' CUDA-core body it shares with #11
+# and #12; in onepass_attention.cu and encoder_attention_bwd.cu only the
+# bf16 entries (`onepass_kernel_sm90` / `_walk`, `enc_bwd_*_sm90`), not
+# the fp32 CUDA-core bodies
 PTXAS_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_tri.cu",
                  "encoder_attention.cu", "doc_attention_bwd.cu",
-                 "decode_attention.cu")
+                 "decode_attention.cu", "onepass_attention.cu",
+                 "encoder_attention_bwd.cu")
 
 
 def ptxas_entries(text: str) -> list:
@@ -554,7 +563,8 @@ def ptxas_entries(text: str) -> list:
     out, name = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d+((?:flash|encoder|"
-                      r"doc_bwd|decode_run)_\w+?)I(\w*?)EEv", line)
+                      r"doc_bwd|decode_run)_\w+?|enc_bwd_\w+?_sm90|"
+                      r"onepass_kernel_(?:sm90|walk))I(\w*?)EEv", line)
         if m:
             args = re.findall(r"Li(\d+)", m.group(2))
             kind = ",fp32" if m.group(2).startswith("f") else ""
@@ -780,9 +790,11 @@ def phase_flash(fa, g) -> dict:
 
 def phase_onepass(fa, g) -> dict:
     """Kernel #5 against flash_forward_onepass_plain at #1's tolerances
-    (bf16; fp32 at 1e-4), over YOCO's shapes and the TPU kernel's options;
-    then timed at yoco_chat's prefill and decode shapes beside #1 on the
-    same inputs, the plain twin and sdpa with a boolean mask."""
+    (bf16; fp32 at 1e-4), over YOCO's shapes, the TPU kernel's options and
+    the bf16 plan's edges (T 16 / 17 between the walk and the wgmma rows,
+    S 256 / 257 at the 128-key chunks); then timed at yoco_chat's prefill
+    and decode shapes beside #1 on the same inputs, the plain twin and
+    sdpa with a boolean mask."""
     dev = "cuda"
     bf, f32 = torch.bfloat16, torch.float32
     C, P = YOCO_CHAT_CACHE, YOCO_CHAT_PROMPT
@@ -807,6 +819,14 @@ def phase_onepass(fa, g) -> dict:
         # first key tiles), T = 2048
         (2, 64, 2048, 4, 64, True, 1984, None, 256, None, None, bf),
         (1, 2048, 2048, 2, 128, True, 0, None, 0, None, None, f32),
+        # the bf16 plan's edges (fa.onepass_tile_plan): T = 16 takes the
+        # walk, T = 17 the wgmma rows; S = 256 is two whole 128-key
+        # chunks, 257 a third of one key; 65 rows put one in a second
+        # consumer
+        (2, 16, 256, 4, 64, True, 240, None, 0, None, None, bf),
+        (2, 16, 257, 4, 128, False, 0, None, 0, "rand", "B1", bf),
+        (2, 17, 257, 4, 96, True, 240, None, 0, "rand", "1H", bf),
+        (2, 65, 256, 4, 64, True, 191, None, 100, None, "B1", bf),
     ]
     worst = 0.0
     for B, T, S, H, D, causal, qoff, kvl, window, kpm, bias, dt in cases:
@@ -1254,7 +1274,8 @@ def phase_encoder_bwd(fa, g) -> dict:
     Cases: every bias broadcast ([1,1], [1,H] summed over the batch, [B,H],
     [B,1] summed over the heads), ragged T != S, D in {64, 96, 128}, S up
     to 2048, and BEiT-B at B=256, which two runs must give bit-equal. Then
-    timed at BEiT-B beside the plain twin and sdpa's backward."""
+    timed at BEiT-B beside the plain twin and sdpa's backward (CUDA events
+    around the calls), and as device time (its launches in a profile)."""
     dev = "cuda"
     # (B, T, S, H, D, bias)
     cases = [
@@ -1331,20 +1352,21 @@ def phase_encoder_bwd(fa, g) -> dict:
     lib_ms = cuda_ms(lambda: torch.autograd.grad(
         o, (qg, kg, vg, bg), do.transpose(1, 2), retain_graph=True), iters=10)
     del o, qg, kg, vg, bg
-    # the batch sum of dbias with 16x fewer dq blocks (more batch items per
-    # block, fewer partial planes): the setting fa.DBIAS_BLOCKS chose against
-    blocks = fa.DBIAS_BLOCKS
-    fa.DBIAS_BLOCKS = blocks // 16
-    fewer_ms = cuda_ms(lambda: fa.fused_encoder_backward(q, k, v, b, do),
-                       iters=10)
-    fa.DBIAS_BLOCKS = blocks
+    dev_ms = device_ms(lambda: fa.fused_encoder_backward(q, k, v, b, do),
+                       iters=10, only="enc_bwd_")
+    plan = fa.enc_bwd_plan(B, T, T, H, D, tuple(b.shape),
+                           sms=torch.cuda.get_device_properties(0)
+                           .multi_processor_count)
     dq, dk, dv, dbias = fa.fused_encoder_backward(q, k, v, b, do)
     flops = 10 * B * H * T * T * D
     bd = roofline(nbytes(q, k, v, do, b, dq, dk, dv, dbias), flops)
     phase("encoder_bwd", f"BEiT-B {B}x{T}x{H}x{D} bf16, bias [1,{H},{T},{T}]"
-          f": kernel {times['kernel']:.4f} ms ({flops / times['kernel'] / 1e9:.1f}"
-          f" TFLOP/s; {fewer_ms:.4f} ms with DBIAS_BLOCKS {blocks // 16} in "
-          f"place of {blocks}), plain {times['plain']:.4f} ms, sdpa backward "
+          f": kernel {times['kernel']:.4f} ms (CUDA events; device time "
+          f"{dev_ms:.4f} ms, {flops / dev_ms / 1e9:.1f} TFLOP/s; "
+          f"{plan['groups']} batch groups of {plan['group']}, "
+          f"{plan['blocks']} dk/dv blocks, partial planes "
+          f"{plan['partial_bytes'] / 1e6:.1f} MB, dbias tile stride "
+          f"{plan['tp']}), plain {times['plain']:.4f} ms, sdpa backward "
           f"{lib_ms:.4f} ms ({backend}), bound {bd['bound_ms']:.4f} ms "
           f"({bd['bound_by']})")
     return {"name": "encoder_attention_bwd", "route": "cuda",
@@ -1352,6 +1374,7 @@ def phase_encoder_bwd(fa, g) -> dict:
             "replaces": "unilm_tpu/ops/flash_attention.py:711",
             "max_abs_err": worst_abs, "rel_l2_bf16": worst[torch.bfloat16],
             "rel_l2_fp32": worst[torch.float32], "ms": times["kernel"],
+            "device_ms": dev_ms,
             "plain_ms": times["plain"], "library_ms": lib_ms,
             "library": f"sdpa backward ({backend})", **bd,
             "shape": f"{B}x{T}x{H}x{D} bf16 bias [1,{H},{T},{T}]"}

@@ -57,10 +57,10 @@
 //    The bias and ds rows hold S bf16: 1418 bytes at S = 709, not a
 //    multiple of 16, so no TMA map takes them: the producer warpgroups
 //    stage their tiles by 16-byte cp.async into shared memory (see
-//    `stage_plane`), beside the TMA tiles of the same ring stage; ds is
-//    written with 2-byte stores in the accumulators' fragment layout. The
-//    tiles are ops/doc_attention.doc_bwd_tile_plan's
-//    (tests/test_torch_hopper_plans).
+//    hopper.cuh `stage_plane`, which #4 shares), beside the TMA tiles of
+//    the same ring stage; ds is written with 2-byte stores in the
+//    accumulators' fragment layout. The tiles are
+//    ops/doc_attention.doc_bwd_tile_plan's (tests/test_torch_hopper_plans).
 //  - fp32: #4's own fp32 CUDA-core launches (encoder_attention_bwd.cuh,
 //    shared with csrc/encoder_attention_bwd.cu) given the mask, with the ds
 //    plane as their fp32 dbias planes. They recompute ds from dp and the
@@ -95,83 +95,14 @@ namespace hop {
 constexpr int ROWS = 64;  // rows of a consumer's tile (wgmma M) and of a streamed tile
 constexpr int PRODUCER_REGS = 56, CONSUMER_REGS = 224;  // 384-thread blocks
 
-// acc[32] = A B^T for two [64, D] tiles A and B, both read K-major; RA and
-// RB are the rows of the boxes they lie in
-template <int D, int RA, int RB>
-__device__ __forceinline__ void ss_product(float* acc, uint32_t a, uint32_t b) {
-    using C = sm90::Cols<D>;
-#pragma unroll
-    for (int c = 0; c < C::NC; ++c)
-#pragma unroll
-        for (int kk = 0; kk < C::CW / 16; ++kk)
-            sm90::wgmma_ss_n64(acc, sm90::kmajor_desc<D, RA>(a, c, kk),
-                               sm90::kmajor_desc<D, RB>(b, c, kk), c | kk);
-}
-
-// acc[D / 2] += A B for A [64, 64] given as its bf16 fragments a[16] and B
-// a [64, D] tile read MN-major (the transpose bit)
-template <int D>
-__device__ __forceinline__ void rs_product(float* acc, const uint32_t* a, uint32_t b) {
-#pragma unroll
-    for (int kk = 0; kk < ROWS / 16; ++kk)
-        sm90::wgmma_rs<D>(acc, a + 4 * kk, sm90::mnmajor_desc<D, ROWS>(b, kk));
-}
-
-// The A-fragment register of the accumulator pair (row 16 w + r8 + 8 hh,
-// columns 8 nn + 2 quad + {0, 1}): k-step nn / 2, m16n8k16 order
-// (hopper.cuh), so a product's accumulator repacks with no shuffle.
-__device__ __forceinline__ constexpr int afrag(int nn, int hh) {
-    return 4 * (nn >> 1) + 2 * (nn & 1) + hh;
-}
-
-// ---- bias and ds tiles in shared memory ------------------------------------
-//
-// A bias or ds row holds S bf16: 1418 bytes at S = 709, no multiple of 16,
-// so no TMA map takes the planes, and a row starts at any 2-byte offset.
-// The producer warpgroup copies a tile of R rows x C keys with 16-byte
-// cp.async: row r as the aligned 16-byte chunks that cover its keys
-// [c0, c0 + C), so that key c sits at element c - c0 + off, off = the
-// first key's element mod 8 (0..7); rows past the plane read as zeros,
-// chunks past the plane's end are cut there, and keys past S in the last
-// chunk hold the next row's values (the consumers mask them). Row stride
-// LDW words: the chunks plus none (C / 8 + 1 chunks: 36 words at C = 64,
-// 68 at 128), so that the consumers' fragment reads (8 rows of 4 words, or
-// 4 rows two apart of 5) fall on distinct banks.
-template <int C> struct Plane {
-    static constexpr int NCH = C / 8 + 1;  // 16-byte chunks a row
-    static constexpr int LDW = NCH * 4;
-    static constexpr int BYTES_PER_ROW = LDW * 4;
-    static_assert(LDW % 32 == 4, "rows four banks apart");
-};
-
-// rows [r0, r0 + R) of the plane whose element (0, 0) is element `base`
-// of `plane`, keys [c0, c0 + C), `rmax` rows in the plane
-template <int R, int C>
-__device__ __forceinline__ void stage_plane(uint32_t* dst, const bf16* plane, size_t base, int S,
-                                            int rmax, int r0, int c0, int tid) {
-    constexpr int NCH = Plane<C>::NCH, LDW = Plane<C>::LDW;
-    const size_t end = base + (size_t)rmax * S;  // one past the plane
-    for (int i = tid; i < R * NCH; i += 128) {
-        const int r = i / NCH, c = i % NCH, row = r0 + r;
-        const size_t e = ((base + (size_t)row * S + c0) & ~(size_t)7) + 8 * c;
-        const int bytes = row < rmax ? (int)min((size_t)16, e < end ? 2 * (end - e) : 0) : 0;
-        sm90::cp16n(dst + r * LDW + 4 * c, bytes ? plane + e : plane, bytes);
-    }
-}
-
-// where key c0 of row `row` starts in its staged row (the parity and the
-// chunk offset of its element)
-__device__ __forceinline__ int stage_off(size_t base, int row, int S, int c0) {
-    return (int)((base + (size_t)row * S + c0) & 7);
-}
-
-// the bf16 bits at element k (key - c0 + off) of row r of a staged tile
-template <int C>
-__device__ __forceinline__ uint32_t tile_bits(const uint32_t* tile, int r, int k) {
-    return reinterpret_cast<const unsigned short*>(tile + r * Plane<C>::LDW)[k];
-}
-
-__device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
+using sm90::afrag;
+using sm90::bf_lo;
+using sm90::Plane;
+using sm90::rs_product;
+using sm90::ss_product;
+using sm90::stage_off;
+using sm90::stage_plane;
+using sm90::tile_bits;
 
 // ---- launch 1: row statistics ------------------------------------------------
 //

@@ -17,77 +17,82 @@
 //
 // The TPU kernel keeps a whole [T, S] plane per head in VMEM and walks the
 // batch in order on one core, accumulating a batch-broadcast dbias in one
-// resident block. On the H100 blocks run in parallel and a block's shared
-// memory holds a few rows of such a plane, so the one pass becomes up to
-// three launches of one entry point:
-//  1. dq (+ dbias, + row statistics): one block per (64-row q tile, head,
-//     batch group). For each (batch, head) it loops over, it sweeps the key
-//     tiles twice: first for the exact row statistics (max m, l =
-//     sum exp2(s - m), u = sum exp2(s - m) dp, kept online per lane and
-//     merged across the warp in a fixed order), then for p, ds, dbias and
-//     dq. It writes m, l and delta = u / l for launch 2.
-//  2. dk, dv: one block per (64-key tile, head, batch), sweeping the q
-//     tiles and recomputing p and ds with those statistics.
-//  3. Only when a batch-broadcast dbias is summed over batch groups: the
-//     groups' partial planes, added in group order.
-// A dbias row belongs to one block, which adds every (batch, head) it
-// loops over (the batch items of its group for a [1, ...] bias; every head
-// for a [., 1, ...] bias) in loop order; launch 3 adds the groups in order.
-// No float atomics: two runs give the same bits.
+// resident block. On the H100 blocks run in parallel and nothing carries
+// over between them, so the one pass becomes launches of one entry point,
+// with no float atomics (two runs give the same bits).
 //
 // Layouts are the caller's: q/dO/dq [B, T, H, D], k/v/dk/dv [B, S, H, D]
 // (row stride H*D, the projection layout), bias [Bb, Hb, T, S] with
 // element strides `bias_sb`, `bias_sh` (0 = broadcast), dbias fp32
 // [Bb, Hb, T, S], the partial planes fp32 [groups, Hb, T, S], the row
-// statistics fp32 [3, B, H, T].
+// statistics fp32 [3, B, H, T], the bf16 ds plane [B, H, T, S].
 //
 // What bounds it on the H100: the work itself (five T x S x D products per
 // batch and head, 10 B H T S D FLOP) is bound by memory on the card: at
 // BEiT-B (B=256, T=S=197, H=12, D=64, bf16) 545 MB in and out against
 // 7.6e10 FLOP, 0.163 ms at 3.35 TB/s against 0.077 ms of bf16 tensor time.
-// Both designs below recompute: nine products instead of five (the
-// statistics sweep repeats q k^T and dO v^T, launch 2 repeats them again),
-// and stream K/V (launch 1) and q/dO (launch 2) once per tile of the other
-// side, so neither reaches that bound; they are bound by latency: tile
-// loads, block barriers and the per-element exp2 and bias reads between
-// the products.
-// What the designs do about it:
-//  - bf16 (the training path), namespace tc: every product on the tensor
-//    cores (mma.sync m16n8k16, fp32 accumulators). A warp owns 16 query
-//    rows (launch 1) or 16 keys (launch 2); the score and dp tiles stay in
-//    the accumulators, and p and ds become the next product's operand
-//    straight from the accumulator layout, rounded to bf16 there (the
-//    rounding the contract asks for). Tiles are bf16 with rows padded by 8
-//    elements, so fragment loads are bank-conflict free; operands that are
-//    needed transposed (K in ds k, q and dO in ds^T q and p^T dO) come from
-//    the same tiles through ldmatrix .trans. The next K/V (launch 1) or
-//    q/dO (launch 2) tile is fetched by cp.async while the current one is
-//    used. The bias is read in the accumulator layout, times log2(e).
-//    Against the first version of this file, which ran bf16 through the
-//    fp32 design below, it took BEiT-B from 12.28 ms to about a quarter of
-//    that (PERF.md, chip_smoke.py's encoder_bwd phase).
+//  - bf16 (the training path), namespace hop, the machinery of
+//    csrc/doc_attention_bwd.cu (#10, which computes the same function with
+//    a key-padding mask): csrc/hopper.cuh's TMA maps, mbarrier rings with
+//    the 10 s trap, SS and RS wgmma, producer warpgroups at setmaxnreg 72
+//    and consumer warpgroups of 64 rows or keys at 216, the role through
+//    __shfl_sync. Seven products of 2 D operations per (row, key) pair
+//    where the first design ran nine, the bias read twice, ds written once
+//    as bf16 and read once:
+//    1. `enc_bwd_stats_sm90`, a persistent grid (a block per SM) over the
+//       items of 128 q rows of one (batch, head): Q and dO per item (two
+//       buffers at D = 64, so the next item's load overlaps this one),
+//       K/V tiles (128 keys at D = 64, else 64) and the bias tiles
+//       streamed through a ring that runs on across items; S = Q K^T and dP = dO V^T,
+//       s = qscale S + log2(e) bias, each row's online max m,
+//       l = sum 2^(s - m) and u = sum 2^(s - m) dp; the statistics m,
+//       1 / l and delta = u / l.
+//    2. `enc_bwd_dkv_sm90`, a block per (128 keys, or 64 at D = 96 and
+//       128: one consumer; head, or every head for a head-broadcast bias;
+//       batch group): it loops over its (batch, head) items in order, K and
+//       V of each loaded once, 64-row tiles of q and dO streamed with their
+//       rows' statistics and bias tiles; S^T = K Q^T, dP^T = V dO^T,
+//       p^T = 2^(s - m) / l, ds^T = p^T (dp^T - delta) in fp32; dV += P^T dO
+//       and dK += dS^T Q with p and ds as bf16 A operands; while those run,
+//       ds to the bf16 plane (exactly the TPU kernel's rounded `dsl`) and
+//       the unrounded ds into the block's dbias tile: [keys, T] fp32 in
+//       shared memory, where it fits (T <= 232 at D = 64), over all the
+//       block's items in order, then written once; else read, added and
+//       written in the block's own rows of the global plane, also in item
+//       order. (Added inside the element loop, the tile's stores stalled
+//       every later shared load of the loop: a third of the launch.)
+//    3. `enc_bwd_dq_sm90`, a persistent grid (two blocks an SM at D = 64)
+//       over the 128-row items: dq = scale dS K over the bf16 ds plane,
+//       64-key K and ds tiles streamed through one ring across items.
+//    4. `enc_bwd_dbias_sum_kernel`, only when more than one batch group
+//       sums a batch-broadcast dbias: the groups' planes in group order.
+//    The batch groups are ops/flash_attention.py's `enc_bwd_plan`: about
+//    two dk/dv blocks an SM, so at BEiT-B 11 groups of 24 batch items and
+//    20.5 MB of partial planes (the first design's one group per batch
+//    item wrote and read back 477 MB). The bias and ds rows hold S bf16
+//    (394 bytes at S = 197, 2-byte aligned), so no TMA map takes them: the
+//    producer warpgroups stage their tiles by 16-byte cp.async
+//    (hopper.cuh `stage_plane`); ds is written with 2-byte stores in the
+//    accumulators' fragment layout.
 //  - fp32 inputs (encoder_attention_bwd.cuh, which the fp32 path of
-//    csrc/doc_attention_bwd.cu (#10) shares with a key-padding mask):
-//    fp32 CUDA cores, the tiles of csrc/flash_bwd.cu (#6/#7):
-//    in launch 1 each warp owns 8 query rows and each lane two keys of a
-//    64-key tile, K and V rows padded so the per-lane float4 reads are
-//    conflict free, q and dO read as float4 broadcasts, ds handed to the
-//    ds k product through shared memory; launch 2 is its transpose (each
-//    warp owns 8 keys, each lane two query rows). 8 warps per block.
+//    csrc/doc_attention_bwd.cu shares with a key-padding mask): fp32 CUDA
+//    cores, two launches: launch 1 (a block per 64-row q tile, head or
+//    every head, batch group) sweeps the key tiles twice, for the exact
+//    row statistics, then for p, ds, dbias and dq; launch 2 (a block per
+//    64-key tile, head, batch) recomputes p and ds for dk and dv; then
+//    launch 4 as above. 8 warps per block.
+
+#include <cmath>
 
 #include "encoder_attention_bwd.cuh"
-#include "mma_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using enc_bwd::BK;
-using enc_bwd::BQ;
-using enc_bwd::launch_pair;
 using enc_bwd::LOG2E;
-using enc_bwd::Params;
 
 // ---------------------------------------------------------------------------
-// launch 3: dbias = the sum of the groups' partial planes, in group order.
+// dbias = the sum of the groups' partial planes, in group order.
 // ---------------------------------------------------------------------------
 __global__ void enc_bwd_dbias_sum_kernel(const float* __restrict__ part,
                                          float* __restrict__ out, size_t n, int groups) {
@@ -100,386 +105,852 @@ __global__ void enc_bwd_dbias_sum_kernel(const float* __restrict__ part,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 inputs: the same two launches on the tensor cores (see the top of
-// the file). 4 warps per block.
+// bf16 inputs: the Hopper kernels
 // ---------------------------------------------------------------------------
-namespace tc {
+namespace hop {
 
-constexpr int NW = 4;          // warps per block
-constexpr int NT = NW * 32;
-constexpr int BQ2 = 32;        // launch 2: query rows per step
-constexpr int PAD = 8;         // bf16 elements of padding per tile row
-static_assert(BQ == NW * 16 && BK == NW * 16, "a warp owns 16 rows or keys");
+constexpr int ROWS = 64;  // rows of a consumer's tile (wgmma M) and of a streamed tile
+// 384-thread blocks; a producer at 56 spilled in launch 2 (its item loop)
+constexpr int PRODUCER_REGS = 72, CONSUMER_REGS = 216;
+constexpr int SMEM_MAX = 232448;
 
-template <int D>
-__device__ __forceinline__ void stage(bf16* x, int ld, const bf16* src, size_t row_stride,
-                                      int nrows, int valid, int tid) {
-    stage_async<D, NT>(x, ld, src, row_stride, nrows, valid, tid);
+using sm90::afrag;
+using sm90::bf_lo;
+using sm90::Plane;
+using sm90::rs_product;
+using sm90::ss_product;
+using sm90::stage_off;
+using sm90::stage_plane;
+using sm90::tile_bits;
+
+struct Params {
+    const bf16 *q, *k, *v, *dout, *bias;
+    bf16 *dq, *dk, *dv, *ds;  // ds: the [B, H, T, S] plane launch 2 writes and launch 3 reads
+    float* dbias;   // the fp32 planes launch 2 writes (dbias or the group partials), or null
+    float* stats;   // [3][B][H][T]: row max m (exp2 domain), 1 / l, delta
+    int B, T, S, H, bias_sb, bias_sh;
+    size_t db_sz;   // element stride of the dbias planes per batch group
+    size_t db_sh;   // ... and per head (0: the heads share one plane)
+    int group;      // batch items per dk/dv block (> 1 only for a batch-summed dbias)
+    int head_sum;   // dbias summed over heads: a dk/dv block loops over every head
+    int tp;         // row stride (fp32) of the dbias tile in shared memory; 0: none
+    float scale, qscale;  // scale and scale * log2(e)
+};
+
+// the dbias tile's fp32 pairs, addressed in the shared window: generic
+// loads and stores would be ordered against the ds plane's global stores
+__device__ __forceinline__ float2 lds2(uint32_t a) {
+    float2 v;
+    asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n" : "=f"(v.x), "=f"(v.y) : "r"(a));
+    return v;
+}
+__device__ __forceinline__ void sts2(uint32_t a, float2 v) {
+    asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(a), "f"(v.x), "f"(v.y));
 }
 
-// log2(e) * bias[row][col], 0 without a bias
-__device__ __forceinline__ float bias2(const bf16* bias_bh, int S, int row, int col) {
-    return bias_bh ? LOG2E * __bfloat162float(bias_bh[(size_t)row * S + col]) : 0.f;
+__device__ __forceinline__ size_t bias_base(const Params& p, int b, int h) {
+    return (size_t)b * p.bias_sb + (size_t)h * p.bias_sh;
+}
+__device__ __forceinline__ size_t ds_base(const Params& p, int b, int h) {
+    return ((size_t)b * p.H + h) * p.T * p.S;
 }
 
-// launch 1 on the tensor cores: row statistics, dq and dbias. One block per
-// (64-row q tile, head or every head, batch group), as enc_bwd_dq_kernel;
-// the K/V tiles of its two sweeps are double-buffered (cp.async).
+// ---- launch 1: row statistics ------------------------------------------------
+//
+// A persistent grid (a block per SM) over the (128 q rows, batch, head)
+// items, in grid-stride order, so that neighbouring blocks share their
+// (batch, head)'s K and V through L2. A block has two consumer warpgroups
+// of 64 rows. The producer warpgroup TMA-loads each item's Q and dO (two
+// buffers at D = 64: the next item's arrive while this one is computed)
+// and streams K/V tiles (128 keys at D = 64, else 64) and the matching
+// bias tiles through a ring that runs on across items; per tile the consumers take
+// S = Q K^T and dP = dO V^T (SS wgmma), form s = qscale S + log2(e) bias
+// and update the rows' online max m, sum l = sum 2^(s - m) and
+// u = sum 2^(s - m) dp. The quad merges its partial statistics in a fixed
+// butterfly; stats gets m, 1 / l and delta = u / l.
+
+template <int D> struct StatGeo : sm90::Cols<D> {
+    static constexpr int NCW = 2;
+    static constexpr int BQ = ROWS * NCW;          // q rows per item
+    static constexpr int BK = D == 64 ? 128 : 64;  // keys per tile (64 at D = 96, 128: registers)
+    static constexpr int THREADS = 128 * (1 + NCW);
+    static constexpr int NQB = D == 64 ? 2 : 1;    // Q/dO buffers
+    static constexpr int NST = BK == 128 ? 2 : D == 128 ? 3 : 4;  // stages of the ring
+    static constexpr int Q_BYTES = BQ * D * 2;     // Q, then dO
+    static constexpr int KV_BYTES = BK * D * 2;    // one K or one V tile
+    static constexpr int B_BYTES = BQ * Plane<BK>::BYTES_PER_ROW;  // a bias tile
+    static constexpr int OFF_K = NQB * 2 * Q_BYTES;  // stage s: K, then V
+    static constexpr int OFF_B = OFF_K + NST * 2 * KV_BYTES;      // [NST] bias tiles
+    // q_full[NQB], q_empty[NQB], full[NST], empty[NST]
+    static constexpr int OFF_BAR = OFF_B + NST * B_BYTES;
+    static constexpr int SMEM = OFF_BAR + 2 * (NQB + NST) * 8 + 1024;
+    static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "swizzle atoms aligned");
+    static_assert(SMEM <= SMEM_MAX, "shared memory");
+};
+
+// item idx of a launch over 128-row q tiles: (batch, head, first row), the
+// tiles of one (batch, head) neighbours
+struct Item {
+    int b, h, q0;
+};
+__device__ __forceinline__ Item item_of(const Params& p, int idx, int ntiles, int rows) {
+    const int bh = idx / ntiles;
+    return {bh / p.H, bh % p.H, (idx % ntiles) * rows};
+}
+
 template <int D>
-__global__ void __launch_bounds__(NT, D <= 64 ? 3 : 2) enc_bwd_dq_tc_kernel(const Params p) {
-    constexpr int LD = D + PAD;
-    constexpr int NJ = BK / 8, ND = D / 8, KD = D / 16;
-    extern __shared__ float4 smem4[];
-    bf16* Qs = reinterpret_cast<bf16*>(smem4);  // [BQ][LD]
-    bf16* Os = Qs + BQ * LD;                    // [BQ][LD] dO
-    bf16* KV = Os + BQ * LD;                    // 2 x {K [BK][LD], V [BK][LD]}
-
-    const bf16* q = static_cast<const bf16*>(p.q);
-    const bf16* k = static_cast<const bf16*>(p.k);
-    const bf16* v = static_cast<const bf16*>(p.v);
-    const bf16* dout = static_cast<const bf16*>(p.dout);
-    const bf16* bias = static_cast<const bf16*>(p.bias);
-    bf16* dq = static_cast<bf16*>(p.dq);
-
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, tq = lane & 3;
-    const int row0 = blockIdx.x * BQ;
-    const int T_ = p.T, S = p.S, H = p.H;
-    const size_t HD = (size_t)H * D;
-    const int nrows = min(BQ, T_ - row0);
-    const int nk = (S + BK - 1) / BK;
-    const int b_begin = blockIdx.z * p.group, b_end = min(p.B, b_begin + p.group);
-    const int h_begin = p.head_sum ? 0 : blockIdx.y;
-    const int h_end = p.head_sum ? H : blockIdx.y + 1;
-    float* db_z = p.dbias ? p.dbias + (size_t)blockIdx.z * p.db_sz : nullptr;
-    const int wr = warp * 16;  // this warp's first local row
-    // the thread's two rows, clamped for the bias reads of rows past T
-    const int tl[2] = {row0 + wr + g, row0 + wr + g + 8};
-    const int tr[2] = {min(tl[0], T_ - 1), min(tl[1], T_ - 1)};
-    bool first = true;
-
-    for (int b = b_begin; b < b_end; ++b) {
-        for (int h = h_begin; h < h_end; ++h) {
-            __syncthreads();  // the previous (batch, head)'s tiles consumed
-            const size_t qoff = ((size_t)b * T_ + row0) * HD + (size_t)h * D;
-            const size_t kbase = (size_t)b * S * HD + (size_t)h * D;
-            stage<D>(Qs, LD, q + qoff, HD, BQ, nrows, tid);
-            stage<D>(Os, LD, dout + qoff, HD, BQ, nrows, tid);
-            stage<D>(KV, LD, k + kbase, HD, BK, S, tid);
-            stage<D>(KV + BK * LD, LD, v + kbase, HD, BK, S, tid);
-            cp_commit();
-            const bf16* bias_bh =
-                bias ? bias + (size_t)b * p.bias_sb + (size_t)h * p.bias_sh : nullptr;
-            float* db_bh = db_z ? db_z + (size_t)h * p.db_sh : nullptr;
-
-            float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
-            float delta[2] = {0.f, 0.f};
-            float acc[ND][4];
+__device__ __forceinline__ void stats_producer(const CUtensorMap* tq, const CUtensorMap* tdo,
+                                               const CUtensorMap* tk, const CUtensorMap* tv,
+                                               const Params& p, uint8_t* smem) {
+    using G = StatGeo<D>;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    uint64_t* q_full = bars;
+    uint64_t* q_empty = bars + G::NQB;
+    uint64_t* full = bars + 2 * G::NQB;
+    uint64_t* empty = full + G::NST;
+    const int t = threadIdx.x;
+    if (t == 0) {
+        sm90::prefetch_tensormap(tq);
+        sm90::prefetch_tensormap(tdo);
+        sm90::prefetch_tensormap(tk);
+        sm90::prefetch_tensormap(tv);
+    }
+    const int ntiles = (p.T + G::BQ - 1) / G::BQ, total = ntiles * p.B * p.H;
+    const int nk = (p.S + G::BK - 1) / G::BK;
+    for (int it = 0, idx = blockIdx.x, g = 0; idx < total; ++it, idx += gridDim.x) {
+        const Item x = item_of(p, idx, ntiles, G::BQ);
+        const int qb = it % G::NQB;
+        if (t == 0) {
+            // this buffer's last item done with its Q and dO
+            if (it >= G::NQB) sm90::mbar_wait(&q_empty[qb], (it / G::NQB - 1) & 1);
+            sm90::mbar_arrive_expect_tx(&q_full[qb], 2 * G::Q_BYTES);
+            uint8_t* qst = smem + qb * 2 * G::Q_BYTES;
 #pragma unroll
-            for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-
-            // tiles 0..nk-1: sweep 0, the exact row statistics; tiles
-            // nk..2nk-1: sweep 1, p, ds, dbias and dq
-            for (int i = 0; i < 2 * nk; ++i) {
-                const int c0 = (i % nk) * BK;
-                const bool sweep1 = i >= nk;
-                if (i + 1 < 2 * nk) {  // prefetch the next tile into the other buffer
-                    const int cn = ((i + 1) % nk) * BK;
-                    bf16* nb = KV + ((i + 1) & 1) * 2 * BK * LD;
-                    stage<D>(nb, LD, k + kbase + (size_t)cn * HD, HD, BK, S - cn, tid);
-                    stage<D>(nb + BK * LD, LD, v + kbase + (size_t)cn * HD, HD, BK, S - cn,
-                             tid);
-                    cp_commit();
-                    cp_wait<1>();
-                } else {
-                    cp_wait<0>();
-                }
-                __syncthreads();
-                const bf16* Ks = KV + (i & 1) * 2 * BK * LD;
-                const bf16* Vs = Ks + BK * LD;
-
-                float s[NJ][4], dp[NJ][4];
-#pragma unroll
-                for (int n = 0; n < NJ; ++n)
-                    s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] = dp[n][2] =
-                        dp[n][3] = 0.f;
-#pragma unroll
-                for (int kk = 0; kk < KD; ++kk) {
-                    uint32_t aq[4], ao[4];
-                    load_a(aq, Qs, LD, wr, kk * 16, g, tq);
-                    load_a(ao, Os, LD, wr, kk * 16, g, tq);
-#pragma unroll
-                    for (int n = 0; n < NJ; ++n) {
-                        const bf16* kr = Ks + (n * 8 + g) * LD + kk * 16 + 2 * tq;
-                        const bf16* vr = Vs + (n * 8 + g) * LD + kk * 16 + 2 * tq;
-                        mma(s[n], aq, ld32(kr), ld32(kr + 8));
-                        mma(dp[n], ao, ld32(vr), ld32(vr + 8));
-                    }
-                }
-                // s -> the exp2-domain scores with the bias; NEG_INF past S
-#pragma unroll
-                for (int n = 0; n < NJ; ++n)
-#pragma unroll
-                    for (int e = 0; e < 4; ++e) {
-                        const int col = c0 + n * 8 + 2 * tq + (e & 1);
-                        s[n][e] = col < S ? s[n][e] * p.qscale + bias2(bias_bh, S, tr[e >> 1], col)
-                                          : NEG_INF;
-                    }
-
-                if (!sweep1) {
-#pragma unroll
-                    for (int r = 0; r < 2; ++r) {
-                        float mt = m[r];
-#pragma unroll
-                        for (int n = 0; n < NJ; ++n)
-                            mt = fmaxf(mt, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
-                        const float a = exp2f(m[r] - mt);
-                        float ls = 0.f, us = 0.f;
-#pragma unroll
-                        for (int n = 0; n < NJ; ++n)
-#pragma unroll
-                            for (int e = 2 * r; e < 2 * r + 2; ++e) {
-                                const float x = exp2f(s[n][e] - mt);
-                                ls += x;
-                                us += x * dp[n][e];
-                            }
-                        l[r] = l[r] * a + ls;
-                        u[r] = u[r] * a + us;
-                        m[r] = mt;
-                    }
-                    if (i == nk - 1) {
-                        // merge the quad's statistics (a fixed butterfly)
-#pragma unroll
-                        for (int r = 0; r < 2; ++r) {
-#pragma unroll
-                            for (int o = 1; o < 4; o <<= 1) {
-                                const float mo = __shfl_xor_sync(FULL, m[r], o);
-                                const float lo = __shfl_xor_sync(FULL, l[r], o);
-                                const float uo = __shfl_xor_sync(FULL, u[r], o);
-                                const float mt = fmaxf(m[r], mo);
-                                const float a = exp2f(m[r] - mt), c = exp2f(mo - mt);
-                                l[r] = l[r] * a + lo * c;
-                                u[r] = u[r] * a + uo * c;
-                                m[r] = mt;
-                            }
-                            delta[r] = u[r] / l[r];
-                            if (tq == 0 && tl[r] < T_) {
-                                const size_t ri = ((size_t)b * H + h) * T_ + tl[r];
-                                const size_t plane = (size_t)p.B * H * T_;
-                                p.stats[ri] = m[r];
-                                p.stats[plane + ri] = l[r];
-                                p.stats[2 * plane + ri] = delta[r];
-                            }
-                        }
-                    }
-                } else {
-                    // p, ds (fp32) -> dbias; ds (bf16) @ K -> dq
-#pragma unroll
-                    for (int n = 0; n < NJ; ++n)
-#pragma unroll
-                        for (int e = 0; e < 4; ++e) {
-                            const int r = e >> 1;
-                            const float pr = exp2f(s[n][e] - m[r]) / l[r];
-                            s[n][e] = pr * (dp[n][e] - delta[r]);  // ds
-                            const int col = c0 + n * 8 + 2 * tq + (e & 1);
-                            if (db_bh && tl[r] < T_ && col < S) {
-                                float* d = db_bh + (size_t)tl[r] * S + col;
-                                *d = first ? s[n][e] : *d + s[n][e];
-                            }
-                        }
-#pragma unroll
-                    for (int kk = 0; kk < BK / 16; ++kk) {
-                        uint32_t a[4];
-                        acc_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-                        for (int n = 0; n < ND; n += 2) {
-                            uint32_t bk[4];
-                            load_bt(bk, Ks, LD, kk * 16, n * 8, lane);
-                            mma(acc[n], a, bk[0], bk[1]);
-                            mma(acc[n + 1], a, bk[2], bk[3]);
-                        }
-                    }
-                }
-                __syncthreads();  // this buffer is free for tile i + 2
+            for (int c = 0; c < G::NC; ++c) {
+                sm90::tma_load_4d(qst + c * G::BQ * G::CB, tq, &q_full[qb], c * G::CW, x.h,
+                                  x.q0, x.b);
+                sm90::tma_load_4d(qst + G::Q_BYTES + c * G::BQ * G::CB, tdo, &q_full[qb],
+                                  c * G::CW, x.h, x.q0, x.b);
             }
-
+        }
+        const size_t base = bias_base(p, x.b, x.h);
+        for (int j = 0; j < nk; ++j, ++g) {
+            const int s = g % G::NST;
+            if (g >= G::NST) sm90::mbar_wait(&empty[s], (g / G::NST - 1) & 1);
+            if (p.bias)
+                stage_plane<G::BQ, G::BK>(
+                    reinterpret_cast<uint32_t*>(smem + G::OFF_B + s * G::B_BYTES), p.bias, base,
+                    p.S, p.T, x.q0, j * G::BK, t);
+            sm90::cp_async_arrive(&full[s]);
+            if (t == 0) {
+                sm90::mbar_arrive_expect_tx(&full[s], 2 * G::KV_BYTES);
+                uint8_t* kst = smem + G::OFF_K + 2 * s * G::KV_BYTES;
 #pragma unroll
-            for (int r = 0; r < 2; ++r) {
-                if (tl[r] >= T_) continue;
-                bf16* dst = dq + ((size_t)b * T_ + tl[r]) * HD + (size_t)h * D + 2 * tq;
-#pragma unroll
-                for (int n = 0; n < ND; ++n)
-                    *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
-                        acc[n][2 * r] * p.scale, acc[n][2 * r + 1] * p.scale);
+                for (int c = 0; c < G::NC; ++c) {
+                    sm90::tma_load_4d(kst + c * G::BK * G::CB, tk, &full[s], c * G::CW, x.h,
+                                      j * G::BK, x.b);
+                    sm90::tma_load_4d(kst + G::KV_BYTES + c * G::BK * G::CB, tv, &full[s],
+                                      c * G::CW, x.h, j * G::BK, x.b);
+                }
             }
-            first = false;
         }
     }
 }
 
-// launch 2 on the tensor cores: dk, dv. One block per (64-key tile, head,
-// batch), sweeping the q rows BQ2 at a time, the q/dO tiles
-// double-buffered (cp.async).
 template <int D>
-__global__ void __launch_bounds__(NT, D <= 64 ? 4 : 2) enc_bwd_dkv_tc_kernel(const Params p) {
-    constexpr int LD = D + PAD;
-    constexpr int NJ = BQ2 / 8, ND = D / 8, KD = D / 16;
-    extern __shared__ float4 smem4[];
-    bf16* Ks = reinterpret_cast<bf16*>(smem4);  // [BK][LD]
-    bf16* Vs = Ks + BK * LD;                    // [BK][LD]
-    bf16* QO = Vs + BK * LD;                    // 2 x {q [BQ2][LD], dO [BQ2][LD]}
-    float* Ms = reinterpret_cast<float*>(QO + 4 * BQ2 * LD);  // [BQ2] m
-    float* Ls = Ms + BQ2;                                      // [BQ2] l
-    float* Dl = Ls + BQ2;                                      // [BQ2] delta
+__device__ __forceinline__ void stats_consumer(const Params& p, uint8_t* smem, int cw) {
+    using G = StatGeo<D>;
+    constexpr int BK = G::BK, NN = BK / 8;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    uint64_t* q_full = bars;
+    uint64_t* q_empty = bars + G::NQB;
+    uint64_t* full = bars + 2 * G::NQB;
+    uint64_t* empty = full + G::NST;
 
-    const bf16* q = static_cast<const bf16*>(p.q);
-    const bf16* k = static_cast<const bf16*>(p.k);
-    const bf16* v = static_cast<const bf16*>(p.v);
-    const bf16* dout = static_cast<const bf16*>(p.dout);
-    const bf16* bias = static_cast<const bf16*>(p.bias);
-
-    const int b = blockIdx.z, h = blockIdx.y;
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, tq = lane & 3;
-    const int c0 = blockIdx.x * BK;
-    const int T_ = p.T, S = p.S;
-    const size_t HD = (size_t)p.H * D;
-    const size_t plane = (size_t)p.B * p.H * T_;
-    const int wk = warp * 16;  // this warp's first local key
-    // the thread's two keys, clamped for the bias reads of keys past S
-    const int key[2] = {c0 + wk + g, c0 + wk + g + 8};
-    const int kc[2] = {min(key[0], S - 1), min(key[1], S - 1)};
-    const int nq = (T_ + BQ2 - 1) / BQ2;
-
-    const size_t koff = ((size_t)b * S + c0) * HD + (size_t)h * D;
-    const size_t qbase = (size_t)b * T_ * HD + (size_t)h * D;
-    stage<D>(Ks, LD, k + koff, HD, BK, S - c0, tid);
-    stage<D>(Vs, LD, v + koff, HD, BK, S - c0, tid);
-    stage<D>(QO, LD, q + qbase, HD, BQ2, T_, tid);
-    stage<D>(QO + BQ2 * LD, LD, dout + qbase, HD, BQ2, T_, tid);
-    cp_commit();
-    const bf16* bias_bh = bias ? bias + (size_t)b * p.bias_sb + (size_t)h * p.bias_sh : nullptr;
-
-    float dk[ND][4], dv[ND][4];
+    const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31;
+    const int quad = lane & 3, r8 = lane >> 2;
+    const bool has_bias = p.bias != nullptr;
+    const size_t plane = (size_t)p.B * p.H * p.T;
+    const int ntiles = (p.T + G::BQ - 1) / G::BQ, total = ntiles * p.B * p.H;
+    const int nk = (p.S + BK - 1) / BK;
+    for (int it = 0, idx = blockIdx.x, g = 0; idx < total; ++it, idx += gridDim.x) {
+        const Item x = item_of(p, idx, ntiles, G::BQ);
+        const int qb = it % G::NQB;
+        const int row0 = x.q0 + cw * ROWS;  // this consumer's first query row
+        const bool live = row0 < p.T;
+        const int tl[2] = {row0 + 16 * w + r8, row0 + 16 * w + r8 + 8};  // this thread's rows
+        const size_t base = bias_base(p, x.b, x.h);
+        int boff[2];  // the rows' offsets in the staged bias tiles (c0 a multiple of 64)
 #pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+        for (int hh = 0; hh < 2; ++hh) boff[hh] = stage_off(base, tl[hh], p.S, 0);
 
-    for (int it = 0; it < nq; ++it) {
-        const int t0 = it * BQ2;
-        if (it + 1 < nq) {  // prefetch the next q / dO tile
-            const int tn = t0 + BQ2;
-            bf16* nb = QO + ((it + 1) & 1) * 2 * BQ2 * LD;
-            stage<D>(nb, LD, q + qbase + (size_t)tn * HD, HD, BQ2, T_ - tn, tid);
-            stage<D>(nb + BQ2 * LD, LD, dout + qbase + (size_t)tn * HD, HD, BQ2, T_ - tn, tid);
-            cp_commit();
-        }
-        for (int t = tid; t < BQ2; t += NT) {
-            const bool live = t0 + t < T_;
-            const size_t ri = ((size_t)b * p.H + h) * T_ + t0 + t;
-            Ms[t] = live ? p.stats[ri] : 0.f;
-            Ls[t] = live ? p.stats[plane + ri] : 1.f;
-            Dl[t] = live ? p.stats[2 * plane + ri] : 0.f;
-        }
-        if (it + 1 < nq)
-            cp_wait<1>();
-        else
-            cp_wait<0>();
-        __syncthreads();
-        const bf16* Qs = QO + (it & 1) * 2 * BQ2 * LD;
-        const bf16* Os = Qs + BQ2 * LD;
+        sm90::mbar_wait(&q_full[qb], (it / G::NQB) & 1);
+        const uint32_t q_base = smem_addr(smem + qb * 2 * G::Q_BYTES) + cw * ROWS * G::CB;
+        const uint32_t do_base = q_base + G::Q_BYTES;
+        float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, u[2] = {0.f, 0.f};
+        for (int j = 0; j < nk; ++j, ++g) {
+            const int s = g % G::NST;
+            sm90::mbar_wait(&full[s], (g / G::NST) & 1);
+            if (live) {
+                const int c0 = j * BK;
+                const uint32_t k_base = smem_addr(smem + G::OFF_K + 2 * s * G::KV_BYTES);
+                const uint32_t v_base = k_base + G::KV_BYTES;
+                const uint32_t* btile =
+                    reinterpret_cast<const uint32_t*>(smem + G::OFF_B + s * G::B_BYTES);
+                float sc[BK / 2], dp[BK / 2];
+                sm90::wgmma_fence();
+                ss_product<D, G::BQ, BK, BK>(sc, q_base, k_base);
+                ss_product<D, G::BQ, BK, BK>(dp, do_base, v_base);
+                sm90::wgmma_commit();
+                sm90::wgmma_wait<0>();
 
-        // s^T = k q^T and dp^T = v dO^T for this warp's 16 keys
-        float s[NJ][4], dp[NJ][4];
+                // s in the exp2 domain: qscale q k^T + log2(e) bias; past S
+                // -inf; then the online statistics of the two rows
 #pragma unroll
-        for (int n = 0; n < NJ; ++n)
-            s[n][0] = s[n][1] = s[n][2] = s[n][3] = dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] =
-                0.f;
+                for (int hh = 0; hh < 2; ++hh) {
+                    const int r = tl[hh] - x.q0;
 #pragma unroll
-        for (int kk = 0; kk < KD; ++kk) {
-            uint32_t ak[4], av[4];
-            load_a(ak, Ks, LD, wk, kk * 16, g, tq);
-            load_a(av, Vs, LD, wk, kk * 16, g, tq);
+                    for (int nn = 0; nn < NN; ++nn)
 #pragma unroll
-            for (int n = 0; n < NJ; ++n) {
-                const bf16* qr = Qs + (n * 8 + g) * LD + kk * 16 + 2 * tq;
-                const bf16* orow = Os + (n * 8 + g) * LD + kk * 16 + 2 * tq;
-                mma(s[n], ak, ld32(qr), ld32(qr + 8));
-                mma(dp[n], av, ld32(orow), ld32(orow + 8));
+                        for (int e = 0; e < 2; ++e) {
+                            const int k = 8 * nn + 2 * quad + e, i = 4 * nn + 2 * hh + e;
+                            const float bv =
+                                has_bias ? bf_lo(tile_bits<BK>(btile, r, k + boff[hh])) : 0.f;
+                            sc[i] = c0 + k >= p.S ? -INFINITY
+                                                  : fmaf(sc[i], p.qscale, LOG2E * bv);
+                        }
+                }
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                    float mt = m[hh];
+#pragma unroll
+                    for (int nn = 0; nn < NN; ++nn)
+                        mt = fmaxf(mt, fmaxf(sc[4 * nn + 2 * hh], sc[4 * nn + 2 * hh + 1]));
+                    const float a = sm90::ex2(m[hh] - mt);
+                    float ls = 0.f, us = 0.f;
+#pragma unroll
+                    for (int nn = 0; nn < NN; ++nn)
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const int i = 4 * nn + 2 * hh + e;
+                            const float y = sm90::ex2(sc[i] - mt);
+                            ls += y;
+                            us += y * dp[i];
+                        }
+                    l[hh] = l[hh] * a + ls;
+                    u[hh] = u[hh] * a + us;
+                    m[hh] = mt;
+                }
             }
+            sm90::mbar_arrive(&empty[s]);
         }
-        // p^T (in s) and ds^T (in dp); zero past S and past T
-#pragma unroll
-        for (int n = 0; n < NJ; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int tt = n * 8 + 2 * tq + (e & 1), r = e >> 1;
-                float pr = 0.f;
-                if (key[r] < S && t0 + tt < T_)
-                    pr = exp2f(s[n][e] * p.qscale + bias2(bias_bh, S, t0 + tt, kc[r]) -
-                               Ms[tt]) / Ls[tt];
-                s[n][e] = pr;
-                dp[n][e] = pr * (dp[n][e] - Dl[tt]);
-            }
-        // dv += p^T dO, dk += ds^T q
-#pragma unroll
-        for (int kk = 0; kk < BQ2 / 16; ++kk) {
-            uint32_t ap[4], ad[4];
-            acc_to_a(ap, s[2 * kk], s[2 * kk + 1]);
-            acc_to_a(ad, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-            for (int n = 0; n < ND; n += 2) {
-                uint32_t bo[4], bq[4];
-                load_bt(bo, Os, LD, kk * 16, n * 8, lane);
-                load_bt(bq, Qs, LD, kk * 16, n * 8, lane);
-                mma(dv[n], ap, bo[0], bo[1]);
-                mma(dv[n + 1], ap, bo[2], bo[3]);
-                mma(dk[n], ad, bq[0], bq[1]);
-                mma(dk[n + 1], ad, bq[2], bq[3]);
-            }
-        }
-        __syncthreads();  // this buffer and the statistics are free
-    }
+        sm90::mbar_arrive(&q_empty[qb]);  // Q and dO free for the item after next
 
-    bf16* dkp = static_cast<bf16*>(p.dk);
-    bf16* dvp = static_cast<bf16*>(p.dv);
+        // merge the quad's statistics (a fixed butterfly) and write them
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        if (key[r] >= S) continue;
-        const size_t off = ((size_t)b * S + key[r]) * HD + (size_t)h * D + 2 * tq;
+        for (int hh = 0; hh < 2; ++hh) {
 #pragma unroll
-        for (int n = 0; n < ND; ++n) {
-            *reinterpret_cast<__nv_bfloat162*>(dkp + off + n * 8) = __floats2bfloat162_rn(
-                dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
-            *reinterpret_cast<__nv_bfloat162*>(dvp + off + n * 8) =
-                __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+            for (int o = 1; o < 4; o <<= 1) {
+                const float mo = __shfl_xor_sync(FULL, m[hh], o);
+                const float lo = __shfl_xor_sync(FULL, l[hh], o);
+                const float uo = __shfl_xor_sync(FULL, u[hh], o);
+                const float mt = fmaxf(m[hh], mo);
+                const float a = sm90::ex2(m[hh] - mt), c = sm90::ex2(mo - mt);
+                l[hh] = l[hh] * a + lo * c;
+                u[hh] = u[hh] * a + uo * c;
+                m[hh] = mt;
+            }
+            if (quad == 0 && tl[hh] < p.T) {
+                const size_t ri = ((size_t)x.b * p.H + x.h) * p.T + tl[hh];
+                p.stats[ri] = m[hh];
+                p.stats[plane + ri] = 1.f / l[hh];
+                p.stats[2 * plane + ri] = u[hh] / l[hh];
+            }
         }
     }
 }
 
-template <int D> constexpr size_t dq_smem() {
-    return (size_t)6 * BQ * (D + PAD) * sizeof(bf16);
-}
-template <int D> constexpr size_t dkv_smem() {
-    return (size_t)(2 * BK + 4 * BQ2) * (D + PAD) * sizeof(bf16) + 3 * BQ2 * sizeof(float);
+template <int D>
+__global__ void __launch_bounds__(StatGeo<D>::THREADS, 1)
+enc_bwd_stats_sm90(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo,
+                   const __grid_constant__ CUtensorMap tk,
+                   const __grid_constant__ CUtensorMap tv, const Params p) {
+    using G = StatGeo<D>;
+    extern __shared__ uint8_t smem_raw[];
+    // swizzle atoms start on 1024-byte boundaries of the shared window
+    uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    if (threadIdx.x == 0) {
+        for (int i = 0; i < G::NQB; ++i) {
+            sm90::mbar_init(&bars[i], 1);                           // Q and dO loaded
+            sm90::mbar_init(&bars[G::NQB + i], 128 * G::NCW);      // Q and dO read
+        }
+        for (int s = 0; s < G::NST; ++s) {
+            // stage s loaded: the producer warpgroup's copies, then the TMA
+            sm90::mbar_init(&bars[2 * G::NQB + s], 128 + 1);
+            sm90::mbar_init(&bars[2 * G::NQB + G::NST + s], 128 * G::NCW);  // stage s read
+        }
+        sm90::fence_barrier_init();
+    }
+    __syncthreads();
+
+    // the role, as a value ptxas can see is uniform over each warp
+    const int wg = __shfl_sync(FULL, (int)threadIdx.x / 128, 0);
+    if (wg == 0) {
+        sm90::setmaxnreg_dec<PRODUCER_REGS>();
+        stats_producer<D>(&tq, &tdo, &tk, &tv, p, smem);
+    } else {
+        sm90::setmaxnreg_inc<CONSUMER_REGS>();
+        stats_consumer<D>(p, smem, wg - 1);
+    }
 }
 
-}  // namespace tc
+// ---- launch 2: dk, dv, the ds plane and dbias -------------------------------
+//
+// A block per (key block, head or every head, batch group): 128 keys (64 at
+// D = 96 and 128: one consumer warpgroup). It takes its (batch, head) items
+// in order, batch-major; for each, K and V by TMA (the producer waits until
+// the consumers are done with the previous item's), then the 64-row tiles
+// of q and dO (TMA), their rows' statistics and the [64, keys] bias tiles
+// (cp.async) through a ring that runs on across items. A consumer takes
+// S^T = K Q^T and dP^T = V dO^T (SS wgmma), p^T = 2^(s - m) / l and
+// ds^T = p^T (dp^T - delta) in fp32, writes ds as bf16 into the plane
+// (rows < T, keys < S), adds the fp32 ds into its dbias tile, and takes
+// dV += P^T dO and dK += dS^T Q with p and ds rounded to bf16 as the A
+// operands (RS wgmma, Q and dO through the transpose bit). With tp > 0 the
+// dbias tile is [64 keys, tp] fp32 in shared memory (rows t and t + 1 of a
+// key adjacent; tp = 8 mod 32 words, so a warp's float2 accesses fall on
+// distinct banks), zeroed first and written to the block's plane once at
+// the end; with tp = 0 the block's rows of the global plane are written
+// by its first item and read, added and written by the next ones.
+
+template <int D> struct DkvGeo : sm90::Cols<D> {
+    static constexpr int NCW = D == 64 ? 2 : 1;    // consumer warpgroups of 64 keys
+    static constexpr int BKB = ROWS * NCW;          // keys per block
+    static constexpr int BQ = 64;                   // q rows per tile
+    static constexpr int THREADS = 128 * (1 + NCW);
+    static constexpr int NST = D == 64 ? 2 : 3;     // stages of the ring
+    static constexpr int KV_BYTES = BKB * D * 2;    // K, then V
+    static constexpr int Q_BYTES = BQ * D * 2;      // one q or dO tile
+    static constexpr int B_BYTES = BQ * Plane<BKB>::BYTES_PER_ROW;  // a bias tile
+    static constexpr int OFF_Q = 2 * KV_BYTES;      // stage s: q, dO
+    static constexpr int OFF_B = OFF_Q + NST * 2 * Q_BYTES;   // [NST] bias tiles
+    static constexpr int OFF_ST = OFF_B + NST * B_BYTES;      // [NST][3][BQ]: m, 1/l, delta
+    static constexpr int OFF_BAR = OFF_ST + NST * 3 * BQ * 4;
+    // kv_full, kv_empty, full[NST], empty[NST]; then the dbias tile
+    static constexpr int OFF_ACC = OFF_BAR + (2 + 2 * NST) * 8;
+    static constexpr int SMEM = OFF_ACC + 1024;     // without the dbias tile
+    static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0, "swizzle atoms aligned");
+    static_assert(OFF_ACC % 16 == 0 && SMEM <= SMEM_MAX, "shared memory");
+};
+
+// item n of block z, hh: (batch, head), batch-major
+__device__ __forceinline__ void item_bh(const Params& p, int z, int hh, int n, int& b, int& h) {
+    if (p.head_sum) {
+        b = z * p.group + n / p.H;
+        h = n % p.H;
+    } else {
+        b = z * p.group + n;
+        h = hh;
+    }
+}
 
 template <int D>
-cudaError_t launch(int dtype, const Params& p, int groups, cudaStream_t stream) {
-    if (dtype == 0) return enc_bwd::launch_fp32<D>(p, groups, stream);
-    return launch_pair(tc::enc_bwd_dq_tc_kernel<D>, tc::dq_smem<D>(),
-                       tc::enc_bwd_dkv_tc_kernel<D>, tc::dkv_smem<D>(), tc::NT, p, groups,
-                       stream);
+__device__ __forceinline__ void dkv_producer(const CUtensorMap* tq, const CUtensorMap* tdo,
+                                             const CUtensorMap* tk, const CUtensorMap* tv,
+                                             const Params& p, uint8_t* smem, int z, int hh,
+                                             int nitems, int c0) {
+    using G = DkvGeo<D>;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    uint64_t* full = bars + 2;
+    uint64_t* empty = bars + 2 + G::NST;
+    const int t = threadIdx.x;
+    const size_t plane = (size_t)p.B * p.H * p.T;
+    const int nq = (p.T + G::BQ - 1) / G::BQ;
+    if (t == 0) {
+        sm90::prefetch_tensormap(tq);
+        sm90::prefetch_tensormap(tdo);
+        sm90::prefetch_tensormap(tk);
+        sm90::prefetch_tensormap(tv);
+    }
+    for (int n = 0, g = 0; n < nitems; ++n) {
+        int b, h;
+        item_bh(p, z, hh, n, b, h);
+        if (t == 0) {
+            // K and V of this item once the consumers are done with the last
+            if (n > 0) sm90::mbar_wait(&bars[1], (n - 1) & 1);
+            sm90::mbar_arrive_expect_tx(&bars[0], 2 * G::KV_BYTES);
+#pragma unroll
+            for (int cw = 0; cw < G::NCW; ++cw)
+#pragma unroll
+                for (int c = 0; c < G::NC; ++c) {
+                    uint8_t* kt = smem + cw * ROWS * D * 2 + c * ROWS * G::CB;
+                    sm90::tma_load_4d(kt, tk, &bars[0], c * G::CW, h, c0 + cw * ROWS, b);
+                    sm90::tma_load_4d(kt + G::KV_BYTES, tv, &bars[0], c * G::CW, h,
+                                      c0 + cw * ROWS, b);
+                }
+        }
+        const size_t rbase = ((size_t)b * p.H + h) * p.T, base = bias_base(p, b, h);
+        for (int i = 0; i < nq; ++i, ++g) {
+            const int s = g % G::NST;
+            if (g >= G::NST) sm90::mbar_wait(&empty[s], (g / G::NST - 1) & 1);
+            float* st = reinterpret_cast<float*>(smem + G::OFF_ST) + s * 3 * G::BQ;
+            for (int r = t; r < 3 * G::BQ; r += 128) {
+                const int which = r / G::BQ, tr = i * G::BQ + r % G::BQ;
+                const bool in = tr < p.T;
+                sm90::cp4(st + r, in ? p.stats + which * plane + rbase + tr : p.stats, in ? 4 : 0);
+            }
+            if (p.bias)
+                stage_plane<G::BQ, G::BKB>(
+                    reinterpret_cast<uint32_t*>(smem + G::OFF_B + s * G::B_BYTES), p.bias, base,
+                    p.S, p.T, i * G::BQ, c0, t);
+            sm90::cp_async_arrive(&full[s]);
+            if (t == 0) {
+                sm90::mbar_arrive_expect_tx(&full[s], 2 * G::Q_BYTES);
+                uint8_t* qst = smem + G::OFF_Q + 2 * s * G::Q_BYTES;
+#pragma unroll
+                for (int c = 0; c < G::NC; ++c) {
+                    const int off = c * G::BQ * G::CB;
+                    sm90::tma_load_4d(qst + off, tq, &full[s], c * G::CW, h, i * G::BQ, b);
+                    sm90::tma_load_4d(qst + G::Q_BYTES + off, tdo, &full[s], c * G::CW, h,
+                                      i * G::BQ, b);
+                }
+            }
+        }
+    }
 }
 
-cudaError_t dispatch_d(int D, int dtype, const Params& p, int groups, cudaStream_t st) {
+// one consumer thread's keys in launch 2
+struct DkvKeys {
+    int quad, kc0;          // the thread's quad; the block's first key
+    int kl[2], kc[2];       // its keys, from the consumer's first and absolute
+    bool kin[2];            // ... < S
+    uint32_t k_base, v_base;  // the consumer's K and V in shared memory
+};
+
+// one 64-row q tile of launch 2 (a variant over 16 rows for a last tile
+// of at most 16 spilled and ran slower)
+template <int D>
+__device__ __forceinline__ void dkv_step(const Params& p, const DkvKeys& th, float* dk, float* dv,
+                                         uint32_t q_st, uint32_t do_st, const float* st,
+                                         const uint32_t* btile, int t0, size_t bbase,
+                                         bf16* ds_bh, float* acc, float* db, int n) {
+    using G = DkvGeo<D>;
+    constexpr int BQ = G::BQ;
+    const int quad = th.quad;
+
+    // S^T = K Q^T and dP^T = V dO^T, [keys, rows]: sc[4 nn + 2 hh + e] is
+    // key kc[hh], row t0 + 8 nn + 2 quad + e
+    float sc[BQ / 2], dp[BQ / 2];
+    sm90::wgmma_fence();
+    ss_product<D, ROWS, BQ>(sc, th.k_base, q_st);
+    ss_product<D, ROWS, BQ>(dp, th.v_base, do_st);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+
+    // p^T and ds^T in fp32, both as bf16 A operands; the fp32 ds kept in sc
+    // for the plane and the dbias tile
+    uint32_t pa[BQ / 4], da[BQ / 4];
+#pragma unroll
+    for (int nn = 0; nn < BQ / 8; ++nn) {
+        const int r = 8 * nn + 2 * quad, tr = t0 + r;
+        const float2 m2 = *reinterpret_cast<const float2*>(st + r);
+        const float2 rl2 = *reinterpret_cast<const float2*>(st + BQ + r);
+        const float2 dl2 = *reinterpret_cast<const float2*>(st + 2 * BQ + r);
+        const int o0 = stage_off(bbase, tr, p.S, th.kc0);
+        const int o1 = stage_off(bbase, tr + 1, p.S, th.kc0);
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int i0 = 4 * nn + 2 * hh, kb = th.kc[hh] - th.kc0;
+            float x0 = sc[i0] * p.qscale, x1 = sc[i0 + 1] * p.qscale;
+            if (p.bias) {
+                x0 = fmaf(LOG2E, bf_lo(tile_bits<G::BKB>(btile, r, kb + o0)), x0);
+                x1 = fmaf(LOG2E, bf_lo(tile_bits<G::BKB>(btile, r + 1, kb + o1)), x1);
+            }
+            // past S: p = 0 (a row past T has 1 / l = 0 from the staging)
+            const float p0 = th.kin[hh] ? sm90::ex2(x0 - m2.x) * rl2.x : 0.f;
+            const float p1 = th.kin[hh] ? sm90::ex2(x1 - m2.y) * rl2.y : 0.f;
+            sc[i0] = p0 * (dp[i0] - dl2.x);
+            sc[i0 + 1] = p1 * (dp[i0 + 1] - dl2.y);
+            pa[afrag(nn, hh)] = pack(p0, p1);
+            da[afrag(nn, hh)] = pack(sc[i0], sc[i0 + 1]);
+        }
+    }
+
+    // dV += P^T dO, dK += dS^T Q; dO and Q are [rows, D], MN-major
+    sm90::wgmma_fence();
+    rs_product<D>(dv, pa, do_st);
+    rs_product<D>(dk, da, q_st);
+    sm90::wgmma_commit();
+
+    // while they run: ds to the plane as bf16 (rows < T, keys < S), and the
+    // fp32 ds into the block's dbias: the tile (rows t, t + 1 of a key) or
+    // the block's rows of the global plane
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+        if (!th.kin[hh]) continue;
+        const uint32_t arow = smem_addr(acc + th.kl[hh] * p.tp + t0 + 2 * quad);
+#pragma unroll
+        for (int nn = 0; nn < BQ / 8; ++nn) {
+            const int i0 = 4 * nn + 2 * hh, tr = t0 + 8 * nn + 2 * quad;
+            if (tr >= p.T) continue;
+            const uint32_t dd = pack(sc[i0], sc[i0 + 1]);
+            unsigned short* dst =
+                reinterpret_cast<unsigned short*>(ds_bh + (size_t)tr * p.S + th.kc[hh]);
+            dst[0] = (unsigned short)(dd & 0xffffu);
+            if (tr + 1 < p.T) dst[p.S] = (unsigned short)(dd >> 16);
+            if (acc) {
+                float2 v = lds2(arow + 32 * nn);
+                v.x += sc[i0];
+                v.y += sc[i0 + 1];
+                sts2(arow + 32 * nn, v);
+            } else if (db) {
+                float* d = db + (size_t)tr * p.S + th.kc[hh];
+                d[0] = n == 0 ? sc[i0] : d[0] + sc[i0];
+                if (tr + 1 < p.T) d[p.S] = n == 0 ? sc[i0 + 1] : d[p.S] + sc[i0 + 1];
+            }
+        }
+    }
+    sm90::wgmma_wait<0>();
+}
+
+template <int D>
+__device__ __forceinline__ void dkv_consumer(const Params& p, uint8_t* smem, int cw, int z,
+                                             int hh_blk, int nitems, int kc0) {
+    using G = DkvGeo<D>;
+    constexpr int BQ = G::BQ;
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    uint64_t* full = bars + 2;
+    uint64_t* empty = bars + 2 + G::NST;
+
+    const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31;
+    const int quad = lane & 3, r8 = lane >> 2;
+    const int c0 = kc0 + cw * ROWS;  // this consumer's first key
+    const bool live = c0 < p.S;
+    DkvKeys th;
+    th.quad = quad;
+    th.kc0 = kc0;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+        th.kl[hh] = 16 * w + r8 + 8 * hh;  // this thread's keys, from c0
+        th.kc[hh] = c0 + th.kl[hh];
+        th.kin[hh] = th.kc[hh] < p.S;
+    }
+    th.k_base = smem_addr(smem) + cw * ROWS * D * 2;
+    th.v_base = th.k_base + G::KV_BYTES;
+    const int (&kc)[2] = th.kc;
+    const bool (&kin)[2] = th.kin;
+    const int nq = (p.T + BQ - 1) / BQ;
+    // this consumer's dbias tile in shared memory, [64 keys][tp] fp32
+    // (tp > 0 only where a dbias is summed on chip)
+    float* acc = p.tp ? reinterpret_cast<float*>(smem + G::OFF_ACC) + cw * ROWS * p.tp : nullptr;
+    if (acc) {
+        for (int i = t; i < ROWS * p.tp; i += 128) acc[i] = 0.f;
+        sm90::named_sync(1 + cw, 128);
+    }
+
+    for (int n = 0, g = 0; n < nitems; ++n) {
+        int b, h;
+        item_bh(p, z, hh_blk, n, b, h);
+        const size_t bbase = bias_base(p, b, h);
+        bf16* ds_bh = p.ds + ds_base(p, b, h);
+        float* db = p.dbias && !acc ? p.dbias + (size_t)z * p.db_sz + (size_t)h * p.db_sh
+                                    : nullptr;
+        float dk[D / 2], dv[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+        sm90::mbar_wait(&bars[0], n & 1);
+        for (int i = 0; i < nq; ++i, ++g) {
+            const int s = g % G::NST;
+            sm90::mbar_wait(&full[s], (g / G::NST) & 1);
+            if (live) {
+                const int t0 = i * BQ;
+                const uint32_t q_st = smem_addr(smem + G::OFF_Q + 2 * s * G::Q_BYTES);
+                const uint32_t do_st = q_st + G::Q_BYTES;
+                const float* st = reinterpret_cast<const float*>(smem + G::OFF_ST) + s * 3 * BQ;
+                const uint32_t* btile =
+                    reinterpret_cast<const uint32_t*>(smem + G::OFF_B + s * G::B_BYTES);
+
+                dkv_step<D>(p, th, dk, dv, q_st, do_st, st, btile, t0, bbase, ds_bh, acc, db, n);
+            }
+            sm90::mbar_arrive(&empty[s]);
+        }
+        sm90::mbar_arrive(&bars[1]);  // K and V free for the next item
+
+        bf16* dkp = p.dk;
+        bf16* dvp = p.dv;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            if (!kin[hh]) continue;
+            const size_t off = (((size_t)b * p.S + kc[hh]) * p.H + h) * D + 2 * quad;
+#pragma unroll
+            for (int nn = 0; nn < D / 8; ++nn) {
+                *reinterpret_cast<uint32_t*>(dkp + off + 8 * nn) =
+                    pack(dk[4 * nn + 2 * hh] * p.scale, dk[4 * nn + 2 * hh + 1] * p.scale);
+                *reinterpret_cast<uint32_t*>(dvp + off + 8 * nn) =
+                    pack(dv[4 * nn + 2 * hh], dv[4 * nn + 2 * hh + 1]);
+            }
+        }
+    }
+
+    // the dbias tile to the block's plane: rows < T, keys < S
+    if (acc && live) {
+        sm90::named_sync(1 + cw, 128);
+        float* db = p.dbias + (size_t)z * p.db_sz + (size_t)hh_blk * p.db_sh;
+        const int nk = min(ROWS, p.S - c0);
+        for (int i = t; i < p.T * ROWS; i += 128) {
+            const int tr = i / ROWS, k = i % ROWS;
+            if (k < nk) db[(size_t)tr * p.S + c0 + k] = acc[k * p.tp + tr];
+        }
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(DkvGeo<D>::THREADS, 1)
+enc_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tv,
+                 const Params p) {
+    using G = DkvGeo<D>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+    // block -> (key block, head or every head, batch group)
+    const int nkb = (p.S + G::BKB - 1) / G::BKB, HH = p.head_sum ? 1 : p.H;
+    const int kb = blockIdx.x % nkb, rest = blockIdx.x / nkb;
+    const int hh = rest % HH, z = rest / HH;
+    const int nitems = min(p.group, p.B - z * p.group) * (p.head_sum ? p.H : 1);
+
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(&bars[0], 1);               // K and V loaded
+        sm90::mbar_init(&bars[1], 128 * G::NCW);   // K and V read
+        for (int s = 0; s < G::NST; ++s) {
+            sm90::mbar_init(&bars[2 + s], 128 + 1);                 // stage s loaded
+            sm90::mbar_init(&bars[2 + G::NST + s], 128 * G::NCW);  // stage s read
+        }
+        sm90::fence_barrier_init();
+    }
+    __syncthreads();
+
+    const int wg = __shfl_sync(FULL, (int)threadIdx.x / 128, 0);
+    if (wg == 0) {
+        if constexpr (G::NCW > 1) sm90::setmaxnreg_dec<PRODUCER_REGS>();
+        dkv_producer<D>(&tq, &tdo, &tk, &tv, p, smem, z, hh, nitems, kb * G::BKB);
+    } else {
+        if constexpr (G::NCW > 1) sm90::setmaxnreg_inc<CONSUMER_REGS>();
+        dkv_consumer<D>(p, smem, wg - 1, z, hh, nitems, kb * G::BKB);
+    }
+}
+
+// ---- launch 3: dq = scale ds k --------------------------------------------------
+//
+// A persistent grid (two blocks an SM at D = 64, one at 96 and 128) over
+// the (128 q rows, batch, head) items in grid-stride order: two consumer
+// warpgroups of 64 rows; the producer warpgroup streams 64-key K tiles
+// (TMA) and the matching [128, 64] ds tiles (cp.async) through a ring that
+// runs on across items. A consumer packs its ds fragments from the staged
+// tile and takes dq += dS K (RS wgmma, K through the transpose bit).
+
+template <int D> struct DqGeo : sm90::Cols<D> {
+    static constexpr int NCW = 2;
+    static constexpr int BQ = ROWS * NCW;
+    static constexpr int BK = ROWS;                // keys per tile (128 spilled)
+    static constexpr int THREADS = 128 * (1 + NCW);
+    static constexpr int PER_SM = D == 64 ? 2 : 1;  // blocks an SM (89 registers a thread at one)
+    static constexpr int NST = 4;
+    static constexpr int KV_BYTES = BK * D * 2;
+    static constexpr int S_BYTES = BQ * Plane<BK>::BYTES_PER_ROW;  // a ds tile
+    static constexpr int OFF_S = NST * KV_BYTES;
+    static constexpr int OFF_BAR = OFF_S + NST * S_BYTES;  // full[NST], empty[NST]
+    static constexpr int SMEM = OFF_BAR + 2 * NST * 8 + 1024;
+    static_assert(KV_BYTES % 1024 == 0, "swizzle atoms aligned");
+    static_assert(SMEM * PER_SM <= 233472, "shared memory");
+};
+
+template <int D>
+__global__ void __launch_bounds__(DqGeo<D>::THREADS, DqGeo<D>::PER_SM)
+enc_bwd_dq_sm90(const __grid_constant__ CUtensorMap tk, const Params p) {
+    using G = DqGeo<D>;
+    extern __shared__ uint8_t smem_raw[];
+    uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+    const int ntiles = (p.T + G::BQ - 1) / G::BQ, total = ntiles * p.B * p.H;
+    const int nk = (p.S + G::BK - 1) / G::BK;
+
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+    uint64_t* empty = full + G::NST;
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < G::NST; ++s) {
+            sm90::mbar_init(&full[s], 128 + 1);
+            sm90::mbar_init(&empty[s], 128 * G::NCW);
+        }
+        sm90::fence_barrier_init();
+    }
+    __syncthreads();
+
+    const int wg = __shfl_sync(FULL, (int)threadIdx.x / 128, 0);
+    if (wg == 0) {
+        const int t = threadIdx.x;
+        if (t == 0) sm90::prefetch_tensormap(&tk);
+        for (int idx = blockIdx.x, g = 0; idx < total; idx += gridDim.x) {
+            const Item x = item_of(p, idx, ntiles, G::BQ);
+            const size_t base = ds_base(p, x.b, x.h);
+            for (int j = 0; j < nk; ++j, ++g) {
+                const int s = g % G::NST;
+                if (g >= G::NST) sm90::mbar_wait(&empty[s], (g / G::NST - 1) & 1);
+                stage_plane<G::BQ, G::BK>(
+                    reinterpret_cast<uint32_t*>(smem + G::OFF_S + s * G::S_BYTES), p.ds, base,
+                    p.S, p.T, x.q0, j * G::BK, t);
+                sm90::cp_async_arrive(&full[s]);
+                if (t == 0) {
+                    sm90::mbar_arrive_expect_tx(&full[s], G::KV_BYTES);
+#pragma unroll
+                    for (int c = 0; c < G::NC; ++c)
+                        sm90::tma_load_4d(smem + s * G::KV_BYTES + c * G::BK * G::CB, &tk,
+                                          &full[s], c * G::CW, x.h, j * G::BK, x.b);
+                }
+            }
+        }
+        return;
+    }
+    const int cw = wg - 1;
+    const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31;
+    const int quad = lane & 3, r8 = lane >> 2;
+    for (int idx = blockIdx.x, g = 0; idx < total; idx += gridDim.x) {
+        const Item x = item_of(p, idx, ntiles, G::BQ);
+        const size_t base = ds_base(p, x.b, x.h);
+        const int row0 = x.q0 + cw * ROWS;
+        const int tl[2] = {row0 + 16 * w + r8, row0 + 16 * w + r8 + 8};
+        int off[2];  // the rows' offsets in the staged ds tiles (c0 a multiple of 64)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) off[hh] = stage_off(base, tl[hh], p.S, 0);
+        float acc[D / 2];
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+        for (int j = 0; j < nk; ++j, ++g) {
+            const int s = g % G::NST;
+            sm90::mbar_wait(&full[s], (g / G::NST) & 1);
+            const uint32_t* stile =
+                reinterpret_cast<const uint32_t*>(smem + G::OFF_S + s * G::S_BYTES);
+            uint32_t da[16];
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+                const int r = tl[hh] - x.q0;
+#pragma unroll
+                for (int nn = 0; nn < 8; ++nn) {
+                    // keys past S hold the next row's ds: 0 instead
+                    const int c = j * G::BK + 8 * nn + 2 * quad, k = c - j * G::BK + off[hh];
+                    da[afrag(nn, hh)] = (c < p.S ? tile_bits<G::BK>(stile, r, k) : 0u) |
+                                        (c + 1 < p.S ? tile_bits<G::BK>(stile, r, k + 1) << 16 : 0u);
+                }
+            }
+            sm90::wgmma_fence();
+            rs_product<D>(acc, da, smem_addr(smem + s * G::KV_BYTES));
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+            sm90::mbar_arrive(&empty[s]);
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            if (tl[hh] >= p.T) continue;
+            bf16* dst = p.dq + (((size_t)x.b * p.T + tl[hh]) * p.H + x.h) * D + 2 * quad;
+#pragma unroll
+            for (int nn = 0; nn < D / 8; ++nn)
+                *reinterpret_cast<uint32_t*>(dst + 8 * nn) =
+                    pack(acc[4 * nn + 2 * hh] * p.scale, acc[4 * nn + 2 * hh + 1] * p.scale);
+        }
+    }
+}
+
+template <typename K>
+cudaError_t prepare(K kern, int smem) {
+    return cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+}
+
+// The dbias tile's row stride (fp32) in launch 2's shared memory: the
+// least tp >= T rounded up to even with tp = 8 mod 32, or 0 where it does
+// not fit (ops/flash_attention.py `enc_bwd_plan` mirrors this rule)
+template <int D> int acc_stride(int T) {
+    using G = DkvGeo<D>;
+    const int tp = ((T + 1) / 2 * 2 + 23) / 32 * 32 + 8;
+    return G::SMEM + G::BKB * tp * 4 <= SMEM_MAX ? tp : 0;
+}
+
+// the three launches (the groups' sum follows in the entry point)
+template <int D>
+cudaError_t launch(Params p, int groups, cudaStream_t stream) {
+    using S1 = StatGeo<D>;
+    using S2 = DkvGeo<D>;
+    using S3 = DqGeo<D>;
+    sm90::EncodeTiled enc = sm90::encode_tiled();
+    if (!enc) return cudaErrorNotSupported;
+    CUtensorMap q128, do128, k64, v64, q64, do64, ks1, vs1, ks3;
+    if (!sm90::make_map<D>(enc, &q128, p.q, p.B, p.T, p.H, S1::BQ) ||
+        !sm90::make_map<D>(enc, &do128, p.dout, p.B, p.T, p.H, S1::BQ) ||
+        !sm90::make_map<D>(enc, &k64, p.k, p.B, p.S, p.H, ROWS) ||
+        !sm90::make_map<D>(enc, &v64, p.v, p.B, p.S, p.H, ROWS) ||
+        !sm90::make_map<D>(enc, &ks1, p.k, p.B, p.S, p.H, S1::BK) ||
+        !sm90::make_map<D>(enc, &vs1, p.v, p.B, p.S, p.H, S1::BK) ||
+        !sm90::make_map<D>(enc, &ks3, p.k, p.B, p.S, p.H, S3::BK) ||
+        !sm90::make_map<D>(enc, &q64, p.q, p.B, p.T, p.H, S2::BQ) ||
+        !sm90::make_map<D>(enc, &do64, p.dout, p.B, p.T, p.H, S2::BQ))
+        return cudaErrorInvalidValue;
+    // a block that sums dbias over more than one item does so on chip
+    const bool sums = p.dbias && (p.group > 1 || p.head_sum);
+    p.tp = sums ? acc_stride<D>(p.T) : 0;
+    const int smem2 = S2::SMEM + S2::BKB * p.tp * 4;
+    cudaError_t err;
+    if ((err = prepare(enc_bwd_stats_sm90<D>, S1::SMEM)) != cudaSuccess ||
+        (err = prepare(enc_bwd_dkv_sm90<D>, smem2)) != cudaSuccess ||
+        (err = prepare(enc_bwd_dq_sm90<D>, S3::SMEM)) != cudaSuccess)
+        return err;
+    int dev, sms;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+        return err;
+    // launches 1 and 3: persistent grids over the 128-row items
+    const int items = (p.T + S1::BQ - 1) / S1::BQ * p.B * p.H;
+    enc_bwd_stats_sm90<D><<<min(items, sms), S1::THREADS, S1::SMEM, stream>>>(q128, do128, ks1,
+                                                                              vs1, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int nkb = (p.S + S2::BKB - 1) / S2::BKB;
+    enc_bwd_dkv_sm90<D><<<nkb * (p.head_sum ? 1 : p.H) * groups, S2::THREADS, smem2, stream>>>(
+        q64, do64, k64, v64, p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    enc_bwd_dq_sm90<D><<<min(items, S3::PER_SM * sms), S3::THREADS, S3::SMEM, stream>>>(ks3, p);
+    return cudaGetLastError();
+}
+
+}  // namespace hop
+
+cudaError_t dispatch_d(int D, int dtype, const enc_bwd::Params& e, bf16* ds, int groups,
+                       cudaStream_t st) {
+    if (dtype == 0) {
+        switch (D) {
+            case 64: return enc_bwd::launch_fp32<64>(e, groups, st);
+            case 96: return enc_bwd::launch_fp32<96>(e, groups, st);
+            case 128: return enc_bwd::launch_fp32<128>(e, groups, st);
+            default: return cudaErrorInvalidValue;
+        }
+    }
+    if (!ds) return cudaErrorInvalidValue;
+    const hop::Params p{static_cast<const bf16*>(e.q),    static_cast<const bf16*>(e.k),
+                        static_cast<const bf16*>(e.v),    static_cast<const bf16*>(e.dout),
+                        static_cast<const bf16*>(e.bias), static_cast<bf16*>(e.dq),
+                        static_cast<bf16*>(e.dk),         static_cast<bf16*>(e.dv),
+                        ds,                               e.dbias,
+                        e.stats,                          e.B,
+                        e.T,                              e.S,
+                        e.H,                              e.bias_sb,
+                        e.bias_sh,                        e.db_sz,
+                        e.db_sh,                          e.group,
+                        e.head_sum,                       0,
+                        e.scale,                          e.qscale};
     switch (D) {
-        case 64: return launch<64>(dtype, p, groups, st);
-        case 96: return launch<96>(dtype, p, groups, st);
-        case 128: return launch<128>(dtype, p, groups, st);
+        case 64: return hop::launch<64>(p, groups, st);
+        case 96: return hop::launch<96>(p, groups, st);
+        case 128: return hop::launch<128>(p, groups, st);
         default: return cudaErrorInvalidValue;
     }
 }
@@ -490,35 +961,37 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. `scale` multiplies q k^T. dbias may be
 // null (no bias, or its gradient not wanted). A [1, Hb, T, S] bias with
-// B > 1 has its gradient summed over the batch: launch 1 sums each group
-// of `group` batch items; with more than one group `partial`
-// ([ceil(B / group), Hb, T, S] fp32) takes the groups' planes and launch 3
-// adds them into dbias, with one group partial is null and launch 1 writes
-// dbias itself. Otherwise `group` is 1 and partial null. `head_sum` (a
-// [., 1, T, S] bias, H > 1) makes launch 1 sum the heads. `stats` is
-// [3, B, H, T] fp32 scratch. Returns cudaGetLastError() after the last
-// launch.
+// B > 1 has its gradient summed over the batch in groups of `group` batch
+// items (a bf16 dk/dv block or an fp32 dq block each); with more than one
+// group `partial` ([ceil(B / group), Hb, T, S] fp32) takes the groups'
+// planes and a last launch adds them into dbias, with one group partial is
+// null and the blocks write dbias itself. Otherwise `group` is 1 and
+// partial null. `head_sum` (a [., 1, T, S] bias, H > 1) makes a block sum
+// the heads. `stats` is [3, B, H, T] fp32 scratch; `ds` is [B, H, T, S]
+// bf16 scratch for bf16 inputs (null for fp32). Returns cudaGetLastError()
+// after the last launch.
 int encoder_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
                      const void* bias, void* dq, void* dk, void* dv, void* dbias, void* partial,
-                     void* stats, int B, int T_, int S, int H, int D, int bias_sb, int bias_sh,
-                     int bias_h, int group, int head_sum, float scale, int dtype, void* stream) {
+                     void* stats, void* ds, int B, int T_, int S, int H, int D, int bias_sb,
+                     int bias_sh, int bias_h, int group, int head_sum, float scale, int dtype,
+                     void* stream) {
     if (B <= 0 || T_ <= 0 || H <= 0) return (int)cudaSuccess;
     // a [1, Hb, T, S] bias's gradient over B > 1 is summed over the batch
     const bool batch_sum = dbias && bias_sb == 0 && B > 1;
     if (S <= 0 || group <= 0 || (dbias && !bias) || (group > 1 && !batch_sum) ||
-        (head_sum && (!dbias || bias_h != 1)))
+        (head_sum && (!dbias || bias_h != 1)) || (dtype != 0 && dtype != 1))
         return (int)cudaErrorInvalidValue;
     const int groups = (B + group - 1) / group;
     // partial planes exactly when more than one group sums the batch
     if ((partial != nullptr) != (batch_sum && groups > 1)) return (int)cudaErrorInvalidValue;
     const size_t TS = (size_t)T_ * S;
-    Params p{q, k, v, dout, bias, nullptr, dq, dk, dv,
-             static_cast<float*>(partial ? partial : dbias), static_cast<float*>(stats),
-             B, T_, S, H, bias_sb, bias_sh, bias_h * TS, bias_h > 1 ? TS : 0, group, head_sum,
-             scale, scale * LOG2E};
+    const enc_bwd::Params e{q, k, v, dout, bias, nullptr, dq, dk, dv,
+                            static_cast<float*>(partial ? partial : dbias),
+                            static_cast<float*>(stats), B, T_, S, H, bias_sb, bias_sh,
+                            bias_h * TS, bias_h > 1 ? TS : 0, group, head_sum, scale,
+                            scale * LOG2E};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const cudaError_t err =
-        dtype == 0 || dtype == 1 ? dispatch_d(D, dtype, p, groups, st) : cudaErrorInvalidValue;
+    const cudaError_t err = dispatch_d(D, dtype, e, static_cast<bf16*>(ds), groups, st);
     if (err != cudaSuccess || !partial) return (int)err;
     const size_t n = (size_t)bias_h * T_ * S;
     const int blocks = (int)((n + 255) / 256 < 1056 ? (n + 255) / 256 : 1056);

@@ -1,10 +1,10 @@
 // The fp32 CUDA-core launches of the encoder attention backward, shared by
 // csrc/encoder_attention_bwd.cu (#4) and the fp32 path of
-// csrc/doc_attention_bwd.cu (#10), with `launch_pair`, which both files'
-// tensor-core paths use too. The design is described at the top of
-// encoder_attention_bwd.cu: launch 1 (dq kernel) takes the exact row
-// statistics, dq and the fp32 dbias planes; launch 2 (dk/dv kernel)
-// recomputes p and ds from those statistics. #10 adds the key-padding mask
+// csrc/doc_attention_bwd.cu (#10), and `launch_pair`, which launches the
+// two (both files' bf16 paths are their own wgmma launches). The design is
+// described at the top of encoder_attention_bwd.cu: launch 1 (dq kernel)
+// takes the exact row statistics, dq and the fp32 dbias planes; launch 2
+// (dk/dv kernel) recomputes p and ds from those statistics. #10 adds the key-padding mask
 // (a masked key at the finite -1e30, as in the forward) and takes the ds
 // plane as launch 1's dbias planes, one (batch, head) per block; for fp32
 // inputs that plane is the ds #10 emits. The scores are q k^T times

@@ -1,12 +1,14 @@
 // Hopper (sm_90a) building blocks for kernels written by hand: mbarriers,
-// TMA tile loads from a CUtensorMap, wgmma
-// shared-memory descriptors and the bf16 wgmma products with fp32
-// accumulators, setmaxnreg, named barriers and the cluster barrier with
-// loads from another block's shared memory, written in PTX as the PTX ISA
-// defines it; no CUTLASS.
+// TMA tile loads from a CUtensorMap, wgmma shared-memory descriptors and
+// the bf16 wgmma products with fp32 accumulators, the 64-row products and
+// the cp.async staging of bf16 planes that the backward kernels share,
+// setmaxnreg, named barriers and the cluster barrier with loads from
+// another block's shared memory, written in PTX as the PTX ISA defines it;
+// no CUTLASS.
 // Shared-memory addresses come from mma_common.cuh's smem_addr. Users:
 // csrc/flash_fwd.cu (#1), csrc/flash_tri.cu (#2), csrc/encoder_attention.cu
-// (#3), csrc/flash_bwd.cu (#6, #7), csrc/doc_attention_bwd.cu (#10) and
+// (#3), csrc/encoder_attention_bwd.cu (#4), csrc/onepass_attention.cu (#5),
+// csrc/flash_bwd.cu (#6, #7), csrc/doc_attention_bwd.cu (#10) and
 // csrc/decode_attention.cu (#13: 3-D maps, clusters).
 //
 // The host side takes cuTensorMapEncodeTiled through
@@ -362,6 +364,90 @@ template <int N> __device__ __forceinline__ void wgmma_rs(float* d, const uint32
     else
         wgmma_rs_n128(d, a, db);
 }
+
+// ---- products of 64-row tiles, and bf16 planes by 16-byte cp.async --------
+// (the backward kernels #10, csrc/doc_attention_bwd.cu, and #4,
+// csrc/encoder_attention_bwd.cu)
+
+// acc[N / 2] = A B^T for a [64, D] tile A and an [N, D] tile B (N = 64 or
+// 128), both read K-major; RA and RB are the rows of the boxes they lie in
+template <int D, int RA, int RB, int N = 64>
+__device__ __forceinline__ void ss_product(float* acc, uint32_t a, uint32_t b) {
+    using C = Cols<D>;
+#pragma unroll
+    for (int c = 0; c < C::NC; ++c)
+#pragma unroll
+        for (int kk = 0; kk < C::CW / 16; ++kk) {
+            const uint64_t da = kmajor_desc<D, RA>(a, c, kk), db = kmajor_desc<D, RB>(b, c, kk);
+            if constexpr (N == 128)
+                wgmma_ss_n128(acc, da, db, c | kk);
+            else
+                wgmma_ss_n64(acc, da, db, c | kk);
+        }
+}
+
+// acc[D / 2] += A B for A [64, 64] given as its bf16 fragments a[16] and B
+// a [64, D] tile (of a box of 64 rows) read MN-major (the transpose bit)
+template <int D>
+__device__ __forceinline__ void rs_product(float* acc, const uint32_t* a, uint32_t b) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs<D>(acc, a + 4 * kk, mnmajor_desc<D, 64>(b, kk));
+}
+
+// The A-fragment register of the accumulator pair (row 16 w + r8 + 8 hh,
+// columns 8 nn + 2 quad + {0, 1}): k-step nn / 2, m16n8k16 order (above),
+// so a product's accumulator repacks with no shuffle.
+__device__ __forceinline__ constexpr int afrag(int nn, int hh) {
+    return 4 * (nn >> 1) + 2 * (nn & 1) + hh;
+}
+
+// A bias or ds row holds S bf16: 1418 bytes at S = 709, 394 at S = 197, no
+// multiple of 16, so no TMA map takes such planes, and a row starts at any
+// 2-byte offset. The producer warpgroup copies a tile of R rows x C keys
+// with 16-byte cp.async: row r as the aligned 16-byte chunks that cover its
+// keys [c0, c0 + C), so that key c sits at element c - c0 + off, off = the
+// first key's element mod 8 (0..7); rows past the plane read as zeros,
+// chunks past the plane's end are cut there, and keys past S in the last
+// chunk hold the next row's values (the consumers mask them). Row stride
+// LDW words: the chunks plus none (C / 8 + 1 chunks: 36 words at C = 64,
+// 68 at 128), so that the consumers' fragment reads (8 rows of 4 words, or
+// 4 rows two apart of 5) fall on distinct banks.
+template <int C> struct Plane {
+    static constexpr int NCH = C / 8 + 1;  // 16-byte chunks a row
+    static constexpr int LDW = NCH * 4;
+    static constexpr int BYTES_PER_ROW = LDW * 4;
+    static_assert(LDW % 32 == 4, "rows four banks apart");
+};
+
+// rows [r0, r0 + R) of the plane whose element (0, 0) is element `base`
+// of `plane`, keys [c0, c0 + C), `rmax` rows in the plane; the 128
+// threads of a warpgroup, `tid` its thread
+template <int R, int C>
+__device__ __forceinline__ void stage_plane(uint32_t* dst, const bf16* plane, size_t base, int S,
+                                            int rmax, int r0, int c0, int tid) {
+    constexpr int NCH = Plane<C>::NCH, LDW = Plane<C>::LDW;
+    const size_t end = base + (size_t)rmax * S;  // one past the plane
+    for (int i = tid; i < R * NCH; i += 128) {
+        const int r = i / NCH, c = i % NCH, row = r0 + r;
+        const size_t e = ((base + (size_t)row * S + c0) & ~(size_t)7) + 8 * c;
+        const int bytes = row < rmax ? (int)min((size_t)16, e < end ? 2 * (end - e) : 0) : 0;
+        cp16n(dst + r * LDW + 4 * c, bytes ? plane + e : plane, bytes);
+    }
+}
+
+// where key c0 of row `row` starts in its staged row (the parity and the
+// chunk offset of its element)
+__device__ __forceinline__ int stage_off(size_t base, int row, int S, int c0) {
+    return (int)((base + (size_t)row * S + c0) & 7);
+}
+
+// the bf16 bits at element k (key - c0 + off) of row r of a staged tile
+template <int C>
+__device__ __forceinline__ uint32_t tile_bits(const uint32_t* tile, int r, int k) {
+    return reinterpret_cast<const unsigned short*>(tile + r * Plane<C>::LDW)[k];
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
 
 // ---- host: tensor maps ----------------------------------------------------
 

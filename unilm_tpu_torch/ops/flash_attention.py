@@ -325,6 +325,64 @@ def flash_forward(q, k, v, bias=None, mask=None, q_offset: int = 0,
                                window)
 
 
+# #5's bf16 plan (csrc/onepass_attention.cu): the walk takes T <= 16 (a
+# block of 8 warps per (batch, head), 32-key tiles a lane per key); longer
+# q takes the wgmma rows (a block per 128 q rows, consumers of 64 rows,
+# K/V chunks of 128 keys at D = 64 and 64 at D = 96 and 128)
+ONEPASS_WALK_MAX_T, ONEPASS_WALK_WARPS, ONEPASS_WALK_TILE = 16, 8, 32
+ONEPASS_ROWS, ONEPASS_CONSUMER_ROWS = 128, 64
+
+
+def onepass_chunk(D: int) -> int:
+    """Keys per K/V chunk of #5's wgmma rows (`Geo<D>::BK`)."""
+    return 128 if D == 64 else 64
+
+
+def onepass_tile_plan(T: int, S: int, q_offset: int, limit: int,
+                      causal: bool, window: int, D: int = 64) -> dict:
+    """Kernel #5's bf16 plan (csrc/onepass_attention.cu `launch_bf16`, the
+    walk's key range and tiles, hop's `key_walk` ranges compute the same
+    rule: change both together) for one (batch, head): {"route": "walk" or
+    "wgmma", "blocks": [...]}, a block being {"staged": the key ranges
+    (c0, c1) it reads, each once, keys < S; "steps": (r0, r1, c0, c1, who)
+    the (row, key) rectangles it computes, in order, `who` the warp (walk)
+    or the consumer (wgmma)}. The walk reads exactly the keys its rows can
+    see; the wgmma block stages the chunks (`onepass_chunk(D)` keys) its
+    rows can see and each consumer computes the chunks its 64 rows can
+    see."""
+    limit = min(limit, S)
+
+    def key_range(lo, hi):  # absolute positions lo..hi
+        k_end = min(limit, hi + 1) if causal else limit
+        k_begin = max(0, lo - window + 1) if window > 0 else 0
+        return k_begin, k_end
+
+    if T <= ONEPASS_WALK_MAX_T:
+        kb, ke = key_range(q_offset, q_offset + T - 1)
+        w, t = ONEPASS_WALK_WARPS, ONEPASS_WALK_TILE
+        steps = sorted(((0, T, c0, min(c0 + t, ke), (c0 - kb) // t % w)
+                        for c0 in range(kb, ke, t)), key=lambda x: (x[4], x[2]))
+        return {"route": "walk",
+                "blocks": [{"staged": [(kb, ke)] if ke > kb else [],
+                            "steps": steps}]}
+    blocks, n = [], onepass_chunk(D)
+    for q0 in range(0, T, ONEPASS_ROWS):
+        jb, je = flash_tile_plan(T, S, q_offset, limit, causal, window,
+                                 ONEPASS_ROWS, n)[q0 // ONEPASS_ROWS][:2]
+        steps = []
+        for cw, r0 in enumerate(range(q0, min(q0 + ONEPASS_ROWS, T),
+                                      ONEPASS_CONSUMER_ROWS)):
+            r1 = min(r0 + ONEPASS_CONSUMER_ROWS, T)
+            cjb, cje = flash_tile_plan(r1 - r0, S, q_offset + r0, limit,
+                                       causal, window, r1 - r0, n)[0][:2]
+            steps += [(r0, r1, j * n, min(j * n + n, S), cw)
+                      for j in range(max(cjb, jb), min(cje, je))]
+        blocks.append({"staged": [(j * n, min(j * n + n, S))
+                                  for j in range(jb, je)],
+                       "steps": steps})
+    return {"route": "wgmma", "blocks": blocks}
+
+
 def flash_forward_onepass_plain(q, k, v, bias=None, mask=None,
                                 q_offset: int = 0,
                                 kv_len: Optional[int] = None, *,
@@ -893,18 +951,107 @@ def _encoder_forward(q, k, v, bias, scale):
 # --------------------------------------------------------------------------- #
 
 ENCODER_BWD_KERNEL = CudaKernel("encoder_attention_bwd.cu", {
-    # q, k, v, dout, bias, dq, dk, dv, dbias, partial, stats, B, T, S, H, D,
-    # bias_sb, bias_sh, bias_h, group, head_sum, scale, dtype, stream
-    "encoder_attn_bwd": [P] * 11 + [I] * 10 + [F, I, P],
+    # q, k, v, dout, bias, dq, dk, dv, dbias, partial, stats, ds, B, T, S, H,
+    # D, bias_sb, bias_sh, bias_h, group, head_sum, scale, dtype, stream
+    "encoder_attn_bwd": [P] * 12 + [I] * 10 + [F, I, P],
 })
-# A batch-summed dbias: the batch is cut into groups, one dq block per
-# (64-row q tile, head, group) summing its group in order (a third launch
-# adds the groups' planes), so that about this many blocks share the work.
-# At BEiT-B (B=256) that is one batch item per group, at the price of
-# 477 MB of transient partial planes; chip_smoke.py's encoder_bwd phase
-# times it against 16x fewer blocks (PERF.md).
-DBIAS_BLOCKS = 16896
-_BWD_Q_TILE = 64  # query rows of a dq block (csrc/encoder_attention_bwd.cu BQ)
+
+# #4's bf16 kernels (csrc/encoder_attention_bwd.cu, namespace hop): the
+# statistics and dq launches take items of 128 q rows over key tiles
+# (`_enc_bwd_key_tiles`), the dk/dv launch key blocks of ENC_BWD_ROWS keys
+# per consumer warpgroup (two at D = 64, one at D = 96 and 128) over
+# 64-row q tiles, with a dbias tile of [keys, tp] fp32 in shared memory
+# where it fits.
+ENC_BWD_ROWS, ENC_BWD_QTILE = 64, 128
+_SMEM_MAX = 232448  # bytes of shared memory a block may opt into
+H100_SMS = 132
+
+
+def _enc_bwd_key_tiles(D: int):
+    """Keys per tile of #4's statistics and dq launches (`StatGeo<D>::BK`,
+    `DqGeo<D>::BK`)."""
+    return (128 if D == 64 else 64), 64
+
+
+def _enc_bwd_dkv_smem(D: int) -> int:
+    """`DkvGeo<D>::SMEM`: the dk/dv launch's shared memory without the
+    dbias tile (K and V; per ring stage q, dO, a bias tile and 3 x 64
+    statistics; the barriers; 1024 bytes of alignment slack)."""
+    bkb, nst = (128, 2) if D == 64 else (64, 3)
+    bias_row = (bkb // 8 + 1) * 16  # hopper.cuh Plane<bkb>::BYTES_PER_ROW
+    stage = 2 * 64 * D * 2 + 64 * bias_row + 3 * 64 * 4
+    return 2 * bkb * D * 2 + nst * stage + (2 + 2 * nst) * 8 + 1024
+
+
+def enc_bwd_plan(B: int, T: int, S: int, H: int, D: int = 64,
+                 bias_shape=None, want_dbias: bool = True,
+                 sms: int = H100_SMS) -> dict:
+    """Kernel #4's grouping (csrc/encoder_attention_bwd.cu: `launch`,
+    `item_bh` and `acc_stride` compute the same rule: change both
+    together) for a [Bb, Hb, T, S] bias (`bias_shape`, None without one):
+    - "group", "groups": a batch-summed dbias (Bb = 1 < B) is summed in
+      groups of `group` batch items, sized for about two dk/dv blocks an
+      SM; otherwise every batch item is a group of one. The fp32 launches
+      take the same groups.
+    - "head_sum": a head-broadcast dbias (Hb = 1 < H) is summed by blocks
+      that loop over every head.
+    - "blocks": the dk/dv launch's grid, key blocks x (1 or H) x groups.
+    - "partial_bytes": the groups' fp32 planes when more than one group
+      sums the batch (0 otherwise), which the last launch adds in group
+      order.
+    - "tp": the dbias tile's row stride (fp32) in the dk/dv launch's
+      shared memory, 0 where a block sums nothing or the tile does not fit
+      (the block then adds into its rows of the global plane)."""
+    dbias = want_dbias and bias_shape is not None
+    Bb, Hb = (bias_shape[0], bias_shape[1]) if dbias else (B, H)
+    head_sum = int(Hb == 1 and H > 1)
+    batch_sum = Bb == 1 and B > 1
+    nkb = _cdiv(S, ENC_BWD_ROWS * (2 if D == 64 else 1))
+    per_group = nkb * (1 if head_sum else H)
+    group = _cdiv(B, min(B, _cdiv(2 * sms, per_group))) if batch_sum else 1
+    groups = _cdiv(B, group)
+    tp = 0
+    if group > 1 or head_sum:
+        tp = (_cdiv(T, 2) * 2 + 23) // 32 * 32 + 8
+        bkb = ENC_BWD_ROWS * (2 if D == 64 else 1)
+        if _enc_bwd_dkv_smem(D) + bkb * tp * 4 > _SMEM_MAX:
+            tp = 0
+    return {"group": group, "head_sum": head_sum, "groups": groups,
+            "blocks": per_group * groups,
+            "partial_bytes": (groups * Hb * T * S * 4
+                              if batch_sum and groups > 1 else 0),
+            "tp": tp}
+
+
+def enc_bwd_steps(B: int, T: int, S: int, H: int, D: int, plan: dict) -> dict:
+    """The blocks of `enc_bwd_plan`'s three launches as lists of steps
+    (b, h, r0, r1, c0, c1), a [r0, r1) x [c0, c1) tile of (query row, key)
+    pairs of one (batch, head), in the order the block walks them:
+    "stats" and "dq", an item of 128 q rows of a (batch, head) over the
+    key tiles (`_enc_bwd_key_tiles`; the persistent blocks take the items
+    in this order, grid-stride); "dkv", a block per (key block, head or every head, group)
+    in grid order, its items batch-major, each over its 64-row q tiles.
+    "dbias_plane": per dk/dv block, the (group, head) plane it writes
+    (head 0 for a head-summed one)."""
+    bkb = ENC_BWD_ROWS * (2 if D == 64 else 1)
+
+    def rows(kt):
+        return [[(b, h, r0, min(r0 + ENC_BWD_QTILE, T), c0, min(c0 + kt, S))
+                 for c0 in range(0, S, kt)]
+                for b in range(B) for h in range(H)
+                for r0 in range(0, T, ENC_BWD_QTILE)]
+    stats_kt, dq_kt = _enc_bwd_key_tiles(D)
+    dkv, planes, g = [], [], plan["group"]
+    for z in range(plan["groups"]):
+        for hh in range(1 if plan["head_sum"] else H):
+            for c0 in range(0, S, bkb):
+                heads = range(H) if plan["head_sum"] else (hh,)
+                dkv.append([(b, h, r0, min(r0 + 64, T), c0, min(c0 + bkb, S))
+                            for b in range(z * g, min(B, (z + 1) * g))
+                            for h in heads for r0 in range(0, T, 64)])
+                planes.append((z, hh))
+    return {"stats": rows(stats_kt), "dkv": dkv, "dq": rows(dq_kt),
+            "dbias_plane": planes}
 
 
 def fused_encoder_backward_plain(q, k, v, bias, do,
@@ -949,28 +1096,26 @@ def _encoder_backward_cuda(q, k, v, bias, do, scale, want_dbias):
     check_tensor("v", v, dtype=q.dtype, shape=(B, S, H, D), device=dev)
     check_tensor("dout", do, dtype=q.dtype, shape=(B, T, H, D), device=dev)
     sb, sh = _bias_strides(bias, B, H, T, S, q.dtype, dev)
-    Hb, group, head_sum = 1, 1, 0
+    Hb = 1 if bias is None else bias.shape[1]
+    plan = enc_bwd_plan(B, T, S, H, D, None if bias is None else bias.shape,
+                        want_dbias, torch.cuda.get_device_properties(
+                            dev).multi_processor_count)
     dbias = partial = None
-    if bias is not None:
-        Bb, Hb = bias.shape[0], bias.shape[1]
-        if want_dbias:
-            dbias = torch.empty((Bb, Hb, T, S), dtype=torch.float32,
-                                device=dev)
-            head_sum = int(Hb == 1 and H > 1)
-            if Bb == 1 and B > 1:
-                blocks = -(-T // _BWD_Q_TILE) * (1 if head_sum else H)
-                group = -(-B // min(B, -(-DBIAS_BLOCKS // blocks)))
-                groups = -(-B // group)
-                if groups > 1:
-                    partial = torch.empty((groups, Hb, T, S),
-                                          dtype=torch.float32, device=dev)
+    if want_dbias:
+        dbias = torch.empty(tuple(bias.shape), dtype=torch.float32, device=dev)
+        if plan["partial_bytes"]:
+            partial = torch.empty((plan["groups"], Hb, T, S),
+                                  dtype=torch.float32, device=dev)
     stats = torch.empty((3, B, H, T), dtype=torch.float32, device=dev)
+    # the bf16 path's ds plane (launch 2 writes it, launch 3 reads it)
+    ds = (torch.empty((B, H, T, S), dtype=torch.bfloat16, device=dev)
+          if q.dtype == torch.bfloat16 else None)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     ENCODER_BWD_KERNEL.launch(
         "encoder_attn_bwd", ptr(q), ptr(k), ptr(v), ptr(do), ptr(bias),
-        ptr(dq), ptr(dk), ptr(dv), ptr(dbias), ptr(partial), ptr(stats), B, T,
-        S, H, D, sb, sh, Hb, group, head_sum, float(scale),
-        _DTYPE_CODE[q.dtype], stream())
+        ptr(dq), ptr(dk), ptr(dv), ptr(dbias), ptr(partial), ptr(stats),
+        ptr(ds), B, T, S, H, D, sb, sh, Hb, plan["group"], plan["head_sum"],
+        float(scale), _DTYPE_CODE[q.dtype], stream())
     return dq, dk, dv, dbias
 
 
