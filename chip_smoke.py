@@ -9,10 +9,11 @@ Phases, one line each:
  2. build: compiles the hand-written kernels from unilm_tpu_torch/csrc/,
     one nvcc per source, all started together; beside them `nvcc -Xptxas
     -v` on the Hopper sources (flash_fwd.cu, flash_bwd.cu, flash_tri.cu,
-    encoder_attention.cu, doc_attention_bwd.cu, decode_attention.cu's
-    split walk, onepass_attention.cu's and encoder_attention_bwd.cu's bf16
-    entries) prints each kernel's registers and spill bytes and fails on a
-    spill or a serialised wgmma.
+    encoder_attention.cu, doc_attention.cu, doc_attention_bwd.cu,
+    decode_attention.cu's split walk, onepass_attention.cu's and
+    encoder_attention_bwd.cu's bf16 entries, flash_bwd_fused.cu) prints
+    each kernel's registers and spill bytes and fails on a spill or a
+    serialised wgmma.
  3. flash: the flash-forward kernel (#1; bf16 is the wgmma/TMA kernel)
     against its plain version, bf16, over causal/offset/kv_len/key-padding/
     bias/window cases that hit each class of key tile (skipped, interior,
@@ -47,9 +48,10 @@ Phases, one line each:
     flash_bwd_fused (right after flash_bwd): the one-pass backward (#8)
     against flash_backward_fused_plain on #1's out and lse, bf16 and fp32,
     dq/dk/dv: causal + key-padding with a fully masked row, q_offset +
-    kv_len, window, non-causal, ragged T != S, D in {64, 96, 128}; the
-    train shape twice bit-equal, timed beside #6 + #7, the plain twin and
-    sdpa's backward.
+    kv_len, window, non-causal, ragged T != S, D in {64, 96, 128}, T and S
+    at the 64-row / 64- and 128-key tile edges; the train shape twice
+    bit-equal, timed (CUDA events and device time) beside #6 + #7, the
+    plain twin and sdpa's backward.
     encoder_bwd (right after encoder_attn): the encoder attention
     backward kernel (#4) against fused_encoder_backward_plain, bf16 and
     fp32, dq/dk/dv/dbias (relative L2 <= 1e-2 / 1e-4): bias None,
@@ -73,8 +75,11 @@ Phases, one line each:
     [H,1,T,S], with and without a key-padding mask (one example with
     every key masked), ragged T != S, D in {64, 96, 128}, S up to 2048, the
     Pix2Struct tower 1x2048x24x64 at scale 1.0 and the FUNSD shape
-    32x709x12x64 (bf16, head-major bias, mask); timed there beside the
-    plain version and SDPA with a float attn_mask.
+    32x709x12x64 (bf16, head-major bias, mask, twice bit-equal); bf16 at
+    the tiles' edges (T, S in {63, 64, 65, 127, 128, 129}, D 64/96/128,
+    each twice bit-equal); timed at FUNSD beside the plain version and
+    SDPA with a float attn_mask (CUDA events and device time), and as
+    device time at the tower's 1x1024x24x64 beside SDPA.
     doc_bwd: its backward (#10; bf16: three wgmma launches, profiler
     names `doc_bwd_*`) against doc_backward_plain over the same cases,
     dq/dk/dv/dbias (dbias reduced where the bias broadcasts), the FUNSD
@@ -132,8 +137,9 @@ Phases, one line each:
     launches of #1 (18 tower layers, the resampler, 24 decoder layers)
     and none of #3; features and first-token logits against the plain
     path; then encode_image at 1024 patch slots: 18 launches of #9 in the
-    tower, #1 only in the resampler, features against the plain path;
-    TTFT for both paths; a device-time profile.
+    tower, #1 only in the resampler, features against the plain path, and
+    its device time split (#9, #1, cuBLAS, other); TTFT for both paths; a
+    device-time profile.
     yoco_chat: yoco_base (12 sliding-window + 12 cross layers, E=1024, 16
     heads, bf16 compute / fp32 params, random weights from the seed)
     through runtime.generate: B=8, a 128-token prompt, a 256-slot cache,
@@ -548,11 +554,14 @@ def phase_device() -> str:
 # (`decode_run_`), not the fp32 pools' CUDA-core body it shares with #11
 # and #12; in onepass_attention.cu and encoder_attention_bwd.cu only the
 # bf16 entries (`onepass_kernel_sm90` / `_walk`, `enc_bwd_*_sm90`), not
-# the fp32 CUDA-core bodies
+# the fp32 CUDA-core bodies; doc_attention.cu's `doc_fwd_sm90` with #3's
+# fp32 body and flash_bwd_fused.cu's `flash_bwd_fused_sm90` with #7's
+# fp32 body (FUSED)
 PTXAS_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_tri.cu",
-                 "encoder_attention.cu", "doc_attention_bwd.cu",
-                 "decode_attention.cu", "onepass_attention.cu",
-                 "encoder_attention_bwd.cu")
+                 "encoder_attention.cu", "doc_attention.cu",
+                 "doc_attention_bwd.cu", "decode_attention.cu",
+                 "onepass_attention.cu", "encoder_attention_bwd.cu",
+                 "flash_bwd_fused.cu")
 
 
 def ptxas_entries(text: str) -> list:
@@ -563,7 +572,7 @@ def ptxas_entries(text: str) -> list:
     out, name = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d+((?:flash|encoder|"
-                      r"doc_bwd|decode_run)_\w+?|enc_bwd_\w+?_sm90|"
+                      r"doc_bwd|doc_fwd|decode_run)_\w+?|enc_bwd_\w+?_sm90|"
                       r"onepass_kernel_(?:sm90|walk))I(\w*?)EEv", line)
         if m:
             args = re.findall(r"Li(\d+)", m.group(2))
@@ -1054,9 +1063,11 @@ def phase_flash_tri(fa, g) -> dict:
 
 def phase_flash_bwd_fused(fa, g) -> dict:
     """Kernel #8 against flash_backward_fused_plain on the forward kernel's
-    out and lse, bf16 and fp32, dq/dk/dv at the flash_bwd bounds; then the
-    train shape twice bit-equal, timed beside #6 + #7, the plain twin and
-    sdpa's backward."""
+    out and lse, bf16 and fp32, dq/dk/dv at the flash_bwd bounds, with the
+    bf16 kernel's tile edges (64-row q tiles, 128-key blocks at D = 64 and
+    64-key ones at D = 96 / 128: T, S in {63, 64, 65, 127, 128, 129}); then
+    the train shape twice bit-equal, timed (CUDA events and device time)
+    beside #6 + #7, the plain twin and sdpa's backward."""
     dev = "cuda"
     # (B, T, S, H, D, causal, q_offset, kv_len, window, kpm)
     cases = [
@@ -1067,6 +1078,14 @@ def phase_flash_bwd_fused(fa, g) -> dict:
         (2, 97, 150, 2, 128, False, 0, None, 0, True),
         (2, 160, 96, 4, 64, False, 0, None, 0, False),
         (2, 1000, 1000, 2, 64, True, 0, None, 0, True),
+        (2, 63, 63, 3, 96, True, 0, None, 0, True),
+        (2, 64, 64, 3, 128, False, 0, None, 0, True),
+        (2, 65, 65, 3, 64, True, 0, None, 0, True),
+        (2, 127, 129, 3, 128, True, 2, None, 0, True),
+        (2, 128, 128, 3, 96, False, 0, None, 0, False),
+        (2, 129, 127, 3, 64, False, 0, None, 0, True),
+        (2, 129, 129, 3, 128, True, 0, None, 70, True),
+        (2, 65, 127, 3, 96, True, 62, None, 0, True),
     ]
     worst = 0.0
     for dtype, bound in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
@@ -1136,6 +1155,12 @@ def phase_flash_bwd_fused(fa, g) -> dict:
     pair_ms = cuda_ms(pair)
     plain_ms = cuda_ms(plain, iters=3)
     ms2 = cuda_ms(fused)
+    # device time: the kernel alone, then every kernel of the call (delta,
+    # the zeroing, the kernel and the dq cast) beside #6 + #7's call
+    dev_k = device_ms(fused, only="flash_bwd_fused_sm90")
+    dev_all = device_ms(fused)
+    dev_pair = device_ms(pair)
+    dev_k2 = device_ms(fused, only="flash_bwd_fused_sm90")
     qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
     causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
     amask = causal[None, None] & mask[:, None, None, :]
@@ -1143,6 +1168,8 @@ def phase_flash_bwd_fused(fa, g) -> dict:
     dot = do.transpose(1, 2)
     lib_ms = cuda_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
                                                  retain_graph=True), iters=5)
+    dev_lib = device_ms(lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
+                                                    retain_graph=True), iters=5)
     del o, qg, kg, vg, amask
     pairs = causal_pairs(mask, H)
     delta = fa._delta(out, do)
@@ -1153,13 +1180,18 @@ def phase_flash_bwd_fused(fa, g) -> dict:
           f"example 1 fully masked): max|err|/rel L2 {', '.join(errs)}, two "
           f"runs bit-equal; kernel #8 {ms:.4f} / {ms2:.4f} ms "
           f"({10 * pairs * D / ms / 1e9:.1f} TFLOP/s), #6 + #7 {pair_ms:.4f} "
-          f"ms, plain twin {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms, "
-          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+          f"ms, plain twin {plain_ms:.4f} ms, sdpa backward {lib_ms:.4f} ms "
+          f"(CUDA events); device time: kernel {dev_k:.4f} / {dev_k2:.4f} ms "
+          f"({10 * pairs * D / dev_k / 1e9:.1f} TFLOP/s), the whole call "
+          f"{dev_all:.4f} ms, #6 + #7's call {dev_pair:.4f} ms, sdpa backward "
+          f"{dev_lib:.4f} ms; bound {bd['bound_ms']:.4f} ms ({bd['bound_by']})")
     return {"name": "flash_bwd_fused", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/flash_bwd_fused.cu",
             "replaces": "unilm_tpu/ops/flash_attention.py:1520",
             "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, **bd, "flash_bwd_pair_ms": pair_ms,
+            "device_ms": dev_k, "call_device_ms": dev_all,
+            "pair_device_ms": dev_pair, "library_device_ms": dev_lib,
             "shape": f"{B}x{T}x{H}x{D} causal+kpm bf16 (ms with delta and "
             "the dq cast; flash_bwd_pair_ms: #6 + #7 on the same inputs)"}
 
@@ -1439,12 +1471,21 @@ def doc_desc(dtype, case):
             f"mask={masked}" + ("" if scale is None else f" scale={scale}"))
 
 
+# #9's bf16 tile edges: 64-row consumers, 128-row blocks, 64-key tiles
+DOC_EDGES = (63, 64, 65, 127, 128, 129)
+
+
 def phase_doc_attn(da, g) -> dict:
     """Kernel #9 against doc_attention_plain on the same inputs, bf16
-    (relative L2 <= 1e-2) and fp32 (<= 1e-4) over DOC_CASES, then timed at
+    (relative L2 <= 1e-2) and fp32 (<= 1e-4) over DOC_CASES, the FUNSD
+    shape twice bit-equal; bf16 also at the tiles' edges (T and S in
+    DOC_EDGES, D cycling over 64, 96 and 128, a head-major bias, a mask
+    with one example wholly masked), each twice bit-equal. Then timed at
     the FUNSD shape (bf16, head-major bias, mask) beside the plain version
     and torch's SDPA with a float attn_mask (the bias plus -inf at masked
-    keys)."""
+    keys), CUDA events and device time, and as device time at the
+    Pix2Struct tower's 1x1024x24x64 (mask, scale 1.0) beside SDPA with a
+    boolean mask."""
     worst = {torch.bfloat16: 0.0, torch.float32: 0.0}
     worst_abs = 0.0
     for dtype, tol in ((torch.bfloat16, 1e-2), (torch.float32, 1e-4)):
@@ -1461,6 +1502,10 @@ def phase_doc_attn(da, g) -> dict:
             e = rel_l2(out, ref)
             check(bool(torch.isfinite(out.float()).all()) and e <= tol,
                   f"doc_attn {doc_desc(dtype, case)}: rel L2 {e} (bound {tol})")
+            if B == DOC_B:
+                check(torch.equal(out, da.doc_attention(q, k, v, b, mask,
+                                                        scale)),
+                      "doc_attn: two runs at the FUNSD shape differ")
             worst[dtype] = max(worst[dtype], e)
             if dtype == torch.bfloat16:
                 worst_abs = max(worst_abs, float((out.float() - ref.float())
@@ -1468,35 +1513,87 @@ def phase_doc_attn(da, g) -> dict:
             n += 1
             del q, k, v, b, mask, out, ref
         phase("doc_attn", f"{str(dtype)[6:]}: {n} cases, worst rel L2 "
-              f"{worst[dtype]:.3g} (bound {tol}) ok")
+              f"{worst[dtype]:.3g} (bound {tol}) ok"
+              + ("; FUNSD bit-equal across two runs"
+                 if dtype == torch.bfloat16 else ""))
+    edge = 0.0
+    for T in DOC_EDGES:
+        for S in DOC_EDGES:
+            D = (64, 96, 128)[(T + S) % 3]
+            case = (2, T, S, 3, D, "hm", True, None)
+            q, k, v, _, b, mask = doc_inputs(da, g, torch.bfloat16, *case[:7])
+            out = da.doc_attention(q, k, v, b, mask)
+            again = da.doc_attention(q, k, v, b, mask)
+            ref = da.doc_attention_plain(q, k, v, b, mask)
+            torch.cuda.synchronize()
+            e = rel_l2(out, ref)
+            check(bool(torch.isfinite(out.float()).all()) and e <= 1e-2
+                  and torch.equal(out, again),
+                  f"doc_attn edge {doc_desc(torch.bfloat16, case)}: rel L2 "
+                  f"{e} (bound 1e-2), bit-equal {torch.equal(out, again)}")
+            edge = max(edge, e)
+            worst_abs = max(worst_abs, float((out.float() - ref.float())
+                                             .abs().max()))
+    worst[torch.bfloat16] = max(worst[torch.bfloat16], edge)
+    phase("doc_attn", f"bf16 tile edges: T, S in {DOC_EDGES}, D 64/96/128, "
+          f"head-major bias, mask: {len(DOC_EDGES) ** 2} cases, worst rel L2 "
+          f"{edge:.3g} (bound 1e-2), each bit-equal twice")
 
     B, T, H, D = DOC_B, DOC_T, DOC_H, DOC_D
     q, k, v, _, b, mask = doc_inputs(da, g, torch.bfloat16, B, T, T, H, D,
                                      "hm", True)
     mask[-1] = True  # every example with keys, as in the model
     am = doc_sdpa_mask(da, b, mask)
+    kern = lambda: da.doc_attention(q, k, v, b, mask)
+    lib = lambda: sdpa(q, k, v, attn_mask=am)
     times = {}
     for _ in range(2):
         for name, fn in (
-                ("kernel", lambda: da.doc_attention(q, k, v, b, mask)),
+                ("kernel", kern),
                 ("plain", lambda: da.doc_attention_plain(q, k, v, b, mask))):
             times[name] = cuda_ms(fn, iters=10)
-    lib_ms = cuda_ms(lambda: sdpa(q, k, v, attn_mask=am), iters=10)
-    out = da.doc_attention(q, k, v, b, mask)
+    lib_ms = cuda_ms(lib, iters=10)
+    dev = {"kernel": device_ms(kern, only="doc_fwd"), "sdpa": device_ms(lib)}
+    dev["kernel2"] = device_ms(kern, only="doc_fwd")
+    out = kern()
     flops = 4 * B * H * T * T * D
     bd = roofline(nbytes(q, k, v, out, b.hbts, mask), flops)
     phase("doc_attn", f"FUNSD {B}x{T}x{H}x{D} bf16, head-major bias "
           f"[{H},{B},{T},{T}], mask: kernel {times['kernel']:.4f} ms "
           f"({flops / times['kernel'] / 1e9:.1f} TFLOP/s), plain "
-          f"{times['plain']:.4f} ms, sdpa {lib_ms:.4f} ms, bound "
-          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})")
+          f"{times['plain']:.4f} ms, sdpa {lib_ms:.4f} ms (CUDA events); "
+          f"device time kernel {dev['kernel']:.4f} / {dev['kernel2']:.4f} "
+          f"ms, sdpa {dev['sdpa']:.4f} ms; bound {bd['bound_ms']:.4f} ms "
+          f"({bd['bound_by']})")
+    del q, k, v, b, mask, am, out
+
+    # the Pix2Struct tower at 1024 patch slots: no bias, a mask, scale 1.0
+    B, T, H, D = 1, TOWER_SLOTS, 24, 64
+    q, k, v, _, _, mask = doc_inputs(da, g, torch.bfloat16, B, T, T, H, D,
+                                     None, True)
+    bm = mask[:, None, None, :]
+    tower = {"kernel": device_ms(lambda: da.doc_attention(q, k, v, None, mask,
+                                                          1.0),
+                                 only="doc_fwd"),
+             "sdpa": device_ms(lambda: sdpa(q, k, v, attn_mask=bm,
+                                            scale=1.0))}
+    tbd = roofline(nbytes(q, k, v, q, mask), 4 * B * H * T * T * D)
+    phase("doc_attn", f"tower {B}x{T}x{H}x{D} bf16, mask, scale 1.0: device "
+          f"time kernel {tower['kernel']:.4f} ms, sdpa (bool mask) "
+          f"{tower['sdpa']:.4f} ms, bound {tbd['bound_ms']:.4f} ms "
+          f"({tbd['bound_by']})")
     return {"name": "doc_attention", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/doc_attention.cu",
             "replaces": "unilm_tpu/ops/doc_attention.py:69",
             "max_abs_err": worst_abs, "rel_l2_bf16": worst[torch.bfloat16],
             "rel_l2_fp32": worst[torch.float32], "ms": times["kernel"],
             "plain_ms": times["plain"], "library_ms": lib_ms, **bd,
-            "shape": f"{B}x{T}x{H}x{D} bf16 bias [{H},{B},{T},{T}] + mask"}
+            "device_ms": dev["kernel"], "library_device_ms": dev["sdpa"],
+            "tower_device_ms": tower["kernel"],
+            "tower_library_device_ms": tower["sdpa"],
+            "shape": f"{DOC_B}x{DOC_T}x{DOC_H}x{DOC_D} bf16 bias "
+            f"[{DOC_H},{DOC_B},{DOC_T},{DOC_T}] + mask (ms: CUDA events; "
+            f"tower: 1x{TOWER_SLOTS}x24x64, mask, scale 1.0)"}
 
 
 def phase_doc_bwd(da, g) -> dict:
@@ -2941,6 +3038,24 @@ def phase_ttft(fa) -> dict:
           f"plain path max|err| {e1k:.4f} (tol {TTFT_FEAT_ATOL})")
     check(bool(torch.isfinite(f1k.float()).all()) and e1k <= TTFT_FEAT_ATOL,
           "ttft: 1024-slot features vs the plain path")
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        model.encode_image(p1k)
+        torch.cuda.synchronize()
+    tshares = device_time_shares(prof, [
+        ("#9 tower", ["doc_fwd"]), ("#1 resampler", ["flash_fwd"]),
+        ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas", "splitK"])])
+    ttotal = sum(tshares.values())
+    if ttotal > 0:
+        phase("ttft", f"encode_image at {TOWER_SLOTS} slots: device time "
+              f"{ttotal:.3f} ms: " + ", ".join(
+                  f"{k} {v:.3f} ms ({100 * v / ttotal:.1f}%)"
+                  for k, v in tshares.items()))
+    else:
+        phase("ttft", f"encode_image at {TOWER_SLOTS} slots: the profiler saw "
+              "no device time: shares not measured")
 
     # ---- TTFT, kernel and plain paths in turn ---------------------------
     def timed(m):
@@ -4135,7 +4250,7 @@ def phase_train_schedules(fa, tr, batch, args, flops: float) -> dict:
               f"TFLOP/s bf16 dense; peak memory {peak / 2**30:.1f} GiB")
 
         groups = [("flash_tri #2", ["flash_tri_sm90", "flash_tri_fp32"]),
-                  ("flash_bwd_fused #8", ["flash_bwd_fused_tc_kernel",
+                  ("flash_bwd_fused #8", ["flash_bwd_fused_sm90",
                                           "dq_cast_kernel"]),
                   ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
                               "splitK"])]

@@ -16,43 +16,57 @@
 // The TPU kernel walks a (B, H, nq, nk) grid in order on one core and keeps
 // dk and dv for a whole (batch, head) resident in VMEM; it needs no
 // ordering for dq because dq[i] accumulates across the inner j loop. On the
-// H100 blocks run in parallel. Schedule taken here: one block per (64-key
-// tile j, head, batch) keeps dk_j and dv_j in fp32 registers and walks the
-// visible query rows of j in steps, and for each step recomputes s and p,
-// adds p^T dO to dv, computes dp and ds, adds ds^T q to dk and forms its
-// part ds k_j of dq: five products per tile pair against the split pair's
+// H100 blocks run in parallel. Schedule taken here: one block per key block
+// j of one (batch, head) keeps dk_j and dv_j in fp32 registers and walks
+// the 64-row q tiles that see j, and for each recomputes s and p, adds
+// p^T dO to dv, computes dp and ds, adds ds^T q to dk and forms its part
+// ds k_j of dq: five products per tile pair against the split pair's
 // seven, and one pass over q, k, v and dO where the split pair makes two.
 //
-// dq: several key tiles add into one dq row tile. They add into an fp32
+// dq: several key blocks add into one dq row tile. They add into an fp32
 // accumulator [B, T, H, D], zeroed here per call, in a fixed order: the
-// block of key tile j adds its part to a row step after the blocks of key
-// tiles j+1 .. end-1 (every later key tile that sees the step) have added
-// theirs, counted by one turn counter per (batch, head, row step)
-// (flash_common.cuh: acquire / release, L2 loads and stores, no float
-// atomics). The key tile runs on blockIdx.x reversed, so a block waits only
-// on blocks of lower linear index, dispatched before it: no deadlock.
-// Descending j is the order in which causal blocks reach a row step when
-// each walks its steps upward (key tile j reaches row tile i at its step
-// i - j, key tile j+1 one step earlier), so the turns rarely stall on the
-// causal path. A bf16 call ends with a second kernel that casts the
-// accumulator to dq; an fp32 call accumulates in dq itself. Two runs on the
-// same inputs give the same bits.
+// block of key block j adds its part to a row tile after the blocks of key
+// blocks j+1 .. end-1 (every later key block that sees the tile) have added
+// theirs, counted by one turn counter per (batch, head, row tile) (acquire
+// loads, a release add; no float atomics). Key blocks run on the grid
+// reversed, so a block waits only on blocks of lower linear index,
+// dispatched before it: no deadlock. Descending j is the order in which
+// causal blocks reach a row tile when each walks its tiles upward, so the
+// turns rarely stall on the causal path. A bf16 call ends with a second
+// kernel that casts the accumulator to dq; an fp32 call accumulates in dq
+// itself. Two runs on the same inputs give the same bits.
 //
 // What bounds it on the H100: at the train shape (B=2, T=S=2048, H=32,
 // D=64, causal, bf16) the five products are 5 * B * H * T^2 * D / 2 =
 // 8.6e10 operations over the lower triangle, 0.087 ms at 989 TFLOP/s,
 // against 118 MB of q, k, v, dO, lse, delta in and dq, dk, dv out, 0.035
-// ms at 3.35 TB/s: bound by the tensor cores. Measured there (H100 80GB
-// HBM3, 700 W, chip_smoke.py's flash_bwd_fused phase): 1.23 ms with delta
-// and the dq cast, against 6.38 ms for #6 + #7.
-//  - bf16 (namespace tc): every product on the tensor cores (mma.sync
-//    m16n8k16, fp32 accumulators, mma_common.cuh's fragments), 4 warps of
-//    16 keys; a step is 64 query rows (32 at D = 128, for registers), its q
-//    and dO tiles double-buffered by cp.async. p and ds leave the
-//    accumulators as bf16 A operands of p^T dO and ds^T q (so p is rounded
-//    to bf16 for p^T dO, as the TPU's default-precision matmul of an fp32 p
-//    rounds it); ds goes through shared memory, row-major, for ds k, which
-//    each warp computes for a quarter of the step's dq tile.
+// ms at 3.35 TB/s: bound by the tensor cores.
+//  - bf16 (namespace hop, `flash_bwd_fused_sm90`): #7's dk/dv block
+//    (csrc/flash_bwd.cu `flash_bwd_dkv_sm90`) with the fifth product. A
+//    block takes 128 keys at D = 64 (two consumer warpgroups of 64 keys,
+//    setmaxnreg 232), 64 keys and one consumer at D = 96 and 128; K and V
+//    stay resident. Producer warp 0 streams 64-row Q/dO tiles by a TMA
+//    ring with each tile's lse and delta by 4-byte cp.async (the walk of
+//    flash_common.cuh `q_walk`, `tile_interior` for the predicate-free
+//    body). A consumer takes S^T = K Q^T and dP^T = V dO^T (SS wgmma),
+//    dV += P^T dO and dK += dS^T Q (RS wgmma, p and ds as bf16 A
+//    operands), and writes its bf16 dS^T fragments into a shared [keys,
+//    64 rows] tile with the 128-byte swizzle. Then one consumer (the two
+//    alternate steps at D = 64) takes dQ_step [64 rows, D] = dS K_block as
+//    one SS wgmma chain with both operands read through the transpose
+//    bits, writes the fp32 tile to shared memory (D / 32 swizzled boxes)
+//    and hands it to a writer warp of the producer warpgroup (warps 1 and
+//    2, alternate tiles): it waits for the row tile's turn, adds the tile
+//    into the accumulator with one bulk reduce-add (cp.reduce.async.bulk
+//    .tensor, performed in L2, rows past T left out), waits for the write
+//    to complete and passes the turn. The consumers never wait on a turn
+//    themselves unless every dq tile buffer is in flight. The walk and the
+//    turn order are ops/flash_attention.py's `fused_bwd_plan`
+//    (tests/test_torch_fused_bwd_plan.py). The earlier design (mma.sync, a
+//    block per 64 keys, ds k through shared memory per warp, the dq turns
+//    taken by the whole block with L2 loads and stores) took 1.2421 ms at
+//    the train shape with delta and the dq cast (chip_smoke.py's
+//    flash_bwd_fused phase, H100 80GB HBM3, 700 W).
 //  - fp32: #7's CUDA-core dk/dv body (csrc/flash_bwd.cuh) with FUSED set:
 //    the same block adds ds k from its shared-memory ds plane into dq, in
 //    turn; exact fp32 products.
@@ -60,224 +74,397 @@
 #include <cmath>
 
 #include "flash_bwd.cuh"
-#include "mma_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
+namespace hop {
+
+constexpr int ROWS = 64;  // q rows per step (the dq product's M), keys per consumer
+constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;  // 384-thread blocks
 constexpr float LOG2E = 1.4426950408889634f;
 
-namespace tc {
+using sm90::afrag;
 
-constexpr int NW = 4;          // warps per block
-constexpr int NT = NW * 32;
-constexpr int PAD = 8;         // bf16 elements of padding per tile row
-static_assert(BK == NW * 16, "a warp owns 16 keys");
+// the geometry `fused_bwd_plan` mirrors
+template <int D> struct FusedGeo : sm90::Cols<D> {
+    static constexpr int NCW = D == 64 ? 2 : 1;    // consumer warpgroups of 64 keys
+    static constexpr int BKB = ROWS * NCW;          // keys per block
+    static constexpr int BQ = ROWS;                 // q rows per step
+    static constexpr int THREADS = 128 * (1 + NCW);
+    static constexpr int NST = D == 128 ? 3 : 4;    // stages of the Q/dO ring
+    static constexpr int NDQ = D == 64 ? 4 : 2;     // dq tile buffers
+    static constexpr int NWR = 2;                   // writer warps (producer warps 1, 2)
+    static constexpr int KV_BYTES = BKB * D * 2;    // K, then V: a [64, D] tile per consumer
+    static constexpr int Q_BYTES = BQ * D * 2;      // one Q or one dO tile
+    static constexpr int DS_BYTES = BKB * BQ * 2;   // dS^T [keys, rows] bf16
+    static constexpr int DQ_BYTES = BQ * D * 4;     // fp32 [rows, D] as D / 32 boxes
+    static constexpr int OFF_Q = 2 * KV_BYTES;      // stage s: Q, then dO
+    static constexpr int OFF_DS = OFF_Q + NST * 2 * Q_BYTES;  // [2] dS^T tiles
+    static constexpr int OFF_DQ = OFF_DS + 2 * DS_BYTES;      // [NDQ] dq tiles
+    static constexpr int OFF_LD = OFF_DQ + NDQ * DQ_BYTES;    // [NST][2][BQ]: lse, delta
+    // kv_full, full[NST], empty[NST], ds_full[2], ds_empty[2], dq_full[NDQ],
+    // dq_empty[NDQ]
+    static constexpr int OFF_BAR = OFF_LD + NST * 2 * BQ * 4;
+    static constexpr int NBAR = 1 + 2 * NST + 4 + 2 * NDQ;
+    static constexpr int SMEM = OFF_BAR + NBAR * 8 + 1024;  // + alignment slack
+    static_assert(Q_BYTES % 1024 == 0 && KV_BYTES % 1024 == 0 && DS_BYTES % 1024 == 0 &&
+                      DQ_BYTES % 1024 == 0,
+                  "swizzle atoms aligned");
+    static_assert(SMEM <= 232448, "shared memory");
+};
 
-// query rows per step: 64, or 32 at D = 128 (dk and dv take 128 registers)
-template <int D> __host__ __device__ constexpr int rows_per_step() { return D <= 96 ? 64 : 32; }
+template <int D> struct Bars {
+    using G = FusedGeo<D>;
+    uint64_t *kv_full, *full, *empty, *ds_full, *ds_empty, *dq_full, *dq_empty;
+    __device__ explicit Bars(uint8_t* smem) {
+        uint64_t* b = reinterpret_cast<uint64_t*>(smem + G::OFF_BAR);
+        kv_full = b;
+        full = b + 1;
+        empty = full + G::NST;
+        ds_full = empty + G::NST;
+        ds_empty = ds_full + 2;
+        dq_full = ds_empty + 2;
+        dq_empty = dq_full + G::NDQ;
+    }
+};
 
-template <int D> constexpr size_t smem_bytes() {
-    constexpr int R = rows_per_step<D>();
-    return (size_t)(2 * BK + 4 * R) * (D + PAD) * sizeof(bf16)  // K, V, 2 x {q, dO}
-           + (size_t)R * (BK + PAD) * sizeof(bf16)               // ds [R][BK]
-           + (size_t)2 * 2 * R * sizeof(float);                  // 2 x {lse, delta}
+// A block's (batch, head) and key block j: the key blocks run on the grid
+// reversed, the highest first, so that the blocks a turn waits on have
+// lower linear indices
+struct Block {
+    int b, h, j;
+};
+template <int D> __device__ __forceinline__ Block block_of(const Params& p) {
+    const int BH = p.B * p.H, nkb = (p.S + FusedGeo<D>::BKB - 1) / FusedGeo<D>::BKB;
+    const int bh = blockIdx.x % BH;
+    return {bh / p.H, bh % p.H, nkb - 1 - (int)blockIdx.x / BH};
+}
+
+// the q tiles [ib, ie) of the block's walk
+template <int D> __device__ __forceinline__ void block_walk(const Params& p, int c0, int& ib, int& ie) {
+    using G = FusedGeo<D>;
+    q_walk<G::BQ>(c0, c0 + G::BKB - 1, p.T, p.q_offset, p.limit, p.causal, p.window, ib, ie);
 }
 
 template <int D>
-__global__ void __launch_bounds__(NT) flash_bwd_fused_tc_kernel(const Params p) {
-    constexpr int R = rows_per_step<D>();
-    constexpr int LD = D + PAD, LDS = BK + PAD;
-    constexpr int NJ = R / 8, ND = D / 8, KD = D / 16;
-    constexpr int RB = R / 16;          // 16-row blocks of a step
-    constexpr int CW = D * RB / NW;     // dq columns per warp
-    extern __shared__ float4 smem4[];
-    bf16* Ks = reinterpret_cast<bf16*>(smem4);  // [BK][LD]
-    bf16* Vs = Ks + BK * LD;                    // [BK][LD]
-    bf16* QO = Vs + BK * LD;                    // 2 x {q [R][LD], dO [R][LD]}
-    bf16* Ds = QO + 4 * R * LD;                 // [R][LDS] ds, rounded
-    float* LDl = reinterpret_cast<float*>(Ds + R * LDS);  // 2 x {lse * log2(e) [R], delta [R]}
-
-    const bf16* q = static_cast<const bf16*>(p.q);
-    const bf16* k = static_cast<const bf16*>(p.k);
-    const bf16* v = static_cast<const bf16*>(p.v);
-    const bf16* dout = static_cast<const bf16*>(p.dout);
-
-    const int b = blockIdx.z, h = blockIdx.y;
-    const int j = gridDim.x - 1 - blockIdx.x;  // key tile: see the top of the file
-    const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-    const int g = lane >> 2, tq = lane & 3;
-    const int c0 = j * BK;
-    const int T_ = p.T, S = p.S, H = p.H;
-    const size_t HD = (size_t)H * D;
-    const int wk = warp * 16;  // this warp's first local key
-    // the thread's two keys and whether they may be seen at all
-    const int key[2] = {c0 + wk + g, c0 + wk + g + 8};
-    const int* mask_b = p.mask ? p.mask + (size_t)b * S : nullptr;
-    bool kok[2];
+__device__ __forceinline__ void loader(const CUtensorMap* tq, const CUtensorMap* tdo,
+                                       const CUtensorMap* tk, const CUtensorMap* tv,
+                                       const Params& p, uint8_t* smem, const Block& blk) {
+    using G = FusedGeo<D>;
+    Bars<D> bars(smem);
+    float* lds = reinterpret_cast<float*>(smem + G::OFF_LD);
+    const int lane = threadIdx.x & 31, b = blk.b, h = blk.h, c0 = blk.j * G::BKB;
+    if (lane == 0) {
+        sm90::prefetch_tensormap(tq);
+        sm90::prefetch_tensormap(tdo);
+        sm90::prefetch_tensormap(tk);
+        sm90::prefetch_tensormap(tv);
+        sm90::mbar_arrive_expect_tx(bars.kv_full, 2 * G::KV_BYTES);
 #pragma unroll
-    for (int r = 0; r < 2; ++r)
-        kok[r] = key[r] < p.limit && (!mask_b || mask_b[key[r]] != 0);
-
-    // the row steps that see this key tile: a contiguous range
-    const int nsteps = (T_ + R - 1) / R;
-    int it_lo = nsteps, it_hi = 0;
-    for (int it = 0; it < nsteps; ++it)
-        if (tile_visible(it * R, R, c0, BK, p.q_offset, p.limit, p.causal, p.window)) {
-            it_lo = min(it_lo, it);
-            it_hi = it + 1;
-        }
-
-    const size_t koff = ((size_t)b * S + c0) * HD + (size_t)h * D;
-    const size_t qbase = (size_t)b * T_ * HD + (size_t)h * D;
-    stage_async<D, NT>(Ks, LD, k + koff, HD, BK, S - c0, tid);
-    stage_async<D, NT>(Vs, LD, v + koff, HD, BK, S - c0, tid);
-    if (it_lo < it_hi) {
-        const int t0 = it_lo * R;
-        stage_async<D, NT>(QO, LD, q + qbase + (size_t)t0 * HD, HD, R, T_ - t0, tid);
-        stage_async<D, NT>(QO + R * LD, LD, dout + qbase + (size_t)t0 * HD, HD, R, T_ - t0, tid);
+        for (int cw = 0; cw < G::NCW; ++cw)
+#pragma unroll
+            for (int c = 0; c < G::NC; ++c) {
+                uint8_t* kt = smem + cw * ROWS * D * 2 + c * ROWS * G::CB;
+                sm90::tma_load_4d(kt, tk, bars.kv_full, c * G::CW, h, c0 + cw * ROWS, b);
+                sm90::tma_load_4d(kt + G::KV_BYTES, tv, bars.kv_full, c * G::CW, h,
+                                  c0 + cw * ROWS, b);
+            }
     }
-    cp_commit();
-
-    float dk[ND][4], dv[ND][4];
-#pragma unroll
-    for (int n = 0; n < ND; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
-
-    for (int it = it_lo; it < it_hi; ++it) {
-        const int t0 = it * R;
-        const int par = (it - it_lo) & 1;
-        if (it + 1 < it_hi) {  // prefetch the next step's q / dO
-            const int tn = t0 + R;
-            bf16* nb = QO + (par ^ 1) * 2 * R * LD;
-            stage_async<D, NT>(nb, LD, q + qbase + (size_t)tn * HD, HD, R, T_ - tn, tid);
-            stage_async<D, NT>(nb + R * LD, LD, dout + qbase + (size_t)tn * HD, HD, R, T_ - tn,
-                               tid);
-            cp_commit();
+    int ib, ie;
+    block_walk<D>(p, c0, ib, ie);
+    const size_t rbase = ((size_t)b * p.H + h) * p.T;
+    for (int i = ib, n = 0; i < ie; ++i, ++n) {
+        const int s = n % G::NST;
+        if (n >= G::NST) sm90::mbar_wait(&bars.empty[s], (n / G::NST - 1) & 1);
+        // the tile's lse and delta by 4-byte cp.async (zeros past T): a
+        // plain load here would hold the ring to one memory latency a step
+        float* ld = lds + s * 2 * G::BQ;
+        for (int r = lane; r < G::BQ; r += 32) {
+            const int tr = i * G::BQ + r;
+            const bool in = tr < p.T;
+            sm90::cp4(ld + r, in ? p.lse + rbase + tr : p.lse, in ? 4 : 0);
+            sm90::cp4(ld + G::BQ + r, in ? p.delta + rbase + tr : p.delta, in ? 4 : 0);
         }
-        float* Ls = LDl + par * 2 * R;  // lse * log2(e)
-        float* Dl = Ls + R;             // delta
-        for (int t = tid; t < R; t += NT) {
-            const bool live = t0 + t < T_;
-            const size_t ri = ((size_t)b * H + h) * T_ + t0 + t;
-            Ls[t] = live ? p.lse[ri] * LOG2E : 0.f;
-            Dl[t] = live ? p.delta[ri] : 0.f;
-        }
-        if (it + 1 < it_hi)
-            cp_wait<1>();
-        else
-            cp_wait<0>();
-        __syncthreads();
-        const bf16* Qs = QO + par * 2 * R * LD;
-        const bf16* Os = Qs + R * LD;
-
-        // s^T = k q^T and dp^T = v dO^T for this warp's 16 keys
-        float s[NJ][4], dp[NJ][4];
+        sm90::cp_async_arrive(&bars.full[s]);  // every lane, once its copies land
+        if (lane == 0) {
+            sm90::mbar_arrive_expect_tx(&bars.full[s], 2 * G::Q_BYTES);
+            uint8_t* qst = smem + G::OFF_Q + 2 * s * G::Q_BYTES;
 #pragma unroll
-        for (int n = 0; n < NJ; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < KD; ++kk) {
-            uint32_t ak[4], av[4];
-            load_a(ak, Ks, LD, wk, kk * 16, g, tq);
-            load_a(av, Vs, LD, wk, kk * 16, g, tq);
-#pragma unroll
-            for (int n = 0; n < NJ; ++n) {
-                const bf16* qr = Qs + (n * 8 + g) * LD + kk * 16 + 2 * tq;
-                const bf16* orow = Os + (n * 8 + g) * LD + kk * 16 + 2 * tq;
-                mma(s[n], ak, ld32(qr), ld32(qr + 8));
-                mma(dp[n], av, ld32(orow), ld32(orow + 8));
+            for (int c = 0; c < G::NC; ++c) {
+                sm90::tma_load_4d(qst + c * G::BQ * G::CB, tq, &bars.full[s], c * G::CW, h,
+                                  i * G::BQ, b);
+                sm90::tma_load_4d(qst + G::Q_BYTES + c * G::BQ * G::CB, tdo, &bars.full[s],
+                                  c * G::CW, h, i * G::BQ, b);
             }
         }
-
-        // p^T (in s) and ds^T (in dp), zero where not visible; ds rounded to
-        // bf16 into the row-major ds tile for ds k
-#pragma unroll
-        for (int n = 0; n < NJ; ++n)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int tt = n * 8 + 2 * tq + (e & 1), r = e >> 1;
-                const int row = p.q_offset + t0 + tt, col = key[r];
-                const bool ok = kok[r] && t0 + tt < T_ && (!p.causal || col <= row) &&
-                                (p.window <= 0 || row - col < p.window);
-                const float pr = ok ? exp2f(fmaf(s[n][e], LOG2E, -Ls[tt])) : 0.f;
-                const float ds = pr * (dp[n][e] - Dl[tt]);
-                s[n][e] = pr;
-                dp[n][e] = ds;
-                Ds[tt * LDS + wk + g + 8 * r] = __float2bfloat16(ds);
-            }
-        // dv += p^T dO, dk += ds^T q
-#pragma unroll
-        for (int kk = 0; kk < R / 16; ++kk) {
-            uint32_t ap[4], ad[4];
-            acc_to_a(ap, s[2 * kk], s[2 * kk + 1]);
-            acc_to_a(ad, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-            for (int n = 0; n < ND; n += 2) {
-                uint32_t bo[4], bq[4];
-                load_bt(bo, Os, LD, kk * 16, n * 8, lane);
-                load_bt(bq, Qs, LD, kk * 16, n * 8, lane);
-                mma(dv[n], ap, bo[0], bo[1]);
-                mma(dv[n + 1], ap, bo[2], bo[3]);
-                mma(dk[n], ad, bq[0], bq[1]);
-                mma(dk[n + 1], ad, bq[2], bq[3]);
-            }
-        }
-        __syncthreads();  // the ds tile is complete
-
-        // this block's part of dq for the step: ds [R x BK] k [BK x D]; warp
-        // w the rows (w % RB) * 16 .., the columns (w / RB) * CW ..
-        const int rw = (warp % RB) * 16, cw = (warp / RB) * CW;
-        float acc[CW / 8][4];
-#pragma unroll
-        for (int n = 0; n < CW / 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < BK / 16; ++kk) {
-            uint32_t a[4];
-            load_a(a, Ds, LDS, rw, kk * 16, g, tq);
-#pragma unroll
-            for (int n = 0; n < CW / 8; n += 2) {
-                uint32_t bk[4];
-                load_bt(bk, Ks, LD, kk * 16, cw + n * 8, lane);
-                mma(acc[n], a, bk[0], bk[1]);
-                mma(acc[n + 1], a, bk[2], bk[3]);
-            }
-        }
-        int* turn = p.turns + ((size_t)b * H + h) * nsteps + it;
-        wait_turn(turn, key_tiles_end(t0, R, BK, p.q_offset, p.limit, p.causal) - 1 - j);
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            const int t = t0 + rw + g + 8 * r;
-            if (t >= T_) continue;
-            float* dst = static_cast<float*>(p.dq) + ((size_t)b * T_ + t) * HD + (size_t)h * D +
-                         cw + 2 * tq;
-#pragma unroll
-            for (int n = 0; n < CW / 8; ++n) {
-                float2* d2 = reinterpret_cast<float2*>(dst + n * 8);
-                float2 x = __ldcg(d2);
-                x.x += acc[n][2 * r];
-                x.y += acc[n][2 * r + 1];
-                __stcg(d2, x);
-            }
-        }
-        pass_turn(turn);  // its barrier also frees this step's buffers
     }
-    cp_wait<0>();
+}
+
+// Lane 0 of writer warp `wr` (0 .. NWR - 1): the dq tiles of steps wr,
+// wr + NWR, ..., each added into the accumulator in its row tile's turn.
+template <int D>
+__device__ __forceinline__ void writer(const CUtensorMap* tdq, const Params& p, uint8_t* smem,
+                                       const Block& blk, int wr) {
+    using G = FusedGeo<D>;
+    Bars<D> bars(smem);
+    if (wr == 0) sm90::prefetch_tensormap(tdq);
+    int ib, ie;
+    block_walk<D>(p, blk.j * G::BKB, ib, ie);
+    const int nrt = (p.T + G::BQ - 1) / G::BQ;
+    int* turns = p.turns + ((size_t)blk.b * p.H + blk.h) * nrt;
+    for (int n = wr; ib + n < ie; n += G::NWR) {
+        const int i = ib + n, buf = n % G::NDQ;
+        const int lo = p.q_offset + i * G::BQ, hi = p.q_offset + min(p.T, (i + 1) * G::BQ) - 1;
+        int jb, je;
+        key_walk<G::BKB>(lo, hi, p.limit, p.causal, p.window, jb, je);
+        sm90::mbar_wait(&bars.dq_full[buf], (n / G::NDQ) & 1);
+        // the turn: every later key block of the row tile has added its part
+        const int target = je - 1 - blk.j;
+        if (ld_acquire(turns + i) < target) {
+            const unsigned long long t0 = globaltimer_ns();
+            while (ld_acquire(turns + i) < target)
+                if (globaltimer_ns() - t0 > 10000000000ull) __trap();
+        }
+        sm90::fence_proxy_async_global();
+        const uint8_t* tile = smem + G::OFF_DQ + buf * G::DQ_BYTES;
+#pragma unroll
+        for (int c = 0; c < D / 32; ++c)
+            sm90::tma_reduce_add_4d(tdq, tile + c * G::BQ * 128, 32 * c, blk.h, i * G::BQ, blk.b);
+        sm90::bulk_commit();
+        sm90::bulk_wait_all();  // the adds performed, not only the tile read
+        sm90::fence_proxy_async_global();
+        __threadfence();
+        asm volatile("red.release.gpu.global.add.s32 [%0], %1;\n" ::"l"(turns + i), "r"(1)
+                     : "memory");
+        sm90::mbar_arrive(&bars.dq_empty[buf]);
+    }
+}
+
+template <int D>
+__device__ __forceinline__ void consumer(const Params& p, uint8_t* smem, int cw,
+                                         const Block& blk) {
+    using G = FusedGeo<D>;
+    constexpr int BQ = G::BQ;
+    Bars<D> bars(smem);
+    const float* lds = reinterpret_cast<const float*>(smem + G::OFF_LD);
+
+    const int t = threadIdx.x & 127, w = t >> 5, lane = t & 31;
+    const int quad = lane & 3, r8 = lane >> 2;
+    const int b = blk.b, h = blk.h, kc0 = blk.j * G::BKB;
+    const int c0 = kc0 + cw * ROWS;  // this consumer's first key
+    int ib, ie, cib, cie;
+    block_walk<D>(p, kc0, ib, ie);
+    q_walk<BQ>(c0, c0 + ROWS - 1, p.T, p.q_offset, p.limit, p.causal, p.window, cib, cie);
+
+    const uint32_t kv_base = smem_addr(smem);
+    const uint32_t k_base = kv_base + cw * ROWS * D * 2;
+    const uint32_t v_base = k_base + G::KV_BYTES;
+    const uint32_t ds0 = smem_addr(smem + G::OFF_DS);
+    const int kc[2] = {c0 + 16 * w + r8, c0 + 16 * w + r8 + 8};  // this thread's keys
+    bool key_ok[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+        key_ok[hh] = kc[hh] < p.limit &&
+                     (!p.mask || __ldg(p.mask + (size_t)b * p.S + kc[hh]) != 0);
+
+    float dk[D / 2], dv[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+    sm90::mbar_wait(bars.kv_full, 0);
+    for (int i = ib, n = 0; i < ie; ++i, ++n) {
+        const int s = n % G::NST, sb = n & 1;
+        sm90::mbar_wait(&bars.full[s], (n / G::NST) & 1);
+        const bool vis = i >= cib && i < cie;
+        const int t0 = i * BQ;
+        const uint32_t q_st = smem_addr(smem + G::OFF_Q + 2 * s * G::Q_BYTES);
+        const uint32_t do_st = q_st + G::Q_BYTES;
+        uint32_t pa[16], da[16];
+#pragma unroll
+        for (int x = 0; x < 16; ++x) pa[x] = da[x] = 0u;
+        if (vis) {
+            const float* ld = lds + s * 2 * BQ;
+            // S^T = K Q^T and dP^T = V dO^T, [keys, rows]: sc[4 nn + 2 hh + e]
+            // is key kc[hh], row t0 + 8 nn + 2 quad + e
+            float sc[32], dp[32];
+            sm90::wgmma_fence();
+            sm90::ss_product<D, ROWS, BQ>(sc, k_base, q_st);
+            sm90::ss_product<D, ROWS, BQ>(dp, v_base, do_st);
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+
+            const int lo = p.q_offset + t0, hi = p.q_offset + min(p.T, t0 + BQ) - 1;
+            if (!tile_interior<ROWS>(c0, lo, hi, p.limit, p.causal, p.window)) {
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                    for (int nn = 0; nn < 8; ++nn)
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const int row = lo + 8 * nn + 2 * quad + e, col = kc[hh];
+                            const bool keep = key_ok[hh] && (!p.causal || col <= row) &&
+                                              (p.window <= 0 || row - col < p.window);
+                            if (!keep) sc[4 * nn + 2 * hh + e] = -INFINITY;
+                        }
+            } else {
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh)
+                    if (!key_ok[hh]) {
+#pragma unroll
+                        for (int nn = 0; nn < 8; ++nn) {
+                            sc[4 * nn + 2 * hh] = -INFINITY;
+                            sc[4 * nn + 2 * hh + 1] = -INFINITY;
+                        }
+                    }
+            }
+
+            // p^T = exp(s^T - lse) and ds^T = p^T (dp^T - delta) in fp32, each
+            // pair turned into a bf16 A operand as it is formed
+#pragma unroll
+            for (int nn = 0; nn < 8; ++nn) {
+                const float2 l2 = *reinterpret_cast<const float2*>(ld + 8 * nn + 2 * quad);
+                const float2 dl = *reinterpret_cast<const float2*>(ld + BQ + 8 * nn + 2 * quad);
+                const float lx = l2.x * LOG2E, ly = l2.y * LOG2E;
+#pragma unroll
+                for (int hh = 0; hh < 2; ++hh) {
+                    const int i0 = 4 * nn + 2 * hh;
+                    const float p0 = sm90::ex2(fmaf(sc[i0], LOG2E, -lx));
+                    const float p1 = sm90::ex2(fmaf(sc[i0 + 1], LOG2E, -ly));
+                    pa[afrag(nn, hh)] = pack(p0, p1);
+                    da[afrag(nn, hh)] = pack(p0 * (dp[i0] - dl.x), p1 * (dp[i0 + 1] - dl.y));
+                }
+            }
+        }
+
+        // dS^T (zeros where this consumer's keys see no row of the tile)
+        // into the shared [keys, 64 rows] tile of this step: key row k holds
+        // its 64 rows' bf16 values as 8 16-byte chunks, chunk c at c ^ (k % 8)
+        // (the 128-byte swizzle the dq product's descriptor reads)
+        if (n >= 2) sm90::mbar_wait(&bars.ds_empty[sb], ((n >> 1) - 1) & 1);
+        uint8_t* dst = smem + G::OFF_DS + sb * G::DS_BYTES;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int key = cw * ROWS + 16 * w + r8 + 8 * hh;  // its row of the tile
+#pragma unroll
+            for (int nn = 0; nn < 8; ++nn)
+                *reinterpret_cast<uint32_t*>(dst + key * 128 + ((nn ^ (key & 7)) << 4) +
+                                             4 * quad) = da[afrag(nn, hh)];
+        }
+        sm90::fence_proxy_async();
+        sm90::mbar_arrive(&bars.ds_full[sb]);
+
+        if (vis) {  // dV += P^T dO, dK += dS^T Q; dO and Q are [rows, D], MN-major
+            sm90::wgmma_fence();
+            sm90::rs_product<D>(dv, pa, do_st);
+            sm90::rs_product<D>(dk, da, q_st);
+            sm90::wgmma_commit();
+            sm90::wgmma_wait<0>();
+        }
+        if (cw != n % G::NCW) {
+            sm90::mbar_arrive(&bars.empty[s]);
+            continue;
+        }
+        // this consumer's turn at the step's dq: dQ = dS K_block, [64 rows,
+        // D], over the block's keys; dS^T and K both through the transpose
+        // bits
+        sm90::mbar_wait(&bars.ds_full[sb], (n >> 1) & 1);
+        float dq[D / 2];
+        sm90::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < G::BKB / 16; ++kk) {
+            const uint64_t a = sm90::make_desc(ds0 + sb * G::DS_BYTES + kk * 16 * 128,
+                                               ROWS * 128, 8 * 128, sm90::SW128);
+            const uint64_t bk =
+                sm90::mnmajor_desc<D, ROWS>(kv_base + (kk >> 2) * ROWS * D * 2, kk & 3);
+            sm90::wgmma_ss_tt<D>(dq, a, bk, kk);
+        }
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::mbar_arrive(&bars.ds_empty[sb]);
+        sm90::mbar_arrive(&bars.empty[s]);
+
+        // the fp32 tile to its buffer: box c holds columns 32 c .. as [64
+        // rows, 128 bytes], 16-byte chunk x of row r at x ^ (r % 8)
+        const int buf = n % G::NDQ;
+        if (n >= G::NDQ) sm90::mbar_wait(&bars.dq_empty[buf], (n / G::NDQ - 1) & 1);
+        uint8_t* tile = smem + G::OFF_DQ + buf * G::DQ_BYTES;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int r = 16 * w + r8 + 8 * hh;
+#pragma unroll
+            for (int nn = 0; nn < D / 8; ++nn) {
+                const int chunk = (2 * (nn & 3) + (quad >> 1)) ^ (r & 7);
+                *reinterpret_cast<float2*>(tile + (nn >> 2) * BQ * 128 + r * 128 + chunk * 16 +
+                                           8 * (quad & 1)) =
+                    make_float2(dq[4 * nn + 2 * hh], dq[4 * nn + 2 * hh + 1]);
+            }
+        }
+        sm90::fence_proxy_async();
+        sm90::mbar_arrive(&bars.dq_full[buf]);
+    }
 
     bf16* dkp = static_cast<bf16*>(p.dk);
     bf16* dvp = static_cast<bf16*>(p.dv);
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-        if (key[r] >= S) continue;
-        const size_t off = ((size_t)b * S + key[r]) * HD + (size_t)h * D + 2 * tq;
+    for (int hh = 0; hh < 2; ++hh) {
+        if (kc[hh] >= p.S) continue;
+        const size_t off = (((size_t)b * p.S + kc[hh]) * p.H + h) * D + 2 * quad;
 #pragma unroll
-        for (int n = 0; n < ND; ++n) {
-            *reinterpret_cast<__nv_bfloat162*>(dkp + off + n * 8) =
-                __floats2bfloat162_rn(dk[n][2 * r], dk[n][2 * r + 1]);
-            *reinterpret_cast<__nv_bfloat162*>(dvp + off + n * 8) =
-                __floats2bfloat162_rn(dv[n][2 * r], dv[n][2 * r + 1]);
+        for (int nn = 0; nn < D / 8; ++nn) {
+            *reinterpret_cast<uint32_t*>(dkp + off + 8 * nn) =
+                pack(dk[4 * nn + 2 * hh], dk[4 * nn + 2 * hh + 1]);
+            *reinterpret_cast<uint32_t*>(dvp + off + 8 * nn) =
+                pack(dv[4 * nn + 2 * hh], dv[4 * nn + 2 * hh + 1]);
         }
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(FusedGeo<D>::THREADS, 1)
+flash_bwd_fused_sm90(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdq, const Params p) {
+    using G = FusedGeo<D>;
+    extern __shared__ uint8_t smem_raw[];
+    // swizzle atoms start on 1024-byte boundaries of the shared window
+    uint8_t* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+    const Block blk = block_of<D>(p);
+
+    Bars<D> bars(smem);
+    if (threadIdx.x == 0) {
+        sm90::mbar_init(bars.kv_full, 1);  // K and V loaded
+        for (int s = 0; s < G::NST; ++s) {
+            sm90::mbar_init(&bars.full[s], 32 + 1);          // stage s loaded
+            sm90::mbar_init(&bars.empty[s], 128 * G::NCW);  // stage s read
+        }
+        for (int x = 0; x < 2; ++x) {
+            sm90::mbar_init(&bars.ds_full[x], 128 * G::NCW);  // dS^T tile written
+            sm90::mbar_init(&bars.ds_empty[x], 128);          // read by the dq product
+        }
+        for (int x = 0; x < G::NDQ; ++x) {
+            sm90::mbar_init(&bars.dq_full[x], 128);  // dq tile written
+            sm90::mbar_init(&bars.dq_empty[x], 1);   // added into the accumulator
+        }
+        sm90::fence_barrier_init();
+    }
+    __syncthreads();
+
+    // the role, as a value ptxas can see is uniform over each warp: only
+    // then does it give the consumers the registers setmaxnreg asks for
+    const int wg = __shfl_sync(FULL, (int)threadIdx.x / 128, 0);
+    if (wg == 0) {
+        if constexpr (G::NCW > 1) sm90::setmaxnreg_dec<PRODUCER_REGS>();
+        const int warp = __shfl_sync(FULL, (int)threadIdx.x / 32, 0);
+        if (warp == 0)
+            loader<D>(&tq, &tdo, &tk, &tv, p, smem, blk);
+        else if (warp <= G::NWR && (threadIdx.x & 31) == 0)
+            writer<D>(&tdq, p, smem, blk, warp - 1);
+    } else {
+        if constexpr (G::NCW > 1) sm90::setmaxnreg_inc<CONSUMER_REGS>();
+        consumer<D>(p, smem, wg - 1, blk);
     }
 }
 
@@ -293,18 +480,27 @@ __global__ void dq_cast_kernel(const float4* __restrict__ acc, uint2* __restrict
 
 template <int D>
 cudaError_t launch(const Params& p, void* dq, cudaStream_t stream) {
-    constexpr int R = rows_per_step<D>();
+    using G = FusedGeo<D>;
+    sm90::EncodeTiled enc = sm90::encode_tiled();
+    if (!enc) return cudaErrorNotSupported;
+    CUtensorMap tq, tdo, tk, tv, tdq;
+    if (!sm90::make_map<D>(enc, &tq, p.q, p.B, p.T, p.H, G::BQ) ||
+        !sm90::make_map<D>(enc, &tdo, p.dout, p.B, p.T, p.H, G::BQ) ||
+        !sm90::make_map<D>(enc, &tk, p.k, p.B, p.S, p.H, ROWS) ||
+        !sm90::make_map<D>(enc, &tv, p.v, p.B, p.S, p.H, ROWS) ||
+        !sm90::make_map_f32(enc, &tdq, p.dq, p.B, p.T, p.H, D, G::BQ))
+        return cudaErrorInvalidValue;
     const size_t acc_bytes = (size_t)p.B * p.T * p.H * D * sizeof(float);
     cudaError_t err = cudaMemsetAsync(p.dq, 0, acc_bytes, stream);
     if (err != cudaSuccess) return err;
-    err = cudaMemsetAsync(p.turns, 0, (size_t)p.B * p.H * ((p.T + R - 1) / R) * sizeof(int),
-                          stream);
+    err = cudaMemsetAsync(p.turns, 0,
+                          (size_t)p.B * p.H * ((p.T + G::BQ - 1) / G::BQ) * sizeof(int), stream);
     if (err != cudaSuccess) return err;
-    const size_t smem = smem_bytes<D>();
-    auto kern = flash_bwd_fused_tc_kernel<D>;
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    auto kern = flash_bwd_fused_sm90<D>;
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
     if (err != cudaSuccess) return err;
-    kern<<<dim3((p.S + BK - 1) / BK, p.H, p.B), NT, smem, stream>>>(p);
+    const int nkb = (p.S + G::BKB - 1) / G::BKB;
+    kern<<<nkb * p.B * p.H, G::THREADS, G::SMEM, stream>>>(tq, tdo, tk, tv, tdq, p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     const size_t n4 = acc_bytes / sizeof(float4);
@@ -315,7 +511,7 @@ cudaError_t launch(const Params& p, void* dq, cudaStream_t stream) {
     return cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace hop
 
 // fp32 inputs: #7's body with FUSED set, accumulating into dq itself
 template <int D>
@@ -336,7 +532,7 @@ cudaError_t launch(int dtype, Params p, void* dq, void* dq_acc, cudaStream_t str
         return launch_fp32<D>(p, stream);
     }
     p.dq = dq_acc;
-    return tc::launch<D>(p, dq, stream);
+    return hop::launch<D>(p, dq, stream);
 }
 
 }  // namespace
@@ -345,7 +541,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16. `mask` is int32 [B, S] or null. Scratch
 // from the caller, zeroed here: `turns` int32 of at least B * H * ceil(T /
-// 32) and, for bf16, `dq_acc` fp32 [B, T, H, D] (unused for fp32). q_offset
+// 64) and, for bf16, `dq_acc` fp32 [B, T, H, D] (unused for fp32). q_offset
 // >= 0. Returns cudaGetLastError() after the last launch.
 int flash_bwd_fused(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, const void* mask, void* dq, void* dk,

@@ -8,7 +8,9 @@
 // Shared-memory addresses come from mma_common.cuh's smem_addr. Users:
 // csrc/flash_fwd.cu (#1), csrc/flash_tri.cu (#2), csrc/encoder_attention.cu
 // (#3), csrc/encoder_attention_bwd.cu (#4), csrc/onepass_attention.cu (#5),
-// csrc/flash_bwd.cu (#6, #7), csrc/doc_attention_bwd.cu (#10) and
+// csrc/flash_bwd.cu (#6, #7), csrc/flash_bwd_fused.cu (#8: products with
+// both operands transposed, the bulk reduce-add of fp32 tiles),
+// csrc/doc_attention.cu (#9), csrc/doc_attention_bwd.cu (#10) and
 // csrc/decode_attention.cu (#13: 3-D maps, clusters).
 //
 // The host side takes cuTensorMapEncodeTiled through
@@ -123,6 +125,30 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
         "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
         "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2)
         : "memory");
+}
+
+// Element-wise add of a box of a 4-D fp32 tensor map at coordinates (c0
+// innermost .. c3) from shared memory into global memory, performed in L2;
+// elements past the tensor's end are left out. Completion is tracked by
+// this thread's bulk async-groups (bulk_commit / bulk_wait).
+__device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, const void* src,
+                                                  int c0, int c1, int c2, int c3) {
+    asm volatile(
+        "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group "
+        "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+        "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+        : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// every bulk async-group of this thread complete: its writes performed
+__device__ __forceinline__ void bulk_wait_all() {
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// orders this thread's global accesses against its async-proxy ones
+__device__ __forceinline__ void fence_proxy_async_global() {
+    asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
@@ -306,6 +332,26 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64], A in registers (bf16 pairs), B
+// K-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n64_k(float* d, const uint32_t* a, uint64_t db,
+                                               int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+}
+
 // D[64 x 96] += A[64 x 16] B[16 x 96], A in registers (bf16 pairs), B MN-major in shared memory
 __device__ __forceinline__ void wgmma_rs_n96(float* d, const uint32_t* a, uint64_t db) {
     asm volatile(
@@ -363,6 +409,83 @@ template <int N> __device__ __forceinline__ void wgmma_rs(float* d, const uint32
         wgmma_rs_n96(d, a, db);
     else
         wgmma_rs_n128(d, a, db);
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A and B both MN-major in shared
+// memory (the transpose bits): A stored as 16 rows of its 64 M values, B as
+// 16 rows of its N values
+__device__ __forceinline__ void wgmma_ss_tt_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_tt_n96(float* d, uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %50, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47}, "
+        "%48, %49, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_ss_tt_n128(float* d, uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23,"
+        "%24, %25, %26, %27, %28, %29, %30, %31,"
+        "%32, %33, %34, %35, %36, %37, %38, %39,"
+        "%40, %41, %42, %43, %44, %45, %46, %47,"
+        "%48, %49, %50, %51, %52, %53, %54, %55,"
+        "%56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+          "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+          "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+          "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// the same for N = a head dim
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tt(float* d, uint64_t da, uint64_t db, int accumulate) {
+    if constexpr (N == 64)
+        wgmma_ss_tt_n64(d, da, db, accumulate);
+    else if constexpr (N == 96)
+        wgmma_ss_tt_n96(d, da, db, accumulate);
+    else
+        wgmma_ss_tt_n128(d, da, db, accumulate);
 }
 
 // ---- products of 64-row tiles, and bf16 planes by 16-byte cp.async --------
@@ -485,6 +608,22 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* base, int B, int R,
     return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                C::CB == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+               CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// [B, R, H, D] fp32 as the 4-D map (D, H, R, B) with box (32, 1, rows, 1)
+// and the 128-byte swizzle: D / 32 boxes take a [rows, D] tile, box c
+// holding columns 32 c .. 32 c + 31 as [rows, 128 bytes]
+inline bool make_map_f32(EncodeTiled enc, CUtensorMap* map, const void* base, int B, int R,
+                         int H, int D, int rows) {
+    const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)R, (cuuint64_t)B};
+    const cuuint64_t strides[3] = {(cuuint64_t)D * 4, (cuuint64_t)H * D * 4,
+                                   (cuuint64_t)R * H * D * 4};
+    const cuuint32_t box[4] = {32, 1, (cuuint32_t)rows, 1};
+    const cuuint32_t elem[4] = {1, 1, 1, 1};
+    return enc(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<void*>(base), dims, strides,
+               box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

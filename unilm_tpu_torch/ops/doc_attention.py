@@ -99,6 +99,53 @@ def doc_bwd_tile_plan(T: int, S: int, D: int = 64) -> dict:
             "dq": walk(T, rows, S, tile, True)}
 
 
+# The bf16 forward's tiles (csrc/doc_attention.cu, namespace hop, `FwdGeo`):
+# a block per DOC_FWD_ROWS q rows (two consumer warpgroups of 64), 64-key
+# tiles swept twice through one ring of K, V and bias tiles.
+DOC_FWD_ROWS = 128
+DOC_FWD_TILE = 64
+_SMEM_MAX = 232448  # bytes of shared memory a block may opt into
+
+
+def doc_fwd_tile_plan(T: int, S: int, D: int = 64, bias: bool = True) -> dict:
+    """Kernel #9's bf16 path (csrc/doc_attention.cu `doc_fwd_sm90`, whose
+    `FwdGeo` and walk compute this rule: change both together) for one
+    (batch, head), its blocks in grid order. Each block:
+    - "rows": its q rows [q0, q1) (q1 <= T), "consumers": the [r0, r1) of
+      each consumer warpgroup with rows (64 each; one past T has none);
+      the consumers read their q rows into registers once;
+    - "loads": what the producer stages into shared memory, in ring order:
+      for each ring step ("k", c0, c1), in the second sweep ("v", c0, c1),
+      and with a bias ("bias", q0, q1, c0, c1) in both sweeps;
+    - "steps": (sweep, r0, r1, c0, c1), each consumer's pairs per tile:
+      sweep 0 takes the row max, sweep 1 p and P V.
+    "stages" and "smem" are the ring's depth and the block's shared memory
+    in bytes (the kernel's static_assert holds it within the card's)."""
+    rows, tile, half = DOC_FWD_ROWS, DOC_FWD_TILE, DOC_FWD_ROWS // 2
+    stages = 3 if D == 128 else 4
+    smem = (stages * (2 * tile * D * 2 + rows * (tile // 8 + 1) * 16)
+            + (MAX_S // tile) * (tile // 32) * 4 + 2 * stages * 8 + 1024)
+    blocks = []
+    for q0 in range(0, T, rows):
+        q1 = min(q0 + rows, T)
+        cons = [(r0, min(r0 + half, T)) for r0 in range(q0, q0 + rows, half)
+                if r0 < T]
+        loads, steps = [], []
+        for sweep in (0, 1):
+            for c0 in range(0, S, tile):
+                c1 = min(c0 + tile, S)
+                loads.append(("k", c0, c1))
+                if sweep:
+                    loads.append(("v", c0, c1))
+                if bias:
+                    loads.append(("bias", q0, q1, c0, c1))
+                steps += [(sweep, r0, r1, c0, c1) for r0, r1 in cons]
+        blocks.append({"rows": (q0, q1), "consumers": cons, "loads": loads,
+                       "steps": steps})
+    return {"rows": rows, "tile": tile, "stages": stages, "smem": smem,
+            "blocks": blocks}
+
+
 class HeadMajorBias:
     """Marks a bias stored [H, B|1, T, S] instead of [B|1, H, T, S]: the
     natural output order of the bias lookup (ops/bucket_bias.py

@@ -690,7 +690,42 @@ FUSED_BWD_KERNEL = CudaKernel("flash_bwd_fused.cu", {
     # D, q_offset, limit, causal, window, dtype, stream
     "flash_bwd_fused": [P] * 12 + [I] * 10 + [P],
 })
-_FUSED_MIN_STEP = 32  # the kernel's shortest row step (a turn counter each)
+# The bf16 kernel's geometry (csrc/flash_bwd_fused.cu `FusedGeo`): 64-row
+# q tiles, one turn counter each (the fp32 body's row tiles are 64 too), and
+# key blocks of 128 keys at D = 64 (two consumer warpgroups), 64 at 96/128.
+FUSED_BWD_ROWS = 64
+_FUSED_MIN_STEP = FUSED_BWD_ROWS  # the row step of a turn counter
+
+
+def fused_bwd_plan(T: int, S: int, D: int, causal: bool, window: int,
+                   q_offset: int, limit: int) -> dict:
+    """Kernel #8's bf16 walk and dq turn order (csrc/flash_bwd_fused.cu
+    `block_of`, `block_walk` and the writer's `key_walk` target compute
+    this rule: change both together). "blocks" in grid (linear) order, the
+    key blocks reversed: each {"key_block": j, "keys": (c0, c1) clipped at
+    S, "steps": [(i, target), ...]}: the 64-row q tiles i it walks
+    upward (`flash_bwd_tile_plan` at the block's width: its K and V stay
+    resident, Q/dO tiles i are staged once each) and, for each, the count
+    of key blocks that add into row tile i's dq before it (the turn it
+    waits for: every later key block that sees the tile). "consumers":
+    the 64-key warpgroups of a block."""
+    rows = FUSED_BWD_ROWS
+    keys = 2 * rows if D == 64 else rows
+    limit = min(limit, S)
+    fwd = flash_tile_plan(T, S, q_offset, limit, causal, window, rows, keys)
+    bwd = flash_bwd_tile_plan(T, S, q_offset, limit, causal, window, rows,
+                              keys)
+    nkb = _cdiv(S, keys)
+    blocks = []
+    for n in range(nkb):
+        j = nkb - 1 - n
+        ib, ie, _ = bwd[j]
+        blocks.append({"key_block": j,
+                       "keys": (j * keys, min(S, (j + 1) * keys)),
+                       "steps": [(i, fwd[i][1] - 1 - j)
+                                 for i in range(ib, ie)]})
+    return {"rows": rows, "keys": keys, "consumers": keys // rows,
+            "blocks": blocks}
 
 
 def flash_backward_fused_plain(q, k, v, mask, q_offset: int,
