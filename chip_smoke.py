@@ -11,9 +11,10 @@ Phases, one line each:
     -v` on the Hopper sources (flash_fwd.cu, flash_bwd.cu, flash_tri.cu,
     encoder_attention.cu, doc_attention.cu, doc_attention_bwd.cu,
     decode_attention.cu's split walk, onepass_attention.cu's and
-    encoder_attention_bwd.cu's bf16 entries, flash_bwd_fused.cu) prints
-    each kernel's registers and spill bytes and fails on a spill or a
-    serialised wgmma.
+    encoder_attention_bwd.cu's bf16 entries, flash_bwd_fused.cu,
+    int8_matmul.cu's wgmma kernel, paged_attention.cu's split walk)
+    prints each kernel's registers and spill bytes and fails on a spill or
+    a serialised wgmma. "With L2 flushed" below means after a 64 MB read.
  3. flash: the flash-forward kernel (#1; bf16 is the wgmma/TMA kernel)
     against its plain version, bf16, over causal/offset/kv_len/key-padding/
     bias/window cases that hit each class of key tile (skipped, interior,
@@ -151,8 +152,14 @@ Phases, one line each:
     cache, 32 tokens: 24 launches of #1 per forward (the self layers with
     the window) and none of #5; TTFT, decode ms/token, the plain path
     teacher-forced.
- 6. int8_matmul: the int8 weight-only matmul kernel against its plain
-    version, bf16 x, M in {1, 8, 64, 200} x the decoder's K x N.
+ 6. int8_matmul: the int8 weight-only matmul kernel (#14) against its
+    plain version, bf16 x, M in {1, 8, 64, 200} x the decoder's three
+    projection shapes (K x N 1536 x 1536, 1536 x 6144, 6144 x 1536), each
+    call twice and bit-equal; device time at the three shapes at M 1/8/64,
+    back to back and with L2 flushed, beside the plain version and the
+    bound; at M8 K1536 N6144 beside torch._weight_int8pack_mm (library_ms)
+    and a bf16 cuBLAS product with a dequantized copy of W (a yardstick
+    only).
  7. decode_int8: the int8-KV run-decode kernel against its plain version,
     B=8, lengths up to 2111 and the edges of the B=8 split plan; pools and
     scale sidecar bit-equal; timed back to back and with L2 flushed.
@@ -161,11 +168,12 @@ Phases, one line each:
     pool pages bit-equal.
     paged: the read-only block-table kernel (#11) against
     paged_decode_attention_plain at the Kosmos-2.5 decoder's width (B=8,
-    16 heads of 96, pages of 64), lengths 2047, 1800, 1536, 1024, 777, 300,
-    1, 0 over tables drawn from a permutation of the pool, bf16 (OUT_ATOL /
-    OUT_RTOL) and fp32 (1e-5), flat and 4-D pools; the L == 0 row exactly
-    0; timed (device time, back to back and with L2 flushed) at those
-    lengths and at 8 x 2047 beside the plain version.
+    16 heads of 96), pages of 64 and 16, lengths 2047, 1800, 1536, 1024,
+    777, 300, 1, 0 over tables drawn from a permutation of the pool, bf16
+    (OUT_ATOL / OUT_RTOL) and fp32 (1e-5), flat and 4-D pools; the L == 0
+    row exactly 0, each call twice and bit-equal; timed (device time, back
+    to back and with L2 flushed, the flushed time held against the bound)
+    at those lengths and at 8 x 2047, page 64, beside the plain version.
     fused (kernel and path phase): swiglu (#15) and rotary (#16) through
     the ops.fused API at yoco_base's widths, bf16 and fp32: swiglu on
     [1, 4096, 4096] and [8, 128, 4096], rotary on q [1, 4096, 16, 64] and
@@ -501,27 +509,30 @@ def device_kernel_times(prof) -> dict:
 
 def cold_ms(fn, only: str = None, iters: int = 20) -> float:
     """device_ms of the `only` kernels of fn() (without `only`, of all of
-    fn()'s kernels) with the L2 cache flushed before every call (a 64 MB
-    write, more than the H100's 50 MB L2), for kernels whose inputs would
-    otherwise stay L2-resident across back-to-back calls."""
+    fn()'s kernels) with the L2 cache flushed before every call, for
+    kernels whose inputs would otherwise stay L2-resident across
+    back-to-back calls. The flush reads 64 MB (more than the H100's 50 MB
+    L2) and writes nothing: a flush by a write leaves the cache full of
+    dirty lines, whose write-back then competes with the timed kernel's
+    reads."""
     from torch.profiler import ProfilerActivity, profile
 
-    flush = torch.empty(16 << 20, dtype=torch.int32, device="cuda")
+    flush = torch.ones(16 << 20, dtype=torch.int32, device="cuda")
     skip = ()
     for _ in range(0 if only else 3):  # leave out the flush's kernels
-        flush.zero_()
+        flush.sum()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(4):
-                flush.zero_()
+                flush.sum()
             torch.cuda.synchronize()
         skip = tuple(device_kernel_times(prof))
         if skip:
             break
     check(bool(only or skip), "cold_ms: three traces of the flush showed "
           "no kernel")
-    return device_ms(lambda: (flush.zero_(), fn()), iters, only,
+    return device_ms(lambda: (flush.sum(), fn()), iters, only,
                      exclude=skip)
 
 
@@ -549,19 +560,21 @@ def phase_device() -> str:
     return smi
 
 
-# the Hopper kernels: the wgmma sources, the split decode walk and #5's
+# the Hopper kernels: the wgmma sources, the split decode walks and #5's
 # short-q walk; in decode_attention.cu only the walk's entries
-# (`decode_run_`), not the fp32 pools' CUDA-core body it shares with #11
-# and #12; in onepass_attention.cu and encoder_attention_bwd.cu only the
-# bf16 entries (`onepass_kernel_sm90` / `_walk`, `enc_bwd_*_sm90`), not
-# the fp32 CUDA-core bodies; doc_attention.cu's `doc_fwd_sm90` with #3's
-# fp32 body and flash_bwd_fused.cu's `flash_bwd_fused_sm90` with #7's
-# fp32 body (FUSED)
+# (`decode_run_`), and in paged_attention.cu only #11's (`paged_split_`),
+# not the fp32 pools' CUDA-core body they share with #12; in
+# onepass_attention.cu and encoder_attention_bwd.cu only the bf16 entries
+# (`onepass_kernel_sm90` / `_walk`, `enc_bwd_*_sm90`), not the fp32
+# CUDA-core bodies; doc_attention.cu's `doc_fwd_sm90` with #3's fp32 body
+# and flash_bwd_fused.cu's `flash_bwd_fused_sm90` with #7's fp32 body
+# (FUSED); int8_matmul.cu's `int8_mm_sm90`, not the fp32 x kernel
 PTXAS_SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_tri.cu",
                  "encoder_attention.cu", "doc_attention.cu",
                  "doc_attention_bwd.cu", "decode_attention.cu",
                  "onepass_attention.cu", "encoder_attention_bwd.cu",
-                 "flash_bwd_fused.cu")
+                 "flash_bwd_fused.cu", "int8_matmul.cu",
+                 "paged_attention.cu")
 
 
 def ptxas_entries(text: str) -> list:
@@ -572,8 +585,9 @@ def ptxas_entries(text: str) -> list:
     out, name = [], None
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '\w*?\d+((?:flash|encoder|"
-                      r"doc_bwd|doc_fwd|decode_run)_\w+?|enc_bwd_\w+?_sm90|"
-                      r"onepass_kernel_(?:sm90|walk))I(\w*?)EEv", line)
+                      r"doc_bwd|doc_fwd|decode_run|paged_split)_\w+?|"
+                      r"enc_bwd_\w+?_sm90|onepass_kernel_(?:sm90|walk)|"
+                      r"int8_mm_sm90)I(\w*?)EEv", line)
         if m:
             args = re.findall(r"Li(\d+)", m.group(2))
             kind = ",fp32" if m.group(2).startswith("f") else ""
@@ -2202,7 +2216,7 @@ def decode_step_shares(step, n: int) -> dict:
         torch.cuda.synchronize()
     return device_time_shares(prof, [
         ("#13", [DECODE_ONLY]), ("#1", ["flash_fwd"]),
-        ("#14", ["int8_matmul"]),
+        ("#14", [INT8_ONLY, "int8_matmul"]),
         ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas", "splitK"])])
 
 
@@ -3112,15 +3126,26 @@ def ulp_tol(ref: torch.Tensor, n: float) -> torch.Tensor:
     return n * torch.ldexp(torch.ones_like(ref, dtype=torch.float32), e - 8)
 
 
+# the decoder's projections: q/k/v/out, fc1, fc2 as (K, N)
+INT8_SHAPES = ((1536, 1536), (1536, 6144), (6144, 1536))
+INT8_ONLY = "int8_mm"  # #14's bf16 kernel (csrc/int8_matmul.cu int8_mm_sm90)
+
+
 def phase_int8_matmul(qm, g) -> dict:
-    """Kernel against plain, bf16 x, at the decoder's K x N and the M of
-    decode (1, 8), a prefill chunk (64) and more (200). Tolerance: 2 bf16
-    ulps of the plain result (both round one fp32 value to bf16) plus the
-    fp32 sum-order term K * 2^-24 * (|x| @ |W|) * scale."""
+    """#14 against plain, bf16 x, at the decoder's three projection shapes
+    and the M of decode (1, 8), a prefill chunk (64) and more (200), each
+    call twice and bit-equal (the split-K merge sums in split order).
+    Tolerance: 2 bf16 ulps of the plain result (both round one fp32 value
+    to bf16) plus the fp32 sum-order term K * 2^-24 * (|x| @ |W|) * scale.
+    Then device time at the three shapes at M 1/8/64, back to back and
+    with L2 flushed, beside the plain version and each shape's bound; at
+    M8 K1536 N6144 beside two yardsticks: torch._weight_int8pack_mm
+    (library_ms) and a bf16 cuBLAS product with a dequantized copy of W
+    (twice the weight bytes; printed only)."""
     dev, bf = "cuda", torch.bfloat16
     worst, worst_ratio = 0.0, 0.0
-    times = {}
-    for K, N in ((1536, 1536), (1536, 6144), (6144, 1536)):
+    times, bounds = {}, {}
+    for K, N in INT8_SHAPES:
         w = torch.randint(-127, 128, (N, K), generator=g, device=dev,
                           dtype=torch.int8)
         scale = ((torch.rand(N, generator=g, device=dev) + 0.5)
@@ -3128,6 +3153,7 @@ def phase_int8_matmul(qm, g) -> dict:
         for M in (1, 8, 64, 200):
             x = torch.randn(M, K, generator=g, device=dev).to(bf)
             out = qm.int8_matmul(x, w, scale)
+            again = qm.int8_matmul(x, w, scale)
             ref = qm.int8_matmul_plain(x, w, scale)
             torch.cuda.synchronize()
             order = (K * 2.0 ** -24 * (x.float().abs() @ w.float().abs().t())
@@ -3138,33 +3164,50 @@ def phase_int8_matmul(qm, g) -> dict:
             check(bool(torch.isfinite(out.float()).all()) and ratio <= 1.0,
                   f"int8_matmul M{M} K{K} N{N}: max|err| {float(err.max())}, "
                   f"{ratio:.3f} of the tolerance")
+            check(torch.equal(out, again), f"int8_matmul M{M} K{K} N{N}: two "
+                  f"runs differ")
             worst, worst_ratio = max(worst, float(err.max())), max(
                 worst_ratio, ratio)
-            if (K, N) == (1536, 6144) and M in (8, 64):
-                times[M] = (
-                    cuda_ms(lambda: qm.int8_matmul(x, w, scale), iters=50),
-                    cuda_ms(lambda: qm.int8_matmul_plain(x, w, scale),
-                            iters=50))
-        phase("int8_matmul", f"K{K} N{N}, M in 1/8/64/200: ok")
-    for M, (ms, plain_ms) in times.items():
-        phase("int8_matmul", f"M{M} K1536 N6144 bf16: kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
+            if M == 200:
+                continue
+            key = f"M{M} K{K} N{N}"
+            call = lambda: qm.int8_matmul(x, w, scale)
+            times[key] = (device_ms(call, only=INT8_ONLY),
+                          device_ms(lambda: qm.int8_matmul_plain(x, w, scale)),
+                          cold_ms(call, INT8_ONLY))
+            bounds[key] = roofline(N * K + N * 4 + M * K * 2 + M * N * 2,
+                                   2 * M * N * K)
+        phase("int8_matmul", f"K{K} N{N}, M in 1/8/64/200: ok, bit-equal "
+              f"twice")
+    for key, (ms, plain_ms, cold) in times.items():
+        bd = bounds[key]
+        phase("int8_matmul", f"{key} bf16, device time: kernel {ms:.4f} ms "
+              f"back to back, {cold:.4f} ms with L2 flushed "
+              f"({cold / bd['bound_ms']:.2f}x the bound), plain "
+              f"{plain_ms:.4f} ms; bound {bd['bound_ms']:.5f} ms "
+              f"({bd['bound_by']})")
     phase("int8_matmul", f"max|err| {worst:.3g}, at most {worst_ratio:.3f} "
           f"of the tolerance (2 bf16 ulps + fp32 order term)")
-    # The products run in bf16 after the dequantize.
     M, K, N = 8, 1536, 6144
-    bd = roofline(N * K + N * 4 + M * K * 2 + M * N * 2, 2 * M * N * K)
-    phase("int8_matmul", f"M8 K1536 N6144 bound {bd['bound_ms']:.5f} ms "
-          f"({bd['bound_by']})")
-    # library yardstick: torch._weight_int8pack_mm(x, w [N, K], scales [N])
-    # computes x @ (w * scale)^T, with the scales in x's dtype (bf16 here,
-    # so it may differ from the plain version by the scales' rounding,
-    # 2^-9 relative). Timed here only; the port never calls it.
+    key = f"M{M} K{K} N{N}"
+    bd = bounds[key]
     w = torch.randint(-127, 128, (N, K), generator=g, device=dev,
                       dtype=torch.int8)
     scale = ((torch.rand(N, generator=g, device=dev) + 0.5)
              * (2.0 / (127 * K ** 0.5)))
     x = torch.randn(M, K, generator=g, device=dev).to(bf)
+    cold = times[key][2]
+    # second yardstick: a bf16 product with a dequantized copy of W (the
+    # copy made once, outside the timing), reading twice the weight bytes;
+    # back to back its 19 MB sit in L2, so it is held to the kernel with
+    # L2 flushed
+    wd = (w.float() * scale[:, None]).to(bf)
+    dq_ms = device_ms(lambda: torch.matmul(x, wd.t()))
+    dq_cold = cold_ms(lambda: torch.matmul(x, wd.t()))
+    # library yardstick: torch._weight_int8pack_mm(x, w [N, K], scales [N])
+    # computes x @ (w * scale)^T, with the scales in x's dtype (bf16 here,
+    # so it may differ from the plain version by the scales' rounding,
+    # 2^-9 relative). Timed here only; the port never calls it.
     scale_bf = scale.to(bf)
     lib_ms = None
     try:
@@ -3178,17 +3221,26 @@ def phase_int8_matmul(qm, g) -> dict:
         rel = rel_l2(lib, qm.int8_matmul_plain(x, w, scale))
         check(rel <= 1e-2, f"int8_matmul: torch._weight_int8pack_mm is not "
               f"the same function (rel L2 {rel:.3g})")
-        lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, w, scale_bf),
-                         iters=50)
-        phase("int8_matmul", f"M8 K1536 N6144 torch._weight_int8pack_mm "
-              f"{lib_ms:.4f} ms (rel L2 {rel:.3g} against plain)")
+        lib_ms = device_ms(lambda: torch._weight_int8pack_mm(x, w, scale_bf))
+    phase("int8_matmul", f"{key} device time: kernel {times[key][0]:.4f} ms "
+          f"back to back, {cold:.4f} ms with L2 flushed; bound "
+          f"{bd['bound_ms']:.5f} ms; torch._weight_int8pack_mm "
+          f"{'null' if lib_ms is None else f'{lib_ms:.4f}'} ms; bf16 cuBLAS "
+          f"with a dequantized copy of W {dq_ms:.4f} ms back to back, "
+          f"{dq_cold:.4f} ms with L2 flushed (yardstick only)")
     return {"name": "int8_matmul", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "unilm_tpu/ops/quant.py:59", "max_abs_err": worst,
             "library_ms": lib_ms, **bd,
-            "ms": times[8][0], "plain_ms": times[8][1],
-            "shape": "M8 K1536 N6144 bf16", "ms_m64": times[64][0],
-            "plain_ms_m64": times[64][1]}
+            "ms": times[key][0], "plain_ms": times[key][1],
+            "ms_l2_flushed": cold, "dequant_bf16_cublas_ms": dq_ms,
+            "dequant_bf16_cublas_ms_l2_flushed": dq_cold,
+            "shape": f"{key} bf16",
+            "ms_by_shape": {k: v[0] for k, v in times.items()},
+            "ms_l2_flushed_by_shape": {k: v[2] for k, v in times.items()},
+            "plain_ms_by_shape": {k: v[1] for k, v in times.items()},
+            "bound_ms_by_shape": {k: v["bound_ms"]
+                                  for k, v in bounds.items()}}
 
 
 def phase_decode_int8(pa, g) -> dict:
@@ -3342,56 +3394,70 @@ def phase_paged_append(pa, g) -> dict:
 # a 2048-token context, one sequence empty.
 PAGED_LENGTHS = [2047, 1800, 1536, 1024, 777, 300, 1, 0]
 PAGED_PAGE, PAGED_MP = 64, 32
+PAGED_ONLY = "paged_split"  # #11's bf16 walk (paged_split_sm90)
 
 
 def phase_paged(pa, g) -> dict:
     """Kernel #11 against paged_decode_attention_plain on the card: B=8,
-    H=16, D=96, page 64, PAGED_LENGTHS over tables drawn from a permutation
-    of the pool (pages scatter), bf16 and fp32, flat [P, page, H*D] and
-    4-D [P, page, H, D] pools; the L == 0 row must be exactly 0. Timed
-    (device time, kernel alone) at the ragged lengths and at 8 x 2047."""
+    H=16, D=96, PAGED_LENGTHS over tables drawn from a permutation of the
+    pool (pages scatter), pages of 64 and of 16 (two 16-row boxes a tile),
+    bf16 and fp32, flat [P, page, H*D] and 4-D [P, page, H, D] pools; the
+    L == 0 row must be exactly 0, and two bf16 runs bit-equal (the splits
+    merge in split order whichever arrives last). Timed (device time,
+    kernel alone) at the ragged lengths and at 8 x 2047, page 64, back to
+    back and with L2 flushed; the flushed time is the one held against the
+    bound."""
     dev = "cuda"
-    B, H, D, page, MP = 8, 16, 96, PAGED_PAGE, PAGED_MP
-    P = B * MP
+    B, H, D = 8, 16, 96
     lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
-    tables = torch.randperm(P, generator=g, device=dev).reshape(B, MP).to(
-        torch.int32)
     worst = 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        # bf16: OUT_ATOL / OUT_RTOL (the kernel rounds p against a running
-        # max, the twin against the row max); fp32: 1e-5 (summation order)
-        atol, rtol = (OUT_ATOL, OUT_RTOL) if dtype == torch.bfloat16 else \
-            (1e-5, 1e-5)
-        rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
-        q, kp, vp = rn(B, 1, H, D), rn(P, page, H * D), rn(P, page, H * D)
-        for flat in (True, False):
-            k_, v_ = (kp, vp) if flat else (kp.view(P, page, H, D),
-                                            vp.view(P, page, H, D))
-            out = pa.paged_decode_attention(q, k_, v_, tables, lengths)
-            ref = pa.paged_decode_attention_plain(q, k_, v_, tables, lengths)
-            torch.cuda.synchronize()
-            ok, err = close(out, ref, atol, rtol)
-            desc = (f"{str(dtype).split('.')[-1]} "
-                    f"{'flat' if flat else '4-D'} pool")
-            check(ok and bool(torch.isfinite(out.float()).all()),
-                  f"paged: {desc}: max|err| {err}")
-            check(float(out[B - 1].abs().max()) == 0.0,
-                  f"paged: {desc}: the L == 0 row is not 0")
-            phase("paged", f"B8 H16 D96 page64 lengths {PAGED_LENGTHS} "
-                  f"scattered, {desc}: max|err| {err:.3g} (atol {atol}, "
-                  f"rtol {rtol}), L=0 row exactly 0")
-            if dtype == torch.bfloat16:
-                worst = max(worst, err)
+    for page in (PAGED_PAGE, 16):
+        MP = PAGED_MP * PAGED_PAGE // page
+        P = B * MP
+        tables = torch.randperm(P, generator=g, device=dev).reshape(
+            B, MP).to(torch.int32)
+        for dtype in (torch.bfloat16, torch.float32):
+            # bf16: OUT_ATOL / OUT_RTOL (the kernel rounds p against a
+            # running max, the twin against the row max); fp32: 1e-5
+            # (summation order)
+            atol, rtol = (OUT_ATOL, OUT_RTOL) if dtype == torch.bfloat16 \
+                else (1e-5, 1e-5)
+            rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(dtype)
+            q, kp, vp = rn(B, 1, H, D), rn(P, page, H * D), rn(P, page, H * D)
+            for flat in (True, False):
+                k_, v_ = (kp, vp) if flat else (kp.view(P, page, H, D),
+                                                vp.view(P, page, H, D))
+                out = pa.paged_decode_attention(q, k_, v_, tables, lengths)
+                again = pa.paged_decode_attention(q, k_, v_, tables, lengths)
+                ref = pa.paged_decode_attention_plain(q, k_, v_, tables,
+                                                      lengths)
+                torch.cuda.synchronize()
+                ok, err = close(out, ref, atol, rtol)
+                desc = (f"page {page} {str(dtype).split('.')[-1]} "
+                        f"{'flat' if flat else '4-D'} pool")
+                check(ok and bool(torch.isfinite(out.float()).all()),
+                      f"paged: {desc}: max|err| {err}")
+                check(float(out[B - 1].abs().max()) == 0.0,
+                      f"paged: {desc}: the L == 0 row is not 0")
+                check(torch.equal(out, again), f"paged: {desc}: two runs "
+                      f"differ")
+                phase("paged", f"B8 H16 D96 lengths {PAGED_LENGTHS} "
+                      f"scattered, {desc}: max|err| {err:.3g} (atol {atol}, "
+                      f"rtol {rtol}), L=0 row exactly 0, bit-equal twice")
+                if dtype == torch.bfloat16:
+                    worst = max(worst, err)
 
-    bf = torch.bfloat16
+    bf, page, P = torch.bfloat16, PAGED_PAGE, B * PAGED_MP
+    tables = torch.randperm(P, generator=g, device=dev).reshape(
+        B, PAGED_MP).to(torch.int32)
     rn = lambda *s: torch.randn(*s, generator=g, device=dev).to(bf)
     q, kp, vp = rn(B, 1, H, D), rn(P, page, H * D), rn(P, page, H * D)
     res = {}
     for name, lens in (("ragged", PAGED_LENGTHS), ("8x2047", [2047] * B)):
         L = torch.tensor(lens, dtype=torch.int32, device=dev)
         call = lambda: pa.paged_decode_attention(q, kp, vp, tables, L)
-        ms = device_ms(call, only="decode_kernel")
-        ms_cold = cold_ms(call, "decode_kernel")
+        ms = device_ms(call, only=PAGED_ONLY)
+        ms_cold = cold_ms(call, PAGED_ONLY)
         wrapper_ms = cuda_ms(lambda: pa.paged_decode_attention(
             q, kp, vp, tables, L), iters=50)
         plain_ms = device_ms(lambda: pa.paged_decode_attention_plain(
@@ -3400,22 +3466,24 @@ def phase_paged(pa, g) -> dict:
         bd = roofline(2 * n * H * D * 2 + 2 * B * H * D * 2 + B * 4,
                       4 * n * H * D, "fp32")
         res[name] = (ms, plain_ms, bd, ms_cold)
-        phase("paged", f"bf16 {name} (sum L {n}): kernel {ms:.4f} ms device "
-              f"time back to back, {ms_cold:.4f} ms with L2 flushed "
-              f"({wrapper_ms:.4f} ms a wrapper call, CUDA events), plain "
-              f"{plain_ms:.4f} ms; bound {bd['bound_ms']:.5f} ms "
-              f"({bd['bound_by']}); no torch call reads a block table")
+        phase("paged", f"bf16 {name} (sum L {n}): kernel {ms_cold:.4f} ms "
+              f"device time with L2 flushed ({ms_cold / bd['bound_ms']:.2f}x "
+              f"the bound), {ms:.4f} ms back to back ({wrapper_ms:.4f} ms a "
+              f"wrapper call, CUDA events), plain {plain_ms:.4f} ms; bound "
+              f"{bd['bound_ms']:.5f} ms ({bd['bound_by']}); no torch call "
+              f"reads a block table")
     ms, plain_ms, bd, ms_cold = res["ragged"]
     return {"name": "paged_attention", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/paged_attention.cu",
             "replaces": "unilm_tpu/ops/paged_attention.py:44",
-            "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, **bd, "ms_l2_flushed": ms_cold,
-            "ms_8x2047": res["8x2047"][0],
-            "ms_l2_flushed_8x2047": res["8x2047"][3],
+            "max_abs_err": worst, "ms": ms_cold, "plain_ms": plain_ms,
+            "library_ms": None, **bd, "ms_back_to_back": ms,
+            "ms_8x2047": res["8x2047"][3],
+            "ms_back_to_back_8x2047": res["8x2047"][0],
             "plain_ms_8x2047": res["8x2047"][1],
             "bound_ms_8x2047": res["8x2047"][2]["bound_ms"],
-            "shape": f"B8 H16 D96 page64 bf16, lengths {PAGED_LENGTHS}"}
+            "shape": f"B8 H16 D96 page64 bf16, lengths {PAGED_LENGTHS}, "
+                     f"L2 flushed"}
 
 
 # The PagePool path at kosmos2_5()'s decoder width: 24 layers, each with its
@@ -3485,7 +3553,7 @@ def phase_page_pool() -> dict:
           f" bf16 ({gb / 1e9:.2f} GB of K+V); prompts {POOL_PROMPTS} in "
           f"128-token chunks: {pools[0].pages_in_use} pages in use, seq 0's "
           f"table starts {pools[0].block_table('s0')[:6].tolist()}")
-    groups = [("#11", ["decode_kernel"]),
+    groups = [("#11", [PAGED_ONLY, "decode_kernel"]),
               ("index_put", ["index_put", "index_elementwise"]),
               ("copies", ["Memcpy", "memcpy"])]
 

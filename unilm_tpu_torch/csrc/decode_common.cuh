@@ -1,10 +1,9 @@
 // One-token decode attention on CUDA cores, shared by
 // csrc/decode_attention.cu (fp32 pools only: mode RUN),
 // csrc/paged_append_attention.cu (block tables, row write) and
-// csrc/paged_attention.cu (block tables, read only). Hopper (sm_90a). The
-// bf16 and int8 runs of #13 take decode_attention.cu's split walk
-// (`decode_run_split_sm90`), not this kernel; the block-table modes could
-// take the same walk later.
+// csrc/paged_attention.cu (block tables, read only: fp32 pools only).
+// Hopper (sm_90a). The bf16 and int8 runs of #13 and #11's bf16 pools take
+// the split walk of csrc/decode_split.cuh, not this kernel.
 //
 // One block per (sequence b, head h), 32 warps. Warps walk 32-token tiles
 // of the sequence in parallel with an fp32 online softmax; each lane loads
@@ -13,8 +12,8 @@
 // once; the warps' (max, sum, acc) states are merged through shared memory.
 //
 // Modes (the TPU kernel each one stands for is named in the .cu files;
-// this kernel runs RUN for fp32 pools, TABLE and TABLE_RO; RUN_I8, and RUN
-// for bf16 pools, are decode_attention.cu's split walk, to the same
+// this kernel runs RUN and TABLE_RO for fp32 pools, and TABLE; RUN_I8,
+// and RUN and TABLE_RO for bf16 pools, are the split walk's, to the same
 // contracts):
 //   RUN    tokens 0..L of a contiguous run from page bases[b]; the caller has
 //          written row L; its probability enters the PV sum unrounded, the

@@ -10,8 +10,9 @@
 // (#3), csrc/encoder_attention_bwd.cu (#4), csrc/onepass_attention.cu (#5),
 // csrc/flash_bwd.cu (#6, #7), csrc/flash_bwd_fused.cu (#8: products with
 // both operands transposed, the bulk reduce-add of fp32 tiles),
-// csrc/doc_attention.cu (#9), csrc/doc_attention_bwd.cu (#10) and
-// csrc/decode_attention.cu (#13: 3-D maps, clusters).
+// csrc/doc_attention.cu (#9), csrc/doc_attention_bwd.cu (#10),
+// csrc/decode_attention.cu (#13: 3-D maps, clusters), csrc/paged_attention.cu
+// (#11, both through csrc/decode_split.cuh) and csrc/int8_matmul.cu (#14).
 //
 // The host side takes cuTensorMapEncodeTiled through
 // cudaGetDriverEntryPoint, so the libraries need no -lcuda, and encodes

@@ -182,6 +182,18 @@ def check_tensor(name: str, t: torch.Tensor, *, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+_SM_COUNT: Dict[torch.device, int] = {}
+
+
+def sm_count(dev) -> int:
+    """The streaming multiprocessors of CUDA device `dev`, which the
+    kernels' plans size their grids by (looked up once a device)."""
+    if dev not in _SM_COUNT:
+        _SM_COUNT[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _SM_COUNT[dev]
+
+
 def ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 

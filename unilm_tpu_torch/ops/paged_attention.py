@@ -29,6 +29,9 @@ or raises.
 The bf16 and int8 runs launch the split walk of csrc/decode_attention.cu,
 whose head groups and token splits `decode_split_plan` gives
 (tests/test_torch_decode_split.py pins the plan and emulates the walk).
+bf16 block tables take the same walk with splits by tokens
+(csrc/paged_attention.cu; `paged_split_plan`, pinned and emulated by
+tests/test_torch_paged_split_plan.py).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ from typing import Optional
 import torch
 
 from unilm_tpu_torch.ops._native import (
-    I, P, CudaKernel, check_tensor, ptr, stream)
+    I, P, CudaKernel, check_tensor, ptr, sm_count, stream)
 
 SUPPORTED_D = (64, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -55,9 +58,9 @@ KERNEL_INT8 = CudaKernel("decode_attention.cu", {
     "decode_attention_int8": [P] * 9 + [I] * 11 + [P],
 })
 PAGED_KERNEL = CudaKernel("paged_attention.cu", {
-    # q, k_pool, v_pool, tables, lengths, out, B, H, D, page, max_pages,
-    # num_pages, dtype, stream
-    "paged_attention": [P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    # q, k_pool, v_pool, tables, lengths, out, part, tickets, B, H, D, page,
+    # max_pages, num_pages, dtype, ngrp, nst, xs, floor, target, stream
+    "paged_attention": [P] * 8 + [I] * 12 + [P],
 })
 APPEND_KERNEL = CudaKernel("paged_append_attention.cu", {
     # q, k_pool, v_pool, tables, lengths, k_new, v_new, out, B, H, D, page,
@@ -76,6 +79,15 @@ APPEND_KERNEL = CudaKernel("paged_append_attention.cu", {
 SPLIT_TILE = 32
 SPLIT_WARPS = 15  # consumer warps a block (with the producer, 512 threads)
 SPLIT_RING = 96 * 1024  # ring bytes
+
+
+def _walk_geometry(D: int, itemsize: int) -> tuple:
+    """(ngrp, nst) of the split walk: token groups of one consumer warp
+    and ring stages (a multiple of ngrp) in SPLIT_RING bytes, stages of
+    2 * SPLIT_TILE * D * itemsize bytes."""
+    stage = 2 * SPLIT_TILE * D * itemsize
+    ngrp = min(SPLIT_WARPS, max(1, SPLIT_RING // stage))
+    return ngrp, ngrp * max(1, SPLIT_RING // (stage * ngrp))
 
 
 def decode_split_plan(B: int, H: int, L: int, n_sm: int, D: int = 96,
@@ -99,9 +111,7 @@ def decode_split_plan(B: int, H: int, L: int, n_sm: int, D: int = 96,
       to group i % ngrp."""
     per_sm, cap = (1, 6) if itemsize == 1 else (2, 8)
     nsplit = min(cap, max(1, per_sm * n_sm // (B * H)))
-    stage = 2 * SPLIT_TILE * D * itemsize
-    ngrp = min(SPLIT_WARPS, max(1, SPLIT_RING // stage))
-    nst = ngrp * max(1, SPLIT_RING // (stage * ngrp))
+    ngrp, nst = _walk_geometry(D, itemsize)
     n = max(L, 0)
     span = -(-(-(-n // nsplit)) // SPLIT_TILE) * SPLIT_TILE
     ranges = [(min(n, s * span), min(n, s * span + span)) for s in range(nsplit)]
@@ -112,15 +122,93 @@ def decode_split_plan(B: int, H: int, L: int, n_sm: int, D: int = 96,
             "tiles": tiles}
 
 
+# #11's walk over block tables (csrc/paged_attention.cu `paged_split_sm90`):
+# the split walk's blocks, but splits by tokens. The grid holds
+# ceil(max_pages * page / PAGED_SPAN_FLOOR) splits a sequence; the span
+# never falls below the floor, one ring's worth of tiles at D = 96.
+PAGED_SPAN_FLOOR = 256
+
+
+def paged_split_plan(lengths, H: int, D: int, page: int, max_pages: int,
+                     n_sm: int) -> dict:
+    """The bf16 walk's plan for sequences of `lengths` tokens (the kernel
+    computes it on the card from the lengths there; this is its mirror):
+    - `span`: tokens a block walks at most, one for the launch:
+      max(PAGED_SPAN_FLOOR, ceil(H * sum n / (2 n_sm)) rounded up to whole
+      SPLIT_TILE tiles), n = the length clamped to [0, max_pages * page],
+      so that the blocks number about two an SM;
+    - `xs`: splits a sequence at most, ceil(max_pages * page / floor);
+      `target` = 2 n_sm; `grid` = min(xs * B * H, target + B * H) blocks
+      (a sequence's last split and an empty sequence's zeros add at most
+      one block a head to the target);
+    - `ngrp`, `nst`: the split walk's token groups and ring stages;
+    - `box`: rows a TMA box, SPLIT_TILE where pages hold a multiple of it,
+      else 16 (a tile is then two boxes, each inside one page);
+    - `splits[b]`: [t0, t1) of each of ceil(n_b / span) splits, none for
+      n_b = 0;
+    - `tiles[b][s]`: split s's tiles as (token group, a, b, boxes), tile i
+      to group i % ngrp, boxes = the (table entry, offset in the page) the
+      producer loads; a 16-row box wholly past the split is left out;
+    - `blocks`: the kernel's numbering of the blocks with work: (b, h,
+      split) for every split of every sequence, sequence by sequence,
+      split by split, head by head; the remaining blocks of the grid have
+      none;
+    - `zeros`: the heads (b, h) of the empty sequences, in order, whose
+      zeros blocks 0, 1, .. write besides their work."""
+    max_tok = max_pages * page
+    ns_ = [min(max(int(L), 0), max_tok) for L in lengths]
+    B = len(ns_)
+    xs = -(-max_tok // PAGED_SPAN_FLOOR)
+    target = 2 * n_sm
+    want = -(-(H * sum(ns_)) // target)
+    span = max(PAGED_SPAN_FLOOR, -(-want // SPLIT_TILE) * SPLIT_TILE)
+    ngrp, nst = _walk_geometry(D, 2)
+    box = SPLIT_TILE if page % SPLIT_TILE == 0 else SPLIT_TILE // 2
+    splits, tiles, blocks = [], [], []
+    for b, n in enumerate(ns_):
+        sp = [(t0, min(n, t0 + span)) for t0 in range(0, n, span)]
+        splits.append(sp)
+        tb = []
+        for t0, t1 in sp:
+            tl = []
+            for i, a in enumerate(range(t0, t1, SPLIT_TILE)):
+                boxes = [(x // page, x % page)
+                         for x in range(a, a + SPLIT_TILE, box) if x < t1]
+                tl.append((i % ngrp, a, min(t1, a + SPLIT_TILE), boxes))
+            tb.append(tl)
+        tiles.append(tb)
+        blocks += [(b, h, s) for s in range(len(sp)) for h in range(H)]
+    zeros = [(b, h) for b, n in enumerate(ns_) if n == 0 for h in range(H)]
+    return {"span": span, "xs": xs, "grid": min(xs * B * H, target + B * H),
+            "target": target, "floor": PAGED_SPAN_FLOOR, "ngrp": ngrp,
+            "nst": nst, "box": box, "splits": splits, "tiles": tiles,
+            "blocks": blocks, "zeros": zeros}
+
+
 _PLANS = {}
+_WORKSPACE = {}
+
+
+def _paged_workspace(dev, heads: int, floats: int) -> tuple:
+    """(part, tickets) for #11's bf16 walk on `dev`: at least `floats`
+    fp32 for the splits' partials (m, l, acc[D]) and `heads` int32
+    tickets. The tickets start at zero and every launch leaves them at
+    zero, so one buffer serves the launches on the device's stream in
+    turn, and no launch pays for a memset."""
+    part, tickets = _WORKSPACE.get(dev, (None, None))
+    if part is None or part.numel() < floats:
+        part = torch.empty(floats, dtype=torch.float32, device=dev)
+    if tickets is None or tickets.numel() < heads:
+        tickets = torch.zeros(heads, dtype=torch.int32, device=dev)
+    _WORKSPACE[dev] = (part, tickets)
+    return part, tickets
 
 
 def _split_plan(B: int, H: int, D: int, itemsize: int, dev) -> tuple:
     """(nsplit, ngrp, nst) of the split walk on device `dev`."""
     key = (B, H, D, itemsize, dev)
     if key not in _PLANS:
-        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        plan = decode_split_plan(B, H, 0, n_sm, D, itemsize)
+        plan = decode_split_plan(B, H, 0, sm_count(dev), D, itemsize)
         _PLANS[key] = tuple(plan[k] for k in ("nsplit", "ngrp", "nst"))
     return _PLANS[key]
 
@@ -447,9 +535,10 @@ def paged_decode_attention(
     """One-token decode attention over the lengths[b] tokens of each
     sequence's block table; reads the pools, writes nothing. Returns
     [B, 1, H, D] in q's dtype. On CUDA, q and the pools share one dtype
-    (float32 or bfloat16) and D is in SUPPORTED_D; tables and lengths are
-    cast to int32 on q's device, and every entry a sequence's length
-    reaches names a page of the pool."""
+    (float32 or bfloat16), D is in SUPPORTED_D and bf16 pages hold a
+    multiple of 16 tokens; tables and lengths are cast to int32 on q's
+    device, and every entry a sequence's length reaches names a page of
+    the pool."""
     if q.device.type == "cpu":
         return paged_decode_attention_plain(q, k_pool, v_pool, block_tables,
                                             lengths, scale)
@@ -466,6 +555,10 @@ def paged_decode_attention(
     vp = v_pool.reshape(Pn, page, H * D)
     qs = (q[:, 0] * scale).contiguous()
     B, H, D, Pn, page, dev = _check_decode_args(qs, kp, vp, qs.dtype)
+    if qs.dtype == torch.bfloat16 and page % 16:
+        raise ValueError(f"paged_decode_attention: bf16 pools take pages of a "
+                         f"multiple of 16 tokens (the JAX kernel's "
+                         f"kernel_supported), got {page}")
     MP = block_tables.shape[1]
     tables = block_tables.to(dev, torch.int32).contiguous()
     lens = lengths.to(dev, torch.int32).contiguous()
@@ -473,7 +566,14 @@ def paged_decode_attention(
                  device=dev)
     check_tensor("lengths", lens, dtype=torch.int32, shape=(B,), device=dev)
     out = torch.empty((B, H, D), dtype=qs.dtype, device=dev)
+    part = tickets = None
+    plan = (0, 0, 0, 0, 0)  # fp32: the CUDA-core body takes none
+    if qs.dtype == torch.bfloat16:
+        xs = -(-MP * page // PAGED_SPAN_FLOOR)
+        part, tickets = _paged_workspace(dev, B * H, B * H * xs * (D + 2))
+        plan = (*_walk_geometry(D, 2), xs, PAGED_SPAN_FLOOR, 2 * sm_count(dev))
     PAGED_KERNEL.launch("paged_attention", ptr(qs), ptr(kp), ptr(vp),
-                        ptr(tables), ptr(lens), ptr(out), B, H, D, page, MP,
-                        Pn, _DTYPE_CODE[qs.dtype], stream())
+                        ptr(tables), ptr(lens), ptr(out), ptr(part),
+                        ptr(tickets), B, H, D, page, MP, Pn,
+                        _DTYPE_CODE[qs.dtype], *plan, stream())
     return out[:, None]

@@ -7,7 +7,9 @@ one f32 scale per channel. The projection computes x @ float(W) with an
 fp32 accumulator, multiplies by the scales once and casts to x's dtype
 once. On a CUDA tensor `int8_matmul` launches the hand-written kernel in
 csrc/int8_matmul.cu; on a CPU tensor `int8_matmul_plain` computes the
-same thing in plain torch.
+same thing in plain torch. bf16 x runs on the tensor cores with a split-K
+plan (`int8_matmul_plan`, tests/test_torch_int8_matmul_plan.py pins it
+and emulates it against the JAX kernel); fp32 x on the CUDA cores.
 
 Layout: the port stores W as [N, K] (the torch Linear layout, `weight_i8`)
 where the JAX package stores `kernel_i8` [K, N]; convert/from_jax.py
@@ -28,14 +30,91 @@ import numpy as np
 import torch
 from torch import nn
 
-from unilm_tpu_torch.ops._native import I, P, CudaKernel, check_tensor, ptr, stream
+from unilm_tpu_torch.ops._native import (
+    I, P, CudaKernel, check_tensor, ptr, sm_count, stream)
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 KERNEL = CudaKernel("int8_matmul.cu", {
-    # x, w, scale, out, M, N, K, dtype, stream
-    "int8_matmul": [P, P, P, P, I, I, I, I, P],
+    # x, w, scale, out, M, N, K, dtype, mt, ksplit, nst, stream
+    "int8_matmul": [P, P, P, P, I, I, I, I, I, I, I, P],
 })
+
+# The bf16 kernel (csrc/int8_matmul.cu `hop::int8_mm_sm90`): a block takes
+# INT8_CHANNELS output channels (wgmma's 64 rows), `mt` rows of x (its N
+# side) and one of `ksplit` ranges of whole INT8_CHUNK-wide K chunks; the
+# splits of a channel tile are one thread block cluster, merged in split
+# order. A ring stage holds one chunk: the W box [64][128] int8 and the x
+# rows [mt][128] bf16; INT8_PRODUCERS warps fill the stages in turn.
+INT8_CHANNELS = 64
+INT8_CHUNK = 128
+INT8_PRODUCERS = 4
+INT8_MAX_SPLIT = 8  # a portable cluster
+INT8_RING = 96 * 1024  # ring bytes a block at most
+
+
+def int8_matmul_plan(M: int, N: int, K: int, n_sm: int) -> dict:
+    """The bf16 kernel's tiles for x [M, K] @ W[N, K]^T on `n_sm` SMs:
+    - `channel_tile`: output channels a block (64, wgmma's M side);
+    - `mt` (the N tile of the swapped product): rows of x a block, 8 for
+      M <= 8, else 16, 32 or 64; `m_tiles` = ceil(M / mt) over grid.z;
+    - `ksplit`: K ranges a channel tile, the cluster: about two blocks an
+      SM, floor(2 n_sm / (channel tiles * m_tiles)), at least 1, at most 8
+      and the chunks there are; then as few as cover the chunks at
+      `chunks` = ceil(chunks / ksplit) each, so that no split is empty;
+    - `stages`: ring stages, a chunk each, a multiple of INT8_PRODUCERS
+      (a stage is always filled by the same producer warp), at most
+      INT8_RING bytes where that allows more than INT8_PRODUCERS, and no
+      more than a split's chunks rounded up to it (then every chunk is in
+      flight at once);
+    - `k_ranges`: [k0, k1) of each split, the last one short;
+    - `blocks`: channel tiles * ksplit * m_tiles."""
+    mt = 8 if M <= 8 else 16 if M <= 16 else 32 if M <= 32 else 64
+    m_tiles = -(-M // mt)
+    tiles = -(-N // INT8_CHANNELS)
+    nchunk = -(-K // INT8_CHUNK)
+    ksplit = max(1, min(INT8_MAX_SPLIT, nchunk,
+                        (2 * n_sm) // (tiles * m_tiles)))
+    chunks = -(-nchunk // ksplit)
+    ksplit = -(-nchunk // chunks)
+    stage = INT8_CHANNELS * INT8_CHUNK + mt * 2 * INT8_CHUNK
+    G = INT8_PRODUCERS
+    stages = G * max(1, min(-(-chunks // G), INT8_RING // (stage * G)))
+    k_ranges = [(s * chunks * INT8_CHUNK,
+                 min(K, (s + 1) * chunks * INT8_CHUNK)) for s in range(ksplit)]
+    return {"channel_tile": INT8_CHANNELS, "mt": mt, "m_tiles": m_tiles,
+            "ksplit": ksplit, "chunks": chunks, "stages": stages,
+            "k_ranges": k_ranges, "blocks": tiles * ksplit * m_tiles}
+
+
+def int8_k_order(K: int) -> torch.Tensor:
+    """The order in which the bf16 kernel's products take K: position j of
+    chunk c (INT8_CHUNK wide) holds column c * INT8_CHUNK + perm(j). In a
+    chunk, thread t of a quad reads the W bytes w t .. w t + w - 1 of its
+    rows (w = INT8_CHUNK / 4), byte w t + 4 s + u standing for column
+    2 t + (u & 1) + 8 (u >> 1) of the chunk's k-step s; x's staged row is
+    permuted the same way. Columns past K (a short last chunk) are left
+    out."""
+    j = torch.arange(INT8_CHUNK)
+    s, c = j // 16, j % 16
+    t, u = (c % 8) // 2, (c % 2) + 2 * (c // 8)
+    perm = INT8_CHUNK // 4 * t + 4 * s + u
+    order = (torch.arange(-(-K // INT8_CHUNK))[:, None] * INT8_CHUNK
+             + perm[None]).reshape(-1)
+    return order[order < K]
+
+
+_PLANS = {}
+
+
+def _plan(M: int, N: int, K: int, dev) -> tuple:
+    """(mt, ksplit, stages) of the bf16 kernel on device `dev`."""
+    key = (M, N, K, dev)
+    if key not in _PLANS:
+        plan = int8_matmul_plan(M, N, K, sm_count(dev))
+        _PLANS[key] = (plan["mt"], plan["ksplit"], plan["stages"])
+    return _PLANS[key]
+
 
 # the decoder-layer projections ServingEngine quantizes
 # (unilm_tpu/runtime/serving.py:573)
@@ -90,8 +169,12 @@ def int8_matmul(x: torch.Tensor, w_i8: torch.Tensor,
     check_tensor("w_i8", w_i8, dtype=torch.int8, shape=(N, K), device=dev)
     check_tensor("scale", scale, dtype=torch.float32, shape=(N,), device=dev)
     out = torch.empty((M, N), dtype=x.dtype, device=dev)
+    # bf16 with K % 16 == 0: the wgmma kernel's plan; otherwise the
+    # CUDA-core kernel, which takes none
+    plan = (_plan(M, N, K, dev) if x.dtype == torch.bfloat16 and K % 16 == 0
+            else (0, 0, 0))
     KERNEL.launch("int8_matmul", ptr(x2), ptr(w_i8), ptr(scale), ptr(out),
-                  M, N, K, _DTYPE_CODE[x.dtype], stream())
+                  M, N, K, _DTYPE_CODE[x.dtype], *plan, stream())
     return out.reshape(*lead, N)
 
 
