@@ -141,6 +141,32 @@ Phases, one line each:
     tower, #1 only in the resampler, features against the plain path, and
     its device time split (#9, #1, cuBLAS, other); TTFT for both paths; a
     device-time profile.
+    decode_int8_bs1: bench.py line 4 at full width: kosmos2_5 bf16
+    without the tower, scanned, the text decoder's projections and the LM
+    head int8 (kosmos_infer --int8's quantization) and the KV pool int8;
+    a 2052-token prompt, a cache of 2052 + 4000 slots, 64 greedy steps
+    through runtime.generate: exactly 24 launches of #1 and 144 + 1 of
+    #14 in the prefill, 24 of #13-int8 and 145 of #14 a step; ms/token on
+    the host clock over the 64 steps (3 rounds), the prefill time, device
+    time a step by group (#14 on the layers, #14 at the head timed alone,
+    #13-int8, cuBLAS, other) and the busy share; the plain path
+    teacher-forced (8 steps); #14 alone at the head (M1 and M5 x K1536 x
+    N108481, the last 64-channel tile holding one channel) and at the
+    prefill's M2052, against int8_matmul_plain, timed back to back and
+    with L2 flushed beside the bound and a dequantized-W bf16 cuBLAS
+    product; #13-int8 alone at B1 L2052 and at kosmos_infer's B5 L2053
+    (a 2116-slot cache) against its plain version, the three pools
+    bit-equal, with its split count.
+    kosmos_infer: cli/kosmos_infer.py's build_pipeline at full width with
+    --int8 --beam 5 --max_new_tokens 64 (random weights) on patches made
+    on the card: 4096 slots (43 launches of #1 a TTFT), then 2048 slots
+    (18 of #9 in the tower); 24 of #13-int8 and 145 of #14 a beam step;
+    --beam 1 equal to beam search of width 1; two beam steps at B=5, a
+    `_gather_beams` that duplicates a parent between them, held against
+    the plain path (logits within LOGIT_ATOL, argmax agreement); the best
+    beam's score recomputed teacher-forced on the plain path (a secondary
+    check); the beam step's device time by group, `_gather_beams`' pool
+    copy its own group.
     yoco_chat: yoco_base (12 sliding-window + 12 cross layers, E=1024, 16
     heads, bf16 compute / fp32 params, random weights from the seed)
     through runtime.generate: B=8, a 128-token prompt, a 256-slot cache,
@@ -161,8 +187,9 @@ Phases, one line each:
     and a bf16 cuBLAS product with a dequantized copy of W (a yardstick
     only).
  7. decode_int8: the int8-KV run-decode kernel against its plain version,
-    B=8, lengths up to 2111 and the edges of the B=8 split plan; pools and
-    scale sidecar bit-equal; timed back to back and with L2 flushed.
+    B=8, lengths up to 2111 and the edges of the B=8 split plan, then the
+    short caches' page 16, chunk 2 at B=8 and B=1; pools and scale sidecar
+    bit-equal; timed back to back and with L2 flushed.
  8. paged_append: the block-table append-decode kernel against its plain
     version, B=8 on scattered tables with two inactive slots; non-trash
     pool pages bit-equal.
@@ -238,12 +265,15 @@ Phases, one line each:
     TFLOP/s, peak memory, a device-time profile (#2, #8, cuBLAS, other,
     optimizer), and a teacher check of one microbatch under both
     schedules against the default kernels at the train phase's bounds.
-Then a JSON line with each kernel's launches (from its main-path phase,
-counters set to 0 just before it: slice for flash_fwd and decode,
+Then a JSON line of the two int8 paths' measurements ("paths"), and one
+with each kernel's launches, summed over its main-path phases and listed
+by phase in `launches_by_path` (counters set to 0 just before each: slice,
+decode_int8_bs1 and kosmos_infer for flash_fwd, slice for decode,
 yoco_chat for onepass_attention,
 beit_eval for encoder_attention, beit_train for encoder_attention_bwd,
-layoutlmv3_eval for doc_attention, layoutlmv3_train for doc_attention_bwd,
-the engines for the int8 and block-table kernels, train for flash_bwd_dq
+layoutlmv3_eval and kosmos_infer for doc_attention, layoutlmv3_train
+for doc_attention_bwd, the engines, decode_int8_bs1 and kosmos_infer for
+the int8 kernels, the engines for the block-table kernel, train for flash_bwd_dq
 and flash_bwd_dkv, train_schedules for flash_tri and flash_bwd_fused,
 page_pool for paged_attention, fused for swiglu and rotary),
 error,
@@ -3247,14 +3277,18 @@ def phase_decode_int8(pa, g) -> dict:
     """Kernel #13 on int8 pools (the split walk) against the plain version
     at B8: the lengths [0, 63, 64, 511, 1800, 2111, 1024, 2047] and the
     eight edges of the B8 split plan, within OUT_ATOL / OUT_RTOL, pools
-    and sidecar bit-equal. Then timed at the serving step's B8 L2047
-    (device time): the kernel alone back to back and with L2 flushed, and
-    the wrapper (quantize + append) beside the plain version."""
+    and sidecar bit-equal; the same at the short caches' page 16, chunk 2
+    (slabs of 32 tokens, caches under 1024 slots), B8 and B1. Then timed at
+    the serving step's B8 L2047 (device time): the kernel alone back to
+    back and with L2 flushed, and the wrapper (quantize + append) beside
+    the plain version."""
+    from unilm_tpu_torch.core.transformer import _scan_pool_geometry
+
     dev, bf = "cuda", torch.bfloat16
     H, D, page, chunk, PP, B = 16, 96, 64, 8, 40, 8
     P = B * PP + chunk
 
-    def pools():
+    def pools(P, page, chunk):
         kp = torch.randint(-127, 128, (P, page, H * D), generator=g,
                            device=dev, dtype=torch.int8)
         vp = torch.randint(-127, 128, (P, page, H * D), generator=g,
@@ -3266,15 +3300,13 @@ def phase_decode_int8(pa, g) -> dict:
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(bf)
 
-    bases = torch.arange(B, dtype=torch.int32, device=dev) * PP
-    worst = 0.0
-    edges = split_edges(pa, B, H, D, 1)
-    cases = [[0, 63, 64, 511, 1800, 2111, 1024, 2047], (edges * B)[:B]]
-    for lens in cases:
+    def held(lens, P, page, chunk, PP):
+        Bc = len(lens)
+        bases = torch.arange(Bc, dtype=torch.int32, device=dev) * PP
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-        kp, vp, sp = pools()
+        kp, vp, sp = pools(P, page, chunk)
         kp2, vp2, sp2 = kp.clone(), vp.clone(), sp.clone()
-        q, kn, vn = rn(B, 1, H, D), rn(B, 1, H, D), rn(B, 1, H, D)
+        q, kn, vn = rn(Bc, 1, H, D), rn(Bc, 1, H, D), rn(Bc, 1, H, D)
         out = pa.run_decode_append_attention(q, kn, vn, kp, vp, bases,
                                              lengths, PP, None, chunk,
                                              scale_pool=sp)[0]
@@ -3283,16 +3315,33 @@ def phase_decode_int8(pa, g) -> dict:
             scale_pool=sp2)[0]
         torch.cuda.synchronize()
         ok, err = close(out, ref, OUT_ATOL, OUT_RTOL)
+        where = f"decode_int8: page {page} chunk {chunk} lengths {lens}"
         check(ok and bool(torch.isfinite(out.float()).all()),
-              f"decode_int8: lengths {lens}: out err {err}")
+              f"{where}: out err {err}")
         check(torch.equal(kp, kp2) and torch.equal(vp, vp2)
               and torch.equal(sp, sp2),
-              f"decode_int8: lengths {lens}: pools or sidecar differ from "
-              f"the plain version's")
+              f"{where}: pools or sidecar differ from the plain version's")
+        return err, (q, kn, vn, kp, vp, sp, bases)
+
+    worst = 0.0
+    edges = split_edges(pa, B, H, D, 1)
+    cases = [[0, 63, 64, 511, 1800, 2111, 1024, 2047], (edges * B)[:B]]
+    for lens in cases:
+        err, (q, kn, vn, kp, vp, sp, bases) = held(lens, P, page, chunk, PP)
         worst = max(worst, err)
     phase("decode_int8", f"B{B} lengths {cases} H16 D96 page64 chunk8: out "
           f"max|err| {worst:.3g} (tol {OUT_ATOL} abs + {OUT_RTOL} rel), "
           f"pools and sidecar bit-equal ok")
+    # the short geometry: a 1000-slot cache's page 16, chunk 2, 64 pages a
+    # run; lengths at the page, slab and split edges and the run's end
+    page16, chunk16, PP16 = _scan_pool_geometry(1000)
+    cases16 = [[0, 15, 16, 31, 32, 511, 998, 999], [999]]
+    short = max(held(lens, len(lens) * PP16, page16, chunk16, PP16)[0]
+                for lens in cases16)
+    worst = max(worst, short)
+    phase("decode_int8", f"page {page16} chunk {chunk16} ({PP16} pages a "
+          f"run) lengths {cases16}: out max|err| {short:.3g}, pools and "
+          f"sidecar bit-equal ok")
 
     # B=8, every run at 2047 tokens: the serving step's shape
     L8 = torch.full((B,), 2047, dtype=torch.int32, device=dev)
@@ -3328,6 +3377,616 @@ def phase_decode_int8(pa, g) -> dict:
             "kernel_only_ms": kernel_ms,
             "kernel_only_ms_l2_flushed": kernel_cold, "library_ms": None,
             **bd, "shape": "B8 L2047 H16 D96 int8"}
+
+
+# bench.py line 4 (`bench_decode`): kosmos2_5 bf16 without the tower, the
+# scanned stack, int8 projections + int8 head + int8 KV; a prompt of 2052
+# tokens (all 4), a cache of 2052 + 4000 slots, 64 greedy steps.
+LINE4_PROMPT, LINE4_CACHE, LINE4_STEPS, LINE4_REPEATS = 2052, 2052 + 4000, 64, 3
+LINE4_TEACHER_STEPS = 8  # decode steps of the teacher-forced plain check
+# kosmos_infer --int8 --beam 5 at full width: 64 new tokens after the
+# 2052-token prompt (2048 image tokens), the tower over 4096 patch slots,
+# then once over 2048 slots (a 44 x 46 grid), where #9 takes the tower.
+INFER_BEAM, INFER_NEW = 5, 64
+INFER_SLOTS_2K, INFER_GRID_2K = 2048, (44, 46)
+# The best beam's length-normalised score (mean log-probability of its 64
+# tokens), recomputed teacher-forced on the plain path (use_flash=False,
+# the plain int8 matmul): both paths round bf16 activations through 24
+# layers, and the teacher check above bounds single logits by LOGIT_ATOL;
+# the mean of 64 log-probabilities moves far less. Readings on an H100
+# 80GB HBM3 at 700 W, beam score -4.8677: plain path 0.0194 off, the
+# kernel path at B=1 0.0010 off. A secondary check: no reading under a
+# faulty beam step has been taken, so the bound is not shown to reject
+# one; the B=5 step held logit for logit against the plain path is what
+# checks the beam step's rows.
+BEAM_SCORE_ATOL = 0.05
+
+
+def quantized_unigpt(cfg, sd, dev):
+    """kosmos_infer --int8's quantization of a UniGPT state dict: every
+    text-decoder projection and the LM head int8 (ops.quant.
+    quantize_state_dict, models.kosmos.quantize_lm_head_state_dict), the
+    KV pool int8; returns the model on `dev`."""
+    from unilm_tpu_torch.models.kosmos import (UniGPT,
+                                               quantize_lm_head_state_dict)
+    from unilm_tpu_torch.ops.quant import quantize_state_dict
+
+    sd = quantize_lm_head_state_dict(quantize_state_dict(sd))
+    cfg = dataclasses.replace(cfg, quant_weights=True, quant_lm_head=True,
+                              kv_cache_dtype="int8", scan_layers=True)
+    model = UniGPT(cfg, device=dev).eval()
+    model.load_state_dict(sd, strict=True, assign=True)
+    return model
+
+
+def plain_twin(model):
+    """The same weights on the plain path: use_flash=False (the tower's
+    too) and every QuantDense on int8_matmul_plain."""
+    from unilm_tpu_torch.models.kosmos import UniGPT
+    from unilm_tpu_torch.ops.quant import QuantDense
+
+    cfg = model.cfg
+    cfg = dataclasses.replace(cfg, use_flash=False, pix2struct=(
+        dataclasses.replace(cfg.pix2struct, use_flash=False)))
+    plain = UniGPT(cfg, device="cuda").eval()
+    plain.load_state_dict(model.state_dict(), strict=True, assign=True)
+    for m in plain.modules():
+        if isinstance(m, QuantDense):
+            m.use_kernel = False
+    return plain
+
+
+# kernel groups of an int8 decode step's profile
+STEP_GROUPS = [("#14", [INT8_ONLY, "int8_matmul"]), ("#13-int8", [DECODE_ONLY]),
+               ("#1", ["flash_fwd"]),
+               ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                           "splitK"])]
+
+
+def profile_steps(fn, n: int) -> tuple:
+    """Device time (ms) by STEP_GROUPS of n calls of fn (after one untimed
+    call), per call, and the four costliest kernels of "other" (name, ms
+    a call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    groups = device_time_shares(prof, STEP_GROUPS)
+    named = [sub for _, subs in STEP_GROUPS for sub in subs]
+    other = sorted(((t / n, k) for k, t in device_kernel_times(prof).items()
+                    if not any(s in k for s in named)), reverse=True)[:4]
+    return ({k: v / n for k, v in groups.items()},
+            [(k[:60], t) for t, k in other])
+
+
+def int8_case(qm, x, w, scale) -> tuple:
+    """#14 against int8_matmul_plain on x [M, K], W [N, K]: (max|err|,
+    ratio to the tolerance of phase_int8_matmul, the error's max over the
+    last 64-channel tile), checked <= 1, and two runs bit-equal."""
+    out = qm.int8_matmul(x, w, scale)
+    again = qm.int8_matmul(x, w, scale)
+    ref = qm.int8_matmul_plain(x, w, scale)
+    K = x.shape[1]
+    order = K * 2.0 ** -24 * (x.float().abs() @ w.float().abs().t()) * scale
+    err = (out.float() - ref.float()).abs()
+    ratio = float((err / (ulp_tol(ref, 2) + order)).max())
+    tile = (w.shape[0] - 1) // 64 * 64
+    shape = f"M{x.shape[0]} K{K} N{w.shape[0]}"
+    check(bool(torch.isfinite(out.float()).all()) and ratio <= 1.0,
+          f"int8_matmul {shape}: max|err| {float(err.max())}, {ratio:.3f} "
+          f"of the tolerance")
+    check(torch.equal(out, again), f"int8_matmul {shape}: two runs differ")
+    return float(err.max()), ratio, float(err[:, tile:].max())
+
+
+def int8_times(qm, x, w, scale) -> dict:
+    """Device time of #14 on x, W back to back and with L2 flushed, the
+    plain version, a bf16 cuBLAS product with a dequantized copy of W (a
+    yardstick: twice the weight bytes, the copy made outside the timing)
+    and the bound."""
+    M, K = x.shape
+    N = w.shape[0]
+    call = lambda: qm.int8_matmul(x, w, scale)
+    wd = (w.float() * scale[:, None]).to(torch.bfloat16)
+    out = {"ms": device_ms(call, only=INT8_ONLY),
+           "ms_l2_flushed": cold_ms(call, INT8_ONLY),
+           "plain_ms": device_ms(lambda: qm.int8_matmul_plain(x, w, scale),
+                                 iters=5),
+           "dequant_bf16_cublas_ms": device_ms(lambda: x @ wd.t()),
+           "dequant_bf16_cublas_ms_l2_flushed": cold_ms(lambda: x @ wd.t()),
+           **roofline(N * K + N * 4 + M * K * 2 + M * N * 2, 2 * M * N * K)}
+    del wd
+    return out
+
+
+def phase_decode_int8_bs1(qm, pa, g) -> tuple:
+    """bench.py line 4 at full width through runtime.generate: the 2052-
+    token prefill (24 launches of #1, 144 + 1 of #14) and 64 greedy steps
+    (24 of #13-int8 and 145 of #14 each); ms/token on the host clock over
+    the 64 steps in LINE4_REPEATS rounds; device time a step by kernel
+    group (the head's #14 timed alone) and the busy share; the plain path
+    teacher-forced; #14 alone at the head's M1 and M5 x K1536 x N108481
+    and at the prefill's M2052 against the plain version, timed beside
+    its bound and a dequantized-W cuBLAS product; #13-int8 alone at B1
+    L2052. Returns (launches, extra fields for the kernels line)."""
+    from unilm_tpu_torch.core.transformer import _scan_pool_geometry
+    from unilm_tpu_torch.models.kosmos import (
+        UniGPT, kosmos2_5, make_unigpt_generate_fns)
+    from unilm_tpu_torch.runtime.generate import GenerationConfig, generate
+
+    dev, name = "cuda", "decode_int8_bs1"
+    cfg0 = kosmos2_5(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                     image_tower=None, scan_layers=True,
+                     kv_cache_dtype="int8")
+    base = UniGPT(cfg0, device=dev)
+    base.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+    model = quantized_unigpt(cfg0, base.state_dict(), dev)
+    del base
+    torch.cuda.empty_cache()
+    cfg, L, T = model.cfg, cfg0.num_layers, LINE4_PROMPT
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in model.state_dict().values())
+    phase(name, f"kosmos2_5 bf16, no tower, scanned, int8 projections + "
+          f"head + KV: {L} layers, vocab {cfg.vocab_size}, {n_bytes / 1e9:.3f}"
+          f" GB of weights; prompt {T} tokens, cache {LINE4_CACHE} slots")
+    tokens = torch.full((1, T), 4, dtype=torch.long, device=dev)
+    prefill, step = make_unigpt_generate_fns(model, LINE4_CACHE)
+    per_fwd = L * PROJECTIONS_PER_LAYER + 1
+
+    # ---- the main path: prefill + 64 greedy steps through generate -----
+    seen = {}
+
+    def pf(tok, aux):
+        out = prefill(tok, aux)
+        torch.cuda.synchronize()
+        seen["prefill"] = counts()
+        return out
+
+    calls = {"step": 0}
+
+    def st(tok, c, aux):
+        calls["step"] += 1
+        return step(tok, c, aux)
+
+    gcfg = GenerationConfig(beam_size=1, max_new_tokens=LINE4_STEPS + 1,
+                            min_new_tokens=LINE4_STEPS + 1,
+                            vocab_size=cfg.vocab_size)
+    reset_counts()
+    toks, lengths = generate(gcfg, pf, st, tokens)
+    torch.cuda.synchronize()
+    got, pre = counts(), seen["prefill"]
+    S = calls["step"]
+    check(S == LINE4_STEPS and tuple(toks.shape) == (1, T + S + 1)
+          and int(lengths[0]) == T + S + 1, f"{name}: {S} steps, tokens "
+          f"{tuple(toks.shape)}")
+    check(pre["flash_fwd"] == L and pre["int8_matmul"] == per_fwd
+          and pre["decode_attention_int8"] == 0,
+          f"{name}: prefill launches {pre} (want {L} of #1, {per_fwd} of "
+          f"#14)")
+    check(got["decode_attention_int8"] == L * S
+          and got["int8_matmul"] == per_fwd * (S + 1)
+          and got["flash_fwd"] == L and got["decode_attention"] == 0
+          and got["onepass_attention"] == 0,
+          f"{name}: launches {got} (want {L} x {S} of #13-int8, {per_fwd} x "
+          f"{S + 1} of #14, {L} of #1)")
+    launches = {k: got[k] for k in ("flash_fwd", "int8_matmul",
+                                    "decode_attention_int8")}
+    phase(name, f"generate: prefill + {S} greedy steps; launches #1 "
+          f"{got['flash_fwd']} (all in the prefill), #14 "
+          f"{got['int8_matmul']} ({per_fwd} a forward), #13-int8 "
+          f"{got['decode_attention_int8']} ({L} a step)")
+
+    # ---- ms/token on the host clock (bench.py's loop) -------------------
+    lg, c0 = prefill(tokens, None)
+    tok0 = lg[:, -1:].argmax(-1)
+
+    def loop():
+        tok, c = tok0, c0
+        for _ in range(LINE4_STEPS):
+            lg, c = step(tok, c, None)
+            tok = lg[:, -1:].argmax(-1)
+        return tok
+
+    loop()
+    torch.cuda.synchronize()
+    per_tok = []
+    for _ in range(LINE4_REPEATS):
+        t0 = time.time()
+        loop()
+        torch.cuda.synchronize()
+        per_tok.append((time.time() - t0) / LINE4_STEPS * 1e3)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    prefill(tokens, None)
+    ev[1].record()
+    torch.cuda.synchronize()
+    ttft = ev[0].elapsed_time(ev[1])
+
+    # ---- device time a step by group, the head alone, busy share ------
+    shares, top = profile_steps(lambda: step(tok0, c0, None), 4)
+    dev_step = sum(shares.values())
+    x1 = torch.randn(1, 1, cfg.embed_dim, generator=g, device=dev).to(
+        torch.bfloat16)
+    head_ms = device_ms(lambda: model.lm_head_q(x1), only=INT8_ONLY)
+    host = float(np.median(per_tok))
+    shares_split = {"#14 layers": shares["#14"] - head_ms,
+                    "#14 head": head_ms,
+                    **{k: v for k, v in shares.items() if k != "#14"}}
+    phase(name, f"ms/token (host clock, {LINE4_STEPS} steps, ctx {T + 1}.."
+          f"{T + LINE4_STEPS}): " + ", ".join(f"{t:.3f}" for t in per_tok)
+          + f"; prefill (TTFT, CUDA events) {ttft:.3f} ms")
+    phase(name, f"device time a step {dev_step:.4f} ms (busy share "
+          f"{100 * dev_step / host:.1f}% of {host:.3f} ms): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in shares_split.items())
+          + "; other's largest: " + ", ".join(f"{k} {t:.4f}" for k, t in top))
+
+    # ---- the plain path teacher-forced on the kernel path's tokens -----
+    plain = plain_twin(model)
+    ppf, pst = make_unigpt_generate_fns(plain, LINE4_CACHE)
+    c1 = counts()
+    klogits, plogits = [], []
+    lk, ck = prefill(tokens, None)
+    lp, cp = ppf(tokens, None)
+    klogits.append(lk)
+    plogits.append(lp)
+    for j in range(LINE4_TEACHER_STEPS):
+        t = toks[:, T + j:T + j + 1]
+        lk, ck = step(t, ck, None)
+        lp, cp = pst(t, cp, None)
+        klogits.append(lk)
+        plogits.append(lp)
+    torch.cuda.synchronize()
+    plain_launched = {k: counts()[k] - c1[k] for k in c1}
+    check(plain_launched["int8_matmul"] == per_fwd * (LINE4_TEACHER_STEPS + 1)
+          and plain_launched["decode_attention_int8"]
+          == L * LINE4_TEACHER_STEPS, f"{name}: teacher launches "
+          f"{plain_launched} (the kernel side only)")
+    errs = [float((a.float() - b.float()).abs().max())
+            for a, b in zip(klogits, plogits)]
+    agree = float(np.mean([bool((a.argmax(-1) == b.argmax(-1)).all())
+                           for a, b in zip(klogits, plogits)]))
+    check(max(errs) <= LOGIT_ATOL and agree >= ARGMAX_AGREE,
+          f"{name}: kernel vs plain logits max|err| {max(errs)}, argmax "
+          f"agreement {agree}")
+    phase(name, f"plain path teacher-forced: prefill logits max|err| "
+          f"{errs[0]:.4f}, {LINE4_TEACHER_STEPS} steps {max(errs[1:]):.4f} "
+          f"(tol {LOGIT_ATOL}), argmax agreement {agree:.3f}")
+    del plain, cp, ck, c0
+    torch.cuda.empty_cache()
+
+    # ---- #14 alone at the head (M1, M5) and the prefill's M2052 --------
+    w, scale = model.lm_head_q.weight_i8, model.lm_head_q.scale
+    N, K = w.shape
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    head = {}
+    for M in (1, INFER_BEAM):
+        x = torch.randn(M, K, generator=g, device=dev).to(torch.bfloat16)
+        err, ratio, tile_err = int8_case(qm, x, w, scale)
+        plan = qm.int8_matmul_plan(M, N, K, n_sm)
+        head[f"M{M} K{K} N{N}"] = {"max_abs_err": err,
+                                   "err_over_tol": ratio,
+                                   "last_tile_max_abs_err": tile_err,
+                                   "blocks": plan["blocks"],
+                                   "ksplit": plan["ksplit"],
+                                   **int8_times(qm, x, w, scale)}
+    for key, r in head.items():
+        phase(name, f"#14 at the head {key} ({r['blocks']} blocks, ksplit "
+              f"{r['ksplit']}; the last 64-channel tile holds "
+              f"{N - (N - 1) // 64 * 64} channel(s), max|err| there "
+              f"{r['last_tile_max_abs_err']:.3g}): max|err| "
+              f"{r['max_abs_err']:.3g} ({r['err_over_tol']:.3f} of the "
+              f"tolerance); device time {r['ms']:.4f} ms back to back, "
+              f"{r['ms_l2_flushed']:.4f} flushed, bound {r['bound_ms']:.4f} "
+              f"({r['bound_by']}; {r['ms_l2_flushed'] / r['bound_ms']:.2f}x), "
+              f"plain {r['plain_ms']:.4f}, dequantized-W bf16 cuBLAS "
+              f"{r['dequant_bf16_cublas_ms']:.4f} / "
+              f"{r['dequant_bf16_cublas_ms_l2_flushed']:.4f} flushed")
+    prefill_m = {}
+    for Kp, Np in INT8_SHAPES:
+        wp = torch.randint(-127, 128, (Np, Kp), generator=g, device=dev,
+                           dtype=torch.int8)
+        sp = ((torch.rand(Np, generator=g, device=dev) + 0.5)
+              * (2.0 / (127 * Kp ** 0.5)))
+        x = torch.randn(T, Kp, generator=g, device=dev).to(torch.bfloat16)
+        err, ratio, _ = int8_case(qm, x, wp, sp)
+        r = {"max_abs_err": err, "err_over_tol": ratio,
+             **int8_times(qm, x, wp, sp)}
+        prefill_m[f"M{T} K{Kp} N{Np}"] = r
+        phase(name, f"#14 at the prefill's M{T} K{Kp} N{Np}: max|err| "
+              f"{err:.3g} ({ratio:.3f} of the tolerance); device time "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, dequantized-W "
+              f"bf16 cuBLAS {r['dequant_bf16_cublas_ms']:.4f} "
+              f"({r['ms'] / r['dequant_bf16_cublas_ms']:.2f}x), bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+
+    # ---- #13-int8 alone at B1 L2052 (this phase's geometry) and at B5
+    # L2053 (kosmos_infer's beam step: 5 rows, a 2116-slot cache) -------
+    H, D = cfg.num_heads, cfg.embed_dim // cfg.num_heads
+    k13 = {}
+    for Bc, cache, Lc in ((1, LINE4_CACHE, T), (INFER_BEAM, T + INFER_NEW,
+                                                  T + 1)):
+        page, chunk, PP = _scan_pool_geometry(cache)
+        plan = pa.decode_split_plan(Bc, H, Lc, n_sm, D, 1)
+        spans = [t1 - t0 for t0, t1 in plan["ranges"]]
+        kp = torch.randint(-127, 128, (Bc * PP, page, H * D), generator=g,
+                           device=dev, dtype=torch.int8)
+        vp = torch.randint(-127, 128, (Bc * PP, page, H * D), generator=g,
+                           device=dev, dtype=torch.int8)
+        spool = (torch.rand(Bc * PP // chunk, 8, chunk * page, generator=g,
+                            device=dev) * 0.02 + 1e-3)
+        q, kn, vn = (torch.randn(Bc, 1, H, D, generator=g, device=dev).to(
+            torch.bfloat16) for _ in range(3))
+        bases = torch.arange(Bc, dtype=torch.int32, device=dev) * PP
+        lens = torch.full((Bc,), Lc, dtype=torch.int32, device=dev)
+        refs = [t.clone() for t in (kp, vp, spool)]
+        out = pa.run_decode_append_attention(q, kn, vn, kp, vp, bases, lens,
+                                             PP, None, chunk,
+                                             scale_pool=spool)[0]
+        ref = pa.run_decode_append_attention_plain(
+            q, kn, vn, *refs[:2], bases, lens, PP, None, chunk,
+            scale_pool=refs[2])[0]
+        torch.cuda.synchronize()
+        ok, err13 = close(out, ref, OUT_ATOL, OUT_RTOL)
+        key = f"B{Bc} L{Lc}"
+        check(ok and bool(torch.isfinite(out.float()).all())
+              and torch.equal(kp, refs[0]) and torch.equal(vp, refs[1])
+              and torch.equal(spool, refs[2]),
+              f"{name}: #13-int8 {key}: out err {err13} or pools differ")
+        # the splits tile [0, Lc) in order: each starts where the last ended
+        bounds = [0] + [t1 for _, t1 in plan["ranges"]]
+        check(all(t0 == bounds[i] for i, (t0, _) in enumerate(plan["ranges"]))
+              and bounds[-1] == Lc and spans[0] > 0,
+              f"{name}: #13-int8 {key}: split plan ranges {plan['ranges']}")
+        qs = (q[:, 0] * D ** -0.5).contiguous()
+        alone = lambda: pa.decode_attention_int8(
+            qs, kp, vp, bases, lens, spool, kn[:, 0].contiguous(),
+            vn[:, 0].contiguous(), PP, chunk)
+        r = k13[key] = {
+            "max_abs_err": err13, "nsplit": plan["nsplit"],
+            "kernel_only_ms": device_ms(alone, only=DECODE_ONLY),
+            "kernel_only_ms_l2_flushed": cold_ms(alone, DECODE_ONLY),
+            **roofline(Bc * (2 * Lc * H * D + -(-Lc // (chunk * page)) * 8
+                             * chunk * page * 4 + 4 * H * D * 2),
+                       4 * Bc * H * Lc * D)}
+        phase(name, f"#13-int8 {key} H{H} D{D} page {page} chunk {chunk}: "
+              f"{plan['nsplit']} split(s) a head (decode_split_plan at B{Bc},"
+              f" {n_sm} SMs; spans {spans}), out max|err| {err13:.3g}, the "
+              f"three pools bit-equal; kernel alone {r['kernel_only_ms']:.4f}"
+              f" ms back to back, {r['kernel_only_ms_l2_flushed']:.4f} "
+              f"flushed, bound {r['bound_ms']:.5f} ({r['bound_by']})")
+    del model
+    torch.cuda.empty_cache()
+    extra = {"int8_matmul": {"head": head, "prefill": prefill_m},
+             "decode_attention_int8": k13,
+             "line4": {"ms_per_token_host": per_tok, "ttft_ms": ttft,
+                       "device_ms_per_step": dev_step,
+                       "device_ms_per_step_by_group": shares_split}}
+    return launches, extra
+
+
+def phase_kosmos_infer(qm) -> tuple:
+    """cli/kosmos_infer.py's build_pipeline at full width with --int8
+    --beam 5 --max_new_tokens 64 (random weights from seed 0) on patches
+    made on the card: 4096 slots (#1 in the tower, 43 launches a TTFT),
+    then 2048 slots (#9 in the tower); #13-int8 and #14 at every beam step;
+    --beam 1 against beam search of width 1; the best beam's score
+    recomputed teacher-forced on the plain path; the beam step's device
+    time by group, `_gather_beams`' copy its own group. Two beam steps at
+    B=5 (a gather between them) are held against the plain path, logits
+    within LOGIT_ATOL."""
+    from unilm_tpu_torch.cli import kosmos_infer
+    from unilm_tpu_torch.models.kosmos import make_unigpt_generate_fns
+    from unilm_tpu_torch.runtime import generate as gen_mod
+
+    dev, name = "cuda", "kosmos_infer"
+    t0 = time.time()
+    pipe = kosmos_infer.build_pipeline(kosmos_infer.build_parser().parse_args(
+        ["--image", "unused", "--int8", "--beam", str(INFER_BEAM),
+         "--max_new_tokens", str(INFER_NEW)]))
+    torch.cuda.synchronize()
+    model, cfg = pipe.model, pipe.model.cfg
+    L, nl, P = cfg.num_layers, cfg.pix2struct.num_layers, pipe.tokens.shape[1]
+    per_fwd = L * PROJECTIONS_PER_LAYER + 1
+    check(cfg.kv_cache_dtype == "int8" and cfg.quant_lm_head
+          and not any(isinstance(m, qm.QuantDense)
+                      for m in model.img_model.modules()),
+          f"{name}: --int8 config {cfg}")
+    phase(name, f"build_pipeline --int8 --beam {INFER_BEAM} --max_new_tokens "
+          f"{INFER_NEW}: {time.time() - t0:.1f} s; prompt {P} tokens, cache "
+          f"{pipe.cache_size}; tower {nl} layers (not quantized)")
+    calls = {"prefill": 0, "step": 0}
+    prefill, step = pipe.prefill, pipe.step
+
+    def pf(tok, aux):
+        calls["prefill"] += 1
+        return prefill(tok, aux)
+
+    def st(tok, c, aux):
+        calls["step"] += 1
+        return step(tok, c, aux)
+
+    pipe.prefill, pipe.step = pf, st
+    p4k = tower_patches(cfg, dev, TTFT_PATCHES, TTFT_GRID)
+    p2k = tower_patches(cfg, dev, INFER_SLOTS_2K, INFER_GRID_2K)
+
+    # ---- the main path: 4096 slots, then 2048 slots -------------------
+    reset_counts()
+    runs = {}
+    for slots, patches in ((TTFT_PATCHES, p4k), (INFER_SLOTS_2K, p2k)):
+        c0 = counts()
+        calls.update(prefill=0, step=0)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        toks, scores = pipe.generate(patches)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        ran = {k: counts()[k] - c0[k] for k in c0}
+        S = calls["step"]
+        check(tuple(toks.shape) == (1, INFER_BEAM, P + INFER_NEW)
+              and bool(torch.isfinite(scores).all())
+              and bool((scores[0, :-1] >= scores[0, 1:]).all()),
+              f"{name}: {slots} slots: tokens {tuple(toks.shape)}, scores "
+              f"{scores.tolist()}")
+        tower_ok = (ran["flash_fwd"] == nl + 1 + L and ran["doc_attention"]
+                    == 0 if slots > 2048 else ran["doc_attention"] == nl
+                    and ran["flash_fwd"] == 1 + L)
+        check(tower_ok and calls["prefill"] == 1
+              and ran["decode_attention_int8"] == L * S
+              and ran["int8_matmul"] == per_fwd * (S + 1)
+              and ran["encoder_attention"] == 0,
+              f"{name}: {slots} slots: launches {ran}, {S} steps")
+        runs[slots] = (toks, scores, wall, S, ran)
+        phase(name, f"{slots} patch slots: beam {INFER_BEAM}, {S} steps in "
+              f"{wall:.3f} s (host clock, {wall * 1e3 / (S + 1):.2f} ms a "
+              f"forward); launches #1 {ran['flash_fwd']}, #9 "
+              f"{ran['doc_attention']}, #13-int8 {ran['decode_attention_int8']}"
+              f" ({L} a step), #14 {ran['int8_matmul']} ({per_fwd} a "
+              f"forward); best score {float(scores[0, 0]):.4f}")
+    got = counts()
+    launches = {k: got[k] for k in ("flash_fwd", "doc_attention",
+                                    "int8_matmul", "decode_attention_int8")}
+    pipe.prefill, pipe.step = prefill, step
+
+    # ---- --beam 1 (greedy) against beam search of width 1 --------------
+    g1 = dataclasses.replace(pipe.gcfg, beam_size=1)
+    pipe.gcfg = g1
+    greedy, _ = pipe.generate(p4k)
+    pipe.gcfg = dataclasses.replace(g1, beam_size=INFER_BEAM)
+    with torch.no_grad():
+        feats = model.encode_image(p4k)
+        b1, _ = gen_mod.beam_generate(g1, prefill, step, pipe.tokens,
+                                      (feats, pipe.img_mask, pipe.segs))
+    check(torch.equal(greedy[0], b1[0, 0]), f"{name}: --beam 1 differs from "
+          f"beam search of width 1")
+    phase(name, f"--beam 1 (greedy) equals beam_generate(beam_size=1): "
+          f"{INFER_NEW} tokens")
+
+    # ---- the best beam's score, teacher-forced ------------------------
+    toks, scores = runs[TTFT_PATCHES][:2]
+    best = toks[0, 0]
+    gen_ids = best[P:].tolist()
+    n_gen = (gen_ids.index(kosmos_infer.EOS) + 1
+             if kosmos_infer.EOS in gen_ids else len(gen_ids))
+
+    def forced_score(m, pf_, st_):
+        with torch.no_grad():
+            f = m.encode_image(p4k)
+            lg, c = pf_(pipe.tokens, (f, pipe.img_mask, pipe.segs))
+            total = 0.0
+            for j in range(n_gen):
+                lp = torch.log_softmax(lg[0, -1].float(), -1)
+                total += float(lp[best[P + j]])
+                if j + 1 < n_gen:
+                    lg, c = st_(best[None, P + j:P + j + 1], c, None)
+        return total / n_gen
+
+    plain = plain_twin(model)
+    c1 = counts()
+    s_plain = forced_score(plain, *make_unigpt_generate_fns(
+        plain, pipe.cache_size))
+    check(counts() == c1, f"{name}: the plain path launched a kernel")
+    s_kernel = forced_score(model, prefill, step)
+    beam_score = float(scores[0, 0])
+    phase(name, f"best beam ({n_gen} tokens): search score {beam_score:.5f},"
+          f" teacher-forced B=1 kernel path {s_kernel:.5f}, plain path "
+          f"{s_plain:.5f} (tol {BEAM_SCORE_ATOL})")
+    check(abs(s_plain - beam_score) <= BEAM_SCORE_ATOL
+          and abs(s_kernel - beam_score) <= BEAM_SCORE_ATOL,
+          f"{name}: teacher-forced scores vs the beam's")
+
+    # ---- the beam step at B=5 held against the plain path --------------
+    # the prefill tiled to five beams, a step on the five final beams'
+    # first tokens, a _gather_beams that duplicates a parent, a step on
+    # their second tokens: every row of #13-int8 at B5 on the 2116-slot
+    # pool and of #14 at M5, the gather's fresh copies under the in-place
+    # appends. Both sides take the kernel tower's features (the tower is
+    # held against its plain version in the ttft phase).
+    reorder = torch.tensor([[0, 0, 1, 2, 3]], device=dev)
+
+    def beam_steps(pf_, st_):
+        with torch.no_grad():
+            c = gen_mod._tile_cache(pf_(pipe.tokens, (
+                feats, pipe.img_mask, pipe.segs))[1], INFER_BEAM)
+            out = []
+            for j in range(2):
+                if j:
+                    c = gen_mod._gather_beams(c, reorder, 1, INFER_BEAM)
+                lg, c = st_(toks[0, :, P + j:P + j + 1], c, None)
+                out.append(lg[:, -1].float())
+        torch.cuda.synchronize()
+        return out, c
+
+    c2 = counts()
+    klog, c5 = beam_steps(prefill, step)
+    kran = {k: counts()[k] - c2[k] for k in c2}
+    check(kran["decode_attention_int8"] == 2 * L
+          and kran["int8_matmul"] == 3 * per_fwd and kran["flash_fwd"] == L,
+          f"{name}: B={INFER_BEAM} steps launched {kran}")
+    c2 = counts()
+    plog, _ = beam_steps(*make_unigpt_generate_fns(plain, pipe.cache_size))
+    check(counts() == c2, f"{name}: the plain path launched a kernel")
+    step_errs = [float((a - b).abs().max()) for a, b in zip(klog, plog)]
+    step_agree = float(torch.cat([a.argmax(-1) == b.argmax(-1)
+                                  for a, b in zip(klog, plog)]).float().mean())
+    check(all(np.isfinite(step_errs)) and max(step_errs) <= LOGIT_ATOL
+          and step_agree >= ARGMAX_AGREE,
+          f"{name}: B={INFER_BEAM} step logits max|err| {step_errs}, argmax "
+          f"agreement {step_agree}")
+    phase(name, f"beam step B={INFER_BEAM} (two steps, a gather "
+          f"{reorder[0].tolist()} between them) vs the plain path: ["
+          f"{INFER_BEAM}, "
+          f"{cfg.vocab_size}] logits max|err| " + ", ".join(
+              f"{e:.4f}" for e in step_errs) + f" (tol {LOGIT_ATOL}), argmax "
+          f"agreement {step_agree:.3f} over the {2 * INFER_BEAM} rows")
+    del plain, plog, klog
+    torch.cuda.empty_cache()
+
+    # ---- the beam step's device time by group --------------------------
+    tok5 = torch.full((INFER_BEAM, 1), 4, dtype=torch.long, device=dev)
+    shares, top = profile_steps(lambda: step(tok5, c5, None), 4)
+    lg5 = step(tok5, c5, None)[0]
+    scfg = pipe.gcfg
+
+    def search():
+        lp = torch.log_softmax(lg5[:, -1].float(), -1)
+        lp = gen_mod._adjust_logprobs(lp, pipe.tokens.expand(INFER_BEAM, -1),
+                                      1, P, scfg)
+        return gen_mod._topk_over_beams(lp[None], 2 * INFER_BEAM)
+
+    search_ms = device_ms(search)
+    idx = torch.tensor([[0, 0, 1, 2, 3]], device=dev)
+    gather_ms = device_ms(lambda: gen_mod._gather_beams(c5, idx, 1,
+                                                        INFER_BEAM))
+    pool_bytes = sum(t.numel() * t.element_size() for t in (
+        c5["decoder"]["kv_pool_key"], c5["decoder"]["kv_pool_value"],
+        c5["decoder"]["kv_pool_scale"]))
+    groups = {**shares, "search (log_softmax + top-k)": search_ms,
+              "_gather_beams": gather_ms}
+    dev_total = sum(groups.values())
+    wall, S = runs[TTFT_PATCHES][2], runs[TTFT_PATCHES][3]
+    phase(name, f"beam step (B={INFER_BEAM}, ctx {P}+), device time "
+          f"{dev_total:.4f} ms: " + ", ".join(
+              f"{k} {v:.4f}" for k, v in groups.items())
+          + "; other's largest: " + ", ".join(f"{k} {t:.4f}" for k, t in top)
+          + f"; _gather_beams copies {pool_bytes / 1e9:.3f} GB "
+          f"({pool_bytes / INFER_BEAM / 1e9:.3f} GB a beam: "
+          f"{2 * pool_bytes / (gather_ms * 1e-3) / 1e9:.0f} GB/s read + "
+          f"write)")
+    del c5, pipe, model
+    torch.cuda.empty_cache()
+    extra = {"kosmos_infer": {
+        "beam_step_device_ms_by_group": groups,
+        "gather_beams_gb": pool_bytes / 1e9,
+        "host_ms_per_forward_4096_slots": wall * 1e3 / (S + 1),
+        "best_score": beam_score, "plain_teacher_score": s_plain,
+        "beam_step_logits_max_abs_err": step_errs,
+        "beam_step_argmax_agreement": step_agree}}
+    return launches, extra
 
 
 def phase_paged_append(pa, g) -> dict:
@@ -4624,26 +5283,42 @@ def main() -> int:
                phase_decode(pa, g), phase_decode_int8(pa, g),
                phase_int8_matmul(qm, g), phase_paged_append(pa, g),
                phase_paged(pa, g)]
-    fused_kernels, launches = phase_fused(fu, g)
+    by_path = {}  # kernel -> {main path: launches}
+
+    def add(path, got):
+        for k, v in got.items():
+            by_path.setdefault(k, {})[path] = v
+
+    fused_kernels, got = phase_fused(fu, g)
     kernels += fused_kernels
-    launches.update(phase_slice(fa, pa))
-    launches.update(phase_beit_eval(fa))
-    launches.update(phase_beit_train(fa))
-    launches.update(phase_layoutlmv3_eval())
-    launches.update(phase_layoutlmv3_train())
-    launches.update(phase_ttft(fa))
-    launches.update(phase_yoco_chat(fa))
+    add("fused", got)
+    add("slice", phase_slice(fa, pa))
+    add("beit_eval", phase_beit_eval(fa))
+    add("beit_train", phase_beit_train(fa))
+    add("layoutlmv3_eval", phase_layoutlmv3_eval())
+    add("layoutlmv3_train", phase_layoutlmv3_train())
+    add("ttft", phase_ttft(fa))
+    got, line4 = phase_decode_int8_bs1(qm, pa, g)
+    add("decode_int8_bs1", got)
+    got, infer = phase_kosmos_infer(qm)
+    add("kosmos_infer", got)
+    add("yoco_chat", phase_yoco_chat(fa))
     phase_yoco_long(fa)
     cfg, sd = engine_model()
-    launches.update(phase_engine_int8(cfg, sd))
-    launches.update(phase_engine_bf16_prefix(cfg, sd))
+    add("engine_int8", phase_engine_int8(cfg, sd))
+    add("engine_bf16_prefix", phase_engine_bf16_prefix(cfg, sd))
     del cfg, sd
     torch.cuda.empty_cache()
-    launches.update(phase_page_pool())
-    launches.update(phase_train(fa))
+    add("page_pool", phase_page_pool())
+    add("train", phase_train(fa))
     for kern in kernels:
-        kern["launches"] = launches[kern["name"]]
+        paths = by_path.get(kern["name"], {})
+        kern["launches"] = sum(paths.values())
+        kern["launches_by_path"] = paths
+        kern.update(line4.get(kern["name"], {}))
         check(kern["launches"] > 0, f"{kern['name']} never launched")
+    print(json.dumps({"paths": {"decode_int8_bs1": line4["line4"],
+                                **infer}}), flush=True)
     phase("profiler", f"{len(PROFILER_MISSES)} device_ms calls fell back "
           f"to CUDA events: {PROFILER_MISSES}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -119,6 +119,23 @@ for self_type in ("sliding_window", "gate_retention"):
     print(self_type, tuple(toks.shape), lens.tolist())
 """
 
+_KOSMOS_INFER = _POISON + r"""
+import numpy as np
+import torch
+from PIL import Image
+from unilm_tpu_torch.cli import kosmos_infer
+
+torch.set_num_threads(1)
+work = sys.argv[1]
+Image.fromarray((np.random.RandomState(0).rand(32, 48, 3) * 255).astype(
+    np.uint8)).save(work + "/doc.png")
+kosmos_infer.main(["--image", work + "/doc.png", "--tiny", "--fp32",
+                   "--int8", "--beam", "2", "--max_new_tokens", "3",
+                   "--max_patches", "16", "--num_image_tokens", "8",
+                   "--image_id", "5", "--image_end_id", "6", "--md_id", "8",
+                   "--device", "cpu"])
+"""
+
 # the modules each slice of the port added; every one must be among them
 PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "ops._native", "ops.attention", "ops.flash_attention",
@@ -133,7 +150,8 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "cli.train_classification", "data.masking", "ops.doc_attention",
           "ops.bucket_bias", "models.layoutlmv3", "convert.layoutlmv3",
           "convert.common", "data.document_datasets", "cli.run_funsd",
-          "ops.retention", "models.yoco", "ops.fused"}
+          "ops.retention", "models.yoco", "ops.fused", "cli.kosmos_infer",
+          "convert.kosmos"}
 
 
 def test_port_imports_without_jax():
@@ -198,3 +216,15 @@ def test_yoco_generation_runs_without_jax():
     assert res.returncode == 0, res.stderr
     assert "sliding_window (2, 9) [9, 9]" in res.stdout, res.stdout
     assert "gate_retention (2, 9) [9, 9]" in res.stdout, res.stdout
+
+
+def test_kosmos_infer_runs_without_jax(tmp_path):
+    """cli/kosmos_infer.py --tiny --int8 --beam 2 on an image (the tower,
+    the resampler, the int8 decoder and KV pool, beam search) reaches no
+    JAX module and prints the generated ids."""
+    res = subprocess.run([sys.executable, "-c", _KOSMOS_INFER,
+                          str(tmp_path)], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    ids = res.stdout.strip().splitlines()[-1].split()
+    assert len(ids) == 3 and all(t.isdigit() for t in ids), res.stdout

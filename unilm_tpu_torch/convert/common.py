@@ -1,12 +1,18 @@
-"""Torch state-dict helpers shared by the checkpoint converters (the port's
-counterpart of unilm_tpu/convert/common.py, which maps to flax): copies in
+"""Helpers shared by the checkpoint converters.
+
+State-dict direction (the BEiT and LayoutLMv3 converters): copies in
 float32 on the CPU, Linear and norm pairs, and the patch-embedding Conv2d
-as core/embedding.py's flattened projection."""
+as core/embedding.py's flattened projection.
+
+Flax-layout direction (convert/kosmos.py, which builds a tree for
+convert/from_jax.load_flax_params): copies of unilm_tpu/convert/common.py
+`t2n`, `dense`, `layernorm` and `embed`, giving numpy leaves."""
 
 from __future__ import annotations
 
 from typing import Dict, Mapping
 
+import numpy as np
 import torch
 
 
@@ -36,3 +42,27 @@ def patch_proj(sd: Mapping, src: str, dst: str, out: Dict) -> None:
     out[f"{dst}.weight"] = w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).contiguous()
     b = sd.get(f"{src}.bias")
     out[f"{dst}.bias"] = tensor(b) if b is not None else torch.zeros(w.shape[0])
+
+
+def t2n(t) -> np.ndarray:
+    return np.asarray(t.detach().cpu().numpy())
+
+
+def dense(sd: Mapping, prefix: str, bias: bool = True) -> Dict:
+    """torch nn.Linear '{prefix}.weight/bias' -> flax Dense {kernel, bias}
+    (a missing bias is zeros)."""
+    out = {"kernel": t2n(sd[f"{prefix}.weight"]).T}
+    if bias:
+        b = sd.get(f"{prefix}.bias")
+        out["bias"] = (t2n(b) if b is not None
+                       else np.zeros(out["kernel"].shape[1], np.float32))
+    return out
+
+
+def layernorm(sd: Mapping, prefix: str) -> Dict:
+    return {"scale": t2n(sd[f"{prefix}.weight"]),
+            "bias": t2n(sd[f"{prefix}.bias"])}
+
+
+def embed(sd: Mapping, key: str) -> Dict:
+    return {"embedding": t2n(sd[key])}

@@ -32,11 +32,19 @@ scatters its rows into them and the returned cache holds the same tensors.
 
 Pool layout [B, L*PP, page, H*D] (batch-leading, H*D flat), as in JAX, so
 the cache leaves compare tensor for tensor: `kv_pool_key`,
-`kv_pool_value`, `cache_index`.
+`kv_pool_value`, `cache_index`. Under `cfg.kv_cache_dtype == "int8"` the
+pools hold int8 rows quantized per token (`quantize_kv_rows`) and
+`kv_pool_scale` [B, L*PP/chunk, 8, chunk*page] f32 holds each slab's K
+scales in row 0 and V scales in row 1 (JAX :855-906, :500-526). Prefill
+attends over the fresh, unquantized K/V; the one-token decode on a CUDA
+tensor launches the int8 run kernel (#13's int8 launcher) for every pool
+geometry, the short one included (JAX sends chunk*page < 128 to XLA for a
+TPU tile reason); the generic path dequantizes the layer's slabs in
+cfg.dtype.
 
 Cross-attention, relative-position buckets, MoE, drop-path in the decoder,
-dropout, the "dots" remat policy and the int8 KV pool raise
-NotImplementedError naming their ROADMAP entry.
+dropout and the "dots" remat policy raise NotImplementedError naming their
+ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -55,7 +63,8 @@ from unilm_tpu_torch.core.config import TransformerConfig
 from unilm_tpu_torch.core.layers import (DropPath, FeedForward, LayerScale,
                                          make_norm)
 from unilm_tpu_torch.ops.attention import attention
-from unilm_tpu_torch.ops.paged_attention import run_decode_append_attention
+from unilm_tpu_torch.ops.paged_attention import (quantize_kv_rows,
+                                                 run_decode_append_attention)
 
 
 def _scan_pool_geometry(cache_size: int) -> Tuple[int, int, int]:
@@ -76,12 +85,13 @@ class ScanSelfAttention(MultiheadAttention):
     pool (the JAX `_ScanSelfAttention`); `mode="train"` is the parent's
     full-sequence forward."""
 
-    def forward(self, x, k_pool=None, v_pool=None, li: int = 0,
-                start: int = 0, *, mode: str, causal: bool, page: int = 0,
-                chunk: int = 0, pages_per_layer: int = 0, xpos=None,
-                key_padding_mask=None, attn_bias=None):
+    def forward(self, x, k_pool=None, v_pool=None, scale_pool=None,
+                li: int = 0, start: int = 0, *, mode: str, causal: bool,
+                page: int = 0, chunk: int = 0, pages_per_layer: int = 0,
+                xpos=None, key_padding_mask=None, attn_bias=None):
         """`xpos` = (q tables, k tables, qscale) from `xpos_inputs`, shared
-        by every layer of one forward."""
+        by every layer of one forward. `scale_pool`: the int8 pools'
+        sidecar, None for pools in the model dtype."""
         if mode == "train":
             return self.forward_train(x, None, causal=causal,
                                       key_padding_mask=key_padding_mask,
@@ -108,8 +118,8 @@ class ScanSelfAttention(MultiheadAttention):
             out = attention(q, k_new, v_new, bias=attn_bias,
                             key_padding_mask=key_padding_mask, scale=scale,
                             causal=causal, use_flash=cfg.use_flash)
-            self._scatter_rows(k_pool, v_pool, k_new, v_new, li, start, page,
-                               PP)
+            self._scatter_rows(k_pool, v_pool, scale_pool, k_new, v_new, li,
+                               start, page, chunk, PP)
         elif (T == 1 and attn_bias is None and key_padding_mask is None
               and x.is_cuda and cfg.use_flash):
             # one-token step: the decode kernel appends the row and reads
@@ -121,16 +131,24 @@ class ScanSelfAttention(MultiheadAttention):
                      + li * PP)
             lengths = torch.full((B,), start, dtype=torch.int32,
                                  device=x.device)
-            out, _, _ = run_decode_append_attention(
+            sp3 = (None if scale_pool is None else
+                   scale_pool.view(B * LPP // chunk, 8, chunk * page))
+            out = run_decode_append_attention(
                 q, k_new, v_new, kp3, vp3, bases, lengths, max_pages=PP,
-                scale=scale, chunk=chunk)
+                scale=scale, chunk=chunk, scale_pool=sp3)[0]
         else:
             # generic path (CPU, use_flash=False, decode bias/mask, T > 1):
             # scatter the rows, gather this layer's run, masked attention
-            self._scatter_rows(k_pool, v_pool, k_new, v_new, li, start, page,
-                               PP)
+            self._scatter_rows(k_pool, v_pool, scale_pool, k_new, v_new, li,
+                               start, page, chunk, PP)
             kk = k_pool[:, li * PP:(li + 1) * PP].reshape(B, PP * page, H, D)
             vv = v_pool[:, li * PP:(li + 1) * PP].reshape(B, PP * page, H, D)
+            if scale_pool is not None:
+                # this layer's per-token scales: rows 0/1 of its slabs
+                sl = scale_pool[:, li * PP // chunk:(li + 1) * PP // chunk]
+                dt = cfg.dtype
+                kk = kk.to(dt) * sl[:, :, 0].reshape(B, PP * page, 1, 1).to(dt)
+                vv = vv.to(dt) * sl[:, :, 1].reshape(B, PP * page, 1, 1).to(dt)
             if attn_bias is not None:
                 padn = PP * page - attn_bias.shape[-1]
                 if padn > 0:
@@ -150,13 +168,24 @@ class ScanSelfAttention(MultiheadAttention):
         return self.output(out)
 
     @staticmethod
-    def _scatter_rows(k_pool, v_pool, k_new, v_new, li, start, page, PP):
+    def _scatter_rows(k_pool, v_pool, scale_pool, k_new, v_new, li, start,
+                      page, chunk, PP):
         B, T = k_new.shape[0], k_new.shape[1]
         pos = start + torch.arange(T, device=k_pool.device)
         pids = li * PP + torch.div(pos, page, rounding_mode="floor")
         offs = torch.remainder(pos, page)
-        k_pool[:, pids, offs] = k_new.reshape(B, T, -1).to(k_pool.dtype)
-        v_pool[:, pids, offs] = v_new.reshape(B, T, -1).to(v_pool.dtype)
+        if scale_pool is None:
+            k_pool[:, pids, offs] = k_new.reshape(B, T, -1).to(k_pool.dtype)
+            v_pool[:, pids, offs] = v_new.reshape(B, T, -1).to(v_pool.dtype)
+            return
+        ki, vi, ks, vs = quantize_kv_rows(k_new.reshape(B * T, -1),
+                                          v_new.reshape(B * T, -1))
+        k_pool[:, pids, offs] = ki.reshape(B, T, -1)
+        v_pool[:, pids, offs] = vi.reshape(B, T, -1)
+        slab = torch.div(pids, chunk, rounding_mode="floor")
+        pos_in = torch.remainder(pids, chunk) * page + offs
+        scale_pool[:, slab, 0, pos_in] = ks.reshape(B, T)
+        scale_pool[:, slab, 1, pos_in] = vs.reshape(B, T)
 
 
 class DecoderLayer(nn.Module):
@@ -344,8 +373,9 @@ class Decoder(nn.Module):
     cache_size, cache)` returns (x, cache): prefill allocates the pools;
     decode reads `cache` and writes the step's rows into its pools in
     place. `cache` is a dict with the JAX leaf names: kv_pool_key,
-    kv_pool_value [B, L*PP, page, H*D] and cache_index (an int: tokens
-    already in the pool)."""
+    kv_pool_value [B, L*PP, page, H*D] (int8 under kv_cache_dtype "int8",
+    with kv_pool_scale [B, L*PP/chunk, 8, chunk*page] f32) and cache_index
+    (an int: tokens already in the pool)."""
 
     def __init__(self, cfg: TransformerConfig, has_cross_attention=False,
                  device=None):
@@ -358,10 +388,9 @@ class Decoder(nn.Module):
             raise NotImplementedError(
                 "MoE / drop-path / T5 relative-bias decoders are not ported "
                 "yet: ROADMAP Queue 1 slices 9-10")
-        if cfg.kv_cache_dtype != "model":
-            raise NotImplementedError(
-                "int8 KV pool (quantize_kv_rows + scale sidecar) is not "
-                "ported yet: ROADMAP Queue 1, remainder of slices 0-2")
+        if cfg.kv_cache_dtype not in ("model", "int8"):
+            raise ValueError(f"kv_cache_dtype {cfg.kv_cache_dtype!r}: "
+                             "'model' or 'int8'")
         self.cfg = cfg
         alpha = cfg.deepnorm_alpha if cfg.deepnorm else 1.0
         self.layers = nn.ModuleList(
@@ -387,25 +416,34 @@ class Decoder(nn.Module):
         H, D = cfg.num_heads, cfg.head_dim
         page, chunk, pp = _scan_pool_geometry(cache_size)
         x = x.to(cfg.dtype)
+        kv_int8 = cfg.kv_cache_dtype == "int8"
         if mode == "prefill":
             shape = (B, L * pp, page, H * D)
-            kp = torch.zeros(shape, dtype=cfg.dtype, device=x.device)
-            vp = torch.zeros(shape, dtype=cfg.dtype, device=x.device)
+            pool_dt = torch.int8 if kv_int8 else cfg.dtype
+            kp = torch.zeros(shape, dtype=pool_dt, device=x.device)
+            vp = torch.zeros(shape, dtype=pool_dt, device=x.device)
+            sp = (torch.zeros((B, L * pp // chunk, 8, chunk * page),
+                              dtype=torch.float32, device=x.device)
+                  if kv_int8 else None)
             start = 0
         else:
             kp, vp = cache["kv_pool_key"], cache["kv_pool_value"]
+            sp = cache["kv_pool_scale"] if kv_int8 else None
             start = int(cache["cache_index"])
         xpos = (xpos_inputs(cfg, start, T, x.device) if cfg.xpos_rel_pos
                 else None)
         for li, layer in enumerate(self.layers):
-            x = layer(x, kp, vp, li, start, mode=mode, causal=causal,
+            x = layer(x, kp, vp, sp, li, start, mode=mode, causal=causal,
                       page=page, chunk=chunk, pages_per_layer=pp, xpos=xpos,
                       key_padding_mask=self_key_padding_mask,
                       attn_bias=attn_bias)
         if cfg.normalize_before:
             x = self.layer_norm(x)
-        return x, {"kv_pool_key": kp, "kv_pool_value": vp,
-                   "cache_index": start + T}
+        cache = {"kv_pool_key": kp, "kv_pool_value": vp}
+        if kv_int8:
+            cache["kv_pool_scale"] = sp
+        cache["cache_index"] = start + T
+        return x, cache
 
     def _forward_train(self, x, causal, key_padding_mask, attn_bias):
         """The looped stack's train mode (:914-949); the scanned stack

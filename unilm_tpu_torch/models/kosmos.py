@@ -4,7 +4,7 @@ unilm_tpu/models/kosmos.py: `sinusoidal_table` :46,
 `LatentQueryResampler` :167-197, `splice_image_features` :288,
 `StepCounter` :303, `UniGPT` :314 with `encode_image` (JAX's
 `get_image_representation` :384-393 and `encode_image` :515 in one),
-`stack_unigpt_params` :540,
+`quantize_lm_head` :522, `stack_unigpt_params` :540,
 `make_unigpt_generate_fns` :551, `kosmos2_5` :590; the train forward
 `UniGPT.__call__` :444 is `UniGPT.forward`).
 
@@ -18,10 +18,17 @@ compute in float32; the tower's residual stream is float32 because its
 input is. The CLIP tower (Kosmos-2, ROADMAP Queue 1 slice 5) and the
 audio tower (slice 10) raise.
 
+Under `quant_lm_head` the logits come from `lm_head_q`, an int8
+`QuantDense` [V, E] built from the head in use (`quantize_lm_head` on a
+flax tree, `quantize_lm_head_state_dict` on a state dict). JAX gives it
+`use_kernel=False` because XLA fuses the convert into the dot on a TPU;
+here it launches the int8 matmul kernel (#14) on a CUDA tensor, since the
+plain version would make a float32 copy of the [V, E] head every step.
+
 The generation cache is a nested dict with the JAX collection's names:
-{"decoder": {"kv_pool_key", "kv_pool_value", "cache_index"},
- "step_counter": {"pos"}}; counters are Python ints, the pools are
-updated in place (core/transformer.py).
+{"decoder": {"kv_pool_key", "kv_pool_value", ["kv_pool_scale",]
+ "cache_index"}, "step_counter": {"pos"}}; counters are Python ints, the
+pools are updated in place (core/transformer.py).
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from unilm_tpu_torch.core.config import TransformerConfig
 from unilm_tpu_torch.core.layers import Dense, Norm, init_weights_
 from unilm_tpu_torch.core.transformer import (Decoder, Encoder,
                                               stack_layer_params)
+from unilm_tpu_torch.ops.quant import QuantDense, quantize_int8
 
 
 def sinusoidal_table(num_positions: int, dim: int,
@@ -264,10 +272,6 @@ class UniGPT(nn.Module):
             raise NotImplementedError(
                 "the audio tower (WavLM) is not ported yet: ROADMAP Queue 1 "
                 "slice 10")
-        if cfg.quant_lm_head:
-            raise NotImplementedError(
-                "int8 LM head (QuantDense) is not ported yet: ROADMAP "
-                "Queue 1, remainder of slices 0-2")
         self.cfg = cfg
         tcfg = cfg.decoder_cfg()
         self.dtype = tcfg.dtype
@@ -281,6 +285,9 @@ class UniGPT(nn.Module):
                 E, cfg.vocab_size, bias=False, dtype=tcfg.dtype,
                 param_dtype=torch.float32, device=device)
             self.output_projection.init_std = E ** -0.5
+        if cfg.quant_lm_head:
+            self.lm_head_q = QuantDense(E, cfg.vocab_size, bias=False,
+                                        dtype=tcfg.dtype, device=device)
         if cfg.use_positional and cfg.learned_pos:
             self.embed_positions = _embedding(
                 cfg.max_positions + cfg.padding_idx + 1, E, E ** -0.5,
@@ -380,6 +387,8 @@ class UniGPT(nn.Module):
         return self.output_layer(x)
 
     def output_layer(self, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.quant_lm_head:
+            return self.lm_head_q(x)
         if self.cfg.share_input_output_embed:
             return F.linear(x, self.embed_tokens.weight.to(x.dtype))
         return self.output_projection(x)
@@ -416,6 +425,37 @@ class UniGPT(nn.Module):
                               cache=cache["decoder"], causal=True)
         return self.output_layer(x), {"decoder": dec,
                                       "step_counter": {"pos": start + T}}
+
+
+def quantize_lm_head(params: dict) -> dict:
+    """Flax-layout tree -> the tree plus `lm_head_q` {kernel_i8 [E, V],
+    scale [V]}: the int8 head of UniGPTConfig(quant_lm_head=True), built
+    from the head the model uses (the untied `output_projection` if the
+    tree has one, else the tied embedding's transpose) with per-vocab
+    scales. The embedding stays for the lookup. Leaves are numpy arrays,
+    bit-equal to JAX's."""
+    from unilm_tpu_torch.convert.from_jax import to_tensor
+
+    out = dict(params)
+    if "output_projection" in out:
+        w = to_tensor(out["output_projection"]["kernel"])  # [E, V]
+    else:
+        w = to_tensor(out["embed_tokens"]["embedding"]).t()  # [E, V]
+    wi, scale = quantize_int8(w, axis=0)
+    out["lm_head_q"] = {"kernel_i8": wi.numpy(), "scale": scale.numpy()}
+    return out
+
+
+def quantize_lm_head_state_dict(sd: Dict[str, torch.Tensor]) -> dict:
+    """`quantize_lm_head` on a UniGPT state dict: adds `lm_head_q.weight_i8`
+    [V, E] int8 and `lm_head_q.scale` [V] f32 from `output_projection.weight`
+    if present, else `embed_tokens.weight` (the same values as the tree
+    version, transposed). Runs on the tensors' device."""
+    out = dict(sd)
+    w = sd.get("output_projection.weight", sd["embed_tokens.weight"])
+    out["lm_head_q.weight_i8"], out["lm_head_q.scale"] = quantize_int8(
+        w, axis=1)
+    return out
 
 
 def stack_unigpt_params(params: dict, num_layers: int) -> dict:

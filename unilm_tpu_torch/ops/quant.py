@@ -1,6 +1,7 @@
 """Int8 weight-only quantization (port of unilm_tpu/ops/quant.py:
 `quantize_int8` :45, `_xla_int8_matmul` :139, `int8_matmul` :149,
-`QuantDense` :184, `quantize_dense_tree` :222).
+`QuantDense` :184, `quantize_dense_tree` :222), with the decoder-only
+predicate `is_decoder_projection`.
 
 Weights are quantized symmetrically per output channel: int8 values plus
 one f32 scale per channel. The projection computes x @ float(W) with an
@@ -116,8 +117,8 @@ def _plan(M: int, N: int, K: int, dev) -> tuple:
     return _PLANS[key]
 
 
-# the decoder-layer projections ServingEngine quantizes
-# (unilm_tpu/runtime/serving.py:573)
+# the layer projections the serving engine and the Kosmos CLI quantize
+# (unilm_tpu/runtime/serving.py:573, unilm_tpu/cli/kosmos_infer.py:144)
 PROJECTIONS = frozenset({"q_proj", "k_proj", "v_proj", "out_proj", "fc1",
                          "fc2", "fc3"})
 
@@ -239,20 +240,38 @@ def quantize_dense_tree(params: Mapping,
     return walk(params, ())
 
 
+def is_decoder_projection(path) -> bool:
+    """True for a projection kernel of a layer of the text decoder: a flax
+    path (..., "decoder", "layers" | "layers_<i>", ..., <proj>, "kernel")
+    with <proj> in PROJECTIONS. Tower and connector projections
+    (`img_model/encoder/layers_<i>/...`, `img_connector/x_attn/...`) are
+    never selected.
+
+    The JAX CLI's and serving engine's predicate, `pth[-2] in _PROJ and
+    any(s.startswith("layers") ...)` (unilm_tpu/cli/kosmos_infer.py:145-148),
+    also selects the Pix2Struct tower's layer projections, whose
+    `nn.Dense` then finds no `kernel`: `kosmos_infer --int8` on an image
+    raises in the JAX package. The port quantizes the decoder only."""
+    path = tuple(path)
+    return (len(path) >= 4 and path[-2] in PROJECTIONS
+            and any(a == "decoder" and b.startswith("layers")
+                    for a, b in zip(path, path[1:])))
+
+
 def _is_layer_projection(name: str) -> bool:
-    """`...layers.<i>.<...>.<proj>.weight` for a decoder-layer projection
-    the serving engine quantizes (unilm_tpu/runtime/serving.py:577)."""
+    """`...decoder.layers.<i>.<...>.<proj>.weight`: a decoder-layer
+    projection (`is_decoder_projection` on state-dict names)."""
     parts = name.split(".")
-    return (len(parts) >= 3 and parts[-1] == "weight"
-            and parts[-2] in PROJECTIONS and "layers" in parts)
+    return parts[-1] == "weight" and is_decoder_projection(
+        tuple(parts[:-1]) + ("kernel",))
 
 
 def quantize_state_dict(sd: Mapping[str, torch.Tensor]) -> dict:
-    """The state-dict counterpart of `quantize_dense_tree` with the serving
-    engine's predicate: every decoder-layer projection `weight` [N, K]
-    becomes `weight_i8` [N, K] int8 + `scale` [N] f32 (per output channel,
-    contraction axis 1); its bias is kept as f32, as QuantDense stores
-    it. Everything else passes through."""
+    """The state-dict counterpart of `quantize_dense_tree` with the
+    predicate `is_decoder_projection`: every decoder-layer projection
+    `weight` [N, K] becomes `weight_i8` [N, K] int8 + `scale` [N] f32 (per
+    output channel, contraction axis 1); its bias is kept as f32, as
+    QuantDense stores it. Everything else passes through."""
     out = dict(sd)
     for name, t in sd.items():
         if _is_layer_projection(name):

@@ -1,29 +1,53 @@
-"""Generation engine, greedy path (port of unilm_tpu/runtime/generate.py:
-`GenerationConfig` :37, `_ngram_ban_mask` :135, `_adjust_logprobs` :163,
-`greedy_generate` :216, `generate` :444).
+"""Generation engine: greedy, sampling, beam, diverse-siblings,
+length-constrained and diverse beam search, and ensembling (port of
+unilm_tpu/runtime/generate.py: `GenerationConfig` :37, `_tile_cache` :73,
+`_topk_over_beams` :85, `_gather_beams` :107, `_ngram_ban_mask` :135,
+`_adjust_logprobs` :163, `_apply_len_constraints` :180,
+`length_constraints` :202, `greedy_generate` :216, `beam_generate` :285,
+`generate` :444, `make_ensemble` :467, `diverse_beam_generate` :511).
 
 Model adapter: two closures
     prefill(tokens [B, P], aux) -> (logits [B, P|1, V], cache)
     step(token [B, 1], cache, aux) -> (logits [B, 1, V], cache)
 (models/kosmos.py make_unigpt_generate_fns). The JAX `params` argument
-has no counterpart: the torch modules own their weights.
+has no counterpart: the torch modules own their weights. A cache is a tree
+of dicts, lists, tuples and dataclasses whose tensor leaves lead with the
+batch; Python numbers and 0-d tensors are shared counters.
 
-The decode loop is a Python loop that stops early once every row has
-emitted eos, as the JAX while_loop does. Beam, diverse-beam and sampling
-generation are not ported yet and raise NotImplementedError.
+The decode loops are Python loops with the JAX while_loops' conditions
+(greedy stops once every row has emitted eos; beam search once every
+sentence's finished set cannot be beaten). Every top-k is `_top_k`: a
+stable sort, so that ties go to the lower index as in `jax.lax.top_k`,
+and the token streams equal JAX's.
+
+Beams are folded into the batch, and a reorder gathers every batch-leading
+cache leaf (`_gather_beams`). The port's decode writes pool rows in place,
+so the gather returns fresh tensors (`index_select`), never views: two
+beams that share a parent must not share storage.
+
+Sampling draws from an explicit `torch.Generator` (Gumbel-max over the
+kept candidates, as `jax.random.categorical`); JAX's key stream cannot be
+reproduced, so its tokens differ, but its kept support (top-k, top-p) is
+the same.
+
+`constrained_beam_generate` (:723) and `aggressive_generate` (GAD, :936)
+are not ported yet and raise NotImplementedError naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Tuple
+import math
+from typing import Any, Callable, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -1.0e7
 
-_NOT_PORTED = ("{} generation is not ported yet: ROADMAP Queue 1, remainder "
-               "of slices 0-2 (beam, sampling and diverse generation)")
+_NOT_PORTED = ("{} is not ported yet: ROADMAP Queue 1 item 6.1 (the rest of "
+               "runtime/generate.py: constrained beam and GAD)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,9 +66,80 @@ class GenerationConfig:
     eos: int = 2
     unk: int = 3
     vocab_size: int = 0
+    # diverse beam (fairseq search.DiverseBeamSearch)
     num_groups: int = 1
     diversity_strength: float = 0.5
+    # diverse siblings (fairseq search.DiverseSiblingsSearch): the k-th
+    # best continuation of a beam pays rate * k; 0 = plain beam
     diversity_rate: float = 0.0
+
+
+def _map_tree(fn, tree):
+    """fn over the tensor leaves of dicts / lists / tuples / dataclasses;
+    None, numbers and other leaves pass through."""
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _map_tree(fn, getattr(tree, f.name))
+            for f in dataclasses.fields(tree)})
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    return tree
+
+
+def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """`jax.lax.top_k` over the last axis: the k largest, best first, ties
+    to the lower index (a stable descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def _tile_cache(tree: Any, K: int) -> Any:
+    """Tile batch-leading leaves to beams ([B, ...] -> [B*K, ...], each row
+    K times in a row); 0-d leaves pass through."""
+    return _map_tree(
+        lambda x: x if x.ndim == 0 else x.repeat_interleave(K, dim=0), tree)
+
+
+def _topk_over_beams(cand: torch.Tensor, n: int, sibling_rate: float = 0.0):
+    """Exact top-n over the [B, K, V] candidate cube in two stages: each
+    beam's top-n, then the top-n of the K*n survivors (any global top-n
+    element is in its own beam's top-n). sibling_rate > 0 is fairseq's
+    DiverseSiblingsSearch: each beam keeps its top min(n, V - 1), the k-th
+    of them penalized by rate * k, and the second stage runs on (and
+    returns) the penalized scores. Returns (scores [B, n], beam_idx [B, n],
+    tok_idx [B, n])."""
+    B, K, V = cand.shape
+    kloc = min(n, V - 1) if sibling_rate > 0.0 else min(n, V)
+    vals, toks = _top_k(cand.reshape(B * K, V), kloc)
+    if sibling_rate > 0.0:
+        vals = vals - sibling_rate * torch.arange(
+            1, kloc + 1, dtype=torch.float32, device=cand.device)
+    scores, pos = _top_k(vals.reshape(B, K * kloc), min(n, K * kloc))
+    beam_idx = torch.div(pos, kloc, rounding_mode="floor")
+    tok_idx = torch.gather(toks.reshape(B, K * kloc), 1, pos)
+    return scores, beam_idx, tok_idx
+
+
+def _gather_beams(tree: Any, idx: torch.Tensor, batch: int,
+                  old_k: int) -> Any:
+    """Gather beam-major leaves [B*old_k, ...] by idx [B, new_k] into fresh
+    tensors (index_select copies: the decode writes pool rows in place, so
+    siblings must not share storage). 0-d leaves pass through. The port
+    has no cross-attention cache leaves, which JAX leaves ungathered."""
+    flat = (idx + torch.arange(batch, device=idx.device)[:, None] * old_k
+            ).reshape(-1)
+    return _map_tree(lambda x: x if x.ndim == 0 else x.index_select(
+        0, flat.to(x.device)), tree)
+
+
+def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """take_along_axis(x [B, N, ...], idx [B, M], axis=1) -> [B, M, ...]."""
+    return torch.gather(x, 1, idx.reshape(*idx.shape, *([1] * (x.ndim - 2)))
+                        .expand(*idx.shape, *x.shape[2:]))
 
 
 def _ngram_ban_mask(tokens: torch.Tensor, cur_len: int, n: int,
@@ -87,23 +182,86 @@ def _adjust_logprobs(logprobs: torch.Tensor, tokens: torch.Tensor,
     return logprobs
 
 
+def _apply_len_constraints(lp: torch.Tensor, gen: int, min_lens, max_lens,
+                           eos: int) -> torch.Tensor:
+    """Per-sentence length bounds (fairseq LengthConstrainedBeamSearch):
+    while gen < min_lens[n] the eos is banned; once gen >= max_lens[n] the
+    eos is forced (its logprob 0, every other token banned). lp [N, V];
+    min_lens / max_lens [N] or None."""
+    eos_lp = lp[:, eos]
+    if min_lens is not None:
+        eos_lp = torch.where(gen < min_lens, NEG_INF, eos_lp)
+    if max_lens is not None:
+        force = gen >= max_lens
+        lp = torch.where(force[:, None], NEG_INF, lp)
+        eos_lp = torch.where(force, 0.0, eos_lp)
+    lp = lp.clone()
+    lp[:, eos] = eos_lp
+    return lp
+
+
+def length_constraints(src_lengths: torch.Tensor, min_len_a: float,
+                       min_len_b: float, max_len_a: float, max_len_b: float):
+    """fairseq's per-sentence bounds from source lengths: min/max generated
+    length = a * src_len + b (int32, truncated)."""
+    sl = src_lengths.float()
+    return ((min_len_a * sl + min_len_b).to(torch.int32),
+            (max_len_a * sl + max_len_b).to(torch.int32))
+
+
+# ------------------------------------------------------------------------ #
+# Greedy / sampling
+# ------------------------------------------------------------------------ #
+
+
+def sampling_candidates(lp: torch.Tensor, cfg: GenerationConfig):
+    """The candidates a sampling step draws among: (logprobs [N, C], ids
+    [N, C] or None for the whole vocabulary). sampling_topk > 0 keeps the
+    k best; else sampling_topp > 0 keeps, best first, every token whose
+    preceding mass is below p (the rest at NEG_INF)."""
+    if cfg.sampling_topk > 0:
+        return _top_k(lp, cfg.sampling_topk)
+    if cfg.sampling_topp > 0.0:
+        sorted_lp, sort_idx = _top_k(lp, lp.shape[-1])
+        probs = torch.exp(sorted_lp)
+        keep = torch.cumsum(probs, dim=-1) - probs < cfg.sampling_topp
+        return torch.where(keep, sorted_lp, NEG_INF), sort_idx
+    return lp, None
+
+
+def _categorical(logits: torch.Tensor,
+                 generator: torch.Generator) -> torch.Tensor:
+    """One draw per row of softmax(logits): Gumbel-max, as
+    jax.random.categorical."""
+    u = torch.rand(logits.shape, generator=generator, device=logits.device)
+    u = u.clamp_min(torch.finfo(torch.float32).tiny)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
 def greedy_generate(cfg: GenerationConfig, prefill: Callable, step: Callable,
-                    prompt: torch.Tensor,
-                    aux: Any = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Greedy decode. Returns (tokens [B, P + max_new_tokens], lengths [B])."""
-    if cfg.sampling:
-        raise NotImplementedError(_NOT_PORTED.format("sampling"))
+                    prompt: torch.Tensor, aux: Any = None,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Greedy or sampled decode. Returns (tokens [B, P + max_new_tokens],
+    lengths [B]). Sampling draws from `generator` (on the prompt's device;
+    default: seeded 0, as JAX's PRNGKey(0))."""
     B, P = prompt.shape
     total = P + cfg.max_new_tokens
     logits, cache = prefill(prompt, aux)
     tokens = torch.full((B, total), cfg.pad, dtype=torch.int64,
                         device=prompt.device)
     tokens[:, :P] = prompt
+    if cfg.sampling and generator is None:
+        generator = torch.Generator(device=prompt.device).manual_seed(0)
 
     def pick(logits_row, cur_len):
         lp = torch.log_softmax(logits_row.float() / cfg.temperature, dim=-1)
         lp = _adjust_logprobs(lp, tokens, cur_len - P, cur_len, cfg)
-        return torch.argmax(lp, dim=-1)
+        if not cfg.sampling:
+            return torch.argmax(lp, dim=-1)
+        vals, ids = sampling_candidates(lp, cfg)
+        choice = _categorical(vals, generator)
+        return choice if ids is None else ids.gather(1, choice[:, None])[:, 0]
 
     nxt = pick(logits[:, -1], P)
     tokens[:, P] = nxt
@@ -120,13 +278,291 @@ def greedy_generate(cfg: GenerationConfig, prefill: Callable, step: Callable,
     return tokens, lengths
 
 
+# ------------------------------------------------------------------------ #
+# Beam search
+# ------------------------------------------------------------------------ #
+
+
+class _Finished:
+    """The K best finished hypotheses of each sentence and the closing
+    rule both beam searches share."""
+
+    def __init__(self, B: int, K: int, total: int, cfg: GenerationConfig,
+                 dev):
+        self.K, self.cfg = K, cfg
+        self.tokens = torch.full((B, K, total), cfg.pad, dtype=torch.int64,
+                                 device=dev)
+        self.scores = torch.full((B, K), NEG_INF, device=dev)
+        self.exists = torch.zeros((B, K), dtype=torch.bool, device=dev)
+
+    def lp_den(self, gen_len: float) -> float:
+        return max(gen_len, 1.0) ** self.cfg.len_penalty
+
+    def add(self, scores, tokens, exists):
+        """Keep the K best of the finished set and these candidates
+        (scores [B, N], tokens [B, N, total], exists [B, N])."""
+        all_scores = torch.cat([self.scores, scores], dim=1)
+        all_tokens = torch.cat([self.tokens, tokens], dim=1)
+        all_exists = torch.cat([self.exists, exists], dim=1)
+        self.scores, keep = _top_k(
+            torch.where(all_exists, all_scores, NEG_INF), self.K)
+        self.tokens = _take(all_tokens, keep)
+        self.exists = torch.gather(all_exists, 1, keep)
+
+    def open(self, i: int, total: int, P: int,
+             alive_scores: torch.Tensor) -> bool:
+        """The loop condition: a sentence is closed when all K are finished
+        and the best alive score over the longest length cannot beat the
+        worst finished one."""
+        if i >= total:
+            return False
+        best_alive = alive_scores.max(dim=1).values / self.lp_den(total - P)
+        worst_fin = torch.where(self.exists, self.scores, NEG_INF).min(
+            dim=1).values
+        done = self.exists.all(dim=1) & (worst_fin >= best_alive)
+        return not bool(done.all())
+
+    def result(self, alive_tokens, alive_scores, total: int, P: int):
+        """(tokens [B, K, total], scores [B, K]) best first: the finished
+        set and the alive beams finalized at the longest length."""
+        all_scores = torch.cat([
+            torch.where(self.exists, self.scores, NEG_INF),
+            alive_scores / self.lp_den(total - P)], dim=1)
+        all_tokens = torch.cat([self.tokens, alive_tokens], dim=1)
+        out_scores, idx = _top_k(all_scores, self.K)
+        return _take(all_tokens, idx), out_scores
+
+
+def _beam_prefill(cfg: GenerationConfig, prefill: Callable,
+                  prompt: torch.Tensor, aux: Any):
+    """The prefill both beam searches open with, on the un-tiled batch:
+    (the first new token's adjusted log-probs [B, V], the cache, tokens
+    [B, P + max_new_tokens] holding the prompt, pad after it)."""
+    B, P = prompt.shape
+    logits, cache = prefill(prompt, aux)
+    lp0 = torch.log_softmax(logits[:, -1].float() / cfg.temperature, dim=-1)
+    tokens_flat = torch.full((B, P + cfg.max_new_tokens), cfg.pad,
+                             dtype=torch.int64, device=prompt.device)
+    tokens_flat[:, :P] = prompt
+    return _adjust_logprobs(lp0, tokens_flat, 0, P, cfg), cache, tokens_flat
+
+
+def _beam_start(cfg: GenerationConfig, cache: Any, aux: Any,
+                tokens_flat: torch.Tensor, first_tokens: torch.Tensor,
+                first_scores: torch.Tensor, P: int):
+    """Tile the cache and aux to beams and open the search on the first
+    tokens [B, K]: (cache, aux_t, alive_tokens [B, K, total], alive_scores
+    [B, K], the finished set). A first token that is eos finishes its beam
+    at length 1."""
+    B, total = tokens_flat.shape
+    K = first_tokens.shape[1]
+    alive_tokens = tokens_flat.repeat_interleave(K, dim=0).reshape(B, K, total)
+    alive_tokens[:, :, P] = first_tokens
+    fin = _Finished(B, K, total, cfg, tokens_flat.device)
+    is_eos0 = first_tokens == cfg.eos
+    fin.scores = torch.where(is_eos0, first_scores / fin.lp_den(1.0),
+                             fin.scores)
+    fin.tokens = torch.where(is_eos0[..., None], alive_tokens, fin.tokens)
+    fin.exists = is_eos0
+    return (_tile_cache(cache, K), _tile_cache(aux, K), alive_tokens,
+            torch.where(is_eos0, NEG_INF, first_scores), fin)
+
+
+def beam_generate(cfg: GenerationConfig, prefill: Callable, step: Callable,
+                  prompt: torch.Tensor, aux: Any = None,
+                  min_lens: Optional[torch.Tensor] = None,
+                  max_lens: Optional[torch.Tensor] = None):
+    """Beam search. Returns (tokens [B, K, total], scores [B, K]) best
+    first; scores are length-penalized as fairseq's (cum / len^lenpen).
+    cfg.diversity_rate > 0 selects candidates as fairseq's
+    DiverseSiblingsSearch; min_lens / max_lens [B] apply the per-sentence
+    LengthConstrainedBeamSearch bounds."""
+    B, P = prompt.shape
+    K, V = cfg.beam_size, cfg.vocab_size
+    total = P + cfg.max_new_tokens
+    if V <= 0:
+        raise ValueError("GenerationConfig.vocab_size is required for beam "
+                         "search")
+    dev = prompt.device
+
+    lp0, cache, tokens_flat = _beam_prefill(cfg, prefill, prompt, aux)
+    lp0 = _apply_len_constraints(lp0, 0, min_lens, max_lens, cfg.eos)
+    k0 = min(K, V)
+    first_scores, first_tokens = _top_k(lp0, k0)
+    if k0 < K:  # beam wider than the vocabulary: dead beams
+        first_scores = torch.cat([first_scores, torch.full(
+            (B, K - k0), NEG_INF, device=dev)], dim=1)
+        first_tokens = torch.cat([first_tokens, torch.full(
+            (B, K - k0), cfg.pad, dtype=torch.int64, device=dev)], dim=1)
+    cache, aux_t, alive_tokens, alive_scores, fin = _beam_start(
+        cfg, cache, aux, tokens_flat, first_tokens, first_scores, P)
+    rep = lambda x: None if x is None else x.repeat_interleave(K, dim=0)
+    min_k, max_k = rep(min_lens), rep(max_lens)
+
+    i = P + 1
+    while fin.open(i, total, P, alive_scores):
+        flat_tokens = alive_tokens.reshape(B * K, total)
+        logits, cache = step(flat_tokens[:, i - 1:i], cache, aux_t)
+        lp = torch.log_softmax(logits[:, -1].float() / cfg.temperature,
+                               dim=-1)
+        lp = _adjust_logprobs(lp, flat_tokens, i - P, i, cfg)
+        if min_lens is not None or max_lens is not None:
+            lp = _apply_len_constraints(lp, i - P, min_k, max_k, cfg.eos)
+        cand = alive_scores[:, :, None] + lp.reshape(B, K, V)
+        top_scores, beam_idx, tok_idx = _topk_over_beams(
+            cand, 2 * K, cfg.diversity_rate)
+
+        cand_tokens = _take(alive_tokens, beam_idx)  # [B, 2K, total]
+        cand_tokens[:, :, i] = tok_idx
+        is_eos = tok_idx == cfg.eos
+        fin.add(torch.where(is_eos, top_scores / fin.lp_den(i + 1 - P),
+                            NEG_INF), cand_tokens, is_eos)
+
+        alive_scores, sel = _top_k(torch.where(is_eos, NEG_INF, top_scores),
+                                   K)
+        alive_tokens = _take(cand_tokens, sel)
+        cache = _gather_beams(cache, torch.gather(beam_idx, 1, sel), B, K)
+        i += 1
+    return fin.result(alive_tokens, alive_scores, total, P)
+
+
+def diverse_beam_generate(cfg: GenerationConfig, prefill: Callable,
+                          step: Callable, prompt: torch.Tensor,
+                          aux: Any = None):
+    """Diverse beam search (fairseq search.DiverseBeamSearch): the beams
+    split into `num_groups` groups that pick in turn within each step;
+    group g's logprobs pay diversity_strength times the count of each token
+    already picked this step by groups 0..g-1. Scores stay the model's own.
+    Returns (tokens [B, K, total], scores [B, K]) best first; beam j is in
+    group j % num_groups."""
+    B, P = prompt.shape
+    K, G, V = cfg.beam_size, cfg.num_groups, cfg.vocab_size
+    if K % G:
+        raise ValueError(f"beam_size {K} is not a multiple of num_groups {G}")
+    Kg = K // G
+    total = P + cfg.max_new_tokens
+    if V <= 0 or Kg > V:
+        raise ValueError(f"vocab_size {V} with {Kg} beams a group")
+    dev = prompt.device
+    strength = cfg.diversity_strength
+
+    lp_all, cache, tokens_flat = _beam_prefill(cfg, prefill, prompt, aux)
+
+    # ---- first step: the groups pick in turn under the penalty -----------
+    div = torch.zeros((B, V), device=dev)
+    first_tokens, first_scores = [], []
+    for _ in range(G):
+        _, t = _top_k(lp_all - strength * div, Kg)
+        first_tokens.append(t)
+        first_scores.append(torch.gather(lp_all, 1, t))
+        div = div + F.one_hot(t, V).float().sum(dim=1)
+    first_tokens = torch.stack(first_tokens, dim=2).reshape(B, K)
+    first_scores = torch.stack(first_scores, dim=2).reshape(B, K)
+
+    cache, aux_t, alive_tokens, alive_scores, fin = _beam_start(
+        cfg, cache, aux, tokens_flat, first_tokens, first_scores, P)
+
+    i = P + 1
+    while fin.open(i, total, P, alive_scores):
+        flat_tokens = alive_tokens.reshape(B * K, total)
+        logits, cache = step(flat_tokens[:, i - 1:i], cache, aux_t)
+        lp = torch.log_softmax(logits[:, -1].float() / cfg.temperature,
+                               dim=-1)
+        lp = _adjust_logprobs(lp, flat_tokens, i - P, i, cfg).reshape(B, K, V)
+        den = fin.lp_den(i + 1 - P)
+
+        div = torch.zeros((B, V), device=dev)
+        sel_tokens, sel_scores, sel_src = [], [], []
+        eos_scores, eos_src, eos_tok = [], [], []
+        for g in range(G):
+            idx_g = torch.arange(g, K, G, device=dev)  # the group's beams
+            lp_g = lp[:, idx_g] - strength * div[:, None, :]
+            cand = alive_scores[:, idx_g, None] + lp_g
+            cand_true = alive_scores[:, idx_g, None] + lp[:, idx_g]
+            top_pen, beam_g, tok_g = _topk_over_beams(cand, 2 * Kg)
+            true_scores = torch.gather(cand_true.reshape(B, Kg * V), 1,
+                                       beam_g * V + tok_g)
+            src = idx_g[beam_g]  # global beam rows
+            is_eos = tok_g == cfg.eos
+            eos_scores.append(torch.where(is_eos, true_scores / den, NEG_INF))
+            eos_src.append(src)
+            eos_tok.append(tok_g)
+            # alive: the group's top Kg non-eos by the PENALIZED score
+            _, sel = _top_k(torch.where(is_eos, NEG_INF, top_pen), Kg)
+            sel_tok = torch.gather(tok_g, 1, sel)
+            sel_tokens.append(sel_tok)
+            sel_scores.append(torch.gather(true_scores, 1, sel))
+            sel_src.append(torch.gather(src, 1, sel))
+            div = div + F.one_hot(sel_tok, V).float().sum(dim=1)
+
+        # ---- the finished set, shared across groups -----------------------
+        cat_scores = torch.cat(eos_scores, dim=1)  # [B, 2K]
+        cand_rows = _take(alive_tokens, torch.cat(eos_src, dim=1))
+        cand_rows[:, :, i] = torch.cat(eos_tok, dim=1)
+        fin.add(cat_scores, cand_rows, cat_scores > NEG_INF / 2)
+
+        # ---- the groups back into the interleaved beam layout -------------
+        new_tok = torch.stack(sel_tokens, dim=2).reshape(B, K)
+        alive_scores = torch.stack(sel_scores, dim=2).reshape(B, K)
+        src_beam = torch.stack(sel_src, dim=2).reshape(B, K)
+        alive_tokens = _take(alive_tokens, src_beam)
+        alive_tokens[:, :, i] = new_tok
+        cache = _gather_beams(cache, src_beam, B, K)
+        i += 1
+    return fin.result(alive_tokens, alive_scores, total, P)
+
+
 def generate(cfg: GenerationConfig, prefill: Callable, step: Callable,
-             prompt: torch.Tensor, aux: Any = None):
+             prompt: torch.Tensor, aux: Any = None,
+             generator: Optional[torch.Generator] = None,
+             min_lens: Optional[torch.Tensor] = None,
+             max_lens: Optional[torch.Tensor] = None):
     """The fairseq search switchboard: num_groups > 1 -> diverse beam;
-    beam_size > 1 or diversity_rate > 0 -> beam; else greedy. Only greedy
-    is ported."""
+    beam_size > 1 or diversity_rate > 0 -> beam (diverse siblings,
+    length-constrained per sentence); else greedy or sampling."""
     if cfg.num_groups > 1 and not cfg.sampling:
-        raise NotImplementedError(_NOT_PORTED.format("diverse beam"))
+        return diverse_beam_generate(cfg, prefill, step, prompt, aux)
     if (cfg.beam_size > 1 or cfg.diversity_rate > 0) and not cfg.sampling:
-        raise NotImplementedError(_NOT_PORTED.format("beam"))
-    return greedy_generate(cfg, prefill, step, prompt, aux)
+        return beam_generate(cfg, prefill, step, prompt, aux,
+                             min_lens=min_lens, max_lens=max_lens)
+    return greedy_generate(cfg, prefill, step, prompt, aux, generator)
+
+
+def make_ensemble(model_fns, temperature: float = 1.0):
+    """Multi-model ensemble (fairseq EnsembleModel): each step averages the
+    models' probabilities, avg = logsumexp(stack(log_softmax(logits_m /
+    T))) - log(M), and the cache is the tuple of the models' caches (beam
+    reorders map over it). model_fns: a list of (prefill, step) pairs; the
+    returned pair takes `aux` as an M-tuple (or None). Its "logits" are
+    avg * T, so the engine's log_softmax(x / T) leaves them unchanged."""
+    M = len(model_fns)
+
+    def split_aux(aux):
+        return (None,) * M if aux is None else tuple(aux)
+
+    def combine(logits_list):
+        lps = torch.stack([torch.log_softmax(lg.float() / temperature,
+                                             dim=-1) for lg in logits_list])
+        return (torch.logsumexp(lps, dim=0) - math.log(M)) * temperature
+
+    def prefill(tokens, aux):
+        outs = [pf(tokens, a) for (pf, _), a in zip(model_fns,
+                                                     split_aux(aux))]
+        return combine([o[0] for o in outs]), tuple(o[1] for o in outs)
+
+    def step(token, cache, aux):
+        outs = [st(token, c, a) for (_, st), c, a in zip(model_fns, cache,
+                                                         split_aux(aux))]
+        return combine([o[0] for o in outs]), tuple(o[1] for o in outs)
+
+    return prefill, step
+
+
+def constrained_beam_generate(*args, **kwargs):
+    """Lexically constrained beam search (JAX :723): not ported yet."""
+    raise NotImplementedError(_NOT_PORTED.format("constrained_beam_generate"))
+
+
+def aggressive_generate(*args, **kwargs):
+    """Generalized aggressive decoding (GAD, JAX :936): not ported yet."""
+    raise NotImplementedError(_NOT_PORTED.format("aggressive_generate"))
