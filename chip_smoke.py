@@ -167,6 +167,28 @@ Phases, one line each:
     beam's score recomputed teacher-forced on the plain path (a secondary
     check); the beam step's device time by group, `_gather_beams`' pool
     copy its own group.
+    trocr_kernels: TrOCR's kernels alone at its shapes against their plain
+    versions: #13 bf16 on the short pools (page 16, chunk 2, 4 pages a
+    run, H16 D64) at B160 and B5, lengths at the page, slab and run
+    edges (1 .. 34), pools bit-equal; #3 at the DeiT encoder's
+    32x578x12x64 and the folded cross-attention's 32x5x578x16x64; #14 at
+    M160 (K1024 -> N1024 / 4096, K4096 -> N1024), the prefill's cross K/V
+    projection M18496 K768 N1024 and the head M160 K1024 N50265; each
+    timed (device time, back to back and with L2 flushed) beside the
+    plain version, sdpa or a dequantized-W cuBLAS product, and the bound.
+    trocr / trocr_int8: trocr_base (DeiT-B/16 at 384, the 12-layer
+    post-LN decoder, E 1024, vocab 50265) bf16 through
+    cli/trocr_infer.py's pipeline (random weights from seed 0; int8:
+    --int8), beam 5, 32 new tokens, synthetic 384x384 images, at B=1 and
+    B=32: 12 launches of #3 per encode; in the prefill 12 of #5 (the
+    1-token prompt's causal self-attention) and 12 of #3 (the
+    cross-attention over the 578 encoder tokens); 12 of #3 (the folded
+    cross-attention) and 12 of #13 a decode step; under --int8 121 of #14
+    in the prefill and 97 a step; the cross K/V at one address from the
+    prefill to the last step, untiled; ms/batch and lines/s; device time
+    a step by group beside the search and `_gather_beams`; the encoder
+    features and two beam steps (a parent-duplicating gather between
+    them) against the plain path, LOGIT_ATOL / ARGMAX_AGREE.
     yoco_chat: yoco_base (12 sliding-window + 12 cross layers, E=1024, 16
     heads, bf16 compute / fp32 params, random weights from the seed)
     through runtime.generate: B=8, a 128-token prompt, a 256-slot cache,
@@ -265,7 +287,8 @@ Phases, one line each:
     TFLOP/s, peak memory, a device-time profile (#2, #8, cuBLAS, other,
     optimizer), and a teacher check of one microbatch under both
     schedules against the default kernels at the train phase's bounds.
-Then a JSON line of the two int8 paths' measurements ("paths"), and one
+Then a JSON line of the two int8 paths' and the TrOCR paths'
+measurements ("paths"), and one
 with each kernel's launches, summed over its main-path phases and listed
 by phase in `launches_by_path` (counters set to 0 just before each: slice,
 decode_int8_bs1 and kosmos_infer for flash_fwd, slice for decode,
@@ -273,10 +296,13 @@ yoco_chat for onepass_attention,
 beit_eval for encoder_attention, beit_train for encoder_attention_bwd,
 layoutlmv3_eval and kosmos_infer for doc_attention, layoutlmv3_train
 for doc_attention_bwd, the engines, decode_int8_bs1 and kosmos_infer for
-the int8 kernels, the engines for the block-table kernel, train for flash_bwd_dq
+the int8 kernels, trocr and trocr_int8 for encoder_attention,
+onepass_attention and decode_attention, trocr_int8 for int8_matmul, the
+engines for the block-table kernel, train for flash_bwd_dq
 and flash_bwd_dkv, train_schedules for flash_tri and flash_bwd_fused,
 page_pool for paged_attention, fused for swiglu and rotary),
-error,
+error, the TrOCR shapes under "trocr" (encoder_attention,
+decode_attention, int8_matmul),
 times (kernel, plain version, and `library_ms`, one torch call computing
 the same function where one exists, else null) and `bound_ms` /
 `bound_by` (the larger of the bytes over 3.35 TB/s and the operations
@@ -3443,10 +3469,10 @@ STEP_GROUPS = [("#14", [INT8_ONLY, "int8_matmul"]), ("#13-int8", [DECODE_ONLY]),
                            "splitK"])]
 
 
-def profile_steps(fn, n: int) -> tuple:
-    """Device time (ms) by STEP_GROUPS of n calls of fn (after one untimed
-    call), per call, and the four costliest kernels of "other" (name, ms
-    a call)."""
+def profile_steps(fn, n: int, step_groups=STEP_GROUPS) -> tuple:
+    """Device time (ms) by `step_groups` of n calls of fn (after one
+    untimed call), per call, and the four costliest kernels of "other"
+    (name, ms a call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -3456,8 +3482,8 @@ def profile_steps(fn, n: int) -> tuple:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    groups = device_time_shares(prof, STEP_GROUPS)
-    named = [sub for _, subs in STEP_GROUPS for sub in subs]
+    groups = device_time_shares(prof, step_groups)
+    named = [sub for _, subs in step_groups for sub in subs]
     other = sorted(((t / n, k) for k, t in device_kernel_times(prof).items()
                     if not any(s in k for s in named)), reverse=True)[:4]
     return ({k: v / n for k, v in groups.items()},
@@ -3987,6 +4013,464 @@ def phase_kosmos_infer(qm) -> tuple:
         "beam_step_logits_max_abs_err": step_errs,
         "beam_step_argmax_agreement": step_agree}}
     return launches, extra
+
+
+# TrOCR-Base beam-search OCR (benchmarks/trocr_decode.py's configuration):
+# trocr_base bf16 (a DeiT-B/16 encoder at 384, 578 tokens; a 12-layer
+# post-LN decoder, E 1024, 16 heads, vocab 50265), beam 5, 32 new tokens
+# (min_new_tokens 32: random weights would stop early), at B=1
+# (interactive) and B=32 (bulk eval), through cli/trocr_infer.py's
+# pipeline (a 1 + 32-slot cache: page 16, chunk 2, 4 pages a layer).
+TROCR_BEAM, TROCR_NEW, TROCR_BATCHES = 5, 32, (1, 32)
+TROCR_TIMED = 3  # timed generate calls a batch size
+TROCR_S, TROCR_LAYERS = 24 * 24 + 2, 12  # encoder tokens, layers a stack
+# the decode pools' geometry at D 64, H 16, and the lengths held there:
+# the page (16), slab (32) and run edges up to the 34-slot cache
+TROCR_LENGTHS = [1, 15, 16, 17, 31, 32, 33, 34]
+ENCODER_ONLY = "encoder_attn"  # #3's kernels (bf16 encoder_attn_sm90)
+ONEPASS_ONLY = "onepass_kernel"  # #5's kernels (the walk at T <= 16)
+# the kernel path's encoder features against the plain path's: relative
+# L2 (0.0095 at B=1 and B=32 on an H100) beside the LOGIT_ATOL max error
+FEATURE_REL_L2 = 2e-2
+TROCR_GROUPS = [("#3", [ENCODER_ONLY]), ("#13", [DECODE_ONLY]),
+                ("#14", [INT8_ONLY, "int8_matmul"]), ("#5", [ONEPASS_ONLY]),
+                ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                            "splitK"])]
+# int8 projections of the decoder a forward: prefill q/k/v/out of self-
+# and cross-attention and fc1/fc2 (10 a layer) + the head; a decode step
+# reads the cross K/V from the cache (8 a layer) + the head
+TROCR_PREFILL_14 = 10 * TROCR_LAYERS + 1
+TROCR_STEP_14 = 8 * TROCR_LAYERS + 1
+
+
+def phase_trocr_kernels(fa, pa, qm, g, dev: str = "cuda") -> dict:
+    """The kernels of TrOCR's path alone, at its shapes, against their
+    plain versions: #13 bf16 on the short pools (page 16, chunk 2, 4
+    pages a run, H16 D64) at B160 (the B=32 beam step) and B5 (B=1), the
+    lengths at the page, slab and run edges, within OUT_ATOL / OUT_RTOL,
+    pools bit-equal; #5 at the prefill's causal self-attention over the
+    1-token prompt (B x 1 x 1 x 16 x 64, B 32 and 1), bf16 within #1's
+    bounds (OUT_ATOL / OUT_RTOL, lse LSE_ATOL); #3 at B 32 and 1 in its
+    three roles, bf16 (relative L2 <= 1e-2, as phase_encoder_attn): the
+    encoder's Bx578x578x12x64, the prefill's cross-attention Bx1x578x16x64
+    and the decode's folded Bx5x578x16x64; #14 at the decode's M160 (K1024 -> N1024 / 4096,
+    K4096 -> N1024), the prefill's cross K/V projection M18496 K768 N1024
+    and the head's M160 K1024 N50265 (int8_case). Each timed (device
+    time, back to back and with L2 flushed) beside the plain version, one
+    PyTorch call of the same function (sdpa; cuBLAS on a dequantized W)
+    and the bound. Returns {kernel name: {"trocr": {...}}} for the
+    kernels line."""
+    from unilm_tpu_torch.core.transformer import _scan_pool_geometry
+
+    bf, name = torch.bfloat16, "trocr_kernels"
+    H, D = 16, 64
+    page, chunk, PP = _scan_pool_geometry(2 + TROCR_NEW)
+    check((page, chunk, PP) == (16, 2, 4), f"{name}: pool geometry "
+          f"{(page, chunk, PP)}")
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    # ---- #13 bf16 at page 16, D 64 -------------------------------------
+    cases = [(TROCR_LENGTHS * 20)[:TROCR_BEAM * TROCR_BATCHES[1]],
+             TROCR_LENGTHS[:TROCR_BEAM], TROCR_LENGTHS[3:]]
+    worst13 = 0.0
+    for lens in cases:
+        Bc = len(lens)
+        bases = torch.arange(Bc, dtype=torch.int32, device=dev) * PP
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kp, vp = rn(Bc * PP, page, H * D), rn(Bc * PP, page, H * D)
+        q, kn, vn = rn(Bc, 1, H, D), rn(Bc, 1, H, D), rn(Bc, 1, H, D)
+        kp2, vp2 = kp.clone(), vp.clone()
+        out = pa.run_decode_append_attention(q, kn, vn, kp, vp, bases,
+                                             lengths, PP, None, chunk)[0]
+        ref = pa.run_decode_append_attention_plain(
+            q, kn, vn, kp2, vp2, bases, lengths, PP, None, chunk)[0]
+        torch.cuda.synchronize()
+        ok, err = close(out, ref, OUT_ATOL, OUT_RTOL)
+        check(ok and bool(torch.isfinite(out.float()).all())
+              and torch.equal(kp, kp2) and torch.equal(vp, vp2),
+              f"{name}: #13 B{Bc} lengths {sorted(set(lens))}: out err "
+              f"{err} or pools differ")
+        worst13 = max(worst13, err)
+    phase(name, f"#13 bf16 page {page} chunk {chunk} ({PP} pages a run) "
+          f"H{H} D{D}, B{len(cases[0])} and B{len(cases[1])}, lengths "
+          f"{TROCR_LENGTHS}: out max|err| {worst13:.3g} (tol {OUT_ATOL} abs "
+          f"+ {OUT_RTOL} rel), pools bit-equal")
+    # timed at the B=32 beam step's B160, every run 32 tokens long
+    Bc, L = TROCR_BEAM * TROCR_BATCHES[1], 32
+    bases = torch.arange(Bc, dtype=torch.int32, device=dev) * PP
+    lengths = torch.full((Bc,), L, dtype=torch.int32, device=dev)
+    kp, vp = rn(Bc * PP, page, H * D), rn(Bc * PP, page, H * D)
+    q, kn, vn = rn(Bc, 1, H, D), rn(Bc, 1, H, D), rn(Bc, 1, H, D)
+    qs = (q[:, 0] * D ** -0.5).contiguous()
+    alone = lambda: pa.decode_attention(qs, kp, vp, bases, lengths, PP)
+    run = lambda pool: pool.reshape(Bc, PP * page, H, D)[:, :L + 1]
+    lib = lambda: sdpa(q, run(kp), run(vp))
+    k13 = {"shape": f"B{Bc} L{L} H{H} D{D} page {page} bf16",
+           "max_abs_err": worst13,
+           "ms": device_ms(alone, only=DECODE_ONLY),
+           "ms_l2_flushed": cold_ms(alone, DECODE_ONLY),
+           "plain_ms": device_ms(lambda: pa.run_decode_append_attention_plain(
+               q, kn, vn, kp, vp, bases, lengths, PP, None, chunk), iters=3),
+           "library_ms": device_ms(lib), "library_ms_l2_flushed": cold_ms(lib),
+           **roofline(Bc * (2 * (L + 1) * H * D * 2 + 2 * H * D * 2),
+                      4 * Bc * H * (L + 1) * D)}
+    phase(name, f"#13 {k13['shape']}, device time: kernel {k13['ms']:.4f} ms "
+          f"back to back, {k13['ms_l2_flushed']:.4f} flushed; sdpa over the "
+          f"runs {k13['library_ms']:.4f} / {k13['library_ms_l2_flushed']:.4f};"
+          f" plain {k13['plain_ms']:.4f}; bound {k13['bound_ms']:.5f} "
+          f"({k13['bound_by']})")
+    del kp, vp
+
+    # ---- #5: the prefill's self-attention over the 1-token prompt -------
+    k5 = {}
+    for B in (TROCR_BATCHES[1], TROCR_BATCHES[0]):
+        check(fa.onepass_applies(B, H, 1, 1, D, None, 0),
+              f"{name}: #5 does not take B{B}x1x1x{H}x{D}")
+        # q scaled in its own dtype, as fa.flash_attention hands it on
+        q, k, v = rn(B, 1, H, D) * D ** -0.5, rn(B, 1, H, D), rn(B, 1, H, D)
+        kw = dict(causal=True, window=0)
+        five = lambda: fa.flash_forward_onepass(q, k, v, None, None, 0,
+                                                None, **kw)
+        out, lse = five()
+        ref, ref_lse = fa.flash_forward_onepass_plain(q, k, v, None, None, 0,
+                                                      None, **kw)
+        torch.cuda.synchronize()
+        ok_o, e_o = close(out, ref, OUT_ATOL, OUT_RTOL)
+        ok_l, e_l = close(lse, ref_lse, LSE_ATOL, 0.0)
+        check(ok_o and ok_l and bool(torch.isfinite(out.float()).all()
+                                     and torch.isfinite(lse).all()),
+              f"{name}: #5 B{B}x1x1x{H}x{D} causal: out err {e_o}, lse err "
+              f"{e_l}")
+        lib = lambda: sdpa(q, k, v, is_causal=True, scale=1.0)
+        r = k5[f"B{B}"] = {
+            "shape": f"{B}x1x1x{H}x{D} causal bf16 (the prefill's prompt)",
+            "max_abs_err": e_o, "lse_max_abs_err": e_l,
+            "ms": device_ms(five, only=ONEPASS_ONLY),
+            "ms_l2_flushed": cold_ms(five, ONEPASS_ONLY),
+            "plain_ms": device_ms(lambda: fa.flash_forward_onepass_plain(
+                q, k, v, None, None, 0, None, **kw), iters=3),
+            "library_ms": device_ms(lib), "library_ms_l2_flushed": cold_ms(lib),
+            **roofline(nbytes(q, k, v, out, lse), 4 * B * H * D)}
+        phase(name, f"#5 {r['shape']}: out max|err| {e_o:.3g}, lse max|err| "
+              f"{e_l:.3g} (tol {OUT_ATOL} abs + {OUT_RTOL} rel, lse "
+              f"{LSE_ATOL}); device time {r['ms']:.4f} ms back to back, "
+              f"{r['ms_l2_flushed']:.4f} flushed; sdpa {r['library_ms']:.4f} "
+              f"/ {r['library_ms_l2_flushed']:.4f}; plain {r['plain_ms']:.4f};"
+              f" bound {r['bound_ms']:.5f} ({r['bound_by']})")
+        del q, k, v, out, lse, ref, ref_lse
+
+    # ---- #3: the encoder, the prefill's and the decode's cross-attention --
+    k3 = {}
+    for key, (B, T, S, Hh) in (
+            (f"{role} B{B}", dims) for B in (TROCR_BATCHES[1], TROCR_BATCHES[0])
+            for role, dims in (("encoder", (B, TROCR_S, TROCR_S, 12)),
+                               ("cross_prefill", (B, 1, TROCR_S, H)),
+                               ("cross_folded", (B, TROCR_BEAM, TROCR_S, H)))):
+        q, k, v = rn(B, T, Hh, D), rn(B, S, Hh, D), rn(B, S, Hh, D)
+        out = fa.fused_encoder_attention(q, k, v)
+        ref = fa.fused_encoder_attention_plain(q, k, v)
+        torch.cuda.synchronize()
+        e = rel_l2(out, ref)
+        check(bool(torch.isfinite(out.float()).all()) and e <= 1e-2,
+              f"{name}: #3 {key} {B}x{T}x{S}x{Hh}x{D}: rel L2 {e}")
+        kern = lambda: fa.fused_encoder_attention(q, k, v)
+        lib = lambda: sdpa(q, k, v)
+        r = k3[key] = {
+            "shape": f"{B}x{T}x{S}x{Hh}x{D} bf16, no bias", "rel_l2": e,
+            "max_abs_err": float((out.float() - ref.float()).abs().max()),
+            "ms": device_ms(kern, only=ENCODER_ONLY),
+            "ms_l2_flushed": cold_ms(kern, ENCODER_ONLY),
+            "plain_ms": device_ms(lambda: fa.fused_encoder_attention_plain(
+                q, k, v), iters=3),
+            "library_ms": device_ms(lib), "library_ms_l2_flushed": cold_ms(lib),
+            **roofline(nbytes(q, k, v, out), 4 * B * Hh * T * S * D)}
+        phase(name, f"#3 {key} {r['shape']}: rel L2 {e:.3g} (bound 1e-2); "
+              f"device time {r['ms']:.4f} ms back to back, "
+              f"{r['ms_l2_flushed']:.4f} flushed; sdpa {r['library_ms']:.4f}"
+              f" / {r['library_ms_l2_flushed']:.4f}; plain "
+              f"{r['plain_ms']:.4f}; bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']}; flushed {r['ms_l2_flushed'] / r['bound_ms']:.2f}x)")
+        del q, k, v, out, ref
+
+    # ---- #14 at the int8 decoder's shapes -------------------------------
+    k14 = {}
+    for M, K, N in ((160, 1024, 1024), (160, 1024, 4096), (160, 4096, 1024),
+                    (TROCR_BATCHES[1] * TROCR_S, 768, 1024),
+                    (160, 1024, 50265)):
+        w = torch.randint(-127, 128, (N, K), generator=g, device=dev,
+                          dtype=torch.int8)
+        sc = ((torch.rand(N, generator=g, device=dev) + 0.5)
+              * (2.0 / (127 * K ** 0.5)))
+        x = torch.randn(M, K, generator=g, device=dev).to(bf)
+        err, ratio, _ = int8_case(qm, x, w, sc)
+        r = {"max_abs_err": err, "err_over_tol": ratio,
+             **int8_times(qm, x, w, sc)}
+        r["library_ms"] = r["dequant_bf16_cublas_ms"]
+        k14[f"M{M} K{K} N{N}"] = r
+        phase(name, f"#14 M{M} K{K} N{N}: max|err| {err:.3g} ({ratio:.3f} "
+              f"of the tolerance), bit-equal twice; device time {r['ms']:.4f}"
+              f" ms back to back, {r['ms_l2_flushed']:.4f} flushed; "
+              f"dequantized-W bf16 cuBLAS {r['dequant_bf16_cublas_ms']:.4f} "
+              f"/ {r['dequant_bf16_cublas_ms_l2_flushed']:.4f} "
+              f"({r['ms_l2_flushed'] / r['dequant_bf16_cublas_ms_l2_flushed']:.2f}x"
+              f" flushed); plain {r['plain_ms']:.4f}; bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']})")
+        del w, x
+    torch.cuda.empty_cache()
+    return {"decode_attention": {"trocr": k13},
+            "onepass_attention": {"trocr": k5},
+            "encoder_attention": {"trocr": k3},
+            "int8_matmul": {"trocr": k14}}
+
+
+def trocr_pipeline(int8: bool):
+    """cli/trocr_infer.py's build_pipeline for trocr_base bf16, beam 5,
+    32 new tokens (random weights from seed 0; --int8 when asked), with
+    min_new_tokens 32 so that every line takes its 31 decode steps."""
+    from unilm_tpu_torch.cli import trocr_infer
+    from unilm_tpu_torch.models.trocr import trocr_base
+
+    argv = ["--image", "unused", "--bf16", "--beam", str(TROCR_BEAM),
+            "--max_new_tokens", str(TROCR_NEW)] + (["--int8"] if int8 else [])
+    pipe = trocr_infer.build_pipeline(trocr_infer.build_parser().parse_args(
+        argv))
+    pipe.gcfg = dataclasses.replace(pipe.gcfg, min_new_tokens=TROCR_NEW)
+    want = trocr_base(dtype=torch.bfloat16, quant_weights=int8)
+    check(pipe.model.cfg == want and want.dec_layers == TROCR_LAYERS
+          and want.num_patches + 2 == TROCR_S,
+          f"trocr: config {pipe.model.cfg}")
+    return pipe
+
+
+def trocr_plain(model):
+    """The same weights on the plain path: use_flash=False and every
+    QuantDense on int8_matmul_plain."""
+    from unilm_tpu_torch.models.trocr import TrOCRModel
+    from unilm_tpu_torch.ops.quant import QuantDense
+
+    plain = TrOCRModel(dataclasses.replace(model.cfg, use_flash=False),
+                       device=next(model.parameters()).device).eval()
+    plain.load_state_dict(model.state_dict(), strict=True)
+    for m in plain.modules():
+        if isinstance(m, QuantDense):
+            m.use_kernel = False
+    return plain
+
+
+def phase_trocr(qm, int8: bool) -> tuple:
+    """TrOCR-Base beam-search OCR through cli/trocr_infer.py's pipeline
+    (bf16; `int8`: --int8) on synthetic 384x384 images made on the card,
+    at B=1 and B=32: launches exact (12 #3 per encode; the prefill 12 #5
+    for the 1-token prompt's self-attention and 12 #3 over the encoder;
+    12 #3 and 12 #13 a decode step; under int8 121 #14 in the prefill and
+    97 a step, else none); the cross K/V [B, 12, 578, 16, 64] neither
+    tiled nor copied by a beam step (one data_ptr from prefill to the
+    last step); ms/batch and lines/s (host clock, TROCR_TIMED calls);
+    device time a B*5-row decode step by kernel group beside the search
+    and `_gather_beams` (the pools' copy only); the kernel path against
+    the plain path on the same images: the encoder features, then two
+    beam steps teacher-forced on the plain twin from the kernel path's
+    features, a `_gather_beams` duplicating a parent between them, logits
+    within LOGIT_ATOL with argmax agreement >= ARGMAX_AGREE. Returns
+    (launches, the path's numbers)."""
+    from unilm_tpu_torch.models.trocr import make_generate_fns
+    from unilm_tpu_torch.runtime import generate as gen_mod
+
+    name = "trocr_int8" if int8 else "trocr"
+    t0 = time.time()
+    pipe = trocr_pipeline(int8)
+    model, cfg, dev = pipe.model, pipe.model.cfg, pipe.device
+    L, K, P = cfg.dec_layers, TROCR_BEAM, 1
+    Hd, Dh = cfg.dec_heads, cfg.dec_dim // cfg.dec_heads
+    n_bytes = sum(t.numel() * t.element_size()
+                  for t in model.state_dict().values())
+    phase(name, f"build_pipeline --bf16 --beam {K} --max_new_tokens "
+          f"{TROCR_NEW}{' --int8' if int8 else ''}: {time.time() - t0:.1f} s;"
+          f" {n_bytes / 1e9:.3f} GB of weights; cache {pipe.cache_size} "
+          f"slots")
+    per14 = (TROCR_PREFILL_14, TROCR_STEP_14) if int8 else (0, 0)
+    prefill, step = pipe.prefill, pipe.step
+    seen = {"steps": 0, "ptrs": set()}
+
+    def pf(tok, aux):
+        out = prefill(tok, aux)
+        torch.cuda.synchronize()
+        seen["prefill"] = counts()
+        return out
+
+    def st(tok, c, aux):
+        dec = c["text_decoder"]["decoder"]
+        seen["ptrs"].add((dec["cross_key"].data_ptr(),
+                          dec["cross_value"].data_ptr()))
+        seen["shape"] = tuple(dec["cross_key"].shape)
+        seen["steps"] += 1
+        return step(tok, c, aux)
+
+    plain = trocr_plain(model)
+    ppf, pst = make_generate_fns(plain, pipe.cache_size)
+    launches, numbers = {}, {}
+    for B in TROCR_BATCHES:
+        imgs = torch.randn(B, cfg.img_size, cfg.img_size, 3, generator=torch.
+                           Generator(device=dev).manual_seed(SEED),
+                           device=dev).to(torch.bfloat16)
+        # ---- the main path, counted --------------------------------------
+        pipe.prefill, pipe.step = pf, st
+        seen.update(steps=0, ptrs=set())
+        reset_counts()
+        with torch.no_grad():
+            enc_feats = model.encode(imgs)
+        torch.cuda.synchronize()
+        enc_counts = counts()
+        reset_counts()
+        toks, scores = pipe.generate(imgs)
+        torch.cuda.synchronize()
+        pipe.prefill, pipe.step = prefill, step
+        got, pre, S = counts(), seen["prefill"], seen["steps"]
+        check(enc_counts["encoder_attention"] == L
+              and sum(enc_counts.values()) == L,
+              f"{name}: B={B} encode launched {enc_counts} (want {L} of #3)")
+        # generate: the encode, the prefill (#5 for the prompt's self-
+        # attention, #3 over the encoder output), then S steps
+        check(tuple(toks.shape) == (B, K, P + TROCR_NEW) and S == TROCR_NEW - 1
+              and bool(torch.isfinite(scores).all())
+              and bool((scores[:, :-1] >= scores[:, 1:]).all()),
+              f"{name}: B={B} tokens {tuple(toks.shape)}, {S} steps, scores "
+              f"{scores[0].tolist()}")
+        want_pre = {"encoder_attention": 2 * L, "onepass_attention": L,
+                    "int8_matmul": per14[0]}
+        want = {"encoder_attention": 2 * L + L * S, "onepass_attention": L,
+                "decode_attention": L * S,
+                "int8_matmul": per14[0] + per14[1] * S}
+        check(all(pre[k] == v for k, v in want_pre.items())
+              and pre["decode_attention"] == 0
+              and all(got[k] == v for k, v in want.items())
+              and sum(got.values()) == sum(want.values()),
+              f"{name}: B={B} launches {got}, prefill {pre} (want {want}, "
+              f"prefill {want_pre})")
+        check(len(seen["ptrs"]) == 1
+              and seen["shape"] == (B, L, TROCR_S, Hd, Dh),
+              f"{name}: B={B} cross K/V seen at {len(seen['ptrs'])} "
+              f"addresses, shape {seen['shape']} (want one, untiled)")
+        for k, v in got.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+        # ---- ms/batch, lines/s on the host clock -------------------------
+        walls = []
+        for _ in range(TROCR_TIMED):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            pipe.generate(imgs)
+            torch.cuda.synchronize()
+            walls.append((time.time() - t1) * 1e3)
+        ms = float(np.median(walls))
+        # ---- a decode step's device time by group -----------------------
+        with torch.no_grad():
+            lg, c = prefill(toks[:, 0, :1], enc_feats)
+            c = gen_mod._tile_cache(c, K)
+        tokK = toks[:, :, P:P + 1].reshape(B * K, 1)
+        shares, top = profile_steps(lambda: step(tokK, c, None), 4,
+                                    TROCR_GROUPS)
+        lgK = step(tokK, c, None)[0]
+        scfg = pipe.gcfg
+
+        def search():
+            lp = torch.log_softmax(lgK[:, -1].float(), -1)
+            lp = gen_mod._adjust_logprobs(
+                lp, toks[:, :, :P].reshape(B * K, P), 1, P, scfg)
+            return gen_mod._topk_over_beams(lp.reshape(B, K, -1), 2 * K)
+
+        idx = torch.tensor([[0, 0, 1, 2, 3]] * B, device=dev)
+        gathered = gen_mod._gather_beams(c, idx, B, K)
+        dec, gdec = c["text_decoder"]["decoder"], gathered["text_decoder"][
+            "decoder"]
+        check(gdec["cross_key"] is dec["cross_key"]
+              and gdec["cross_value"] is dec["cross_value"]
+              and gdec["kv_pool_key"].data_ptr() != dec["kv_pool_key"].data_ptr(),
+              f"{name}: _gather_beams copied the cross K/V or not the pools")
+        del gathered
+        gather_ms = device_ms(lambda: gen_mod._gather_beams(c, idx, B, K))
+        pool_gb = nbytes(dec["kv_pool_key"], dec["kv_pool_value"]) / 1e9
+        cross_gb = nbytes(dec["cross_key"], dec["cross_value"]) / 1e9
+        groups = {**shares, "search (log_softmax + top-k)": device_ms(search),
+                  "_gather_beams": gather_ms}
+        dev_step = sum(groups.values())
+        host_step = ms / (S + 1)  # the encode shared out
+        phase(name, f"B={B} beam {K}: {S} steps; launches #3 "
+              f"{got['encoder_attention']} ({L} an encode, {L} in the "
+              f"prefill, {L} a step), #5 "
+              f"{got['onepass_attention']} (the prefill), #13 "
+              f"{got['decode_attention']} ({L} a step), #14 "
+              f"{got['int8_matmul']}; cross K/V {cross_gb:.3f} GB, one "
+              f"address from prefill to step {S}")
+        phase(name, f"B={B}: {ms:.1f} ms/batch (host clock, median of "
+              + ", ".join(f"{w:.1f}" for w in walls) + f") -> "
+              f"{B * 1e3 / ms:.2f} lines/s; device time a {B * K}-row step "
+              f"{dev_step:.4f} ms (host {host_step:.2f} ms a forward, "
+              f"{100 * dev_step / host_step:.1f}% busy): " + ", ".join(
+                  f"{k} {v:.4f}" for k, v in groups.items())
+              + "; other's largest: " + ", ".join(f"{k} {t:.4f}"
+                                                  for k, t in top)
+              + f"; _gather_beams copies the pools' {pool_gb:.3f} GB "
+              f"({2 * pool_gb / (gather_ms * 1e-3):.0f} GB/s read + write), "
+              f"not the cross K/V")
+
+        # ---- kernel path vs plain path, teacher-forced --------------------
+        reorder = torch.tensor([[0, 0, 1, 2, 3]] * B, device=dev)
+
+        def beam_steps(pf_, st_):
+            with torch.no_grad():
+                cc = gen_mod._tile_cache(pf_(toks[:, 0, :1], enc_feats)[1], K)
+                out = []
+                for j in range(2):
+                    if j:
+                        cc = gen_mod._gather_beams(cc, reorder, B, K)
+                    lgj, cc = st_(toks[:, :, P + j:P + j + 1].reshape(B * K, 1),
+                                  cc, None)
+                    out.append(lgj[:, -1].float())
+            torch.cuda.synchronize()
+            return out
+
+        c0 = counts()
+        with torch.no_grad():
+            pfeats = plain.encode(imgs)
+        klog = beam_steps(prefill, step)
+        c1 = counts()
+        plog = beam_steps(ppf, pst)
+        check(counts() == c1 and c1 != c0, f"{name}: B={B} the plain path "
+              f"launched a kernel, or the kernel path none")
+        feat_err = float((enc_feats.float() - pfeats.float()).abs().max())
+        feat_rel = rel_l2(enc_feats, pfeats)
+        errs = [float((a - b).abs().max()) for a, b in zip(klog, plog)]
+        agree = float(torch.cat([a.argmax(-1) == b.argmax(-1)
+                                 for a, b in zip(klog, plog)]).float().mean())
+        check(feat_err <= LOGIT_ATOL and feat_rel <= FEATURE_REL_L2
+              and all(np.isfinite(errs))
+              and max(errs) <= LOGIT_ATOL and agree >= ARGMAX_AGREE,
+              f"{name}: B={B} kernel vs plain: features max|err| {feat_err}, "
+              f"rel L2 {feat_rel}, step logits {errs}, argmax agreement "
+              f"{agree}")
+        phase(name, f"B={B} vs the plain path: encoder features max|err| "
+              f"{feat_err:.4f} (tol {LOGIT_ATOL}), rel L2 {feat_rel:.3g} (tol "
+              f"{FEATURE_REL_L2}); two beam steps "
+              f"({B * K} rows, a gather {reorder[0].tolist()} between them) "
+              f"logits max|err| " + ", ".join(f"{e:.4f}" for e in errs)
+              + f" (tol {LOGIT_ATOL}), argmax agreement {agree:.3f}")
+        numbers[f"B{B}"] = {
+            "ms_per_batch_host": walls, "lines_per_s": B * 1e3 / ms,
+            "decode_step_device_ms_by_group": groups,
+            "decode_step_device_ms": dev_step,
+            "gather_beams_gb": pool_gb, "cross_kv_gb": cross_gb,
+            "encoder_features_max_abs_err": feat_err,
+            "encoder_features_rel_l2": feat_rel,
+            "beam_step_logits_max_abs_err": errs,
+            "beam_step_argmax_agreement": agree}
+        del c, lgK, enc_feats, pfeats, klog, plog, imgs
+        torch.cuda.empty_cache()
+    del pipe, model, plain
+    torch.cuda.empty_cache()
+    return launches, {name: numbers}
 
 
 def phase_paged_append(pa, g) -> dict:
@@ -5302,6 +5786,11 @@ def main() -> int:
     add("decode_int8_bs1", got)
     got, infer = phase_kosmos_infer(qm)
     add("kosmos_infer", got)
+    trocr_extra = phase_trocr_kernels(fa, pa, qm, g)
+    got, trocr_bf16 = phase_trocr(qm, int8=False)
+    add("trocr", got)
+    got, trocr_int8 = phase_trocr(qm, int8=True)
+    add("trocr_int8", got)
     add("yoco_chat", phase_yoco_chat(fa))
     phase_yoco_long(fa)
     cfg, sd = engine_model()
@@ -5316,9 +5805,11 @@ def main() -> int:
         kern["launches"] = sum(paths.values())
         kern["launches_by_path"] = paths
         kern.update(line4.get(kern["name"], {}))
+        kern.update(trocr_extra.get(kern["name"], {}))
         check(kern["launches"] > 0, f"{kern['name']} never launched")
     print(json.dumps({"paths": {"decode_int8_bs1": line4["line4"],
-                                **infer}}), flush=True)
+                                **infer, **trocr_bf16, **trocr_int8}}),
+          flush=True)
     phase("profiler", f"{len(PROFILER_MISSES)} device_ms calls fell back "
           f"to CUDA events: {PROFILER_MISSES}")
     print(json.dumps({"kernels": kernels}), flush=True)

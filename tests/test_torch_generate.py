@@ -279,6 +279,39 @@ def test_gather_beams_returns_fresh_tensors():
     assert torch.equal(tiled["pool"][1], pool[0])
 
 
+def test_cross_leaves_shared_across_beams():
+    """An encoder-decoder's cross K/V (5-D leaves under `cross_key` /
+    `cross_value`, JAX `_is_shared_cross_leaf`): `_tile_cache` passes them
+    through, `_gather_beams` returns the same tensors when the beam count
+    holds and gathers them when it changes, as JAX does; a 4-D leaf of
+    that name tiles like any other, and the pools are still copied."""
+    L, S = 3, 4
+    cross = torch.arange(2 * L * S * 2 * 2, dtype=torch.float32).reshape(
+        L, 2, S, 2, 2).transpose(0, 1)  # [B=2, L, S, H, D], layer-major
+    tree = {"decoder": {"cross_key": cross, "cross_value": cross + 1.0,
+                        "kv_pool_key": torch.arange(12.0).reshape(2, 6),
+                        "cache_index": 4},
+            "looped": {"cross_key": torch.zeros(2, S, 2, 2)}}
+    tiled = tgen._tile_cache(tree, 3)
+    assert tiled["decoder"]["cross_key"] is cross
+    assert tiled["decoder"]["cross_value"] is tree["decoder"]["cross_value"]
+    assert tiled["decoder"]["kv_pool_key"].shape == (6, 6)
+    assert tiled["looped"]["cross_key"].shape == (6, S, 2, 2)
+    idx = torch.tensor([[2, 0, 0], [1, 1, 2]])
+    same = tgen._gather_beams(tiled, idx, batch=2, old_k=3)
+    assert same["decoder"]["cross_key"] is cross
+    assert same["looped"]["cross_key"] is tiled["looped"]["cross_key"]
+    pool = tiled["decoder"]["kv_pool_key"]
+    assert torch.equal(same["decoder"]["kv_pool_key"],
+                       pool[[2, 0, 0, 4, 4, 5]])
+    assert same["decoder"]["kv_pool_key"].data_ptr() != pool.data_ptr()
+    # fewer beams out than in: the cross leaves (one row a beam) gather too
+    beams = {"cross_key": cross.repeat_interleave(3, 0)}
+    out = tgen._gather_beams(beams, torch.tensor([[2], [0]]), batch=2,
+                             old_k=3)["cross_key"]
+    assert torch.equal(out, cross[[0, 1]]) and out.shape == (2, L, S, 2, 2)
+
+
 # ---- sampling -------------------------------------------------------------
 
 def _jax_support(lp, cfg):

@@ -151,7 +151,8 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "ops.bucket_bias", "models.layoutlmv3", "convert.layoutlmv3",
           "convert.common", "data.document_datasets", "cli.run_funsd",
           "ops.retention", "models.yoco", "ops.fused", "cli.kosmos_infer",
-          "convert.kosmos"}
+          "convert.kosmos", "models.trocr", "convert.trocr",
+          "data.trocr_datasets", "cli.trocr_infer", "cli.trocr_eval"}
 
 
 def test_port_imports_without_jax():

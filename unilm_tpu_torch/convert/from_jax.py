@@ -18,15 +18,20 @@ axis, the scan_layers form). Leaves map as
 - params that keep their name: LayerScale `gamma`, `cls_token`,
   `mask_token`, `pos_embed`, `relative_position_bias_table`,
   `latent_query`, LayoutLMv3's bias tables `rel_pos_bias`,
-  `rel_pos_x_bias`, `rel_pos_y_bias`;
+  `rel_pos_x_bias`, `rel_pos_y_bias`, TrOCR's `dist_token` and the
+  decoder's learned position table `embed_positions`;
 - a stacked `layers` subtree -> one module per layer (`layers.{i}`),
   `layers_{i}` -> `layers.{i}`.
 
-YOCO's tree (`embed_tokens/embedding`, `self_{i}/{q,k,v,g,out}_proj`,
+TrOCR's tree (`vit/...`, `text_decoder/...` with each layer's
+`encoder_attn` and `encoder_attn_layer_norm`, looped or stacked, and the
+int8 `output_projection` of `quantize_trocr_decoder`) and YOCO's tree
+(`embed_tokens/embedding`, `self_{i}/{q,k,v,g,out}_proj`,
 `self_{i}/gt_proj`, `self_norm{1,2}_{i}/scale`, `self_ffn_{i}/fc{1,2,3}`,
 `kv_norm`, `global_{k,v}`, `cross_{i}/*`, `cross_norm{1,2}_{i}`,
-`cross_ffn_{i}`, `final_norm`) maps by these rules alone: the port's
-models/yoco.py registers its modules under the flax names.
+`cross_ffn_{i}`, `final_norm`) map by these rules alone: the port's
+models/trocr.py and models/yoco.py register their modules under the flax
+names.
 
 No jax import: bfloat16 leaves (ml_dtypes arrays) are reinterpreted bit
 for bit.
@@ -43,7 +48,7 @@ _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias"}
 _SAME = {"gamma", "cls_token", "mask_token", "pos_embed",
          "relative_position_bias_table", "latent_query", "rel_pos_bias",
-         "rel_pos_x_bias", "rel_pos_y_bias"}
+         "rel_pos_x_bias", "rel_pos_y_bias", "dist_token", "embed_positions"}
 
 
 def to_tensor(a) -> torch.Tensor:

@@ -10,11 +10,13 @@ JAX module's names; the generation path (core/transformer.py
 `ScanSelfAttention`) subclasses this module, so one set of weights serves
 training, prefill and decode.
 
-Cross-attention runs in train mode without a cache (`key` given to
-`forward_train`; the Kosmos latent-query resampler): q from the query,
-k and v from `key`, no inner_attn_ln (sub-LN skips cross-attention
-projections, :75-77). The cached cross-attention of generation (TrOCR's
-prefill/decode, slice 8), the multiway projections (BEiT-3) and
+Cross-attention in train mode takes `key` in `forward_train` (the Kosmos
+latent-query resampler, TrOCR's teacher-forced decoder): q from the
+query, k and v from `key` (whose width `kv_dim` may differ from the
+query's, as TrOCR's 768-wide encoder under a 1024-wide decoder), no
+inner_attn_ln (sub-LN skips cross-attention projections, :75-77). The
+cached cross-attention of generation is core/transformer.py's
+`ScanCrossAttention`, a subclass. The multiway projections (BEiT-3) and
 sequence-parallel ring attention (`cfg.seq_axis`, slice 9) raise
 NotImplementedError naming their ROADMAP entry.
 """
@@ -57,10 +59,12 @@ def apply_xpos(q, k, xpos):
 
 class MultiheadAttention(nn.Module):
     """Self- or cross-attention with the JAX module's parameters: q_proj,
-    k_proj, v_proj, out_proj and (sub-LN self-attention) inner_attn_ln."""
+    k_proj, v_proj, out_proj and (sub-LN self-attention) inner_attn_ln.
+    `kv_dim`: the width k_proj and v_proj read (default embed_dim; the
+    flax module takes it from its input)."""
 
     def __init__(self, cfg: TransformerConfig, self_attention: bool = True,
-                 device=None):
+                 kv_dim: Optional[int] = None, device=None):
         super().__init__()
         if cfg.multiway:
             raise NotImplementedError(
@@ -74,9 +78,10 @@ class MultiheadAttention(nn.Module):
             vo_scale = 1.0 / cfg.deepnorm_init_div
         self.q_proj = make_dense(cfg, E, H * D, init_scale=2 ** -0.5,
                                  device=device)
-        self.k_proj = make_dense(cfg, E, H * D, init_scale=2 ** -0.5,
+        kv_dim = E if kv_dim is None else kv_dim
+        self.k_proj = make_dense(cfg, kv_dim, H * D, init_scale=2 ** -0.5,
                                  device=device)
-        self.v_proj = make_dense(cfg, E, H * D,
+        self.v_proj = make_dense(cfg, kv_dim, H * D,
                                  init_scale=2 ** -0.5 * vo_scale, device=device)
         if cfg.subln and self_attention:
             self.inner_attn_ln = make_norm(cfg, H * D, device=device)

@@ -1,8 +1,8 @@
 """The encoder and decoder stacks (port of unilm_tpu/core/transformer.py
 `EncoderLayer` :60-153, `_decoder_layer_body` :156, `DecoderLayer` :247,
 `_ScanDecoderLayer` :281, `_scan_pool_geometry` :330, `_ScanSelfAttention`
-:346, `_ScanDecoderLayerKV` :599, `Encoder` :681-764, `Decoder` :767-948
-and `stack_layer_params` :659).
+:346, `_ScanCrossAttention` :529, `_ScanDecoderLayerKV` :599, `Encoder`
+:681-764, `Decoder` :767-948 and `stack_layer_params` :659).
 
 `Encoder` is the bidirectional stack over pre-embedded inputs (BEiT, the
 Pix2Struct tower): pre- or post-LN, LayerScale, the deepnorm `alpha`, one
@@ -42,9 +42,24 @@ geometry, the short one included (JAX sends chunk*page < 128 to XLA for a
 TPU tile reason); the generic path dequantizes the layer's slabs in
 cfg.dtype.
 
-Cross-attention, relative-position buckets, MoE, drop-path in the decoder,
-dropout and the "dots" remat policy raise NotImplementedError naming their
-ROADMAP entry.
+`Decoder(has_cross_attention=True)` (TrOCR) gives each layer an
+`encoder_attn` block and its `encoder_attn_layer_norm`, in JAX's order
+for pre- and post-LN (`_decoder_layer_body` :208-229). In train mode it is
+`MultiheadAttention.forward_train` over `encoder_out`; in generation
+`ScanCrossAttention` (JAX `_ScanCrossAttention` :529-596): prefill
+projects `encoder_out` once per layer into the cache leaves `cross_key` /
+`cross_value` [B, L, S, H, D] in the model dtype (:875-891), decode reads
+layer li's slice. The leaves are views of [L, B, S, H, D] storage, so a
+layer's slice is one contiguous [B, S, H, D] block that the attention
+kernel reads in place. Beam search neither tiles nor reorders them
+(runtime/generate.py `_is_shared_cross_leaf`): with a query batch B that
+is G times the leaves' Bkv, the G beams of a sequence fold into the query
+length, [Bkv, G*T, H, D] over the shared keys (:570-585), which is exact
+for non-causal attention.
+
+Relative-position buckets, MoE, drop-path in the decoder, dropout, xPos
+with cross-attention (JAX asserts, :542-544) and the "dots" remat policy
+raise NotImplementedError naming their ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -96,10 +111,6 @@ class ScanSelfAttention(MultiheadAttention):
             return self.forward_train(x, None, causal=causal,
                                       key_padding_mask=key_padding_mask,
                                       attn_bias=attn_bias, xpos=xpos)
-        if not self.self_attention:
-            raise NotImplementedError(
-                "cached cross-attention (TrOCR prefill/decode) is not ported "
-                "yet: ROADMAP Queue 1 slice 8")
         cfg = self.cfg
         H, D = cfg.num_heads, cfg.head_dim
         B, T = x.shape[0], x.shape[1]
@@ -188,18 +199,70 @@ class ScanSelfAttention(MultiheadAttention):
         scale_pool[:, slab, 1, pos_in] = vs.reshape(B, T)
 
 
+class ScanCrossAttention(MultiheadAttention):
+    """Cross-attention over an encoder's output with the JAX module's
+    parameters. `mode="train"` is the parent's `forward_train`; prefill
+    and decode are the JAX `_ScanCrossAttention`'s (see the module
+    docstring)."""
+
+    def __init__(self, cfg: TransformerConfig, kv_dim: Optional[int] = None,
+                 device=None):
+        if cfg.xpos_rel_pos:
+            raise NotImplementedError(
+                "xPos with cross-attention is not ported (the JAX scanned "
+                "stack asserts against it; no model of the repo combines "
+                "them): ROADMAP Queue 1 slice 8")
+        super().__init__(cfg, self_attention=False, kv_dim=kv_dim,
+                         device=device)
+
+    def forward(self, x, encoder_out=None, cross=None, li: int = 0, *,
+                mode: str, key_padding_mask=None):
+        """`cross` = (cross_key, cross_value) [Bkv, L, S, H, D]: prefill
+        writes layer li's slice from `encoder_out` [Bkv, S, E_enc], decode
+        only reads it. `key_padding_mask` [Bkv, S] bool, True = valid."""
+        if mode == "train":
+            return self.forward_train(x, encoder_out,
+                                      key_padding_mask=key_padding_mask)
+        H, D = self.cfg.num_heads, self.cfg.head_dim
+        B, T = x.shape[0], x.shape[1]
+        q = self.q_proj(x).view(B, T, H, D)
+        ck, cv = cross
+        if mode == "prefill":
+            Bkv, S = encoder_out.shape[0], encoder_out.shape[1]
+            ck[:, li] = self.k_proj(encoder_out).view(Bkv, S, H, D)
+            cv[:, li] = self.v_proj(encoder_out).view(Bkv, S, H, D)
+        k, v = ck[:, li], cv[:, li]
+        Bkv = k.shape[0]
+        if B % Bkv:
+            raise ValueError(f"query batch {B} is not a multiple of the "
+                             f"cross cache's batch {Bkv}")
+        # beams of a sequence attend over the same keys: fold them into the
+        # query length (a view of the [B, T, H, D] projection)
+        out = attention(q.reshape(Bkv, B // Bkv * T, H, D), k, v,
+                        key_padding_mask=key_padding_mask, scale=self.scale,
+                        causal=False, use_flash=self.cfg.use_flash)
+        return self.output(out.reshape(B, T, H, D))
+
+
 class DecoderLayer(nn.Module):
-    """One decoder layer (self-attention + FFN), the param subtree of the
-    JAX `DecoderLayer` / `_ScanDecoderLayer` / `_ScanDecoderLayerKV`; the
-    attention keywords pick the mode."""
+    """One decoder layer (self-attention, with `has_cross_attention` the
+    cross-attention over an encoder of width `encoder_dim`, then the FFN),
+    the param subtree of the JAX `DecoderLayer` / `_ScanDecoderLayer` /
+    `_ScanDecoderLayerKV`; the attention keywords pick the mode, `cross_kw`
+    goes to `ScanCrossAttention`."""
 
     def __init__(self, cfg: TransformerConfig, alpha: float = 1.0,
-                 device=None):
+                 has_cross_attention: bool = False,
+                 encoder_dim: Optional[int] = None, device=None):
         super().__init__()
         self.cfg = cfg
         self.alpha = alpha
         self.self_attn_layer_norm = make_norm(cfg, device=device)
         self.self_attn = ScanSelfAttention(cfg, device=device)
+        if has_cross_attention:
+            self.encoder_attn_layer_norm = make_norm(cfg, device=device)
+            self.encoder_attn = ScanCrossAttention(cfg, encoder_dim,
+                                                   device=device)
         self.final_layer_norm = make_norm(cfg, device=device)
         ffn_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
         self.ffn = FeedForward(cfg, init_scale=ffn_scale, device=device)
@@ -207,7 +270,7 @@ class DecoderLayer(nn.Module):
     def _residual(self, residual, x):
         return residual * self.alpha + x if self.alpha != 1.0 else residual + x
 
-    def forward(self, x, *pool, **attn_kw):
+    def forward(self, x, *pool, cross_kw: Optional[Dict] = None, **attn_kw):
         pre = self.cfg.normalize_before
         residual = x
         if pre:
@@ -216,6 +279,14 @@ class DecoderLayer(nn.Module):
         x = self._residual(residual, x)
         if not pre:
             x = self.self_attn_layer_norm(x)
+        if cross_kw is not None:
+            residual = x
+            if pre:
+                x = self.encoder_attn_layer_norm(x)
+            x = self.encoder_attn(x, mode=attn_kw["mode"], **cross_kw)
+            x = self._residual(residual, x)
+            if not pre:
+                x = self.encoder_attn_layer_norm(x)
         residual = x
         if pre:
             x = self.final_layer_norm(x)
@@ -366,7 +437,9 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
-    """Causal decoder stack over pre-embedded inputs.
+    """Causal decoder stack over pre-embedded inputs, with
+    `has_cross_attention` over an encoder's output of width `encoder_dim`
+    (default embed_dim).
 
     `forward(x, mode="train")` returns x: the full-sequence forward that
     autograd differentiates. `forward(x, mode="prefill" | "decode",
@@ -374,16 +447,14 @@ class Decoder(nn.Module):
     decode reads `cache` and writes the step's rows into its pools in
     place. `cache` is a dict with the JAX leaf names: kv_pool_key,
     kv_pool_value [B, L*PP, page, H*D] (int8 under kv_cache_dtype "int8",
-    with kv_pool_scale [B, L*PP/chunk, 8, chunk*page] f32) and cache_index
-    (an int: tokens already in the pool)."""
+    with kv_pool_scale [B, L*PP/chunk, 8, chunk*page] f32), cache_index
+    (an int: tokens already in the pool) and, with cross-attention,
+    cross_key / cross_value [Bkv, L, S, H, D] (written by prefill only;
+    decode may run B = G * Bkv beam rows over them)."""
 
     def __init__(self, cfg: TransformerConfig, has_cross_attention=False,
-                 device=None):
+                 encoder_dim: Optional[int] = None, device=None):
         super().__init__()
-        if has_cross_attention:
-            raise NotImplementedError(
-                "decoder cross-attention (TrOCR) is not ported yet: ROADMAP "
-                "Queue 1 slice 8")
         if cfg.moe_freq or cfg.drop_path_rate or cfg.rel_pos_buckets:
             raise NotImplementedError(
                 "MoE / drop-path / T5 relative-bias decoders are not ported "
@@ -392,9 +463,11 @@ class Decoder(nn.Module):
             raise ValueError(f"kv_cache_dtype {cfg.kv_cache_dtype!r}: "
                              "'model' or 'int8'")
         self.cfg = cfg
+        self.has_cross_attention = has_cross_attention
         alpha = cfg.deepnorm_alpha if cfg.deepnorm else 1.0
         self.layers = nn.ModuleList(
-            [DecoderLayer(cfg, alpha, device=device)
+            [DecoderLayer(cfg, alpha, has_cross_attention, encoder_dim,
+                          device=device)
              for _ in range(cfg.num_layers)])
         if cfg.normalize_before:
             self.layer_norm = make_norm(cfg, device=device)
@@ -403,10 +476,23 @@ class Decoder(nn.Module):
                 cache_size: int = 0, cache: Optional[Dict] = None,
                 causal: bool = True,
                 self_key_padding_mask: Optional[torch.Tensor] = None,
-                attn_bias: Optional[torch.Tensor] = None):
+                attn_bias: Optional[torch.Tensor] = None,
+                encoder_out: Optional[torch.Tensor] = None,
+                encoder_padding_mask: Optional[torch.Tensor] = None):
+        """`encoder_out` [Bkv, S, E_enc] is read in train mode and by
+        prefill (decode reads the cross cache instead); with
+        `encoder_padding_mask` [Bkv, S] (True = valid) every layer's
+        cross-attention masks its keys."""
+        if self.has_cross_attention and mode != "decode" and (
+                encoder_out is None):
+            raise ValueError(f"mode {mode!r} of a cross-attention decoder "
+                             "needs encoder_out")
         if mode == "train":
+            cross_kw = (dict(encoder_out=encoder_out,
+                             key_padding_mask=encoder_padding_mask)
+                        if self.has_cross_attention else None)
             return self._forward_train(x, causal, self_key_padding_mask,
-                                       attn_bias)
+                                       attn_bias, cross_kw)
         if mode not in ("prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg = self.cfg
@@ -430,22 +516,38 @@ class Decoder(nn.Module):
             kp, vp = cache["kv_pool_key"], cache["kv_pool_value"]
             sp = cache["kv_pool_scale"] if kv_int8 else None
             start = int(cache["cache_index"])
+        cross = None
+        if self.has_cross_attention and mode == "prefill":
+            # [L, B, S, H, D] storage seen as [B, L, S, H, D]: each layer's
+            # slice is contiguous; every layer writes its own
+            Bkv, S = encoder_out.shape[0], encoder_out.shape[1]
+            cross = tuple(torch.empty(
+                (L, Bkv, S, H, D), dtype=cfg.dtype,
+                device=x.device).transpose(0, 1) for _ in range(2))
+        elif self.has_cross_attention:
+            cross = (cache["cross_key"], cache["cross_value"])
         xpos = (xpos_inputs(cfg, start, T, x.device) if cfg.xpos_rel_pos
                 else None)
         for li, layer in enumerate(self.layers):
+            cross_kw = (None if cross is None else dict(
+                encoder_out=encoder_out, cross=cross, li=li,
+                key_padding_mask=encoder_padding_mask))
             x = layer(x, kp, vp, sp, li, start, mode=mode, causal=causal,
                       page=page, chunk=chunk, pages_per_layer=pp, xpos=xpos,
                       key_padding_mask=self_key_padding_mask,
-                      attn_bias=attn_bias)
+                      attn_bias=attn_bias, cross_kw=cross_kw)
         if cfg.normalize_before:
             x = self.layer_norm(x)
         cache = {"kv_pool_key": kp, "kv_pool_value": vp}
         if kv_int8:
             cache["kv_pool_scale"] = sp
         cache["cache_index"] = start + T
+        if cross is not None:
+            cache["cross_key"], cache["cross_value"] = cross
         return x, cache
 
-    def _forward_train(self, x, causal, key_padding_mask, attn_bias):
+    def _forward_train(self, x, causal, key_padding_mask, attn_bias,
+                       cross_kw):
         """The looped stack's train mode (:914-949); the scanned stack
         (:826-848) computes the same. With cfg.remat each layer is
         recomputed in the backward (torch.utils.checkpoint, the "full"
@@ -464,7 +566,8 @@ class Decoder(nn.Module):
         xpos = (xpos_inputs(cfg, 0, x.shape[1], x.device)
                 if cfg.xpos_rel_pos else None)
         kw = dict(mode="train", causal=causal, xpos=xpos,
-                  key_padding_mask=key_padding_mask, attn_bias=attn_bias)
+                  key_padding_mask=key_padding_mask, attn_bias=attn_bias,
+                  cross_kw=cross_kw)
         for layer in self.layers:
             if cfg.remat and torch.is_grad_enabled():
                 x = checkpoint(layer, x, use_reentrant=False, **kw)

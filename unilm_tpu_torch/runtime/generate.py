@@ -23,7 +23,11 @@ and the token streams equal JAX's.
 Beams are folded into the batch, and a reorder gathers every batch-leading
 cache leaf (`_gather_beams`). The port's decode writes pool rows in place,
 so the gather returns fresh tensors (`index_select`), never views: two
-beams that share a parent must not share storage.
+beams that share a parent must not share storage. The exception is an
+encoder-decoder's cross-attention K/V (`cross_key` / `cross_value`, 5-D,
+`_is_shared_cross_leaf`): every beam of a sentence reads the same source,
+so beam search neither tiles them nor, while the beam count holds,
+reorders them; the decoder folds the beams into the query length.
 
 Sampling draws from an explicit `torch.Generator` (Gumbel-max over the
 kept candidates, as `jax.random.categorical`); JAX's key stream cannot be
@@ -74,20 +78,31 @@ class GenerationConfig:
     diversity_rate: float = 0.0
 
 
-def _map_tree(fn, tree):
-    """fn over the tensor leaves of dicts / lists / tuples / dataclasses;
-    None, numbers and other leaves pass through."""
+def _map_tree(fn, tree, path: tuple = ()):
+    """fn(path, leaf) over the tensor leaves of dicts / lists / tuples /
+    dataclasses, `path` the dict keys and field names from the root; None,
+    numbers and other leaves pass through."""
     if isinstance(tree, dict):
-        return {k: _map_tree(fn, v) for k, v in tree.items()}
+        return {k: _map_tree(fn, v, path + (k,)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_map_tree(fn, v) for v in tree)
+        return type(tree)(_map_tree(fn, v, path) for v in tree)
     if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
         return dataclasses.replace(tree, **{
-            f.name: _map_tree(fn, getattr(tree, f.name))
+            f.name: _map_tree(fn, getattr(tree, f.name), path + (f.name,))
             for f in dataclasses.fields(tree)})
     if isinstance(tree, torch.Tensor):
-        return fn(tree)
+        return fn(path, tree)
     return tree
+
+
+_CROSS_LEAVES = ("cross_key", "cross_value")
+
+
+def _is_shared_cross_leaf(path: tuple, x: torch.Tensor) -> bool:
+    """A decoder's cross-attention K/V ([B, L, S, H, D], JAX :62-70): 5-D,
+    under a `cross_key` / `cross_value` key. Shared by every beam of a
+    sentence, so `_tile_cache` passes it through."""
+    return x.ndim == 5 and any(k in _CROSS_LEAVES for k in path)
 
 
 def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -99,9 +114,11 @@ def _top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def _tile_cache(tree: Any, K: int) -> Any:
     """Tile batch-leading leaves to beams ([B, ...] -> [B*K, ...], each row
-    K times in a row); 0-d leaves pass through."""
+    K times in a row); 0-d leaves and shared cross-attention leaves pass
+    through."""
     return _map_tree(
-        lambda x: x if x.ndim == 0 else x.repeat_interleave(K, dim=0), tree)
+        lambda path, x: x if x.ndim == 0 or _is_shared_cross_leaf(path, x)
+        else x.repeat_interleave(K, dim=0), tree)
 
 
 def _topk_over_beams(cand: torch.Tensor, n: int, sibling_rate: float = 0.0):
@@ -128,12 +145,22 @@ def _gather_beams(tree: Any, idx: torch.Tensor, batch: int,
                   old_k: int) -> Any:
     """Gather beam-major leaves [B*old_k, ...] by idx [B, new_k] into fresh
     tensors (index_select copies: the decode writes pool rows in place, so
-    siblings must not share storage). 0-d leaves pass through. The port
-    has no cross-attention cache leaves, which JAX leaves ungathered."""
+    siblings must not share storage). 0-d leaves pass through, and so do
+    the cross-attention K/V when new_k == old_k (JAX :107-132): a
+    reorder within a sentence's beams leaves a source shared by all of
+    them unchanged. Gathered otherwise, like any other leaf."""
     flat = (idx + torch.arange(batch, device=idx.device)[:, None] * old_k
             ).reshape(-1)
-    return _map_tree(lambda x: x if x.ndim == 0 else x.index_select(
-        0, flat.to(x.device)), tree)
+    same_k = idx.shape[1] == old_k
+
+    def gather(path, x):
+        if x.ndim == 0:
+            return x
+        if same_k and any(k in _CROSS_LEAVES for k in path):
+            return x
+        return x.index_select(0, flat.to(x.device))
+
+    return _map_tree(gather, tree)
 
 
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

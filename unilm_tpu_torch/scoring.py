@@ -1,12 +1,59 @@
 """Evaluation scorers (the port's own copy of what its slices use from
 unilm_tpu/scoring.py): seqeval-style entity P/R/F1, `extract_entities` :86
-and `entity_f1` :100; ImageNet top-k accuracy, `accuracy_topk` :114."""
+and `entity_f1` :100; ImageNet top-k accuracy, `accuracy_topk` :114;
+TrOCR's character and word error rates, `cer` :33 and `wer` :45.
+
+The edit distance is a copy of the pure-numpy fallback of
+unilm_tpu/native/__init__.py `edit_distance` :83 (the JAX package builds
+a C++ library for it; the port builds none)."""
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Sequence
 
 import numpy as np
+
+
+def edit_distance(a: Sequence[int], b: Sequence[int]) -> int:
+    """Levenshtein distance between two int sequences."""
+    a = np.asarray(a, np.int32)
+    b = np.asarray(b, np.int32)
+    prev = np.arange(len(b) + 1, dtype=np.int64)
+    for i in range(1, len(a) + 1):
+        cur = np.empty(len(b) + 1, np.int64)
+        cur[0] = i
+        sub = prev[:-1] + (a[i - 1] != b)
+        for j in range(1, len(b) + 1):
+            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, sub[j - 1])
+        prev = cur
+    return int(prev[len(b)])
+
+
+def _word_ids(a: List[str], b: List[str]):
+    """The two word lists as ids of one shared table."""
+    table: Dict = {}
+    return ([table.setdefault(t, len(table)) for t in a],
+            [table.setdefault(t, len(table)) for t in b])
+
+
+def cer(refs: List[str], hyps: List[str]) -> float:
+    """Character error rate: the summed edit distances over the summed
+    reference lengths (trocr's cer2)."""
+    dist = total = 0
+    for r, h in zip(refs, hyps):
+        dist += edit_distance([ord(c) for c in r], [ord(c) for c in h])
+        total += len(r)
+    return dist / max(total, 1)
+
+
+def wer(refs: List[str], hyps: List[str]) -> float:
+    """Word error rate over whitespace-split words."""
+    dist = total = 0
+    for r, h in zip(refs, hyps):
+        ra, ha = _word_ids(r.split(), h.split())
+        dist += edit_distance(ra, ha)
+        total += len(ra)
+    return dist / max(total, 1)
 
 
 def accuracy_topk(logits: np.ndarray, labels: np.ndarray,
