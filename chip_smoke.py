@@ -189,6 +189,38 @@ Phases, one line each:
     a step by group beside the search and `_gather_beams`; the encoder
     features and two beam steps (a parent-duplicating gather between
     them) against the plain path, LOGIT_ATOL / ARGMAX_AGREE.
+    kosmos2_kernels: Kosmos-2's kernels alone at its shapes against their
+    plain versions: #3 and #4 (dq, dk, dv) at the CLIP tower's
+    Bx257x257x16x64 and the resampler's Bx64x321x32x64, #5 at the
+    prefill's causal Bx75x32x64, #13 bf16 on the decoder's pools (page
+    16, chunk 2, 8 pages a run, H32 D64), each at B 8 and 1; timed (device
+    time, back to back and with L2 flushed) beside the plain version, sdpa
+    (or sdpa's backward) and the bound.
+    kosmos2: kosmos2(bf16) at full width (ViT-L/14 at 224, 64 latent
+    queries, the 24-layer E=2048 decoder; 1.66 B params, random weights
+    from the seed) through cli/kosmos_ground_eval.py's --kosmos2 model and
+    its refcoco prompt (prefix <phrase>a dog</phrase>, byte-tokenizer
+    ids, a 75-token prompt), 224x224 pseudo-images from load_image, B=1
+    and B=8, 32 greedy tokens: exactly 25 launches of #3 an encode, 24 of
+    #5 a prefill, 24 of #13 a step and nothing else; the markup through
+    parse_grounded_text, printed only (random weights, and the byte
+    tokenizer renders the model's ids past its own as off-grid patch
+    indices); TTFT (host and device time), ms/token, a step's
+    device time by kernel group, busy share, peak memory; encode_image's
+    features, the prefill's logits and two decode steps against the
+    plain twin; then one SEED-Bench scoring forward through
+    cli/kosmos_seedbench.py (4 questions x 4 choices: 25 #3, 24 #5), its
+    mean answer log-probs and argmax choices against the plain twin's.
+    kosmos2_train: cli/train_gpt.py --vl_data at kosmos2()'s widths (bf16,
+    --remat, --fused_ce, batch 2 x 512 tokens) over a laion_obj shard
+    written to chip_smoke_work/, 3 AdamW steps: finite losses, exactly 25
+    #3 and 25 #4, 24 #6 and 24 #7 and 48 #1 (the forward, again under
+    --remat) a step; ms/step, peak memory; a 2-layer copy (tower and
+    decoder) against its plain twin on the first batch: float32 loss,
+    grad norm and per-tensor gradient cosines, bf16 grad norm and cosines
+    at the train phase's gates, the bf16 loss at KOSMOS2_TEACHER_LOSS_REL
+    (the k_proj biases without xPos, whose exact gradient is 0, by norm
+    only).
     yoco_chat: yoco_base (12 sliding-window + 12 cross layers, E=1024, 16
     heads, bf16 compute / fp32 params, random weights from the seed)
     through runtime.generate: B=8, a 128-token prompt, a 256-slot cache,
@@ -287,8 +319,8 @@ Phases, one line each:
     TFLOP/s, peak memory, a device-time profile (#2, #8, cuBLAS, other,
     optimizer), and a teacher check of one microbatch under both
     schedules against the default kernels at the train phase's bounds.
-Then a JSON line of the two int8 paths' and the TrOCR paths'
-measurements ("paths"), and one
+Then a JSON line of the two int8 paths', the TrOCR paths' and the
+Kosmos-2 paths' measurements ("paths"), and one
 with each kernel's launches, summed over its main-path phases and listed
 by phase in `launches_by_path` (counters set to 0 just before each: slice,
 decode_int8_bs1 and kosmos_infer for flash_fwd, slice for decode,
@@ -297,12 +329,17 @@ beit_eval for encoder_attention, beit_train for encoder_attention_bwd,
 layoutlmv3_eval and kosmos_infer for doc_attention, layoutlmv3_train
 for doc_attention_bwd, the engines, decode_int8_bs1 and kosmos_infer for
 the int8 kernels, trocr and trocr_int8 for encoder_attention,
-onepass_attention and decode_attention, trocr_int8 for int8_matmul, the
+onepass_attention and decode_attention, trocr_int8 for int8_matmul,
+kosmos2 for encoder_attention, onepass_attention and decode_attention,
+kosmos2_train for encoder_attention, encoder_attention_bwd, flash_fwd,
+flash_bwd_dq and flash_bwd_dkv, the
 engines for the block-table kernel, train for flash_bwd_dq
 and flash_bwd_dkv, train_schedules for flash_tri and flash_bwd_fused,
 page_pool for paged_attention, fused for swiglu and rotary),
 error, the TrOCR shapes under "trocr" (encoder_attention,
-decode_attention, int8_matmul),
+decode_attention, int8_matmul), the Kosmos-2 shapes under "kosmos2"
+(encoder_attention, encoder_attention_bwd, onepass_attention,
+decode_attention),
 times (kernel, plain version, and `library_ms`, one torch call computing
 the same function where one exists, else null) and `bound_ms` /
 `bound_by` (the larger of the bytes over 3.35 TB/s and the operations
@@ -3452,8 +3489,10 @@ def plain_twin(model):
     from unilm_tpu_torch.ops.quant import QuantDense
 
     cfg = model.cfg
-    cfg = dataclasses.replace(cfg, use_flash=False, pix2struct=(
-        dataclasses.replace(cfg.pix2struct, use_flash=False)))
+    cfg = dataclasses.replace(
+        cfg, use_flash=False,
+        pix2struct=dataclasses.replace(cfg.pix2struct, use_flash=False),
+        clip=dataclasses.replace(cfg.clip, use_flash=False))
     plain = UniGPT(cfg, device="cuda").eval()
     plain.load_state_dict(model.state_dict(), strict=True, assign=True)
     for m in plain.modules():
@@ -4471,6 +4510,668 @@ def phase_trocr(qm, int8: bool) -> tuple:
     del pipe, model, plain
     torch.cuda.empty_cache()
     return launches, {name: numbers}
+
+
+# ---- Kosmos-2 (kosmos2(): the open_clip ViT-L/14 tower, 64 latent queries,
+# the 24-layer E=2048 UniGPT decoder) ------------------------------------
+KOSMOS2_BATCHES, KOSMOS2_NEW, KOSMOS2_TIMED = (1, 8), 32, 3
+KOSMOS2_TOWER = 24  # tower layers; the decoder has 24 too
+KOSMOS2_S, KOSMOS2_Q = (224 // 14) ** 2 + 1, 64  # tower tokens, queries
+KOSMOS2_PREFIX = "<phrase>a dog</phrase>"  # the refcoco prompt's prefix
+# the refcoco prompt's length: <s>, <image>, Q slots, </image>,
+# <grounding> and the prefix's 7 byte-tokenizer ids
+KOSMOS2_P = 3 + KOSMOS2_Q + 1 + 7
+ENC_BWD_ONLY = "enc_bwd_"  # #4's kernels
+# encode_image's features, kernel path against plain path: relative L2
+# (0.0038 at B=1 and B=8 on an H100 80GB HBM3 at 700 W)
+KOSMOS2_FEATURE_REL_L2 = 1e-2
+# kosmos2_train's 2-layer copy in bf16, kernel path against plain path on
+# the stream's first batch (130 text targets): loss rel 6.81e-5 on an
+# H100 80GB HBM3 at 700 W, of which the plain path's own bf16 rounding is
+# most (4.12e-5 from the float32 loss, the kernel path 2.68e-5). A mean
+# over so few targets moves more than the train phase's (TEACHER_LOSS_REL);
+# its bound is ~10x the reading:
+KOSMOS2_TEACHER_LOSS_REL = 7e-4
+KOSMOS2_GROUPS = [("#13", [DECODE_ONLY]), ("#5", [ONEPASS_ONLY]),
+                  ("#3", [ENCODER_ONLY]), ("#1", ["flash_fwd"]),
+                  ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                              "splitK"])]
+# a SEED-Bench candidate's mean answer log-prob, kernel path against plain
+# path: the logits agree within LOGIT_ATOL, and a log-softmax entry moves
+# by at most twice its logit's error; the mean over the answer's tokens
+# is held at 0.1. The argmax choice must agree wherever the plain path's
+# best choice leads its second by more than twice that.
+SEED_LOGP_ATOL = 0.1
+SEED_QUESTIONS = [("What is shown in the image?", ["a dog", "a cat",
+                                                   "a red car", "a tree"]),
+                  ("How many people are there?", ["one", "two", "three",
+                                                  "none"]),
+                  ("Where is the dog?", ["on the grass", "in a car",
+                                         "under a table", "on a bed"]),
+                  ("What color is the car?", ["red", "blue", "green",
+                                              "white"])]
+
+
+def kosmos2_model():
+    """cli/kosmos_ground_eval.py's --kosmos2 model (random weights
+    from seed 0) and its arguments, with the byte tokenizer (the card's
+    machine has no cl100k_base file)."""
+    from unilm_tpu_torch.cli import kosmos_ground_eval as ge
+    from unilm_tpu_torch.data.vl_loaders import VLTokenizer
+    from unilm_tpu_torch.models.kosmos import kosmos2
+
+    tok = VLTokenizer(backend="bytes")
+    args = ge.build_parser().parse_args([
+        "--task", "refcoco", "--data", "unused", "--kosmos2",
+        "--max_new_tokens", str(KOSMOS2_NEW), "--seed", str(SEED)])
+    model = ge.build_model(args, tok)
+    want = kosmos2(dtype=torch.bfloat16, segment_emb=True)
+    check(model.cfg == want and want.clip.num_layers == KOSMOS2_TOWER
+          and want.num_layers == KOSMOS2_TOWER
+          and (args.image_size, args.image_tokens) == (224, KOSMOS2_Q),
+          f"kosmos2: config {model.cfg}")
+    return ge, args, tok, model
+
+
+def phase_kosmos2_kernels(fa, pa, g, dev: str = "cuda") -> dict:
+    """The kernels of Kosmos-2's path alone, at its shapes, against their
+    plain versions: #3 at the tower's Bx257x257x16x64 and the resampler's
+    Bx64x321x32x64 (B 8 and 1; relative L2 <= 1e-2) and #4 there (dq, dk,
+    dv, grad_close at 1e-2); #5 at the prefill's causal BxPx32x64 (the
+    refcoco prompt's P = 75, B 8 and 1; OUT_ATOL / OUT_RTOL, lse
+    LSE_ATOL); #13 bf16 at the decoder's pools (page 16, chunk 2, 8 pages
+    a run, H32 D64) at B8 and B1 over the decode's lengths, pools
+    bit-equal. Each timed (device time back to back and with L2 flushed)
+    beside the plain version, sdpa (or sdpa's backward) and the bound.
+    Returns {kernel name: {"kosmos2": {...}}} for the kernels line."""
+    from unilm_tpu_torch.core.transformer import _scan_pool_geometry
+
+    bf, name, D, P = torch.bfloat16, "kosmos2_kernels", 64, KOSMOS2_P
+
+    def rn(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(bf)
+
+    def lib_pair(fn):
+        return {"library_ms": device_ms(fn), "library_ms_l2_flushed":
+                cold_ms(fn)}
+
+    # ---- #3 and #4: the tower and the resampler -------------------------
+    k3, k4 = {}, {}
+    for B in KOSMOS2_BATCHES[::-1]:
+        for role, (T, S, H) in (("tower", (KOSMOS2_S, KOSMOS2_S, 16)),
+                                ("resampler",
+                                 (KOSMOS2_Q, KOSMOS2_S + KOSMOS2_Q, 32))):
+            key = f"{role} B{B}"
+            q, k, v, do = rn(B, T, H, D), rn(B, S, H, D), rn(B, S, H, D), \
+                rn(B, T, H, D)
+            out = fa.fused_encoder_attention(q, k, v)
+            ref = fa.fused_encoder_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            e = rel_l2(out, ref)
+            check(bool(torch.isfinite(out.float()).all()) and e <= 1e-2,
+                  f"{name}: #3 {key} {B}x{T}x{S}x{H}x{D}: rel L2 {e}")
+            kern = lambda: fa.fused_encoder_attention(q, k, v)
+            r = k3[key] = {
+                "shape": f"{B}x{T}x{S}x{H}x{D} bf16, no bias", "rel_l2": e,
+                "max_abs_err": float((out.float() - ref.float()).abs().max()),
+                "ms": device_ms(kern, only=ENCODER_ONLY),
+                "ms_l2_flushed": cold_ms(kern, ENCODER_ONLY),
+                "plain_ms": device_ms(lambda: fa.fused_encoder_attention_plain(
+                    q, k, v), iters=3),
+                **lib_pair(lambda: sdpa(q, k, v)),
+                **roofline(nbytes(q, k, v, out), 4 * B * H * T * S * D)}
+            phase(name, f"#3 {key} {r['shape']}: rel L2 {e:.3g} (bound "
+                  f"1e-2); device time {r['ms']:.4f} ms back to back, "
+                  f"{r['ms_l2_flushed']:.4f} flushed; sdpa "
+                  f"{r['library_ms']:.4f} / {r['library_ms_l2_flushed']:.4f};"
+                  f" plain {r['plain_ms']:.4f}; bound {r['bound_ms']:.5f} "
+                  f"({r['bound_by']})")
+            got = fa.fused_encoder_backward(q, k, v, None, do)
+            want = fa.fused_encoder_backward_plain(q, k, v, None, do)
+            torch.cuda.synchronize()
+            worst_rel, worst_abs = 0.0, 0.0
+            for gname, x, rr in zip(("dq", "dk", "dv"), got, want):
+                ok, ea, er = grad_close(x, rr, 1e-2)
+                check(bool(torch.isfinite(x.float()).all()) and ok,
+                      f"{name}: #4 {key} {gname} max|err| {ea} rel L2 {er}")
+                worst_rel, worst_abs = max(worst_rel, er), max(worst_abs, ea)
+            check(got[3] is None, f"{name}: #4 {key} gave a dbias")
+            bwd = lambda: fa.fused_encoder_backward(q, k, v, None, do)
+            qg, kg, vg = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            o = sdpa(qg, kg, vg)
+            dot = do.transpose(1, 2)
+            lib = lambda: torch.autograd.grad(o, (qg, kg, vg), dot,
+                                              retain_graph=True)
+            r = k4[key] = {
+                "shape": f"{B}x{T}x{S}x{H}x{D} bf16, no bias, dq/dk/dv",
+                "rel_l2": worst_rel, "max_abs_err": worst_abs,
+                "ms": device_ms(bwd, only=ENC_BWD_ONLY),
+                "ms_l2_flushed": cold_ms(bwd, ENC_BWD_ONLY),
+                "plain_ms": device_ms(lambda: fa.fused_encoder_backward_plain(
+                    q, k, v, None, do), iters=3),
+                "library": f"sdpa backward ({type(o.grad_fn).__name__})",
+                **lib_pair(lib),
+                **roofline(nbytes(q, k, v, do, *got[:3]),
+                           10 * B * H * T * S * D)}
+            phase(name, f"#4 {key} {r['shape']}: worst rel L2 "
+                  f"{worst_rel:.3g} (bound 1e-2); device time {r['ms']:.4f} "
+                  f"ms back to back, {r['ms_l2_flushed']:.4f} flushed; "
+                  f"{r['library']} {r['library_ms']:.4f} / "
+                  f"{r['library_ms_l2_flushed']:.4f}; plain "
+                  f"{r['plain_ms']:.4f}; bound {r['bound_ms']:.5f} "
+                  f"({r['bound_by']})")
+            del q, k, v, do, out, ref, got, want, o, qg, kg, vg
+
+    # ---- #5: the prefill's causal self-attention ------------------------
+    k5, H = {}, 32
+    for B in KOSMOS2_BATCHES[::-1]:
+        check(fa.onepass_applies(B, H, P, P, D, None, 0),
+              f"{name}: #5 does not take B{B}x{P}x{H}x{D}")
+        q, k, v = rn(B, P, H, D) * D ** -0.5, rn(B, P, H, D), rn(B, P, H, D)
+        five = lambda: fa.flash_forward_onepass(q, k, v, causal=True)
+        out, lse = five()
+        ref, ref_lse = fa.flash_forward_onepass_plain(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ok_o, e_o = close(out, ref, OUT_ATOL, OUT_RTOL)
+        ok_l, e_l = close(lse, ref_lse, LSE_ATOL, 0.0)
+        check(ok_o and ok_l and bool(torch.isfinite(out.float()).all()),
+              f"{name}: #5 B{B}x{P}x{H}x{D} causal: out err {e_o}, lse err "
+              f"{e_l}")
+        r = k5[f"B{B}"] = {
+            "shape": f"{B}x{P}x{P}x{H}x{D} causal bf16 (the prefill)",
+            "max_abs_err": e_o, "lse_max_abs_err": e_l,
+            "ms": device_ms(five, only=ONEPASS_ONLY),
+            "ms_l2_flushed": cold_ms(five, ONEPASS_ONLY),
+            "plain_ms": device_ms(lambda: fa.flash_forward_onepass_plain(
+                q, k, v, causal=True), iters=3),
+            **lib_pair(lambda: sdpa(q, k, v, is_causal=True, scale=1.0)),
+            **roofline(nbytes(q, k, v, out, lse),
+                       4 * B * H * D * P * (P + 1) / 2)}
+        phase(name, f"#5 {r['shape']}: out max|err| {e_o:.3g}, lse max|err|"
+              f" {e_l:.3g} (tol {OUT_ATOL} abs + {OUT_RTOL} rel, lse "
+              f"{LSE_ATOL}); device time {r['ms']:.4f} ms back to back, "
+              f"{r['ms_l2_flushed']:.4f} flushed; sdpa {r['library_ms']:.4f} "
+              f"/ {r['library_ms_l2_flushed']:.4f}; plain {r['plain_ms']:.4f};"
+              f" bound {r['bound_ms']:.5f} ({r['bound_by']})")
+        del q, k, v, out, lse, ref, ref_lse
+
+    # ---- #13 bf16 at the decoder's pools --------------------------------
+    page, chunk, PP = _scan_pool_geometry(P + KOSMOS2_NEW)
+    check((page, chunk, PP) == (16, 2, 8), f"{name}: pool geometry "
+          f"{(page, chunk, PP)}")
+    lens8 = [P, 79, 80, 81, 95, 96, 97, P + KOSMOS2_NEW - 2]
+    k13, worst13 = {}, 0.0
+    for lens in (lens8, [P + KOSMOS2_NEW // 2]):
+        Bc = len(lens)
+        bases = torch.arange(Bc, dtype=torch.int32, device=dev) * PP
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        kp, vp = rn(Bc * PP, page, H * D), rn(Bc * PP, page, H * D)
+        q, kn, vn = rn(Bc, 1, H, D), rn(Bc, 1, H, D), rn(Bc, 1, H, D)
+        kp2, vp2 = kp.clone(), vp.clone()
+        out = pa.run_decode_append_attention(q, kn, vn, kp, vp, bases,
+                                             lengths, PP, None, chunk)[0]
+        ref = pa.run_decode_append_attention_plain(
+            q, kn, vn, kp2, vp2, bases, lengths, PP, None, chunk)[0]
+        torch.cuda.synchronize()
+        ok, err = close(out, ref, OUT_ATOL, OUT_RTOL)
+        check(ok and bool(torch.isfinite(out.float()).all())
+              and torch.equal(kp, kp2) and torch.equal(vp, vp2),
+              f"{name}: #13 B{Bc} lengths {lens}: out err {err} or pools "
+              f"differ")
+        worst13 = max(worst13, err)
+        # timed over the runs as they stand after the append
+        L = max(lens) + 1
+        qs = (q[:, 0] * D ** -0.5).contiguous()
+        lengths1 = lengths + 1
+        alone = lambda: pa.decode_attention(qs, kp, vp, bases, lengths1, PP)
+        run = lambda pool: pool.reshape(Bc, PP * page, H, D)[:, :L]
+        r = k13[f"B{Bc}"] = {
+            "shape": f"B{Bc} lengths {lens} (+1) H{H} D{D} page {page} bf16",
+            "max_abs_err": err,
+            "ms": device_ms(alone, only=DECODE_ONLY),
+            "ms_l2_flushed": cold_ms(alone, DECODE_ONLY),
+            "plain_ms": device_ms(
+                lambda: pa.run_decode_append_attention_plain(
+                    q, kn, vn, kp2, vp2, bases, lengths, PP, None, chunk),
+                iters=3),
+            **lib_pair(lambda: sdpa(q, run(kp), run(vp))),
+            **roofline(sum(2 * (n + 1) * H * D * 2 + 2 * H * D * 2
+                           for n in lens),
+                       4 * H * D * sum(n + 1 for n in lens))}
+        phase(name, f"#13 {r['shape']}: out max|err| {err:.3g} (tol "
+              f"{OUT_ATOL} abs + {OUT_RTOL} rel), pools bit-equal; device "
+              f"time {r['ms']:.4f} ms back to back, {r['ms_l2_flushed']:.4f} "
+              f"flushed; sdpa over the longest run {r['library_ms']:.4f} / "
+              f"{r['library_ms_l2_flushed']:.4f}; plain {r['plain_ms']:.4f}; "
+              f"bound {r['bound_ms']:.5f} ({r['bound_by']})")
+        del kp, vp, kp2, vp2
+    torch.cuda.empty_cache()
+    return {"encoder_attention": {"kosmos2": k3},
+            "encoder_attention_bwd": {"kosmos2": k4},
+            "onepass_attention": {"kosmos2": k5},
+            "decode_attention": {"kosmos2": k13}}
+
+
+def kosmos2_seed_records():
+    return [{"image": None, "question": q, "choices": c, "answer": "A",
+             "question_type": f"t{i % 2}"}
+            for i, (q, c) in enumerate(SEED_QUESTIONS)]
+
+
+def phase_kosmos2(fa) -> tuple:
+    """Kosmos-2 grounded generation through cli/kosmos_ground_eval.py's
+    --kosmos2 model and its refcoco prompt (build_prompts with the
+    prefix <phrase>a dog</phrase>, byte tokenizer ids), 224x224
+    pseudo-images from load_image, at B=1 and B=8, KOSMOS2_NEW greedy
+    tokens (</s> banned before them): exactly 25 launches of #3 an encode
+    (24 tower layers, the resampler), 24 of #5 a prefill, 24 of #13 a
+    decode step and nothing else; the markup through parse_grounded_text,
+    printed only (random weights; ids past the byte tokenizer's render
+    as off-grid patch indices);
+    TTFT (encode + prefill) on the host clock and as device time,
+    ms/token, a step's device time by kernel group, the busy share and
+    peak memory; against the plain twin: encode_image's features (rel L2
+    <= KOSMOS2_FEATURE_REL_L2), the prefill's logits and two decode steps
+    teacher-forced on the kernel path's tokens and features (LOGIT_ATOL,
+    ARGMAX_AGREE). Then one SEED-Bench scoring forward through
+    cli/kosmos_seedbench.py (4 questions x 4 choices from
+    pack_candidates): 25 #3 and 24 of #5 or #1 (as onepass_applies
+    decides at its length), the mean answer log-probs within
+    SEED_LOGP_ATOL of the plain path's and the argmax choice equal where
+    the plain path's lead exceeds twice that. Returns (launches, the
+    path's numbers)."""
+    from unilm_tpu_torch.cli import kosmos_seedbench as sb
+    from unilm_tpu_torch.data.grounding import parse_grounded_text
+    from unilm_tpu_torch.models.kosmos import make_unigpt_generate_fns
+
+    name = "kosmos2"
+    t0 = time.time()
+    ge, args, tok, model = kosmos2_model()
+    L, Q = KOSMOS2_TOWER, KOSMOS2_Q
+    n_params = sum(p.numel() for p in model.parameters())
+    phase(name, f"kosmos_ground_eval --kosmos2: {n_params / 1e9:.3f} "
+          f"B params, built in {time.time() - t0:.1f} s; byte tokenizer "
+          f"({tok.vocab_size} ids)")
+    plain = plain_twin(model)
+    prefix = tok.encode_grounded(KOSMOS2_PREFIX)
+    launches, numbers = {}, {}
+
+    def count_into(got):
+        for k, v in got.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+
+    for B in KOSMOS2_BATCHES:
+        records = [{"image": None, "expression": "a dog",
+                    "box": [0.1, 0.2, 0.6, 0.9], "id": i} for i in range(B)]
+        prompts = ge.build_prompts(args, tok, records, [prefix] * B)
+        P = prompts[0].shape[1]
+        check(P == KOSMOS2_P, f"{name}: prompt of {P} tokens")
+        tokens, img_mask, segs, images = (torch.from_numpy(a).cuda()
+                                          for a in prompts)
+        cache_size = P + KOSMOS2_NEW
+        prefill, step = make_unigpt_generate_fns(model, cache_size)
+        # ---- the main path, counted --------------------------------------
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out = ge.generate_ids(model, tok, prompts, KOSMOS2_NEW,
+                              min_new_tokens=KOSMOS2_NEW)
+        torch.cuda.synchronize()
+        got = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        S = KOSMOS2_NEW - 1
+        want = {"encoder_attention": L + 1, "onepass_attention": L,
+                "decode_attention": L * S}
+        check(tuple(out.shape) == (B, P + KOSMOS2_NEW)
+              and all(got[k] == v for k, v in want.items())
+              and sum(got.values()) == sum(want.values()),
+              f"{name}: B={B} tokens {tuple(out.shape)}, launches {got} "
+              f"(want {want})")
+        count_into(got)
+        reset_counts()
+        with torch.no_grad():
+            feats = model.encode_image(images)
+            enc = counts()
+            reset_counts()
+            lg, cache = prefill(tokens, (feats, img_mask, segs))
+            pre = counts()
+            reset_counts()
+            step(out[:, P:P + 1], cache, None)
+            one = counts()
+        check(enc == {**{k: 0 for k in enc}, "encoder_attention": L + 1}
+              and pre == {**{k: 0 for k in pre}, "onepass_attention": L}
+              and one == {**{k: 0 for k in one}, "decode_attention": L},
+              f"{name}: B={B} encode {enc}, prefill {pre}, step {one}")
+        texts = ge.decode_generated(tok, out, P)
+        clean, ents = parse_grounded_text(KOSMOS2_PREFIX + texts[0])
+        # ---- times --------------------------------------------------------
+        def ttft():
+            with torch.no_grad():
+                f = model.encode_image(images)
+                return prefill(tokens, (f, img_mask, segs))
+
+        walls, gens = [], []
+        for _ in range(KOSMOS2_TIMED):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            ttft()
+            torch.cuda.synchronize()
+            walls.append((time.time() - t1) * 1e3)
+            t1 = time.time()
+            ge.generate_ids(model, tok, prompts, KOSMOS2_NEW,
+                            min_new_tokens=KOSMOS2_NEW)
+            torch.cuda.synchronize()
+            gens.append((time.time() - t1) * 1e3)
+        ttft_ms, gen_ms = float(np.median(walls)), float(np.median(gens))
+        ttft_dev = device_ms(ttft, iters=3)
+        ms_tok = (gen_ms - ttft_ms) / S
+        with torch.no_grad():
+            lg, cache = prefill(tokens, (feats, img_mask, segs))
+        tok1 = out[:, P:P + 1]
+        shares, top = profile_steps(lambda: step(tok1, cache, None), 4,
+                                    KOSMOS2_GROUPS)
+        dev_step = sum(shares.values())
+        phase(name, f"B={B}: prompt {P} tokens, {S} decode steps; launches "
+              f"#3 {got['encoder_attention']} ({L + 1} an encode), #5 "
+              f"{got['onepass_attention']} (the prefill), #13 "
+              f"{got['decode_attention']} ({L} a step); markup (printed "
+              f"only) {texts[0][:60]!r}... -> {len(ents)} entities, clean "
+              f"{clean[:40]!r}")
+        phase(name, f"B={B}: TTFT (encode + prefill) {ttft_ms:.2f} ms host "
+              f"(median of " + ", ".join(f"{w:.2f}" for w in walls)
+              + f"), {ttft_dev:.4f} ms device time; generate {gen_ms:.1f} ms "
+              f"-> {ms_tok:.2f} ms/token; a step's device time "
+              f"{dev_step:.4f} ms ({100 * dev_step / ms_tok:.1f}% busy): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in shares.items())
+              + "; other's largest: " + ", ".join(f"{k} {t:.4f}"
+                                                  for k, t in top)
+              + f"; peak memory {peak:.2f} GiB")
+        # ---- kernel path vs plain path -----------------------------------
+        @torch.no_grad()
+        def teacher(m):
+            """m's prefill logits on the kernel path's features, then two
+            decode steps on the kernel path's tokens."""
+            x, c = m.prefill(tokens, cache_size, feats, img_mask, segs)
+            lgs = [x.float()]
+            for j in range(2):
+                x, c = m.decode_step(out[:, P + j:P + j + 1], c, cache_size)
+                lgs.append(x[:, -1].float())
+            torch.cuda.synchronize()
+            return lgs
+
+        c0 = counts()
+        klog = teacher(model)
+        c1 = counts()
+        plog = teacher(plain)
+        with torch.no_grad():
+            pfeats = plain.encode_image(images)
+        torch.cuda.synchronize()
+        check(counts() == c1 and c1 != c0, f"{name}: B={B} the plain path "
+              f"launched a kernel, or the kernel path none")
+        feat_rel = rel_l2(feats, pfeats)
+        feat_err = float((feats.float() - pfeats.float()).abs().max())
+        errs = [float((a - b).abs().max()) for a, b in zip(klog, plog)]
+        agree = [float((a.argmax(-1) == b.argmax(-1)).float().mean())
+                 for a, b in zip(klog, plog)]
+        check(feat_rel <= KOSMOS2_FEATURE_REL_L2 and all(np.isfinite(errs))
+              and max(errs) <= LOGIT_ATOL and min(agree) >= ARGMAX_AGREE,
+              f"{name}: B={B} kernel vs plain: features rel L2 {feat_rel}, "
+              f"logits {errs}, argmax agreement {agree}")
+        phase(name, f"B={B} vs the plain path: encode_image features rel L2 "
+              f"{feat_rel:.3g} (tol {KOSMOS2_FEATURE_REL_L2}), max|err| "
+              f"{feat_err:.4f}; prefill logits [B, {P}, V] and two decode "
+              f"steps max|err| " + ", ".join(f"{e:.4f}" for e in errs)
+              + f" (tol {LOGIT_ATOL}), argmax agreement "
+              + ", ".join(f"{a:.3f}" for a in agree))
+        numbers[f"B{B}"] = {
+            "prompt_tokens": P, "ttft_ms_host": walls,
+            "ttft_device_ms": ttft_dev, "generate_ms_host": gens,
+            "ms_per_token": ms_tok, "decode_step_device_ms_by_group": shares,
+            "decode_step_device_ms": dev_step, "peak_memory_gib": peak,
+            "features_rel_l2": feat_rel, "logits_max_abs_err": errs,
+            "argmax_agreement": agree, "entities": len(ents)}
+        del cache, feats, pfeats, klog, plog, lg, out
+        torch.cuda.empty_cache()
+
+    # ---- one SEED-Bench scoring forward ---------------------------------
+    sargs = sb.build_parser().parse_args(["--data", "unused", "--kosmos2"])
+    ge.model_config(sargs, tok)  # the preset's image size and queries
+    records = kosmos2_seed_records()
+    packed = sb.pack_candidates(sargs, tok, records)
+    R, T = packed[0].shape
+    fwd = ("onepass_attention" if fa.onepass_applies(R, 32, T, T, 64, None, 0)
+           else "flash_fwd")
+    reset_counts()
+    ks = sb.model_scores(sargs, tok, records, model=model)
+    torch.cuda.synchronize()
+    got = counts()
+    want = {"encoder_attention": L + 1, fwd: L}
+    check(all(got[k] == v for k, v in want.items())
+          and sum(got.values()) == sum(want.values()),
+          f"{name}: SEED-Bench forward launches {got} (want {want})")
+    count_into(got)
+    sb_ms = device_ms(lambda: sb.model_scores(sargs, tok, records,
+                                              model=model), iters=3)
+    ps = sb.model_scores(sargs, tok, records, model=plain)
+    err = float(np.abs(ks - ps).max())
+    top2 = np.sort(ps, axis=-1)[:, -2:]
+    clear = (top2[:, 1] - top2[:, 0]) > 2 * SEED_LOGP_ATOL
+    same = ks.argmax(-1) == ps.argmax(-1)
+    check(np.isfinite(ks).all() and err <= SEED_LOGP_ATOL
+          and bool(same[clear].all()),
+          f"{name}: SEED-Bench scores max|err| {err}, argmax kernel "
+          f"{ks.argmax(-1)} plain {ps.argmax(-1)} (clear lead {clear})")
+    phase(name, f"SEED-Bench: {len(records)} questions x 4 choices = {R} "
+          f"rows of {T} tokens in one forward: launches {got} ({fwd} for "
+          f"the decoder); mean answer log-prob max|err| {err:.4f} (tol "
+          f"{SEED_LOGP_ATOL}), argmax choice kernel {ks.argmax(-1).tolist()}"
+          f" plain {ps.argmax(-1).tolist()} (plain lead > "
+          f"{2 * SEED_LOGP_ATOL}: {clear.tolist()}); device time "
+          f"{sb_ms:.3f} ms")
+    numbers["seedbench"] = {"rows": R, "tokens": T, "decoder_kernel": fwd,
+                            "scores_max_abs_err": err, "device_ms": sb_ms,
+                            "argmax_same": same.tolist()}
+    del model, plain
+    torch.cuda.empty_cache()
+    return launches, {name: numbers}
+
+
+def write_vl_shard(path: Path, n: int, seed: int) -> None:
+    """A laion_obj-style jsonl shard: random captions of 8-80 words with
+    one to three grounded phrases (1-2 boxes each); no image files, so
+    load_image makes each record's pseudo-image."""
+    words = ["a", "dog", "cat", "man", "woman", "red", "car", "on", "the",
+             "grass", "with", "tree", "bike", "next", "to", "big", "small"]
+    rng = np.random.RandomState(seed)
+    with open(path, "w", encoding="utf-8") as f:
+        for _ in range(n):
+            ws = [words[j] for j in rng.randint(0, len(words),
+                                                size=rng.randint(8, 80))]
+            starts = np.cumsum([0] + [len(w) + 1 for w in ws])
+            objects = []
+            for i in sorted(rng.choice(len(ws) - 1, rng.randint(1, 4),
+                                       replace=False)):
+                boxes = []
+                for _ in range(rng.randint(1, 3)):
+                    x0, y0 = rng.rand(2) * 0.6
+                    boxes.append([x0, y0, x0 + 0.1 + rng.rand() * 0.3,
+                                  y0 + 0.1 + rng.rand() * 0.3])
+                objects.append({"span": [int(starts[i]),
+                                         int(starts[i + 2] - 1)],
+                                "boxes": boxes})
+            f.write(json.dumps({"caption": " ".join(ws), "image": None,
+                                "objects": objects}) + "\n")
+
+
+def phase_kosmos2_train(fa) -> dict:
+    """kosmos2_train: cli/train_gpt.py --vl_data at kosmos2()'s widths
+    (ViT-L/14 at 224, 64 latent queries, 24 x 2048 decoder, vocab 65037)
+    over a laion_obj shard written to chip_smoke_work/, bf16 compute /
+    fp32 params, --remat, --fused_ce, batch 2 x 512 tokens, 3 AdamW steps:
+    losses and grad norms finite; exactly 25 #3 and 25 #4 a step (the
+    tower's 24 layers and the resampler), 24 #6 and 24 #7, and 48 of the
+    decoder's forward (#1: T = 512 is past the one-pass budget; --remat
+    runs it again in the backward); step ms, peak memory. Then a 2-layer
+    copy (decoder and tower) on the card against its plain twin, on the
+    stream's first batch: in float32 the loss, grad norm and per-tensor
+    gradient cosines, in bf16 the grad norm and cosines, at the train
+    phase's gates; the bf16 loss at KOSMOS2_TEACHER_LOSS_REL, printed
+    beside both paths' distance to the float32 loss. Returns (launches,
+    the path's numbers)."""
+    import shutil
+
+    from unilm_tpu_torch.cli import train_gpt
+    from unilm_tpu_torch.ops.fused_ce import chunked_cross_entropy
+
+    name = "kosmos2_train"
+    shutil.rmtree(WORK, ignore_errors=True)
+    (WORK / "vl").mkdir(parents=True)
+    write_vl_shard(WORK / "vl" / "shard0.jsonl", 64, SEED)
+    args = train_gpt.build_parser().parse_args([
+        "--vl_data", str(WORK / "vl" / "*.jsonl"), "--dim", "2048",
+        "--layers", "24", "--heads", "32", "--ffn", "8192", "--vocab",
+        str(TRAIN_VOCAB), "--image_tokens", str(KOSMOS2_Q), "--image_size",
+        "224", "--tokens_per_sample", "512", "--batch_size", "2", "--remat",
+        "--fused_ce", "--ce_chunk", "8192", "--warmup", "1", "--seed",
+        str(SEED)])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    tr = train_gpt.build_trainer(args)
+    cfg = tr.cfg
+    check(cfg.image_tower == "clip" and cfg.clip.num_layers == KOSMOS2_TOWER
+          and cfg.clip.embed_dim == 1024 and cfg.latent_query_num == KOSMOS2_Q
+          and cfg.dtype == torch.bfloat16, f"{name}: config {cfg}")
+    n_params = sum(p.numel() for p in tr.model.parameters())
+    phase(name, f"build_trainer --vl_data: {n_params / 1e9:.3f} B params, "
+          f"{time.time() - t0:.1f} s")
+    steps, losses, times, L = 3, [], [], KOSMOS2_TOWER
+    reset_counts()
+    first = None
+    for i in range(steps):
+        batch = tr.next_batch()
+        first = batch if first is None else first
+        torch.cuda.synchronize()
+        t1 = time.time()
+        tr.state, m = tr.step_fn(tr.state, batch)
+        torch.cuda.synchronize()
+        times.append(time.time() - t1)
+        losses.append(float(m["loss"]))
+        gn = float(m["grad_norm"])
+        check(np.isfinite(losses[-1]) and np.isfinite(gn),
+              f"{name}: step {i + 1} loss {losses[-1]} grad_norm {gn}")
+        phase(name, f"step {i + 1}: loss {losses[-1]:.6f}, grad_norm "
+              f"{gn:.4f}, {int(batch['loss_mask'].sum())} text tokens, "
+              f"{times[-1] * 1e3:.1f} ms (host clock)")
+    got = counts()
+    want = {"encoder_attention": (L + 1) * steps,
+            "encoder_attention_bwd": (L + 1) * steps,
+            "flash_bwd_dq": L * steps, "flash_bwd_dkv": L * steps,
+            "flash_fwd": 2 * L * steps}
+    check(all(got[k] == v for k, v in want.items())
+          and sum(got.values()) == sum(want.values()),
+          f"{name}: launches {got} (want {want})")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = float(np.mean(times[1:])) * 1e3
+    phase(name, f"launches in {steps} steps: {want}; steps 2-{steps} "
+          f"{step_ms:.1f} ms/step, "
+          f"{args.batch_size * args.tokens_per_sample / step_ms * 1e3:.0f} "
+          f"tokens/s; peak memory {peak:.1f} GiB")
+    del tr, m
+    torch.cuda.empty_cache()
+
+    # ---- a 2-layer copy against its plain twin on the first batch -------
+    from unilm_tpu_torch.models.kosmos import UniGPT
+
+    small_cfg = dataclasses.replace(cfg, num_layers=2, clip=(
+        dataclasses.replace(cfg.clip, num_layers=2)))
+    sd = UniGPT(small_cfg, device="cuda").init_weights(
+        torch.Generator(device="cuda").manual_seed(SEED)).state_dict()
+
+    def twin(dtype, use_flash):
+        """The 2-layer copy's weights (float32 params) computing in dtype,
+        on the kernels or on the plain path."""
+        c = dataclasses.replace(small_cfg, dtype=dtype, use_flash=use_flash,
+                                clip=dataclasses.replace(
+                                    small_cfg.clip, dtype=dtype,
+                                    use_flash=use_flash))
+        m = UniGPT(c, device="cuda")
+        m.load_state_dict(sd, strict=True, assign=True)
+        return m
+
+    def loss_grads(mdl):
+        out = mdl(first["tokens"], first["images"][:, 0], first["img_mask"],
+                  first["segs"], return_features=True)
+        s, n = chunked_cross_entropy(out[:, :-1], mdl.embed_tokens.weight,
+                                     first["tokens"][:, 1:],
+                                     first["loss_mask"][:, 1:],
+                                     chunk=args.ce_chunk)
+        loss = s / n
+        ps = [p for p in mdl.parameters() if p.requires_grad]
+        return float(loss.detach()), torch.autograd.grad(loss, ps)
+
+    names = [n for n, p in twin(torch.float32, False).named_parameters()
+             if p.requires_grad]
+    # a k_proj bias adds q.b to every key's score of a query, which the
+    # softmax cancels: without xPos (the tower's layers, the resampler)
+    # its gradient is 0 in exact arithmetic and both paths give rounding
+    # noise, whose cosine means nothing; they count in the norm only
+    zero = [n for n in names if n.endswith("k_proj.bias")
+            and not n.startswith("decoder.")]
+    teach = {}
+    for label, dt in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        c0 = counts()
+        lk, gk = loss_grads(twin(dt, True))
+        c1 = counts()
+        lp, gp = loss_grads(twin(dt, False))
+        torch.cuda.synchronize()
+        check(counts() == c1 and c1["encoder_attention_bwd"]
+              - c0["encoder_attention_bwd"] == 3
+              and c1["flash_bwd_dq"] - c0["flash_bwd_dq"] == 2,
+              f"{name} teacher {label}: launch counts {c0} -> {c1}")
+        nk = float(torch.sqrt(sum(g.float().pow(2).sum() for g in gk)))
+        npl = float(torch.sqrt(sum(g.float().pow(2).sum() for g in gp)))
+        cos = {n: float(torch.nn.functional.cosine_similarity(
+            a.flatten().float(), b.flatten().float(), dim=0))
+            for n, a, b in zip(names, gk, gp) if n not in zero}
+        worst = min(cos, key=cos.get)
+        teach[label] = {
+            "loss_kernel": lk, "loss_plain": lp,
+            "loss_rel": abs(lk - lp) / abs(lp),
+            "norm_rel": abs(nk - npl) / npl, "min_cos": cos[worst],
+            "min_cos_tensor": worst,
+            "zero_grad_bias_share": max(float(g.float().norm()) for n, g
+                                        in zip(names, gk) if n in zero) / nk}
+        del gk, gp
+    t32, t16 = teach["fp32"], teach["bf16"]
+    ref = t32["loss_plain"]
+    phase(name, f"2-layer copy (tower and decoder) vs its plain twin, "
+          f"first batch ({int(first['loss_mask'][:, 1:].sum())} text "
+          f"targets); float32: loss rel {t32['loss_rel']:.2e} (tol "
+          f"{TEACHER_LOSS_REL}), grad norm rel {t32['norm_rel']:.2e} (tol "
+          f"{TEACHER_NORM_REL}), min per-tensor cosine {t32['min_cos']:.6f} "
+          f"({t32['min_cos_tensor']}, tol {TEACHER_COS}); bf16: grad norm "
+          f"rel {t16['norm_rel']:.2e}, min cosine {t16['min_cos']:.5f} "
+          f"({t16['min_cos_tensor']}) at the same gates, loss kernel "
+          f"{t16['loss_kernel']:.6f} plain {t16['loss_plain']:.6f} (rel "
+          f"{t16['loss_rel']:.2e}, tol {KOSMOS2_TEACHER_LOSS_REL}; from "
+          f"the float32 plain loss {ref:.6f}: "
+          f"kernel {abs(t16['loss_kernel'] - ref) / abs(ref):.2e}, plain "
+          f"{abs(t16['loss_plain'] - ref) / abs(ref):.2e}); the "
+          f"{len(zero)} non-xPos k_proj biases (exact gradient 0) at most "
+          f"{max(t['zero_grad_bias_share'] for t in teach.values()):.2e} of "
+          f"the grad norm")
+    check(t32["loss_rel"] <= TEACHER_LOSS_REL
+          and t16["loss_rel"] <= KOSMOS2_TEACHER_LOSS_REL
+          and all(t["norm_rel"] <= TEACHER_NORM_REL
+                  and t["min_cos"] >= TEACHER_COS for t in teach.values()),
+          f"{name}: teacher check failed")
+    del first
+    torch.cuda.empty_cache()
+    shutil.rmtree(WORK, ignore_errors=True)
+    return {k: v for k, v in got.items() if v}, {name: {
+        "losses": losses, "step_ms_host": times, "peak_memory_gib": peak,
+        "teacher": teach}}
 
 
 def phase_paged_append(pa, g) -> dict:
@@ -5791,6 +6492,11 @@ def main() -> int:
     add("trocr", got)
     got, trocr_int8 = phase_trocr(qm, int8=True)
     add("trocr_int8", got)
+    kosmos2_extra = phase_kosmos2_kernels(fa, pa, g)
+    got, kosmos2_nums = phase_kosmos2(fa)
+    add("kosmos2", got)
+    got, kosmos2_train_nums = phase_kosmos2_train(fa)
+    add("kosmos2_train", got)
     add("yoco_chat", phase_yoco_chat(fa))
     phase_yoco_long(fa)
     cfg, sd = engine_model()
@@ -5806,9 +6512,11 @@ def main() -> int:
         kern["launches_by_path"] = paths
         kern.update(line4.get(kern["name"], {}))
         kern.update(trocr_extra.get(kern["name"], {}))
+        kern.update(kosmos2_extra.get(kern["name"], {}))
         check(kern["launches"] > 0, f"{kern['name']} never launched")
     print(json.dumps({"paths": {"decode_int8_bs1": line4["line4"],
-                                **infer, **trocr_bf16, **trocr_int8}}),
+                                **infer, **trocr_bf16, **trocr_int8,
+                                **kosmos2_nums, **kosmos2_train_nums}}),
           flush=True)
     phase("profiler", f"{len(PROFILER_MISSES)} device_ms calls fell back "
           f"to CUDA events: {PROFILER_MISSES}")

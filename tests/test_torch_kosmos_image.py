@@ -156,9 +156,30 @@ def test_kosmos2_5_tower_inherits_the_compute_dtype():
 
 
 def test_unported_towers_raise():
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        tk.UniGPT(tk.UniGPTConfig(image_tower="clip", **{
-            k: v for k, v in KW.items() if k != "image_tower"}))
+    """The CLIP tower (Kosmos-2) is ported: it builds beside this file's
+    decoder and its encode_image matches JAX's; the audio tower still
+    raises."""
+    ck = dict(img_size=28, patch_size=14, embed_dim=32, num_layers=2,
+              num_heads=2, ffn_dim=64, use_flash=False)
+    kw = {k: v for k, v in KW.items() if k != "image_tower"}
+    jm = jk.UniGPT(jk.UniGPTConfig(image_tower="clip",
+                                   clip=jk.ClipVisionConfig(**ck), **kw))
+    rng = np.random.RandomState(6)
+    img = rng.rand(B, 28, 28, 3).astype(np.float32)
+    tokens = rng.randint(4, KW["vocab_size"], size=(B, T)).astype(np.int32)
+    mask = np.zeros((B, T), bool)
+    mask[:, 2:2 + KW["latent_query_num"]] = True
+    params = jax.device_get(jm.init(
+        jax.random.PRNGKey(3), jnp.asarray(tokens), jnp.asarray(img),
+        jnp.asarray(mask), jnp.asarray(mask.astype(np.int32)))["params"])
+    tm = tk.UniGPT(tk.UniGPTConfig(image_tower="clip",
+                                   clip=tk.ClipVisionConfig(**ck), **kw))
+    load_flax_params(tm.eval(), params)
+    want = jm.apply({"params": params}, jnp.asarray(img),
+                    method=jm.encode_image)
+    with torch.no_grad():
+        got = tm.encode_image(torch.from_numpy(img))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
     with pytest.raises(NotImplementedError, match="slice 10"):
         tk.UniGPT(tk.UniGPTConfig(audio_tower="wavlm", image_tower=None, **{
             k: v for k, v in KW.items() if k != "image_tower"}))

@@ -258,6 +258,38 @@ def test_converter_matches_jax():
                 torch.from_numpy(mask)[None], torch.from_numpy(segs)[None].long())
     np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=LOGIT_ATOL,
                                rtol=0)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tconv.convert_unigpt(sd, tk.UniGPTConfig(image_tower="clip", **{
-            k: v for k, v in kw.items() if k != "latent_query_num"}))
+    # the open_clip tower (Kosmos-2): the same decoder and connector with
+    # img_model.visual.* tensors (packed in_proj) in place of Pix2Struct's
+    g = torch.Generator().manual_seed(5)
+    r = lambda *shape: torch.randn(*shape, generator=g) * 0.02
+    csd = {k: v for k, v in sd.items() if not k.startswith("img_model.")}
+    vp, E = "img_model.visual.", 32
+    csd.update({vp + "conv1.weight": r(E, 3, 14, 14),
+                vp + "class_embedding": r(E),
+                vp + "positional_embedding": r(5, E)})
+    for n in ("ln_pre", "ln_post", "transformer.resblocks.0.ln_1",
+              "transformer.resblocks.0.ln_2"):
+        csd[f"{vp}{n}.weight"], csd[f"{vp}{n}.bias"] = 1.0 + r(E), r(E)
+    blk = vp + "transformer.resblocks.0."
+    csd[blk + "attn.in_proj_weight"] = r(3 * E, E)
+    csd[blk + "attn.in_proj_bias"] = r(3 * E)
+    for n, (o, i) in (("attn.out_proj", (E, E)), ("mlp.c_fc", (64, E)),
+                      ("mlp.c_proj", (E, 64))):
+        csd[f"{blk}{n}.weight"], csd[f"{blk}{n}.bias"] = r(o, i), r(o)
+    ccfg = dict(img_size=28, patch_size=14, embed_dim=E, num_layers=1,
+                num_heads=2, ffn_dim=64, use_flash=False)
+    jc = jk.kosmos2(clip=jk.ClipVisionConfig(**ccfg), segment_emb=True,
+                    **kw)
+    tc = tk.kosmos2(clip=tk.ClipVisionConfig(**ccfg), segment_emb=True,
+                    **kw)
+    want = jax.device_get(jconv.convert_unigpt(csd, jc))
+    got = tconv.convert_unigpt(csd, tc)
+    wl = jax.tree_util.tree_leaves_with_path(want)
+    gl = jax.tree_util.tree_leaves_with_path(got)
+    assert [p for p, _ in wl] == [p for p, _ in gl]
+    for (path, a), (_, b) in zip(wl, gl):
+        np.testing.assert_array_equal(np.asarray(a), b, err_msg=str(path))
+    assert set(got["img_model"]) == {"conv1", "class_embedding",
+                                     "positional_embedding", "ln_pre",
+                                     "ln_post", "transformer"}
+    load_flax_params(tk.UniGPT(tc).eval(), got)

@@ -136,6 +136,38 @@ kosmos_infer.main(["--image", work + "/doc.png", "--tiny", "--fp32",
                    "--device", "cpu"])
 """
 
+_KOSMOS2 = _POISON + r"""
+import json
+import torch
+from unilm_tpu_torch.cli import kosmos_ground_eval, kosmos_seedbench, train_gpt
+
+torch.set_num_threads(1)
+work = sys.argv[1]
+small = ["--image_tokens", "4", "--image_size", "28", "--dim", "32",
+         "--layers", "1", "--heads", "2", "--clip_dim", "32",
+         "--device", "cpu"]
+with open(work + "/ref.jsonl", "w") as f:
+    f.write(json.dumps({"image": None, "expression": "a dog",
+                        "box": [0.1, 0.1, 0.5, 0.5]}) + "\n")
+kosmos_ground_eval.main(["--task", "refcoco", "--data", work + "/ref.jsonl",
+                         "--max_new_tokens", "3"] + small)
+with open(work + "/seed.jsonl", "w") as f:
+    f.write(json.dumps({"image": None, "question": "What?", "answer": "A",
+                        "choices": ["a", "b", "c", "d"]}) + "\n")
+kosmos_seedbench.main(["--data", work + "/seed.jsonl"] + small)
+with open(work + "/vl.jsonl", "w") as f:
+    for i in range(4):
+        f.write(json.dumps({"caption": f"a dog {i}", "image": None,
+                            "objects": [{"span": [0, 5],
+                                         "boxes": [[0.1, 0.1, 0.5, 0.5]]}]})
+                + "\n")
+train_gpt.main(["--vl_data", work + "/vl.jsonl", "--save_dir", work + "/ck",
+                "--dim", "32", "--layers", "1", "--heads", "2", "--ffn", "64",
+                "--image_tokens", "4", "--image_size", "28", "--clip_dim",
+                "32", "--tokens_per_sample", "24", "--batch_size", "2",
+                "--max_steps", "1", "--device", "cpu"])
+"""
+
 # the modules each slice of the port added; every one must be among them
 PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "ops._native", "ops.attention", "ops.flash_attention",
@@ -152,7 +184,10 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "convert.common", "data.document_datasets", "cli.run_funsd",
           "ops.retention", "models.yoco", "ops.fused", "cli.kosmos_infer",
           "convert.kosmos", "models.trocr", "convert.trocr",
-          "data.trocr_datasets", "cli.trocr_infer", "cli.trocr_eval"}
+          "data.trocr_datasets", "cli.trocr_infer", "cli.trocr_eval",
+          "data.grounding", "data.vl_loaders", "scoring_grounding",
+          "scoring_seedbench", "cli.kosmos_ground_eval", "cli.kosmos_demo",
+          "cli.kosmos_seedbench"}
 
 
 def test_port_imports_without_jax():
@@ -229,3 +264,16 @@ def test_kosmos_infer_runs_without_jax(tmp_path):
     assert res.returncode == 0, res.stderr
     ids = res.stdout.strip().splitlines()[-1].split()
     assert len(ids) == 3 and all(t.isdigit() for t in ids), res.stdout
+
+
+def test_kosmos2_clis_run_without_jax(tmp_path):
+    """The refcoco eval and SEED-Bench CLIs' model modes and one --vl_data
+    training step (the CLIP tower, grounding markup, the VL stream)
+    reach no JAX module."""
+    res = subprocess.run([sys.executable, "-c", _KOSMOS2, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert '"num_refs": 1.0' in lines[0] and '"total": 1' in lines[1], lines
+    assert lines[-1] == "done", lines

@@ -391,8 +391,7 @@ def test_cli_resume_is_bitwise(tmp_path):
 def test_train_cli_refuses_unported_paths(tmp_path):
     from unilm_tpu_torch.cli import train_gpt
 
-    for flags, match in ((["--vl_data", "x"], "slice 5"),
-                         (["--pp_stages", "2"], "slice 9"),
+    for flags, match in ((["--pp_stages", "2"], "slice 9"),
                          (["--moe_freq", "2"], "slice 9")):
         args = train_gpt.build_parser().parse_args(
             ["--data", "x", "--device", "cpu"] + flags)

@@ -35,16 +35,14 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
-import hashlib
-import os
 import re
-import tempfile
 
 import numpy as np
 import torch
 
 from unilm_tpu_torch.convert.from_jax import flax_to_state_dict
 from unilm_tpu_torch.convert.kosmos import convert_unigpt
+from unilm_tpu_torch.data.vl_loaders import cl100k_if_cached as _cl100k
 from unilm_tpu_torch.models.kosmos import (
     Pix2StructVisionConfig, UniGPT, kosmos2_5, make_unigpt_generate_fns,
     quantize_lm_head_state_dict)
@@ -56,9 +54,6 @@ from unilm_tpu_torch.runtime.generate import GenerationConfig, generate
 # tiktoken cl100k_base with the specials first, in fairseq's order)
 BOS, PAD, EOS, UNK = 0, 1, 2, 3
 TIKTOKEN_OFFSET = 4  # dictionary id = tiktoken id + offset
-# tiktoken's source of cl100k_base, used here only as its cache key
-_CL100K_BLOB = ("https://openaipublic.blob.core.windows.net/encodings/"
-                "cl100k_base.tiktoken")
 
 
 def build_prompt(task: str, num_image_tokens: int, image_id: int,
@@ -79,24 +74,6 @@ def postprocess_ocr(text: str):
         x0, y0, x1, y1 = map(int, m.groups()[:4])
         out.append({"bbox": [x0, y0, x1, y1], "text": m.group(5).strip()})
     return out
-
-
-def _cl100k():
-    """tiktoken's cl100k_base when its file is already in tiktoken's cache
-    (TIKTOKEN_CACHE_DIR, DATA_GYM_CACHE_DIR or the temp dir's
-    data-gym-cache), else None: tiktoken would fetch a missing file."""
-    try:
-        import tiktoken
-    except ImportError:
-        return None
-    cache = os.environ.get("TIKTOKEN_CACHE_DIR",
-                           os.environ.get("DATA_GYM_CACHE_DIR"))
-    if cache is None:
-        cache = os.path.join(tempfile.gettempdir(), "data-gym-cache")
-    key = hashlib.sha1(_CL100K_BLOB.encode()).hexdigest()
-    if not cache or not os.path.exists(os.path.join(cache, key)):
-        return None
-    return tiktoken.get_encoding("cl100k_base")
 
 
 def detokenize(ids) -> str:

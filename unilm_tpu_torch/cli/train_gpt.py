@@ -1,8 +1,12 @@
-"""GPT pretraining loop, text path (port of unilm_tpu/cli/train_gpt.py:88-316).
+"""(Multimodal) GPT pretraining loop (port of unilm_tpu/cli/train_gpt.py:
+`build_vl_stream` :40, `build_stream` :70, `main` :88-316).
 
     python -m unilm_tpu_torch.cli.train_gpt --data <mmap prefix> \\
         --dim 2048 --heads 32 --ffn 8192 --vocab 65037 \\
         --batch_size 8 --update_freq 4 --fused_ce --ce_chunk 8192
+    python -m unilm_tpu_torch.cli.train_gpt --vl_data 'shards/*.jsonl' \\
+        --dim 2048 --layers 24 --heads 32 --ffn 8192 --vocab 65037 \\
+        --tokens_per_sample 512 --batch_size 2 --remat --fused_ce
 
 Checkpointable streaming corpus (mmap binarized or raw text) -> token-block
 packing -> fixed batches -> UniGPT train step (micro-batch accumulation,
@@ -18,9 +22,17 @@ unilm_tpu.data's on the same corpus and seed. `main()` is setup
 (`build_trainer`) plus the loop, so a caller can drive the same model,
 step and stream without the CLI's checkpoints.
 
-Image-text pretraining (`--vl_data`, slice 5), pipeline parallelism
-(`--pp_stages`) and MoE (`--moe_*`, slice 9) raise NotImplementedError
-naming their ROADMAP entry.
+`--vl_data` (Kosmos-2 grounded image-text pretraining): jsonl shards
+(laion_obj records, or `--interleaved` documents) -> grounding markup ->
+VLTokenizer ids (tiktoken's cl100k_base if cached, else bytes) ->
+fixed-shape rows with an `<image>` span -> a UniGPT with the CLIP tower
+(ViT-L/14 at `--image_size`, or a 2-layer tower of width `--clip_dim`),
+`--image_tokens` latent queries and segment embeddings; the loss covers
+the text positions only (`loss_mask`). The stream's state, shuffle
+buffer included, is saved with each checkpoint.
+
+Pipeline parallelism (`--pp_stages`) and MoE (`--moe_*`, slice 9) raise
+NotImplementedError naming their ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -38,7 +50,8 @@ from unilm_tpu_torch.data import iterators as it
 from unilm_tpu_torch.data.dictionary import Dictionary
 from unilm_tpu_torch.data.indexed_dataset import (MMapIndexedDataset,
                                                   TokenBlockIterator)
-from unilm_tpu_torch.models.kosmos import UniGPT, UniGPTConfig
+from unilm_tpu_torch.models.kosmos import (ClipVisionConfig, UniGPT,
+                                           UniGPTConfig)
 from unilm_tpu_torch.ops.fused_ce import chunked_cross_entropy
 from unilm_tpu_torch.runtime.checkpoint import CheckpointManager
 from unilm_tpu_torch.runtime.device import resolve_device
@@ -92,6 +105,29 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def build_vl_stream(args):
+    """Grounded image-text batches (Kosmos-2's laion2b_obj loader): the
+    shards of the `--vl_data` glob -> (batch stream, tokenizer)."""
+    import glob
+
+    from unilm_tpu_torch.data.vl_loaders import (VLSampleSpec, VLTokenizer,
+                                                 interleaved_stream,
+                                                 laion_obj_stream,
+                                                 vl_batch_stream)
+
+    shards = sorted(glob.glob(args.vl_data))
+    if not shards:
+        raise FileNotFoundError(f"no shards match {args.vl_data}")
+    tok = VLTokenizer(quantized_size=args.quantized_size)
+    spec = VLSampleSpec(tokens_per_sample=args.tokens_per_sample,
+                        image_tokens=args.image_tokens,
+                        image_size=args.image_size, max_images=1)
+    maker = interleaved_stream if args.interleaved else laion_obj_stream
+    samples = maker(shards, tok, spec, image_root=args.image_root,
+                    seed=args.seed)
+    return vl_batch_stream(samples, args.batch_size), tok
+
+
 def build_stream(args, dictionary):
     if os.path.exists(args.data + ".idx"):
         ds = MMapIndexedDataset(args.data)
@@ -123,23 +159,28 @@ class Trainer:
     sched: Callable[[int], float]
     device: torch.device
 
-    def next_batch(self) -> torch.Tensor:
-        """The next [update_freq, B/update_freq, T] (or [B, T]) batch of
-        token ids on the device."""
+    def next_batch(self):
+        """The next batch on the device, with a leading [update_freq] axis
+        when update_freq > 1: [B, T] token ids, or under --vl_data a dict
+        of tokens, images, img_mask, segs and loss_mask."""
         blocks = next(self.stream)
-        batch = torch.from_numpy(np.stack(blocks).astype(np.int64))
-        if self.args.update_freq > 1:
-            batch = batch.reshape(self.args.update_freq, -1, batch.shape[-1])
-        return batch.to(self.device)
+        uf = self.args.update_freq
+
+        def put(x: np.ndarray) -> torch.Tensor:
+            t = torch.from_numpy(x.astype(np.int64) if x.dtype.kind in "iu"
+                                 else x)
+            if uf > 1:
+                t = t.reshape(uf, -1, *t.shape[1:])
+            return t.to(self.device)
+
+        if isinstance(blocks, dict):
+            return {k: put(v) for k, v in blocks.items()}
+        return put(np.stack(blocks))
 
 
 def build_trainer(args) -> Trainer:
     """Model (random weights from --seed), optimizer, train step and data
     stream for the parsed CLI `args`."""
-    if args.vl_data:
-        raise NotImplementedError(
-            "image-text pretraining (--vl_data: CLIP tower, grounded "
-            "streams) is not ported yet: ROADMAP Queue 1 slice 5")
     if args.pp_stages > 1:
         raise NotImplementedError(
             "pipeline parallelism (--pp_stages) is not ported yet: ROADMAP "
@@ -148,35 +189,59 @@ def build_trainer(args) -> Trainer:
         raise NotImplementedError(
             "MoE layers (--moe_freq/--moe_experts) are not ported yet: "
             "ROADMAP Queue 1 slice 9")
-    if not args.data:
-        raise ValueError("--data is required")
+    multimodal = bool(args.vl_data)
+    if not multimodal and not args.data:
+        raise ValueError("one of --data / --vl_data is required")
     dev = resolve_device(args.device)
-    dictionary = Dictionary.load(args.dict) if args.dict else Dictionary()
     dtype = torch.bfloat16 if args.bf16 else torch.float32
-    vocab = args.vocab or max(len(dictionary), 260)
-    cfg = UniGPTConfig(
-        vocab_size=vocab, embed_dim=args.dim, num_layers=args.layers,
-        num_heads=args.heads, ffn_dim=args.ffn,
-        max_positions=args.tokens_per_sample + 2, subln=True,
-        xpos_rel_pos=True, remat=args.remat, dtype=dtype)
+    kw = dict(embed_dim=args.dim, num_layers=args.layers,
+              num_heads=args.heads, ffn_dim=args.ffn,
+              max_positions=args.tokens_per_sample + 2, subln=True,
+              xpos_rel_pos=True, remat=args.remat, dtype=dtype)
+    if multimodal:
+        stream, tok = build_vl_stream(args)
+        clip = ClipVisionConfig(img_size=args.image_size, dtype=dtype)
+        if args.clip_dim:
+            clip = ClipVisionConfig(
+                img_size=args.image_size, embed_dim=args.clip_dim,
+                num_layers=2, num_heads=max(2, args.clip_dim // 32),
+                ffn_dim=args.clip_dim * 4, dtype=dtype)
+        cfg = UniGPTConfig(vocab_size=args.vocab or tok.vocab_size,
+                           image_tower="clip",
+                           latent_query_num=args.image_tokens, clip=clip,
+                           segment_emb=True, **kw)
+    else:
+        dictionary = Dictionary.load(args.dict) if args.dict else Dictionary()
+        cfg = UniGPTConfig(vocab_size=args.vocab or max(len(dictionary), 260),
+                           **kw)
+        stream = build_stream(args, dictionary)
     model = UniGPT(cfg, device=dev)
     model.init_weights(torch.Generator(device=dev).manual_seed(args.seed))
-    stream = build_stream(args, dictionary)
 
     sched = polynomial_decay_schedule(args.lr, args.max_steps, args.warmup)
     tx = AdamW(sched, b1=0.9, b2=0.98, weight_decay=0.01)
     state = TrainState.create(model, tx)
 
-    def ce(m, out, targets):
+    def ce(m, out, targets, mask=None):
         if args.fused_ce:
             return chunked_cross_entropy(out, m.embed_tokens.weight, targets,
-                                         chunk=args.ce_chunk)
-        return cross_entropy_loss(out, targets)
+                                         mask, chunk=args.ce_chunk)
+        return cross_entropy_loss(out, targets, mask)
 
-    def loss_fn(m, batch):
-        out = m(batch, return_features=args.fused_ce)
-        s, n = ce(m, out[:, :-1], batch[:, 1:])
-        return s / n, {"ntok": n}
+    if multimodal:
+        def loss_fn(m, batch):
+            tokens = batch["tokens"]
+            out = m(tokens, batch["images"][:, 0], batch["img_mask"],
+                    batch["segs"], return_features=args.fused_ce)
+            # the text positions only (Kosmos-2's UniGPTLoss)
+            s, n = ce(m, out[:, :-1], tokens[:, 1:],
+                      batch["loss_mask"][:, 1:])
+            return s / n, {"ntok": n}
+    else:
+        def loss_fn(m, batch):
+            out = m(batch, return_features=args.fused_ce)
+            s, n = ce(m, out[:, :-1], batch[:, 1:])
+            return s / n, {"ntok": n}
 
     step_fn = make_train_step(
         loss_fn, tx, clip_grad_norm=args.clip_norm,

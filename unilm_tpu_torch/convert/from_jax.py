@@ -17,7 +17,8 @@ axis, the scan_layers form). Leaves map as
   patchify reads it;
 - params that keep their name: LayerScale `gamma`, `cls_token`,
   `mask_token`, `pos_embed`, `relative_position_bias_table`,
-  `latent_query`, LayoutLMv3's bias tables `rel_pos_bias`,
+  `latent_query`, the CLIP tower's `class_embedding` and
+  `positional_embedding`, LayoutLMv3's bias tables `rel_pos_bias`,
   `rel_pos_x_bias`, `rel_pos_y_bias`, TrOCR's `dist_token` and the
   decoder's learned position table `embed_positions`;
 - a stacked `layers` subtree -> one module per layer (`layers.{i}`),
@@ -48,7 +49,8 @@ _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
          "bias": "bias"}
 _SAME = {"gamma", "cls_token", "mask_token", "pos_embed",
          "relative_position_bias_table", "latent_query", "rel_pos_bias",
-         "rel_pos_x_bias", "rel_pos_y_bias", "dist_token", "embed_positions"}
+         "rel_pos_x_bias", "rel_pos_y_bias", "dist_token", "embed_positions",
+         "class_embedding", "positional_embedding"}
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -61,14 +63,17 @@ def to_tensor(a) -> torch.Tensor:
 _QUANT_LEAF = {"kernel_i8": "weight_i8", "scale": "scale", "bias": "bias"}
 
 
-def _leaf(name: str, value: np.ndarray, quant: bool, conv: bool) -> tuple:
-    """`conv`: the leaf is a 4-D Conv kernel [p, p, C, E] (with a leading
-    layer axis when stacked, 5-D)."""
+def _leaf(name: str, value: np.ndarray, quant: bool, conv: str) -> tuple:
+    """`conv`: "" for a leaf that is no 4-D Conv kernel [p, p, C, E] (with
+    a leading layer axis when stacked, 5-D), else its torch layout:
+    "flat" or "oihw"."""
     if name in _SAME and not quant:
         return name, value
     table = _QUANT_LEAF if quant else _LEAF
     if name not in table:
         raise KeyError(f"unmapped flax leaf {name!r}")
+    if conv == "oihw":  # [p, p, C, E] -> [E, C, p, p]
+        return table[name], np.transpose(value, (3, 2, 0, 1))
     if conv:  # [(L,) p, p, C, E] -> [(L,) E, p*p*C]
         value = value.reshape(*value.shape[:-4], -1, value.shape[-1])
     if name in ("kernel", "kernel_i8"):
@@ -91,7 +96,9 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
                     walk(val, f"{prefix}{key}.", stacked)
                 continue
             arr = np.asarray(val)
-            conv = key == "kernel" and arr.ndim - int(stacked) == 4
+            conv = ""
+            if key == "kernel" and arr.ndim - int(stacked) == 4:
+                conv = "oihw" if prefix.endswith("conv1.") else "flat"
             name, arr = _leaf(key, arr, "kernel_i8" in tree, conv)
             path = f"{prefix}{name}"
             if stacked:

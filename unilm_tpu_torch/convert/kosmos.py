@@ -1,14 +1,15 @@
-"""Kosmos-2.5 converters (port of unilm_tpu/convert/kosmos.py:
-`convert_pix2struct_vision` :18, `convert_unigpt` :80 with the
-connector's map): a fairseq checkpoint's `gpt_model.decoder.*`,
-`img_model.*` and `img_connector.*` tensors become a flax-layout numpy
-tree, which convert/from_jax.load_flax_params (or flax_to_state_dict)
-takes into the port's UniGPT. The open_clip tower (Kosmos-2) is not
-ported yet and raises."""
+"""Kosmos-2 / Kosmos-2.5 converters (port of unilm_tpu/convert/kosmos.py:
+`convert_pix2struct_vision` :18, `convert_clip_visual` :46,
+`convert_unigpt` :80 with the connector's map): a fairseq checkpoint's
+`gpt_model.decoder.*`, `img_model.*` and `img_connector.*` tensors
+become a flax-layout numpy tree, which convert/from_jax.load_flax_params
+(or flax_to_state_dict) takes into the port's UniGPT."""
 
 from __future__ import annotations
 
 from typing import Dict, Mapping
+
+import numpy as np
 
 from unilm_tpu_torch.convert.common import dense, embed, layernorm, t2n
 
@@ -49,7 +50,46 @@ def convert_pix2struct_vision(sd: Mapping, num_layers: int,
     }
 
 
-def convert_unigpt(sd: Mapping, cfg, pix2struct_layers: int = 0) -> Dict:
+def convert_clip_visual(sd: Mapping, num_layers: int,
+                        prefix: str = "visual.") -> Dict:
+    """open_clip / CLIP visual tower (Kosmos-2's ClipVisualOnly) ->
+    ClipVisionEncoder params; each block's packed in_proj [3E, E] splits
+    into q/k/v."""
+    layers = {}
+    for i in range(num_layers):
+        p = f"{prefix}transformer.resblocks.{i}"
+        w = t2n(sd[f"{p}.attn.in_proj_weight"])  # [3E, E] packed
+        b = t2n(sd[f"{p}.attn.in_proj_bias"])
+        qw, kw, vw = np.split(w, 3, axis=0)
+        qb, kb, vb = np.split(b, 3, axis=0)
+        layers[f"layers_{i}"] = {
+            "self_attn_layer_norm": layernorm(sd, f"{p}.ln_1"),
+            "final_layer_norm": layernorm(sd, f"{p}.ln_2"),
+            "self_attn": {
+                "q_proj": {"kernel": qw.T, "bias": qb},
+                "k_proj": {"kernel": kw.T, "bias": kb},
+                "v_proj": {"kernel": vw.T, "bias": vb},
+                "out_proj": dense(sd, f"{p}.attn.out_proj"),
+            },
+            "ffn": {
+                "fc1": dense(sd, f"{p}.mlp.c_fc"),
+                "fc2": dense(sd, f"{p}.mlp.c_proj"),
+            },
+        }
+    return {
+        # torch Conv2d [O, I, kh, kw] -> flax Conv [kh, kw, I, O]
+        "conv1": {"kernel": t2n(sd[f"{prefix}conv1.weight"]).transpose(
+            2, 3, 1, 0)},
+        "class_embedding": t2n(sd[f"{prefix}class_embedding"]),
+        "positional_embedding": t2n(sd[f"{prefix}positional_embedding"]),
+        "ln_pre": layernorm(sd, f"{prefix}ln_pre"),
+        "ln_post": layernorm(sd, f"{prefix}ln_post"),
+        "transformer": layers,
+    }
+
+
+def convert_unigpt(sd: Mapping, cfg, pix2struct_layers: int = 0,
+                   clip_layers: int = 0) -> Dict:
     """fairseq Kosmos checkpoint ('model' state dict) -> UniGPT params.
 
     Key layout of kosmos-2.5's models/{gpt,unigpt}.py: UniGPTmodel holds
@@ -58,6 +98,7 @@ def convert_unigpt(sd: Mapping, cfg, pix2struct_layers: int = 0) -> Dict:
     a standalone GPTmodel dict uses bare decoder.*."""
     pix2struct_layers = pix2struct_layers or getattr(
         cfg.pix2struct, "num_layers", 18)
+    clip_layers = clip_layers or getattr(cfg.clip, "num_layers", 24)
     sd = {k.removeprefix("model."): v for k, v in sd.items()}
     sd = {k.removeprefix("gpt_model."): v for k, v in sd.items()}
     dec = "decoder."
@@ -102,12 +143,12 @@ def convert_unigpt(sd: Mapping, cfg, pix2struct_layers: int = 0) -> Dict:
         params["segment_emb"] = embed(sd, f"{dec}segment_emb.weight")
 
     if any(k.startswith("img_model.") for k in sd):
-        if cfg.image_tower != "pix2struct":
-            raise NotImplementedError(
-                "converting the open_clip tower (Kosmos-2) is not ported "
-                "yet: ROADMAP Queue 1 item 4 (CLIP tower)")
-        params["img_model"] = convert_pix2struct_vision(
-            sd, pix2struct_layers, prefix="img_model.")
+        if cfg.image_tower == "pix2struct":
+            params["img_model"] = convert_pix2struct_vision(
+                sd, pix2struct_layers, prefix="img_model.")
+        else:
+            params["img_model"] = convert_clip_visual(
+                sd, clip_layers, prefix="img_model.visual.")
     if "img_connector.dense.weight" in sd:
         params["img_connector"] = {
             "dense": dense(sd, "img_connector.dense"),

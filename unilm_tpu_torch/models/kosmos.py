@@ -1,22 +1,25 @@
-"""Kosmos-2 / Kosmos-2.5 UniGPT with the Kosmos-2.5 image side (port of
-unilm_tpu/models/kosmos.py: `sinusoidal_table` :46,
-`Pix2StructVisionConfig` / `Pix2StructVisionEncoder` :116-164,
+"""Kosmos-2 / Kosmos-2.5 UniGPT with both image towers (port of
+unilm_tpu/models/kosmos.py: `sinusoidal_table` :46, `ClipVisionConfig` /
+`ClipVisionEncoder` :66-114, `Pix2StructVisionConfig` /
+`Pix2StructVisionEncoder` :116-164,
 `LatentQueryResampler` :167-197, `splice_image_features` :288,
 `StepCounter` :303, `UniGPT` :314 with `encode_image` (JAX's
 `get_image_representation` :384-393 and `encode_image` :515 in one),
 `quantize_lm_head` :522, `stack_unigpt_params` :540,
-`make_unigpt_generate_fns` :551, `kosmos2_5` :590; the train forward
-`UniGPT.__call__` :444 is `UniGPT.forward`).
+`make_unigpt_generate_fns` :551, `kosmos2` :581, `kosmos2_5` :590; the
+train forward `UniGPT.__call__` :444 is `UniGPT.forward`).
 
-The Pix2Struct tower and the latent-query resampler feed the decoder:
+An image tower (open_clip's ViT-L/14 for Kosmos-2, Pix2Struct for
+Kosmos-2.5) and the latent-query resampler feed the decoder:
 `encode_image` gives the features that `prefill` splices into the
-embedding, and `forward` takes raw flattened patches. As in JAX, the
-tower and the resampler keep float32 params whatever `param_dtype` says,
-and the modules flax leaves at dtype=None (the patch projection, the row
-and column embedders, the tower's final RMSNorm, the resampler's `dense`)
-compute in float32; the tower's residual stream is float32 because its
-input is. The CLIP tower (Kosmos-2, ROADMAP Queue 1 slice 5) and the
-audio tower (slice 10) raise.
+embedding, and `forward` takes raw images (CLIP: [B, H, W, 3]) or
+flattened patches (Pix2Struct). As in JAX, the towers and the resampler
+keep float32 params whatever `param_dtype` says, and the modules flax
+leaves at dtype=None (CLIP's `ln_pre` and `ln_post`; Pix2Struct's patch
+projection, row and column embedders and final RMSNorm; the resampler's
+`dense`) compute in float32, so each tower's residual stream is float32
+around its bf16 layers. The audio tower (ROADMAP Queue 1 slice 10)
+raises.
 
 Under `quant_lm_head` the logits come from `lm_head_q`, an int8
 `QuantDense` [V, E] built from the head in use (`quantize_lm_head` on a
@@ -79,6 +82,76 @@ def splice_image_features(token_embedding: torch.Tensor,
         idx[..., None].expand(-1, -1, img_features.shape[-1]))
     return torch.where(img_mask[..., None],
                        placed.to(token_embedding.dtype), token_embedding)
+
+
+@dataclasses.dataclass(frozen=True)
+class ClipVisionConfig:
+    """open_clip ViT-L/14 (the Kosmos-2 tower)."""
+
+    img_size: int = 224
+    patch_size: int = 14
+    embed_dim: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    ffn_dim: int = 4096
+    layernorm_eps: float = 1e-5
+    dtype: Any = torch.float32
+    use_flash: bool = True
+
+    def transformer(self) -> TransformerConfig:
+        return TransformerConfig(
+            embed_dim=self.embed_dim, ffn_dim=self.ffn_dim,
+            num_layers=self.num_layers, num_heads=self.num_heads,
+            normalize_before=True, activation="quick_gelu",
+            layernorm_eps=self.layernorm_eps, dtype=self.dtype,
+            use_flash=self.use_flash)
+
+
+class ClipVisionEncoder(nn.Module):
+    """CLIP visual tower without its projection head: a bias-free patch
+    conv (`conv1`, OIHW) + `class_embedding` + `positional_embedding`,
+    `ln_pre`, pre-LN quick_gelu blocks, `ln_post` over every token.
+
+    Input [B, H, W, 3] float images (H = W = img_size); output [B, 1 +
+    (H/p)^2, E] float32: `ln_pre` and `ln_post` output float32, so the
+    residual stream is float32 while the conv, the projections and the
+    attention compute in cfg.dtype."""
+
+    def __init__(self, cfg: ClipVisionConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        tcfg = cfg.transformer()
+        E, p = cfg.embed_dim, cfg.patch_size
+        n = (cfg.img_size // p) ** 2 + 1
+        self.conv1 = nn.Conv2d(3, E, p, stride=p, bias=False, device=device)
+        self.class_embedding = nn.Parameter(torch.zeros(E, device=device))
+        self.positional_embedding = nn.Parameter(
+            torch.zeros(n, E, device=device))
+        self.ln_pre = Norm(tcfg, device=device, dtype=torch.float32)
+        self.transformer = Encoder(tcfg, final_layer_norm=False,
+                                   device=device)
+        self.ln_post = Norm(tcfg, device=device, dtype=torch.float32)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """conv1 normal(fan_in^-0.5) (flax Conv's lecun scale), the class
+        and position embeddings normal(E^-0.5), as flax's initialisers."""
+        E = self.cfg.embed_dim
+        w = self.conv1.weight
+        w.normal_(0.0, w[0].numel() ** -0.5, generator=generator)
+        self.class_embedding.normal_(0.0, E ** -0.5, generator=generator)
+        self.positional_embedding.normal_(0.0, E ** -0.5, generator=generator)
+
+    def forward(self, images: torch.Tensor) -> torch.Tensor:
+        dt = self.cfg.dtype
+        x = F.conv2d(images.permute(0, 3, 1, 2).to(dt),
+                     self.conv1.weight.to(dt), stride=self.cfg.patch_size)
+        x = x.flatten(2).transpose(1, 2)  # [B, h*w, E], row-major patches
+        B, _, E = x.shape
+        cls = self.class_embedding.to(x.dtype).expand(B, 1, E)
+        x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(x.dtype)
+        x = self.transformer(self.ln_pre(x))
+        return self.ln_post(x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,7 +275,7 @@ class UniGPTConfig:
     remat_policy: str = "full"
     image_tower: Optional[str] = None  # 'clip' | 'pix2struct' | None
     latent_query_num: int = 64
-    clip: Any = None  # the CLIP tower is not ported yet (Queue 1 slice 5)
+    clip: ClipVisionConfig = ClipVisionConfig()
     pix2struct: Pix2StructVisionConfig = Pix2StructVisionConfig()
     audio_tower: Optional[str] = None
     audio_latent_query_num: int = 64
@@ -235,6 +308,17 @@ class UniGPTConfig:
         )
 
 
+def kosmos2(**kw) -> UniGPTConfig:
+    """Kosmos-2 1.6B: the open_clip ViT-L/14 tower, 64 latent queries and
+    the 24-layer E=2048 UniGPT decoder (32 heads, FFN 8192, vocab 65037,
+    subln + xPos). The tower inherits the compute dtype."""
+    kw.setdefault("image_tower", "clip")
+    kw.setdefault("latent_query_num", 64)
+    if "dtype" in kw and "clip" not in kw:
+        kw["clip"] = ClipVisionConfig(dtype=kw["dtype"])
+    return UniGPTConfig(**kw)
+
+
 def kosmos2_5(**kw) -> UniGPTConfig:
     """Kosmos-2.5 1.3B: Pix2Struct-large tower, 2048 latent queries,
     24 layers, E=1536, 16 heads, FFN 6144, vocab 108481."""
@@ -259,15 +343,13 @@ def _embedding(num, dim, init_std, dtype, device):
 
 
 class UniGPT(nn.Module):
-    """GPT decoder with the multimodal embedding splice and the Kosmos-2.5
-    image tower + resampler."""
+    """GPT decoder with the multimodal embedding splice, an image tower
+    (CLIP or Pix2Struct) and the resampler."""
 
     def __init__(self, cfg: UniGPTConfig, device=None):
         super().__init__()
-        if cfg.image_tower not in (None, "pix2struct"):
-            raise NotImplementedError(
-                f"the {cfg.image_tower!r} image tower (CLIP, Kosmos-2) is not "
-                "ported yet: ROADMAP Queue 1 slice 5 (CLIP tower)")
+        if cfg.image_tower not in (None, "clip", "pix2struct"):
+            raise ValueError(f"unknown image tower {cfg.image_tower!r}")
         if cfg.audio_tower:
             raise NotImplementedError(
                 "the audio tower (WavLM) is not ported yet: ROADMAP Queue 1 "
@@ -302,13 +384,17 @@ class UniGPT(nn.Module):
             # flax nn.Embed defaults: float32 params, std ~ 1/sqrt(E)
             self.segment_emb = _embedding(2, E, E ** -0.5, torch.float32,
                                           device)
-        if cfg.image_tower == "pix2struct":
+        if cfg.image_tower == "clip":
+            self.img_model = ClipVisionEncoder(cfg.clip, device=device)
+            conn_in = cfg.clip.embed_dim
+        elif cfg.image_tower == "pix2struct":
             self.img_model = Pix2StructVisionEncoder(cfg.pix2struct,
                                                      device=device)
+            conn_in = cfg.pix2struct.hidden_size
+        if cfg.image_tower:
             self.img_connector = LatentQueryResampler(
-                cfg.pix2struct.hidden_size, E, cfg.latent_query_num,
-                cfg.num_heads, dtype=cfg.dtype, use_flash=cfg.use_flash,
-                device=device)
+                conn_in, E, cfg.latent_query_num, cfg.num_heads,
+                dtype=cfg.dtype, use_flash=cfg.use_flash, device=device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "UniGPT":
@@ -316,6 +402,8 @@ class UniGPT(nn.Module):
         (which must live on the parameters' device); the latent queries
         normal(1.0), as flax's."""
         init_weights_(self, generator)
+        if isinstance(getattr(self, "img_model", None), ClipVisionEncoder):
+            self.img_model.init_weights(generator)
         if hasattr(self, "img_connector"):
             self.img_connector.latent_query.normal_(0.0, 1.0,
                                                     generator=generator)
@@ -323,12 +411,16 @@ class UniGPT(nn.Module):
 
     # ------------------------------------------------------------------ #
     def encode_image(self, img_inputs: torch.Tensor) -> torch.Tensor:
-        """Tower -> L2 normalize (+1e-6) -> latent-query resample:
-        [B, latent_query_num, E] in the compute dtype."""
+        """Tower -> L2 normalize (+1e-6, in the tower's float32) ->
+        latent-query resample: [B, latent_query_num, E] in the compute
+        dtype. `img_inputs`: images [B, H, W, 3] (CLIP) or flattened
+        patches (Pix2Struct)."""
         if not hasattr(self, "img_model"):
             raise ValueError("this UniGPT has no image tower "
                              "(image_tower=None)")
-        feats, _ = self.img_model(img_inputs)
+        feats = self.img_model(img_inputs)
+        if self.cfg.image_tower == "pix2struct":
+            feats = feats[0]
         feats = feats / (torch.linalg.vector_norm(feats, dim=-1,
                                                   keepdim=True) + 1e-6)
         return self.img_connector(feats)
@@ -367,8 +459,9 @@ class UniGPT(nn.Module):
         pre-logit decoder output [B, T, E] with return_features=True (for
         the chunked-vocabulary loss, ops/fused_ce.py). Every pad token is a
         masked key (`src_tokens != padding_idx`), as in JAX. `img_inputs`
-        (flattened patches) go through the tower and the resampler and are
-        spliced at `img_gpt_input_mask`."""
+        (images or flattened patches, as `encode_image` takes) go through
+        the tower and the resampler and are spliced at
+        `img_gpt_input_mask`."""
         if aud_inputs is not None:
             raise NotImplementedError(
                 "the audio tower (WavLM) is not ported yet: ROADMAP Queue 1 "
