@@ -221,6 +221,40 @@ Phases, one line each:
     at the train phase's gates, the bf16 loss at KOSMOS2_TEACHER_LOSS_REL
     (the k_proj biases without xPos, whose exact gradient is 0, by norm
     only).
+    beit_family_kernels: the BEiT family's kernels alone at each of its
+    shapes against their plain versions (relative L2 1e-2 in bf16, 1e-4
+    in float32): #3 at 64x197x12x64 (BEiT-3's vision forwards), at
+    captioning's 32x229 with the [1,1,229,229] uni-mask bias and at
+    VQ-KD's 64x196 in bf16 and float32, #9 at VQA's 32x237 and the
+    retrieval text tower's 64x40 with their key-padding masks, #4 at
+    BEiT-2's 64x197 with the shared [1,12,197,197] bias and its dbias;
+    timed (device time, back to back and with L2 flushed) beside the plain
+    version, sdpa (or sdpa's backward) and the bound.
+    beit3: beit3_base() built through models/registry (768 wide, 12
+    layers, 12 heads, vocab 64010, 224 px, bf16, random weights from the
+    seed) and each head of models/beit3.py and models/vlmo.py on synthetic
+    images and questions of 6-40 tokens padded to 40: classification at
+    B=64 (12 #3 a forward), VQA at B=32 (237 tokens, the padding mask: 12
+    #9), captioning at B=32 (32 text tokens under the uni-mask: 12 #3),
+    retrieval (the image tower at B=64: 12 #3, the text tower at B=64 over
+    the 40 padded tokens: 12 #9), NLVR2 at B=16 (two joint forwards: 24
+    #9), VLMo ITM and MLM at B=32 (12 #9 each); every launch count exact;
+    each head against its plain twin (max |dlogit| 0.08, logits relative
+    L2 2e-2, argmax agreement 75%; retrieval: each tower's embeddings at
+    relative L2 2e-2 and the same best text wherever the plain path's lead
+    is clear); host ms a forward, img/s or pairs/s, device time by group.
+    beit2: VQKD() in bf16 takes the ids of 64 synthetic images (12 #3),
+    at least 90% equal to the plain path's; one update_ema=True pass of
+    the float32 VQKD (15 #3), its codebook and cluster sizes within 1e-4
+    of the plain path's and its reconstruction (and the decoder alone on
+    one quantized input) within 1e-4 relative L2; DalleEncoder() ids at 112 px (B=64, float32,
+    library convolutions) against the CPU on two images; then 3 steps of
+    BEiT2ForMaskedImageModelingCLS at Beit2PretrainConfig() widths (bf16,
+    B=64, MaskingGenerator's 75-patch masks, the VQ-KD ids as targets,
+    the masked CE of both heads through runtime.train.make_train_step):
+    12 #3 and 12 #4 a step, ms/step, peak memory, device time by group, a
+    kernel-vs-plain teacher check of one batch at the BEiT fine-tune
+    gates (loss 6e-5 rel, grad norm 8e-5, cosine 0.998).
     yoco_chat: yoco_base (12 sliding-window + 12 cross layers, E=1024, 16
     heads, bf16 compute / fp32 params, random weights from the seed)
     through runtime.generate: B=8, a 128-token prompt, a 256-slot cache,
@@ -319,8 +353,8 @@ Phases, one line each:
     TFLOP/s, peak memory, a device-time profile (#2, #8, cuBLAS, other,
     optimizer), and a teacher check of one microbatch under both
     schedules against the default kernels at the train phase's bounds.
-Then a JSON line of the two int8 paths', the TrOCR paths' and the
-Kosmos-2 paths' measurements ("paths"), and one
+Then a JSON line of the two int8 paths', the TrOCR paths', the
+Kosmos-2 paths' and the BEiT family's measurements ("paths"), and one
 with each kernel's launches, summed over its main-path phases and listed
 by phase in `launches_by_path` (counters set to 0 just before each: slice,
 decode_int8_bs1 and kosmos_infer for flash_fwd, slice for decode,
@@ -332,14 +366,16 @@ the int8 kernels, trocr and trocr_int8 for encoder_attention,
 onepass_attention and decode_attention, trocr_int8 for int8_matmul,
 kosmos2 for encoder_attention, onepass_attention and decode_attention,
 kosmos2_train for encoder_attention, encoder_attention_bwd, flash_fwd,
-flash_bwd_dq and flash_bwd_dkv, the
+flash_bwd_dq and flash_bwd_dkv, beit3 for encoder_attention and
+doc_attention, beit2 for encoder_attention and encoder_attention_bwd, the
 engines for the block-table kernel, train for flash_bwd_dq
 and flash_bwd_dkv, train_schedules for flash_tri and flash_bwd_fused,
 page_pool for paged_attention, fused for swiglu and rotary),
 error, the TrOCR shapes under "trocr" (encoder_attention,
 decode_attention, int8_matmul), the Kosmos-2 shapes under "kosmos2"
 (encoder_attention, encoder_attention_bwd, onepass_attention,
-decode_attention),
+decode_attention), the BEiT family's under "beit_family"
+(encoder_attention, encoder_attention_bwd, doc_attention),
 times (kernel, plain version, and `library_ms`, one torch call computing
 the same function where one exists, else null) and `bound_ms` /
 `bound_by` (the larger of the bytes over 3.35 TB/s and the operations
@@ -517,7 +553,11 @@ def counts() -> dict:
     return {name: kern.launches for name, kern in KERNELS.items()}
 
 
+LAST_PHASE = [""]  # the phase that printed last, for PROFILER_LOST
+
+
 def phase(name: str, msg: str) -> None:
+    LAST_PHASE[0] = name
     print(f"[{name}] {msg}", flush=True)
 
 
@@ -543,40 +583,54 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 PROFILER_MISSES = []
+PROFILER_LOST = []  # "phase/kernels: records lost of records expected"
 
 
 def device_ms(fn, iters: int = 20, only: str = None,
               tries: int = 3, exclude=()) -> float:
-    """Mean device time of fn() in ms: the time of the CUDA kernels a
-    torch.profiler trace of `iters` back-to-back calls records, summed
-    over the trace (with `only`, over the kernels whose name holds that
-    substring; without, over every kernel whose name is not in
-    `exclude`). Unlike cuda_ms it leaves out the card's idle gaps, so
-    it is a kernel's own time even where the host's wrapper, not the
-    kernel, sets the pace of back-to-back calls (microsecond kernels).
+    """Mean device time of fn() in ms, from a torch.profiler trace of
+    `iters` back-to-back calls: the CUDA kernels whose name holds `only`
+    (without `only`, every kernel whose name is not in `exclude`). Unlike
+    cuda_ms it leaves out the card's idle gaps, so it is a kernel's own
+    time even where the host's wrapper, not the kernel, sets the pace of
+    back-to-back calls (microsecond kernels).
 
-    CUPTI now and then hands a trace back without its kernel records. A
-    trace that shows no device time is taken again, up to `tries` times;
-    after that the call is timed with CUDA events (cuda_ms: every kernel
-    of fn() and the gaps between them, so an upper bound), and the miss
-    is noted in PROFILER_MISSES and printed."""
+    CUPTI now and then loses kernel records from a trace: a sum over the
+    records once read #9 at a twelfth of its time. So each kernel name's
+    time is the mean of the records the trace kept, times the number of
+    times it runs a call. With `only`, that is the launches the KERNELS
+    counters saw in one untimed call (each kernel a wrapper's launch
+    starts runs once a launch); without, or where no counter moved, the
+    name's records over `iters`, rounded up. The records a trace lost
+    are noted in PROFILER_LOST and printed at the end. A trace that
+    shows no device time is taken again, up to `tries` times; after that
+    the call is timed with CUDA events (cuda_ms: every kernel of fn() and
+    the gaps between them, so an upper bound), and the miss is noted in
+    PROFILER_MISSES and printed."""
     from torch.profiler import ProfilerActivity, profile
 
+    c0 = counts()
     fn()
     torch.cuda.synchronize()
+    moved = [n - c0[k] for k, n in counts().items() if n > c0[k]]
+    per_call = min(moved) if only and moved else 0
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        if only:
-            total = device_time_shares(prof, [("only", [only])])["only"]
-        else:
-            shares = device_kernel_times(prof)
-            total = sum(t for k, t in shares.items() if k not in exclude)
-        if total > 0:
-            return total / iters
+        timed = {k: tn for k, tn in device_kernel_times(prof, True).items()
+                 if (only in k if only else k not in exclude)}
+        if sum(t for t, _ in timed.values()) > 0:
+            runs = {k: max(per_call, -(-n // iters))
+                    for k, (_, n) in timed.items()}
+            lost = sum(runs[k] * iters - n for k, (_, n) in timed.items())
+            if lost:
+                PROFILER_LOST.append(
+                    f"{LAST_PHASE[0]}/{only or 'all'}: {lost} of "
+                    f"{sum(runs.values()) * iters}")
+            return sum(t / n * runs[k] for k, (t, n) in timed.items())
     ms = cuda_ms(fn, iters)
     PROFILER_MISSES.append(only or "any kernel")
     print(f"device_ms: {tries} profiler traces saw no device time "
@@ -585,8 +639,9 @@ def device_ms(fn, iters: int = 20, only: str = None,
     return ms
 
 
-def device_kernel_times(prof) -> dict:
-    """Device time (ms) of each kernel name a profile saw."""
+def device_kernel_times(prof, counts: bool = False) -> dict:
+    """Device time (ms) of each kernel name a profile saw; with `counts`,
+    (ms, number of records) of each."""
     from torch.autograd import DeviceType
 
     out = {}
@@ -596,8 +651,9 @@ def device_kernel_times(prof) -> dict:
         t = getattr(evt, "self_device_time_total", None)
         if t is None:
             t = evt.self_cuda_time_total
-        out[evt.key] = out.get(evt.key, 0.0) + t / 1e3
-    return out
+        t0, n0 = out.get(evt.key, (0.0, 0))
+        out[evt.key] = (t0 + t / 1e3, n0 + evt.count)
+    return out if counts else {k: t for k, (t, _) in out.items()}
 
 
 def cold_ms(fn, only: str = None, iters: int = 20) -> float:
@@ -5174,6 +5230,687 @@ def phase_kosmos2_train(fa) -> dict:
         "teacher": teach}}
 
 
+# The BEiT family (beit3, beit2). BEiT-3 base: beit3_base() through the
+# registry (768 wide, 12 layers, 12 heads, vocab 64010, 224 px), bf16
+# compute / fp32 params, random weights from the seed. The batch of each
+# head's forward; questions of 6-40 tokens padded to 40 (the pad id 1),
+# so a VQA / VLMo / NLVR2 call attends over 197 + 40 = 237 keys with a
+# key-padding mask (#9); captioning's 32 text tokens under the uni-mask
+# bias, 229 keys without a mask (#3); the retrieval text tower over the
+# 40 padded tokens alone (#9).
+BEIT3_BATCH = {"classification": 64, "vqa": 32, "captioning": 32,
+               "retrieval": 64, "nlvr2": 16, "vlmo": 32}
+BEIT3_QLEN, BEIT3_CAPTION, BEIT3_TIMED = (6, 40), 32, 5
+BEIT3_PAD = 1
+# beside the BEiT eval gates: each head's bf16 logits, and in place of
+# them for retrieval (similarities of ~0.1, whose relative error says
+# little) the towers' unit embeddings (encode_image / encode_text), held
+# by relative L2 against the plain path's. The max-abs gate on a vocab
+# head's logits reads in ulps of |logit| (bf16 spacing 1/32 at 4-8), a
+# relative L2 does not. Read on an H100: 0.0024 for classification's
+# mean-pooled logits, 0.0125-0.0143 for every head and embedding read
+# off the CLS token (its bf16 rounding drifts over 12 layers though #3
+# and #9 each stay within 1.5e-3 of their plain versions); a wrong mask
+# or bias moves them by tenths.
+BEIT3_REL_L2 = 2e-2
+# BEiT-2: VQKD() (a ViT-B/16 encoder, a codebook of 8192 x 32) and the
+# CLS pretraining model at Beit2PretrainConfig() widths, B=64, 75 of 196
+# patches masked by MaskingGenerator; the DALL-E encoder at BEiT's
+# tokenizer input of 112 px (14 x 14 ids, the patch grid).
+BEIT2_BATCH, BEIT2_STEPS, BEIT2_MASKED, DALLE_PX = 64, 3, 75, 112
+# the bf16 VQ-KD ids, kernel path against plain path: argmin near-ties
+# among 8192 codes may flip, so at least 90% of the patches agree
+VQKD_ID_AGREE = 0.90
+# one update_ema=True pass in float32: the codebook and the cluster sizes
+# within 1e-4 of the plain path's; a code whose patches differ between
+# the paths (an argmin near-tie at the float32 kernel's rounding) is
+# counted and reported, and at most 0.1% of the patches may flip
+VQKD_EMA_ATOL, VQKD_EMA_FLIPS = 1e-4, 1e-3
+# the float32 pass's reconstruction (teacher features) against the plain
+# path's, relative L2: the decoder alone on the same quantized input, and
+# the whole pass where no id flipped
+VQKD_REC_REL_L2 = 1e-4
+# the DALL-E encoder on the card against the CPU in float32 (TF32 off),
+# two images: logits relative L2, ids agreement
+DALLE_REL_L2, DALLE_ID_AGREE = 1e-4, 0.90
+BEIT_FAMILY_GROUPS = [("#3", [ENCODER_ONLY]), ("#4", [ENC_BWD_ONLY]),
+                      ("#9", ["doc_fwd"]),
+                      ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet",
+                                  "cublas", "splitK"]),
+                      ("layer norm", ["layer_norm", "LayerNorm"])]
+
+
+def beit3_questions(B: int, rng: np.random.RandomState, vocab: int,
+                    dev) -> tuple:
+    """Token ids [B, 40] with lengths drawn from BEIT3_QLEN and the pad id
+    past them, and the padding mask (True = PAD)."""
+    lo, hi = BEIT3_QLEN
+    lens = rng.randint(lo, hi + 1, B)
+    ids = rng.randint(4, vocab, (B, hi))
+    pad = np.arange(hi)[None] >= lens[:, None]
+    ids[pad] = BEIT3_PAD
+    return (torch.from_numpy(ids).to(dev), torch.from_numpy(pad).to(dev))
+
+
+def host_ms(fn, iters: int) -> float:
+    """Host clock a call, over `iters` calls after one, each call's work
+    ended by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def groups_line(parts: dict, host: float) -> str:
+    total = sum(parts.values())
+    if total <= 0:
+        return "profiler saw no device time: groups not measured"
+    return (f"device time {total:.3f} ms of {host:.3f} ms on the host "
+            f"({100 * total / host:.0f}% busy): " + ", ".join(
+                f"{k} {v:.3f}" for k, v in parts.items()))
+
+
+def phase_beit_family_kernels(fa, da, g, dev: str = "cuda") -> dict:
+    """The kernels of the BEiT family's path alone, at each of its shapes,
+    against their plain versions (relative L2 <= 1e-2 in bf16, 1e-4 in
+    float32; #4 by grad_close at 1e-2): #3 at 64x197x12x64 (BEiT-3's
+    vision forwards), at captioning's 32x229x12x64 with the [1,1,229,229]
+    uni-mask bias, and at VQ-KD's 64x196x12x64 (no CLS token) in bf16 (the
+    ids) and in float32 (the update_ema pass's encoder and decoder); #9 at
+    VQA's 32x237x12x64 and at the retrieval text tower's 64x40x12x64, each
+    with its questions' key-padding mask; #4 at BEiT-2's 64x197x12x64 with
+    the shared [1,12,197,197] bias and its dbias. Each timed (device time
+    back to back and with L2 flushed) beside the plain version, sdpa (or
+    sdpa's backward) and the bound. Returns {kernel name: {"beit_family":
+    {...}}} for the kernels line."""
+    from unilm_tpu_torch.models.beit3 import captioning_attn_bias
+
+    bf, name, H, D = torch.bfloat16, "beit_family_kernels", 12, 64
+
+    def rn(*shape, dtype=bf):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+    def timed(kern, plain, lib, only, moved, ops, kind="bf16"):
+        return {"ms": device_ms(kern, only=only),
+                "ms_l2_flushed": cold_ms(kern, only),
+                "plain_ms": device_ms(plain, iters=3),
+                "library_ms": device_ms(lib),
+                "library_ms_l2_flushed": cold_ms(lib),
+                **roofline(moved, ops, kind)}
+
+    def line(key, r, tol):
+        phase(name, f"{key} {r['shape']}: rel L2 {r['rel_l2']:.3g} (bound "
+              f"{tol}); device time {r['ms']:.4f} ms back to back, "
+              f"{r['ms_l2_flushed']:.4f} flushed; {r['library']} "
+              f"{r['library_ms']:.4f} / {r['library_ms_l2_flushed']:.4f}; "
+              f"plain {r['plain_ms']:.4f}; bound {r['bound_ms']:.5f} "
+              f"({r['bound_by']})")
+
+    k3, k9, k4 = {}, {}, {}
+    nv = 197
+    for key, B, T, bias, dtype, tol in (
+            ("vision", 64, nv, None, bf, 1e-2),
+            ("captioning", 32, nv + BEIT3_CAPTION,
+             captioning_attn_bias(nv, BEIT3_CAPTION, dev).to(bf), bf, 1e-2),
+            ("vqkd", 64, nv - 1, None, bf, 1e-2),
+            ("vqkd_fp32", 64, nv - 1, None, torch.float32, 1e-4)):
+        q, k, v = (rn(B, T, H, D, dtype=dtype) for _ in range(3))
+        out = fa.fused_encoder_attention(q, k, v, bias=bias)
+        ref = fa.fused_encoder_attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        e = rel_l2(out, ref)
+        check(bool(torch.isfinite(out.float()).all()) and e <= tol,
+              f"{name}: #3 {key} rel L2 {e} (bound {tol})")
+        fp32 = dtype == torch.float32
+        r = k3[key] = {
+            "shape": f"{B}x{T}x{T}x{H}x{D} {'fp32' if fp32 else 'bf16'}, "
+            + ("no bias" if bias is None else f"bias [1,1,{T},{T}]"),
+            "rel_l2": e, "library": "sdpa",
+            "max_abs_err": float((out.float() - ref.float()).abs().max()),
+            **timed(lambda: fa.fused_encoder_attention(q, k, v, bias=bias),
+                    lambda: fa.fused_encoder_attention_plain(q, k, v, bias),
+                    lambda: sdpa(q, k, v, attn_mask=bias), ENCODER_ONLY,
+                    nbytes(q, k, v, out, bias), 4 * B * H * T * T * D,
+                    "fp32" if fp32 else "bf16")}
+        line(f"#3 {key}", r, tol)
+        del q, k, v, out, ref
+
+    # #9: the joint calls' and the text tower's key-padding masks, from the
+    # questions phase_beit3 draws (the same seed, so the same rows)
+    _, pad = beit3_questions(max(BEIT3_BATCH.values()),
+                             np.random.RandomState(SEED), 64010, dev)
+    B = BEIT3_BATCH["vqa"]
+    for key, mask in (
+            ("vqa", torch.cat([torch.ones(B, nv, dtype=torch.bool,
+                                          device=dev), ~pad[:B]], 1)),
+            ("text_tower", ~pad[:BEIT3_BATCH["retrieval"]])):
+        Bk, T = mask.shape
+        q, k, v = rn(Bk, T, H, D), rn(Bk, T, H, D), rn(Bk, T, H, D)
+        out = da.doc_attention(q, k, v, None, mask)
+        ref = da.doc_attention_plain(q, k, v, None, mask)
+        torch.cuda.synchronize()
+        e = rel_l2(out, ref)
+        check(bool(torch.isfinite(out.float()).all()) and e <= 1e-2,
+              f"{name}: #9 {key} rel L2 {e} (bound 1e-2)")
+        pairs = float(mask.sum()) * T * H
+        r = k9[key] = {
+            "shape": f"{Bk}x{T}x{T}x{H}x{D} bf16, key-padding mask "
+            f"(questions of {BEIT3_QLEN[0]}-{BEIT3_QLEN[1]} tokens)",
+            "rel_l2": e, "library": "sdpa (bool mask)",
+            "max_abs_err": float((out.float() - ref.float()).abs().max()),
+            **timed(lambda: da.doc_attention(q, k, v, None, mask),
+                    lambda: da.doc_attention_plain(q, k, v, None, mask),
+                    lambda: sdpa(q, k, v, attn_mask=mask[:, None, None, :]),
+                    "doc_fwd", nbytes(q, k, v, out, mask), 4 * pairs * D)}
+        line(f"#9 {key}", r, 1e-2)
+        del q, k, v, out, ref
+
+    # #4: a BEiT-2 pretraining step's backward, the shared bias's dbias
+    B, T = 64, nv
+    q, k, v, do = rn(B, T, H, D), rn(B, T, H, D), rn(B, T, H, D), \
+        rn(B, T, H, D)
+    b = rn(1, H, T, T)
+    got = fa.fused_encoder_backward(q, k, v, b, do)
+    want = fa.fused_encoder_backward_plain(q, k, v, b, do)
+    torch.cuda.synchronize()
+    worst_rel, worst_abs = 0.0, 0.0
+    for gname, x, rr in zip(("dq", "dk", "dv", "dbias"), got, want):
+        ok, ea, er = grad_close(x, rr, 1e-2)
+        check(bool(torch.isfinite(x.float()).all()) and ok,
+              f"{name}: #4 {gname} max|err| {ea} rel L2 {er}")
+        worst_rel, worst_abs = max(worst_rel, er), max(worst_abs, ea)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    bg = b.detach().clone().requires_grad_()
+    o = sdpa(qg, kg, vg, attn_mask=bg)
+    dot = do.transpose(1, 2)
+    r = k4["beit2"] = {
+        "shape": f"{B}x{T}x{T}x{H}x{D} bf16, bias [1,{H},{T},{T}], "
+        "dq/dk/dv/dbias", "rel_l2": worst_rel, "max_abs_err": worst_abs,
+        "library": f"sdpa backward ({type(o.grad_fn).__name__})",
+        **timed(lambda: fa.fused_encoder_backward(q, k, v, b, do),
+                lambda: fa.fused_encoder_backward_plain(q, k, v, b, do),
+                lambda: torch.autograd.grad(o, (qg, kg, vg, bg), dot,
+                                            retain_graph=True),
+                ENC_BWD_ONLY, nbytes(q, k, v, do, b, *got),
+                10 * B * H * T * T * D)}
+    line("#4 beit2", r, 1e-2)
+    del q, k, v, do, b, got, want, o, qg, kg, vg, bg
+    torch.cuda.empty_cache()
+    return {"encoder_attention": {"beit_family": k3},
+            "doc_attention": {"beit_family": k9},
+            "encoder_attention_bwd": {"beit_family": k4}}
+
+
+def phase_beit3(fa) -> tuple:
+    """BEiT-3 base at full width (beit3_base() through
+    models/registry.build, bf16, random weights from the seed), each head
+    of models/beit3.py and models/vlmo.py on synthetic images and
+    questions: classification (B=64: 12 #3 a forward), VQA (B=32, 237
+    tokens with the padding mask: 12 #9), captioning (B=32, 32 text tokens
+    under the uni-mask: 12 #3), retrieval (the image tower at B=64: 12 #3;
+    the text tower at B=64 over 40 padded tokens: 12 #9), NLVR2 (B=16, two
+    joint forwards: 24 #9), VLMo ITM and MLM (B=32: 12 #9 each). Each
+    call's launches exactly, nothing else launched; the outputs against
+    the plain twin (use_flash=False, the same weights) at the BEiT eval
+    gates (max |dlogit| BEIT_LOGIT_ATOL, argmax agreement
+    BEIT_TOP1_AGREE) and by relative L2 (BEIT3_REL_L2); retrieval: each
+    tower's embeddings by relative L2 (BEIT3_REL_L2), the similarity
+    logits at BEIT_LOGIT_ATOL, and the same best text for every image
+    whose best leads its second on the plain path by more than twice the
+    largest error, in place of argmax agreement; host ms a
+    forward and img/s or pairs/s, device time by kernel group. Returns
+    (launches, {"beit3": numbers})."""
+    from unilm_tpu_torch.models import beit3 as b3
+    from unilm_tpu_torch.models import registry
+    from unilm_tpu_torch.models import vlmo
+
+    dev = torch.device("cuda")
+    name = "beit3"
+    cfg, cls_model = registry.build("beit3_base", device=dev,
+                                    dtype=torch.bfloat16)
+    check((cfg.embed_dim, cfg.num_layers, cfg.num_heads, cfg.vocab_size,
+           cfg.img_size) == (768, 12, 12, 64010, 224),
+          f"{name}: beit3_base config {cfg}")
+    L, nv = cfg.num_layers, cfg.num_vision_tokens
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
+    Bmax = max(BEIT3_BATCH.values())
+    images = torch.randn(Bmax, cfg.img_size, cfg.img_size, 3, generator=g,
+                         device=dev)
+    images_b = torch.randn(Bmax, cfg.img_size, cfg.img_size, 3, generator=g,
+                           device=dev)
+    questions = beit3_questions(Bmax, rng, cfg.vocab_size, dev)
+    caption = torch.from_numpy(rng.randint(4, cfg.vocab_size,
+                                           (Bmax, BEIT3_CAPTION))).to(dev)
+    n_params = sum(p.numel() for p in cls_model.parameters())
+    phase(name, f"beit3_base: {L} layers, E={cfg.embed_dim}, "
+          f"H={cfg.num_heads}, vocab {cfg.vocab_size}, {nv} image tokens, "
+          f"questions of {BEIT3_QLEN[0]}-{BEIT3_QLEN[1]} tokens padded to "
+          f"{BEIT3_QLEN[1]}, bf16 compute / fp32 params; classification "
+          f"model {n_params / 1e6:.1f} M params")
+
+    def twin(model):
+        plain = type(model)(dataclasses.replace(cfg, use_flash=False),
+                            device=dev).eval()
+        plain.load_state_dict(model.state_dict())
+        return plain
+
+    launches = {"encoder_attention": 0, "doc_attention": 0}
+    nums = {}
+
+    def case(label, model, fn, want, rows, unit, towers=()):
+        """fn(model) on both paths: its launches exactly `want`, the
+        gates, timing and the device time by group. `towers`: (label,
+        fn) of a retrieval model's embeddings, each held by relative L2
+        (BEIT3_REL_L2) in place of the logits' relative L2, and the
+        similarity logits replace argmax agreement by the best text
+        where the plain path's lead is sure."""
+        plain = twin(model)
+        reset_counts()
+        with torch.no_grad():
+            out = fn(model)
+        torch.cuda.synchronize()
+        got = {k: v for k, v in counts().items() if v}
+        check(got == want, f"{name} {label}: launches {got}, want {want}")
+        for k, v in got.items():
+            launches[k] += v
+        c0 = counts()
+        with torch.no_grad():
+            pout = fn(plain)
+        torch.cuda.synchronize()
+        check(counts() == c0, f"{name} {label}: the plain path launched a "
+              "kernel")
+        out, pout = out.float(), pout.float()
+        err = float((out - pout).abs().max())
+        rel = rel_l2(out, pout)
+        agree = float((out.argmax(-1) == pout.argmax(-1)).float().mean())
+        check(bool(torch.isfinite(out).all()) and err <= BEIT_LOGIT_ATOL
+              and (bool(towers) or rel <= BEIT3_REL_L2),
+              f"{name} {label}: max |dlogit| {err} (tol {BEIT_LOGIT_ATOL}), "
+              f"rel L2 {rel} (tol {BEIT3_REL_L2})")
+        gate = f"argmax agreement {agree:.4f} (tol {BEIT_TOP1_AGREE})"
+        emb = {}
+        for tower, tfn in towers:
+            with torch.no_grad():
+                te, tp = tfn(model), tfn(plain)
+            emb[tower] = rel_l2(te, tp)
+            check(bool(torch.isfinite(te).all())
+                  and emb[tower] <= BEIT3_REL_L2,
+                  f"{name} {label}: {tower} embeddings rel L2 {emb[tower]} "
+                  f"(tol {BEIT3_REL_L2})")
+        if towers:
+            top2 = pout.topk(2, -1).values
+            sure = (top2[:, 0] - top2[:, 1]) > 2 * err
+            same = out.argmax(-1) == pout.argmax(-1)
+            check(bool(same[sure].all()), f"{name} {label}: best text "
+                  f"differs where the plain path's lead exceeds 2 x {err}")
+            gate = (f"best-text agreement {agree:.4f}, all {int(sure.sum())}"
+                    f" rows whose lead exceeds 2 x max|err| agree; embeddings"
+                    f" rel L2 " + ", ".join(f"{t} {e:.3g}" for t, e in
+                                            emb.items())
+                    + f" (tol {BEIT3_REL_L2})")
+        else:
+            check(agree >= BEIT_TOP1_AGREE, f"{name} {label}: {gate}")
+        with torch.no_grad():
+            ms = host_ms(lambda: fn(model), BEIT3_TIMED)
+            ms_plain = host_ms(lambda: fn(plain), 2)
+            parts = profile_steps(lambda: fn(model), 1,
+                                  BEIT_FAMILY_GROUPS)[0]
+        nums[label] = {"ms": ms, "rate": rows * 1e3 / ms, "unit": unit,
+                       "plain_ms": ms_plain, "max_abs_err": err,
+                       "rel_l2": rel, "agreement": agree, "launches": got,
+                       **({"embeddings_rel_l2": emb} if emb else {}),
+                       "device_ms": parts}
+        phase(name, f"{label}: launches {got}; max |dlogit| {err:.4f} (tol "
+              f"{BEIT_LOGIT_ATOL}, |logits| up to "
+              f"{float(pout.abs().max()):.3f}), rel L2 {rel:.3g}"
+              f"{'' if towers else f' (tol {BEIT3_REL_L2})'}, {gate}; "
+              f"{ms:.2f} ms a "
+              f"forward on the host, {rows * 1e3 / ms:.1f} {unit}; plain "
+              f"path {ms_plain:.2f} ms; {groups_line(parts, ms)}")
+        del plain
+
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
+    one = lambda n: {"encoder_attention": n * L} if n else {}
+
+    # classification: the registry's model
+    B = BEIT3_BATCH["classification"]
+    cls_model.init_weights(gen()).eval()
+    case("classification", cls_model, lambda m: m(images[:B]), one(1), B,
+         "img/s")
+    del cls_model
+
+    B = BEIT3_BATCH["vqa"]
+    m = b3.BEiT3ForVisualQuestionAnswering(cfg, device=dev).init_weights(
+        gen()).eval()
+    case("vqa", m, lambda m: m(images[:B], questions[0][:B],
+                               questions[1][:B]),
+         {"doc_attention": L}, B, "pairs/s")
+    del m
+
+    B = BEIT3_BATCH["captioning"]
+    m = b3.BEiT3ForCaptioning(cfg, device=dev).init_weights(gen()).eval()
+    case("captioning", m, lambda m: m(images[:B], caption[:B]), one(1), B,
+         "pairs/s")
+    del m
+
+    B = BEIT3_BATCH["retrieval"]
+    m = b3.BEiT3ForRetrieval(cfg, device=dev).init_weights(gen()).eval()
+    case("retrieval", m, lambda m: m(images[:B], questions[0][:B],
+                                     questions[1][:B]),
+         {"encoder_attention": L, "doc_attention": L}, B, "pairs/s",
+         towers=(("image", lambda m: m.encode_image(images[:B])),
+                 ("text", lambda m: m.encode_text(questions[0][:B],
+                                                  questions[1][:B]))))
+    with torch.no_grad():
+        towers = {"image tower": host_ms(lambda: m.encode_image(images[:B]),
+                                         BEIT3_TIMED),
+                  "text tower": host_ms(lambda: m.encode_text(
+                      questions[0][:B], questions[1][:B]), BEIT3_TIMED)}
+    nums["retrieval"]["towers_ms"] = towers
+    phase(name, "retrieval towers at B=" + str(B) + ": " + ", ".join(
+        f"{k} {v:.2f} ms ({B * 1e3 / v:.1f} a second)"
+        for k, v in towers.items()))
+    del m
+
+    B = BEIT3_BATCH["nlvr2"]
+    m = b3.BEiT3ForVisualReasoning(cfg, device=dev).init_weights(
+        gen()).eval()
+    case("nlvr2", m, lambda m: m(images[:B], images_b[:B], questions[0][:B],
+                                 questions[1][:B]),
+         {"doc_attention": 2 * L}, B, "pairs/s")
+    del m
+
+    B = BEIT3_BATCH["vlmo"]
+    for label, make in (("vlmo_itm", vlmo.VLMoForImageTextMatching),
+                        ("vlmo_mlm", vlmo.VLMoForMaskedLM)):
+        m = make(cfg, device=dev).init_weights(gen()).eval()
+        case(label, m, lambda m: m(images[:B], questions[0][:B],
+                                   questions[1][:B]),
+             {"doc_attention": L}, B, "pairs/s")
+        del m
+    torch.cuda.empty_cache()
+    return launches, {"beit3": nums}
+
+
+def phase_beit2(fa) -> tuple:
+    """BEiT-2 at full width (random weights from the seed): VQKD() in bf16
+    takes the ids of B=64 synthetic images (get_codebook_indices: 12 #3),
+    held against the plain path (VQKD_ID_AGREE); one update_ema=True pass
+    of the float32 VQKD on the same weights (the encoder and the 3-layer
+    decoder: 15 #3), its codebook and cluster sizes against the plain
+    path's (VQKD_EMA_ATOL), its reconstruction and the decoder alone on
+    one quantized input (VQKD_REC_REL_L2); the DALL-E encoder's ids of the same images at
+    112 px (B=64, float32; library convolutions) against the CPU on two
+    images; then BEIT2_STEPS steps of BEiT2ForMaskedImageModelingCLS at
+    Beit2PretrainConfig() widths in bf16, B=64, 75 of 196 patches masked
+    by MaskingGenerator, the VQ-KD ids as targets, the masked CE of both
+    heads through runtime.train.make_train_step (12 #3 and 12 #4 a step),
+    and a kernel-vs-plain teacher check of one batch at the BEiT
+    fine-tune gates. Returns (launches, {"beit2": numbers})."""
+    from unilm_tpu_torch.data.masking import MaskingGenerator
+    from unilm_tpu_torch.models import beit2 as b2
+    from unilm_tpu_torch.models import dalle_vae as dv
+    from unilm_tpu_torch.runtime import optim, train
+
+    dev = torch.device("cuda")
+    name, B = "beit2", BEIT2_BATCH
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    gen = lambda: torch.Generator(device=dev).manual_seed(SEED)
+    nums, launches = {}, {"encoder_attention": 0, "encoder_attention_bwd": 0}
+
+    # ---- VQ-KD ids, bf16 ------------------------------------------------
+    vcfg = b2.VQKDConfig(dtype=torch.bfloat16)
+    L = vcfg.encoder_layers
+    vq = b2.VQKD(vcfg, device=dev).init_weights(gen()).eval()
+    plain = b2.VQKD(dataclasses.replace(vcfg, use_flash=False),
+                    device=dev).eval()
+    plain.load_state_dict(vq.state_dict())
+    images = torch.randn(B, vcfg.img_size, vcfg.img_size, 3, generator=g,
+                         device=dev)
+    N = (vcfg.img_size // vcfg.patch_size) ** 2
+    phase(name, f"VQKD(): a {L}-layer E={vcfg.encoder_dim} encoder, a "
+          f"{vcfg.decoder_layers}-layer decoder, codebook "
+          f"{vcfg.codebook_size} x {vcfg.codebook_dim}; B={B}, {N} patches")
+    reset_counts()
+    with torch.no_grad():
+        ids = vq.get_codebook_indices(images)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in counts().items() if v}
+    check(got == {"encoder_attention": L} and ids.shape == (B, N)
+          and int(ids.min()) >= 0 and int(ids.max()) < vcfg.codebook_size,
+          f"{name}: VQ-KD ids launches {got}, shape {tuple(ids.shape)}")
+    launches["encoder_attention"] += L
+    c0 = counts()
+    with torch.no_grad():
+        pids = plain.get_codebook_indices(images)
+    check(counts() == c0, f"{name}: the plain VQ-KD launched a kernel")
+    agree = float((ids == pids).float().mean())
+    check(agree >= VQKD_ID_AGREE, f"{name}: VQ-KD ids agree on {agree}")
+    with torch.no_grad():
+        ms = host_ms(lambda: vq.get_codebook_indices(images), BEIT3_TIMED)
+        ms_plain = host_ms(lambda: plain.get_codebook_indices(images), 2)
+        parts = profile_steps(lambda: vq.get_codebook_indices(images), 1,
+                              BEIT_FAMILY_GROUPS)[0]
+    nums["vqkd_ids"] = {"ms": ms, "img_s": B * 1e3 / ms, "plain_ms": ms_plain,
+                        "agreement": agree, "distinct": int(ids.unique()
+                                                            .numel()),
+                        "device_ms": parts}
+    phase(name, f"VQ-KD ids: {L} #3; agreement with the plain path "
+          f"{agree:.4f} (tol {VQKD_ID_AGREE}), {nums['vqkd_ids']['distinct']}"
+          f" distinct codes; {ms:.2f} ms a batch on the host "
+          f"({B * 1e3 / ms:.1f} img/s), plain {ms_plain:.2f} ms; "
+          f"{groups_line(parts, ms)}")
+    sd = vq.state_dict()
+    del vq, plain
+
+    # ---- one update_ema=True pass, float32 -----------------------------
+    f32 = b2.VQKDConfig()
+    vq32 = b2.VQKD(f32, device=dev).eval()
+    p32 = b2.VQKD(dataclasses.replace(f32, use_flash=False), device=dev).eval()
+    vq32.load_state_dict(sd)
+    p32.load_state_dict(sd)
+    reset_counts()
+    with torch.no_grad():
+        rec, loss, kid = vq32(images, update_ema=True)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in counts().items() if v}
+    n3 = f32.encoder_layers + f32.decoder_layers
+    check(got == {"encoder_attention": n3}, f"{name}: the EMA pass launched "
+          f"{got}, want {n3} #3")
+    launches["encoder_attention"] += n3
+    with torch.no_grad():
+        prec, ploss, pid = p32(images, update_ema=True)
+    torch.cuda.synchronize()
+    flips = kid != pid
+    moved = torch.unique(torch.cat([kid[flips], pid[flips]]))
+    keep = torch.ones(f32.codebook_size, dtype=torch.bool, device=dev)
+    keep[moved] = False
+    qk, qp = vq32.quantize, p32.quantize
+    e_emb = float((qk.embedding - qp.embedding)[keep].abs().max())
+    e_cl = float((qk.cluster_size - qp.cluster_size)[keep].abs().max())
+    n_flip = int(flips.sum())
+    rec_rel = rel_l2(rec, prec)
+
+    def decode(m, quant):
+        h = m.decoder(m.decoder_in(quant))
+        return m.decode_task_2(torch.tanh(m.decode_task_1(h)))
+
+    with torch.no_grad():  # the decoder alone, on one quantized input
+        quant = p32.encode(images)[0]
+        dec = decode(vq32, quant)
+        dec_rel = rel_l2(dec, decode(p32, quant))
+    check(e_emb <= VQKD_EMA_ATOL and e_cl <= VQKD_EMA_ATOL
+          and n_flip <= VQKD_EMA_FLIPS * flips.numel()
+          and bool(torch.isfinite(rec).all() and torch.isfinite(dec).all())
+          and dec_rel <= VQKD_REC_REL_L2
+          and (n_flip > 0 or rec_rel <= VQKD_REC_REL_L2),
+          f"{name}: EMA pass codebook max|d| {e_emb}, cluster sizes {e_cl}, "
+          f"{n_flip} ids flipped, reconstruction rel L2 {rec_rel}, the "
+          f"decoder alone {dec_rel} (tol {VQKD_REC_REL_L2})")
+    nums["vqkd_ema"] = {"codebook_max_abs_err": e_emb,
+                        "cluster_size_max_abs_err": e_cl,
+                        "ids_flipped": n_flip, "codes_excluded":
+                        int(moved.numel()), "rec_rel_l2": rec_rel,
+                        "decoder_rel_l2": dec_rel,
+                        "vq_loss": float(loss), "plain_vq_loss": float(ploss)}
+    phase(name, f"float32 update_ema pass ({n3} #3): codebook max|d| "
+          f"{e_emb:.3g}, cluster sizes {e_cl:.3g} (tol {VQKD_EMA_ATOL}) "
+          f"over {int(keep.sum())} of {f32.codebook_size} codes; {n_flip} "
+          f"of {flips.numel()} ids flipped, so {int(moved.numel())} codes "
+          f"left out; reconstruction rel L2 {rec_rel:.3g}, the decoder "
+          f"alone {dec_rel:.3g} (tol {VQKD_REC_REL_L2}"
+          f"{'' if n_flip else ', both'}), vq_loss "
+          f"{float(loss):.6f} (plain {float(ploss):.6f})")
+    del vq32, p32, rec, prec, sd, quant, dec
+    torch.cuda.empty_cache()
+
+    # ---- DALL-E ids -----------------------------------------------------
+    dalle = dv.DalleEncoder(device=dev).init_weights(gen()).eval()
+    px = torch.nn.functional.interpolate(
+        images.permute(0, 3, 1, 2), size=(DALLE_PX, DALLE_PX),
+        mode="bilinear", antialias=True).permute(0, 2, 3, 1).sigmoid()
+    px = px.contiguous()
+    reset_counts()
+    with torch.no_grad():
+        logits = dalle(px)
+    torch.cuda.synchronize()
+    check(not any(counts().values()), f"{name}: DALL-E launched {counts()}")
+    ids_d = logits.argmax(-1).reshape(B, -1)
+    cpu = dv.DalleEncoder().eval()
+    cpu.load_state_dict({k: v.cpu() for k, v in dalle.state_dict().items()})
+    with torch.no_grad():
+        ref = cpu(px[:2].cpu())
+    e = rel_l2(logits[:2].cpu(), ref)
+    agree_d = float((ids_d[:2].cpu() == ref.argmax(-1).reshape(2, -1))
+                    .float().mean())
+    check(ids_d.shape == (B, N) and bool(torch.isfinite(logits).all())
+          and e <= DALLE_REL_L2 and agree_d >= DALLE_ID_AGREE,
+          f"{name}: DALL-E ids {tuple(ids_d.shape)}, card vs CPU rel L2 {e},"
+          f" ids agree {agree_d}")
+    with torch.no_grad():
+        ms = host_ms(lambda: dalle.get_codebook_indices(px), BEIT3_TIMED)
+    nums["dalle_ids"] = {"ms": ms, "img_s": B * 1e3 / ms, "rel_l2_cpu": e,
+                         "agreement_cpu": agree_d}
+    phase(name, f"DalleEncoder() ids at {DALLE_PX} px, B={B}: "
+          f"{tuple(ids_d.shape)}, card vs CPU (2 images, float32) rel L2 "
+          f"{e:.3g} (tol {DALLE_REL_L2}), ids agree {agree_d:.4f}; "
+          f"{ms:.2f} ms a batch ({B * 1e3 / ms:.1f} img/s)")
+    del dalle, cpu, logits
+    torch.cuda.empty_cache()
+
+    # ---- BEiT-2 CLS pretraining ----------------------------------------
+    pcfg = b2.Beit2PretrainConfig(dtype=torch.bfloat16)
+    L = pcfg.num_layers
+
+    def pretrain_model(use_flash):
+        m = b2.BEiT2ForMaskedImageModelingCLS(
+            dataclasses.replace(pcfg, use_flash=use_flash), device=dev)
+        return m.train()
+
+    model = pretrain_model(True).init_weights(gen())
+    with torch.no_grad():  # random table, so the bias and dbias matter
+        model.backbone.rel_pos_bias.relative_position_bias_table.normal_(
+            0.0, 0.5, generator=g)
+    mgen = MaskingGenerator(pcfg.beit().grid_size,
+                            num_masking_patches=BEIT2_MASKED,
+                            rng=np.random.default_rng(SEED))
+    masks = torch.from_numpy(np.stack([mgen().reshape(-1) for _ in range(B)])
+                             ).bool().to(dev)
+    n_masked = masks.sum(1)
+    check(bool((n_masked <= BEIT2_MASKED).all() and (n_masked > 0).all()),
+          f"{name}: masks of {n_masked.tolist()} patches")
+    batch = {"x": images, "mask": masks, "y": ids}
+
+    def loss_fn(m, b):
+        logits, logits_cls = m(b["x"], b["mask"])
+        s1, cnt = train.cross_entropy_loss(logits, b["y"], mask=b["mask"])
+        s2, _ = train.cross_entropy_loss(logits_cls, b["y"], mask=b["mask"])
+        return (s1 + s2) / cnt, {}
+
+    tx = optim.create_optimizer(list(model.named_parameters()), 1.5e-3,
+                                betas=(0.9, 0.98), weight_decay=0.05)
+    state = train.TrainState.create(model, tx)
+    step = train.make_train_step(loss_fn, tx, clip_grad_norm=3.0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    hist, times = [], []
+    for i in range(BEIT2_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        hist.append((float(m["loss"]), float(m["grad_norm"])))
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in counts().items() if v}
+    want = {"encoder_attention": L * BEIT2_STEPS,
+            "encoder_attention_bwd": L * BEIT2_STEPS}
+    check(got == want and all(np.isfinite(x) for h in hist for x in h),
+          f"{name}: pretraining launches {got} (want {want}), {hist}")
+    for k in want:
+        launches[k] += want[k]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ms = float(np.mean(times[1:]))
+    phase(name, f"BEiT2ForMaskedImageModelingCLS at Beit2PretrainConfig() "
+          f"widths (early layer {pcfg.early_layer}, vocab {pcfg.vocab_size}),"
+          f" B={B}, {int(n_masked.min())}-{int(n_masked.max())} of {N} "
+          f"patches masked (num_masking_patches {BEIT2_MASKED}), VQ-KD ids as "
+          "targets: " + ", ".join(
+              f"step {i + 1} loss {lo:.4f} grad norm {gn:.3f}"
+              for i, (lo, gn) in enumerate(hist))
+          + f"; {L} + {L} #3/#4 a step; {ms:.1f} ms/step on the host (steps "
+          f"2-{BEIT2_STEPS}, each ended by reading its loss; step 1 "
+          f"{times[0]:.1f}), peak memory {peak:.1f} GiB")
+
+    parts = profile_steps(lambda: step(state, batch), 1,
+                          BEIT_FAMILY_GROUPS)[0]
+    phase(name, f"a step (forward, backward, clip, AdamW): "
+          f"{groups_line(parts, ms)}")
+
+    def fwd_bwd(mdl):
+        loss, _ = loss_fn(mdl, batch)
+        return float(loss.detach()), torch.autograd.grad(
+            loss, train.trainable(mdl))
+
+    # ---- teacher check: kernel vs plain path on one batch ---------------
+    plain = pretrain_model(False)
+    plain.load_state_dict(model.state_dict())
+    c0 = counts()
+    lk, gk = fwd_bwd(model)
+    c1 = counts()
+    lp, gp = fwd_bwd(plain)
+    torch.cuda.synchronize()
+    check(counts() == c1 and c1["encoder_attention_bwd"]
+          - c0["encoder_attention_bwd"] == L,
+          f"{name} teacher: launch counts {c0} -> {c1} -> {counts()}")
+    names = [nm for nm, _ in model.named_parameters()]
+    nk, npl = float(optim.global_norm(gk)), float(optim.global_norm(gp))
+    cos = {nm: float(torch.nn.functional.cosine_similarity(
+        a.flatten().float(), b.flatten().float(), dim=0))
+        for nm, a, b in zip(names, gk, gp) if not nm.endswith("k_proj.bias")}
+    worst = min(cos, key=cos.get)
+    loss_rel, norm_rel = abs(lk - lp) / abs(lp), abs(nk - npl) / npl
+    phase(name, f"teacher check, one batch: loss kernel {lk:.6f} plain "
+          f"{lp:.6f} (rel {loss_rel:.2e}, tol {BEIT_TEACHER_LOSS_REL}); grad "
+          f"norm kernel {nk:.5f} plain {npl:.5f} (rel {norm_rel:.2e}, tol "
+          f"{BEIT_TEACHER_NORM_REL}); min per-tensor cosine {cos[worst]:.5f} "
+          f"({worst}, tol {BEIT_TEACHER_COS})")
+    check(loss_rel <= BEIT_TEACHER_LOSS_REL
+          and norm_rel <= BEIT_TEACHER_NORM_REL
+          and cos[worst] >= BEIT_TEACHER_COS, f"{name}: teacher check failed")
+    nums["pretrain"] = {"ms_step": ms, "step_ms": times, "peak_gib": peak,
+                        "losses": hist, "device_ms": parts,
+                        "teacher_loss_rel": loss_rel,
+                        "teacher_norm_rel": norm_rel,
+                        "teacher_min_cos": cos[worst]}
+    del model, plain, state, step, gk, gp
+    torch.cuda.empty_cache()
+    return launches, {"beit2": nums}
+
+
 def phase_paged_append(pa, g) -> dict:
     dev, bf = "cuda", torch.bfloat16
     H, D, page, MP, B = 16, 96, 64, 40, 8
@@ -6497,6 +7234,12 @@ def main() -> int:
     add("kosmos2", got)
     got, kosmos2_train_nums = phase_kosmos2_train(fa)
     add("kosmos2_train", got)
+    beit_family_extra = phase_beit_family_kernels(
+        fa, da, torch.Generator(device="cuda").manual_seed(SEED))
+    got, beit3_nums = phase_beit3(fa)
+    add("beit3", got)
+    got, beit2_nums = phase_beit2(fa)
+    add("beit2", got)
     add("yoco_chat", phase_yoco_chat(fa))
     phase_yoco_long(fa)
     cfg, sd = engine_model()
@@ -6513,13 +7256,17 @@ def main() -> int:
         kern.update(line4.get(kern["name"], {}))
         kern.update(trocr_extra.get(kern["name"], {}))
         kern.update(kosmos2_extra.get(kern["name"], {}))
+        kern.update(beit_family_extra.get(kern["name"], {}))
         check(kern["launches"] > 0, f"{kern['name']} never launched")
     print(json.dumps({"paths": {"decode_int8_bs1": line4["line4"],
                                 **infer, **trocr_bf16, **trocr_int8,
-                                **kosmos2_nums, **kosmos2_train_nums}}),
+                                **kosmos2_nums, **kosmos2_train_nums,
+                                **beit3_nums, **beit2_nums}}),
           flush=True)
     phase("profiler", f"{len(PROFILER_MISSES)} device_ms calls fell back "
-          f"to CUDA events: {PROFILER_MISSES}")
+          f"to CUDA events: {PROFILER_MISSES}; {len(PROFILER_LOST)} traces "
+          f"lost kernel records (each timed by the mean of those kept): "
+          f"{PROFILER_LOST}")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -168,6 +168,40 @@ train_gpt.main(["--vl_data", work + "/vl.jsonl", "--save_dir", work + "/ck",
                 "--max_steps", "1", "--device", "cpu"])
 """
 
+_BEIT_FAMILY = _POISON + r"""
+import torch
+from unilm_tpu_torch.models import beit2, beit3, dalle_vae, registry, vlmo
+
+torch.set_num_threads(1)
+g = torch.Generator().manual_seed(0)
+cfg = beit3.BEiT3Config(vocab_size=50, embed_dim=32, num_layers=2,
+                        num_heads=4, ffn_dim=64, img_size=16, patch_size=8)
+img = torch.randn(2, 16, 16, 3, generator=g)
+txt = torch.randint(4, 50, (2, 5), generator=g)
+pad = torch.zeros(2, 5, dtype=torch.bool)
+pad[1, 3:] = True
+with torch.no_grad():
+    vqa = beit3.BEiT3ForVisualQuestionAnswering(cfg, num_answers=3)
+    print("vqa", tuple(vqa.init_weights(g)(img, txt, pad).shape))
+    itm = vlmo.VLMoForImageTextMatching(cfg).init_weights(g)
+    print("itm", tuple(itm(img, txt, pad).shape))
+    vq = beit2.VQKD(beit2.VQKDConfig(
+        img_size=16, patch_size=8, encoder_dim=32, encoder_layers=1,
+        encoder_heads=4, decoder_dim=32, decoder_layers=1, decoder_heads=4,
+        codebook_size=16, codebook_dim=8, teacher_dim=8)).init_weights(g)
+    ids = vq.get_codebook_indices(img)
+    vq(img, update_ema=True)
+    cls = beit2.BEiT2ForMaskedImageModelingCLS(beit2.Beit2PretrainConfig(
+        img_size=16, patch_size=8, embed_dim=32, num_layers=2, num_heads=4,
+        vocab_size=16, early_layer=0)).init_weights(g)
+    logits, logits_cls = cls(img, torch.ones(2, 4, dtype=torch.bool))
+    dalle = dalle_vae.DalleEncoder(dalle_vae.DalleEncoderConfig(
+        n_hid=8, n_blk_per_group=1, vocab_size=16)).init_weights(g)
+    print("ids", tuple(ids.shape), tuple(logits_cls.shape),
+          tuple(dalle.get_codebook_indices(img.sigmoid()).shape))
+print("archs", len(registry.names()))
+"""
+
 # the modules each slice of the port added; every one must be among them
 PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "ops._native", "ops.attention", "ops.flash_attention",
@@ -187,7 +221,9 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "data.trocr_datasets", "cli.trocr_infer", "cli.trocr_eval",
           "data.grounding", "data.vl_loaders", "scoring_grounding",
           "scoring_seedbench", "cli.kosmos_ground_eval", "cli.kosmos_demo",
-          "cli.kosmos_seedbench"}
+          "cli.kosmos_seedbench", "core.multiway", "models.beit3",
+          "models.vlmo", "models.beit2", "models.dalle_vae", "convert.dalle",
+          "models.registry"}
 
 
 def test_port_imports_without_jax():
@@ -277,3 +313,15 @@ def test_kosmos2_clis_run_without_jax(tmp_path):
     lines = res.stdout.strip().splitlines()
     assert '"num_refs": 1.0' in lines[0] and '"total": 1' in lines[1], lines
     assert lines[-1] == "done", lines
+
+
+def test_beit_family_runs_without_jax():
+    """BEiT-3 VQA and VLMo ITM forwards (the multiway core), VQ-KD ids and
+    an EMA update, the BEiT-2 CLS heads, DALL-E ids and the registry reach
+    no JAX module."""
+    res = subprocess.run([sys.executable, "-c", _BEIT_FAMILY], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert lines == ["vqa (2, 3)", "itm (2, 2)", "ids (2, 4) (2, 4, 16) (2, 4)",
+                     "archs 28"], lines

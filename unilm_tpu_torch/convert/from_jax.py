@@ -12,9 +12,11 @@ axis, the scan_layers form). Leaves map as
 - LayerNorm / RMSNorm `scale` -> `weight`;
 - Embed `embedding` -> `weight`;
 - `bias` -> `bias`;
-- a Conv `kernel` [p, p, C, E] (the patch projection) -> `weight`
-  [E, p*p*C], flattened in (kh, kw, C) order as core/embedding.py's
-  patchify reads it;
+- a Conv `kernel` [p, p, C, E] of a patch projection (`.../proj`) ->
+  `weight` [E, p*p*C], flattened in (kh, kw, C) order as
+  core/embedding.py's patchify reads it; any other Conv kernel (HWIO:
+  the CLIP tower's `conv1`, `DalleEncoder`'s and `DiscreteVAE`'s convs)
+  -> `weight` [O, I, kh, kw], the layout of `F.conv2d`;
 - params that keep their name: LayerScale `gamma`, `cls_token`,
   `mask_token`, `pos_embed`, `relative_position_bias_table`,
   `latent_query`, the CLIP tower's `class_embedding` and
@@ -23,6 +25,13 @@ axis, the scan_layers form). Leaves map as
   decoder's learned position table `embed_positions`;
 - a stacked `layers` subtree -> one module per layer (`layers.{i}`),
   `layers_{i}` -> `layers.{i}`.
+
+Multiway trees (BEiT-3, VLMo) map by the same rules: each expert pair's
+`A` / `B` subtrees and `ffn_A` / `ffn_B` are modules of those names in
+core/multiway.py and core/transformer.py. A second collection, the
+`ema` one of BEiT-2's quantizer (`quantize/embedding`,
+`quantize/cluster_size`), holds buffers: its leaves keep their names
+(`load_flax_params(model, params, ema=...)`).
 
 TrOCR's tree (`vit/...`, `text_decoder/...` with each layer's
 `encoder_attn` and `encoder_attn_layer_norm`, looped or stacked, and the
@@ -40,7 +49,7 @@ for bit.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -81,9 +90,13 @@ def _leaf(name: str, value: np.ndarray, quant: bool, conv: str) -> tuple:
     return table[name], value
 
 
-def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Flatten a flax param tree into the port's state_dict names."""
+def flax_to_state_dict(params: Mapping, ema: Optional[Mapping] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Flatten a flax param tree (and an `ema` collection of buffers,
+    whose leaves keep their names) into the port's state_dict names."""
     out: Dict[str, torch.Tensor] = {}
+    if ema is not None:
+        _buffers(ema, "", out)
 
     def walk(tree: Mapping, prefix: str, stacked: bool):
         for key, val in tree.items():
@@ -98,7 +111,7 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
             arr = np.asarray(val)
             conv = ""
             if key == "kernel" and arr.ndim - int(stacked) == 4:
-                conv = "oihw" if prefix.endswith("conv1.") else "flat"
+                conv = "flat" if prefix.endswith("proj.") else "oihw"
             name, arr = _leaf(key, arr, "kernel_i8" in tree, conv)
             path = f"{prefix}{name}"
             if stacked:
@@ -111,8 +124,18 @@ def flax_to_state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
     return out
 
 
-def load_flax_params(model: torch.nn.Module, params: Mapping) -> None:
-    """Copy a flax param tree into `model` (strict: every leaf of the tree
-    and every parameter of the model must be matched)."""
-    sd = flax_to_state_dict(params)
+def _buffers(tree: Mapping, prefix: str, out: Dict[str, torch.Tensor]):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            _buffers(val, f"{prefix}{key}.", out)
+        else:
+            out[f"{prefix}{key}"] = to_tensor(val)
+
+
+def load_flax_params(model: torch.nn.Module, params: Mapping,
+                     ema: Optional[Mapping] = None) -> None:
+    """Copy a flax param tree, and the `ema` collection where the model
+    has one, into `model` (strict: every leaf of the trees and every
+    parameter and persistent buffer of the model must be matched)."""
+    sd = flax_to_state_dict(params, ema)
     model.load_state_dict(sd, strict=True)

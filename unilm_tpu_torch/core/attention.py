@@ -16,9 +16,13 @@ query, k and v from `key` (whose width `kv_dim` may differ from the
 query's, as TrOCR's 768-wide encoder under a 1024-wide decoder), no
 inner_attn_ln (sub-LN skips cross-attention projections, :75-77). The
 cached cross-attention of generation is core/transformer.py's
-`ScanCrossAttention`, a subclass. The multiway projections (BEiT-3) and
-sequence-parallel ring attention (`cfg.seq_axis`, slice 9) raise
-NotImplementedError naming their ROADMAP entry.
+`ScanCrossAttention`, a subclass.
+
+Under `cfg.multiway` (BEiT-3, VLMo) q_proj, k_proj, v_proj, out_proj and
+the sub-LN inner_attn_ln are `MultiwayDense` / `MultiwayNorm` pairs
+(JAX :80-92, :239-256), and `forward_train` takes the modality `split`
+(core/multiway.py). Sequence-parallel ring attention (`cfg.seq_axis`,
+slice 9) raises NotImplementedError naming its ROADMAP entry.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from torch import nn
 from unilm_tpu_torch.core import positional
 from unilm_tpu_torch.core.config import TransformerConfig
 from unilm_tpu_torch.core.layers import make_dense, make_norm
+from unilm_tpu_torch.core.multiway import (MultiwayDense, MultiwayNorm,
+                                           Split)
 from unilm_tpu_torch.ops.attention import attention
 
 
@@ -66,59 +72,65 @@ class MultiheadAttention(nn.Module):
     def __init__(self, cfg: TransformerConfig, self_attention: bool = True,
                  kv_dim: Optional[int] = None, device=None):
         super().__init__()
-        if cfg.multiway:
-            raise NotImplementedError(
-                "multiway projections (BEiT-3) are not ported yet: ROADMAP "
-                "Queue 1 item 7 (BEiT-3)")
         self.cfg = cfg
         self.self_attention = self_attention
         H, D, E = cfg.num_heads, cfg.head_dim, cfg.embed_dim
         vo_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
         if not self_attention and cfg.subln:
             vo_scale = 1.0 / cfg.deepnorm_init_div
-        self.q_proj = make_dense(cfg, E, H * D, init_scale=2 ** -0.5,
-                                 device=device)
+        if cfg.multiway:
+            dense = lambda i, o, s: MultiwayDense(cfg, i, o, init_scale=s,
+                                                  device=device)
+        else:
+            dense = lambda i, o, s: make_dense(cfg, i, o, init_scale=s,
+                                               device=device)
+        self.q_proj = dense(E, H * D, 2 ** -0.5)
         kv_dim = E if kv_dim is None else kv_dim
-        self.k_proj = make_dense(cfg, kv_dim, H * D, init_scale=2 ** -0.5,
-                                 device=device)
-        self.v_proj = make_dense(cfg, kv_dim, H * D,
-                                 init_scale=2 ** -0.5 * vo_scale, device=device)
+        self.k_proj = dense(kv_dim, H * D, 2 ** -0.5)
+        self.v_proj = dense(kv_dim, H * D, 2 ** -0.5 * vo_scale)
         if cfg.subln and self_attention:
-            self.inner_attn_ln = make_norm(cfg, H * D, device=device)
-        self.out_proj = make_dense(cfg, H * D, E, init_scale=vo_scale,
-                                   device=device)
+            self.inner_attn_ln = (
+                MultiwayNorm(cfg, H * D, device=device) if cfg.multiway
+                else make_norm(cfg, H * D, device=device))
+        self.out_proj = dense(H * D, E, vo_scale)
 
     @property
     def scale(self) -> float:
         cfg = self.cfg
         return cfg.attn_scale if cfg.attn_scale is not None else cfg.head_dim ** -0.5
 
-    def project(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None):
+    def _mw(self, module: nn.Module, x: torch.Tensor, split: Split):
+        """`module` on x, with the modality split under cfg.multiway."""
+        return module(x, split) if self.cfg.multiway else module(x)
+
+    def project(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
+                split: Split = None):
         """q from x, k and v from kv (default x), as [B, T|S, H, D]."""
         kv = x if kv is None else kv
         B, T, S = x.shape[0], x.shape[1], kv.shape[1]
         H, D = self.cfg.num_heads, self.cfg.head_dim
-        return (self.q_proj(x).view(B, T, H, D),
-                self.k_proj(kv).view(B, S, H, D),
-                self.v_proj(kv).view(B, S, H, D))
+        return (self._mw(self.q_proj, x, split).view(B, T, H, D),
+                self._mw(self.k_proj, kv, split).view(B, S, H, D),
+                self._mw(self.v_proj, kv, split).view(B, S, H, D))
 
-    def output(self, out: torch.Tensor) -> torch.Tensor:
+    def output(self, out: torch.Tensor, split: Split = None) -> torch.Tensor:
         """[B, T, H, D] attention output -> inner_attn_ln -> out_proj."""
         B, T = out.shape[0], out.shape[1]
         out = out.reshape(B, T, -1)
         if hasattr(self, "inner_attn_ln"):
-            out = self.inner_attn_ln(out)
-        return self.out_proj(out)
+            out = self._mw(self.inner_attn_ln, out, split)
+        return self._mw(self.out_proj, out, split)
 
     def forward_train(self, x: torch.Tensor, key: Optional[torch.Tensor] = None,
                       *, causal: bool = False,
                       key_padding_mask: Optional[torch.Tensor] = None,
                       attn_bias: Optional[torch.Tensor] = None,
-                      xpos=None) -> torch.Tensor:
+                      xpos=None, split: Split = None) -> torch.Tensor:
         """Full-sequence attention (mode="train"): self-attention over x,
         or cross-attention of x over `key` for a cross-attention module.
         `xpos` are the `xpos_inputs(cfg, 0, T)` tables, shared by every
-        layer (self-attention only)."""
+        layer (self-attention only); `split` the multiway modality split
+        (core/multiway.py)."""
         cfg = self.cfg
         if self.self_attention == (key is not None):
             raise ValueError("a cross-attention module takes `key`; a "
@@ -127,7 +139,7 @@ class MultiheadAttention(nn.Module):
             raise NotImplementedError(
                 "sequence-parallel ring attention (cfg.seq_axis) is not "
                 "ported yet: ROADMAP Queue 1 slice 9")
-        q, k, v = self.project(x, key)
+        q, k, v = self.project(x, key, split)
         if xpos is not None:
             q, k = apply_xpos(q, k, xpos)
         out = attention(q, k, v, bias=attn_bias,
@@ -136,4 +148,4 @@ class MultiheadAttention(nn.Module):
                         window=cfg.window_size if self.self_attention else 0,
                         dropout_rate=cfg.attention_dropout,
                         use_flash=cfg.use_flash)
-        return self.output(out)
+        return self.output(out, split)

@@ -1,5 +1,6 @@
-"""Vision embedding front-end (port of unilm_tpu/core/embedding.py
-`PatchEmbed` :62 and `VisionEmbedding` :90).
+"""Embedding front-ends (port of unilm_tpu/core/embedding.py
+`TextEmbedding` :18, `PositionalEmbedding` :41, `PatchEmbed` :62 and
+`VisionEmbedding` :90).
 
 Images keep the JAX package's NHWC layout [B, H, W, C] at the public
 functions. The patchify is the product of each flattened p x p x C patch,
@@ -16,6 +17,46 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+class TextEmbedding(nn.Module):
+    """Token embedding: a float32 table (`embed.weight`, the flax
+    `embed/embedding`, initialised normal(embed_dim^-0.5)) looked up and
+    cast to `dtype`."""
+
+    def __init__(self, vocab_size: int, embed_dim: int, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.compute_dtype = dtype
+        self.embed = nn.Embedding(vocab_size, embed_dim, device=device)
+        self.embed.init_std = embed_dim ** -0.5
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return self.embed(ids).to(self.compute_dtype)
+
+
+class PositionalEmbedding(nn.Module):
+    """Learned positions: a float32 table `weight` [max_positions + offset,
+    embed_dim] (the flax `embedding`), read at positions + offset and cast
+    to `dtype`. `offset` is fairseq's padding_idx + 1 shift, so converted
+    checkpoints line up."""
+
+    def __init__(self, max_positions: int, embed_dim: int, offset: int = 0,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.offset = offset
+        self.compute_dtype = dtype
+        self.weight = nn.Parameter(torch.zeros(max_positions + offset,
+                                               embed_dim, device=device))
+
+    def forward(self, positions: torch.Tensor) -> torch.Tensor:
+        return self.weight[positions + self.offset].to(self.compute_dtype)
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """normal(embed_dim^-0.5), the flax initialiser."""
+        self.weight.normal_(0.0, self.weight.shape[1] ** -0.5,
+                            generator=generator)
 
 
 def patchify(images: torch.Tensor, p: int) -> torch.Tensor:

@@ -173,6 +173,17 @@ def make_dense(cfg: TransformerConfig, in_features: int, features: int, *,
                  device=device)
 
 
+def head_dense(in_features: int, features: int, dtype=torch.float32,
+               bias: bool = True, device=None) -> Dense:
+    """A flax nn.Dense head over float32 params computing in `dtype`
+    (float32 for a flax Dense left at dtype=None); `init_weights_` draws
+    it normal(fan_in^-0.5), flax's lecun-normal scale."""
+    d = Dense(in_features, features, bias=bias, dtype=dtype,
+              param_dtype=torch.float32, device=device)
+    d.init_std = in_features ** -0.5
+    return d
+
+
 class FeedForward(nn.Module):
     """fc1 -> act -> (ffn_layernorm if subln) -> fc2, or the gated variant
     (torchscale FeedForwardNetwork). Dropout is not applied: a config

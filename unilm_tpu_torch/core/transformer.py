@@ -11,9 +11,13 @@ mask, the optional final LayerNorm and `return_all_hiddens`. It keeps the
 input's dtype for the residual stream, as flax's promotion does (a float32
 input stays float32 around bf16 layers). Drop-path trains on keep flags
 drawn before the forward (`Encoder.draw_drop_path`); `cfg.remat` recomputes
-each layer in the backward. Dropout in training (slice 6's remainder),
-multiway (Queue 1 item 7, BEiT-3), MoE and T5 relative-position buckets
-(slices 9-10) raise.
+each layer in the backward. Under `cfg.multiway` (BEiT-3, VLMo; JAX
+:86-95, :123-140, :753-759) the layer norms, the attention's projections
+and the FFN (`ffn_A` / `ffn_B`) are A/B expert pairs and `forward` takes
+`multiway_split_mask` (core/multiway.py's `split`: None, a position or a
+bool mask); with None only the A experts compute and the B parameters
+carry no work, as in JAX. Dropout in training (slice 6's remainder), MoE
+and T5 relative-position buckets (slices 9-10) raise.
 
 One layer class serves every mode: `mode="train"` is the full-sequence
 forward of the looped and the scanned JAX stacks (the same math), with
@@ -77,6 +81,7 @@ from unilm_tpu_torch.core.attention import (
 from unilm_tpu_torch.core.config import TransformerConfig
 from unilm_tpu_torch.core.layers import (DropPath, FeedForward, LayerScale,
                                          make_norm)
+from unilm_tpu_torch.core.multiway import MultiwayNorm, apply_split
 from unilm_tpu_torch.ops.attention import attention
 from unilm_tpu_torch.ops.paged_attention import (quantize_kv_rows,
                                                  run_decode_append_attention)
@@ -303,7 +308,8 @@ class EncoderLayer(nn.Module):
     on the branch before the residual `residual * alpha + x`. The one
     DropPath runs on both branches, each call with its own keep flags
     (`drop_path_keep` [2, B]), as the JAX layer's one module draws a fresh
-    key per call."""
+    key per call. Under cfg.multiway the two norms are `MultiwayNorm`s and
+    the FFN is the pair `ffn_A` / `ffn_B`."""
 
     def __init__(self, cfg: TransformerConfig, drop_path: float = 0.0,
                  layer_scale_init: float = 0.0, alpha: float = 1.0,
@@ -311,11 +317,17 @@ class EncoderLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.alpha = alpha
-        self.self_attn_layer_norm = make_norm(cfg, device=device)
+        norm = ((lambda: MultiwayNorm(cfg, device=device)) if cfg.multiway
+                else (lambda: make_norm(cfg, device=device)))
+        self.self_attn_layer_norm = norm()
         self.self_attn = MultiheadAttention(cfg, device=device)
-        self.final_layer_norm = make_norm(cfg, device=device)
+        self.final_layer_norm = norm()
         ffn_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
-        self.ffn = FeedForward(cfg, init_scale=ffn_scale, device=device)
+        if cfg.multiway:
+            self.ffn_A = FeedForward(cfg, init_scale=ffn_scale, device=device)
+            self.ffn_B = FeedForward(cfg, init_scale=ffn_scale, device=device)
+        else:
+            self.ffn = FeedForward(cfg, init_scale=ffn_scale, device=device)
         if layer_scale_init > 0:
             self.gamma_1 = LayerScale(cfg.embed_dim, layer_scale_init,
                                       device=device)
@@ -334,25 +346,34 @@ class EncoderLayer(nn.Module):
         return residual * self.alpha + self.drop_path(x, keep)
 
     def forward(self, x, key_padding_mask=None, attn_bias=None,
-                drop_path_keep=None):
+                drop_path_keep=None, split=None):
+        """`split`: the multiway modality split (core/multiway.py), read
+        only under cfg.multiway."""
         pre = self.cfg.normalize_before
         keep = ((None, None) if drop_path_keep is None
                 else (drop_path_keep[0], drop_path_keep[1]))
+        if self.cfg.multiway:
+            norm1 = lambda y: self.self_attn_layer_norm(y, split)
+            norm2 = lambda y: self.final_layer_norm(y, split)
+            ffn = lambda y: apply_split(self.ffn_A, self.ffn_B, y, split)
+        else:
+            norm1, norm2 = self.self_attn_layer_norm, self.final_layer_norm
+            ffn = self.ffn
         residual = x
         if pre:
-            x = self.self_attn_layer_norm(x)
+            x = norm1(x)
         x = self.self_attn.forward_train(x, key_padding_mask=key_padding_mask,
-                                         attn_bias=attn_bias)
+                                         attn_bias=attn_bias, split=split)
         x = self._branch(residual, x, getattr(self, "gamma_1", None), keep[0])
         if not pre:
-            x = self.self_attn_layer_norm(x)
+            x = norm1(x)
         residual = x
         if pre:
-            x = self.final_layer_norm(x)
-        x = self._branch(residual, self.ffn(x), getattr(self, "gamma_2", None),
+            x = norm2(x)
+        x = self._branch(residual, ffn(x), getattr(self, "gamma_2", None),
                          keep[1])
         if not pre:
-            x = self.final_layer_norm(x)
+            x = norm2(x)
         return x
 
 
@@ -368,10 +389,6 @@ class Encoder(nn.Module):
     def __init__(self, cfg: TransformerConfig, final_layer_norm: bool = True,
                  layer_scale_init: float = 0.0, device=None):
         super().__init__()
-        if cfg.multiway:
-            raise NotImplementedError(
-                "multiway encoder layers (BEiT-3) are not ported yet: "
-                "ROADMAP Queue 1 item 7 (BEiT-3)")
         if cfg.moe_freq or cfg.rel_pos_buckets:
             raise NotImplementedError(
                 "MoE / T5 relative-bias encoders are not ported yet: ROADMAP "
@@ -388,7 +405,11 @@ class Encoder(nn.Module):
             [EncoderLayer(cfg, rate, layer_scale_init, alpha, device=device)
              for rate in self.drop_path_rates])
         if cfg.normalize_before and final_layer_norm:
-            self.layer_norm = make_norm(cfg, device=device)
+            # JAX's final multiway norm is a LayerNorm whatever norm_type
+            self.layer_norm = (
+                MultiwayNorm(cfg.replace(norm_type="layernorm"),
+                             device=device) if cfg.multiway else
+                               make_norm(cfg, device=device))
 
     def draw_drop_path(self, batch: int, generator: torch.Generator
                        ) -> Optional[torch.Tensor]:
@@ -405,11 +426,14 @@ class Encoder(nn.Module):
     def forward(self, x: torch.Tensor, *,
                 key_padding_mask: Optional[torch.Tensor] = None,
                 attn_bias=None, return_all_hiddens: bool = False,
-                drop_path_keep: Optional[torch.Tensor] = None):
+                drop_path_keep: Optional[torch.Tensor] = None,
+                multiway_split_mask=None):
         """`attn_bias`: None, one [B|1, H|1, T, T] tensor for every layer,
         or a per-layer sequence. `drop_path_keep`: `draw_drop_path`'s
-        flags, needed in training when a layer drops. Returns x, or (x,
-        per-layer outputs) with return_all_hiddens."""
+        flags, needed in training when a layer drops.
+        `multiway_split_mask`: the modality split of a multiway stack (a
+        position, or a bool [T] / [B, T] mask, True = B). Returns x, or
+        (x, per-layer outputs) with return_all_hiddens."""
         cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
         if remat and cfg.remat_policy != "full":
@@ -424,13 +448,15 @@ class Encoder(nn.Module):
             keep_i = None if drop_path_keep is None else drop_path_keep[i]
             if remat:
                 x = checkpoint(layer, x, key_padding_mask, bias_i, keep_i,
-                               use_reentrant=False)
+                               multiway_split_mask, use_reentrant=False)
             else:
-                x = layer(x, key_padding_mask, bias_i, keep_i)
+                x = layer(x, key_padding_mask, bias_i, keep_i,
+                          multiway_split_mask)
             if return_all_hiddens:
                 hiddens.append(x)
         if hasattr(self, "layer_norm"):
-            x = self.layer_norm(x)
+            x = (self.layer_norm(x, multiway_split_mask) if cfg.multiway
+                 else self.layer_norm(x))
         if return_all_hiddens:
             return x, hiddens
         return x

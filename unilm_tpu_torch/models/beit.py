@@ -183,7 +183,7 @@ class BeitBackbone(nn.Module):
 
 
 @torch.no_grad()
-def _init_beit(model: nn.Module, cfg: BeitConfig,
+def init_beit(model: nn.Module, cfg: BeitConfig,
                generator: torch.Generator) -> None:
     """Random weights at the JAX initialisers' scales from `generator`
     (on the parameters' device): projections xavier-uniform, the patch
@@ -238,8 +238,8 @@ class BeitForImageClassification(nn.Module):
 
     def init_weights(self, generator: torch.Generator
                      ) -> "BeitForImageClassification":
-        """Random weights (`_init_beit`); the head normal(0.02)."""
-        _init_beit(self, self.cfg, generator)
+        """Random weights (`init_beit`); the head normal(0.02)."""
+        init_beit(self, self.cfg, generator)
         return self
 
 
@@ -269,8 +269,8 @@ class BeitForMaskedImageModeling(nn.Module):
 
     def init_weights(self, generator: torch.Generator
                      ) -> "BeitForMaskedImageModeling":
-        """Random weights (`_init_beit`)."""
-        _init_beit(self, self.cfg, generator)
+        """Random weights (`init_beit`)."""
+        init_beit(self, self.cfg, generator)
         return self
 
 
