@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py          # from the repository root
 
-Phases, one line each:
+Phases, one line each; every line printed starts with its phase and the
+seconds since the script started ("[flash 35s] ..."):
  1. device: requires CUDA; prints the card's name and power limit
     (nvidia-smi); turns TF32 off for matmul and cuDNN.
  2. build: compiles the hand-written kernels from unilm_tpu_torch/csrc/,
@@ -20,11 +21,13 @@ Phases, one line each:
     bias/window cases that hit each class of key tile (skipped, interior,
     boundary: the diagonal, a window edge and kv_len mid-tile), T < 64, D
     in {64, 96, 128}, ragged T and S, fully masked rows (out 0, lse 0), the
-    Kosmos-2.5 prefill shape 1x2052x16x96 and YOCO's long self-layer
-    prefill 1x4096 over 4128 keys, 16x64, causal, window 1024, kv_len 4096;
-    then device time and TFLOP/s at the slice's prefill, the tower
-    (1x4096x24x64, key-padding mask, scale 1.0) and the train shape
-    (2x2048x32x64 causal+kpm), beside the plain twin, sdpa and the bound;
+    Kosmos-2.5 prefill shape 1x2052x16x96, YOCO's long self-layer
+    prefill 1x4096 over 4128 keys, 16x64, causal, window 1024, kv_len 4096,
+    and GAD's verify (search) 1x17x16x96 over the 2560-slot pool, causal,
+    q_offset = start, kv_len = start + 17, at two starts; then device
+    time and TFLOP/s at the slice's prefill, the tower (1x4096x24x64,
+    key-padding mask, scale 1.0), the train shape (2x2048x32x64
+    causal+kpm) and the verify, beside the plain twin, sdpa and the bound;
     the train shape run twice, bit-equal.
     onepass (right after flash): the one-pass short-sequence forward (#5)
     against flash_forward_onepass_plain at #1's tolerances (bf16; fp32 at
@@ -266,6 +269,31 @@ Phases, one line each:
     cache, 32 tokens: 24 launches of #1 per forward (the self layers with
     the window) and none of #5; TTFT, decode ms/token, the plain path
     teacher-forced.
+    search (after trocr_int8): aggressive decoding on the Kosmos-2.5
+    decoder at full width (bf16, the slice's 2052-token prompt, block 16,
+    64 tokens) with two drafts, greedy's tokens with every 5th corrupted
+    and one always wrong: every verify call's logits against the plain
+    twin teacher-forced (LOGIT_ATOL, ARGMAX_AGREE), exactly 24 launches of
+    #1 (or #5) a verify and none of #13; model calls, tokens a verify, ms
+    a token beside greedy's. Constrained beam 5 with two ordered phrases a
+    line on Kosmos-2.5 (B=1: 24 #1 in the prefill, 24 #13 a step) and on
+    TrOCR-Base through cli/trocr_infer's pipeline (B=32: 12 #5 + 12 #3 in
+    the prefill, 12 #3 + 12 #13 a step): every hypothesis with `met`
+    holds its phrases in order, the best teacher-forced on the kernel and
+    the plain path within BEAM_SCORE_ATOL of its score, ms a step beside
+    plain beam search's.
+    train_options (after layoutlmv3_train; its UniGPT part inside train,
+    after train_schedules), each run 3 timed steps and a profiled one:
+    BEiT-B (B=256) without remat, under remat "dots" (24 #3 + 12 #4 a
+    step: the recompute relaunches #3) and with attention_dropout 0.1
+    (the plain attention: no #3/#4); LayoutLMv3-B FUNSD (B=32) at dropout
+    0.1 (12 + 12 #9/#10);
+    the 1.3B UniGPT: microbatch 0 under "dots" against "full" at the
+    teacher's bounds, steps without remat (96 #1/#6/#7 a step)
+    and under "full" and "dots" (192 #1, 96 #6/#7), its four microbatches
+    at dropout 0.1 twice from one seed bit-equal and once from another
+    different (96 #1/#6/#7 each); ms/step (host clock), the device time
+    of a step and peak memory each.
  6. int8_matmul: the int8 weight-only matmul kernel (#14) against its
     plain version, bf16 x, M in {1, 8, 64, 200} x the decoder's three
     projection shapes (K x N 1536 x 1536, 1536 x 6144, 6144 x 1536), each
@@ -354,7 +382,8 @@ Phases, one line each:
     optimizer), and a teacher check of one microbatch under both
     schedules against the default kernels at the train phase's bounds.
 Then a JSON line of the two int8 paths', the TrOCR paths', the
-Kosmos-2 paths' and the BEiT family's measurements ("paths"), and one
+Kosmos-2 paths', the BEiT family's, search's and train_options'
+measurements ("paths"), and one
 with each kernel's launches, summed over its main-path phases and listed
 by phase in `launches_by_path` (counters set to 0 just before each: slice,
 decode_int8_bs1 and kosmos_infer for flash_fwd, slice for decode,
@@ -370,7 +399,11 @@ flash_bwd_dq and flash_bwd_dkv, beit3 for encoder_attention and
 doc_attention, beit2 for encoder_attention and encoder_attention_bwd, the
 engines for the block-table kernel, train for flash_bwd_dq
 and flash_bwd_dkv, train_schedules for flash_tri and flash_bwd_fused,
-page_pool for paged_attention, fused for swiglu and rotary),
+page_pool for paged_attention, fused for swiglu and rotary, search for
+flash_fwd, encoder_attention, onepass_attention and decode_attention,
+train_options for flash_fwd, flash_bwd_dq, flash_bwd_dkv,
+encoder_attention, encoder_attention_bwd, doc_attention and
+doc_attention_bwd),
 error, the TrOCR shapes under "trocr" (encoder_attention,
 decode_attention, int8_matmul), the Kosmos-2 shapes under "kosmos2"
 (encoder_attention, encoder_attention_bwd, onepass_attention,
@@ -554,11 +587,13 @@ def counts() -> dict:
 
 
 LAST_PHASE = [""]  # the phase that printed last, for PROFILER_LOST
+T0 = time.time()
 
 
 def phase(name: str, msg: str) -> None:
+    """One line: the phase, the seconds since the script started, msg."""
     LAST_PHASE[0] = name
-    print(f"[{name}] {msg}", flush=True)
+    print(f"[{name} {time.time() - T0:.0f}s] {msg}", flush=True)
 
 
 def check(ok: bool, msg: str) -> None:
@@ -584,6 +619,7 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 PROFILER_MISSES = []
 PROFILER_LOST = []  # "phase/kernels: records lost of records expected"
+FLUSH_KERNELS = []  # the kernel names of cold_ms's flush, once seen
 
 
 def device_ms(fn, iters: int = 20, only: str = None,
@@ -667,8 +703,10 @@ def cold_ms(fn, only: str = None, iters: int = 20) -> float:
     from torch.profiler import ProfilerActivity, profile
 
     flush = torch.ones(16 << 20, dtype=torch.int32, device="cuda")
-    skip = ()
-    for _ in range(0 if only else 3):  # leave out the flush's kernels
+    # leave out the flush's kernels: their names, from the first trace of
+    # the flush that kept its records (CUPTI may lose every record of a
+    # short trace, so the names are kept for the later calls)
+    for _ in range(0 if only or FLUSH_KERNELS else 3):
         flush.sum()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -676,9 +714,10 @@ def cold_ms(fn, only: str = None, iters: int = 20) -> float:
             for _ in range(4):
                 flush.sum()
             torch.cuda.synchronize()
-        skip = tuple(device_kernel_times(prof))
-        if skip:
+        FLUSH_KERNELS.extend(device_kernel_times(prof))
+        if FLUSH_KERNELS:
             break
+    skip = tuple(FLUSH_KERNELS)
     check(bool(only or skip), "cold_ms: three traces of the flush showed "
           "no kernel")
     return device_ms(lambda: (flush.sum(), fn()), iters, only,
@@ -794,8 +833,12 @@ def phase_flash(fa, g) -> dict:
     slice's prefill, the tower, the train step's attention), device time
     beside the plain twin, sdpa and the bound, with TFLOP/s; the train
     shape twice, bit-equal."""
+    from unilm_tpu_torch.core.transformer import _scan_pool_geometry
+
     dev = "cuda"
     bf = torch.bfloat16
+    page, _, pp = _scan_pool_geometry(PROMPT + GAD_NEW)
+    gad_pool = page * pp  # the search phase's pool: keys a layer holds
 
     def rn(*shape):
         return torch.randn(*shape, generator=g, device=dev).to(bf)
@@ -834,6 +877,11 @@ def phase_flash(fa, g) -> dict:
         # budget, so #1 with the window over a 4128-slot cache
         (1, YOCO_LONG_PROMPT, YOCO_LONG_CACHE, 16, 64, True, 0,
          YOCO_LONG_PROMPT, 1024, None, None, True),
+        # GAD's verify (search): [last, 16 drafted] at the accepted length
+        # over a layer's whole pool, kv_len hiding the stale rows past it
+        *[(1, GAD_BLOCK + 1, gad_pool, 16, 96, True, start,
+           start + GAD_BLOCK + 1, 0, None, None, True)
+          for start in (PROMPT, PROMPT + GAD_NEW - GAD_BLOCK - 1)],
     ]
     worst = 0.0
     for B, T, S, H, D, causal, qoff, kvl, window, kpm, bias, scaled in cases:
@@ -946,6 +994,37 @@ def phase_flash(fa, g) -> dict:
                   "shape differ")
             phase("flash", f"train {desc}: two runs bit-equal")
         del q, k, v, mask, out, lse
+
+    # GAD's verify (search): the last block's 17 rows at their offset
+    # over the pool, kv_len = start + 17; sdpa takes the same boolean mask
+    T = GAD_BLOCK + 1
+    start = PROMPT + GAD_NEW - T
+    kvl = start + T
+    q = rn(1, T, 16, 96) * 96 ** -0.5
+    k, v = rn(1, gad_pool, 16, 96), rn(1, gad_pool, 16, 96)
+    fwd = lambda: fa.flash_forward(q, k, v, None, None, start, kvl,
+                                   causal=True)
+    ms = device_ms(fwd, only="flash_fwd_sm90")
+    plain_ms = device_ms(lambda: fa.flash_forward_plain(
+        q, k, v, None, None, start, kvl, causal=True), iters=3)
+    kpos = torch.arange(gad_pool, device=dev)
+    qpos = start + torch.arange(T, device=dev)
+    vis = (kpos[None] <= qpos[:, None]) & (kpos[None] < kvl)
+    lib_ms = device_ms(lambda: sdpa(q, k, v, attn_mask=vis[None, None],
+                                    scale=1.0))
+    pairs = 16 * float(vis.sum())
+    out, lse = fwd()
+    # the bytes a verify needs: q, the kv_len rows of K and V, out, lse
+    bd = roofline(nbytes(q, out, lse) + 2 * kvl * 16 * 96 * 2,
+                  4 * pairs * 96)
+    timed["gad_verify"] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                               tflops=4 * pairs * 96 / ms / 1e9, **bd)
+    phase("flash", f"gad_verify 1x{T}x16x96 causal q_offset {start} kv_len "
+          f"{kvl} over {gad_pool} keys bf16, device time: kernel {ms:.4f} ms,"
+          f" plain twin {plain_ms:.4f} ms, sdpa (bool mask) {lib_ms:.4f} ms, "
+          f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}); kernel / sdpa "
+          f"{ms / lib_ms:.2f}")
+    del q, k, v, out, lse
     sl = timed["slice"]
     return {"name": "flash_fwd", "route": "cuda",
             "source": "unilm_tpu_torch/csrc/flash_fwd.cu",
@@ -955,7 +1034,7 @@ def phase_flash(fa, g) -> dict:
             "bound_by": sl["bound_by"], "tflops": sl["tflops"],
             "shape": f"1x{PROMPT}x16x96 causal bf16",
             **{f"{key}_{name}": timed[key][name]
-               for key in ("tower", "train")
+               for key in ("tower", "train", "gad_verify")
                for name in ("ms", "plain_ms", "library_ms", "bound_ms",
                             "tflops")}}
 
@@ -6969,10 +7048,12 @@ def phase_train_schedules(fa, tr, batch, args, flops: float) -> dict:
     return launches
 
 
-def phase_train(fa, layers: int = 24) -> dict:
+def phase_train(fa, layers: int = 24) -> tuple:
     """The 1.3B UniGPT train step at full width through the CLI's
-    build_trainer, its profile, the kernel-vs-plain teacher check and the
-    small-size CLI resume."""
+    build_trainer, its profile, train_schedules and train_options on its
+    trainer, the kernel-vs-plain teacher check and the small-size CLI
+    resume. Returns (the train path's launches, (train_options' launches,
+    its numbers))."""
     import shutil
 
     from unilm_tpu_torch.cli import train_gpt
@@ -7084,6 +7165,7 @@ def phase_train(fa, layers: int = 24) -> dict:
                   for k, v in step_parts.items()))
     del grads
     launches.update(phase_train_schedules(fa, tr, batch, args, flops))
+    options = phase_train_options(tr, batch, args)
     tr.state.opt_state = None  # the teacher check needs the memory
     torch.cuda.empty_cache()
 
@@ -7167,7 +7249,651 @@ def phase_train(fa, layers: int = 24) -> dict:
           f"and 2 + resume + 2 end bit-equal (params, optimizer, loss "
           f"{ma['loss']:.6f}); launches {ran}")
     shutil.rmtree(WORK, ignore_errors=True)
-    return launches
+    return launches, options
+
+
+# ---- search: lexically constrained beam search and aggressive decoding
+# (runtime/generate.py) at full width. GAD on the Kosmos-2.5 decoder
+# (bf16, the slice's 2052-token multimodal prompt): each verify feeds
+# [last, draft...] (T = 17) to decode_step, the generic T > 1 path over
+# the pool with q_offset = start, kv_len = start + 17; its attention is
+# #1 (onepass_applies refuses S = 2560), none of #13 runs. Constrained
+# beam 5 on TrOCR-Base (B=32) and on Kosmos-2.5 (B=1), two ordered
+# phrases per line.
+GAD_BLOCK, GAD_NEW = 16, 64
+SEARCH_BEAM, SEARCH_NEW = 5, 32
+SEARCH_TROCR_BATCH = 32
+
+
+def holds_in_order(seq: list, phrases: list, eos: int) -> bool:
+    """Every phrase occurs contiguously in seq (up to its eos), each after
+    the previous one."""
+    if eos in seq:
+        seq = seq[:seq.index(eos)]
+    pos = 0
+    for ph in phrases:
+        at = next((i for i in range(pos, len(seq) - len(ph) + 1)
+                   if seq[i:i + len(ph)] == ph), None)
+        if at is None:
+            return False
+        pos = at + len(ph)
+    return True
+
+
+def search_phrases(rng: np.random.RandomState, B: int, vocab: int) -> list:
+    """Two ordered phrases per line (2 tokens, then 1), ids 4..vocab-1."""
+    return [[rng.randint(4, vocab, size=2).tolist(),
+             rng.randint(4, vocab, size=1).tolist()] for _ in range(B)]
+
+
+def forced_scores(pf, st, prompt, aux, best, gcfg) -> torch.Tensor:
+    """Each line's best hypothesis best [B, total] teacher-forced through
+    (pf, st): the sum of its generated tokens' log-probs (to its eos) over
+    the length penalty, as the search scores it. [B] float."""
+    P, total = prompt.shape[1], best.shape[1]
+    gen = best[:, P:]
+    is_eos = gen == gcfg.eos
+    first = torch.where(is_eos.any(1), is_eos.float().argmax(1),
+                        torch.full_like(is_eos[:, 0], total - P,
+                                        dtype=torch.long))
+    n_gen = torch.clamp(first + 1, max=total - P)
+    sums = torch.zeros(best.shape[0], device=best.device)
+    with torch.no_grad():
+        lg, c = pf(prompt, aux)
+        for j in range(total - P):
+            lp = torch.log_softmax(lg[:, -1].float() / gcfg.temperature, -1)
+            tok_lp = lp.gather(1, gen[:, j:j + 1])[:, 0]
+            sums += torch.where(j < n_gen, tok_lp, 0.0)
+            if j + 1 < total - P:
+                lg, c = st(gen[:, j:j + 1], c, None)
+    return sums / n_gen.float().clamp(min=1.0) ** gcfg.len_penalty
+
+
+def constrained_case(name, gen_mod, gcfg, pf, st, plain_fns, prompt, aux,
+                     phrases, want_prefill, want_step):
+    """One constrained search with its gates: launches (the prefill's
+    `want_prefill`, each step's `want_step`), every met hypothesis holding
+    its phrases in order, the best teacher-forced through the kernel and
+    the plain path within BEAM_SCORE_ATOL of its score; then ms a step
+    beside plain (unconstrained) beam search on the same inputs."""
+    B = prompt.shape[0]
+    seen = {"steps": 0}
+
+    def cpf(tok, a):
+        out = pf(tok, a)
+        seen["prefill"] = counts()
+        return out
+
+    def cst(tok, c, a):
+        seen["steps"] += 1
+        return st(tok, c, a)
+
+    cons = gen_mod.pack_constraints(phrases, pad=gcfg.pad,
+                                    device=prompt.device)
+    reset_counts()
+    toks, scores, met = gen_mod.constrained_beam_generate(
+        gcfg, cpf, cst, prompt, *cons, aux=aux)
+    torch.cuda.synchronize()
+    got, pre, S = counts(), seen["prefill"], seen["steps"]
+    want = {k: want_prefill.get(k, 0) + S * want_step.get(k, 0)
+            for k in set(want_prefill) | set(want_step)}
+    check(S == gcfg.max_new_tokens - 1
+          and all(pre[k] == v for k, v in want_prefill.items())
+          and sum(pre.values()) == sum(want_prefill.values())
+          and all(got[k] == v for k, v in want.items())
+          and sum(got.values()) == sum(want.values()),
+          f"search {name}: launches {got}, prefill {pre}, {S} steps (want "
+          f"{want_prefill} + {want_step} a step)")
+    P = prompt.shape[1]
+    n_met, bad = 0, []
+    for b in range(B):
+        for k in range(gcfg.beam_size):
+            if bool(met[b, k]):
+                n_met += 1
+                if not holds_in_order(toks[b, k, P:].tolist(), phrases[b],
+                                      gcfg.eos):
+                    bad.append((b, k))
+    check(not bad and bool(met[:, 0].all()) and bool(torch.isfinite(
+        scores[:, 0]).all()), f"search {name}: met hypotheses without "
+          f"their phrases {bad[:5]}, best met {met[:, 0].tolist()}")
+    c1 = counts()
+    s_kernel = forced_scores(pf, st, prompt, aux, toks[:, 0], gcfg)
+    c2 = counts()
+    s_plain = forced_scores(*plain_fns, prompt, aux, toks[:, 0], gcfg)
+    check(counts() == c2 and c2 != c1, f"search {name}: the plain path "
+          "launched a kernel, or the kernel path none")
+    err_k = float((s_kernel - scores[:, 0]).abs().max())
+    err_p = float((s_plain - scores[:, 0]).abs().max())
+    check(err_k <= BEAM_SCORE_ATOL and err_p <= BEAM_SCORE_ATOL,
+          f"search {name}: teacher-forced best scores off by {err_k} "
+          f"(kernel) / {err_p} (plain)")
+
+    def timed(fn):
+        walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            walls.append((time.time() - t0) * 1e3 / (S + 1))
+        return min(walls)
+
+    con_ms = timed(lambda: gen_mod.constrained_beam_generate(
+        gcfg, pf, st, prompt, *cons, aux=aux))
+    gen_mod.beam_generate(gcfg, pf, st, prompt, aux=aux)
+    beam_ms = timed(lambda: gen_mod.beam_generate(gcfg, pf, st, prompt,
+                                                  aux=aux))
+    phase("search", f"{name}: constrained beam {gcfg.beam_size}, B={B}, "
+          f"two ordered phrases a line, {S} steps; launches {dict((k, v) for k, v in got.items() if v)} "
+          f"(prefill {dict((k, v) for k, v in pre.items() if v)}, then "
+          f"{want_step} a step); {n_met} of {B * gcfg.beam_size} hypotheses "
+          f"met, each holding its phrases in order; best score "
+          f"teacher-forced max|err| kernel {err_k:.4f}, plain {err_p:.4f} "
+          f"(tol {BEAM_SCORE_ATOL}); {con_ms:.2f} ms a step (host clock, "
+          f"prefill shared out) beside {beam_ms:.2f} for plain beam search")
+    return got, {"ms_per_step_host": con_ms, "beam_ms_per_step_host": beam_ms,
+                 "hypotheses_met": n_met, "score_err_kernel": err_k,
+                 "score_err_plain": err_p}
+
+
+def gad_run(gen_mod, gcfg, pf, st, prompt, aux, draft_fn, record: bool):
+    """aggressive_generate with the verify calls' inputs, starts, logits
+    and launch counts recorded (record=True), else timed. Returns (tokens,
+    calls, the record, wall s, prefill s)."""
+    rec = {"calls": [], "prefill_s": 0.0}
+
+    def rpf(tok, a):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = pf(tok, a)
+        torch.cuda.synchronize()
+        rec["prefill_s"] = time.time() - t0
+        return out
+
+    def rst(tok, c, a):
+        c0 = counts()
+        start = c["step_counter"]["pos"]
+        out = st(tok, c, a)
+        ran = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+        rec["calls"].append((tok.clone(), start, out[0][0].float(), ran))
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    toks, calls = gen_mod.aggressive_generate(
+        gcfg, rpf, rst if record else st, prompt, draft_fn, aux=aux,
+        block_size=GAD_BLOCK)
+    torch.cuda.synchronize()
+    return toks, calls, rec, time.time() - t0, rec["prefill_s"]
+
+
+def phase_search(fa) -> tuple:
+    """The search phase (see GAD_BLOCK's comment): GAD against greedy at
+    full width with two drafts, each verify call's logits held against the
+    plain twin teacher-forced (LOGIT_ATOL, ARGMAX_AGREE) and its launches
+    exact (24 of #1, none of #13); constrained beam on Kosmos-2.5 (24 #1
+    in the prefill, 24 #13 a step) and TrOCR-Base (12 #5 + 12 #3 in the
+    prefill, 12 #3 + 12 #13 a step). Returns (launches, numbers)."""
+    from unilm_tpu_torch.core.transformer import _scan_pool_geometry
+    from unilm_tpu_torch.models.kosmos import (
+        UniGPT, kosmos2_5, make_unigpt_generate_fns)
+    from unilm_tpu_torch.models.trocr import make_generate_fns
+    from unilm_tpu_torch.runtime import generate as gen_mod
+
+    t_phase = time.time()
+    dev = "cuda"
+    cfg = kosmos2_5(dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                    image_tower=None, scan_layers=True)
+    L, V = cfg.num_layers, cfg.vocab_size
+    model = UniGPT(cfg, device=dev).eval()
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+    plain = UniGPT(dataclasses.replace(cfg, use_flash=False), device=dev)
+    plain.load_state_dict(model.state_dict(), assign=True)
+    plain.eval()
+    cache_size = PROMPT + GAD_NEW
+    page, _, pp = _scan_pool_geometry(cache_size)
+    pf, st = make_unigpt_generate_fns(model, cache_size)
+    ppf, pst = make_unigpt_generate_fns(plain, cache_size)
+    rng = np.random.RandomState(SEED + 5)
+    prompt, aux = make_request(rng, 1, V, cfg.embed_dim, dev)
+    launches, numbers = {}, {}
+
+    # ---- greedy: the reference stream and its ms a token ---------------
+    gcfg = gen_mod.GenerationConfig(beam_size=1, max_new_tokens=GAD_NEW,
+                                    min_new_tokens=GAD_NEW, vocab_size=V)
+    greedy, _ = gen_mod.greedy_generate(gcfg, pf, st, prompt, aux)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    pf(prompt, aux)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    greedy2, _ = gen_mod.greedy_generate(gcfg, pf, st, prompt, aux)
+    torch.cuda.synchronize()
+    greedy_ms = ((time.time() - t1) - (t1 - t0)) * 1e3 / GAD_NEW
+    check(torch.equal(greedy, greedy2), "search: two greedy runs differ")
+    ref = greedy[0].tolist()
+
+    def corrupted(accepted, need):
+        s = len(accepted)
+        return np.asarray([(t + 1) % V if (s + i) % 5 == 0 else t
+                           for i, t in enumerate(ref[s:s + need])])
+
+    def wrong(accepted, need):
+        s = len(accepted)
+        return np.asarray([(t + 1) % V for t in ref[s:s + need]])
+
+    P = PROMPT
+    for dname, draft in (("corrupted", corrupted), ("wrong", wrong)):
+        reset_counts()
+        toks, calls, rec, _, _ = gad_run(gen_mod, gcfg, pf, st, prompt, aux,
+                                         draft, record=True)
+        got = counts()
+        verifies = rec["calls"]
+        per_call = [r[3] for r in verifies]
+        check(calls == len(verifies) + 1
+              and all(r.get("flash_fwd", 0) + r.get("onepass_attention", 0)
+                      == L and sum(r.values()) == L for r in per_call)
+              and got["decode_attention"] == 0
+              and got["flash_fwd"] + got["onepass_attention"] == L * calls,
+              f"search gad {dname}: {calls} calls, launches {got}, per "
+              f"verify {per_call[:3]} (want {L} of #1 or #5, none of #13)")
+        for k, v in got.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+        # every verify call's logits against the plain twin, teacher-forced
+        c0 = counts()
+        with torch.no_grad():
+            _, pc = ppf(prompt, aux)
+            errs, agree = [], []
+            for x, start, klg, _ in verifies:
+                pc = gen_mod._rewind_cache(pc, start)
+                plg, pc = pst(x, pc, None)
+                plg = plg[0].float()
+                errs.append(float((klg - plg).abs().max()))
+                agree.append((klg.argmax(-1) == plg.argmax(-1)).float())
+        torch.cuda.synchronize()
+        check(counts() == c0, f"search gad {dname}: the plain path launched "
+              "a kernel")
+        agree = float(torch.cat(agree).mean())
+        check(all(np.isfinite(errs)) and max(errs) <= LOGIT_ATOL
+              and agree >= ARGMAX_AGREE,
+              f"search gad {dname}: verify logits max|err| {max(errs)}, "
+              f"argmax agreement {agree}")
+        n_new = int((toks[0, P:] != gcfg.pad).sum())
+        same = int((toks[0, P:] == greedy[0, P:]).sum())
+        _, calls2, _, wall, pre = gad_run(gen_mod, gcfg, pf, st, prompt, aux,
+                                          draft, record=False)
+        gad_ms = (wall - pre) * 1e3 / GAD_NEW
+        per_call_acc = (n_new - 1) / max(calls - 1, 1)
+        phase("search", f"GAD {dname} draft (block {GAD_BLOCK}, "
+              f"{GAD_NEW} tokens, Kosmos-2.5 bf16, {P}-token prompt, pool "
+              f"{pp * page} slots a layer): {calls} model calls (1 prefill + "
+              f"{calls - 1} verifies of T <= {GAD_BLOCK + 1}), "
+              f"{per_call_acc:.2f} tokens a verify; {same} of {GAD_NEW} "
+              f"tokens equal greedy's; launches a verify: {per_call[0]} "
+              f"(#1: onepass_applies refuses S {pp * page}), #13 "
+              f"{got['decode_attention']}; verify logits vs the plain twin "
+              f"max|err| {max(errs):.4f} (tol {LOGIT_ATOL}), argmax "
+              f"agreement {agree:.4f}; {gad_ms:.2f} ms a token (host clock, "
+              f"prefill {pre * 1e3:.1f} ms left out; {calls2} calls) beside "
+              f"greedy's {greedy_ms:.2f}")
+        numbers[f"gad_{dname}"] = {
+            "model_calls": calls, "tokens_per_verify": per_call_acc,
+            "equal_to_greedy": same, "ms_per_token_host": gad_ms,
+            "greedy_ms_per_token_host": greedy_ms,
+            "verify_logits_max_abs_err": max(errs),
+            "verify_argmax_agreement": agree}
+        del rec, verifies
+        torch.cuda.empty_cache()
+
+    # ---- constrained beam on Kosmos-2.5, B=1 ----------------------------
+    ccfg = gen_mod.GenerationConfig(beam_size=SEARCH_BEAM,
+                                    max_new_tokens=SEARCH_NEW,
+                                    min_new_tokens=SEARCH_NEW, vocab_size=V)
+    got, nums = constrained_case(
+        "kosmos2_5", gen_mod, ccfg, *make_unigpt_generate_fns(
+            model, PROMPT + SEARCH_NEW),
+        make_unigpt_generate_fns(plain, PROMPT + SEARCH_NEW), prompt, aux,
+        search_phrases(rng, 1, V), {"flash_fwd": L},
+        {"decode_attention": L})
+    for k, v in got.items():
+        if v:
+            launches[k] = launches.get(k, 0) + v
+    numbers["constrained_kosmos2_5"] = nums
+    del model, plain, pf, st, ppf, pst, prompt, aux
+    torch.cuda.empty_cache()
+
+    # ---- constrained beam on TrOCR-Base, B=32 ---------------------------
+    pipe = trocr_pipeline(False)
+    tmodel, tcfg = pipe.model, pipe.model.cfg
+    TL, B = tcfg.dec_layers, SEARCH_TROCR_BATCH
+    imgs = torch.randn(B, tcfg.img_size, tcfg.img_size, 3, generator=torch.
+                       Generator(device=dev).manual_seed(SEED + 6),
+                       device=dev).to(torch.bfloat16)
+    with torch.no_grad():
+        enc = tmodel.encode(imgs)
+    tprompt = torch.full((B, 1), pipe.bos, dtype=torch.long, device=dev)
+    tplain = trocr_plain(tmodel)
+    got, nums = constrained_case(
+        "trocr", gen_mod, pipe.gcfg, pipe.prefill, pipe.step,
+        make_generate_fns(tplain, pipe.cache_size), tprompt, enc,
+        search_phrases(rng, B, tcfg.vocab_size),
+        {"encoder_attention": TL, "onepass_attention": TL},
+        {"encoder_attention": TL, "decode_attention": TL})
+    for k, v in got.items():
+        if v:
+            launches[k] = launches.get(k, 0) + v
+    numbers["constrained_trocr"] = nums
+    del pipe, tmodel, tplain, enc, imgs
+    torch.cuda.empty_cache()
+    phase("search", f"phase time {time.time() - t_phase:.1f} s")
+    return launches, {"search": numbers}
+
+
+# ---- train_options: remat_policy "dots" / "full" / none and train-mode
+# dropout at full width (core/transformer.py `remat`, core/layers.py's
+# dropout helpers). The UniGPT part runs inside the train phase on its
+# trainer (PR 3's 1.3B configuration: 24 layers, E 2048, T 2048, 4
+# microbatches of 2); the BEiT-B and LayoutLMv3-B parts after
+# layoutlmv3_train.
+DROPOUT = 0.1
+
+
+def grads_teacher(name: str, a: tuple, b: tuple, names: list) -> dict:
+    """(loss, grads) a against b at the train teacher's bounds."""
+    la, ga = a
+    lb, gb = b
+    na = float(torch.sqrt(sum(g.float().pow(2).sum() for g in ga)))
+    nb = float(torch.sqrt(sum(g.float().pow(2).sum() for g in gb)))
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        x.flatten().float(), y.flatten().float(), dim=0))
+        for n, x, y in zip(names, ga, gb)}
+    worst = min(cos, key=cos.get)
+    loss_rel, norm_rel = abs(la - lb) / abs(lb), abs(na - nb) / nb
+    check(loss_rel <= TEACHER_LOSS_REL and norm_rel <= TEACHER_NORM_REL
+          and cos[worst] >= TEACHER_COS,
+          f"train_options {name}: loss rel {loss_rel}, grad norm rel "
+          f"{norm_rel}, min cosine {cos[worst]} ({worst})")
+    return {"loss_rel": loss_rel, "norm_rel": norm_rel,
+            "min_cos": cos[worst], "worst": worst}
+
+
+def phase_train_options(tr, batch, args) -> dict:
+    """train_options on the train phase's trainer and repeated batch:
+    microbatch 0's loss and gradients under "dots" against "full" (the
+    teacher's bounds), 2L #1 + L #6 + L #7 each; `timed_steps` under
+    none, "full" and "dots" (96 #1/#6/#7 a step without remat, 192 #1 +
+    96 #6/#7 with it: the recompute relaunches the forward kernel, as JAX
+    recomputes a pallas_call under both policies); then the step's four
+    microbatches at dropout 0.1, twice from
+    one seed (bit-equal losses and gradients) and once from another
+    (different), 96 #1/#6/#7 each. Returns (the launches, the numbers)."""
+    from unilm_tpu_torch.models.kosmos import UniGPT
+    from unilm_tpu_torch.ops.fused_ce import chunked_cross_entropy
+    from unilm_tpu_torch.runtime.train import TrainState
+
+    t_phase = time.time()
+    model, cfg = tr.model, tr.cfg
+    layers, n_mb = len(model.decoder.layers), args.update_freq
+    per_step = layers * n_mb
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    launches = {}
+
+    def variant(**kw):
+        m = UniGPT(dataclasses.replace(cfg, **kw), device="cuda")
+        m.load_state_dict(model.state_dict(), assign=True)
+        return m.train()
+
+    def micro(m, mb, gen=None):
+        out = m(mb, return_features=True, generator=gen)
+        s, n = chunked_cross_entropy(out[:, :-1], m.embed_tokens.weight,
+                                     mb[:, 1:], chunk=args.ce_chunk)
+        return s / n
+
+    def loss_grads(m):
+        loss = micro(m, batch[0])
+        return float(loss.detach()), torch.autograd.grad(
+            loss, [p for p in m.parameters() if p.requires_grad])
+
+    def add(got):
+        for k, v in got.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+
+    # ---- dots against full, one microbatch, the same parameters ---------
+    full = variant(remat=True, remat_policy="full")
+    dots = variant(remat=True, remat_policy="dots")
+    ran = []
+    for m in (full, dots):
+        c0 = counts()
+        res = loss_grads(m)
+        ran.append({k: v - c0[k] for k, v in counts().items() if v != c0[k]})
+        add(ran[-1])
+        if m is full:
+            lg_full = res
+    want = {"flash_fwd": 2 * layers, "flash_bwd_dq": layers,
+            "flash_bwd_dkv": layers}
+    check(ran[0] == want and ran[1] == want,
+          f"train_options: one microbatch launched {ran} (want {want} under "
+          "full and dots)")
+    t = grads_teacher("dots vs full", res, lg_full, names)
+    phase("train_options", f"microbatch 0 (2 x 2048), dots against full: "
+          f"loss {res[0]:.6f} / {lg_full[0]:.6f} (rel {t['loss_rel']:.2e}, "
+          f"tol {TEACHER_LOSS_REL}), grad norm rel {t['norm_rel']:.2e} (tol "
+          f"{TEACHER_NORM_REL}), min per-tensor cosine {t['min_cos']:.6f} "
+          f"({t['worst']}, tol {TEACHER_COS}); launches {ran[0]} under both")
+    del res, lg_full, full, dots
+    torch.cuda.empty_cache()
+
+    # ---- optimizer steps under each policy -------------------------------
+    rows = {}
+    for pol in ("none", "full", "dots"):
+        m = (model if pol == "none"
+             else variant(remat=True, remat_policy=pol))
+        fwd = per_step * (1 if pol == "none" else 2)
+        # the step without remat is profiled in the train phase
+        st = timed_steps(
+            f"remat {pol}", TrainState(step=tr.state.step, model=m,
+                                       opt_state=tr.state.opt_state),
+            tr.step_fn, lambda s: batch,
+            {"flash_fwd": fwd, "flash_bwd_dq": per_step,
+             "flash_bwd_dkv": per_step}, launches, rows, n=2,
+            profiled=pol != "none")
+        tr.state.step = st.step
+        del st, m
+        torch.cuda.empty_cache()
+
+    # ---- dropout 0.1: the step's microbatches, seeded -------------------
+    drop = variant(dropout=DROPOUT)
+    params = [p for p in drop.parameters() if p.requires_grad]
+
+    def accum(seed):
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        for p in params:
+            p.grad = None
+        c0 = counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        losses = []
+        for i in range(n_mb):
+            loss = micro(drop, batch[i], gen)
+            loss.backward()
+            losses.append(loss.detach())
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+        ran = {k: v - c0[k] for k, v in counts().items() if v != c0[k]}
+        return torch.stack(losses), [p.grad for p in params], ran, wall
+
+    la, ga, ran_a, _ = accum(SEED)
+    ga = [g.clone() for g in ga]
+    lb, gb, ran_b, wall = accum(SEED)
+    same = torch.equal(la, lb) and all(torch.equal(x, y)
+                                       for x, y in zip(ga, gb))
+    del ga
+    lc, gc, ran_c, _ = accum(SEED + 1)
+    differ = not torch.equal(la, lc)
+    want = {"flash_fwd": per_step, "flash_bwd_dq": per_step,
+            "flash_bwd_dkv": per_step}
+    for r in (ran_a, ran_b, ran_c):
+        add(r)
+    check(same and differ and ran_a == ran_b == ran_c == want,
+          f"train_options dropout: same seed bit-equal {same}, another seed "
+          f"differs {differ}, launches {ran_a} {ran_b} {ran_c} (want {want})")
+    phase("train_options", f"dropout {DROPOUT} (residual branches and FFN "
+          f"output, JAX's decoder_cfg), the step's {n_mb} microbatches "
+          f"forward + backward: two runs from seed {SEED} bit-equal (losses "
+          f"{[round(float(x), 6) for x in la]}, every gradient), seed "
+          f"{SEED + 1} differs (losses {[round(float(x), 6) for x in lc]}); "
+          f"launches {want} each; {wall:.1f} ms (host clock)")
+    rows["dropout"] = {"ms_microbatches_host": wall}
+    for p in params:
+        p.grad = None
+    del drop, params, gb, gc
+    torch.cuda.empty_cache()
+    phase("train_options", f"UniGPT part {time.time() - t_phase:.1f} s")
+    return launches, rows
+
+
+def timed_steps(name: str, state, step_fn, make_batch, want: dict,
+                launches: dict, rows: dict, n: int = 3,
+                profiled: bool = True):
+    """n optimizer steps of step_fn from `state` on make_batch(step), and
+    with `profiled` one more under the profiler: the launches exactly
+    `want` a step (added to `launches`), the losses finite; ms/step (host
+    clock, the mean of steps 2..n), the profiled step's device time and
+    the busy share, and peak memory into rows[name]. Returns the state."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    times, prof = [], None
+    for i in range(n + profiled):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        if i < n:
+            state, mt = step_fn(state, make_batch(state.step))
+        else:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                state, mt = step_fn(state, make_batch(state.step))
+                torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        times.append((time.time() - t0) * 1e3)
+        check(np.isfinite(float(mt["loss"])),
+              f"train_options {name}: step {i + 1} {mt}")
+    got = counts()
+    for k, v in got.items():
+        if v:
+            launches[k] = launches.get(k, 0) + v
+    steps = n + profiled
+    check(all(got[k] == steps * v for k, v in want.items())
+          and sum(got.values()) == steps * sum(want.values()),
+          f"train_options {name}: launches over {steps} steps {got} (want "
+          f"{want} a step)")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    host = float(np.mean(times[1:n]))
+    rows[name] = {"ms_per_step_host": host, "peak_gib": peak}
+    busy = ""
+    if prof is not None:
+        dev = sum(device_time_shares(prof, []).values())
+        rows[name]["device_ms_per_step"] = dev
+        busy = (f"; the profiled step's device time {dev:.1f} ms "
+                f"({100 * dev / host:.0f}% of the host step)")
+    phase("train_options", f"{name}: {host:.1f} ms/step (host clock, mean "
+          f"of steps 2-{n}; step 1 {times[0]:.1f}){busy}; peak memory "
+          f"{peak:.2f} GiB; launches a step {want}")
+    return state
+
+
+def phase_train_options_encoders() -> dict:
+    """train_options on the encoders, `timed_steps` each: BEiT-B
+    (beit_train's configuration, B=256, drop-path 0.1) without remat,
+    under remat "dots" (2 x 12 #3 + 12 #4 a step: the recompute relaunches
+    #3) and with attention_dropout 0.1 (the plain attention, JAX's route
+    for a rate: no #3/#4); LayoutLMv3-B FUNSD (layoutlmv3_train's
+    configuration, B=32) at dropout 0.1, residual only (JAX :86): 12 #9 +
+    12 #10 a step. Returns (the launches, the numbers)."""
+    from unilm_tpu_torch.cli import train_classification as tcl
+    from unilm_tpu_torch.models import layoutlmv3 as lm
+    from unilm_tpu_torch.models.beit import BeitForImageClassification
+    from unilm_tpu_torch.runtime import optim, train
+
+    t_phase = time.time()
+    dev = torch.device("cuda")
+    launches, rows = {}, {}
+    B = BEIT_TRAIN_BATCH
+    args = tcl.build_parser().parse_args([
+        "--model", "beit_base_patch16_224", "--data_path", "unused",
+        "--batch_size", str(B), "--nb_classes", "1000", "--drop_path", "0.1",
+        "--ema_decay", "0.9999", "--clip_grad", "3.0", "--seed", str(SEED)])
+    items = [(f"synthetic/{i}", i % 1000) for i in range(40 * B)]
+    tr = tcl.build_trainer(args, items)
+    cfg, L = tr.cfg, tr.cfg.num_layers
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    images = torch.randn(B, cfg.img_size, cfg.img_size, 3, generator=g,
+                         device=dev)
+    labels = torch.randint(0, 1000, (B,), generator=g, device=dev)
+
+    def variant(**kw):
+        m = BeitForImageClassification(dataclasses.replace(cfg, **kw),
+                                       device=dev)
+        m.load_state_dict(tr.model.state_dict(), assign=True)
+        return m.train()
+
+    def beit_steps(name, m, want):
+        st = train.TrainState(step=tr.state.step, model=m,
+                              opt_state=tr.state.opt_state,
+                              ema_params=tr.state.ema_params)
+        st = timed_steps(name, st, tr.step_fn,
+                         lambda s: tr.make_batch(images, labels, s), want,
+                         launches, rows)
+        tr.state.step = st.step
+
+    beit_steps("beit_b_none", tr.model,
+               {"encoder_attention": L, "encoder_attention_bwd": L})
+    beit_steps("beit_b_dots", variant(remat=True, remat_policy="dots"),
+               {"encoder_attention": 2 * L, "encoder_attention_bwd": L})
+    beit_steps("beit_b_attention_dropout",
+               variant(attention_dropout=DROPOUT), {})
+    del tr, images, labels
+    torch.cuda.empty_cache()
+
+    # ---- LayoutLMv3-B FUNSD at dropout 0.1 ------------------------------
+    B, T = LV3_TRAIN_BATCH, 512
+    lcfg = lm.layoutlmv3_base(dtype=torch.bfloat16, num_labels=7,
+                              dropout=DROPOUT)
+    model = lm.LayoutLMv3ForTokenClassification(lcfg, device=dev)
+    model.init_weights(torch.Generator(device=dev).manual_seed(SEED)).train()
+    rng0 = np.random.RandomState(0)  # layoutlmv3_train's batch
+    ids = rng0.randint(3, lcfg.vocab_size - 1, (B, T))
+    xy = rng0.randint(0, 900, (B, T, 2, 2))
+    xy.sort(axis=2)
+    bbox = xy.transpose(0, 1, 3, 2).reshape(B, T, 4)
+    imgs = rng0.rand(B, 224, 224, 3)
+    y = rng0.randint(0, 7, (B, T))
+    batch = {"ids": torch.from_numpy(ids).to(dev),
+             "bbox": torch.from_numpy(bbox).to(dev),
+             "imgs": torch.from_numpy(imgs).to(dev, torch.bfloat16),
+             "y": torch.from_numpy(y).to(dev)}
+    seeds = iter(range(SEED, SEED + 100))
+
+    def loss_fn(m, b):
+        gen = torch.Generator(device=dev).manual_seed(next(seeds))
+        s, n = train.cross_entropy_loss(
+            m(b["ids"], b["bbox"], None, b["imgs"], generator=gen), b["y"])
+        return s / n, {}
+
+    tx = optim.AdamW(1e-5, weight_decay=0.01)
+    timed_steps("layoutlmv3_b_dropout", train.TrainState.create(model, tx),
+                train.make_train_step(loss_fn, tx, clip_grad_norm=1.0),
+                lambda s: batch, {"doc_attention": lcfg.num_layers,
+                                  "doc_attention_bwd": lcfg.num_layers},
+                launches, rows)
+    del model, batch
+    torch.cuda.empty_cache()
+    phase("train_options", f"encoder part {time.time() - t_phase:.1f} s")
+    return launches, rows
 
 
 def main() -> int:
@@ -7219,6 +7945,8 @@ def main() -> int:
     add("beit_train", phase_beit_train(fa))
     add("layoutlmv3_eval", phase_layoutlmv3_eval())
     add("layoutlmv3_train", phase_layoutlmv3_train())
+    got, options = phase_train_options_encoders()
+    add("train_options", got)
     add("ttft", phase_ttft(fa))
     got, line4 = phase_decode_int8_bs1(qm, pa, g)
     add("decode_int8_bs1", got)
@@ -7229,6 +7957,8 @@ def main() -> int:
     add("trocr", got)
     got, trocr_int8 = phase_trocr(qm, int8=True)
     add("trocr_int8", got)
+    got, search_nums = phase_search(fa)
+    add("search", got)
     kosmos2_extra = phase_kosmos2_kernels(fa, pa, g)
     got, kosmos2_nums = phase_kosmos2(fa)
     add("kosmos2", got)
@@ -7248,7 +7978,10 @@ def main() -> int:
     del cfg, sd
     torch.cuda.empty_cache()
     add("page_pool", phase_page_pool())
-    add("train", phase_train(fa))
+    got, (got_options, unigpt_options) = phase_train(fa)
+    add("train", got)
+    add("train_options", got_options)
+    options.update(unigpt_options)
     for kern in kernels:
         paths = by_path.get(kern["name"], {})
         kern["launches"] = sum(paths.values())
@@ -7261,7 +7994,8 @@ def main() -> int:
     print(json.dumps({"paths": {"decode_int8_bs1": line4["line4"],
                                 **infer, **trocr_bf16, **trocr_int8,
                                 **kosmos2_nums, **kosmos2_train_nums,
-                                **beit3_nums, **beit2_nums}}),
+                                **beit3_nums, **beit2_nums, **search_nums,
+                                "train_options": options}}),
           flush=True)
     phase("profiler", f"{len(PROFILER_MISSES)} device_ms calls fell back "
           f"to CUDA events: {PROFILER_MISSES}; {len(PROFILER_LOST)} traces "

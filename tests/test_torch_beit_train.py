@@ -47,7 +47,6 @@ from unilm_tpu_torch.cli import train_classification as tcl
 from unilm_tpu_torch.convert.beit import convert_beit
 from unilm_tpu_torch.convert.from_jax import (flax_to_state_dict,
                                               load_flax_params)
-from unilm_tpu_torch.core import config as tconfig
 from unilm_tpu_torch.core import layers as tlayers
 from unilm_tpu_torch.data import masking as tmask
 from unilm_tpu_torch.data import transforms as tt
@@ -429,13 +428,14 @@ def test_drop_path_with_a_given_mask_and_remat_gradients():
         grads.append({n: p.grad for n, p in m.named_parameters()})
     for name in grads[0]:
         assert torch.equal(grads[0][name], grads[1][name]), name
-    with pytest.raises(NotImplementedError, match="dots"):
-        enc_cfg = tconfig.TransformerConfig(embed_dim=8, ffn_dim=16,
-                                            num_layers=1, num_heads=2,
-                                            remat=True, remat_policy="dots")
-        from unilm_tpu_torch.core.transformer import Encoder
-
-        Encoder(enc_cfg)(torch.zeros(1, 3, 8, requires_grad=True))
+    cfg = tb.BeitConfig(**dict(TINY, drop_path_rate=0.5, remat=True,
+                               remat_policy="dots"))
+    m = tb.BeitForImageClassification(cfg).train()
+    m.init_weights(torch.Generator().manual_seed(0))
+    m(x, torch.Generator().manual_seed(1)).square().sum().backward()
+    for name, p in m.named_parameters():
+        torch.testing.assert_close(p.grad, grads[0][name], atol=1e-6, rtol=0,
+                                   msg=name)
 
 
 def _tiny_registry(monkeypatch):

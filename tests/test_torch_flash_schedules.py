@@ -414,7 +414,7 @@ def _jax_slice():
 
 def _flash_route(q, k, v, *, bias=None, key_padding_mask=None, scale=None,
                  causal=False, q_offset=None, kv_len=None, window=0,
-                 dropout_rate=0.0, use_flash=True):
+                 dropout_rate=0.0, dropout_rng=None, use_flash=True):
     """ops.attention.attention's branch for a causal call on a CUDA tensor
     (fa.flash_attention), taken here on the CPU tensors of the test."""
     assert causal and use_flash and dropout_rate == 0.0

@@ -3,7 +3,8 @@ diverse siblings, length-constrained beam, diverse beam, ensembling,
 sampling) against unilm_tpu on the CPU.
 
 The scenarios of tests/test_generate.py and tests/test_search_strategies.py
-(all but the constrained and GAD ones) run through both packages on the
+(all but the constrained and GAD ones, which tests/test_torch_search.py
+holds) run through both packages on the
 same scripted probability tables (logits given by the previous token and
 the step), and through a tiny fp32 Kosmos-2.5 text decoder on both
 stacks. Tolerances: token streams identical; scores within 1e-5
@@ -382,12 +383,6 @@ def test_sampling_seeded_and_top1_is_greedy():
     assert torch.equal(runs[0], runs[1])
     assert not torch.equal(runs[0], runs[2])
     assert not torch.equal(runs[0], greedy)
-
-
-def test_constrained_and_gad_name_their_roadmap_item():
-    for fn in (tgen.constrained_beam_generate, tgen.aggressive_generate):
-        with pytest.raises(NotImplementedError, match="item 6.1"):
-            fn()
 
 
 # ---- a tiny Kosmos-2.5 text decoder on both stacks ------------------------

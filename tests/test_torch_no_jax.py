@@ -223,7 +223,8 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "scoring_seedbench", "cli.kosmos_ground_eval", "cli.kosmos_demo",
           "cli.kosmos_seedbench", "core.multiway", "models.beit3",
           "models.vlmo", "models.beit2", "models.dalle_vae", "convert.dalle",
-          "models.registry"}
+          "models.registry", "runtime.metrics", "runtime.criterions",
+          "runtime.profiling", "ops.dropout"}
 
 
 def test_port_imports_without_jax():

@@ -273,17 +273,16 @@ def test_remat_gives_equal_gradients():
     params = _jax_run(False)[0]
     toks = torch.from_numpy(_batch()[1]).long()
     grads = []
-    for remat in (False, True):
-        model = tk.UniGPT(tk.UniGPTConfig(remat=remat, **KW))
+    for remat, policy in ((False, "full"), (True, "full"), (True, "dots")):
+        model = tk.UniGPT(tk.UniGPTConfig(remat=remat, remat_policy=policy,
+                                          **KW))
         load_flax_params(model, params)
         _torch_loss(model, toks)[0].backward()
         grads.append({n: p.grad for n, p in model.named_parameters()})
     for name in grads[0]:
         assert torch.equal(grads[0][name], grads[1][name]), name
-    with pytest.raises(NotImplementedError, match="dots"):
-        model = tk.UniGPT(tk.UniGPTConfig(remat=True, remat_policy="dots",
-                                          **KW))
-        model(toks)
+        torch.testing.assert_close(grads[2][name], grads[0][name],
+                                   atol=1e-6, rtol=0, msg=name)
 
 
 def _docs(n=40):

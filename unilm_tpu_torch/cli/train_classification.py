@@ -54,6 +54,7 @@ from unilm_tpu_torch.models import beit as beit_models
 from unilm_tpu_torch.models.beit import BeitForImageClassification
 from unilm_tpu_torch.runtime.checkpoint import CheckpointManager
 from unilm_tpu_torch.runtime.device import resolve_device
+from unilm_tpu_torch.runtime import metrics as M
 from unilm_tpu_torch.runtime.logging import JsonlLogger, find_nonfinite
 from unilm_tpu_torch.runtime.optim import cosine_schedule, create_optimizer
 from unilm_tpu_torch.runtime.train import TrainState, make_train_step
@@ -241,6 +242,7 @@ def main(argv=None):
             bad = find_nonfinite(tr.model.state_dict())
             raise FloatingPointError(f"non-finite loss at step {s}; params: "
                                      f"{bad}")
+        M.log_scalar("loss", loss)
         if s % 50 == 0:
             logger.log({"loss": loss, "gnorm": float(m["grad_norm"]),
                         "lr": float(tr.sched(s)),

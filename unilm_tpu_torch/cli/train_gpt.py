@@ -55,6 +55,7 @@ from unilm_tpu_torch.models.kosmos import (ClipVisionConfig, UniGPT,
 from unilm_tpu_torch.ops.fused_ce import chunked_cross_entropy
 from unilm_tpu_torch.runtime.checkpoint import CheckpointManager
 from unilm_tpu_torch.runtime.device import resolve_device
+from unilm_tpu_torch.runtime import metrics as M
 from unilm_tpu_torch.runtime.logging import JsonlLogger, find_nonfinite
 from unilm_tpu_torch.runtime.optim import AdamW, polynomial_decay_schedule
 from unilm_tpu_torch.runtime.train import (TrainState, cross_entropy_loss,
@@ -276,6 +277,7 @@ def main(argv=None):
             bad = find_nonfinite(tr.model.state_dict())
             raise FloatingPointError(f"non-finite loss at step {s}; params: "
                                      f"{bad}")
+        M.log_scalar("loss", loss)
         if s % args.log_every == 0:
             tok_s = (args.batch_size * args.tokens_per_sample * args.log_every
                      / (time.time() - t0))

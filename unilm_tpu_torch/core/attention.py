@@ -125,12 +125,15 @@ class MultiheadAttention(nn.Module):
                       *, causal: bool = False,
                       key_padding_mask: Optional[torch.Tensor] = None,
                       attn_bias: Optional[torch.Tensor] = None,
-                      xpos=None, split: Split = None) -> torch.Tensor:
+                      xpos=None, split: Split = None,
+                      rng: Optional[torch.Generator] = None) -> torch.Tensor:
         """Full-sequence attention (mode="train"): self-attention over x,
         or cross-attention of x over `key` for a cross-attention module.
         `xpos` are the `xpos_inputs(cfg, 0, T)` tables, shared by every
         layer (self-attention only); `split` the multiway modality split
-        (core/multiway.py)."""
+        (core/multiway.py); `rng` the layer's dropout generator (a
+        training forward), which drops the attention probabilities at
+        cfg.attention_dropout."""
         cfg = self.cfg
         if self.self_attention == (key is not None):
             raise ValueError("a cross-attention module takes `key`; a "
@@ -147,5 +150,5 @@ class MultiheadAttention(nn.Module):
                         causal=causal,
                         window=cfg.window_size if self.self_attention else 0,
                         dropout_rate=cfg.attention_dropout,
-                        use_flash=cfg.use_flash)
+                        dropout_rng=rng, use_flash=cfg.use_flash)
         return self.output(out, split)

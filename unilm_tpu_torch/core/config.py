@@ -4,8 +4,9 @@ Same fields and the same `__post_init__` rules as the JAX
 `TransformerConfig`, so a config written for one package constructs in the
 other. The TPU-only VMEM tiling knobs (`flash_block_q`/`flash_block_k`)
 stay as fields for that reason but no code path of this package reads
-them; `remat_policy` "full" is per-layer torch.utils.checkpoint and the
-other policies raise, as `seq_axis` does. Dtypes are torch dtypes.
+them; `remat_policy` "full" / "dots" is per-layer torch.utils.checkpoint
+(core/transformer.py `remat`); `seq_axis` raises. Dtypes are torch
+dtypes.
 """
 
 from __future__ import annotations
@@ -71,7 +72,7 @@ class TransformerConfig:
 
     # --- attention implementation ----------------------------------------------
     remat: bool = False
-    remat_policy: str = "full"  # "full" per-layer checkpoint; "dots" raises
+    remat_policy: str = "full"  # "full" | "dots" (core/transformer.remat)
     # use_flash=True sends CUDA tensors through the hand-written kernels
     # (ops/flash_attention.py, ops/paged_attention.py); False keeps every
     # device on the plain torch attention — the reference the kernels are

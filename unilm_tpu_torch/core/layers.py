@@ -10,6 +10,14 @@ Random initialisation follows the JAX initialisers' scales (xavier-uniform
 times the deepnorm/subln factor for projections, normal(std) for
 embeddings) and draws from an explicit `torch.Generator`
 (`init_weights_`).
+
+Dropout (flax `nn.Dropout`, and the attention probabilities' dropout of
+ops/attention.py) draws every mask through one helper, ops/dropout.py's
+`draw_keep`, from an explicit `torch.Generator`. A stack draws one seed per layer from the
+caller's generator (`layer_seeds`) and each layer builds its masks from a
+generator seeded with it (`seeded_generator`), so that a layer recomputed
+under activation checkpointing (torch.utils.checkpoint restores the global
+RNG, not a generator passed in by hand) draws the same masks again.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from unilm_tpu_torch.core.config import TransformerConfig
+from unilm_tpu_torch.ops import dropout as dropout_ops
 
 
 def get_activation(name: str, dtype=None) -> Callable:
@@ -127,6 +136,43 @@ class LayerScale(nn.Module):
         return x * self.gamma.to(x.dtype)
 
 
+def dropout(x: torch.Tensor, rate: float,
+            rng: Optional[torch.Generator]) -> torch.Tensor:
+    """flax nn.Dropout in training: where(keep, x / (1 - rate), 0) in x's
+    dtype with keep from ops/dropout.py's `draw_keep`; zeros at rate 1; the
+    identity at rate 0 or without `rng` (evaluation)."""
+    if rate == 0.0 or rng is None:
+        return x
+    zero = torch.zeros((), dtype=x.dtype, device=x.device)
+    if rate == 1.0:
+        return zero.expand_as(x)
+    keep = dropout_ops.draw_keep(x.shape, rate, rng, x.device)
+    return torch.where(keep, x / (1.0 - rate), zero)
+
+
+def training_rng(module: nn.Module, generator: Optional[torch.Generator]
+                 ) -> Optional[torch.Generator]:
+    """The generator a model's own dropout sites draw from: `generator` in a
+    training forward, None at evaluation (`dropout` is then the identity)."""
+    return generator if module.training else None
+
+
+def layer_seeds(generator: torch.Generator, n: int) -> list:
+    """n seeds drawn from `generator`, one per layer of a stack (one host
+    read for the whole stack)."""
+    return torch.randint(0, 2 ** 62, (n,), generator=generator,
+                         device=generator.device).tolist()
+
+
+def seeded_generator(seed: Optional[int],
+                     device) -> Optional[torch.Generator]:
+    """A fresh generator on `device` seeded with `seed` (None: None): a
+    layer's dropout masks come from it, so a recompute draws them again."""
+    if seed is None:
+        return None
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 class DropPath(nn.Module):
     """Stochastic depth per sample (unilm_tpu/core/layers.py:41): in
     training, `where(keep, x / (1 - rate), 0)` in x's dtype with one keep
@@ -185,9 +231,9 @@ def head_dense(in_features: int, features: int, dtype=torch.float32,
 
 
 class FeedForward(nn.Module):
-    """fc1 -> act -> (ffn_layernorm if subln) -> fc2, or the gated variant
-    (torchscale FeedForwardNetwork). Dropout is not applied: a config
-    that asks for it raises in the train-mode Decoder."""
+    """fc1 -> act -> dropout(activation_dropout) -> (ffn_layernorm if
+    subln) -> fc2 -> dropout(dropout), or the gated variant (torchscale
+    FeedForwardNetwork). The two dropouts draw from `rng` (none: eval)."""
 
     def __init__(self, cfg: TransformerConfig, init_scale: float = 1.0,
                  use_kernel: bool = True, device=None):
@@ -204,15 +250,19 @@ class FeedForward(nn.Module):
         if cfg.subln:
             self.ffn_layernorm = make_norm(cfg, Fd, device=device)
         self.fc2 = dense(Fd, E)
+        self.activation_dropout, self.dropout = (cfg.activation_dropout,
+                                                 cfg.dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
         if self.gated:
             h = self.act(self.fc1(x)) * self.fc3(x)
         else:
             h = self.act(self.fc1(x))
+        h = dropout(h, self.activation_dropout, rng)
         if hasattr(self, "ffn_layernorm"):
             h = self.ffn_layernorm(h)
-        return self.fc2(h)
+        return dropout(self.fc2(h), self.dropout, rng)
 
 
 @torch.no_grad()

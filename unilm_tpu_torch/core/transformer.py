@@ -11,18 +11,19 @@ mask, the optional final LayerNorm and `return_all_hiddens`. It keeps the
 input's dtype for the residual stream, as flax's promotion does (a float32
 input stays float32 around bf16 layers). Drop-path trains on keep flags
 drawn before the forward (`Encoder.draw_drop_path`); `cfg.remat` recomputes
-each layer in the backward. Under `cfg.multiway` (BEiT-3, VLMo; JAX
+each layer in the backward (`remat_policy` "full" or "dots", `remat`).
+Under `cfg.multiway` (BEiT-3, VLMo; JAX
 :86-95, :123-140, :753-759) the layer norms, the attention's projections
 and the FFN (`ffn_A` / `ffn_B`) are A/B expert pairs and `forward` takes
 `multiway_split_mask` (core/multiway.py's `split`: None, a position or a
 bool mask); with None only the A experts compute and the B parameters
-carry no work, as in JAX. Dropout in training (slice 6's remainder), MoE
-and T5 relative-position buckets (slices 9-10) raise.
+carry no work, as in JAX. MoE and T5 relative-position buckets (slices
+9-10) raise.
 
 One layer class serves every mode: `mode="train"` is the full-sequence
 forward of the looped and the scanned JAX stacks (the same math), with
-autograd through the flash kernels on a CUDA tensor and optional per-layer
-activation checkpointing (`cfg.remat`, remat_policy "full");
+autograd through the flash kernels on a CUDA tensor, optional per-layer
+activation checkpointing (`cfg.remat`, `remat`) and, in training, dropout;
 `mode="prefill" | "decode"` is the scanned generation path. A looped
 (`layers_i`) or a stacked (`layers`) flax tree loads into the one
 `nn.ModuleList` (convert/from_jax.py).
@@ -61,30 +62,85 @@ is G times the leaves' Bkv, the G beams of a sequence fold into the query
 length, [Bkv, G*T, H, D] over the shared keys (:570-585), which is exact
 for non-causal attention.
 
-Relative-position buckets, MoE, drop-path in the decoder, dropout, xPos
-with cross-attention (JAX asserts, :542-544) and the "dots" remat policy
-raise NotImplementedError naming their ROADMAP entry.
+Dropout (JAX :110, :201, :223; core/layers.py FeedForward :172, :176;
+ops/attention.py :65-67) runs in a training forward (`module.training`)
+of either stack with a rate in the config: the residual dropout after
+each attention block, the FFN's activation and output dropouts, and the
+attention probabilities' (which takes the plain attention path, as JAX's
+XLA path). The stack's `generator` gives one seed per layer
+(core/layers.py `layer_seeds`) and each layer draws its masks, in JAX's
+order, from a generator seeded with it, so a recompute under `remat`
+draws them again; a training forward with a rate and no generator raises.
+
+Relative-position buckets, MoE, drop-path in the decoder and xPos with
+cross-attention (JAX asserts, :542-544) raise NotImplementedError naming
+their ROADMAP entry.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from unilm_tpu_torch.core.attention import (
     MultiheadAttention, apply_xpos, xpos_inputs)
 from unilm_tpu_torch.core.config import TransformerConfig
 from unilm_tpu_torch.core.layers import (DropPath, FeedForward, LayerScale,
-                                         make_norm)
+                                         dropout, layer_seeds, make_norm,
+                                         seeded_generator)
 from unilm_tpu_torch.core.multiway import MultiwayNorm, apply_split
 from unilm_tpu_torch.ops.attention import attention
 from unilm_tpu_torch.ops.paged_attention import (quantize_kv_rows,
                                                  run_decode_append_attention)
+
+
+# the products "dots" keeps: matmuls without batch dims (every projection;
+# a 3-D nn.Linear input reaches aten as a 2-D mm / addmm), not the batched
+# bmm / baddbmm of the plain attention's scores
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat(policy: str, fn, *args, **kwargs):
+    """fn(*args, **kwargs) under torch.utils.checkpoint with the JAX
+    policy's counterpart (`_remat_policy` :30-39): "full" keeps nothing
+    but the inputs; "dots" (`dots_with_no_batch_dims_saveable`) keeps the
+    outputs of aten.mm / addmm and recomputes the rest, the hand-written
+    kernels too (ctypes launches are no aten op, as a `pallas_call` is no
+    dot for JAX's policy). A recompute replays the forward's ops in order,
+    as selective checkpointing requires."""
+    if policy == "full":
+        return checkpoint(fn, *args, use_reentrant=False, **kwargs)
+    if policy == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _save_dots), **kwargs)
+    raise ValueError(f"unknown remat_policy {policy!r}")
+
+
+def _dropout_seeds(module: nn.Module, cfg, generator, n: int) -> list:
+    """One dropout seed per layer for a training forward of a stack with a
+    rate in `cfg` (drawn from `generator`), else n Nones."""
+    if not (module.training and (cfg.dropout or cfg.attention_dropout
+                                 or cfg.activation_dropout)):
+        return [None] * n
+    if generator is None:
+        raise ValueError(
+            "a training forward with dropout needs a torch.Generator "
+            "(`generator=`); call .eval() to evaluate")
+    return layer_seeds(generator, n)
 
 
 def _scan_pool_geometry(cache_size: int) -> Tuple[int, int, int]:
@@ -108,14 +164,15 @@ class ScanSelfAttention(MultiheadAttention):
     def forward(self, x, k_pool=None, v_pool=None, scale_pool=None,
                 li: int = 0, start: int = 0, *, mode: str, causal: bool,
                 page: int = 0, chunk: int = 0, pages_per_layer: int = 0,
-                xpos=None, key_padding_mask=None, attn_bias=None):
+                xpos=None, key_padding_mask=None, attn_bias=None, rng=None):
         """`xpos` = (q tables, k tables, qscale) from `xpos_inputs`, shared
         by every layer of one forward. `scale_pool`: the int8 pools'
-        sidecar, None for pools in the model dtype."""
+        sidecar, None for pools in the model dtype. `rng`: the layer's
+        dropout generator (train mode)."""
         if mode == "train":
             return self.forward_train(x, None, causal=causal,
                                       key_padding_mask=key_padding_mask,
-                                      attn_bias=attn_bias, xpos=xpos)
+                                      attn_bias=attn_bias, xpos=xpos, rng=rng)
         cfg = self.cfg
         H, D = cfg.num_heads, cfg.head_dim
         B, T = x.shape[0], x.shape[1]
@@ -221,13 +278,15 @@ class ScanCrossAttention(MultiheadAttention):
                          device=device)
 
     def forward(self, x, encoder_out=None, cross=None, li: int = 0, *,
-                mode: str, key_padding_mask=None):
+                mode: str, key_padding_mask=None, rng=None):
         """`cross` = (cross_key, cross_value) [Bkv, L, S, H, D]: prefill
         writes layer li's slice from `encoder_out` [Bkv, S, E_enc], decode
-        only reads it. `key_padding_mask` [Bkv, S] bool, True = valid."""
+        only reads it. `key_padding_mask` [Bkv, S] bool, True = valid.
+        `rng`: the layer's dropout generator (train mode)."""
         if mode == "train":
             return self.forward_train(x, encoder_out,
-                                      key_padding_mask=key_padding_mask)
+                                      key_padding_mask=key_padding_mask,
+                                      rng=rng)
         H, D = self.cfg.num_heads, self.cfg.head_dim
         B, T = x.shape[0], x.shape[1]
         q = self.q_proj(x).view(B, T, H, D)
@@ -254,7 +313,10 @@ class DecoderLayer(nn.Module):
     cross-attention over an encoder of width `encoder_dim`, then the FFN),
     the param subtree of the JAX `DecoderLayer` / `_ScanDecoderLayer` /
     `_ScanDecoderLayerKV`; the attention keywords pick the mode, `cross_kw`
-    goes to `ScanCrossAttention`."""
+    goes to `ScanCrossAttention`. `seed` (train mode): the layer's dropout
+    seed, from which it draws its masks in JAX's order (self-attention
+    probabilities, its residual branch, cross-attention probabilities, its
+    branch, the FFN's activation and output)."""
 
     def __init__(self, cfg: TransformerConfig, alpha: float = 1.0,
                  has_cross_attention: bool = False,
@@ -275,12 +337,14 @@ class DecoderLayer(nn.Module):
     def _residual(self, residual, x):
         return residual * self.alpha + x if self.alpha != 1.0 else residual + x
 
-    def forward(self, x, *pool, cross_kw: Optional[Dict] = None, **attn_kw):
-        pre = self.cfg.normalize_before
+    def forward(self, x, *pool, cross_kw: Optional[Dict] = None,
+                seed: Optional[int] = None, **attn_kw):
+        pre, rate = self.cfg.normalize_before, self.cfg.dropout
+        rng = seeded_generator(seed, x.device)
         residual = x
         if pre:
             x = self.self_attn_layer_norm(x)
-        x = self.self_attn(x, *pool, **attn_kw)
+        x = dropout(self.self_attn(x, *pool, rng=rng, **attn_kw), rate, rng)
         x = self._residual(residual, x)
         if not pre:
             x = self.self_attn_layer_norm(x)
@@ -288,14 +352,15 @@ class DecoderLayer(nn.Module):
             residual = x
             if pre:
                 x = self.encoder_attn_layer_norm(x)
-            x = self.encoder_attn(x, mode=attn_kw["mode"], **cross_kw)
-            x = self._residual(residual, x)
+            x = self.encoder_attn(x, mode=attn_kw["mode"], rng=rng,
+                                  **cross_kw)
+            x = self._residual(residual, dropout(x, rate, rng))
             if not pre:
                 x = self.encoder_attn_layer_norm(x)
         residual = x
         if pre:
             x = self.final_layer_norm(x)
-        x = self.ffn(x)
+        x = self.ffn(x, rng)
         x = self._residual(residual, x)
         if not pre:
             x = self.final_layer_norm(x)
@@ -309,7 +374,10 @@ class EncoderLayer(nn.Module):
     DropPath runs on both branches, each call with its own keep flags
     (`drop_path_keep` [2, B]), as the JAX layer's one module draws a fresh
     key per call. Under cfg.multiway the two norms are `MultiwayNorm`s and
-    the FFN is the pair `ffn_A` / `ffn_B`."""
+    the FFN is the pair `ffn_A` / `ffn_B`. `seed`: the layer's dropout
+    seed in a training forward; its masks come in JAX's order (the
+    attention probabilities, the attention branch, the FFN's activation
+    and output; ffn_A's before ffn_B's)."""
 
     def __init__(self, cfg: TransformerConfig, drop_path: float = 0.0,
                  layer_scale_init: float = 0.0, alpha: float = 1.0,
@@ -336,34 +404,34 @@ class EncoderLayer(nn.Module):
         self.drop_path = DropPath(drop_path)
 
     def _branch(self, residual, x, gamma, keep):
-        if self.training and self.cfg.dropout:
-            raise NotImplementedError(
-                "dropout in the encoder's training forward is not ported "
-                "yet (every BEiT config of the repo runs with dropout 0): "
-                "ROADMAP Queue 1, remainder of slice 6 (dropout)")
         if gamma is not None:
             x = gamma(x)
         return residual * self.alpha + self.drop_path(x, keep)
 
     def forward(self, x, key_padding_mask=None, attn_bias=None,
-                drop_path_keep=None, split=None):
+                drop_path_keep=None, split=None, seed=None):
         """`split`: the multiway modality split (core/multiway.py), read
         only under cfg.multiway."""
         pre = self.cfg.normalize_before
+        rng = seeded_generator(seed, x.device)
         keep = ((None, None) if drop_path_keep is None
                 else (drop_path_keep[0], drop_path_keep[1]))
         if self.cfg.multiway:
             norm1 = lambda y: self.self_attn_layer_norm(y, split)
             norm2 = lambda y: self.final_layer_norm(y, split)
-            ffn = lambda y: apply_split(self.ffn_A, self.ffn_B, y, split)
+            ffn = lambda y: apply_split(lambda z: self.ffn_A(z, rng),
+                                        lambda z: self.ffn_B(z, rng), y,
+                                        split)
         else:
             norm1, norm2 = self.self_attn_layer_norm, self.final_layer_norm
-            ffn = self.ffn
+            ffn = lambda y: self.ffn(y, rng)
         residual = x
         if pre:
             x = norm1(x)
         x = self.self_attn.forward_train(x, key_padding_mask=key_padding_mask,
-                                         attn_bias=attn_bias, split=split)
+                                         attn_bias=attn_bias, split=split,
+                                         rng=rng)
+        x = dropout(x, self.cfg.dropout, rng)
         x = self._branch(residual, x, getattr(self, "gamma_1", None), keep[0])
         if not pre:
             x = norm1(x)
@@ -382,9 +450,10 @@ class Encoder(nn.Module):
     `Encoder`). `layer_scale_init` (a call argument in flax, where it
     decides which params exist) is a constructor argument here. Layer i's
     drop-path rate is linspace(0, cfg.drop_path_rate, L)[i], so layer 0's
-    is 0; with cfg.remat each layer is recomputed in the backward
-    (torch.utils.checkpoint, the "full" policy: nothing but the layer
-    input is kept), as the JAX `nn.remat` around each layer."""
+    is 0; with cfg.remat each layer is recomputed in the backward under
+    cfg.remat_policy (`remat`: "full" keeps nothing but the layer input,
+    "dots" the projections' outputs), as the JAX `nn.remat` around each
+    layer."""
 
     def __init__(self, cfg: TransformerConfig, final_layer_norm: bool = True,
                  layer_scale_init: float = 0.0, device=None):
@@ -427,31 +496,27 @@ class Encoder(nn.Module):
                 key_padding_mask: Optional[torch.Tensor] = None,
                 attn_bias=None, return_all_hiddens: bool = False,
                 drop_path_keep: Optional[torch.Tensor] = None,
-                multiway_split_mask=None):
+                multiway_split_mask=None,
+                generator: Optional[torch.Generator] = None):
         """`attn_bias`: None, one [B|1, H|1, T, T] tensor for every layer,
         or a per-layer sequence. `drop_path_keep`: `draw_drop_path`'s
         flags, needed in training when a layer drops.
         `multiway_split_mask`: the modality split of a multiway stack (a
-        position, or a bool [T] / [B, T] mask, True = B). Returns x, or
-        (x, per-layer outputs) with return_all_hiddens."""
+        position, or a bool [T] / [B, T] mask, True = B). `generator`: the
+        dropout seeds of a training forward (needed when cfg has a rate).
+        Returns x, or (x, per-layer outputs) with return_all_hiddens."""
         cfg = self.cfg
-        remat = cfg.remat and torch.is_grad_enabled()
-        if remat and cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} (a jax.checkpoint "
-                "policy that saves the matmul outputs) is not ported yet: "
-                "ROADMAP Queue 1, remainder of slices 3-4 (dots remat)")
+        use_remat = cfg.remat and torch.is_grad_enabled()
+        seeds = _dropout_seeds(self, cfg, generator, len(self.layers))
         hiddens = []
         for i, layer in enumerate(self.layers):
             bias_i = (attn_bias[i] if isinstance(attn_bias, (list, tuple))
                       else attn_bias)
             keep_i = None if drop_path_keep is None else drop_path_keep[i]
-            if remat:
-                x = checkpoint(layer, x, key_padding_mask, bias_i, keep_i,
-                               multiway_split_mask, use_reentrant=False)
-            else:
-                x = layer(x, key_padding_mask, bias_i, keep_i,
-                          multiway_split_mask)
+            args = (x, key_padding_mask, bias_i, keep_i, multiway_split_mask,
+                    seeds[i])
+            x = (remat(cfg.remat_policy, layer, *args) if use_remat
+                 else layer(*args))
             if return_all_hiddens:
                 hiddens.append(x)
         if hasattr(self, "layer_norm"):
@@ -504,11 +569,14 @@ class Decoder(nn.Module):
                 self_key_padding_mask: Optional[torch.Tensor] = None,
                 attn_bias: Optional[torch.Tensor] = None,
                 encoder_out: Optional[torch.Tensor] = None,
-                encoder_padding_mask: Optional[torch.Tensor] = None):
+                encoder_padding_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None):
         """`encoder_out` [Bkv, S, E_enc] is read in train mode and by
         prefill (decode reads the cross cache instead); with
         `encoder_padding_mask` [Bkv, S] (True = valid) every layer's
-        cross-attention masks its keys."""
+        cross-attention masks its keys. `generator`: the dropout seeds of
+        a training forward in train mode (needed when cfg has a rate;
+        prefill and decode never drop)."""
         if self.has_cross_attention and mode != "decode" and (
                 encoder_out is None):
             raise ValueError(f"mode {mode!r} of a cross-attention decoder "
@@ -518,7 +586,7 @@ class Decoder(nn.Module):
                              key_padding_mask=encoder_padding_mask)
                         if self.has_cross_attention else None)
             return self._forward_train(x, causal, self_key_padding_mask,
-                                       attn_bias, cross_kw)
+                                       attn_bias, cross_kw, generator)
         if mode not in ("prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg = self.cfg
@@ -573,32 +641,23 @@ class Decoder(nn.Module):
         return x, cache
 
     def _forward_train(self, x, causal, key_padding_mask, attn_bias,
-                       cross_kw):
+                       cross_kw, generator):
         """The looped stack's train mode (:914-949); the scanned stack
         (:826-848) computes the same. With cfg.remat each layer is
-        recomputed in the backward (torch.utils.checkpoint, the "full"
-        policy: nothing but the layer input is kept)."""
+        recomputed in the backward under cfg.remat_policy (`remat`)."""
         cfg = self.cfg
-        if cfg.dropout or cfg.attention_dropout or cfg.activation_dropout:
-            raise NotImplementedError(
-                "dropout in the train-mode forward is not ported yet: "
-                "ROADMAP Queue 1, remainder of slices 3-4 (dropout)")
-        if cfg.remat and cfg.remat_policy != "full":
-            raise NotImplementedError(
-                f"remat_policy {cfg.remat_policy!r} (a jax.checkpoint "
-                "policy that saves the matmul outputs) is not ported yet: "
-                "ROADMAP Queue 1, remainder of slices 3-4 (dots remat)")
+        seeds = _dropout_seeds(self, cfg, generator, len(self.layers))
         x = x.to(cfg.dtype)
         xpos = (xpos_inputs(cfg, 0, x.shape[1], x.device)
                 if cfg.xpos_rel_pos else None)
         kw = dict(mode="train", causal=causal, xpos=xpos,
                   key_padding_mask=key_padding_mask, attn_bias=attn_bias,
                   cross_kw=cross_kw)
-        for layer in self.layers:
+        for layer, seed in zip(self.layers, seeds):
             if cfg.remat and torch.is_grad_enabled():
-                x = checkpoint(layer, x, use_reentrant=False, **kw)
+                x = remat(cfg.remat_policy, layer, x, seed=seed, **kw)
             else:
-                x = layer(x, **kw)
+                x = layer(x, seed=seed, **kw)
         if cfg.normalize_before:
             x = self.layer_norm(x)
         return x

@@ -16,7 +16,8 @@ the logits are float32 in a bf16 model; the pretraining `norm` and
 
 In training (`model.train()`), drop-path draws its keep flags from the
 `torch.Generator` the caller passes to `forward`, all of them before the
-encoder runs (`Encoder.draw_drop_path`).
+encoder runs (`Encoder.draw_drop_path`); dropout (`dropout`,
+`attention_dropout`) draws from the same generator (core/layers.py).
 """
 
 from __future__ import annotations
@@ -31,7 +32,8 @@ from torch import nn
 
 from unilm_tpu_torch.core.config import TransformerConfig
 from unilm_tpu_torch.core.embedding import VisionEmbedding
-from unilm_tpu_torch.core.layers import Dense, LayerScale, Norm, init_weights_
+from unilm_tpu_torch.core.layers import (Dense, LayerScale, Norm, dropout,
+                                         init_weights_, training_rng)
 from unilm_tpu_torch.core.transformer import Encoder
 
 
@@ -166,20 +168,18 @@ class BeitBackbone(nn.Module):
                 return_all_hiddens: bool = False,
                 generator: Optional[torch.Generator] = None):
         """`generator`: where a training forward draws its drop-path
-        flags (needed in training when cfg.drop_path_rate > 0)."""
-        if self.training and self.cfg.dropout:
-            raise NotImplementedError(
-                "dropout in BEiT's training forward is not ported yet (every "
-                "BEiT config of the repo runs with dropout 0): ROADMAP Queue "
-                "1, remainder of slice 6 (dropout)")
+        flags and its dropout masks (needed in training when
+        cfg.drop_path_rate or a dropout rate is > 0): the flags, the
+        embedding's dropout (JAX :163), then the encoder's."""
         keep = (None if generator is None
                 else self.encoder.draw_drop_path(images.shape[0], generator))
         x = self.embeddings(images, bool_masked_pos)
         if self.cfg.use_abs_pos_emb:
             x = x + self.pos_embed.to(x.dtype)
+        x = dropout(x, self.cfg.dropout, training_rng(self, generator))
         return self.encoder(x, attn_bias=self.attn_bias(),
                             return_all_hiddens=return_all_hiddens,
-                            drop_path_keep=keep)
+                            drop_path_keep=keep, generator=generator)
 
 
 @torch.no_grad()

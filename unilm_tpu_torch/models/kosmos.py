@@ -453,7 +453,8 @@ class UniGPT(nn.Module):
                 segment_tokens: Optional[torch.Tensor] = None,
                 return_features: bool = False,
                 aud_inputs: Optional[torch.Tensor] = None,
-                aud_gpt_input_mask: Optional[torch.Tensor] = None
+                aud_gpt_input_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> torch.Tensor:
         """Train forward over [B, T] tokens: logits [B, T, V], or the
         pre-logit decoder output [B, T, E] with return_features=True (for
@@ -461,7 +462,9 @@ class UniGPT(nn.Module):
         masked key (`src_tokens != padding_idx`), as in JAX. `img_inputs`
         (images or flattened patches, as `encode_image` takes) go through
         the tower and the resampler and are spliced at
-        `img_gpt_input_mask`."""
+        `img_gpt_input_mask`. `generator`: the decoder's dropout masks
+        in training (cfg.dropout, JAX's `decoder_cfg` :272; UniGPT has no
+        embedding dropout)."""
         if aud_inputs is not None:
             raise NotImplementedError(
                 "the audio tower (WavLM) is not ported yet: ROADMAP Queue 1 "
@@ -474,7 +477,7 @@ class UniGPT(nn.Module):
                                                         src_tokens.device))
         pad_mask = src_tokens != self.cfg.padding_idx
         x = self.decoder(x, mode="train", self_key_padding_mask=pad_mask,
-                         causal=True)
+                         causal=True, generator=generator)
         if return_features:
             return x
         return self.output_layer(x)

@@ -28,8 +28,11 @@ embedding and the embedding LayerNorms are float32 (flax dtype=None over
 float32 params), the encoder computes in `cfg.dtype`, the bias is in
 `cfg.dtype`, and the classifier computes in float32, so logits are
 float32. Parameter names mirror the flax tree, so a JAX checkpoint loads
-with `convert.from_jax.load_flax_params`. Dropout in training raises, as in
-the shared encoder.
+with `convert.from_jax.load_flax_params`. In training (`model.train()`)
+`dropout` draws its masks from the `torch.Generator` the caller passes
+(`generator=`), at the JAX sites (:311, :326, :331, the encoder, the
+heads :418, :421, :439); a training forward with a rate and no generator
+raises.
 """
 
 from __future__ import annotations
@@ -43,7 +46,8 @@ from torch import nn
 
 from unilm_tpu_torch.core.config import TransformerConfig
 from unilm_tpu_torch.core.embedding import PatchEmbed
-from unilm_tpu_torch.core.layers import Dense, Norm, init_weights_
+from unilm_tpu_torch.core.layers import (Dense, Norm, dropout, init_weights_,
+                                         training_rng)
 from unilm_tpu_torch.core.positional import relative_position_bucket
 from unilm_tpu_torch.core.transformer import Encoder
 from unilm_tpu_torch.ops.bucket_bias import (bias_grad_collector,
@@ -274,13 +278,16 @@ class LayoutLMv3Model(nn.Module):
                 attention_mask: Optional[torch.Tensor] = None,  # [B, L] 1=valid
                 images: Optional[torch.Tensor] = None,  # [B, H, W, 3] NHWC
                 valid_span: Optional[torch.Tensor] = None,  # [B, L, L]
+                generator: Optional[torch.Generator] = None,
                 ) -> torch.Tensor:
+        """`generator`: the dropout masks of a training forward (needed
+        when cfg.dropout > 0), in JAX's order: the text embedding's
+        (:311), the visual stream's (:326), the joint sequence's (:331),
+        then the encoder's (the residual branches and the FFN's output;
+        LayoutLMv3's dropout is residual only, :86, so the attention
+        keeps its kernels)."""
         cfg = self.cfg
-        if self.training and cfg.dropout:
-            raise NotImplementedError(
-                "dropout in LayoutLMv3's training forward is not ported yet "
-                "(the fine-tune configuration runs with dropout 0): ROADMAP "
-                "Queue 1, item 5 (Document AI)")
+        rng = training_rng(self, generator)
         B, L = input_ids.shape
         dev = input_ids.device
         if attention_mask is None:
@@ -290,7 +297,7 @@ class LayoutLMv3Model(nn.Module):
              + self.position_embeddings(
                  create_position_ids(input_ids, cfg.pad_token_id))
              + self.spatial(bbox))
-        x = self.emb_LayerNorm(x)
+        x = dropout(self.emb_LayerNorm(x), cfg.dropout, rng)
 
         full_bbox = bbox
         position_ids = torch.arange(L, device=dev).expand(B, L)
@@ -299,8 +306,10 @@ class LayoutLMv3Model(nn.Module):
         if cfg.visual_embed and images is not None:
             v = self.patch_embed(images)
             v = torch.cat([self.cls_token.expand(B, 1, -1), v], dim=1)
-            v = self.visual_norm(v + self.pos_embed)
-            x = self.LayerNorm(torch.cat([x, v], dim=1))
+            v = dropout(v + self.pos_embed, cfg.dropout, rng)
+            v = self.visual_norm(v)
+            x = dropout(self.LayerNorm(torch.cat([x, v], dim=1)),
+                        cfg.dropout, rng)
             vlen = cfg.visual_len
             full_bbox = torch.cat(
                 [bbox, self.visual_bbox.to(bbox.dtype).expand(B, -1, -1)],
@@ -324,29 +333,43 @@ class LayoutLMv3Model(nn.Module):
         else:
             bias = relative_attention_bias(cfg, t1, tx, ty, position_ids,
                                            full_bbox, valid_span, vlen)
-        return self.encoder(x, key_padding_mask=key_padding, attn_bias=bias)
+        return self.encoder(x, key_padding_mask=key_padding, attn_bias=bias,
+                            generator=generator)
+
+
+class _Head(Dense):
+    """A head's Dense; it takes the dropout generator as ClassificationHead
+    does, and has no dropout of its own."""
+
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        return super().forward(x)
 
 
 def _head(cfg: LayoutLMv3Config, n: int, device) -> Dense:
     """A flax nn.Dense left at dtype=None: float32 compute, lecun-normal
     init (std fan_in^-0.5)."""
-    d = Dense(cfg.hidden_size, n, bias=True, dtype=torch.float32,
+    d = _Head(cfg.hidden_size, n, bias=True, dtype=torch.float32,
               param_dtype=torch.float32, device=device)
     d.init_std = cfg.hidden_size ** -0.5
     return d
 
 
 class ClassificationHead(nn.Module):
-    """dense -> tanh -> out_proj (modeling:990-1013), float32."""
+    """dropout -> dense -> tanh -> dropout -> out_proj (modeling:990-1013),
+    float32; the dropouts draw from `rng` (none: eval)."""
 
     def __init__(self, cfg: LayoutLMv3Config, num_labels: int, device=None):
         super().__init__()
         E = cfg.hidden_size
+        self.rate = cfg.dropout
         self.dense = _head(cfg, E, device)
         self.out_proj = _head(cfg, num_labels, device)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.out_proj(torch.tanh(self.dense(x)))
+    def forward(self, x: torch.Tensor,
+                rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        x = torch.tanh(self.dense(dropout(x, self.rate, rng)))
+        return self.out_proj(dropout(x, self.rate, rng))
 
 
 @torch.no_grad()
@@ -390,10 +413,12 @@ class LayoutLMv3ForTokenClassification(_LayoutLMv3Head):
                            ClassificationHead(cfg, cfg.num_labels, device))
 
     def forward(self, input_ids, bbox, attention_mask=None, images=None,
-                valid_span=None) -> torch.Tensor:
+                valid_span=None, generator=None) -> torch.Tensor:
         seq = self.layoutlmv3(input_ids, bbox, attention_mask, images,
-                              valid_span)
-        return self.classifier(seq[:, :input_ids.shape[1]])
+                              valid_span, generator)
+        rng = training_rng(self, generator)
+        text = dropout(seq[:, :input_ids.shape[1]], self.cfg.dropout, rng)
+        return self.classifier(text, rng)
 
 
 class LayoutLMv3ForSequenceClassification(_LayoutLMv3Head):
@@ -406,10 +431,10 @@ class LayoutLMv3ForSequenceClassification(_LayoutLMv3Head):
         self.classifier = ClassificationHead(cfg, cfg.num_labels, device)
 
     def forward(self, input_ids, bbox, attention_mask=None, images=None,
-                valid_span=None) -> torch.Tensor:
+                valid_span=None, generator=None) -> torch.Tensor:
         seq = self.layoutlmv3(input_ids, bbox, attention_mask, images,
-                              valid_span)
-        return self.classifier(seq[:, 0])
+                              valid_span, generator)
+        return self.classifier(seq[:, 0], training_rng(self, generator))
 
 
 class LayoutLMv3ForQuestionAnswering(_LayoutLMv3Head):
@@ -422,9 +447,9 @@ class LayoutLMv3ForQuestionAnswering(_LayoutLMv3Head):
         self.qa_outputs = _head(cfg, 2, device)
 
     def forward(self, input_ids, bbox, attention_mask=None, images=None,
-                valid_span=None):
+                valid_span=None, generator=None):
         seq = self.layoutlmv3(input_ids, bbox, attention_mask, images,
-                              valid_span)
+                              valid_span, generator)
         logits = self.qa_outputs(seq[:, :input_ids.shape[1]])
         return logits[..., 0], logits[..., 1]
 

@@ -42,7 +42,8 @@ from torch import nn
 
 from unilm_tpu_torch.core.config import TransformerConfig
 from unilm_tpu_torch.core.embedding import PatchEmbed
-from unilm_tpu_torch.core.layers import Dense, Norm, init_weights_
+from unilm_tpu_torch.core.layers import (Dense, Norm, dropout, init_weights_,
+                                         training_rng)
 from unilm_tpu_torch.core.transformer import (Decoder, Encoder,
                                               stack_layer_params)
 from unilm_tpu_torch.ops.quant import (PROJECTIONS, QuantDense,
@@ -125,14 +126,17 @@ class ViTEncoder(nn.Module):
             1, cfg.num_patches + cfg.num_prefix_tokens, E, device=device))
         self.encoder = Encoder(tcfg, device=device)
 
-    def forward(self, images: torch.Tensor) -> torch.Tensor:
+    def forward(self, images: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         x = self.patch_embed(images)
         B, _, E = x.shape
         toks = [self.cls_token.to(x.dtype).expand(B, 1, E)]
         if hasattr(self, "dist_token"):
             toks.append(self.dist_token.to(x.dtype).expand(B, 1, E))
         x = torch.cat(toks + [x], dim=1) + self.pos_embed.to(x.dtype)
-        return self.encoder(x)
+        x = dropout(x, self.encoder.cfg.dropout,
+                    training_rng(self, generator))
+        return self.encoder(x, generator=generator)
 
 
 class TrOCRDecoder(nn.Module):
@@ -189,14 +193,19 @@ class TrOCRDecoder(nn.Module):
     def forward(self, tokens: torch.Tensor,
                 encoder_out: Optional[torch.Tensor], *, mode: str = "train",
                 cache_size: int = 0, cache: Optional[Dict] = None,
-                return_features: bool = False):
+                return_features: bool = False,
+                generator: Optional[torch.Generator] = None):
         """mode "train": logits [B, T, V] (the decoder output [B, T, E]
-        with return_features). mode "prefill" | "decode": (logits, cache);
-        decode reads `cache` and ignores `encoder_out`."""
+        with return_features); in training `generator` draws the
+        embedding's dropout (JAX :161), then the stack's. mode "prefill" |
+        "decode": (logits, cache); decode reads `cache` and ignores
+        `encoder_out`."""
         start = 0 if mode != "decode" else cache["pos"]
         x = self.embed(tokens, start)
         if mode == "train":
-            x = self.decoder(x, mode="train", encoder_out=encoder_out)
+            x = dropout(x, self.cfg.dropout, training_rng(self, generator))
+            x = self.decoder(x, mode="train", encoder_out=encoder_out,
+                             generator=generator)
             return x if return_features else self.output_layer(x)
         x, dec = self.decoder(
             x, mode=mode, cache_size=cache_size,
@@ -238,10 +247,12 @@ class TrOCRModel(nn.Module):
             0.0, self.cfg.dec_dim ** -0.5, generator=generator)
         return self
 
-    def encode(self, images: torch.Tensor) -> torch.Tensor:
+    def encode(self, images: torch.Tensor,
+               generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Images [B, H, W, 3] -> encoder output [B, S, E] (through
-        enc_to_dec_proj where the config has one)."""
-        enc = self.vit(images)
+        enc_to_dec_proj where the config has one); `generator`: the
+        encoder's dropout in training (JAX :110)."""
+        enc = self.vit(images, generator)
         if hasattr(self, "enc_to_dec_proj"):
             enc = self.enc_to_dec_proj(enc)
         return enc
@@ -267,9 +278,13 @@ class TrOCRModel(nn.Module):
         return logits, {"text_decoder": td}
 
     def forward(self, images: torch.Tensor, prev_tokens: torch.Tensor,
-                return_features: bool = False) -> torch.Tensor:
-        return self.text_decoder(prev_tokens, self.encode(images),
-                                 return_features=return_features)
+                return_features: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Teacher-forced logits; in training (`model.train()` with a
+        dropout rate) `generator` draws every mask, the encoder's first."""
+        return self.text_decoder(prev_tokens, self.encode(images, generator),
+                                 return_features=return_features,
+                                 generator=generator)
 
 
 def _is_trocr_quantized(path) -> bool:

@@ -35,8 +35,17 @@ tensor's device decides:
   (tests/test_torch_dead_rows.py pins both). The doc kernel's VMEM
   admissibility is a TPU budget and is not carried: some shapes the TPU
   sends to #9 (a mid-size S with no mask) take #3 here, which computes
-  the same function there. Dropout raises NotImplementedError naming its
-  ROADMAP entry.
+  the same function there.
+- Attention dropout (`dropout_rate > 0` with a `dropout_rng`, a training
+  forward) takes the plain path on every device: JAX sends every call
+  with a rate to its XLA path (ops/attention.py:122, :139) and no Pallas
+  kernel computes it, so on the card this is JAX's own route and the
+  launch counters show no attention kernel for such a call. The mask comes
+  from ops/dropout.py's `draw_keep` over the float32 probabilities, which
+  are scaled by 1 / (1 - rate), as JAX's. Kept on purpose: JAX also takes
+  its XLA path at evaluation, where the rate is still passed; the port
+  launches the kernels whenever no mask is drawn (no `dropout_rng`). The
+  two compute the same function.
 - A head-major bias on the plain path is permuted to [B, H, T, S] (a
   view), as the JAX dispatcher does where its kernel does not apply.
 """
@@ -48,6 +57,7 @@ from typing import Optional
 import torch
 
 from unilm_tpu_torch.ops import doc_attention as da
+from unilm_tpu_torch.ops import dropout as dropout_ops
 from unilm_tpu_torch.ops import flash_attention as fa
 
 NEG_INF = -1e30  # large-negative instead of -inf: keeps softmax NaN-free
@@ -65,11 +75,14 @@ def make_window_mask(q_positions: torch.Tensor, k_positions: torch.Tensor,
     return (diff < window) & (diff >= 0)
 
 
-def dot_product_attention(q, k, v, *, bias=None, mask=None, scale=None):
+def dot_product_attention(q, k, v, *, bias=None, mask=None, scale=None,
+                          dropout_rate: float = 0.0, dropout_rng=None):
     """Plain attention with a float32 softmax. q [B,T,H,D], k/v [B,S,H,D],
     bias additive [B|1,H|1,T,S], mask bool broadcastable to [B,H,T,S].
     bf16 inputs keep the logits in bf16 and fp32 inputs in fp32, as the
-    JAX reference does. Returns [B, T, H, D]."""
+    JAX reference does. With `dropout_rng` the float32 probabilities are
+    dropped at `dropout_rate` (keep [B, H, T, S] from `draw_keep`) and
+    scaled by 1 / (1 - rate). Returns [B, T, H, D]."""
     out_dtype = q.dtype
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -78,7 +91,12 @@ def dot_product_attention(q, k, v, *, bias=None, mask=None, scale=None):
         logits = logits + bias.to(logits.dtype)
     if mask is not None:
         logits = logits.masked_fill(~mask, NEG_INF)
-    probs = torch.softmax(logits.float(), dim=-1).to(out_dtype)
+    probs = torch.softmax(logits.float(), dim=-1)
+    if dropout_rate > 0.0 and dropout_rng is not None:
+        keep = dropout_ops.draw_keep(probs.shape, dropout_rate, dropout_rng,
+                                 probs.device)
+        probs = probs * keep / (1.0 - dropout_rate)
+    probs = probs.to(out_dtype)
     return torch.einsum("bhts,bshd->bthd", probs.float(), v.float()).to(
         out_dtype)
 
@@ -96,16 +114,16 @@ def attention(
     kv_len: Optional[int] = None,  # valid prefix length of k/v
     window: int = 0,
     dropout_rate: float = 0.0,
+    dropout_rng: Optional[torch.Generator] = None,
     use_flash: bool = True,
 ) -> torch.Tensor:
-    """Dispatching attention front-end. Returns [B, T, H, D]."""
+    """Dispatching attention front-end. Returns [B, T, H, D]. A
+    `dropout_rng` with `dropout_rate > 0` (a training forward) drops the
+    probabilities on the plain path; without one the rate is not
+    applied."""
     T, S = q.shape[1], k.shape[1]
-    if dropout_rate > 0.0:
-        raise NotImplementedError(
-            "attention dropout is not ported yet (every UniGPT train config "
-            "of the repo runs with dropout 0): ROADMAP Queue 1, remainder "
-            "of slices 3-4 (dropout)")
-    if use_flash and q.is_cuda:
+    drop = dropout_rate > 0.0 and dropout_rng is not None
+    if use_flash and q.is_cuda and not drop:
         if (not causal and not window and kv_len is None and q_offset is None
                 and S <= fa.ENCODER_MAX_S):
             if (key_padding_mask is not None
@@ -144,4 +162,6 @@ def attention(
         mask = _and(mask, make_window_mask(q_pos, k_pos, window)[None, None])
     if kv_len is not None:
         mask = _and(mask, (k_pos < kv_len)[None, None, None, :])
-    return dot_product_attention(q, k, v, bias=bias, mask=mask, scale=scale)
+    return dot_product_attention(
+        q, k, v, bias=bias, mask=mask, scale=scale,
+        dropout_rate=dropout_rate if drop else 0.0, dropout_rng=dropout_rng)

@@ -1,10 +1,14 @@
 """Generation engine: greedy, sampling, beam, diverse-siblings,
-length-constrained and diverse beam search, and ensembling (port of
-unilm_tpu/runtime/generate.py: `GenerationConfig` :37, `_tile_cache` :73,
-`_topk_over_beams` :85, `_gather_beams` :107, `_ngram_ban_mask` :135,
-`_adjust_logprobs` :163, `_apply_len_constraints` :180,
+length-constrained and diverse beam search, ensembling, lexically
+constrained beam search and aggressive (draft-and-verify) decoding (port
+of unilm_tpu/runtime/generate.py: `GenerationConfig` :37, `_tile_cache`
+:73, `_topk_over_beams` :85, `_gather_beams` :107, `_ngram_ban_mask`
+:135, `_adjust_logprobs` :163, `_apply_len_constraints` :180,
 `length_constraints` :202, `greedy_generate` :216, `beam_generate` :285,
-`generate` :444, `make_ensemble` :467, `diverse_beam_generate` :511).
+`generate` :444, `make_ensemble` :467, `diverse_beam_generate` :511,
+`pack_constraints` :673, `_advance_progress` :700,
+`constrained_beam_generate` :723, `_rewind_cache` :923,
+`aggressive_generate` :936).
 
 Model adapter: two closures
     prefill(tokens [B, P], aux) -> (logits [B, P|1, V], cache)
@@ -34,9 +38,16 @@ kept candidates, as `jax.random.categorical`); JAX's key stream cannot be
 reproduced, so its tokens differ, but its kept support (top-k, top-p) is
 the same.
 
-`constrained_beam_generate` (:723) and `aggressive_generate` (GAD, :936)
-are not ported yet and raise NotImplementedError naming their ROADMAP
-item.
+`constrained_beam_generate` is fairseq's LexicallyConstrainedBeamSearch
+as the JAX package redesigned it for static shapes (ordered constraints,
+dynamic beam allocation by banks of constraint progress); every top-k in
+it is the stable `_top_k`, so ties break as JAX's and the beams equal
+JAX's. `aggressive_generate` (GAD) verifies a drafted block in one
+decoder call of T = D + 1 tokens (the generic T > 1 decode path, over
+`kv_len = start + T`) and rewinds the cache's counters to the accepted
+length (`_rewind_cache`): stale pool rows past it are hidden by kv_len on
+the next verify and by the decode kernel's `lengths` on a one-token step,
+and overwritten by later writes. There is no `jax.jit` to port.
 """
 
 from __future__ import annotations
@@ -49,9 +60,6 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -1.0e7
-
-_NOT_PORTED = ("{} is not ported yet: ROADMAP Queue 1 item 6.1 (the rest of "
-               "runtime/generate.py: constrained beam and GAD)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -585,11 +593,259 @@ def make_ensemble(model_fns, temperature: float = 1.0):
     return prefill, step
 
 
-def constrained_beam_generate(*args, **kwargs):
-    """Lexically constrained beam search (JAX :723): not ported yet."""
-    raise NotImplementedError(_NOT_PORTED.format("constrained_beam_generate"))
+# ------------------------------------------------------------------------ #
+# Lexically constrained beam search (ordered constraints; Post & Vilar 2018)
+# ------------------------------------------------------------------------ #
 
 
-def aggressive_generate(*args, **kwargs):
-    """Generalized aggressive decoding (GAD, JAX :936): not ported yet."""
-    raise NotImplementedError(_NOT_PORTED.format("aggressive_generate"))
+def pack_constraints(batch_phrases, pad: int = 1, device=None):
+    """Per-sentence ordered constraint phrases -> (constraints [B, C],
+    phrase_start [B, C], counts [B]) int64 tensors: the flat ordered tokens
+    padded with `pad`; for each token the flat index where its phrase
+    begins (the automaton's reset target); the number of real tokens."""
+    B = len(batch_phrases)
+    C = max((sum(len(p) for p in ph) for ph in batch_phrases), default=1) or 1
+    out = torch.full((B, C), pad, dtype=torch.int64)
+    starts = torch.zeros((B, C), dtype=torch.int64)
+    counts = torch.zeros((B,), dtype=torch.int64)
+    for b, phrases in enumerate(batch_phrases):
+        j = 0
+        for ph in phrases:
+            s = j
+            for t in ph:
+                out[b, j] = int(t)
+                starts[b, j] = s
+                j += 1
+        counts[b] = j
+    return out.to(device), starts.to(device), counts.to(device)
+
+
+def _advance_progress(progress, tok, constraints, phrase_start, counts):
+    """The ordered-constraint automaton's step (fairseq
+    LexicallyConstrainedBeamSearch's ordered state). progress, tok [B, N]:
+    a token that matches the next constraint token advances; otherwise a
+    partly matched phrase resets to its start and the token is retried
+    against the phrase's first token (greedy matching, no KMP backtrack,
+    as the reference)."""
+    C = constraints.shape[1]
+    pj = progress.clamp(0, C - 1)
+    nxt = torch.gather(constraints, 1, pj)
+    done = progress >= counts[:, None]
+    adv = ~done & (tok == nxt)
+    reset = torch.gather(phrase_start, 1, pj)
+    first = torch.gather(constraints, 1, reset.clamp(0, C - 1))
+    retry = ~done & ~adv & (tok == first)
+    return torch.where(adv, progress + 1, torch.where(
+        done, progress, torch.where(retry, reset + 1, reset)))
+
+
+def constrained_beam_generate(cfg: GenerationConfig, prefill: Callable,
+                              step: Callable, prompt: torch.Tensor,
+                              constraints: torch.Tensor,
+                              phrase_start: torch.Tensor,
+                              counts: torch.Tensor, aux: Any = None):
+    """Lexically constrained beam search with ordered constraints (fairseq
+    search.LexicallyConstrainedBeamSearch, Post & Vilar 2018's dynamic beam
+    allocation, as upstream TrOCR uses it; JAX :723-920). `constraints`,
+    `phrase_start`, `counts`: `pack_constraints`' tensors.
+
+    Each beam tracks `progress` (constraint tokens met, in order), and a
+    candidate's bank is its new progress. Candidates are the top 2K of the
+    K x V cube plus each beam's forced advance token (its next unmet
+    constraint token), de-duplicated; the K survivors are taken round-robin
+    over the banks (each bank's best before any bank's second), by the
+    float32 key valid * 1e12 + rank_in_bank * 1e6 - clip(score) * 1e-3.
+    eos is blocked until a beam has met every constraint, so a finished
+    hypothesis always meets them; alive leftovers that do not rank after
+    the met ones at NEG_INF / 2.
+
+    Returns (tokens [B, K, total], scores [B, K], met [B, K] bool)."""
+    B, P = prompt.shape
+    K, V = cfg.beam_size, cfg.vocab_size
+    total = P + cfg.max_new_tokens
+    if V <= 0:
+        raise ValueError("GenerationConfig.vocab_size is required for beam "
+                         "search")
+    dev = prompt.device
+    constraints, phrase_start, counts = (
+        t.to(device=dev, dtype=torch.int64)
+        for t in (constraints, phrase_start, counts))
+    C = constraints.shape[1]
+
+    lp0, cache, tokens_flat = _beam_prefill(cfg, prefill, prompt, aux)
+    # eos before the constraints are met: only with no constraints
+    lp0[:, cfg.eos] = torch.where(counts > 0, NEG_INF, lp0[:, cfg.eos])
+    k0 = min(K, V)
+    first_scores, first_tokens = (t.clone() for t in _top_k(lp0, k0))
+    if k0 < K:
+        first_scores = torch.cat([first_scores, torch.full(
+            (B, K - k0), NEG_INF, device=dev)], dim=1)
+        first_tokens = torch.cat([first_tokens, torch.full(
+            (B, K - k0), cfg.pad, dtype=torch.int64, device=dev)], dim=1)
+    # the first constraint token among the first beams (the DBA seed)
+    adv0 = constraints[:, 0]
+    have = (first_tokens == adv0[:, None]).any(dim=1) | (counts == 0)
+    forced = torch.gather(lp0, 1, adv0[:, None])[:, 0]
+    first_tokens[:, K - 1] = torch.where(have, first_tokens[:, K - 1], adv0)
+    first_scores[:, K - 1] = torch.where(have, first_scores[:, K - 1], forced)
+    progress = _advance_progress(torch.zeros_like(first_tokens), first_tokens,
+                                 constraints, phrase_start, counts)
+
+    cache, aux_t = _tile_cache(cache, K), _tile_cache(aux, K)
+    alive_tokens = tokens_flat.repeat_interleave(K, dim=0).reshape(B, K, total)
+    alive_tokens[:, :, P] = first_tokens
+    fin = _Finished(B, K, total, cfg, dev)
+    is_eos0 = (first_tokens == cfg.eos) & (counts == 0)[:, None]
+    fin.scores = torch.where(is_eos0, first_scores, fin.scores)
+    fin.tokens = torch.where(is_eos0[..., None], alive_tokens, fin.tokens)
+    fin.exists = is_eos0
+    alive_scores = torch.where(is_eos0, NEG_INF, first_scores)
+    beams = torch.arange(K, device=dev)
+
+    i = P + 1
+    while fin.open(i, total, P, alive_scores):
+        flat_tokens = alive_tokens.reshape(B * K, total)
+        logits, cache = step(flat_tokens[:, i - 1:i], cache, aux_t)
+        lp = torch.log_softmax(logits[:, -1].float() / cfg.temperature,
+                               dim=-1)
+        lp = _adjust_logprobs(lp, flat_tokens, i - P, i, cfg).reshape(B, K, V)
+        met = progress >= counts[:, None]
+        lp[:, :, cfg.eos] = torch.where(met, lp[:, :, cfg.eos], NEG_INF)
+        cand = alive_scores[:, :, None] + lp
+        top_scores, beam_idx, tok_idx = _topk_over_beams(cand, 2 * K)
+
+        # each beam's forced advance: its next unmet constraint token,
+        # dropped if met, dead or already among the top 2K from that beam
+        adv_tok = torch.gather(constraints, 1, progress.clamp(0, C - 1))
+        adv_scores = alive_scores + torch.gather(lp, 2,
+                                                 adv_tok[..., None])[..., 0]
+        dup = ((beam_idx[:, None, :] == beams[None, :, None])
+               & (tok_idx[:, None, :] == adv_tok[..., None])).any(dim=2)
+        adv_valid = ~met & ~dup & (alive_scores > NEG_INF / 2)
+        adv_scores = torch.where(adv_valid, adv_scores, NEG_INF)
+
+        all_scores = torch.cat([top_scores, adv_scores], dim=1)  # [B, 3K]
+        all_beam = torch.cat([beam_idx, beams.expand(B, K)], dim=1)
+        all_tok = torch.cat([tok_idx, adv_tok], dim=1)
+        cand_prog = _advance_progress(torch.gather(progress, 1, all_beam),
+                                      all_tok, constraints, phrase_start,
+                                      counts)
+        is_eos = (all_tok == cfg.eos) & (all_scores > NEG_INF / 2)
+        cand_rows = _take(alive_tokens, all_beam)
+        cand_rows[:, :, i] = all_tok
+        fin.add(torch.where(is_eos, all_scores / fin.lp_den(i + 1 - P),
+                            NEG_INF), cand_rows, is_eos)
+
+        # ---- survivors by bank: every bank's best outranks any second ---
+        M = all_scores.shape[1]
+        alive_cand = torch.where(is_eos, NEG_INF, all_scores)
+        valid = alive_cand > NEG_INF / 2
+        same_bank = cand_prog[:, :, None] == cand_prog[:, None, :]
+        order = torch.arange(M, device=dev)
+        better = (alive_cand[:, None, :] > alive_cand[:, :, None]) | (
+            (alive_cand[:, None, :] == alive_cand[:, :, None])
+            & (order[None, None, :] < order[None, :, None]))
+        rank = (same_bank & better & valid[:, None, :]).sum(dim=2)
+        key = (torch.where(valid, 0.0, 1e12) + rank.float() * 1e6
+               - alive_cand.clamp(NEG_INF, 0.0) * 1e-3)
+        _, sel = _top_k(-key, K)  # the K smallest keys
+        alive_scores = torch.gather(alive_cand, 1, sel)
+        alive_tokens = _take(cand_rows, sel)
+        progress = torch.gather(cand_prog, 1, sel)
+        cache = _gather_beams(cache, torch.gather(all_beam, 1, sel), B, K)
+        i += 1
+
+    # finished hypotheses met every constraint; alive leftovers rank after
+    # them, unmet ones last (fairseq sorts them below the met ones)
+    met_alive = progress >= counts[:, None]
+    alive_fin = (alive_scores / fin.lp_den(total - P)
+                 + torch.where(met_alive, 0.0, NEG_INF / 2))
+    all_scores = torch.cat([torch.where(fin.exists, fin.scores, NEG_INF),
+                            alive_fin], dim=1)
+    out_scores, idx = _top_k(all_scores, K)
+    out_tokens = _take(torch.cat([fin.tokens, alive_tokens], dim=1), idx)
+    out_met = torch.gather(torch.cat([fin.exists, met_alive], dim=1), 1, idx)
+    return out_tokens, out_scores, out_met
+
+
+# ------------------------------------------------------------------------ #
+# (Generalized) aggressive decoding: draft and verify
+# ------------------------------------------------------------------------ #
+
+
+def _rewind_cache(tree: Any, new_len: int) -> Any:
+    """Every counter of the cache (the Python ints `cache_index` and
+    `pos`) set to new_len; the pools pass through. Rows past new_len are
+    stale: kv_len (a T > 1 verify) or the decode kernel's lengths (a
+    one-token step) hide them, and later writes overwrite them. A dataclass
+    cache (YOCO's) raises: its retention state has already taken in the
+    rejected draft tokens, and no counter can undo that."""
+    if isinstance(tree, dict):
+        return {k: _rewind_cache(v, new_len) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_rewind_cache(v, new_len) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        raise TypeError(f"aggressive decoding cannot rewind a "
+                        f"{type(tree).__name__}: it may hold recurrent state")
+    if isinstance(tree, int):
+        return int(new_len)
+    return tree
+
+
+def aggressive_generate(cfg: GenerationConfig, prefill: Callable,
+                        step: Callable, prompt: torch.Tensor,
+                        draft_fn: Callable, aux: Any = None,
+                        block_size: int = 16):
+    """(Generalized) aggressive decoding (reference decoding/GAD): verify a
+    drafted block in ONE decoder call, accept the longest prefix that
+    matches greedy, take the model's correction token, rewind the cache
+    and repeat: exactly the greedy (argmax) output in fewer sequential
+    calls. Batch 1.
+
+    draft_fn(accepted, need) gets the accepted sequence so far (a numpy
+    array, prompt included) and the number of tokens to draft, and returns
+    up to `need` tokens. Each verify feeds [last accepted, draft...]
+    (T = D + 1) to `step`; its output j predicts position len(accepted) +
+    j. Returns (tokens [1, P + max_new_tokens], model calls)."""
+    import numpy as np
+
+    B, P = prompt.shape
+    if B != 1:
+        raise ValueError("aggressive decoding runs batch 1 (accept lengths "
+                         "are per sample)")
+    total = P + cfg.max_new_tokens
+    dev = prompt.device
+
+    def finish(accepted):
+        out = torch.full((1, total), cfg.pad, dtype=torch.int64)
+        n = min(len(accepted), total)
+        out[0, :n] = torch.tensor(accepted[:n], dtype=torch.int64)
+        return out.to(dev)
+
+    logits, cache = prefill(prompt, aux)
+    first = int(torch.argmax(logits[0, -1]))
+    accepted = [int(t) for t in prompt[0].tolist()] + [first]
+    calls = 1
+    if first == cfg.eos:
+        return finish(accepted), calls
+    while len(accepted) < total:
+        need = min(block_size, total - len(accepted))
+        draft = np.asarray(draft_fn(np.asarray(accepted), need)).reshape(
+            -1)[:need].tolist()
+        D = len(draft)
+        x = torch.tensor([[accepted[-1]] + [int(t) for t in draft]],
+                         dtype=torch.int64, device=dev)
+        logits, cache = step(x, cache, aux)
+        g = torch.argmax(logits[0], dim=-1).tolist()  # [D + 1]
+        calls += 1
+        k = 0
+        while k < D and g[k] == draft[k] and draft[k] != cfg.eos:
+            k += 1
+        new_tokens = [int(t) for t in draft[:k]] + [int(g[k])]
+        accepted.extend(new_tokens)
+        # the cache holds [last, draft...]: its valid prefix is what was
+        # accepted before this block's last token
+        cache = _rewind_cache(cache, len(accepted) - 1)
+        if cfg.eos in new_tokens:
+            break
+    return finish(accepted), calls
