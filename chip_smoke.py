@@ -282,6 +282,49 @@ seconds since the script started ("[flash 35s] ..."):
     holds its phrases in order, the best teacher-forced on the kernel and
     the plain path within BEAM_SCORE_ATOL of its score, ms a step beside
     plain beam search's.
+    docai_kernels (after train_options' encoder part): the kernels of the
+    Document AI and TrOCR fine-tune paths alone at those paths' shapes
+    against their plain versions (bf16 relative L2 1e-2, fp32 1e-4,
+    gradients by grad_close): #9 at LayoutLMv2's 32x561 (fp32) and 16x561
+    (bf16) with the dense per-example [B, 12, 561, 561] bias and the
+    key-padding mask, and at LayoutLM / MarkupLM's 32x512 (fp32) and
+    16x512 (bf16) with the mask alone; #10 at the two bf16 shapes; TrOCR's
+    #4 at the DeiT encoder's 32x578x12x64, #3 and #4 at the decoder's
+    cross-attention 32x64 over 578 slots, #5 at its causal self-attention
+    32x64x16x64 and #6 / #7 on #5's out and lse; each timed as device
+    time beside the plain version, sdpa (or sdpa's backward) and the bound.
+    docai: layoutlm_base, markuplm_base and layoutlmv2_base (12 layers,
+    E=768, 12 heads, random weights from the seed) through
+    models/registry.build: eval in float32 at B=32 over 512 token slots
+    with padded rows (LayoutLMv2 with 224x224 pages: 512 + 49 tokens under
+    its dense bias), exactly 12 launches of #9 a forward and nothing else,
+    docs/s, the valid tokens' logits against the plain path (LayoutLMv3's
+    eval bounds); MarkupLM's QA head once; then 3 bf16 fine-tune steps at
+    B=16 (AdamW lr 1e-5 wd 0.01, clip 1.0; LayoutLMv2's loss adds the RE
+    head over 64 entity pairs): exactly 12 #9 and 12 #10 a step, ms/step,
+    docs/s, peak memory, device time by kernel group, a teacher check of
+    one batch against the plain path at LayoutLMv3's fine-tune bounds.
+    trocr_train (after trocr_int8): trocr_base fine-tuning at full width
+    (bf16 / fp32 params) through runtime/train.teacher_forced_loss and
+    runtime.train.make_train_step, B=32 synthetic 384x384 lines with
+    32-64 target tokens, label smoothing 0.1, AdamW lr 2e-5 wd 0.01, clip
+    1.0: 3 steps at dropout 0 and 3 at 0.1, exactly 24 #3, 24 #4, 12 #5,
+    12 #6 and 12 #7 a step at both rates; ms/step, lines/s, peak memory,
+    device time by group; a teacher check at dropout 0 at the initial
+    weights against the bf16 plain path at the train phase's bounds: loss,
+    grad norm and every tensor's gradient cosine (the key biases by the
+    norm only); printed beside it, the same with JAX's flash delta from
+    the bf16 out, and after the steps the plain path against itself with
+    its weights perturbed by 2^-11.
+    spm: cli/trocr_eval.py --spm tests/fixtures/tiny_digits.model on its
+    synthetic lines (the CLI's full-width model at 64 px), beam 5: per
+    batch 12 #3 + 12 #5 + 12 #3 in encode and prefill, 12 #3 + 12 #13 a
+    decode step, exactly; the VLTokenizer "spm" backend's ids of a
+    grounding prompt; data/spm.py against the sentencepiece package where
+    it is installed (printed).
+    reproduce_baseline (after beit2): cli/reproduce_baseline.py --smoke on
+    the card for trocr_iam, funsd, kosmos_ocr, beit_base_eval and
+    beit_large_eval: a well-formed verdict each.
     train_options (after layoutlmv3_train; its UniGPT part inside train,
     after train_schedules), each run 3 timed steps and a profiled one:
     BEiT-B (B=256) without remat, under remat "dots" (24 #3 + 12 #4 a
@@ -358,7 +401,10 @@ seconds since the script started ("[flash 35s] ..."):
     (128 at T = S = 2048), ragged T and S; then at the train shape
     2x2048x32x64 causal with a key-padding mask, both kernels checked
     against the plain backward, bit-equal twice, and timed as device time
-    beside sdpa's backward and the plain backward, with TFLOP/s.
+    beside sdpa's backward and the plain backward, with TFLOP/s. In bf16
+    #6 takes delta = rowsum(p dp) exactly, in a first sweep: near-uniform
+    rows (keys whose v share a large common part) hold dq, dk and dv at a
+    cosine of 0.9999 to float32 autograd.
 12. train: the 1.3B UniGPT (24 layers, E=2048, 32 heads, FFN 8192, vocab
     65037, T=2048, bf16 compute / fp32 params, random weights from the
     seed) built by unilm_tpu_torch.cli.train_gpt.build_trainer with the
@@ -382,8 +428,8 @@ seconds since the script started ("[flash 35s] ..."):
     optimizer), and a teacher check of one microbatch under both
     schedules against the default kernels at the train phase's bounds.
 Then a JSON line of the two int8 paths', the TrOCR paths', the
-Kosmos-2 paths', the BEiT family's, search's and train_options'
-measurements ("paths"), and one
+Kosmos-2 paths', the BEiT family's, search's, train_options', Document
+AI's and TrOCR fine-tuning's measurements ("paths"), and one
 with each kernel's launches, summed over its main-path phases and listed
 by phase in `launches_by_path` (counters set to 0 just before each: slice,
 decode_int8_bs1 and kosmos_infer for flash_fwd, slice for decode,
@@ -403,12 +449,19 @@ page_pool for paged_attention, fused for swiglu and rotary, search for
 flash_fwd, encoder_attention, onepass_attention and decode_attention,
 train_options for flash_fwd, flash_bwd_dq, flash_bwd_dkv,
 encoder_attention, encoder_attention_bwd, doc_attention and
-doc_attention_bwd),
+doc_attention_bwd, docai for doc_attention and doc_attention_bwd,
+trocr_train for encoder_attention, encoder_attention_bwd,
+onepass_attention, flash_bwd_dq and flash_bwd_dkv, spm for
+encoder_attention, onepass_attention and decode_attention,
+reproduce_baseline for doc_attention and encoder_attention),
 error, the TrOCR shapes under "trocr" (encoder_attention,
 decode_attention, int8_matmul), the Kosmos-2 shapes under "kosmos2"
 (encoder_attention, encoder_attention_bwd, onepass_attention,
 decode_attention), the BEiT family's under "beit_family"
-(encoder_attention, encoder_attention_bwd, doc_attention),
+(encoder_attention, encoder_attention_bwd, doc_attention), Document AI's
+under "docai" (doc_attention, doc_attention_bwd) and TrOCR fine-tuning's
+under "trocr_train" (encoder_attention, encoder_attention_bwd,
+onepass_attention, flash_bwd_dq, flash_bwd_dkv),
 times (kernel, plain version, and `library_ms`, one torch call computing
 the same function where one exists, else null) and `bound_ms` /
 `bound_by` (the larger of the bytes over 3.35 TB/s and the operations
@@ -422,6 +475,7 @@ device it exits non-zero before printing any result.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -1940,9 +1994,12 @@ def phase_flash_bwd(fa, g) -> dict:
     through a q_offset), a window edge and kv_len mid-tile; T < 64, ragged
     T and S, D = 64, 96 and 128 (128 at T = S = 2048), every bias
     broadcast, dbias summed over B = 3 (acc_b), dead rows (a fully masked
-    example, a causal row whose one key is padding) with zero gradients.
-    Then the train shape: checked, bit-equal twice, and timed as device
-    time (#6, #7, the pair, sdpa's backward) with TFLOP/s and bounds."""
+    example, a causal row whose one key is padding) with zero gradients;
+    near-uniform rows whose exact delta a delta from the bf16 out would
+    lose, against float32 autograd. Then the train shape: checked,
+    bit-equal twice, and timed as device time (#6, #7, the pair, sdpa's
+    backward) with TFLOP/s and bounds (#6's: the three products of the
+    function, not the two its delta sweep recomputes)."""
     dev = "cuda"
     # (B, T, S, H, D, causal, q_offset, kv_len, window, kpm, bias); kpm
     # True: random keys masked and the last example wholly; "first": key 0
@@ -2026,6 +2083,39 @@ def phase_flash_bwd(fa, g) -> dict:
                 check(bool((got[0][-1] == 0).all() and (got[1][-1] == 0).all()),
                       f"flash_bwd {desc}: fully masked row has gradients")
             phase("flash_bwd", f"{desc}: max|err|/rel L2 {', '.join(errs)} ok")
+
+    # near-uniform rows over keys whose v share a large common part (the
+    # random TrOCR decoder's late self-attention): dp - delta is ~100x
+    # below dp, so a delta from the bf16 out loses dq and dk; #6's exact
+    # rowsum(p dp) keeps them. Cosines to float32 autograd on the same
+    # (bf16-rounded) inputs, beside the twin given JAX's rowsum(dO out)
+    B, T, H, D = 4, 64, 16, 64
+    f32 = torch.float32
+    q = (randn(g, B, T, H, D, dtype=f32) * D ** -0.5).to(torch.bfloat16)
+    k, do = randn(g, B, T, H, D), randn(g, B, T, H, D)
+    v = (0.01 * randn(g, B, T, H, D, dtype=f32)
+         + randn(g, 1, 1, H, D, dtype=f32)).to(torch.bfloat16)
+    out, lse = fa.flash_forward(q, k, v, None, None, causal=True)
+    got = fa.flash_backward(q, k, v, None, None, 0, None, out, lse, do,
+                            causal=True)
+    jax_rule = fa.flash_backward_plain(q, k, v, None, None, 0, None, out, lse,
+                                       do, causal=True,
+                                       delta=fa._delta(out, do))
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    o32, _ = fa.flash_forward_plain(*ref, None, None, 0, None, causal=True)
+    want = torch.autograd.grad(o32, ref, do.float())
+    cos = lambda a, b: float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.flatten(), dim=0))
+    cs = [cos(x, w) for x, w in zip(got[:3], want)]
+    cj = [cos(x, w) for x, w in zip(jax_rule[:3], want)]
+    check(min(cs) >= 0.9999, f"flash_bwd near-uniform rows: dq/dk/dv cosines "
+          f"to float32 {cs} (bound 0.9999)")
+    phase("flash_bwd", f"near-uniform rows, v = a common part + 1% noise, "
+          f"{B}x{T}x{H}x{D} bf16 causal: #6/#7 dq, dk, dv cosines to float32 "
+          f"autograd {', '.join(f'{c:.6f}' for c in cs)} (bound 0.9999); "
+          f"the twin with a delta from the bf16 out "
+          f"{', '.join(f'{c:.6f}' for c in cj)}")
+    del q, k, v, do, out, lse, got, jax_rule, ref, o32, want
 
     # through autograd: a head-broadcast bias takes the plain recompute (its
     # own counter, not the kernels), as the JAX custom VJP does; its dq, dk
@@ -5392,6 +5482,42 @@ def groups_line(parts: dict, host: float) -> str:
                 f"{k} {v:.3f}" for k, v in parts.items()))
 
 
+def randn(g, *shape, dtype=torch.bfloat16, dev: str = "cuda"):
+    """A normal draw from the generator `g`, in `dtype`."""
+    return torch.randn(*shape, generator=g, device=dev).to(dtype)
+
+
+def kernel_timed(kern, plain, lib, only, moved, ops, kind: str = "bf16",
+                 flushed: bool = False) -> dict:
+    """A kernel's device time beside its plain version's, the library
+    call's and the bound (`roofline(moved, ops, kind)`); with `flushed`,
+    the kernel and the library call also with L2 flushed."""
+    r = {"ms": device_ms(kern, only=only)}
+    if flushed:
+        r["ms_l2_flushed"] = cold_ms(kern, only)
+    r["plain_ms"] = device_ms(plain, iters=3)
+    r["library_ms"] = device_ms(lib)
+    if flushed:
+        r["library_ms_l2_flushed"] = cold_ms(lib)
+    return {**r, **roofline(moved, ops, kind)}
+
+
+def kernel_line(name: str, key: str, r: dict, tol: float = None) -> None:
+    """Print a `kernel_timed` row of the phase `name`."""
+    cold = "ms_l2_flushed" in r
+    phase(name, f"{key} {r['shape']}: rel L2 {r['rel_l2']:.3g}"
+          + (f" (bound {tol})" if tol else "")
+          + (f", max|err| {r['max_abs_err']:.3g}" if "max_abs_err" in r
+             else "")
+          + f"; device time {r['ms']:.4f} ms"
+          + (f" back to back, {r['ms_l2_flushed']:.4f} flushed" if cold
+             else "")
+          + f"; {r['library']} {r['library_ms']:.4f}"
+          + (f" / {r['library_ms_l2_flushed']:.4f}" if cold else "")
+          + f"; plain {r['plain_ms']:.4f}; bound {r['bound_ms']:.5f} "
+          f"({r['bound_by']}, {r['ms'] / r['bound_ms']:.2f}x)")
+
+
 def phase_beit_family_kernels(fa, da, g, dev: str = "cuda") -> dict:
     """The kernels of the BEiT family's path alone, at each of its shapes,
     against their plain versions (relative L2 <= 1e-2 in bf16, 1e-4 in
@@ -5409,24 +5535,9 @@ def phase_beit_family_kernels(fa, da, g, dev: str = "cuda") -> dict:
 
     bf, name, H, D = torch.bfloat16, "beit_family_kernels", 12, 64
 
-    def rn(*shape, dtype=bf):
-        return torch.randn(*shape, generator=g, device=dev).to(dtype)
-
-    def timed(kern, plain, lib, only, moved, ops, kind="bf16"):
-        return {"ms": device_ms(kern, only=only),
-                "ms_l2_flushed": cold_ms(kern, only),
-                "plain_ms": device_ms(plain, iters=3),
-                "library_ms": device_ms(lib),
-                "library_ms_l2_flushed": cold_ms(lib),
-                **roofline(moved, ops, kind)}
-
-    def line(key, r, tol):
-        phase(name, f"{key} {r['shape']}: rel L2 {r['rel_l2']:.3g} (bound "
-              f"{tol}); device time {r['ms']:.4f} ms back to back, "
-              f"{r['ms_l2_flushed']:.4f} flushed; {r['library']} "
-              f"{r['library_ms']:.4f} / {r['library_ms_l2_flushed']:.4f}; "
-              f"plain {r['plain_ms']:.4f}; bound {r['bound_ms']:.5f} "
-              f"({r['bound_by']})")
+    rn = functools.partial(randn, g, dev=dev)
+    timed = functools.partial(kernel_timed, flushed=True)
+    line = functools.partial(kernel_line, name)
 
     k3, k9, k4 = {}, {}, {}
     nv = 197
@@ -7599,20 +7710,26 @@ def phase_search(fa) -> tuple:
 DROPOUT = 0.1
 
 
-def grads_teacher(name: str, a: tuple, b: tuple, names: list) -> dict:
-    """(loss, grads) a against b at the train teacher's bounds."""
+def grads_teacher(name: str, a: tuple, b: tuple, names: list,
+                  bounds: tuple = None, skip: tuple = ()) -> dict:
+    """(loss, grads) a against b: loss and global grad norm relative, the
+    minimum per-tensor cosine over the names not ending in one of `skip`
+    (a key bias's gradient is zero up to rounding: a key bias shifts every
+    score of a row alike), at `bounds` (loss rel, norm rel, cosine; the
+    train teacher's by default)."""
+    loss_b, norm_b, cos_b = bounds or (TEACHER_LOSS_REL, TEACHER_NORM_REL,
+                                       TEACHER_COS)
     la, ga = a
     lb, gb = b
     na = float(torch.sqrt(sum(g.float().pow(2).sum() for g in ga)))
     nb = float(torch.sqrt(sum(g.float().pow(2).sum() for g in gb)))
     cos = {n: float(torch.nn.functional.cosine_similarity(
         x.flatten().float(), y.flatten().float(), dim=0))
-        for n, x, y in zip(names, ga, gb)}
+        for n, x, y in zip(names, ga, gb) if not n.endswith(skip)}
     worst = min(cos, key=cos.get)
     loss_rel, norm_rel = abs(la - lb) / abs(lb), abs(na - nb) / nb
-    check(loss_rel <= TEACHER_LOSS_REL and norm_rel <= TEACHER_NORM_REL
-          and cos[worst] >= TEACHER_COS,
-          f"train_options {name}: loss rel {loss_rel}, grad norm rel "
+    check(loss_rel <= loss_b and norm_rel <= norm_b and cos[worst] >= cos_b,
+          f"{LAST_PHASE[0]} {name}: loss rel {loss_rel}, grad norm rel "
           f"{norm_rel}, min cosine {cos[worst]} ({worst})")
     return {"loss_rel": loss_rel, "norm_rel": norm_rel,
             "min_cos": cos[worst], "worst": worst}
@@ -7896,6 +8013,810 @@ def phase_train_options_encoders() -> dict:
     return launches, rows
 
 
+# Document AI: layoutlm_base, markuplm_base and
+# layoutlmv2_base at full width (12 layers, E=768, 12 heads, random weights
+# from the seed). Eval at the FUNSD CLI's precision (float32) on B=32
+# documents of 512 token slots, some rows padded (LayoutLMv2 adds the 7x7
+# visual grid of 224x224 pages: 561 tokens under a dense per-example bias);
+# fine-tuning in bf16 / fp32 params at B=16, AdamW lr 1e-5 wd 0.01, clip
+# 1.0, 7 labels. Gates: LayoutLMv3's (LV3_EVAL_* on the valid tokens'
+# logits, LV3_TEACHER_* on one batch's loss, grad norm and cosines).
+DOCAI_MODELS = ("layoutlm_base", "markuplm_base", "layoutlmv2_base")
+DOCAI_L, DOCAI_EVAL_B, DOCAI_TRAIN_B, DOCAI_STEPS = 512, 32, 16, 3
+DOCAI_LABELS, DOCAI_PAGE, DOCAI_RE_PAIRS = 7, 224, 64
+DOCAI_GROUPS = [("#9", ["doc_fwd", "encoder_attn_kernel"]),
+                ("#10", ["doc_bwd"]),
+                ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                            "splitK"]),
+                ("bias gather / scatter", ["index", "gather", "scatter"]),
+                ("conv backbone", ["conv", "cudnn", "upsample"])]
+# TrOCR-Base fine-tuning: B=32 lines of 384x384, 32-64 target tokens (bos,
+# text, eos, pads to 64 + 1), label smoothing 0.1, AdamW lr 2e-5 wd 0.01
+# (benchmarks/train_mfu.py bench_trocr), clip 1.0; 3 steps at dropout 0
+# (the config's) and 3 at DROPOUT; the teacher check at dropout 0 at the
+# train phase's bounds (TEACHER_*), the key biases by norm only.
+TROCR_TRAIN_B, TROCR_TRAIN_T, TROCR_TRAIN_STEPS = 32, 64, 3
+TROCR_TRAIN_GROUPS = [("#3", [ENCODER_ONLY]), ("#4", [ENC_BWD_ONLY]),
+                      ("#5", [ONEPASS_ONLY]), ("#6/#7", ["flash_bwd_d"]),
+                      ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet",
+                                  "cublas", "splitK"])]
+SPM_MODEL = Path(__file__).resolve().parent / "tests" / "fixtures" / \
+    "tiny_digits.model"
+REPRODUCE_CONFIGS = ("trocr_iam", "funsd", "kosmos_ocr", "beit_base_eval",
+                     "beit_large_eval")
+
+
+def docai_batch(name: str, cfg, B: int, rng: np.random.RandomState,
+                dev) -> dict:
+    """Synthetic documents for `name` on the card: token ids with rows
+    padded from a random length (row 0 full), boxes with x0 <= x1 and
+    y0 <= y1 on a 1000-unit page (MarkupLM: xpath tag and subscript units),
+    LayoutLMv2's normalized pages, labels (-100 on pads), and for
+    LayoutLMv2 DOCAI_RE_PAIRS (head, tail) entity starts with 0/1 labels."""
+    L = DOCAI_L
+    lens = rng.randint(L // 2, L + 1, B)
+    lens[0] = L
+    valid = np.arange(L)[None] < lens[:, None]
+    ids = rng.randint(3, cfg.vocab_size - 1, (B, L))
+    ids[~valid] = getattr(cfg, "pad_token_id", 0)
+    labels = rng.randint(0, DOCAI_LABELS, (B, L))
+    labels[~valid] = -100
+    t = lambda a: torch.from_numpy(a).to(dev)
+    b = {"ids": t(ids), "mask": t(valid), "labels": t(labels)}
+    if name == "markuplm_base":
+        b["tags"] = t(rng.randint(0, cfg.max_xpath_tag_units,
+                                  (B, L, cfg.max_depth)))
+        b["subs"] = t(rng.randint(0, cfg.max_xpath_subs_units,
+                                  (B, L, cfg.max_depth)))
+    else:
+        xs, ys = (np.sort(rng.randint(0, 1000, (B, L, 2)), -1) for _ in "xy")
+        b["bbox"] = t(np.stack([xs[..., 0], ys[..., 0], xs[..., 1],
+                                ys[..., 1]], -1))
+    if name == "layoutlmv2_base":
+        b["images"] = t((rng.rand(B, DOCAI_PAGE, DOCAI_PAGE, 3) * 2 - 1)
+                        .astype(np.float32))
+        b["heads"] = t(rng.randint(0, L // 2, (B, DOCAI_RE_PAIRS)))
+        b["tails"] = t(rng.randint(0, L // 2, (B, DOCAI_RE_PAIRS)))
+        b["relations"] = t(rng.randint(0, 2, (B, DOCAI_RE_PAIRS)))
+    return b
+
+
+def docai_forward(name: str, model, b: dict):
+    """Token logits of the Document AI model on batch b."""
+    if name == "markuplm_base":
+        return model(b["ids"], b["tags"], b["subs"], b["mask"])
+    if name == "layoutlmv2_base":
+        return model(b["ids"], b["bbox"], b["mask"], b["images"])
+    return model(b["ids"], b["bbox"], b["mask"])
+
+
+def docai_loss(name: str, model, re_head, b: dict) -> torch.Tensor:
+    """Token cross-entropy over the labelled tokens; for LayoutLMv2 plus
+    the RE head's cross-entropy over the batch's entity pairs, read from
+    the same hidden states."""
+    from unilm_tpu_torch.runtime import train
+
+    y = b["labels"]
+    if re_head is None:
+        logits = docai_forward(name, model, b)
+    else:
+        seq = model.layoutlmv2(b["ids"], b["bbox"], b["mask"], b["images"])
+        logits = model.classifier(seq[:, :DOCAI_L])
+    s, n = train.cross_entropy_loss(logits, y.clamp(min=0), mask=y != -100)
+    loss = s / n
+    if re_head is not None:
+        r = re_head(seq, b["heads"], b["tails"])
+        rs, rn = train.cross_entropy_loss(r, b["relations"])
+        loss = loss + rs / rn
+    return loss
+
+
+def launches_only(got: dict, want: dict, what: str) -> None:
+    """Every counter at its `want` value, every other at 0."""
+    bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
+    check(not bad, f"{LAST_PHASE[0]}: {what}: launches {bad} (want {want} "
+          "and no other kernel)")
+
+
+def phase_docai_kernels(fa, da, g, dev: str = "cuda") -> dict:
+    """The kernels of the Document AI and TrOCR fine-tune paths alone at
+    the shapes those paths give them, against their plain versions
+    (relative L2 1e-2 in bf16, 1e-4 in float32; gradients by grad_close):
+    #9 at LayoutLMv2's 32x561 (float32) and 16x561 (bf16) with its dense
+    per-example [B, 12, 561, 561] bias and the key-padding mask, and at
+    LayoutLM / MarkupLM's 32x512 (float32) and 16x512 (bf16) with the mask
+    alone; #10 at the two bf16 shapes (dbias the full bias plane); TrOCR's
+    fine-tune step: #4 at the DeiT encoder's 32x578x12x64, #3 and #4 at
+    the decoder's cross-attention 32x64 over 578 slots (16 heads of 64),
+    #5 at its causal self-attention 32x64x16x64 and #6 / #7 (its backward,
+    on #5's out and lse). Each timed as device time beside the plain
+    version, sdpa (or sdpa's backward) and the bound. Returns {kernel
+    name: {"docai" | "trocr_train": {...}}} for the kernels line."""
+    name, bf, f32 = "docai_kernels", torch.bfloat16, torch.float32
+    H, D = 12, 64
+
+    rn = functools.partial(randn, g, dev=dev)
+    timed = kernel_timed
+    line = functools.partial(kernel_line, name)
+
+    def doc_case(B, T, biased, dtype):
+        q, k, v, do = (rn(B, T, H, D, dtype=dtype) for _ in range(4))
+        mask = torch.arange(T, device=dev)[None] < torch.randint(
+            T // 2, T + 1, (B, 1), generator=g, device=dev)
+        mask[0] = True
+        if biased:  # LayoutLMv2: the text's padding; the visual grid is kept
+            mask[:, DOCAI_L:] = True
+        b = rn(B, H, T, T, dtype=dtype) * 0.5 if biased else None
+        return q, k, v, do, b, mask
+
+    k9, k10, k3, k4, k5, k67 = {}, {}, {}, {}, {}, {}
+    visual = (DOCAI_PAGE // 32) ** 2  # the backbone's 7x7 grid
+    for key, B, T, biased, dtype in (
+            ("layoutlmv2_eval", DOCAI_EVAL_B, DOCAI_L + visual, True, f32),
+            ("layoutlmv2_train", DOCAI_TRAIN_B, DOCAI_L + visual, True, bf),
+            ("bert_eval", DOCAI_EVAL_B, DOCAI_L, False, f32),
+            ("bert_train", DOCAI_TRAIN_B, DOCAI_L, False, bf)):
+        q, k, v, do, b, mask = doc_case(B, T, biased, dtype)
+        tol = 1e-4 if dtype == f32 else 1e-2
+        out = da.doc_attention(q, k, v, b, mask)
+        ref = da.doc_attention_plain(q, k, v, b, mask)
+        torch.cuda.synchronize()
+        e = rel_l2(out, ref)
+        check(bool(torch.isfinite(out.float()).all()) and e <= tol,
+              f"{name}: #9 {key} rel L2 {e} (bound {tol})")
+        am = (doc_sdpa_mask(da, b, mask) if biased
+              else mask[:, None, None, :])
+        pairs = float(mask.sum()) * T * H
+        fp32 = dtype == f32
+        desc = (f"{B}x{T}x{T}x{H}x{D} {'fp32' if fp32 else 'bf16'}, "
+                + (f"dense bias [{B},{H},{T},{T}] + key-padding mask"
+                   if biased else "key-padding mask"))
+        r = k9[key] = {
+            "shape": desc, "rel_l2": e,
+            "max_abs_err": float((out.float() - ref.float()).abs().max()),
+            "library": "sdpa (float mask)" if biased else "sdpa (bool mask)",
+            **timed(lambda: da.doc_attention(q, k, v, b, mask),
+                    lambda: da.doc_attention_plain(q, k, v, b, mask),
+                    lambda: sdpa(q, k, v, attn_mask=am), "doc_fwd" if not fp32
+                    else "encoder_attn_kernel",
+                    nbytes(q, k, v, out, b, mask), 4 * pairs * D,
+                    "fp32" if fp32 else "bf16")}
+        line(f"#9 {key}", r)
+        del out, ref
+        if not fp32:
+            got = da.doc_backward(q, k, v, b, mask, do)
+            want = da.doc_backward_plain(q, k, v, b, mask, do)
+            torch.cuda.synchronize()
+            worst_rel = worst_abs = 0.0
+            for gname, x, rr in zip(("dq", "dk", "dv", "dbias"), got, want):
+                if rr is None:
+                    continue
+                ok, ea, er = grad_close(x, rr, 1e-2)
+                check(bool(torch.isfinite(x.float()).all()) and ok,
+                      f"{name}: #10 {key} {gname} max|err| {ea} rel L2 {er}")
+                worst_rel, worst_abs = max(worst_rel, er), max(worst_abs, ea)
+            qg, kg, vg = (t.detach().clone().requires_grad_()
+                          for t in (q, k, v))
+            amg = (am.detach().clone().requires_grad_() if biased else am)
+            o = sdpa(qg, kg, vg, attn_mask=amg)
+            ins = (qg, kg, vg, amg) if biased else (qg, kg, vg)
+            r = k10[key] = {
+                "shape": desc + ", dq/dk/dv" + ("/dbias" if biased else ""),
+                "rel_l2": worst_rel, "max_abs_err": worst_abs,
+                "library": f"sdpa backward ({type(o.grad_fn).__name__})",
+                **timed(lambda: da.doc_backward(q, k, v, b, mask, do),
+                        lambda: da.doc_backward_plain(q, k, v, b, mask, do),
+                        lambda: torch.autograd.grad(o, ins, do.transpose(1, 2),
+                                                    retain_graph=True),
+                        "doc_bwd", nbytes(q, k, v, do, b, mask, *got),
+                        10 * pairs * D)}
+            line(f"#10 {key}", r)
+            del got, want, o, qg, kg, vg, amg
+        del q, k, v, do, b, mask, am
+        torch.cuda.empty_cache()
+
+    # TrOCR-Base's fine-tune step: the encoder's backward (its forward has
+    # trocr_kernels' row), the decoder's cross- and self-attention
+    B, T, S = TROCR_TRAIN_B, TROCR_TRAIN_T, TROCR_S
+    for key, T_, Hk in (("encoder", S, 12), ("cross", T, 16)):
+        q, do = rn(B, T_, Hk, D), rn(B, T_, Hk, D)
+        k, v = rn(B, S, Hk, D), rn(B, S, Hk, D)
+        if key == "cross":
+            out = fa.fused_encoder_attention(q, k, v)
+            ref = fa.fused_encoder_attention_plain(q, k, v)
+            torch.cuda.synchronize()
+            e = rel_l2(out, ref)
+            check(e <= 1e-2, f"{name}: #3 cross rel L2 {e}")
+            r = k3[key] = {
+                "shape": f"{B}x{T_}x{S}x{Hk}x{D} bf16, no bias", "rel_l2": e,
+                "max_abs_err": float((out.float() - ref.float()).abs().max()),
+                "library": "sdpa",
+                **timed(lambda: fa.fused_encoder_attention(q, k, v),
+                        lambda: fa.fused_encoder_attention_plain(q, k, v),
+                        lambda: sdpa(q, k, v), ENCODER_ONLY,
+                        nbytes(q, k, v, out), 4 * B * Hk * T_ * S * D)}
+            line("#3 trocr cross", r)
+            del out, ref
+        got = fa.fused_encoder_backward(q, k, v, None, do)
+        want = fa.fused_encoder_backward_plain(q, k, v, None, do)
+        torch.cuda.synchronize()
+        worst_rel = worst_abs = 0.0
+        for gname, x, rr in zip(("dq", "dk", "dv"), got, want):
+            ok, ea, er = grad_close(x, rr, 1e-2)
+            check(bool(torch.isfinite(x.float()).all()) and ok,
+                  f"{name}: #4 {key} {gname} max|err| {ea} rel L2 {er}")
+            worst_rel, worst_abs = max(worst_rel, er), max(worst_abs, ea)
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        o = sdpa(qg, kg, vg)
+        r = k4[key] = {
+            "shape": f"{B}x{T_}x{S}x{Hk}x{D} bf16, no bias, dq/dk/dv",
+            "rel_l2": worst_rel, "max_abs_err": worst_abs,
+            "library": f"sdpa backward ({type(o.grad_fn).__name__})",
+            **timed(lambda: fa.fused_encoder_backward(q, k, v, None, do),
+                    lambda: fa.fused_encoder_backward_plain(q, k, v, None, do),
+                    lambda: torch.autograd.grad(o, (qg, kg, vg),
+                                                do.transpose(1, 2),
+                                                retain_graph=True),
+                    ENC_BWD_ONLY, nbytes(q, k, v, do, *got),
+                    10 * B * Hk * T_ * S * D)}
+        line(f"#4 trocr {key}", r)
+        del q, k, v, do, got, want, o, qg, kg, vg
+
+    # the decoder's causal self-attention (pre-scaled q, as the flash
+    # wrappers take it): #5 forward, #6 / #7 on its out and lse
+    Hs = 16
+    check(fa.onepass_applies(B, Hs, T, T, D, None, 0),
+          f"{name}: #5 does not take the self-attention's {B}x{T}x{Hs}x{D}")
+    q = rn(B, T, Hs, D) * D ** -0.5
+    k, v, do = rn(B, T, Hs, D), rn(B, T, Hs, D), rn(B, T, Hs, D)
+    out, lse = fa.flash_forward_onepass(q, k, v, causal=True)
+    ref, rlse = fa.flash_forward_onepass_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    e = rel_l2(out, ref)
+    check(e <= 1e-2 and float((lse - rlse).abs().max()) <= LSE_ATOL,
+          f"{name}: #5 self rel L2 {e}")
+    causal_pairs_ = B * Hs * T * (T + 1) / 2
+    r = k5["self"] = {
+        "shape": f"{B}x{T}x{T}x{Hs}x{D} bf16, causal", "rel_l2": e,
+        "max_abs_err": float((out.float() - ref.float()).abs().max()),
+        "library": "sdpa (is_causal)",
+        **timed(lambda: fa.flash_forward_onepass(q, k, v, causal=True),
+                lambda: fa.flash_forward_onepass_plain(q, k, v, causal=True),
+                lambda: sdpa(q, k, v, is_causal=True, scale=1.0),
+                ONEPASS_ONLY, nbytes(q, k, v, out, lse),
+                4 * causal_pairs_ * D)}
+    line("#5 trocr self", r)
+    got = fa.flash_backward(q, k, v, None, None, 0, None, out, lse, do,
+                            causal=True)
+    want = fa.flash_backward_plain(q, k, v, None, None, 0, None, out, lse, do,
+                                   causal=True)
+    torch.cuda.synchronize()
+    worst_rel = worst_abs = 0.0
+    for gname, x, rr in zip(("dq", "dk", "dv"), got, want):
+        ok, ea, er = grad_close(x, rr, 1e-2)
+        check(bool(torch.isfinite(x.float()).all()) and ok,
+              f"{name}: #6/#7 {gname} max|err| {ea} rel L2 {er}")
+        worst_rel, worst_abs = max(worst_rel, er), max(worst_abs, ea)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    o = sdpa(qg, kg, vg, is_causal=True, scale=1.0)
+    lib = lambda: torch.autograd.grad(o, (qg, kg, vg), do.transpose(1, 2),
+                                      retain_graph=True)
+    bwd = lambda: fa.flash_backward(q, k, v, None, None, 0, None, out, lse,
+                                    do, causal=True)
+    plain = lambda: fa.flash_backward_plain(q, k, v, None, None, 0, None,
+                                            out, lse, do, causal=True)
+    lib_ms, plain_ms = device_ms(lib), device_ms(plain, iters=3)
+    # as phase_flash_bwd counts them: dq (#6) 3 products a pair (the
+    # scores, dP, dS K), dk/dv (#7) 4 (the scores, dP, P^T dO, dS^T Q)
+    for kname, only, moved, ops in (
+            ("flash_bwd_dq", "flash_bwd_dq", nbytes(q, k, v, do, lse, got[0]),
+             6 * causal_pairs_ * D),
+            ("flash_bwd_dkv", "flash_bwd_dkv",
+             nbytes(q, k, v, do, lse, got[1], got[2]),
+             8 * causal_pairs_ * D)):
+        r = k67[kname] = {
+            "shape": f"{B}x{T}x{T}x{Hs}x{D} bf16, causal, on #5's out/lse",
+            "rel_l2": worst_rel, "max_abs_err": worst_abs,
+            "library": f"sdpa backward ({type(o.grad_fn).__name__}), the "
+            "whole dq/dk/dv", "library_ms": lib_ms, "plain_ms": plain_ms,
+            "ms": device_ms(bwd, only=only), **roofline(moved, ops)}
+        line(f"#{6 if kname.endswith('dq') else 7} trocr self", r)
+    del q, k, v, do, out, lse, got, want, o, qg, kg, vg
+    torch.cuda.empty_cache()
+    return {"doc_attention": {"docai": k9},
+            "doc_attention_bwd": {"docai": k10},
+            "encoder_attention": {"trocr_train": k3},
+            "encoder_attention_bwd": {"trocr_train": k4},
+            "onepass_attention": {"trocr_train": k5},
+            "flash_bwd_dq": {"trocr_train": {"self": k67["flash_bwd_dq"]}},
+            "flash_bwd_dkv": {"trocr_train": {"self": k67["flash_bwd_dkv"]}}}
+
+
+def phase_docai() -> tuple:
+    """LayoutLM, MarkupLM and LayoutLMv2 at full width through
+    models/registry.build (random weights from the seed): for each, eval
+    at float32 on DOCAI_EVAL_B documents (exactly 12 launches of #9 a
+    forward and nothing else; LayoutLMv2 at 561 tokens under its dense
+    bias), docs/s, the logits of the valid tokens against the plain path
+    (LV3_EVAL_*); MarkupLM's QA head once, the same way; then
+    DOCAI_STEPS bf16 fine-tune steps at DOCAI_TRAIN_B through
+    runtime.train.make_train_step (LayoutLMv2 with the RE head over
+    DOCAI_RE_PAIRS entity pairs in the loss): exactly 12 #9 and 12 #10 a
+    step, ms/step, docs/s, peak memory, a step's device time by kernel
+    group; before the steps, a teacher check of one batch at the initial
+    weights against the plain path (LV3_TEACHER_*, the key biases by norm
+    only: the random RE head's first Adam steps swing the loss, so a
+    state after them is a chaotic point to compare at). Returns
+    (launches, numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unilm_tpu_torch.models import markuplm as mm
+    from unilm_tpu_torch.models import registry
+    from unilm_tpu_torch.models.layoutlmv2 import RelationExtractionHead
+    from unilm_tpu_torch.runtime import optim, train
+
+    dev = torch.device("cuda")
+    launches, nums = {}, {}
+    L = DOCAI_L
+
+    def build(name, **kw):
+        cfg, m = registry.build(name, device=dev, num_labels=DOCAI_LABELS,
+                                **kw)
+        return cfg, m.init_weights(torch.Generator(device=dev).manual_seed(
+            SEED))
+
+    def add(got):
+        for k, v in got.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+
+    for name in DOCAI_MODELS:
+        rng = np.random.RandomState(SEED)
+        cfg, model = build(name)
+        model.eval()
+        nl = cfg.num_layers
+        b = docai_batch(name, cfg, DOCAI_EVAL_B, rng, dev)
+        T = L + (cfg.visual_len if name == "layoutlmv2_base" else 0)
+        valid = b["labels"] != -100
+        # ---- eval: one forward on the main path, then timed ------------
+        reset_counts()
+        with torch.no_grad():
+            logits = docai_forward(name, model, b)
+        torch.cuda.synchronize()
+        got = counts()
+        launches_only(got, {"doc_attention": nl}, f"{name} eval forward")
+        add(got)
+        check(logits.shape == (DOCAI_EVAL_B, L, DOCAI_LABELS)
+              and logits.dtype == torch.float32
+              and bool(torch.isfinite(logits).all()),
+              f"docai: {name} logits {logits.shape} {logits.dtype}")
+        with torch.no_grad():
+            ms = cuda_ms(lambda: docai_forward(name, model, b), iters=3,
+                         warmup=1)
+        _, plain = build(name, use_flash=False)
+        plain.load_state_dict(model.state_dict())
+        plain.eval()
+        c0 = counts()
+        with torch.no_grad():
+            plogits = docai_forward(name, plain, b)
+            ms_plain = cuda_ms(lambda: docai_forward(name, plain, b),
+                               iters=2, warmup=0)
+        check(counts() == c0, f"docai: {name} plain path launched a kernel")
+        dl = float((logits - plogits).abs()[valid].max())
+        agree = float((logits.argmax(-1) == plogits.argmax(-1))[valid]
+                      .float().mean())
+        phase("docai", f"{name} eval: {nl} layers, E={cfg.hidden_size}, "
+              f"{T} tokens{' (512 text + the 7x7 grid, dense bias)' if T > L else ''}"
+              f", float32, B={DOCAI_EVAL_B}: {nl} launches of #9 a forward; "
+              f"{ms:.2f} ms/batch, {DOCAI_EVAL_B * 1e3 / ms:.1f} docs/s "
+              f"(plain path {ms_plain:.2f} ms); kernel vs plain max |dlogit| "
+              f"{dl:.2e} (tol {LV3_EVAL_LOGIT_ATOL}), argmax agreement "
+              f"{agree:.4f} (tol {LV3_EVAL_AGREE})")
+        check(dl <= LV3_EVAL_LOGIT_ATOL and agree >= LV3_EVAL_AGREE,
+              f"docai: {name} eval teacher check failed")
+        row = {"eval_ms": ms, "eval_docs_per_s": DOCAI_EVAL_B * 1e3 / ms,
+               "eval_plain_ms": ms_plain, "eval_max_dlogit": dl}
+        del logits, plogits, plain
+        if name == "markuplm_base":
+            qa = mm.MarkupLMForQuestionAnswering(cfg, device=dev).init_weights(
+                torch.Generator(device=dev).manual_seed(SEED)).eval()
+            pqa = mm.MarkupLMForQuestionAnswering(
+                dataclasses.replace(cfg, use_flash=False), device=dev)
+            pqa.load_state_dict(qa.state_dict())
+            pqa.eval()
+            reset_counts()
+            with torch.no_grad():
+                se = docai_forward(name, qa, b)
+            launches_only(counts(), {"doc_attention": nl}, "markuplm QA")
+            add(counts())
+            with torch.no_grad():
+                pse = docai_forward(name, pqa, b)
+            dqa = max(float((x - y).abs()[b["mask"]].max())
+                      for x, y in zip(se, pse))
+            phase("docai", f"markuplm_base QA forward: (start, end) logits "
+                  f"{tuple(se[0].shape)}, {nl} #9; max |dlogit| vs plain "
+                  f"{dqa:.2e} (tol {LV3_EVAL_LOGIT_ATOL})")
+            check(dqa <= LV3_EVAL_LOGIT_ATOL, "docai: markuplm QA teacher")
+            row["qa_max_dlogit"] = dqa
+            del qa, pqa, se, pse
+        del model
+        torch.cuda.empty_cache()
+
+        # ---- fine-tuning, bf16 compute / fp32 params --------------------
+        bcfg, model = build(name, dtype=torch.bfloat16)
+        model.train()
+        re_head = None
+        if name == "layoutlmv2_base":
+            re_head = RelationExtractionHead(bcfg.hidden_size, 2,
+                                             device=dev).init_weights(
+                torch.Generator(device=dev).manual_seed(SEED + 1))
+            model.re_head = re_head  # trained with the model
+        b = docai_batch(name, bcfg, DOCAI_TRAIN_B, rng, dev)
+        names = [n for n, p in model.named_parameters() if p.requires_grad]
+
+        def fwd_bwd(m):
+            loss = docai_loss(name, m, getattr(m, "re_head", None), b)
+            return float(loss.detach()), torch.autograd.grad(
+                loss, train.trainable(m))
+
+        # ---- teacher check at the initial weights: kernel vs plain path
+        _, plain = build(name, dtype=torch.bfloat16, use_flash=False)
+        if re_head is not None:
+            plain.re_head = RelationExtractionHead(bcfg.hidden_size, 2,
+                                                   device=dev)
+        plain.load_state_dict(model.state_dict())
+        plain.train()
+        c0 = counts()
+        lk, gk = fwd_bwd(model)
+        c1 = counts()
+        lp, gp = fwd_bwd(plain)
+        check(counts() == c1 and c1["doc_attention_bwd"]
+              - c0["doc_attention_bwd"] == nl,
+              f"docai: {name} teacher launches {c0} -> {c1} -> {counts()}")
+        t = grads_teacher(f"{name} fine-tune", (lk, gk), (lp, gp), names,
+                          (LV3_TEACHER_LOSS_REL, LV3_TEACHER_NORM_REL,
+                           LV3_TEACHER_COS), skip=("k_proj.bias",))
+        tabs = ""
+        if name == "layoutlmv2_base":
+            tabs = "; bias tables' cosines " + ", ".join(
+                f"{n.split('.')[-1]} " + str(round(float(
+                    torch.nn.functional.cosine_similarity(
+                        x.flatten().float(), y.flatten().float(), dim=0)), 5))
+                for n, x, y in zip(names, gk, gp) if "rel_pos" in n)
+        del plain, gk, gp
+
+        # ---- DOCAI_STEPS optimizer steps, the last ones timed ----------
+        loss_fn = lambda m, bb: (docai_loss(name, m, getattr(m, "re_head",
+                                                             None), bb), {})
+        tx = optim.AdamW(1e-5, weight_decay=0.01)
+        state = train.TrainState.create(model, tx)
+        step = train.make_train_step(loss_fn, tx, clip_grad_norm=1.0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses = []
+        for i in range(DOCAI_STEPS):
+            if i == 1:
+                ev[0].record()
+            state, mt = step(state, b)
+            losses.append(float(mt["loss"]))
+        ev[1].record()
+        torch.cuda.synchronize()
+        got = counts()
+        launches_only(got, {"doc_attention": nl * DOCAI_STEPS,
+                            "doc_attention_bwd": nl * DOCAI_STEPS},
+                      f"{name} {DOCAI_STEPS} fine-tune steps")
+        add(got)
+        check(all(np.isfinite(losses)), f"docai: {name} losses {losses}")
+        tms = ev[0].elapsed_time(ev[1]) / (DOCAI_STEPS - 1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fwd_bwd(model)
+            torch.cuda.synchronize()
+        parts = device_time_shares(prof, DOCAI_GROUPS)
+        phase("docai", f"{name} fine-tune, bf16, B={DOCAI_TRAIN_B}"
+              + (f", RE head over {DOCAI_RE_PAIRS} pairs" if re_head else "")
+              + f": losses {', '.join(f'{x:.4f}' for x in losses)}; {nl} #9 + "
+              f"{nl} #10 a step; {tms:.2f} ms/step (CUDA events, steps 2-"
+              f"{DOCAI_STEPS}), {DOCAI_TRAIN_B * 1e3 / tms:.1f} docs/s, peak "
+              f"memory {peak:.2f} GiB; teacher at the initial weights: loss "
+              f"rel {t['loss_rel']:.2e} "
+              f"(tol {LV3_TEACHER_LOSS_REL}), grad norm rel "
+              f"{t['norm_rel']:.2e} (tol {LV3_TEACHER_NORM_REL}), min cosine "
+              f"{t['min_cos']:.5f} ({t['worst']}, tol {LV3_TEACHER_COS})"
+              + tabs)
+        phase("docai", f"{name} fine-tune step (forward + backward) "
+              + groups_line(parts, tms))
+        row.update({"train_ms": tms, "train_docs_per_s":
+                    DOCAI_TRAIN_B * 1e3 / tms, "train_peak_gib": peak,
+                    "train_device_ms": parts, **{f"teacher_{k}": v
+                                                 for k, v in t.items()}})
+        nums[name] = row
+        del model, state, step, tx, b
+        torch.cuda.empty_cache()
+    return launches, {"docai": nums}
+
+
+def trocr_train_batch(cfg, rng: np.random.RandomState, dev) -> dict:
+    """TROCR_TRAIN_B synthetic normalized 384x384 lines and their targets:
+    bos, 32-64 text ids, eos, pads up to TROCR_TRAIN_T + 1 tokens."""
+    B, T = TROCR_TRAIN_B, TROCR_TRAIN_T
+    tokens = np.full((B, T + 1), 1, np.int64)  # pad 1
+    for i in range(B):
+        n = rng.randint(32, T) if i else T - 1
+        tokens[i, 0] = 0
+        tokens[i, 1:n + 1] = rng.randint(4, cfg.vocab_size, n)
+        tokens[i, n + 1] = 2
+    images = (rng.rand(B, cfg.img_size, cfg.img_size, 3) * 2 - 1)
+    return {"images": torch.from_numpy(images.astype(np.float32)).to(dev),
+            "tokens": torch.from_numpy(tokens).to(dev)}
+
+
+def phase_trocr_train() -> tuple:
+    """TrOCR-Base fine-tuning at full width (trocr_base(), bf16 compute /
+    fp32 params, random weights from the seed):
+    runtime/train.teacher_forced_loss (label smoothing 0.1, pads masked)
+    through runtime.train.make_train_step, AdamW lr 2e-5 wd 0.01, clip
+    1.0, on TROCR_TRAIN_B synthetic lines; TROCR_TRAIN_STEPS steps at dropout 0
+    and as many at DROPOUT. Exactly 24 #3 (12 encoder, 12 cross), 24 #4,
+    12 #5 (the causal self-attention), 12 #6 and 12 #7 a step at both
+    rates (attention_dropout is 0: every call keeps its kernel); ms/step,
+    lines/s, peak memory, a step's device time by group. A teacher check
+    of one batch at dropout 0 at the initial weights: the kernel path
+    against the bf16 plain path at the train teacher's bounds, every
+    tensor's cosine included (the key biases, whose gradient is zero up
+    to rounding, by the norm only); printed beside it, the lowest cosines
+    to the float32 plain path, also with #6 / #7 given JAX's flash delta
+    = rowsum(dO out) from the bf16 out. The late decoder layers'
+    self-attention q/k gradients are ~1000x smaller than their v's (the
+    random model's near-uniform attention): that delta loses them, #6's
+    exact rowsum(p dp) keeps them. After the steps those gradients sit at
+    bf16 rounding's noise (printed: the plain path against itself with
+    its weights perturbed by 2^-11 disagrees as much as the kernel path
+    does), so the check is held at the initial weights, as docai's is.
+    Returns (launches, numbers)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from unilm_tpu_torch.models.trocr import TrOCRModel, trocr_base
+    from unilm_tpu_torch.ops import flash_attention as fa
+    from unilm_tpu_torch.runtime import optim, train
+
+    dev = torch.device("cuda")
+    cfg = trocr_base(dtype=torch.bfloat16)
+    n = TROCR_LAYERS
+    per_step = {"encoder_attention": 2 * n, "encoder_attention_bwd": 2 * n,
+                "onepass_attention": n, "flash_bwd_dq": n,
+                "flash_bwd_dkv": n}
+    base = TrOCRModel(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(SEED))
+    rng = np.random.RandomState(SEED)
+    batch = trocr_train_batch(cfg, rng, dev)
+    phase("trocr_train", f"trocr_base fine-tuning: DeiT-B/16 at "
+          f"{cfg.img_size} ({TROCR_S} encoder tokens), the {n}-layer E="
+          f"{cfg.dec_dim} decoder, vocab {cfg.vocab_size}, bf16 / fp32 "
+          f"params, {sum(p.numel() for p in base.parameters()) / 1e6:.1f} M "
+          f"params; B={TROCR_TRAIN_B}, targets of 32-{TROCR_TRAIN_T} tokens")
+    launches, nums = {}, {}
+    for rate in (0.0, DROPOUT):
+        model = TrOCRModel(dataclasses.replace(cfg, dropout=rate), device=dev)
+        model.load_state_dict(base.state_dict())
+        model.train()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        loss_fn = lambda m, b: train.teacher_forced_loss(m, b, gen, 0.1,
+                                                         pad=1)
+        tx = optim.AdamW(2e-5, weight_decay=0.01)
+        state = train.TrainState.create(model, tx)
+        step = train.make_train_step(loss_fn, tx, clip_grad_norm=1.0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        losses = []
+        for i in range(TROCR_TRAIN_STEPS):
+            if i == 1:
+                ev[0].record()
+            state, mt = step(state, batch)
+            losses.append(float(mt["loss"]))
+        ev[1].record()
+        torch.cuda.synchronize()
+        got = counts()
+        launches_only(got, {k: v * TROCR_TRAIN_STEPS
+                            for k, v in per_step.items()},
+                      f"{TROCR_TRAIN_STEPS} steps at dropout {rate}")
+        for k, v in got.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+        check(all(np.isfinite(losses)), f"trocr_train: losses {losses}")
+        ms = ev[0].elapsed_time(ev[1]) / (TROCR_TRAIN_STEPS - 1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, batch)
+            torch.cuda.synchronize()
+        parts = device_time_shares(prof, TROCR_TRAIN_GROUPS)
+        phase("trocr_train", f"dropout {rate}: losses "
+              f"{', '.join(f'{x:.4f}' for x in losses)}; a step launches "
+              f"{per_step}; {ms:.2f} ms/step (CUDA events, steps 2-"
+              f"{TROCR_TRAIN_STEPS}), {TROCR_TRAIN_B * 1e3 / ms:.1f} lines/s, "
+              f"peak memory {peak:.2f} GiB; the profiled step "
+              + groups_line(parts, ms))
+        nums[f"dropout_{rate}"] = {"ms_per_step": ms, "peak_gib": peak,
+                                   "losses": losses, "device_ms": parts}
+        del state, step, tx
+        if not rate:
+            trained = {k: v.detach().clone()
+                       for k, v in model.state_dict().items()}
+        del model
+
+    # ---- teacher checks, one batch at dropout 0 ---------------------------
+    names = [nm for nm, _ in base.named_parameters()]
+    held = [i for i, nm in enumerate(names) if not nm.endswith("k_proj.bias")]
+
+    def grads_of(sd, perturb=0.0, **kw):
+        m = TrOCRModel(dataclasses.replace(cfg, **kw), device=dev)
+        m.load_state_dict(sd)
+        if perturb:  # each weight times 1 + perturb N(0, 1): other roundings
+            gp = torch.Generator(device=dev).manual_seed(SEED + 1)
+            with torch.no_grad():
+                for p in m.parameters():
+                    p.mul_(1 + perturb * torch.randn(p.shape, generator=gp,
+                                                     device=dev))
+        m.train()
+        loss, _ = train.teacher_forced_loss(m, batch, None, 0.1, pad=1)
+        return float(loss.detach()), [g.float() for g in torch.autograd.grad(
+            loss, list(m.parameters()))]
+
+    def min_cos(a, b):
+        c = {names[i]: float(torch.nn.functional.cosine_similarity(
+            a[1][i].flatten(), b[1][i].flatten(), dim=0)) for i in held}
+        worst = min(c, key=c.get)
+        return f"{c[worst]:.5f} ({worst})"
+
+    # at the initial weights: the kernel path against the bf16 plain path
+    # at the train teacher's bounds, every tensor (the key biases by norm)
+    init = base.state_dict()
+    c0 = counts()
+    res_k = grads_of(init)
+    c1 = counts()
+    res_p = grads_of(init, use_flash=False)
+    res_f = grads_of(init, use_flash=False, dtype=torch.float32)
+    check(counts() == c1 and all(c1[k] - c0[k] == v
+                                 for k, v in per_step.items()),
+          f"trocr_train teacher: launches {c0} -> {c1} -> {counts()}")
+
+    # the same with JAX's flash delta, rowsum(dO out) from the bf16 out:
+    # #6 / #7 swapped for their twin given it (printed, not held)
+    def jax_delta_backward(*a, want_dbias=True, **kw):
+        r = fa.flash_backward_plain(*a, delta=fa._delta(a[7], a[9]), **kw)
+        return (*r[:3], r[3] if want_dbias else None)
+
+    kernel_backward, fa.flash_backward = fa.flash_backward, jax_delta_backward
+    try:
+        res_j = grads_of(init)
+    finally:
+        fa.flash_backward = kernel_backward
+    phase("trocr_train", f"initial weights, min per-tensor gradient cosine "
+          f"to the float32 plain path: kernel path {min_cos(res_k, res_f)}, "
+          f"bf16 plain path {min_cos(res_p, res_f)}; with JAX's delta from "
+          f"the bf16 out {min_cos(res_j, res_f)}, to the bf16 plain path "
+          f"{min_cos(res_j, res_p)}")
+    t = grads_teacher("initial weights", res_k, res_p, names,
+                      skip=("k_proj.bias",))
+    phase("trocr_train", f"teacher check at the initial weights against the "
+          f"bf16 plain path: loss rel {t['loss_rel']:.2e} (tol "
+          f"{TEACHER_LOSS_REL}), grad norm rel {t['norm_rel']:.2e} (tol "
+          f"{TEACHER_NORM_REL}), min cosine {t['min_cos']:.5f} ({t['worst']}, "
+          f"tol {TEACHER_COS}) over {len(held)} tensors")
+    nums["teacher"] = t
+    del res_k, res_p, res_f, res_j
+
+    # after the dropout-0 steps (printed, not held): the late self-attention
+    # q/k gradients sit at bf16 rounding's noise, two roundings of the plain
+    # path itself (the weights perturbed by 2^-11) disagree as much
+    res_k = grads_of(trained)
+    res_p = grads_of(trained, use_flash=False)
+    res_q = grads_of(trained, perturb=2 ** -11, use_flash=False)
+    phase("trocr_train", f"after the {TROCR_TRAIN_STEPS + 1} steps at dropout "
+          f"0, min per-tensor gradient cosine: kernel path to the bf16 plain "
+          f"path {min_cos(res_k, res_p)}; the bf16 plain path to itself with "
+          f"the weights perturbed by 2^-11 {min_cos(res_p, res_q)}")
+    del res_k, res_p, res_q, trained, init
+    del base, batch
+    torch.cuda.empty_cache()
+    return launches, {"trocr_train": nums}
+
+
+def phase_spm() -> dict:
+    """cli/trocr_eval.py --spm tests/fixtures/tiny_digits.model on its
+    synthetic digit lines (the CLI's full-width TrOCR at 64 px, float32,
+    random weights from --seed), beam 5: per batch 12 #3 in the encode,
+    12 #5 + 12 #3 in the prefill, 12 #3 + 12 #13 a decode step, exactly;
+    CER/WER printed. Then the VLTokenizer's "spm" backend on a grounding
+    prompt (its ids printed, the text round-trip checked) and, where the
+    sentencepiece package is installed, its ids on the two checked-in
+    models against data/spm.py's, the fused-unknown case printed."""
+    from unilm_tpu_torch.cli import trocr_eval
+    from unilm_tpu_torch.data.spm import SentencePieceModel
+    from unilm_tpu_torch.data.vl_loaders import VLTokenizer
+
+    n, B, batches = TROCR_LAYERS, 4, 2
+    reset_counts()
+    t0 = time.time()
+    res = trocr_eval.main(["--synthetic", "--synthetic-n", str(B * batches),
+                           "--batch-size", str(B), "--beam", "5",
+                           "--max-new-tokens", "16", "--spm", str(SPM_MODEL)])
+    torch.cuda.synchronize()
+    got = counts()
+    steps = got["decode_attention"] // n
+    check(got["decode_attention"] == n * steps and steps >= batches
+          and got["onepass_attention"] == n * batches
+          and got["encoder_attention"] == n * (2 * batches + steps)
+          and sum(got.values()) == n * (3 * batches + 2 * steps),
+          f"spm: trocr_eval --spm launches {got} ({batches} batches)")
+    phase("spm", f"trocr_eval --spm {SPM_MODEL.name} --synthetic, beam 5, "
+          f"{batches} batches of {B}: {res} in {time.time() - t0:.1f} s; "
+          f"launches {dict((k, v) for k, v in got.items() if v)} ({steps} "
+          "decode steps)")
+    tok = VLTokenizer(backend="spm", spm_path=str(SPM_MODEL))
+    prompt = "<grounding>12 <phrase>340</phrase><object><patch_index_0012>"
+    ids = tok.encode_grounded(prompt)
+    check(all(0 <= i < tok.vocab_size for i in ids)
+          and tok.decode_text(tok.encode_text("12 340")) == "12 340",
+          f"spm: VLTokenizer ids {ids}")
+    phase("spm", f"VLTokenizer(backend='spm') text vocab {tok.text_vocab}, "
+          f"{tok.vocab_size} ids with the markup; {prompt!r} -> {ids}")
+    try:
+        import sentencepiece
+    except ImportError:
+        phase("spm", "the sentencepiece package is not installed: no "
+              "comparison with it")
+        return {k: v for k, v in got.items() if v}
+    corpus = ["hello world", "held", "12 340", "0012 34 5", "hello Z",
+              "  hello   world  ", "héllo 12", "<s>", "12<pad>"]
+    for path in (SPM_MODEL, SPM_MODEL.with_name("tiny_unigram.model")):
+        ours = SentencePieceModel.from_file(str(path))
+        ref = sentencepiece.SentencePieceProcessor(model_file=str(path))
+        rows = [(t, ours.encode(t), ref.encode(t)) for t in corpus]
+        same = sum(a == b for _, a, b in rows)
+        phase("spm", f"{path.name}: data/spm.py equals sentencepiece "
+              f"{sentencepiece.__version__} on {same} of {len(rows)} texts; "
+              + "; ".join(f"{t!r}: ours {a} sentencepiece {b}"
+                          for t, a, b in rows if a != b or t in ("<s>",
+                                                                 "12<pad>")))
+    return {k: v for k, v in got.items() if v}
+
+
+def phase_reproduce_baseline() -> dict:
+    """cli/reproduce_baseline.py --smoke on the card for each of
+    REPRODUCE_CONFIGS (synthetic fixtures, random weights, the golden
+    assertion skipped): each prints a well-formed verdict; the launches
+    of the whole run are the path's (the tiny TrOCR and Kosmos-2.5
+    configs run the plain path, as their --tiny models set use_flash
+    False; FUNSD runs LayoutLMv3-B's #9, the BEiT configs #3)."""
+    import contextlib
+    import io
+
+    from unilm_tpu_torch.cli import reproduce_baseline as rb
+
+    reset_counts()
+    for config in REPRODUCE_CONFIGS:
+        c0, t0 = counts(), time.time()
+        with contextlib.redirect_stdout(io.StringIO()):
+            v = rb.main(["--config", config, "--smoke"])
+        torch.cuda.synchronize()
+        check(v["config"] == config and v["smoke"] is True
+              and isinstance(v["measured"], float)
+              and v["golden"] == rb.GOLDEN[config]["value"],
+              f"reproduce_baseline: {config} verdict {v}")
+        moved = {k: n - c0[k] for k, n in counts().items() if n > c0[k]}
+        phase("reproduce_baseline", f"--config {config} --smoke: "
+              f"{v['metric']} {v['measured']:.4f} (golden {v['golden']}, "
+              f"not asserted) in {time.time() - t0:.1f} s; launches {moved}")
+    return {k: v for k, v in counts().items() if v}
+
+
 def main() -> int:
     smi = phase_device()
     from unilm_tpu_torch.ops import doc_attention as da
@@ -7947,6 +8868,9 @@ def main() -> int:
     add("layoutlmv3_train", phase_layoutlmv3_train())
     got, options = phase_train_options_encoders()
     add("train_options", got)
+    docai_extra = phase_docai_kernels(fa, da, g)
+    got, docai_nums = phase_docai()
+    add("docai", got)
     add("ttft", phase_ttft(fa))
     got, line4 = phase_decode_int8_bs1(qm, pa, g)
     add("decode_int8_bs1", got)
@@ -7957,6 +8881,9 @@ def main() -> int:
     add("trocr", got)
     got, trocr_int8 = phase_trocr(qm, int8=True)
     add("trocr_int8", got)
+    got, trocr_train_nums = phase_trocr_train()
+    add("trocr_train", got)
+    add("spm", phase_spm())
     got, search_nums = phase_search(fa)
     add("search", got)
     kosmos2_extra = phase_kosmos2_kernels(fa, pa, g)
@@ -7970,6 +8897,7 @@ def main() -> int:
     add("beit3", got)
     got, beit2_nums = phase_beit2(fa)
     add("beit2", got)
+    add("reproduce_baseline", phase_reproduce_baseline())
     add("yoco_chat", phase_yoco_chat(fa))
     phase_yoco_long(fa)
     cfg, sd = engine_model()
@@ -7990,12 +8918,14 @@ def main() -> int:
         kern.update(trocr_extra.get(kern["name"], {}))
         kern.update(kosmos2_extra.get(kern["name"], {}))
         kern.update(beit_family_extra.get(kern["name"], {}))
+        kern.update(docai_extra.get(kern["name"], {}))
         check(kern["launches"] > 0, f"{kern['name']} never launched")
     print(json.dumps({"paths": {"decode_int8_bs1": line4["line4"],
                                 **infer, **trocr_bf16, **trocr_int8,
                                 **kosmos2_nums, **kosmos2_train_nums,
                                 **beit3_nums, **beit2_nums, **search_nums,
-                                "train_options": options}}),
+                                "train_options": options, **docai_nums,
+                                **trocr_train_nums}}),
           flush=True)
     phase("profiler", f"{len(PROFILER_MISSES)} device_ms calls fell back "
           f"to CUDA events: {PROFILER_MISSES}; {len(PROFILER_LOST)} traces "

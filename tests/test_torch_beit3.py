@@ -316,10 +316,10 @@ PORTED = ("beit_base_patch16_224", "beit_base_patch16_384",
           "beit_large_patch16_224", "beit_large_patch16_384",
           "beit_large_patch16_512", "dit_base_patch16_224",
           "dit_large_patch16_224", "beit3_base", "beit3_large",
-          "layoutlmv3_base", "layoutlmv3_large", "trocr_small",
+          "layoutlm_base", "layoutlmv2_base", "layoutlmv3_base",
+          "layoutlmv3_large", "markuplm_base", "trocr_small",
           "trocr_base", "trocr_large", "kosmos2", "kosmos2_5", "yoco_base")
-PENDING = {"layoutlm_base": "item 5", "layoutlmv2_base": "item 5",
-           "markuplm_base": "item 5", "retnet_base": "item 10",
+PENDING = {"retnet_base": "item 10",
            "retnet_medium": "item 10", "xlmt_base": "item 10",
            "xlmt_big": "item 10", "diff_transformer_base": "item 10",
            "unilm_seq2seq_base": "item 10", "wavlm_base": "item 10",

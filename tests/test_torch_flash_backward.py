@@ -130,3 +130,34 @@ def test_plain_backward_is_the_kernels_contract():
         assert a.shape == w.shape
         torch.testing.assert_close(a, w, atol=TOL, rtol=TOL)
     assert float(got[0][2].abs().max()) == 0.0
+
+
+def test_bf16_delta_is_rowsum_p_dp():
+    """In bf16 the twin (and #6) takes delta = rowsum(p dp), not JAX's
+    flash kernels' rowsum(dO out) from the bf16 out. Where every key's v
+    shares a large common part, dp - delta is ~100x below dp and the
+    rounding of out swamps dq and dk (cosine ~0.98 to float32 autograd);
+    the exact delta keeps them at 0.9999. The float32 reference runs
+    autograd through flash_forward_plain on the same bf16-rounded inputs."""
+    rng = np.random.RandomState(2)
+    B, T, H, D = 2, 64, 2, 64
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    q, k, do = f(B, T, H, D) * D ** -0.5, f(B, T, H, D), f(B, T, H, D)
+    v = 0.01 * f(B, T, H, D) + f(1, 1, H, D)
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    out, lse = tfa.flash_forward_plain(q, k, v, None, None, 0, None,
+                                       causal=True, window=0)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    o32, _ = tfa.flash_forward_plain(*ref, None, None, 0, None, causal=True,
+                                     window=0)
+    want = torch.autograd.grad(o32, ref, do.float())
+    exact = tfa.flash_backward_plain(q, k, v, None, None, 0, None, out, lse,
+                                     do, causal=True)
+    jax_rule = tfa.flash_backward_plain(q, k, v, None, None, 0, None, out,
+                                        lse, do, causal=True,
+                                        delta=tfa._delta(out, do))
+    cos = lambda a, b: float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.flatten(), dim=0))
+    for name, a, b, w in zip(("dq", "dk"), exact, jax_rule, want):
+        assert cos(a, w) >= 0.9999, name
+        assert cos(b, w) < 0.999, name

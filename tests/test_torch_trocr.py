@@ -280,8 +280,16 @@ def test_ocr_batches_match_jax():
         assert np.array_equal(g["labels"], w["labels"])
         assert g["texts"] == w["texts"]
     assert tok.decode(tok.encode("Ab 9")) == "ab 9"
-    with pytest.raises(NotImplementedError, match="data/spm.py"):
-        td.spm_tokenizer("unused.model")
+    # the spm target side: the same labels as JAX's through data/spm.py
+    model = os.path.join(os.path.dirname(__file__), "fixtures",
+                         "tiny_digits.model")
+    stok, jstok = td.spm_tokenizer(model), jd.spm_tokenizer(model)
+    assert (stok.bos, stok.eos, stok.pad, stok.vocab_size) == (
+        jstok.bos, jstok.eos, jstok.pad, jstok.vocab_size)
+    got = list(td.ocr_batches(data, stok, 2, max_len=6))
+    want = list(jd.ocr_batches(data, jstok, 2, max_len=6))
+    for g, w in zip(got, want):
+        assert np.array_equal(g["labels"], w["labels"])
 
 
 # ---- the CLIs -------------------------------------------------------------

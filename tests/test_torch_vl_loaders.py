@@ -12,6 +12,7 @@ checkpoint stores them).
 """
 
 import json
+import os
 import sys
 
 import numpy as np
@@ -114,7 +115,8 @@ def test_tokenizer_ids_and_markup_match_jax(q):
 def test_tokenizer_backends(monkeypatch, tmp_path):
     """"auto" takes cl100k_base only from tiktoken's cache (never a
     download): with an empty cache, or tiktoken hidden, it is the byte
-    backend; "tiktoken" then raises; spm raises naming its ROADMAP item."""
+    backend; "tiktoken" then raises. "spm" (or "auto" with an spm_path)
+    reads the sentencepiece model through data/spm.py, with JAX's ids."""
     monkeypatch.setenv("TIKTOKEN_CACHE_DIR", str(tmp_path))
     assert tv.cl100k_if_cached() is None
     assert tv.VLTokenizer().text_vocab == 256
@@ -122,10 +124,19 @@ def test_tokenizer_backends(monkeypatch, tmp_path):
         tv.VLTokenizer(backend="tiktoken")
     monkeypatch.setitem(sys.modules, "tiktoken", None)
     assert tv.VLTokenizer().text_vocab == 256
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tv.VLTokenizer(backend="spm", spm_path="x.model")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tv.VLTokenizer(spm_path="x.model")
+    model = os.path.join(os.path.dirname(__file__), "fixtures",
+                         "tiny_digits.model")
+    want = jv.VLTokenizer(backend="spm", spm_path=model)
+    text = "<grounding>12 <phrase>340</phrase><object><patch_index_0012>"
+    for tok in (tv.VLTokenizer(backend="spm", spm_path=model),
+                tv.VLTokenizer(spm_path=model)):
+        assert (tok.text_vocab, tok.vocab_size) == (want.text_vocab,
+                                                    want.vocab_size)
+        ids = tok.encode_grounded(text)
+        assert ids == want.encode_grounded(text)
+        assert tok.decode_text(tok.encode_text("12 340")) == "12 340"
+    with pytest.raises(ValueError, match="spm_path"):
+        tv.VLTokenizer(backend="spm")
 
 
 def test_load_image_matches_jax(tmp_path):

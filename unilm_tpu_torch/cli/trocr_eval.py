@@ -4,11 +4,13 @@ synthetic lines (port of unilm_tpu/cli/trocr_eval.py `main` :38).
     python -m unilm_tpu_torch.cli.trocr_eval --synthetic --tiny --device cpu
     python -m unilm_tpu_torch.cli.trocr_eval --sroie /data/sroie_task2
     python -m unilm_tpu_torch.cli.trocr_eval --gt /data/iam/gt_test.txt
+    python -m unilm_tpu_torch.cli.trocr_eval --gt gt.txt --spm unilm3.model
 
 Loads a dataset (data/trocr_datasets.py), decodes every line image
 greedily or with beam search, and prints {"cer", "wer", "n"} as one JSON
-line. The target side is `CharTokenizer` (`--spm`, the native
-sentencepiece reader, is not ported and raises). `--checkpoint` takes an
+line. The target side is `CharTokenizer`, or with `--spm <model>` a
+sentencepiece model through the native reader (data/spm.py), the
+reference's `unilm3-cased` text path. `--checkpoint` takes an
 HF VisionEncoderDecoder state dict (convert/trocr.py); without one the
 weights are random from `--seed`. The model runs on the card (`--device
 cuda`, the default, which raises on a host without one) unless `--device
@@ -46,8 +48,8 @@ def main(argv=None):
     p.add_argument("--beam", type=int, default=1)
     p.add_argument("--checkpoint", default="")
     p.add_argument("--spm", default="",
-                   help="sentencepiece .model for the target side (not "
-                        "ported: raises)")
+                   help="sentencepiece .model for the target side (native "
+                        "reader, data/spm.py)")
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--limit", type=int, default=0)
     p.add_argument("--seed", type=int, default=0)

@@ -21,8 +21,9 @@ axis, the scan_layers form). Leaves map as
   `mask_token`, `pos_embed`, `relative_position_bias_table`,
   `latent_query`, the CLIP tower's `class_embedding` and
   `positional_embedding`, LayoutLMv3's bias tables `rel_pos_bias`,
-  `rel_pos_x_bias`, `rel_pos_y_bias`, TrOCR's `dist_token` and the
-  decoder's learned position table `embed_positions`;
+  `rel_pos_x_bias`, `rel_pos_y_bias` (LayoutLMv2's too), TrOCR's
+  `dist_token` and the decoder's learned position table `embed_positions`,
+  and the RE head's `biaffine` [R, h + 1, h + 1];
 - a stacked `layers` subtree -> one module per layer (`layers.{i}`),
   `layers_{i}` -> `layers.{i}`.
 
@@ -41,7 +42,10 @@ int8 `output_projection` of `quantize_trocr_decoder`) and YOCO's tree
 `kv_norm`, `global_{k,v}`, `cross_{i}/*`, `cross_norm{1,2}_{i}`,
 `cross_ffn_{i}`, `final_norm`) map by these rules alone: the port's
 models/trocr.py and models/yoco.py register their modules under the flax
-names.
+names. So do the Document AI trees: LayoutLM's `x/y/h/w_position_
+embeddings`, MarkupLM's `xpath_embeddings/tag_emb_{i}` / `subs_emb_{i}`,
+and LayoutLMv2's backbone `visual/conv_{i}` (HWIO kernels -> OIHW
+`Conv2d`) and `visual/gn_{i}` (GroupNorm `scale` -> `weight`).
 
 No jax import: bfloat16 leaves (ml_dtypes arrays) are reinterpreted bit
 for bit.
@@ -59,7 +63,7 @@ _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
 _SAME = {"gamma", "cls_token", "mask_token", "pos_embed",
          "relative_position_bias_table", "latent_query", "rel_pos_bias",
          "rel_pos_x_bias", "rel_pos_y_bias", "dist_token", "embed_positions",
-         "class_embedding", "positional_embedding"}
+         "class_embedding", "positional_embedding", "biaffine"}
 
 
 def to_tensor(a) -> torch.Tensor:

@@ -9,8 +9,14 @@
 // of the unscaled k), p = exp(s - lse) under the forward's mask (causal
 // with a query offset, sliding window, valid-kv prefix `limit`, int32
 // key-padding mask, additive bias broadcast over [B|1, H|1, T, S]),
-// dp = dO v^T, ds = p (dp - delta) with delta = rowsum(dO * out) computed
-// by the caller. p, dp and ds are fp32; ds is rounded to the inputs' type
+// dp = dO v^T, ds = p (dp - delta), but for delta: JAX's kernels take
+// delta = rowsum(dO * out) from the caller, for bf16 from the bf16 out,
+// and where a row is near uniform dp - delta is far below dp, so that
+// rounding of out swamps the q and k gradients. Here delta is rowsum(p dp):
+// the bf16 dq kernel takes it exactly in a first sweep over its key tiles
+// and writes it for the dk/dv kernel, launched after it; for fp32 the
+// caller passes rowsum(dO * out), equal to it to fp32 rounding. p, dp and
+// ds are fp32; ds is rounded to the inputs' type
 // before ds k and ds^T q; accumulators are fp32 and outputs take the
 // inputs' type (dbias is fp32). Tiles that lie wholly above the causal
 // diagonal, below the window or beyond `limit` are skipped; a fully
@@ -31,10 +37,11 @@
 // mask [B, S] int32.
 //
 // bf16 (`flash_bwd_dq_sm90`, `flash_bwd_dkv_sm90`). What bounds them on
-// the H100: their products, three for dq (q k^T, dO v^T, ds k) and four for
-// dk/dv (k q^T, v dO^T, p^T dO, ds^T q), 2 D operations per visible (query,
-// key) pair each, at 989 TFLOP/s on the tensor cores; at the 1.3B train
-// shape (2 x 2048 x 32 x 64, causal) the bytes take about half that time.
+// the H100: their products, three for dq (q k^T, dO v^T, ds k; the delta
+// sweep runs the first two again) and four for dk/dv (k q^T, v dO^T,
+// p^T dO, ds^T q), 2 D operations per visible (query, key) pair each, at
+// 989 TFLOP/s on the tensor cores; at the 1.3B train shape (2 x 2048 x 32
+// x 64, causal) the bytes take about half that time.
 // Every product runs on wgmma with fp32 accumulators in registers, and one
 // exp2 per pair on the MUFU. The design, #1's (csrc/flash_fwd.cu) turned to
 // the backward:
@@ -51,7 +58,10 @@
 //   with it, no kernel here spills, and both run faster;
 // - dq: a block takes 128 query rows of one (batch, head), two consumers
 //   of 64; Q and dO stay resident (reloaded per example in acc_b mode),
-//   K/V tiles of 64 keys stream. S = Q K^T and dP = dO V^T are SS wgmma
+//   K/V tiles of 64 keys stream, twice an example: the first sweep sums
+//   p dp into each row's delta (a quad's four threads hold a row), which
+//   the second uses and the quad's first thread writes out. In both,
+//   S = Q K^T and dP = dO V^T are SS wgmma
 //   m64n64 in two commit groups, so p is taken from S (exp2 with log2 e
 //   folded into each thread's two rows of lse) while dP is in flight; ds
 //   is formed on the fragments and goes to bf16 in registers as the A
@@ -350,33 +360,116 @@ __device__ __forceinline__ void dq_producer(const CUtensorMap* tq, const CUtenso
                                   c * G::CW, h, q0, b);
             }
         }
-        for (int j = jb; j < je; ++j, ++n) {
-            const int s = n % G::NST;
-            if (n >= G::NST) sm90::mbar_wait(&empty[s], (n / G::NST - 1) & 1);
-            if (p.mask) {
-                // key j BK + 32 i + bit is kept iff bit `bit` of word i is set
-                const int* mrow = p.mask + (size_t)b * p.S;
+        // every key tile twice: the delta sweep, then the dq sweep
+        for (int pass = 0; pass < 2; ++pass)
+            for (int j = jb; j < je; ++j, ++n) {
+                const int s = n % G::NST;
+                if (n >= G::NST) sm90::mbar_wait(&empty[s], (n / G::NST - 1) & 1);
+                if (p.mask) {
+                    // key j BK + 32 i + bit is kept iff bit `bit` of word i is set
+                    const int* mrow = p.mask + (size_t)b * p.S;
 #pragma unroll
-                for (int i = 0; i < G::NW; ++i) {
-                    const int col = j * G::BK + 32 * i + lane;
-                    const uint32_t w = __ballot_sync(FULL, col < p.S && __ldg(mrow + col) != 0);
-                    if (lane == 0) bits[G::NW * s + i] = w;
+                    for (int i = 0; i < G::NW; ++i) {
+                        const int col = j * G::BK + 32 * i + lane;
+                        const uint32_t w =
+                            __ballot_sync(FULL, col < p.S && __ldg(mrow + col) != 0);
+                        if (lane == 0) bits[G::NW * s + i] = w;
+                    }
+                }
+                if (lane == 0) {
+                    // the arrive releases the mask words written above
+                    sm90::mbar_arrive_expect_tx(&full[s], 2 * G::KV_BYTES);
+                    uint8_t* kst = smem + G::OFF_K + 2 * s * G::KV_BYTES;
+#pragma unroll
+                    for (int c = 0; c < G::NC; ++c) {
+                        sm90::tma_load_4d(kst + c * G::BK * G::CB, tk, &full[s], c * G::CW, h,
+                                          j * G::BK, b);
+                        sm90::tma_load_4d(kst + G::KV_BYTES + c * G::BK * G::CB, tv, &full[s],
+                                          c * G::CW, h, j * G::BK, b);
+                    }
                 }
             }
-            if (lane == 0) {
-                // the arrive releases the mask words written above
-                sm90::mbar_arrive_expect_tx(&full[s], 2 * G::KV_BYTES);
-                uint8_t* kst = smem + G::OFF_K + 2 * s * G::KV_BYTES;
+    }
+}
+
+// p = exp(s - lse), 0 where masked, and dP = dO V^T over the key tile c0 in
+// the stage at k_base (V after K) for a consumer's 64 rows, on the wgmma
+// accumulator fragments: entry 4 nn + 2 hh + e is row tl[hh], key
+// c0 + 8 nn + 2 quad + e. `bits` are the stage's mask words.
+template <int D>
+__device__ __forceinline__ void dq_tile_probs(const Params& p, const uint32_t* bits,
+                                              uint32_t q_base, uint32_t do_base, uint32_t k_base,
+                                              const bf16* bias_bh, const int* tl,
+                                              const float* lse2, int c0, int lo, int hi, int quad,
+                                              float* sc, float* dp) {
+    using G = DqGeo<D>;
+    constexpr int BK = G::BK, NN = BK / 8;
+    // S = Q K^T and dP = dO V^T, all operands K-major, in two groups: p is
+    // taken from S while dP is in flight
+    sm90::wgmma_fence();
+    ss_product<D, G::BQ, BK>(sc, q_base, k_base);
+    sm90::wgmma_commit();
+    ss_product<D, G::BQ, BK>(dp, do_base, k_base + G::KV_BYTES);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();
+
+    // this thread's BK / 4 keys: bit 2 nn + e = key c0 + 8 nn + 2 quad + e
+    uint32_t keep_bits = ~0u;
+    if (p.mask) {
+        uint32_t ws[G::NW], all = ~0u;
 #pragma unroll
-                for (int c = 0; c < G::NC; ++c) {
-                    sm90::tma_load_4d(kst + c * G::BK * G::CB, tk, &full[s], c * G::CW, h,
-                                      j * G::BK, b);
-                    sm90::tma_load_4d(kst + G::KV_BYTES + c * G::BK * G::CB, tv, &full[s],
-                                      c * G::CW, h, j * G::BK, b);
-                }
-            }
+        for (int i = 0; i < G::NW; ++i) all &= ws[i] = bits[i];
+        if (all != ~0u) {
+            keep_bits = 0;
+#pragma unroll
+            for (int nn = 0; nn < NN; ++nn)
+                keep_bits |= ((ws[nn >> 2] >> (8 * (nn & 3) + 2 * quad)) & 3u) << (2 * nn);
         }
     }
+    if (bias_bh) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            if (tl[hh] >= p.T) continue;
+            const bf16* br = bias_bh + (size_t)tl[hh] * p.S;
+#pragma unroll
+            for (int nn = 0; nn < NN; ++nn)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int col = c0 + 8 * nn + 2 * quad + e;
+                    if (col < p.S) sc[4 * nn + 2 * hh + e] += __bfloat162float(br[col]);
+                }
+        }
+    }
+    if (!tile_interior<BK>(c0, lo, hi, p.limit, p.causal, p.window)) {
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            const int row = p.q_offset + tl[hh];
+#pragma unroll
+            for (int nn = 0; nn < NN; ++nn)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                    const int col = c0 + 8 * nn + 2 * quad + e;
+                    const bool keep = col < p.limit && (!p.causal || col <= row) &&
+                                      (p.window <= 0 || row - col < p.window) &&
+                                      ((keep_bits >> (2 * nn + e)) & 1u);
+                    if (!keep) sc[4 * nn + 2 * hh + e] = -INFINITY;
+                }
+        }
+    } else if (keep_bits != ~0u) {
+#pragma unroll
+        for (int nn = 0; nn < NN; ++nn)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+                if (!((keep_bits >> (2 * nn + e)) & 1u)) {
+                    sc[4 * nn + e] = -INFINITY;
+                    sc[4 * nn + 2 + e] = -INFINITY;
+                }
+    }
+
+    // p = exp(s - lse), 0 where masked, in place
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) sc[i] = sm90::ex2(fmaf(sc[i], LOG2E, -lse2[(i >> 1) & 1]));
+    sm90::wgmma_wait<0>();
 }
 
 template <int D>
@@ -402,103 +495,70 @@ __device__ __forceinline__ void dq_consumer(const Params& p, uint8_t* smem, int 
     const int tl[2] = {row0 + 16 * w + r8, row0 + 16 * w + r8 + 8};  // this thread's rows
     const bf16* bias = static_cast<const bf16*>(p.bias);
     bf16* dq = static_cast<bf16*>(p.dq);
+    // this kernel writes delta, which #7, launched after it, reads
+    float* delta = const_cast<float*>(p.delta);
     const bool pairs = (p.S & 1) == 0;  // dbias pairs are 8-byte aligned
 
     int n = 0;
     for (int b = b0; b < b1; ++b) {
-        float lse2[2], dlt[2];
+        float lse2[2];
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
             const size_t ri = ((size_t)b * p.H + h) * p.T + tl[hh];
             lse2[hh] = tl[hh] < p.T ? p.lse[ri] * LOG2E : 0.f;
-            dlt[hh] = tl[hh] < p.T ? p.delta[ri] : 0.f;
         }
         const size_t boff = (size_t)b * p.bias_sb + (size_t)h * p.bias_sh;
         const bf16* bias_bh = bias ? bias + boff : nullptr;
         float* dbias_bh =
             p.dbias ? p.dbias + (p.acc_b ? (size_t)h * p.bias_sh : boff) : nullptr;
+
+        sm90::mbar_wait(&bars[0], (b - b0) & 1);
+
+        // the delta sweep: delta = rowsum(p dp) in fp32, exact where
+        // rowsum(dO out) from the rounded out is not (a near-uniform row's
+        // dp - delta is far below dp)
+        float dlt[2] = {0.f, 0.f};
+        for (int j = jb; j < je; ++j, ++n) {
+            const int s = n % G::NST;
+            sm90::mbar_wait(&full[s], (n / G::NST) & 1);
+            if (j >= cjb && j < cje) {
+                float sc[BK / 2], dp[BK / 2];
+                dq_tile_probs<D>(p, bits + G::NW * s, q_base, do_base,
+                                 smem_addr(smem + G::OFF_K + 2 * s * G::KV_BYTES), bias_bh, tl,
+                                 lse2, j * BK, lo, hi, quad, sc, dp);
+#pragma unroll
+                for (int nn = 0; nn < NN; ++nn)
+#pragma unroll
+                    for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                        for (int e = 0; e < 2; ++e) {
+                            const int i = 4 * nn + 2 * hh + e;
+                            dlt[hh] = fmaf(sc[i], dp[i], dlt[hh]);
+                        }
+            }
+            sm90::mbar_arrive(&empty[s]);
+        }
+        // a row's keys lie on the four threads of a quad
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+            dlt[hh] += __shfl_xor_sync(FULL, dlt[hh], 1);
+            dlt[hh] += __shfl_xor_sync(FULL, dlt[hh], 2);
+            if (quad == 0 && tl[hh] < p.T) delta[((size_t)b * p.H + h) * p.T + tl[hh]] = dlt[hh];
+        }
+
+        // the dq sweep
         float acc[D / 2];
 #pragma unroll
         for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-
-        sm90::mbar_wait(&bars[0], (b - b0) & 1);
         for (int j = jb; j < je; ++j, ++n) {
             const int s = n % G::NST;
             sm90::mbar_wait(&full[s], (n / G::NST) & 1);
             if (j >= cjb && j < cje) {
                 const int c0 = j * BK;
                 const uint32_t k_base = smem_addr(smem + G::OFF_K + 2 * s * G::KV_BYTES);
-                const uint32_t v_base = k_base + G::KV_BYTES;
-
-                // S = Q K^T and dP = dO V^T, all operands K-major, in two
-                // groups: p is taken from S while dP is in flight
                 float sc[BK / 2], dp[BK / 2];
-                sm90::wgmma_fence();
-                ss_product<D, G::BQ, BK>(sc, q_base, k_base);
-                sm90::wgmma_commit();
-                ss_product<D, G::BQ, BK>(dp, do_base, v_base);
-                sm90::wgmma_commit();
-                sm90::wgmma_wait<1>();
-
-                // this thread's BK / 4 keys: bit 2 nn + e = key c0 + 8 nn + 2 quad + e
-                uint32_t keep_bits = ~0u;
-                if (p.mask) {
-                    uint32_t ws[G::NW], all = ~0u;
-#pragma unroll
-                    for (int i = 0; i < G::NW; ++i) all &= ws[i] = bits[G::NW * s + i];
-                    if (all != ~0u) {
-                        keep_bits = 0;
-#pragma unroll
-                        for (int nn = 0; nn < NN; ++nn)
-                            keep_bits |= ((ws[nn >> 2] >> (8 * (nn & 3) + 2 * quad)) & 3u)
-                                         << (2 * nn);
-                    }
-                }
-                if (bias_bh) {
-#pragma unroll
-                    for (int hh = 0; hh < 2; ++hh) {
-                        if (tl[hh] >= p.T) continue;
-                        const bf16* br = bias_bh + (size_t)tl[hh] * p.S;
-#pragma unroll
-                        for (int nn = 0; nn < NN; ++nn)
-#pragma unroll
-                            for (int e = 0; e < 2; ++e) {
-                                const int col = c0 + 8 * nn + 2 * quad + e;
-                                if (col < p.S) sc[4 * nn + 2 * hh + e] += __bfloat162float(br[col]);
-                            }
-                    }
-                }
-                if (!tile_interior<BK>(c0, lo, hi, p.limit, p.causal, p.window)) {
-#pragma unroll
-                    for (int hh = 0; hh < 2; ++hh) {
-                        const int row = p.q_offset + tl[hh];
-#pragma unroll
-                        for (int nn = 0; nn < NN; ++nn)
-#pragma unroll
-                            for (int e = 0; e < 2; ++e) {
-                                const int col = c0 + 8 * nn + 2 * quad + e;
-                                const bool keep = col < p.limit && (!p.causal || col <= row) &&
-                                                  (p.window <= 0 || row - col < p.window) &&
-                                                  ((keep_bits >> (2 * nn + e)) & 1u);
-                                if (!keep) sc[4 * nn + 2 * hh + e] = -INFINITY;
-                            }
-                    }
-                } else if (keep_bits != ~0u) {
-#pragma unroll
-                    for (int nn = 0; nn < NN; ++nn)
-#pragma unroll
-                        for (int e = 0; e < 2; ++e)
-                            if (!((keep_bits >> (2 * nn + e)) & 1u)) {
-                                sc[4 * nn + e] = -INFINITY;
-                                sc[4 * nn + 2 + e] = -INFINITY;
-                            }
-                }
-
-                // p = exp(s - lse), 0 where masked, in place
-#pragma unroll
-                for (int i = 0; i < BK / 2; ++i)
-                    sc[i] = sm90::ex2(fmaf(sc[i], LOG2E, -lse2[(i >> 1) & 1]));
-                sm90::wgmma_wait<0>();
+                dq_tile_probs<D>(p, bits + G::NW * s, q_base, do_base, k_base, bias_bh, tl, lse2,
+                                 c0, lo, hi, quad, sc, dp);
 
                 // ds = p (dp - delta) in fp32 goes to dbias as it is and,
                 // rounded to bf16, to the A operand of dq += dS K

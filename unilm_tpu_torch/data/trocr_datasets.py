@@ -1,12 +1,12 @@
 """TrOCR dataset loaders: SROIE line crops, IAM/STR gt files, synthetic
-lines (a copy of unilm_tpu/data/trocr_datasets.py: `OCRExample` :25,
-`load_sroie` :44, `load_gt_file` :80, `synthetic_ocr_dataset` :103,
-`CharTokenizer` :132, `ocr_batches` :150).
+lines (a copy of unilm_tpu/data/trocr_datasets.py: `OCRExample` :26,
+`load_sroie` :44, `load_gt_file` :76, `synthetic_ocr_dataset` :98,
+`spm_tokenizer` :114, `CharTokenizer` :126, `ocr_batches` :146).
 
 Examples are resized to a fixed square and batches pad their labels to a
 fixed length. PIL is imported only inside the functions that read or draw
-images: the machine with the card has none. `spm_tokenizer` (the native
-sentencepiece reader, `data/spm.py`) is not ported and raises.
+images, not with the module. `spm_tokenizer` reads a sentencepiece model
+through the native reader, data/spm.py.
 """
 
 from __future__ import annotations
@@ -102,11 +102,13 @@ def synthetic_ocr_dataset(n: int, img_size: int = 64, seed: int = 0,
 
 
 def spm_tokenizer(model_path: str):
-    """The reference TrOCR text path (a sentencepiece model through the
-    native reader, data/spm.py): not ported."""
-    raise NotImplementedError(
-        "spm_tokenizer needs data/spm.py, which is not ported yet: ROADMAP "
-        "Queue 1 item 8 (data/spm.py; its reference faults are in Queue 3)")
+    """The reference TrOCR text path: a sentencepiece model (`unilm3-cased`)
+    through the native reader, data/spm.py. Returns an `SpmTokenizer`, whose
+    interface is CharTokenizer's, so `ocr_batches` and the eval CLI run
+    their loop on it (cli/trocr_eval.py --spm <model>)."""
+    from unilm_tpu_torch.data.spm import SpmTokenizer
+
+    return SpmTokenizer.from_file(model_path)
 
 
 class CharTokenizer:

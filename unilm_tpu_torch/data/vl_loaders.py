@@ -14,8 +14,9 @@ Tokenizer: text ids [0, text_vocab) from tiktoken's cl100k_base or raw
 UTF-8 bytes, then the specials and the quantized-grid location tokens
 above them. The port never downloads: "auto" takes cl100k_base only when
 its file is already in tiktoken's cache (`cl100k_if_cached`), else the
-bytes; "tiktoken" raises when it is not cached. The sentencepiece
-backend (Kosmos-2's own tokenizer, data/spm.py) is not ported and raises.
+bytes; "tiktoken" raises when it is not cached. "spm" (or "auto" with an
+`spm_path`) reads a sentencepiece model through data/spm.py, Kosmos-2's
+own text path.
 """
 
 from __future__ import annotations
@@ -66,26 +67,31 @@ class VLTokenizer:
     """Text tokenizer + grounding vocabulary: text ids, then
     SPECIAL_TOKENS, then <patch_index_0000>.. for the quantized grid.
 
-    backend: "auto" (cl100k_base if cached, else bytes), "tiktoken"
-    (cl100k_base; raises when it is not cached), "bytes", or "spm"
-    (raises: not ported)."""
+    backend: "auto" (an spm model where `spm_path` is given, else
+    cl100k_base if cached, else bytes), "tiktoken" (cl100k_base; raises
+    when it is not cached), "bytes", or "spm" (the sentencepiece model at
+    `spm_path`, data/spm.py: the Kosmos-2 SpmLmLoader's text ids)."""
 
     def __init__(self, quantized_size: int = 32, backend: str = "auto",
                  spm_path: Optional[str] = None):
-        if backend == "spm" or (backend == "auto" and spm_path):
-            raise NotImplementedError(
-                "the sentencepiece backend needs data/spm.py, which is not "
-                "ported yet: ROADMAP Queue 1 item 8 (data/spm.py; its "
-                "reference faults are in Queue 3)")
-        if backend not in ("auto", "tiktoken", "bytes"):
+        if backend not in ("auto", "tiktoken", "bytes", "spm"):
             raise ValueError(f"unknown tokenizer backend {backend!r}")
         self.quantized_size = quantized_size
-        self._enc = None if backend == "bytes" else cl100k_if_cached()
+        self._enc = self._spm = None
+        if backend == "spm" or (backend == "auto" and spm_path):
+            from unilm_tpu_torch.data.spm import SentencePieceModel
+
+            if not spm_path:
+                raise ValueError("backend 'spm' needs spm_path")
+            self._spm = SentencePieceModel.from_file(spm_path)
+        elif backend != "bytes":
+            self._enc = cl100k_if_cached()
         if backend == "tiktoken" and self._enc is None:
             raise RuntimeError(
                 "tiktoken's cl100k_base is not in its cache (this package "
                 "never downloads it); use backend 'bytes' or 'auto'")
-        self.text_vocab = self._enc.n_vocab if self._enc else 256
+        self.text_vocab = (self._spm.vocab_size if self._spm
+                           else self._enc.n_vocab if self._enc else 256)
         self.special_to_id = {
             s: self.text_vocab + i for i, s in enumerate(SPECIAL_TOKENS)}
         self.loc_base = self.text_vocab + len(SPECIAL_TOKENS)
@@ -99,12 +105,16 @@ class VLTokenizer:
         return self.loc_base + cell
 
     def encode_text(self, text: str) -> List[int]:
+        if self._spm:
+            return self._spm.encode(text)
         if self._enc:
             return self._enc.encode(text, disallowed_special=())
         return list(text.encode("utf-8"))
 
     def decode_text(self, ids: Sequence[int]) -> str:
         ids = [i for i in ids if i < self.text_vocab]
+        if self._spm:
+            return self._spm.decode(ids)
         if self._enc:
             return self._enc.decode(ids)
         return bytes(ids).decode("utf-8", errors="replace")

@@ -111,13 +111,15 @@ class LayoutLMv3Config:
             remat_policy=self.remat_policy)
 
 
-def _embedding(num: int, dim: int, device) -> nn.Embedding:
+def embed_table(num: int, dim: int, device) -> nn.Embedding:
+    """An embedding table that `init_weights_` draws normal(0.02), the
+    Document AI models' flax `embedding_init`."""
     emb = nn.Embedding(num, dim, device=device)
     emb.init_std = 0.02
     return emb
 
 
-def _fp32_norm(cfg: LayoutLMv3Config, device) -> Norm:
+def float32_norm(cfg: LayoutLMv3Config, device) -> Norm:
     """A flax LayerNorm left at dtype=None: float32 params and output."""
     return Norm(TransformerConfig(embed_dim=cfg.hidden_size,
                                   layernorm_eps=cfg.layernorm_eps),
@@ -149,10 +151,11 @@ class SpatialEmbedding(nn.Module):
     def __init__(self, cfg: LayoutLMv3Config, device=None):
         super().__init__()
         n = cfg.max_2d_positions
-        self.x_position_embeddings = _embedding(n, cfg.coordinate_size, device)
-        self.y_position_embeddings = _embedding(n, cfg.coordinate_size, device)
-        self.h_position_embeddings = _embedding(n, cfg.shape_size, device)
-        self.w_position_embeddings = _embedding(n, cfg.shape_size, device)
+        c = cfg.coordinate_size
+        self.x_position_embeddings = embed_table(n, c, device)
+        self.y_position_embeddings = embed_table(n, c, device)
+        self.h_position_embeddings = embed_table(n, cfg.shape_size, device)
+        self.w_position_embeddings = embed_table(n, cfg.shape_size, device)
 
     def forward(self, bbox: torch.Tensor) -> torch.Tensor:
         x, y = self.x_position_embeddings, self.y_position_embeddings
@@ -241,19 +244,20 @@ class LayoutLMv3Model(nn.Module):
         super().__init__()
         self.cfg = cfg
         E, H = cfg.hidden_size, cfg.num_heads
-        self.word_embeddings = _embedding(cfg.vocab_size, E, device)
-        self.token_type_embeddings = _embedding(cfg.type_vocab_size, E, device)
-        self.position_embeddings = _embedding(cfg.max_positions, E, device)
+        self.word_embeddings = embed_table(cfg.vocab_size, E, device)
+        self.token_type_embeddings = embed_table(cfg.type_vocab_size, E,
+                                                 device)
+        self.position_embeddings = embed_table(cfg.max_positions, E, device)
         self.spatial = SpatialEmbedding(cfg, device=device)
-        self.emb_LayerNorm = _fp32_norm(cfg, device)
+        self.emb_LayerNorm = float32_norm(cfg, device)
         if cfg.visual_embed:
             self.patch_embed = PatchEmbed(cfg.patch_size, E,
                                           dtype=torch.float32, device=device)
             self.cls_token = nn.Parameter(torch.zeros(1, 1, E, device=device))
             self.pos_embed = nn.Parameter(
                 torch.zeros(1, cfg.visual_len, E, device=device))
-            self.visual_norm = _fp32_norm(cfg, device)
-            self.LayerNorm = _fp32_norm(cfg, device)
+            self.visual_norm = float32_norm(cfg, device)
+            self.LayerNorm = float32_norm(cfg, device)
             self.register_buffer("visual_bbox", torch.from_numpy(
                 visual_bbox_grid(cfg.visual_grid)).to(device),
                 persistent=False)

@@ -7,7 +7,8 @@ so that user code builds any model by name:
 
 `names()` is the JAX registry's list. `build` constructs every
 architecture the port has: the BEiT / DiT presets, `beit3_*`,
-`layoutlmv3_*`, `trocr_*`, `kosmos2*` and `yoco_base`. A name whose model
+`layoutlm_base`, `layoutlmv2_base`, `layoutlmv3_*`, `markuplm_base`,
+`trocr_*`, `kosmos2*` and `yoco_base`. A name whose model
 is not ported yet raises NotImplementedError naming its ROADMAP Queue 1
 item. Like the port's other entry points, `build` puts the model on the
 card unless the caller asks for another device (runtime/device.py);
@@ -60,7 +61,10 @@ def _populate():
     from unilm_tpu_torch.models import beit as B
     from unilm_tpu_torch.models import beit3 as B3
     from unilm_tpu_torch.models import kosmos as K
+    from unilm_tpu_torch.models import layoutlm as L1
+    from unilm_tpu_torch.models import layoutlmv2 as L2
     from unilm_tpu_torch.models import layoutlmv3 as L3
+    from unilm_tpu_torch.models import markuplm as M
     from unilm_tpu_torch.models import trocr as T
     from unilm_tpu_torch.models import yoco as Y
 
@@ -73,10 +77,16 @@ def _populate():
     register("beit3_base", B3.beit3_base, B3.BEiT3ForImageClassification)
     register("beit3_large", B3.beit3_large, B3.BEiT3ForImageClassification)
 
+    register("layoutlm_base", L1.LayoutLMConfig,
+             L1.LayoutLMForTokenClassification)
+    register("layoutlmv2_base", L2.LayoutLMv2Config,
+             L2.LayoutLMv2ForTokenClassification)
     register("layoutlmv3_base", L3.layoutlmv3_base,
              L3.LayoutLMv3ForTokenClassification)
     register("layoutlmv3_large", L3.layoutlmv3_large,
              L3.LayoutLMv3ForTokenClassification)
+    register("markuplm_base", M.MarkupLMConfig,
+             M.MarkupLMForTokenClassification)
 
     register("trocr_small", T.trocr_small, T.TrOCRModel)
     register("trocr_base", T.trocr_base, T.TrOCRModel)
@@ -87,8 +97,6 @@ def _populate():
 
     register("yoco_base", Y.YOCOConfig, Y.YOCO)
 
-    _pending("item 5 (the rest of Document AI)", "layoutlm_base",
-             "layoutlmv2_base", "markuplm_base")
     _pending("item 10 (the rest, slice 10)", "retnet_base", "retnet_medium",
              "xlmt_base", "xlmt_big", "diff_transformer_base",
              "unilm_seq2seq_base", "wavlm_base", "e5_base")

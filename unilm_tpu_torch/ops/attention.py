@@ -32,7 +32,13 @@ tensor's device decides:
   key (a causal row whose keys are all padding): the flash kernels give
   it out = 0, as JAX's own flash kernels do, where JAX's XLA path and
   the port's plain path give the mean of v over all S keys
-  (tests/test_torch_dead_rows.py pins both). The doc kernel's VMEM
+  (tests/test_torch_dead_rows.py pins both). Their gradients are the
+  flash backward's (#6 / #7), which takes delta = rowsum(p dp) exactly,
+  as the softmax backward of JAX's XLA path does, and not JAX's flash
+  kernels' rowsum(dO out) from the bf16 out: where the attention is near
+  uniform (the late decoder layers of a random-weight TrOCR-Base) that
+  rounding loses the q and k gradients (chip_smoke.py `trocr_train`
+  holds the kernels' gradients to the plain path's). The doc kernel's VMEM
   admissibility is a TPU budget and is not carried: some shapes the TPU
   sends to #9 (a mid-size S with no mask) take #3 here, which computes
   the same function there.

@@ -544,8 +544,10 @@ BWD_RECOMPUTE_LAUNCHES = 0
 
 
 def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
-    """rowsum(dO * out) in float32, [B, H, T] (JAX computes it outside the
-    kernels too, :1726)."""
+    """rowsum(dO * out) in float32, [B, H, T], as JAX computes it outside
+    its kernels (:1726): the fp32 kernels' and #8's delta. From a bf16 out
+    it loses a near-uniform row's q and k gradients; #6 takes rowsum(p dp)
+    itself for bf16."""
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -557,14 +559,19 @@ def _reduce_to(ds: torch.Tensor, shape) -> torch.Tensor:
 
 def flash_backward_plain(q, k, v, bias, mask, q_offset: int,
                          kv_len: Optional[int], out, lse, do, *,
-                         causal: bool = False, window: int = 0):
+                         causal: bool = False, window: int = 0,
+                         delta: Optional[torch.Tensor] = None):
     """Plain torch twin of kernels #6 and #7: (dq, dk, dv, dbias) for
     pre-scaled q [B,T,H,D], k/v [B,S,H,D], the forward's out and lse
     [B,H,T] and the output gradient do. Recomputes p = exp(s - lse) under
     the mask; p, dp and ds are float32, ds is rounded to the inputs' dtype
     before the ds k and ds^T q products, p is not rounded before p^T dO (the
-    TPU kernels' rounding, :1319-1341 and :1440-1459). dbias is float32,
-    summed over the dims the bias broadcasts, None without a bias."""
+    TPU kernels' rounding, :1319-1341 and :1440-1459). ds = p (dp - delta)
+    with the kernels' delta: rowsum(p dp) in bf16, as #6 takes it,
+    rowsum(dO out) in float32 (the same to fp32 rounding, and nearer
+    autograd's where lse is large), unless `delta` [B, H, T] is given
+    (#8's twin passes rowsum(dO out)). dbias is float32, summed over the
+    dims the bias broadcasts, None without a bias."""
     B, T, H, D = q.shape
     S = k.shape[1]
     limit = S if kv_len is None else min(int(kv_len), S)
@@ -576,7 +583,10 @@ def flash_backward_plain(q, k, v, bias, mask, q_offset: int,
     p = torch.where(keep, torch.exp(s - lse[..., None]), 0.0)
     dof = do.float()
     dp = torch.einsum("bthd,bshd->bhts", dof, v.float())
-    ds = p * (dp - _delta(out, do)[..., None])
+    if delta is None:
+        delta = (_delta(out, do) if dt == torch.float32 else
+                 (p * dp).sum(-1))
+    ds = p * (dp - delta[..., None])
     dsr = ds.to(dt).float()
     dv = torch.einsum("bhts,bthd->bshd", p, dof)
     dk = torch.einsum("bhts,bthd->bshd", dsr, q.float())
@@ -624,7 +634,9 @@ def _flash_backward_cuda(q, k, v, bias, mask, q_offset, limit, out, lse, do,
     do = do.to(q.dtype).contiguous()
     check_tensor("dout", do, dtype=q.dtype, shape=(B, T, H, D), device=dev)
     check_tensor("lse", lse, dtype=torch.float32, shape=(B, H, T), device=dev)
-    delta = _delta(out, do)
+    # bf16: #6 writes rowsum(p dp) here and #7 reads it
+    delta = (_delta(out, do) if q.dtype == torch.float32 else
+             torch.empty((B, H, T), dtype=torch.float32, device=dev))
     sb, sh = _bias_strides(bias, B, H, T, S, q.dtype, dev)
     acc_b = 0
     dbias = None
@@ -735,9 +747,11 @@ def flash_backward_fused_plain(q, k, v, mask, q_offset: int,
     without a bias. `_bwd_fused_kernel`'s contract is the split pair's:
     p = exp(s - lse) under the mask, not rounded before p^T dO; ds =
     p (dp - delta) in fp32, rounded to the inputs' dtype before ds k and
-    ds^T q (:1598-1611); so this is `flash_backward_plain` with no bias."""
+    ds^T q (:1598-1611); so this is `flash_backward_plain` with no bias and
+    JAX's delta = rowsum(dO out), which the kernel takes from the caller."""
     return flash_backward_plain(q, k, v, None, mask, q_offset, kv_len, out,
-                                lse, do, causal=causal, window=window)[:3]
+                                lse, do, causal=causal, window=window,
+                                delta=_delta(out, do))[:3]
 
 
 def _flash_backward_fused_cuda(q, k, v, mask, q_offset, limit, out, lse, do,

@@ -73,6 +73,27 @@ def cross_entropy_loss(
     return nll.sum(), torch.tensor(float(nll.numel()), device=nll.device)
 
 
+def teacher_forced_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
+                        generator: Optional[torch.Generator] = None,
+                        label_smoothing: float = 0.0,
+                        pad: Optional[int] = None
+                        ) -> Tuple[torch.Tensor, Dict]:
+    """An image-to-text fine-tune loss for `make_train_step` (TrOCR's, as
+    JAX's benchmarks/train_mfu.py bench_trocr composes it over
+    `TrOCRModel.__call__`): `batch` holds "images" [B, H, W, 3] and
+    "tokens" [B, T + 1]; the model reads tokens[:, :-1] teacher-forced and
+    the cross-entropy scores tokens[:, 1:], averaged over the targets that
+    are not `pad` (every target without one). `generator`: the dropout
+    masks of a training forward. Returns (loss, {})."""
+    tokens = batch["tokens"]
+    logits = model(batch["images"], tokens[:, :-1], generator=generator)
+    targets = tokens[:, 1:]
+    s, n = cross_entropy_loss(logits, targets,
+                              None if pad is None else targets != pad,
+                              label_smoothing)
+    return s / n, {}
+
+
 def apply_with_moe_aux(*args, **kwargs):
     raise NotImplementedError(
         "MoE layers (the sown GShard aux loss) are not ported yet: ROADMAP "
