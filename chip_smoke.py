@@ -427,6 +427,24 @@ seconds since the script started ("[flash 35s] ..."):
     TFLOP/s, peak memory, a device-time profile (#2, #8, cuBLAS, other,
     optimizer), and a teacher check of one microbatch under both
     schedules against the default kernels at the train phase's bounds.
+    #8's bf16 delta is #6's sweep launched alone: 24 x 4 a step.
+13. moe_train, moe_serve, ring (the MoE and parallel slice, on a one-rank
+    NCCL group): the MoE UniGPT at the 1.3B width, 8 layers (4 MoE of 8
+    experts, top-2), 4 steps through build_trainer's model and stream,
+    its parameters placed by make_mesh / infer_param_shardings /
+    shard_parameters, routed as in training (capacity 1.0, the random
+    policy), #1/#6/#7 8 x 4 a step, a profile and a teacher check; the
+    serving engine on it, bf16 then int8 weights (experts and router in
+    full precision), decode and #14 launches counted, 4 teacher-forced
+    steps against the plain path routed to the kernel path's experts
+    (rows whose own routing would differ counted); the ring's chunk steps (parallel/
+    ring_attention.py chunk_forward / merge / chunk_backward, the ring of
+    4 ranks played by a loop here) over 2 x 8192 tokens with a
+    non-contiguous mask and an all-masked example against #1/#6/#7 on the
+    whole sequence, #6 / #7 with the ring's delta timed on one chunk
+    ("ring_chunk" under flash_bwd_dq / flash_bwd_dkv), then 2
+    SeqParallelLM steps at 2 layers. The total
+    time since the start is printed before the JSON lines.
 Then a JSON line of the two int8 paths', the TrOCR paths', the
 Kosmos-2 paths', the BEiT family's, search's, train_options', Document
 AI's and TrOCR fine-tuning's measurements ("paths"), and one
@@ -453,7 +471,10 @@ doc_attention_bwd, docai for doc_attention and doc_attention_bwd,
 trocr_train for encoder_attention, encoder_attention_bwd,
 onepass_attention, flash_bwd_dq and flash_bwd_dkv, spm for
 encoder_attention, onepass_attention and decode_attention,
-reproduce_baseline for doc_attention and encoder_attention),
+reproduce_baseline for doc_attention and encoder_attention, moe_train
+for flash_fwd, flash_bwd_dq and flash_bwd_dkv, moe_serve for the decode
+kernels and int8_matmul, ring for flash_fwd (onepass_attention where it
+applies), flash_bwd_dq and flash_bwd_dkv),
 error, the TrOCR shapes under "trocr" (encoder_attention,
 decode_attention, int8_matmul), the Kosmos-2 shapes under "kosmos2"
 (encoder_attention, encoder_attention_bwd, onepass_attention,
@@ -1423,6 +1444,35 @@ def phase_flash_bwd_fused(fa, g) -> dict:
             phase("flash_bwd_fused", f"{desc}: max|err|/rel L2 "
                   f"{', '.join(errs)} ok")
 
+    # near-uniform rows (flash_bwd's case): #8 takes the exact delta
+    # rowsum(p dp) from #6's sweep launched alone, as #6 does; cosines to
+    # float32 autograd on the same bf16-rounded inputs, bound 0.9999
+    B, T, H, D = 4, 64, 16, 64
+    f32 = torch.float32
+    q = (randn(g, B, T, H, D, dtype=f32) * D ** -0.5).to(torch.bfloat16)
+    k, do = randn(g, B, T, H, D), randn(g, B, T, H, D)
+    v = (0.01 * randn(g, B, T, H, D, dtype=f32)
+         + randn(g, 1, 1, H, D, dtype=f32)).to(torch.bfloat16)
+    out, lse = fa.flash_forward(q, k, v, None, None, causal=True)
+    n_delta = fa.BWD_KERNEL_DELTA.launches
+    got = fa.flash_backward_fused(q, k, v, None, 0, None, out, lse, do,
+                                  causal=True)
+    check(fa.BWD_KERNEL_DELTA.launches == n_delta + 1, "flash_bwd_fused: the "
+          "bf16 call did not launch #6's delta sweep once")
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    o32, _ = fa.flash_forward_plain(*ref, None, None, 0, None, causal=True)
+    want = torch.autograd.grad(o32, ref, do.float())
+    cos = lambda a, b: float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.flatten(), dim=0))
+    cs = [cos(x, w) for x, w in zip(got, want)]
+    check(min(cs) >= 0.9999, f"flash_bwd_fused near-uniform rows: dq/dk/dv "
+          f"cosines to float32 {cs} (bound 0.9999)")
+    phase("flash_bwd_fused", f"near-uniform rows, v = a common part + 1% "
+          f"noise, {B}x{T}x{H}x{D} bf16 causal: #8 dq, dk, dv cosines to "
+          f"float32 autograd {', '.join(f'{c:.6f}' for c in cs)} (bound "
+          "0.9999)")
+    del q, k, v, do, out, lse, got, ref, o32, want
+
     # the train shape: checked, bit-equal twice, timed
     q, k, v, do, mask = train_attn_inputs(g, with_do=True)
     B, T, H, D = q.shape
@@ -1451,8 +1501,9 @@ def phase_flash_bwd_fused(fa, g) -> dict:
     pair_ms = cuda_ms(pair)
     plain_ms = cuda_ms(plain, iters=3)
     ms2 = cuda_ms(fused)
-    # device time: the kernel alone, then every kernel of the call (delta,
-    # the zeroing, the kernel and the dq cast) beside #6 + #7's call
+    # device time: the kernel alone, then every kernel of the call (#6's
+    # delta sweep, the zeroing, the kernel and the dq cast) beside #6 +
+    # #7's call
     dev_k = device_ms(fused, only="flash_bwd_fused_sm90")
     dev_all = device_ms(fused)
     dev_pair = device_ms(pair)
@@ -2195,7 +2246,7 @@ def phase_flash_bwd(fa, g) -> dict:
             "flash_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), None,
             mi.data_ptr(), dq.data_ptr(), None, B, T, T, H, D, 0, 0, 0, T, 1,
-            0, 0, 1, torch.cuda.current_stream().cuda_stream)
+            0, 0, fa.DELTA_SWEEP, 1, torch.cuda.current_stream().cuda_stream)
 
     def dkv_only():
         fa.BWD_KERNEL_DKV.launch(
@@ -7076,6 +7127,9 @@ def phase_train_schedules(fa, tr, batch, args, flops: float) -> dict:
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             check(got[name] == 0, f"train_schedules: {name} launched "
                   f"{got[name]} times")
+        check(got["flash_bwd_delta"] == per_step * steps,
+              f"train_schedules: #8's delta sweep launched "
+              f"{got['flash_bwd_delta']} times")
         check(all(losses[i + 1] < losses[i] for i in range(1, steps - 1)),
               f"train_schedules: loss does not fall from step 2 on: {losses}")
         launches = {k: got[k] for k in ("flash_tri", "flash_bwd_fused")}
@@ -8817,6 +8871,592 @@ def phase_reproduce_baseline() -> dict:
     return {k: v for k, v in counts().items() if v}
 
 
+# ---- slice 9: X-MoE and the parallel layer ---------------------------------
+# moe_train / moe_serve: UniGPT-1.3B's width (E 2048, 32 heads, FFN 8192,
+# vocab 65037) with --moe_freq 2 --moe_experts 8, depth cut to 8 layers
+# (4 MoE) so that the fp32 params, grads and AdamW state (~1.5 B params,
+# ~24 GB) fit beside the activations. ring: 2 x 8192 tokens of 32 heads x
+# 64 over 4 chunks of 2048 on the card, then SeqParallelLM at 2 layers.
+MOE_LAYERS, MOE_FREQ, MOE_EXPERTS = 8, 2, 8
+MOE_SERVE_REQUESTS, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 4, 512, 32
+RING_CHUNKS, RING_CHUNK, RING_HEADS, RING_D = 4, 2048, 32, 64
+RING_REL_L2 = 1e-2
+
+
+def one_rank_group() -> None:
+    """A one-rank NCCL process group (a TCP store on a free localhost
+    port) for the port's mesh, sharding and sequence-parallel entry
+    points."""
+    import socket
+
+    import torch.distributed as dist
+
+    if not dist.is_initialized():
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            port = sock.getsockname()[1]
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                                rank=0, world_size=1)
+
+
+def range_device_ms(prof, names) -> dict:
+    """Device time (ms) of the kernels launched under each profiler range
+    (record_function) of `names`; 0.0 where the trace kept none."""
+    out = dict.fromkeys(names, 0.0)
+    for ev in prof.key_averages():
+        if ev.key in out:
+            t = getattr(ev, "device_time_total", None)
+            if t is None:
+                t = getattr(ev, "cuda_time_total", 0.0)
+            out[ev.key] += t / 1e3
+    return out
+
+
+def phase_moe_train(fa) -> dict:
+    """moe_train: the MoE train step at the 1.3B width (8 layers, 4 MoE,
+    8 experts, top-2) through cli/train_gpt.build_trainer with the bench
+    configuration (batch 8 = 4 microbatches x 2, fused CE, AdamW), its
+    parameters placed by the port's make_mesh / infer_param_shardings /
+    shard_parameters on a one-rank NCCL group; 4 steps routed as in
+    training (capacity 1.0, the random second-expert policy, drawn from a
+    generator seeded per step) with the gate loss at --moe_gate_loss_wt:
+    loss and grad norm finite, the loss falling from step 2, moe_overflow
+    printed, #1/#6/#7 launched layers x microbatches times a step; ms/step,
+    peak memory and a device-time profile of one microbatch (gate,
+    dispatch, experts, combine, attention kernels, other); a teacher check
+    of one microbatch (eval routing) against the plain path at the train
+    phase's bounds."""
+    import shutil
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from unilm_tpu_torch.cli import train_gpt
+    from unilm_tpu_torch.models.kosmos import UniGPT
+    from unilm_tpu_torch.ops.fused_ce import chunked_cross_entropy
+    from unilm_tpu_torch.parallel.mesh import make_mesh
+    from unilm_tpu_torch.parallel.sharding import (infer_param_shardings,
+                                                   shard_parameters)
+    from unilm_tpu_torch.runtime.train import (apply_with_moe_aux,
+                                               make_train_step)
+
+    shutil.rmtree(WORK, ignore_errors=True)
+    WORK.mkdir(parents=True)
+    one_rank_group()
+    prefix = str(WORK / "corpus")
+    write_corpus(prefix, TRAIN_VOCAB, 64, SEED, lead_pad_first=True)
+    args = train_gpt.build_parser().parse_args([
+        "--data", prefix, "--dim", "2048", "--layers", str(MOE_LAYERS),
+        "--heads", "32", "--ffn", "8192", "--vocab", str(TRAIN_VOCAB),
+        "--tokens_per_sample", "2048", "--batch_size", "8",
+        "--update_freq", "4", "--fused_ce", "--ce_chunk", "8192",
+        "--warmup", "1", "--seed", str(SEED), "--moe_freq", str(MOE_FREQ),
+        "--moe_experts", str(MOE_EXPERTS)])
+    tr = train_gpt.build_trainer(args)
+    model, cfg = tr.model, tr.cfg
+    mesh = make_mesh({"data": -1})
+    placements = infer_param_shardings(model, mesh)
+    check(all(all(p.is_replicate() for p in pl)
+              for pl in placements.values()),
+          "moe_train: a parameter is sharded on a one-rank mesh")
+    sync = shard_parameters(model, mesh)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_moe = sum(1 for layer in model.decoder.layers if hasattr(layer, "moe"))
+    batch = tr.next_batch()
+    phase("moe_train", f"UniGPT {MOE_LAYERS} layers ({n_moe} MoE, "
+          f"{MOE_EXPERTS} experts, top-{cfg.moe_top}, capacity "
+          f"{cfg.moe_capacity_factor} / {cfg.moe_eval_capacity_factor}), "
+          f"E={cfg.embed_dim}, H={cfg.num_heads}, FFN={cfg.ffn_dim}, vocab "
+          f"{cfg.vocab_size}, T=2048, bf16 compute / fp32 params: "
+          f"{n_params / 1e9:.3f} B params; batch 8 = 4 microbatches x 2; "
+          f"mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on a "
+          "one-rank NCCL group, every placement Replicate")
+
+    wt = args.moe_gate_loss_wt
+    gen = torch.Generator(device="cuda")
+
+    def loss_fn(m, mb):
+        out, aux, stats = apply_with_moe_aux(m, mb, return_features=True,
+                                             generator=gen)
+        s, n = chunked_cross_entropy(out[:, :-1], m.embed_tokens.weight,
+                                     mb[:, 1:], chunk=args.ce_chunk)
+        return s / n + wt * aux, {"ntok": n, **stats}
+
+    step_fn = make_train_step(loss_fn, tr.tx, clip_grad_norm=args.clip_norm,
+                              microbatches=args.update_freq, grad_sync=sync)
+    steps, losses, times = 4, [], []
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    for i in range(steps):
+        gen.manual_seed(SEED + i)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        tr.state, m = step_fn(tr.state, batch)
+        torch.cuda.synchronize()
+        times.append(time.time() - t0)
+        losses.append(float(m["loss"]))
+        gn = float(m["grad_norm"])
+        check(np.isfinite(losses[-1]) and np.isfinite(gn),
+              f"moe_train: step {i + 1} loss {losses[-1]} grad_norm {gn}")
+        phase("moe_train", f"step {i + 1}: loss {losses[-1]:.6f}, grad_norm "
+              f"{gn:.4f}, moe_overflow {float(m['moe_overflow']):.4f}, "
+              f"{times[-1] * 1e3:.1f} ms (host clock)")
+    got = counts()
+    per_step = MOE_LAYERS * args.update_freq
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        check(got[name] == per_step * steps,
+              f"moe_train: {name} launches {got[name]} != {per_step} x "
+              f"{steps}")
+    check(all(losses[i + 1] < losses[i] for i in range(1, steps - 1)),
+          f"moe_train: loss does not fall from step 2 on: {losses}")
+    launches = {k: got[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv")}
+    step_s = float(np.mean(times[1:]))
+    tokens = args.batch_size * args.tokens_per_sample
+    phase("moe_train", f"launches per step: flash_fwd/dq/dkv {per_step} "
+          f"each; steps 2-{steps}: {step_s * 1e3:.1f} ms/step, "
+          f"{tokens / step_s:.0f} tokens/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+
+    # ---- device-time profile of one microbatch (training routing) -------
+    mb = batch[0]
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def micro():
+        gen.manual_seed(SEED)
+        loss, _ = loss_fn(model, mb)
+        return torch.autograd.grad(loss, params)
+
+    micro()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        grads = micro()
+        torch.cuda.synchronize()
+    del grads
+    shares = device_time_shares(prof, [
+        ("flash #1/#6/#7", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])])
+    total = sum(shares.values())
+    ranges = range_device_ms(prof, ["moe_gate", "moe_dispatch",
+                                    "moe_experts", "moe_combine"])
+    if total <= 0:
+        phase("moe_train", "profiler saw no device time: shares not "
+              "measured")
+    else:
+        phase("moe_train", f"device time of one microbatch {total:.1f} ms: "
+              f"attention kernels {shares['flash #1/#6/#7']:.1f} ms; the "
+              "MoE ranges' forward kernels (recompute-free) " + ", ".join(
+                  f"{k} {v:.2f} ms" for k, v in ranges.items())
+              + f"; other {shares['other'] - sum(ranges.values()):.1f} ms "
+              "(the rest less those ranges: cuBLAS products of the dense "
+              "layers and of the MoE backward, elementwise, CE)")
+    tr.state.opt_state = None  # the teacher check needs the memory
+    torch.cuda.empty_cache()
+
+    # ---- teacher check: kernel vs plain path, one sequence, eval routing
+    flat = batch.reshape(-1, batch.shape[-1])
+    rows = [i for i in range(flat.shape[0]) if int(flat[i, 0]) != PAD]
+    row = max(rows, key=lambda i: int((flat[i] == PAD).sum()))
+    seq = flat[row:row + 1]
+    plain = UniGPT(dataclasses.replace(cfg, use_flash=False, remat=True),
+                   device="cuda")
+    plain.load_state_dict(model.state_dict(), assign=True)
+
+    def loss_grads(m):
+        out, aux, _ = apply_with_moe_aux(m, seq, return_features=True)
+        s, n = chunked_cross_entropy(out[:, :-1], m.embed_tokens.weight,
+                                     seq[:, 1:], chunk=args.ce_chunk)
+        loss = s / n + wt * aux
+        ps = [p for p in m.parameters() if p.requires_grad]
+        return float(loss.detach()), torch.autograd.grad(loss, ps)
+
+    c0 = counts()
+    lk, gk = loss_grads(model)
+    c1 = counts()
+    lp, gp = loss_grads(plain)
+    torch.cuda.synchronize()
+    check(counts() == c1 and c1["flash_bwd_dq"] - c0["flash_bwd_dq"]
+          == MOE_LAYERS, f"moe_train teacher: launch counts {c0} -> {c1}")
+    names = [n for n, p in model.named_parameters() if p.requires_grad]
+    nk = float(torch.sqrt(sum(g.float().pow(2).sum() for g in gk)))
+    npl = float(torch.sqrt(sum(g.float().pow(2).sum() for g in gp)))
+    cos = {n: float(torch.nn.functional.cosine_similarity(
+        a.flatten().float(), b.flatten().float(), dim=0))
+        for n, a, b in zip(names, gk, gp)}
+    worst = min(cos, key=cos.get)
+    loss_rel = abs(lk - lp) / abs(lp)
+    norm_rel = abs(nk - npl) / npl
+    phase("moe_train", f"teacher check, batch row {row} (1 x 2048, eval "
+          f"routing): loss kernel {lk:.6f} plain {lp:.6f} (rel "
+          f"{loss_rel:.2e}, tol {TEACHER_LOSS_REL}); grad norm kernel "
+          f"{nk:.5f} plain {npl:.5f} (rel {norm_rel:.2e}, tol "
+          f"{TEACHER_NORM_REL}); min per-tensor cosine {cos[worst]:.5f} "
+          f"({worst}, tol {TEACHER_COS})")
+    check(loss_rel <= TEACHER_LOSS_REL and norm_rel <= TEACHER_NORM_REL
+          and cos[worst] >= TEACHER_COS, "moe_train: teacher check failed")
+    del plain, gk, gp, tr, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def moe_serve_model():
+    """The MoE UniGPT text decoder at the 1.3B width, 8 layers (4 MoE of 8
+    experts), bf16 params and compute, random weights from the seed, as
+    (config, state_dict)."""
+    from unilm_tpu_torch.models.kosmos import UniGPT, UniGPTConfig
+
+    cfg = UniGPTConfig(vocab_size=TRAIN_VOCAB, embed_dim=2048,
+                       num_layers=MOE_LAYERS, num_heads=32, ffn_dim=8192,
+                       max_positions=2050, subln=True, xpos_rel_pos=True,
+                       moe_freq=MOE_FREQ, moe_experts=MOE_EXPERTS,
+                       dtype=torch.bfloat16, param_dtype=torch.bfloat16,
+                       image_tower=None)
+    model = UniGPT(cfg, device="cuda").eval()
+    model.init_weights(torch.Generator(device="cuda").manual_seed(SEED))
+    return cfg, model.state_dict()
+
+
+def phase_moe_serve() -> dict:
+    """moe_serve: the serving engine on the MoE decoder (moe_serve_model),
+    bf16 pools and weights, then int8 weights (the experts and the router
+    stay bf16) with int8 pools: MOE_SERVE_REQUESTS greedy requests of a
+    MOE_SERVE_PROMPT-token prompt each; the decode launches counted; then
+    4 teacher-forced decode steps at B=4, kernel path against the plain
+    path: logits within LOGIT_ATOL on every row, argmax agreement
+    ARGMAX_AGREE. The plain path routes each token to the experts the
+    kernel path chose (core/moe.py `top2_gating(choice=)`, with its own
+    gates): a router's near tie can break apart under the attention's
+    rounding and send a token to another expert, a jump that no tolerance
+    on rounding covers, so the rows whose own choice would differ are
+    counted and printed, and held like the others."""
+    from unilm_tpu_torch.runtime.serving import (PagedGPT, ServingConfig,
+                                                 ServingEngine)
+
+    dev = "cuda"
+    cfg, sd = moe_serve_model()
+    L = cfg.num_layers
+    rng = np.random.RandomState(SEED + 9)
+    prompts = [[int(t) for t in rng.randint(4, cfg.vocab_size,
+                                            size=MOE_SERVE_PROMPT)]
+               for _ in range(MOE_SERVE_REQUESTS)]
+    trace = [[(f"r{i}", p) for i, p in enumerate(prompts)]]
+    launches = {}
+    n_moe = L // MOE_FREQ
+    for name, extra in (("bf16", {}), ("int8", dict(weight_dtype="int8",
+                                                   kv_dtype="int8"))):
+        scfg = ServingConfig(max_batch=4, page_size=64, chunk_pages=8,
+                             max_pages_per_seq=16, num_pages=8 + 4 * 16 + 8,
+                             prefill_bucket=64, max_new_tokens=MOE_SERVE_NEW,
+                             eos=NO_EOS, **extra)
+        eng = ServingEngine(cfg, scfg, sd, device=dev)
+        esd = eng.model.state_dict()
+        check(esd["decoder.layers.1.moe.experts.fc1.weight"].dtype
+              == torch.bfloat16 and esd["decoder.layers.1.moe.gate.weight"]
+              .dtype == torch.float32,
+              f"moe_serve {name}: expert / router weights not full precision")
+        reset_counts()
+        outs, steps, wall = run_engine(eng, trace)
+        got = counts()
+        chunks = eng.stats["prefill_chunks"]
+        check(all(len(outs[f"r{i}"]) == MOE_SERVE_NEW
+                  for i in range(MOE_SERVE_REQUESTS)),
+              f"moe_serve {name}: token counts")
+        decode = {k: got[k] for k in ("decode_attention",
+                                      "decode_attention_int8",
+                                      "paged_append_attention") if got[k]}
+        check(sum(decode.values()) == L * steps,
+              f"moe_serve {name}: decode launches {decode} != {L} x {steps}")
+        if name == "int8":
+            want = (L * 4 + (L - n_moe) * 2) * (chunks + steps)
+            check(got["int8_matmul"] == want,
+                  f"moe_serve int8: int8 matmul launches {got['int8_matmul']}"
+                  f" != {want} (the dense projections only)")
+            decode["int8_matmul"] = got["int8_matmul"]
+        for k, v in decode.items():
+            launches[k] = launches.get(k, 0) + v
+        phase("moe_serve", f"{name}: {MOE_SERVE_REQUESTS} requests x "
+              f"{MOE_SERVE_PROMPT} prompt + {MOE_SERVE_NEW} greedy tokens: "
+              f"{chunks} prefill chunks, {steps} decode steps in {wall:.2f} s"
+              f" (host clock, {MOE_SERVE_REQUESTS * MOE_SERVE_NEW / wall:.1f}"
+              f" tok/s); launches {decode}; first stream "
+              f"{outs['r0'][:8]}...")
+
+        # teacher-forced: kernel path against plain path, B=4
+        model_k = eng.model
+        model_p = PagedGPT(eng.cfg, use_kernel=False, chunk_pages=8,
+                           device=dev)
+        model_p.load_state_dict(model_k.state_dict(), assign=True)
+        model_p.eval()
+        B, MP = 4, scfg.max_pages_per_seq
+        base = 8 + MP * np.arange(B)
+        tables = torch.tensor(base[:, None] + np.arange(MP)[None],
+                              device=dev, dtype=torch.int32)
+        bases = torch.tensor(base, device=dev, dtype=torch.int32)
+        lengths = torch.tensor(MOE_SERVE_PROMPT + 2 * np.arange(B),
+                               device=dev, dtype=torch.int32)
+        ones = torch.ones(B, dtype=torch.int32, device=dev)
+        pools_k = eng.pools
+        pools_p = tuple(t.clone() for t in pools_k)
+        sp = (lambda pools: pools[2] if len(pools) > 2 else None)
+        tok = torch.tensor(rng.randint(4, cfg.vocab_size, size=(B, 1)),
+                           device=dev)
+        import unilm_tpu_torch.core.moe as moe_mod
+
+        gating = moe_mod.top2_gating
+        picks, own = [], []
+
+        def record(logits, cap, top2, uniform):
+            picks.append(moe_mod.expert_choice(logits, top2))
+            return gating(logits, cap, top2, uniform)
+
+        def replay(logits, cap, top2, uniform):
+            # the kernel path's experts, this path's gates
+            own.append(moe_mod.expert_choice(logits, top2))
+            return gating(logits, cap, top2, uniform,
+                          choice=picks[len(own) - 1])
+
+        errs, agree, flipped = [], [], []
+        try:
+            for j in range(4):
+                n0 = len(picks)
+                moe_mod.top2_gating = record
+                lk = model_k(tok, pools_k[0], pools_k[1], tables,
+                             lengths + j, ones, bases=bases,
+                             scale_pool=sp(pools_k))[0]
+                moe_mod.top2_gating = replay
+                lp = model_p(tok, pools_p[0], pools_p[1], tables,
+                             lengths + j, ones, scale_pool=sp(pools_p))[0]
+                torch.cuda.synchronize()
+                check(len(own) == len(picks) == n0 + n_moe,
+                      f"moe_serve {name}: {len(picks) - n0} / "
+                      f"{len(own) - n0} MoE forwards, not {n_moe}")
+                # rows whose token the plain path would, by its own
+                # logits, send to another set of experts in some layer
+                flip = torch.zeros(B, dtype=torch.bool, device=dev)
+                for (a1, a2), (b1, b2) in zip(picks[n0:], own[n0:]):
+                    a = torch.stack((a1, a2), -1).sort(-1).values
+                    b = torch.stack((b1, b2), -1).sort(-1).values
+                    flip |= (a != b).any(-1).reshape(B)
+                flipped.append(flip.tolist())
+                errs.append((lk.float() - lp.float()).abs().amax(
+                    (1, 2)).tolist())
+                agree.extend((lk.argmax(-1) == lp.argmax(-1)).flatten()
+                             .tolist())
+                tok = lk.argmax(-1)
+        finally:
+            moe_mod.top2_gating = gating
+        agree = float(np.mean(agree))
+        worst = max(max(es) for es in errs)
+        n_flip = sum(map(sum, flipped))
+        phase("moe_serve", f"{name}: teacher-forced B4 at ctx ~"
+              f"{MOE_SERVE_PROMPT}, kernel vs plain path on the kernel "
+              "path's experts: logits max|err| per step and row "
+              f"{[[round(e, 4) for e in es] for es in errs]} (|logit| up to "
+              f"{float(lp.float().abs().max()):.2f}, std "
+              f"{float(lp.float().std()):.3f}), max {worst:.4f} (tol "
+              f"{LOGIT_ATOL}); {n_flip} of {4 * B} rows would route a token "
+              "to another set of experts by the plain path's own logits; "
+              f"argmax agreement {agree:.3f}")
+        check(agree >= ARGMAX_AGREE and worst <= LOGIT_ATOL,
+              f"moe_serve {name}: logits max|err| {errs}, argmax agreement "
+              f"{agree}")
+        del eng, model_k, model_p, pools_k, pools_p
+        torch.cuda.empty_cache()
+    del sd
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ring(fa) -> tuple:
+    """ring: parallel/ring_attention.py's per-chunk steps on the card, the
+    ring of RING_CHUNKS ranks played by a loop here (each rank's q
+    chunk against the chunks it holds in turn: the diagonal, then the
+    earlier ones; a causal ring skips the later ones): 2 x 8192 tokens, 32
+    heads x 64, bf16, causal, a non-contiguous key-padding mask (example 0
+    left-padded inside chunk 1, whose first rows see no key of their own
+    chunk) and example 1 masking every key. Forward out / lse and the
+    backward's dq / dk / dv against #1 and #6/#7 on the whole sequence at
+    relative L2 <= RING_REL_L2; the dead example's rows are zeros, not NaN.
+    Then #6 / #7 with the ring's delta are timed on one off-diagonal
+    chunk, and SeqParallelLM trains 2 steps on a one-rank group at 2
+    layers of the 1.3B width through make_train_step. Returns (the
+    launches, the chunk's timings for the kernels line)."""
+    from unilm_tpu_torch.core.config import TransformerConfig
+    from unilm_tpu_torch.parallel import ring_attention as ra
+    from unilm_tpu_torch.parallel.long_context import SeqParallelLM
+    from unilm_tpu_torch.parallel.mesh import make_mesh
+    from unilm_tpu_torch.runtime.optim import AdamW
+    from unilm_tpu_torch.runtime.train import TrainState, make_train_step
+
+    dev, bf = "cuda", torch.bfloat16
+    P, Tl, H, D = RING_CHUNKS, RING_CHUNK, RING_HEADS, RING_D
+    B, T = 2, RING_CHUNKS * RING_CHUNK
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    rn = lambda: torch.randn(B, T, H, D, generator=g, device=dev).to(bf)
+    q, k, v, do = rn(), rn(), rn(), rn()
+    mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+    mask[0, Tl:Tl + 5] = False      # rows Tl..Tl+4 see no key of chunk 1
+    mask[0, 3 * Tl + 100] = False
+    mask[1] = False                 # an example that masks every key
+    scale = D ** -0.5
+    qs = (q * scale).contiguous()
+    mi = mask.to(torch.int32)
+    ch = lambda t, i: t[:, i * Tl:(i + 1) * Tl].contiguous()
+
+    reset_counts()
+    outs, lses = [], []
+    for r in range(P):  # rank r: its q chunk, k/v chunks r, r-1, ..., 0
+        o, lse = ra.chunk_forward(ch(qs, r), ch(k, r), ch(v, r), ch(mi, r),
+                                  diagonal=True, causal=True)
+        for j in range(r - 1, -1, -1):
+            o_c, lse_c = ra.chunk_forward(ch(qs, r), ch(k, j), ch(v, j),
+                                          ch(mi, j), diagonal=False,
+                                          causal=True)
+            o, lse = ra.merge(o, lse, o_c, lse_c)
+        outs.append(o)
+        lses.append(lse)
+    fwd = counts()
+    o = torch.cat(outs, 1)
+    lse = torch.cat(lses, 2)
+    delta = ra.ring_delta(o, do)
+    dq = torch.zeros(B, T, H, D, device=dev)
+    dk, dv = torch.zeros_like(dq), torch.zeros_like(dq)
+    for r in range(P):
+        for j in range(r, -1, -1):
+            sl = slice(r * Tl, (r + 1) * Tl)
+            a, b, c = ra.chunk_backward(
+                ch(qs, r), ch(k, j), ch(v, j), ch(mi, j),
+                lse[:, :, sl].contiguous(), ch(do, r),
+                delta[:, :, sl].contiguous(), diagonal=j == r, causal=True)
+            dq[:, sl] += a
+            dk[:, j * Tl:(j + 1) * Tl] += b
+            dv[:, j * Tl:(j + 1) * Tl] += c
+    torch.cuda.synchronize()
+    got = counts()
+    n_chunks = P * (P + 1) // 2
+    check(fwd["flash_fwd"] + fwd["onepass_attention"] == n_chunks
+          and got["flash_bwd_dq"] == n_chunks
+          and got["flash_bwd_dkv"] == n_chunks,
+          f"ring: launches {got} (forward {fwd}) != {n_chunks} chunk calls "
+          "each")
+    launches = {"flash_fwd": fwd["flash_fwd"],
+                "flash_bwd_dq": got["flash_bwd_dq"],
+                "flash_bwd_dkv": got["flash_bwd_dkv"]}
+    if fwd["onepass_attention"]:
+        launches["onepass_attention"] = fwd["onepass_attention"]
+
+    # the whole sequence through #1 and #6/#7
+    ref_o, ref_lse = fa.flash_forward(qs, k, v, None, mask, causal=True)
+    ref = fa.flash_backward(qs, k, v, None, mask, 0, None, ref_o, ref_lse,
+                            do, causal=True)
+    torch.cuda.synchronize()
+    alive = (mi.cumsum(1) > 0)  # [B, T]: a visible valid key
+    errs = {"out": rel_l2(o[alive], ref_o[alive]),
+            "lse": rel_l2(lse.transpose(1, 2)[alive],
+                          ref_lse.transpose(1, 2)[alive])}
+    for name, x, r in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
+        check(bool(torch.isfinite(x).all()), f"ring: {name} not finite")
+        errs[name] = rel_l2(x, r)
+    dead = ~alive
+    check(bool(torch.isfinite(o).all()) and bool((o[dead] == 0).all())
+          and bool((dq[1] == 0).all()) and bool((lse[1] <= -1e29).all()),
+          "ring: the dead example is not zeros / NEG_INF")
+    check(all(e <= RING_REL_L2 for e in errs.values()),
+          f"ring: relative L2 to the whole-sequence kernels {errs} (bound "
+          f"{RING_REL_L2})")
+    phase("ring", f"{P} chunks of {Tl} (B={B}, H={H}, D={D}, bf16, causal,"
+          f" example 0 left-padded inside chunk 1, example 1 all masked): "
+          f"{n_chunks} forward and {n_chunks} backward chunk calls ({got}); "
+          "relative L2 to #1 / #6 / #7 on the whole sequence "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (bound {RING_REL_L2}); the dead example's rows zero, lse "
+          "NEG_INF, no NaN")
+    # ---- #6 / #7 with the ring's delta: one off-diagonal chunk (rank 3's
+    # q against chunk 2: full visibility, the key-padding mask) timed as
+    # device time beside #6's own delta sweep on the same chunk, the plain
+    # twin and sdpa's backward (dq, dk, dv)
+    sl = slice(3 * Tl, 4 * Tl)
+    cq, cdo = ch(qs, 3), ch(do, 3)
+    ck, cv, cm = ch(k, 2), ch(v, 2), ch(mi, 2)
+    clse, cdelta = lse[:, :, sl].contiguous(), delta[:, :, sl].contiguous()
+    given = lambda: fa.flash_backward(cq, ck, cv, None, cm, 0, None, None,
+                                      clse, cdo, delta=cdelta)
+    own = lambda: fa.flash_backward(cq, ck, cv, None, cm, 0, None, None,
+                                    clse, cdo)
+    plain = lambda: fa.flash_backward_plain(cq, ck, cv, None, cm, 0, None,
+                                            None, clse, cdo, delta=cdelta)
+    dev_dq = device_ms(given, only="flash_bwd_dq")
+    dev_dkv = device_ms(given, only="flash_bwd_dkv")
+    dev_call = device_ms(given)
+    dev_own = device_ms(own, only="flash_bwd_dq")
+    dev_dq2 = device_ms(given, only="flash_bwd_dq")
+    plain_ms = cuda_ms(plain, iters=3)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (cq, ck, cv))
+    amask = cm.bool()[:, None, None, :]
+    lo = sdpa(qg, kg, vg, attn_mask=amask, scale=1.0)
+    dlo = cdo.transpose(1, 2)
+    lib = lambda: torch.autograd.grad(lo, (qg, kg, vg), dlo,
+                                      retain_graph=True)
+    lib_ms = device_ms(lib, iters=5)
+    pairs = float(cm.int().sum()) * Tl * H
+    bd = roofline(nbytes(cq, ck, cv, cdo, clse, cdelta, cm, cq, ck, cv),
+                  5 * 2 * pairs * D)
+    phase("ring", f"#6 / #7 with the ring's delta, one off-diagonal chunk "
+          f"({B}x{Tl} over {Tl} keys, H={H}, D={D}, bf16, the mask): device "
+          f"time #6 {dev_dq:.4f} / {dev_dq2:.4f} ms (#6 taking its own "
+          f"delta in a first sweep {dev_own:.4f}), #7 {dev_dkv:.4f}, the "
+          f"call {dev_call:.4f}; plain twin {plain_ms:.4f} ms (CUDA "
+          f"events); sdpa backward {lib_ms:.4f}; bound "
+          f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}, the pair's 5 "
+          "products)")
+    extra = {"flash_bwd_dq": {"ring_chunk": {
+        "shape": f"{B}x{Tl}x{Tl}x{H}x{D} bf16, mask, the caller's delta",
+        "ms": dev_dq, "ms_own_delta": dev_own, "call_ms": dev_call,
+        "plain_ms": plain_ms, "library_ms": lib_ms, **bd}},
+        "flash_bwd_dkv": {"ring_chunk": {"ms": dev_dkv}}}
+    del q, k, v, do, qs, o, lse, dq, dk, dv, ref_o, ref_lse, ref, outs, lses
+    del cq, cdo, ck, cv, cm, clse, cdelta, qg, kg, vg, lo, dlo
+    torch.cuda.empty_cache()
+
+    # ---- SeqParallelLM: 2 steps on a one-rank group --------------------
+    one_rank_group()
+    mesh = make_mesh({"seq": -1})
+    cfg = TransformerConfig(vocab_size=TRAIN_VOCAB, embed_dim=2048,
+                            num_layers=2, num_heads=32, ffn_dim=8192,
+                            max_positions=T, subln=True, xpos_rel_pos=True,
+                            dtype=bf)
+    lm = SeqParallelLM(cfg, mesh, "seq", device=dev)
+    lm.init_weights(torch.Generator(device=dev).manual_seed(SEED))
+    toks = torch.from_numpy(np.random.RandomState(SEED).randint(
+        4, TRAIN_VOCAB, size=(1, T))).to(dev)
+    tx = AdamW(1e-3)
+    state = TrainState.create(lm, tx)
+    step = make_train_step(lm.loss_fn, tx, clip_grad_norm=1.0, grad_sync=lm)
+    reset_counts()
+    losses = []
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, m = step(state, toks)
+        torch.cuda.synchronize()
+        losses.append(float(m["loss"]))
+        check(np.isfinite(losses[-1]) and np.isfinite(float(m["grad_norm"])),
+              f"ring: SeqParallelLM step {i + 1} loss {losses[-1]}")
+        phase("ring", f"SeqParallelLM step {i + 1} (2 layers, 1 x {T} "
+              f"tokens, one-rank seq group): loss {losses[-1]:.5f}, "
+              f"grad_norm {float(m['grad_norm']):.4f}, "
+              f"{(time.time() - t0) * 1e3:.1f} ms (host clock)")
+    got = counts()
+    check(got["flash_fwd"] == 2 * 2 and got["flash_bwd_dq"] == 2 * 2
+          and got["flash_bwd_dkv"] == 2 * 2,
+          f"ring: SeqParallelLM launches {got} != 2 layers x 2 steps")
+    check(losses[1] < losses[0], f"ring: SeqParallelLM loss {losses}")
+    for k2 in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        launches[k2] += got[k2]
+    del lm, state, tx
+    torch.cuda.empty_cache()
+    return launches, extra
+
+
 def main() -> int:
     smi = phase_device()
     from unilm_tpu_torch.ops import doc_attention as da
@@ -8836,6 +9476,7 @@ def main() -> int:
                     "flash_bwd_dq": fa.BWD_KERNEL_DQ,
                     "flash_bwd_dkv": fa.BWD_KERNEL_DKV,
                     "flash_bwd_fused": fa.FUSED_BWD_KERNEL,
+                    "flash_bwd_delta": fa.BWD_KERNEL_DELTA,
                     "encoder_attention_bwd": fa.ENCODER_BWD_KERNEL,
                     "doc_attention": da.FWD_KERNEL,
                     "doc_attention_bwd": da.BWD_KERNEL,
@@ -8910,6 +9551,16 @@ def main() -> int:
     add("train", got)
     add("train_options", got_options)
     options.update(unigpt_options)
+    add("moe_train", phase_moe_train(fa))
+    add("moe_serve", phase_moe_serve())
+    got, ring_extra = phase_ring(fa)
+    add("ring", got)
+    import shutil
+
+    import torch.distributed as dist
+
+    dist.destroy_process_group()
+    shutil.rmtree(WORK, ignore_errors=True)
     for kern in kernels:
         paths = by_path.get(kern["name"], {})
         kern["launches"] = sum(paths.values())
@@ -8919,6 +9570,7 @@ def main() -> int:
         kern.update(kosmos2_extra.get(kern["name"], {}))
         kern.update(beit_family_extra.get(kern["name"], {}))
         kern.update(docai_extra.get(kern["name"], {}))
+        kern.update(ring_extra.get(kern["name"], {}))
         check(kern["launches"] > 0, f"{kern['name']} never launched")
     print(json.dumps({"paths": {"decode_int8_bs1": line4["line4"],
                                 **infer, **trocr_bf16, **trocr_int8,
@@ -8931,6 +9583,8 @@ def main() -> int:
           f"to CUDA events: {PROFILER_MISSES}; {len(PROFILER_LOST)} traces "
           f"lost kernel records (each timed by the mean of those kept): "
           f"{PROFILER_LOST}")
+    phase("total", f"{time.time() - T0:.1f} s from the start, the kernels' "
+          "build included")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

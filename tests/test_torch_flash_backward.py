@@ -161,3 +161,37 @@ def test_bf16_delta_is_rowsum_p_dp():
     for name, a, b, w in zip(("dq", "dk"), exact, jax_rule, want):
         assert cos(a, w) >= 0.9999, name
         assert cos(b, w) < 0.999, name
+
+
+def test_bf16_fused_delta_is_rowsum_p_dp():
+    """#8's twin takes #6's exact delta in bf16 too (the kernel gets it
+    from #6's sweep launched alone): on the near-uniform rows above its
+    q and k gradients reach the cosine #6's twin reaches, 0.9999 to float32
+    autograd, where JAX's delta from the bf16 out stays below 0.999."""
+    rng = np.random.RandomState(2)
+    B, T, H, D = 2, 64, 2, 64
+    f = lambda *s: torch.from_numpy(rng.randn(*s).astype(np.float32))
+    q, k, do = f(B, T, H, D) * D ** -0.5, f(B, T, H, D), f(B, T, H, D)
+    v = 0.01 * f(B, T, H, D) + f(1, 1, H, D)
+    q, k, v, do = (t.bfloat16() for t in (q, k, v, do))
+    out, lse = tfa.flash_forward_plain(q, k, v, None, None, 0, None,
+                                       causal=True, window=0)
+    ref = [t.float().requires_grad_() for t in (q, k, v)]
+    o32, _ = tfa.flash_forward_plain(*ref, None, None, 0, None, causal=True,
+                                     window=0)
+    want = torch.autograd.grad(o32, ref, do.float())
+    fused = tfa.flash_backward_fused_plain(q, k, v, None, 0, None, out, lse,
+                                           do, causal=True)
+    split = tfa.flash_backward_plain(q, k, v, None, None, 0, None, out, lse,
+                                     do, causal=True)
+    jax_rule = tfa.flash_backward_plain(q, k, v, None, None, 0, None, out,
+                                        lse, do, causal=True,
+                                        delta=tfa._delta(out, do))
+    cos = lambda a, b: float(torch.nn.functional.cosine_similarity(
+        a.float().flatten(), b.flatten(), dim=0))
+    for name, a, s6, b, w in zip(("dq", "dk", "dv"), fused, split, jax_rule,
+                                 want):
+        assert cos(a, w) >= 0.9999, name
+        assert torch.equal(a, s6), name
+        if name != "dv":
+            assert cos(b, w) < 0.999, name

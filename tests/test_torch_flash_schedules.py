@@ -188,9 +188,10 @@ def test_fused_backward_matches_jax(name, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_fused_plain_is_the_split_plain_backward(dtype):
-    """#8's twin is #6/#7's twin without a bias and with JAX's delta =
-    rowsum(dO out) (#6 takes rowsum(p dp) itself), bit for bit: a window,
-    a query offset and kv_len, and a fully masked example."""
+    """#8's twin is #6/#7's twin without a bias and with its delta
+    (rowsum(dO out) in fp32, the exact rowsum(p dp) in bf16, which the
+    kernel takes from #6's sweep), bit for bit: a window, a query offset
+    and kv_len, and a fully masked example."""
     rng = np.random.RandomState(3)
     T, S = 50, 70
     t = lambda *s: torch.from_numpy(_rand(rng, *s)).to(dtype)
@@ -203,7 +204,7 @@ def test_fused_plain_is_the_split_plain_backward(dtype):
     got = tfa.flash_backward_fused_plain(q, k, v, mask, 10, 60, out, lse, do,
                                          **kw)
     want = tfa.flash_backward_plain(q, k, v, None, mask, 10, 60, out, lse, do,
-                                    delta=tfa._delta(out, do), **kw)
+                                    **kw)
     assert len(got) == 3 and want[3] is None
     for a, w in zip(got, want):
         assert a.dtype == w.dtype and torch.equal(a, w)

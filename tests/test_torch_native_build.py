@@ -216,14 +216,16 @@ def test_flash_bwd_argtypes_unchanged():
     ring's chunked backward relies on (out and lse from the caller):
     q, k, v, dout, lse, delta, bias, mask, then dq, dbias (#6) or dk, dv
     (#7) as pointers; B, T, S, H, D, bias_sb, bias_sh, q_offset, limit,
-    causal, window, [acc_b,] dtype as ints; then the stream."""
+    causal, window, [acc_b, delta_mode,] dtype as ints; then the stream.
+    #6's `delta_mode` says whether it takes delta itself or the caller's
+    (the ring's chunks pass theirs)."""
     from unilm_tpu_torch.ops import flash_attention as tfa
 
     P, I = _native.P, _native.I
     assert tfa.BWD_KERNEL_DQ.source.name == "flash_bwd.cu"
     assert tfa.BWD_KERNEL_DKV.source.name == "flash_bwd.cu"
     assert tfa.BWD_KERNEL_DQ.functions == {
-        "flash_bwd_dq": [P] * 10 + [I] * 13 + [P]}
+        "flash_bwd_dq": [P] * 10 + [I] * 14 + [P]}
     assert tfa.BWD_KERNEL_DKV.functions == {
         "flash_bwd_dkv": [P] * 10 + [I] * 12 + [P]}
 

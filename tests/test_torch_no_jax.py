@@ -224,7 +224,64 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "cli.kosmos_seedbench", "core.multiway", "models.beit3",
           "models.vlmo", "models.beit2", "models.dalle_vae", "convert.dalle",
           "models.registry", "runtime.metrics", "runtime.criterions",
-          "runtime.profiling", "ops.dropout"}
+          "runtime.profiling", "ops.dropout", "ops.collectives", "core.moe",
+          "parallel.mesh", "parallel.sharding", "parallel.ring_attention",
+          "parallel.long_context", "parallel.pipeline", "parallel.dryrun"}
+
+
+_PARALLEL = _POISON + r"""
+import numpy as np
+import torch
+import torch.distributed as dist
+from unilm_tpu_torch.cli import train_gpt
+from unilm_tpu_torch.core.config import TransformerConfig
+from unilm_tpu_torch.data.indexed_dataset import build_indexed_dataset
+from unilm_tpu_torch.parallel.long_context import SeqParallelLM
+from unilm_tpu_torch.parallel.mesh import make_mesh
+from unilm_tpu_torch.parallel.sharding import shard_parameters
+from unilm_tpu_torch.runtime.optim import AdamW
+from unilm_tpu_torch.runtime.train import TrainState, make_train_step
+
+torch.set_num_threads(1)
+work = sys.argv[1]
+dist.init_process_group("gloo", init_method=f"file://{work}/init", rank=0,
+                        world_size=1)
+rng = np.random.RandomState(0)
+build_indexed_dataset(work + "/data", [rng.randint(4, 300, size=40)
+                                       for _ in range(8)])
+args = train_gpt.build_parser().parse_args([
+    "--data", work + "/data", "--dim", "32", "--layers", "2", "--heads", "2",
+    "--ffn", "64", "--vocab", "300", "--tokens_per_sample", "16",
+    "--batch_size", "2", "--moe_freq", "2", "--moe_experts", "2",
+    "--device", "cpu"])
+tr = train_gpt.build_trainer(args)
+sync = shard_parameters(tr.model, make_mesh({"data": -1}))
+_, m = tr.step_fn(tr.state, tr.next_batch())
+print("moe", sorted(m))
+cfg = TransformerConfig(vocab_size=64, embed_dim=32, num_layers=1,
+                        num_heads=2, ffn_dim=64, xpos_rel_pos=True)
+lm = SeqParallelLM(cfg, make_mesh({"seq": -1}), "seq")
+lm.init_weights(torch.Generator().manual_seed(0))
+tx = AdamW(1e-3)
+_, m = make_train_step(lm.loss_fn, tx, grad_sync=lm)(
+    TrainState.create(lm, tx), torch.randint(3, 64, (1, 16)))
+print("seq", bool(np.isfinite(float(m["loss"]))))
+dist.destroy_process_group()
+"""
+
+
+def test_parallel_layer_runs_without_jax(tmp_path):
+    """An MoE train step through the CLI with its parameters placed on a
+    one-rank mesh, and a SeqParallelLM step through the ring on a
+    one-rank gloo group, reach no JAX module."""
+    res = subprocess.run([sys.executable, "-c", _PARALLEL, str(tmp_path)],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.strip().splitlines()
+    assert lines[0] == "moe ['grad_norm', 'loss', 'moe_overflow', 'ntok']", \
+        lines
+    assert lines[1] == "seq True", lines
 
 
 def test_port_imports_without_jax():

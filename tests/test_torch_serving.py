@@ -236,14 +236,17 @@ def test_sampled_engine_reproducible_and_greedy_slot_exact():
 
 
 def test_unported_options_raise():
+    """What the JAX engine refuses under a mesh (it asserts): int8 weights
+    and the scanned stack."""
     jcfg, tcfg = _cfgs()
     params = _params(jcfg.subln, jcfg.xpos_rel_pos)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        ts.ServingEngine(tcfg, ts.ServingConfig(**SKW), params, mesh=object(),
-                         device="cpu")
-    _, moe = _cfgs(moe_freq=2, moe_experts=2)
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        ts.PagedGPT(moe)
+    with pytest.raises(ValueError, match="int8 weights"):
+        ts.ServingEngine(tcfg, ts.ServingConfig(**SKW, weight_dtype="int8"),
+                         params, mesh=object(), device="cpu")
+    _, scan = _cfgs(scan_layers=True)
+    with pytest.raises(ValueError, match="scan_layers"):
+        ts.ServingEngine(scan, ts.ServingConfig(**SKW), params,
+                         mesh=object(), device="cpu")
 
 
 def test_engine_runs_on_the_card_unless_asked_for_the_cpu(monkeypatch):

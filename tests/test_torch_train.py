@@ -388,13 +388,16 @@ def test_cli_resume_is_bitwise(tmp_path):
 
 
 def test_train_cli_refuses_unported_paths(tmp_path):
+    """What the JAX CLI refuses (it asserts): --pp_stages takes text
+    pretraining with dense layers only."""
     from unilm_tpu_torch.cli import train_gpt
 
-    for flags, match in ((["--pp_stages", "2"], "slice 9"),
-                         (["--moe_freq", "2"], "slice 9")):
-        args = train_gpt.build_parser().parse_args(
-            ["--data", "x", "--device", "cpu"] + flags)
-        with pytest.raises(NotImplementedError, match=match):
+    for flags in (["--data", "x", "--pp_stages", "2", "--moe_freq", "2",
+                   "--moe_experts", "2"],
+                  ["--vl_data", "x*.jsonl", "--pp_stages", "2"]):
+        args = train_gpt.build_parser().parse_args(flags + ["--device",
+                                                            "cpu"])
+        with pytest.raises(ValueError, match="--pp_stages"):
             train_gpt.build_trainer(args)
 
 

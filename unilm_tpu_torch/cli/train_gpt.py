@@ -31,8 +31,21 @@ fixed-shape rows with an `<image>` span -> a UniGPT with the CLIP tower
 the text positions only (`loss_mask`). The stream's state, shuffle
 buffer included, is saved with each checkpoint.
 
-Pipeline parallelism (`--pp_stages`) and MoE (`--moe_*`, slice 9) raise
-NotImplementedError naming their ROADMAP entry.
+Pipeline parallelism (`--pp_stages S`, text pretraining, dense layers,
+as the JAX CLI asserts): run under torchrun; the world's ranks form a
+stage x fsdp mesh (fsdp = world / S), the UniGPT decoder's layers split
+over the stages (parallel/pipeline.py `PipelineGPT`, `--pp_microbatches`
+GPipe microbatches, 2 S by default) with ZeRO-3 stage matrices and the
+rows split over fsdp. The process group comes from torchrun's environment
+(NCCL on the card, gloo on the CPU), each rank on its LOCAL_RANK card;
+checkpoints go to `<save_dir>/rank<r>`.
+
+MoE (`--moe_freq` / `--moe_experts`): every moe_freq-th layer is an X-MoE
+layer (core/moe.py); the loss adds `--moe_gate_loss_wt` times the GShard
+loss summed over the MoE layers (runtime/train.py `apply_with_moe_aux`,
+the reference's moe_gate_loss_wt) and the step's metrics carry
+`moe_overflow`. The step routes deterministically (eval capacity), as the
+JAX CLI's apply does.
 """
 
 from __future__ import annotations
@@ -58,7 +71,8 @@ from unilm_tpu_torch.runtime.device import resolve_device
 from unilm_tpu_torch.runtime import metrics as M
 from unilm_tpu_torch.runtime.logging import JsonlLogger, find_nonfinite
 from unilm_tpu_torch.runtime.optim import AdamW, polynomial_decay_schedule
-from unilm_tpu_torch.runtime.train import (TrainState, cross_entropy_loss,
+from unilm_tpu_torch.runtime.train import (TrainState, apply_with_moe_aux,
+                                           cross_entropy_loss,
                                            make_train_step)
 
 
@@ -179,26 +193,38 @@ class Trainer:
         return put(np.stack(blocks))
 
 
+def _pp_device(dev: torch.device) -> torch.device:
+    """The rank's device and process group for --pp_stages (torchrun's
+    environment: NCCL with LOCAL_RANK's card, or gloo on the CPU)."""
+    import torch.distributed as dist
+
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+    return dev
+
+
 def build_trainer(args) -> Trainer:
     """Model (random weights from --seed), optimizer, train step and data
     stream for the parsed CLI `args`."""
-    if args.pp_stages > 1:
-        raise NotImplementedError(
-            "pipeline parallelism (--pp_stages) is not ported yet: ROADMAP "
-            "Queue 1 slice 9")
-    if args.moe_freq or args.moe_experts:
-        raise NotImplementedError(
-            "MoE layers (--moe_freq/--moe_experts) are not ported yet: "
-            "ROADMAP Queue 1 slice 9")
     multimodal = bool(args.vl_data)
     if not multimodal and not args.data:
         raise ValueError("one of --data / --vl_data is required")
+    pp = args.pp_stages > 1
+    if pp and (multimodal or args.moe_freq):
+        raise ValueError("--pp_stages: text-only pretraining with dense "
+                         "layers (the JAX CLI's scope)")
     dev = resolve_device(args.device)
+    if pp:
+        dev = _pp_device(dev)
     dtype = torch.bfloat16 if args.bf16 else torch.float32
     kw = dict(embed_dim=args.dim, num_layers=args.layers,
               num_heads=args.heads, ffn_dim=args.ffn,
               max_positions=args.tokens_per_sample + 2, subln=True,
-              xpos_rel_pos=True, remat=args.remat, dtype=dtype)
+              xpos_rel_pos=True, moe_freq=args.moe_freq,
+              moe_experts=args.moe_experts, remat=args.remat, dtype=dtype)
     if multimodal:
         stream, tok = build_vl_stream(args)
         clip = ClipVisionConfig(img_size=args.image_size, dtype=dtype)
@@ -218,6 +244,29 @@ def build_trainer(args) -> Trainer:
         stream = build_stream(args, dictionary)
     model = UniGPT(cfg, device=dev)
     model.init_weights(torch.Generator(device=dev).manual_seed(args.seed))
+    sync = None
+    if pp:
+        import torch.distributed as dist
+
+        from unilm_tpu_torch.parallel.mesh import make_mesh
+        from unilm_tpu_torch.parallel.pipeline import PipelineGPT
+
+        S = args.pp_stages
+        n = dist.get_world_size()
+        if n % S:
+            raise ValueError(f"{n} ranks not divisible by {S} stages")
+        fsdp = n // S
+        mesh = make_mesh({"stage": S, "fsdp": fsdp} if fsdp > 1
+                         else {"stage": S})
+        full = model
+        model = PipelineGPT(cfg, S, mesh, args.pp_microbatches or 2 * S,
+                            remat=args.remat,
+                            fsdp_axis="fsdp" if fsdp > 1 else None,
+                            device=dev)
+        model.from_unigpt(full.state_dict())
+        del full
+        model.shard_stage()
+        sync = model.grad_sync()
 
     sched = polynomial_decay_schedule(args.lr, args.max_steps, args.warmup)
     tx = AdamW(sched, b1=0.9, b2=0.98, weight_decay=0.01)
@@ -229,24 +278,42 @@ def build_trainer(args) -> Trainer:
                                          mask, chunk=args.ce_chunk)
         return cross_entropy_loss(out, targets, mask)
 
-    if multimodal:
+    moe = args.moe_freq > 0 and args.moe_experts > 0
+    wt = args.moe_gate_loss_wt
+
+    def apply(m, *a, **k):
+        """The forward, with the summed MoE gate loss and its stats for
+        an MoE model (the criterion adds wt * gate loss)."""
+        if moe:
+            return apply_with_moe_aux(m, *a, **k)
+        return m(*a, **k), 0.0, {}
+
+    if pp:
+        def loss_fn(m, batch):
+            out = m.features(batch) if args.fused_ce else m.logits(batch)
+            rows = m._rows(batch)
+            s, n = ce(m, out[:, :-1], rows[:, 1:])
+            return m.rows_mean(s / n), {"ntok": n}
+    elif multimodal:
         def loss_fn(m, batch):
             tokens = batch["tokens"]
-            out = m(tokens, batch["images"][:, 0], batch["img_mask"],
-                    batch["segs"], return_features=args.fused_ce)
+            out, aux, stats = apply(m, tokens, batch["images"][:, 0],
+                                    batch["img_mask"], batch["segs"],
+                                    return_features=args.fused_ce)
             # the text positions only (Kosmos-2's UniGPTLoss)
             s, n = ce(m, out[:, :-1], tokens[:, 1:],
                       batch["loss_mask"][:, 1:])
-            return s / n, {"ntok": n}
+            return s / n + wt * aux, {"ntok": n, **stats}
     else:
         def loss_fn(m, batch):
-            out = m(batch, return_features=args.fused_ce)
+            out, aux, stats = apply(m, batch, return_features=args.fused_ce)
             s, n = ce(m, out[:, :-1], batch[:, 1:])
-            return s / n, {"ntok": n}
+            return s / n + wt * aux, {"ntok": n, **stats}
 
     step_fn = make_train_step(
         loss_fn, tx, clip_grad_norm=args.clip_norm,
-        microbatches=args.update_freq if args.update_freq > 1 else 1)
+        microbatches=args.update_freq if args.update_freq > 1 else 1,
+        grad_sync=sync)
     return Trainer(args, cfg, model, state, tx, step_fn, stream, sched, dev)
 
 
@@ -257,7 +324,12 @@ def main(argv=None):
     n_params = sum(p.numel() for p in tr.model.parameters())
     print(f"model: {n_params / 1e6:.1f}M params, vocab {tr.cfg.vocab_size}")
 
-    mgr = CheckpointManager(args.save_dir, keep_last=3)
+    save_dir = args.save_dir
+    if args.pp_stages > 1:
+        import torch.distributed as dist
+
+        save_dir = os.path.join(save_dir, f"rank{dist.get_rank()}")
+    mgr = CheckpointManager(save_dir, keep_last=3)
     restored = mgr.restore(map_location=tr.device)
     if restored:
         sd, data_state, _ = restored

@@ -23,7 +23,12 @@ axis, the scan_layers form). Leaves map as
   `positional_embedding`, LayoutLMv3's bias tables `rel_pos_bias`,
   `rel_pos_x_bias`, `rel_pos_y_bias` (LayoutLMv2's too), TrOCR's
   `dist_token` and the decoder's learned position table `embed_positions`,
-  and the RE head's `biaffine` [R, h + 1, h + 1];
+  the RE head's `biaffine` [R, h + 1, h + 1], and an MoE router's
+  `gate_expert_embeddings` [E, gate_dim] and `gate_temperature` (a
+  scalar);
+- an MoE layer's vmapped `experts` (each leaf with a leading expert
+  axis: `kernel` [E, in, out] -> `weight` [E, out, in]) and its `gate`
+  Dense, by the rules above (core/moe.py names them alike);
 - a stacked `layers` subtree -> one module per layer (`layers.{i}`),
   `layers_{i}` -> `layers.{i}`.
 
@@ -63,7 +68,8 @@ _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
 _SAME = {"gamma", "cls_token", "mask_token", "pos_embed",
          "relative_position_bias_table", "latent_query", "rel_pos_bias",
          "rel_pos_x_bias", "rel_pos_y_bias", "dist_token", "embed_positions",
-         "class_embedding", "positional_embedding", "biaffine"}
+         "class_embedding", "positional_embedding", "biaffine",
+         "gate_expert_embeddings", "gate_temperature"}
 
 
 def to_tensor(a) -> torch.Tensor:

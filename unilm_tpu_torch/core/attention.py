@@ -21,8 +21,24 @@ cached cross-attention of generation is core/transformer.py's
 Under `cfg.multiway` (BEiT-3, VLMo) q_proj, k_proj, v_proj, out_proj and
 the sub-LN inner_attn_ln are `MultiwayDense` / `MultiwayNorm` pairs
 (JAX :80-92, :239-256), and `forward_train` takes the modality `split`
-(core/multiway.py). Sequence-parallel ring attention (`cfg.seq_axis`,
-slice 9) raises NotImplementedError naming its ROADMAP entry.
+(core/multiway.py).
+
+Sequence-parallel self-attention (`cfg.seq_axis`, JAX :105-140): the
+module holds a [B, Tl] shard of the sequence, `cfg.seq_axis` is the
+process group of the mesh's `seq` axis (parallel/long_context.py sets
+it), and train-mode self-attention goes through
+parallel/ring_attention.py `ring_attention_flash` with the shard's
+key-padding mask riding the ring. The xPos tables then rotate at global
+positions (the shard of rank r starts at r Tl) and the
+length-extrapolation qscale takes the global length (`xpos_inputs` with
+`k_len`, from the stack). An additive bias raises, as in JAX.
+
+Tensor-parallel (parallel/sharding.py splits q/k/v by columns and
+out_proj by rows over the mesh's `tensor` axis): train mode attends over
+this rank's block of heads (`heads_group`), the attention-probability
+dropout drawing that block's masks; the heads are joined before the
+sub-LN, or without it out_proj sums the ranks' parts. The generation
+path projects whole heads.
 """
 
 from __future__ import annotations
@@ -30,6 +46,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from unilm_tpu_torch.core import positional
@@ -38,19 +55,22 @@ from unilm_tpu_torch.core.layers import make_dense, make_norm
 from unilm_tpu_torch.core.multiway import (MultiwayDense, MultiwayNorm,
                                            Split)
 from unilm_tpu_torch.ops.attention import attention
+from unilm_tpu_torch.ops.collectives import gather_along
 
 
-def xpos_inputs(cfg: TransformerConfig, start: int, T: int, device):
+def xpos_inputs(cfg: TransformerConfig, start: int, T: int, device,
+                k_len: Optional[int] = None):
     """xPos rotary tables for positions start..start+T-1, laid out to
     broadcast against [B, T, H, D]: ((sin, cos) for q with the decay scale,
-    (sin, cos) for k with its inverse, length-extrapolation qscale)."""
+    (sin, cos) for k with its inverse, length-extrapolation qscale over a
+    key length `k_len`, start + T by default)."""
     pos = start + torch.arange(T, device=device)
     sin, cos, xsc = positional.xpos_sin_cos_scale(
         pos, 0.0, cfg.head_dim, cfg.xpos_scale_base)
     q_tab = [t[:, None] for t in positional.rotary_tables(sin, cos, xsc)]
     k_tab = [t[:, None] for t in positional.rotary_tables(sin, cos, 1.0 / xsc)]
     qscale = positional.length_extrapolation_qscale(
-        pos, start + T, cfg.scale_length)
+        pos, start + T if k_len is None else k_len, cfg.scale_length)
     return q_tab, k_tab, qscale[:, None, None]
 
 
@@ -103,20 +123,42 @@ class MultiheadAttention(nn.Module):
         """`module` on x, with the modality split under cfg.multiway."""
         return module(x, split) if self.cfg.multiway else module(x)
 
+    def heads_group(self):
+        """The tensor group when the projections are split over it
+        (parallel/sharding.py) into whole heads: q/k/v column splits,
+        out_proj a row split; else None."""
+        s = getattr(self.q_proj, "tensor_split", None)
+        if s is None or self.cfg.num_heads % dist.get_world_size(s[1]):
+            return None
+        return s[1]
+
     def project(self, x: torch.Tensor, kv: Optional[torch.Tensor] = None,
-                split: Split = None):
-        """q from x, k and v from kv (default x), as [B, T|S, H, D]."""
+                split: Split = None, whole: bool = True):
+        """q from x, k and v from kv (default x), as [B, T|S, H, D]; with
+        `whole=False` under `heads_group`, this rank's block of heads."""
         kv = x if kv is None else kv
         B, T, S = x.shape[0], x.shape[1], kv.shape[1]
-        H, D = self.cfg.num_heads, self.cfg.head_dim
-        return (self._mw(self.q_proj, x, split).view(B, T, H, D),
-                self._mw(self.k_proj, kv, split).view(B, S, H, D),
-                self._mw(self.v_proj, kv, split).view(B, S, H, D))
+        D = self.cfg.head_dim
+        if whole:
+            proj = lambda m, t: self._mw(m, t, split)
+        else:
+            proj = lambda m, t: m(t, whole=False)
+        return (proj(self.q_proj, x).view(B, T, -1, D),
+                proj(self.k_proj, kv).view(B, S, -1, D),
+                proj(self.v_proj, kv).view(B, S, -1, D))
 
-    def output(self, out: torch.Tensor, split: Split = None) -> torch.Tensor:
-        """[B, T, H, D] attention output -> inner_attn_ln -> out_proj."""
+    def output(self, out: torch.Tensor, split: Split = None,
+               whole: bool = True) -> torch.Tensor:
+        """[B, T, H, D] attention output -> inner_attn_ln -> out_proj;
+        `whole=False`: this rank's block of heads (`heads_group`), joined
+        before the sub-LN (a norm over every head) or else taken by the
+        row-parallel out_proj as its block of input features."""
         B, T = out.shape[0], out.shape[1]
         out = out.reshape(B, T, -1)
+        if not whole:
+            if not hasattr(self, "inner_attn_ln"):
+                return self.out_proj(out, whole=False)
+            out = gather_along(out, -1, self.heads_group())
         if hasattr(self, "inner_attn_ln"):
             out = self._mw(self.inner_attn_ln, out, split)
         return self._mw(self.out_proj, out, split)
@@ -138,17 +180,27 @@ class MultiheadAttention(nn.Module):
         if self.self_attention == (key is not None):
             raise ValueError("a cross-attention module takes `key`; a "
                              "self-attention module does not")
-        if cfg.seq_axis and self.self_attention:
-            raise NotImplementedError(
-                "sequence-parallel ring attention (cfg.seq_axis) is not "
-                "ported yet: ROADMAP Queue 1 slice 9")
-        q, k, v = self.project(x, key, split)
+        # split over `tensor`: attend over this rank's heads
+        whole = self.heads_group() is None
+        q, k, v = self.project(x, key, split, whole)
         if xpos is not None:
             q, k = apply_xpos(q, k, xpos)
+        if cfg.seq_axis is not None and self.self_attention:
+            if attn_bias is not None:
+                raise NotImplementedError(
+                    "cfg.seq_axis (sequence-parallel ring attention) does "
+                    "not thread additive biases through the ring chunks; "
+                    "key-padding masks are supported")
+            from unilm_tpu_torch.parallel.ring_attention import (
+                ring_attention_flash)
+
+            out = ring_attention_flash(q, k, v, key_padding_mask,
+                                       cfg.seq_axis, causal, self.scale)
+            return self.output(out, split, whole)
         out = attention(q, k, v, bias=attn_bias,
                         key_padding_mask=key_padding_mask, scale=self.scale,
                         causal=causal,
                         window=cfg.window_size if self.self_attention else 0,
                         dropout_rate=cfg.attention_dropout,
                         dropout_rng=rng, use_flash=cfg.use_flash)
-        return self.output(out, split)
+        return self.output(out, split, whole)

@@ -5,8 +5,8 @@ Same fields and the same `__post_init__` rules as the JAX
 other. The TPU-only VMEM tiling knobs (`flash_block_q`/`flash_block_k`)
 stay as fields for that reason but no code path of this package reads
 them; `remat_policy` "full" / "dots" is per-layer torch.utils.checkpoint
-(core/transformer.py `remat`); `seq_axis` raises. Dtypes are torch
-dtypes.
+(core/transformer.py `remat`); `seq_axis` is the process group of the
+mesh's `seq` axis (JAX: its name), None off. Dtypes are torch dtypes.
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ class TransformerConfig:
     # device on the plain torch attention — the reference the kernels are
     # timed and checked against.
     use_flash: bool = True
-    seq_axis: Any = None  # sequence-parallel mesh axis; raises (slice 9)
+    seq_axis: Any = None  # the `seq` process group of a sequence shard
     window_size: int = 0
     flash_block_q: int = 512  # TPU VMEM tiling; unread
     flash_block_k: int = 1024  # TPU VMEM tiling; unread

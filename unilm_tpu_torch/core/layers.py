@@ -32,6 +32,7 @@ from torch import nn
 
 from unilm_tpu_torch.core.config import TransformerConfig
 from unilm_tpu_torch.ops import dropout as dropout_ops
+from unilm_tpu_torch.ops.collectives import tensor_parallel
 
 
 def get_activation(name: str, dtype=None) -> Callable:
@@ -73,11 +74,25 @@ class Dense(nn.Linear):
                          dtype=param_dtype)
         self.compute_dtype = dtype
         self.init_scale = init_scale
+        self.tensor_split = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def split_over_tensor(self, kind: str, group) -> None:
+        """Compute as one rank of a `kind` ("column" or "row") parallel
+        projection over `group` (ops/collectives.py `tensor_parallel`):
+        `weight` (and a column's `bias`) now hold this rank's block of
+        output or input features (parallel/sharding.py)."""
+        self.tensor_split = (kind, group)
+
+    def forward(self, x: torch.Tensor, whole: bool = True) -> torch.Tensor:
+        """`whole=False` under a tensor split: a column's output, or a
+        row's input, is this rank's block of features."""
         dt = self.compute_dtype
         b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        if self.tensor_split is None:
+            return F.linear(x.to(dt), self.weight.to(dt), b)
+        w = self.weight.to(dt)
+        return tensor_parallel(lambda xp, bp: F.linear(xp, w, bp), x.to(dt),
+                               b, *self.tensor_split, whole=whole)
 
 
 class Norm(nn.Module):
@@ -255,22 +270,28 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 rng: Optional[torch.Generator] = None) -> torch.Tensor:
+        # split over `tensor` without the sub-LN (a norm over every
+        # feature): the hidden stays this rank's block of features, and
+        # its activation dropout draws that block's masks
+        kw = ({"whole": False} if getattr(self.fc1, "tensor_split", None)
+              and not hasattr(self, "ffn_layernorm") else {})
         if self.gated:
-            h = self.act(self.fc1(x)) * self.fc3(x)
+            h = self.act(self.fc1(x, **kw)) * self.fc3(x, **kw)
         else:
-            h = self.act(self.fc1(x))
+            h = self.act(self.fc1(x, **kw))
         h = dropout(h, self.activation_dropout, rng)
         if hasattr(self, "ffn_layernorm"):
             h = self.ffn_layernorm(h)
-        return dropout(self.fc2(h), self.dropout, rng)
+        return dropout(self.fc2(h, **kw), self.dropout, rng)
 
 
 @torch.no_grad()
 def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
     """Fill every Dense (xavier-uniform * init_scale, or normal(0, init_std)
     where set; zero bias), Norm (ones/zeros) and embedding
-    (normal(0, init_std)) under `module` from
-    `generator`, at the scales of the JAX initialisers."""
+    (normal(0, init_std)) under `module`, and every module with an
+    `init_params_(generator)` method, from `generator`, at the scales of
+    the JAX initialisers."""
     for m in module.modules():
         if isinstance(m, Dense):
             if getattr(m, "init_std", None) is not None:
@@ -288,3 +309,7 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
         elif isinstance(m, nn.Embedding):
             m.weight.normal_(0.0, getattr(m, "init_std", 1.0),
                              generator=generator)
+        elif hasattr(m, "init_params_"):
+            # modules with parameters of their own kind (core/moe.py's
+            # stacked experts, the router's expert embeddings)
+            m.init_params_(generator)

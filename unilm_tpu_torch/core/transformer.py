@@ -17,8 +17,17 @@ Under `cfg.multiway` (BEiT-3, VLMo; JAX
 and the FFN (`ffn_A` / `ffn_B`) are A/B expert pairs and `forward` takes
 `multiway_split_mask` (core/multiway.py's `split`: None, a position or a
 bool mask); with None only the A experts compute and the B parameters
-carry no work, as in JAX. MoE and T5 relative-position buckets (slices
-9-10) raise.
+carry no work, as in JAX. T5 relative-position buckets (slice 10) raise.
+
+MoE (JAX `_build_ffn` :51-56): in both stacks every `cfg.moe_freq`-th
+layer's FFN is a `core/moe.py` `MoELayer` named `moe` (a multiway layer
+that is an MoE layer keeps one MoE, not an `ffn_A` / `ffn_B` pair, JAX
+:123). A training forward with a generator routes non-deterministically
+(train capacity, the random second-expert policy) from the layer's
+generator; without one, and in prefill and decode, routing is
+deterministic (eval capacity), as the flax layer's `deterministic` flag.
+Each MoE layer keeps its GShard loss and overflow fraction for
+runtime/train.py `apply_with_moe_aux` (JAX sows them).
 
 One layer class serves every mode: `mode="train"` is the full-sequence
 forward of the looped and the scanned JAX stacks (the same math), with
@@ -72,7 +81,9 @@ XLA path). The stack's `generator` gives one seed per layer
 order, from a generator seeded with it, so a recompute under `remat`
 draws them again; a training forward with a rate and no generator raises.
 
-Relative-position buckets, MoE, drop-path in the decoder and xPos with
+Drop-path runs in both stacks (the decoder's on its two or three
+branches, JAX :160-179, :914-920), on keep flags drawn before the forward
+(`draw_drop_path`). Relative-position buckets and xPos with
 cross-attention (JAX asserts, :542-544) raise NotImplementedError naming
 their ROADMAP entry.
 """
@@ -95,6 +106,7 @@ from unilm_tpu_torch.core.config import TransformerConfig
 from unilm_tpu_torch.core.layers import (DropPath, FeedForward, LayerScale,
                                          dropout, layer_seeds, make_norm,
                                          seeded_generator)
+from unilm_tpu_torch.core.moe import MoELayer, is_moe_layer
 from unilm_tpu_torch.core.multiway import MultiwayNorm, apply_split
 from unilm_tpu_torch.ops.attention import attention
 from unilm_tpu_torch.ops.paged_attention import (quantize_kv_rows,
@@ -131,10 +143,12 @@ def remat(policy: str, fn, *args, **kwargs):
 
 
 def _dropout_seeds(module: nn.Module, cfg, generator, n: int) -> list:
-    """One dropout seed per layer for a training forward of a stack with a
-    rate in `cfg` (drawn from `generator`), else n Nones."""
-    if not (module.training and (cfg.dropout or cfg.attention_dropout
-                                 or cfg.activation_dropout)):
+    """One seed per layer for a training forward of a stack with a
+    dropout rate in `cfg`, or with MoE layers and a generator (their
+    non-deterministic routing), drawn from `generator`; else n Nones."""
+    rates = cfg.dropout or cfg.attention_dropout or cfg.activation_dropout
+    moe = cfg.moe_freq > 0 and generator is not None
+    if not (module.training and (rates or moe)):
         return [None] * n
     if generator is None:
         raise ValueError(
@@ -310,20 +324,26 @@ class ScanCrossAttention(MultiheadAttention):
 
 class DecoderLayer(nn.Module):
     """One decoder layer (self-attention, with `has_cross_attention` the
-    cross-attention over an encoder of width `encoder_dim`, then the FFN),
-    the param subtree of the JAX `DecoderLayer` / `_ScanDecoderLayer` /
-    `_ScanDecoderLayerKV`; the attention keywords pick the mode, `cross_kw`
-    goes to `ScanCrossAttention`. `seed` (train mode): the layer's dropout
-    seed, from which it draws its masks in JAX's order (self-attention
+    cross-attention over an encoder of width `encoder_dim`, then the FFN,
+    or the MoE FFN `moe` in an MoE layer), the param subtree of the JAX
+    `DecoderLayer` / `_ScanDecoderLayer` / `_ScanDecoderLayerKV`; the
+    attention keywords pick the mode, `cross_kw` goes to
+    `ScanCrossAttention`. `seed` (train mode): the layer's dropout seed,
+    from which it draws its masks in JAX's order (self-attention
     probabilities, its residual branch, cross-attention probabilities, its
-    branch, the FFN's activation and output)."""
+    branch, the FFN's activation and output) and the MoE routing's
+    uniform. `drop_path_keep` [branches, B]: the keep flags of the layer's
+    drop-path on each branch (self-attention, cross-attention, FFN), as
+    `Decoder.draw_drop_path` draws them."""
 
     def __init__(self, cfg: TransformerConfig, alpha: float = 1.0,
                  has_cross_attention: bool = False,
-                 encoder_dim: Optional[int] = None, device=None):
+                 encoder_dim: Optional[int] = None, device=None,
+                 layer_idx: int = 0, drop_path: float = 0.0):
         super().__init__()
         self.cfg = cfg
         self.alpha = alpha
+        self.drop_path = DropPath(drop_path)
         self.self_attn_layer_norm = make_norm(cfg, device=device)
         self.self_attn = ScanSelfAttention(cfg, device=device)
         if has_cross_attention:
@@ -331,21 +351,27 @@ class DecoderLayer(nn.Module):
             self.encoder_attn = ScanCrossAttention(cfg, encoder_dim,
                                                    device=device)
         self.final_layer_norm = make_norm(cfg, device=device)
-        ffn_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
-        self.ffn = FeedForward(cfg, init_scale=ffn_scale, device=device)
+        if is_moe_layer(cfg, layer_idx):
+            self.moe = MoELayer(cfg, device=device)
+        else:
+            ffn_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
+            self.ffn = FeedForward(cfg, init_scale=ffn_scale, device=device)
 
     def _residual(self, residual, x):
         return residual * self.alpha + x if self.alpha != 1.0 else residual + x
 
     def forward(self, x, *pool, cross_kw: Optional[Dict] = None,
-                seed: Optional[int] = None, **attn_kw):
+                seed: Optional[int] = None,
+                drop_path_keep: Optional[torch.Tensor] = None, **attn_kw):
         pre, rate = self.cfg.normalize_before, self.cfg.dropout
         rng = seeded_generator(seed, x.device)
+        keep = (iter([None] * 3) if drop_path_keep is None
+                else iter(drop_path_keep))
         residual = x
         if pre:
             x = self.self_attn_layer_norm(x)
         x = dropout(self.self_attn(x, *pool, rng=rng, **attn_kw), rate, rng)
-        x = self._residual(residual, x)
+        x = self._residual(residual, self.drop_path(x, next(keep)))
         if not pre:
             x = self.self_attn_layer_norm(x)
         if cross_kw is not None:
@@ -354,14 +380,16 @@ class DecoderLayer(nn.Module):
                 x = self.encoder_attn_layer_norm(x)
             x = self.encoder_attn(x, mode=attn_kw["mode"], rng=rng,
                                   **cross_kw)
-            x = self._residual(residual, dropout(x, rate, rng))
+            x = self._residual(residual,
+                               self.drop_path(dropout(x, rate, rng),
+                                              next(keep)))
             if not pre:
                 x = self.encoder_attn_layer_norm(x)
         residual = x
         if pre:
             x = self.final_layer_norm(x)
-        x = self.ffn(x, rng)
-        x = self._residual(residual, x)
+        x = self.moe(x, rng) if hasattr(self, "moe") else self.ffn(x, rng)
+        x = self._residual(residual, self.drop_path(x, next(keep)))
         if not pre:
             x = self.final_layer_norm(x)
         return x
@@ -377,11 +405,12 @@ class EncoderLayer(nn.Module):
     the FFN is the pair `ffn_A` / `ffn_B`. `seed`: the layer's dropout
     seed in a training forward; its masks come in JAX's order (the
     attention probabilities, the attention branch, the FFN's activation
-    and output; ffn_A's before ffn_B's)."""
+    and output; ffn_A's before ffn_B's). An MoE layer (`layer_idx`) has
+    the MoE FFN `moe`, under cfg.multiway too."""
 
     def __init__(self, cfg: TransformerConfig, drop_path: float = 0.0,
                  layer_scale_init: float = 0.0, alpha: float = 1.0,
-                 device=None):
+                 device=None, layer_idx: int = 0):
         super().__init__()
         self.cfg = cfg
         self.alpha = alpha
@@ -391,7 +420,9 @@ class EncoderLayer(nn.Module):
         self.self_attn = MultiheadAttention(cfg, device=device)
         self.final_layer_norm = norm()
         ffn_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
-        if cfg.multiway:
+        if is_moe_layer(cfg, layer_idx):
+            self.moe = MoELayer(cfg, device=device)
+        elif cfg.multiway:
             self.ffn_A = FeedForward(cfg, init_scale=ffn_scale, device=device)
             self.ffn_B = FeedForward(cfg, init_scale=ffn_scale, device=device)
         else:
@@ -419,11 +450,15 @@ class EncoderLayer(nn.Module):
         if self.cfg.multiway:
             norm1 = lambda y: self.self_attn_layer_norm(y, split)
             norm2 = lambda y: self.final_layer_norm(y, split)
+        else:
+            norm1, norm2 = self.self_attn_layer_norm, self.final_layer_norm
+        if hasattr(self, "moe"):
+            ffn = lambda y: self.moe(y, rng)
+        elif self.cfg.multiway:
             ffn = lambda y: apply_split(lambda z: self.ffn_A(z, rng),
                                         lambda z: self.ffn_B(z, rng), y,
                                         split)
         else:
-            norm1, norm2 = self.self_attn_layer_norm, self.final_layer_norm
             ffn = lambda y: self.ffn(y, rng)
         residual = x
         if pre:
@@ -458,10 +493,10 @@ class Encoder(nn.Module):
     def __init__(self, cfg: TransformerConfig, final_layer_norm: bool = True,
                  layer_scale_init: float = 0.0, device=None):
         super().__init__()
-        if cfg.moe_freq or cfg.rel_pos_buckets:
+        if cfg.rel_pos_buckets:
             raise NotImplementedError(
-                "MoE / T5 relative-bias encoders are not ported yet: ROADMAP "
-                "Queue 1 slices 9-10")
+                "T5 relative-bias encoders are not ported yet: ROADMAP "
+                "Queue 1 slice 10")
         self.cfg = cfg
         alpha = cfg.deepnorm_alpha if cfg.deepnorm else 1.0
         self.drop_path_rates = [float(r) for r in np.linspace(
@@ -471,8 +506,9 @@ class Encoder(nn.Module):
         self.register_buffer("keep_prob", 1.0 - torch.tensor(
             self.drop_path_rates, device=device), persistent=False)
         self.layers = nn.ModuleList(
-            [EncoderLayer(cfg, rate, layer_scale_init, alpha, device=device)
-             for rate in self.drop_path_rates])
+            [EncoderLayer(cfg, rate, layer_scale_init, alpha, device=device,
+                          layer_idx=i)
+             for i, rate in enumerate(self.drop_path_rates)])
         if cfg.normalize_before and final_layer_norm:
             # JAX's final multiway norm is a LayerNorm whatever norm_type
             self.layer_norm = (
@@ -541,27 +577,49 @@ class Decoder(nn.Module):
     with kv_pool_scale [B, L*PP/chunk, 8, chunk*page] f32), cache_index
     (an int: tokens already in the pool) and, with cross-attention,
     cross_key / cross_value [Bkv, L, S, H, D] (written by prefill only;
-    decode may run B = G * Bkv beam rows over them)."""
+    decode may run B = G * Bkv beam rows over them).
+
+    Layer i's drop-path rate is linspace(0, cfg.drop_path_rate, L)[i], as
+    in the `Encoder`; a training forward takes the keep flags from
+    `drop_path_keep` or draws them from its generator first
+    (`draw_drop_path`)."""
 
     def __init__(self, cfg: TransformerConfig, has_cross_attention=False,
                  encoder_dim: Optional[int] = None, device=None):
         super().__init__()
-        if cfg.moe_freq or cfg.drop_path_rate or cfg.rel_pos_buckets:
+        if cfg.rel_pos_buckets:
             raise NotImplementedError(
-                "MoE / drop-path / T5 relative-bias decoders are not ported "
-                "yet: ROADMAP Queue 1 slices 9-10")
+                "T5 relative-bias decoders are not ported yet: ROADMAP "
+                "Queue 1 slice 10")
         if cfg.kv_cache_dtype not in ("model", "int8"):
             raise ValueError(f"kv_cache_dtype {cfg.kv_cache_dtype!r}: "
                              "'model' or 'int8'")
         self.cfg = cfg
         self.has_cross_attention = has_cross_attention
         alpha = cfg.deepnorm_alpha if cfg.deepnorm else 1.0
+        self.drop_path_rates = [float(r) for r in np.linspace(
+            0, cfg.drop_path_rate, cfg.num_layers)]
+        self.register_buffer("keep_prob", 1.0 - torch.tensor(
+            self.drop_path_rates, device=device), persistent=False)
         self.layers = nn.ModuleList(
             [DecoderLayer(cfg, alpha, has_cross_attention, encoder_dim,
-                          device=device)
-             for _ in range(cfg.num_layers)])
+                          device=device, layer_idx=i, drop_path=rate)
+             for i, rate in enumerate(self.drop_path_rates)])
         if cfg.normalize_before:
             self.layer_norm = make_norm(cfg, device=device)
+
+    def draw_drop_path(self, batch: int, generator: torch.Generator
+                       ) -> Optional[torch.Tensor]:
+        """Every drop-path keep flag of one training forward, [L, branches,
+        B] bool (layer; self-attention, cross-attention if any, FFN;
+        sample), keep ~ Bernoulli(1 - rate_i), drawn from `generator`; None
+        outside training or when no layer drops."""
+        if not self.training or not any(self.drop_path_rates):
+            return None
+        nb = 3 if self.has_cross_attention else 2
+        u = torch.rand(len(self.drop_path_rates), nb, batch,
+                       generator=generator, device=generator.device)
+        return u < self.keep_prob[:, None, None]
 
     def forward(self, x: torch.Tensor, *, mode: str = "train",
                 cache_size: int = 0, cache: Optional[Dict] = None,
@@ -570,13 +628,17 @@ class Decoder(nn.Module):
                 attn_bias: Optional[torch.Tensor] = None,
                 encoder_out: Optional[torch.Tensor] = None,
                 encoder_padding_mask: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                drop_path_keep: Optional[torch.Tensor] = None):
         """`encoder_out` [Bkv, S, E_enc] is read in train mode and by
         prefill (decode reads the cross cache instead); with
         `encoder_padding_mask` [Bkv, S] (True = valid) every layer's
-        cross-attention masks its keys. `generator`: the dropout seeds of
-        a training forward in train mode (needed when cfg has a rate;
-        prefill and decode never drop)."""
+        cross-attention masks its keys. `generator`: the dropout seeds,
+        drop-path flags and MoE routing draws of a training forward in
+        train mode (needed when cfg has a dropout or drop-path rate;
+        prefill and decode never drop and route deterministically).
+        `drop_path_keep`: `draw_drop_path`'s flags, drawn from `generator`
+        when not given."""
         if self.has_cross_attention and mode != "decode" and (
                 encoder_out is None):
             raise ValueError(f"mode {mode!r} of a cross-attention decoder "
@@ -586,7 +648,8 @@ class Decoder(nn.Module):
                              key_padding_mask=encoder_padding_mask)
                         if self.has_cross_attention else None)
             return self._forward_train(x, causal, self_key_padding_mask,
-                                       attn_bias, cross_kw, generator)
+                                       attn_bias, cross_kw, generator,
+                                       drop_path_keep)
         if mode not in ("prefill", "decode"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg = self.cfg
@@ -641,23 +704,35 @@ class Decoder(nn.Module):
         return x, cache
 
     def _forward_train(self, x, causal, key_padding_mask, attn_bias,
-                       cross_kw, generator):
+                       cross_kw, generator, drop_path_keep):
         """The looped stack's train mode (:914-949); the scanned stack
         (:826-848) computes the same. With cfg.remat each layer is
         recomputed in the backward under cfg.remat_policy (`remat`)."""
         cfg = self.cfg
+        if drop_path_keep is None and generator is not None:
+            drop_path_keep = self.draw_drop_path(x.shape[0], generator)
         seeds = _dropout_seeds(self, cfg, generator, len(self.layers))
         x = x.to(cfg.dtype)
-        xpos = (xpos_inputs(cfg, 0, x.shape[1], x.device)
-                if cfg.xpos_rel_pos else None)
+        xpos = None
+        if cfg.xpos_rel_pos:
+            # a sequence shard (cfg.seq_axis) rotates at global positions
+            T, start, k_len = x.shape[1], 0, None
+            if cfg.seq_axis is not None:
+                import torch.distributed as dist
+
+                start = dist.get_rank(cfg.seq_axis) * T
+                k_len = dist.get_world_size(cfg.seq_axis) * T
+            xpos = xpos_inputs(cfg, start, T, x.device, k_len)
         kw = dict(mode="train", causal=causal, xpos=xpos,
                   key_padding_mask=key_padding_mask, attn_bias=attn_bias,
                   cross_kw=cross_kw)
-        for layer, seed in zip(self.layers, seeds):
+        for i, (layer, seed) in enumerate(zip(self.layers, seeds)):
+            keep = None if drop_path_keep is None else drop_path_keep[i]
             if cfg.remat and torch.is_grad_enabled():
-                x = remat(cfg.remat_policy, layer, x, seed=seed, **kw)
+                x = remat(cfg.remat_policy, layer, x, seed=seed,
+                          drop_path_keep=keep, **kw)
             else:
-                x = layer(x, seed=seed, **kw)
+                x = layer(x, seed=seed, drop_path_keep=keep, **kw)
         if cfg.normalize_before:
             x = self.layer_norm(x)
         return x

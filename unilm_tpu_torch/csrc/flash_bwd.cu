@@ -15,7 +15,12 @@
 // rounding of out swamps the q and k gradients. Here delta is rowsum(p dp):
 // the bf16 dq kernel takes it exactly in a first sweep over its key tiles
 // and writes it for the dk/dv kernel, launched after it; for fp32 the
-// caller passes rowsum(dO * out), equal to it to fp32 rounding. p, dp and
+// caller passes rowsum(dO * out), equal to it to fp32 rounding. A caller
+// may pass delta in bf16 too (`delta_mode` DELTA_GIVEN): the ring's
+// chunks (parallel/ring_attention.py) see a part of each row's keys, so
+// their delta is the whole row's, taken once by the caller; #6 then skips
+// its sweep. `flash_bwd_delta` runs the sweep alone (DELTA_ONLY): kernel
+// #8's exact bf16 delta (csrc/flash_bwd_fused.cu). p, dp and
 // ds are fp32; ds is rounded to the inputs' type
 // before ds k and ds^T q; accumulators are fp32 and outputs take the
 // inputs' type (dbias is fp32). Tiles that lie wholly above the causal
@@ -360,8 +365,11 @@ __device__ __forceinline__ void dq_producer(const CUtensorMap* tq, const CUtenso
                                   c * G::CW, h, q0, b);
             }
         }
-        // every key tile twice: the delta sweep, then the dq sweep
-        for (int pass = 0; pass < 2; ++pass)
+        // every key tile twice: the delta sweep, then the dq sweep (one of
+        // them with a caller's delta, or for the delta alone)
+        const int pass0 = p.delta_mode == DELTA_GIVEN ? 1 : 0;
+        const int pass1 = p.delta_mode == DELTA_ONLY ? 1 : 2;
+        for (int pass = pass0; pass < pass1; ++pass)
             for (int j = jb; j < je; ++j, ++n) {
                 const int s = n % G::NST;
                 if (n >= G::NST) sm90::mbar_wait(&empty[s], (n / G::NST - 1) & 1);
@@ -516,34 +524,45 @@ __device__ __forceinline__ void dq_consumer(const Params& p, uint8_t* smem, int 
 
         // the delta sweep: delta = rowsum(p dp) in fp32, exact where
         // rowsum(dO out) from the rounded out is not (a near-uniform row's
-        // dp - delta is far below dp)
+        // dp - delta is far below dp); or the caller's
         float dlt[2] = {0.f, 0.f};
-        for (int j = jb; j < je; ++j, ++n) {
-            const int s = n % G::NST;
-            sm90::mbar_wait(&full[s], (n / G::NST) & 1);
-            if (j >= cjb && j < cje) {
-                float sc[BK / 2], dp[BK / 2];
-                dq_tile_probs<D>(p, bits + G::NW * s, q_base, do_base,
-                                 smem_addr(smem + G::OFF_K + 2 * s * G::KV_BYTES), bias_bh, tl,
-                                 lse2, j * BK, lo, hi, quad, sc, dp);
+        if (p.delta_mode == DELTA_GIVEN) {
 #pragma unroll
-                for (int nn = 0; nn < NN; ++nn)
+            for (int hh = 0; hh < 2; ++hh)
+                if (tl[hh] < p.T) dlt[hh] = p.delta[((size_t)b * p.H + h) * p.T + tl[hh]];
+        } else {
+            for (int j = jb; j < je; ++j, ++n) {
+                const int s = n % G::NST;
+                sm90::mbar_wait(&full[s], (n / G::NST) & 1);
+                if (j >= cjb && j < cje) {
+                    float sc[BK / 2], dp[BK / 2];
+                    dq_tile_probs<D>(p, bits + G::NW * s, q_base, do_base,
+                                     smem_addr(smem + G::OFF_K + 2 * s * G::KV_BYTES), bias_bh, tl,
+                                     lse2, j * BK, lo, hi, quad, sc, dp);
 #pragma unroll
-                    for (int hh = 0; hh < 2; ++hh)
+                    for (int nn = 0; nn < NN; ++nn)
 #pragma unroll
-                        for (int e = 0; e < 2; ++e) {
-                            const int i = 4 * nn + 2 * hh + e;
-                            dlt[hh] = fmaf(sc[i], dp[i], dlt[hh]);
-                        }
+                        for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+                            for (int e = 0; e < 2; ++e) {
+                                const int i = 4 * nn + 2 * hh + e;
+                                dlt[hh] = fmaf(sc[i], dp[i], dlt[hh]);
+                            }
+                }
+                sm90::mbar_arrive(&empty[s]);
             }
-            sm90::mbar_arrive(&empty[s]);
-        }
-        // a row's keys lie on the four threads of a quad
+            // a row's keys lie on the four threads of a quad
 #pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-            dlt[hh] += __shfl_xor_sync(FULL, dlt[hh], 1);
-            dlt[hh] += __shfl_xor_sync(FULL, dlt[hh], 2);
-            if (quad == 0 && tl[hh] < p.T) delta[((size_t)b * p.H + h) * p.T + tl[hh]] = dlt[hh];
+            for (int hh = 0; hh < 2; ++hh) {
+                dlt[hh] += __shfl_xor_sync(FULL, dlt[hh], 1);
+                dlt[hh] += __shfl_xor_sync(FULL, dlt[hh], 2);
+                if (quad == 0 && tl[hh] < p.T)
+                    delta[((size_t)b * p.H + h) * p.T + tl[hh]] = dlt[hh];
+            }
+        }
+        if (p.delta_mode == DELTA_ONLY) {
+            sm90::mbar_arrive(&bars[1]);  // this consumer has read Q and dO of example b
+            continue;
         }
 
         // the dq sweep
@@ -949,7 +968,8 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
 
 template <bool DQ>
 cudaError_t dispatch(int D, int dtype, const Params& p, cudaStream_t st) {
-    if (dtype == 0) {  // fp32: the CUDA-core bodies
+    if (dtype == 0 && p.delta_mode == DELTA_ONLY) return cudaErrorInvalidValue;
+    if (dtype == 0) {  // fp32 (the caller's delta): the CUDA-core bodies
         switch (D) {
             case 64: return DQ ? launch_dq<float, 64>(p, st) : launch_dkv<float, 64>(p, st);
             case 96: return DQ ? launch_dq<float, 96>(p, st) : launch_dkv<float, 96>(p, st);
@@ -969,13 +989,14 @@ template <bool DQ>
 int run(const void* q, const void* k, const void* v, const void* dout, const void* lse,
         const void* delta, const void* bias, const void* mask, void* dq, void* dk, void* dv,
         void* dbias, int B, int T_, int S, int H, int D, int bias_sb, int bias_sh,
-        int q_offset, int limit, int causal, int window, int acc_b, int dtype,
+        int q_offset, int limit, int causal, int window, int acc_b, int delta_mode, int dtype,
         void* stream) {
     if (B <= 0 || T_ <= 0 || S <= 0 || H <= 0) return (int)cudaSuccess;
+    if (delta_mode < DELTA_SWEEP || delta_mode > DELTA_ONLY) return (int)cudaErrorInvalidValue;
     Params p{q, k, v, dout, bias, static_cast<const float*>(lse),
              static_cast<const float*>(delta), static_cast<const int*>(mask), dq, dk, dv,
              static_cast<float*>(dbias), B, T_, S, H, bias_sb, bias_sh, q_offset, limit,
-             causal, window, acc_b};
+             causal, window, acc_b, nullptr, delta_mode};
     return (int)dispatch<DQ>(D, dtype, p, static_cast<cudaStream_t>(stream));
 }
 
@@ -983,17 +1004,30 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16. Both return cudaGetLastError() after
+// dtype: 0 = float32, 1 = bfloat16. Each returns cudaGetLastError() after
 // the launch. dbias may be null (no bias, or its gradient not wanted); in
-// acc_b mode the caller zero-fills it first.
+// acc_b mode the caller zero-fills it first. delta_mode (bf16): DELTA_SWEEP
+// writes rowsum(p dp) to delta, DELTA_GIVEN reads the caller's; fp32
+// always reads the caller's.
 int flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                  const void* lse, const void* delta, const void* bias, const void* mask,
                  void* dq, void* dbias, int B, int T_, int S, int H, int D, int bias_sb,
                  int bias_sh, int q_offset, int limit, int causal, int window, int acc_b,
-                 int dtype, void* stream) {
+                 int delta_mode, int dtype, void* stream) {
+    if (delta_mode == DELTA_ONLY) return (int)cudaErrorInvalidValue;
     return run<true>(q, k, v, dout, lse, delta, bias, mask, dq, nullptr, nullptr, dbias, B,
                      T_, S, H, D, bias_sb, bias_sh, q_offset, limit, causal, window, acc_b,
-                     dtype, stream);
+                     delta_mode, dtype, stream);
+}
+
+// bf16 only: #6's delta sweep alone (no bias), delta = rowsum(p dp) written
+// to `delta` [B, H, T] fp32: the exact delta kernel #8 reads
+int flash_bwd_delta(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, void* delta, const void* mask, int B, int T_, int S, int H,
+                    int D, int q_offset, int limit, int causal, int window, void* stream) {
+    return run<true>(q, k, v, dout, lse, delta, nullptr, mask, nullptr, nullptr, nullptr,
+                     nullptr, B, T_, S, H, D, 0, 0, q_offset, limit, causal, window, 0,
+                     DELTA_ONLY, 1, stream);
 }
 
 int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -1002,8 +1036,8 @@ int flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                   int bias_sh, int q_offset, int limit, int causal, int window, int dtype,
                   void* stream) {
     return run<false>(q, k, v, dout, lse, delta, bias, mask, nullptr, dk, dv, nullptr, B, T_,
-                      S, H, D, bias_sb, bias_sh, q_offset, limit, causal, window, 0, dtype,
-                      stream);
+                      S, H, D, bias_sb, bias_sh, q_offset, limit, causal, window, 0,
+                      DELTA_GIVEN, dtype, stream);
 }
 
 const char* error_string(int err) { return cudaGetErrorString((cudaError_t)err); }

@@ -24,7 +24,14 @@ struct Params {
     float* dbias;
     int B, T, S, H, bias_sb, bias_sh, q_offset, limit, causal, window, acc_b;
     int* turns;  // FUSED: [B, H, nq] turn counters, zeroed; dq is fp32
+    int delta_mode;  // #6 in bf16: DELTA_SWEEP, DELTA_GIVEN or DELTA_ONLY
 };
+
+// Where bf16 #6 takes delta: DELTA_SWEEP sums rowsum(p dp) in a first sweep
+// over its key tiles and writes it (for #7); DELTA_GIVEN reads the caller's
+// (the ring's chunks, whose delta is a whole row's); DELTA_ONLY runs the
+// sweep alone and writes delta, no dq (#8's bf16 pre-pass)
+enum : int { DELTA_SWEEP = 0, DELTA_GIVEN = 1, DELTA_ONLY = 2 };
 
 // can the (q tile starting at local row t0, key tile starting at c0) pair
 // hold a visible (row, col)? Conservative: never false for a visible pair.

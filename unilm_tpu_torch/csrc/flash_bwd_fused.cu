@@ -8,8 +8,11 @@
 // without the bias: q pre-scaled (dk is the gradient of the unscaled k),
 // p = exp(s - lse) under causal with a query offset, sliding window, the
 // valid-kv prefix `limit` and the int32 key-padding mask; dp = dO v^T;
-// ds = p (dp - delta) in fp32 with delta = rowsum(dO * out) from the
-// caller; ds rounded to the inputs' type before ds k and ds^T q (:1598-
+// ds = p (dp - delta) in fp32 with delta from the caller: rowsum(dO * out)
+// in fp32 and, in bf16, rowsum(p dp) from #6's delta sweep launched alone
+// (csrc/flash_bwd.cu `flash_bwd_delta`), since a delta taken from the bf16
+// out loses a near-uniform row's q and k gradients; ds rounded to the
+// inputs' type before ds k and ds^T q (:1598-
 // 1611); dv += p^T dO. Key tiles wholly outside the causal / window /
 // limit band are skipped; a fully masked row contributes nothing.
 //

@@ -527,9 +527,20 @@ def flash_forward_tri(q, k, v, bias=None, mask=None
 
 BWD_KERNEL_DQ = CudaKernel("flash_bwd.cu", {
     # q, k, v, dout, lse, delta, bias, mask, dq, dbias, B, T, S, H, D,
-    # bias_sb, bias_sh, q_offset, limit, causal, window, acc_b, dtype, stream
-    "flash_bwd_dq": [P] * 10 + [I] * 13 + [P],
+    # bias_sb, bias_sh, q_offset, limit, causal, window, acc_b, delta_mode,
+    # dtype, stream
+    "flash_bwd_dq": [P] * 10 + [I] * 14 + [P],
 })
+# #6's delta sweep alone (bf16): kernel #8's exact delta, counted apart from
+# #6's own launches
+BWD_KERNEL_DELTA = CudaKernel("flash_bwd.cu", {
+    # q, k, v, dout, lse, delta, mask, B, T, S, H, D, q_offset, limit,
+    # causal, window, stream
+    "flash_bwd_delta": [P] * 7 + [I] * 9 + [P],
+})
+# csrc/flash_bwd.cuh `delta_mode`: #6 sums rowsum(p dp) itself, or reads
+# the caller's delta
+DELTA_SWEEP, DELTA_GIVEN = 0, 1
 BWD_KERNEL_DKV = CudaKernel("flash_bwd.cu", {
     # q, k, v, dout, lse, delta, bias, mask, dk, dv, B, T, S, H, D, bias_sb,
     # bias_sh, q_offset, limit, causal, window, dtype, stream
@@ -545,9 +556,9 @@ BWD_RECOMPUTE_LAUNCHES = 0
 
 def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """rowsum(dO * out) in float32, [B, H, T], as JAX computes it outside
-    its kernels (:1726): the fp32 kernels' and #8's delta. From a bf16 out
-    it loses a near-uniform row's q and k gradients; #6 takes rowsum(p dp)
-    itself for bf16."""
+    its kernels (:1726): the fp32 kernels' delta (#6/#7 and #8). From a
+    bf16 out it loses a near-uniform row's q and k gradients; in bf16 #6
+    takes rowsum(p dp) itself, and #8 takes it from #6's sweep."""
     return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -570,8 +581,8 @@ def flash_backward_plain(q, k, v, bias, mask, q_offset: int,
     with the kernels' delta: rowsum(p dp) in bf16, as #6 takes it,
     rowsum(dO out) in float32 (the same to fp32 rounding, and nearer
     autograd's where lse is large), unless `delta` [B, H, T] is given
-    (#8's twin passes rowsum(dO out)). dbias is float32, summed over the
-    dims the bias broadcasts, None without a bias."""
+    (the ring's chunks pass their row's). dbias is float32, summed over
+    the dims the bias broadcasts, None without a bias."""
     B, T, H, D = q.shape
     S = k.shape[1]
     limit = S if kv_len is None else min(int(kv_len), S)
@@ -621,7 +632,7 @@ def _needs_reduce(bias, B: int, H: int) -> bool:
 
 
 def _flash_backward_cuda(q, k, v, bias, mask, q_offset, limit, out, lse, do,
-                         causal, window, want_dbias):
+                         causal, window, want_dbias, delta=None):
     B, T, H, D = q.shape
     S = k.shape[1]
     dev = q.device
@@ -634,9 +645,17 @@ def _flash_backward_cuda(q, k, v, bias, mask, q_offset, limit, out, lse, do,
     do = do.to(q.dtype).contiguous()
     check_tensor("dout", do, dtype=q.dtype, shape=(B, T, H, D), device=dev)
     check_tensor("lse", lse, dtype=torch.float32, shape=(B, H, T), device=dev)
-    # bf16: #6 writes rowsum(p dp) here and #7 reads it
-    delta = (_delta(out, do) if q.dtype == torch.float32 else
-             torch.empty((B, H, T), dtype=torch.float32, device=dev))
+    # bf16 without a caller's delta: #6 writes rowsum(p dp) here and #7
+    # reads it
+    mode = DELTA_GIVEN
+    if delta is not None:
+        check_tensor("delta", delta, dtype=torch.float32, shape=(B, H, T),
+                     device=dev)
+    elif q.dtype == torch.float32:
+        delta = _delta(out, do)
+    else:
+        delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+        mode = DELTA_SWEEP
     sb, sh = _bias_strides(bias, B, H, T, S, q.dtype, dev)
     acc_b = 0
     dbias = None
@@ -662,7 +681,7 @@ def _flash_backward_cuda(q, k, v, bias, mask, q_offset, limit, out, lse, do,
     geom = (B, T, S, H, D, sb, sh, int(q_offset), limit, int(causal),
             int(window))
     BWD_KERNEL_DQ.launch("flash_bwd_dq", *common, ptr(dq), ptr(dbias), *geom,
-                         acc_b, code, stream())
+                         acc_b, mode, code, stream())
     BWD_KERNEL_DKV.launch("flash_bwd_dkv", *common, ptr(dk), ptr(dv), *geom,
                           code, stream())
     return dq, dk, dv, dbias
@@ -671,14 +690,17 @@ def _flash_backward_cuda(q, k, v, bias, mask, q_offset, limit, out, lse, do,
 def flash_backward(q, k, v, bias, mask, q_offset: int,
                    kv_len: Optional[int], out, lse, do, *,
                    causal: bool = False, window: int = 0,
-                   want_dbias: bool = True):
+                   want_dbias: bool = True,
+                   delta: Optional[torch.Tensor] = None):
     """(dq, dk, dv, dbias) of `flash_forward`: kernels #6 and #7 on a CUDA
     tensor, `flash_backward_plain` on a CPU tensor. dbias (float32) is None
-    without a bias or when not wanted."""
+    without a bias or when not wanted. `delta` [B, H, T] float32: the
+    caller's rowsum of p dp over the row's keys (the ring's chunks, which
+    see a part of them); by default the backward takes it itself."""
     if q.device.type == "cpu":
         dq, dk, dv, dbias = flash_backward_plain(
             q, k, v, bias, mask, q_offset, kv_len, out, lse, do,
-            causal=causal, window=window)
+            causal=causal, window=window, delta=delta)
         return dq, dk, dv, dbias if want_dbias else None
     if q.device.type != "cuda":
         raise ValueError(f"flash_backward: unsupported device {q.device}")
@@ -690,7 +712,7 @@ def flash_backward(q, k, v, bias, mask, q_offset: int,
     limit = S if kv_len is None else min(int(kv_len), S)
     return _flash_backward_cuda(q, k, v, bias, mask, q_offset, limit, out, lse,
                                 do, causal, window,
-                                want_dbias and bias is not None)
+                                want_dbias and bias is not None, delta)
 
 
 # --------------------------------------------------------------------------- #
@@ -747,11 +769,12 @@ def flash_backward_fused_plain(q, k, v, mask, q_offset: int,
     without a bias. `_bwd_fused_kernel`'s contract is the split pair's:
     p = exp(s - lse) under the mask, not rounded before p^T dO; ds =
     p (dp - delta) in fp32, rounded to the inputs' dtype before ds k and
-    ds^T q (:1598-1611); so this is `flash_backward_plain` with no bias and
-    JAX's delta = rowsum(dO out), which the kernel takes from the caller."""
+    ds^T q (:1598-1611); so this is `flash_backward_plain` with no bias,
+    and with its delta: rowsum(dO out) in fp32 (JAX's), and in bf16 the
+    exact rowsum(p dp) that #6's sweep gives the kernel (JAX's from the
+    bf16 out loses a near-uniform row's q and k gradients)."""
     return flash_backward_plain(q, k, v, None, mask, q_offset, kv_len, out,
-                                lse, do, causal=causal, window=window,
-                                delta=_delta(out, do))[:3]
+                                lse, do, causal=causal, window=window)[:3]
 
 
 def _flash_backward_fused_cuda(q, k, v, mask, q_offset, limit, out, lse, do,
@@ -775,7 +798,15 @@ def _flash_backward_fused_cuda(q, k, v, mask, q_offset, limit, out, lse, do,
     if mask is not None:
         check_tensor("key_padding_mask", mask, dtype=torch.int32,
                      shape=(B, S), device=dev)
-    delta = _delta(out, do)
+    if q.dtype == torch.float32:
+        delta = _delta(out, do)
+    else:
+        # the exact rowsum(p dp), from #6's delta sweep launched alone
+        delta = torch.empty((B, H, T), dtype=torch.float32, device=dev)
+        BWD_KERNEL_DELTA.launch(
+            "flash_bwd_delta", ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
+            ptr(delta), ptr(mask), B, T, S, H, D, int(q_offset), limit,
+            int(causal), int(window), stream())
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     # scratch the launcher zeroes: one turn counter per (batch, head, row
     # step) and, for bf16, the fp32 dq accumulator

@@ -251,9 +251,13 @@ def is_decoder_projection(path) -> bool:
     any(s.startswith("layers") ...)` (unilm_tpu/cli/kosmos_infer.py:145-148),
     also selects the Pix2Struct tower's layer projections, whose
     `nn.Dense` then finds no `kernel`: `kosmos_infer --int8` on an image
-    raises in the JAX package. The port quantizes the decoder only."""
+    raises in the JAX package. The port quantizes the decoder only. An MoE
+    layer's experts (`.../moe/experts/fc1/kernel`, stacked on an expert
+    axis) and its router stay in full precision, as the JAX engine leaves
+    the 3-D expert kernels and the gate."""
     path = tuple(path)
     return (len(path) >= 4 and path[-2] in PROJECTIONS
+            and "experts" not in path
             and any(a == "decoder" and b.startswith("layers")
                     for a, b in zip(path, path[1:])))
 

@@ -30,12 +30,28 @@ of unilm_tpu/runtime/serving.py: `_per_batch_xpos` :63,
   and prompt-lookup speculative decoding. A jitted call with donated pools
   becomes a plain call on pools updated in place.
 
+- MoE layers (every `moe_freq`-th, core/moe.py) route deterministically,
+  their experts and router in full precision under int8 weights.
+- `ServingEngine(mesh=...)`: tensor-parallel serving over a DeviceMesh
+  (parallel/mesh.py) whose `tensor` axis splits the heads. The parameters
+  are placed by parallel/sharding.py's rules (`shard_parameters`: q/k/v
+  and fc1 keep their block of output features, out_proj and fc2 their
+  block of input features, and each computes its part of the product;
+  the data and fsdp axes keep whole parameters), the KV pools hold each
+  rank's heads
+  ([L*P, page, H*D / tp], JAX's P(None, None, "tensor")), each rank
+  attends over its heads and an all-gather over the tensor group rebuilds
+  the heads before out_proj; the int8 scale sidecar (per-token scales of
+  the whole row) is replicated. As in JAX it takes the plain path
+  (`use_kernel` is `mesh is None`) and refuses int8 weights, the scanned
+  stack and heads that do not divide over the axis. Every rank runs the
+  same scheduler on the same requests and so emits the same tokens.
+
 Differences from the JAX engine: sampling draws from a `torch.Generator`
 seeded from (seed, step), so sampled streams are reproducible but not the
 JAX streams (greedy streams are identical); int8 pools are dequantized
 after the page gather, not before (the same values, without a
-dequantized copy of the whole pool); the tensor-parallel `mesh` and MoE
-layers are not ported (ROADMAP slice 9).
+dequantized copy of the whole pool).
 """
 
 from __future__ import annotations
@@ -47,20 +63,20 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
 from unilm_tpu_torch.core import positional
 from unilm_tpu_torch.core.config import TransformerConfig
 from unilm_tpu_torch.core.layers import FeedForward, make_dense, make_norm
+from unilm_tpu_torch.core.moe import MoELayer, is_moe_layer
 from unilm_tpu_torch.models.kosmos import UniGPTConfig, sinusoidal_table
 from unilm_tpu_torch.ops.paged_attention import (
     paged_decode_append_attention, quantize_kv_rows,
     run_decode_append_attention)
 from unilm_tpu_torch.runtime.device import resolve_device
 from unilm_tpu_torch.runtime.paged_kv import paged_attention
-
-_SLICE9 = "ROADMAP Queue 1 slice 9 (MoE and parallelism)"
 
 
 # --------------------------------------------------------------------------- #
@@ -100,6 +116,7 @@ class PagedSelfAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.use_kernel = use_kernel
+        self.tp_group = None  # the tensor group of a head-sharded pool
         H, D, E = cfg.num_heads, cfg.head_dim, cfg.embed_dim
         vo_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
 
@@ -160,6 +177,21 @@ class PagedSelfAttention(nn.Module):
 
         # ---- scatter the new rows into pages (invalid -> trash page)
         HD = H * D
+        k_rows, v_rows = k.reshape(B, T, HD), v.reshape(B, T, HD)
+        if quantized:
+            # per-token scales of the whole row, on every rank alike
+            ki, vi, ks, vs = quantize_kv_rows(k_rows.reshape(B * T, HD),
+                                              v_rows.reshape(B * T, HD))
+            k_rows, v_rows = ki.reshape(B, T, HD), vi.reshape(B, T, HD)
+        group = self.tp_group
+        if group is not None:
+            # this rank's heads of the rows, the pool and the queries
+            H //= dist.get_world_size(group)
+            h0 = dist.get_rank(group) * H
+            q = q[:, :, h0:h0 + H]
+            k_rows = k_rows[..., h0 * D:(h0 + H) * D]
+            v_rows = v_rows[..., h0 * D:(h0 + H) * D]
+            HD = H * D
         tables = block_tables.long()
         pos = lengths.long()[:, None] + torch.arange(T, device=x.device)
         valid = torch.arange(T, device=x.device)[None] < n_valid[:, None]
@@ -168,18 +200,13 @@ class PagedSelfAttention(nn.Module):
         page_ids = torch.where(valid, torch.gather(tables, 1, slot),
                                torch.full_like(slot, trash_page))
         offs = torch.remainder(pos, page)
+        k_pool[page_ids, offs] = k_rows.to(k_pool.dtype)
+        v_pool[page_ids, offs] = v_rows.to(v_pool.dtype)
         if quantized:
-            ki, vi, ks, vs = quantize_kv_rows(k.reshape(B * T, HD),
-                                              v.reshape(B * T, HD))
-            k_pool[page_ids, offs] = ki.reshape(B, T, HD)
-            v_pool[page_ids, offs] = vi.reshape(B, T, HD)
             slab_ids = torch.div(page_ids, chunk_pages, rounding_mode="floor")
             slab_pos = torch.remainder(page_ids, chunk_pages) * page + offs
             scale_pool[slab_ids, 0, slab_pos] = ks.reshape(B, T)
             scale_pool[slab_ids, 1, slab_pos] = vs.reshape(B, T)
-        else:
-            k_pool[page_ids, offs] = k.reshape(B, T, HD).to(k_pool.dtype)
-            v_pool[page_ids, offs] = v.reshape(B, T, HD).to(v_pool.dtype)
 
         def gather(pool, row):
             """This batch's pages [B, MP, page, H*D], dequantized (in the
@@ -213,7 +240,13 @@ class PagedSelfAttention(nn.Module):
             p = torch.softmax(logits, dim=-1).to(vv.dtype)
             out = torch.einsum("bhts,bshd->bthd", p.float(),
                                vv.float()).to(vv.dtype)
-        return self._out(out.reshape(B, T, HD))
+        out = out.reshape(B, T, HD)
+        if group is not None:
+            parts = [torch.empty_like(out)
+                     for _ in range(dist.get_world_size(group))]
+            dist.all_gather(parts, out.contiguous(), group=group)
+            out = torch.cat(parts, -1)
+        return self._out(out)
 
     def _out(self, out: torch.Tensor) -> torch.Tensor:
         if self.cfg.subln:
@@ -223,19 +256,25 @@ class PagedSelfAttention(nn.Module):
 
 class PagedDecoderLayer(nn.Module):
     """Pre-LN decoder layer over the shared pool; layer `li` owns pages
-    [li*P, (li+1)*P)."""
+    [li*P, (li+1)*P). An MoE layer (`layer_idx`, core/moe.py) has the MoE
+    FFN `moe`, routed deterministically (eval capacity; one slot an
+    expert at a one-token step), its experts and router in full precision
+    under int8 weights (JAX :279-286)."""
 
     def __init__(self, cfg: TransformerConfig, use_kernel: bool = True,
-                 device=None):
+                 device=None, layer_idx: int = 0):
         super().__init__()
         if not cfg.normalize_before:
             raise ValueError("the serving path assumes pre-LN (Magneto/subln)")
         self.self_attn_layer_norm = make_norm(cfg, device=device)
         self.self_attn = PagedSelfAttention(cfg, use_kernel, device=device)
         self.final_layer_norm = make_norm(cfg, device=device)
-        ffn_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
-        self.ffn = FeedForward(cfg, init_scale=ffn_scale,
-                               use_kernel=use_kernel, device=device)
+        if is_moe_layer(cfg, layer_idx):
+            self.moe = MoELayer(cfg, device=device)
+        else:
+            ffn_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
+            self.ffn = FeedForward(cfg, init_scale=ffn_scale,
+                                   use_kernel=use_kernel, device=device)
 
     def forward(self, x, k_pool, v_pool, block_tables, lengths, n_valid,
                 off: int, bases=None, chunk_pages: int = 8, scale_pool=None,
@@ -246,7 +285,8 @@ class PagedDecoderLayer(nn.Module):
             bases=None if bases is None else bases + off,
             chunk_pages=chunk_pages, scale_pool=scale_pool, xpos=xpos)
         x = x + h
-        return x + self.ffn(self.final_layer_norm(x))
+        h = self.final_layer_norm(x)
+        return x + (self.moe(h) if hasattr(self, "moe") else self.ffn(h))
 
 
 class PagedDecoderStack(nn.Module):
@@ -255,13 +295,9 @@ class PagedDecoderStack(nn.Module):
     def __init__(self, cfg: TransformerConfig, use_kernel: bool = True,
                  device=None):
         super().__init__()
-        if cfg.moe_freq:
-            raise NotImplementedError(
-                f"MoE decoder layers in the serving stack are not ported yet: "
-                f"{_SLICE9}")
         self.layers = nn.ModuleList(
-            [PagedDecoderLayer(cfg, use_kernel, device=device)
-             for _ in range(cfg.num_layers)])
+            [PagedDecoderLayer(cfg, use_kernel, device=device, layer_idx=i)
+             for i in range(cfg.num_layers)])
         self.layer_norm = make_norm(cfg, device=device)
 
     def forward(self, x, k_pool, v_pool, block_tables, lengths, n_valid,
@@ -463,7 +499,8 @@ def _state_dict(params: Mapping) -> Dict[str, torch.Tensor]:
 
 
 class ServingEngine:
-    """Continuous-batching server over `PagedGPT` on one device.
+    """Continuous-batching server over `PagedGPT` on one device, or
+    tensor-parallel over a DeviceMesh `mesh` (see the module docstring).
 
     `params` is a UniGPT state_dict or a flax param tree (looped or stacked:
     the port's stack is the same module list either way). `device` holds
@@ -474,10 +511,23 @@ class ServingEngine:
 
     def __init__(self, cfg: UniGPTConfig, scfg: ServingConfig, params,
                  mesh=None, *, device="cuda", use_kernel: bool = True):
+        tp = 1
         if mesh is not None:
-            raise NotImplementedError(
-                f"tensor-parallel serving over a mesh is not ported yet: "
-                f"{_SLICE9}")
+            from unilm_tpu_torch.parallel.mesh import axis_size
+
+            if cfg.scan_layers:
+                raise ValueError("scan_layers serving is single-device (the "
+                                 "JAX engine asserts mesh is None)")
+            if scfg.weight_dtype == "int8":
+                raise ValueError("int8 weights are a single-device decode "
+                                 "optimization; the mesh path shards "
+                                 "full-precision weights")
+            tp = axis_size(mesh, "tensor")
+            if cfg.num_heads % tp:
+                raise ValueError(f"heads {cfg.num_heads} not divisible by "
+                                 f"tensor axis {tp}")
+            use_kernel = False  # JAX: use_kernel = mesh is None
+        self.mesh = mesh
         self.device = resolve_device(device)
         sd = _state_dict(params)
         if scfg.weight_dtype == "int8":
@@ -498,6 +548,14 @@ class ServingEngine:
         self.model.load_state_dict({k: sd[k] for k in own}, strict=True,
                                    assign=True)
         self.model.to(self.device).eval()
+        if mesh is not None:
+            from unilm_tpu_torch.parallel.sharding import shard_parameters
+
+            shard_parameters(self.model, mesh, training=False)
+            if tp > 1:
+                for m in self.model.modules():
+                    if isinstance(m, PagedSelfAttention):
+                        m.tp_group = mesh.get_group("tensor")
         L, H = cfg.num_layers, cfg.num_heads
         D = cfg.embed_dim // H
         # per-layer page count rounded to a chunk multiple so every layer
@@ -505,7 +563,8 @@ class ServingEngine:
         self.num_pages = -(-scfg.num_pages // scfg.chunk_pages) * scfg.chunk_pages
         self.quantized = scfg.kv_dtype == "int8"
         kv_dt = torch.int8 if self.quantized else cfg.dtype
-        shape = (L * self.num_pages, scfg.page_size, H * D)
+        # this rank's heads under a tensor-parallel mesh
+        shape = (L * self.num_pages, scfg.page_size, H * D // tp)
         pools = [torch.zeros(shape, dtype=kv_dt, device=self.device),
                  torch.zeros(shape, dtype=kv_dt, device=self.device)]
         if self.quantized:

@@ -1,5 +1,6 @@
 """Training engine (port of unilm_tpu/runtime/train.py:
-`cross_entropy_loss` :36, `TrainState` :20 and `make_train_step` :81-154).
+`cross_entropy_loss` :36, `TrainState` :20, `apply_with_moe_aux` :55-78
+and `make_train_step` :81-154).
 
 The JAX step is one jitted function over a param pytree; here it runs
 eagerly on an `nn.Module`: micro-batch gradient accumulation (fairseq
@@ -8,6 +9,8 @@ scaled by 1/microbatches at the end as JAX scales its summed gradients;
 then global-norm clipping, the optimizer (runtime/optim.py), optional EMA
 of the parameters, and the metrics `loss` and `grad_norm`. Parameters
 keep `cfg.param_dtype` (float32 master weights) and so do their gradients.
+A model spread over ranks (parallel/) passes its `grad_sync`, which
+combines the gradients across ranks and takes their global norm.
 """
 
 from __future__ import annotations
@@ -94,10 +97,29 @@ def teacher_forced_loss(model: nn.Module, batch: Dict[str, torch.Tensor],
     return s / n, {}
 
 
-def apply_with_moe_aux(*args, **kwargs):
-    raise NotImplementedError(
-        "MoE layers (the sown GShard aux loss) are not ported yet: ROADMAP "
-        "Queue 1 slice 9")
+def apply_with_moe_aux(model: nn.Module, *args, **kwargs):
+    """model(*args, **kwargs) with the MoE layers' GShard load-balance
+    loss summed over the layers that ran (the JAX function reads the sown
+    `losses` and `moe_metrics` collections). Returns (outputs, aux_loss,
+    stats), stats = {"moe_overflow": the mean over those layers of the
+    fraction of routing assignments the capacity clip dropped} (empty
+    without MoE layers). The loss stays in the graph: the caller adds
+    `wt * aux_loss` to its loss, as the reference's moe_gate_loss_wt."""
+    from unilm_tpu_torch.core.moe import MoELayer
+
+    layers = [m for m in model.modules() if isinstance(m, MoELayer)]
+    for m in layers:
+        m.moe_aux = m.moe_overflow = None
+    out = model(*args, **kwargs)
+    ran = [m for m in layers if m.moe_aux is not None]
+    aux = torch.zeros((), dtype=torch.float32,
+                      device=ran[0].moe_aux.device if ran else None)
+    for m in ran:
+        aux = aux + m.moe_aux
+    stats = {}
+    if ran:
+        stats["moe_overflow"] = sum(m.moe_overflow for m in ran) / len(ran)
+    return out, aux, stats
 
 
 def _index(batch, i: int):
@@ -113,6 +135,7 @@ def make_train_step(
     ema_decay: Optional[float] = None,
     clip_grad_norm: Optional[float] = None,
     microbatches: int = 1,
+    grad_sync=None,
 ):
     """loss_fn(model, batch) -> (loss, metrics_dict).
 
@@ -120,7 +143,13 @@ def make_train_step(
     with `state` updated in place and returned. With microbatches > 1,
     `batch` (a tensor or a dict of tensors) carries a leading axis of that
     size; each microbatch's forward and backward runs in turn, so only one
-    microbatch's activations are alive at a time."""
+    microbatch's activations are alive at a time.
+
+    `grad_sync`, for a model spread over ranks (parallel/): an object
+    whose `reduce_grads(grads)` combines the accumulated gradients in
+    place across the ranks that share parameters (the collectives SPMD
+    inserts in JAX) and whose `grad_norm(grads)` gives the global norm of
+    gradients held in shards; without it the norm is taken locally."""
 
     def step(state: TrainState, batch):
         model = state.model
@@ -140,13 +169,16 @@ def make_train_step(
                     metrics_sum[k] + v)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        if grad_sync is not None:
+            grad_sync.reduce_grads(grads)
         if microbatches > 1:
             inv = 1.0 / microbatches
             loss_sum = loss_sum * inv
             metrics_sum = {k: v * inv for k, v in metrics_sum.items()}
             for g in grads:
                 g.mul_(inv)
-        gnorm = global_norm(grads)
+        gnorm = (global_norm(grads) if grad_sync is None
+                 else grad_sync.grad_norm(grads))
         if clip_grad_norm:
             scale = torch.clamp(clip_grad_norm / (gnorm + 1e-6), max=1.0)
             for g in grads:
