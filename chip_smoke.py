@@ -443,11 +443,27 @@ seconds since the script started ("[flash 35s] ..."):
     non-contiguous mask and an all-masked example against #1/#6/#7 on the
     whole sequence, #6 / #7 with the ring's delta timed on one chunk
     ("ring_chunk" under flash_bwd_dq / flash_bwd_dkv), then 2
-    SeqParallelLM steps at 2 layers. The total
-    time since the start is printed before the JSON lines.
+    SeqParallelLM steps at 2 layers.
+14. registry_kernels, registry_text, registry_speech (the registry's
+    last eight architectures and their kin, after reproduce_baseline):
+    #3 at BEATs' 8x496 with the T5 bias and at UniLM's 8x512 with the
+    -1e30 seq2seq bias, #9 at E5's 64x512 (ragged), #13 at UniLM's beam
+    decode, each alone against its plain version and timed; e5_base eval
+    and an InfoNCE step (#9, #10; the step's teacher in float32),
+    unilm_seq2seq_base's train forward (#3) and beam 5 (#3, #13),
+    xlmt_base and deltalm_base beam 5 and a label-smoothed step (no
+    kernel, as JAX's use_flash=False), retnet_base chunk-parallel then
+    recurrent (no kernel), the Diff Transformer's forward (no kernel);
+    wavlm_base (float32, no kernel), BEATs classification and tokenizer
+    ids (#3), SpeechT5 asr_forward / tts_forward (#3, #5), a SpeechLM
+    pretrain step (#3, #4), kosmos2 with the WavLM audio tower (#3, #5,
+    #13); the kernel-free models' float32 output on one example, card
+    against CPU (1e-4 relative). The total time since the start is
+    printed before the JSON lines.
 Then a JSON line of the two int8 paths', the TrOCR paths', the
 Kosmos-2 paths', the BEiT family's, search's, train_options', Document
-AI's and TrOCR fine-tuning's measurements ("paths"), and one
+AI's, TrOCR fine-tuning's and the registry slice's measurements
+("paths"), and one
 with each kernel's launches, summed over its main-path phases and listed
 by phase in `launches_by_path` (counters set to 0 just before each: slice,
 decode_int8_bs1 and kosmos_infer for flash_fwd, slice for decode,
@@ -474,7 +490,10 @@ encoder_attention, onepass_attention and decode_attention,
 reproduce_baseline for doc_attention and encoder_attention, moe_train
 for flash_fwd, flash_bwd_dq and flash_bwd_dkv, moe_serve for the decode
 kernels and int8_matmul, ring for flash_fwd (onepass_attention where it
-applies), flash_bwd_dq and flash_bwd_dkv),
+applies), flash_bwd_dq and flash_bwd_dkv, registry_text for
+doc_attention, doc_attention_bwd, encoder_attention and
+decode_attention, registry_speech for encoder_attention,
+encoder_attention_bwd, onepass_attention and decode_attention),
 error, the TrOCR shapes under "trocr" (encoder_attention,
 decode_attention, int8_matmul), the Kosmos-2 shapes under "kosmos2"
 (encoder_attention, encoder_attention_bwd, onepass_attention,
@@ -482,7 +501,8 @@ decode_attention), the BEiT family's under "beit_family"
 (encoder_attention, encoder_attention_bwd, doc_attention), Document AI's
 under "docai" (doc_attention, doc_attention_bwd) and TrOCR fine-tuning's
 under "trocr_train" (encoder_attention, encoder_attention_bwd,
-onepass_attention, flash_bwd_dq, flash_bwd_dkv),
+onepass_attention, flash_bwd_dq, flash_bwd_dkv), the registry slice's
+under "registry" (encoder_attention, doc_attention, decode_attention),
 times (kernel, plain version, and `library_ms`, one torch call computing
 the same function where one exists, else null) and `bound_ms` /
 `bound_by` (the larger of the bytes over 3.35 TB/s and the operations
@@ -9457,6 +9477,828 @@ def phase_ring(fa) -> tuple:
     return launches, extra
 
 
+# ---- the registry's last eight architectures and their kin ---------------
+# registry_kernels, registry_text, registry_speech: full widths, bf16 (the
+# float32 models in float32), random weights from the seed.
+REG_E5 = (64, 512, 32)  # batch, slots, shortest of the ragged lengths
+REG_INFONCE = (32, 64, 256)  # query / passage pairs, their slots
+REG_S2S = (8, 448, 64, 5)  # batch, source, target tokens, beam
+REG_NMT = (16, 128, 32, 5)  # batch, source, new tokens, beam
+REG_NMT_STEP = 64  # target tokens of the label-smoothed step
+REG_RETNET = (4, 2048, 64)  # batch, chunk-parallel tokens, recurrent ones
+REG_DIFF = (4, 2048)
+REG_AUDIO = (8, 160000)  # 8 x 10 s at 16 kHz: 499 WavLM frames
+REG_MEL = (8, 998, 128)  # spectrograms: 62 x 8 = 496 BEATs patches
+REG_ASR_T = 64  # SpeechT5 ASR target tokens
+REG_TTS = (64, 100)  # TTS text tokens, decoder steps (200 mel frames)
+REG_SPEECHLM = (8, 16000, 128)  # 1 s of audio (799 frames), text tokens
+REG_KOSMOS = (160000, 64, 16)  # audio samples, text tokens, greedy tokens
+REG_CPU_T = 256  # tokens of the float32 card-against-CPU example
+# bounds: encoder features (relative L2), the kernel-free paths' one
+# float32 example on the card against the CPU (relative L2); decode and
+# teacher-forced logits at LOGIT_ATOL / ARGMAX_AGREE, train steps at the
+# TEACHER_* bounds
+REG_FEAT_REL_L2 = 2e-2
+REG_FP32_REL = 1e-4
+REGISTRY_GROUPS = [("#3", [ENCODER_ONLY]), ("#4", [ENC_BWD_ONLY]),
+                   ("#9", ["doc_fwd"]), ("#10", ["doc_bwd"]),
+                   ("#5", [ONEPASS_ONLY]), ("#1", ["flash_fwd"]),
+                   ("#13", [DECODE_ONLY]),
+                   ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                               "splitK"]),
+                   ("conv", ["conv", "cudnn", "implicit", "winograd"])]
+
+
+def ragged_mask(rng, B: int, T: int, lo: int, dev) -> torch.Tensor:
+    """[B, T] bool, True on each row's first len in lo..T slots."""
+    lens = rng.randint(lo, T + 1, B)
+    return torch.from_numpy(np.arange(T)[None] < lens[:, None]).to(dev)
+
+
+def phase_registry_kernels(fa, da, pa, g, dev: str = "cuda") -> dict:
+    """The kernels of the registry slice alone at its new shapes, against
+    their plain versions (relative L2 <= 1e-2, #13 at OUT_ATOL /
+    OUT_RTOL with the pools bit-equal): #3 at BEATs' 8x496x496x12x64 with
+    the T5 bucket bias [1,12,496,496] and at UniLM's train forward
+    8x512x512x12x64 with the seq2seq bias [1,1,512,512] (-1e30 where a
+    key is hidden, cast to bf16: finite, and every row keeps its source
+    keys), #9 at E5's 64x512x512x12x64 with ragged lengths 32-512, #13 at
+    UniLM's beam decode (B40 = 8 x 5 beams, page 16, chunk 2, 32 pages a
+    run, H12 D64, lengths 448-511). Each timed (device time back to back
+    and with L2 flushed) beside the plain version, sdpa and the bound.
+    Returns {kernel name: {"registry": {...}}} for the kernels line."""
+    from unilm_tpu_torch.core.transformer import _scan_pool_geometry
+    from unilm_tpu_torch.models.unilm_s2s import seq2seq_attn_bias
+
+    bf, name, H, D = torch.bfloat16, "registry_kernels", 12, 64
+    rn = functools.partial(randn, g, dev=dev)
+    timed = functools.partial(kernel_timed, flushed=True)
+    line = functools.partial(kernel_line, name)
+    Bs, S, Tt, K = REG_S2S
+    s2s_bias = seq2seq_attn_bias(S, Tt, dev).to(bf)
+    check(bool(torch.isfinite(s2s_bias).all())
+          and float(s2s_bias.min()) < -1e29,
+          f"{name}: the seq2seq bias in bf16 {float(s2s_bias.min())}")
+    k3 = {}
+    for key, B, T, bias in (
+            ("beats", REG_MEL[0], 496, rn(1, H, 496, 496)),
+            ("unilm_train", Bs, S + Tt, s2s_bias)):
+        q, k, v = (rn(B, T, H, D) for _ in range(3))
+        out = fa.fused_encoder_attention(q, k, v, bias=bias)
+        ref = fa.fused_encoder_attention_plain(q, k, v, bias)
+        torch.cuda.synchronize()
+        e = rel_l2(out, ref)
+        check(bool(torch.isfinite(out.float()).all()) and e <= 1e-2,
+              f"{name}: #3 {key} rel L2 {e} (bound 1e-2)")
+        r = k3[key] = {
+            "shape": f"{B}x{T}x{T}x{H}x{D} bf16, bias "
+            f"[{','.join(map(str, bias.shape))}]",
+            "rel_l2": e, "library": "sdpa",
+            "max_abs_err": float((out.float() - ref.float()).abs().max()),
+            **timed(lambda: fa.fused_encoder_attention(q, k, v, bias=bias),
+                    lambda: fa.fused_encoder_attention_plain(q, k, v, bias),
+                    lambda: sdpa(q, k, v, attn_mask=bias), ENCODER_ONLY,
+                    nbytes(q, k, v, out, bias), 4 * B * H * T * T * D)}
+        line(f"#3 {key}", r, 1e-2)
+        del q, k, v, out, ref
+
+    B, T, lo = REG_E5
+    mask = ragged_mask(np.random.RandomState(SEED), B, T, lo, dev)
+    q, k, v = rn(B, T, H, D), rn(B, T, H, D), rn(B, T, H, D)
+    out = da.doc_attention(q, k, v, None, mask)
+    ref = da.doc_attention_plain(q, k, v, None, mask)
+    torch.cuda.synchronize()
+    e = rel_l2(out, ref)
+    check(bool(torch.isfinite(out.float()).all()) and e <= 1e-2,
+          f"{name}: #9 e5 rel L2 {e} (bound 1e-2)")
+    k9 = {"e5": {
+        "shape": f"{B}x{T}x{T}x{H}x{D} bf16, key-padding mask (lengths "
+        f"{lo}-{T})", "rel_l2": e, "library": "sdpa (bool mask)",
+        "max_abs_err": float((out.float() - ref.float()).abs().max()),
+        **timed(lambda: da.doc_attention(q, k, v, None, mask),
+                lambda: da.doc_attention_plain(q, k, v, None, mask),
+                lambda: sdpa(q, k, v, attn_mask=mask[:, None, None, :]),
+                "doc_fwd", nbytes(q, k, v, out, mask),
+                4 * float(mask.sum()) * T * H * D)}}
+    line("#9 e5", k9["e5"], 1e-2)
+    del q, k, v, out, ref
+
+    page, chunk, PP = _scan_pool_geometry(S + Tt)
+    check((page, chunk, PP) == (16, 2, 32), f"{name}: pool geometry "
+          f"{(page, chunk, PP)}")
+    Bc = Bs * K
+    lens = np.random.RandomState(SEED).randint(S, S + Tt, Bc).tolist()
+    bases = torch.arange(Bc, dtype=torch.int32, device=dev) * PP
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    kp, vp = rn(Bc * PP, page, H * D), rn(Bc * PP, page, H * D)
+    q, kn, vn = rn(Bc, 1, H, D), rn(Bc, 1, H, D), rn(Bc, 1, H, D)
+    kp2, vp2 = kp.clone(), vp.clone()
+    out = pa.run_decode_append_attention(q, kn, vn, kp, vp, bases, lengths,
+                                         PP, None, chunk)[0]
+    ref = pa.run_decode_append_attention_plain(q, kn, vn, kp2, vp2, bases,
+                                               lengths, PP, None, chunk)[0]
+    torch.cuda.synchronize()
+    ok, err = close(out, ref, OUT_ATOL, OUT_RTOL)
+    check(ok and bool(torch.isfinite(out.float()).all())
+          and torch.equal(kp, kp2) and torch.equal(vp, vp2),
+          f"{name}: #13 B{Bc}: out err {err} or pools differ")
+    L = S + Tt // 2  # the middle of the beam's decode
+    lengths = torch.full((Bc,), L, dtype=torch.int32, device=dev)
+    qs = (q[:, 0] * D ** -0.5).contiguous()
+    alone = lambda: pa.decode_attention(qs, kp, vp, bases, lengths, PP)
+    run = lambda pool: pool.reshape(Bc, PP * page, H, D)[:, :L + 1]
+    lib = lambda: sdpa(q, run(kp), run(vp))
+    k13 = {"unilm_beam": {
+        "shape": f"B{Bc} L{L} H{H} D{D} page {page} bf16 (UniLM beam 5 at "
+        f"B={Bs})", "max_abs_err": err,
+        "ms": device_ms(alone, only=DECODE_ONLY),
+        "ms_l2_flushed": cold_ms(alone, DECODE_ONLY),
+        "plain_ms": device_ms(lambda: pa.run_decode_append_attention_plain(
+            q, kn, vn, kp, vp, bases, lengths, PP, None, chunk), iters=3),
+        "library_ms": device_ms(lib), "library_ms_l2_flushed": cold_ms(lib),
+        **roofline(Bc * (2 * (L + 1) * H * D * 2 + 2 * H * D * 2),
+                   4 * Bc * H * (L + 1) * D)}}
+    r = k13["unilm_beam"]
+    phase(name, f"#13 {r['shape']}: out max|err| {err:.3g} (tol {OUT_ATOL} "
+          f"abs + {OUT_RTOL} rel, lengths {min(lens)}-{max(lens)}), pools "
+          f"bit-equal; device time {r['ms']:.4f} ms back to back, "
+          f"{r['ms_l2_flushed']:.4f} flushed; sdpa over the runs "
+          f"{r['library_ms']:.4f} / {r['library_ms_l2_flushed']:.4f}; plain "
+          f"{r['plain_ms']:.4f}; bound {r['bound_ms']:.5f} ({r['bound_by']})")
+    del kp, vp, kp2, vp2
+    torch.cuda.empty_cache()
+    return {"encoder_attention": {"registry": k3},
+            "doc_attention": {"registry": k9},
+            "decode_attention": {"registry": k13}}
+
+
+def logits_teacher(label: str, got: torch.Tensor, want: torch.Tensor) -> dict:
+    """Kernel-path logits against the plain path's on the same inputs:
+    max |dlogit| <= LOGIT_ATOL and argmax agreement >= ARGMAX_AGREE."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    check(bool(torch.isfinite(got).all()) and err <= LOGIT_ATOL
+          and agree >= ARGMAX_AGREE,
+          f"{LAST_PHASE[0]} {label}: max |dlogit| {err} (tol {LOGIT_ATOL}), "
+          f"argmax agreement {agree} (tol {ARGMAX_AGREE})")
+    return {"max_dlogit": err, "argmax_agreement": agree}
+
+
+def feature_teacher(label: str, got: torch.Tensor,
+                    want: torch.Tensor) -> float:
+    e = rel_l2(got, want)
+    check(bool(torch.isfinite(got.float()).all()) and e <= REG_FEAT_REL_L2,
+          f"{LAST_PHASE[0]} {label}: rel L2 {e} (tol {REG_FEAT_REL_L2})")
+    return e
+
+
+def card_vs_cpu(label: str, model, make_cpu, fn) -> float:
+    """A kernel-free model's float32 output on the card against the same
+    weights on the CPU (`make_cpu()` builds the CPU model): fn(model, dev)
+    draws its inputs from a fixed numpy seed. Relative L2 <=
+    REG_FP32_REL."""
+    cpu = make_cpu()
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.eval()
+    with torch.no_grad():
+        a = fn(model, torch.device("cuda")).float().cpu()
+        b = fn(cpu, torch.device("cpu")).float()
+    e = rel_l2(a, b)
+    check(bool(torch.isfinite(a).all()) and e <= REG_FP32_REL,
+          f"{LAST_PHASE[0]} {label}: float32 card against CPU rel L2 {e} "
+          f"(tol {REG_FP32_REL})")
+    del cpu
+    return e
+
+
+def counted(fn):
+    """fn with its calls counted in `.calls`."""
+    def wrapped(*a, **k):
+        wrapped.calls += 1
+        return fn(*a, **k)
+    wrapped.calls = 0
+    return wrapped
+
+
+def phase_registry_text(fa) -> tuple:
+    """The registry's text architectures at full width (registry.build,
+    bf16 compute / float32 params, random weights from the seed):
+    e5_base eval at REG_E5 (12 #9 a forward; embeddings against the plain
+    twin by relative L2) and an InfoNCE step at REG_INFONCE (24 #9 + 24
+    #10; the teacher at the initial weights in float32, where the loss's
+    temperature 0.01 does not magnify bf16 rounding 100-fold); unilm_seq2seq_base's train
+    forward over 448 + 64 tokens (12 #3 with the seq2seq bias; logits
+    against the plain twin) and beam 5 over 64 tokens from a 448-token
+    source at B=8 (12 #3 in the prefill, 12 #13 a step; the best beams
+    teacher-forced through both paths); xlmt_base and deltalm_base beam 5
+    at B=16 over a 128-token source and one label-smoothed step (no
+    kernel: JAX sets use_flash=False there); retnet_base's chunk-parallel
+    forward over 2048 tokens at B=4 continued by 64 recurrent tokens
+    (against the parallel form over the same tokens); the Diff
+    Transformer's 2048-token forward at B=4. The kernel-free models'
+    float32 output on one example, card against CPU (REG_FP32_REL).
+    Returns (launches, numbers)."""
+    from unilm_tpu_torch.models import deltalm, registry, unilm_s2s
+    from unilm_tpu_torch.models.retrieval import info_nce_loss
+    from unilm_tpu_torch.models.translation import make_generate_fns
+    from unilm_tpu_torch.runtime import criterions, optim, train
+    from unilm_tpu_torch.runtime import generate as gen
+
+    dev, bf, name = torch.device("cuda"), torch.bfloat16, "registry_text"
+    launches, nums = {}, {}
+    seeded = lambda: torch.Generator(device=dev).manual_seed(SEED)
+
+    def add(got):
+        for k, v in got.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+
+    def build(arch, **kw):
+        if arch == "deltalm_base":
+            cfg = deltalm.deltalm_base(**kw)
+            return cfg, deltalm.DeltaLM(cfg, device=dev).init_weights(
+                seeded()).eval()
+        cfg, m = registry.build(arch, device=dev, **kw)
+        return cfg, m.init_weights(seeded()).eval()
+
+    def twin(arch, model, **kw):
+        plain = registry.build(arch, device=dev, use_flash=False, **kw)[1]
+        plain.load_state_dict(model.state_dict())
+        return plain.eval()
+
+    def cpu_model(arch):
+        if arch == "deltalm_base":
+            return lambda: deltalm.DeltaLM(deltalm.deltalm_base(),
+                                           device="cpu")
+        return lambda: registry.build(arch, device="cpu")[1]
+
+    def fwd_bwd(model, loss_fn, batch):
+        loss = loss_fn(model, batch)[0]
+        return float(loss.detach()), torch.autograd.grad(
+            loss, train.trainable(model))
+
+    def one_step(model, loss_fn, batch, want, label):
+        """One AdamW step through make_train_step: its launches exactly
+        `want`, ms from CUDA events around a second step."""
+        tx = optim.AdamW(1e-5, weight_decay=0.01)
+        state = train.TrainState.create(model, tx)
+        step = train.make_train_step(loss_fn, tx, clip_grad_norm=1.0)
+        torch.cuda.synchronize()
+        reset_counts()
+        state, mt = step(state, batch)
+        torch.cuda.synchronize()
+        launches_only(counts(), want, label)
+        add(counts())
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        state, mt2 = step(state, batch)
+        ev[1].record()
+        torch.cuda.synchronize()
+        losses = [float(mt["loss"]), float(mt2["loss"])]
+        check(all(np.isfinite(losses)), f"{name} {label}: losses {losses}")
+        del state, step, tx
+        return losses, ev[0].elapsed_time(ev[1])
+
+    rng = np.random.RandomState(SEED)
+
+    # ---- e5_base: eval and one InfoNCE step ------------------------------
+    cfg, m = build("e5_base", dtype=bf)
+    L, V = cfg.num_layers, cfg.vocab_size
+    B, T, lo = REG_E5
+    mask = ragged_mask(rng, B, T, lo, dev)
+    ids = torch.from_numpy(rng.randint(1000, V, (B, T))).to(dev)
+    reset_counts()
+    with torch.no_grad():
+        emb = m(ids, mask)
+    torch.cuda.synchronize()
+    launches_only(counts(), {"doc_attention": L}, "e5 eval forward")
+    add(counts())
+    plain = twin("e5_base", m, dtype=bf)
+    with torch.no_grad():
+        e = feature_teacher("e5 embeddings", emb, plain(ids, mask))
+        ms = host_ms(lambda: m(ids, mask), 5)
+        ms_plain = host_ms(lambda: plain(ids, mask), 2)
+        parts = profile_steps(lambda: m(ids, mask), 1, REGISTRY_GROUPS)[0]
+    phase(name, f"e5_base eval B={B} x {T} slots (lengths {lo}-{T}): "
+          f"{L} #9 a forward; embeddings rel L2 {e:.3g} against the plain "
+          f"path (tol {REG_FEAT_REL_L2}); {ms:.2f} ms a forward, "
+          f"{B * 1e3 / ms:.1f} seq/s (plain {ms_plain:.2f} ms); "
+          + groups_line(parts, ms))
+    nums["e5_eval"] = {"ms": ms, "plain_ms": ms_plain, "rel_l2": e,
+                       "device_ms": parts}
+    Bq, Tq, Tp = REG_INFONCE
+    batch = {"q": torch.from_numpy(rng.randint(1000, V, (Bq, Tq))).to(dev),
+             "qm": ragged_mask(rng, Bq, Tq, 8, dev),
+             "p": torch.from_numpy(rng.randint(1000, V, (Bq, Tp))).to(dev),
+             "pm": ragged_mask(rng, Bq, Tp, 32, dev)}
+    nce = lambda mm, b: (info_nce_loss(mm(b["q"], b["qm"]),
+                                       mm(b["p"], b["pm"]), 0.01)[0], {})
+    del plain
+    # the teacher in float32 (#9 / #10's float32 kernels against the plain
+    # path): the loss's temperature 0.01 multiplies the embeddings' bf16
+    # rounding by 100, past the train bounds on either path's rounding
+    _, m32 = build("e5_base")
+    plain = twin("e5_base", m32)
+    names = [n for n, p in m32.named_parameters() if p.requires_grad]
+    c0 = counts()
+    lk, gk = fwd_bwd(m32, nce, batch)
+    c1 = counts()
+    lp, gp = fwd_bwd(plain, nce, batch)
+    check(counts() == c1 and c1["doc_attention_bwd"]
+          - c0["doc_attention_bwd"] == 2 * L, f"{name}: e5 teacher launches")
+    tch = grads_teacher("e5 infonce (float32)", (lk, gk), (lp, gp), names,
+                        skip=("k_proj.bias",))
+    del plain, m32, gk, gp
+    losses, tms = one_step(m, nce, batch, {"doc_attention": 2 * L,
+                                           "doc_attention_bwd": 2 * L},
+                           "e5 infonce step")
+    phase(name, f"e5_base InfoNCE step, {Bq} queries x {Tq} + {Bq} "
+          f"passages x {Tp}: {2 * L} #9 + {2 * L} #10; losses "
+          f"{losses[0]:.4f}, {losses[1]:.4f}; {tms:.2f} ms/step; float32 "
+          f"teacher at the initial weights: loss rel {tch['loss_rel']:.2e}, grad norm "
+          f"rel {tch['norm_rel']:.2e}, min cosine {tch['min_cos']:.5f} "
+          f"({tch['worst']})")
+    nums["e5_infonce"] = {"ms": tms, "losses": losses, **tch}
+    del m
+    torch.cuda.empty_cache()
+
+    # ---- unilm_seq2seq_base: the train forward and beam 5 ----------------
+    Bs, S, Tt, K = REG_S2S
+    cfg, m = build("unilm_seq2seq_base", dtype=bf)
+    L, V = cfg.num_layers, cfg.vocab_size
+    toks = torch.from_numpy(rng.randint(1000, V, (Bs, S + Tt))).to(dev)
+    types = torch.where(torch.arange(S + Tt, device=dev) < S, 4, 5
+                        ).expand(Bs, -1)
+    reset_counts()
+    with torch.no_grad():
+        logits = m(toks, types, S)
+    torch.cuda.synchronize()
+    launches_only(counts(), {"encoder_attention": L}, "unilm train forward")
+    add(counts())
+    plain = twin("unilm_seq2seq_base", m, dtype=bf)
+    with torch.no_grad():
+        tf = logits_teacher("unilm train forward", logits,
+                            plain(toks, types, S))
+        ms = host_ms(lambda: m(toks, types, S), 3)
+    del logits
+    C = S + Tt
+    pre, step = unilm_s2s.make_generate_fns(m, C)
+    step = counted(step)
+    gcfg = gen.GenerationConfig(beam_size=K, max_new_tokens=Tt, eos=NO_EOS,
+                                pad=0, vocab_size=V)
+    src = toks[:, :S]
+    reset_counts()
+    t0 = time.perf_counter()
+    out, scores = gen.beam_generate(gcfg, pre, step, src)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    launches_only(counts(), {"encoder_attention": L,
+                             "decode_attention": L * step.calls},
+                  f"unilm beam ({step.calls} steps)")
+    add(counts())
+    check(bool(torch.isfinite(scores).all()) and out.shape == (Bs, K, C),
+          f"{name}: unilm beam {out.shape}")
+    best = out[:, 0]
+
+    def forced(model):  # the best beams teacher-forced, every step's logits
+        pf, st = unilm_s2s.make_generate_fns(model, C)
+        lg, cache = pf(best[:, :S], None)
+        outs = [lg[:, -1:]]
+        for i in range(S, C - 1):
+            lg, cache = st(best[:, i:i + 1], cache, None)
+            outs.append(lg)
+        return torch.cat(outs, 1)
+
+    with torch.no_grad():
+        bt = logits_teacher("unilm beam (best beams forced)", forced(m),
+                            forced(plain))
+    phase(name, f"unilm_seq2seq_base: train forward over {S} + {Tt} tokens "
+          f"at B={Bs}: {L} #3 (seq2seq bias) a forward, {ms:.2f} ms; logits "
+          f"against the plain path {tf}; beam {K} over {Tt} tokens from the "
+          f"{S}-token source: {L} #3 + {L} x {step.calls} #13, "
+          f"{beam_s * 1e3:.1f} ms ({beam_s * 1e3 / Tt:.2f} ms/token); best "
+          f"beams teacher-forced through both paths {bt}")
+    nums["unilm_s2s"] = {"train_forward_ms": ms, "beam_ms": beam_s * 1e3,
+                         "beam_steps": step.calls, "train_teacher": tf,
+                         "beam_teacher": bt}
+    del m, plain
+    torch.cuda.empty_cache()
+
+    # ---- xlmt_base and deltalm_base: beam 5 and a label-smoothed step ----
+    Bn, Sn, new, K = REG_NMT
+    for arch in ("xlmt_base", "deltalm_base"):
+        cfg, m = build(arch, dtype=bf)
+        V = cfg.vocab_size
+        src = rng.randint(4, V, (Bn, Sn))
+        for i, n in enumerate(rng.randint(Sn // 2, Sn + 1, Bn)):
+            src[i, n:] = cfg.pad_id
+        src = torch.from_numpy(src).to(dev)
+        lang = torch.full((Bn, 1), V - 1, dtype=torch.int64, device=dev)
+        pre, step = make_generate_fns(m, 1 + new)
+        gcfg = gen.GenerationConfig(beam_size=K, max_new_tokens=new,
+                                    eos=NO_EOS, pad=cfg.pad_id, vocab_size=V)
+        reset_counts()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out, scores = gen.beam_generate(gcfg, pre, step, lang,
+                                            m.encode(src))
+        torch.cuda.synchronize()
+        beam_s = time.perf_counter() - t0
+        launches_only(counts(), {}, f"{arch} beam")
+        check(bool(torch.isfinite(scores).all()), f"{name}: {arch} scores")
+        tgt = torch.from_numpy(rng.randint(4, V, (Bn, REG_NMT_STEP + 1))
+                               ).to(dev)
+        batch = {"src": src, "tgt": tgt}
+
+        def ls_loss(mm, b):
+            s, n = criterions.label_smoothed_nll_loss(
+                mm(b["src"], b["tgt"][:, :-1]), b["tgt"][:, 1:], 0.1,
+                ignore_index=cfg.pad_id)
+            return s / n, {}
+
+        losses, tms = one_step(m, ls_loss, batch, {},
+                               f"{arch} label-smoothed step")
+        del m
+        torch.cuda.empty_cache()
+        _, m32 = build(arch)
+
+        def one(model, d):
+            r = np.random.RandomState(SEED + 1)
+            s = torch.from_numpy(r.randint(4, V, (1, Sn))).to(d)
+            p = torch.from_numpy(r.randint(4, V, (1, REG_NMT_STEP))).to(d)
+            return model(s, p)
+
+        e32 = card_vs_cpu(arch, m32, cpu_model(arch), one)
+        phase(name, f"{arch}: beam {K} at B={Bn} over a {Sn}-token source, "
+              f"{new} new tokens: no kernel launched (use_flash=False, as "
+              f"JAX), {beam_s * 1e3:.1f} ms; label-smoothed step over "
+              f"{REG_NMT_STEP} target tokens: no kernel, losses "
+              f"{losses[0]:.4f}, {losses[1]:.4f}, {tms:.2f} ms/step; float32 "
+              f"logits card against CPU rel L2 {e32:.2e} (tol {REG_FP32_REL})")
+        nums[arch] = {"beam_ms": beam_s * 1e3, "step_ms": tms,
+                      "losses": losses, "fp32_card_vs_cpu": e32}
+        del m32
+        torch.cuda.empty_cache()
+
+    # ---- retnet_base: chunk-parallel, then recurrent ---------------------
+    B, T, R = REG_RETNET
+    cfg, m = build("retnet_base", dtype=bf)
+    V = cfg.vocab_size
+    toks = torch.from_numpy(rng.randint(0, V, (B, T + R))).to(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        _, states = m(toks[:, :T])
+        torch.cuda.synchronize()
+        fwd_s = time.perf_counter() - t0
+        rec = []
+        t0 = time.perf_counter()
+        for i in range(T, T + R):
+            lg, states = m(toks[:, i:i + 1], states,
+                           torch.tensor([i], device=dev), "decode")
+            rec.append(lg)
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+    launches_only(counts(), {}, "retnet forward and decode")
+    with torch.no_grad():
+        full = m(toks)[0][:, T:]
+    rt = logits_teacher("retnet recurrent against parallel",
+                        torch.cat(rec, 1), full)
+    del m, full, rec
+    torch.cuda.empty_cache()
+    _, m32 = build("retnet_base")
+    one = lambda model, d: model(torch.from_numpy(np.random.RandomState(
+        SEED + 2).randint(0, V, (1, REG_CPU_T))).to(d))[0]
+    e32 = card_vs_cpu("retnet_base", m32, cpu_model("retnet_base"), one)
+    phase(name, f"retnet_base B={B}: chunk-parallel forward over {T} tokens "
+          f"{fwd_s * 1e3:.1f} ms, then {R} recurrent tokens "
+          f"{rec_s * 1e3 / R:.2f} ms/token; no kernel (JAX has none); "
+          f"recurrent logits against the parallel form over the same "
+          f"tokens {rt}; float32 card against CPU rel L2 {e32:.2e}")
+    nums["retnet_base"] = {"forward_ms": fwd_s * 1e3,
+                           "recurrent_ms_per_token": rec_s * 1e3 / R,
+                           **rt, "fp32_card_vs_cpu": e32}
+    del m32
+    torch.cuda.empty_cache()
+
+    # ---- diff_transformer_base -------------------------------------------
+    B, T = REG_DIFF
+    cfg, m = build("diff_transformer_base", dtype=bf)
+    V = cfg.vocab_size
+    toks = torch.from_numpy(rng.randint(0, V, (B, T))).to(dev)
+    reset_counts()
+    with torch.no_grad():
+        lg = m(toks)
+        torch.cuda.synchronize()
+        launches_only(counts(), {}, "diff transformer forward")
+        check(lg.shape == (B, T, V) and bool(torch.isfinite(lg).all()),
+              f"{name}: diff logits {lg.shape}")
+        ms = host_ms(lambda: m(toks), 2)
+    del m, lg
+    torch.cuda.empty_cache()
+    _, m32 = build("diff_transformer_base")
+    one = lambda model, d: model(torch.from_numpy(np.random.RandomState(
+        SEED + 3).randint(0, V, (1, REG_CPU_T))).to(d))
+    e32 = card_vs_cpu("diff_transformer_base", m32,
+                      cpu_model("diff_transformer_base"), one)
+    phase(name, f"diff_transformer_base forward B={B} x {T}: no kernel "
+          f"(JAX computes it inline), {ms:.2f} ms, {B * T * 1e3 / ms:.0f} "
+          f"tokens/s; float32 card against CPU rel L2 {e32:.2e}")
+    nums["diff_transformer_base"] = {"forward_ms": ms,
+                                     "fp32_card_vs_cpu": e32}
+    del m32
+    torch.cuda.empty_cache()
+    return launches, {"registry_text": nums}
+
+
+def phase_registry_speech(fa) -> tuple:
+    """The speech models at full width (random weights from the seed):
+    wavlm_base on 8 x 10 s of 16 kHz audio (499 frames; float32, as JAX's,
+    no kernel; one example card against CPU); BEATs classification and
+    tokenizer ids on 8 x 998 x 128 mel (496 patches: 12 #3 with the T5
+    bias a forward; features by relative L2 and ids by agreement against
+    the plain twin); SpeechT5 asr_forward on the same audio with 64
+    target tokens (12 + 6 #3, 6 #5 or #1) and tts_forward over 64 text
+    tokens and 100 decoder steps (200 mel frames); one SpeechLM pretrain
+    step at REG_SPEECHLM (24 #3 + 24 #4, teacher at the initial weights);
+    kosmos2(audio_tower="wavlm") at B=1: 10 s of audio through the tower
+    and its resampler (1 #3), a 1 + 64 + 63-token prompt with the 64
+    audio latents spliced, prefill (24 #5 or #1) then 16 greedy tokens
+    (24 #13 a step), teacher-forced against the plain twin. Returns
+    (launches, numbers)."""
+    from unilm_tpu_torch.models import beats, kosmos, registry, speechlm
+    from unilm_tpu_torch.models import speecht5
+    from unilm_tpu_torch.runtime import optim, train
+    from unilm_tpu_torch.runtime import generate as gen
+
+    dev, bf, name = torch.device("cuda"), torch.bfloat16, "registry_speech"
+    launches, nums = {}, {}
+    seeded = lambda: torch.Generator(device=dev).manual_seed(SEED)
+    rng = np.random.RandomState(SEED)
+
+    def add(got):
+        for k, v in got.items():
+            if v:
+                launches[k] = launches.get(k, 0) + v
+
+    def pair(cls, cfg):
+        m = cls(cfg, device=dev).init_weights(seeded()).eval()
+        plain = cls(dataclasses.replace(cfg, use_flash=False), device=dev)
+        plain.load_state_dict(m.state_dict())
+        return m, plain.eval()
+
+    def flash_kernel(B, H, T, D):  # the flash selector's counter name
+        return ("onepass_attention" if fa.onepass_applies(B, H, T, T, D,
+                                                          None, 0)
+                else "flash_fwd")
+
+    B, n = REG_AUDIO
+    audio = torch.randn(B, n, generator=seeded(), device=dev)
+
+    # ---- wavlm_base ------------------------------------------------------
+    cfg, m = registry.build("wavlm_base", device=dev)
+    m.init_weights(seeded()).eval()
+    reset_counts()
+    with torch.no_grad():
+        feats = m(audio)
+    torch.cuda.synchronize()
+    launches_only(counts(), {}, "wavlm forward")
+    frames = feats.shape[1]
+    check(feats.shape == (B, 499, cfg.hidden_size)
+          and bool(torch.isfinite(feats).all()), f"{name}: wavlm {feats.shape}")
+    with torch.no_grad():
+        ms = host_ms(lambda: m(audio), 2)
+    one = lambda model, d: model(torch.from_numpy(np.random.RandomState(
+        SEED + 4).randn(1, n).astype(np.float32)).to(d))
+    e32 = card_vs_cpu("wavlm_base", m, lambda: registry.build(
+        "wavlm_base", device="cpu")[1], one)
+    phase(name, f"wavlm_base on {B} x {n / 16000:.0f} s of audio: {frames} "
+          f"frames, float32 (as JAX), no kernel (JAX's plain attention with "
+          f"the per-example gated bias); {ms:.2f} ms a batch; one example "
+          f"card against CPU rel L2 {e32:.2e} (tol {REG_FP32_REL})")
+    nums["wavlm_base"] = {"ms": ms, "frames": frames,
+                          "fp32_card_vs_cpu": e32}
+    del m, feats
+    torch.cuda.empty_cache()
+
+    # ---- BEATs -------------------------------------------------------------
+    bcfg = beats.BEATsConfig(dtype=bf)
+    L = bcfg.num_layers
+    spec = torch.randn(*REG_MEL, generator=seeded(), device=dev)
+    m, plain = pair(beats.BEATsForAudioClassification, bcfg)
+    reset_counts()
+    with torch.no_grad():
+        logits = m(spec)
+    torch.cuda.synchronize()
+    launches_only(counts(), {"encoder_attention": L}, "beats classifier")
+    add(counts())
+    with torch.no_grad():
+        fe = feature_teacher("beats features", m.beats(spec),
+                             plain.beats(spec))
+        le = rel_l2(logits, plain(spec))
+        ms = host_ms(lambda: m(spec), 3)
+        parts = profile_steps(lambda: m(spec), 1, REGISTRY_GROUPS)[0]
+    del m, plain
+    tok, ptok = pair(beats.BEATsTokenizer, bcfg)
+    reset_counts()
+    with torch.no_grad():
+        ids = tok.get_codebook_indices(spec)
+    torch.cuda.synchronize()
+    launches_only(counts(), {"encoder_attention": L}, "beats tokenizer")
+    add(counts())
+    with torch.no_grad():
+        agree = float((ids == ptok.get_codebook_indices(spec)).float().mean())
+        before = tok.quantize.embedding.clone()
+        tok(spec, update_ema=True)
+        moved = not torch.equal(before, tok.quantize.embedding)
+    check(ids.shape == (REG_MEL[0], 496) and agree >= VQKD_ID_AGREE
+          and moved, f"{name}: beats ids {ids.shape}, agreement {agree}, "
+          f"EMA moved {moved}")
+    phase(name, f"BEATs on {REG_MEL[0]} x {REG_MEL[1]} x {REG_MEL[2]} mel "
+          f"({ids.shape[1]} patches): {L} #3 (T5 bias) a forward, "
+          f"classifier {ms:.2f} ms; encoder features rel L2 {fe:.3g} (tol "
+          f"{REG_FEAT_REL_L2}), logits rel L2 {le:.3g}; tokenizer ids "
+          f"agreement {agree:.4f} (tol {VQKD_ID_AGREE}), EMA buffers move "
+          f"under update_ema; " + groups_line(parts, ms))
+    nums["beats"] = {"ms": ms, "features_rel_l2": fe, "id_agreement": agree,
+                     "device_ms": parts}
+    del tok, ptok
+    torch.cuda.empty_cache()
+
+    # ---- SpeechT5 ----------------------------------------------------------
+    scfg = speecht5.SpeechT5Config(dtype=bf)
+    Le, Ld, H, D = scfg.enc_layers, scfg.dec_layers, scfg.num_heads, 64
+    m, plain = pair(speecht5.SpeechT5Model, scfg)
+    prev = torch.from_numpy(rng.randint(4, scfg.vocab_size,
+                                        (B, REG_ASR_T))).to(dev)
+    Tx, Td = REG_TTS
+    text = torch.from_numpy(rng.randint(4, scfg.vocab_size, (B, Tx))).to(dev)
+    mels = torch.randn(B, Td, scfg.mel_bins * scfg.reduction_factor,
+                       generator=seeded(), device=dev)
+    reset_counts()
+    with torch.no_grad():
+        logits = m.asr_forward(audio, prev)
+    torch.cuda.synchronize()
+    want = {"encoder_attention": Le + Ld,
+            flash_kernel(B, H, REG_ASR_T, D): Ld}
+    launches_only(counts(), want, "speecht5 asr_forward")
+    add(counts())
+    reset_counts()
+    with torch.no_grad():
+        mel_before, mel_after, stop = m.tts_forward(text, mels)
+    torch.cuda.synchronize()
+    want_tts = {"encoder_attention": Le + Ld, flash_kernel(B, H, Td, D): Ld}
+    launches_only(counts(), want_tts, "speecht5 tts_forward")
+    add(counts())
+    with torch.no_grad():
+        at = logits_teacher("speecht5 asr logits", logits,
+                            plain.asr_forward(audio, prev))
+        te = feature_teacher("speecht5 tts mel", mel_after,
+                             plain.tts_forward(text, mels)[1])
+        ms_asr = host_ms(lambda: m.asr_forward(audio, prev), 3)
+        ms_tts = host_ms(lambda: m.tts_forward(text, mels), 3)
+        parts = profile_steps(lambda: m.asr_forward(audio, prev), 1,
+                              REGISTRY_GROUPS)[0]
+    phase(name, f"SpeechT5 asr_forward on the {B} x 10 s audio, "
+          f"{REG_ASR_T} target tokens: launches {want}; logits against the "
+          f"plain path {at}; {ms_asr:.2f} ms; tts_forward over {Tx} text "
+          f"tokens, {Td} decoder steps ({mel_after.shape[1]} mel frames): "
+          f"launches {want_tts}; mel rel L2 {te:.3g}; {ms_tts:.2f} ms; asr "
+          + groups_line(parts, ms_asr))
+    nums["speecht5"] = {"asr_ms": ms_asr, "tts_ms": ms_tts, "asr": at,
+                        "tts_mel_rel_l2": te, "asr_device_ms": parts}
+    del m, plain, logits
+    torch.cuda.empty_cache()
+
+    # ---- one SpeechLM pretrain step -----------------------------------------
+    lcfg = speechlm.SpeechLMConfig(dtype=bf)
+    L = lcfg.num_layers
+    Bl, nl, Tt = REG_SPEECHLM
+    m, plain = pair(speechlm.SpeechLM, lcfg)
+    a = torch.randn(Bl, nl, generator=seeded(), device=dev)
+    with torch.no_grad():
+        Ts = m.feature_extractor(a).shape[1]
+    mask = torch.from_numpy(rng.rand(Bl, Ts) < 0.4).to(dev)
+    tt = rng.randint(0, lcfg.text_vocab, (Bl, Tt))
+    batch = {"audio": a, "mask": mask,
+             "units": torch.from_numpy(rng.randint(0, lcfg.unit_vocab,
+                                                   (Bl, Ts))).to(dev),
+             "text": torch.from_numpy(tt).to(dev),
+             "text_targets": torch.from_numpy(np.where(
+                 rng.rand(Bl, Tt) < 0.3, tt, -100)).to(dev)}
+
+    def slm_loss(mm, b):
+        u, x = mm(b["audio"], b["mask"], b["text"])
+        total, parts_ = speechlm.speechlm_pretrain_loss(
+            u, b["units"], b["mask"], x, b["text_targets"])
+        return total, parts_
+
+    names = [k for k, p in m.named_parameters() if p.requires_grad]
+
+    def fb(mm):
+        loss = slm_loss(mm, batch)[0]
+        return float(loss.detach()), torch.autograd.grad(
+            loss, train.trainable(mm))
+
+    c0 = counts()
+    tk_ = fb(m)
+    c1 = counts()
+    tp_ = fb(plain)
+    check(counts() == c1 and c1["encoder_attention_bwd"]
+          - c0["encoder_attention_bwd"] == 2 * L,
+          f"{name}: speechlm teacher launches")
+    tch = grads_teacher("speechlm step", tk_, tp_, names,
+                        skip=("k_proj.bias",))
+    del plain, tk_, tp_
+    tx = optim.AdamW(1e-4, weight_decay=0.01)
+    state = train.TrainState.create(m, tx)
+    step = train.make_train_step(slm_loss, tx, clip_grad_norm=1.0)
+    torch.cuda.synchronize()
+    reset_counts()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    state, mt = step(state, batch)
+    ev[1].record()
+    torch.cuda.synchronize()
+    launches_only(counts(), {"encoder_attention": 2 * L,
+                             "encoder_attention_bwd": 2 * L},
+                  "speechlm pretrain step")
+    add(counts())
+    loss = float(mt["loss"])
+    check(np.isfinite(loss), f"{name}: speechlm loss {loss}")
+    tms = ev[0].elapsed_time(ev[1])
+    phase(name, f"SpeechLM pretrain step, {Bl} x {nl / 16000:.0f} s of audio "
+          f"({Ts} frames, 40% masked) + {Bl} x {Tt} text tokens: {2 * L} #3 + "
+          f"{2 * L} #4; loss {loss:.4f}; {tms:.2f} ms (the first step, CUDA "
+          f"events); teacher at the initial weights: loss rel "
+          f"{tch['loss_rel']:.2e}, grad norm rel {tch['norm_rel']:.2e}, min "
+          f"cosine {tch['min_cos']:.5f} ({tch['worst']})")
+    nums["speechlm"] = {"step_ms": tms, "loss": loss, "frames": Ts, **tch}
+    del m, state, step, tx
+    torch.cuda.empty_cache()
+
+    # ---- kosmos2 with the WavLM audio tower -------------------------------
+    n, Tt, new = REG_KOSMOS
+    kcfg = kosmos.kosmos2(dtype=bf, audio_tower="wavlm")
+    nq, L, H, D = (kcfg.audio_latent_query_num, kcfg.num_layers,
+                   kcfg.num_heads, kcfg.embed_dim // kcfg.num_heads)
+    m, plain = pair(kosmos.UniGPT, kcfg)
+    P = 1 + nq + Tt - 1
+    prompt = torch.from_numpy(rng.randint(4, 60000, (1, P))).to(dev)
+    prompt[:, 0] = 0
+    amask = torch.zeros(1, P, dtype=torch.bool, device=dev)
+    amask[:, 1:1 + nq] = True
+    a1 = audio[:1]
+    C = P + new
+    gcfg = gen.GenerationConfig(beam_size=1, max_new_tokens=new, eos=NO_EOS,
+                                pad=PAD)
+
+    def fns(model, feats):
+        def pf(tokens, aux):
+            return model.prefill(tokens, C, last_logit_only=True,
+                                 aud_features=feats, aud_gpt_input_mask=amask)
+
+        def st(tokens, cache, aux):
+            return model.decode_step(tokens, cache, C)
+        return pf, counted(st)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        feats = m.encode_audio(a1)
+        pf, st = fns(m, feats)
+        out, _ = gen.greedy_generate(gcfg, pf, st, prompt)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    want = {"encoder_attention": 1, flash_kernel(1, H, P, D): L,
+            "decode_attention": L * st.calls}
+    launches_only(counts(), want, f"kosmos2 audio ({st.calls} steps)")
+    add(counts())
+
+    def forced(model):
+        with torch.no_grad():
+            pf, stp = fns(model, model.encode_audio(a1))
+            lg, cache = pf(prompt, None)
+            outs = [lg]
+            for i in range(P, C - 1):
+                lg, cache = stp(out[:, i:i + 1], cache, None)
+                outs.append(lg)
+        return torch.cat(outs, 1)
+
+    kt = logits_teacher("kosmos2 audio (generated tokens forced)", forced(m),
+                        forced(plain))
+    phase(name, f"kosmos2(audio_tower='wavlm') bf16, B=1: 10 s of audio -> "
+          f"{nq} latents spliced into a {P}-token prompt, prefill then "
+          f"{new} greedy tokens: launches {want}; {gen_s * 1e3:.1f} ms from "
+          f"the audio to the last token; generated tokens teacher-forced "
+          f"through both paths {kt}")
+    nums["kosmos2_audio"] = {"ms": gen_s * 1e3, "steps": st.calls, **kt}
+    del m, plain
+    torch.cuda.empty_cache()
+    return launches, {"registry_speech": nums}
+
+
 def main() -> int:
     smi = phase_device()
     from unilm_tpu_torch.ops import doc_attention as da
@@ -9539,6 +10381,12 @@ def main() -> int:
     got, beit2_nums = phase_beit2(fa)
     add("beit2", got)
     add("reproduce_baseline", phase_reproduce_baseline())
+    registry_extra = phase_registry_kernels(
+        fa, da, pa, torch.Generator(device="cuda").manual_seed(SEED))
+    got, registry_text_nums = phase_registry_text(fa)
+    add("registry_text", got)
+    got, registry_speech_nums = phase_registry_speech(fa)
+    add("registry_speech", got)
     add("yoco_chat", phase_yoco_chat(fa))
     phase_yoco_long(fa)
     cfg, sd = engine_model()
@@ -9571,13 +10419,15 @@ def main() -> int:
         kern.update(beit_family_extra.get(kern["name"], {}))
         kern.update(docai_extra.get(kern["name"], {}))
         kern.update(ring_extra.get(kern["name"], {}))
+        kern.update(registry_extra.get(kern["name"], {}))
         check(kern["launches"] > 0, f"{kern['name']} never launched")
     print(json.dumps({"paths": {"decode_int8_bs1": line4["line4"],
                                 **infer, **trocr_bf16, **trocr_int8,
                                 **kosmos2_nums, **kosmos2_train_nums,
                                 **beit3_nums, **beit2_nums, **search_nums,
                                 "train_options": options, **docai_nums,
-                                **trocr_train_nums}}),
+                                **trocr_train_nums, **registry_text_nums,
+                                **registry_speech_nums}}),
           flush=True)
     phase("profiler", f"{len(PROFILER_MISSES)} device_ms calls fell back "
           f"to CUDA events: {PROFILER_MISSES}; {len(PROFILER_LOST)} traces "

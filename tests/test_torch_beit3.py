@@ -318,17 +318,15 @@ PORTED = ("beit_base_patch16_224", "beit_base_patch16_384",
           "dit_large_patch16_224", "beit3_base", "beit3_large",
           "layoutlm_base", "layoutlmv2_base", "layoutlmv3_base",
           "layoutlmv3_large", "markuplm_base", "trocr_small",
-          "trocr_base", "trocr_large", "kosmos2", "kosmos2_5", "yoco_base")
-PENDING = {"retnet_base": "item 10",
-           "retnet_medium": "item 10", "xlmt_base": "item 10",
-           "xlmt_big": "item 10", "diff_transformer_base": "item 10",
-           "unilm_seq2seq_base": "item 10", "wavlm_base": "item 10",
-           "e5_base": "item 10"}
+          "trocr_base", "trocr_large", "kosmos2", "kosmos2_5", "yoco_base",
+          "retnet_base", "retnet_medium", "xlmt_base", "xlmt_big",
+          "diff_transformer_base", "unilm_seq2seq_base", "wavlm_base",
+          "e5_base")
 
 
 def test_registry_names_equal_jax():
     assert treg.names() == jreg.names()
-    assert sorted([*PORTED, *PENDING]) == treg.names()
+    assert sorted(PORTED) == treg.names()
 
 
 @pytest.mark.parametrize("name", PORTED)
@@ -358,12 +356,6 @@ def test_registry_build_overrides_and_device():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             treg.build("beit3_base")
-
-
-@pytest.mark.parametrize("name", sorted(PENDING))
-def test_registry_raises_for_unported(name):
-    with pytest.raises(NotImplementedError, match=PENDING[name] + r"\b"):
-        treg.build(name, device="meta")
 
 
 # ---- the dispatcher's choice of kernel -------------------------------------

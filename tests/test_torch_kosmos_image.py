@@ -157,8 +157,10 @@ def test_kosmos2_5_tower_inherits_the_compute_dtype():
 
 def test_unported_towers_raise():
     """The CLIP tower (Kosmos-2) is ported: it builds beside this file's
-    decoder and its encode_image matches JAX's; the audio tower still
-    raises."""
+    decoder and its encode_image matches JAX's. The WavLM audio tower is
+    ported too (its parity: tests/test_torch_speech.py): it builds, and
+    an audio tower the JAX model does not know raises ValueError, as
+    JAX's does."""
     ck = dict(img_size=28, patch_size=14, embed_dim=32, num_layers=2,
               num_heads=2, ffn_dim=64, use_flash=False)
     kw = {k: v for k, v in KW.items() if k != "image_tower"}
@@ -180,9 +182,13 @@ def test_unported_towers_raise():
     with torch.no_grad():
         got = tm.encode_image(torch.from_numpy(img))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
-    with pytest.raises(NotImplementedError, match="slice 10"):
-        tk.UniGPT(tk.UniGPTConfig(audio_tower="wavlm", image_tower=None, **{
-            k: v for k, v in KW.items() if k != "image_tower"}))
+    audio = tk.UniGPT(tk.UniGPTConfig(audio_tower="wavlm", image_tower=None,
+                                      **kw), device="meta")
+    assert type(audio.aud_model).__name__ == "WavLMModel"
+    assert audio.aud_connector.latent_query.shape == (64, KW["embed_dim"])
+    with pytest.raises(ValueError, match="unknown audio tower"):
+        tk.UniGPT(tk.UniGPTConfig(audio_tower="hubert", image_tower=None,
+                                  **kw))
 
 
 def test_pix2struct_patches_match_the_jax_package():

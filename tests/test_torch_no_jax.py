@@ -226,7 +226,11 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "models.registry", "runtime.metrics", "runtime.criterions",
           "runtime.profiling", "ops.dropout", "ops.collectives", "core.moe",
           "parallel.mesh", "parallel.sharding", "parallel.ring_attention",
-          "parallel.long_context", "parallel.pipeline", "parallel.dryrun"}
+          "parallel.long_context", "parallel.pipeline", "parallel.dryrun",
+          "models.retrieval", "models.unilm_s2s", "models.translation",
+          "models.deltalm", "models.retnet", "models.diff_transformer",
+          "models.wavlm", "convert.wavlm", "models.beats", "models.speecht5",
+          "models.speechlm"}
 
 
 _PARALLEL = _POISON + r"""

@@ -23,9 +23,14 @@ axis, the scan_layers form). Leaves map as
   `positional_embedding`, LayoutLMv3's bias tables `rel_pos_bias`,
   `rel_pos_x_bias`, `rel_pos_y_bias` (LayoutLMv2's too), TrOCR's
   `dist_token` and the decoder's learned position table `embed_positions`,
-  the RE head's `biaffine` [R, h + 1, h + 1], and an MoE router's
+  the RE head's `biaffine` [R, h + 1, h + 1], an MoE router's
   `gate_expert_embeddings` [E, gate_dim] and `gate_temperature` (a
-  scalar);
+  scalar), the T5 bias table `relative_attention_bias`, WavLM's
+  `rel_attn_embed` and `gru_rel_pos_const`, the Diff Transformer's
+  `lambda_{q,k}{1,2}`, SpeechLM's `mask_emb` and SpeechT5's `dec_pos`;
+- a 1-D Conv `kernel` [K, I, O] (WavLM's feature extractor and
+  positional conv, SpeechT5's postnet) -> `weight` [O, I, K], the layout
+  of `F.conv1d` (a 3-D kernel under `experts` is an MoE expert's);
 - an MoE layer's vmapped `experts` (each leaf with a leading expert
   axis: `kernel` [E, in, out] -> `weight` [E, out, in]) and its `gate`
   Dense, by the rules above (core/moe.py names them alike);
@@ -69,7 +74,10 @@ _SAME = {"gamma", "cls_token", "mask_token", "pos_embed",
          "relative_position_bias_table", "latent_query", "rel_pos_bias",
          "rel_pos_x_bias", "rel_pos_y_bias", "dist_token", "embed_positions",
          "class_embedding", "positional_embedding", "biaffine",
-         "gate_expert_embeddings", "gate_temperature"}
+         "gate_expert_embeddings", "gate_temperature",
+         "relative_attention_bias", "rel_attn_embed", "gru_rel_pos_const",
+         "lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2", "mask_emb",
+         "dec_pos"}
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -83,14 +91,16 @@ _QUANT_LEAF = {"kernel_i8": "weight_i8", "scale": "scale", "bias": "bias"}
 
 
 def _leaf(name: str, value: np.ndarray, quant: bool, conv: str) -> tuple:
-    """`conv`: "" for a leaf that is no 4-D Conv kernel [p, p, C, E] (with
-    a leading layer axis when stacked, 5-D), else its torch layout:
-    "flat" or "oihw"."""
+    """`conv`: "" for a leaf that is no Conv kernel, else its torch
+    layout: "flat" or "oihw" for a 4-D kernel [p, p, C, E] (with a leading
+    layer axis when stacked, 5-D), "oik" for a 1-D one [K, I, O]."""
     if name in _SAME and not quant:
         return name, value
     table = _QUANT_LEAF if quant else _LEAF
     if name not in table:
         raise KeyError(f"unmapped flax leaf {name!r}")
+    if conv == "oik":  # [K, I, O] -> [O, I, K]
+        return table[name], np.transpose(value, (2, 1, 0))
     if conv == "oihw":  # [p, p, C, E] -> [E, C, p, p]
         return table[name], np.transpose(value, (3, 2, 0, 1))
     if conv:  # [(L,) p, p, C, E] -> [(L,) E, p*p*C]
@@ -122,6 +132,9 @@ def flax_to_state_dict(params: Mapping, ema: Optional[Mapping] = None
             conv = ""
             if key == "kernel" and arr.ndim - int(stacked) == 4:
                 conv = "flat" if prefix.endswith("proj.") else "oihw"
+            elif (key == "kernel" and arr.ndim - int(stacked) == 3
+                  and not stacked and ".experts." not in f".{prefix}"):
+                conv = "oik"
             name, arr = _leaf(key, arr, "kernel_i8" in tree, conv)
             path = f"{prefix}{name}"
             if stacked:

@@ -1,6 +1,6 @@
 """xPos/SoPE rotary, the length-extrapolation rescale and T5 relative
-position buckets (port of unilm_tpu/core/positional.py:28-94 and
-`relative_position_bucket` :102).
+position buckets (port of unilm_tpu/core/positional.py:28-94,
+`relative_position_bucket` :102 and `RelativePositionBias` :133).
 
 The rotation is the INTERLEAVED every-two rotation of torchscale
 ([-x2, x1, -x4, x3, ...]), not the half-split rotation of HF Llama.
@@ -103,3 +103,35 @@ def relative_position_bucket(relative_position: torch.Tensor,
         * (num_buckets - max_exact)).to(ret.dtype)
     val_if_large = val_if_large.clamp(max=num_buckets - 1)
     return ret + torch.where(is_small, n, val_if_large)
+
+
+class RelativePositionBias(torch.nn.Module):
+    """T5's learned bucketed bias (JAX `RelativePositionBias` :133):
+    `relative_attention_bias` [num_buckets, heads] looked up at the bucket
+    of (memory position - query position) -> [1, heads, qlen, klen] in
+    `dtype`. `step` offsets the query positions: a decoder's prefill and
+    decode rows sit at step..step+qlen-1 against klen cache slots."""
+
+    def __init__(self, num_buckets: int = 32, max_distance: int = 128,
+                 num_heads: int = 12, bidirectional: bool = True,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.num_buckets, self.max_distance = num_buckets, max_distance
+        self.bidirectional, self.dtype = bidirectional, dtype
+        self.relative_attention_bias = torch.nn.Parameter(
+            torch.zeros(num_buckets, num_heads, device=device))
+
+    @torch.no_grad()
+    def init_params_(self, generator: torch.Generator) -> None:
+        """normal(0.02), the flax initialiser."""
+        self.relative_attention_bias.normal_(0.0, 0.02, generator=generator)
+
+    def forward(self, qlen: int, klen: int, step: int = 0) -> torch.Tensor:
+        dev = self.relative_attention_bias.device
+        context = step + torch.arange(qlen, device=dev)[:, None]
+        memory = torch.arange(klen, device=dev)[None, :]
+        bucket = relative_position_bucket(
+            memory - context, bidirectional=self.bidirectional,
+            num_buckets=self.num_buckets, max_distance=self.max_distance)
+        values = self.relative_attention_bias[bucket]  # [q, k, heads]
+        return values.permute(2, 0, 1)[None].to(self.dtype)

@@ -17,7 +17,10 @@ Under `cfg.multiway` (BEiT-3, VLMo; JAX
 and the FFN (`ffn_A` / `ffn_B`) are A/B expert pairs and `forward` takes
 `multiway_split_mask` (core/multiway.py's `split`: None, a position or a
 bool mask); with None only the A experts compute and the B parameters
-carry no work, as in JAX. T5 relative-position buckets (slice 10) raise.
+carry no work, as in JAX. With cfg.rel_pos_buckets the stack owns T5's
+bucketed bias (core/positional.py `RelativePositionBias`, JAX :705-714):
+`relative_position`, bidirectional, used where the caller passes no bias
+(BEATs).
 
 MoE (JAX `_build_ffn` :51-56): in both stacks every `cfg.moe_freq`-th
 layer's FFN is a `core/moe.py` `MoELayer` named `moe` (a multiway layer
@@ -83,9 +86,15 @@ draws them again; a training forward with a rate and no generator raises.
 
 Drop-path runs in both stacks (the decoder's on its two or three
 branches, JAX :160-179, :914-920), on keep flags drawn before the forward
-(`draw_drop_path`). Relative-position buckets and xPos with
-cross-attention (JAX asserts, :542-544) raise NotImplementedError naming
-their ROADMAP entry.
+(`draw_drop_path`). xPos with cross-attention (JAX asserts, :542-544)
+raises NotImplementedError.
+
+With cfg.rel_pos_buckets the decoder owns a unidirectional T5 bias
+`self_attn_relative_position` (JAX :794-811): train mode adds its [1, H,
+T, T] rows to `attn_bias`; prefill and decode take the rows of the
+queries step..step+T-1 against `cache_size` keys, `step` being the cache
+leaf that counts the tokens already seen (0 at prefill). A decode step
+with a bias takes the generic path, as JAX's does.
 """
 
 from __future__ import annotations
@@ -108,6 +117,7 @@ from unilm_tpu_torch.core.layers import (DropPath, FeedForward, LayerScale,
                                          seeded_generator)
 from unilm_tpu_torch.core.moe import MoELayer, is_moe_layer
 from unilm_tpu_torch.core.multiway import MultiwayNorm, apply_split
+from unilm_tpu_torch.core.positional import RelativePositionBias
 from unilm_tpu_torch.ops.attention import attention
 from unilm_tpu_torch.ops.paged_attention import (quantize_kv_rows,
                                                  run_decode_append_attention)
@@ -155,6 +165,13 @@ def _dropout_seeds(module: nn.Module, cfg, generator, n: int) -> list:
             "a training forward with dropout needs a torch.Generator "
             "(`generator=`); call .eval() to evaluate")
     return layer_seeds(generator, n)
+
+
+def _rel_bias(cfg: TransformerConfig, bidirectional: bool,
+              device) -> RelativePositionBias:
+    return RelativePositionBias(cfg.rel_pos_buckets, cfg.max_rel_pos,
+                                cfg.num_heads, bidirectional, cfg.dtype,
+                                device=device)
 
 
 def _scan_pool_geometry(cache_size: int) -> Tuple[int, int, int]:
@@ -314,6 +331,10 @@ class ScanCrossAttention(MultiheadAttention):
         if B % Bkv:
             raise ValueError(f"query batch {B} is not a multiple of the "
                              f"cross cache's batch {Bkv}")
+        if key_padding_mask is not None and key_padding_mask.shape[0] != Bkv:
+            # a mask tiled to beams (runtime/generate.py tiles `aux`): the
+            # rows of a sentence's beams are equal, keep its first
+            key_padding_mask = key_padding_mask[::B // Bkv]
         # beams of a sequence attend over the same keys: fold them into the
         # query length (a view of the [B, T, H, D] projection)
         out = attention(q.reshape(Bkv, B // Bkv * T, H, D), k, v,
@@ -493,10 +514,6 @@ class Encoder(nn.Module):
     def __init__(self, cfg: TransformerConfig, final_layer_norm: bool = True,
                  layer_scale_init: float = 0.0, device=None):
         super().__init__()
-        if cfg.rel_pos_buckets:
-            raise NotImplementedError(
-                "T5 relative-bias encoders are not ported yet: ROADMAP "
-                "Queue 1 slice 10")
         self.cfg = cfg
         alpha = cfg.deepnorm_alpha if cfg.deepnorm else 1.0
         self.drop_path_rates = [float(r) for r in np.linspace(
@@ -509,6 +526,8 @@ class Encoder(nn.Module):
             [EncoderLayer(cfg, rate, layer_scale_init, alpha, device=device,
                           layer_idx=i)
              for i, rate in enumerate(self.drop_path_rates)])
+        if cfg.rel_pos_buckets:
+            self.relative_position = _rel_bias(cfg, True, device)
         if cfg.normalize_before and final_layer_norm:
             # JAX's final multiway norm is a LayerNorm whatever norm_type
             self.layer_norm = (
@@ -544,6 +563,8 @@ class Encoder(nn.Module):
         cfg = self.cfg
         use_remat = cfg.remat and torch.is_grad_enabled()
         seeds = _dropout_seeds(self, cfg, generator, len(self.layers))
+        if attn_bias is None and cfg.rel_pos_buckets:
+            attn_bias = self.relative_position(x.shape[1], x.shape[1])
         hiddens = []
         for i, layer in enumerate(self.layers):
             bias_i = (attn_bias[i] if isinstance(attn_bias, (list, tuple))
@@ -575,7 +596,8 @@ class Decoder(nn.Module):
     place. `cache` is a dict with the JAX leaf names: kv_pool_key,
     kv_pool_value [B, L*PP, page, H*D] (int8 under kv_cache_dtype "int8",
     with kv_pool_scale [B, L*PP/chunk, 8, chunk*page] f32), cache_index
-    (an int: tokens already in the pool) and, with cross-attention,
+    (an int: tokens already in the pool), with cfg.rel_pos_buckets `step`
+    (an int: the T5 bias's query offset) and, with cross-attention,
     cross_key / cross_value [Bkv, L, S, H, D] (written by prefill only;
     decode may run B = G * Bkv beam rows over them).
 
@@ -587,10 +609,6 @@ class Decoder(nn.Module):
     def __init__(self, cfg: TransformerConfig, has_cross_attention=False,
                  encoder_dim: Optional[int] = None, device=None):
         super().__init__()
-        if cfg.rel_pos_buckets:
-            raise NotImplementedError(
-                "T5 relative-bias decoders are not ported yet: ROADMAP "
-                "Queue 1 slice 10")
         if cfg.kv_cache_dtype not in ("model", "int8"):
             raise ValueError(f"kv_cache_dtype {cfg.kv_cache_dtype!r}: "
                              "'model' or 'int8'")
@@ -607,6 +625,8 @@ class Decoder(nn.Module):
              for i, rate in enumerate(self.drop_path_rates)])
         if cfg.normalize_before:
             self.layer_norm = make_norm(cfg, device=device)
+        if cfg.rel_pos_buckets:
+            self.self_attn_relative_position = _rel_bias(cfg, False, device)
 
     def draw_drop_path(self, batch: int, generator: torch.Generator
                        ) -> Optional[torch.Tensor]:
@@ -643,7 +663,11 @@ class Decoder(nn.Module):
                 encoder_out is None):
             raise ValueError(f"mode {mode!r} of a cross-attention decoder "
                              "needs encoder_out")
+        rel = getattr(self, "self_attn_relative_position", None)
         if mode == "train":
+            if rel is not None:
+                rows = rel(x.shape[1], x.shape[1])
+                attn_bias = rows if attn_bias is None else attn_bias + rows
             cross_kw = (dict(encoder_out=encoder_out,
                              key_padding_mask=encoder_padding_mask)
                         if self.has_cross_attention else None)
@@ -685,6 +709,11 @@ class Decoder(nn.Module):
             cross = (cache["cross_key"], cache["cross_value"])
         xpos = (xpos_inputs(cfg, start, T, x.device) if cfg.xpos_rel_pos
                 else None)
+        step = None
+        if rel is not None:
+            step = 0 if mode == "prefill" else int(cache["step"])
+            rows = rel(T, cache_size, step)
+            attn_bias = rows if attn_bias is None else attn_bias + rows
         for li, layer in enumerate(self.layers):
             cross_kw = (None if cross is None else dict(
                 encoder_out=encoder_out, cross=cross, li=li,
@@ -699,6 +728,8 @@ class Decoder(nn.Module):
         if kv_int8:
             cache["kv_pool_scale"] = sp
         cache["cache_index"] = start + T
+        if step is not None:
+            cache["step"] = step + T
         if cross is not None:
             cache["cross_key"], cache["cross_value"] = cross
         return x, cache

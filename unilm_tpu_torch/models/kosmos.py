@@ -7,7 +7,9 @@ unilm_tpu/models/kosmos.py: `sinusoidal_table` :46, `ClipVisionConfig` /
 `get_image_representation` :384-393 and `encode_image` :515 in one),
 `quantize_lm_head` :522, `stack_unigpt_params` :540,
 `make_unigpt_generate_fns` :551, `kosmos2` :581, `kosmos2_5` :590; the
-train forward `UniGPT.__call__` :444 is `UniGPT.forward`).
+train forward `UniGPT.__call__` :444 is `UniGPT.forward`; the audio tower
+`aud_model` / `aud_connector` :367-381 with `encode_audio`, JAX's
+`get_audio_representation` :395-403 and `encode_audio` :518 in one).
 
 An image tower (open_clip's ViT-L/14 for Kosmos-2, Pix2Struct for
 Kosmos-2.5) and the latent-query resampler feed the decoder:
@@ -18,8 +20,14 @@ keep float32 params whatever `param_dtype` says, and the modules flax
 leaves at dtype=None (CLIP's `ln_pre` and `ln_post`; Pix2Struct's patch
 projection, row and column embedders and final RMSNorm; the resampler's
 `dense`) compute in float32, so each tower's residual stream is float32
-around its bf16 layers. The audio tower (ROADMAP Queue 1 slice 10)
-raises.
+around its bf16 layers.
+
+With `audio_tower="wavlm"` a WavLM tower (models/wavlm.py, `cfg.wavlm` or
+its base config; float32, as JAX's) and its own resampler feed the same
+splice: `encode_audio` L2-normalises the tower's frames and resamples
+them to `audio_latent_query_num` latents, which `forward` (`aud_inputs`,
+raw audio [B, samples]) and `prefill` (`aud_features`) place at
+`aud_gpt_input_mask` after the image features (JAX :413-415).
 
 Under `quant_lm_head` the logits come from `lm_head_q`, an int8
 `QuantDense` [V, E] built from the head in use (`quantize_lm_head` on a
@@ -350,10 +358,8 @@ class UniGPT(nn.Module):
         super().__init__()
         if cfg.image_tower not in (None, "clip", "pix2struct"):
             raise ValueError(f"unknown image tower {cfg.image_tower!r}")
-        if cfg.audio_tower:
-            raise NotImplementedError(
-                "the audio tower (WavLM) is not ported yet: ROADMAP Queue 1 "
-                "slice 10")
+        if cfg.audio_tower not in (None, "wavlm"):
+            raise ValueError(f"unknown audio tower {cfg.audio_tower!r}")
         self.cfg = cfg
         tcfg = cfg.decoder_cfg()
         self.dtype = tcfg.dtype
@@ -395,6 +401,17 @@ class UniGPT(nn.Module):
             self.img_connector = LatentQueryResampler(
                 conn_in, E, cfg.latent_query_num, cfg.num_heads,
                 dtype=cfg.dtype, use_flash=cfg.use_flash, device=device)
+        if cfg.audio_tower:
+            from unilm_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
+
+            wcfg = (cfg.wavlm if cfg.wavlm is not None
+                    else WavLMConfig(dtype=cfg.dtype))
+            self.aud_model = WavLMModel(
+                wcfg, device=torch.device("cpu") if device is None else device)
+            self.aud_connector = LatentQueryResampler(
+                wcfg.hidden_size, E, cfg.audio_latent_query_num,
+                cfg.num_heads, dtype=cfg.dtype, use_flash=cfg.use_flash,
+                device=device)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "UniGPT":
@@ -406,6 +423,11 @@ class UniGPT(nn.Module):
             self.img_model.init_weights(generator)
         if hasattr(self, "img_connector"):
             self.img_connector.latent_query.normal_(0.0, 1.0,
+                                                    generator=generator)
+        if hasattr(self, "aud_model"):
+            self.aud_model.rel_attn_embed.normal_(0.0, 0.02,
+                                                  generator=generator)
+            self.aud_connector.latent_query.normal_(0.0, 1.0,
                                                     generator=generator)
         return self
 
@@ -425,15 +447,29 @@ class UniGPT(nn.Module):
                                                   keepdim=True) + 1e-6)
         return self.img_connector(feats)
 
+    def encode_audio(self, aud_inputs: torch.Tensor) -> torch.Tensor:
+        """Raw audio [B, samples] -> WavLM tower -> L2 normalize (+1e-6,
+        float32) -> latent-query resample: [B, audio_latent_query_num, E]
+        in the compute dtype."""
+        if not hasattr(self, "aud_model"):
+            raise ValueError("this UniGPT has no audio tower "
+                             "(audio_tower=None)")
+        feats = self.aud_model(aud_inputs)
+        feats = feats / (torch.linalg.vector_norm(feats, dim=-1,
+                                                  keepdim=True) + 1e-6)
+        return self.aud_connector(feats)
+
     # ------------------------------------------------------------------ #
     def _positions(self, T: int, start: int, device) -> torch.Tensor:
         return start + torch.arange(T, device=device) + self.cfg.padding_idx + 1
 
     def _embed(self, tokens, img_features, img_mask, segment_tokens,
-               positions):
+               positions, aud_features=None, aud_mask=None):
         cfg = self.cfg
         emb = self.embed_tokens(tokens).to(self.dtype)
         emb = splice_image_features(emb, img_features, img_mask)
+        # the audio splice: the images' scatter contract (gpt.py:264-265)
+        emb = splice_image_features(emb, aud_features, aud_mask)
         x = emb * (cfg.embed_dim ** 0.5 if cfg.scale_embedding else 1.0)
         if cfg.use_positional:
             if cfg.learned_pos:
@@ -462,19 +498,19 @@ class UniGPT(nn.Module):
         masked key (`src_tokens != padding_idx`), as in JAX. `img_inputs`
         (images or flattened patches, as `encode_image` takes) go through
         the tower and the resampler and are spliced at
-        `img_gpt_input_mask`. `generator`: the decoder's dropout masks
-        in training (cfg.dropout, JAX's `decoder_cfg` :272; UniGPT has no
-        embedding dropout)."""
-        if aud_inputs is not None:
-            raise NotImplementedError(
-                "the audio tower (WavLM) is not ported yet: ROADMAP Queue 1 "
-                "slice 10")
+        `img_gpt_input_mask`, raw audio `aud_inputs` [B, samples] through
+        the audio tower at `aud_gpt_input_mask`. `generator`: the
+        decoder's dropout masks in training (cfg.dropout, JAX's
+        `decoder_cfg` :272; UniGPT has no embedding dropout)."""
         img_feats = (self.encode_image(img_inputs)
                      if img_inputs is not None else None)
+        aud_feats = (self.encode_audio(aud_inputs)
+                     if aud_inputs is not None else None)
         T = src_tokens.shape[1]
         x = self._embed(src_tokens, img_feats, img_gpt_input_mask,
                         segment_tokens, self._positions(T, 0,
-                                                        src_tokens.device))
+                                                        src_tokens.device),
+                        aud_feats, aud_gpt_input_mask)
         pad_mask = src_tokens != self.cfg.padding_idx
         x = self.decoder(x, mode="train", self_key_padding_mask=pad_mask,
                          causal=True, generator=generator)
@@ -494,12 +530,18 @@ class UniGPT(nn.Module):
                 img_features: Optional[torch.Tensor] = None,
                 img_gpt_input_mask: Optional[torch.Tensor] = None,
                 segment_tokens: Optional[torch.Tensor] = None,
-                last_logit_only: bool = False) -> Tuple[torch.Tensor, Dict]:
-        """Prompt pass: (logits [B, T or 1, V], fresh cache)."""
+                last_logit_only: bool = False,
+                aud_features: Optional[torch.Tensor] = None,
+                aud_gpt_input_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+        """Prompt pass: (logits [B, T or 1, V], fresh cache); the image and
+        audio features (`encode_image` / `encode_audio`) are spliced at
+        their masks."""
         T = src_tokens.shape[1]
         x = self._embed(src_tokens, img_features, img_gpt_input_mask,
                         segment_tokens,
-                        self._positions(T, 0, src_tokens.device))
+                        self._positions(T, 0, src_tokens.device),
+                        aud_features, aud_gpt_input_mask)
         x, dec = self.decoder(x, mode="prefill", cache_size=cache_size,
                               causal=not self.cfg.prefix_lm_prefill)
         if last_logit_only:

@@ -5,14 +5,14 @@ so that user code builds any model by name:
 
     cfg, model = registry.build("beit3_base", num_classes=10)
 
-`names()` is the JAX registry's list. `build` constructs every
-architecture the port has: the BEiT / DiT presets, `beit3_*`,
-`layoutlm_base`, `layoutlmv2_base`, `layoutlmv3_*`, `markuplm_base`,
-`trocr_*`, `kosmos2*` and `yoco_base`. A name whose model
-is not ported yet raises NotImplementedError naming its ROADMAP Queue 1
-item. Like the port's other entry points, `build` puts the model on the
-card unless the caller asks for another device (runtime/device.py);
-`device="meta"` builds the module tree without memory.
+`names()` is the JAX registry's list, and `build` constructs every one of
+its architectures: the BEiT / DiT presets, `beit3_*`, `layoutlm_base`,
+`layoutlmv2_base`, `layoutlmv3_*`, `markuplm_base`, `trocr_*`,
+`kosmos2*`, `yoco_base`, `retnet_*`, `xlmt_*`, `diff_transformer_base`,
+`unilm_seq2seq_base`, `wavlm_base` and `e5_base`. Like the port's other
+entry points, `build` puts the model on the card unless the caller asks
+for another device (runtime/device.py); `device="meta"` builds the
+module tree without memory.
 """
 
 from __future__ import annotations
@@ -22,34 +22,22 @@ from typing import Any, Callable, Dict, Tuple
 from unilm_tpu_torch.runtime.device import resolve_device
 
 _ARCHS: Dict[str, Tuple[Callable, Any]] = {}
-_PENDING: Dict[str, str] = {}  # name -> the ROADMAP item that ports it
 
 
 def register(name: str, config_fn: Callable, model_cls) -> None:
-    if name in _ARCHS or name in _PENDING:
+    if name in _ARCHS:
         raise ValueError(f"duplicate arch {name!r}")
     _ARCHS[name] = (config_fn, model_cls)
 
 
-def _pending(item: str, *archs: str) -> None:
-    for name in archs:
-        if name in _ARCHS or name in _PENDING:
-            raise ValueError(f"duplicate arch {name!r}")
-        _PENDING[name] = item
-
-
 def names():
-    return sorted([*_ARCHS, *_PENDING])
+    return sorted(_ARCHS)
 
 
 def build(name: str, device="cuda", **config_overrides):
     """Returns (config, model) for architecture `name`, the model's
     parameters on `device` (not initialised: each model's
     `init_weights(generator)` or a checkpoint fills them)."""
-    if name in _PENDING:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet: ROADMAP Queue 1 "
-            f"{_PENDING[name]}")
     if name not in _ARCHS:
         raise KeyError(f"unknown architecture {name!r}; known: {names()}")
     config_fn, model_cls = _ARCHS[name]
@@ -67,6 +55,14 @@ def _populate():
     from unilm_tpu_torch.models import markuplm as M
     from unilm_tpu_torch.models import trocr as T
     from unilm_tpu_torch.models import yoco as Y
+    from unilm_tpu_torch.models import retnet as RN
+    from unilm_tpu_torch.models import translation as XT
+    from unilm_tpu_torch.models.diff_transformer import (
+        DiffTransformerConfig, DiffTransformerLM)
+    from unilm_tpu_torch.models.retrieval import (EmbeddingModel,
+                                                  TextEncoderConfig)
+    from unilm_tpu_torch.models.unilm_s2s import UniLMConfig, UniLMForSeq2Seq
+    from unilm_tpu_torch.models.wavlm import WavLMConfig, WavLMModel
 
     for n in ("beit_base_patch16_224", "beit_base_patch16_384",
               "beit_large_patch16_224", "beit_large_patch16_384",
@@ -96,10 +92,15 @@ def _populate():
     register("kosmos2_5", K.kosmos2_5, K.UniGPT)
 
     register("yoco_base", Y.YOCOConfig, Y.YOCO)
-
-    _pending("item 10 (the rest, slice 10)", "retnet_base", "retnet_medium",
-             "xlmt_base", "xlmt_big", "diff_transformer_base",
-             "unilm_seq2seq_base", "wavlm_base", "e5_base")
+    register("retnet_base", RN.retnet_base, RN.RetNetDecoder)
+    register("retnet_medium", RN.retnet_medium, RN.RetNetDecoder)
+    register("xlmt_base", XT.xlmt_base, XT.MultilingualTranslationModel)
+    register("xlmt_big", XT.xlmt_big, XT.MultilingualTranslationModel)
+    register("diff_transformer_base", DiffTransformerConfig,
+             DiffTransformerLM)
+    register("unilm_seq2seq_base", UniLMConfig, UniLMForSeq2Seq)
+    register("wavlm_base", WavLMConfig, WavLMModel)
+    register("e5_base", TextEncoderConfig, EmbeddingModel)
 
 
 _populate()

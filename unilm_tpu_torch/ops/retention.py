@@ -22,13 +22,15 @@ import torch.nn.functional as F
 
 
 def recurrent_gate_retention(
-    q: torch.Tensor,  # [B, 1, H, D]
-    k: torch.Tensor,  # [B, 1, H, D]
-    v: torch.Tensor,  # [B, 1, H, D]
+    q: torch.Tensor,  # [B, 1, H, Dk]
+    k: torch.Tensor,  # [B, 1, H, Dk]
+    v: torch.Tensor,  # [B, 1, H, Dv]
     g: torch.Tensor,  # [B, 1, H] log-gate
-    state: torch.Tensor,  # [B, H, D, D] float32
+    state: torch.Tensor,  # [B, H, Dk, Dv] float32
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One decode step. Returns (o [B,1,H,D], new_state)."""
+    """One decode step. Returns (o [B,1,H,Dv], new_state [B,H,Dk,Dv]).
+    The state is rectangular where Dv != Dk (RetNet's Dv = 2 Dk), square
+    for YOCO's gated retention."""
     D = q.shape[-1]
     k = k * (D ** -0.5)
     decay = torch.exp(g.float())[:, 0, :, None, None]  # [B, H, 1, 1]
