@@ -458,12 +458,31 @@ seconds since the script started ("[flash 35s] ..."):
     ids (#3), SpeechT5 asr_forward / tts_forward (#3, #5), a SpeechLM
     pretrain step (#3, #4), kosmos2 with the WavLM audio tower (#3, #5,
     #13); the kernel-free models' float32 output on one example, card
-    against CPU (1e-4 relative). The total time since the start is
-    printed before the JSON lines.
+    against CPU (1e-4 relative).
+15. detection_kernels, rcnn, fcos, segmentation (DiT / LayoutLMv3
+    detection and BEiT segmentation, after registry_speech; DiT-B /
+    BEiT-B at full width, random weights from the seed): #1 and #6 / #7
+    at rcnn's 2x2501x12x64 (non-causal, no mask) and #3 / #4 at fcos's
+    8x1025x12x64 with the [1,12,1025,1025] bias and without, fp32 and
+    bf16, each alone against its plain version and timed beside sdpa and
+    its bound; cascade_dit_base(800 px, 5 classes, mask_on) loaded by
+    convert_rcnn from a synthetic detectron2 state dict, eval at B=2 in
+    float32 and bf16 (exactly 12 #1 a forward; images/s, proposals/s, the
+    NMS sweeps, each part's device time; taps, kept proposals and the
+    matched detections' scores and boxes against the plain path), then
+    cli/train_detection --head rcnn at 800 px (2 steps: 12 #1 + 12 #6 +
+    12 #7 a step; the eval: 12 #1 a batch); the FCOS head through the CLI
+    at 512 px, B=8, with --preset dit (the per-layer bias) and
+    layoutlmv3 (12 #3 + 12 #4 a step, 12 #3 an eval batch); BEiT-B
+    UperNet through cli/train_segmentation at 512 px, 150 classes, B=4
+    (the same counts); each path's eval logits and one train batch's loss
+    and gradients against the plain path, ms/step, img/s, peak memory
+    and a step's device time by kernel group. The total time since the
+    start is printed before the JSON lines.
 Then a JSON line of the two int8 paths', the TrOCR paths', the
 Kosmos-2 paths', the BEiT family's, search's, train_options', Document
-AI's, TrOCR fine-tuning's and the registry slice's measurements
-("paths"), and one
+AI's, TrOCR fine-tuning's, the registry slice's and the detection
+slice's measurements ("paths"), and one
 with each kernel's launches, summed over its main-path phases and listed
 by phase in `launches_by_path` (counters set to 0 just before each: slice,
 decode_int8_bs1 and kosmos_infer for flash_fwd, slice for decode,
@@ -493,7 +512,9 @@ kernels and int8_matmul, ring for flash_fwd (onepass_attention where it
 applies), flash_bwd_dq and flash_bwd_dkv, registry_text for
 doc_attention, doc_attention_bwd, encoder_attention and
 decode_attention, registry_speech for encoder_attention,
-encoder_attention_bwd, onepass_attention and decode_attention),
+encoder_attention_bwd, onepass_attention and decode_attention, rcnn for
+flash_fwd, flash_bwd_dq and flash_bwd_dkv, fcos and segmentation for
+encoder_attention and encoder_attention_bwd),
 error, the TrOCR shapes under "trocr" (encoder_attention,
 decode_attention, int8_matmul), the Kosmos-2 shapes under "kosmos2"
 (encoder_attention, encoder_attention_bwd, onepass_attention,
@@ -503,6 +524,8 @@ under "docai" (doc_attention, doc_attention_bwd) and TrOCR fine-tuning's
 under "trocr_train" (encoder_attention, encoder_attention_bwd,
 onepass_attention, flash_bwd_dq, flash_bwd_dkv), the registry slice's
 under "registry" (encoder_attention, doc_attention, decode_attention),
+the detection slice's under "detection" (flash_fwd, flash_bwd_dq,
+flash_bwd_dkv, encoder_attention, encoder_attention_bwd),
 times (kernel, plain version, and `library_ms`, one torch call computing
 the same function where one exists, else null) and `bound_ms` /
 `bound_by` (the larger of the bytes over 3.35 TB/s and the operations
@@ -10299,6 +10322,760 @@ def phase_registry_speech(fa) -> tuple:
     return launches, {"registry_speech": nums}
 
 
+# ---- the detection / segmentation slice --------------------------------
+# DiT-B / BEiT-B at full width (768 wide, 12 layers, 12 heads; random
+# weights from the seed). rcnn: cascade_dit_base at 800 px (abs positions,
+# no bias: 2501 tokens, past #3's 2048, so #1 and #6 / #7), B=2; fcos: the
+# dit and layoutlmv3 presets at 512 px (1025 tokens: #3 / #4, the dit
+# preset with its per-layer [1, 12, 1025, 1025] bias), B=8; segmentation:
+# BEiT-B UperNet at 512 px, ADE20K's 150 classes, B=4.
+DET_RCNN = (2, 800)
+DET_FCOS = (8, 512)
+DET_SEG = (4, 512, 150)
+DET_DEV = "cuda"  # where the phases run (a rehearsal on the CPU sets "cpu")
+# Teachers, the kernel path against the plain path (use_flash=False) on the
+# same weights and inputs, both float32: the trunk's taps at the fp32
+# kernels' relative L2 1e-4; eval logits, scores and boxes (relative to the
+# image size) at the fp32 eval bound of layoutlmv3_eval (LV3_EVAL_LOGIT_ATOL,
+# 4e-5); discrete outputs (kept proposals, classes, pixel argmax) agreeing
+# at DET_AGREE; one train batch's loss, grad norm and gradient cosines at
+# the layoutlmv3_train bounds (LV3_TEACHER_*). bf16 rcnn eval: the FPN
+# features at relative L2 DET_BF16_FEAT_REL (REG_FEAT_REL_L2).
+DET_FP32_REL = 1e-4
+DET_AGREE = 0.99
+DET_BF16_FEAT_REL = 2e-2
+# a step's device time by kernel group: the first group whose substrings
+# match a kernel's name takes it (cuDNN's implicit-gemm convolutions carry
+# "xmma" / "cutlass" too, so "conv" comes before "cuBLAS")
+DET_GROUPS = [("#1", ["flash_fwd"]), ("#6", ["flash_bwd_dq"]),
+              ("#7", ["flash_bwd_dkv"]), ("#3", [ENCODER_ONLY]),
+              ("#4", [ENC_BWD_ONLY]),
+              ("conv", ["conv", "cudnn", "implicit", "winograd", "dgrad",
+                        "wgrad", "fprop"]),
+              ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                          "splitK"]),
+              ("gather/scatter", ["index", "gather", "scatter"]),
+              ("sort/top-k", ["sort", "radix", "topk"])]
+
+
+def det_args(module, argv: list):
+    """The parsed arguments of a detection / segmentation CLI."""
+    return module.build_parser().parse_args(argv + ["--device", DET_DEV])
+
+
+def phase_detection_kernels(fa, g, dev: str = "cuda") -> dict:
+    """The slice's kernels alone at its shapes against their plain
+    versions, fp32 (relative L2 1e-4) and bf16 (1e-2), gradients by
+    grad_close: #1 and #6 / #7 at rcnn's 2x2501x12x64 (non-causal, no mask:
+    2501 = 19 x 128 + 69, ragged last tiles), #3 / #4 at fcos's
+    8x1025x12x64 with the [1, 12, 1025, 1025] bias (dbias summed over the
+    batch) and without. Each timed as device time beside its plain
+    version, sdpa (with the float bias; its backward for #4 and #6 / #7)
+    and the bound. Returns {kernel name: {"detection": {...}}}."""
+    name, H, D = "detection_kernels", 12, 64
+    rn = functools.partial(randn, g, dev=dev)
+    line = functools.partial(kernel_line, name)
+    k1, k67, k3, k4 = {}, {}, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = "fp32" if dtype == torch.float32 else "bf16"
+        kind = "fp32" if dtype == torch.float32 else "bf16"
+        tol = 1e-4 if dtype == torch.float32 else 1e-2
+        B, S = DET_RCNN[0], (DET_RCNN[1] // 16) ** 2 + 1
+        q = rn(B, S, H, D, dtype=dtype) * D ** -0.5
+        k, v, do = (rn(B, S, H, D, dtype=dtype) for _ in range(3))
+        out, lse = fa.flash_forward(q, k, v)
+        ref, rlse = fa.flash_forward_plain(q, k, v)
+        torch.cuda.synchronize()
+        e, le = rel_l2(out, ref), float((lse - rlse).abs().max())
+        check(bool(torch.isfinite(out.float()).all()) and e <= tol
+              and le <= LSE_ATOL, f"{name}: #1 {tag} rel L2 {e} (bound "
+              f"{tol}), lse max|err| {le}")
+        pairs = B * H * S * S
+        r = k1[f"rcnn_{tag}"] = {
+            "shape": f"{B}x{S}x{S}x{H}x{D} {tag}, non-causal, no mask",
+            "rel_l2": e, "library": "sdpa",
+            "max_abs_err": float((out.float() - ref.float()).abs().max()),
+            **kernel_timed(lambda: fa.flash_forward(q, k, v),
+                           lambda: fa.flash_forward_plain(q, k, v),
+                           lambda: sdpa(q, k, v, scale=1.0), "flash_fwd",
+                           nbytes(q, k, v, out, lse), 4 * pairs * D, kind)}
+        line(f"#1 rcnn {tag}", r, tol)
+        got = fa.flash_backward(q, k, v, None, None, 0, None, out, lse, do)
+        want = fa.flash_backward_plain(q, k, v, None, None, 0, None, out,
+                                       lse, do)
+        torch.cuda.synchronize()
+        worst_rel = worst_abs = 0.0
+        for gname, x, rr in zip(("dq", "dk", "dv"), got, want):
+            ok, ea, er = grad_close(x, rr, tol)
+            check(bool(torch.isfinite(x.float()).all()) and ok,
+                  f"{name}: #6/#7 {tag} {gname} max|err| {ea} rel L2 {er}")
+            worst_rel, worst_abs = max(worst_rel, er), max(worst_abs, ea)
+        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        o = sdpa(qg, kg, vg, scale=1.0)
+        lib = lambda: torch.autograd.grad(o, (qg, kg, vg), do.transpose(1, 2),
+                                          retain_graph=True)
+        bwd = lambda: fa.flash_backward(q, k, v, None, None, 0, None, out,
+                                        lse, do)
+        lib_ms = device_ms(lib)
+        plain_ms = device_ms(lambda: fa.flash_backward_plain(
+            q, k, v, None, None, 0, None, out, lse, do), iters=3)
+        # phase_flash_bwd's counts: dq 3 products a pair, dk/dv 4
+        for kname, moved, ops in (
+                ("flash_bwd_dq", nbytes(q, k, v, do, lse, got[0]),
+                 6 * pairs * D),
+                ("flash_bwd_dkv", nbytes(q, k, v, do, lse, got[1], got[2]),
+                 8 * pairs * D)):
+            r = k67.setdefault(kname, {})[f"rcnn_{tag}"] = {
+                "shape": f"{B}x{S}x{S}x{H}x{D} {tag}, non-causal, on #1's "
+                "out/lse", "rel_l2": worst_rel, "max_abs_err": worst_abs,
+                "library": f"sdpa backward ({type(o.grad_fn).__name__}), "
+                "the whole dq/dk/dv", "library_ms": lib_ms,
+                "plain_ms": plain_ms, "ms": device_ms(bwd, only=kname),
+                **roofline(moved, ops, kind)}
+            line(f"#{6 if kname.endswith('dq') else 7} rcnn {tag}", r, tol)
+        del q, k, v, do, out, lse, ref, rlse, got, want, o, qg, kg, vg
+
+        B, S = DET_FCOS[0], (DET_FCOS[1] // 16) ** 2 + 1
+        for key, bias in (("fcos_bias", rn(1, H, S, S, dtype=dtype)),
+                          ("layoutlmv3", None)):
+            q, k, v, do = (rn(B, S, H, D, dtype=dtype) for _ in range(4))
+            out = fa.fused_encoder_attention(q, k, v, bias=bias)
+            ref = fa.fused_encoder_attention_plain(q, k, v, bias)
+            torch.cuda.synchronize()
+            e = rel_l2(out, ref)
+            check(bool(torch.isfinite(out.float()).all()) and e <= tol,
+                  f"{name}: #3 {key} {tag} rel L2 {e} (bound {tol})")
+            desc = (f"{B}x{S}x{S}x{H}x{D} {tag}, "
+                    + ("bias [1,12,1025,1025]" if bias is not None
+                       else "no bias"))
+            pairs = B * H * S * S
+            r = k3[f"{key}_{tag}"] = {
+                "shape": desc, "rel_l2": e, "library": "sdpa"
+                + (" (float bias)" if bias is not None else ""),
+                "max_abs_err": float((out.float() - ref.float()).abs().max()),
+                **kernel_timed(
+                    lambda: fa.fused_encoder_attention(q, k, v, bias=bias),
+                    lambda: fa.fused_encoder_attention_plain(q, k, v, bias),
+                    lambda: sdpa(q, k, v, attn_mask=bias), ENCODER_ONLY,
+                    nbytes(q, k, v, out, bias), 4 * pairs * D, kind)}
+            line(f"#3 {key} {tag}", r, tol)
+            got = fa.fused_encoder_backward(q, k, v, bias, do)
+            want = fa.fused_encoder_backward_plain(q, k, v, bias, do)
+            torch.cuda.synchronize()
+            worst_rel = worst_abs = 0.0
+            for gname, x, rr in zip(("dq", "dk", "dv", "dbias"), got, want):
+                if rr is None:
+                    continue
+                ok, ea, er = grad_close(x, rr, tol)
+                check(bool(torch.isfinite(x.float()).all()) and ok,
+                      f"{name}: #4 {key} {tag} {gname} max|err| {ea} rel L2 "
+                      f"{er}")
+                worst_rel, worst_abs = max(worst_rel, er), max(worst_abs, ea)
+            ins = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+            bg = None if bias is None else bias.detach().clone(
+                ).requires_grad_()
+            o = sdpa(*ins, attn_mask=bg)
+            ins = ins + ([bg] if bg is not None else [])
+            r = k4[f"{key}_{tag}"] = {
+                "shape": desc + ", dq/dk/dv" + ("/dbias" if bias is not None
+                                                else ""),
+                "rel_l2": worst_rel, "max_abs_err": worst_abs,
+                "library": f"sdpa backward ({type(o.grad_fn).__name__})",
+                **kernel_timed(
+                    lambda: fa.fused_encoder_backward(q, k, v, bias, do),
+                    lambda: fa.fused_encoder_backward_plain(q, k, v, bias,
+                                                            do),
+                    lambda: torch.autograd.grad(o, ins, do.transpose(1, 2),
+                                                retain_graph=True),
+                    ENC_BWD_ONLY, nbytes(q, k, v, do, bias, *got),
+                    10 * pairs * D, kind)}
+            line(f"#4 {key} {tag}", r, tol)
+            del q, k, v, do, out, ref, got, want, o, ins, bg
+        torch.cuda.empty_cache()
+    return {"flash_fwd": {"detection": k1},
+            "flash_bwd_dq": {"detection": k67["flash_bwd_dq"]},
+            "flash_bwd_dkv": {"detection": k67["flash_bwd_dkv"]},
+            "encoder_attention": {"detection": k3},
+            "encoder_attention_bwd": {"detection": k4}}
+
+
+def det_plain(model, cls, cfg_of):
+    """The same weights (shared, assign=True) on the plain path: the
+    model's config with the trunk's use_flash=False."""
+    cfg = cfg_of(model.cfg)
+    plain = cls(cfg, device=DET_DEV).eval()
+    plain.load_state_dict(model.state_dict(), strict=True, assign=True)
+    return plain
+
+
+def det_grads(model, loss_fn) -> tuple:
+    """(loss, [grad] over the trainable parameters, names) of loss_fn(model)
+    by torch.autograd.grad (parameters a plain twin shares keep no .grad);
+    a parameter the loss does not reach has a zero gradient."""
+    names, params = zip(*[(n, p) for n, p in model.named_parameters()
+                          if p.requires_grad])
+    loss = loss_fn(model)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if gr is None else gr
+             for p, gr in zip(params, grads)]
+    return float(loss.detach()), grads, list(names)
+
+
+def det_train_teacher(label: str, model, plain, loss_fn) -> dict:
+    """One batch's loss and gradients, kernel path against plain path, at
+    the layoutlmv3_train bounds (key biases by the norm only; parameters
+    the loss does not reach on either path, as rcnn's mask head without
+    gt masks, are left out of the cosines and counted)."""
+    lk, gk, names = det_grads(model, loss_fn)
+    lp, gp, _ = det_grads(plain, loss_fn)
+    reached = [i for i, (a, b) in enumerate(zip(gk, gp))
+               if bool(a.any()) or bool(b.any())]
+    r = grads_teacher(label, (lk, [gk[i] for i in reached]),
+                      (lp, [gp[i] for i in reached]),
+                      [names[i] for i in reached],
+                      (LV3_TEACHER_LOSS_REL, LV3_TEACHER_NORM_REL,
+                       LV3_TEACHER_COS), skip=("k_proj.bias",))
+    r["unreached"] = len(names) - len(reached)
+    return r
+
+
+def det_profile(fn, label: str) -> str:
+    """fn() once under the profiler: its device time by DET_GROUPS beside
+    its host time (one synchronised call)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host = (time.time() - t0) * 1e3
+    parts = device_time_shares(prof, DET_GROUPS)
+    return f"{label}: " + groups_line(parts, host), parts, host
+
+
+def det_match(a: dict, b: dict, img: int) -> dict:
+    """Greedy match of two sets of detections of one image (boxes, scores,
+    classes over the valid slots): a pair has the same class and IoU >=
+    0.99. Returns the matched fraction of each side and the matched pairs'
+    max |dscore| and max |dbox| / img."""
+    from unilm_tpu_torch.models.rcnn import box_iou
+
+    iou = box_iou(a["boxes"], b["boxes"])
+    iou = torch.where(a["classes"][:, None] == b["classes"][None, :], iou,
+                      0.0)
+    pairs, used = [], set()
+    for i in torch.argsort(-a["scores"]).tolist():
+        row = iou[i].clone()
+        if used:
+            row[list(used)] = 0.0
+        j = int(row.argmax()) if row.numel() else -1
+        if j >= 0 and float(row[j]) >= 0.99:
+            pairs.append((i, j))
+            used.add(j)
+    n = len(pairs)
+    ia = torch.tensor([p[0] for p in pairs], dtype=torch.long)
+    ib = torch.tensor([p[1] for p in pairs], dtype=torch.long)
+    ds = float((a["scores"][ia] - b["scores"][ib]).abs().max()) if n else 0.0
+    db = (float((a["boxes"][ia] - b["boxes"][ib]).abs().max()) / img
+          if n else 0.0)
+    return {"matched_a": n / max(len(a["scores"]), 1),
+            "matched_b": n / max(len(b["scores"]), 1),
+            "max_dscore": ds, "max_dbox_rel": db, "pairs": n}
+
+
+def det_valid(out: dict, i: int) -> dict:
+    m = out["valid"][i]
+    return {k: out[k][i][m].float().cpu() if k != "classes"
+            else out[k][i][m].cpu() for k in ("boxes", "scores", "classes")}
+
+
+def synthetic_d2_state_dict(cfg, seed: int, dev: str = "cuda") -> dict:
+    """A detectron2-layout Cascade/Mask R-CNN state dict of cfg's shapes
+    (the layout convert/detection.py reads; tests/test_rcnn.py's
+    build_synthetic_sd, drawn on the card): N(0, 0.02^2) weights, norm
+    and BN scales 1 + N(0, 0.02^2), BN running variances 1 + U(0, 0.5)."""
+    E, C, F = cfg.beit.embed_dim, cfg.fpn_channels, cfg.beit.ffn_dim
+    A, ncls, fc = cfg.num_anchors, cfg.num_classes, cfg.fc_dim
+    ps, r = cfg.beit.patch_size, cfg.pooler_resolution
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def t(*shape):
+        return torch.randn(*shape, generator=g, device=dev) * 0.02
+
+    sd, V = {}, "backbone.bottom_up.backbone"
+    sd[f"{V}.cls_token"] = t(1, 1, E)
+    sd[f"{V}.pos_embed"] = t(1, cfg.beit.num_patches + 1, E)
+    sd[f"{V}.patch_embed.proj.weight"] = t(E, 3, ps, ps)
+    sd[f"{V}.patch_embed.proj.bias"] = t(E)
+    for i in range(cfg.beit.num_layers):
+        p = f"{V}.blocks.{i}"
+        for n in ("norm1", "norm2"):
+            sd[f"{p}.{n}.weight"] = 1.0 + t(E)
+            sd[f"{p}.{n}.bias"] = t(E)
+        sd[f"{p}.attn.qkv.weight"] = t(3 * E, E)
+        sd[f"{p}.attn.q_bias"], sd[f"{p}.attn.v_bias"] = t(E), t(E)
+        sd[f"{p}.attn.proj.weight"], sd[f"{p}.attn.proj.bias"] = t(E, E), t(E)
+        sd[f"{p}.mlp.fc1.weight"], sd[f"{p}.mlp.fc1.bias"] = t(F, E), t(F)
+        sd[f"{p}.mlp.fc2.weight"], sd[f"{p}.mlp.fc2.bias"] = t(E, F), t(E)
+        sd[f"{p}.gamma_1"], sd[f"{p}.gamma_2"] = t(E), t(E)
+    for n in ("fpn1.0", "fpn1.3", "fpn2.0"):
+        sd[f"{V}.{n}.weight"], sd[f"{V}.{n}.bias"] = t(E, E, 2, 2), t(E)
+    sd[f"{V}.fpn1.1.weight"], sd[f"{V}.fpn1.1.bias"] = 1.0 + t(E), t(E)
+    sd[f"{V}.fpn1.1.running_mean"] = t(E)
+    sd[f"{V}.fpn1.1.running_var"] = 1.0 + 0.5 * torch.rand(
+        E, generator=g, device=dev)
+    for lvl in range(2, 6):
+        sd[f"backbone.fpn_lateral{lvl}.weight"] = t(C, E, 1, 1)
+        sd[f"backbone.fpn_lateral{lvl}.bias"] = t(C)
+        sd[f"backbone.fpn_output{lvl}.weight"] = t(C, C, 3, 3)
+        sd[f"backbone.fpn_output{lvl}.bias"] = t(C)
+    R = "proposal_generator.rpn_head"
+    for n, o, k in (("conv", C, 3), ("objectness_logits", A, 1),
+                    ("anchor_deltas", 4 * A, 1)):
+        sd[f"{R}.{n}.weight"], sd[f"{R}.{n}.bias"] = t(o, C, k, k), t(o)
+    for k in range(len(cfg.cascade_ious)):
+        h, p = f"roi_heads.box_head.{k}", f"roi_heads.box_predictor.{k}"
+        sd[f"{h}.fc1.weight"], sd[f"{h}.fc1.bias"] = t(fc, C * r * r), t(fc)
+        sd[f"{h}.fc2.weight"], sd[f"{h}.fc2.bias"] = t(fc, fc), t(fc)
+        sd[f"{p}.cls_score.weight"] = t(ncls + 1, fc)
+        sd[f"{p}.cls_score.bias"] = t(ncls + 1)
+        sd[f"{p}.bbox_pred.weight"], sd[f"{p}.bbox_pred.bias"] = t(4, fc), t(4)
+    M = "roi_heads.mask_head"
+    for i in range(1, 5):
+        sd[f"{M}.mask_fcn{i}.weight"] = t(C, C, 3, 3)
+        sd[f"{M}.mask_fcn{i}.bias"] = t(C)
+    sd[f"{M}.deconv.weight"], sd[f"{M}.deconv.bias"] = t(C, C, 2, 2), t(C)
+    sd[f"{M}.predictor.weight"] = t(ncls, C, 1, 1)
+    sd[f"{M}.predictor.bias"] = t(ncls)
+    return sd
+
+
+def rcnn_stage_times(model, x) -> tuple:
+    """Each part of one eval forward, composed part by part as
+    CascadeRCNN.forward composes them and timed alone: ({part: device
+    time}, {part: CUDA events}) in ms. The parts: the trunk
+    (DetectionViT), the FPN, RPN + NMS (propose), the three stages'
+    RoIAlign and box heads, the post-processing NMS, the mask RoIAlign and
+    the mask head. device_ms sums the kernels a trace kept (CUPTI can lose
+    every record of a kernel name, so a part may read low); the CUDA
+    events span the part's kernels and the idle gaps between them (an
+    upper bound)."""
+    from unilm_tpu_torch.models.rcnn import apply_deltas, clip_boxes
+
+    cfg = model.cfg
+    out, events = {}, {}
+
+    def part(key, fn):
+        out[key] = out.get(key, 0.0) + device_ms(fn, iters=3)
+        events[key] = events.get(key, 0.0) + cuda_ms(fn, iters=3, warmup=1)
+        return fn()
+
+    with torch.no_grad():
+        c = part("trunk", lambda: model.vit(x))
+        feats = part("fpn", lambda: model.fpn(c))
+        boxes, sc = part("rpn+nms", lambda: model.propose(feats))
+        B, P = boxes.shape[:2]
+        probs = []
+        for k in range(len(cfg.cascade_ious)):
+            pooled = part("roialign", lambda: model.pool(
+                feats, boxes, cfg.pooler_resolution))
+            flat = pooled.reshape(B * P, *pooled.shape[2:])
+            cls, dlt = part("box heads", lambda: getattr(
+                model, f"box_predictor_{k}")(getattr(
+                    model, f"box_head_{k}")(flat)))
+            probs.append(torch.softmax(cls.reshape(B, P, -1), -1))
+            boxes = clip_boxes(apply_deltas(
+                dlt.reshape(B, P, 4), boxes, cfg.cascade_weights[k]),
+                (cfg.img_size, cfg.img_size))
+        scores = torch.where(torch.isfinite(sc)[..., None],
+                             (sum(probs) / len(probs))[..., :-1], 0.0)
+        db, _, dc, _ = part("postprocess nms",
+                            lambda: model.postprocess(boxes, scores))
+        pooled = part("mask roialign", lambda: model.pool(
+            feats, db, cfg.mask_pooler_resolution))
+        part("mask head", lambda: model.mask_head(
+            pooled.reshape(B * dc.shape[1], *pooled.shape[2:])))
+    return out, events
+
+
+def phase_rcnn() -> tuple:
+    """Cascade/Mask R-CNN at cascade_dit_base(img_size=800, num_classes=5)
+    with mask_on: the port's convert_rcnn on a synthetic detectron2 state
+    dict of full width (a strict load); eval at B=2 in float32 (exactly 12
+    #1 a forward and nothing else; images/s, proposals/s, the NMS sweeps,
+    each part's device time) against the plain path (taps, kept proposals,
+    matched detections' scores and boxes, masks); the same in bf16 (the
+    trunk bf16, #1's wgmma body; the FPN features against the plain path);
+    then cli/train_detection.main --head rcnn --synthetic --img-size 800
+    --batch-size 2 --steps 2 --eval (exactly 12 #1 + 12 #6 + 12 #7 a step,
+    12 #1 an eval batch); one train batch's loss and gradients against the
+    plain path; ms/step and a step's device time by group."""
+    from unilm_tpu_torch.cli import train_detection as cli
+    from unilm_tpu_torch.convert.detection import convert_rcnn
+    from unilm_tpu_torch.data.detection import (pad_batch,
+                                                synthetic_detection_dataset)
+    from unilm_tpu_torch.models import rcnn
+
+    name = "rcnn"
+    B, img = DET_RCNN
+    cfg = rcnn.cascade_dit_base(img_size=img, num_classes=5)
+    t0 = time.time()
+    sd = synthetic_d2_state_dict(cfg, SEED, DET_DEV)
+    model = rcnn.CascadeRCNN(cfg, device=DET_DEV).eval()
+    model.load_state_dict(convert_rcnn(sd, cfg), strict=True)
+    del sd
+    n_params = sum(p.numel() for p in model.parameters())
+    phase(name, f"cascade_dit_base({img} px, 5 classes, mask_on): "
+          f"{n_params / 1e6:.1f} M params from a synthetic detectron2 state "
+          f"dict through convert_rcnn (strict load) in {time.time() - t0:.1f} s")
+    data = synthetic_detection_dataset(B, img_size=img, num_classes=5,
+                                       seed=SEED)
+    x = torch.from_numpy(pad_batch(data)["images"]).to(DET_DEV)
+    as_plain = lambda c: dataclasses.replace(
+        c, beit=dataclasses.replace(c.beit, use_flash=False))
+    plain = det_plain(model, rcnn.CascadeRCNN, as_plain)
+    def as_bf16(flash):
+        return lambda c: dataclasses.replace(c, beit=dataclasses.replace(
+            c.beit, dtype=torch.bfloat16, use_flash=flash))
+
+    nums = {}
+    for tag, m, pm in (
+            ("fp32", model, plain),
+            ("bf16", det_plain(model, rcnn.CascadeRCNN, as_bf16(True)),
+             det_plain(model, rcnn.CascadeRCNN, as_bf16(False)))):
+        with torch.no_grad():
+            m(x)  # warm
+            torch.cuda.synchronize()
+            reset_counts()
+            rcnn.reset_nms_stats()
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.time()
+            out = m(x)
+            torch.cuda.synchronize()
+            host = (time.time() - t1) * 1e3
+            got = counts()
+            sweeps = dict(rcnn.NMS_STATS)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            launches_only(got, {"flash_fwd": 12}, f"{tag} eval forward")
+            ref = pm(x)
+            P = out["proposals"].shape[1]
+            live = torch.isfinite(out["proposal_scores"])
+            # kept proposals: a kernel-path proposal agrees where the plain
+            # path kept a box within IoU 0.999 of it
+            agree = []
+            for i in range(B):
+                a = out["proposals"][i][live[i]]
+                bref = ref["proposals"][i][torch.isfinite(
+                    ref["proposal_scores"][i])]
+                iou = rcnn.box_iou(a, bref)
+                agree.append(float((iou.max(1).values >= 0.999).float().mean()))
+            kept = min(agree)
+            r = {"ms_eval_host": host, "img_per_s": B / host * 1e3,
+                 "proposals_per_s": B * P / host * 1e3,
+                 "nms_calls": sweeps["calls"], "nms_sweeps": sweeps["sweeps"],
+                 "nms_max_sweeps": sweeps["max_sweeps"], "peak_gib": peak,
+                 "kept_proposals_agree": kept}
+            if tag == "fp32":
+                taps = [rel_l2(a, b) for a, b in zip(m.vit.taps(x),
+                                                     pm.vit.taps(x))]
+                check(max(taps) <= DET_FP32_REL,
+                      f"{name}: fp32 taps rel L2 {taps} (bound {DET_FP32_REL})")
+                match = [det_match(det_valid(out, i), det_valid(ref, i), img)
+                         for i in range(B)]
+                ma = min(min(mm["matched_a"], mm["matched_b"]) for mm in match)
+                ds = max(mm["max_dscore"] for mm in match)
+                db = max(mm["max_dbox_rel"] for mm in match)
+                cls_agree = float((out["classes"] == ref["classes"]).float().mean())
+                mask_err = float((out["masks"] - ref["masks"]).abs().max())
+                check(kept >= DET_AGREE and ma >= DET_AGREE
+                      and ds <= LV3_EVAL_LOGIT_ATOL
+                      and db <= LV3_EVAL_LOGIT_ATOL,
+                      f"{name}: fp32 teacher: kept proposals {kept}, matched "
+                      f"detections {ma} (bound {DET_AGREE}), max |dscore| "
+                      f"{ds}, max |dbox| / img {db} (bound "
+                      f"{LV3_EVAL_LOGIT_ATOL})")
+                r.update(taps_rel_l2=max(taps), matched=ma, max_dscore=ds,
+                         max_dbox_rel=db, classes_agree_by_slot=cls_agree,
+                         masks_max_err=mask_err,
+                         detections=int(out["valid"].sum()))
+                msg = (f"taps rel L2 {max(taps):.3g} (bound {DET_FP32_REL}); "
+                       f"matched detections {ma:.4f} of "
+                       f"{int(out['valid'].sum())}, max |dscore| {ds:.3g}, "
+                       f"max |dbox| / {img} px {db:.3g} (bound "
+                       f"{LV3_EVAL_LOGIT_ATOL}); classes slot by slot "
+                       f"{cls_agree:.4f}; masks max|err| {mask_err:.3g}")
+            else:
+                fk, fp = m.features(x), pm.features(x)
+                e = max(rel_l2(fk[k], fp[k]) for k in fk)
+                check(e <= DET_BF16_FEAT_REL,
+                      f"{name}: bf16 FPN features rel L2 {e} (bound "
+                      f"{DET_BF16_FEAT_REL})")
+                r["features_rel_l2"] = e
+                msg = (f"FPN features rel L2 {e:.3g} (bound "
+                       f"{DET_BF16_FEAT_REL})")
+            plain_host = host_ms(lambda: pm(x), 2)
+            r["ms_eval_plain_host"] = plain_host
+        nums[tag] = r
+        phase(name, f"eval {tag} B={B}: {host:.1f} ms (host clock; plain "
+              f"path {plain_host:.1f}), {r['img_per_s']:.2f} img/s, "
+              f"{r['proposals_per_s']:.0f} proposals/s ({P} a image); "
+              f"launches {got}; NMS {sweeps['calls']} calls, "
+              f"{sweeps['sweeps']} sweeps (most in one call "
+              f"{sweeps['max_sweeps']}); kept proposals agree {kept:.4f}; "
+              f"{msg}; peak {peak:.2f} GiB")
+        del out, ref
+    parts, events = rcnn_stage_times(model, x)
+    nums["fp32"].update(part_device_ms=parts, part_event_ms=events)
+    phase(name, "eval fp32 by part, device time / CUDA events (ms): "
+          + ", ".join(f"{k} {v:.2f} / {events[k]:.2f}"
+                      for k, v in parts.items()))
+    del plain, x
+    torch.cuda.empty_cache()
+
+    argv = ["--head", "rcnn", "--synthetic", "--img-size", str(img),
+            "--batch-size", str(B), "--steps", "2", "--eval"]
+    reset_counts()
+    rcnn.reset_nms_stats()
+    t1 = time.time()
+    _, res = cli.main(argv + ["--device", DET_DEV])
+    wall = time.time() - t1
+    got = counts()
+    n_eval = -(-max(8, 64 // 4) // B)
+    launches_only(got, {"flash_fwd": 12 * (2 + n_eval), "flash_bwd_dq": 24,
+                        "flash_bwd_dkv": 24}, "train_detection --head rcnn")
+    check(all(np.isfinite(v) for v in res.values()),
+          f"{name}: eval metrics {res}")
+    nums["cli"] = {"s": wall, "nms": dict(rcnn.NMS_STATS), **res}
+    phase(name, f"cli.train_detection.main({' '.join(argv)}): {wall:.1f} s, "
+          f"launches {got} (12 #1 + 12 #6 + 12 #7 a step, 12 #1 for each of "
+          f"{n_eval} eval batches); NMS {rcnn.NMS_STATS}; mAP "
+          f"{res['mAP']:.4f}")
+    launches = got
+
+    tr = cli.build_trainer(det_args(cli, argv))
+    batch = next(iter(cli.batches(tr.train_data, B, max_boxes=64)))
+    batch = {**cli.to_device(batch, tr.device), "step": 0}
+    plain = det_plain(tr.model, rcnn.CascadeRCNN, as_plain)
+    lf = cli.make_loss_fn(det_args(cli, argv), tr.cfg, tr.device)
+    loss_fn = lambda m: lf(m, batch)[0]
+    teach = det_train_teacher("train fp32", tr.model, plain, loss_fn)
+    del plain
+    torch.cuda.empty_cache()
+    nums["train_teacher"] = teach
+    state = tr.state
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        state, mt = tr.step(state, {**batch, "step": i})
+        torch.cuda.synchronize()
+        times.append((time.time() - t1) * 1e3)
+        check(np.isfinite(float(mt["loss"])), f"{name}: step {i} {mt}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    line, parts, host = det_profile(lambda: tr.step(state, {**batch, "step": 3}),
+                                    "a profiled step")
+    nums["train"] = {"ms_per_step_host": float(np.mean(times[1:])),
+                     "peak_gib": peak, "device_ms_by_group": parts}
+    phase(name, f"train fp32 B={B}: {np.mean(times[1:]):.1f} ms/step (host "
+          f"clock, steps 2-3; step 1 {times[0]:.1f}), peak {peak:.2f} GiB; "
+          f"teacher loss rel {teach['loss_rel']:.3g}, grad norm rel "
+          f"{teach['norm_rel']:.3g}, min cosine {teach['min_cos']:.6f} "
+          f"({teach['worst']}); {line}")
+    del tr, state
+    torch.cuda.empty_cache()
+    return launches, {"rcnn": nums}
+
+
+def phase_fcos() -> tuple:
+    """cli/train_detection.main --head fcos --synthetic --img-size 512
+    --batch-size 8 --steps 3 --eval, with --preset dit (per-layer rel-pos
+    bias: exactly 12 #3 + 12 #4 a step, 12 #3 an eval batch) and
+    --preset layoutlmv3 (no bias: the same counts); for each preset one
+    batch's eval logits against the plain path (LV3_EVAL_LOGIT_ATOL), the
+    decoded detections matched (DET_AGREE), one train batch's loss and
+    gradients against the plain path, ms/step, img/s, peak memory and a
+    step's device time by group."""
+    from unilm_tpu_torch.cli import train_detection as cli
+    from unilm_tpu_torch.models import detection_head as dh
+
+    name = "fcos"
+    B, img = DET_FCOS
+    launches, nums = {}, {}
+    for preset in ("dit", "layoutlmv3"):
+        argv = ["--head", "fcos", "--preset", preset, "--synthetic",
+                "--img-size", str(img), "--batch-size", str(B), "--steps",
+                "3", "--eval"]
+        reset_counts()
+        t1 = time.time()
+        _, res = cli.main(argv + ["--device", DET_DEV])
+        wall = time.time() - t1
+        got = counts()
+        n_eval = -(-max(8, 64 // 4) // B)
+        launches_only(got, {"encoder_attention": 12 * (3 + n_eval),
+                            "encoder_attention_bwd": 36},
+                      f"train_detection --preset {preset}")
+        check(all(np.isfinite(v) for v in res.values()),
+              f"{name}: eval metrics {res}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        phase(name, f"cli.train_detection.main({' '.join(argv)}): "
+              f"{wall:.1f} s, launches {got}; mAP {res['mAP']:.4f}")
+
+        tr = cli.build_trainer(det_args(cli, argv))
+        batch = next(iter(cli.batches(tr.train_data, B, max_boxes=64)))
+        batch = cli.to_device(batch, tr.device)
+        as_plain = lambda c: dataclasses.replace(c, backbone=dataclasses.replace(
+            c.backbone, beit=dataclasses.replace(c.backbone.beit,
+                                                 use_flash=False)))
+        plain = det_plain(tr.model, dh.FCOSDetector, as_plain)
+        tr.model.eval()
+        with torch.no_grad():
+            ok_, op_ = tr.model(batch["images"]), plain(batch["images"])
+            err = max(float((ok_[k] - op_[k]).abs().max())
+                      for k in ("logits", "ctr"))
+            rreg = rel_l2(ok_["reg"], op_["reg"])
+            dk = dh.decode_detections(ok_, img_size=float(img))
+            dp = dh.decode_detections(op_, img_size=float(img))
+        keys = ("boxes", "scores", "classes", "valid")
+        dk, dp = dict(zip(keys, dk)), dict(zip(keys, dp))
+        match = [det_match(det_valid(dk, i), det_valid(dp, i), img)
+                 for i in range(B)]
+        ma = min(min(mm["matched_a"], mm["matched_b"]) for mm in match)
+        check(err <= LV3_EVAL_LOGIT_ATOL and rreg <= DET_FP32_REL
+              and ma >= DET_AGREE,
+              f"{name} {preset}: logits / centerness max|err| {err} (bound "
+              f"{LV3_EVAL_LOGIT_ATOL}), reg rel L2 {rreg}, matched "
+              f"detections {ma} (bound {DET_AGREE})")
+        tr.model.train()
+        teach = det_train_teacher(f"{preset} train", tr.model, plain,
+                                  lambda m: cli.fcos_loss(
+                                      m(batch["images"]), batch["boxes"],
+                                      batch["labels"], batch["valid"],
+                                      tr.cfg)[0])
+        del plain, ok_, op_
+        host_eval = host_ms(lambda: cli.infer(tr.model, batch["images"],
+                                              "fcos", img), 3)
+        state = tr.state
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(3):
+            torch.cuda.synchronize()
+            t1 = time.time()
+            state, mt = tr.step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.time() - t1) * 1e3)
+            check(np.isfinite(float(mt["loss"])), f"{name}: step {i} {mt}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        line, parts, _ = det_profile(lambda: tr.step(state, batch),
+                                     "a profiled step")
+        ms = float(np.mean(times[1:]))
+        nums[f"fcos_{preset}"] = {
+            "ms_per_step_host": ms, "img_per_s_train": B / ms * 1e3,
+            "ms_eval_host": host_eval, "img_per_s_eval": B / host_eval * 1e3,
+            "peak_gib": peak, "logits_max_err": err, "reg_rel_l2": rreg,
+            "matched": ma, "teacher": teach, "device_ms_by_group": parts,
+            "mAP_synthetic": res["mAP"]}
+        phase(name, f"{preset} B={B}: eval {host_eval:.1f} ms/batch "
+              f"({B / host_eval * 1e3:.1f} img/s); logits max|err| {err:.3g}"
+              f" (bound {LV3_EVAL_LOGIT_ATOL}), reg rel L2 {rreg:.3g}, "
+              f"matched detections {ma:.4f}; train {ms:.1f} ms/step "
+              f"({B / ms * 1e3:.1f} img/s; step 1 {times[0]:.1f}), peak "
+              f"{peak:.2f} GiB; teacher loss rel {teach['loss_rel']:.3g}, "
+              f"grad norm rel {teach['norm_rel']:.3g}, min cosine "
+              f"{teach['min_cos']:.6f} ({teach['worst']}); {line}")
+        del tr, state, batch
+        torch.cuda.empty_cache()
+    return launches, nums
+
+
+def phase_segmentation() -> tuple:
+    """cli/train_segmentation.main --synthetic --img-size 512 --num-classes
+    150 --batch-size 4 --steps 3 --eval (BEiT-B UperNet, per-layer bias:
+    exactly 12 #3 + 12 #4 a step, 12 #3 an eval batch); one batch's logits
+    against the plain path (LV3_EVAL_LOGIT_ATOL) and its pixel argmax
+    (DET_AGREE), one train batch's loss and gradients against the plain
+    path; ms/step, img/s, peak memory, a step's device time by group."""
+    from unilm_tpu_torch.cli import train_segmentation as cli
+    from unilm_tpu_torch.models import segmentation as seg
+
+    name = "segmentation"
+    B, img, ncls = DET_SEG
+    argv = ["--synthetic", "--img-size", str(img), "--num-classes",
+            str(ncls), "--batch-size", str(B), "--steps", "3", "--eval"]
+    reset_counts()
+    t1 = time.time()
+    _, res = cli.main(argv + ["--device", DET_DEV])
+    wall = time.time() - t1
+    got = counts()
+    n_eval = -(-max(8, 32 // 4) // B)
+    launches_only(got, {"encoder_attention": 12 * (3 + n_eval),
+                        "encoder_attention_bwd": 36}, "train_segmentation")
+    check(all(np.isfinite(v) for v in res.values()),
+          f"{name}: eval metrics {res}")
+    phase(name, f"cli.train_segmentation.main({' '.join(argv)}): {wall:.1f}"
+          f" s, launches {got}; mIoU {res['mIoU']:.4f}")
+
+    tr = cli.build_trainer(det_args(cli, argv))
+    imgs, labs = tr.train
+    batch = {"images": torch.from_numpy(np.stack(imgs[:B])).to(DET_DEV),
+             "labels": torch.from_numpy(np.stack(labs[:B])).to(DET_DEV)}
+    as_plain = lambda c: dataclasses.replace(
+        c, beit=dataclasses.replace(c.beit, use_flash=False))
+    plain = det_plain(tr.model, seg.BeitForSemanticSegmentation, as_plain)
+    tr.model.eval()
+    with torch.no_grad():
+        lk, lp = tr.model(batch["images"]), plain(batch["images"])
+        err = float((lk - lp).abs().max())
+        agree = float((lk.argmax(-1) == lp.argmax(-1)).float().mean())
+    check(err <= LV3_EVAL_LOGIT_ATOL and agree >= DET_AGREE,
+          f"{name}: logits max|err| {err} (bound {LV3_EVAL_LOGIT_ATOL}), "
+          f"pixel argmax agreement {agree} (bound {DET_AGREE})")
+    del lk, lp
+    tr.model.train()
+
+    def loss_fn(m):
+        logits, aux = m(batch["images"], return_aux=True)
+        return seg.segmentation_loss(logits, batch["labels"], aux)[0]
+
+    teach = det_train_teacher("train", tr.model, plain, loss_fn)
+    del plain
+    host_eval = host_ms(lambda: cli.predict(tr.model, imgs[:B], B,
+                                            tr.device), 3)
+    state = tr.state
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        state, mt = tr.step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.time() - t1) * 1e3)
+        check(np.isfinite(float(mt["loss"])), f"{name}: step {i} {mt}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    line, parts, _ = det_profile(lambda: tr.step(state, batch),
+                                 "a profiled step")
+    ms = float(np.mean(times[1:]))
+    nums = {"ms_per_step_host": ms, "img_per_s_train": B / ms * 1e3,
+            "ms_eval_host": host_eval, "img_per_s_eval": B / host_eval * 1e3,
+            "peak_gib": peak, "logits_max_err": err, "argmax_agree": agree,
+            "teacher": teach, "device_ms_by_group": parts,
+            "mIoU_synthetic": res["mIoU"]}
+    phase(name, f"B={B}: eval {host_eval:.1f} ms/batch "
+          f"({B / host_eval * 1e3:.1f} img/s); logits max|err| {err:.3g} "
+          f"(bound {LV3_EVAL_LOGIT_ATOL}), pixel argmax agreement "
+          f"{agree:.5f}; train {ms:.1f} ms/step ({B / ms * 1e3:.1f} img/s; "
+          f"step 1 {times[0]:.1f}), peak {peak:.2f} GiB; teacher loss rel "
+          f"{teach['loss_rel']:.3g}, grad norm rel {teach['norm_rel']:.3g},"
+          f" min cosine {teach['min_cos']:.6f} ({teach['worst']}); {line}")
+    del tr, state, batch
+    torch.cuda.empty_cache()
+    return got, {"segmentation": nums}
+
+
 def main() -> int:
     smi = phase_device()
     from unilm_tpu_torch.ops import doc_attention as da
@@ -10387,6 +11164,14 @@ def main() -> int:
     add("registry_text", got)
     got, registry_speech_nums = phase_registry_speech(fa)
     add("registry_speech", got)
+    detection_extra = phase_detection_kernels(
+        fa, torch.Generator(device="cuda").manual_seed(SEED))
+    got, rcnn_nums = phase_rcnn()
+    add("rcnn", got)
+    got, fcos_nums = phase_fcos()
+    add("fcos", got)
+    got, seg_nums = phase_segmentation()
+    add("segmentation", got)
     add("yoco_chat", phase_yoco_chat(fa))
     phase_yoco_long(fa)
     cfg, sd = engine_model()
@@ -10420,6 +11205,7 @@ def main() -> int:
         kern.update(docai_extra.get(kern["name"], {}))
         kern.update(ring_extra.get(kern["name"], {}))
         kern.update(registry_extra.get(kern["name"], {}))
+        kern.update(detection_extra.get(kern["name"], {}))
         check(kern["launches"] > 0, f"{kern['name']} never launched")
     print(json.dumps({"paths": {"decode_int8_bs1": line4["line4"],
                                 **infer, **trocr_bf16, **trocr_int8,
@@ -10427,7 +11213,8 @@ def main() -> int:
                                 **beit3_nums, **beit2_nums, **search_nums,
                                 "train_options": options, **docai_nums,
                                 **trocr_train_nums, **registry_text_nums,
-                                **registry_speech_nums}}),
+                                **registry_speech_nums, **rcnn_nums,
+                                **fcos_nums, **seg_nums}}),
           flush=True)
     phase("profiler", f"{len(PROFILER_MISSES)} device_ms calls fell back "
           f"to CUDA events: {PROFILER_MISSES}; {len(PROFILER_LOST)} traces "

@@ -387,3 +387,31 @@ def test_beit_family_runs_without_jax():
     lines = res.stdout.strip().splitlines()
     assert lines == ["vqa (2, 3)", "itm (2, 2)", "ids (2, 4) (2, 4, 16) (2, 4)",
                      "archs 28"], lines
+
+
+_DETECTION = _POISON + r"""
+import torch
+from unilm_tpu_torch.cli import train_detection, train_segmentation
+
+torch.set_num_threads(1)
+common = ["--tiny", "--synthetic", "--synthetic-n", "4", "--img-size", "64",
+          "--batch-size", "2", "--steps", "2", "--eval", "--device", "cpu"]
+for head in ("fcos", "rcnn"):
+    state, res = train_detection.main(["--head", head, *common])
+    print(head, state.step, sorted(res)[:3])
+state, res = train_segmentation.main(common)
+print("upernet", state.step, sorted(res))
+"""
+
+
+def test_detection_clis_run_without_jax():
+    """cli/train_detection (both heads) and cli/train_segmentation train and
+    evaluate at --tiny --synthetic --device cpu with JAX poisoned."""
+    res = subprocess.run([sys.executable, "-c", _DETECTION], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    lines = [l for l in res.stdout.strip().splitlines()
+             if not l.startswith(("step", "{"))]
+    assert lines == ["fcos 2 ['AP50', 'AP75', 'AP_class_0']",
+                     "rcnn 2 ['AP50', 'AP75', 'AP_class_0']",
+                     "upernet 2 ['aAcc', 'mAcc', 'mIoU']"], lines

@@ -27,7 +27,21 @@ axis, the scan_layers form). Leaves map as
   `gate_expert_embeddings` [E, gate_dim] and `gate_temperature` (a
   scalar), the T5 bias table `relative_attention_bias`, WavLM's
   `rel_attn_embed` and `gru_rel_pos_const`, the Diff Transformer's
-  `lambda_{q,k}{1,2}`, SpeechLM's `mask_emb` and SpeechT5's `dec_pos`;
+  `lambda_{q,k}{1,2}`, SpeechLM's `mask_emb`, SpeechT5's `dec_pos` and
+  the FCOS head's per-level `scales`;
+- a ConvTranspose `kernel` [kh, kw, I, O] (the detection adapters
+  `fpn1_deconv1`, `fpn1_deconv2`, `fpn2_deconv`, the segmentation
+  adapters `up4`, `up2`, the mask head's `deconv`) -> `weight`
+  [I, O, kh, kw] spatially flipped, torch's `ConvTranspose2d` layout:
+  flax correlates the stride-dilated input with its kernel where torch
+  scatters each input through its weight (the inverse of
+  unilm_tpu/convert/detection.py `conv_transpose_nhwc`); the rule goes by
+  the module's name, as a flax ConvTranspose kernel has a Conv kernel's
+  rank (the rcnn adapters' E -> E 2x2 kernels would load unflipped
+  without an error);
+- `FrozenBN`'s `scale` / `bias` -> `weight` / `bias` and its statistics
+  `mean` / `var` -> the buffers `running_mean` / `running_var`
+  (models/rcnn.py);
 - a 1-D Conv `kernel` [K, I, O] (WavLM's feature extractor and
   positional conv, SpeechT5's postnet) -> `weight` [O, I, K], the layout
   of `F.conv1d` (a 3-D kernel under `experts` is an MoE expert's);
@@ -55,7 +69,12 @@ models/trocr.py and models/yoco.py register their modules under the flax
 names. So do the Document AI trees: LayoutLM's `x/y/h/w_position_
 embeddings`, MarkupLM's `xpath_embeddings/tag_emb_{i}` / `subs_emb_{i}`,
 and LayoutLMv2's backbone `visual/conv_{i}` (HWIO kernels -> OIHW
-`Conv2d`) and `visual/gn_{i}` (GroupNorm `scale` -> `weight`).
+`Conv2d`) and `visual/gn_{i}` (GroupNorm `scale` -> `weight`); and the
+detection and segmentation trees (models/rcnn.py, detection.py,
+detection_head.py, segmentation.py: HWIO conv kernels -> OIHW, the flax
+auto-names `ConvBNReLU_{i}/Conv_0`, `GroupNorm_0` kept as module names).
+The rcnn box head's `fc1` loads unchanged: the port flattens the pooled
+[R, 7, 7, C] in JAX's (h, w, c) order.
 
 No jax import: bfloat16 leaves (ml_dtypes arrays) are reinterpreted bit
 for bit.
@@ -69,7 +88,7 @@ import numpy as np
 import torch
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-         "bias": "bias"}
+         "bias": "bias", "mean": "running_mean", "var": "running_var"}
 _SAME = {"gamma", "cls_token", "mask_token", "pos_embed",
          "relative_position_bias_table", "latent_query", "rel_pos_bias",
          "rel_pos_x_bias", "rel_pos_y_bias", "dist_token", "embed_positions",
@@ -77,7 +96,10 @@ _SAME = {"gamma", "cls_token", "mask_token", "pos_embed",
          "gate_expert_embeddings", "gate_temperature",
          "relative_attention_bias", "rel_attn_embed", "gru_rel_pos_const",
          "lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2", "mask_emb",
-         "dec_pos"}
+         "dec_pos", "scales"}
+# flax ConvTranspose modules by name (a kernel of a Conv kernel's rank)
+_CONV_TRANSPOSE = {"fpn1_deconv1", "fpn1_deconv2", "fpn2_deconv", "up4",
+                   "up2", "deconv"}
 
 
 def to_tensor(a) -> torch.Tensor:
@@ -93,7 +115,8 @@ _QUANT_LEAF = {"kernel_i8": "weight_i8", "scale": "scale", "bias": "bias"}
 def _leaf(name: str, value: np.ndarray, quant: bool, conv: str) -> tuple:
     """`conv`: "" for a leaf that is no Conv kernel, else its torch
     layout: "flat" or "oihw" for a 4-D kernel [p, p, C, E] (with a leading
-    layer axis when stacked, 5-D), "oik" for a 1-D one [K, I, O]."""
+    layer axis when stacked, 5-D), "iohw_flip" for a ConvTranspose kernel
+    [kh, kw, I, O], "oik" for a 1-D one [K, I, O]."""
     if name in _SAME and not quant:
         return name, value
     table = _QUANT_LEAF if quant else _LEAF
@@ -103,6 +126,8 @@ def _leaf(name: str, value: np.ndarray, quant: bool, conv: str) -> tuple:
         return table[name], np.transpose(value, (2, 1, 0))
     if conv == "oihw":  # [p, p, C, E] -> [E, C, p, p]
         return table[name], np.transpose(value, (3, 2, 0, 1))
+    if conv == "iohw_flip":  # [kh, kw, I, O] -> [I, O, kh, kw], flipped
+        return table[name], np.transpose(value, (2, 3, 0, 1))[..., ::-1, ::-1]
     if conv:  # [(L,) p, p, C, E] -> [(L,) E, p*p*C]
         value = value.reshape(*value.shape[:-4], -1, value.shape[-1])
     if name in ("kernel", "kernel_i8"):
@@ -131,7 +156,9 @@ def flax_to_state_dict(params: Mapping, ema: Optional[Mapping] = None
             arr = np.asarray(val)
             conv = ""
             if key == "kernel" and arr.ndim - int(stacked) == 4:
-                conv = "flat" if prefix.endswith("proj.") else "oihw"
+                conv = ("flat" if prefix.endswith("proj.") else
+                        "iohw_flip" if prefix.split(".")[-2]
+                        in _CONV_TRANSPOSE else "oihw")
             elif (key == "kernel" and arr.ndim - int(stacked) == 3
                   and not stacked and ".experts." not in f".{prefix}"):
                 conv = "oik"

@@ -313,3 +313,63 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
             # modules with parameters of their own kind (core/moe.py's
             # stacked experts, the router's expert embeddings)
             m.init_params_(generator)
+
+
+class ConvNHWC(nn.Conv2d):
+    """flax nn.Conv over NHWC activations with a torch OIHW weight
+    (convert/from_jax.py maps the flax HWIO kernel): stride 1, "SAME"
+    padding of an odd kernel (k // 2 on each side), computing in the
+    weight's dtype (flax promotes a bf16 input to its float32 params).
+    `init_params_` draws flax's lecun-normal scale, normal(fan_in^-0.5),
+    and zero bias."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int,
+                 bias: bool = True, device=None):
+        super().__init__(in_ch, out_ch, kernel, padding=kernel // 2,
+                         bias=bias, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
+        return super().forward(x).permute(0, 2, 3, 1)
+
+    def init_params_(self, generator: torch.Generator) -> None:
+        self.weight.normal_(0.0, self.weight[0].numel() ** -0.5,
+                            generator=generator)
+        if self.bias is not None:
+            self.bias.zero_()
+
+
+class ConvTransposeNHWC(nn.ConvTranspose2d):
+    """flax nn.ConvTranspose with kernel == strides (an upsampling by the
+    kernel size) over NHWC activations. The torch weight is [I, O, kh, kw]
+    and scatters (out[s i + a] += in[i] w[a]); flax correlates the dilated
+    input with its [kh, kw, I, O] kernel, so the torch weight is that
+    kernel transposed and spatially flipped (convert/from_jax.py). Computes
+    in the weight's dtype; `init_params_` as `ConvNHWC`'s."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int, device=None):
+        super().__init__(in_ch, out_ch, kernel, stride=kernel, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
+        return super().forward(x).permute(0, 2, 3, 1)
+
+    def init_params_(self, generator: torch.Generator) -> None:
+        fan_in = self.weight.shape[0] * self.weight[0, 0].numel()
+        self.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
+        self.bias.zero_()
+
+
+class GroupNormNHWC(nn.GroupNorm):
+    """flax nn.GroupNorm (epsilon 1e-6) over NHWC activations."""
+
+    def __init__(self, groups: int, channels: int, eps: float = 1e-6,
+                 device=None):
+        super().__init__(groups, channels, eps=eps, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+    def init_params_(self, generator: torch.Generator) -> None:
+        self.weight.fill_(1.0)
+        self.bias.zero_()

@@ -128,11 +128,13 @@ class BeitConfig:
 
 class BeitBackbone(nn.Module):
     """Patch embed + (abs pos) + encoder with the 2D rel-pos bias; returns
-    the tokens [B, N+1, E]. No trailing LayerNorm when the head mean-pools
-    through fc_norm."""
+    the tokens [B, N+1, E]. `final_norm` (JAX :135): None builds the
+    trailing LayerNorm unless the head mean-pools through fc_norm; False
+    builds none at all (the detection trunk taps intermediate blocks and
+    has no final norm, models/rcnn.py `DetectionViT`); True builds it."""
 
     def __init__(self, cfg: BeitConfig, use_mask_token: bool = False,
-                 device=None):
+                 device=None, final_norm: Optional[bool] = None):
         super().__init__()
         self.cfg = cfg
         tcfg = cfg.transformer()
@@ -150,8 +152,10 @@ class BeitBackbone(nn.Module):
             for i in range(cfg.num_layers):
                 self.add_module(f"rel_pos_bias_{i}", Beit2DRelativePositionBias(
                     cfg.grid_size, cfg.num_heads, tcfg.dtype, device=device))
-        self.encoder = Encoder(tcfg, final_layer_norm=not cfg.use_mean_pooling,
-                               layer_scale_init=cfg.init_values, device=device)
+        self.encoder = Encoder(
+            tcfg, final_layer_norm=(not cfg.use_mean_pooling
+                                    if final_norm is None else final_norm),
+            layer_scale_init=cfg.init_values, device=device)
 
     def attn_bias(self):
         """None, the shared [1, H, N+1, N+1] bias, or the per-layer list."""
