@@ -477,12 +477,27 @@ seconds since the script started ("[flash 35s] ..."):
     UperNet through cli/train_segmentation at 512 px, 150 classes, B=4
     (the same counts); each path's eval logits and one train batch's loss
     and gradients against the plain path, ms/step, img/s, peak memory
-    and a step's device time by kernel group. The total time since the
-    start is printed before the JSON lines.
+    and a step's device time by kernel group.
+16. latentlm, textdiffuser2, distill, dpo, misc_ops (the last slice,
+    after segmentation; each at its configuration's full width, random
+    weights from the seed): LatentLM (LatentLMConfig(), bf16) over 4 x
+    1024 tokens with the σ-VAE's 256 latents of each 128 px image, one
+    AdamW step on CE + the diffusion loss (12 #1 + 12 #6 + 12 #7), the
+    backbone (12 #1), DDIM over every slot and the VAE's decode; the
+    TextDiffuser-2 pipeline's greedy plan (4 #5 a planner call), its
+    render and a UNet diffusion_loss step (no kernel); MiniLM v2
+    distillation e5_base -> MiniLM-L6-H384 over 32 ragged rows (18 #9
+    and 5 #10 a step; the q/k/v capture's forward launches equal to an
+    uncaptured one's); a DPO step on kosmos2's text decoder, policy and
+    reference (48 #1 + 24 #6 + 24 #7); LongNet's dilated attention, a
+    ReSA decode step and DynamicConv in float32 (no kernel). Each against
+    its plain path (or the CPU in float32), with ms, peak memory and a
+    step's device time by kernel group. The total time since the start
+    is printed before the JSON lines.
 Then a JSON line of the two int8 paths', the TrOCR paths', the
 Kosmos-2 paths', the BEiT family's, search's, train_options', Document
 AI's, TrOCR fine-tuning's, the registry slice's and the detection
-slice's measurements ("paths"), and one
+slice's and the last slice's measurements ("paths"), and one
 with each kernel's launches, summed over its main-path phases and listed
 by phase in `launches_by_path` (counters set to 0 just before each: slice,
 decode_int8_bs1 and kosmos_infer for flash_fwd, slice for decode,
@@ -514,7 +529,9 @@ doc_attention, doc_attention_bwd, encoder_attention and
 decode_attention, registry_speech for encoder_attention,
 encoder_attention_bwd, onepass_attention and decode_attention, rcnn for
 flash_fwd, flash_bwd_dq and flash_bwd_dkv, fcos and segmentation for
-encoder_attention and encoder_attention_bwd),
+encoder_attention and encoder_attention_bwd, latentlm and dpo for
+flash_fwd, flash_bwd_dq and flash_bwd_dkv, textdiffuser2 for
+onepass_attention, distill for doc_attention and doc_attention_bwd),
 error, the TrOCR shapes under "trocr" (encoder_attention,
 decode_attention, int8_matmul), the Kosmos-2 shapes under "kosmos2"
 (encoder_attention, encoder_attention_bwd, onepass_attention,
@@ -569,6 +586,10 @@ ARGMAX_AGREE = 0.90
 # (8 + 10 * 40 + 8 pages per layer), so every slot gets a contiguous run.
 ENGINE_PAGES = 8 + 10 * 40 + 8
 ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_NEW = 10, 2048, 64
+# the plain-path engine replays the trace's first requests only: the
+# whole trace took 87 s of host time on the plain path (H100 80GB HBM3,
+# 700 W), a twelfth of the smoke
+ENGINE_PLAIN_REQUESTS = 2
 PREFIX, PREFIX_PROMPT, PREFIX_NEW = 1024, 1100, 32
 NO_EOS = -1  # random weights: budgets, not an eos draw, end each request
 PROJECTIONS_PER_LAYER = 6  # q, k, v, out, fc1, fc2
@@ -6994,17 +7015,19 @@ def phase_engine_int8(cfg, sd) -> dict:
     del model_p, pools_p, eng, model_k, pools_k
     torch.cuda.empty_cache()
 
-    # ---- a plain-path engine on the same trace -------------------------
+    # ---- a plain-path engine on the trace's first requests -------------
     eng_p = ServingEngine(cfg, scfg, sd, device=dev, use_kernel=False)
     c0 = counts()
-    outs_p, steps_p, wall_p = run_engine(eng_p, trace)
+    outs_p, steps_p, wall_p = run_engine(
+        eng_p, [trace[0][:ENGINE_PLAIN_REQUESTS]])
     check(counts() == c0, "engine_int8: the plain-path engine launched a "
           "kernel")
     same = [np.mean(np.asarray(outs[k]) == np.asarray(outs_p[k]))
-            for k in outs]
+            for k in outs_p]
     first = [next((i for i, (a, b) in enumerate(zip(outs[k], outs_p[k]))
-                   if a != b), ENGINE_NEW) for k in outs]
-    phase("engine_int8", f"plain-path engine, same trace: {steps_p} steps in "
+                   if a != b), ENGINE_NEW) for k in outs_p]
+    phase("engine_int8", f"plain-path engine, the trace's first "
+          f"{ENGINE_PLAIN_REQUESTS} requests: {steps_p} steps in "
           f"{wall_p:.2f} s; stream agreement {np.mean(same):.3f} of tokens, "
           f"{sum(f == ENGINE_NEW for f in first)}/{len(first)} streams "
           f"identical, first divergence per stream {first}")
@@ -7808,12 +7831,14 @@ DROPOUT = 0.1
 
 
 def grads_teacher(name: str, a: tuple, b: tuple, names: list,
-                  bounds: tuple = None, skip: tuple = ()) -> dict:
+                  bounds: tuple = None, skip: tuple = (),
+                  hold: bool = True) -> dict:
     """(loss, grads) a against b: loss and global grad norm relative, the
     minimum per-tensor cosine over the names not ending in one of `skip`
     (a key bias's gradient is zero up to rounding: a key bias shifts every
     score of a row alike), at `bounds` (loss rel, norm rel, cosine; the
-    train teacher's by default)."""
+    train teacher's by default). With `hold` False the readings come back
+    with "ok" and the caller checks them."""
     loss_b, norm_b, cos_b = bounds or (TEACHER_LOSS_REL, TEACHER_NORM_REL,
                                        TEACHER_COS)
     la, ga = a
@@ -7825,11 +7850,11 @@ def grads_teacher(name: str, a: tuple, b: tuple, names: list,
         for n, x, y in zip(names, ga, gb) if not n.endswith(skip)}
     worst = min(cos, key=cos.get)
     loss_rel, norm_rel = abs(la - lb) / abs(lb), abs(na - nb) / nb
-    check(loss_rel <= loss_b and norm_rel <= norm_b and cos[worst] >= cos_b,
-          f"{LAST_PHASE[0]} {name}: loss rel {loss_rel}, grad norm rel "
-          f"{norm_rel}, min cosine {cos[worst]} ({worst})")
+    ok = loss_rel <= loss_b and norm_rel <= norm_b and cos[worst] >= cos_b
+    check(ok or not hold, f"{LAST_PHASE[0]} {name}: loss rel {loss_rel}, "
+          f"grad norm rel {norm_rel}, min cosine {cos[worst]} ({worst})")
     return {"loss_rel": loss_rel, "norm_rel": norm_rel,
-            "min_cos": cos[worst], "worst": worst}
+            "min_cos": cos[worst], "worst": worst, "ok": ok}
 
 
 def phase_train_options(tr, batch, args) -> dict:
@@ -11076,8 +11101,755 @@ def phase_segmentation() -> tuple:
     return got, {"segmentation": nums}
 
 
-def main() -> int:
-    smi = phase_device()
+# ---- the last slice: LatentLM, TextDiffuser-2, MiniLM distillation, DPO
+# and the einsum ops -----------------------------------------------------------
+
+LAST_DEV = "cuda"  # where the phases run (a rehearsal on the CPU sets "cpu")
+# latentlm: LatentLMConfig() in bf16 and SigmaVAEConfig(): B images of PX px
+# encode to 16 x 16 = 256 latents each, the slots after a text prefix of a
+# T-token sequence; DDIM over LATENT_DDIM steps.
+LATENT_B, LATENT_PX, LATENT_T, LATENT_PREFIX = 4, 128, 1024, 128
+LATENT_DDIM = 20
+# textdiffuser2: the defaults of LayoutPlannerConfig / TextDiffuserConfig;
+# a prompt of <= 96 tokens, 160 new tokens, a 20-step render at B=1 and a
+# diffusion_loss step at B=16
+TD2_CAPTION = ("a neon sign over a night market that reads OPEN LATE 24/7 "
+               "with noodles 5 dollars")
+TD2_NEW, TD2_RENDER, TD2_TRAIN_B = 160, 20, 16
+# distill: a BERT-base teacher (e5_base) and a student of MiniLM-L6-H384's
+# width and depth (384 x 6, FFN 1536) with 6 heads of 64, not its 12 of
+# 32: the port's #9 / #10 take head_dim 64, 96 or 128 (JAX's doc kernel
+# also takes 32; ROADMAP Queue 3); B rows of 64-512 tokens under a
+# key-padding mask, 48 relation heads
+DISTILL_B, DISTILL_T, DISTILL_MIN, DISTILL_HEADS = 32, 512, 64, 48
+# dpo: kosmos2's UniGPT decoder text-only at its registry width, B pairs
+# of T tokens (the first half a shared prompt, the second the response)
+DPO_PAIRS, DPO_T = 2, 512
+# misc_ops: LongNet's geometric segments at T = 8192 (16 heads of 64); a
+# ReSA decode step over a 32k-token cache (32 heads of 128, blocks of 64,
+# the top 16); DynamicConv at fairseq's LightConv WMT shape (1024 wide, 16
+# heads, kernel 31) over 8 x 512 tokens
+MISC_DILATED = (1, 8192, 16, 64, (2048, 4096, 8192), (1, 2, 4))
+MISC_RESA = (1, 32768, 32, 128, 64, 16)
+MISC_DYNCONV = (8, 512, 1024, 16, 31)
+# Bounds, set before the first run. Kernel path against the plain path in
+# the same dtype: the train teacher's (TEACHER_*) for LatentLM's bf16 step,
+# layoutlmv3_train's (LV3_TEACHER_*) for the student's; against float32:
+# logits at LOGIT_ATOL / ARGMAX_AGREE, the whole gradient's cosine >=
+# LAST_FP32_COS. The same float32 call on the card against the CPU (TF32
+# off), relative L2: LAST_CPU_REL (DDIM, the VAE, the UNet's render, the
+# three ops). Float32 planner logits, the prefill's and every decode
+# step's, LAST_FP32_LOGIT; greedy tokens agree >= TD2_AGREE. DPO, bf16
+# against the bf16 plain path: the per-token log-probs of the responses
+# at DPO_TOKEN_ATOL (the logits agree within LOGIT_ATOL, and a
+# log-softmax entry moves by at most twice its logit's error); the loss
+# at DPO_LOSS_ATOL (a pair's loss moves by at most beta = 0.1 times the
+# error of its margin, four 256-token sums whose bf16 rounding moved
+# each by up to 0.54 nats at the initial weights (log-probs rel 1.89e-4
+# of ~2840 in the first run on an H100 80GB HBM3 at 700 W): 0.22 at
+# worst, ~0.05 with independent signs); the gradients at the train
+# teacher's per-tensor bounds (TEACHER_NORM_REL, TEACHER_COS).
+LAST_FP32_COS = 0.99
+LAST_CPU_REL = 1e-3
+LAST_FP32_LOGIT = 1e-3
+TD2_AGREE = 0.90
+DPO_TOKEN_ATOL = 2 * LOGIT_ATOL
+DPO_LOSS_ATOL = 0.1
+# A leaf whose gradient is zero to rounding on both paths (its norm at
+# most ZERO_GRAD_SHARE of that path's whole gradient norm: a parameter the
+# loss does not reach, or a key bias whose gradient the attention softmax
+# cancels) has no direction to compare: it is left out of the teacher
+# and counted (its share of the norm is below any bound). The rounding
+# of such a key bias was at most 9.04e-7 of the norm in kosmos2_train's
+# bf16 and float32 teachers (on an H100 80GB HBM3 at 700 W).
+ZERO_GRAD_SHARE = 1e-5
+LAST_GROUPS = [("#1", ["flash_fwd"]), ("#6", ["flash_bwd_dq"]),
+               ("#7", ["flash_bwd_dkv"]), ("#5", [ONEPASS_ONLY]),
+               ("#9", ["doc_fwd"]), ("#10", ["doc_bwd"]),
+               ("conv", ["conv", "cudnn", "implicit", "winograd", "dgrad",
+                         "wgrad", "fprop"]),
+               ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
+                           "splitK"])]
+
+
+def leaf_teacher(name: str, a: tuple, b: tuple, names: list,
+                 bounds: tuple, hold: bool = True) -> dict:
+    """grads_teacher over the leaves whose gradient is not zero to rounding
+    (ZERO_GRAD_SHARE) on both paths; the left-out leaves' count and
+    largest share and the held leaves' smallest share come back too."""
+    (la, ga), (lb, gb) = a, b
+    na = float(torch.sqrt(sum(g.float().pow(2).sum() for g in ga)))
+    nb = float(torch.sqrt(sum(g.float().pow(2).sum() for g in gb)))
+    share = [max(float(x.float().norm()) / na, float(y.float().norm()) / nb)
+             for x, y in zip(ga, gb)]
+    held = [i for i, s in enumerate(share) if s > ZERO_GRAD_SHARE]
+    out = [s for s in share if s <= ZERO_GRAD_SHARE]
+    r = grads_teacher(name, (la, [ga[i] for i in held]),
+                      (lb, [gb[i] for i in held]), [names[i] for i in held],
+                      bounds, hold=hold)
+    r.update(left_out=len(out), left_out_max_share=max(out, default=0.0),
+             held_min_share=min(share[i] for i in held))
+    return r
+
+
+def last_sync() -> None:
+    if LAST_DEV == "cuda":
+        torch.cuda.synchronize()
+
+
+def last_host_ms(fn) -> tuple:
+    """(fn()'s result, its host ms), the call ended by a synchronize."""
+    last_sync()
+    t0 = time.perf_counter()
+    out = fn()
+    last_sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def last_profile(fn, label: str, host: float) -> tuple:
+    """fn() once under the profiler: (line, its device time by
+    LAST_GROUPS), the busy share against `host`, the unprofiled call's
+    host ms (a profiled call's host time carries the profiler's own)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        last_sync()
+    parts = device_time_shares(prof, LAST_GROUPS)
+    return f"{label}: " + groups_line(parts, host), parts
+
+
+def cosine_all(a: list, b: list) -> float:
+    """The cosine of two gradients, every tensor flattened into one."""
+    x = torch.cat([g.flatten().float() for g in a])
+    y = torch.cat([g.flatten().float() for g in b])
+    return float(torch.nn.functional.cosine_similarity(x, y, dim=0))
+
+
+def cpu_rel(label: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The card's float32 result against the CPU's: rel L2 <= LAST_CPU_REL."""
+    e = rel_l2(got.float().cpu(), want.float().cpu())
+    check(bool(torch.isfinite(got).all()) and e <= LAST_CPU_REL,
+          f"{LAST_PHASE[0]} {label}: card against CPU rel L2 {e} (tol "
+          f"{LAST_CPU_REL})")
+    return e
+
+
+def latentlm_batch(cfg, vae, g, dev) -> dict:
+    """LATENT_B random images through the VAE into [B, Q, latent] latents
+    at slots LATENT_PREFIX.. of LATENT_T-token rows; the diffusion draws."""
+    images = torch.rand(LATENT_B, LATENT_PX, LATENT_PX, 3, generator=g,
+                        device=dev)
+    with torch.no_grad():
+        grid = vae.encode(images)
+    B, h, w, ld = grid.shape
+    Q = h * w
+    mask = torch.zeros(B, LATENT_T, dtype=torch.bool, device=dev)
+    mask[:, LATENT_PREFIX:LATENT_PREFIX + Q] = True
+    return {"grid": (h, w), "latents": grid.reshape(B, Q, ld), "mask": mask,
+            "tokens": torch.randint(4, cfg.vocab_size, (B, LATENT_T),
+                                    generator=g, device=dev),
+            "t": torch.rand((B, Q), generator=g, device=dev),
+            "noise": torch.randn((B, Q, ld), generator=g, device=dev)}
+
+
+def latentlm_loss(model, b: dict):
+    """(CE on the text targets + the diffusion loss, metrics)."""
+    logits, dl = model(b["tokens"], b["latents"], b["mask"], t=b["t"],
+                       noise=b["noise"])
+    B, T, V = logits.shape
+    nll = torch.nn.functional.cross_entropy(
+        logits[:, :-1].reshape(-1, V), b["tokens"][:, 1:].reshape(-1),
+        reduction="none").view(B, T - 1)
+    text = (~b["mask"][:, 1:]).float()
+    ce = (nll * text).sum() / text.sum()
+    return ce + dl, {"ce": ce.detach(), "diffusion": dl.detach()}
+
+
+def phase_latentlm() -> tuple:
+    """LatentLM at LatentLMConfig()'s width (768 x 12 layers, 12 heads, FFN
+    2048, vocab 32000, latents of 16; bf16 compute / float32 params) with
+    SigmaVAEConfig()'s VAE (64/128/256 channels, float32), random weights
+    from the seed: LATENT_B images of LATENT_PX px encode to 256 latents
+    each, spliced at slots of LATENT_T-token rows; one AdamW step
+    (runtime.train.make_train_step, clip 1.0) on the text CE + the
+    diffusion loss; then the backbone's hidden states condition
+    `sample_latent` (LATENT_DDIM DDIM steps, one latent per slot) and the
+    VAE decodes the grids. Exactly 12 #1 + 12 #6 + 12 #7 a step and 12 #1
+    the backbone. Teachers, at the initial weights with the same draws:
+    the bf16 plain path at the train teacher's bounds; the float32 plain
+    path's logits and whole gradient; DDIM and the VAE's decode against
+    the CPU in float32 (the same condition rows and z; relative, as DDIM's
+    first step divides by sqrt(ᾱ(1)) ~ 4.4e-8). Returns (launches,
+    numbers)."""
+    import copy
+
+    from unilm_tpu_torch.models import latentlm as ll
+    from unilm_tpu_torch.runtime import optim, train
+
+    dev = torch.device(LAST_DEV)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    vae = ll.SigmaVAE(ll.SigmaVAEConfig(), dev).init_weights(g)
+    cfg = ll.LatentLMConfig(dtype=torch.bfloat16)
+    L = cfg.num_layers
+    model = ll.LatentLM(cfg, dev).init_weights(g)
+    b = latentlm_batch(cfg, vae, g, dev)
+    Q = b["latents"].shape[1]
+    phase("latentlm", f"LatentLMConfig(): {cfg.embed_dim} x {L} layers, "
+          f"{cfg.num_heads} heads, vocab {cfg.vocab_size}, bf16 / float32 "
+          f"params, {sum(p.numel() for p in model.parameters()) / 1e6:.1f} "
+          f"M params; the VAE at {LATENT_PX} px gives {Q} latents of "
+          f"{cfg.latent_dim} an image; B={LATENT_B}, T={LATENT_T}, slots "
+          f"{LATENT_PREFIX}..{LATENT_PREFIX + Q - 1}")
+
+    # teachers at the initial weights: the kernel path, the bf16 plain path
+    init = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def twin(**kw):
+        m = ll.LatentLM(dataclasses.replace(cfg, use_flash=False, **kw), dev)
+        m.load_state_dict(init)
+        return m
+
+    lk, gk, names = det_grads(model, lambda m: latentlm_loss(m, b)[0])
+    plain = twin()
+    lp, gp, _ = det_grads(plain, lambda m: latentlm_loss(m, b)[0])
+    tb = grads_teacher("bf16 plain path", (lk, gk), (lp, gp), names)
+    del plain, gp
+    plain32 = twin(dtype=torch.float32)
+    l32, g32, _ = det_grads(plain32, lambda m: latentlm_loss(m, b)[0])
+    cos32 = cosine_all(gk, g32)
+    with torch.no_grad():
+        lt = logits_teacher("float32 plain path logits",
+                            model(b["tokens"], b["latents"], b["mask"],
+                                  t=b["t"], noise=b["noise"])[0],
+                            plain32(b["tokens"], b["latents"], b["mask"],
+                                    t=b["t"], noise=b["noise"])[0])
+    check(cos32 >= LAST_FP32_COS, f"latentlm: whole-gradient cosine to the "
+          f"float32 plain path {cos32} (tol {LAST_FP32_COS})")
+    phase("latentlm", f"initial weights, kernel path against the bf16 plain "
+          f"path: loss rel {tb['loss_rel']:.2e}, grad norm rel "
+          f"{tb['norm_rel']:.2e}, min cosine {tb['min_cos']:.5f} "
+          f"({tb['worst']}); against float32: loss {lk:.5f} / {l32:.5f}, "
+          f"max |dlogit| {lt['max_dlogit']:.4f}, argmax agreement "
+          f"{lt['argmax_agreement']:.4f}, whole-gradient cosine {cos32:.6f}")
+    del plain32, gk, g32
+
+    # the main path: a step, the backbone, DDIM, the VAE's decode
+    tx = optim.AdamW(1e-4)
+    state = train.TrainState.create(model, tx)
+    step = train.make_train_step(latentlm_loss, tx, clip_grad_norm=1.0)
+    reset_counts()
+    (state, met), step_ms = last_host_ms(lambda: step(state, b))
+    got_step = counts()
+    with torch.no_grad():
+        h, bb_ms = last_host_ms(lambda: model.backbone(
+            b["tokens"], b["latents"], b["mask"]))
+    got = counts()
+    launches_only(got_step, {"flash_fwd": L, "flash_bwd_dq": L,
+                             "flash_bwd_dkv": L}, "the train step")
+    launches_only(got, {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                        "flash_bwd_dkv": L}, "the step and the backbone")
+    cond = h[:, LATENT_PREFIX - 1:LATENT_PREFIX - 1 + Q].reshape(
+        -1, cfg.embed_dim)
+    z0 = torch.randn((cond.shape[0], cfg.latent_dim), generator=g,
+                     device=dev)
+    zs, ddim_ms = last_host_ms(lambda: model.sample_latent(
+        cond, steps=LATENT_DDIM, z=z0))
+    grid = zs.reshape(LATENT_B, *b["grid"], cfg.latent_dim)
+    with torch.no_grad():
+        img, dec_ms = last_host_ms(lambda: vae.decode(grid))
+    check(img.shape == (LATENT_B, LATENT_PX, LATENT_PX, 3)
+          and bool(torch.isfinite(img).all()) and np.isfinite(
+              float(met["loss"])), f"latentlm: decoded {tuple(img.shape)}, "
+          f"loss {float(met['loss'])}")
+    head = copy.deepcopy(model.diffusion_head).cpu()
+    z_cpu = ll.ddim_latents(head, cond.float().cpu(), z0.cpu(), LATENT_DDIM)
+    e_ddim = cpu_rel("DDIM", zs, z_cpu)
+    with torch.no_grad():
+        e_vae = cpu_rel("the VAE's decode", img,
+                        copy.deepcopy(vae).cpu().decode(grid.cpu()))
+    line, parts = last_profile(lambda: step(state, b), "a step", step_ms)
+    nums = {"loss": float(met["loss"]), "ce": float(met["ce"]),
+            "diffusion": float(met["diffusion"]), "step_ms": step_ms,
+            "backbone_ms": bb_ms, "ddim_ms": ddim_ms, "decode_ms": dec_ms,
+            "ddim_rel_l2_cpu": e_ddim, "vae_rel_l2_cpu": e_vae,
+            "latent_abs_max": float(zs.abs().max()), "device_ms": parts,
+            "teacher_bf16": tb,
+            "teacher_fp32": {**lt, "loss": l32, "cos": cos32}}
+    phase("latentlm", f"step: loss {nums['loss']:.4f} (CE {nums['ce']:.4f} + "
+          f"diffusion {nums['diffusion']:.4f}), {step_ms:.1f} ms on the host; "
+          f"launches {got_step}; the backbone {bb_ms:.1f} ms; DDIM "
+          f"{LATENT_DDIM} steps over {cond.shape[0]} slots {ddim_ms:.1f} ms, "
+          f"max |z| {nums['latent_abs_max']:.3g} (ᾱ(1) amplification, the "
+          f"reference's), rel L2 to the CPU {e_ddim:.2e}; the VAE's decode "
+          f"{dec_ms:.1f} ms, rel L2 {e_vae:.2e}; " + line)
+    del state, step, model, vae, b, h, cond
+    if LAST_DEV == "cuda":
+        torch.cuda.empty_cache()
+    return got, {"latentlm": nums}
+
+
+def td2_masks(td, rng, B: int, size: int) -> torch.Tensor:
+    """B character masks of one to three random words in random boxes."""
+    out = []
+    for _ in range(B):
+        boxes = []
+        for _ in range(rng.randint(1, 4)):
+            x0, y0 = rng.randint(0, size // 2, 2)
+            w = "".join(rng.choice(list("abcdefgh0123"), rng.randint(2, 7)))
+            boxes.append((w, (x0, y0, min(size, x0 + rng.randint(12, 40)),
+                              min(size, y0 + rng.randint(6, 16)))))
+        out.append(td.render_char_mask(boxes, size))
+    return torch.from_numpy(np.stack(out))
+
+
+def planner_replay(model, toks: torch.Tensor, n: int,
+                   steps: int) -> torch.Tensor:
+    """The planner's prefill over toks[:, :n] and `steps` one-token decode
+    steps fed toks[:, n:n + steps], in plan_tokens' cache (n + TD2_NEW
+    slots): each call's last logits, [B, 1 + steps, V]."""
+    size = n + TD2_NEW
+    lg, cache = model.prefill(toks[:, :n], size)
+    out = [lg[:, -1]]
+    for i in range(steps):
+        lg, cache = model.decode_step(toks[:, n + i:n + i + 1], cache, size)
+        out.append(lg[:, -1])
+    return torch.stack(out, 1)
+
+
+def phase_textdiffuser2() -> tuple:
+    """TextDiffuser-2 at the defaults of LayoutPlannerConfig (256 wide, 4
+    layers, 4 heads, float32) and TextDiffuserConfig (64 px, base 64,
+    mults 1/2/4, float32), random weights from the seed, through
+    `TextDiffuser2Pipeline`: one `diffusion_loss` AdamW step at
+    B=TD2_TRAIN_B (the UNet launches no kernel: every counter stays 0);
+    the greedy plan of TD2_CAPTION (its prompt <= 96 tokens, TD2_NEW new
+    tokens or up to EOS); a TD2_RENDER-step render at
+    B=1. The plan's prefill takes #5 (4 launches, `onepass_applies`) and
+    each one-token decode step the decode kernel over the paged cache
+    (#13's float32 pools, 4 launches), exactly. Teachers: the plain path's
+    greedy tokens (agreement >= TD2_AGREE), its teacher-forced logits over
+    the plan (argmax 99%) and its prefill's and decode steps' logits on
+    the plan's tokens (`planner_replay`), both at LAST_FP32_LOGIT; the
+    render against the same render on the CPU (the UNet
+    copied, the same z; relative L2). Returns (launches, numbers)."""
+    import copy
+
+    from unilm_tpu_torch.models import textdiffuser as td
+    from unilm_tpu_torch.models import textdiffuser2 as td2
+    from unilm_tpu_torch.runtime import optim, train
+
+    dev = torch.device(LAST_DEV)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    pcfg, ucfg = td2.LayoutPlannerConfig(), td.TextDiffuserConfig()
+    planner = td2.LayoutPlannerLM(pcfg, dev).init_weights(g).eval()
+    unet = td.TextDiffuserUNet(ucfg, dev).init_weights(g)
+    pipe = td2.TextDiffuser2Pipeline(planner, unet, max_new_tokens=TD2_NEW)
+    phase("textdiffuser2", f"planner {pcfg.embed_dim} x {pcfg.num_layers} "
+          f"layers, {pcfg.num_heads} heads, vocab {pcfg.vocab_size}; UNet "
+          f"{ucfg.img_size} px, base {ucfg.base_channels}, mults "
+          f"{ucfg.channel_mults}, "
+          f"{sum(p.numel() for p in unet.parameters()) / 1e6:.2f} M params")
+
+    # the UNet's diffusion_loss step (before the render: `out` starts at 0)
+    rng = np.random.RandomState(SEED)
+    batch = {"images": torch.rand(TD2_TRAIN_B, ucfg.img_size, ucfg.img_size,
+                                  3, generator=g, device=dev) * 2 - 1,
+             "mask": td2_masks(td, rng, TD2_TRAIN_B, ucfg.img_size).to(dev)}
+    tx = optim.AdamW(1e-4)
+    state = train.TrainState.create(unet, tx)
+    step = train.make_train_step(lambda m, bt: td.diffusion_loss(
+        m, bt["images"], bt["mask"], g), tx)
+    reset_counts()
+    (state, met), first_ms = last_host_ms(lambda: step(state, batch))
+    (state, met2), step_ms = last_host_ms(lambda: step(state, batch))
+    launches_only(counts(), {}, "two UNet steps")
+    check(float(unet.out.weight.detach().abs().max()) > 0
+          and np.isfinite(float(met2["loss"])), "textdiffuser2: the step")
+
+    # the greedy plan: 4 #5 a planner call
+    planner.decode_step = counted(planner.decode_step)
+    reset_counts()
+    (toks, n), plan_ms = last_host_ms(lambda: pipe.plan_tokens(TD2_CAPTION))
+    got = counts()
+    calls = planner.decode_step.calls
+    launches_only(got, {"onepass_attention": pcfg.num_layers,
+                        "decode_attention": pcfg.num_layers * calls},
+                  f"the plan (a prefill and {calls} decode steps)")
+    layout = pipe.vocab.decode_layout(toks[0, n:].tolist())
+    # the plain path's plan and the teacher-forced logits
+    plain = td2.LayoutPlannerLM(dataclasses.replace(pcfg, use_flash=False),
+                                dev).eval()
+    plain.load_state_dict(planner.state_dict())
+    ptoks, _ = dataclasses.replace(pipe, planner=plain).plan_tokens(
+        TD2_CAPTION)
+    agree = float((toks[0, n:] == ptoks[0, n:]).float().mean())
+    with torch.no_grad():
+        kl_, pl_ = planner(toks), plain(toks)
+    err = float((kl_ - pl_).abs().max())
+    arg = float((kl_.argmax(-1) == pl_.argmax(-1)).float().mean())
+    # the prefill and every decode step again on the plan's tokens, on
+    # both paths: the steps' logits
+    err_dec = float((planner_replay(planner, toks, n, calls)
+                     - planner_replay(plain, toks, n, calls)).abs().max())
+    check(agree >= TD2_AGREE and max(err, err_dec) <= LAST_FP32_LOGIT
+          and arg >= 0.99,
+          f"textdiffuser2: greedy agreement {agree} (tol {TD2_AGREE}), "
+          f"teacher-forced max |dlogit| {err}, the prefill's and "
+          f"{calls} decode steps' {err_dec} (tol {LAST_FP32_LOGIT}), "
+          f"argmax {arg}")
+
+    # the render (the plan's layout; a fixed one if the random planner
+    # planned none): card against the CPU
+    lay = layout or [("open late", (8, 8, 120, 40))]
+    z = torch.randn(1, ucfg.img_size, ucfg.img_size, 3, generator=g,
+                    device=dev)
+    reset_counts()
+    img, render_ms = last_host_ms(lambda: pipe.render(lay, steps=TD2_RENDER,
+                                                      z=z))
+    launches_only(counts(), {}, "the render")
+    mask = torch.from_numpy(td.render_char_mask(
+        td2.layout_to_pixel_boxes(lay, ucfg.img_size), ucfg.img_size))[None]
+    e_render = cpu_rel("the render", img, td.ddim_sample(
+        copy.deepcopy(unet).cpu(), mask, steps=TD2_RENDER, z=z.cpu()))
+    line, parts = last_profile(lambda: step(state, batch), "a UNet step",
+                               step_ms)
+    nums = {"decode_steps": calls, "prompt_tokens": n, "plan_ms": plan_ms,
+            "ms_per_token": plan_ms / (1 + calls), "greedy_agreement": agree,
+            "teacher_max_dlogit": err, "decode_max_dlogit": err_dec,
+            "teacher_argmax": arg,
+            "layout_lines": len(layout), "render_ms": render_ms,
+            "render_rel_l2_cpu": e_render, "train_first_ms": first_ms,
+            "train_step_ms": step_ms, "train_device_ms": parts,
+            "losses": [float(met["loss"]), float(met2["loss"])]}
+    phase("textdiffuser2", f"UNet steps at B={TD2_TRAIN_B}: losses "
+          f"{nums['losses'][0]:.4f}, {nums['losses'][1]:.4f}, {step_ms:.1f} "
+          f"ms (the first {first_ms:.1f}); plan: {n} prompt tokens, "
+          f"{calls} decode steps, {plan_ms:.1f} ms "
+          f"({nums['ms_per_token']:.2f} ms a token), launches {got}, "
+          f"{len(layout)} layout lines; plain path: greedy agreement "
+          f"{agree:.4f}, teacher-forced max |dlogit| {err:.2e}, the "
+          f"prefill's and decode steps' {err_dec:.2e}, argmax "
+          f"{arg:.4f}; render {TD2_RENDER} steps {render_ms:.1f} ms, rel L2 "
+          f"to the CPU {e_render:.2e}; " + line)
+    del state, step, pipe, planner, plain, unet
+    return got, {"textdiffuser2": nums}
+
+
+def phase_distill() -> tuple:
+    """MiniLM v2 relation distillation at full width: the port's e5_base
+    encoder (BERT-base, 768 x 12, 12 heads) teaching a student of
+    MiniLM-L6-H384's width (384 x 6, FFN 1536; 6 heads of 64, as the
+    port's #9 / #10 take no head_dim 32), both bf16 / float32 params,
+    random weights from the seed; DISTILL_B rows of DISTILL_MIN-DISTILL_T
+    tokens under a key-padding mask. One student AdamW step on
+    `minilm_v2_loss` over the last layers' q/k/v (DISTILL_HEADS relation
+    heads), captured by core/attention.py `capture_qkv`, the teacher under
+    no_grad: exactly 18 #9 (12 teacher, 6 student) and 5 #10 a step (the
+    last student layer's attention output does not reach the loss, so its
+    backward runs none). The same forwards with the capture off launch the
+    same kernels (both counts printed). Teacher: the plain path's loss and
+    student gradients at layoutlmv3_train's bounds (`leaf_teacher`: the
+    leaves zero to rounding left out, the last layer's key bias held).
+    Returns (launches, numbers)."""
+    from unilm_tpu_torch.core.attention import capture_qkv
+    from unilm_tpu_torch.models.retrieval import (EmbeddingModel,
+                                                  TextEncoderConfig)
+    from unilm_tpu_torch.runtime import distill, optim, train
+
+    dev = torch.device(LAST_DEV)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    tcfg = TextEncoderConfig(dtype=torch.bfloat16)
+    scfg = TextEncoderConfig(hidden_size=384, num_layers=6, num_heads=6,
+                             ffn_dim=1536, dtype=torch.bfloat16)
+    teacher = EmbeddingModel(tcfg, dev).init_weights(g).eval()
+    student = EmbeddingModel(scfg, dev).init_weights(g)
+    phase("distill", f"teacher {tcfg.hidden_size} x {tcfg.num_layers} "
+          f"layers, {tcfg.num_heads} heads; student {scfg.hidden_size} x "
+          f"{scfg.num_layers} layers, {scfg.num_heads} heads of "
+          f"{scfg.hidden_size // scfg.num_heads}; bf16 / float32 params; "
+          f"{DISTILL_HEADS} relation heads. MiniLM-L6-H384's published "
+          f"student (12 heads of 32) is not brought up: the port's #9 / #10 "
+          f"take no head_dim 32")
+    rng = np.random.RandomState(SEED)
+    mask = ragged_mask(rng, DISTILL_B, DISTILL_T, DISTILL_MIN, dev)
+    ids = torch.randint(1000, tcfg.vocab_size, (DISTILL_B, DISTILL_T),
+                        generator=g, device=dev)
+    b = {"ids": ids, "mask": mask}
+
+    def last_qkv(model, bt):
+        with capture_qkv(model) as rec:
+            model.encoder(bt["ids"], bt["mask"])
+        return distill.collect_qkv(rec)[-1]
+
+    def make_loss(tm):
+        def loss_fn(m, bt):
+            with torch.no_grad():
+                tq = last_qkv(tm, bt)
+            loss = distill.minilm_v2_loss(tq, last_qkv(m, bt),
+                                          DISTILL_HEADS, bt["mask"])
+            return loss, {}
+        return loss_fn
+
+    per_step = {"doc_attention": tcfg.num_layers + scfg.num_layers,
+                "doc_attention_bwd": scfg.num_layers - 1}
+    # capture on and off: the same forward kernels
+    with torch.no_grad():
+        reset_counts()
+        last_qkv(teacher, b)
+        last_qkv(student, b)
+        on = counts()
+        reset_counts()
+        teacher.encoder(ids, mask)
+        student.encoder(ids, mask)
+        off = counts()
+    check(on == off, f"distill: capture on {on}, off {off}")
+    # teacher check at the initial weights
+    init = {k: v.detach().clone() for k, v in student.state_dict().items()}
+
+    def plain_of(cfg, sd):
+        m = EmbeddingModel(dataclasses.replace(cfg, use_flash=False), dev)
+        m.load_state_dict(sd)
+        return m
+
+    tplain = plain_of(tcfg, teacher.state_dict()).eval()
+    lk, gk, names = det_grads(student, lambda m: make_loss(teacher)(m, b)[0])
+    lp, gp, _ = det_grads(plain_of(scfg, init),
+                          lambda m: make_loss(tplain)(m, b)[0])
+    # the last layer's attention output, FFN and norms do not reach the
+    # loss, and the key biases of the layers before it shift every score
+    # of a softmax row alike: zero to rounding on both paths, left out.
+    # The last layer's key bias is held: the K-K relation's softmax over
+    # k_i . k_j is not shift-invariant in it
+    tt = leaf_teacher("the plain path", (lk, gk), (lp, gp), names,
+                      (LV3_TEACHER_LOSS_REL, LV3_TEACHER_NORM_REL,
+                       LV3_TEACHER_COS))
+    last_kb = f"encoder.layers.{scfg.num_layers - 1}.self_attn.k_proj.bias"
+    kb = [i for i, n in enumerate(names) if n.endswith(last_kb)]
+    tt["last_key_bias_cos"] = float(torch.nn.functional.cosine_similarity(
+        gk[kb[0]].flatten().float(), gp[kb[0]].flatten().float(), dim=0))
+    check(len(kb) == 1 and tt["last_key_bias_cos"] >= LV3_TEACHER_COS,
+          f"distill: the last layer's key bias {kb}, cosine "
+          f"{tt['last_key_bias_cos']}")
+    del tplain, gk, gp
+    # the main path: one student step
+    tx = optim.AdamW(1e-4)
+    state = train.TrainState.create(student, tx)
+    step = train.make_train_step(make_loss(teacher), tx, clip_grad_norm=1.0)
+    reset_counts()
+    (state, met), step_ms = last_host_ms(lambda: step(state, b))
+    got = counts()
+    launches_only(got, per_step, "a distillation step")
+    check(np.isfinite(float(met["loss"])) and float(met["loss"]) > 0,
+          f"distill: loss {float(met['loss'])}")
+    line, parts = last_profile(lambda: step(state, b), "a step", step_ms)
+    nums = {"loss": float(met["loss"]), "step_ms": step_ms,
+            "tokens": int(mask.sum()), "capture_on": on, "capture_off": off,
+            "teacher": tt, "device_ms": parts}
+    phase("distill", f"e5_base -> 384 x 6 student, B={DISTILL_B} rows of "
+          f"{DISTILL_MIN}-{DISTILL_T} tokens ({nums['tokens']} valid); "
+          f"forward launches with the capture {on}, without {off}; initial "
+          f"weights against the plain path: loss rel {tt['loss_rel']:.2e}, "
+          f"grad norm rel {tt['norm_rel']:.2e}, min cosine "
+          f"{tt['min_cos']:.5f} ({tt['worst']}) over "
+          f"{len(names) - tt['left_out']} tensors, the last layer's key "
+          f"bias {tt['last_key_bias_cos']:.5f}, {tt['left_out']} zero to "
+          f"rounding left out (largest share "
+          f"{tt['left_out_max_share']:.2e}, smallest held "
+          f"{tt['held_min_share']:.2e}); step: loss "
+          f"{nums['loss']:.5f}, {step_ms:.1f} ms, launches {got}; " + line)
+    del state, step, teacher, student
+    return got, {"distill": nums}
+
+
+def phase_dpo() -> tuple:
+    """DPO on kosmos2's UniGPT decoder, text only, at its registry width
+    (2048 x 24 layers, 32 heads, FFN 8192, vocab 65037; bf16 compute):
+    the policy with float32 params and AdamW states, the reference another
+    random model of that shape (seed SEED + 1) with bf16 params, so that
+    the rewards are not 0 and the loss not log 2 at the initial weights;
+    DPO_PAIRS chosen / rejected pairs of DPO_T tokens (a shared prompt,
+    then each response) in one batch. `sequence_log_probs` over the
+    responses on both models (the reference under no_grad), the sigmoid
+    `dpo_loss` (beta 0.1), one AdamW step on the policy: exactly 48 #1
+    (24 policy, 24 reference) and 24 #6 + 24 #7 a step. Teacher at the
+    initial weights, the bf16 plain path on the same inputs: both models'
+    per-token log-probs (DPO_TOKEN_ATOL), the loss (DPO_LOSS_ATOL), the
+    policy gradient per tensor (`leaf_teacher` at TEACHER_NORM_REL,
+    TEACHER_COS), every reading in one check. Returns (launches,
+    numbers)."""
+    from unilm_tpu_torch.models.kosmos import UniGPT, kosmos2
+    from unilm_tpu_torch.runtime import optim, preference, train
+
+    dev = torch.device(LAST_DEV)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    cfg = kosmos2(image_tower=None, dtype=torch.bfloat16)
+    L = cfg.num_layers
+    policy = UniGPT(cfg, device=dev)
+    policy.init_weights(g)
+    rcfg = dataclasses.replace(cfg, param_dtype=torch.bfloat16)
+    reference = UniGPT(rcfg, device=dev).eval()
+    reference.load_state_dict(UniGPT(cfg, device=dev).init_weights(
+        torch.Generator(device=dev).manual_seed(SEED + 1)).state_dict())
+    B, T, P = 2 * DPO_PAIRS, DPO_T, DPO_T // 2
+    prompt = torch.randint(4, cfg.vocab_size, (DPO_PAIRS, P), generator=g,
+                           device=dev)
+    resp = torch.randint(4, cfg.vocab_size, (B, T - P), generator=g,
+                         device=dev)
+    tokens = torch.cat([prompt.repeat(2, 1), resp], dim=1)
+    loss_mask = torch.zeros(B, T - 1, dtype=torch.bool, device=dev)
+    loss_mask[:, P - 1:] = True  # the targets P.. are the responses
+    phase("dpo", f"kosmos2 text decoder {cfg.embed_dim} x {L} layers, vocab "
+          f"{cfg.vocab_size}, {sum(p.numel() for p in policy.parameters()) / 1e9:.2f} "
+          f"B params; {DPO_PAIRS} pairs x {T} tokens ({T - P} response)")
+
+    def logps(m):
+        return preference.sequence_log_probs(m(tokens), tokens, loss_mask)
+
+    def token_logps(m):
+        """[B, T - P] log-probs of the response targets."""
+        lp = torch.log_softmax(m(tokens)[:, :-1].float(), dim=-1)
+        return torch.gather(lp, -1, tokens[:, 1:, None])[:, P - 1:, 0]
+
+    def make_loss(ref):
+        def loss_fn(m, bt):
+            with torch.no_grad():
+                r = logps(ref)
+            p = logps(m)
+            loss, cr, rr = preference.dpo_loss(p[:DPO_PAIRS], p[DPO_PAIRS:],
+                                               r[:DPO_PAIRS], r[DPO_PAIRS:],
+                                               beta=0.1)
+            return loss, {"chosen_reward": cr.mean(),
+                          "rejected_reward": rr.mean(), "logp": p.detach()}
+        return loss_fn
+
+    # teacher check at the initial weights
+    def plain_of(model, c):
+        m = UniGPT(dataclasses.replace(c, use_flash=False), device=dev)
+        m.load_state_dict(model.state_dict(), assign=True)
+        return m
+
+    ref_plain = plain_of(reference, rcfg).eval()
+    pol_plain = plain_of(policy, cfg)
+    with torch.no_grad():
+        tk = torch.stack([token_logps(policy), token_logps(reference)])
+        tp = torch.stack([token_logps(pol_plain), token_logps(ref_plain)])
+    rw = 0.1 * (tp[0] - tp[1]).sum(-1)  # the plain path's rewards
+    e_tok = float((tk - tp).abs().max())
+    spread = float(tp.std())
+    lk, gk, names = det_grads(policy, lambda m: make_loss(reference)(m, 0)[0])
+    lp, gp, _ = det_grads(pol_plain, lambda m: make_loss(ref_plain)(m, 0)[0])
+    tt = leaf_teacher("the plain path", (lk, gk), (lp, gp), names,
+                      (float("inf"), TEACHER_NORM_REL, TEACHER_COS),
+                      hold=False)
+    teach = (f"per-token log-probs max |d| {e_tok:.4f} (tol "
+             f"{DPO_TOKEN_ATOL}; their spread over tokens {spread:.3f}), "
+             f"loss {lk:.6f} / {lp:.6f} (tol {DPO_LOSS_ATOL}; log 2 = "
+             f"{np.log(2):.6f}), rewards chosen {float(rw[:DPO_PAIRS].mean()):.4f}"
+             f" rejected {float(rw[DPO_PAIRS:].mean()):.4f}; gradients: norm rel "
+             f"{tt['norm_rel']:.2e} (tol {TEACHER_NORM_REL}), min per-tensor "
+             f"cosine {tt['min_cos']:.5f} ({tt['worst']}, tol {TEACHER_COS})"
+             f" over {len(names) - tt['left_out']} tensors, "
+             f"{tt['left_out']} zero to rounding left out (largest share "
+             f"{tt['left_out_max_share']:.2e})")
+    check(e_tok <= DPO_TOKEN_ATOL and abs(lk - lp) <= DPO_LOSS_ATOL
+          and tt["ok"], f"dpo: teacher check failed: {teach}")
+    del ref_plain, pol_plain, gk, gp, tk, tp
+    # the main path: one policy step
+    tx = optim.AdamW(1e-6)
+    state = train.TrainState.create(policy, tx)
+    step = train.make_train_step(make_loss(reference), tx,
+                                 clip_grad_norm=1.0)
+    if LAST_DEV == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    (state, met), step_ms = last_host_ms(lambda: step(state, 0))
+    got = counts()
+    launches_only(got, {"flash_fwd": 2 * L, "flash_bwd_dq": L,
+                        "flash_bwd_dkv": L}, "a DPO step")
+    check(np.isfinite(float(met["loss"])), f"dpo: loss {float(met['loss'])}")
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+            if LAST_DEV == "cuda" else 0.0)
+    line, parts = last_profile(lambda: step(state, 0), "a step", step_ms)
+    nums = {"loss": float(met["loss"]), "step_ms": step_ms, "peak_gib": peak,
+            "token_logp_max_abs": e_tok, "token_logp_spread": spread,
+            "loss_kernel": lk, "loss_plain": lp, "teacher": tt,
+            "device_ms": parts,
+            "chosen_reward": float(met["chosen_reward"]),
+            "rejected_reward": float(met["rejected_reward"])}
+    phase("dpo", f"initial weights against the plain path: {teach}; step: "
+          f"loss {nums['loss']:.6f}, {step_ms:.1f} ms, peak "
+          f"memory {peak:.2f} GiB, launches {got}; " + line)
+    del state, step, policy, reference
+    if LAST_DEV == "cuda":
+        torch.cuda.empty_cache()
+    return got, {"dpo": nums}
+
+
+def phase_misc_ops() -> dict:
+    """The three ops JAX writes as XLA einsums (no Pallas kernel, so no
+    port kernel): LongNet's `dilated_attention` at MISC_DILATED, a ReSA
+    `resa_decode_step` over MISC_RESA's cache (a rectify step and a sparse
+    one), `DynamicConvLayer` at MISC_DYNCONV; float32 on the card against
+    the same call on the CPU (relative L2, LAST_CPU_REL), every kernel
+    counter at 0, the card's time of each (device time)."""
+    from unilm_tpu_torch.core.layers import init_weights_
+    from unilm_tpu_torch.ops import dilated_attention as dil
+    from unilm_tpu_torch.ops import dynamic_conv as dyn
+    from unilm_tpu_torch.ops import sparse_attention as sa
+
+    dev = torch.device(LAST_DEV)
+    g = torch.Generator().manual_seed(SEED)
+    B, T, H, D, segs, rates = MISC_DILATED
+    q, k, v = (torch.randn(B, T, H, D, generator=g) * 0.5 for _ in range(3))
+    dq, dk, dv = (x.to(dev) for x in (q, k, v))
+
+    def dilated(a, b, c):
+        return dil.dilated_attention(a, b, c, segment_lengths=segs,
+                                     dilation_rates=rates)
+
+    Bq, S, Hr, Dr, bs, topk = MISC_RESA
+    rcfg = sa.ReSAConfig(block_size=bs, topk_blocks=topk)
+    rq = torch.randn(Bq, 1, Hr, Dr, generator=g)
+    rk, rv = (torch.randn(Bq, S, Hr, Dr, generator=g) for _ in range(2))
+    summ = sa.block_key_summary(rk, bs)
+    kv_len = S - 37
+    rdev = [x.to(dev) for x in (rq, rk, rv, summ)]
+    Bc, Tc, C, Hc, K = MISC_DYNCONV
+    layer = dyn.DynamicConvLayer(C, K, Hc)
+    init_weights_(layer, g)
+    xc = torch.randn(Bc, Tc, C, generator=g)
+    layer_dev = dyn.DynamicConvLayer(C, K, Hc, device=dev)
+    layer_dev.load_state_dict(layer.state_dict())
+    cases = [("dilated_attention", lambda: dilated(dq, dk, dv),
+              lambda: dilated(q, k, v)),
+             ("resa rectify step", lambda: sa.resa_decode_step(
+                 *rdev[:3], rdev[3], kv_len, 0, rcfg),
+              lambda: sa.resa_decode_step(rq, rk, rv, summ, kv_len, 0,
+                                          rcfg)),
+             ("resa sparse step", lambda: sa.resa_decode_step(
+                 *rdev[:3], rdev[3], kv_len, 1, rcfg),
+              lambda: sa.resa_decode_step(rq, rk, rv, summ, kv_len, 1,
+                                          rcfg)),
+             ("dynamic_conv layer", lambda: layer_dev(xc.to(dev)),
+              lambda: layer(xc))]
+    nums = {}
+    reset_counts()
+    with torch.no_grad():
+        for name, card, cpu in cases:
+            e = cpu_rel(name, card(), cpu())
+            ms = device_ms(card, iters=5) if LAST_DEV == "cuda" else 0.0
+            nums[name] = {"rel_l2_cpu": e, "device_ms": ms}
+            phase("misc_ops", f"{name}: rel L2 to the CPU {e:.2e}; device "
+                  f"time {ms:.4f} ms")
+    launches_only(counts(), {}, "the einsum ops")
+    return {"misc_ops": nums}
+
+
+def register_kernels() -> tuple:
+    """Every launcher under its counter's name in KERNELS; returns the
+    kernel modules (da, fa, fu, pa, qm)."""
     from unilm_tpu_torch.ops import doc_attention as da
     from unilm_tpu_torch.ops import flash_attention as fa
     from unilm_tpu_torch.ops import fused as fu
@@ -11102,6 +11874,12 @@ def main() -> int:
                     "paged_attention": pa.PAGED_KERNEL,
                     "swiglu": fu.SWIGLU_KERNEL,
                     "rotary": fu.ROTARY_KERNEL})
+    return da, fa, fu, pa, qm
+
+
+def main() -> int:
+    smi = phase_device()
+    da, fa, fu, pa, qm = register_kernels()
     phase_build()
     g = torch.Generator(device="cuda").manual_seed(SEED)
     kernels = [phase_flash(fa, g), phase_onepass(fa, g),
@@ -11172,6 +11950,14 @@ def main() -> int:
     add("fcos", got)
     got, seg_nums = phase_segmentation()
     add("segmentation", got)
+    last_nums = {}
+    for name, fn in (("latentlm", phase_latentlm),
+                     ("textdiffuser2", phase_textdiffuser2),
+                     ("distill", phase_distill), ("dpo", phase_dpo)):
+        got, more = fn()
+        add(name, got)
+        last_nums.update(more)
+    last_nums.update(phase_misc_ops())
     add("yoco_chat", phase_yoco_chat(fa))
     phase_yoco_long(fa)
     cfg, sd = engine_model()
@@ -11214,7 +12000,7 @@ def main() -> int:
                                 "train_options": options, **docai_nums,
                                 **trocr_train_nums, **registry_text_nums,
                                 **registry_speech_nums, **rcnn_nums,
-                                **fcos_nums, **seg_nums}}),
+                                **fcos_nums, **seg_nums, **last_nums}}),
           flush=True)
     phase("profiler", f"{len(PROFILER_MISSES)} device_ms calls fell back "
           f"to CUDA events: {PROFILER_MISSES}; {len(PROFILER_LOST)} traces "

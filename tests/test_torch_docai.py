@@ -37,6 +37,7 @@ from unilm_tpu.runtime import train as jtrain
 from unilm_tpu_torch.convert.docai import convert_layoutlm, convert_markuplm
 from unilm_tpu_torch.convert.from_jax import flax_to_state_dict, load_flax_params
 from unilm_tpu_torch.core import attention as tcore_attention
+from unilm_tpu_torch.core.layers import same_padding
 from unilm_tpu_torch.models import layoutlm as tl1
 from unilm_tpu_torch.models import layoutlmv2 as tl2
 from unilm_tpu_torch.models import markuplm as tml
@@ -204,12 +205,13 @@ def test_conv_backbone_matches_jax(hw, channels, grid):
 
 @pytest.mark.parametrize("n", [5, 6, 7, 224, 225])
 def test_same_pad_is_flax_same(n):
-    """same_pad's (low, high) gives flax's output length ceil(n / 2) with
-    the odd pixel at the high end."""
-    lo, hi = tl2.same_pad(n)
+    """The backbone's padding (core/layers.py `same_padding` at kernel 3,
+    stride 2) gives flax's output length ceil(n / 2) with the odd pixel at
+    the high end."""
+    lo, hi = same_padding(n, 3, 2)
     assert (n + lo + hi - 3) // 2 + 1 == -(-n // 2)
     assert hi - lo in (0, 1)
-    assert tl2.same_pad(224) == (0, 1)
+    assert same_padding(224, 3, 2) == (0, 1)
 
 
 def test_visual_grid_bbox_matches_jax():

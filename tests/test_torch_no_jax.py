@@ -230,7 +230,11 @@ PORTED = {"core.config", "core.layers", "core.positional", "core.transformer",
           "models.retrieval", "models.unilm_s2s", "models.translation",
           "models.deltalm", "models.retnet", "models.diff_transformer",
           "models.wavlm", "convert.wavlm", "models.beats", "models.speecht5",
-          "models.speechlm"}
+          "models.speechlm", "models.latentlm", "models.textdiffuser",
+          "models.textdiffuser2", "ops.dilated_attention",
+          "ops.sparse_attention", "ops.dynamic_conv", "runtime.distill",
+          "runtime.preference", "data.bpe", "data.instructgen",
+          "data.vocab_adapt", "data.webdataset", "scoring_math", "native"}
 
 
 _PARALLEL = _POISON + r"""
@@ -333,6 +337,21 @@ def test_chip_smoke_names_no_jax_module():
     assert "unilm_tpu_torch.data.indexed_dataset" in names
 
 
+def test_chip_smoke_mutations_names_no_jax_module():
+    """chip_smoke_mutations.py, which runs chip_smoke's teachers against
+    broken kernels on the card, imports chip_smoke and no JAX module."""
+    with open(os.path.join(ROOT, "chip_smoke_mutations.py")) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert not [n for n in names if n.split(".")[0] in FORBIDDEN], names
+    assert "chip_smoke" in names
+
+
 def test_funsd_eval_runs_without_jax():
     """A LayoutLMv3 forward with the fused bias through the FUNSD CLI's
     evaluate_batches and score reaches no JAX module."""
@@ -415,3 +434,80 @@ def test_detection_clis_run_without_jax():
     assert lines == ["fcos 2 ['AP50', 'AP75', 'AP_class_0']",
                      "rcnn 2 ['AP50', 'AP75', 'AP_class_0']",
                      "upernet 2 ['aAcc', 'mAcc', 'mIoU']"], lines
+
+
+_LAST_SLICE = _POISON + r"""
+import numpy as np
+import torch
+from unilm_tpu_torch import native, scoring, scoring_math
+from unilm_tpu_torch.core.attention import capture_qkv
+from unilm_tpu_torch.core.config import TransformerConfig
+from unilm_tpu_torch.core.transformer import Encoder
+from unilm_tpu_torch.models import latentlm, textdiffuser, textdiffuser2
+from unilm_tpu_torch.ops import dilated_attention, dynamic_conv
+from unilm_tpu_torch.ops import sparse_attention as resa
+from unilm_tpu_torch.runtime import distill, preference
+
+torch.set_num_threads(1)
+g = torch.Generator().manual_seed(0)
+vae = latentlm.SigmaVAE(latentlm.SigmaVAEConfig(4, (8, 16)), "cpu")
+vae.init_weights(g)
+lm = latentlm.LatentLM(latentlm.LatentLMConfig(
+    vocab_size=50, embed_dim=32, num_layers=1, num_heads=4, ffn_dim=64,
+    latent_dim=4), "cpu").init_weights(g)
+z = vae.encode(torch.rand(1, 16, 16, 3, generator=g)).reshape(1, 16, 4)
+mask = torch.zeros(1, 20, dtype=torch.bool)
+mask[0, 2:18] = True
+logits, dl = lm(torch.randint(0, 50, (1, 20), generator=g), z, mask, g)
+(logits.mean() + dl).backward()
+print("latentlm", tuple(logits.shape),
+      tuple(vae.decode(lm.sample_latent(torch.randn(16, 32), g, 4)
+                       .reshape(1, 4, 4, 4)).shape))
+planner = textdiffuser2.LayoutPlannerLM(textdiffuser2.LayoutPlannerConfig(
+    embed_dim=32, ffn_dim=64, num_layers=1, num_heads=2), "cpu")
+unet = textdiffuser.TextDiffuserUNet(textdiffuser.TextDiffuserConfig(
+    img_size=16, base_channels=16, channel_mults=(1, 2), time_dim=32),
+    "cpu")
+pipe = textdiffuser2.TextDiffuser2Pipeline(
+    planner.init_weights(g), unet.init_weights(g), prompt_len=16,
+    max_new_tokens=8)
+img, layout = pipe("sale", g, steps=2)
+print("textdiffuser2", tuple(img.shape), type(layout).__name__)
+enc = Encoder(TransformerConfig(embed_dim=16, num_heads=2, ffn_dim=32,
+                                num_layers=2))
+with capture_qkv(enc) as rec:
+    enc(torch.randn(2, 8, 16, generator=g))
+qkv = distill.collect_qkv(rec)
+print("distill", len(qkv), float(distill.minilm_v2_loss(qkv[-1], qkv[0], 4))
+      >= 0)
+lp = preference.sequence_log_probs(torch.randn(2, 5, 7),
+                                   torch.randint(0, 7, (2, 5)),
+                                   torch.ones(2, 4, dtype=torch.bool))
+print("dpo", tuple(preference.dpo_loss(lp[:1], lp[1:])[0].shape))
+q = torch.randn(1, 64, 4, 8)
+print("ops", tuple(dilated_attention.dilated_attention(
+    q, q, q, segment_lengths=(16, 32), dilation_rates=(1, 2)).shape),
+    tuple(resa.resa_decode_step(q[:, :1], q, q, resa.block_key_summary(
+        q, 16), 60, 1, resa.ReSAConfig(16, 2)).shape),
+    tuple(dynamic_conv.DynamicConvLayer(16, 3, 4)(torch.randn(2, 6, 16))
+          .shape))
+s = scoring.BleuScorer()
+s.add_string("a b c d e", "a b c d e")
+print("host", round(s.score()), native.token_block_slices(
+    np.array([3, 4, 5]), "complete", 8).tolist(),
+    scoring_math.math_is_correct("so \\boxed{4}", "4")[0])
+"""
+
+
+def test_last_slice_runs_without_jax():
+    """LatentLM (train forward, backward, DDIM, the VAE), the TextDiffuser-2
+    pipeline, the q/k/v capture with MiniLM, DPO, the three einsum ops
+    and the host ops run with JAX poisoned."""
+    res = subprocess.run([sys.executable, "-c", _LAST_SLICE], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines() == [
+        "latentlm (1, 20, 50) (1, 16, 16, 3)",
+        "textdiffuser2 (1, 16, 16, 3) list", "distill 2 True", "dpo ()",
+        "ops (1, 64, 4, 8) (1, 1, 4, 8) (2, 6, 16)",
+        "host 100 [[0, 7], [7, 12]] True"], res.stdout

@@ -332,3 +332,88 @@ def test_rcnn_loss_matches_jax(tiny, monkeypatch):
     for part in ("rpn_head", "box_head_0", "box_head_2", "mask_head", "vit"):
         assert any(float(p.grad.abs().max()) > 0 for n, p in named.items()
                    if n.startswith(part) and p.grad is not None), part
+
+
+# ---- FrozenBN under the CLIs' AdamW step ------------------------------------
+
+
+def test_frozen_bn_statistics_move_in_jax_and_stay_in_the_port(monkeypatch):
+    """One step of each CLI's optimizer from the same tree: JAX's FrozenBN
+    keeps `mean` / `var` as params, so optax.adamw (cli/train_detection.py
+    :142) moves them; the port keeps them as buffers (detectron2's frozen
+    statistics), so `build_trainer`'s step leaves them. Every other leaf
+    agrees within the gradient check's 2e-5 + 1e-4 relative; an element
+    whose gradient is itself within that bound of 0 (the port's, which
+    test_rcnn_loss_matches_jax holds to JAX's) may take Adam's first step
+    (lr * sign(g)) the other way, so it is held to 2 lr."""
+    import optax
+
+    from unilm_tpu.cli import train_detection as jcli
+    from unilm_tpu.runtime.train import TrainState as JState
+    from unilm_tpu.runtime.train import make_train_step as jstep
+    from unilm_tpu_torch.cli import train_detection as tcli
+
+    args = tcli.build_parser().parse_args(
+        ["--head", "rcnn", "--tiny", "--synthetic", "--img-size", "64",
+         "--device", "cpu"])
+    cfg, jm = jcli.build_rcnn(args)
+    x = np.random.RandomState(3).rand(2, 64, 64, 3).astype(np.float32)
+    params = draw(jm, jnp.asarray(x), seed=4)
+    boxes = np.array([[[8, 8, 32, 40], [20, 4, 60, 28], [0, 0, 0, 0]],
+                      [[4, 30, 50, 62], [0, 0, 0, 0], [0, 0, 0, 0]]],
+                     np.float32)
+    labels = np.array([[0, 2, 0], [1, 0, 0]], np.int32)
+    valid = np.array([[True, True, False], [True, False, False]])
+
+    def loss_fn(p, batch, rng):
+        return jr.rcnn_loss(jm, p, batch["images"], batch["boxes"],
+                            batch["labels"], batch["valid"], rng)
+
+    tx = optax.adamw(args.lr)
+    key = jax.random.PRNGKey(0)  # the JAX CLI's key of step 0
+    jbatch = {"images": x, "boxes": boxes, "labels": labels, "valid": valid}
+    state, _ = jax.jit(jstep(loss_fn, tx, clip_grad_norm=1.0))(
+        JState.create(params, tx), jbatch, key)
+    want = flax_to_state_dict(jax.device_get(state.params))
+    before = flax_to_state_dict(params)
+
+    tr_ = tcli.build_trainer(args)
+    load_flax_params(tr_.model, params)
+    noise_keys = jax.random.split(key, 1 + len(cfg.cascade_ious))
+
+    def replay(shape, generator, device):
+        # the RPN's [B, anchors], then each stage's [B, R], JAX's draws
+        rk = noise_keys[len(drawn)]
+        drawn.append(tuple(shape))
+        return torch.from_numpy(np.stack([
+            np.asarray(jax.random.uniform(r, shape[1:]))
+            for r in jax.random.split(rk, shape[0])]))
+
+    drawn = []
+    monkeypatch.setattr(tr, "draw_noise", replay)
+    batch = {**tcli.to_device(jbatch, "cpu"), "step": 0}
+    tcli.make_loss_fn(args, cfg, "cpu")(tr_.model, batch)[0].backward()
+    grads = {n: p.grad.clone() for n, p in tr_.model.named_parameters()
+             if p.grad is not None}
+    drawn.clear()
+    tr_.step(tr_.state, batch)
+    assert len(drawn) == 1 + len(cfg.cascade_ious)
+    got = tr_.model.state_dict()
+    stats = [f"vit.fpn1_bn.running_{k}" for k in ("mean", "var")]
+    for name in stats:
+        assert not np.allclose(want[name].numpy(), before[name].numpy())
+        assert torch.equal(got[name], before[name])
+    lr = args.lr
+    for name, w in want.items():
+        if name in stats:
+            continue
+        g, w = got[name].numpy(), w.numpy()
+        off = np.abs(g - w) > 2e-5 + 1e-4 * np.abs(w)
+        if off.any():
+            gp = grads[name].numpy()
+            assert (np.abs(gp[off]) <= 2e-5 + 1e-4 * np.abs(gp).max()
+                    ).all(), name
+            assert (np.abs(g - w)[off] <= 2.01 * lr).all(), name
+    # the step moved the parameters the loss reaches
+    assert not np.allclose(got["rpn_head.conv.weight"].numpy(),
+                           before["rpn_head.conv.weight"].numpy())

@@ -35,10 +35,13 @@ axis, the scan_layers form). Leaves map as
   [I, O, kh, kw] spatially flipped, torch's `ConvTranspose2d` layout:
   flax correlates the stride-dilated input with its kernel where torch
   scatters each input through its weight (the inverse of
-  unilm_tpu/convert/detection.py `conv_transpose_nhwc`); the rule goes by
-  the module's name, as a flax ConvTranspose kernel has a Conv kernel's
-  rank (the rcnn adapters' E -> E 2x2 kernels would load unflipped
-  without an error);
+  unilm_tpu/convert/detection.py `conv_transpose_nhwc`). A flax
+  ConvTranspose kernel has a Conv kernel's rank (the rcnn adapters' E ->
+  E 2x2 kernels would load unflipped without an error), so the rule goes
+  by the destination: `load_flax_params` flips the kernel of every
+  `torch.nn.ConvTranspose2d` of the model (core/layers.py
+  `ConvTransposeNHWC`: the σ-VAE's `dec_{i}` as well), and
+  `flax_to_state_dict` without a model by the module names above;
 - `FrozenBN`'s `scale` / `bias` -> `weight` / `bias` and its statistics
   `mean` / `var` -> the buffers `running_mean` / `running_var`
   (models/rcnn.py);
@@ -82,7 +85,7 @@ for bit.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Set
 
 import numpy as np
 import torch
@@ -97,7 +100,8 @@ _SAME = {"gamma", "cls_token", "mask_token", "pos_embed",
          "relative_attention_bias", "rel_attn_embed", "gru_rel_pos_const",
          "lambda_q1", "lambda_k1", "lambda_q2", "lambda_k2", "mask_emb",
          "dec_pos", "scales"}
-# flax ConvTranspose modules by name (a kernel of a Conv kernel's rank)
+# flax ConvTranspose modules by name (a kernel of a Conv kernel's rank):
+# the rule of a conversion without a model (`conv_transpose_paths`)
 _CONV_TRANSPOSE = {"fpn1_deconv1", "fpn1_deconv2", "fpn2_deconv", "up4",
                    "up2", "deconv"}
 
@@ -135,10 +139,27 @@ def _leaf(name: str, value: np.ndarray, quant: bool, conv: str) -> tuple:
     return table[name], value
 
 
-def flax_to_state_dict(params: Mapping, ema: Optional[Mapping] = None
+def conv_transpose_paths(model: torch.nn.Module) -> Set[str]:
+    """The module paths of `model`'s ConvTranspose2d modules, whose 4-D
+    kernels `flax_to_state_dict` loads flipped."""
+    return {name for name, m in model.named_modules()
+            if isinstance(m, torch.nn.ConvTranspose2d)}
+
+
+def flax_to_state_dict(params: Mapping, ema: Optional[Mapping] = None,
+                       conv_transpose: Optional[Set[str]] = None
                        ) -> Dict[str, torch.Tensor]:
     """Flatten a flax param tree (and an `ema` collection of buffers,
-    whose leaves keep their names) into the port's state_dict names."""
+    whose leaves keep their names) into the port's state_dict names.
+    `conv_transpose`: the destination's ConvTranspose module paths
+    (`conv_transpose_paths`); without it a 4-D kernel is a ConvTranspose's
+    when its module's name is one of `_CONV_TRANSPOSE`."""
+
+    def transposed(prefix: str) -> bool:
+        if conv_transpose is None:
+            return prefix.split(".")[-2] in _CONV_TRANSPOSE
+        return prefix[:-1] in conv_transpose
+
     out: Dict[str, torch.Tensor] = {}
     if ema is not None:
         _buffers(ema, "", out)
@@ -157,8 +178,7 @@ def flax_to_state_dict(params: Mapping, ema: Optional[Mapping] = None
             conv = ""
             if key == "kernel" and arr.ndim - int(stacked) == 4:
                 conv = ("flat" if prefix.endswith("proj.") else
-                        "iohw_flip" if prefix.split(".")[-2]
-                        in _CONV_TRANSPOSE else "oihw")
+                        "iohw_flip" if transposed(prefix) else "oihw")
             elif (key == "kernel" and arr.ndim - int(stacked) == 3
                   and not stacked and ".experts." not in f".{prefix}"):
                 conv = "oik"
@@ -187,5 +207,5 @@ def load_flax_params(model: torch.nn.Module, params: Mapping,
     """Copy a flax param tree, and the `ema` collection where the model
     has one, into `model` (strict: every leaf of the trees and every
     parameter and persistent buffer of the model must be matched)."""
-    sd = flax_to_state_dict(params, ema)
+    sd = flax_to_state_dict(params, ema, conv_transpose_paths(model))
     model.load_state_dict(sd, strict=True)

@@ -39,11 +39,22 @@ this rank's block of heads (`heads_group`), the attention-probability
 dropout drawing that block's masks; the heads are joined before the
 sub-LN, or without it out_proj sums the ranks' parts. The generation
 path projects whole heads.
+
+q/k/v capture (JAX :210-216 sows them into "intermediates" in train
+mode, for MiniLM's relation distillation, runtime/distill.py): off by
+default. `capture_qkv(model)` is a context that gives every
+`MultiheadAttention` under `model` a record dict; each train-mode call
+then stores its (q, k, v) under its module path, as [B, T, H, D] after
+the projections, xPos and the qscale, before the softmax scale, without
+a detach (the student's gradients flow through them). Off, the check is
+one attribute read; on or off, the attention call and the kernel it
+launches are the same.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import contextlib
+from typing import Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -83,6 +94,25 @@ def apply_xpos(q, k, xpos):
     return (q * qscale).to(q.dtype), k
 
 
+@contextlib.contextmanager
+def capture_qkv(model: nn.Module
+                ) -> Iterator[Dict[str, Tuple[torch.Tensor, ...]]]:
+    """Within the block, every train-mode attention call under `model`
+    records its (q, k, v) in the yielded dict under the attention module's
+    path (runtime/distill.py `collect_qkv` orders them by layer); each
+    module's record is cleared when the block ends."""
+    records: Dict[str, Tuple[torch.Tensor, ...]] = {}
+    mods = [(name, m) for name, m in model.named_modules()
+            if isinstance(m, MultiheadAttention)]
+    for name, m in mods:
+        m.qkv_capture = (records, name)
+    try:
+        yield records
+    finally:
+        for _, m in mods:
+            m.qkv_capture = None
+
+
 class MultiheadAttention(nn.Module):
     """Self- or cross-attention with the JAX module's parameters: q_proj,
     k_proj, v_proj, out_proj and (sub-LN self-attention) inner_attn_ln.
@@ -94,6 +124,7 @@ class MultiheadAttention(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.self_attention = self_attention
+        self.qkv_capture = None  # (records, path) inside capture_qkv
         H, D, E = cfg.num_heads, cfg.head_dim, cfg.embed_dim
         vo_scale = (1.0 / cfg.deepnorm_init_div) * cfg.subln_init_mul
         if not self_attention and cfg.subln:
@@ -185,6 +216,9 @@ class MultiheadAttention(nn.Module):
         q, k, v = self.project(x, key, split, whole)
         if xpos is not None:
             q, k = apply_xpos(q, k, xpos)
+        if self.qkv_capture is not None:
+            records, path = self.qkv_capture
+            records[path] = (q, k, v)
         if cfg.seq_axis is not None and self.self_attention:
             if attn_bias is not None:
                 raise NotImplementedError(

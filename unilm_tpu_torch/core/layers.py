@@ -315,22 +315,50 @@ def init_weights_(module: nn.Module, generator: torch.Generator) -> None:
             m.init_params_(generator)
 
 
+def same_padding(n: int, kernel: int, stride: int) -> tuple:
+    """flax's "SAME" padding of one spatial dim of size n: (low, high) with
+    low + high = max((ceil(n / stride) - 1) stride + kernel - n, 0) and
+    low = total // 2 (lax.padtype_to_pads). Odd totals pad one more at
+    the end, so a 3x3 stride-2 conv over an even size pads (0, 1), not
+    torch's symmetric (1, 1)."""
+    total = max((-(-n // stride) - 1) * stride + kernel - n, 0)
+    return total // 2, total - total // 2
+
+
 class ConvNHWC(nn.Conv2d):
-    """flax nn.Conv over NHWC activations with a torch OIHW weight
-    (convert/from_jax.py maps the flax HWIO kernel): stride 1, "SAME"
-    padding of an odd kernel (k // 2 on each side), computing in the
-    weight's dtype (flax promotes a bf16 input to its float32 params).
-    `init_params_` draws flax's lecun-normal scale, normal(fan_in^-0.5),
-    and zero bias."""
+    """flax nn.Conv with "SAME" padding over NHWC activations with a torch
+    OIHW weight (convert/from_jax.py maps the flax HWIO kernel), at any
+    stride, computing in the weight's dtype (flax promotes a bf16 input to
+    its float32 params). Stride 1 with an odd kernel pads k // 2 on each
+    side inside the conv; any other geometry pads `same_padding` with
+    F.pad before an unpadded conv, so odd and even sizes both give flax's
+    output. `dtype`: the compute dtype of a flax Conv given one (None:
+    the weight's). `init_params_` draws flax's lecun-normal scale,
+    normal(fan_in^-0.5), and zero bias."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel: int,
-                 bias: bool = True, device=None):
-        super().__init__(in_ch, out_ch, kernel, padding=kernel // 2,
-                         bias=bias, device=device)
+                 bias: bool = True, stride: int = 1, dtype=None,
+                 device=None):
+        inner = stride == 1 and kernel % 2 == 1
+        super().__init__(in_ch, out_ch, kernel, stride=stride,
+                         padding=kernel // 2 if inner else 0, bias=bias,
+                         device=device)
+        self.inner_pad = inner
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
-        return super().forward(x).permute(0, 2, 3, 1)
+        dt = self.compute_dtype or self.weight.dtype
+        x = x.to(dt).permute(0, 3, 1, 2)
+        if not self.inner_pad:
+            k, s = self.kernel_size[0], self.stride[0]
+            (ht, hb), (wl, wr) = (same_padding(n, k, s) for n in x.shape[2:])
+            x = F.pad(x, (wl, wr, ht, hb))
+        if dt == self.weight.dtype:
+            y = super().forward(x)
+        else:
+            y = self._conv_forward(x, self.weight.to(dt), None if self.bias
+                                   is None else self.bias.to(dt))
+        return y.permute(0, 2, 3, 1)
 
     def init_params_(self, generator: torch.Generator) -> None:
         self.weight.normal_(0.0, self.weight[0].numel() ** -0.5,
@@ -339,20 +367,39 @@ class ConvNHWC(nn.Conv2d):
             self.bias.zero_()
 
 
-class ConvTransposeNHWC(nn.ConvTranspose2d):
-    """flax nn.ConvTranspose with kernel == strides (an upsampling by the
-    kernel size) over NHWC activations. The torch weight is [I, O, kh, kw]
-    and scatters (out[s i + a] += in[i] w[a]); flax correlates the dilated
-    input with its [kh, kw, I, O] kernel, so the torch weight is that
-    kernel transposed and spatially flipped (convert/from_jax.py). Computes
-    in the weight's dtype; `init_params_` as `ConvNHWC`'s."""
+def conv_transpose_padding(kernel: int, stride: int) -> tuple:
+    """flax nn.ConvTranspose's "SAME" padding (lax `_conv_transpose_padding`)
+    of the stride-dilated input: (low, high), summing to kernel + stride -
+    2, so that the output is n * stride."""
+    total = kernel + stride - 2
+    low = kernel - 1 if stride > kernel - 1 else -(-total // 2)
+    return low, total - low
 
-    def __init__(self, in_ch: int, out_ch: int, kernel: int, device=None):
-        super().__init__(in_ch, out_ch, kernel, stride=kernel, device=device)
+
+class ConvTransposeNHWC(nn.ConvTranspose2d):
+    """flax nn.ConvTranspose with "SAME" padding over NHWC activations: an
+    upsampling by `stride` (default: the kernel size), output n * stride.
+    The torch weight is [I, O, kh, kw] and scatters (out[s i + a] +=
+    in[i] w[a]); flax correlates the dilated input, padded by
+    `conv_transpose_padding`, with its [kh, kw, I, O] kernel, so the torch
+    weight is that kernel transposed and spatially flipped
+    (convert/from_jax.py), and torch's `padding` is kernel - 1 - low (k = 4,
+    s = 2: 1). A high side longer than the low one is torch's
+    `output_padding`; a shorter one is cropped from the end. Computes in
+    the weight's dtype; `init_params_` as `ConvNHWC`'s."""
+
+    def __init__(self, in_ch: int, out_ch: int, kernel: int,
+                 stride: Optional[int] = None, device=None):
+        stride = kernel if stride is None else stride
+        low, high = conv_transpose_padding(kernel, stride)
+        super().__init__(in_ch, out_ch, kernel, stride=stride,
+                         padding=kernel - 1 - low,
+                         output_padding=max(high - low, 0), device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n_h, n_w = x.shape[1] * self.stride[0], x.shape[2] * self.stride[1]
         x = x.to(self.weight.dtype).permute(0, 3, 1, 2)
-        return super().forward(x).permute(0, 2, 3, 1)
+        return super().forward(x)[:, :, :n_h, :n_w].permute(0, 2, 3, 1)
 
     def init_params_(self, generator: torch.Generator) -> None:
         fan_in = self.weight.shape[0] * self.weight[0, 0].numel()

@@ -26,6 +26,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from unilm_tpu_torch.core.layers import same_padding
+
 LOGIT_LAPLACE_EPS = 0.1
 
 
@@ -33,13 +35,6 @@ def map_pixels(x: torch.Tensor) -> torch.Tensor:
     """dall_e/utils.py map_pixels: squeeze [0, 1] into the logit-Laplace
     range."""
     return (1.0 - 2.0 * LOGIT_LAPLACE_EPS) * x + LOGIT_LAPLACE_EPS
-
-
-def same_padding(n: int, k: int, s: int):
-    """flax / lax "SAME" padding of one spatial axis: (low, high)."""
-    out = -(-n // s)
-    total = max((out - 1) * s + k - n, 0)
-    return total // 2, total - total // 2
 
 
 class Conv2d(nn.Module):

@@ -24,7 +24,7 @@ relation-extraction head (port of unilm_tpu/models/layoutlmv2.py:
 
 Three details of the flax modules the port keeps:
 - `nn.Conv(padding="SAME", strides=2)` pads an even side by (0, 1), not
-  torch's symmetric `padding=1` (`same_pad`);
+  torch's symmetric `padding=1` (core/layers.py `same_padding`);
 - flax's GroupNorm epsilon is 1e-6;
 - `jax.image.resize(..., "bilinear")` antialiases when it shrinks:
   `F.interpolate(..., antialias=True)` computes the same triangle filter
@@ -53,7 +53,7 @@ from torch import nn
 
 from unilm_tpu_torch.core.config import TransformerConfig
 from unilm_tpu_torch.core.layers import (dropout, head_dense, init_weights_,
-                                         training_rng)
+                                         same_padding, training_rng)
 from unilm_tpu_torch.core.positional import relative_position_bucket
 from unilm_tpu_torch.core.transformer import Encoder
 from unilm_tpu_torch.models.layoutlmv3 import (SpatialEmbedding, embed_table,
@@ -101,14 +101,6 @@ class LayoutLMv2Config:
         return self.image_feature_pool_shape[0] * self.image_feature_pool_shape[1]
 
 
-def same_pad(n: int) -> Tuple[int, int]:
-    """(low, high) padding of one side of length n under flax's "SAME" for
-    the backbone's 3-wide kernels at stride 2: the output has ceil(n / 2)
-    positions and the odd pixel of padding goes to the high end."""
-    total = max((-(-n // 2) - 1) * 2 + 3 - n, 0)
-    return total // 2, total - total // 2
-
-
 class ConvBackbone(nn.Module):
     """The visual stream's feature extractor: per channel count, a 3x3
     stride-2 conv with flax's SAME padding, GroupNorm(min(32, C), eps 1e-6)
@@ -129,7 +121,7 @@ class ConvBackbone(nn.Module):
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         x = images.float().permute(0, 3, 1, 2)
         for i in range(len(self.cfg.backbone_channels)):
-            (h0, h1), (w0, w1) = same_pad(x.shape[2]), same_pad(x.shape[3])
+            (h0, h1), (w0, w1) = (same_padding(n, 3, 2) for n in x.shape[2:])
             x = getattr(self, f"conv_{i}")(F.pad(x, (w0, w1, h0, h1)))
             x = F.relu(getattr(self, f"gn_{i}")(x))
         gh, gw = self.cfg.image_feature_pool_shape

@@ -1,32 +1,22 @@
-"""Evaluation scorers (the port's own copy of what its slices use from
-unilm_tpu/scoring.py): seqeval-style entity P/R/F1, `extract_entities` :86
-and `entity_f1` :100; ImageNet top-k accuracy, `accuracy_topk` :114;
-TrOCR's character and word error rates, `cer` :33 and `wer` :45.
+"""Evaluation scorers (the port's copy of unilm_tpu/scoring.py):
+seqeval-style entity P/R/F1, `extract_entities` :86 and `entity_f1` :100;
+ImageNet top-k accuracy, `accuracy_topk` :114; TrOCR's character and word
+error rates, `cer` :33 and `wer` :45; corpus BLEU-4, `BleuScorer` :55;
+the IoU of two boxes, `box_iou` :124, and phrase grounding's R@k,
+`grounding_recall` :133.
 
-The edit distance is a copy of the pure-numpy fallback of
-unilm_tpu/native/__init__.py `edit_distance` :83 (the JAX package builds
-a C++ library for it; the port builds none)."""
+The edit distance and the BLEU n-gram counts are native/__init__.py's
+numpy ops (the JAX package can build a C++ library for them; the port
+builds none)."""
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import math
+from typing import Dict, List, Sequence, Tuple
 
 import numpy as np
 
-
-def edit_distance(a: Sequence[int], b: Sequence[int]) -> int:
-    """Levenshtein distance between two int sequences."""
-    a = np.asarray(a, np.int32)
-    b = np.asarray(b, np.int32)
-    prev = np.arange(len(b) + 1, dtype=np.int64)
-    for i in range(1, len(a) + 1):
-        cur = np.empty(len(b) + 1, np.int64)
-        cur[0] = i
-        sub = prev[:-1] + (a[i - 1] != b)
-        for j in range(1, len(b) + 1):
-            cur[j] = min(prev[j] + 1, cur[j - 1] + 1, sub[j - 1])
-        prev = cur
-    return int(prev[len(b)])
+from unilm_tpu_torch.native import bleu_counts, edit_distance
 
 
 def _word_ids(a: List[str], b: List[str]):
@@ -93,3 +83,58 @@ def entity_f1(true: List[List[str]], pred: List[List[str]]) -> Dict[str, float]:
     rec = tp / max(tp + fn, 1)
     f1 = 2 * prec * rec / max(prec + rec, 1e-9)
     return {"precision": prec, "recall": rec, "f1": f1}
+
+
+class BleuScorer:
+    """Corpus BLEU-4 with brevity penalty (libbleu semantics)."""
+
+    def __init__(self):
+        self.counts = np.zeros(8, np.int64)
+        self.ref_len = 0
+        self.hyp_len = 0
+
+    def add(self, ref: Sequence[int], hyp: Sequence[int]):
+        ref = np.asarray(ref, np.int32)
+        hyp = np.asarray(hyp, np.int32)
+        bleu_counts(ref, hyp, self.counts)
+        self.ref_len += len(ref)
+        self.hyp_len += len(hyp)
+
+    def add_string(self, ref: str, hyp: str):
+        table: Dict = {}
+        enc = lambda s: [table.setdefault(w, len(table)) for w in s.split()]
+        self.add(enc(ref), enc(hyp))
+
+    def score(self) -> float:
+        logs = 0.0
+        for n in range(4):
+            match, total = self.counts[2 * n], self.counts[2 * n + 1]
+            if total == 0 or match == 0:
+                return 0.0
+            logs += math.log(match / total)
+        bp = min(0.0, 1.0 - self.ref_len / max(self.hyp_len, 1))
+        return 100.0 * math.exp(logs / 4.0 + bp)
+
+
+def box_iou(a, b) -> float:
+    """IoU of two (x0, y0, x1, y1) boxes."""
+    ix0, iy0 = max(a[0], b[0]), max(a[1], b[1])
+    ix1, iy1 = min(a[2], b[2]), min(a[3], b[3])
+    inter = max(ix1 - ix0, 0.0) * max(iy1 - iy0, 0.0)
+    area = (a[2] - a[0]) * (a[3] - a[1]) + (b[2] - b[0]) * (b[3] - b[1]) - inter
+    return inter / area if area > 0 else 0.0
+
+
+def grounding_recall(
+    predictions: List[List[Tuple[float, float, float, float]]],
+    references: List[Tuple[float, float, float, float]],
+    iou_threshold: float = 0.5,
+    topk: int = 1,
+) -> float:
+    """R@k for phrase grounding (kosmos-2 flickr / refcoco evaluation):
+    prediction i's top-k boxes against reference box i."""
+    hit = 0
+    for preds, ref in zip(predictions, references):
+        if any(box_iou(p, ref) >= iou_threshold for p in preds[:topk]):
+            hit += 1
+    return hit / max(len(references), 1)
