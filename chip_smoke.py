@@ -316,6 +316,15 @@ seconds since the script started ("[flash 35s] ..."):
     norm only); printed beside it, the same with JAX's flash delta from
     the bf16 out, and after the steps the plain path against itself with
     its weights perturbed by 2^-11.
+    trocr_small / trocr_small_int8 / trocr_small_train (after
+    trocr_train): the same three for trocr_small (a 12-layer DeiT of 6
+    heads of 64 at 384, the 6-layer E=256 decoder of 8 heads of 32):
+    cli/trocr_infer.py --arch trocr_small --bf16 --beam 5 [--int8] at B=1
+    and B=32, 12 #3 at D = 64 an encode, 6 #5 and 6 #3 at D = 32 a
+    prefill, 6 #3 and 6 #13 at D = 32 a step (int8 61 / 49 #14), against
+    the plain path as trocr's; the fine-tune step's 18 #3, 18 #4 (12 at
+    D = 64, 6 at D = 32), 6 #5, 6 #6 and 6 #7 at D = 32, its teacher at
+    trocr_train's bounds.
     spm: cli/trocr_eval.py --spm tests/fixtures/tiny_digits.model on its
     synthetic lines (the CLI's full-width model at 64 px), beam 5: per
     batch 12 #3 + 12 #5 + 12 #3 in encode and prefill, 12 #3 + 12 #13 a
@@ -486,14 +495,24 @@ seconds since the script started ("[flash 35s] ..."):
     backbone (12 #1), DDIM over every slot and the VAE's decode; the
     TextDiffuser-2 pipeline's greedy plan (4 #5 a planner call), its
     render and a UNet diffusion_loss step (no kernel); MiniLM v2
-    distillation e5_base -> MiniLM-L6-H384 over 32 ragged rows (18 #9
-    and 5 #10 a step; the q/k/v capture's forward launches equal to an
-    uncaptured one's); a DPO step on kosmos2's text decoder, policy and
+    distillation e5_base -> MiniLM-L6-H384's published student (12 heads
+    of 32) over 32 ragged rows (18 #9, 12 at D = 64 and 6 at D = 32, and
+    5 #10 at D = 32 a step; the q/k/v capture's forward launches equal to
+    an uncaptured one's); a DPO step on kosmos2's text decoder, policy and
     reference (48 #1 + 24 #6 + 24 #7); LongNet's dilated attention, a
     ReSA decode step and DynamicConv in float32 (no kernel). Each against
     its plain path (or the CPU in float32), with ms, peak memory and a
     step's device time by kernel group. The total time since the start
     is printed before the JSON lines.
+d32_kernels (right after paged): every attention launcher at head_dim
+32 against its plain version, bf16 and fp32, at the D = 32 paths' shapes
+(the distill student's #9 / #10, TrOCR-Small's #3 / #4 / #5 / #6 / #7 /
+#13 bf16 and int8) and off the paths (#1 / #2 / #8 at 2x2048x64x32
+causal + kpm, #11 / #12 at 16 heads of 32), one table of cases
+(`d32_cases`); each launch tallied at its head dim (`by_head_dim`, which
+the main-path phases also read); bf16 timed beside the plain version,
+the library call and the bound (`attn_bound`, `flash_bwd_bounds`,
+`decode_bound`: the functions every phase's bounds come from).
 Then a JSON line of the two int8 paths', the TrOCR paths', the
 Kosmos-2 paths', the BEiT family's, search's, train_options', Document
 AI's, TrOCR fine-tuning's, the registry slice's and the detection
@@ -531,7 +550,9 @@ encoder_attention_bwd, onepass_attention and decode_attention, rcnn for
 flash_fwd, flash_bwd_dq and flash_bwd_dkv, fcos and segmentation for
 encoder_attention and encoder_attention_bwd, latentlm and dpo for
 flash_fwd, flash_bwd_dq and flash_bwd_dkv, textdiffuser2 for
-onepass_attention, distill for doc_attention and doc_attention_bwd),
+onepass_attention, distill for doc_attention and doc_attention_bwd,
+trocr_small, trocr_small_int8 and trocr_small_train as their trocr
+twins), the D = 32 cases under "d32" (every attention launcher),
 error, the TrOCR shapes under "trocr" (encoder_attention,
 decode_attention, int8_matmul), the Kosmos-2 shapes under "kosmos2"
 (encoder_attention, encoder_attention_bwd, onepass_attention,
@@ -694,6 +715,12 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "fp32": 67e12}
 
 KERNELS = {}  # JSON name -> CudaKernel (its launch counter)
 
+def by_head_dim() -> dict:
+    """{kernel: {D: launches}} since reset_counts(): each attention
+    wrapper names its head dim at the launch (CudaKernel.by_head_dim)."""
+    return {k: dict(sorted(kern.by_head_dim.items()))
+            for k, kern in sorted(KERNELS.items()) if kern.by_head_dim}
+
 
 def roofline(nbytes: float, ops: float, kind: str = "bf16") -> dict:
     """{"bound_ms", "bound_by"}: the least time the card could take to move
@@ -708,6 +735,38 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
+def attn_bound(pairs: float, D: int, products: int, *tensors,
+               kind: str = "bf16") -> dict:
+    """An attention kernel's bound: the `tensors` its call reads or writes,
+    each once, and `products` matrix products of 2 D operations over each
+    of its `pairs` visible (query, key) pairs: a forward makes two (S = Q
+    Kᵀ, P V), a one-call backward five (S, dP, dQ, dK, dV)."""
+    return roofline(nbytes(*tensors), products * 2 * pairs * D, kind)
+
+
+def flash_bwd_bounds(pairs: float, q, k, v, do, lse, mask, dq, dk, dv,
+                     kind: str = "bf16") -> tuple:
+    """#6's and #7's bounds on one backward's tensors: each reads q, k, v,
+    dout, lse, delta (lse's size) and the mask; #6 writes dq over three
+    products (S, dP, dQ), #7 dk and dv over four (S, dP, dK, dV)."""
+    D, ins = q.shape[-1], (q, k, v, do, lse, lse, mask)
+    return (attn_bound(pairs, D, 3, *ins, dq, kind=kind),
+            attn_bound(pairs, D, 4, *ins, dk, dv, kind=kind))
+
+
+def decode_bound(rows: float, B: int, H: int, D: int, item: int,
+                 new_rows: bool, extra: float = 0,
+                 kind: str = "bf16") -> dict:
+    """A decode kernel's bound (#11, #12, #13): `rows` K and V rows of
+    `item`-byte elements read in all; B bf16 queries read and outputs
+    written; with `new_rows`, B new K / V rows read and written to the pool
+    too; `extra` bytes (lengths, scale slabs); 4 D operations a row and
+    head."""
+    return roofline(2 * rows * H * D * item
+                    + (4 if new_rows else 2) * B * H * D * 2 + extra,
+                    4 * rows * H * D, kind)
+
+
 def sdpa(q, k, v, **kw):
     """torch's scaled_dot_product_attention on [B, T, H, D] tensors: the
     library yardstick (library_ms), timed here and used nowhere in the
@@ -719,6 +778,7 @@ def sdpa(q, k, v, **kw):
 def reset_counts() -> None:
     for kern in KERNELS.values():
         kern.launches = 0
+        kern.by_head_dim.clear()
 
 
 def counts() -> dict:
@@ -1116,7 +1176,7 @@ def phase_flash(fa, g) -> dict:
                 q, k, v, attn_mask=mask[:, None, None, :], scale=1.0))
             pairs = B * H * T * float(mask.sum())
         out, lse = fwd()
-        bd = roofline(nbytes(q, k, v, mask, out, lse), 4 * pairs * D)
+        bd = attn_bound(pairs, D, 2, q, k, v, mask, out, lse)
         tflops = 4 * pairs * D / ms / 1e9
         timed[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           tflops=tflops, **bd)
@@ -1423,7 +1483,7 @@ def phase_flash_tri(fa, g) -> dict:
                          iters=3)
     lib_ms = device_ms(lambda: sdpa(q, k, v, is_causal=True, scale=1.0))
     pairs = causal_pairs(mask, H)
-    bd = roofline(nbytes(q, k, v, mask, out, lse), 4 * pairs * D)
+    bd = attn_bound(pairs, D, 2, q, k, v, mask, out, lse)
     tflops = 4 * pairs * D / ms / 1e9
     phase("flash_tri", f"{B}x{T}x{H}x{D} causal+kpm bf16: rel L2 out "
           f"{r_o:.2e} lse {r_l:.2e}, two runs bit-equal; device time: kernel "
@@ -1585,8 +1645,8 @@ def phase_flash_bwd_fused(fa, g) -> dict:
     pairs = causal_pairs(mask, H)
     delta = fa._delta(out, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    bd = roofline(nbytes(q, k, v, do, lse, delta, mask.int(), dq, dk, dv),
-                  5 * 2 * pairs * D)
+    bd = attn_bound(pairs, D, 5, q, k, v, do, lse, delta, mask.int(), dq, dk,
+                    dv)
     phase("flash_bwd_fused", f"{B}x{T}x{H}x{D} causal+kpm bf16 (rows 0-2 of "
           f"example 1 fully masked): max|err|/rel L2 {', '.join(errs)}, two "
           f"runs bit-equal; kernel #8 {ms:.4f} / {ms2:.4f} ms "
@@ -1678,7 +1738,7 @@ def phase_encoder_attn(fa, g) -> dict:
         plain_ms = device_ms(lambda: fa.fused_encoder_attention_plain(
             q, k, v, b), iters=3)
         out = kern()
-        bd = roofline(nbytes(q, k, v, out, b), 4 * B * H * T * T * D)
+        bd = attn_bound(B * H * T * T, D, 2, q, k, v, out, b)
         tflops = 4 * B * H * T * T * D / ms / 1e9
         timed[key] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           tflops=tflops, **bd)
@@ -1802,7 +1862,7 @@ def phase_encoder_bwd(fa, g) -> dict:
                            .multi_processor_count)
     dq, dk, dv, dbias = fa.fused_encoder_backward(q, k, v, b, do)
     flops = 10 * B * H * T * T * D
-    bd = roofline(nbytes(q, k, v, do, b, dq, dk, dv, dbias), flops)
+    bd = attn_bound(B * H * T * T, D, 5, q, k, v, do, b, dq, dk, dv, dbias)
     phase("encoder_bwd", f"BEiT-B {B}x{T}x{H}x{D} bf16, bias [1,{H},{T},{T}]"
           f": kernel {times['kernel']:.4f} ms (CUDA events; device time "
           f"{dev_ms:.4f} ms, {flops / dev_ms / 1e9:.1f} TFLOP/s; "
@@ -1968,7 +2028,7 @@ def phase_doc_attn(da, g) -> dict:
     dev["kernel2"] = device_ms(kern, only="doc_fwd")
     out = kern()
     flops = 4 * B * H * T * T * D
-    bd = roofline(nbytes(q, k, v, out, b.hbts, mask), flops)
+    bd = attn_bound(B * H * T * T, D, 2, q, k, v, out, b.hbts, mask)
     phase("doc_attn", f"FUNSD {B}x{T}x{H}x{D} bf16, head-major bias "
           f"[{H},{B},{T},{T}], mask: kernel {times['kernel']:.4f} ms "
           f"({flops / times['kernel'] / 1e9:.1f} TFLOP/s), plain "
@@ -1988,7 +2048,7 @@ def phase_doc_attn(da, g) -> dict:
                                  only="doc_fwd"),
              "sdpa": device_ms(lambda: sdpa(q, k, v, attn_mask=bm,
                                             scale=1.0))}
-    tbd = roofline(nbytes(q, k, v, q, mask), 4 * B * H * T * T * D)
+    tbd = attn_bound(B * H * T * T, D, 2, q, k, v, q, mask)  # out: q's size
     phase("doc_attn", f"tower {B}x{T}x{H}x{D} bf16, mask, scale 1.0: device "
           f"time kernel {tower['kernel']:.4f} ms, sdpa (bool mask) "
           f"{tower['sdpa']:.4f} ms, bound {tbd['bound_ms']:.4f} ms "
@@ -2074,7 +2134,8 @@ def phase_doc_bwd(da, g) -> dict:
     del o, qg, kg, vg, am
     dq, dk, dv, dbias = da.doc_backward(q, k, v, b, mask, do)
     flops = 10 * B * H * T * T * D
-    bd = roofline(nbytes(q, k, v, do, b.hbts, mask, dq, dk, dv, dbias), flops)
+    bd = attn_bound(B * H * T * T, D, 5, q, k, v, do, b.hbts, mask, dq, dk,
+                    dv, dbias)
     phase("doc_bwd", f"FUNSD {B}x{T}x{H}x{D} bf16, head-major bias, mask: "
           f"kernel {times['kernel']:.4f} ms ({flops / times['kernel'] / 1e9:.1f}"
           f" TFLOP/s), plain {times['plain']:.4f} ms, sdpa backward "
@@ -2347,9 +2408,7 @@ def phase_flash_bwd(fa, g) -> dict:
     lib_ms = times["sdpa"]
     pairs = causal_pairs(mask, H)  # visible (query, key)
     product = 2 * pairs * D  # operations of one product over them
-    ins = nbytes(q, k, v, do, lse, delta, mi)
-    bd_dq = roofline(ins + nbytes(dq), 3 * product)
-    bd_dkv = roofline(ins + nbytes(dk, dv), 4 * product)
+    bd_dq, bd_dkv = flash_bwd_bounds(pairs, q, k, v, do, lse, mi, dq, dk, dv)
     tf = lambda n, ms: n * product / ms / 1e9
     phase("flash_bwd", f"{B}x{T}x{H}x{D} causal+kpm bf16, device time: #6 "
           f"dq {dq_ms:.4f} / {times['dq2']:.4f} ms ({tf(3, dq_ms):.1f} "
@@ -2456,8 +2515,7 @@ def phase_decode(pa, g) -> dict:
         q1, kn1, vn1, kp1, vp1, b1, L1, PP, None, chunk))
     plain_ms = device_ms(lambda: pa.run_decode_append_attention_plain(
         q1, kn1, vn1, kp1, vp1, b1, L1, PP, None, chunk))
-    L = PROMPT + 1
-    bd = roofline(2 * L * H * D * 2 + 4 * H * D * 2, 4 * H * L * D)
+    bd = decode_bound(PROMPT + 1, 1, H, D, 2, new_rows=True)
     phase("decode", f"B1 L{PROMPT} H16 D96, device time: kernel alone "
           f"{kernel_ms:.4f} ms back to back, {kernel_cold:.4f} ms with L2 "
           f"flushed; sdpa over the run {lib_ms:.4f} / {lib_cold:.4f} ms "
@@ -3765,8 +3823,8 @@ def phase_decode_int8(pa, g) -> dict:
     # over int8 rows with a scale sidecar (library_ms null)
     L = 2048
     slabs = B * PP // chunk
-    bd = roofline(2 * B * L * H * D + slabs * sp[0].numel() * 4
-               + 4 * B * H * D * 2, 4 * B * H * L * D)
+    bd = decode_bound(B * L, B, H, D, 1, new_rows=True,
+                      extra=slabs * sp[0].numel() * 4)
     phase("decode_int8", f"B8 L2047 H16 D96, device time: kernel alone "
           f"{kernel_ms:.4f} ms back to back, {kernel_cold:.4f} ms with L2 "
           f"flushed ({kernel_cold / bd['bound_ms']:.2f}x the bound); with "
@@ -4155,9 +4213,9 @@ def phase_decode_int8_bs1(qm, pa, g) -> tuple:
             "max_abs_err": err13, "nsplit": plan["nsplit"],
             "kernel_only_ms": device_ms(alone, only=DECODE_ONLY),
             "kernel_only_ms_l2_flushed": cold_ms(alone, DECODE_ONLY),
-            **roofline(Bc * (2 * Lc * H * D + -(-Lc // (chunk * page)) * 8
-                             * chunk * page * 4 + 4 * H * D * 2),
-                       4 * Bc * H * Lc * D)}
+            **decode_bound(Bc * Lc, Bc, H, D, 1, new_rows=True,
+                           extra=Bc * -(-Lc // (chunk * page)) * 8 * chunk
+                           * page * 4)}
         phase(name, f"#13-int8 {key} H{H} D{D} page {page} chunk {chunk}: "
               f"{plan['nsplit']} split(s) a head (decode_split_plan at B{Bc},"
               f" {n_sm} SMs; spans {spans}), out max|err| {err13:.3g}, the "
@@ -4415,11 +4473,9 @@ TROCR_GROUPS = [("#3", [ENCODER_ONLY]), ("#13", [DECODE_ONLY]),
                 ("#14", [INT8_ONLY, "int8_matmul"]), ("#5", [ONEPASS_ONLY]),
                 ("cuBLAS", ["gemm", "xmma", "cutlass", "nvjet", "cublas",
                             "splitK"])]
-# int8 projections of the decoder a forward: prefill q/k/v/out of self-
-# and cross-attention and fc1/fc2 (10 a layer) + the head; a decode step
-# reads the cross K/V from the cache (8 a layer) + the head
-TROCR_PREFILL_14 = 10 * TROCR_LAYERS + 1
-TROCR_STEP_14 = 8 * TROCR_LAYERS + 1
+# the decoder layers of each TrOCR the smoke drives (trocr_small's 8 heads
+# of 32 take the kernels' D = 32 instantiations)
+TROCR_ARCH = {"trocr_base": TROCR_LAYERS, "trocr_small": 6}
 
 
 def phase_trocr_kernels(fa, pa, qm, g, dev: str = "cuda") -> dict:
@@ -4493,8 +4549,7 @@ def phase_trocr_kernels(fa, pa, qm, g, dev: str = "cuda") -> dict:
            "plain_ms": device_ms(lambda: pa.run_decode_append_attention_plain(
                q, kn, vn, kp, vp, bases, lengths, PP, None, chunk), iters=3),
            "library_ms": device_ms(lib), "library_ms_l2_flushed": cold_ms(lib),
-           **roofline(Bc * (2 * (L + 1) * H * D * 2 + 2 * H * D * 2),
-                      4 * Bc * H * (L + 1) * D)}
+           **decode_bound(Bc * (L + 1), Bc, H, D, 2, new_rows=False)}
     phase(name, f"#13 {k13['shape']}, device time: kernel {k13['ms']:.4f} ms "
           f"back to back, {k13['ms_l2_flushed']:.4f} flushed; sdpa over the "
           f"runs {k13['library_ms']:.4f} / {k13['library_ms_l2_flushed']:.4f};"
@@ -4531,7 +4586,7 @@ def phase_trocr_kernels(fa, pa, qm, g, dev: str = "cuda") -> dict:
             "plain_ms": device_ms(lambda: fa.flash_forward_onepass_plain(
                 q, k, v, None, None, 0, None, **kw), iters=3),
             "library_ms": device_ms(lib), "library_ms_l2_flushed": cold_ms(lib),
-            **roofline(nbytes(q, k, v, out, lse), 4 * B * H * D)}
+            **attn_bound(B * H, D, 2, q, k, v, out, lse)}
         phase(name, f"#5 {r['shape']}: out max|err| {e_o:.3g}, lse max|err| "
               f"{e_l:.3g} (tol {OUT_ATOL} abs + {OUT_RTOL} rel, lse "
               f"{LSE_ATOL}); device time {r['ms']:.4f} ms back to back, "
@@ -4564,7 +4619,7 @@ def phase_trocr_kernels(fa, pa, qm, g, dev: str = "cuda") -> dict:
             "plain_ms": device_ms(lambda: fa.fused_encoder_attention_plain(
                 q, k, v), iters=3),
             "library_ms": device_ms(lib), "library_ms_l2_flushed": cold_ms(lib),
-            **roofline(nbytes(q, k, v, out), 4 * B * Hh * T * S * D)}
+            **attn_bound(B * Hh * T * S, D, 2, q, k, v, out)}
         phase(name, f"#3 {key} {r['shape']}: rel L2 {e:.3g} (bound 1e-2); "
               f"device time {r['ms']:.4f} ms back to back, "
               f"{r['ms_l2_flushed']:.4f} flushed; sdpa {r['library_ms']:.4f}"
@@ -4604,22 +4659,24 @@ def phase_trocr_kernels(fa, pa, qm, g, dev: str = "cuda") -> dict:
             "int8_matmul": {"trocr": k14}}
 
 
-def trocr_pipeline(int8: bool):
-    """cli/trocr_infer.py's build_pipeline for trocr_base bf16, beam 5,
-    32 new tokens (random weights from seed 0; --int8 when asked), with
+def trocr_pipeline(int8: bool, arch: str = "trocr_base"):
+    """cli/trocr_infer.py's build_pipeline for `arch` (--arch) bf16, beam
+    5, 32 new tokens (random weights from seed 0; --int8 when asked), with
     min_new_tokens 32 so that every line takes its 31 decode steps."""
     from unilm_tpu_torch.cli import trocr_infer
-    from unilm_tpu_torch.models.trocr import trocr_base
+    from unilm_tpu_torch.models import trocr as trocr_models
 
-    argv = ["--image", "unused", "--bf16", "--beam", str(TROCR_BEAM),
-            "--max_new_tokens", str(TROCR_NEW)] + (["--int8"] if int8 else [])
+    argv = ["--image", "unused", "--arch", arch, "--bf16", "--beam",
+            str(TROCR_BEAM), "--max_new_tokens", str(TROCR_NEW)] + (
+                ["--int8"] if int8 else [])
     pipe = trocr_infer.build_pipeline(trocr_infer.build_parser().parse_args(
         argv))
     pipe.gcfg = dataclasses.replace(pipe.gcfg, min_new_tokens=TROCR_NEW)
-    want = trocr_base(dtype=torch.bfloat16, quant_weights=int8)
-    check(pipe.model.cfg == want and want.dec_layers == TROCR_LAYERS
+    want = getattr(trocr_models, arch)(dtype=torch.bfloat16,
+                                       quant_weights=int8)
+    check(pipe.model.cfg == want and want.dec_layers == TROCR_ARCH[arch]
           and want.num_patches + 2 == TROCR_S,
-          f"trocr: config {pipe.model.cfg}")
+          f"{arch}: config {pipe.model.cfg}")
     return pipe
 
 
@@ -4638,13 +4695,17 @@ def trocr_plain(model):
     return plain
 
 
-def phase_trocr(qm, int8: bool) -> tuple:
-    """TrOCR-Base beam-search OCR through cli/trocr_infer.py's pipeline
-    (bf16; `int8`: --int8) on synthetic 384x384 images made on the card,
-    at B=1 and B=32: launches exact (12 #3 per encode; the prefill 12 #5
-    for the 1-token prompt's self-attention and 12 #3 over the encoder;
-    12 #3 and 12 #13 a decode step; under int8 121 #14 in the prefill and
-    97 a step, else none); the cross K/V [B, 12, 578, 16, 64] neither
+def phase_trocr(qm, int8: bool, arch: str = "trocr_base") -> tuple:
+    """TrOCR beam-search OCR (`arch`: trocr_base, or trocr_small with its
+    8 decoder heads of 32) through cli/trocr_infer.py's pipeline (bf16;
+    `int8`: --int8) on synthetic 384x384 images made on the card, at B=1
+    and B=32: launches exact, and each at its head dim (trocr_base: 12 #3
+    per encode; the prefill 12 #5 for the 1-token prompt's self-attention
+    and 12 #3 over the encoder; 12 #3 and 12 #13 a decode step; under
+    int8 121 #14 in the prefill and 97 a step, else none; trocr_small: 12
+    #3 at D = 64 an encode, 6 #5 and 6 #3 at D = 32 a prefill, 6 #3 and
+    6 #13 at D = 32 a step, int8 61 and 49 #14); the cross K/V [B, L, 578,
+    H, D] neither
     tiled nor copied by a beam step (one data_ptr from prefill to the
     last step); ms/batch and lines/s (host clock, TROCR_TIMED calls);
     device time a B*5-row decode step by kernel group beside the search
@@ -4657,11 +4718,13 @@ def phase_trocr(qm, int8: bool) -> tuple:
     from unilm_tpu_torch.models.trocr import make_generate_fns
     from unilm_tpu_torch.runtime import generate as gen_mod
 
-    name = "trocr_int8" if int8 else "trocr"
+    name = ("trocr" if arch == "trocr_base" else arch) + (
+        "_int8" if int8 else "")
     t0 = time.time()
-    pipe = trocr_pipeline(int8)
+    pipe = trocr_pipeline(int8, arch)
     model, cfg, dev = pipe.model, pipe.model.cfg, pipe.device
     L, K, P = cfg.dec_layers, TROCR_BEAM, 1
+    E, De = cfg.enc_layers, cfg.enc_dim // cfg.enc_heads
     Hd, Dh = cfg.dec_heads, cfg.dec_dim // cfg.dec_heads
     n_bytes = sum(t.numel() * t.element_size()
                   for t in model.state_dict().values())
@@ -4669,7 +4732,10 @@ def phase_trocr(qm, int8: bool) -> tuple:
           f"{TROCR_NEW}{' --int8' if int8 else ''}: {time.time() - t0:.1f} s;"
           f" {n_bytes / 1e9:.3f} GB of weights; cache {pipe.cache_size} "
           f"slots")
-    per14 = (TROCR_PREFILL_14, TROCR_STEP_14) if int8 else (0, 0)
+    # int8: the decoder's quantized projections (self q, k, v, out, cross
+    # q, k, v, out, fc1, fc2 a layer in the prefill; a step reuses the
+    # cross K/V) and the head
+    per14 = (10 * L + 1, 8 * L + 1) if int8 else (0, 0)
     prefill, step = pipe.prefill, pipe.step
     seen = {"steps": 0, "ptrs": set()}
 
@@ -4701,15 +4767,18 @@ def phase_trocr(qm, int8: bool) -> tuple:
         with torch.no_grad():
             enc_feats = model.encode(imgs)
         torch.cuda.synchronize()
-        enc_counts = counts()
+        enc_counts, enc_d = counts(), by_head_dim()
         reset_counts()
         toks, scores = pipe.generate(imgs)
         torch.cuda.synchronize()
         pipe.prefill, pipe.step = prefill, step
         got, pre, S = counts(), seen["prefill"], seen["steps"]
-        check(enc_counts["encoder_attention"] == L
-              and sum(enc_counts.values()) == L,
-              f"{name}: B={B} encode launched {enc_counts} (want {L} of #3)")
+        got_d = by_head_dim()
+        check(enc_counts["encoder_attention"] == E
+              and sum(enc_counts.values()) == E
+              and enc_d == {"encoder_attention": {De: E}},
+              f"{name}: B={B} encode launched {enc_counts}, by head dim "
+              f"{enc_d} (want {E} of #3 at D = {De})")
         # generate: the encode, the prefill (#5 for the prompt's self-
         # attention, #3 over the encoder output), then S steps
         check(tuple(toks.shape) == (B, K, P + TROCR_NEW) and S == TROCR_NEW - 1
@@ -4717,17 +4786,23 @@ def phase_trocr(qm, int8: bool) -> tuple:
               and bool((scores[:, :-1] >= scores[:, 1:]).all()),
               f"{name}: B={B} tokens {tuple(toks.shape)}, {S} steps, scores "
               f"{scores[0].tolist()}")
-        want_pre = {"encoder_attention": 2 * L, "onepass_attention": L,
+        want_pre = {"encoder_attention": E + L, "onepass_attention": L,
                     "int8_matmul": per14[0]}
-        want = {"encoder_attention": 2 * L + L * S, "onepass_attention": L,
+        want = {"encoder_attention": E + L + L * S, "onepass_attention": L,
                 "decode_attention": L * S,
                 "int8_matmul": per14[0] + per14[1] * S}
+        want_d = {"decode_attention": {Dh: L * S},
+                  "encoder_attention": {De: E},
+                  "onepass_attention": {Dh: L}}
+        want_d["encoder_attention"][Dh] = (
+            want_d["encoder_attention"].get(Dh, 0) + L + L * S)
         check(all(pre[k] == v for k, v in want_pre.items())
               and pre["decode_attention"] == 0
               and all(got[k] == v for k, v in want.items())
-              and sum(got.values()) == sum(want.values()),
-              f"{name}: B={B} launches {got}, prefill {pre} (want {want}, "
-              f"prefill {want_pre})")
+              and sum(got.values()) == sum(want.values())
+              and got_d == want_d,
+              f"{name}: B={B} launches {got}, prefill {pre}, by head dim "
+              f"{got_d} (want {want}, prefill {want_pre}, {want_d})")
         check(len(seen["ptrs"]) == 1
               and seen["shape"] == (B, L, TROCR_S, Hd, Dh),
               f"{name}: B={B} cross K/V seen at {len(seen['ptrs'])} "
@@ -4777,12 +4852,12 @@ def phase_trocr(qm, int8: bool) -> tuple:
         dev_step = sum(groups.values())
         host_step = ms / (S + 1)  # the encode shared out
         phase(name, f"B={B} beam {K}: {S} steps; launches #3 "
-              f"{got['encoder_attention']} ({L} an encode, {L} in the "
+              f"{got['encoder_attention']} ({E} an encode, {L} in the "
               f"prefill, {L} a step), #5 "
               f"{got['onepass_attention']} (the prefill), #13 "
               f"{got['decode_attention']} ({L} a step), #14 "
-              f"{got['int8_matmul']}; cross K/V {cross_gb:.3f} GB, one "
-              f"address from prefill to step {S}")
+              f"{got['int8_matmul']}; by head dim {got_d}; cross K/V "
+              f"{cross_gb:.3f} GB, one address from prefill to step {S}")
         phase(name, f"B={B}: {ms:.1f} ms/batch (host clock, median of "
               + ", ".join(f"{w:.1f}" for w in walls) + f") -> "
               f"{B * 1e3 / ms:.2f} lines/s; device time a {B * K}-row step "
@@ -4959,7 +5034,7 @@ def phase_kosmos2_kernels(fa, pa, g, dev: str = "cuda") -> dict:
                 "plain_ms": device_ms(lambda: fa.fused_encoder_attention_plain(
                     q, k, v), iters=3),
                 **lib_pair(lambda: sdpa(q, k, v)),
-                **roofline(nbytes(q, k, v, out), 4 * B * H * T * S * D)}
+                **attn_bound(B * H * T * S, D, 2, q, k, v, out)}
             phase(name, f"#3 {key} {r['shape']}: rel L2 {e:.3g} (bound "
                   f"1e-2); device time {r['ms']:.4f} ms back to back, "
                   f"{r['ms_l2_flushed']:.4f} flushed; sdpa "
@@ -4992,8 +5067,7 @@ def phase_kosmos2_kernels(fa, pa, g, dev: str = "cuda") -> dict:
                     q, k, v, None, do), iters=3),
                 "library": f"sdpa backward ({type(o.grad_fn).__name__})",
                 **lib_pair(lib),
-                **roofline(nbytes(q, k, v, do, *got[:3]),
-                           10 * B * H * T * S * D)}
+                **attn_bound(B * H * T * S, D, 5, q, k, v, do, *got[:3])}
             phase(name, f"#4 {key} {r['shape']}: worst rel L2 "
                   f"{worst_rel:.3g} (bound 1e-2); device time {r['ms']:.4f} "
                   f"ms back to back, {r['ms_l2_flushed']:.4f} flushed; "
@@ -5026,8 +5100,7 @@ def phase_kosmos2_kernels(fa, pa, g, dev: str = "cuda") -> dict:
             "plain_ms": device_ms(lambda: fa.flash_forward_onepass_plain(
                 q, k, v, causal=True), iters=3),
             **lib_pair(lambda: sdpa(q, k, v, is_causal=True, scale=1.0)),
-            **roofline(nbytes(q, k, v, out, lse),
-                       4 * B * H * D * P * (P + 1) / 2)}
+            **attn_bound(B * H * P * (P + 1) / 2, D, 2, q, k, v, out, lse)}
         phase(name, f"#5 {r['shape']}: out max|err| {e_o:.3g}, lse max|err|"
               f" {e_l:.3g} (tol {OUT_ATOL} abs + {OUT_RTOL} rel, lse "
               f"{LSE_ATOL}); device time {r['ms']:.4f} ms back to back, "
@@ -5076,9 +5149,8 @@ def phase_kosmos2_kernels(fa, pa, g, dev: str = "cuda") -> dict:
                     q, kn, vn, kp2, vp2, bases, lengths, PP, None, chunk),
                 iters=3),
             **lib_pair(lambda: sdpa(q, run(kp), run(vp))),
-            **roofline(sum(2 * (n + 1) * H * D * 2 + 2 * H * D * 2
-                           for n in lens),
-                       4 * H * D * sum(n + 1 for n in lens))}
+            **decode_bound(sum(n + 1 for n in lens), len(lens), H, D, 2,
+                           new_rows=False)}
         phase(name, f"#13 {r['shape']}: out max|err| {err:.3g} (tol "
               f"{OUT_ATOL} abs + {OUT_RTOL} rel), pools bit-equal; device "
               f"time {r['ms']:.4f} ms back to back, {r['ms_l2_flushed']:.4f} "
@@ -5602,22 +5674,23 @@ def randn(g, *shape, dtype=torch.bfloat16, dev: str = "cuda"):
     return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
 
-def kernel_timed(kern, plain, lib, only, moved, ops, kind: str = "bf16",
+def kernel_timed(kern, plain, lib, only, bound: dict,
                  flushed: bool = False) -> dict:
     """A kernel's device time beside its plain version's, the library
-    call's and the bound (`roofline(moved, ops, kind)`); with `flushed`,
-    the kernel and the library call also with L2 flushed."""
+    call's (None without `lib`) and the `bound` (attn_bound,
+    flash_bwd_bounds or decode_bound); with `flushed`, the kernel and the
+    library call also with L2 flushed."""
     r = {"ms": device_ms(kern, only=only)}
     if flushed:
         r["ms_l2_flushed"] = cold_ms(kern, only)
     r["plain_ms"] = device_ms(plain, iters=3)
-    r["library_ms"] = device_ms(lib)
-    if flushed:
+    r["library_ms"] = device_ms(lib) if lib else None
+    if flushed and lib:
         r["library_ms_l2_flushed"] = cold_ms(lib)
-    return {**r, **roofline(moved, ops, kind)}
+    return {**r, **bound}
 
 
-def kernel_line(name: str, key: str, r: dict, tol: float = None) -> None:
+def kernel_line(name: str, key: str, r: dict, tol=None) -> None:
     """Print a `kernel_timed` row of the phase `name`."""
     cold = "ms_l2_flushed" in r
     phase(name, f"{key} {r['shape']}: rel L2 {r['rel_l2']:.3g}"
@@ -5627,8 +5700,11 @@ def kernel_line(name: str, key: str, r: dict, tol: float = None) -> None:
           + f"; device time {r['ms']:.4f} ms"
           + (f" back to back, {r['ms_l2_flushed']:.4f} flushed" if cold
              else "")
-          + f"; {r['library']} {r['library_ms']:.4f}"
-          + (f" / {r['library_ms_l2_flushed']:.4f}" if cold else "")
+          + f"; {r['library']}"
+          + (f" {r['library_ms']:.4f}" if r["library_ms"] is not None
+             else "")
+          + (f" / {r['library_ms_l2_flushed']:.4f}"
+             if "library_ms_l2_flushed" in r else "")
           + f"; plain {r['plain_ms']:.4f}; bound {r['bound_ms']:.5f} "
           f"({r['bound_by']}, {r['ms'] / r['bound_ms']:.2f}x)")
 
@@ -5678,8 +5754,8 @@ def phase_beit_family_kernels(fa, da, g, dev: str = "cuda") -> dict:
             **timed(lambda: fa.fused_encoder_attention(q, k, v, bias=bias),
                     lambda: fa.fused_encoder_attention_plain(q, k, v, bias),
                     lambda: sdpa(q, k, v, attn_mask=bias), ENCODER_ONLY,
-                    nbytes(q, k, v, out, bias), 4 * B * H * T * T * D,
-                    "fp32" if fp32 else "bf16")}
+                    attn_bound(B * H * T * T, D, 2, q, k, v, out, bias,
+                               kind="fp32" if fp32 else "bf16"))}
         line(f"#3 {key}", r, tol)
         del q, k, v, out, ref
 
@@ -5709,7 +5785,7 @@ def phase_beit_family_kernels(fa, da, g, dev: str = "cuda") -> dict:
             **timed(lambda: da.doc_attention(q, k, v, None, mask),
                     lambda: da.doc_attention_plain(q, k, v, None, mask),
                     lambda: sdpa(q, k, v, attn_mask=mask[:, None, None, :]),
-                    "doc_fwd", nbytes(q, k, v, out, mask), 4 * pairs * D)}
+                    "doc_fwd", attn_bound(pairs, D, 2, q, k, v, out, mask))}
         line(f"#9 {key}", r, 1e-2)
         del q, k, v, out, ref
 
@@ -5739,8 +5815,8 @@ def phase_beit_family_kernels(fa, da, g, dev: str = "cuda") -> dict:
                 lambda: fa.fused_encoder_backward_plain(q, k, v, b, do),
                 lambda: torch.autograd.grad(o, (qg, kg, vg, bg), dot,
                                             retain_graph=True),
-                ENC_BWD_ONLY, nbytes(q, k, v, do, b, *got),
-                10 * B * H * T * T * D)}
+                ENC_BWD_ONLY,
+                attn_bound(B * H * T * T, D, 5, q, k, v, do, b, *got))}
     line("#4 beit2", r, 1e-2)
     del q, k, v, do, b, got, want, o, qg, kg, vg, bg
     torch.cuda.empty_cache()
@@ -6263,8 +6339,7 @@ def phase_paged_append(pa, g) -> dict:
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms (both write the "
           f"row)")
     # no torch call reads K/V through a block table (library_ms null)
-    L = 2048
-    bd = roofline(2 * B * L * H * D * 2 + 4 * B * H * D * 2, 4 * B * H * L * D)
+    bd = decode_bound(B * 2048, B, H, D, 2, new_rows=True)
     phase("paged_append", f"B8 L2047 bound {bd['bound_ms']:.5f} ms "
           f"({bd['bound_by']})")
     return {"name": "paged_append_attention", "route": "cuda",
@@ -6349,8 +6424,8 @@ def phase_paged(pa, g) -> dict:
         plain_ms = device_ms(lambda: pa.paged_decode_attention_plain(
             q, kp, vp, tables, L), iters=10)
         n = sum(lens)
-        bd = roofline(2 * n * H * D * 2 + 2 * B * H * D * 2 + B * 4,
-                      4 * n * H * D, "fp32")
+        bd = decode_bound(n, B, H, D, 2, new_rows=False, extra=B * 4,
+                          kind="fp32")
         res[name] = (ms, plain_ms, bd, ms_cold)
         phase("paged", f"bf16 {name} (sum L {n}): kernel {ms_cold:.4f} ms "
               f"device time with L2 flushed ({ms_cold / bd['bound_ms']:.2f}x "
@@ -8301,8 +8376,8 @@ def phase_docai_kernels(fa, da, g, dev: str = "cuda") -> dict:
                     lambda: da.doc_attention_plain(q, k, v, b, mask),
                     lambda: sdpa(q, k, v, attn_mask=am), "doc_fwd" if not fp32
                     else "encoder_attn_kernel",
-                    nbytes(q, k, v, out, b, mask), 4 * pairs * D,
-                    "fp32" if fp32 else "bf16")}
+                    attn_bound(pairs, D, 2, q, k, v, out, b, mask,
+                               kind="fp32" if fp32 else "bf16"))}
         line(f"#9 {key}", r)
         del out, ref
         if not fp32:
@@ -8330,8 +8405,8 @@ def phase_docai_kernels(fa, da, g, dev: str = "cuda") -> dict:
                         lambda: da.doc_backward_plain(q, k, v, b, mask, do),
                         lambda: torch.autograd.grad(o, ins, do.transpose(1, 2),
                                                     retain_graph=True),
-                        "doc_bwd", nbytes(q, k, v, do, b, mask, *got),
-                        10 * pairs * D)}
+                        "doc_bwd",
+                        attn_bound(pairs, D, 5, q, k, v, do, b, mask, *got))}
             line(f"#10 {key}", r)
             del got, want, o, qg, kg, vg, amg
         del q, k, v, do, b, mask, am
@@ -8356,7 +8431,7 @@ def phase_docai_kernels(fa, da, g, dev: str = "cuda") -> dict:
                 **timed(lambda: fa.fused_encoder_attention(q, k, v),
                         lambda: fa.fused_encoder_attention_plain(q, k, v),
                         lambda: sdpa(q, k, v), ENCODER_ONLY,
-                        nbytes(q, k, v, out), 4 * B * Hk * T_ * S * D)}
+                        attn_bound(B * Hk * T_ * S, D, 2, q, k, v, out))}
             line("#3 trocr cross", r)
             del out, ref
         got = fa.fused_encoder_backward(q, k, v, None, do)
@@ -8379,8 +8454,8 @@ def phase_docai_kernels(fa, da, g, dev: str = "cuda") -> dict:
                     lambda: torch.autograd.grad(o, (qg, kg, vg),
                                                 do.transpose(1, 2),
                                                 retain_graph=True),
-                    ENC_BWD_ONLY, nbytes(q, k, v, do, *got),
-                    10 * B * Hk * T_ * S * D)}
+                    ENC_BWD_ONLY,
+                    attn_bound(B * Hk * T_ * S, D, 5, q, k, v, do, *got))}
         line(f"#4 trocr {key}", r)
         del q, k, v, do, got, want, o, qg, kg, vg
 
@@ -8405,8 +8480,8 @@ def phase_docai_kernels(fa, da, g, dev: str = "cuda") -> dict:
         **timed(lambda: fa.flash_forward_onepass(q, k, v, causal=True),
                 lambda: fa.flash_forward_onepass_plain(q, k, v, causal=True),
                 lambda: sdpa(q, k, v, is_causal=True, scale=1.0),
-                ONEPASS_ONLY, nbytes(q, k, v, out, lse),
-                4 * causal_pairs_ * D)}
+                ONEPASS_ONLY,
+                attn_bound(causal_pairs_, D, 2, q, k, v, out, lse))}
     line("#5 trocr self", r)
     got = fa.flash_backward(q, k, v, None, None, 0, None, out, lse, do,
                             causal=True)
@@ -8428,20 +8503,15 @@ def phase_docai_kernels(fa, da, g, dev: str = "cuda") -> dict:
     plain = lambda: fa.flash_backward_plain(q, k, v, None, None, 0, None,
                                             out, lse, do, causal=True)
     lib_ms, plain_ms = device_ms(lib), device_ms(plain, iters=3)
-    # as phase_flash_bwd counts them: dq (#6) 3 products a pair (the
-    # scores, dP, dS K), dk/dv (#7) 4 (the scores, dP, P^T dO, dS^T Q)
-    for kname, only, moved, ops in (
-            ("flash_bwd_dq", "flash_bwd_dq", nbytes(q, k, v, do, lse, got[0]),
-             6 * causal_pairs_ * D),
-            ("flash_bwd_dkv", "flash_bwd_dkv",
-             nbytes(q, k, v, do, lse, got[1], got[2]),
-             8 * causal_pairs_ * D)):
+    # as phase_flash_bwd counts them (flash_bwd_bounds)
+    for kname, bd in zip(("flash_bwd_dq", "flash_bwd_dkv"), flash_bwd_bounds(
+            causal_pairs_, q, k, v, do, lse, None, *got[:3])):
         r = k67[kname] = {
             "shape": f"{B}x{T}x{T}x{Hs}x{D} bf16, causal, on #5's out/lse",
             "rel_l2": worst_rel, "max_abs_err": worst_abs,
             "library": f"sdpa backward ({type(o.grad_fn).__name__}), the "
             "whole dq/dk/dv", "library_ms": lib_ms, "plain_ms": plain_ms,
-            "ms": device_ms(bwd, only=only), **roofline(moved, ops)}
+            "ms": device_ms(bwd, only=kname), **bd}
         line(f"#{6 if kname.endswith('dq') else 7} trocr self", r)
     del q, k, v, do, out, lse, got, want, o, qg, kg, vg
     torch.cuda.empty_cache()
@@ -8676,15 +8746,19 @@ def trocr_train_batch(cfg, rng: np.random.RandomState, dev) -> dict:
             "tokens": torch.from_numpy(tokens).to(dev)}
 
 
-def phase_trocr_train() -> tuple:
-    """TrOCR-Base fine-tuning at full width (trocr_base(), bf16 compute /
-    fp32 params, random weights from the seed):
+def phase_trocr_train(arch: str = "trocr_base") -> tuple:
+    """TrOCR fine-tuning at full width (`arch`: trocr_base(), or
+    trocr_small() with its 8 decoder heads of 32; bf16 compute / fp32
+    params, random weights from the seed):
     runtime/train.teacher_forced_loss (label smoothing 0.1, pads masked)
     through runtime.train.make_train_step, AdamW lr 2e-5 wd 0.01, clip
     1.0, on TROCR_TRAIN_B synthetic lines; TROCR_TRAIN_STEPS steps at dropout 0
-    and as many at DROPOUT. Exactly 24 #3 (12 encoder, 12 cross), 24 #4,
-    12 #5 (the causal self-attention), 12 #6 and 12 #7 a step at both
-    rates (attention_dropout is 0: every call keeps its kernel); ms/step,
+    and as many at DROPOUT. Exactly E + L #3 (E encoder layers, L decoder
+    cross-attentions), E + L #4, L #5 (the causal self-attention), L #6
+    and L #7 a step at both rates, each at its head dim (trocr_base: 24,
+    24, 12, 12, 12 at D = 64; trocr_small: 18 #3 and 18 #4, 12 of them at
+    D = 64 and 6 at D = 32, 6 #5, #6 and #7 at D = 32); attention_dropout
+    is 0: every call keeps its kernel; ms/step,
     lines/s, peak memory, a step's device time by group. A teacher check
     of one batch at dropout 0 at the initial weights: the kernel path
     against the bf16 plain path at the train teacher's bounds, every
@@ -8701,23 +8775,34 @@ def phase_trocr_train() -> tuple:
     Returns (launches, numbers)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from unilm_tpu_torch.models.trocr import TrOCRModel, trocr_base
+    from unilm_tpu_torch.models import trocr as trocr_models
+    from unilm_tpu_torch.models.trocr import TrOCRModel
     from unilm_tpu_torch.ops import flash_attention as fa
     from unilm_tpu_torch.runtime import optim, train
 
     dev = torch.device("cuda")
-    cfg = trocr_base(dtype=torch.bfloat16)
-    n = TROCR_LAYERS
-    per_step = {"encoder_attention": 2 * n, "encoder_attention_bwd": 2 * n,
+    name = "trocr_train" if arch == "trocr_base" else f"{arch}_train"
+    cfg = getattr(trocr_models, arch)(dtype=torch.bfloat16)
+    n, E = cfg.dec_layers, cfg.enc_layers
+    De, Dd = cfg.enc_dim // cfg.enc_heads, cfg.dec_dim // cfg.dec_heads
+    check(n == TROCR_ARCH[arch], f"{name}: {n} decoder layers")
+    per_step = {"encoder_attention": E + n, "encoder_attention_bwd": E + n,
                 "onepass_attention": n, "flash_bwd_dq": n,
                 "flash_bwd_dkv": n}
+    # the encoder's E calls at its head dim, the decoder's at its own
+    enc = {De: E}
+    enc[Dd] = enc.get(Dd, 0) + n
+    per_step_d = {"encoder_attention": enc, "encoder_attention_bwd": enc,
+                  "onepass_attention": {Dd: n}, "flash_bwd_dq": {Dd: n},
+                  "flash_bwd_dkv": {Dd: n}}
     base = TrOCRModel(cfg, device=dev).init_weights(
         torch.Generator(device=dev).manual_seed(SEED))
     rng = np.random.RandomState(SEED)
     batch = trocr_train_batch(cfg, rng, dev)
-    phase("trocr_train", f"trocr_base fine-tuning: DeiT-B/16 at "
-          f"{cfg.img_size} ({TROCR_S} encoder tokens), the {n}-layer E="
-          f"{cfg.dec_dim} decoder, vocab {cfg.vocab_size}, bf16 / fp32 "
+    phase(name, f"{arch} fine-tuning: a {E}-layer DeiT/16 of "
+          f"{cfg.enc_heads} heads of {De} at {cfg.img_size} ({TROCR_S} "
+          f"encoder tokens), the {n}-layer E={cfg.dec_dim} decoder of "
+          f"{cfg.dec_heads} heads of {Dd}, vocab {cfg.vocab_size}, bf16 / fp32 "
           f"params, {sum(p.numel() for p in base.parameters()) / 1e6:.1f} M "
           f"params; B={TROCR_TRAIN_B}, targets of 32-{TROCR_TRAIN_T} tokens")
     launches, nums = {}, {}
@@ -8743,14 +8828,18 @@ def phase_trocr_train() -> tuple:
             losses.append(float(mt["loss"]))
         ev[1].record()
         torch.cuda.synchronize()
-        got = counts()
+        got, got_d = counts(), by_head_dim()
         launches_only(got, {k: v * TROCR_TRAIN_STEPS
                             for k, v in per_step.items()},
                       f"{TROCR_TRAIN_STEPS} steps at dropout {rate}")
+        want_d = {k: {d: c * TROCR_TRAIN_STEPS for d, c in v.items()}
+                  for k, v in per_step_d.items()}
+        check(got_d == want_d, f"{name}: launches by head dim {got_d} "
+              f"(want {want_d})")
         for k, v in got.items():
             if v:
                 launches[k] = launches.get(k, 0) + v
-        check(all(np.isfinite(losses)), f"trocr_train: losses {losses}")
+        check(all(np.isfinite(losses)), f"{name}: losses {losses}")
         ms = ev[0].elapsed_time(ev[1]) / (TROCR_TRAIN_STEPS - 1)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         with profile(activities=[ProfilerActivity.CPU,
@@ -8758,7 +8847,7 @@ def phase_trocr_train() -> tuple:
             state, _ = step(state, batch)
             torch.cuda.synchronize()
         parts = device_time_shares(prof, TROCR_TRAIN_GROUPS)
-        phase("trocr_train", f"dropout {rate}: losses "
+        phase(name, f"dropout {rate}: losses "
               f"{', '.join(f'{x:.4f}' for x in losses)}; a step launches "
               f"{per_step}; {ms:.2f} ms/step (CUDA events, steps 2-"
               f"{TROCR_TRAIN_STEPS}), {TROCR_TRAIN_B * 1e3 / ms:.1f} lines/s, "
@@ -8806,7 +8895,7 @@ def phase_trocr_train() -> tuple:
     res_f = grads_of(init, use_flash=False, dtype=torch.float32)
     check(counts() == c1 and all(c1[k] - c0[k] == v
                                  for k, v in per_step.items()),
-          f"trocr_train teacher: launches {c0} -> {c1} -> {counts()}")
+          f"{name} teacher: launches {c0} -> {c1} -> {counts()}")
 
     # the same with JAX's flash delta, rowsum(dO out) from the bf16 out:
     # #6 / #7 swapped for their twin given it (printed, not held)
@@ -8819,14 +8908,14 @@ def phase_trocr_train() -> tuple:
         res_j = grads_of(init)
     finally:
         fa.flash_backward = kernel_backward
-    phase("trocr_train", f"initial weights, min per-tensor gradient cosine "
+    phase(name, f"initial weights, min per-tensor gradient cosine "
           f"to the float32 plain path: kernel path {min_cos(res_k, res_f)}, "
           f"bf16 plain path {min_cos(res_p, res_f)}; with JAX's delta from "
           f"the bf16 out {min_cos(res_j, res_f)}, to the bf16 plain path "
           f"{min_cos(res_j, res_p)}")
     t = grads_teacher("initial weights", res_k, res_p, names,
                       skip=("k_proj.bias",))
-    phase("trocr_train", f"teacher check at the initial weights against the "
+    phase(name, f"teacher check at the initial weights against the "
           f"bf16 plain path: loss rel {t['loss_rel']:.2e} (tol "
           f"{TEACHER_LOSS_REL}), grad norm rel {t['norm_rel']:.2e} (tol "
           f"{TEACHER_NORM_REL}), min cosine {t['min_cos']:.5f} ({t['worst']}, "
@@ -8840,14 +8929,14 @@ def phase_trocr_train() -> tuple:
     res_k = grads_of(trained)
     res_p = grads_of(trained, use_flash=False)
     res_q = grads_of(trained, perturb=2 ** -11, use_flash=False)
-    phase("trocr_train", f"after the {TROCR_TRAIN_STEPS + 1} steps at dropout "
+    phase(name, f"after the {TROCR_TRAIN_STEPS + 1} steps at dropout "
           f"0, min per-tensor gradient cosine: kernel path to the bf16 plain "
           f"path {min_cos(res_k, res_p)}; the bf16 plain path to itself with "
           f"the weights perturbed by 2^-11 {min_cos(res_p, res_q)}")
     del res_k, res_p, res_q, trained, init
     del base, batch
     torch.cuda.empty_cache()
-    return launches, {"trocr_train": nums}
+    return launches, {name: nums}
 
 
 def phase_spm() -> dict:
@@ -9466,8 +9555,8 @@ def phase_ring(fa) -> tuple:
                                       retain_graph=True)
     lib_ms = device_ms(lib, iters=5)
     pairs = float(cm.int().sum()) * Tl * H
-    bd = roofline(nbytes(cq, ck, cv, cdo, clse, cdelta, cm, cq, ck, cv),
-                  5 * 2 * pairs * D)
+    bd = attn_bound(pairs, D, 5, cq, ck, cv, cdo, clse, cdelta, cm, cq, ck,
+                    cv)
     phase("ring", f"#6 / #7 with the ring's delta, one off-diagonal chunk "
           f"({B}x{Tl} over {Tl} keys, H={H}, D={D}, bf16, the mask): device "
           f"time #6 {dev_dq:.4f} / {dev_dq2:.4f} ms (#6 taking its own "
@@ -9606,7 +9695,7 @@ def phase_registry_kernels(fa, da, pa, g, dev: str = "cuda") -> dict:
             **timed(lambda: fa.fused_encoder_attention(q, k, v, bias=bias),
                     lambda: fa.fused_encoder_attention_plain(q, k, v, bias),
                     lambda: sdpa(q, k, v, attn_mask=bias), ENCODER_ONLY,
-                    nbytes(q, k, v, out, bias), 4 * B * H * T * T * D)}
+                    attn_bound(B * H * T * T, D, 2, q, k, v, out, bias))}
         line(f"#3 {key}", r, 1e-2)
         del q, k, v, out, ref
 
@@ -9626,8 +9715,8 @@ def phase_registry_kernels(fa, da, pa, g, dev: str = "cuda") -> dict:
         **timed(lambda: da.doc_attention(q, k, v, None, mask),
                 lambda: da.doc_attention_plain(q, k, v, None, mask),
                 lambda: sdpa(q, k, v, attn_mask=mask[:, None, None, :]),
-                "doc_fwd", nbytes(q, k, v, out, mask),
-                4 * float(mask.sum()) * T * H * D)}}
+                "doc_fwd", attn_bound(float(mask.sum()) * T * H, D, 2, q, k, v,
+                                      out, mask))}}
     line("#9 e5", k9["e5"], 1e-2)
     del q, k, v, out, ref
 
@@ -9664,8 +9753,7 @@ def phase_registry_kernels(fa, da, pa, g, dev: str = "cuda") -> dict:
         "plain_ms": device_ms(lambda: pa.run_decode_append_attention_plain(
             q, kn, vn, kp, vp, bases, lengths, PP, None, chunk), iters=3),
         "library_ms": device_ms(lib), "library_ms_l2_flushed": cold_ms(lib),
-        **roofline(Bc * (2 * (L + 1) * H * D * 2 + 2 * H * D * 2),
-                   4 * Bc * H * (L + 1) * D)}}
+        **decode_bound(Bc * (L + 1), Bc, H, D, 2, new_rows=False)}}
     r = k13["unilm_beam"]
     phase(name, f"#13 {r['shape']}: out max|err| {err:.3g} (tol {OUT_ATOL} "
           f"abs + {OUT_RTOL} rel, lengths {min(lens)}-{max(lens)}), pools "
@@ -10423,7 +10511,8 @@ def phase_detection_kernels(fa, g, dev: str = "cuda") -> dict:
             **kernel_timed(lambda: fa.flash_forward(q, k, v),
                            lambda: fa.flash_forward_plain(q, k, v),
                            lambda: sdpa(q, k, v, scale=1.0), "flash_fwd",
-                           nbytes(q, k, v, out, lse), 4 * pairs * D, kind)}
+                           attn_bound(pairs, D, 2, q, k, v, out, lse,
+                                      kind=kind))}
         line(f"#1 rcnn {tag}", r, tol)
         got = fa.flash_backward(q, k, v, None, None, 0, None, out, lse, do)
         want = fa.flash_backward_plain(q, k, v, None, None, 0, None, out,
@@ -10444,19 +10533,17 @@ def phase_detection_kernels(fa, g, dev: str = "cuda") -> dict:
         lib_ms = device_ms(lib)
         plain_ms = device_ms(lambda: fa.flash_backward_plain(
             q, k, v, None, None, 0, None, out, lse, do), iters=3)
-        # phase_flash_bwd's counts: dq 3 products a pair, dk/dv 4
-        for kname, moved, ops in (
-                ("flash_bwd_dq", nbytes(q, k, v, do, lse, got[0]),
-                 6 * pairs * D),
-                ("flash_bwd_dkv", nbytes(q, k, v, do, lse, got[1], got[2]),
-                 8 * pairs * D)):
+        # phase_flash_bwd's counts (flash_bwd_bounds)
+        for kname, bd in zip(("flash_bwd_dq", "flash_bwd_dkv"),
+                             flash_bwd_bounds(pairs, q, k, v, do, lse, None,
+                                              *got[:3], kind=kind)):
             r = k67.setdefault(kname, {})[f"rcnn_{tag}"] = {
                 "shape": f"{B}x{S}x{S}x{H}x{D} {tag}, non-causal, on #1's "
                 "out/lse", "rel_l2": worst_rel, "max_abs_err": worst_abs,
                 "library": f"sdpa backward ({type(o.grad_fn).__name__}), "
                 "the whole dq/dk/dv", "library_ms": lib_ms,
                 "plain_ms": plain_ms, "ms": device_ms(bwd, only=kname),
-                **roofline(moved, ops, kind)}
+                **bd}
             line(f"#{6 if kname.endswith('dq') else 7} rcnn {tag}", r, tol)
         del q, k, v, do, out, lse, ref, rlse, got, want, o, qg, kg, vg
 
@@ -10482,7 +10569,7 @@ def phase_detection_kernels(fa, g, dev: str = "cuda") -> dict:
                     lambda: fa.fused_encoder_attention(q, k, v, bias=bias),
                     lambda: fa.fused_encoder_attention_plain(q, k, v, bias),
                     lambda: sdpa(q, k, v, attn_mask=bias), ENCODER_ONLY,
-                    nbytes(q, k, v, out, bias), 4 * pairs * D, kind)}
+                    attn_bound(pairs, D, 2, q, k, v, out, bias, kind=kind))}
             line(f"#3 {key} {tag}", r, tol)
             got = fa.fused_encoder_backward(q, k, v, bias, do)
             want = fa.fused_encoder_backward_plain(q, k, v, bias, do)
@@ -10512,8 +10599,9 @@ def phase_detection_kernels(fa, g, dev: str = "cuda") -> dict:
                                                             do),
                     lambda: torch.autograd.grad(o, ins, do.transpose(1, 2),
                                                 retain_graph=True),
-                    ENC_BWD_ONLY, nbytes(q, k, v, do, bias, *got),
-                    10 * pairs * D, kind)}
+                    ENC_BWD_ONLY,
+                    attn_bound(pairs, D, 5, q, k, v, do, bias, *got,
+                               kind=kind))}
             line(f"#4 {key} {tag}", r, tol)
             del q, k, v, do, out, ref, got, want, o, ins, bg
         torch.cuda.empty_cache()
@@ -11116,11 +11204,9 @@ LATENT_DDIM = 20
 TD2_CAPTION = ("a neon sign over a night market that reads OPEN LATE 24/7 "
                "with noodles 5 dollars")
 TD2_NEW, TD2_RENDER, TD2_TRAIN_B = 160, 20, 16
-# distill: a BERT-base teacher (e5_base) and a student of MiniLM-L6-H384's
-# width and depth (384 x 6, FFN 1536) with 6 heads of 64, not its 12 of
-# 32: the port's #9 / #10 take head_dim 64, 96 or 128 (JAX's doc kernel
-# also takes 32; ROADMAP Queue 3); B rows of 64-512 tokens under a
-# key-padding mask, 48 relation heads
+# distill: a BERT-base teacher (e5_base) and MiniLM-L6-H384's published
+# student (384 x 6, FFN 1536, 12 heads of 32); B rows of 64-512 tokens
+# under a key-padding mask, 48 relation heads
 DISTILL_B, DISTILL_T, DISTILL_MIN, DISTILL_HEADS = 32, 512, 64, 48
 # dpo: kosmos2's UniGPT decoder text-only at its registry width, B pairs
 # of T tokens (the first half a shared prompt, the second the response)
@@ -11539,17 +11625,18 @@ def phase_textdiffuser2() -> tuple:
 
 def phase_distill() -> tuple:
     """MiniLM v2 relation distillation at full width: the port's e5_base
-    encoder (BERT-base, 768 x 12, 12 heads) teaching a student of
-    MiniLM-L6-H384's width (384 x 6, FFN 1536; 6 heads of 64, as the
-    port's #9 / #10 take no head_dim 32), both bf16 / float32 params,
+    encoder (BERT-base, 768 x 12, 12 heads of 64) teaching MiniLM-L6-H384's
+    published student (384 x 6, FFN 1536, 12 heads of 32), both bf16 /
+    float32 params,
     random weights from the seed; DISTILL_B rows of DISTILL_MIN-DISTILL_T
     tokens under a key-padding mask. One student AdamW step on
     `minilm_v2_loss` over the last layers' q/k/v (DISTILL_HEADS relation
     heads), captured by core/attention.py `capture_qkv`, the teacher under
-    no_grad: exactly 18 #9 (12 teacher, 6 student) and 5 #10 a step (the
-    last student layer's attention output does not reach the loss, so its
-    backward runs none). The same forwards with the capture off launch the
-    same kernels (both counts printed). Teacher: the plain path's loss and
+    no_grad: exactly 18 #9 (12 teacher at D = 64, 6 student at D = 32)
+    and 5 #10 a step, all at D = 32 (the last student layer's attention
+    output does not reach the loss, so its backward runs none). The same
+    forwards with the capture off launch the same kernels at the same head
+    dims (both tallies printed). Teacher: the plain path's loss and
     student gradients at layoutlmv3_train's bounds (`leaf_teacher`: the
     leaves zero to rounding left out, the last layer's key bias held).
     Returns (launches, numbers)."""
@@ -11561,7 +11648,7 @@ def phase_distill() -> tuple:
     dev = torch.device(LAST_DEV)
     g = torch.Generator(device=dev).manual_seed(SEED)
     tcfg = TextEncoderConfig(dtype=torch.bfloat16)
-    scfg = TextEncoderConfig(hidden_size=384, num_layers=6, num_heads=6,
+    scfg = TextEncoderConfig(hidden_size=384, num_layers=6, num_heads=12,
                              ffn_dim=1536, dtype=torch.bfloat16)
     teacher = EmbeddingModel(tcfg, dev).init_weights(g).eval()
     student = EmbeddingModel(scfg, dev).init_weights(g)
@@ -11569,9 +11656,7 @@ def phase_distill() -> tuple:
           f"layers, {tcfg.num_heads} heads; student {scfg.hidden_size} x "
           f"{scfg.num_layers} layers, {scfg.num_heads} heads of "
           f"{scfg.hidden_size // scfg.num_heads}; bf16 / float32 params; "
-          f"{DISTILL_HEADS} relation heads. MiniLM-L6-H384's published "
-          f"student (12 heads of 32) is not brought up: the port's #9 / #10 "
-          f"take no head_dim 32")
+          f"{DISTILL_HEADS} relation heads")
     rng = np.random.RandomState(SEED)
     mask = ragged_mask(rng, DISTILL_B, DISTILL_T, DISTILL_MIN, dev)
     ids = torch.randint(1000, tcfg.vocab_size, (DISTILL_B, DISTILL_T),
@@ -11594,17 +11679,23 @@ def phase_distill() -> tuple:
 
     per_step = {"doc_attention": tcfg.num_layers + scfg.num_layers,
                 "doc_attention_bwd": scfg.num_layers - 1}
-    # capture on and off: the same forward kernels
+    d_t = tcfg.hidden_size // tcfg.num_heads
+    d_s = scfg.hidden_size // scfg.num_heads
+    by_d = {"doc_attention": {d_s: scfg.num_layers, d_t: tcfg.num_layers},
+            "doc_attention_bwd": {d_s: scfg.num_layers - 1}}
+    check((d_t, d_s) == (64, D32), f"distill: head dims {d_t}, {d_s}")
+    # capture on and off: the same forward kernels at the same head dims
     with torch.no_grad():
         reset_counts()
         last_qkv(teacher, b)
         last_qkv(student, b)
-        on = counts()
+        on = counts(), by_head_dim()
         reset_counts()
         teacher.encoder(ids, mask)
         student.encoder(ids, mask)
-        off = counts()
-    check(on == off, f"distill: capture on {on}, off {off}")
+        off = counts(), by_head_dim()
+    check(on == off and on[1] == {"doc_attention": by_d["doc_attention"]},
+          f"distill: capture on {on}, off {off}")
     # teacher check at the initial weights
     init = {k: v.detach().clone() for k, v in student.state_dict().items()}
 
@@ -11639,14 +11730,17 @@ def phase_distill() -> tuple:
     step = train.make_train_step(make_loss(teacher), tx, clip_grad_norm=1.0)
     reset_counts()
     (state, met), step_ms = last_host_ms(lambda: step(state, b))
-    got = counts()
+    got, got_d = counts(), by_head_dim()
     launches_only(got, per_step, "a distillation step")
+    check(got_d == by_d, f"distill: a step's launches by head dim {got_d} "
+          f"(want {by_d})")
     check(np.isfinite(float(met["loss"])) and float(met["loss"]) > 0,
           f"distill: loss {float(met['loss'])}")
     line, parts = last_profile(lambda: step(state, b), "a step", step_ms)
     nums = {"loss": float(met["loss"]), "step_ms": step_ms,
-            "tokens": int(mask.sum()), "capture_on": on, "capture_off": off,
-            "teacher": tt, "device_ms": parts}
+            "tokens": int(mask.sum()), "capture_on": on[0],
+            "capture_off": off[0], "by_head_dim": got_d, "teacher": tt,
+            "device_ms": parts}
     phase("distill", f"e5_base -> 384 x 6 student, B={DISTILL_B} rows of "
           f"{DISTILL_MIN}-{DISTILL_T} tokens ({nums['tokens']} valid); "
           f"forward launches with the capture {on}, without {off}; initial "
@@ -11658,7 +11752,8 @@ def phase_distill() -> tuple:
           f"rounding left out (largest share "
           f"{tt['left_out_max_share']:.2e}, smallest held "
           f"{tt['held_min_share']:.2e}); step: loss "
-          f"{nums['loss']:.5f}, {step_ms:.1f} ms, launches {got}; " + line)
+          f"{nums['loss']:.5f}, {step_ms:.1f} ms, launches {got}, by head "
+          f"dim {got_d}; " + line)
     del state, step, teacher, student
     return got, {"distill": nums}
 
@@ -11847,6 +11942,379 @@ def phase_misc_ops() -> dict:
     return {"misc_ops": nums}
 
 
+# ---- head_dim 32: MiniLM-L6-H384's student and TrOCR-Small's decoder -------
+
+# The D = 32 shapes of the two paths: the distill student
+# (B rows of 64-512 tokens, 12 heads), TrOCR-Small's decoder (8 heads;
+# beam 5 at B = 32; its fine-tune step's 64-token targets over the 578
+# encoder tokens); #1, #2, #8 at the train shape's sequence, 64 heads of 32;
+# #11 / #12 at the page_pool / paged_append geometry, 16 heads of 32.
+D32 = 32
+D32_DOC = (32, 512, 12, 64)        # B, T = S, H, shortest row
+D32_TROCR = (32, 8, 64)            # B, H, fine-tune target tokens
+D32_FLASH = (2, 2048, 64)          # B, T = S, H
+# the relative L2 bound of the *_kernels phases, by the inputs' dtype
+KERNEL_REL_L2 = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+@dataclasses.dataclass
+class KernelCase:
+    """One kernel call held against its plain version: `run()` and
+    `plain()` give outputs held pairwise as `how` says (see `held`);
+    `rows(got)`, where set, the timed rows: each a KernelRow."""
+    label: str
+    shape: str
+    run: object
+    plain: object
+    how: tuple
+    rows: object = None
+
+
+@dataclasses.dataclass
+class KernelRow:
+    """A timed kernel: `call` (its `only` kernels' device time), `plain`
+    and `lib` (None where no library call computes it) on the same
+    inputs, its bound, and where it goes in the kernels line (`kernel`,
+    under "d32", `key`)."""
+    kernel: str
+    key: str
+    label: str
+    call: object
+    only: str
+    plain: object
+    lib: object
+    library: str
+    bound: dict
+    flushed: bool = False
+
+
+def held(label: str, checks) -> dict:
+    """Hold each (got, want, how): "rel" by grad_close at the dtype's
+    KERNEL_REL_L2, "out" within OUT_ATOL + OUT_RTOL |want|, "lse" within
+    LSE_ATOL, "equal" bit-equal; each got finite. Returns the worst rel L2
+    and max|err| of the "rel" and "out" outputs (and of the lse)."""
+    r = {"rel_l2": 0.0, "max_abs_err": 0.0}
+    for i, (x, ref, how) in enumerate(checks):
+        if how == "equal":
+            ok, ea, er = torch.equal(x, ref), 0.0, 0.0
+        elif how == "rel":
+            ok, ea, er = grad_close(x, ref, KERNEL_REL_L2[x.dtype])
+        else:
+            atol, rtol = (LSE_ATOL, 0.0) if how == "lse" else (OUT_ATOL,
+                                                              OUT_RTOL)
+            (ok, ea), er = close(x, ref, atol, rtol), rel_l2(x, ref)
+        check(ok and bool(torch.isfinite(x.float()).all()),
+              f"{label}: output {i} ({how}) max|err| {ea}, rel L2 {er}")
+        key = "lse_max_abs_err" if how == "lse" else "max_abs_err"
+        r[key] = max(r.get(key, 0.0), ea)
+        if how != "lse":
+            r["rel_l2"] = max(r["rel_l2"], er)
+    return r
+
+
+def d32_cases(fa, da, pa, g, dev: str):
+    """The KernelCases of d32_kernels, in order: each kernel on inputs of
+    its own, but #6 / #7 on #5's and #8 on #1's (their out and lse)."""
+    from unilm_tpu_torch.core.transformer import _scan_pool_geometry
+
+    bf, f32, D = torch.bfloat16, torch.float32, D32
+    rn = functools.partial(randn, g, dev=dev)
+    tag = lambda dt: "bf16" if dt == bf else "fp32"
+
+    def sdpa_bwd(q, k, v, do, **kw):
+        """sdpa's dq, dk, dv on the same rows, and its backend's name."""
+        qg, kg, vg = (x.detach().clone().requires_grad_() for x in (q, k, v))
+        o = sdpa(qg, kg, vg, **kw)
+        return (lambda: torch.autograd.grad(o, (qg, kg, vg),
+                                            do.transpose(1, 2),
+                                            retain_graph=True),
+                f"sdpa backward ({type(o.grad_fn).__name__})")
+
+    # ---- #9 / #10: the distill student -----------------------------------
+    B, T, H, lo = D32_DOC
+    mask = ragged_mask(np.random.RandomState(SEED), B, T, lo, dev)
+    pairs = float(mask.sum()) * T * H
+    for dt in (bf, f32):
+        q, k, v, do = (rn(B, T, H, D, dtype=dt) for _ in range(4))
+        shape = f"{B}x{T}x{T}x{H}x{D} {tag(dt)}, key-padding mask ({lo}-{T})"
+        fwd = lambda: da.doc_attention(q, k, v, None, mask)
+        fwd_plain = lambda: da.doc_attention_plain(q, k, v, None, mask)
+        yield KernelCase(
+            "#9 student", shape, lambda: (fwd(),), lambda: (fwd_plain(),),
+            ("rel",), dt == bf and (lambda got: [KernelRow(
+                "doc_attention", "distill_student", "#9 student", fwd,
+                "doc_fwd", fwd_plain,
+                lambda: sdpa(q, k, v, attn_mask=mask[:, None, None]),
+                "sdpa (bool mask)",
+                attn_bound(pairs, D, 2, q, k, v, got[0], mask))]))
+        bwd = lambda: da.doc_backward(q, k, v, None, mask, do)[:3]
+        bwd_plain = lambda: da.doc_backward_plain(q, k, v, None, mask,
+                                                  do)[:3]
+
+        def rows10(got):
+            lib, library = sdpa_bwd(q, k, v, do, attn_mask=mask[:, None, None])
+            return [KernelRow("doc_attention_bwd", "distill_student",
+                              "#10 student", bwd, "doc_bwd", bwd_plain, lib,
+                              library, attn_bound(pairs, D, 5, q, k, v, do,
+                                                  mask, *got))]
+        yield KernelCase("#10 student", shape + ", dq/dk/dv", bwd, bwd_plain,
+                         ("rel",) * 3, dt == bf and rows10)
+
+    # ---- #3 / #4: TrOCR-Small's cross-attention -------------------------
+    B, H, Tt = D32_TROCR
+    S = TROCR_S
+    for key, T_, dt in (("folded", TROCR_BEAM, bf), ("prefill", 1, bf),
+                        ("finetune", Tt, bf), ("finetune", Tt, f32)):
+        q, k, v = rn(B, T_, H, D, dtype=dt), rn(B, S, H, D, dtype=dt), \
+            rn(B, S, H, D, dtype=dt)
+        shape = f"{B}x{T_}x{S}x{H}x{D} {tag(dt)}, no bias"
+        fwd = lambda: fa.fused_encoder_attention(q, k, v)
+        fwd_plain = lambda: fa.fused_encoder_attention_plain(q, k, v)
+        yield KernelCase(
+            f"#3 {key}", shape, lambda: (fwd(),), lambda: (fwd_plain(),),
+            ("rel",), dt == bf and (lambda got: [KernelRow(
+                "encoder_attention", key, f"#3 {key}", fwd, ENCODER_ONLY,
+                fwd_plain, lambda: sdpa(q, k, v), "sdpa",
+                attn_bound(B * H * T_ * S, D, 2, q, k, v, got[0]))]))
+        if key != "finetune":
+            continue
+        do = rn(B, T_, H, D, dtype=dt)
+        bwd = lambda: fa.fused_encoder_backward(q, k, v, None, do)[:3]
+        bwd_plain = lambda: fa.fused_encoder_backward_plain(q, k, v, None,
+                                                            do)[:3]
+
+        def rows4(got):
+            lib, library = sdpa_bwd(q, k, v, do)
+            return [KernelRow("encoder_attention_bwd", key, f"#4 {key}", bwd,
+                              ENC_BWD_ONLY, bwd_plain, lib, library,
+                              attn_bound(B * H * T_ * S, D, 5, q, k, v, do,
+                                         *got))]
+        yield KernelCase("#4 finetune", shape + ", dq/dk/dv", bwd, bwd_plain,
+                         ("rel",) * 3, dt == bf and rows4)
+
+    # ---- #5, then #6 / #7 on the fine-tune's out and lse -----------------
+    kw = dict(causal=True, window=0)
+    for key, T_, dt in (("prefill", 1, bf), ("finetune", Tt, bf),
+                        ("finetune", Tt, f32)):
+        check(fa.onepass_applies(B, H, T_, T_, D, None, 0),
+              f"d32_kernels: #5 does not take {B}x{T_}x{T_}x{H}x{D}")
+        q = rn(B, T_, H, D, dtype=dt) * D ** -0.5
+        k, v, do = (rn(B, T_, H, D, dtype=dt) for _ in range(3))
+        pairs = B * H * T_ * (T_ + 1) / 2
+        shape = f"{B}x{T_}x{T_}x{H}x{D} causal {tag(dt)}"
+        fwd = lambda: fa.flash_forward_onepass(q, k, v, None, None, 0, None,
+                                               **kw)
+        fwd_plain = lambda: fa.flash_forward_onepass_plain(
+            q, k, v, None, None, 0, None, **kw)
+        yield KernelCase(
+            f"#5 {key}", shape, fwd, fwd_plain, ("rel", "lse"),
+            dt == bf and (lambda got: [KernelRow(
+                "onepass_attention", key, f"#5 {key}", fwd, ONEPASS_ONLY,
+                fwd_plain, lambda: sdpa(q, k, v, is_causal=True, scale=1.0),
+                "sdpa is_causal", attn_bound(pairs, D, 2, q, k, v, *got))]))
+        if key != "finetune":
+            continue
+        o, lse = fwd()
+        bwd = lambda: fa.flash_backward(q, k, v, None, None, 0, None, o, lse,
+                                        do, **kw)[:3]
+        bwd_plain = lambda: fa.flash_backward_plain(
+            q, k, v, None, None, 0, None, o, lse, do, **kw)[:3]
+
+        def rows67(got):
+            lib, library = sdpa_bwd(q, k, v, do, is_causal=True, scale=1.0)
+            return [KernelRow(kname, key, f"{label} finetune", bwd, kname,
+                              bwd_plain, lib, library + ", dq+dk+dv", bd)
+                    for kname, label, bd in zip(
+                        ("flash_bwd_dq", "flash_bwd_dkv"), ("#6", "#7"),
+                        flash_bwd_bounds(pairs, q, k, v, do, lse, None,
+                                         *got))]
+        yield KernelCase("#6 / #7 finetune", shape + " on #5's out and lse, "
+                         "dq/dk/dv", bwd, bwd_plain, ("rel",) * 3,
+                         dt == bf and rows67)
+
+    # ---- #13: the beam step's pools, bf16, int8 and fp32 -----------------
+    page, chunk, PP = _scan_pool_geometry(2 + TROCR_NEW)
+    Bc, L = TROCR_BEAM * B, 32
+    bases = torch.arange(Bc, dtype=torch.int32, device=dev) * PP
+    for kind in ("bf16", "int8", "fp32"):
+        dt = f32 if kind == "fp32" else bf
+        sp = None
+        if kind == "int8":
+            kp, vp = (torch.randint(-127, 128, (Bc * PP, page, H * D),
+                                    generator=g, device=dev,
+                                    dtype=torch.int8) for _ in range(2))
+            sp = (torch.rand(Bc * PP // chunk, 8, chunk * page, generator=g,
+                             device=dev) * 0.02 + 1e-3)
+        else:
+            kp, vp = (rn(Bc * PP, page, H * D, dtype=dt) for _ in range(2))
+        q, kn, vn = (rn(Bc, 1, H, D, dtype=dt) for _ in range(3))
+        qs = (q[:, 0] * D ** -0.5).contiguous()
+        for ls in ((TROCR_LENGTHS * 20)[:Bc], [L] * Bc):
+            lengths = torch.tensor(ls, dtype=torch.int32, device=dev)
+            k2, v2 = kp.clone(), vp.clone()
+            s2 = None if sp is None else sp.clone()
+            pools = lambda *p: tuple(x for x in p if x is not None)
+            shape = (f"B{Bc} L{max(ls)} H{H} D{D} page {page} chunk {chunk} "
+                     f"{kind}" + ("" if ls[0] == L else
+                                  f", lengths {sorted(set(ls))}"))
+            plain = lambda: pa.run_decode_append_attention_plain(
+                q, kn, vn, k2, v2, bases, lengths, PP, None, chunk,
+                scale_pool=s2)
+            rows = None
+            if ls[0] == L and kind == "bf16":
+                run = lambda pool: pool.reshape(Bc, PP * page, H, D)[:, :L + 1]
+                rows = lambda got: [KernelRow(
+                    "decode_attention", "trocr_small_step", "#13 bf16",
+                    lambda: pa.decode_attention(qs, kp, vp, bases, lengths,
+                                                PP),
+                    DECODE_ONLY, plain, lambda: sdpa(q, run(kp), run(vp)),
+                    "sdpa over the runs",
+                    decode_bound(Bc * (L + 1), Bc, H, D, 2, new_rows=False),
+                    flushed=True)]
+            elif ls[0] == L and kind == "int8":
+                kn0, vn0 = kn[:, 0].contiguous(), vn[:, 0].contiguous()
+                rows = lambda got: [KernelRow(
+                    "decode_attention_int8", "trocr_small_step", "#13 int8",
+                    lambda: pa.decode_attention_int8(
+                        qs, kp, vp, bases, lengths, sp, kn0, vn0, PP, chunk),
+                    DECODE_ONLY, plain, None, "no library call",
+                    decode_bound(Bc * L, Bc, H, D, 1, new_rows=True,
+                                 extra=Bc * -(-L // (chunk * page)) * 8
+                                 * chunk * page * 4), flushed=True)]
+            yield KernelCase(
+                "#13", shape,
+                lambda: pools(pa.run_decode_append_attention(
+                    q, kn, vn, kp, vp, bases, lengths, PP, None, chunk,
+                    scale_pool=sp)[0], kp, vp, sp),
+                lambda: pools(plain()[0], k2, v2, s2),
+                ("out", "equal", "equal", "equal"), rows)
+
+    # ---- off the paths: #1, #2, #8 at 2x2048x64x32 causal + kpm ----------
+    B, T, H = D32_FLASH
+    mask = torch.ones(B, T, dtype=torch.bool, device=dev)
+    mask[1, :3] = False
+    pairs = causal_pairs(mask, H)
+    for dt in (bf, f32):
+        q = rn(B, T, H, D, dtype=dt) * D ** -0.5
+        k, v, do = (rn(B, T, H, D, dtype=dt) for _ in range(3))
+        shape = f"{B}x{T}x{T}x{H}x{D} causal + kpm {tag(dt)}"
+        lib = lambda: sdpa(q, k, v, is_causal=True, scale=1.0)
+        for kname, label, only, fwd, fwd_plain in (
+                ("flash_fwd", "#1", "flash_fwd",
+                 lambda: fa.flash_forward(q, k, v, None, mask, 0, None, **kw),
+                 lambda: fa.flash_forward_plain(q, k, v, None, mask, 0, None,
+                                                **kw)),
+                ("flash_tri", "#2", "flash_tri",
+                 lambda: fa.flash_forward_tri(q, k, v, None, mask),
+                 lambda: fa.flash_forward_tri_plain(q, k, v, None, mask))):
+            yield KernelCase(
+                label, shape, fwd, fwd_plain, ("rel", "lse"),
+                dt == bf and (lambda got, kname=kname, label=label, only=only,
+                              fwd=fwd, fwd_plain=fwd_plain: [KernelRow(
+                    kname, "off_path", label, fwd, only, fwd_plain, lib,
+                    "sdpa is_causal (no kpm)",
+                    attn_bound(pairs, D, 2, q, k, v, mask, *got))]))
+        o, lse = fa.flash_forward(q, k, v, None, mask, 0, None, **kw)
+        bwd = lambda: fa.flash_backward_fused(q, k, v, mask, 0, None, o, lse,
+                                              do, **kw)
+        bwd_plain = lambda: fa.flash_backward_fused_plain(
+            q, k, v, mask, 0, None, o, lse, do, **kw)
+
+        def rows8(got):
+            lib8, library = sdpa_bwd(q, k, v, do, is_causal=True, scale=1.0)
+            return [KernelRow("flash_bwd_fused", "off_path", "#8", bwd,
+                              "flash_bwd_fused", bwd_plain, lib8,
+                              library + " is_causal, dq+dk+dv",
+                              attn_bound(pairs, D, 5, q, k, v, do, lse, lse,
+                                         mask.int(), *got))]
+        yield KernelCase("#8", shape + " on #1's out and lse, dq/dk/dv", bwd,
+                         bwd_plain, ("rel",) * 3, dt == bf and rows8)
+
+    # ---- off the paths: #11 and #12, 16 heads of 32 ----------------------
+    H, Bp, MP, pg = 16, len(PAGED_LENGTHS), PAGED_MP, PAGED_PAGE
+    P = 1 + Bp * MP
+    n_tok = sum(min(n, MP * pg) for n in PAGED_LENGTHS)
+    for dt in (bf, f32):
+        perm = torch.randperm(P - 1, generator=g, device=dev)[:Bp * MP] + 1
+        tables = perm.reshape(Bp, MP).to(torch.int32).contiguous()
+        kp, vp = rn(P, pg, H * D, dtype=dt), rn(P, pg, H * D, dtype=dt)
+        q, kn, vn = (rn(Bp, 1, H, D, dtype=dt) for _ in range(3))
+        lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=dev)
+        eleven = lambda: (pa.paged_decode_attention(q, kp, vp, tables,
+                                                    lengths),)
+        eleven_plain = lambda: (pa.paged_decode_attention_plain(
+            q, kp, vp, tables, lengths),)
+        yield KernelCase(
+            "#11", f"B{Bp} H{H} D{D} page {pg} {tag(dt)}, lengths "
+            f"{PAGED_LENGTHS[0]}..{PAGED_LENGTHS[-1]}, scattered", eleven,
+            eleven_plain, ("out",), dt == bf and (lambda got: [KernelRow(
+                "paged_attention", "off_path", "#11", eleven, PAGED_ONLY,
+                eleven_plain, None, "no library call reads a block table",
+                decode_bound(n_tok, Bp, H, D, 2, new_rows=False,
+                             extra=Bp * 4, kind="fp32"), flushed=True)]))
+        L12 = torch.full((Bp,), 2047, dtype=torch.int32, device=dev)
+        k2, v2 = kp.clone(), vp.clone()
+        twelve = lambda: pa.paged_decode_append_attention(q, kn, vn, kp, vp,
+                                                          tables, L12)
+        twelve_plain = lambda: pa.paged_decode_append_attention_plain(
+            q, kn, vn, k2, v2, tables, L12)
+        yield KernelCase(
+            "#12", f"B{Bp} L2047 H{H} D{D} page {pg} {tag(dt)}, scattered, "
+            "row write included", twelve, twelve_plain,
+            ("out", "equal", "equal"), dt == bf and (lambda got: [KernelRow(
+                "paged_append_attention", "off_path", "#12", twelve,
+                "decode_kernel", twelve_plain, None,
+                "no library call reads a block table",
+                decode_bound(Bp * 2048, Bp, H, D, 2, new_rows=True))]))
+
+
+def phase_d32_kernels(fa, da, pa, g, dev: str = "cuda") -> dict:
+    """Every attention launcher at head_dim 32 against its plain version,
+    bf16 and fp32 (d32_cases: relative L2 <= KERNEL_REL_L2; decode outputs
+    within OUT_ATOL / OUT_RTOL with the pools bit-equal), at the shapes
+    the D = 32 paths give them: #9 / #10 at the distill student's
+    32x512x12x32 with a key-padding mask (lengths 64-512); #3 at
+    TrOCR-Small's folded decode 32x5x578x8x32, its prefill 32x1x578 and its
+    fine-tune 32x64x578; #4 at the fine-tune's 32x64x578x8x32; #5 at the
+    prefill's 32x1x1x8x32 (the walk) and the fine-tune's causal
+    32x64x64x8x32 (the wgmma rows); #6 / #7 there on #5's out and lse;
+    #13 bf16 and int8 (and fp32 pools) at the beam step's B160 L32 H8,
+    page 16, chunk 2; off the paths, #1 / #2 / #8 at 2x2048x64x32 causal
+    with a key-padding mask, #11 at B8 H16 pages of 64 with PAGED_LENGTHS,
+    #12 at B8 L2047 H16. Every launch must take its D = 32 instantiation
+    (CudaKernel.by_head_dim). The bf16 cases timed (device time) beside
+    the plain version, the library call and the bound (attn_bound,
+    flash_bwd_bounds, decode_bound: as the per-kernel phases count them).
+    Returns {kernel name: {"d32": {key: row}}}."""
+    name, out = "d32_kernels", {}
+    reset_counts()
+    for c in d32_cases(fa, da, pa, g, dev):
+        got, want = c.run(), c.plain()
+        torch.cuda.synchronize()
+        tol = (f"{OUT_ATOL} abs + {OUT_RTOL} rel" if c.how[0] == "out"
+               else KERNEL_REL_L2[got[0].dtype])
+        e = held(f"{name}: {c.label} {c.shape}", zip(got, want, c.how))
+        rows = c.rows(got) if c.rows else []
+        if not rows:
+            phase(name, f"{c.label} {c.shape}: rel L2 {e['rel_l2']:.3g}, "
+                  f"max|err| {e['max_abs_err']:.3g} (bound {tol})"
+                  + (", pools bit-equal" if "equal" in c.how else "") + " ok")
+        for row in rows:
+            r = {"shape": c.shape, **e, "library": row.library,
+                 **kernel_timed(row.call, row.plain, row.lib, row.only,
+                                row.bound, row.flushed)}
+            kernel_line(name, row.label, r, tol)
+            out.setdefault(row.kernel, {}).setdefault("d32", {})[row.key] = r
+        del c, got, want, rows
+    dims = by_head_dim()
+    check(all(set(d) == {D32} for d in dims.values()) and len(dims) == 15,
+          f"{name}: launches by head dim {dims}")
+    phase(name, "launches by head dim: " + ", ".join(
+        f"{k} {d}" for k, d in dims.items()))
+    torch.cuda.empty_cache()
+    return out
+
+
 def register_kernels() -> tuple:
     """Every launcher under its counter's name in KERNELS; returns the
     kernel modules (da, fa, fu, pa, qm)."""
@@ -11890,6 +12358,8 @@ def main() -> int:
                phase_decode(pa, g), phase_decode_int8(pa, g),
                phase_int8_matmul(qm, g), phase_paged_append(pa, g),
                phase_paged(pa, g)]
+    d32_extra = phase_d32_kernels(
+        fa, da, pa, torch.Generator(device="cuda").manual_seed(SEED))
     by_path = {}  # kernel -> {main path: launches}
 
     def add(path, got):
@@ -11921,6 +12391,12 @@ def main() -> int:
     add("trocr_int8", got)
     got, trocr_train_nums = phase_trocr_train()
     add("trocr_train", got)
+    got, trocr_small = phase_trocr(qm, int8=False, arch="trocr_small")
+    add("trocr_small", got)
+    got, trocr_small_int8 = phase_trocr(qm, int8=True, arch="trocr_small")
+    add("trocr_small_int8", got)
+    got, trocr_small_train = phase_trocr_train("trocr_small")
+    add("trocr_small_train", got)
     add("spm", phase_spm())
     got, search_nums = phase_search(fa)
     add("search", got)
@@ -11992,13 +12468,16 @@ def main() -> int:
         kern.update(ring_extra.get(kern["name"], {}))
         kern.update(registry_extra.get(kern["name"], {}))
         kern.update(detection_extra.get(kern["name"], {}))
+        kern.update(d32_extra.get(kern["name"], {}))
         check(kern["launches"] > 0, f"{kern['name']} never launched")
     print(json.dumps({"paths": {"decode_int8_bs1": line4["line4"],
                                 **infer, **trocr_bf16, **trocr_int8,
                                 **kosmos2_nums, **kosmos2_train_nums,
                                 **beit3_nums, **beit2_nums, **search_nums,
                                 "train_options": options, **docai_nums,
-                                **trocr_train_nums, **registry_text_nums,
+                                **trocr_train_nums, **trocr_small,
+                                **trocr_small_int8, **trocr_small_train,
+                                **registry_text_nums,
                                 **registry_speech_nums, **rcnn_nums,
                                 **fcos_nums, **seg_nums, **last_nums}}),
           flush=True)

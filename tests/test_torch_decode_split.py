@@ -48,7 +48,10 @@ def _force_interpret(monkeypatch):
 
 PLAN_CASES = [(1, 16, 96, 2), (8, 16, 96, 1), (8, 16, 96, 2), (1, 16, 128, 2),
               (8, 16, 128, 2), (1, 4, 64, 1), (3, 5, 64, 2), (2, 12, 64, 2),
-              (64, 32, 128, 2)]
+              (64, 32, 128, 2),
+              # TrOCR-Small's beam step (B = 32 x 5, 8 heads of 32), bf16
+              # and int8, and the distill student's 12 heads of 32
+              (160, 8, 32, 2), (160, 8, 32, 1), (5, 8, 32, 2), (1, 12, 32, 1)]
 PLAN_LENGTHS = (0, 1, 31, 32, 33, 127, 128, 129, 1055, 1056, 1057, 2053)
 
 
@@ -330,3 +333,103 @@ def test_decode_int8_kernel_at_split_edges(card, B):
             q, kn, vn, kp, vp, bases, *args, scale_pool=sp)[0]
         err = (out.float() - ref.float()).abs()
         assert bool((err <= 2e-2 + 2e-2 * ref.float().abs()).all()), n
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
+                                        ("bfloat16", 2e-2), ("int8", 2e-2)])
+def test_split_walk_at_head_dim_32_matches_jax(monkeypatch, dtype, atol):
+    """TrOCR-Small's decode (8 heads of 32) on the split walk's plan at its
+    beam step (B = 160) and at B = 1: bf16 / fp32 pools (RUN) and int8
+    pools under bf16 q (RUN_I8), each against JAX's kernel in interpret
+    mode at the tolerances above, L at the plan's edges and a short
+    cache's 33."""
+    jpa = _force_interpret(monkeypatch)
+    Hn, Dn = 8, 32
+    quant = dtype == "int8"
+    qdt = "bfloat16" if quant else dtype
+    tdt = getattr(torch, qdt)
+    itemsize = 1 if quant else 2
+    rng = np.random.RandomState(3)
+    P, S = PP + CHUNK, CHUNK * PAGE
+    if quant:
+        kp = rng.randint(-127, 128, size=(P, PAGE, Hn * Dn)).astype(np.int8)
+        vp = rng.randint(-127, 128, size=(P, PAGE, Hn * Dn)).astype(np.int8)
+    else:
+        kp = rng.randn(P, PAGE, Hn * Dn).astype(np.float32)
+        vp = rng.randn(P, PAGE, Hn * Dn).astype(np.float32)
+    ns = tpa.decode_split_plan(1, Hn, 0, N_SM, Dn, itemsize)["nsplit"]
+    for L in [n for n in _edges(ns) if n >= 1] + [33]:
+        q = rng.randn(1, 1, Hn, Dn).astype(np.float32)
+        kn = rng.randn(1, 1, Hn, Dn).astype(np.float32)
+        vn = rng.randn(1, 1, Hn, Dn).astype(np.float32)
+        sp = ((rng.rand(P // CHUNK, 8, S) * 0.02 + 1e-3).astype(np.float32)
+              if quant else None)
+        jk, jv = ((kp, vp) if quant else
+                  (jnp.asarray(kp).astype(getattr(jnp, qdt)),
+                   jnp.asarray(vp).astype(getattr(jnp, qdt))))
+        want = np.asarray(_jax_run(jpa, q, kn, vn, jk, jv, L, qdt, sp)[0],
+                          np.float32)
+        t = lambda a: torch.from_numpy(a).to(tdt)
+        if quant:
+            tkp, tvp, tsp = (torch.from_numpy(a.copy()) for a in (kp, vp, sp))
+            tpa._append_rows(t(kn), t(vn), tkp, tvp,
+                             torch.zeros(1, dtype=torch.int32),
+                             torch.tensor([L], dtype=torch.int32), tsp, CHUNK)
+        else:
+            tkp, tvp, tsp = t(kp), t(vp), None
+            tpa._append_rows(t(kn), t(vn), tkp, tvp,
+                             torch.zeros(1, dtype=torch.int32),
+                             torch.tensor([L], dtype=torch.int32))
+        qs = t(q)[0, 0] * Dn ** -0.5
+        rows = P * PAGE
+        extra = {} if not quant else dict(
+            kscale=tsp[:, 0].reshape(rows), vscale=tsp[:, 1].reshape(rows),
+            k_new=t(kn)[0, 0], v_new=t(vn)[0, 0])
+        for B in (160, 1):
+            plan = tpa.decode_split_plan(B, Hn, L if quant else L + 1, N_SM,
+                                         Dn, itemsize)
+            got = split_walk(qs, tkp.reshape(rows, Hn, Dn),
+                             tvp.reshape(rows, Hn, Dn), 0, L, plan,
+                             pool_dtype=torch.int8 if quant else tdt,
+                             q_dtype=tdt, max_tokens=PP * PAGE, **extra)
+            np.testing.assert_allclose(got.float().numpy(), want[0, 0],
+                                       atol=atol, rtol=0,
+                                       err_msg=f"L={L}, plan of B={B}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int8"])
+def test_decode_kernel_at_head_dim_32(card, dtype):
+    """#13 at TrOCR-Small's beam step (B160, 8 heads of 32, page 16, chunk
+    2, four pages a run), bf16 / fp32 / int8 pools, lengths at the page,
+    slab and run edges: within chip_smoke.py's OUT_ATOL / OUT_RTOL (2e-2
+    each), the pools (and the int8 sidecar) bit-equal."""
+    Bc, Hn, Dn, page, chunk, pp = 160, 8, 32, 16, 2, 4
+    quant = dtype == "int8"
+    qdt = torch.bfloat16 if quant else getattr(torch, dtype)
+    rn = lambda *s: torch.randn(*s, generator=card, device="cuda").to(qdt)
+    if quant:
+        ri = lambda: torch.randint(-127, 128, (Bc * pp, page, Hn * Dn),
+                                   generator=card, device="cuda",
+                                   dtype=torch.int8)
+        kp, vp = ri(), ri()
+        sp = torch.rand(Bc * pp // chunk, 8, chunk * page, generator=card,
+                        device="cuda") * 0.02 + 1e-3
+    else:
+        kp, vp, sp = rn(Bc * pp, page, Hn * Dn), rn(Bc * pp, page, Hn * Dn), \
+            None
+    lens = ([1, 15, 16, 17, 31, 32, 33, 34] * 20)[:Bc]
+    bases = torch.arange(Bc, dtype=torch.int32, device="cuda") * pp
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q, kn, vn = rn(Bc, 1, Hn, Dn), rn(Bc, 1, Hn, Dn), rn(Bc, 1, Hn, Dn)
+    kp2, vp2 = kp.clone(), vp.clone()
+    sp2 = None if sp is None else sp.clone()
+    out = tpa.run_decode_append_attention(q, kn, vn, kp, vp, bases, lengths,
+                                          pp, None, chunk, scale_pool=sp)[0]
+    ref = tpa.run_decode_append_attention_plain(
+        q, kn, vn, kp2, vp2, bases, lengths, pp, None, chunk,
+        scale_pool=sp2)[0]
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2,
+                               rtol=2e-2)
+    assert torch.equal(kp, kp2) and torch.equal(vp, vp2)
+    assert sp is None or torch.equal(sp, sp2)

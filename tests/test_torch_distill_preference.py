@@ -220,3 +220,50 @@ def test_pair_construction_and_rewards_are_jaxs():
     assert tp.aggregate_process_rewards([], "min") == 0.0
     with pytest.raises(ValueError):
         tp.build_preference_pairs(ts, strategy="vote")
+
+
+def test_minilm_v2_step_with_a_12x32_student_matches_jax():
+    """One MiniLM v2 step as chip_smoke.py's distill phase takes it, at a
+    small depth: a 2-layer student of MiniLM-L6-H384's width and heads
+    (384 wide, 12 heads of 32) under a 64-wide teacher, both over a
+    key-padding mask; the last layers' q/k/v relations (4 relation heads).
+    The loss within 1e-5 relative + 1e-6 abs and every student gradient
+    within 1e-5 of JAX's (`jax.value_and_grad` over the flax tree), as this
+    file's other loss gradients."""
+    from unilm_tpu_torch.convert.from_jax import flax_to_state_dict
+
+    tkw = dict(embed_dim=64, num_heads=2, ffn_dim=64, num_layers=1,
+               use_flash=False)
+    skw = dict(embed_dim=384, num_heads=12, ffn_dim=64, num_layers=2,
+               use_flash=False)
+    assert skw["embed_dim"] // skw["num_heads"] == 32
+    xt, xs, mask = _x(2, E=64), _x(3, E=384), _mask()
+    jt_, js_ = JEncoder(JCfg(**tkw)), JEncoder(JCfg(**skw))
+    tparams = draw_params(jt_, xt, key_padding_mask=mask, seed=1)
+    sparams = draw_params(js_, xs, key_padding_mask=mask, seed=2)
+    jm = jnp.asarray(mask)
+    tqkv = _jax_capture(jt_, tparams, xt, key_padding_mask=mask)[-1]
+
+    def jloss(p):
+        sqkv = _jax_capture(js_, p, xs, key_padding_mask=mask)[-1]
+        return jd.minilm_v2_loss(tqkv, sqkv, 4, jm)
+
+    jl, jg = jax.value_and_grad(jloss)(sparams)
+    teacher, student = TEncoder(TCfg(**tkw)), TEncoder(TCfg(**skw))
+    load_flax_params(teacher, tparams)
+    load_flax_params(student, sparams)
+    tm = t(mask)
+    with torch.no_grad(), tatt.capture_qkv(teacher) as rec:
+        teacher(t(xt), key_padding_mask=tm)
+    with tatt.capture_qkv(student) as srec:
+        student(t(xs), key_padding_mask=tm)
+    loss = td.minilm_v2_loss(td.collect_qkv(rec)[-1],
+                             td.collect_qkv(srec)[-1], 4, tm)
+    loss.backward()
+    np.testing.assert_allclose(float(loss.detach()), float(jl), rtol=1e-5,
+                               atol=1e-6)
+    want = flax_to_state_dict(jax.tree.map(np.asarray, jg))
+    got = {n: p.grad for n, p in student.named_parameters()}
+    assert set(got) == set(want)
+    for n, g in got.items():
+        close(torch.zeros_like(want[n]) if g is None else g, want[n], 1e-5)

@@ -28,7 +28,7 @@ LOG2E = 1.4426950408889634
 EDGES = (1, 63, 64, 65, 127, 128, 129, 709, 2048)
 
 
-@pytest.mark.parametrize("D", [64, 96, 128])
+@pytest.mark.parametrize("D", [32, 64, 96, 128])
 @pytest.mark.parametrize("T,S", [(t, s) for t in EDGES for s in EDGES
                                  if t * s <= 709 * 2048])
 def test_each_sweep_computes_each_pair_once(T, S, D):
@@ -74,7 +74,7 @@ def test_block_stages_only_what_it_reads(T, S, bias):
                 assert (s0, s1) == (c0, c1) and sw == n // len(tiles)
 
 
-@pytest.mark.parametrize("D,stages", [(64, 4), (96, 4), (128, 3)])
+@pytest.mark.parametrize("D,stages", [(32, 4), (64, 4), (96, 4), (128, 3)])
 def test_ring_fits_shared_memory(D, stages):
     plan = da.doc_fwd_tile_plan(709, 709, D)
     assert plan["stages"] == stages
@@ -118,8 +118,10 @@ def doc_fwd_emulate(q, k, v, bias4, mask, scale):
     return out.to(q.dtype)
 
 
-# name: (B, T, S, H, bias, mask); D = 64. The emulation covers two 128-row
-# blocks with a consumer past T and three key tiles with a ragged last one.
+# name: (B, T, S, H, bias, mask); D = 64 unless EMU_D names another (the
+# distill student's 32, at H D = 128 as JAX's kernel asks). The emulation
+# covers two 128-row blocks with a consumer past T and three key tiles
+# with a ragged last one.
 EMU_CASES = {
     "mask": (2, 37, 40, 2, None, True),
     "bias_11": (2, 197, 150, 2, (1, 1), False),
@@ -127,7 +129,10 @@ EMU_CASES = {
     "bias_1H_ragged": (1, 200, 131, 2, (1, 2), False),
     "head_major_mask": (2, 130, 131, 2, "hm", True),
     "all_masked_row": (2, 37, 40, 2, (2, 2), "allfalse"),
+    "mask_d32": (2, 150, 136, 4, None, True),
+    "bias_BH_mask_d32": (2, 70, 45, 4, (2, 4), True),
 }
+EMU_D = {"mask_d32": 32, "bias_BH_mask_d32": 32}
 
 
 def _inputs(B, T, S, H, bias, kpm, D=64, seed=0):
@@ -153,7 +158,7 @@ def test_emulated_schedule_matches_the_tpu_kernel(name):
     from unilm_tpu.ops import doc_attention as jda
 
     B, T, S, H, bias, kpm = EMU_CASES[name]
-    q, k, v, b, mask = _inputs(B, T, S, H, bias, kpm)
+    q, k, v, b, mask = _inputs(B, T, S, H, bias, kpm, EMU_D.get(name, 64))
     D = q.shape[-1]
     hm = bias == "hm"
     want = jda._doc_fwd_impl(
@@ -211,3 +216,22 @@ def test_kernel_at_tile_edges(card, T, S):
     err = float((got.float() - ref.float()).norm() / ref.float().norm())
     assert bool(torch.isfinite(got.float()).all()) and err <= 1e-2
     assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2),
+                                         (torch.float32, 1e-4)])
+@pytest.mark.parametrize("T", [1, 64, 129, 512])
+def test_kernel_at_head_dim_32(card, T, dtype, bound):
+    """#9 at D = 32 (MiniLM-L6-H384's student: 12 heads of 32) against
+    doc_attention_plain, a key-padding mask with ragged lengths, bf16 and
+    fp32: relative L2 within chip_smoke.py's d32_kernels bounds."""
+    B, H, D = 3, 12, 32
+    rn = lambda *s: torch.randn(*s, generator=card, device="cuda").to(dtype)
+    q, k, v = rn(B, T, H, D), rn(B, T, H, D), rn(B, T, H, D)
+    mask = torch.arange(T, device="cuda")[None] < torch.tensor(
+        [T, max(1, T // 2), 1], device="cuda")[:, None]
+    got = da.doc_attention(q, k, v, None, mask)
+    ref = da.doc_attention_plain(q, k, v, None, mask)
+    err = float((got.float() - ref.float()).norm() / ref.float().norm())
+    assert bool(torch.isfinite(got.float()).all()) and err <= bound

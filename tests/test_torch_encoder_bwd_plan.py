@@ -44,6 +44,9 @@ PLAN_CASES = [
     (2, 16, 24, 2, 128, "BH", 132), (2, 29, 11, 2, 128, None, 132),
     (5, 70, 130, 2, 64, "1H", 3), (2, 300, 40, 2, 64, "1H", 132),
     (3, 240, 65, 2, 64, "11", 132),
+    # D = 32 (TrOCR-Small's decoder): the D = 64 geometry, 128-key blocks
+    (3, 17, 17, 4, 32, "1H", 1), (2, 64, 130, 8, 32, None, 132),
+    (5, 70, 130, 2, 32, "1H", 3),
 ]
 
 
@@ -119,7 +122,8 @@ def test_beit_b_tiles_visited_once():
 
 @pytest.mark.parametrize("T,D,want", [(197, 64, 200), (232, 64, 232),
                                       (233, 64, 0), (197, 128, 200),
-                                      (264, 96, 264), (2048, 64, 0)])
+                                      (264, 96, 264), (2048, 64, 0),
+                                      (233, 32, 264), (300, 32, 0)])
 def test_dbias_tile_stride(T, D, want):
     """tp: the least stride >= T rounded up to even with tp = 8 mod 32
     (conflict-free float2 accesses), 0 where the tile does not fit."""
@@ -215,6 +219,8 @@ EMU_CASES = {
     "bias_BH": (2, 16, 24, 2, 96, "BH", 132),
     "bias_B1_head_sum": (2, 13, 21, 3, 128, "B1", 132),
     "ragged_1H": (2, 13, 21, 2, 64, "1H", 132),
+    "d32_no_bias": (2, 20, 130, 4, 32, None, 132),
+    "d32_bias_1H_groups": (3, 17, 17, 4, 32, "1H", 1),
 }
 
 
@@ -283,3 +289,21 @@ def test_kernel_at_plan_edges(card, T, S):
         assert _rel(x, w) <= 1e-2
     again = tfa.fused_encoder_backward(q, k, v, bias, do)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bound", [(torch.bfloat16, 1e-2),
+                                         (torch.float32, 1e-4)])
+@pytest.mark.parametrize("T,S", [(1, 578), (5, 578), (64, 578), (65, 129)])
+def test_kernel_at_head_dim_32(card, T, S, dtype, bound):
+    """#4 at D = 32 (TrOCR-Small's decoder: 8 heads of 32, its fine-tune's
+    cross-attention over 578 encoder tokens) against
+    fused_encoder_backward_plain, bf16 and fp32, no bias: dq, dk, dv
+    within chip_smoke.py's d32_kernels bounds."""
+    rn = lambda *s: torch.randn(*s, generator=card, device="cuda").to(dtype)
+    B, H, D = 4, 8, 32
+    q, k, v, do = rn(B, T, H, D), rn(B, S, H, D), rn(B, S, H, D), rn(B, T, H, D)
+    got = tfa.fused_encoder_backward(q, k, v, None, do)
+    ref = tfa.fused_encoder_backward_plain(q, k, v, None, do)
+    for x, w in zip(got[:3], ref[:3]):
+        assert _rel(x, w) <= bound

@@ -38,6 +38,10 @@ CASES = {
     "train": (2048, 2048, 0, None, True, 0),
     "decode_step": (1, 256, 140, 141, True, 1024),
     "rows_before_keys": (64, 128, -80, None, True, 0),
+    # TrOCR-Small's fine-tune self-attention (8 heads of 32) and its
+    # beam-5 cross-attention, folded
+    "trocr_small_finetune": (64, 64, 0, None, True, 0),
+    "trocr_small_folded": (5, 578, 0, None, False, 0),
 }
 
 

@@ -287,9 +287,9 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(case):
     tables = torch.zeros(2, 3, dtype=torch.int32)
     lengths = torch.ones(2, dtype=torch.int32)
     with pytest.raises(ValueError):
-        if case == "head_dim":
-            tpa.paged_decode_attention(f(2, 1, 2, 32), f(6, 8, 64),
-                                       f(6, 8, 64), tables, lengths)
+        if case == "head_dim":  # 48: a head dim no launcher instantiates
+            tpa.paged_decode_attention(f(2, 1, 2, 48), f(6, 8, 96),
+                                       f(6, 8, 96), tables, lengths)
         elif case == "pool_dtype":
             tpa.paged_decode_attention(
                 f(2, 1, 2, 64), f(6, 8, 128, dtype=torch.bfloat16),

@@ -114,7 +114,7 @@ DOC_TS = [(709, 709), (37, 40), (197, 197), (100, 77), (64, 200), (129, 131),
           (301, 37), (50, 2048), (1024, 1024), (2048, 2048)]
 
 
-@pytest.mark.parametrize("D", (64, 96, 128))
+@pytest.mark.parametrize("D", (32, 64, 96, 128))
 @pytest.mark.parametrize("T,S", DOC_TS)
 def test_doc_bwd_tile_plan_visits_each_pair_once(T, S, D):
     plan = tda.doc_bwd_tile_plan(T, S, D)
@@ -126,8 +126,8 @@ def test_doc_bwd_tile_plan_visits_each_pair_once(T, S, D):
                 seen[r0:r1, c0:c1] += 1
         assert bool((seen == 1).all()), launch
     # stats and dq: 128-row blocks over 64-key tiles; dk/dv: key blocks
-    # (128 keys at D = 64, else 64) over 64-row tiles
-    kb = 128 if D == 64 else 64
+    # (128 keys at D = 32 and 64, else 64) over 64-row tiles
+    kb = 128 if D <= 64 else 64
     assert len(plan["stats"]) == len(plan["dq"]) == -(-T // 128)
     assert len(plan["dkv"]) == -(-S // kb)
     assert all(len(steps) == -(-S // 64) for steps in plan["stats"])

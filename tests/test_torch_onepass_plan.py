@@ -45,6 +45,11 @@ PLAN_CASES = [
     (16, 69, 0, 40, False, 0, 64),
     (300, 2048, 0, 2048, True, 0, 128),
     (5, 100, 0, 0, True, 0, 64),           # kv_len 0: nothing visible
+    # D = 32 (TrOCR-Small's decoder): the prompt's walk, the fine-tune's
+    # causal 64 rows, chunks of 128 keys as at D = 64
+    (1, 1, 0, 1, True, 0, 32),
+    (64, 64, 0, 64, True, 0, 32),
+    (200, 300, 100, 300, True, 0, 32),
 ]
 
 
@@ -208,6 +213,10 @@ EMU_CASES = {
     "wgmma_T65_window": (2, 65, 200, 2, True, 100, None, 40, False, "B1", 128),
     "wgmma_kpm_dead_row": (2, 24, 40, 2, False, 0, None, 0, True, None, 64),
     "wgmma_limit_D96": (2, 20, 300, 2, True, 0, 150, 0, False, None, 96),
+    "walk_prompt_D32": (3, 1, 1, 4, True, 0, None, 0, False, None, 32),
+    "wgmma_finetune_D32": (2, 64, 64, 4, True, 0, None, 0, False, None, 32),
+    "wgmma_D32_kpm_dead_row": (2, 40, 200, 4, False, 0, None, 0, True, "1H",
+                               32),
 }
 
 
@@ -295,3 +304,30 @@ def test_kernel_at_plan_edges(card, T, S):
     torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=0)
     assert float(got[0][1].abs().max()) == 0.0
     assert float(got[1][1].abs().max()) == 0.0
+
+
+def test_chunks_at_head_dim_32():
+    """D = 32 takes the D = 64 chunk of 128 keys (`Geo<D>::BK`)."""
+    assert tfa.onepass_chunk(32) == tfa.onepass_chunk(64) == 128
+    assert tfa.onepass_chunk(96) == tfa.onepass_chunk(128) == 64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,S", [(1, 1), (5, 34), (64, 64), (200, 300)])
+def test_kernel_at_head_dim_32(card, T, S, dtype):
+    """#5 at D = 32 (TrOCR-Small's 8 heads of 32: the prompt's walk, the
+    fine-tune's causal 64 rows) against its twin, causal at the cache's
+    end: #1's tolerances (2e-2 abs + 2e-2 rel, 1e-3 on lse)."""
+    rn = lambda *s: torch.randn(*s, generator=card, device="cuda").to(dtype)
+    B, H, D = 3, 8, 32
+    q = rn(B, T, H, D) * D ** -0.5
+    k, v = rn(B, S, H, D), rn(B, S, H, D)
+    qoff = S - T
+    got = tfa.flash_forward_onepass(q, k, v, None, None, qoff, None,
+                                    causal=True, window=0)
+    want = tfa.flash_forward_onepass_plain(q, k, v, None, None, qoff, None,
+                                           causal=True, window=0)
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=2e-2,
+                               rtol=2e-2)
+    torch.testing.assert_close(got[1], want[1], atol=1e-3, rtol=0)

@@ -46,6 +46,9 @@ PLAN_CASES = [
     ([2559], 16, 96, 64, 40),
     ([0, 0], 16, 128, 64, 40),
     ([5000, 31, 32, 33, 255, 256, 257, -3], 2, 128, 16, 300),
+    # 16 heads of 32, the d32_kernels phase's geometry, and pages of 16
+    (RAGGED, 16, 32, 64, 32),
+    ([0, 1, 77, 128], 8, 32, 16, 8),
 ]
 
 
@@ -159,7 +162,7 @@ def split_walk(qs, kf, vf, table, L, plan, b, pool_dtype, page):
 
 @pytest.mark.parametrize("dtype,atol", [("float32", 2e-5),
                                         ("bfloat16", 2e-2)])
-@pytest.mark.parametrize("H,D,page", [(2, 64, 16), (4, 96, 32)])
+@pytest.mark.parametrize("H,D,page", [(2, 64, 16), (4, 96, 32), (4, 32, 16)])
 def test_paged_split_walk_matches_jax(dtype, atol, H, D, page):
     """Lengths that split (700: three splits at the floor's span, 300: two),
     one that does not (40), one empty; scattered tables with garbage past
@@ -263,3 +266,22 @@ def test_paged_kernel_at_plan_edges(card, page, lengths):
         if n == 0:
             assert float(out[b].abs().max()) == 0.0
     assert torch.equal(out, tpa.paged_decode_attention(q, kp, vp, tables, L))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_kernel_at_head_dim_32(card, dtype):
+    """#11 at 16 heads of 32 (chip_smoke.py's d32_kernels shape: pages of
+    64, RAGGED, scattered tables), bf16 and fp32, within OUT_ATOL /
+    OUT_RTOL (2e-2 each), the L = 0 row exactly 0."""
+    B, H, D, page, MP = len(RAGGED), 16, 32, 64, 32
+    P = B * MP
+    rn = lambda *s: torch.randn(*s, generator=card, device="cuda").to(dtype)
+    q, kp, vp = rn(B, 1, H, D), rn(P, page, H * D), rn(P, page, H * D)
+    tables = torch.randperm(P, generator=card, device="cuda").reshape(
+        B, MP).to(torch.int32)
+    L = torch.tensor(RAGGED, dtype=torch.int32, device="cuda")
+    out = tpa.paged_decode_attention(q, kp, vp, tables, L)
+    ref = tpa.paged_decode_attention_plain(q, kp, vp, tables, L)
+    torch.testing.assert_close(out.float(), ref.float(), atol=2e-2, rtol=2e-2)
+    assert float(out[-1].float().abs().max()) == 0.0

@@ -480,3 +480,66 @@ def test_folded_cross_attention_takes_encoder_kernel(monkeypatch):
         assert out.shape == (rows, 1, cfg.embed_dim)
     assert seen == [((2, 5, H, D), (2, S, H, D), True, None),
                     ((2, 1, H, D), (2, S, H, D), True, None)]
+
+
+# ---- TrOCR-Small's head dim ---------------------------------------------
+
+def test_trocr_small_shaped_model_matches_jax():
+    """A trocr_small-shaped pair at a small size: the decoder's heads of 32
+    (64 wide, 2 heads, 2 layers, as trocr_small's 256 wide over 8), a
+    narrower DeiT encoder bridged by enc_to_dec_proj. Converted from a
+    random HF VisionEncoderDecoder by convert/trocr.py (the port's and
+    JAX's), the port's teacher-forced logits within this file's ATOL of
+    JAX's and its beam-5 tokens identical (scores within SCORE_RTOL)."""
+    transformers = pytest.importorskip("transformers")
+    from unilm_tpu.convert.trocr import convert_trocr as jconvert
+    from unilm_tpu_torch.convert.trocr import convert_trocr
+
+    enc_cfg = transformers.DeiTConfig(
+        hidden_size=32, num_hidden_layers=2, num_attention_heads=4,
+        intermediate_size=64, image_size=32, patch_size=16)
+    dec_cfg = transformers.TrOCRConfig(
+        vocab_size=100, d_model=64, decoder_layers=2,
+        decoder_attention_heads=2, decoder_ffn_dim=128,
+        max_position_embeddings=64, use_learned_position_embeddings=True,
+        layernorm_embedding=True, scale_embedding=False, dropout=0.0,
+        attention_dropout=0.0, activation_dropout=0.0)
+    torch.manual_seed(1)
+    hf = transformers.VisionEncoderDecoderModel(
+        transformers.VisionEncoderDecoderConfig.from_encoder_decoder_configs(
+            enc_cfg, dec_cfg)).eval()
+    kw = dict(KW, dec_dim=64, dec_heads=2, dec_ffn=128, enc_eps=1e-12,
+              enc_to_dec_proj=True)
+    cfg = tt.TrOCRConfig(**kw)
+    assert cfg.decoder_cfg().head_dim == 32
+    sd = hf.state_dict()
+    params = _np(jconvert(sd, jt.TrOCRConfig(**kw)))
+    model = tt.TrOCRModel(cfg, device="cpu").eval()
+    model.load_state_dict(convert_trocr(sd, cfg), strict=True)
+    jm = jt.TrOCRModel(jt.TrOCRConfig(**kw))
+    rng = np.random.RandomState(2)
+    img = rng.randn(B, 32, 32, 3).astype(np.float32)
+    tok = rng.randint(4, 100, (B, 7))
+    ref = np.asarray(jm.apply({"params": params}, jnp.asarray(img),
+                              jnp.asarray(tok)))
+    with torch.no_grad():
+        out = model(torch.from_numpy(img), torch.from_numpy(tok))
+    np.testing.assert_allclose(out.numpy(), ref, atol=ATOL, rtol=0)
+    (jtok, jsc), (ttok, tsc) = _streams(jm, params, model, img, 5)
+    np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+    np.testing.assert_allclose(tsc.numpy(), np.asarray(jsc),
+                               rtol=SCORE_RTOL, atol=0)
+
+
+def test_trocr_small_keeps_the_references_enc_ffn():
+    """A fault of the reference, kept for parity: JAX's trocr_small leaves
+    enc_ffn at TrOCRConfig's 3072, where DeiT-Small (TrOCR-Small's
+    encoder) has an MLP of 4 x 384 = 1536. The port's trocr_small is
+    JAX's, field for field (ROADMAP, "Faults of the reference itself")."""
+    j, p = jt.trocr_small(), tt.trocr_small()
+    assert p.enc_ffn == j.enc_ffn == 3072 != 4 * p.enc_dim
+    assert (p.enc_dim, p.enc_heads, p.dec_dim, p.dec_heads, p.dec_layers,
+            p.dec_ffn, p.vocab_size) == (j.enc_dim, j.enc_heads, j.dec_dim,
+                                         j.dec_heads, j.dec_layers,
+                                         j.dec_ffn, j.vocab_size)
+    assert p.decoder_cfg().head_dim == 32 and p.encoder_cfg().head_dim == 64

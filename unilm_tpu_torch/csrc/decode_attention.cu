@@ -391,6 +391,7 @@ cudaError_t launch(const DecodeArgs& a, const Plan& pl, int B, int D, cudaStream
         pl.nst % pl.ngrp)
         return cudaErrorInvalidValue;
     switch (D) {
+        case 32: return launch_d<T, PT, MODE, 32>(a, pl, B, stream);
         case 64: return launch_d<T, PT, MODE, 64>(a, pl, B, stream);
         case 96: return launch_d<T, PT, MODE, 96>(a, pl, B, stream);
         case 128: return launch_d<T, PT, MODE, 128>(a, pl, B, stream);

@@ -205,6 +205,7 @@ template <typename T, typename PT, int MODE>
 cudaError_t launch_decode(const DecodeArgs& a, int B, int D, cudaStream_t stream) {
     dim3 grid(B, a.H);
     switch (D) {
+        case 32: decode_kernel<T, PT, 32, MODE><<<grid, NWARPS * 32, 0, stream>>>(a); break;
         case 64: decode_kernel<T, PT, 64, MODE><<<grid, NWARPS * 32, 0, stream>>>(a); break;
         case 96: decode_kernel<T, PT, 96, MODE><<<grid, NWARPS * 32, 0, stream>>>(a); break;
         case 128: decode_kernel<T, PT, 128, MODE><<<grid, NWARPS * 32, 0, stream>>>(a); break;

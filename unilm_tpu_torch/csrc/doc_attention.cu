@@ -396,6 +396,7 @@ int doc_attn_fwd(const void* q, const void* k, const void* v, const void* bias,
                    bias_sh, scale * LOG2E};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D) {
+        case 32: return (int)launch<32>(dtype, p, B, st);
         case 64: return (int)launch<64>(dtype, p, B, st);
         case 96: return (int)launch<96>(dtype, p, B, st);
         case 128: return (int)launch<128>(dtype, p, B, st);

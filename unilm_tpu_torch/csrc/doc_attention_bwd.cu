@@ -409,7 +409,7 @@ doc_bwd_stats_sm90(const __grid_constant__ CUtensorMap tq,
 // transpose bit).
 
 template <int D> struct DkvGeo : sm90::Cols<D> {
-    static constexpr int NCW = D == 64 ? 2 : 1;    // consumer warpgroups of 64 keys
+    static constexpr int NCW = D <= 64 ? 2 : 1;    // consumer warpgroups of 64 keys
     static constexpr int BKB = ROWS * NCW;          // keys per block
     static constexpr int BQ = 64;                   // q rows per tile
     static constexpr int THREADS = 128 * (1 + NCW);
@@ -791,6 +791,7 @@ cudaError_t launch_fp32(int D, const Params& p, cudaStream_t stream) {
                             p.bias_sh, (size_t)p.ds_sb, (size_t)p.ds_sh, 1, 0, p.scale,
                             p.qscale};
     switch (D) {
+        case 32: return enc_bwd::launch_fp32<32>(e, p.B, stream);
         case 64: return enc_bwd::launch_fp32<64>(e, p.B, stream);
         case 96: return enc_bwd::launch_fp32<96>(e, p.B, stream);
         case 128: return enc_bwd::launch_fp32<128>(e, p.B, stream);
@@ -820,6 +821,7 @@ int doc_attn_bwd(const void* q, const void* k, const void* v, const void* dout,
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0) return (int)launch_fp32(D, p, st);
     switch (D) {
+        case 32: return (int)hop::launch<32>(p, st);
         case 64: return (int)hop::launch<64>(p, st);
         case 96: return (int)hop::launch<96>(p, st);
         case 128: return (int)hop::launch<128>(p, st);

@@ -442,6 +442,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, Params p, cudaSt
 
 cudaError_t launch_fp32(int D, const enc_fwd::Params& p, int B, cudaStream_t stream) {
     switch (D) {
+        case 32: return enc_fwd::launch<float, 32>(p, B, stream);
         case 64: return enc_fwd::launch<float, 64>(p, B, stream);
         case 96: return enc_fwd::launch<float, 96>(p, B, stream);
         case 128: return enc_fwd::launch<float, 128>(p, B, stream);
@@ -452,6 +453,7 @@ cudaError_t launch_fp32(int D, const enc_fwd::Params& p, int B, cudaStream_t str
 cudaError_t launch_bf16(int D, const void* q, const void* k, const void* v,
                         const hop::Params& p, cudaStream_t stream) {
     switch (D) {
+        case 32: return hop::launch<32>(q, k, v, p, stream);
         case 64: return hop::launch<64>(q, k, v, p, stream);
         case 96: return hop::launch<96>(q, k, v, p, stream);
         case 128: return hop::launch<128>(q, k, v, p, stream);

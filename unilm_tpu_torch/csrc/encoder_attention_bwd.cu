@@ -41,8 +41,8 @@
 //    as bf16 and read once:
 //    1. `enc_bwd_stats_sm90`, a persistent grid (a block per SM) over the
 //       items of 128 q rows of one (batch, head): Q and dO per item (two
-//       buffers at D = 64, so the next item's load overlaps this one),
-//       K/V tiles (128 keys at D = 64, else 64) and the bias tiles
+//       buffers at D = 32 and 64, so the next item's load overlaps this
+//       one), K/V tiles (128 keys at D = 32 and 64, else 64) and the bias tiles
 //       streamed through a ring that runs on across items; S = Q K^T and dP = dO V^T,
 //       s = qscale S + log2(e) bias, each row's online max m,
 //       l = sum 2^(s - m) and u = sum 2^(s - m) dp; the statistics m,
@@ -61,7 +61,7 @@
 //       written in the block's own rows of the global plane, also in item
 //       order. (Added inside the element loop, the tile's stores stalled
 //       every later shared load of the loop: a third of the launch.)
-//    3. `enc_bwd_dq_sm90`, a persistent grid (two blocks an SM at D = 64)
+//    3. `enc_bwd_dq_sm90`, a persistent grid (two blocks an SM at D <= 64)
 //       over the 128-row items: dq = scale dS K over the bf16 ds plane,
 //       64-key K and ds tiles streamed through one ring across items.
 //    4. `enc_bwd_dbias_sum_kernel`, only when more than one batch group
@@ -161,8 +161,8 @@ __device__ __forceinline__ size_t ds_base(const Params& p, int b, int h) {
 // items, in grid-stride order, so that neighbouring blocks share their
 // (batch, head)'s K and V through L2. A block has two consumer warpgroups
 // of 64 rows. The producer warpgroup TMA-loads each item's Q and dO (two
-// buffers at D = 64: the next item's arrive while this one is computed)
-// and streams K/V tiles (128 keys at D = 64, else 64) and the matching
+// buffers at D <= 64: the next item's arrive while this one is computed)
+// and streams K/V tiles (128 keys at D <= 64, else 64) and the matching
 // bias tiles through a ring that runs on across items; per tile the consumers take
 // S = Q K^T and dP = dO V^T (SS wgmma), form s = qscale S + log2(e) bias
 // and update the rows' online max m, sum l = sum 2^(s - m) and
@@ -172,9 +172,9 @@ __device__ __forceinline__ size_t ds_base(const Params& p, int b, int h) {
 template <int D> struct StatGeo : sm90::Cols<D> {
     static constexpr int NCW = 2;
     static constexpr int BQ = ROWS * NCW;          // q rows per item
-    static constexpr int BK = D == 64 ? 128 : 64;  // keys per tile (64 at D = 96, 128: registers)
+    static constexpr int BK = D <= 64 ? 128 : 64;  // keys per tile (64 at D = 96, 128: registers)
     static constexpr int THREADS = 128 * (1 + NCW);
-    static constexpr int NQB = D == 64 ? 2 : 1;    // Q/dO buffers
+    static constexpr int NQB = D <= 64 ? 2 : 1;    // Q/dO buffers
     static constexpr int NST = BK == 128 ? 2 : D == 128 ? 3 : 4;  // stages of the ring
     static constexpr int Q_BYTES = BQ * D * 2;     // Q, then dO
     static constexpr int KV_BYTES = BK * D * 2;    // one K or one V tile
@@ -427,11 +427,11 @@ enc_bwd_stats_sm90(const __grid_constant__ CUtensorMap tq,
 // by its first item and read, added and written by the next ones.
 
 template <int D> struct DkvGeo : sm90::Cols<D> {
-    static constexpr int NCW = D == 64 ? 2 : 1;    // consumer warpgroups of 64 keys
+    static constexpr int NCW = D <= 64 ? 2 : 1;    // consumer warpgroups of 64 keys
     static constexpr int BKB = ROWS * NCW;          // keys per block
     static constexpr int BQ = 64;                   // q rows per tile
     static constexpr int THREADS = 128 * (1 + NCW);
-    static constexpr int NST = D == 64 ? 2 : 3;     // stages of the ring
+    static constexpr int NST = D <= 64 ? 2 : 3;     // stages of the ring
     static constexpr int KV_BYTES = BKB * D * 2;    // K, then V
     static constexpr int Q_BYTES = BQ * D * 2;      // one q or dO tile
     static constexpr int B_BYTES = BQ * Plane<BKB>::BYTES_PER_ROW;  // a bias tile
@@ -746,7 +746,7 @@ enc_bwd_dkv_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 
 // ---- launch 3: dq = scale ds k --------------------------------------------------
 //
-// A persistent grid (two blocks an SM at D = 64, one at 96 and 128) over
+// A persistent grid (two blocks an SM at D = 32 and 64, one at 96 and 128) over
 // the (128 q rows, batch, head) items in grid-stride order: two consumer
 // warpgroups of 64 rows; the producer warpgroup streams 64-key K tiles
 // (TMA) and the matching [128, 64] ds tiles (cp.async) through a ring that
@@ -758,7 +758,7 @@ template <int D> struct DqGeo : sm90::Cols<D> {
     static constexpr int BQ = ROWS * NCW;
     static constexpr int BK = ROWS;                // keys per tile (128 spilled)
     static constexpr int THREADS = 128 * (1 + NCW);
-    static constexpr int PER_SM = D == 64 ? 2 : 1;  // blocks an SM (89 registers a thread at one)
+    static constexpr int PER_SM = D <= 64 ? 2 : 1;  // blocks an SM (89 registers a thread at one)
     static constexpr int NST = 4;
     static constexpr int KV_BYTES = BK * D * 2;
     static constexpr int S_BYTES = BQ * Plane<BK>::BYTES_PER_ROW;  // a ds tile
@@ -928,6 +928,7 @@ cudaError_t dispatch_d(int D, int dtype, const enc_bwd::Params& e, bf16* ds, int
                        cudaStream_t st) {
     if (dtype == 0) {
         switch (D) {
+            case 32: return enc_bwd::launch_fp32<32>(e, groups, st);
             case 64: return enc_bwd::launch_fp32<64>(e, groups, st);
             case 96: return enc_bwd::launch_fp32<96>(e, groups, st);
             case 128: return enc_bwd::launch_fp32<128>(e, groups, st);
@@ -948,6 +949,7 @@ cudaError_t dispatch_d(int D, int dtype, const enc_bwd::Params& e, bf16* ds, int
                         e.head_sum,                       0,
                         e.scale,                          e.qscale};
     switch (D) {
+        case 32: return hop::launch<32>(p, groups, st);
         case 64: return hop::launch<64>(p, groups, st);
         case 96: return hop::launch<96>(p, groups, st);
         case 128: return hop::launch<128>(p, groups, st);

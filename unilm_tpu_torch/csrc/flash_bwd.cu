@@ -75,7 +75,7 @@
 //   into 64 bits, as #1's does. Key tiles of 64, not #1's 128: S, dP and
 //   dq are live together, and 128-key tiles (m64n128 SS products)
 //   spilled at D = 128 and gained little at D = 64;
-// - dk/dv: a block takes 128 keys of one (batch, head) at D = 64 (two
+// - dk/dv: a block takes 128 keys of one (batch, head) at D = 32 and 64 (two
 //   consumers of 64 keys), 64 keys at D = 96 and 128 (one consumer in a
 //   256-thread block: dk and dv alone take D fp32 a thread). K and V stay
 //   resident, Q/dO tiles of 64 rows stream; the producer warp writes the
@@ -681,7 +681,7 @@ flash_bwd_dq_sm90(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 // ---- #7: dk, dv ----------------------------------------------------------------
 
 template <int D> struct DkvGeo : sm90::Cols<D> {
-    static constexpr int NCW = D == 64 ? 2 : 1;    // consumer warpgroups of 64 keys
+    static constexpr int NCW = D <= 64 ? 2 : 1;    // consumer warpgroups of 64 keys
     static constexpr int BKB = ROWS * NCW;          // keys per block
     static constexpr int BQ = 64;                   // q rows per tile
     static constexpr int THREADS = 128 * (1 + NCW);
@@ -971,12 +971,14 @@ cudaError_t dispatch(int D, int dtype, const Params& p, cudaStream_t st) {
     if (dtype == 0 && p.delta_mode == DELTA_ONLY) return cudaErrorInvalidValue;
     if (dtype == 0) {  // fp32 (the caller's delta): the CUDA-core bodies
         switch (D) {
+            case 32: return DQ ? launch_dq<float, 32>(p, st) : launch_dkv<float, 32>(p, st);
             case 64: return DQ ? launch_dq<float, 64>(p, st) : launch_dkv<float, 64>(p, st);
             case 96: return DQ ? launch_dq<float, 96>(p, st) : launch_dkv<float, 96>(p, st);
             case 128: return DQ ? launch_dq<float, 128>(p, st) : launch_dkv<float, 128>(p, st);
         }
     } else if (dtype == 1) {  // bf16: the Hopper kernels
         switch (D) {
+            case 32: return DQ ? hop::launch_dq<32>(p, st) : hop::launch_dkv<32>(p, st);
             case 64: return DQ ? hop::launch_dq<64>(p, st) : hop::launch_dkv<64>(p, st);
             case 96: return DQ ? hop::launch_dq<96>(p, st) : hop::launch_dkv<96>(p, st);
             case 128: return DQ ? hop::launch_dq<128>(p, st) : hop::launch_dkv<128>(p, st);

@@ -46,7 +46,7 @@
 // ms at 3.35 TB/s: bound by the tensor cores.
 //  - bf16 (namespace hop, `flash_bwd_fused_sm90`): #7's dk/dv block
 //    (csrc/flash_bwd.cu `flash_bwd_dkv_sm90`) with the fifth product. A
-//    block takes 128 keys at D = 64 (two consumer warpgroups of 64 keys,
+//    block takes 128 keys at D = 32 and 64 (two consumer warpgroups of 64 keys,
 //    setmaxnreg 232), 64 keys and one consumer at D = 96 and 128; K and V
 //    stay resident. Producer warp 0 streams 64-row Q/dO tiles by a TMA
 //    ring with each tile's lse and delta by 4-byte cp.async (the walk of
@@ -91,12 +91,12 @@ using sm90::afrag;
 
 // the geometry `fused_bwd_plan` mirrors
 template <int D> struct FusedGeo : sm90::Cols<D> {
-    static constexpr int NCW = D == 64 ? 2 : 1;    // consumer warpgroups of 64 keys
+    static constexpr int NCW = D <= 64 ? 2 : 1;    // consumer warpgroups of 64 keys
     static constexpr int BKB = ROWS * NCW;          // keys per block
     static constexpr int BQ = ROWS;                 // q rows per step
     static constexpr int THREADS = 128 * (1 + NCW);
     static constexpr int NST = D == 128 ? 3 : 4;    // stages of the Q/dO ring
-    static constexpr int NDQ = D == 64 ? 4 : 2;     // dq tile buffers
+    static constexpr int NDQ = D <= 64 ? 4 : 2;     // dq tile buffers
     static constexpr int NWR = 2;                   // writer warps (producer warps 1, 2)
     static constexpr int KV_BYTES = BKB * D * 2;    // K, then V: a [64, D] tile per consumer
     static constexpr int Q_BYTES = BQ * D * 2;      // one Q or one dO tile
@@ -559,6 +559,7 @@ int flash_bwd_fused(const void* q, const void* k, const void* v, const void* dou
              static_cast<int*>(turns)};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     switch (D) {
+        case 32: return (int)launch<32>(dtype, p, dq, dq_acc, st);
         case 64: return (int)launch<64>(dtype, p, dq, dq_acc, st);
         case 96: return (int)launch<96>(dtype, p, dq, dq_acc, st);
         case 128: return (int)launch<128>(dtype, p, dq, dq_acc, st);

@@ -421,6 +421,19 @@ typedef cudaError_t (*Launcher)(const void*, const void*, const void*, const voi
                                 void*, float*, int, int, int, int, int, int, int, int, int, int,
                                 cudaStream_t);
 
+// each admitted head dim to its own instantiation; null for any other
+// D or dtype
+inline Launcher launcher(int D, int dtype) {
+    if (dtype != 0 && dtype != 1) return nullptr;
+    switch (D) {
+        case 32: return dtype == 0 ? &launch_fp32<32> : &hop::launch<32>;
+        case 64: return dtype == 0 ? &launch_fp32<64> : &hop::launch<64>;
+        case 96: return dtype == 0 ? &launch_fp32<96> : &hop::launch<96>;
+        case 128: return dtype == 0 ? &launch_fp32<128> : &hop::launch<128>;
+        default: return nullptr;
+    }
+}
+
 }  // namespace
 
 extern "C" {
@@ -438,12 +451,7 @@ int flash_fwd(const void* q, const void* k, const void* v, const void* bias,
         if (err == cudaSuccess) err = cudaMemsetAsync(lse, 0, (size_t)B * H * T_ * 4, st);
         return (int)err;
     }
-    Launcher fn = nullptr;
-    if (dtype == 0)
-        fn = D == 64 ? &launch_fp32<64> : D == 96 ? &launch_fp32<96> : &launch_fp32<128>;
-    else if (dtype == 1)
-        fn = D == 64 ? &hop::launch<64> : D == 96 ? &hop::launch<96> : &hop::launch<128>;
-    if (D != 64 && D != 96 && D != 128) fn = nullptr;
+    const Launcher fn = launcher(D, dtype);
     if (!fn) return (int)cudaErrorInvalidValue;
     return (int)fn(q, k, v, bias, static_cast<const int*>(mask), out, static_cast<float*>(lse),
                    B, T_, S, H, bias_sb, bias_sh, q_offset, limit, causal, window, st);

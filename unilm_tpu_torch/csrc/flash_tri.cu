@@ -407,7 +407,7 @@ struct Fp32Params {
 };
 
 template <int D>
-__global__ void __launch_bounds__(fwd::NWARPS * 32) flash_tri_fp32_kernel(const Fp32Params p) {
+__device__ __forceinline__ void tri_fp32_body(const Fp32Params& p) {
     const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
     const int far = p.nq - 1 - c;
     // one inlined body for both tiles (two spilled at D = 96 and 128)
@@ -421,6 +421,19 @@ __global__ void __launch_bounds__(fwd::NWARPS * 32) flash_tri_fp32_kernel(const 
 }
 
 template <int D>
+__global__ void __launch_bounds__(fwd::NWARPS * 32) flash_tri_fp32_kernel(const Fp32Params p) {
+    tri_fp32_body<D>(p);
+}
+
+// D = 32 alone takes a block count: without it ptxas held the body to 168
+// registers and spilled 8 bytes
+template <int D>
+__global__ void __launch_bounds__(fwd::NWARPS * 32, 1) flash_tri_fp32_one_block_kernel(
+    const Fp32Params p) {
+    tri_fp32_body<D>(p);
+}
+
+template <int D>
 cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void* bias,
                         const int* mask, void* out, float* lse, int B, int T_, int H,
                         int bias_sb, int bias_sh, cudaStream_t stream) {
@@ -429,7 +442,11 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void*
                        static_cast<float*>(out), lse, T_, H, bias_sb, bias_sh,
                        (T_ + fwd::BQ - 1) / fwd::BQ};
     const size_t smem = fwd::smem_bytes<D>();
-    auto kern = flash_tri_fp32_kernel<D>;
+    void (*kern)(const Fp32Params);
+    if constexpr (D == 32)
+        kern = flash_tri_fp32_one_block_kernel<D>;
+    else
+        kern = flash_tri_fp32_kernel<D>;
     cudaError_t err =
         cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
@@ -439,6 +456,19 @@ cudaError_t launch_fp32(const void* q, const void* k, const void* v, const void*
 
 typedef cudaError_t (*Launcher)(const void*, const void*, const void*, const void*, const int*,
                                 void*, float*, int, int, int, int, int, cudaStream_t);
+
+// each admitted head dim to its own instantiation; null for any other
+// D or dtype
+inline Launcher launcher(int D, int dtype) {
+    if (dtype != 0 && dtype != 1) return nullptr;
+    switch (D) {
+        case 32: return dtype == 0 ? &launch_fp32<32> : &hop::launch<32>;
+        case 64: return dtype == 0 ? &launch_fp32<64> : &hop::launch<64>;
+        case 96: return dtype == 0 ? &launch_fp32<96> : &hop::launch<96>;
+        case 128: return dtype == 0 ? &launch_fp32<128> : &hop::launch<128>;
+        default: return nullptr;
+    }
+}
 
 }  // namespace
 
@@ -451,12 +481,7 @@ int flash_tri_fwd(const void* q, const void* k, const void* v, const void* bias,
                   const void* mask, void* out, void* lse, int B, int T_, int H, int D,
                   int bias_sb, int bias_sh, int dtype, void* stream) {
     if (B <= 0 || T_ <= 0 || H <= 0) return (int)cudaSuccess;
-    Launcher fn = nullptr;
-    if (dtype == 0)
-        fn = D == 64 ? &launch_fp32<64> : D == 96 ? &launch_fp32<96> : &launch_fp32<128>;
-    else if (dtype == 1)
-        fn = D == 64 ? &hop::launch<64> : D == 96 ? &hop::launch<96> : &hop::launch<128>;
-    if (D != 64 && D != 96 && D != 128) fn = nullptr;
+    const Launcher fn = launcher(D, dtype);
     if (!fn) return (int)cudaErrorInvalidValue;
     return (int)fn(q, k, v, bias, static_cast<const int*>(mask), out, static_cast<float*>(lse),
                    B, T_, H, bias_sb, bias_sh, static_cast<cudaStream_t>(stream));

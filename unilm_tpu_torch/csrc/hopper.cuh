@@ -229,9 +229,10 @@ __device__ __forceinline__ uint64_t make_desc(uint32_t saddr, uint32_t lbo, uint
 // A [rows, D] bf16 tile in shared memory as NC boxes of CW columns, box c
 // holding [rows, CB bytes] at c * rows * CB, with the swizzle whose span is
 // CB: 128-byte swizzle at D = 64 and 128; D = 96 takes three 32-column
-// boxes with the 64-byte swizzle (192-byte rows fit no 128-byte atom).
+// boxes with the 64-byte swizzle (192-byte rows fit no 128-byte atom), and
+// D = 32 one such box (a 64-byte row, two k-steps of 16).
 template <int D> struct Cols {
-    static_assert(D == 64 || D == 96 || D == 128, "head dim");
+    static_assert(D == 32 || D == 64 || D == 96 || D == 128, "head dim");
     static constexpr int CW = D % 64 == 0 ? 64 : 32;
     static constexpr int CB = CW * 2;
     static constexpr int NC = D / CW;
@@ -401,10 +402,27 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// D[64 x 32] += A[64 x 16] B[16 x 32], A in registers (bf16 pairs), B MN-major in shared memory
+__device__ __forceinline__ void wgmma_rs_n32(float* d, const uint32_t* a, uint64_t db) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // D[64 x N] += A[64 x 16] B[16 x N] for N = a head dim, A in registers
 // (bf16 pairs), B MN-major in shared memory
 template <int N> __device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a, uint64_t db) {
-    if constexpr (N == 64)
+    static_assert(N == 32 || N == 64 || N == 96 || N == 128, "head dim");
+    if constexpr (N == 32)
+        wgmma_rs_n32(d, a, db);
+    else if constexpr (N == 64)
         wgmma_rs_n64(d, a, db);
     else if constexpr (N == 96)
         wgmma_rs_n96(d, a, db);
@@ -415,6 +433,19 @@ template <int N> __device__ __forceinline__ void wgmma_rs(float* d, const uint32
 // D[64 x N] (+)= A[64 x 16] B[16 x N], A and B both MN-major in shared
 // memory (the transpose bits): A stored as 16 rows of its 64 M values, B as
 // 16 rows of its N values
+__device__ __forceinline__ void wgmma_ss_tt_n32(float* d, uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7,"
+        "%8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(accumulate));
+}
+
 __device__ __forceinline__ void wgmma_ss_tt_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\n"
@@ -481,7 +512,10 @@ __device__ __forceinline__ void wgmma_ss_tt_n128(float* d, uint64_t da, uint64_t
 // the same for N = a head dim
 template <int N>
 __device__ __forceinline__ void wgmma_ss_tt(float* d, uint64_t da, uint64_t db, int accumulate) {
-    if constexpr (N == 64)
+    static_assert(N == 32 || N == 64 || N == 96 || N == 128, "head dim");
+    if constexpr (N == 32)
+        wgmma_ss_tt_n32(d, da, db, accumulate);
+    else if constexpr (N == 64)
         wgmma_ss_tt_n64(d, da, db, accumulate);
     else if constexpr (N == 96)
         wgmma_ss_tt_n96(d, da, db, accumulate);

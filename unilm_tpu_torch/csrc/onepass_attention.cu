@@ -39,9 +39,9 @@
 //    rows of one (batch, head): a producer warpgroup (setmaxnreg 40) and
 //    two consumer warpgroups of 64 rows (232), the role taken through
 //    __shfl_sync. One producer thread loads the block's q and the visible
-//    K/V of its rows, chunks of 128 keys (64 at D = 96 and 128, where 128
-//    scores a thread beside O spilled) by TMA (4-D maps, rows past S read
-//    as zeros) into 3 stages (4 at D = 96, 128): up to 384 keys (256)
+//    K/V of its rows, chunks of 128 keys at D = 32 and 64 (64 at D = 96
+//    and 128, where 128 scores a thread beside O spilled) by TMA (4-D
+//    maps, rows past S read as zeros) into 3 stages (4 at D = 96, 128): up to 384 keys (256)
 //    arrive in one wave, so a short row is staged once and never waits on
 //    a ring; longer rows stream through the same stages. Causal, window
 //    and `limit` cut the staged chunks to the block's visible range and
@@ -280,6 +280,7 @@ cudaError_t launch(const Params& p, int B, cudaStream_t stream) {
 template <typename T>
 cudaError_t dispatch_d(int D, const Params& p, int B, cudaStream_t stream) {
     switch (D) {
+        case 32: return launch<T, 32>(p, B, stream);
         case 64: return launch<T, 64>(p, B, stream);
         case 96: return launch<T, 96>(p, B, stream);
         case 128: return launch<T, 128>(p, B, stream);
@@ -313,9 +314,9 @@ constexpr int PRODUCER_REGS = 40, CONSUMER_REGS = 232;
 template <int D> struct Geo : sm90::Cols<D> {     // CW, CB, NC, SWZ: the TMA boxes
     // keys per staged K/V chunk (the QK^T product's N): 64 at D = 96 and
     // 128, where 64 x 128 scores beside O spilled
-    static constexpr int BK = D == 64 ? 128 : 64;
+    static constexpr int BK = D <= 64 ? 128 : 64;
     static constexpr int NW = BK / 32;                 // mask words per chunk
-    static constexpr int NST = D == 64 ? 3 : 4;        // K/V chunks in flight
+    static constexpr int NST = D <= 64 ? 3 : 4;        // K/V chunks in flight
     static constexpr int Q_BYTES = BQ * D * 2;
     static constexpr int KV_BYTES = BK * D * 2;        // one K or one V chunk
     static constexpr int OFF_K = Q_BYTES;              // stage s: K, then V
@@ -847,6 +848,7 @@ int onepass_attn_fwd(const void* q, const void* k, const void* v, const void* bi
                    limit,                          causal,
                    window};
     switch (D) {
+        case 32: return (int)launch_bf16<32>(p, B, st);
         case 64: return (int)launch_bf16<64>(p, B, st);
         case 96: return (int)launch_bf16<96>(p, B, st);
         case 128: return (int)launch_bf16<128>(p, B, st);

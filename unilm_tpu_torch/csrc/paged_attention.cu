@@ -298,6 +298,7 @@ cudaError_t launch(const DecodeArgs& a, const Plan& pl, const Work& wk, int D,
         (long long)pl.xs * pl.floor < (long long)a.max_pages * a.page)
         return cudaErrorInvalidValue;
     switch (D) {
+        case 32: return launch_d<32>(a, pl, wk, stream);
         case 64: return launch_d<64>(a, pl, wk, stream);
         case 96: return launch_d<96>(a, pl, wk, stream);
         case 128: return launch_d<128>(a, pl, wk, stream);

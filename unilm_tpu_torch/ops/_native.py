@@ -81,13 +81,16 @@ class CudaKernel:
 
     `launches` is a plain integer: `launch` adds one each time the kernel
     was launched without error, and nothing else touches it except a
-    caller resetting it. Two CudaKernel objects may name the same source
-    (one counter for each launcher); they share its library."""
+    caller resetting it. An attention launcher's wrapper also names the
+    head dim, and `by_head_dim` counts the same launches by it. Two
+    CudaKernel objects may name the same source (one counter for each
+    launcher); they share its library."""
 
     def __init__(self, source: str, functions: Dict[str, List]):
         self.source = CSRC / source
         self.functions = functions
         self.launches = 0
+        self.by_head_dim: Dict[int, int] = {}
         self._lib: Optional[ctypes.CDLL] = None
 
     def so_path(self, nvcc: Optional[str] = None) -> Path:
@@ -126,7 +129,8 @@ class CudaKernel:
             self._load(self.ensure_built())
         return self._lib
 
-    def launch(self, name: str, *args) -> None:
+    def launch(self, name: str, *args, head_dim: Optional[int] = None
+               ) -> None:
         lib = self.build()
         err = getattr(lib, name)(*args)
         if err != 0:
@@ -134,6 +138,8 @@ class CudaKernel:
             raise RuntimeError(f"{self.source.name}:{name} failed: CUDA "
                                f"error {err} ({msg})")
         self.launches += 1
+        if head_dim is not None:
+            self.by_head_dim[head_dim] = self.by_head_dim.get(head_dim, 0) + 1
 
 
 def build_all(kernels: Iterable[CudaKernel]) -> List[Path]:

@@ -45,7 +45,7 @@ from unilm_tpu_torch.ops._native import (
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 MAX_S = 2048  # the longest kv of the dispatcher's doc branch (ops/attention.py)
-SUPPORTED_D = (64, 96, 128)
+SUPPORTED_D = (32, 64, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 FWD_KERNEL = CudaKernel("doc_attention.cu", {
@@ -62,8 +62,8 @@ BWD_KERNEL = CudaKernel("doc_attention_bwd.cu", {
 
 # The bf16 backward's tiles (csrc/doc_attention_bwd.cu, namespace hop): q
 # tiles of DOC_BWD_ROWS rows (two consumer warpgroups of 64), key tiles of
-# 64, and the dk/dv launch's key blocks (two consumers of 64 keys at D = 64,
-# one at D = 96 and 128) over 64-row q tiles.
+# 64, and the dk/dv launch's key blocks (two consumers of 64 keys at D = 32
+# and 64, one at D = 96 and 128) over 64-row q tiles.
 DOC_BWD_ROWS = 128
 DOC_BWD_TILE = 64
 
@@ -74,14 +74,14 @@ def doc_bwd_tile_plan(T: int, S: int, D: int = 64) -> dict:
     pairs each, in the order the block walks them:
     - "stats": a block per DOC_BWD_ROWS q rows, walking the 64-key tiles
       (the row statistics; the bias read once);
-    - "dkv": a block per key block (128 keys at D = 64, else 64), walking
+    - "dkv": a block per key block (128 keys at D <= 64, else 64), walking
       the 64-row q tiles (ds written, dk and dv);
     - "dq": a block per DOC_BWD_ROWS q rows, walking the 64-key tiles of
       the ds plane (dq).
     Each launch visits every pair once; the ragged tiles at T and S hold
     only the rows and keys that exist."""
     rows, tile = DOC_BWD_ROWS, DOC_BWD_TILE
-    kblock = 2 * tile if D == 64 else tile
+    kblock = 2 * tile if D <= 64 else tile
 
     def walk(n_outer, step_outer, n_inner, step_inner, outer_rows):
         out = []
@@ -318,7 +318,7 @@ def _doc_forward_cuda(q, k, v, bias_t, hmajor, mask, scale):
     out = torch.empty_like(q)
     FWD_KERNEL.launch("doc_attn_fwd", ptr(q), ptr(k), ptr(v), ptr(bias_t),
                       ptr(mask), ptr(out), B, T, S, H, D, sb, sh, float(scale),
-                      _DTYPE_CODE[q.dtype], stream())
+                      _DTYPE_CODE[q.dtype], stream(), head_dim=D)
     return out
 
 
@@ -341,7 +341,8 @@ def _doc_backward_cuda(q, k, v, bias_t, hmajor, mask, do, scale):
     BWD_KERNEL.launch(
         "doc_attn_bwd", ptr(q), ptr(k), ptr(v), ptr(do), ptr(bias_t),
         ptr(mask), ptr(dq), ptr(dk), ptr(dv), ptr(ds), ptr(stats), B, T, S, H,
-        D, sb, sh, ds_sb, ds_sh, float(scale), _DTYPE_CODE[q.dtype], stream())
+        D, sb, sh, ds_sb, ds_sh, float(scale), _DTYPE_CODE[q.dtype], stream(),
+        head_dim=D)
     return dq, dk, dv, ds
 
 

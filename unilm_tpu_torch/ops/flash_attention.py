@@ -78,7 +78,7 @@ from unilm_tpu_torch.ops._native import (
     F, I, P, CudaKernel, check_tensor, ptr, stream)
 
 NEG_INF = -1e30
-SUPPORTED_D = (64, 96, 128)
+SUPPORTED_D = (32, 64, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 KERNEL = CudaKernel("flash_fwd.cu", {
@@ -303,7 +303,7 @@ def _flash_forward_cuda(q, k, v, bias, mask, q_offset, kv_len, causal,
     KERNEL.launch(
         "flash_fwd", ptr(q), ptr(k), ptr(v), ptr(bias), ptr(mask), ptr(out),
         ptr(lse), B, T, S, H, D, sb, sh, int(q_offset), limit, int(causal),
-        int(window), _DTYPE_CODE[q.dtype], stream())
+        int(window), _DTYPE_CODE[q.dtype], stream(), head_dim=D)
     return out, lse
 
 
@@ -328,14 +328,14 @@ def flash_forward(q, k, v, bias=None, mask=None, q_offset: int = 0,
 # #5's bf16 plan (csrc/onepass_attention.cu): the walk takes T <= 16 (a
 # block of 8 warps per (batch, head), 32-key tiles a lane per key); longer
 # q takes the wgmma rows (a block per 128 q rows, consumers of 64 rows,
-# K/V chunks of 128 keys at D = 64 and 64 at D = 96 and 128)
+# K/V chunks of 128 keys at D = 32 and 64, and 64 at D = 96 and 128)
 ONEPASS_WALK_MAX_T, ONEPASS_WALK_WARPS, ONEPASS_WALK_TILE = 16, 8, 32
 ONEPASS_ROWS, ONEPASS_CONSUMER_ROWS = 128, 64
 
 
 def onepass_chunk(D: int) -> int:
     """Keys per K/V chunk of #5's wgmma rows (`Geo<D>::BK`)."""
-    return 128 if D == 64 else 64
+    return 128 if D <= 64 else 64
 
 
 def onepass_tile_plan(T: int, S: int, q_offset: int, limit: int,
@@ -425,7 +425,7 @@ def _flash_forward_onepass_cuda(q, k, v, bias, mask, q_offset, kv_len,
     ONEPASS_KERNEL.launch(
         "onepass_attn_fwd", ptr(q), ptr(k), ptr(v), ptr(bias), ptr(mask),
         ptr(out), ptr(lse), B, T, S, H, D, sb, sh, int(q_offset), limit,
-        int(causal), int(window), _DTYPE_CODE[q.dtype], stream())
+        int(causal), int(window), _DTYPE_CODE[q.dtype], stream(), head_dim=D)
     return out, lse
 
 
@@ -498,7 +498,7 @@ def _flash_forward_tri_cuda(q, k, v, bias, mask):
     lse = torch.empty((B, H, T), dtype=torch.float32, device=dev)
     TRI_KERNEL.launch("flash_tri_fwd", ptr(q), ptr(k), ptr(v), ptr(bias),
                       ptr(mask), ptr(out), ptr(lse), B, T, H, D, sb, sh,
-                      _DTYPE_CODE[q.dtype], stream())
+                      _DTYPE_CODE[q.dtype], stream(), head_dim=D)
     return out, lse
 
 
@@ -681,9 +681,9 @@ def _flash_backward_cuda(q, k, v, bias, mask, q_offset, limit, out, lse, do,
     geom = (B, T, S, H, D, sb, sh, int(q_offset), limit, int(causal),
             int(window))
     BWD_KERNEL_DQ.launch("flash_bwd_dq", *common, ptr(dq), ptr(dbias), *geom,
-                         acc_b, mode, code, stream())
+                         acc_b, mode, code, stream(), head_dim=D)
     BWD_KERNEL_DKV.launch("flash_bwd_dkv", *common, ptr(dk), ptr(dv), *geom,
-                          code, stream())
+                          code, stream(), head_dim=D)
     return dq, dk, dv, dbias
 
 
@@ -726,7 +726,8 @@ FUSED_BWD_KERNEL = CudaKernel("flash_bwd_fused.cu", {
 })
 # The bf16 kernel's geometry (csrc/flash_bwd_fused.cu `FusedGeo`): 64-row
 # q tiles, one turn counter each (the fp32 body's row tiles are 64 too), and
-# key blocks of 128 keys at D = 64 (two consumer warpgroups), 64 at 96/128.
+# key blocks of 128 keys at D = 32 and 64 (two consumer warpgroups), 64 at
+# 96/128.
 FUSED_BWD_ROWS = 64
 _FUSED_MIN_STEP = FUSED_BWD_ROWS  # the row step of a turn counter
 
@@ -744,7 +745,7 @@ def fused_bwd_plan(T: int, S: int, D: int, causal: bool, window: int,
     waits for: every later key block that sees the tile). "consumers":
     the 64-key warpgroups of a block."""
     rows = FUSED_BWD_ROWS
-    keys = 2 * rows if D == 64 else rows
+    keys = 2 * rows if D <= 64 else rows
     limit = min(limit, S)
     fwd = flash_tile_plan(T, S, q_offset, limit, causal, window, rows, keys)
     bwd = flash_bwd_tile_plan(T, S, q_offset, limit, causal, window, rows,
@@ -806,7 +807,7 @@ def _flash_backward_fused_cuda(q, k, v, mask, q_offset, limit, out, lse, do,
         BWD_KERNEL_DELTA.launch(
             "flash_bwd_delta", ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
             ptr(delta), ptr(mask), B, T, S, H, D, int(q_offset), limit,
-            int(causal), int(window), stream())
+            int(causal), int(window), stream(), head_dim=D)
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     # scratch the launcher zeroes: one turn counter per (batch, head, row
     # step) and, for bf16, the fp32 dq accumulator
@@ -818,7 +819,7 @@ def _flash_backward_fused_cuda(q, k, v, mask, q_offset, limit, out, lse, do,
         "flash_bwd_fused", ptr(q), ptr(k), ptr(v), ptr(do), ptr(lse),
         ptr(delta), ptr(mask), ptr(dq), ptr(dk), ptr(dv), ptr(dq_acc),
         ptr(turns), B, T, S, H, D, int(q_offset), limit, int(causal),
-        int(window), _DTYPE_CODE[q.dtype], stream())
+        int(window), _DTYPE_CODE[q.dtype], stream(), head_dim=D)
     return dq, dk, dv
 
 
@@ -1012,7 +1013,8 @@ def _encoder_attention_cuda(q, k, v, bias, scale):
     out = torch.empty_like(q)
     ENCODER_KERNEL.launch(
         "encoder_attn_fwd", ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out), B, T,
-        S, H, D, sb, sh, float(scale), _DTYPE_CODE[q.dtype], stream())
+        S, H, D, sb, sh, float(scale), _DTYPE_CODE[q.dtype], stream(),
+        head_dim=D)
     return out
 
 
@@ -1039,7 +1041,7 @@ ENCODER_BWD_KERNEL = CudaKernel("encoder_attention_bwd.cu", {
 # #4's bf16 kernels (csrc/encoder_attention_bwd.cu, namespace hop): the
 # statistics and dq launches take items of 128 q rows over key tiles
 # (`_enc_bwd_key_tiles`), the dk/dv launch key blocks of ENC_BWD_ROWS keys
-# per consumer warpgroup (two at D = 64, one at D = 96 and 128) over
+# per consumer warpgroup (two at D = 32 and 64, one at D = 96 and 128) over
 # 64-row q tiles, with a dbias tile of [keys, tp] fp32 in shared memory
 # where it fits.
 ENC_BWD_ROWS, ENC_BWD_QTILE = 64, 128
@@ -1050,14 +1052,14 @@ H100_SMS = 132
 def _enc_bwd_key_tiles(D: int):
     """Keys per tile of #4's statistics and dq launches (`StatGeo<D>::BK`,
     `DqGeo<D>::BK`)."""
-    return (128 if D == 64 else 64), 64
+    return (128 if D <= 64 else 64), 64
 
 
 def _enc_bwd_dkv_smem(D: int) -> int:
     """`DkvGeo<D>::SMEM`: the dk/dv launch's shared memory without the
     dbias tile (K and V; per ring stage q, dO, a bias tile and 3 x 64
     statistics; the barriers; 1024 bytes of alignment slack)."""
-    bkb, nst = (128, 2) if D == 64 else (64, 3)
+    bkb, nst = (128, 2) if D <= 64 else (64, 3)
     bias_row = (bkb // 8 + 1) * 16  # hopper.cuh Plane<bkb>::BYTES_PER_ROW
     stage = 2 * 64 * D * 2 + 64 * bias_row + 3 * 64 * 4
     return 2 * bkb * D * 2 + nst * stage + (2 + 2 * nst) * 8 + 1024
@@ -1086,14 +1088,14 @@ def enc_bwd_plan(B: int, T: int, S: int, H: int, D: int = 64,
     Bb, Hb = (bias_shape[0], bias_shape[1]) if dbias else (B, H)
     head_sum = int(Hb == 1 and H > 1)
     batch_sum = Bb == 1 and B > 1
-    nkb = _cdiv(S, ENC_BWD_ROWS * (2 if D == 64 else 1))
+    nkb = _cdiv(S, ENC_BWD_ROWS * (2 if D <= 64 else 1))
     per_group = nkb * (1 if head_sum else H)
     group = _cdiv(B, min(B, _cdiv(2 * sms, per_group))) if batch_sum else 1
     groups = _cdiv(B, group)
     tp = 0
     if group > 1 or head_sum:
         tp = (_cdiv(T, 2) * 2 + 23) // 32 * 32 + 8
-        bkb = ENC_BWD_ROWS * (2 if D == 64 else 1)
+        bkb = ENC_BWD_ROWS * (2 if D <= 64 else 1)
         if _enc_bwd_dkv_smem(D) + bkb * tp * 4 > _SMEM_MAX:
             tp = 0
     return {"group": group, "head_sum": head_sum, "groups": groups,
@@ -1113,7 +1115,7 @@ def enc_bwd_steps(B: int, T: int, S: int, H: int, D: int, plan: dict) -> dict:
     in grid order, its items batch-major, each over its 64-row q tiles.
     "dbias_plane": per dk/dv block, the (group, head) plane it writes
     (head 0 for a head-summed one)."""
-    bkb = ENC_BWD_ROWS * (2 if D == 64 else 1)
+    bkb = ENC_BWD_ROWS * (2 if D <= 64 else 1)
 
     def rows(kt):
         return [[(b, h, r0, min(r0 + ENC_BWD_QTILE, T), c0, min(c0 + kt, S))
@@ -1195,7 +1197,7 @@ def _encoder_backward_cuda(q, k, v, bias, do, scale, want_dbias):
         "encoder_attn_bwd", ptr(q), ptr(k), ptr(v), ptr(do), ptr(bias),
         ptr(dq), ptr(dk), ptr(dv), ptr(dbias), ptr(partial), ptr(stats),
         ptr(ds), B, T, S, H, D, sb, sh, Hb, plan["group"], plan["head_sum"],
-        float(scale), _DTYPE_CODE[q.dtype], stream())
+        float(scale), _DTYPE_CODE[q.dtype], stream(), head_dim=D)
     return dq, dk, dv, dbias
 
 

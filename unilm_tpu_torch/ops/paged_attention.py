@@ -43,7 +43,7 @@ import torch
 from unilm_tpu_torch.ops._native import (
     I, P, CudaKernel, check_tensor, ptr, sm_count, stream)
 
-SUPPORTED_D = (64, 96, 128)
+SUPPORTED_D = (32, 64, 96, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 KERNEL = CudaKernel("decode_attention.cu", {
@@ -339,7 +339,8 @@ def decode_attention(qs: torch.Tensor, k_pool: torch.Tensor,
             else (0, 0, 0))  # fp32: the CUDA-core body
     KERNEL.launch("decode_attention", ptr(qs), ptr(k_pool), ptr(v_pool),
                   ptr(bases), ptr(lengths), ptr(out), *plan, B, H, D, page,
-                  int(max_pages), Pn, _DTYPE_CODE[qs.dtype], stream())
+                  int(max_pages), Pn, _DTYPE_CODE[qs.dtype], stream(),
+                  head_dim=D)
     return out
 
 
@@ -369,7 +370,7 @@ def decode_attention_int8(qs: torch.Tensor, k_pool: torch.Tensor,
                        ptr(k_new), ptr(v_new), ptr(out),
                        *_split_plan(B, H, D, 1, dev), B, H, D, page,
                        int(chunk), int(max_pages), Pn, _DTYPE_CODE[qs.dtype],
-                       stream())
+                       stream(), head_dim=D)
     return out
 
 
@@ -487,7 +488,7 @@ def paged_decode_append_attention(
     APPEND_KERNEL.launch("paged_append_attention", ptr(qs), ptr(k_pool),
                          ptr(v_pool), ptr(block_tables), ptr(lengths),
                          ptr(kn), ptr(vn), ptr(out), B, H, D, page, MP, Pn,
-                         _DTYPE_CODE[qs.dtype], stream())
+                         _DTYPE_CODE[qs.dtype], stream(), head_dim=D)
     return out[:, None], k_pool, v_pool
 
 
@@ -575,5 +576,5 @@ def paged_decode_attention(
     PAGED_KERNEL.launch("paged_attention", ptr(qs), ptr(kp), ptr(vp),
                         ptr(tables), ptr(lens), ptr(out), ptr(part),
                         ptr(tickets), B, H, D, page, MP, Pn,
-                        _DTYPE_CODE[qs.dtype], *plan, stream())
+                        _DTYPE_CODE[qs.dtype], *plan, stream(), head_dim=D)
     return out[:, None]
